@@ -1,0 +1,4 @@
+from scratchpad_tpu_torch.config.model_config import ModelConfig
+from scratchpad_tpu_torch.config.server_args import ServerArgs
+
+__all__ = ["ModelConfig", "ServerArgs"]

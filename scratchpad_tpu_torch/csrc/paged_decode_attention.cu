@@ -1,0 +1,246 @@
+// Paged GQA decode attention for Hopper (sm_90a), bf16 KV, f32 accumulation.
+//
+// Replaces two TPU kernels of scratchpad_tpu/ops/attention/gqa_decode.py:
+//   _gqa_decode_kernel          (per-sequence flash-decode, chunks of 16 pages)
+//   _gqa_decode_grouped_kernel  (several short sequences per grid step)
+// A TPU core walks its grid in order, so the JAX package needs a second
+// kernel to amortise per-step cost over short sequences. On the GPU the grid
+// of CTAs runs the sequences in parallel, so this one kernel covers both
+// regimes.
+//
+// What it computes, for sequence b and kv head h with G = Hq / Hkv:
+//   out[b, h*G+g, :] = sum_j softmax_j(sm_scale * q[b, h*G+g] . k_j) v_j
+// over the seq_lens[b] cached tokens j of sequence b, found through
+// page_table[b, j / page_size]. Rows with seq_lens[b] == 0 (batch padding)
+// are written as exact zeros.
+//
+// Layout: k_cache / v_cache are one layer of the pool, [pages, page_size,
+// Hkv, D] row-major; slot s = page * page_size + offset is row s.
+//
+// What bounds it: bytes. Every live K and V row is read once, 2 * len * Hkv
+// * D * 2 B per sequence, against 4 * len * Hq * D flops: about G flops per
+// byte, far under the card's ~295 flop/byte ridge. The design therefore
+// aims at loading each K/V element once and keeping many loads in flight:
+//   - grid (B, Hkv): the G query heads of a kv head share one CTA, so a K/V
+//     row is loaded once for all of them;
+//   - 4 warps take tokens round robin, kUnroll tokens at a time, all of
+//     their row loads issued before any arithmetic;
+//   - each lane owns D/32 contiguous elements of a row, so a warp reads one
+//     row as one coalesced 64-256 B access;
+//   - scores reduce with warp shuffles, each warp keeps its own online
+//     softmax state in f32, and the warps merge through shared memory.
+// Not done yet (later work): a split over the KV axis for small B at long
+// context (at B = 1 only Hkv CTAs run), wider vector loads, tensor cores.
+
+#include <cmath>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kUnroll = 4;
+
+template <int EPL>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&x)[EPL]) {
+  if constexpr (EPL == 1) {
+    x[0] = __bfloat162float(p[0]);
+  } else if constexpr (EPL == 2) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+    x[0] = __low2float(v);
+    x[1] = __high2float(v);
+  } else {
+    static_assert(EPL == 4, "head_dim must be 32, 64 or 128");
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+    x[0] = __low2float(a);
+    x[1] = __high2float(a);
+    x[2] = __low2float(b);
+    x[3] = __high2float(b);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <int D, int G>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k_cache,
+                    const __nv_bfloat16* __restrict__ v_cache,
+                    const int* __restrict__ page_table,
+                    const int* __restrict__ seq_lens,
+                    __nv_bfloat16* __restrict__ out, int num_kv_heads,
+                    int max_pages, int page_size, float sm_scale) {
+  constexpr int EPL = D / 32;  // elements of a row per lane
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int hq = num_kv_heads * G;
+  const int len = seq_lens[b];
+  __nv_bfloat16* o = out + ((size_t)b * hq + (size_t)h * G) * D;
+  if (len <= 0) {
+    for (int i = threadIdx.x; i < G * D; i += blockDim.x) o[i] = __float2bfloat16(0.f);
+    return;
+  }
+
+  float qv[G][EPL];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    load_row<EPL>(q + ((size_t)b * hq + (size_t)h * G + g) * D + lane * EPL, qv[g]);
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qv[g][e] *= sm_scale;
+  }
+
+  float m[G], l[G], acc[G][EPL];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+  }
+
+  const int* pt = page_table + (size_t)b * max_pages;
+  const size_t row_stride = (size_t)num_kv_heads * D;
+  const size_t head_off = (size_t)h * D + lane * EPL;
+
+  for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
+    float kx[kUnroll][EPL], vx[kUnroll][EPL];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = t0 + u;
+      if (t < len) {
+        const size_t row = (size_t)pt[t / page_size] * page_size + t % page_size;
+        load_row<EPL>(k_cache + row * row_stride + head_off, kx[u]);
+        load_row<EPL>(v_cache + row * row_stride + head_off, vx[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (t0 + u < len) {  // uniform across the warp
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float s = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) s += qv[g][e] * kx[u][e];
+          s = warp_sum(s);
+          const float m_new = fmaxf(m[g], s);
+          const float alpha = __expf(m[g] - m_new);
+          const float p = __expf(s - m_new);
+          l[g] = l[g] * alpha + p;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * alpha + p * vx[u][e];
+          m[g] = m_new;
+        }
+      }
+    }
+  }
+
+  // merge the warps' partial softmax states
+  __shared__ float sm_m[kWarps][G];
+  __shared__ float sm_l[kWarps][G];
+  __shared__ float sm_acc[kWarps][G][D];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
+    if (lane == 0) {
+      sm_m[warp][g] = m[g];
+      sm_l[warp][g] = l[g];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D;
+    const int d = i % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float sc = __expf(sm_m[w][g] - mx);  // 0 for a warp that saw no token
+      den += sm_l[w][g] * sc;
+      num += sm_acc[w][g][d] * sc;
+    }
+    o[i] = __float2bfloat16(num / den);
+  }
+}
+
+template <int D>
+cudaError_t launch_for_d(int G, dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
+                         const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
+                         const int* lens, __nv_bfloat16* out, int hkv, int max_pages,
+                         int page_size, float sm_scale) {
+  const dim3 block(kWarps * 32);
+#define SPT_DECODE_CASE(GG)                                                          \
+  case GG:                                                                           \
+    paged_decode_kernel<D, GG><<<grid, block, 0, st>>>(q, k, v, pt, lens, out, hkv,  \
+                                                       max_pages, page_size,         \
+                                                       sm_scale);                    \
+    break;
+  switch (G) {
+    SPT_DECODE_CASE(1)
+    SPT_DECODE_CASE(2)
+    SPT_DECODE_CASE(3)
+    SPT_DECODE_CASE(4)
+    SPT_DECODE_CASE(5)
+    SPT_DECODE_CASE(6)
+    SPT_DECODE_CASE(7)
+    SPT_DECODE_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef SPT_DECODE_CASE
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B, Hq, D] bf16; k_cache, v_cache [pages, page_size, Hkv, D] bf16;
+// page_table i32 [B, max_pages]; seq_lens i32 [B]; out [B, Hq, D] bf16.
+// Returns a cudaError_t (0 = launched).
+extern "C" int paged_decode_attention(const void* q, const void* k_cache,
+                                      const void* v_cache, const void* page_table,
+                                      const void* seq_lens, void* out, int batch,
+                                      int num_q_heads, int num_kv_heads, int head_dim,
+                                      int max_pages, int page_size, float sm_scale,
+                                      void* stream) {
+  if (batch == 0) return 0;
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
+  const int G = num_q_heads / num_kv_heads;
+  const dim3 grid(batch, num_kv_heads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k_cache);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v_cache);
+  const auto* ptp = static_cast<const int*>(page_table);
+  const auto* lp = static_cast<const int*>(seq_lens);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = launch_for_d<32>(G, grid, st, qp, kp, vp, ptp, lp, op, num_kv_heads, max_pages,
+                             page_size, sm_scale);
+      break;
+    case 64:
+      err = launch_for_d<64>(G, grid, st, qp, kp, vp, ptp, lp, op, num_kv_heads, max_pages,
+                             page_size, sm_scale);
+      break;
+    case 128:
+      err = launch_for_d<128>(G, grid, st, qp, kp, vp, ptp, lp, op, num_kv_heads, max_pages,
+                              page_size, sm_scale);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

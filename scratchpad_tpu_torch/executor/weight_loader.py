@@ -1,0 +1,107 @@
+"""Weights for the port: HF checkpoints and the JAX package's parameters.
+
+Counterpart of ``scratchpad_tpu/executor/weight_loader.py``. Besides reading
+a local HF checkpoint, ``params_from_jax`` turns the JAX package's parameter
+pytree — handed over as numpy arrays, so the port never imports JAX — into
+the port's ``state_dict``; the parity tests build both sides from one state
+this way.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+from scratchpad_tpu_torch.config.model_config import ModelConfig
+from scratchpad_tpu_torch.utils import get_logger
+
+logger = get_logger("weight_loader")
+
+# JAX stacked-layer key -> (port module attribute, is an [in, out] matrix)
+_JAX_LAYER_KEYS = {
+    "wq": ("wq.weight", True),
+    "wk": ("wk.weight", True),
+    "wv": ("wv.weight", True),
+    "wo": ("wo.weight", True),
+    "gate": ("gate.weight", True),
+    "up": ("up.weight", True),
+    "down": ("down.weight", True),
+    "bq": ("wq.bias", False),
+    "bk": ("wk.bias", False),
+    "bv": ("wv.bias", False),
+    "input_norm": ("input_norm", False),
+    "post_norm": ("post_norm", False),
+}
+
+
+def load_hf_state(model_path: str) -> dict[str, torch.Tensor]:
+    """Load a flat HF state dict (name -> tensor) from safetensors files."""
+    from safetensors.torch import load_file
+
+    files = sorted(glob.glob(os.path.join(model_path, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no *.safetensors under {model_path}")
+    index_path = os.path.join(model_path, "model.safetensors.index.json")
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            index = json.load(f)
+        files = sorted(
+            {os.path.join(model_path, v) for v in index["weight_map"].values()}
+        )
+    state: dict[str, torch.Tensor] = {}
+    for fp in files:
+        state.update(load_file(fp))
+    logger.info("loaded %d tensors from %d files", len(state), len(files))
+    return state
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes arrays; numpy has no bf16
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def params_from_jax(
+    params_np: dict[str, Any], cfg: ModelConfig, transposed: bool = False
+) -> dict[str, torch.Tensor]:
+    """The JAX ``LlamaForCausalLM`` pytree (numpy leaves) as the port's
+    ``state_dict``.
+
+    JAX stores decoder matrices ``[L, in, out]``, or ``[L, out, in]`` when
+    its runner transposed the stacks (``model.weights_transposed``, pass it
+    as ``transposed``); square matrices make the two indistinguishable by
+    shape, so the orientation is an argument and the shapes are checked."""
+    H, D = cfg.hidden_size, cfg.head_dim
+    Hq, Hkv, I = cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size
+    out_in = {  # nn.Linear orientation [out, in]
+        "wq": (Hq * D, H), "wk": (Hkv * D, H), "wv": (Hkv * D, H),
+        "wo": (H, Hq * D), "gate": (I, H), "up": (I, H), "down": (H, I),
+    }
+    state: dict[str, torch.Tensor] = {
+        "embed.weight": _tensor(params_np["embed"]),
+        "final_norm": _tensor(params_np["final_norm"]),
+    }
+    if "lm_head" in params_np and not cfg.tie_word_embeddings:
+        state["lm_head.weight"] = _tensor(params_np["lm_head"])
+    for key, stack in params_np["layers"].items():
+        if key not in _JAX_LAYER_KEYS:
+            raise KeyError(f"unmapped JAX layer parameter {key!r}")
+        name, is_matrix = _JAX_LAYER_KEYS[key]
+        stack = np.asarray(stack)
+        if stack.shape[0] != cfg.num_hidden_layers:
+            raise ValueError(f"{key}: {stack.shape[0]} layers, expected {cfg.num_hidden_layers}")
+        for l in range(stack.shape[0]):
+            w = stack[l]
+            if is_matrix:
+                if not transposed:
+                    w = w.T
+                if w.shape != out_in[key]:
+                    raise ValueError(f"{key}: got {w.shape} after orientation, expected {out_in[key]}")
+            state[f"layers.{l}.{name}"] = _tensor(w)
+    return state

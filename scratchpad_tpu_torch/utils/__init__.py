@@ -1,0 +1,3 @@
+from scratchpad_tpu_torch.utils.logging import get_logger
+
+__all__ = ["get_logger"]

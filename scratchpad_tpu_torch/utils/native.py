@@ -1,0 +1,121 @@
+"""Build the port's CUDA kernels and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, at first use, into
+``csrc/build/`` (listed in ``.gitignore``). The library file name carries a
+hash of its source, so an edited kernel rebuilds and a stale one is never
+loaded. ``build()`` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on a machine that has no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = [
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+]
+KERNEL_SOURCES = ("paged_decode_attention", "paged_extend_attention")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=KERNEL_SOURCES) -> dict[str, dict]:
+    """Compile every named source that has no up-to-date library, one
+    ``nvcc`` process per source, all started together. Returns
+    ``{name: {"seconds": s, "log": compiler stderr}}``; raises if any fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+            tmp,
+            out,
+            time.monotonic(),
+        )
+    report, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        report[name] = {"seconds": time.monotonic() - t0, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a reader never sees a half-written .so
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+def load(name: str, functions: dict[str, tuple[list, object]]) -> ctypes.CDLL:
+    """Load (building if needed) ``lib<name>``, declaring ``argtypes`` and
+    ``restype`` for each entry of ``functions``."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    path = _lib_path(name)
+    if not path.exists():
+        build([name])
+    lib = ctypes.CDLL(str(path))
+    for fn_name, (argtypes, restype) in functions.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _loaded[name] = lib
+    return lib
+
+
+def stream_handle(device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_same_device(q, *others) -> None:
+    """Every input of a kernel wrapper on q's device: the wrapper picks the
+    kernel or its plain version by q's device."""
+    for t in others:
+        if t.device != q.device:
+            raise ValueError(f"inputs on {t.device} and {q.device}: one device expected")
