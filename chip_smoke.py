@@ -12,33 +12,43 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: compiles every CUDA kernel of the port from ``scratchpad_tpu_torch/
    csrc`` with ``nvcc`` for sm_90a, one ``nvcc`` per source, in parallel.
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   same bf16 inputs (the plain version computes and returns f32), at decode
-   shapes of short (256) and long (4096) contexts, batch 1 and 64, head_dim
-   64 and 128, with ``seq_len == 0`` rows; and at extend shapes with mixed
-   chunk lengths, cached prefixes and padded tokens. Tolerance: |kernel -
-   plain| <= ATOL + RTOL * |plain| elementwise (see below); padded rows
-   must be exact zeros.
-4. engine: ``Engine.generate`` on Llama-3.2-1B at full width in bf16 with
-   random weights: greedy requests of different lengths, two that share a
+   same inputs (the plain version computes and returns f32). Attention, on
+   bf16 inputs: decode shapes of short (256) and long (4096) contexts,
+   batch 1 and 64, head_dim 64 and 128, with ``seq_len == 0`` rows; extend
+   shapes with mixed chunk lengths, cached prefixes and padded tokens. The
+   4-bit GEMMs: Llama-3.2-1B's seven matrices at M of 1, 64 and 2048, a
+   group of 120 (GPT-OSS's 2880 -> 5760) and of 100 with a padded Out, each
+   GEMM on the same int8 (W4A8) or bf16 (W4A16) rows as its plain version;
+   the row quantizer must match its plain version bit for bit. Tolerance:
+   |kernel - plain| <= ATOL + RTOL * |plain| elementwise (see below);
+   padding and zero rows must come out as exact zeros.
+4. engines: ``Engine.generate`` on Llama-3.2-1B at full width and depth
+   with random weights, in bf16, then with ``quantization="w4a8"``, then
+   W4A16 on the same engine and codes (every ``QuantLinear`` switched to
+   its A16 route): greedy requests of different lengths, two that share a
    long prefix (radix hit), one longer than ``chunked_prefill_size``.
    Every kernel's launch count is set to 0 just before and read just
-   after; each must be at least layers x forwards of its mode. The
-   model's logits on the kernel path are held against the plain path
-   for each prompt's first generated token and one decode step after it:
-   the argmax must agree on every row, and max |diff| must stay within
-   LOGIT_RTOL of max |logit|.
+   after; attention must launch at least layers x forwards of its mode,
+   each W4 kernel of the route (6 x layers + 1) x forwards. The model's
+   logits on the kernel path are held against the plain path (plain
+   attention and plain W4 GEMMs) for each prompt's first generated token
+   and one decode step after it: the argmax must agree on every row but
+   those whose plain top-2 logits are equal or adjacent bf16 values (the
+   logits are bf16, so ties occur), and max
+   |diff| must stay within LOGIT_RTOL of max |logit|. After each
+   engine's checks, while all checks hold: its decode tokens/s at batch 64
+   with 128-token prompts and 128 new tokens, and the device's busy share
+   over such a run (``torch.profiler``).
    Phases 3 and 4 record a failed check and go on, so that a faulty
    kernel still shows every reading; the script exits non-zero after
    phase 4 if any check failed.
-5. times: the engine's decode tokens/s at batch 64 with 128-token prompts
-   and 128 new tokens, and the device's busy share over such a run
-   (``torch.profiler``). Then, with the engine freed, each kernel's median
-   device time at the main path's shapes, beside its bound (bytes at 3.35
-   TB/s or operations at 989 TFLOP/s, whichever is larger), its plain
-   version's time and one PyTorch library call that computes the same
-   function (``scaled_dot_product_attention`` on gathered dense K/V; a
-   yardstick only, the port never calls it).
-6. one JSON line with every kernel's numbers, one with the engine's, the
+5. times, with the engines freed: each kernel's median device time at the
+   main path's shapes, beside its bound (bytes at 3.35 TB/s, or operations
+   at 989 TFLOP/s bf16 / 1,979 TOPS int8, whichever is larger), its plain
+   version's time and one PyTorch call as a yardstick the port never calls
+   (``scaled_dot_product_attention`` on gathered dense K/V; ``torch.matmul``
+   of bf16 x with the weight dequantized to bf16 beforehand).
+6. one JSON line with every kernel's numbers, one with the engines', the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
 """
@@ -57,17 +67,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM, dense
-# Kernel vs plain version. Both kernels accumulate in f32 and round only
-# their output to bf16, which moves a value by at most 2**-8 of itself;
-# ATOL covers the order of the f32 sums. A kernel that drops one page of a
+INT8_OPS = 1979e12  # H100 SXM, dense
+# Kernel vs plain version. Every kernel accumulates in f32 and rounds only
+# its output to bf16, which moves a value by at most 2**-8 of itself; ATOL
+# covers the order of the f32 sums. A kernel that drops one page of a
 # 4096-token context misses this by far (PERF.md, Findings).
 ATOL, RTOL = 1e-4, 2.0**-8
-# Kernel-path vs plain-path logits, relative to the largest |logit|: each
-# path rounds its attention output to bf16 on its own, and the difference
-# grows through 16 layers of random weights. Sound kernels read up to
-# 1.585e-2; a decode kernel that drops its last page reads 5.2e-2 to 0.38,
-# one that drops a page of the prefill 0.37 to 0.73 (PERF.md, Findings).
-LOGIT_RTOL = 3e-2
+# Kernel-path vs plain-path logits, relative to the largest |logit|, by
+# engine. bf16 and W4A16: each path rounds its attention and GEMM outputs
+# to bf16 on its own, and the difference grows through 16 layers of random
+# weights. Sound kernels read up to 1.585e-2 (bf16) and 1.812e-2 (W4A16); a
+# decode kernel that drops its last page reads 5.2e-2 to 0.38, one that
+# drops a page of the prefill 0.37 to 0.73 (PERF.md, Findings). W4A8 adds
+# the int8 rounding of every GEMM's input: a bf16 ulp of difference
+# upstream moves an x8 by one, and that moves an output by ax * |w|; sound
+# kernels read up to 5.036e-2 there.
+LOGIT_RTOL = {"bf16": 3e-2, "w4a8": 1e-1, "w4a16": 3e-2}
+# The argmax must agree on every row but a bf16 tie at the top. W4A8 also
+# excuses a row whose plain top-2 gap is at most this share of max |logit|:
+# its sound kernels flip one row of the request set at a gap of 1.439e-2
+# (PERF.md, Findings). A flip needs the two logits' differences to sum to
+# the gap, so an excuse that scales with the row's own max |diff| would
+# pass every flip; this one is a fixed floor.
+ARGMAX_FLOOR = {"bf16": 0.0, "w4a8": 2e-2, "w4a16": 0.0}
 FAILURES: list[str] = []
 
 
@@ -149,9 +171,9 @@ def device_ms(fn, n_layers: int, iters: int, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / BF16_FLOPS * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -301,6 +323,94 @@ def check_extend(errs: dict) -> None:
             )
 
 
+def llama_1b_matrices():
+    """(name, In, Out, calls per forward) of Llama-3.2-1B's quantized
+    matrices: six per layer, gate|up fused, and the tied head."""
+    from scratchpad_tpu_torch.config.model_config import get_preset
+
+    c = get_preset("llama-3.2-1b")
+    H, I, V, L = c.hidden_size, c.intermediate_size, c.vocab_size, c.num_hidden_layers
+    q_out, kv_out = c.num_attention_heads * c.head_dim, c.num_kv_heads * c.head_dim
+    return [
+        ("wq", H, q_out, L), ("wk", H, kv_out, L), ("wv", H, kv_out, L), ("wo", q_out, H, L),
+        ("gate_up", H, 2 * I, L), ("down", I, H, L), ("lm_head", H, V, 1),
+    ]
+
+
+def random_w4(In: int, Out: int, copies: int, gen):
+    """``copies`` random weights [In -> Out] in the packed layout, with the
+    group and stored width ``quantize_stacked`` gives such a matrix: random
+    code bytes, bf16 scales in [0.005, 0.02), zero points 0..15 (stored
+    minus 8)."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import padded_in
+    from scratchpad_tpu_torch.ops.quant.w4a16 import stacked_group_size, stacked_out_width
+
+    g = stacked_group_size(In)
+    N, _ = stacked_out_width(Out)
+    G = In // g
+    q = torch.randint(0, 256, (copies, N, padded_in(In) // 2), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    s = (torch.rand(copies, G, N, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
+    z = (torch.randint(0, 16, (copies, G, N), generator=gen, device="cuda") - 8).to(torch.bfloat16)
+    return q, s, z, g
+
+
+def check_w4(errs: dict) -> None:
+    """The row quantizer bit for bit, and both W4 GEMMs against their plain
+    versions on the same int8 rows (W4A8) or bf16 rows (W4A16), at
+    Llama-3.2-1B's seven matrices and M of 1, 64 and 2048; at GPT-OSS's
+    2880 -> 5760 (g 120) and at 1800 -> 1000 (g 100, Out padded to 1024).
+    Row M // 2 is zeros: its outputs must be exact zeros."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import (
+        quantize_activations_plain,
+        quantize_rows_int8,
+        w4a8_matmul,
+        w4a8_matmul_plain,
+        w4a16_matmul,
+        w4a16_matmul_plain,
+    )
+
+    cases = [(name, In, Out, M) for name, In, Out, _ in llama_1b_matrices() for M in (1, 64, 2048)]
+    cases += [("gpt-oss gate_up", 2880, 5760, M) for M in (1, 64, 300)]
+    cases += [("g100", 1800, 1000, M) for M in (1, 64, 300)]
+    for i, (name, In, Out, M) in enumerate(cases):
+        gen = seeded(3000 + i)
+        q, s, z, g = random_w4(In, Out, 1, gen)
+        q, s, z = q[0], s[0], z[0]
+        x = torch.randn(M, In, generator=gen, device="cuda").to(torch.bfloat16)
+        zero = M // 2 if M > 1 else None
+        if zero is not None:
+            x[zero] = 0
+        x8, ax, gsum = quantize_rows_int8(x, g)
+        ref = quantize_activations_plain(x, g)
+        exact = all(torch.equal(a, b) for a, b in zip((x8, ax, gsum), ref))
+        n_diff = int((x8 != ref[0]).sum())
+        eq = max(float((a.float() - b.float()).abs().max()) for a, b in zip((x8, ax, gsum), ref))
+        y8 = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
+        e8, r8 = max_err(y8, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
+        y16 = w4a16_matmul(x, q, s, z, g, Out)
+        e16, r16 = max_err(y16, w4a16_matmul_plain(x, q, s, z, g, Out))
+        torch.cuda.synchronize()
+        zeros = zero is None or bool((y8[zero] == 0).all() and (y16[zero] == 0).all())
+        errs["quantize_rows_int8"] = max(errs["quantize_rows_int8"], eq)
+        errs["w4a8_matmul"] = max(errs["w4a8_matmul"], e8)
+        errs["w4a16_matmul"] = max(errs["w4a16_matmul"], e16)
+        log(
+            f"[check] w4 {name} {In}->{Out} g={g} M={M}: quantizer exact {exact} "
+            f"({n_diff} x8 differ); w4a8 max_abs_err {e8:.3e}, err/tol {r8:.3f}; "
+            f"w4a16 max_abs_err {e16:.3e}, err/tol {r16:.3f}; zero row exact: {zeros}"
+        )
+        check(exact, f"row quantizer differs from its plain version at {name} M={M}")
+        check(r8 <= 1 and zeros, f"w4a8 kernel disagrees with its plain version at {name} M={M}")
+        check(r16 <= 1 and zeros, f"w4a16 kernel disagrees with its plain version at {name} M={M}")
+        del q, s, z, x, x8, y8, y16
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------- phase 5 (kernels)
 
 
@@ -407,6 +517,147 @@ def time_extend(chunks, D: int = 64) -> dict:
     return r
 
 
+def time_w4(name: str, In: int, Out: int, M: int) -> dict:
+    """Both W4 GEMMs at one matrix and M: median device ms beside the bound,
+    the plain versions and ``torch.matmul`` of bf16 x with the weight
+    dequantized to bf16 beforehand (a yardstick the port never calls).
+    Calls cycle over enough weight copies (up to 128 MiB of codes) that the
+    weights do not stay in L2, as on the main path."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import (
+        padded_in,
+        quantize_rows_int8,
+        unpack_w4,
+        w4a8_matmul,
+        w4a8_matmul_plain,
+        w4a16_matmul,
+        w4a16_matmul_plain,
+    )
+
+    Kp = padded_in(In)
+    copies = max(2, min(64, -(-128 * 2**20 // (Out * Kp // 2))))
+    gen = seeded(4000 + In + Out + M)
+    q, s, z, g = random_w4(In, Out, copies, gen)
+    G = In // g
+    x = torch.randn(M, In, generator=gen, device="cuda").to(torch.bfloat16)
+    x8, ax, gsum = quantize_rows_int8(x, g)
+    deq = [
+        ((unpack_w4(q[l], In)[:, :Out].float() - z[l, :, :Out].float().repeat_interleave(g, 0))
+         * s[l, :, :Out].float().repeat_interleave(g, 0)).to(torch.bfloat16)
+        for l in range(min(copies, max(2, -(-256 * 2**20 // (In * Out * 2)))))
+    ]
+    iters = 50 if M <= 64 else 10
+    w_bytes = Out * In / 2 + 2 * G * Out * 2
+    a8_bytes = M * Kp + M * 4 + M * G * 4 + w_bytes + M * Out * 2
+    a16_bytes = M * In * 2 + w_bytes + M * Out * 2
+    ops = 2.0 * M * In * Out
+    r = dict(shape=f"{name} {In}->{Out} g={g} M={M}")
+    r["w4a8_matmul"] = dict(
+        ms=device_ms(lambda l: w4a8_matmul(x8, ax, gsum, q[l], s[l], z[l], g, Out), copies, iters),
+        plain_ms=device_ms(lambda l: w4a8_matmul_plain(x8, ax, gsum, q[l], s[l], z[l], g, Out), copies, 2, reps=3),
+        library_ms=device_ms(lambda l: torch.matmul(x, deq[l % len(deq)]), len(deq), iters),
+        nbytes=a8_bytes, ops=ops, peak=INT8_OPS,
+    )
+    r["w4a16_matmul"] = dict(
+        ms=device_ms(lambda l: w4a16_matmul(x, q[l], s[l], z[l], g, Out), copies, iters),
+        plain_ms=device_ms(lambda l: w4a16_matmul_plain(x, q[l], s[l], z[l], g, Out), copies, 2, reps=3),
+        library_ms=r["w4a8_matmul"]["library_ms"],
+        nbytes=a16_bytes, ops=ops, peak=BF16_FLOPS,
+    )
+    for t in (r["w4a8_matmul"], r["w4a16_matmul"]):
+        t["bound_ms"], t["bound_by"] = bound_ms(t["nbytes"], t["ops"], t["peak"])
+    del q, s, z, deq
+    torch.cuda.empty_cache()
+    return r
+
+
+def time_quantizer(In: int, M: int) -> dict:
+    """The row quantizer at one (M, In), g 128: bytes bound (x read, x8, ax
+    and gsum written); no single PyTorch call computes it."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import (
+        padded_in,
+        quantize_activations_plain,
+        quantize_rows_int8,
+    )
+
+    copies = max(2, min(64, -(-128 * 2**20 // (M * In * 2))))
+    xs = torch.randn(copies, M, In, generator=seeded(5000 + In + M), device="cuda").to(torch.bfloat16)
+    nbytes = M * In * 2 + M * padded_in(In) + M * 4 + M * (In // 128) * 4
+    b, by = bound_ms(nbytes, 0.0)
+    r = dict(
+        shape=f"M={M} In={In} g=128",
+        ms=device_ms(lambda l: quantize_rows_int8(xs[l], 128), copies, 50),
+        plain_ms=device_ms(lambda l: quantize_activations_plain(xs[l], 128), copies, 5),
+        library_ms=None,
+        bound_ms=b,
+        bound_by=by,
+    )
+    del xs
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_w4_timing() -> dict:
+    """Every W4 matrix of Llama-3.2-1B at decode (M = 64) and prefill
+    (M = 8192, the bench prefill of 64 x 128) shapes; the head at M = 64
+    only, since it runs on each sequence's last token. Per kernel, the
+    per-forward sums at bs 64 (calls x ms over the seven matrices) go to the
+    ``kernels`` line. The groups that the JAX package's u8 half-plane
+    kernels served (120 at GPT-OSS's 2880 -> 5760, and 100) are timed at
+    M = 64 beside them, outside those sums."""
+    rows = []
+    shapes = [
+        (name, In, Out, calls, M)
+        for name, In, Out, calls in llama_1b_matrices()
+        for M in ((64,) if name == "lm_head" else (64, 8192))
+    ]
+    shapes += [("gpt-oss gate_up", 2880, 5760, 0, 64), ("g100", 1800, 1000, 0, 64)]
+    for name, In, Out, calls, M in shapes:
+        r = time_w4(name, In, Out, M)
+        r["calls"] = calls
+        rows.append(r)
+        for k in ("w4a8_matmul", "w4a16_matmul"):
+            t = r[k]
+            log(
+                f"[time] {k} {r['shape']}: {t['ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}); plain {t['plain_ms']:.4f} ms; torch.matmul bf16 "
+                f"{t['library_ms']:.4f} ms"
+            )
+    quant = {(In, M): time_quantizer(In, M) for In in (2048, 8192) for M in (64, 8192)}
+    for r in quant.values():
+        log(
+            f"[time] quantize_rows_int8 {r['shape']}: {r['ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain {r['plain_ms']:.4f} ms"
+        )
+    per_fwd = {}
+    dec = [r for r in rows if r["shape"].endswith("M=64")]
+    for k in ("w4a8_matmul", "w4a16_matmul"):
+        total = {
+            f: sum(r["calls"] * r[k][f] for r in dec)
+            for f in ("ms", "plain_ms", "library_ms", "nbytes", "ops")
+        }
+        per_fwd[k] = dict(
+            shape="one decode forward of Llama-3.2-1B at bs 64 (6 matrices x 16 layers + head)",
+            **{f: total[f] for f in ("ms", "plain_ms", "library_ms")},
+        )
+        per_fwd[k]["bound_ms"], per_fwd[k]["bound_by"] = bound_ms(
+            total["nbytes"], total["ops"], dec[0][k]["peak"]
+        )
+    # per forward: 5 of the 6 per-layer inputs and the head's are 2048 wide
+    n2048, n8192 = 5 * 16 + 1, 16
+    a, b = quant[(2048, 64)], quant[(8192, 64)]
+    per_fwd["quantize_rows_int8"] = dict(
+        shape="one decode forward of Llama-3.2-1B at bs 64 (81 calls at In 2048, 16 at In 8192)",
+        **{f: n2048 * a[f] + n8192 * b[f] for f in ("ms", "plain_ms", "bound_ms")},
+        library_ms=None,
+        bound_by="bytes",
+    )
+    return dict(rows=rows, quant=quant, per_forward=per_fwd)
+
+
 def phase_timing() -> dict:
     t = {
         "paged_decode_attention": [time_decode(64, 256), time_decode(64, 4096)],
@@ -473,35 +724,87 @@ def prompt_logits(runner, prompt, next_token):
         runner.page_allocator.free(pages)
 
 
-def phase_engine() -> dict:
-    import numpy as np
+def make_engine(quantization=None):
     import torch
 
     from scratchpad_tpu_torch.config import ServerArgs
-    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
-    from scratchpad_tpu_torch.ops.attention import (
-        KERNEL_WRAPPERS,
-        decode_attention_plain,
-        extend_attention_plain,
-        reset_launch_counts,
-    )
-    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
     from scratchpad_tpu_torch.server.engine import Engine
 
+    gc.collect()
+    torch.cuda.empty_cache()  # each engine's pool takes 0.85 of free memory
     t0 = time.monotonic()
     engine = Engine(
         ServerArgs(
-            preset="llama-3.2-1b", random_weights=True, dtype="bfloat16", device="cuda"
+            preset="llama-3.2-1b", random_weights=True, dtype="bfloat16", device="cuda",
+            quantization=quantization,
         )
     )
     runner = engine.scheduler.runner
-    cfg = runner.model_config
-    L = cfg.num_hidden_layers
     log(
-        f"[engine] llama-3.2-1b bf16 ready in {time.monotonic() - t0:.1f} s: "
-        f"{runner.param_bytes / 2**30:.2f} GiB params, "
+        f"[engine] llama-3.2-1b {quantization or 'bf16'} ready in "
+        f"{time.monotonic() - t0:.1f} s ({runner.quantize_seconds:.1f} s of it quantizing "
+        f"on the host): {runner.param_bytes / 2**30:.3f} GiB of parameters and buffers, "
         f"{runner.max_total_num_tokens} KV tokens"
     )
+    return engine
+
+
+def set_w4_route(model, a8: bool) -> None:
+    from scratchpad_tpu_torch.models.common import QuantLinear
+
+    for m in model.modules():
+        if isinstance(m, QuantLinear):
+            m.a8 = a8
+
+
+class PlainPath:
+    """Within the block, the model runs every kernel's plain version: the
+    attention functions it holds, and the W4 functions ``QuantLinear``
+    calls (module globals of ``models.common``)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        from scratchpad_tpu_torch.models import common
+        from scratchpad_tpu_torch.ops.attention import decode_attention_plain, extend_attention_plain
+        from scratchpad_tpu_torch.ops.quant import w4_matmul
+
+        self.saved_attn = (self.model.decode_attention, self.model.extend_attention)
+        self.saved_w4 = (common.quantize_rows_int8, common.w4a8_matmul, common.w4a16_matmul)
+        self.model.decode_attention, self.model.extend_attention = (
+            decode_attention_plain, extend_attention_plain,
+        )
+        common.quantize_rows_int8 = w4_matmul.quantize_activations_plain
+        common.w4a8_matmul = w4_matmul.w4a8_matmul_plain
+        common.w4a16_matmul = w4_matmul.w4a16_matmul_plain
+
+    def __exit__(self, *exc):
+        from scratchpad_tpu_torch.models import common
+
+        self.model.decode_attention, self.model.extend_attention = self.saved_attn
+        common.quantize_rows_int8, common.w4a8_matmul, common.w4a16_matmul = self.saved_w4
+
+
+def phase_engine(engine, label: str, w4_kernels=()) -> dict:
+    """Serve the request set through ``Engine.generate`` with every launch
+    count set to 0 just before and read just after; check each request,
+    the radix hit, the launches of both attention kernels (one per layer
+    and forward of their mode) and of ``w4_kernels`` (one per quantized
+    matrix and forward: 6 per layer and the head), and the kernel-path
+    logits against the plain path's. The argmax must agree on every row
+    but a bf16 tie: the plain path's top-2 logits equal or one bf16 ulp
+    apart. Each row whose argmax differs is logged with its gap."""
+    import numpy as np
+    import torch
+
+    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+    from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS, reset_launch_counts
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner = engine.scheduler.runner
+    cfg = runner.model_config
+    L = cfg.num_hidden_layers
     model = runner.model
     forwards = {ForwardMode.EXTEND: 0, ForwardMode.DECODE: 0}
     inner_forward = model.forward
@@ -522,69 +825,84 @@ def phase_engine() -> dict:
     second = [shared + rng.integers(1, V, 25).tolist()]  # radix hit on `shared`
     sp = SamplingParams(temperature=0.0, max_new_tokens=32, ignore_eos=True)
 
+    engine.flush_cache()
     reset_launch_counts()
     outs = engine.generate(input_ids=prompts, sampling_params=[sp] * len(prompts))
     outs += engine.generate(input_ids=second, sampling_params=[sp])
     counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
     torch.cuda.synchronize()
+    model.forward = inner_forward
     n_ext, n_dec = forwards[ForwardMode.EXTEND], forwards[ForwardMode.DECODE]
     log(
-        f"[engine] {len(outs)} requests: {n_ext} extend and {n_dec} decode forwards; "
+        f"[engine {label}] {len(outs)} requests: {n_ext} extend and {n_dec} decode forwards; "
         f"kernel launches {counts}"
     )
     for o, p in zip(outs, prompts + second):
         check(
             o.completion_tokens == 32 and len(o.output_ids) == 32 and o.finish_reason == "length",
-            f"request {o.rid}: {o.completion_tokens} tokens, finish {o.finish_reason}",
+            f"{label} request {o.rid}: {o.completion_tokens} tokens, finish {o.finish_reason}",
         )
-        check(o.prompt_tokens == len(p), f"request {o.rid}: prompt_tokens {o.prompt_tokens} != {len(p)}")
-    check(outs[-1].cached_tokens >= 512, f"no radix hit: cached_tokens {outs[-1].cached_tokens}")
-    log(f"[engine] radix hit: {outs[-1].cached_tokens} cached tokens; chunked prompt of {len(prompts[5])} tokens")
-    check(
-        counts["paged_extend_attention"] >= L * n_ext > 0,
-        f"extend kernel launched {counts['paged_extend_attention']} < {L} x {n_ext}",
-    )
-    check(
-        counts["paged_decode_attention"] >= L * n_dec > 0,
-        f"decode kernel launched {counts['paged_decode_attention']} < {L} x {n_dec}",
-    )
-    steps = {"paged_extend_attention": n_ext, "paged_decode_attention": n_dec}
+        check(o.prompt_tokens == len(p), f"{label} request {o.rid}: prompt_tokens {o.prompt_tokens} != {len(p)}")
+    check(outs[-1].cached_tokens >= 512, f"{label}: no radix hit: cached_tokens {outs[-1].cached_tokens}")
+    log(f"[engine {label}] radix hit: {outs[-1].cached_tokens} cached tokens; chunked prompt of {len(prompts[5])} tokens")
+    need = {"paged_extend_attention": L * n_ext, "paged_decode_attention": L * n_dec}
+    for k in w4_kernels:
+        need[k] = (6 * L + 1) * (n_ext + n_dec)
+    for k, n in need.items():
+        check(counts[k] >= n > 0, f"{label}: {k} launched {counts[k]} times, fewer than {n}")
+    steps = {
+        "paged_extend_attention": n_ext, "paged_decode_attention": n_dec,
+        **{k: n_ext + n_dec for k in w4_kernels},
+    }
 
     # kernel path vs plain path logits for each prompt's first generated
     # token (extend) and the step after it (decode), on the card
-    model.forward = inner_forward
-    kern_attn = (model.decode_attention, model.extend_attention)
-    plain_attn = (decode_attention_plain, extend_attention_plain)
+    tol = LOGIT_RTOL[label]
     worst = {0: 0.0, 1: 0.0}  # by step: 0 = extend, 1 = decode
-    agree = 0
+    agree = ties = 0
     min_margin = math.inf  # the plain path's top-2 gap over max |logit|
     for p, o in zip(prompts + second, outs):
-        logits = {}
-        for label, (dec, ext) in (("kernel", kern_attn), ("plain", plain_attn)):
-            model.decode_attention, model.extend_attention = dec, ext
-            logits[label] = prompt_logits(runner, p, o.output_ids[0])
-        model.decode_attention, model.extend_attention = kern_attn
+        kern = prompt_logits(runner, p, o.output_ids[0])
+        with PlainPath(model):
+            plain = prompt_logits(runner, p, o.output_ids[0])
         for step in (0, 1):
-            a, b = logits["kernel"][step], logits["plain"][step]
-            check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), "non-finite logits")
+            a, b = kern[step], plain[step]
+            check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{label}: non-finite logits")
             scale = float(b.abs().max())
             rel = float((a - b).abs().max()) / scale
             worst[step] = max(worst[step], rel)
             top2 = torch.topk(b, 2).values
-            min_margin = min(min_margin, float(top2[0] - top2[1]) / scale)
-            agree += int(a.argmax() == b.argmax())
-            check(rel <= LOGIT_RTOL, f"kernel-path logits differ from the plain path by {rel:.3e} of max |logit|")
-            check(bool(a.argmax() == b.argmax()), f"request {o.rid} step {step}: argmax differs")
+            gap = float(top2[0] - top2[1])
+            min_margin = min(min_margin, gap / scale)
+            # the logits are bf16: a tie is a top-2 gap of at most one bf16
+            # ulp of the top logit (equal or adjacent bf16 values); W4A8
+            # also excuses gaps under its sound route's floor
+            tie = gap <= max(
+                math.ldexp(1.0, math.frexp(abs(float(top2[0])))[1] - 8), ARGMAX_FLOOR[label] * scale
+            )
+            ties += int(tie)
+            same = bool(a.argmax() == b.argmax())
+            agree += int(same)
+            check(rel <= tol, f"{label}: kernel-path logits differ from the plain path by {rel:.3e} of max |logit|")
+            if not same:
+                log(
+                    f"[engine {label}] request {o.rid} step {step}: argmax {int(a.argmax())} "
+                    f"(kernel) vs {int(b.argmax())} (plain); plain top-2 {float(top2[0]):.6g}, "
+                    f"{float(top2[1]):.6g} (gap {gap / scale:.3e} of max|logit|, tie {tie}); "
+                    f"max|diff| {rel:.3e} of max|logit|"
+                )
+            check(same or tie, f"{label} request {o.rid} step {step}: argmax differs outside a bf16 tie")
     log(
-        f"[engine] kernel vs plain logits over {2 * len(outs)} rows: worst "
+        f"[engine {label}] kernel vs plain logits over {2 * len(outs)} rows: worst "
         f"max|diff|/max|logit| {worst[0]:.3e} after the extend, {worst[1]:.3e} after "
-        f"the decode step (tol {LOGIT_RTOL}); argmax agrees on {agree} of "
-        f"{2 * len(outs)}; smallest plain top-2 gap {min_margin:.3e} of max|logit|"
+        f"the decode step (tol {tol}); argmax agrees on {agree} of {2 * len(outs)}, "
+        f"{ties} rows with a bf16 tie at the top; smallest plain top-2 gap "
+        f"{min_margin:.3e} of max|logit|"
     )
-    return engine, dict(counts=counts, steps=steps)
+    return dict(counts=counts, steps=steps, worst_logit_rel=max(worst.values()))
 
 
-def phase_engine_times(engine, eng: dict) -> None:
+def phase_engine_times(engine, eng: dict, label: str) -> None:
     """Decode tokens/s at the bench shape (bs 64, 128 + 128) and the
     device's busy share over one such run."""
     import numpy as np
@@ -625,7 +943,7 @@ def phase_engine_times(engine, eng: dict) -> None:
     run()  # warms the caching allocator and cuBLAS
     eng["decode_tok_s"], eng["e2e_tok_s"], _ = run()
     log(
-        f"[engine] bs 64, 128+128: decode {eng['decode_tok_s']:.1f} tok/s "
+        f"[engine {label}] bs 64, 128+128: decode {eng['decode_tok_s']:.1f} tok/s "
         f"(time inside decode windows), {eng['e2e_tok_s']:.1f} tok/s end to end"
     )
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -641,12 +959,16 @@ def phase_engine_times(engine, eng: dict) -> None:
     busy_us = sum(t for _, t in rows)
     if busy_us > 0:
         eng["device_busy_share"] = busy_us / 1e6 / wall
-        log(f"[profile] bs 64, 128+128 run: device busy {busy_us / 1e3:.1f} ms of {wall * 1e3:.1f} ms wall")
+        eng["device_busy_ms"] = busy_us / 1e3
+        log(
+            f"[profile {label}] bs 64, 128+128 run: device busy {busy_us / 1e3:.1f} ms of "
+            f"{wall * 1e3:.1f} ms wall"
+        )
         for key, t in sorted(rows, key=lambda r: -r[1])[:12]:
-            log(f"[profile]   {t / 1e3:9.2f} ms  {key[:100]}")
+            log(f"[profile {label}]   {t / 1e3:9.2f} ms  {key[:100]}")
     else:
-        eng["device_busy_share"] = None
-        log("[profile] the profiler recorded no device time: busy share not measured")
+        eng["device_busy_share"] = eng["device_busy_ms"] = None
+        log(f"[profile {label}] the profiler recorded no device time: busy share not measured")
 
 
 # ------------------------------------------------------------------ main
@@ -665,6 +987,29 @@ KERNELS = {
         replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 "
         "(bundled ragged_paged_attention via _ragged_call)",
     ),
+    "quantize_rows_int8": dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/w4a8_matmul.cu",
+        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:452-461 (the int8 activation "
+        "quantization of _w4_q4_call, outside the Pallas kernel)",
+    ),
+    "w4a8_matmul": dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/w4a8_matmul.cu",
+        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:363 (_w4a8_kernel_q4) "
+        "and :139 (_w4a8_kernel)",
+    ),
+    "w4a16_matmul": dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/w4a16_matmul.cu",
+        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:394 (_w4_kernel_q4) "
+        "and :27 (_w4_kernel)",
+    ),
+}
+# the engine run whose launches each kernel's entry reports
+KERNEL_ENGINE = {
+    "paged_decode_attention": "bf16", "paged_extend_attention": "bf16",
+    "quantize_rows_int8": "w4a8", "w4a8_matmul": "w4a8", "w4a16_matmul": "w4a16",
 }
 
 
@@ -681,20 +1026,38 @@ def main() -> None:
     t0 = time.monotonic()
     name, smi_line = phase_device()
     phase_build()
-    errs = {"paged_decode_attention": 0.0, "paged_extend_attention": 0.0}
+    errs = {k: 0.0 for k in KERNELS}
     check_decode(errs)
     check_extend(errs)
-    engine, eng = phase_engine()
-    if FAILURES:
-        fail(f"{len(FAILURES)} correctness checks failed; the first: {FAILURES[0]}")
-    phase_engine_times(engine, eng)
-    del engine  # frees the pool and the weights for the kernel timings
+    check_w4(errs)
+    # the timed runs follow each engine's checks, and only while every
+    # check holds: a faulty tree shows all its readings, quickly
+    engines = {}
+    engine = make_engine()
+    engines["bf16"] = phase_engine(engine, "bf16")
+    if not FAILURES:
+        phase_engine_times(engine, engines["bf16"], "bf16")
+    del engine  # frees the pool and the weights for the next engine
+    engine = make_engine("w4a8")
+    engines["w4a8"] = phase_engine(engine, "w4a8", ("quantize_rows_int8", "w4a8_matmul"))
+    if not FAILURES:
+        phase_engine_times(engine, engines["w4a8"], "w4a8")
+    # W4A16 on the same engine and codes: every QuantLinear takes the A16 route
+    set_w4_route(engine.scheduler.runner.model, a8=False)
+    engines["w4a16"] = phase_engine(engine, "w4a16", ("w4a16_matmul",))
+    if not FAILURES:
+        phase_engine_times(engine, engines["w4a16"], "w4a16")
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
+    if FAILURES:
+        fail(f"{len(FAILURES)} correctness checks failed; the first: {FAILURES[0]}")
     timing = phase_timing()
+    timing.update({k: [v] for k, v in phase_w4_timing()["per_forward"].items()})
     kernels = []
     for kname, meta in KERNELS.items():
-        main_shape = timing[kname][0]  # the long-context rows are in the [time] lines
+        main_shape = timing[kname][0]  # the other rows are in the [time] lines
+        eng = engines[KERNEL_ENGINE[kname]]
         kernels.append(
             dict(
                 name=kname,
@@ -712,14 +1075,18 @@ def main() -> None:
         )
     log(f"[done] {time.monotonic() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
+    fields = ("decode_tok_s", "e2e_tok_s", "device_busy_share", "device_busy_ms", "worst_logit_rel")
     log(
         json.dumps(
             {
-                "engine": {
-                    "preset": "llama-3.2-1b",
-                    "dtype": "bfloat16",
-                    "shape": "bs 64, 128 prompt + 128 new tokens",
-                    **{k: eng[k] for k in ("decode_tok_s", "e2e_tok_s", "device_busy_share")},
+                "engines": {
+                    label: {
+                        "preset": "llama-3.2-1b",
+                        "weights": label,
+                        "shape": "bs 64, 128 prompt + 128 new tokens",
+                        **{k: e[k] for k in fields},
+                    }
+                    for label, e in engines.items()
                 }
             }
         )

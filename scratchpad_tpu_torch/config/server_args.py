@@ -15,6 +15,9 @@ import dataclasses
 from typing import Optional
 
 
+QUANTIZATIONS = (None, "w4a8", "w4a16", "w4", "awq", "gptq", "gptq_v2")
+
+
 @dataclasses.dataclass
 class ServerArgs:
     # model / weights
@@ -22,8 +25,10 @@ class ServerArgs:
     preset: Optional[str] = None  # built-in architecture preset (offline runs)
     tokenizer_path: Optional[str] = None
     dtype: str = "bfloat16"
-    # None only: quantized weights (w4a16, w4a8, fp8, awq, gptq) are not
-    # ported yet
+    # None | w4a8 (4-bit weights, per-token int8 activations) | w4a16 (also
+    # w4) | awq | gptq | gptq_v2 (import an AutoAWQ/AutoGPTQ int4
+    # checkpoint bit-exact; random weights quantize the random init). fp8
+    # is not ported yet
     quantization: Optional[str] = None
     kv_cache_dtype: str = "auto"  # auto | bfloat16 (int8 / fp8 not ported)
     random_weights: bool = False  # initialise random weights (benchmarks)
@@ -113,7 +118,7 @@ class ServerArgs:
         """Options whose code paths the port does not have yet."""
         unported = {
             "speculative_algorithm": self.speculative_algorithm is not None,
-            "quantization": self.quantization is not None,
+            "quantization": self.quantization not in QUANTIZATIONS,
             "kv_cache_dtype": self.kv_cache_dtype not in ("auto", "bfloat16"),
             "enable_param_offload": self.enable_param_offload,
             "host_kv_cache_tokens": self.host_kv_cache_tokens > 0,

@@ -18,6 +18,7 @@ tensors.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Any, Optional
 
@@ -26,7 +27,7 @@ import torch
 
 from scratchpad_tpu_torch.config import ModelConfig, ServerArgs
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
-from scratchpad_tpu_torch.executor.weight_loader import load_hf_state
+from scratchpad_tpu_torch.executor.weight_loader import load_hf_state, quantized_layer_state
 from scratchpad_tpu_torch.memory import (
     KVCacheConfig,
     PageAllocator,
@@ -34,6 +35,7 @@ from scratchpad_tpu_torch.memory import (
     create_kv_cache,
 )
 from scratchpad_tpu_torch.models.registry import get_model_class
+from scratchpad_tpu_torch.ops.quant.import_hf import convert_quantized_layers, split_quant_tensors
 from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
 from scratchpad_tpu_torch.sampling.sampler import sample
 from scratchpad_tpu_torch.utils import get_logger
@@ -97,6 +99,34 @@ def _pow2_bucket(n: int, lo: int, hi: int) -> int:
     return min(b, hi)
 
 
+# quantization -> the model's route: w4a8, or w4a16 for every other W4 name
+_QUANT_ROUTE = {
+    "w4a8": "w4a8", "w4a16": "w4a16", "w4": "w4a16",
+    "awq": "w4a16", "gptq": "w4a16", "gptq_v2": "w4a16",
+}
+
+
+def resolve_kv_cache_dtype(args: ServerArgs, cfg: ModelConfig, device: torch.device) -> str:
+    """The KV pool's dtype. The JAX runner's model-aware ``auto``
+    (``model_runner.py:207-222``) picks int8 KV for W4-quantized serving on
+    an accelerator when hidden x layers >= 50,000 (3B and up); int8 KV is
+    not ported yet (slice 3), so that case raises rather than serve bf16 KV
+    in its place. Otherwise the pool takes the model dtype, as it does on
+    the CPU; ``args`` is left as it is."""
+    if (
+        args.kv_cache_dtype == "auto"
+        and args.quantization in ("w4a8", "w4a16", "awq", "gptq")
+        and device.type == "cuda"
+        and cfg.hidden_size * cfg.num_hidden_layers >= 50_000
+    ):
+        raise NotImplementedError(
+            f"kv_cache_dtype=auto resolves to int8 for {args.quantization} at hidden x "
+            f"layers = {cfg.hidden_size * cfg.num_hidden_layers}; int8 KV is not ported "
+            "yet (slice 3): pass kv_cache_dtype='bfloat16' to serve bf16 KV"
+        )
+    return args.dtype
+
+
 def resolve_device(name: str) -> torch.device:
     """The torch device ``name`` names; a CUDA device that does not exist
     raises instead of falling back to the CPU."""
@@ -135,27 +165,36 @@ class ModelRunner:
         cfg = model_config
 
         model_cls = get_model_class(cfg.architecture)
-        self.model = model_cls(cfg, self.device, self.dtype)
+        self.kv_cache_dtype = resolve_kv_cache_dtype(self.args, cfg, self.device)
+        quant = None if self.args.quantization is None else _QUANT_ROUTE[self.args.quantization]
+        # the JAX runner's quantize_lm_head auto rule: a 4-bit head whenever
+        # the decoder weights are 4-bit (a bf16 head is a third of a W4
+        # engine's per-step weight reads at tied-embedding models)
+        self.model = model_cls(
+            cfg, self.device, self.dtype, quantization=quant,
+            quantize_lm_head=quant is not None,
+        )
 
         # ---- parameters
         t0 = time.monotonic()
+        self.quantize_seconds = 0.0
         if params is not None:
             self.model.load_state_dict(params)
-        elif self.args.random_weights or not cfg.model_path:
-            gen = torch.Generator(device=self.device).manual_seed(self.args.random_seed)
-            self.model.init_random_(gen)
+        elif quant is None:
+            self._fill_dense(self.model)
         else:
-            state = load_hf_state(cfg.model_path)
-            self.model.load_state_dict(self.model.convert_hf_state(state, self.dtype))
-            del state
+            self._load_quantized(model_cls)
         self.model.requires_grad_(False)
+        # quantized weights live in buffers
         self.param_bytes = sum(
-            p.numel() * p.element_size() for p in self.model.parameters()
+            t.numel() * t.element_size()
+            for t in itertools.chain(self.model.parameters(), self.model.buffers())
         )
         logger.info(
-            "params ready: %.2f GiB in %.1fs",
+            "params ready: %.2f GiB in %.1fs (%.1fs quantizing)",
             self.param_bytes / 2**30,
             time.monotonic() - t0,
+            self.quantize_seconds,
         )
 
         # ---- KV pool sizing
@@ -168,7 +207,7 @@ class ModelRunner:
             page_size=self.page_size,
             num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim,
-            dtype=self.dtype,
+            dtype=_DTYPES[self.kv_cache_dtype],
         )
         self.kv_cache = create_kv_cache(self.kv_config, self.device)
 
@@ -193,6 +232,45 @@ class ModelRunner:
             self.args.random_seed + 1
         )
 
+    def _fill_dense(self, model) -> None:
+        """An unquantized model's weights: seeded random ones (with
+        ``random_weights`` or no ``model_path``) or the HF checkpoint's."""
+        cfg = self.model_config
+        if self.args.random_weights or not cfg.model_path:
+            gen = torch.Generator(device=self.device).manual_seed(self.args.random_seed)
+            model.init_random_(gen)
+        else:
+            state = load_hf_state(cfg.model_path)
+            model.load_state_dict(model.convert_hf_state(state, self.dtype))
+
+    def _load_quantized(self, model_cls) -> None:
+        """Quantize at load, as the JAX runner does (``model_runner.py:495-610``):
+        the dense weights through ``quantize_state``, or, for awq/gptq with a
+        checkpoint, its int4 tensors imported bit-exact (random weights
+        quantize the random init instead)."""
+        cfg = self.model_config
+        t = time.monotonic()
+        method = self.args.quantization
+        if method in ("awq", "gptq", "gptq_v2") and cfg.model_path and not self.args.random_weights:
+            plain, quant = split_quant_tensors(load_hf_state(cfg.model_path))
+            state = self.model.convert_hf_state(plain, self.dtype)
+            layers_q = convert_quantized_layers(
+                quant, cfg.num_hidden_layers, "awq" if method == "awq" else "gptq",
+                gptq_v2=method == "gptq_v2",
+            )
+            state.update(quantized_layer_state(layers_q))
+            state = self.model.quantize_state(state)  # the head, where quantized
+        else:
+            dense = model_cls(cfg, self.device, self.dtype)
+            self._fill_dense(dense)
+            state = self.model.quantize_state(dense.state_dict())
+            del dense
+        self.quantize_seconds = time.monotonic() - t
+        self.model.load_state_dict(state)
+        del state
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()  # the dense weights' blocks, before the pool is sized
+
     def _profile_kv_tokens(self) -> int:
         if self.args.max_total_tokens:
             return self.args.max_total_tokens
@@ -204,7 +282,7 @@ class ModelRunner:
 
     def kv_bytes_per_token(self) -> int:
         cfg = self.model_config
-        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        itemsize = torch.empty((), dtype=_DTYPES[self.kv_cache_dtype]).element_size()
         return 2 * cfg.num_hidden_layers * cfg.num_kv_heads * cfg.head_dim * itemsize
 
     # ------------------------------------------------------------------ steps

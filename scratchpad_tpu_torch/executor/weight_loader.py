@@ -4,7 +4,8 @@ Counterpart of ``scratchpad_tpu/executor/weight_loader.py``. Besides reading
 a local HF checkpoint, ``params_from_jax`` turns the JAX package's parameter
 pytree — handed over as numpy arrays, so the port never imports JAX — into
 the port's ``state_dict``; the parity tests build both sides from one state
-this way.
+this way. Quantized stacks (``layers_q``, ``lm_head_q``) are repacked into
+the port's layout with ``pack_w4``, code for code.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import numpy as np
 import torch
 
 from scratchpad_tpu_torch.config.model_config import ModelConfig
+from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
+from scratchpad_tpu_torch.ops.quant.w4a16 import QuantizedLinear, concat_out
 from scratchpad_tpu_torch.utils import get_logger
 
 logger = get_logger("weight_loader")
@@ -36,6 +39,10 @@ _JAX_LAYER_KEYS = {
     "bv": ("wv.bias", False),
     "input_norm": ("input_norm", False),
     "post_norm": ("post_norm", False),
+}
+# JAX quantized stack -> port module (separate gate and up stacks are fused)
+_JAX_QUANT_KEYS = {
+    "wq": "wq", "wk": "wk", "wv": "wv", "wo": "wo", "down": "down", "gate_up_f": "gate_up",
 }
 
 
@@ -76,7 +83,10 @@ def params_from_jax(
     JAX stores decoder matrices ``[L, in, out]``, or ``[L, out, in]`` when
     its runner transposed the stacks (``model.weights_transposed``, pass it
     as ``transposed``); square matrices make the two indistinguishable by
-    shape, so the orientation is an argument and the shapes are checked."""
+    shape, so the orientation is an argument and the shapes are checked.
+    Quantized stacks come as objects with numpy ``q``, ``s``, ``z`` (nibble
+    planes ``[L, In/2, Out]``, ``[L, G, Out]``), ``group_size`` and
+    ``out_true``: the JAX ``QuantizedLinear`` after ``jax.tree.map(np.asarray)``."""
     H, D = cfg.hidden_size, cfg.head_dim
     Hq, Hkv, I = cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size
     out_in = {  # nn.Linear orientation [out, in]
@@ -104,4 +114,33 @@ def params_from_jax(
                 if w.shape != out_in[key]:
                     raise ValueError(f"{key}: got {w.shape} after orientation, expected {out_in[key]}")
             state[f"layers.{l}.{name}"] = _tensor(w)
+    layers_q = {
+        k: QuantizedLinear(_tensor(v.q), _tensor(v.s), _tensor(v.z), v.group_size, v.out_true)
+        for k, v in params_np.get("layers_q", {}).items()
+    }
+    state.update(quantized_layer_state(layers_q))
+    if "lm_head_q" in params_np:
+        ql = params_np["lm_head_q"]
+        packed = pack_w4(
+            QuantizedLinear(_tensor(ql.q), _tensor(ql.s), _tensor(ql.z), ql.group_size, ql.out_true)
+        )
+        for part, t in zip("qsz", packed):
+            state[f"lm_head_q.{part}"] = t[0]
+    return state
+
+
+def quantized_layer_state(layers_q: dict[str, QuantizedLinear]) -> dict[str, torch.Tensor]:
+    """The port's per-layer ``q``/``s``/``z`` entries of stacked quantized
+    weights named as the JAX package's ``layers_q``. Separate gate and up
+    stacks (a checkpoint import) are fused along Out into ``gate_up``."""
+    layers_q = dict(layers_q)
+    if "gate" in layers_q and "up" in layers_q:
+        layers_q["gate_up_f"] = concat_out(layers_q.pop("gate"), layers_q.pop("up"))
+    state = {}
+    for key, ql in layers_q.items():
+        if key not in _JAX_QUANT_KEYS:
+            raise KeyError(f"unmapped quantized stack {key!r}")
+        for l, qsz in enumerate(zip(*pack_w4(ql))):
+            for part, t in zip("qsz", qsz):
+                state[f"layers.{l}.{_JAX_QUANT_KEYS[key]}.{part}"] = t
     return state

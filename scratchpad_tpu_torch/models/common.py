@@ -1,7 +1,7 @@
 """Shared building blocks for the port's models.
 
-Counterpart of ``scratchpad_tpu/models/common.py``: RMSNorm, SiLU-and-mul and
-rotary embeddings as plain functions on tensors. ``compute_inv_freq`` and
+Counterpart of ``scratchpad_tpu/models/common.py``: the 4-bit linear layer,
+RMSNorm, SiLU-and-mul and rotary embeddings. ``compute_inv_freq`` and
 ``rope_attention_scale`` are host-side numpy, copied unchanged so both
 packages bake identical frequencies (``tests/test_rope.py`` holds the JAX
 copy to HF).
@@ -12,6 +12,82 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from scratchpad_tpu_torch.ops.quant.w4_matmul import (
+    check_w4_shape,
+    padded_in,
+    quantize_rows_int8,
+    w4a8_matmul,
+    w4a16_matmul,
+)
+
+
+class QuantLinear(nn.Module):
+    """A 4-bit group-quantized linear layer in the port's packed layout.
+
+    Counterpart of the JAX package's ``make_quant_matmul`` (W4A16) and
+    ``make_w4a8_quant_matmul`` (W4A8): ``a8`` picks the route, per-token
+    int8 activations (``quantize_rows_int8`` then ``w4a8_matmul``) or bf16
+    activations (``w4a16_matmul``). Buffers ``q``, ``s``, ``z`` (z holds the
+    zero points minus 8; see ``ops/quant/w4_matmul.py``), stored ``N``
+    columns wide, of which ``out_features`` are real. A shape or device
+    that the kernels do not take is refused here, at load."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        group_size: int,
+        stored_width: int,
+        a8: bool,
+        bias: bool,
+        device,
+        dtype,
+    ):
+        super().__init__()
+        check_w4_shape(in_features, group_size)
+        if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
+            raise ValueError(f"the W4 kernels take bf16 activations, not {dtype}")
+        self.in_features, self.out_features = in_features, out_features
+        self.group_size, self.a8 = group_size, a8
+        G = in_features // group_size
+        self.register_buffer(
+            "q", torch.zeros(stored_width, padded_in(in_features) // 2, dtype=torch.uint8, device=device)
+        )
+        self.register_buffer("s", torch.zeros(G, stored_width, dtype=torch.bfloat16, device=device))
+        self.register_buffer("z", torch.zeros(G, stored_width, dtype=torch.bfloat16, device=device))
+        self.bias = (
+            nn.Parameter(torch.zeros(out_features, device=device, dtype=dtype)) if bias else None
+        )
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # an imported checkpoint may carry another group size or stored
+        # width than quantize_stacked's: take the state's shapes
+        s = state_dict.get(prefix + "s")
+        if s is not None and s.shape != self.s.shape:
+            G, N = s.shape
+            if self.in_features % G or N < self.out_features:
+                raise ValueError(
+                    f"{prefix}s {tuple(s.shape)} does not fit [{self.in_features} -> "
+                    f"{self.out_features}]"
+                )
+            check_w4_shape(self.in_features, self.in_features // G)
+            self.group_size = self.in_features // G
+            self.q = self.q.new_zeros(N, self.q.shape[1])
+            self.s = self.s.new_zeros(G, N)
+            self.z = self.z.new_zeros(G, N)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g, n = self.group_size, self.out_features
+        if self.a8:
+            x8, ax, gsum = quantize_rows_int8(x, g)
+            y = w4a8_matmul(x8, ax, gsum, self.q, self.s, self.z, g, n)
+        else:
+            y = w4a16_matmul(x, self.q, self.s, self.z, g, n)
+        y = y.to(x.dtype)  # the plain versions return f32
+        return y if self.bias is None else y + self.bias
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:

@@ -4,15 +4,17 @@ Counterpart of ``scratchpad_tpu/models/llama.py``. The JAX model stacks the
 layers' weights on a leading axis and unrolls a functional layer loop; here
 each decoder layer is a module in a ``ModuleList`` and the forward loops
 over them. Projections are ``nn.Linear`` (HF's ``[out, in]`` weights), so an
-HF state dict maps onto the module by renaming alone (``convert_hf_state``).
+HF state dict maps onto the module by renaming alone (``convert_hf_state``);
+a quantized model holds ``QuantLinear`` layers instead.
 
 The forward writes each layer's new K/V into the paged pool, then runs
-attention through the CUDA kernel wrappers, which take their plain versions
-for CPU tensors.
+attention and the 4-bit projections through the CUDA kernel wrappers, which
+take their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -23,7 +25,15 @@ from torch.nn.utils import skip_init
 from scratchpad_tpu_torch.config.model_config import ModelConfig
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
 from scratchpad_tpu_torch.memory.kv_cache import KVCache
+from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
+from scratchpad_tpu_torch.ops.quant.w4a16 import (
+    quantize_model_params,
+    quantize_stacked,
+    stacked_group_size,
+    stacked_out_width,
+)
 from scratchpad_tpu_torch.models.common import (
+    QuantLinear,
     apply_rope,
     compute_inv_freq,
     rms_norm,
@@ -43,27 +53,56 @@ def _linear(n_in: int, n_out: int, bias: bool, device, dtype) -> nn.Linear:
     return skip_init(nn.Linear, n_in, n_out, bias=bias, device=device, dtype=dtype)
 
 
+def _quant_linear(n_in: int, n_out: int, a8: bool, bias: bool, device, dtype) -> QuantLinear:
+    # the shapes quantize_stacked gives a weight [n_in, n_out]; filled by
+    # load_state_dict
+    stored, _ = stacked_out_width(n_out)
+    return QuantLinear(n_in, n_out, stacked_group_size(n_in), stored, a8, bias, device, dtype)
+
+
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    """``quantization`` set: every projection is a ``QuantLinear``, gate and
+    up fused into one ``gate_up`` (gate | up along Out), as the JAX
+    package's ``quantize_model_params(fuse_gate_up=True)`` stores them."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None):
         super().__init__()
         H, D = cfg.hidden_size, cfg.head_dim
         Hq, Hkv, I = cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size
         b = cfg.attention_bias
         self.input_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.post_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
-        self.wq = _linear(H, Hq * D, b, device, dtype)
-        self.wk = _linear(H, Hkv * D, b, device, dtype)
-        self.wv = _linear(H, Hkv * D, b, device, dtype)
-        self.wo = _linear(Hq * D, H, False, device, dtype)
-        self.gate = _linear(H, I, False, device, dtype)
-        self.up = _linear(H, I, False, device, dtype)
-        self.down = _linear(I, H, False, device, dtype)
+        self.fused_gate_up = quantization is not None
+        if quantization is None:
+            lin = lambda n_in, n_out, bias: _linear(n_in, n_out, bias, device, dtype)
+        else:
+            a8 = quantization == "w4a8"
+            lin = lambda n_in, n_out, bias: _quant_linear(n_in, n_out, a8, bias, device, dtype)
+        self.wq = lin(H, Hq * D, b)
+        self.wk = lin(H, Hkv * D, b)
+        self.wv = lin(H, Hkv * D, b)
+        self.wo = lin(Hq * D, H, False)
+        if self.fused_gate_up:
+            self.gate_up = lin(H, 2 * I, False)
+        else:
+            self.gate = lin(H, I, False)
+            self.up = lin(H, I, False)
+        self.down = lin(I, H, False)
 
 
 class LlamaForCausalLM(nn.Module):
-    """``forward(meta, kv) -> f32 logits [B, V]`` at each row's last token."""
+    """``forward(meta, kv) -> f32 logits [B, V]`` at each row's last token.
 
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    ``quantization`` (w4a8, or w4a16 and its aliases) builds the decoder's
+    projections as ``QuantLinear``; ``quantize_lm_head`` adds ``lm_head_q``,
+    a 4-bit copy of the head (``embed.T`` when tied; an untied ``lm_head``
+    is then dropped), while ``embed`` stays in the model dtype for lookups.
+    The quantized state comes from ``quantize_state`` or from the JAX
+    package's parameters (``weight_loader.params_from_jax``)."""
+
+    def __init__(
+        self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False
+    ):
         super().__init__()
         unported = [
             name
@@ -84,11 +123,19 @@ class LlamaForCausalLM(nn.Module):
         H, V = cfg.hidden_size, cfg.vocab_size
         self.embed = skip_init(nn.Embedding, V, H, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(cfg, device, dtype) for _ in range(cfg.num_hidden_layers)
+            LlamaDecoderLayer(cfg, device, dtype, quantization)
+            for _ in range(cfg.num_hidden_layers)
         )
         self.final_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.lm_head = (
-            None if cfg.tie_word_embeddings else _linear(H, V, False, device, dtype)
+            None
+            if cfg.tie_word_embeddings or quantize_lm_head
+            else _linear(H, V, False, device, dtype)
+        )
+        self.lm_head_q = (
+            _quant_linear(H, V, quantization == "w4a8", False, device, dtype)
+            if quantize_lm_head
+            else None
         )
         self.register_buffer(
             "inv_freq",
@@ -169,6 +216,41 @@ class LlamaForCausalLM(nn.Module):
                 raise KeyError(f"unmapped HF weight {name}")
         return out
 
+    def quantize_state(self, state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """This quantized model's ``state_dict`` from the ``state_dict`` of
+        its unquantized twin: each layer's ``[out, in]`` weights, transposed
+        to ``[in, out]`` so that groups run along In, go through the JAX
+        package's ``quantize_model_params(fuse_gate_up=True)`` (copied,
+        bit-identical codes) and ``pack_w4``; the head through
+        ``quantize_stacked``. Layers that arrive quantized (an imported int4
+        checkpoint) are kept as they are. Quantization runs in host numpy;
+        the packing runs on this model's device."""
+        device = self.final_norm.device
+        state = dict(state)
+
+        def packed(ql) -> tuple[torch.Tensor, ...]:
+            ql = dataclasses.replace(ql, q=ql.q.to(device), s=ql.s.to(device), z=ql.z.to(device))
+            return tuple(t[0] for t in pack_w4(ql))
+
+        def host_in_out(w: torch.Tensor) -> np.ndarray:
+            return w.float().cpu().numpy().T[None]  # [1, in, out]
+
+        if self.layers[0].fused_gate_up and "layers.0.wq.weight" in state:
+            for l in range(len(self.layers)):
+                dense = {
+                    t: host_in_out(state.pop(f"layers.{l}.{t}.weight"))
+                    for t in ("wq", "wk", "wv", "wo", "gate", "up", "down")
+                }
+                for t, ql in quantize_model_params(dense, fuse_gate_up=True).items():
+                    name = "gate_up" if t == "gate_up_f" else t
+                    for key, v in zip("qsz", packed(ql)):
+                        state[f"layers.{l}.{name}.{key}"] = v
+        if self.lm_head_q is not None:
+            head = state["embed.weight"] if self.cfg.tie_word_embeddings else state.pop("lm_head.weight")
+            for key, v in zip("qsz", packed(quantize_stacked(host_in_out(head)))):
+                state[f"lm_head_q.{key}"] = v
+        return state
+
     # ---------------------------------------------------------------- forward
 
     def forward(self, meta: ForwardMeta, kv: KVCache) -> torch.Tensor:
@@ -192,11 +274,18 @@ class LlamaForCausalLM(nn.Module):
             attn = attend(q, kv, l, meta, sm_scale=self.sm_scale)
             x = x + layer.wo(attn.reshape(T, Hq * D))
             h2 = rms_norm(x, layer.post_norm, eps)
-            x = x + layer.down(silu_mul(layer.gate(h2), layer.up(h2)))
+            if layer.fused_gate_up:
+                gate, up = layer.gate_up(h2).chunk(2, dim=-1)
+            else:
+                gate, up = layer.gate(h2), layer.up(h2)
+            x = x + layer.down(silu_mul(gate, up))
         h = rms_norm(x, self.final_norm, eps)
         last = h[meta.last_token_idx]  # [B, H]
-        head = self.embed.weight if self.lm_head is None else self.lm_head.weight
-        logits = (last @ head.T).float()
+        if self.lm_head_q is not None:
+            logits = self.lm_head_q(last).float()
+        else:
+            head = self.embed.weight if self.lm_head is None else self.lm_head.weight
+            logits = (last @ head.T).float()
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         return logits

@@ -1,0 +1,32 @@
+"""The port's kernels and their plain versions.
+
+``KERNEL_WRAPPERS`` lists every wrapper of the package that launches a
+hand-written CUDA kernel; each carries a ``launches`` count, which it raises
+only where it launches its kernel.
+"""
+
+from scratchpad_tpu_torch.ops.attention import (
+    paged_decode_attention,
+    paged_extend_attention,
+)
+from scratchpad_tpu_torch.ops.quant.w4_matmul import (
+    quantize_rows_int8,
+    w4a8_matmul,
+    w4a16_matmul,
+)
+
+KERNEL_WRAPPERS = (
+    paged_decode_attention,
+    paged_extend_attention,
+    quantize_rows_int8,
+    w4a8_matmul,
+    w4a16_matmul,
+)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+__all__ = ["KERNEL_WRAPPERS", "reset_launch_counts"]

@@ -33,7 +33,12 @@ NVCC_FLAGS = [
     "-Xptxas",
     "-v",
 ]
-KERNEL_SOURCES = ("paged_decode_attention", "paged_extend_attention")
+KERNEL_SOURCES = (
+    "paged_decode_attention",
+    "paged_extend_attention",
+    "w4a8_matmul",
+    "w4a16_matmul",
+)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -18,7 +18,8 @@ from scratchpad_tpu.sampling.sampling_params import SamplingParams as JaxSamplin
 from scratchpad_tpu.server.engine import Engine as JaxEngine
 from scratchpad_tpu_torch.config import ServerArgs
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
-from scratchpad_tpu_torch.executor.model_runner import WorkerBatch
+from scratchpad_tpu_torch.config.model_config import get_preset
+from scratchpad_tpu_torch.executor.model_runner import WorkerBatch, resolve_kv_cache_dtype
 from scratchpad_tpu_torch.executor.weight_loader import params_from_jax
 from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
@@ -86,7 +87,10 @@ def _teacher_forced_margins(eng, prompt, out_ids):
 
 
 def test_greedy_tokens_match_jax(engines):
-    jeng, eng = engines
+    _greedy_tokens_match(*engines)
+
+
+def _greedy_tokens_match(jeng, eng, stop_at_tie=False):
     # 5 and 23 tokens, and 40 (> chunked_prefill_size 16: three chunks)
     prompts = [_prompt(n, seed=n) for n in (5, 23, 40)]
     max_new = [12, 9, 16]
@@ -105,12 +109,19 @@ def test_greedy_tokens_match_jax(engines):
     jout2 = jeng.generate(input_ids=again, sampling_params=JaxSamplingParams(**sp))
     assert out2.cached_tokens == jout2.cached_tokens == 32
 
+    compared = 0
     for p, o, j, m in zip(prompts + [again], outs + [out2], jouts + [jout2], max_new + [10]):
         assert len(o.output_ids) == m
-        assert o.output_ids == j.output_ids
         ids, margins = _teacher_forced_margins(eng, p, o.output_ids)
         assert ids == o.output_ids
-        assert min(margins) > MARGIN, min(margins)
+        n = m
+        if stop_at_tie:
+            n = next((i for i, g in enumerate(margins) if g <= MARGIN), m)
+        else:
+            assert min(margins) > MARGIN, min(margins)
+        assert o.output_ids[:n] == j.output_ids[:n]
+        compared += n
+    assert compared >= 30, compared  # of the 47 generated tokens
     eng.scheduler.check_memory_leak()
 
 
@@ -194,7 +205,7 @@ def test_extend_runs_unpadded_and_decode_pads_to_buckets(engines):
     [
         dict(attention_backend="plain"),
         dict(speculative_algorithm="ngram"),
-        dict(quantization="w4a8"),
+        dict(quantization="fp8"),
         dict(kv_cache_dtype="int8"),
         dict(tp_size=2),
         dict(enable_overlap=True),
@@ -205,3 +216,34 @@ def test_extend_runs_unpadded_and_decode_pads_to_buckets(engines):
 def test_unported_settings_are_refused(setting):
     with pytest.raises(NotImplementedError):
         ServerArgs(preset="tiny-debug", device="cpu", **setting).resolve()
+
+
+@pytest.mark.parametrize("quantization", ["w4a8", "w4a16", "w4", "awq", "gptq", "gptq_v2"])
+def test_w4_quantization_names_resolve(quantization):
+    args = ServerArgs(preset="tiny-debug", device="cpu", quantization=quantization).resolve()
+    assert args.quantization == quantization
+
+
+@pytest.mark.parametrize(
+    "quantization,preset,device,raises",
+    [
+        ("w4a8", "llama-3.2-3b", "cuda", True),  # hidden x layers 86,016
+        ("gptq", "llama-3.2-3b", "cuda", True),
+        ("w4a8", "llama-3.2-3b", "cpu", False),  # off the accelerator: bf16
+        ("w4a8", "llama-3.2-1b", "cuda", False),  # 32,768 < 50,000
+        (None, "llama-3.2-3b", "cuda", False),  # unquantized
+        ("w4", "llama-3.2-3b", "cuda", False),  # not in the JAX rule's list
+    ],
+)
+def test_kv_cache_dtype_auto_rule(quantization, preset, device, raises):
+    """The JAX runner's kv_cache_dtype=auto would pick int8 KV for W4
+    serving of 3B and up on an accelerator; the port has no int8 KV yet
+    (slice 3), so it refuses there instead of serving bf16 KV silently."""
+    args = ServerArgs(preset=preset, quantization=quantization, device="cpu").resolve()
+    cfg = get_preset(preset)
+    if raises:
+        with pytest.raises(NotImplementedError, match="slice 3"):
+            resolve_kv_cache_dtype(args, cfg, torch.device(device))
+        args.kv_cache_dtype = "bfloat16"  # an explicit setting serves bf16
+    assert resolve_kv_cache_dtype(args, cfg, torch.device(device)) == "bfloat16"
+    assert args.kv_cache_dtype in ("auto", "bfloat16")  # never written back

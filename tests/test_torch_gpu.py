@@ -7,13 +7,16 @@ PyTorch; there, skip the JAX test configuration:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerance: |kernel - plain| <= 1e-4 + 2**-8 * |plain| on bf16 inputs, the
-plain version computing in f32 and returning f32. Both kernels accumulate in
-f32 and round only their output to bf16, which moves a value by at most
-2**-8 of itself; 1e-4 covers the order of the f32 sums.
+plain version computing in f32 and returning f32. Every kernel accumulates in
+f32 and rounds only its output to bf16, which moves a value by at most 2**-8
+of itself; 1e-4 covers the order of the f32 sums. The W4 GEMMs get the same
+int8 rows as their plain versions, and the row quantizer must match its
+plain version bit for bit.
 """
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +26,16 @@ from scratchpad_tpu_torch.ops.attention import (
     paged_extend_attention,
     paged_extend_attention_plain,
 )
+from scratchpad_tpu_torch.ops.quant.w4_matmul import (
+    pack_w4,
+    quantize_activations_plain,
+    quantize_rows_int8,
+    w4a8_matmul,
+    w4a8_matmul_plain,
+    w4a16_matmul,
+    w4a16_matmul_plain,
+)
+from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked
 
 pytestmark = pytest.mark.gpu
 
@@ -107,3 +120,75 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     cu = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):  # q on another device than the pool
         paged_extend_attention(q.bfloat16().cpu(), k, v, pt, seq, cu, 0.1)
+
+
+# (In, Out) -> quantize_stacked's group: 128; 120 (GPT-OSS's half-plane
+# rule); 100, not a multiple of 8; and a padded Out (out_true 200)
+W4_SHAPES = [(256, 256), (240, 256), (200, 128), (128, 200)]
+
+
+def _w4_weight(In, Out, seed):
+    w = np.random.default_rng(seed).normal(size=(1, In, Out)).astype(np.float32)
+    ql = quantize_stacked(w / np.sqrt(In))
+    q, s, z = pack_w4(ql)
+    return q[0].cuda(), s[0].cuda(), z[0].cuda(), ql.group_size, ql.out_features
+
+
+def _w4_rows(M, In, gen):
+    x = torch.randn(M, In, generator=gen, device="cuda").to(torch.bfloat16)
+    x[M // 2] = 0  # a padding row
+    return x
+
+
+@pytest.mark.parametrize("M", [1, 5, 64, 300])
+@pytest.mark.parametrize("In,g", [(2048, 128), (240, 120), (200, 100), (262, 1)])
+def test_quantize_rows_is_bit_exact(gen, M, In, g):
+    x = _w4_rows(M, In, gen)
+    # exact ties: a row with amax 127 has ax == 1, so x / ax lands on .5
+    x[0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])
+    out = quantize_rows_int8(x, g)
+    ref = quantize_activations_plain(x, g)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    if M > 1:  # the zero row is not the row of ties
+        assert float(out[1][M // 2]) == 1.0 and not out[0][M // 2].any() and not out[2][M // 2].any()
+
+
+@pytest.mark.parametrize("M", [1, 5, 64, 300])
+@pytest.mark.parametrize("In,Out", W4_SHAPES)
+def test_w4a8_kernel_matches_plain(gen, M, In, Out):
+    q, s, z, g, out_f = _w4_weight(In, Out, seed=In + Out)
+    x8, ax, gsum = quantize_rows_int8(_w4_rows(M, In, gen), g)
+    out = w4a8_matmul(x8, ax, gsum, q, s, z, g, out_f)
+    _close(out, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, out_f))
+    assert out.shape == (M, out_f) and not out[M // 2].any()
+
+
+@pytest.mark.parametrize("M", [1, 5, 64, 300])
+@pytest.mark.parametrize("In,Out", W4_SHAPES)
+def test_w4a16_kernel_matches_plain(gen, M, In, Out):
+    q, s, z, g, out_f = _w4_weight(In, Out, seed=In + Out)
+    x = _w4_rows(M, In, gen)
+    out = w4a16_matmul(x, q, s, z, g, out_f)
+    _close(out, w4a16_matmul_plain(x, q, s, z, g, out_f))
+    assert out.shape == (M, out_f) and not out[M // 2].any()
+
+
+def test_w4_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    q, s, z, g, out_f = _w4_weight(256, 256, seed=0)
+    x = _w4_rows(4, 256, gen)
+    with pytest.raises(TypeError):  # f32 activations
+        quantize_rows_int8(x.float(), g)
+    with pytest.raises(TypeError):
+        w4a16_matmul(x.float(), q, s, z, g, out_f)
+    with pytest.raises(ValueError):  # a group that does not tile In
+        quantize_rows_int8(x, 96)
+    x8, ax, gsum = quantize_rows_int8(x, g)
+    with pytest.raises(ValueError):  # In of 128 against a 256-row weight
+        w4a16_matmul(x[:, :128].contiguous(), q, s, z, g, out_f)
+    with pytest.raises(ValueError):  # f32 scales
+        w4a8_matmul(x8, ax, gsum, q, s.float(), z, g, out_f)
+    with pytest.raises(ValueError):  # weights on the CPU, activations on the card
+        w4a8_matmul(x8, ax, gsum, q.cpu(), s.cpu(), z.cpu(), g, out_f)

@@ -1,6 +1,7 @@
 """The port's Llama against the JAX package's on the same weights, on the CPU
-in f32: logits of extend steps (fresh prompts, a chunk after a cached
-prefix) and of teacher-forced decode steps agree within 1e-4.
+in f32, unquantized and with 4-bit weights (W4A8, W4A16): logits of extend
+steps (fresh prompts, a chunk after a cached prefix) and of teacher-forced
+decode steps agree within 1e-4.
 
 Both models start from one seeded JAX parameter pytree, handed to the port
 as numpy through ``params_from_jax``; each writes its own KV pool.
@@ -18,6 +19,9 @@ from scratchpad_tpu.executor.forward_meta import ForwardMode as JaxMode
 from scratchpad_tpu.memory.kv_cache import KVCacheConfig as JaxKVConfig
 from scratchpad_tpu.memory.kv_cache import create_kv_cache as jax_create_kv_cache
 from scratchpad_tpu.models.common import compute_inv_freq as jax_inv_freq
+from scratchpad_tpu.models.common import make_w4a8_quant_matmul
+from scratchpad_tpu.ops.quant import quantize_model_params as jax_quantize_model_params
+from scratchpad_tpu.ops.quant import quantize_stacked as jax_quantize_stacked
 from scratchpad_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from scratchpad_tpu_torch.config.model_config import get_preset
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
@@ -48,16 +52,30 @@ VARIANTS = {
 
 
 class Pair:
-    """The JAX and the port model on one weight state, each with its pool."""
+    """The JAX and the port model on one weight state, each with its pool.
 
-    def __init__(self, overrides, num_pages=64):
+    ``quantization`` (w4a8 | w4a16): the JAX parameters are quantized as its
+    runner does (``quantize_model_params(fuse_gate_up=True)`` and a 4-bit
+    head, ``lm_head_q``) and its model gets the runner's matmul; the port
+    loads the same codes through ``params_from_jax``."""
+
+    def __init__(self, overrides, num_pages=64, quantization=None):
         self.jcfg = jax_get_preset("tiny-debug", dtype="float32", **overrides)
         self.cfg = get_preset("tiny-debug", dtype="float32", **overrides)
         self.jmodel = JaxLlama(self.jcfg)
         self.jmodel.page_size = PS
         self.params = self.jmodel.init_params(jax.random.PRNGKey(0), jnp.float32)
+        if quantization is not None:
+            self.params = jax_quantize_model_params(self.params, fuse_gate_up=True)
+            head = self.params.pop("lm_head")  # tiny-debug's head is untied
+            self.params["lm_head_q"] = jax_quantize_stacked(jnp.swapaxes(head, 0, 1)[None])
+            if quantization == "w4a8":
+                self.jmodel.quant_matmul = make_w4a8_quant_matmul()
         params_np = jax.tree.map(np.asarray, self.params)
-        self.model = LlamaForCausalLM(self.cfg, torch.device("cpu"), torch.float32)
+        self.model = LlamaForCausalLM(
+            self.cfg, torch.device("cpu"), torch.float32,
+            quantization=quantization, quantize_lm_head=quantization is not None,
+        )
         self.model.load_state_dict(params_from_jax(params_np, self.cfg))
         L, Hkv, D = self.cfg.num_hidden_layers, self.cfg.num_kv_heads, self.cfg.head_dim
         self.jkv = jax_create_kv_cache(
@@ -109,9 +127,7 @@ class Pair:
         return np.asarray(jlogits), logits.numpy()
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
-def test_logits_match_jax(variant):
-    pair = Pair(VARIANTS[variant])
+def _extend_and_decode(pair, tol):
     rng = np.random.default_rng(1)
     V = pair.cfg.vocab_size
     pages = [np.arange(1, 13), np.arange(13, 25)]  # 48 tokens per sequence
@@ -119,16 +135,34 @@ def test_logits_match_jax(variant):
     b = rng.integers(1, V, 11)
     # extend: a fresh 20-token prompt next to a fresh 11-token one
     j, t = pair.step(ForwardMode.EXTEND, [(a[:20], 0, pages[0]), (b, 0, pages[1])])
-    np.testing.assert_allclose(t, j, **TOL)
+    np.testing.assert_allclose(t, j, **tol)
     # extend after a cached prefix: the prompt's last 10 tokens as a chunk
     j, t = pair.step(ForwardMode.EXTEND, [(a[20:], 20, pages[0])])
-    np.testing.assert_allclose(t, j, **TOL)
+    np.testing.assert_allclose(t, j, **tol)
     # teacher-forced decode steps on both sequences
     for s in range(4):
         nxt = rng.integers(1, V, 2)
         rows = [(nxt[:1], 30 + s, pages[0]), (nxt[1:], 11 + s, pages[1])]
         j, t = pair.step(ForwardMode.DECODE, rows)
-        np.testing.assert_allclose(t, j, **TOL)
+        np.testing.assert_allclose(t, j, **tol)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_logits_match_jax(variant):
+    _extend_and_decode(Pair(VARIANTS[variant]), TOL)
+
+
+@pytest.mark.parametrize("quantization", ["w4a8", "w4a16"])
+def test_quantized_logits_match_jax(quantization):
+    """The quantized model over the same codes: the port's plain W4 GEMMs
+    against the JAX package's CPU paths (``w4a8_matmul_xla``,
+    ``w4a16_matmul_xla``) in every projection and the head, within the
+    unquantized test's 1e-4. Readings, logits up to 3.3: W4A8 at most
+    4.8e-7 apart (both sides draw the same int8 rows here; one x8 rounded
+    the other way would move a logit by about ax * |w|, which this tolerance
+    would catch), W4A16 at most 3.6e-6 (``w4a16_matmul_xla`` dequantizes
+    before its dot, the port factors the scales out of it)."""
+    _extend_and_decode(Pair(VARIANTS["tiny-debug"], quantization=quantization), TOL)
 
 
 def test_inv_freq_matches_jax():
