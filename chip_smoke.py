@@ -13,32 +13,43 @@ Phases, in order; any failure exits non-zero before the last line:
    csrc`` with ``nvcc`` for sm_90a, one ``nvcc`` per source, in parallel.
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs (the plain version computes and returns f32). Attention, on
-   bf16 inputs: decode shapes of short (256) and long (4096) contexts,
-   batch 1 and 64, head_dim 64 and 128, with ``seq_len == 0`` rows; extend
-   shapes with mixed chunk lengths, cached prefixes and padded tokens. The
+   bf16 pages and on int8 and fp8 (e4m3) pages with per-(token, head) bf16
+   scales: decode shapes of short (256) and long (4096) contexts, batch 1
+   and 64, head_dim 64 and 128, 4 and 3 query heads per kv head (Llama-3.2-
+   1B's and 3B's), with ``seq_len == 0`` rows; extend shapes with mixed
+   chunk lengths, cached prefixes and padded tokens. The KV quantizer on the
+   card must match itself on the CPU bit for bit. The
    4-bit GEMMs: Llama-3.2-1B's seven matrices at M of 1, 64 and 2048, a
    group of 120 (GPT-OSS's 2880 -> 5760) and of 100 with a padded Out, each
    GEMM on the same int8 (W4A8) or bf16 (W4A16) rows as its plain version;
    the row quantizer must match its plain version bit for bit. Tolerance:
    |kernel - plain| <= ATOL + RTOL * |plain| elementwise (see below);
    padding and zero rows must come out as exact zeros.
-4. engines: ``Engine.generate`` on Llama-3.2-1B at full width and depth
-   with random weights, in bf16, then with ``quantization="w4a8"``, then
+4. engines: ``Engine.generate`` at full width and depth with random
+   weights: Llama-3.2-1B in bf16, then with ``quantization="w4a8"``, then
    W4A16 on the same engine and codes (every ``QuantLinear`` switched to
-   its A16 route): greedy requests of different lengths, two that share a
-   long prefix (radix hit), one longer than ``chunked_prefill_size``.
+   its A16 route); Llama-3.2-3B with ``quantization="w4a8"`` and
+   ``kv_cache_dtype="auto"``, which must resolve to int8 KV, then the same
+   weights with bf16 KV; Llama-3.2-1B in bf16 with fp8 KV. Each serves
+   greedy requests of different lengths, two that share a long prefix
+   (radix hit), one longer than ``chunked_prefill_size``.
    Every kernel's launch count is set to 0 just before and read just
-   after; attention must launch at least layers x forwards of its mode,
+   after; attention must launch at least layers x forwards of its mode
+   (the 8-bit kernels for an 8-bit pool, and the bf16 ones never there),
    each W4 kernel of the route (6 x layers + 1) x forwards. The model's
    logits on the kernel path are held against the plain path (plain
-   attention and plain W4 GEMMs) for each prompt's first generated token
+   attention and plain W4 GEMMs; not for the 3B engine with bf16 KV, whose
+   kernels the others hold) for each prompt's first generated token
    and one decode step after it: the argmax must agree on every row but
    those whose plain top-2 logits are equal or adjacent bf16 values (the
    logits are bf16, so ties occur), and max
    |diff| must stay within LOGIT_RTOL of max |logit|. After each
    engine's checks, while all checks hold: its decode tokens/s at batch 64
    with 128-token prompts and 128 new tokens, and the device's busy share
-   over such a run (``torch.profiler``).
+   of its decode steps: device time per step over three decode windows
+   of a profiled run (``torch.profiler``) against the timed run's wall per
+   step. The 3B int8-KV engine is timed again after the bf16-KV one, so
+   that the two are timed in turns.
    Phases 3 and 4 record a failed check and go on, so that a faulty
    kernel still shows every reading; the script exits non-zero after
    phase 4 if any check failed.
@@ -46,8 +57,10 @@ Phases, in order; any failure exits non-zero before the last line:
    main path's shapes, beside its bound (bytes at 3.35 TB/s, or operations
    at 989 TFLOP/s bf16 / 1,979 TOPS int8, whichever is larger), its plain
    version's time and one PyTorch call as a yardstick the port never calls
-   (``scaled_dot_product_attention`` on gathered dense K/V; ``torch.matmul``
-   of bf16 x with the weight dequantized to bf16 beforehand).
+   (``scaled_dot_product_attention`` on K/V gathered dense, and dequantized
+   to bf16, beforehand; ``torch.matmul`` of bf16 x with the weight
+   dequantized to bf16 beforehand). And the host's microseconds per
+   ``write_kv`` call into a bf16, int8 and fp8 pool.
 6. one JSON line with every kernel's numbers, one with the engines', the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -82,14 +95,24 @@ ATOL, RTOL = 1e-4, 2.0**-8
 # the int8 rounding of every GEMM's input: a bf16 ulp of difference
 # upstream moves an x8 by one, and that moves an output by ax * |w|; sound
 # kernels read up to 5.036e-2 there.
-LOGIT_RTOL = {"bf16": 3e-2, "w4a8": 1e-1, "w4a16": 3e-2}
+# The 8-bit KV engines quantize each new K/V row on each path, so a bf16
+# ulp upstream moves a code by one, as an x8 of W4A8. Sound kernels read
+# 5.500e-2 (3B W4A8, int8 KV) and 1.916e-2 (1B bf16, fp8 KV); a decode kernel
+# without the V scale, or an extend kernel that scales V by the K scale,
+# gives worst readings of 0.515 to 0.796 in both, and fp8 decode without
+# the sign bit 1.526 (PERF.md, Findings). The 3B engine with bf16 KV is not
+# compared.
+LOGIT_RTOL = {
+    "bf16": 3e-2, "w4a8": 1e-1, "w4a16": 3e-2, "3b-w4a8": 1e-1, "1b-fp8kv": 5e-2,
+}
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
 # its sound kernels flip one row of the request set at a gap of 1.439e-2
 # (PERF.md, Findings). A flip needs the two logits' differences to sum to
 # the gap, so an excuse that scales with the row's own max |diff| would
-# pass every flip; this one is a fixed floor.
-ARGMAX_FLOOR = {"bf16": 0.0, "w4a8": 2e-2, "w4a16": 0.0}
+# pass every flip; this one is a fixed floor. The 8-bit KV engines take it
+# too, since each path quantizes its own K/V rows.
+ARGMAX_FLOOR = {"bf16": 0.0, "w4a8": 2e-2, "w4a16": 0.0, "3b-w4a8": 2e-2, "1b-fp8kv": 2e-2}
 FAILURES: list[str] = []
 
 
@@ -136,6 +159,50 @@ def make_pool(lens, Hkv, D, ps, layers, gen):
     k = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     return k, v, pt
+
+
+def quant_pages(k, v, kind: str):
+    """bf16 pages as they are (``kind`` "bf16"), or as int8 / fp8 codes with
+    bf16 scales through the KV quantizer: (k, v, k_scale, v_scale). V is
+    scaled down first, so that K and V scales differ."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import quantize_rows
+
+    if kind == "bf16":
+        return k, v, None, None
+    code = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[kind]
+    kc, ks = quantize_rows(k, code)
+    vc, vs = quantize_rows(v * 0.05, code)
+    return kc, vc, ks, vs
+
+
+def at(t, l: int):
+    return None if t is None else t[l]
+
+
+def decode_kernel(q, k, v, ks, vs, pt, lens, scale):
+    """The decode wrapper of the pages' kind."""
+    from scratchpad_tpu_torch.ops.attention import paged_decode_attention, paged_decode_attention_quant
+
+    if ks is None:
+        return paged_decode_attention(q, k, v, pt, lens, scale)
+    return paged_decode_attention_quant(q, k, v, ks, vs, pt, lens, scale)
+
+
+def extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale):
+    from scratchpad_tpu_torch.ops.attention import paged_extend_attention, paged_extend_attention_quant
+
+    if ks is None:
+        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale)
+    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale)
+
+
+# kernel of each attention route, by the pages' kind
+DECODE = {"bf16": "paged_decode_attention", "int8": "paged_decode_attention_quant",
+          "fp8": "paged_decode_attention_quant"}
+EXTEND = {"bf16": "paged_extend_attention", "int8": "paged_extend_attention_quant",
+          "fp8": "paged_extend_attention_quant"}
 
 
 def max_err(out, ref) -> tuple[float, float]:
@@ -221,60 +288,57 @@ def phase_build():
 
 
 def check_decode(errs: dict) -> None:
+    """bf16, int8 and fp8 pages; G = 4 (Hq 32) and G = 3 (Hq 24) over Hkv 8;
+    head_dim 64 and 128; B 1 and 64 at contexts 256 and 4096, and a batch
+    with padding rows, which must come out as exact zeros."""
     import torch
 
-    from scratchpad_tpu_torch.ops.attention import (
-        paged_decode_attention,
-        paged_decode_attention_plain,
-    )
+    from scratchpad_tpu_torch.ops.attention import paged_decode_attention_plain
 
-    Hkv, G, ps = 8, 4, 16
+    Hkv, ps = 8, 16
     seed = 0
-    for D in (64, 128):
-        for B in (1, 64):
-            for ctx in (256, 4096):
-                seed += 1
-                gen = seeded(seed)
-                lens = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
-                lens[0] = ctx
-                lens = lens.to(torch.int32)
-                k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
-                q = torch.randn(B, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
-                scale = 1.0 / math.sqrt(D)
-                out = paged_decode_attention(q, k[0], v[0], pt, lens, scale)
-                ref = paged_decode_attention_plain(q.float(), k[0], v[0], pt, lens, scale)
-                torch.cuda.synchronize()
-                e, ratio = max_err(out, ref)
-                errs["paged_decode_attention"] = max(errs["paged_decode_attention"], e)
-                log(
-                    f"[check] decode D={D} B={B} ctx={ctx}: max_abs_err {e:.3e}, "
-                    f"max err/tol {ratio:.3f} (tol {ATOL}+{RTOL}*|ref|)"
-                )
-                check(ratio <= 1, f"decode kernel disagrees with its plain version at D={D} B={B} ctx={ctx}")
-        # padding rows: seq_len == 0 must give exact zeros
-        gen = seeded(100 + D)
-        lens = torch.tensor([300, 0, 17, 0], dtype=torch.int32, device="cuda")
-        k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
-        q = torch.randn(4, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
-        out = paged_decode_attention(q, k[0], v[0], pt, lens, 0.125)
-        ref = paged_decode_attention_plain(q.float(), k[0], v[0], pt, lens, 0.125)
-        torch.cuda.synchronize()
-        e, ratio = max_err(out, ref)
-        zero = bool((out[1] == 0).all() and (out[3] == 0).all())
-        log(
-            f"[check] decode D={D} padding rows: max_abs_err {e:.3e}, max err/tol "
-            f"{ratio:.3f}, zero rows exact: {zero}"
-        )
-        check(ratio <= 1 and zero, f"decode kernel padding rows wrong at D={D}")
+    for kind in ("bf16", "int8", "fp8"):
+        for G in (4, 3):
+            for D in (64, 128):
+                cases = [(B, ctx) for B in (1, 64) for ctx in (256, 4096)] + [None]
+                for case in cases:
+                    seed += 1
+                    gen = seeded(seed)
+                    if case is None:  # padding rows: seq_len == 0
+                        lens = torch.tensor([300, 0, 17, 0], dtype=torch.int32, device="cuda")
+                    else:
+                        B, ctx = case
+                        lens = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
+                        lens[0] = ctx
+                        lens = lens.to(torch.int32)
+                    k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
+                    k, v, ks, vs = quant_pages(k[0], v[0], kind)
+                    q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+                    scale = 1.0 / math.sqrt(D)
+                    out = decode_kernel(q, k, v, ks, vs, pt, lens, scale)
+                    ref = paged_decode_attention_plain(q.float(), k, v, pt, lens, scale, ks, vs)
+                    torch.cuda.synchronize()
+                    e, ratio = max_err(out, ref)
+                    zero = bool((out[lens == 0] == 0).all())
+                    errs[DECODE[kind]] = max(errs[DECODE[kind]], e)
+                    what = "padding rows" if case is None else f"B={case[0]} ctx={case[1]}"
+                    log(
+                        f"[check] decode {kind} G={G} D={D} {what}: max_abs_err {e:.3e}, "
+                        f"max err/tol {ratio:.3f} (tol {ATOL}+{RTOL}*|ref|), zero rows exact: {zero}"
+                    )
+                    check(
+                        ratio <= 1 and zero,
+                        f"{kind} decode kernel disagrees with its plain version at G={G} D={D} {what}",
+                    )
 
 
-def extend_case(chunks, D, T_pad, seed):
+def extend_case(chunks, D, T_pad, seed, G=4):
     """chunks: (q_len, kv_len) per sequence; tokens past the chunks up to
     T_pad are padding."""
     import torch
 
     gen = seeded(seed)
-    Hkv, G, ps = 8, 4, 16
+    Hkv, ps = 8, 16
     q_lens = [c[0] for c in chunks]
     kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
     cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
@@ -288,10 +352,7 @@ def extend_case(chunks, D, T_pad, seed):
 def check_extend(errs: dict) -> None:
     import torch
 
-    from scratchpad_tpu_torch.ops.attention import (
-        paged_extend_attention,
-        paged_extend_attention_plain,
-    )
+    from scratchpad_tpu_torch.ops.attention import paged_extend_attention_plain
 
     cases = [
         # fresh prompt, chunk after a cached prefix, short tail, decode-like row
@@ -300,27 +361,60 @@ def check_extend(errs: dict) -> None:
         ([(2048, 4096), (1500, 1500), (300, 845), (200, 200)], 4096),
     ]
     seed = 200
-    for D in (64, 128):
-        for chunks, T_pad in cases:
-            seed += 1
-            q, k, v, pt, kv_lens, cu = extend_case(chunks, D, T_pad, seed)
-            scale = 1.0 / math.sqrt(D)
-            out = paged_extend_attention(q, k, v, pt, kv_lens, cu, scale)
-            ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, scale)
+    for kind in ("bf16", "int8", "fp8"):
+        for G in (4, 3):
+            for D in (64, 128):
+                for chunks, T_pad in cases:
+                    seed += 1
+                    q, k, v, pt, kv_lens, cu = extend_case(chunks, D, T_pad, seed, G)
+                    k, v, ks, vs = quant_pages(k, v, kind)
+                    scale = 1.0 / math.sqrt(D)
+                    out = extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale)
+                    ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, scale, ks, vs)
+                    torch.cuda.synchronize()
+                    e, ratio = max_err(out, ref)
+                    n_real = int(cu[-1])
+                    zero = bool((out[n_real:] == 0).all())
+                    errs[EXTEND[kind]] = max(errs[EXTEND[kind]], e)
+                    log(
+                        f"[check] extend {kind} G={G} D={D} chunks={chunks} T={q.shape[0]}: "
+                        f"max_abs_err {e:.3e}, max err/tol {ratio:.3f}, {q.shape[0] - n_real} "
+                        f"padded tokens zero: {zero}"
+                    )
+                    check(
+                        ratio <= 1 and zero,
+                        f"{kind} extend kernel disagrees with its plain version at G={G} D={D} chunks={chunks}",
+                    )
+
+
+def check_kv_quantizer() -> None:
+    """The KV quantizer (plain PyTorch on both devices) on the card against
+    itself on the CPU, bit for bit: Llama-3.2-3B's K/V rows of a 2048-token
+    chunk over six decades, a zero row, and rows whose bf16 scale rounds down
+    so that |x / scale| passes the code range (127.49 and 449.7)."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import quantize_rows
+
+    gen = seeded(600)
+    x = torch.randn(2048, 8, 128, generator=gen, device="cuda")
+    x *= 10.0 ** torch.randint(-3, 4, (2048, 8, 1), generator=gen, device="cuda")
+    x[5] = 0
+    for kind, code, limit in (("int8", torch.int8, 127.0), ("fp8", torch.float8_e4m3fn, 448.0)):
+        x[9] = 0
+        x[9, :, :16] = torch.linspace(-limit * 1.0039, limit * 1.0039, 16, device="cuda")
+        for xb in (x.to(torch.bfloat16), x):
+            codes, scale = quantize_rows(xb, code)
+            ref_codes, ref_scale = quantize_rows(xb.cpu(), code)
             torch.cuda.synchronize()
-            e, ratio = max_err(out, ref)
-            n_real = int(cu[-1])
-            zero = bool((out[n_real:] == 0).all())
-            errs["paged_extend_attention"] = max(errs["paged_extend_attention"], e)
+            n_diff = int((codes.view(torch.uint8).cpu() != ref_codes.view(torch.uint8)).sum())
+            s_diff = int((scale.cpu() != ref_scale).sum())
+            finite = bool(torch.isfinite(codes.float()).all())
             log(
-                f"[check] extend D={D} chunks={chunks} T={q.shape[0]}: max_abs_err "
-                f"{e:.3e}, max err/tol {ratio:.3f}, {q.shape[0] - n_real} padded "
-                f"tokens zero: {zero}"
+                f"[check] kv quantizer {kind} on {xb.dtype} rows [2048, 8, 128]: {n_diff} codes "
+                f"and {s_diff} scales differ from the CPU; all codes finite: {finite}"
             )
-            check(
-                ratio <= 1 and zero,
-                f"extend kernel disagrees with its plain version at D={D} chunks={chunks}",
-            )
+            check(n_diff == 0 and s_diff == 0 and finite, f"{kind} KV quantizer on the card differs from the CPU")
 
 
 def llama_1b_matrices():
@@ -414,37 +508,48 @@ def check_w4(errs: dict) -> None:
 # --------------------------------------------------------- phase 5 (kernels)
 
 
-def time_decode(B: int, ctx: int, D: int = 64) -> dict:
-    """The 1B decode shape: Hq 32, Hkv 8, head_dim 64, page 16."""
+def dense_kv(cache, scale, pt, ps: int, B: int, n: int):
+    """The first n cached tokens of each sequence as dense bf16 [B, Hkv, n,
+    D] (dequantized for 8-bit pages), for the library yardstick."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import gather_kv_rows
+
+    slots = (pt.long()[:, :, None] * ps + torch.arange(ps, device="cuda")).reshape(B, -1)[:, :n]
+    return gather_kv_rows(cache, scale, slots).to(torch.bfloat16).transpose(1, 2).contiguous()
+
+
+def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16") -> dict:
+    """Decode at page 16 over Hkv 8: Llama-3.2-1B is G 4, D 64; 3B is G 3,
+    D 128. ``kind``: bf16 pages, or int8 / fp8 codes with bf16 scales."""
     import torch
     import torch.nn.functional as F
 
-    from scratchpad_tpu_torch.ops.attention import (
-        paged_decode_attention,
-        paged_decode_attention_plain,
-    )
+    from scratchpad_tpu_torch.ops.attention import paged_decode_attention_plain
 
-    Hkv, G, ps = 8, 4, 16
-    per_layer = B * ctx * Hkv * D * 2 * 2
+    Hkv, ps = 8, 16
+    elem = 2 if kind == "bf16" else 1
+    per_layer = B * ctx * Hkv * D * 2 * elem
     layers = max(2, min(16, -(-256 * 2**20 // per_layer)))
-    gen = seeded(1000 + B + ctx)
+    gen = seeded(1000 + B + ctx + D + G)
     lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
     k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, layers, gen)
+    k, v, ks, vs = quant_pages(k, v, kind)
     q = torch.randn(B, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
-    kern = lambda l: paged_decode_attention(q, k[l], v[l], pt, lens, scale)
-    plain = lambda l: paged_decode_attention_plain(q, k[l], v[l], pt, lens, scale)
-    # dense [B, Hkv, S, D] copies for the library call, gathered once
-    slots = (pt.long()[:, :, None] * ps + torch.arange(ps, device="cuda")).reshape(B, -1)[:, :ctx]
-    kd = [k[l].reshape(-1, Hkv, D)[slots].transpose(1, 2).contiguous() for l in range(layers)]
-    vd = [v[l].reshape(-1, Hkv, D)[slots].transpose(1, 2).contiguous() for l in range(layers)]
+    kern = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale)
+    plain = lambda l: paged_decode_attention_plain(q, k[l], v[l], pt, lens, scale, at(ks, l), at(vs, l))
+    # dense [B, Hkv, S, D] bf16 copies for the library call, made once
+    kd = [dense_kv(k[l], at(ks, l), pt, ps, B, ctx) for l in range(layers)]
+    vd = [dense_kv(v[l], at(vs, l), pt, ps, B, ctx) for l in range(layers)]
     q4 = q.view(B, Hkv * G, 1, D)
     lib = lambda l: F.scaled_dot_product_attention(q4, kd[l], vd[l], scale=scale, enable_gqa=True)
-    nbytes = q.numel() * 2 * 2 + B * ctx * Hkv * D * 2 * 2 + pt.numel() * 4 + B * 4
+    kv_bytes = B * ctx * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
+    nbytes = q.numel() * 2 * 2 + kv_bytes + pt.numel() * 4 + B * 4
     flops = 4.0 * B * ctx * Hkv * G * D
     b, by = bound_ms(nbytes, flops)
     r = dict(
-        shape=f"B={B} ctx={ctx} Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}",
+        shape=f"{kind} pages, B={B} ctx={ctx} Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}",
         ms=device_ms(kern, layers, 50),
         plain_ms=device_ms(plain, layers, 5),
         library_ms=device_ms(lib, layers, 50),
@@ -456,38 +561,38 @@ def time_decode(B: int, ctx: int, D: int = 64) -> dict:
     return r
 
 
-def time_extend(chunks, D: int = 64) -> dict:
+def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16") -> dict:
     import torch
     import torch.nn.functional as F
 
-    from scratchpad_tpu_torch.ops.attention import (
-        paged_extend_attention,
-        paged_extend_attention_plain,
-    )
+    from scratchpad_tpu_torch.ops.attention import paged_extend_attention_plain
 
-    Hkv, G, ps = 8, 4, 16
+    Hkv, ps = 8, 16
+    elem = 2 if kind == "bf16" else 1
     kv_total = sum(c[1] for c in chunks)
-    per_layer = kv_total * Hkv * D * 2 * 2
+    per_layer = kv_total * Hkv * D * 2 * elem
     layers = max(2, min(16, -(-256 * 2**20 // per_layer)))
-    gen = seeded(2000 + len(chunks))
+    gen = seeded(2000 + len(chunks) + D + G)
     q_lens = [c[0] for c in chunks]
     kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
     cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
     cu[1:] = torch.cumsum(torch.tensor(q_lens, device="cuda"), 0).to(torch.int32)
     T = sum(q_lens)
     k, v, pt = make_pool(kv_lens.tolist(), Hkv, D, ps, layers, gen)
+    k, v, ks, vs = quant_pages(k, v, kind)
     q = torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
-    kern = lambda l: paged_extend_attention(q, k[l], v[l], pt, kv_lens, cu, scale)
-    plain = lambda l: paged_extend_attention_plain(q, k[l], v[l], pt, kv_lens, cu, scale)
+    kern = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale)
+    plain = lambda l: paged_extend_attention_plain(
+        q, k[l], v[l], pt, kv_lens, cu, scale, at(ks, l), at(vs, l)
+    )
     # library yardstick: one SDPA call over the batch when every sequence
     # has the same (q_len, kv_len), with the tail-aligned causal mask
     assert len(set(chunks)) == 1, "library yardstick needs one (q_len, kv_len)"
     ql, kl = chunks[0]
     B = len(chunks)
-    slots = (pt.long()[:, :, None] * ps + torch.arange(ps, device="cuda")).reshape(B, -1)[:, :kl]
-    kd = [k[l].reshape(-1, Hkv, D)[slots].transpose(1, 2).contiguous() for l in range(layers)]
-    vd = [v[l].reshape(-1, Hkv, D)[slots].transpose(1, 2).contiguous() for l in range(layers)]
+    kd = [dense_kv(k[l], at(ks, l), pt, ps, B, kl) for l in range(layers)]
+    vd = [dense_kv(v[l], at(vs, l), pt, ps, B, kl) for l in range(layers)]
     qd = q.view(B, ql, Hkv * G, D).transpose(1, 2).contiguous()
     if ql == kl:
         lib = lambda l: F.scaled_dot_product_attention(
@@ -501,11 +606,13 @@ def time_extend(chunks, D: int = 64) -> dict:
             qd, kd[l], vd[l], attn_mask=mask, scale=scale, enable_gqa=True
         )
     attended = sum(q_ * (k_ - q_) + q_ * (q_ + 1) / 2 for q_, k_ in chunks)
-    nbytes = T * Hkv * G * D * 2 * 2 + kv_total * Hkv * D * 2 * 2 + pt.numel() * 4
+    kv_bytes = kv_total * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
+    nbytes = T * Hkv * G * D * 2 * 2 + kv_bytes + pt.numel() * 4
     flops = 4.0 * attended * Hkv * G * D
     b, by = bound_ms(nbytes, flops)
     r = dict(
-        shape=f"{len(chunks)} x (q_len {ql}, kv_len {kl}) Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}",
+        shape=f"{kind} pages, {len(chunks)} x (q_len {ql}, kv_len {kl}) Hq={Hkv * G} Hkv={Hkv} "
+        f"D={D} page={ps}",
         ms=device_ms(kern, layers, 10),
         plain_ms=device_ms(plain, layers, 2, reps=3),
         library_ms=device_ms(lib, layers, 10),
@@ -658,12 +765,66 @@ def phase_w4_timing() -> dict:
     return dict(rows=rows, quant=quant, per_forward=per_fwd)
 
 
+def time_kv_write(D: int) -> dict:
+    """Host microseconds per ``write_kv`` call (the host's launch work,
+    before a synchronize) and host plus device, for one decode step's K/V
+    at bs 64, Hkv 8, by pool dtype: the 8-bit pools quantize each row with
+    plain PyTorch ops before they scatter it."""
+    import torch
+
+    from scratchpad_tpu_torch.memory.kv_cache import KVCacheConfig, create_kv_cache
+    from scratchpad_tpu_torch.ops.attention import write_kv
+
+    B, Hkv, ps, n = 64, 8, 16, 300
+    gen = seeded(7000 + D)
+    k = torch.randn(B, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    loc = torch.arange(B, device="cuda") * ps + ps
+    r = {}
+    for kind, code in (("bf16", None), ("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        pool = create_kv_cache(
+            KVCacheConfig(1, B + 1, ps, Hkv, D, torch.bfloat16, quantized=code is not None,
+                          quant_dtype=code or torch.int8),
+            torch.device("cuda"),
+        )
+        for _ in range(10):
+            write_kv(pool, k, v, 0, loc)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            write_kv(pool, k, v, 0, loc)
+        host = (time.perf_counter() - t) / n * 1e6
+        torch.cuda.synchronize()
+        r[kind] = (host, (time.perf_counter() - t) / n * 1e6)
+        log(
+            f"[time] write_kv {kind} pool, B={B} Hkv={Hkv} D={D}: host {host:.1f} us per call, "
+            f"host and device {r[kind][1]:.1f} us per call"
+        )
+    return r
+
+
 def phase_timing() -> dict:
+    """The first row of each kernel is its main shape in the ``kernels``
+    line: Llama-3.2-1B's for the bf16 kernels, 3B's (G 3, D 128) for the
+    8-bit ones."""
     t = {
-        "paged_decode_attention": [time_decode(64, 256), time_decode(64, 4096)],
+        "paged_decode_attention": [
+            time_decode(64, 256), time_decode(64, 4096), time_decode(64, 4096, 128, 3),
+        ],
+        "paged_decode_attention_quant": [
+            time_decode(64, 4096, 128, 3, "int8"), time_decode(64, 4096, 128, 3, "fp8"),
+            time_decode(64, 4096, 64, 4, "int8"), time_decode(64, 4096, 64, 4, "fp8"),
+            time_decode(64, 256, 128, 3, "int8"),
+        ],
         "paged_extend_attention": [
             time_extend([(128, 128)] * 64),
             time_extend([(2048, 8192)]),
+            time_extend([(128, 128)] * 64, 128, 3),
+        ],
+        "paged_extend_attention_quant": [
+            time_extend([(128, 128)] * 64, 128, 3, "int8"),
+            time_extend([(2048, 8192)], 128, 3, "int8"),
+            time_extend([(128, 128)] * 64, 128, 3, "fp8"),
         ],
     }
     for name, rows in t.items():
@@ -672,6 +833,8 @@ def phase_timing() -> dict:
                 f"[time] {name} {r['shape']}: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library {r['library_ms']:.4f} ms"
             )
+    for D in (128, 64):
+        time_kv_write(D)
     return t
 
 
@@ -724,7 +887,9 @@ def prompt_logits(runner, prompt, next_token):
         runner.page_allocator.free(pages)
 
 
-def make_engine(quantization=None):
+def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto", params=None):
+    """An engine with seeded random weights, or with ``params`` (a state
+    dict of the same model, for example another engine's quantized one)."""
     import torch
 
     from scratchpad_tpu_torch.config import ServerArgs
@@ -735,16 +900,18 @@ def make_engine(quantization=None):
     t0 = time.monotonic()
     engine = Engine(
         ServerArgs(
-            preset="llama-3.2-1b", random_weights=True, dtype="bfloat16", device="cuda",
-            quantization=quantization,
-        )
+            preset=preset, random_weights=True, dtype="bfloat16", device="cuda",
+            quantization=quantization, kv_cache_dtype=kv_cache_dtype,
+        ),
+        params=params,
     )
     runner = engine.scheduler.runner
     log(
-        f"[engine] llama-3.2-1b {quantization or 'bf16'} ready in "
-        f"{time.monotonic() - t0:.1f} s ({runner.quantize_seconds:.1f} s of it quantizing "
-        f"on the host): {runner.param_bytes / 2**30:.3f} GiB of parameters and buffers, "
-        f"{runner.max_total_num_tokens} KV tokens"
+        f"[engine] {preset} {quantization or 'bf16'}, kv_cache_dtype={kv_cache_dtype} -> "
+        f"{runner.kv_cache_dtype} KV, ready in {time.monotonic() - t0:.1f} s "
+        f"({runner.quantize_seconds:.1f} s of it quantizing on the host): "
+        f"{runner.param_bytes / 2**30:.3f} GiB of parameters and buffers, "
+        f"{runner.max_total_num_tokens} KV tokens ({runner.kv_bytes_per_token()} B each)"
     )
     return engine
 
@@ -786,13 +953,14 @@ class PlainPath:
         common.quantize_rows_int8, common.w4a8_matmul, common.w4a16_matmul = self.saved_w4
 
 
-def phase_engine(engine, label: str, w4_kernels=()) -> dict:
+def phase_engine(engine, label: str, w4_kernels=(), logits=True) -> dict:
     """Serve the request set through ``Engine.generate`` with every launch
     count set to 0 just before and read just after; check each request,
-    the radix hit, the launches of both attention kernels (one per layer
-    and forward of their mode) and of ``w4_kernels`` (one per quantized
-    matrix and forward: 6 per layer and the head), and the kernel-path
-    logits against the plain path's. The argmax must agree on every row
+    the radix hit, the launches of both attention kernels of the pool's
+    kind (one per layer and forward of their mode; the other kind's never)
+    and of ``w4_kernels`` (one per quantized matrix and forward: 6 per layer
+    and the head), and, with ``logits``, the kernel-path logits against the
+    plain path's. The argmax must agree on every row
     but a bf16 tie: the plain path's top-2 logits equal or one bf16 ulp
     apart. Each row whose argmax differs is logged with its gap."""
     import numpy as np
@@ -845,16 +1013,27 @@ def phase_engine(engine, label: str, w4_kernels=()) -> dict:
         check(o.prompt_tokens == len(p), f"{label} request {o.rid}: prompt_tokens {o.prompt_tokens} != {len(p)}")
     check(outs[-1].cached_tokens >= 512, f"{label}: no radix hit: cached_tokens {outs[-1].cached_tokens}")
     log(f"[engine {label}] radix hit: {outs[-1].cached_tokens} cached tokens; chunked prompt of {len(prompts[5])} tokens")
-    need = {"paged_extend_attention": L * n_ext, "paged_decode_attention": L * n_dec}
+    pages = runner.kv_cache_dtype if runner.kv_cache.quantized else "bf16"
+    need = {EXTEND[pages]: L * n_ext, DECODE[pages]: L * n_dec}
     for k in w4_kernels:
         need[k] = (6 * L + 1) * (n_ext + n_dec)
     for k, n in need.items():
         check(counts[k] >= n > 0, f"{label}: {k} launched {counts[k]} times, fewer than {n}")
+    other = "bf16" if runner.kv_cache.quantized else "int8"
+    for k in (EXTEND[other], DECODE[other]):
+        check(counts[k] == 0, f"{label}: {k} launched {counts[k]} times on a {pages} pool")
     steps = {
-        "paged_extend_attention": n_ext, "paged_decode_attention": n_dec,
+        EXTEND[pages]: n_ext, DECODE[pages]: n_dec,
         **{k: n_ext + n_dec for k in w4_kernels},
     }
 
+    result = dict(
+        counts=counts, steps=steps, worst_logit_rel=None,
+        preset=engine.args.preset, weights=engine.args.quantization or "bf16",
+        kv_cache_dtype=runner.kv_cache_dtype,
+    )
+    if not logits:
+        return result
     # kernel path vs plain path logits for each prompt's first generated
     # token (extend) and the step after it (decode), on the card
     tol = LOGIT_RTOL[label]
@@ -899,12 +1078,21 @@ def phase_engine(engine, label: str, w4_kernels=()) -> dict:
         f"{ties} rows with a bf16 tie at the top; smallest plain top-2 gap "
         f"{min_margin:.3e} of max|logit|"
     )
-    return dict(counts=counts, steps=steps, worst_logit_rel=max(worst.values()))
+    result["worst_logit_rel"] = max(worst.values())
+    return result
+
+
+PROFILED_WINDOWS = (2, 5)  # decode windows [2, 5) of the profiled run
 
 
 def phase_engine_times(engine, eng: dict, label: str) -> None:
-    """Decode tokens/s at the bench shape (bs 64, 128 + 128) and the
-    device's busy share over one such run."""
+    """Decode tokens/s at the bench shape (bs 64, 128 + 128), and the
+    device's busy share of a decode step: the device time per step over
+    decode windows ``PROFILED_WINDOWS`` of a profiled run (all 64 rows
+    decoding; a trace of the whole run took ``key_averages`` about a minute
+    per engine to digest) against the wall per step of the timed run. The
+    profiler slows the host several times over, so the profiled window's
+    own wall is logged but not used."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -946,9 +1134,31 @@ def phase_engine_times(engine, eng: dict, label: str) -> None:
         f"[engine {label}] bs 64, 128+128: decode {eng['decode_tok_s']:.1f} tok/s "
         f"(time inside decode windows), {eng['e2e_tok_s']:.1f} tok/s end to end"
     )
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall = run()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    span = {"windows": 0, "steps": 0}
+
+    def profiled_window(wb, K):
+        n = span["windows"]
+        if n == PROFILED_WINDOWS[0]:
+            torch.cuda.synchronize()
+            prof.start()
+            span["t0"] = time.perf_counter()
+        out = timed_window(wb, K)
+        if PROFILED_WINDOWS[0] <= n < PROFILED_WINDOWS[1]:
+            span["steps"] += out[0].shape[0]
+        if n == PROFILED_WINDOWS[1] - 1:
+            torch.cuda.synchronize()
+            span["wall"] = time.perf_counter() - span["t0"]
+            prof.stop()
+        span["windows"] = n + 1
+        return out
+
+    runner.run_decode_window = profiled_window
+    run()
     runner.run_decode_window = inner_window
+    if "wall" not in span:
+        fail(f"{label}: the bench run had {span['windows']} decode windows, too few to profile")
+    wall = span["wall"]
     # device-side events only (kernels, copies, memsets): a CPU op's row
     # repeats the device time of the kernels it launched
     rows = [
@@ -958,16 +1168,20 @@ def phase_engine_times(engine, eng: dict, label: str) -> None:
     ]
     busy_us = sum(t for _, t in rows)
     if busy_us > 0:
-        eng["device_busy_share"] = busy_us / 1e6 / wall
-        eng["device_busy_ms"] = busy_us / 1e3
+        step_ms = 64 / eng["decode_tok_s"] * 1e3  # the timed run's wall per decode step
+        eng["device_ms_per_step"] = busy_us / 1e3 / span["steps"]
+        eng["device_busy_share"] = eng["device_ms_per_step"] / step_ms
         log(
-            f"[profile {label}] bs 64, 128+128 run: device busy {busy_us / 1e3:.1f} ms of "
-            f"{wall * 1e3:.1f} ms wall"
+            f"[profile {label}] bs 64, 128+128 run, decode windows {PROFILED_WINDOWS[0]} to "
+            f"{PROFILED_WINDOWS[1] - 1} ({span['steps']} steps): device busy "
+            f"{busy_us / 1e3:.1f} ms, {eng['device_ms_per_step']:.3f} ms per step, against "
+            f"{step_ms:.3f} ms of wall per step in the timed run: busy share "
+            f"{eng['device_busy_share']:.3f} (the profiled window's own wall {wall * 1e3:.1f} ms)"
         )
         for key, t in sorted(rows, key=lambda r: -r[1])[:12]:
             log(f"[profile {label}]   {t / 1e3:9.2f} ms  {key[:100]}")
     else:
-        eng["device_busy_share"] = eng["device_busy_ms"] = None
+        eng["device_busy_share"] = eng["device_ms_per_step"] = None
         log(f"[profile {label}] the profiler recorded no device time: busy share not measured")
 
 
@@ -986,6 +1200,20 @@ KERNELS = {
         source="scratchpad_tpu_torch/csrc/paged_extend_attention.cu",
         replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 "
         "(bundled ragged_paged_attention via _ragged_call)",
+    ),
+    "paged_decode_attention_quant": dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/gqa_decode.py:92 (_gqa_decode_kernel, "
+        "quantized branch :371-405) and :446 (_gqa_decode_grouped_kernel, quantized "
+        "branch :606-642)",
+    ),
+    "paged_extend_attention_quant": dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_extend_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 (bundled "
+        "ragged_paged_attention via _ragged_call) on the pages of dequant_pages :175 "
+        "(attention_ragged_quant :254)",
     ),
     "quantize_rows_int8": dict(
         route="cuda",
@@ -1009,6 +1237,7 @@ KERNELS = {
 # the engine run whose launches each kernel's entry reports
 KERNEL_ENGINE = {
     "paged_decode_attention": "bf16", "paged_extend_attention": "bf16",
+    "paged_decode_attention_quant": "3b-w4a8", "paged_extend_attention_quant": "3b-w4a8",
     "quantize_rows_int8": "w4a8", "w4a8_matmul": "w4a8", "w4a16_matmul": "w4a16",
 }
 
@@ -1029,24 +1258,59 @@ def main() -> None:
     errs = {k: 0.0 for k in KERNELS}
     check_decode(errs)
     check_extend(errs)
+    check_kv_quantizer()
     check_w4(errs)
     # the timed runs follow each engine's checks, and only while every
     # check holds: a faulty tree shows all its readings, quickly
     engines = {}
+    w4a8 = ("quantize_rows_int8", "w4a8_matmul")
+
+    def serve(engine, label, w4_kernels=(), logits=True):
+        t = time.monotonic()
+        engines[label] = phase_engine(engine, label, w4_kernels, logits)
+        t_times = time.monotonic()
+        if not FAILURES:
+            phase_engine_times(engine, engines[label], label)
+        log(
+            f"[engine {label}] phase wall: {t_times - t:.1f} s serving and checking, "
+            f"{time.monotonic() - t_times:.1f} s timing"
+        )
+
     engine = make_engine()
-    engines["bf16"] = phase_engine(engine, "bf16")
-    if not FAILURES:
-        phase_engine_times(engine, engines["bf16"], "bf16")
+    serve(engine, "bf16")
     del engine  # frees the pool and the weights for the next engine
     engine = make_engine("w4a8")
-    engines["w4a8"] = phase_engine(engine, "w4a8", ("quantize_rows_int8", "w4a8_matmul"))
-    if not FAILURES:
-        phase_engine_times(engine, engines["w4a8"], "w4a8")
+    serve(engine, "w4a8", w4a8)
     # W4A16 on the same engine and codes: every QuantLinear takes the A16 route
     set_w4_route(engine.scheduler.runner.model, a8=False)
-    engines["w4a16"] = phase_engine(engine, "w4a16", ("w4a16_matmul",))
-    if not FAILURES:
-        phase_engine_times(engine, engines["w4a16"], "w4a16")
+    serve(engine, "w4a16", ("w4a16_matmul",))
+    engines["w4a16"]["weights"] = "w4a16"
+    del engine
+    # Llama-3.2-3B W4A8: kv_cache_dtype=auto must give int8 KV, as the JAX
+    # runner's rule does at hidden x layers = 86,016
+    engine = make_engine("w4a8", preset="llama-3.2-3b")
+    check(
+        engine.scheduler.runner.kv_cache_dtype == "int8",
+        f"3B W4A8 auto KV resolved to {engine.scheduler.runner.kv_cache_dtype}, not int8",
+    )
+    serve(engine, "3b-w4a8", w4a8)
+    # the same quantized weights with bf16 KV: the auto rule's premise
+    params = dict(engine.scheduler.runner.model.state_dict())
+    del engine
+    engine = make_engine("w4a8", preset="llama-3.2-3b", kv_cache_dtype="bfloat16", params=params)
+    # (its kernels are held elsewhere: bf16 attention at G = 3 in phase 3
+    # and in the bf16 engine, W4A8 in both W4A8 engines; it is here for
+    # its launch counts and its times, so its logits are not checked, nor
+    # those of the int8 engine timed again after it)
+    serve(engine, "3b-w4a8-bf16kv", w4a8, logits=False)
+    del engine
+    # int8 KV once more, so that the two KV dtypes are timed in turns
+    engine = make_engine("w4a8", preset="llama-3.2-3b", params=params)
+    del params
+    serve(engine, "3b-w4a8-again", w4a8, logits=False)
+    del engine
+    engine = make_engine(kv_cache_dtype="fp8")
+    serve(engine, "1b-fp8kv")
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1075,14 +1339,15 @@ def main() -> None:
         )
     log(f"[done] {time.monotonic() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
-    fields = ("decode_tok_s", "e2e_tok_s", "device_busy_share", "device_busy_ms", "worst_logit_rel")
+    fields = (
+        "preset", "weights", "kv_cache_dtype", "decode_tok_s", "e2e_tok_s",
+        "device_busy_share", "device_ms_per_step", "worst_logit_rel",
+    )
     log(
         json.dumps(
             {
                 "engines": {
                     label: {
-                        "preset": "llama-3.2-1b",
-                        "weights": label,
                         "shape": "bs 64, 128 prompt + 128 new tokens",
                         **{k: e[k] for k in fields},
                     }

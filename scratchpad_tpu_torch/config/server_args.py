@@ -16,6 +16,7 @@ from typing import Optional
 
 
 QUANTIZATIONS = (None, "w4a8", "w4a16", "w4", "awq", "gptq", "gptq_v2")
+KV_CACHE_DTYPES = ("auto", "bfloat16", "int8", "fp8")
 
 
 @dataclasses.dataclass
@@ -30,7 +31,12 @@ class ServerArgs:
     # checkpoint bit-exact; random weights quantize the random init). fp8
     # is not ported yet
     quantization: Optional[str] = None
-    kv_cache_dtype: str = "auto"  # auto | bfloat16 (int8 / fp8 not ported)
+    # auto | bfloat16 (the model dtype) | int8 | fp8 (e4m3): 8-bit KV codes
+    # with one bf16 scale per (token, head). auto picks int8 for W4 serving
+    # of 3B and up on the card, as the JAX runner does
+    # (executor/model_runner.resolve_kv_cache_dtype), and the model dtype
+    # otherwise
+    kv_cache_dtype: str = "auto"
     random_weights: bool = False  # initialise random weights (benchmarks)
     context_length: Optional[int] = None
 
@@ -119,7 +125,7 @@ class ServerArgs:
         unported = {
             "speculative_algorithm": self.speculative_algorithm is not None,
             "quantization": self.quantization not in QUANTIZATIONS,
-            "kv_cache_dtype": self.kv_cache_dtype not in ("auto", "bfloat16"),
+            "kv_cache_dtype": self.kv_cache_dtype not in KV_CACHE_DTYPES,
             "enable_param_offload": self.enable_param_offload,
             "host_kv_cache_tokens": self.host_kv_cache_tokens > 0,
             "tp_size/dp_size/pp_size/sp_size": max(

@@ -1,6 +1,8 @@
-// Paged GQA decode attention for Hopper (sm_90a), bf16 KV, f32 accumulation.
+// Paged GQA decode attention for Hopper (sm_90a): bf16 KV, or int8 / fp8
+// (e4m3) KV with per-(token, head) bf16 scales; f32 accumulation.
 //
-// Replaces two TPU kernels of scratchpad_tpu/ops/attention/gqa_decode.py:
+// Replaces two TPU kernels of scratchpad_tpu/ops/attention/gqa_decode.py,
+// both branches of each (bf16 pages, and quantized=True):
 //   _gqa_decode_kernel          (per-sequence flash-decode, chunks of 16 pages)
 //   _gqa_decode_grouped_kernel  (several short sequences per grid step)
 // A TPU core walks its grid in order, so the JAX package needs a second
@@ -15,26 +17,41 @@
 // are written as exact zeros.
 //
 // Layout: k_cache / v_cache are one layer of the pool, [pages, page_size,
-// Hkv, D] row-major; slot s = page * page_size + offset is row s.
+// Hkv, D] row-major; slot s = page * page_size + offset is row s. 8-bit
+// pages carry k_scale / v_scale [pages, page_size, Hkv] bf16: element d of
+// head h at slot s is code[s, h, d] * scale[s, h].
+//
+// 8-bit pages (the quantized branch, gqa_decode.py:371-405): the scales
+// factor out of the dots, as in the Pallas kernel, so no element is
+// dequantized on its own:
+//   s = (q . k_code) * s_k,   p' = p * s_v,   acc += p' * v_code
+// with the softmax denominator summing p. The Pallas kernel rounds p' to
+// bf16 before its PV dot; here p' stays f32. e4m3 codes convert through
+// cuda_fp8.h; sub-normal codes never reach the pool (the writer flushes
+// them, plain_backend.quantize_rows).
 //
 // What bounds it: bytes. Every live K and V row is read once, 2 * len * Hkv
-// * D * 2 B per sequence, against 4 * len * Hq * D flops: about G flops per
-// byte, far under the card's ~295 flop/byte ridge. The design therefore
-// aims at loading each K/V element once and keeping many loads in flight:
+// * D * 2 B per sequence for bf16 pages, 2 * len * Hkv * (D + 2) B for 8-bit
+// ones, against 4 * len * Hq * D flops: about G flops per byte, far under
+// the card's ~295 flop/byte ridge. The design therefore aims at loading each
+// K/V element once and keeping many loads in flight:
 //   - grid (B, Hkv): the G query heads of a kv head share one CTA, so a K/V
 //     row is loaded once for all of them;
 //   - 4 warps take tokens round robin, kUnroll tokens at a time, all of
 //     their row loads issued before any arithmetic;
 //   - each lane owns D/32 contiguous elements of a row, so a warp reads one
-//     row as one coalesced 64-256 B access;
+//     row as one coalesced 64-256 B access (32-128 B of 8-bit codes; a
+//     row's two scales are one broadcast load per warp);
 //   - scores reduce with warp shuffles, each warp keeps its own online
 //     softmax state in f32, and the warps merge through shared memory.
 // Not done yet (later work): a split over the KV axis for small B at long
 // context (at B = 1 only Hkv CTAs run), wider vector loads, tensor cores.
 
 #include <cmath>
+#include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,22 +80,65 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&x)[EPL]
   }
 }
 
+__device__ __forceinline__ float fp8_to_float(uint32_t byte) {
+  __nv_fp8_e4m3 c;
+  c.__x = static_cast<__nv_fp8_storage_t>(byte);
+  return static_cast<float>(c);
+}
+
+// EPL consecutive 8-bit codes, read as one 1-4 byte access
+template <int EPL, typename CodeT>
+__device__ __forceinline__ void load_codes(const CodeT* p, float (&x)[EPL]) {
+  static_assert(EPL == 1 || EPL == 2 || EPL == 4, "head_dim must be 32, 64 or 128");
+  uint32_t raw;
+  if constexpr (EPL == 4) {
+    raw = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (EPL == 2) {
+    raw = *reinterpret_cast<const uint16_t*>(p);
+  } else {
+    raw = *reinterpret_cast<const uint8_t*>(p);
+  }
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) {
+    const uint32_t byte = (raw >> (8 * e)) & 0xFFu;
+    if constexpr (std::is_same_v<CodeT, int8_t>) {
+      x[e] = static_cast<float>(static_cast<int8_t>(byte));
+    } else {
+      x[e] = fp8_to_float(byte);
+    }
+  }
+}
+
+template <int EPL, typename CodeT>
+__device__ __forceinline__ void load_kv_row(const CodeT* p, float (&x)[EPL]) {
+  if constexpr (std::is_same_v<CodeT, __nv_bfloat16>) {
+    load_row<EPL>(p, x);
+  } else {
+    load_codes<EPL>(p, x);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-template <int D, int G>
+// CodeT: __nv_bfloat16 (bf16 pages, no scales), int8_t or __nv_fp8_e4m3
+// (8-bit pages with k_scale / v_scale)
+template <int D, int G, typename CodeT>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_cache,
-                    const __nv_bfloat16* __restrict__ v_cache,
+                    const CodeT* __restrict__ k_cache,
+                    const CodeT* __restrict__ v_cache,
+                    const __nv_bfloat16* __restrict__ k_scale,
+                    const __nv_bfloat16* __restrict__ v_scale,
                     const int* __restrict__ page_table,
                     const int* __restrict__ seq_lens,
                     __nv_bfloat16* __restrict__ out, int num_kv_heads,
                     int max_pages, int page_size, float sm_scale) {
   constexpr int EPL = D / 32;  // elements of a row per lane
+  constexpr bool kQuant = !std::is_same_v<CodeT, __nv_bfloat16>;
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5;
@@ -114,13 +174,18 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
     float kx[kUnroll][EPL], vx[kUnroll][EPL];
+    float sk[kUnroll], sv[kUnroll];  // the rows' scales (8-bit pages)
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 + u;
       if (t < len) {
         const size_t row = (size_t)pt[t / page_size] * page_size + t % page_size;
-        load_row<EPL>(k_cache + row * row_stride + head_off, kx[u]);
-        load_row<EPL>(v_cache + row * row_stride + head_off, vx[u]);
+        load_kv_row<EPL>(k_cache + row * row_stride + head_off, kx[u]);
+        load_kv_row<EPL>(v_cache + row * row_stride + head_off, vx[u]);
+        if constexpr (kQuant) {
+          sk[u] = __bfloat162float(k_scale[row * num_kv_heads + h]);
+          sv[u] = __bfloat162float(v_scale[row * num_kv_heads + h]);
+        }
       }
     }
 #pragma unroll
@@ -132,12 +197,15 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int e = 0; e < EPL; ++e) s += qv[g][e] * kx[u][e];
           s = warp_sum(s);
+          if constexpr (kQuant) s *= sk[u];
           const float m_new = fmaxf(m[g], s);
           const float alpha = __expf(m[g] - m_new);
           const float p = __expf(s - m_new);
           l[g] = l[g] * alpha + p;
+          float pv = p;  // p' = p * s_v weighs the raw V codes
+          if constexpr (kQuant) pv *= sv[u];
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * alpha + p * vx[u][e];
+          for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * alpha + pv * vx[u][e];
           m[g] = m_new;
         }
       }
@@ -175,17 +243,18 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, typename CodeT>
 cudaError_t launch_for_d(int G, dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
-                         const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
-                         const int* lens, __nv_bfloat16* out, int hkv, int max_pages,
-                         int page_size, float sm_scale) {
+                         const CodeT* k, const CodeT* v, const __nv_bfloat16* ks,
+                         const __nv_bfloat16* vs, const int* pt, const int* lens,
+                         __nv_bfloat16* out, int hkv, int max_pages, int page_size,
+                         float sm_scale) {
   const dim3 block(kWarps * 32);
-#define SPT_DECODE_CASE(GG)                                                          \
-  case GG:                                                                           \
-    paged_decode_kernel<D, GG><<<grid, block, 0, st>>>(q, k, v, pt, lens, out, hkv,  \
-                                                       max_pages, page_size,         \
-                                                       sm_scale);                    \
+#define SPT_DECODE_CASE(GG)                                                               \
+  case GG:                                                                                \
+    paged_decode_kernel<D, GG, CodeT><<<grid, block, 0, st>>>(q, k, v, ks, vs, pt, lens,  \
+                                                              out, hkv, max_pages,        \
+                                                              page_size, sm_scale);       \
     break;
   switch (G) {
     SPT_DECODE_CASE(1)
@@ -203,6 +272,44 @@ cudaError_t launch_for_d(int G, dim3 grid, cudaStream_t st, const __nv_bfloat16*
   return cudaGetLastError();
 }
 
+template <typename CodeT>
+int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+           const void* v_scale, const void* page_table, const void* seq_lens, void* out,
+           int batch, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,
+           int page_size, float sm_scale, void* stream) {
+  if (batch == 0) return 0;
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
+  const int G = num_q_heads / num_kv_heads;
+  const dim3 grid(batch, num_kv_heads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const CodeT*>(k_cache);
+  const auto* vp = static_cast<const CodeT*>(v_cache);
+  const auto* ksp = static_cast<const __nv_bfloat16*>(k_scale);
+  const auto* vsp = static_cast<const __nv_bfloat16*>(v_scale);
+  const auto* ptp = static_cast<const int*>(page_table);
+  const auto* lp = static_cast<const int*>(seq_lens);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = launch_for_d<32>(G, grid, st, qp, kp, vp, ksp, vsp, ptp, lp, op, num_kv_heads,
+                             max_pages, page_size, sm_scale);
+      break;
+    case 64:
+      err = launch_for_d<64>(G, grid, st, qp, kp, vp, ksp, vsp, ptp, lp, op, num_kv_heads,
+                             max_pages, page_size, sm_scale);
+      break;
+    case 128:
+      err = launch_for_d<128>(G, grid, st, qp, kp, vp, ksp, vsp, ptp, lp, op, num_kv_heads,
+                              max_pages, page_size, sm_scale);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // q [B, Hq, D] bf16; k_cache, v_cache [pages, page_size, Hkv, D] bf16;
@@ -214,33 +321,31 @@ extern "C" int paged_decode_attention(const void* q, const void* k_cache,
                                       int num_q_heads, int num_kv_heads, int head_dim,
                                       int max_pages, int page_size, float sm_scale,
                                       void* stream) {
-  if (batch == 0) return 0;
-  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
-  const int G = num_q_heads / num_kv_heads;
-  const dim3 grid(batch, num_kv_heads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_cache);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_cache);
-  const auto* ptp = static_cast<const int*>(page_table);
-  const auto* lp = static_cast<const int*>(seq_lens);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err;
-  switch (head_dim) {
-    case 32:
-      err = launch_for_d<32>(G, grid, st, qp, kp, vp, ptp, lp, op, num_kv_heads, max_pages,
-                             page_size, sm_scale);
-      break;
-    case 64:
-      err = launch_for_d<64>(G, grid, st, qp, kp, vp, ptp, lp, op, num_kv_heads, max_pages,
-                             page_size, sm_scale);
-      break;
-    case 128:
-      err = launch_for_d<128>(G, grid, st, qp, kp, vp, ptp, lp, op, num_kv_heads, max_pages,
-                              page_size, sm_scale);
-      break;
+  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, page_table, seq_lens,
+                               out, batch, num_q_heads, num_kv_heads, head_dim, max_pages,
+                               page_size, sm_scale, stream);
+}
+
+// As paged_decode_attention over 8-bit pages: k_cache, v_cache [pages,
+// page_size, Hkv, D] of int8 (code_type 0) or fp8 e4m3 (code_type 1) codes;
+// k_scale, v_scale [pages, page_size, Hkv] bf16.
+extern "C" int paged_decode_attention_quant(const void* q, const void* k_cache,
+                                            const void* v_cache, const void* k_scale,
+                                            const void* v_scale, const void* page_table,
+                                            const void* seq_lens, void* out, int batch,
+                                            int num_q_heads, int num_kv_heads, int head_dim,
+                                            int max_pages, int page_size, int code_type,
+                                            float sm_scale, void* stream) {
+  switch (code_type) {
+    case 0:
+      return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, page_table, seq_lens, out,
+                            batch, num_q_heads, num_kv_heads, head_dim, max_pages, page_size,
+                            sm_scale, stream);
+    case 1:
+      return launch<__nv_fp8_e4m3>(q, k_cache, v_cache, k_scale, v_scale, page_table,
+                                   seq_lens, out, batch, num_q_heads, num_kv_heads, head_dim,
+                                   max_pages, page_size, sm_scale, stream);
     default:
-      err = cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }

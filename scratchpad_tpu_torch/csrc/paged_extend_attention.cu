@@ -1,10 +1,18 @@
-// Paged ragged causal extend (prefill) attention for Hopper (sm_90a), bf16
-// in and out, f32 accumulation.
+// Paged ragged causal extend (prefill) attention for Hopper (sm_90a): bf16
+// q and out over bf16 pages, or over int8 / fp8 (e4m3) pages with
+// per-(token, head) bf16 scales; f32 accumulation.
 //
 // Replaces the TPU kernel the JAX package runs for every prefill and
 // chunked-prefill step: the bundled Pallas
 // jax.experimental.pallas.ops.tpu.ragged_paged_attention, launched by
-// scratchpad_tpu/ops/attention/ragged_backend.py::_ragged_call.
+// scratchpad_tpu/ops/attention/ragged_backend.py::_ragged_call. For int8 /
+// fp8 pools the JAX package first dequantizes the batch's pages into a bf16
+// scratch pool (ragged_backend.py::dequant_pages, attention_ragged_quant),
+// because the bundled kernel has no per-row scales. This kernel reads the
+// codes and scales itself and dequantizes each K/V element in f32 as it
+// stages the tile into shared memory: no scratch pool, and the pages move
+// at 1 B per element plus 2 B per (token, head) instead of being read once
+// in 8 bits and then written and read again in bf16.
 //
 // What it computes: the batch is a flat ragged run of T query tokens;
 // sequence s owns tokens [cu_q_lens[s], cu_q_lens[s+1]) and has kv_lens[s]
@@ -34,8 +42,10 @@
 // cp.async or TMA double buffering, vector loads.
 
 #include <cmath>
+#include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,6 +61,10 @@ constexpr size_t smem_bytes() {
          (size_t)(kRows * (D + 1) + D * (kBK + 1) + kBK * D + kRows * (kBK + 1));
 }
 
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+
 __device__ __forceinline__ float group8_max(float v) {
 #pragma unroll
   for (int off = 1; off < 8; off <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -63,11 +77,15 @@ __device__ __forceinline__ float group8_sum(float v) {
   return v;
 }
 
-template <int D>
+// CodeT: __nv_bfloat16 (bf16 pages, no scales), int8_t or __nv_fp8_e4m3
+// (8-bit pages with k_scale / v_scale [pages, page_size, Hkv] bf16)
+template <int D, typename CodeT>
 __global__ void __launch_bounds__(kThreads)
 paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_cache,
-                    const __nv_bfloat16* __restrict__ v_cache,
+                    const CodeT* __restrict__ k_cache,
+                    const CodeT* __restrict__ v_cache,
+                    const __nv_bfloat16* __restrict__ k_scale,
+                    const __nv_bfloat16* __restrict__ v_scale,
                     const int* __restrict__ page_table,
                     const int* __restrict__ kv_lens,
                     const int* __restrict__ cu_q_lens,
@@ -77,6 +95,7 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     int num_kv_heads, int G, int max_pages, int page_size,
                     float sm_scale) {
   constexpr int DC = D / 8;  // output columns per thread
+  constexpr bool kQuant = !std::is_same_v<CodeT, __nv_bfloat16>;
   extern __shared__ float smem[];
   float* Qs = smem;                     // [kRows][D + 1]
   float* Ks = Qs + kRows * (D + 1);     // [D][kBK + 1], transposed
@@ -150,8 +169,13 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
       if (pos < kv_end) {
         const size_t row = (size_t)pt[pos / page_size] * page_size + pos % page_size;
         const size_t off = row * row_stride + (size_t)h * D + d;
-        kx = __bfloat162float(k_cache[off]);
-        vx = __bfloat162float(v_cache[off]);
+        kx = to_float(k_cache[off]);
+        vx = to_float(v_cache[off]);
+        if constexpr (kQuant) {  // code * its (token, head) scale
+          const size_t srow = row * num_kv_heads + h;
+          kx *= __bfloat162float(k_scale[srow]);
+          vx *= __bfloat162float(v_scale[srow]);
+        }
       }
       Ks[d * (kBK + 1) + j] = kx;
       Vs[j * D + d] = vx;
@@ -234,22 +258,68 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
-                         const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
-                         const int* kv_lens, const int* cu_q, const int* tile_seq,
-                         const int* tile_cum, __nv_bfloat16* out, int num_seqs,
-                         int num_tokens, int hkv, int G, int max_pages, int page_size,
-                         float sm_scale) {
+template <int D, typename CodeT>
+cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const CodeT* k,
+                         const CodeT* v, const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                         const int* pt, const int* kv_lens, const int* cu_q,
+                         const int* tile_seq, const int* tile_cum, __nv_bfloat16* out,
+                         int num_seqs, int num_tokens, int hkv, int G, int max_pages,
+                         int page_size, float sm_scale) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_extend_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = cudaFuncSetAttribute(paged_extend_kernel<D, CodeT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
   if (err != cudaSuccess) return err;
-  paged_extend_kernel<D><<<grid, kThreads, bytes, st>>>(q, k, v, pt, kv_lens, cu_q, tile_seq,
-                                                        tile_cum, out, num_seqs, num_tokens,
-                                                        hkv, G, max_pages, page_size,
-                                                        sm_scale);
+  paged_extend_kernel<D, CodeT><<<grid, kThreads, bytes, st>>>(
+      q, k, v, ks, vs, pt, kv_lens, cu_q, tile_seq, tile_cum, out, num_seqs, num_tokens, hkv,
+      G, max_pages, page_size, sm_scale);
   return cudaGetLastError();
+}
+
+template <typename CodeT>
+int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+           const void* v_scale, const void* page_table, const void* kv_lens,
+           const void* cu_q_lens, const void* tile_seq, const void* tile_cum, void* out,
+           int num_tiles, int num_seqs, int num_tokens, int num_q_heads, int num_kv_heads,
+           int head_dim, int max_pages, int page_size, float sm_scale, void* stream) {
+  if (num_tiles == 0 || num_tokens == 0) return 0;
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
+  const int G = num_q_heads / num_kv_heads;
+  if (G > kRows) return cudaErrorInvalidValue;
+  const dim3 grid(num_tiles, num_kv_heads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const CodeT*>(k_cache);
+  const auto* vp = static_cast<const CodeT*>(v_cache);
+  const auto* ksp = static_cast<const __nv_bfloat16*>(k_scale);
+  const auto* vsp = static_cast<const __nv_bfloat16*>(v_scale);
+  const auto* ptp = static_cast<const int*>(page_table);
+  const auto* klp = static_cast<const int*>(kv_lens);
+  const auto* cqp = static_cast<const int*>(cu_q_lens);
+  const auto* tsp = static_cast<const int*>(tile_seq);
+  const auto* tcp = static_cast<const int*>(tile_cum);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = launch_for_d<32>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
+                             num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
+                             sm_scale);
+      break;
+    case 64:
+      err = launch_for_d<64>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
+                             num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
+                             sm_scale);
+      break;
+    case 128:
+      err = launch_for_d<128>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
+                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
+                              sm_scale);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -272,37 +342,33 @@ extern "C" int paged_extend_attention(const void* q, const void* k_cache, const 
                                       int num_seqs, int num_tokens, int num_q_heads,
                                       int num_kv_heads, int head_dim, int max_pages,
                                       int page_size, float sm_scale, void* stream) {
-  if (num_tiles == 0 || num_tokens == 0) return 0;
-  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
-  const int G = num_q_heads / num_kv_heads;
-  if (G > kRows) return cudaErrorInvalidValue;
-  const dim3 grid(num_tiles, num_kv_heads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_cache);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_cache);
-  const auto* ptp = static_cast<const int*>(page_table);
-  const auto* klp = static_cast<const int*>(kv_lens);
-  const auto* cqp = static_cast<const int*>(cu_q_lens);
-  const auto* tsp = static_cast<const int*>(tile_seq);
-  const auto* tcp = static_cast<const int*>(tile_cum);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err;
-  switch (head_dim) {
-    case 32:
-      err = launch_for_d<32>(grid, st, qp, kp, vp, ptp, klp, cqp, tsp, tcp, op, num_seqs,
-                             num_tokens, num_kv_heads, G, max_pages, page_size, sm_scale);
-      break;
-    case 64:
-      err = launch_for_d<64>(grid, st, qp, kp, vp, ptp, klp, cqp, tsp, tcp, op, num_seqs,
-                             num_tokens, num_kv_heads, G, max_pages, page_size, sm_scale);
-      break;
-    case 128:
-      err = launch_for_d<128>(grid, st, qp, kp, vp, ptp, klp, cqp, tsp, tcp, op, num_seqs,
-                              num_tokens, num_kv_heads, G, max_pages, page_size, sm_scale);
-      break;
+  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, page_table, kv_lens,
+                               cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
+                               num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
+                               page_size, sm_scale, stream);
+}
+
+// As paged_extend_attention over 8-bit pages: k_cache, v_cache of int8
+// (code_type 0) or fp8 e4m3 (code_type 1) codes; k_scale, v_scale
+// [pages, page_size, Hkv] bf16.
+extern "C" int paged_extend_attention_quant(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+    const void* v_scale, const void* page_table, const void* kv_lens, const void* cu_q_lens,
+    const void* tile_seq, const void* tile_cum, void* out, int num_tiles, int num_seqs,
+    int num_tokens, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,
+    int page_size, int code_type, float sm_scale, void* stream) {
+  switch (code_type) {
+    case 0:
+      return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
+                            cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
+                            num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
+                            page_size, sm_scale, stream);
+    case 1:
+      return launch<__nv_fp8_e4m3>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
+                                   cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
+                                   num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
+                                   page_size, sm_scale, stream);
     default:
-      err = cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }

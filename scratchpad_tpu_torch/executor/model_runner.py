@@ -34,6 +34,7 @@ from scratchpad_tpu_torch.memory import (
     ReqSlotAllocator,
     create_kv_cache,
 )
+from scratchpad_tpu_torch.memory.kv_cache import QUANT_KV_DTYPES
 from scratchpad_tpu_torch.models.registry import get_model_class
 from scratchpad_tpu_torch.ops.quant.import_hf import convert_quantized_layers, split_quant_tensors
 from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
@@ -107,23 +108,26 @@ _QUANT_ROUTE = {
 
 
 def resolve_kv_cache_dtype(args: ServerArgs, cfg: ModelConfig, device: torch.device) -> str:
-    """The KV pool's dtype. The JAX runner's model-aware ``auto``
-    (``model_runner.py:207-222``) picks int8 KV for W4-quantized serving on
-    an accelerator when hidden x layers >= 50,000 (3B and up); int8 KV is
-    not ported yet (slice 3), so that case raises rather than serve bf16 KV
-    in its place. Otherwise the pool takes the model dtype, as it does on
-    the CPU; ``args`` is left as it is."""
+    """The KV pool's dtype: ``int8`` or ``fp8`` (8-bit codes with per-(token,
+    head) bf16 scales), or the model dtype. ``auto`` follows the JAX
+    runner's model-aware rule (``model_runner.py:207-222``): int8 KV for
+    W4-quantized serving on an accelerator when hidden x layers >= 50,000
+    (3B and up); otherwise, as an explicit ``bfloat16`` does, the pool takes
+    the model dtype. Unlike the JAX runner it leaves ``args`` as it is."""
+    if args.kv_cache_dtype in QUANT_KV_DTYPES:
+        return args.kv_cache_dtype
     if (
         args.kv_cache_dtype == "auto"
         and args.quantization in ("w4a8", "w4a16", "awq", "gptq")
         and device.type == "cuda"
         and cfg.hidden_size * cfg.num_hidden_layers >= 50_000
     ):
-        raise NotImplementedError(
-            f"kv_cache_dtype=auto resolves to int8 for {args.quantization} at hidden x "
-            f"layers = {cfg.hidden_size * cfg.num_hidden_layers}; int8 KV is not ported "
-            "yet (slice 3): pass kv_cache_dtype='bfloat16' to serve bf16 KV"
+        logger.info(
+            "kv_cache_dtype auto -> int8 (quantized serving, hidden x layers = %d; "
+            "set kv_cache_dtype='bfloat16' to force full-precision KV)",
+            cfg.hidden_size * cfg.num_hidden_layers,
         )
+        return "int8"
     return args.dtype
 
 
@@ -201,14 +205,7 @@ class ModelRunner:
         self.max_context_len = server_args.context_length or cfg.context_len
         num_tokens = self._profile_kv_tokens()
         num_pages = num_tokens // self.page_size + 1  # +1 = reserved dump page
-        self.kv_config = KVCacheConfig(
-            num_layers=cfg.num_hidden_layers,
-            num_pages=num_pages,
-            page_size=self.page_size,
-            num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.head_dim,
-            dtype=_DTYPES[self.kv_cache_dtype],
-        )
+        self.kv_config = self._kv_config(num_pages)
         self.kv_cache = create_kv_cache(self.kv_config, self.device)
 
         # ---- allocators (page 0 reserved as the padding dump page)
@@ -222,9 +219,10 @@ class ModelRunner:
         )
         self.max_total_num_tokens = (num_pages - 1) * self.page_size
         logger.info(
-            "KV pool: %d pages x %d tokens (%.2f GiB), max_running=%d",
+            "KV pool: %d pages x %d tokens, %s (%.2f GiB), max_running=%d",
             num_pages - 1,
             self.page_size,
+            self.kv_cache_dtype,
             num_pages * self.page_size * self.kv_config.bytes_per_token() / 2**30,
             self.max_running_requests,
         )
@@ -280,10 +278,24 @@ class ModelRunner:
             return int(max(budget // self.kv_bytes_per_token(), 4096))
         return 2**16  # CPU default
 
-    def kv_bytes_per_token(self) -> int:
+    def _kv_config(self, num_pages: int) -> KVCacheConfig:
         cfg = self.model_config
-        itemsize = torch.empty((), dtype=_DTYPES[self.kv_cache_dtype]).element_size()
-        return 2 * cfg.num_hidden_layers * cfg.num_kv_heads * cfg.head_dim * itemsize
+        quant_kv = QUANT_KV_DTYPES.get(self.kv_cache_dtype)
+        return KVCacheConfig(
+            num_layers=cfg.num_hidden_layers,
+            num_pages=num_pages,
+            page_size=self.page_size,
+            num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim,
+            dtype=self.dtype if quant_kv else _DTYPES[self.kv_cache_dtype],
+            quantized=quant_kv is not None,
+            quant_dtype=quant_kv or torch.int8,
+        )
+
+    def kv_bytes_per_token(self) -> int:
+        """K and V of one token over every layer, an 8-bit pool's scales
+        included."""
+        return self._kv_config(0).bytes_per_token()
 
     # ------------------------------------------------------------------ steps
 

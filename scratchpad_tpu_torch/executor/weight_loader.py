@@ -5,7 +5,8 @@ a local HF checkpoint, ``params_from_jax`` turns the JAX package's parameter
 pytree — handed over as numpy arrays, so the port never imports JAX — into
 the port's ``state_dict``; the parity tests build both sides from one state
 this way. Quantized stacks (``layers_q``, ``lm_head_q``) are repacked into
-the port's layout with ``pack_w4``, code for code.
+the port's layout with ``pack_w4``, code for code. ``kv_cache_from_jax`` does
+the same for a KV pool, so that both sides can attend over identical pages.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from scratchpad_tpu_torch.config.model_config import ModelConfig
+from scratchpad_tpu_torch.memory.kv_cache import SCALE_DTYPE, KVCache
 from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
 from scratchpad_tpu_torch.ops.quant.w4a16 import QuantizedLinear, concat_out
 from scratchpad_tpu_torch.utils import get_logger
@@ -144,3 +146,41 @@ def quantized_layer_state(layers_q: dict[str, QuantizedLinear]) -> dict[str, tor
             for part, t in zip("qsz", qsz):
                 state[f"layers.{l}.{_JAX_QUANT_KEYS[key]}.{part}"] = t
     return state
+
+
+def kv_cache_from_jax(kv: Any, scale: Any, num_layers: int, head_dim: int) -> KVCache:
+    """The JAX package's unsharded 4-D int8 or fp8 KV pool (numpy arrays) as
+    the port's ``KVCache``, code for code.
+
+    ``kv [Pg, ps, 2 Hkv, Dp]`` holds K and V interleaved per head (``[k0, v0,
+    k1, v1, ...]``), layer l's page p at global page ``l * Pg / num_layers +
+    p``, head_dim padded to ``Dp`` lanes; ``scale [Pg, ps, SL]`` holds their
+    bf16 scales in the same interleaved order in its first 2 Hkv lanes (one
+    scale shard). The padded lanes are dropped and K, V and their scales
+    de-interleaved."""
+    kv = np.asarray(kv)
+    Pg, ps, H2, Dp = kv.shape
+    if Pg % num_layers or H2 % 2 or not 0 < head_dim <= Dp:
+        raise ValueError(
+            f"a [Pg, ps, 2 Hkv, Dp] pool of {num_layers} layers and head_dim <= Dp "
+            f"expected, got {kv.shape} and head_dim {head_dim}"
+        )
+    pages, Hkv = Pg // num_layers, H2 // 2
+    rows = kv.reshape(num_layers, pages, ps, Hkv, 2, Dp)[..., :head_dim]
+
+    def half(i: int) -> torch.Tensor:
+        a = np.ascontiguousarray(rows[..., i, :])
+        if a.dtype.name == "float8_e4m3fn":  # ml_dtypes; numpy has no fp8
+            return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+        return _tensor(a)
+
+    sc = np.asarray(scale)
+    if sc.shape[:2] != (Pg, ps) or sc.shape[2] < H2:
+        raise ValueError(f"scale must be [{Pg}, {ps}, >= {H2}], got {sc.shape}")
+    sc = sc[..., :H2].reshape(num_layers, pages, ps, Hkv, 2)
+    return KVCache(
+        k=half(0),
+        v=half(1),
+        k_scale=_tensor(sc[..., 0]).to(SCALE_DTYPE),
+        v_scale=_tensor(sc[..., 1]).to(SCALE_DTYPE),
+    )

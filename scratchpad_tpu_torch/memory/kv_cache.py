@@ -9,8 +9,18 @@ one tensor for K and one for V, each layer a contiguous block. Token slot
 ``s = page * page_size + offset`` is row ``s`` of
 ``k[layer].view(-1, num_kv_heads, head_dim)``. There is no lane padding, no
 packed K|V row and no inline scale plane: those existed only so that TPU
-page DMAs stayed tile aligned. Parity with the JAX pool is held on attention
-outputs, never on pool bytes.
+page DMAs stayed tile aligned. ``weight_loader.kv_cache_from_jax`` converts
+a JAX pool into this layout, code for code.
+
+A quantized pool (``kv_cache_dtype`` int8 or fp8) keeps the layout with
+int8 or float8_e4m3fn codes in ``k`` and ``v``, and adds one bf16 scale per
+(token, head) for each of K and V:
+
+    k_scale, v_scale : [num_layers, num_pages, page_size, num_kv_heads]
+
+so that slot ``s`` of head ``h`` holds ``k[s, h, :] * k_scale[s, h]``. This
+is the JAX pool's per-(token, head slot) scale, which it keeps as
+interleaved ``[k0, v0, k1, v1, ...]`` lanes of one padded scale array.
 
 Writes update the pool in place (``ops/attention/plain_backend.write_kv``):
 PyTorch tensors are mutable, so the port keeps one pool for the engine's
@@ -20,8 +30,13 @@ lifetime instead of threading a new array through every step.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+# kv_cache_dtype -> the code dtype of a quantized pool
+QUANT_KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+SCALE_DTYPE = torch.bfloat16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +47,8 @@ class KVCacheConfig:
     num_kv_heads: int
     head_dim: int
     dtype: torch.dtype = torch.bfloat16
+    quantized: bool = False  # 8-bit codes plus per-(token, head) bf16 scales
+    quant_dtype: torch.dtype = torch.int8  # int8 | float8_e4m3fn
 
     @property
     def num_slots(self) -> int:
@@ -39,14 +56,24 @@ class KVCacheConfig:
         return self.num_pages * self.page_size
 
     def bytes_per_token(self) -> int:
-        itemsize = torch.empty((), dtype=self.dtype).element_size()
-        return 2 * self.num_layers * self.num_kv_heads * self.head_dim * itemsize
+        """K and V of one token over every layer, scales included:
+        2 L Hkv (D + 2) bytes for a quantized pool."""
+        rows = 2 * self.num_layers * self.num_kv_heads
+        if self.quantized:
+            return rows * (self.head_dim + SCALE_DTYPE.itemsize)
+        return rows * self.head_dim * self.dtype.itemsize
 
 
 @dataclasses.dataclass
 class KVCache:
     k: torch.Tensor  # [L, num_pages, ps, Hkv, D]
     v: torch.Tensor  # [L, num_pages, ps, Hkv, D]
+    k_scale: Optional[torch.Tensor] = None  # bf16 [L, num_pages, ps, Hkv]
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def num_layers(self) -> int:
@@ -64,9 +91,18 @@ class KVCache:
     def head_dim(self) -> int:
         return self.k.shape[4]
 
-    def layer(self, layer_idx: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Contiguous [num_pages, ps, Hkv, D] views of one layer's K and V."""
-        return self.k[layer_idx], self.v[layer_idx]
+    def layer(self, layer_idx: int):
+        """Contiguous views of one layer: K and V ``[num_pages, ps, Hkv,
+        D]`` and their scales ``[num_pages, ps, Hkv]`` (None for a pool
+        that is not quantized)."""
+        if not self.quantized:
+            return self.k[layer_idx], self.v[layer_idx], None, None
+        return (
+            self.k[layer_idx],
+            self.v[layer_idx],
+            self.k_scale[layer_idx],
+            self.v_scale[layer_idx],
+        )
 
 
 def create_kv_cache(cfg: KVCacheConfig, device: torch.device) -> KVCache:
@@ -77,7 +113,16 @@ def create_kv_cache(cfg: KVCacheConfig, device: torch.device) -> KVCache:
         cfg.num_kv_heads,
         cfg.head_dim,
     )
+    if not cfg.quantized:
+        return KVCache(
+            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+            v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        )
+    if cfg.quant_dtype not in QUANT_KV_DTYPES.values():
+        raise ValueError(f"quantized KV codes must be int8 or float8_e4m3fn, got {cfg.quant_dtype}")
     return KVCache(
-        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        k=torch.zeros(shape, dtype=cfg.quant_dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.quant_dtype, device=device),
+        k_scale=torch.zeros(shape[:-1], dtype=SCALE_DTYPE, device=device),
+        v_scale=torch.zeros(shape[:-1], dtype=SCALE_DTYPE, device=device),
     )

@@ -7,7 +7,9 @@ only where it launches its kernel.
 
 from scratchpad_tpu_torch.ops.attention import (
     paged_decode_attention,
+    paged_decode_attention_quant,
     paged_extend_attention,
+    paged_extend_attention_quant,
 )
 from scratchpad_tpu_torch.ops.quant.w4_matmul import (
     quantize_rows_int8,
@@ -18,6 +20,8 @@ from scratchpad_tpu_torch.ops.quant.w4_matmul import (
 KERNEL_WRAPPERS = (
     paged_decode_attention,
     paged_extend_attention,
+    paged_decode_attention_quant,
+    paged_extend_attention_quant,
     quantize_rows_int8,
     w4a8_matmul,
     w4a16_matmul,

@@ -3,6 +3,11 @@
 Counterpart of ``scratchpad_tpu/ops/attention/ragged_backend.py``, which
 calls the bundled Pallas ``ragged_paged_attention`` kernel for every prefill
 step; here that is the hand-written ``csrc/paged_extend_attention.cu``.
+For int8 and fp8 pools the JAX package first dequantizes the batch's pages
+into a bf16 scratch pool (``dequant_pages``), because the bundled kernel has
+no per-row scales; the port's kernel reads the codes and their (token, head)
+scales itself and dequantizes as it stages each K/V tile, so there is no
+scratch pool (``paged_extend_attention_quant``).
 
 Semantics (shared by the kernel and ``paged_extend_attention_plain``): the
 flat ragged batch ``q [T, Hq, D]`` holds sequence s's ``q_len_s`` new tokens
@@ -15,11 +20,13 @@ zeros. ``sm_scale`` is applied once, inside.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta
 from scratchpad_tpu_torch.memory.kv_cache import KVCache
+from scratchpad_tpu_torch.ops.attention.gqa_decode import CODE_TYPES, check_pages, gather_kv_rows
 from scratchpad_tpu_torch.utils import native
 
 _P = ctypes.c_void_p
@@ -29,9 +36,13 @@ _SIGNATURES = {
         [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
         ctypes.c_int,
     ),
+    "paged_extend_attention_quant": (
+        [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
+        ctypes.c_int,
+    ),
     "paged_extend_tokens_per_tile": ([_I], ctypes.c_int),
 }
-HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 64  # a tile holds 64 (token, head) rows
 
 
 def paged_extend_attention_plain(
@@ -42,15 +53,15 @@ def paged_extend_attention_plain(
     kv_lens: torch.Tensor,  # i32[B]
     cu_q_lens: torch.Tensor,  # i32[B + 1]
     sm_scale: float,
+    k_scale: Optional[torch.Tensor] = None,  # [pages, ps, Hkv] for 8-bit pages
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One sequence at a time: gather its live pages, attend in f32 under
-    the tail-aligned causal mask."""
+    """One sequence at a time: gather its live pages (dequantized in f32
+    for 8-bit pages), attend in f32 under the tail-aligned causal mask."""
     T, Hq, D = q.shape
     _, ps, Hkv, _ = k_cache.shape
     G = Hq // Hkv
     out = torch.zeros_like(q)
-    k_rows = k_cache.reshape(-1, Hkv, D)
-    v_rows = v_cache.reshape(-1, Hkv, D)
     cu = cu_q_lens.tolist()
     lens = kv_lens.tolist()
     for s in range(len(lens)):
@@ -60,8 +71,8 @@ def paged_extend_attention_plain(
         kv_len = lens[s]
         pos = torch.arange(kv_len, device=q.device)
         slots = page_table[s].long()[pos // ps] * ps + pos % ps
-        k = k_rows[slots].float()  # [S, Hkv, D]
-        v = v_rows[slots].float()
+        k = gather_kv_rows(k_cache, k_scale, slots)  # [S, Hkv, D]
+        v = gather_kv_rows(v_cache, v_scale, slots)
         qs = q[cu[s] : cu[s + 1]].float().reshape(q_len, Hkv, G, D) * sm_scale
         scores = torch.einsum("thgd,shd->hgts", qs, k)
         q_pos = kv_len - q_len + torch.arange(q_len, device=q.device)
@@ -90,29 +101,46 @@ def tile_map(
     return tile_seq, tile_cum
 
 
-def _check(q, k_cache, v_cache, page_table, kv_lens, cu_q_lens) -> None:
-    tensors = (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-               ("page_table", page_table), ("kv_lens", kv_lens),
-               ("cu_q_lens", cu_q_lens))
-    for name, t in tensors:
+def _check(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens) -> None:
+    check_pages(q, k_cache, v_cache, k_scale, v_scale, MAX_GROUP)
+    for name, t in (("page_table", page_table), ("kv_lens", kv_lens), ("cu_q_lens", cu_q_lens)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in tensors[:3]:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the extend kernel takes bf16 {name}, got {t.dtype}")
-    for name, t in tensors[3:]:
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    T, Hq, D = q.shape
-    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape or k_cache.shape[3] != D:
-        raise ValueError(f"k/v caches must be [pages, ps, Hkv, {D}], got {tuple(k_cache.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    if Hq % k_cache.shape[2]:
-        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={k_cache.shape[2]}")
     B = kv_lens.shape[0]
     if page_table.dim() != 2 or page_table.shape[0] != B or cu_q_lens.shape != (B + 1,):
         raise ValueError("page_table must be [B, P], kv_lens [B], cu_q_lens [B + 1]")
+
+
+def _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale):
+    """Check the inputs, build the tile map and launch the kernel: the bf16
+    entry point without scales, the 8-bit one with them."""
+    _check(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens)
+    lib = native.load("paged_extend_attention", _SIGNATURES)
+    T, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    tile_seq, tile_cum = tile_map(cu_q_lens, T, lib.paged_extend_tokens_per_tile(Hq // Hkv))
+    out = torch.empty_like(q)
+    head = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+    tail = (
+        page_table.data_ptr(), kv_lens.data_ptr(), cu_q_lens.data_ptr(),
+        tile_seq.data_ptr(), tile_cum.data_ptr(), out.data_ptr(),
+        tile_seq.shape[0], kv_lens.shape[0], T, Hq, Hkv, D,
+        page_table.shape[1], k_cache.shape[1],
+    )
+    stream = native.stream_handle(q.device)
+    if k_scale is None:
+        rc = lib.paged_extend_attention(*head, *tail, float(sm_scale), stream)
+    else:
+        rc = lib.paged_extend_attention_quant(
+            *head, k_scale.data_ptr(), v_scale.data_ptr(), *tail,
+            CODE_TYPES[k_cache.dtype], float(sm_scale), stream,
+        )
+    if rc != 0:
+        kind = "bf16" if k_scale is None else str(k_cache.dtype)
+        raise RuntimeError(f"paged extend attention ({kind} pages) launch failed: cudaError {rc}")
+    return out
 
 
 def paged_extend_attention(
@@ -124,8 +152,8 @@ def paged_extend_attention(
     cu_q_lens: torch.Tensor,
     sm_scale: float,
 ) -> torch.Tensor:
-    """out [T, Hq, D] for the flat ragged batch (see the module docstring
-    and ``csrc/paged_extend_attention.cu``)."""
+    """out [T, Hq, D] for the flat ragged batch over bf16 pages (see the
+    module docstring and ``csrc/paged_extend_attention.cu``)."""
     native.check_same_device(q, k_cache, v_cache, page_table, kv_lens, cu_q_lens)
     if q.device.type == "cpu":
         return paged_extend_attention_plain(
@@ -133,30 +161,42 @@ def paged_extend_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_extend_attention: unsupported device {q.device}")
-    _check(q, k_cache, v_cache, page_table, kv_lens, cu_q_lens)
-    lib = native.load("paged_extend_attention", _SIGNATURES)
-    T, Hq, D = q.shape
-    Hkv = k_cache.shape[2]
-    bq = lib.paged_extend_tokens_per_tile(Hq // Hkv)
-    if bq <= 0:
-        raise ValueError(f"group size {Hq // Hkv} too large for the extend kernel")
-    tile_seq, tile_cum = tile_map(cu_q_lens, T, bq)
-    out = torch.empty_like(q)
-    rc = lib.paged_extend_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        page_table.data_ptr(), kv_lens.data_ptr(), cu_q_lens.data_ptr(),
-        tile_seq.data_ptr(), tile_cum.data_ptr(), out.data_ptr(),
-        tile_seq.shape[0], kv_lens.shape[0], T, Hq, Hkv, D,
-        page_table.shape[1], k_cache.shape[1], float(sm_scale),
-        native.stream_handle(q.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"paged_extend_attention launch failed: cudaError {rc}")
+    out = _launch(q, k_cache, v_cache, None, None, page_table, kv_lens, cu_q_lens, sm_scale)
     paged_extend_attention.launches += 1
     return out
 
 
 paged_extend_attention.launches = 0
+
+
+def paged_extend_attention_quant(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,  # int8 | float8_e4m3fn [pages, ps, Hkv, D]
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # bf16 [pages, ps, Hkv]
+    v_scale: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lens: torch.Tensor,
+    cu_q_lens: torch.Tensor,
+    sm_scale: float,
+) -> torch.Tensor:
+    """``paged_extend_attention`` over 8-bit pages: the kernel dequantizes
+    each K/V element with its (token, head) scale as it stages the tile."""
+    native.check_same_device(
+        q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens
+    )
+    if q.device.type == "cpu":
+        return paged_extend_attention_plain(
+            q, k_cache, v_cache, page_table, kv_lens, cu_q_lens, sm_scale, k_scale, v_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_extend_attention_quant: unsupported device {q.device}")
+    out = _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale)
+    paged_extend_attention_quant.launches += 1
+    return out
+
+
+paged_extend_attention_quant.launches = 0
 
 
 def attention_ragged(
@@ -168,7 +208,11 @@ def attention_ragged(
     sm_scale: float,
 ) -> torch.Tensor:
     """Model-facing extend attention over one layer of the pool."""
-    k, v = kv.layer(layer_idx)
-    return paged_extend_attention(
-        q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale
+    k, v, k_scale, v_scale = kv.layer(layer_idx)
+    if k_scale is None:
+        return paged_extend_attention(
+            q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale
+        )
+    return paged_extend_attention_quant(
+        q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale
     )

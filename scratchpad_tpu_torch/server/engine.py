@@ -66,7 +66,10 @@ class Engine:
         mesh=None,
         model_config: Optional[ModelConfig] = None,
         tokenizer: Any = None,
+        params: Optional[dict] = None,
     ):
+        """``params``: the model's ``state_dict`` to serve (see
+        ``ModelRunner``); None loads or draws the weights."""
         if mesh is not None:
             raise NotImplementedError("device meshes are not ported yet")
         self.args = server_args.resolve()
@@ -84,7 +87,7 @@ class Engine:
         self.detokenizer = IncrementalDetokenizer(self.tokenizer)
 
         self.eos_token_ids: frozenset[int] = frozenset(self._find_eos_ids())
-        self.scheduler = Scheduler(model_config, self.args)
+        self.scheduler = Scheduler(model_config, self.args, params=params)
         # TTFT/ITL/TPOT/E2E sample sink
         self.latency = LatencyStats()
 

@@ -225,7 +225,7 @@ def test_write_kv_round_trip():
     _, num_pages, pt, loc, k, v = _case([7, 10], Hkv, D, ps, seed=3)
     tkv = create_kv_cache(KVCacheConfig(LAYERS, num_pages, ps, Hkv, D, torch.float32), torch.device("cpu"))
     write_kv(tkv, torch.from_numpy(k), torch.from_numpy(v), LAYER, torch.from_numpy(loc).long())
-    kl, vl = tkv.layer(LAYER)
+    kl, vl, _, _ = tkv.layer(LAYER)
     rows = torch.from_numpy(loc).long()
     assert torch.equal(kl.reshape(-1, Hkv, D)[rows], torch.from_numpy(k))
     assert torch.equal(vl.reshape(-1, Hkv, D)[rows], torch.from_numpy(v))
@@ -241,7 +241,7 @@ def test_cpu_wrappers_take_plain_versions():
     Hkv, D, ps = 2, 32, 4
     _, num_pages, pt, loc, k, v = _case([9, 3], Hkv, D, ps, seed=5)
     _, tkv = _pools(num_pages, ps, Hkv, D, loc, k, v, D)
-    kl, vl = tkv.layer(LAYER)
+    kl, vl, _, _ = tkv.layer(LAYER)
     q = torch.randn(2, 4, D, generator=torch.Generator().manual_seed(0))
     lens = torch.tensor([9, 3], dtype=torch.int32)
     pt_t = torch.from_numpy(pt)

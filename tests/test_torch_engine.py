@@ -206,7 +206,8 @@ def test_extend_runs_unpadded_and_decode_pads_to_buckets(engines):
         dict(attention_backend="plain"),
         dict(speculative_algorithm="ngram"),
         dict(quantization="fp8"),
-        dict(kv_cache_dtype="int8"),
+        dict(enable_param_offload=True),
+        dict(kv_cache_dtype="int4"),  # not a kv_cache_dtype of the JAX package
         dict(tp_size=2),
         dict(enable_overlap=True),
         dict(decode_pipeline_depth=2),
@@ -225,7 +226,7 @@ def test_w4_quantization_names_resolve(quantization):
 
 
 @pytest.mark.parametrize(
-    "quantization,preset,device,raises",
+    "quantization,preset,device,int8",
     [
         ("w4a8", "llama-3.2-3b", "cuda", True),  # hidden x layers 86,016
         ("gptq", "llama-3.2-3b", "cuda", True),
@@ -235,15 +236,16 @@ def test_w4_quantization_names_resolve(quantization):
         ("w4", "llama-3.2-3b", "cuda", False),  # not in the JAX rule's list
     ],
 )
-def test_kv_cache_dtype_auto_rule(quantization, preset, device, raises):
-    """The JAX runner's kv_cache_dtype=auto would pick int8 KV for W4
-    serving of 3B and up on an accelerator; the port has no int8 KV yet
-    (slice 3), so it refuses there instead of serving bf16 KV silently."""
+def test_kv_cache_dtype_auto_rule(quantization, preset, device, int8):
+    """The JAX runner's kv_cache_dtype=auto picks int8 KV for W4 serving of
+    3B and up on an accelerator, and the model dtype otherwise; an explicit
+    setting is served as it is. ``args`` is never written back."""
     args = ServerArgs(preset=preset, quantization=quantization, device="cpu").resolve()
     cfg = get_preset(preset)
-    if raises:
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            resolve_kv_cache_dtype(args, cfg, torch.device(device))
-        args.kv_cache_dtype = "bfloat16"  # an explicit setting serves bf16
-    assert resolve_kv_cache_dtype(args, cfg, torch.device(device)) == "bfloat16"
-    assert args.kv_cache_dtype in ("auto", "bfloat16")  # never written back
+    dev = torch.device(device)
+    assert resolve_kv_cache_dtype(args, cfg, dev) == ("int8" if int8 else "bfloat16")
+    assert args.kv_cache_dtype == "auto"
+    for explicit in ("bfloat16", "int8", "fp8"):
+        args.kv_cache_dtype = explicit
+        assert resolve_kv_cache_dtype(args, cfg, dev) == explicit
+        assert args.kv_cache_dtype == explicit

@@ -11,7 +11,10 @@ plain version computing in f32 and returning f32. Every kernel accumulates in
 f32 and rounds only its output to bf16, which moves a value by at most 2**-8
 of itself; 1e-4 covers the order of the f32 sums. The W4 GEMMs get the same
 int8 rows as their plain versions, and the row quantizer must match its
-plain version bit for bit.
+plain version bit for bit. The attention kernels over int8 and fp8 pages are
+held to the plain version's f32 dequantize-then-attend at the same
+tolerance, and the KV quantizer on the card to itself on the CPU, bit for
+bit.
 """
 
 import math
@@ -23,8 +26,11 @@ import torch
 from scratchpad_tpu_torch.ops.attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_decode_attention_quant,
     paged_extend_attention,
     paged_extend_attention_plain,
+    paged_extend_attention_quant,
+    quantize_rows,
 )
 from scratchpad_tpu_torch.ops.quant.w4_matmul import (
     pack_w4,
@@ -66,6 +72,13 @@ def _pool(lens, Hkv, D, ps, gen):
     return k, v, pt
 
 
+def _quantized(k, v, code_dtype):
+    """bf16 pages as 8-bit codes and bf16 scales, through the KV quantizer."""
+    kc, ks = quantize_rows(k, code_dtype)
+    vc, vs = quantize_rows(v * 0.05, code_dtype)  # V on another scale than K
+    return kc, vc, ks, vs
+
+
 def _close(out, ref):
     torch.cuda.synchronize()
     assert out.dtype == torch.bfloat16 and ref.dtype == torch.float32
@@ -75,7 +88,7 @@ def _close(out, ref):
 
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("lens", [[256, 0, 17, 200], [1500], [4096, 3000, 1]])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
 def test_decode_kernel_matches_plain(gen, D, lens, G):
     Hkv, ps = 4, 16
     k, v, pt = _pool(lens, Hkv, D, ps, gen)
@@ -86,8 +99,67 @@ def test_decode_kernel_matches_plain(gen, D, lens, G):
     assert bool((out[seq == 0] == 0).all())
 
 
+@pytest.mark.parametrize("code_dtype", [torch.int8, torch.float8_e4m3fn])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("lens", [[256, 0, 17, 200], [4096, 3000, 1]])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+def test_quant_decode_kernel_matches_plain(gen, code_dtype, D, lens, G):
+    Hkv, ps = 4, 16
+    k, v, pt = _pool(lens, Hkv, D, ps, gen)
+    kc, vc, ks, vs = _quantized(k, v, code_dtype)
+    q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(D)
+    out = paged_decode_attention_quant(q, kc, vc, ks, vs, pt, seq, scale)
+    _close(out, paged_decode_attention_plain(q.float(), kc, vc, pt, seq, scale, ks, vs))
+    assert bool((out[seq == 0] == 0).all())
+
+
+def _extend_case(Hkv, D, G, gen):
+    chunks = [(100, 100), (64, 600), (1, 33), (0, 0), (250, 250)]
+    k, v, pt = _pool([c[1] for c in chunks], Hkv, D, 16, gen)
+    q_lens = torch.tensor([c[0] for c in chunks], device="cuda")
+    cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
+    cu[1:] = torch.cumsum(q_lens, 0).to(torch.int32)
+    kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
+    T = int(cu[-1]) + 37  # padding tokens
+    q = torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    return q, k, v, pt, kv_lens, cu
+
+
+@pytest.mark.parametrize("code_dtype", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+def test_quant_extend_kernel_matches_plain(gen, code_dtype, D, G):
+    q, k, v, pt, kv_lens, cu = _extend_case(2, D, G, gen)
+    kc, vc, ks, vs = _quantized(k, v, code_dtype)
+    out = paged_extend_attention_quant(q, kc, vc, ks, vs, pt, kv_lens, cu, 0.1)
+    _close(out, paged_extend_attention_plain(q.float(), kc, vc, pt, kv_lens, cu, 0.1, ks, vs))
+    assert bool((out[int(cu[-1]) :] == 0).all())
+
+
+@pytest.mark.parametrize("code_dtype", [torch.int8, torch.float8_e4m3fn])
+def test_kv_quantizer_on_the_card_is_bit_exact(gen, code_dtype):
+    """quantize_rows on CUDA tensors against the same function on the CPU:
+    random rows over six decades, a zero row, and rows whose bf16 scale
+    rounds down so that |x / scale| passes the code range (127.49, 449.7)."""
+    x = torch.randn(300, 8, 128, generator=gen, device="cuda")
+    x *= 10.0 ** torch.randint(-3, 4, (300, 8, 1), generator=gen, device="cuda")
+    x[7] = 0
+    limit = 127.0 if code_dtype == torch.int8 else 448.0
+    x[11, :, :16] = torch.linspace(-limit * 1.0039, limit * 1.0039, 16, device="cuda")
+    x[11, :, 16:] = 0
+    for xb in (x, x.to(torch.bfloat16)):
+        codes, scale = quantize_rows(xb, code_dtype)
+        ref_codes, ref_scale = quantize_rows(xb.cpu(), code_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(codes.view(torch.uint8).cpu(), ref_codes.view(torch.uint8))
+        assert torch.equal(scale.cpu(), ref_scale)
+        assert bool(torch.isfinite(codes.float()).all())
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
 def test_extend_kernel_matches_plain(gen, D, G):
     Hkv, ps = 2, 16
     chunks = [(100, 100), (64, 600), (1, 33), (0, 0), (250, 250)]
@@ -120,6 +192,34 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     cu = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):  # q on another device than the pool
         paged_extend_attention(q.bfloat16().cpu(), k, v, pt, seq, cu, 0.1)
+
+
+def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    """The 8-bit attention wrappers launch or raise: other head dims, groups
+    above 8 (decode), other code dtypes, scales that are not bf16 or not
+    [pages, ps, Hkv], and bf16 pages."""
+    k, v, pt = _pool([40], 2, 64, 16, gen)
+    kc, vc, ks, vs = _quantized(k, v, torch.int8)
+    seq = torch.tensor([40], dtype=torch.int32, device="cuda")
+    cu = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    q = torch.randn(1, 4, 64, device="cuda").to(torch.bfloat16)
+    dec = lambda *a: paged_decode_attention_quant(*a, pt, seq, 0.1)
+    ext = lambda *a: paged_extend_attention_quant(*a, pt, seq, cu, 0.1)
+    for fn in (dec, ext):
+        with pytest.raises(TypeError):  # bf16 pages
+            fn(q, k, v, ks, vs)
+        with pytest.raises(TypeError):  # u8 codes
+            fn(q, kc.view(torch.uint8), vc.view(torch.uint8), ks, vs)
+        with pytest.raises(TypeError):  # f32 scales
+            fn(q, kc, vc, ks.float(), vs.float())
+        with pytest.raises(ValueError):  # scales of another shape
+            fn(q, kc, vc, ks[:, :8].contiguous(), vs[:, :8].contiguous())
+        with pytest.raises(ValueError):  # head_dim 48
+            fn(q[..., :48].contiguous(), kc[..., :48].contiguous(), vc[..., :48].contiguous(), ks, vs)
+        with pytest.raises(TypeError):  # f32 q
+            fn(q.float(), kc, vc, ks, vs)
+    with pytest.raises(ValueError):  # group 9 at decode
+        dec(torch.randn(1, 18, 64, device="cuda").to(torch.bfloat16), kc, vc, ks, vs)
 
 
 # (In, Out) -> quantize_stacked's group: 128; 120 (GPT-OSS's half-plane

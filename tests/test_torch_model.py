@@ -57,9 +57,10 @@ class Pair:
     ``quantization`` (w4a8 | w4a16): the JAX parameters are quantized as its
     runner does (``quantize_model_params(fuse_gate_up=True)`` and a 4-bit
     head, ``lm_head_q``) and its model gets the runner's matmul; the port
-    loads the same codes through ``params_from_jax``."""
+    loads the same codes through ``params_from_jax``. ``kv_dtype`` (int8 |
+    fp8) gives both models 8-bit KV pools with per-(token, head) scales."""
 
-    def __init__(self, overrides, num_pages=64, quantization=None):
+    def __init__(self, overrides, num_pages=64, quantization=None, kv_dtype=None):
         self.jcfg = jax_get_preset("tiny-debug", dtype="float32", **overrides)
         self.cfg = get_preset("tiny-debug", dtype="float32", **overrides)
         self.jmodel = JaxLlama(self.jcfg)
@@ -78,12 +79,19 @@ class Pair:
         )
         self.model.load_state_dict(params_from_jax(params_np, self.cfg))
         L, Hkv, D = self.cfg.num_hidden_layers, self.cfg.num_kv_heads, self.cfg.head_dim
+        jax_codes = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn}
+        codes = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
         self.jkv = jax_create_kv_cache(
             JaxKVConfig(num_layers=L, num_pages=num_pages, page_size=PS,
-                        num_kv_heads=Hkv, head_dim=D, dtype=jnp.float32)
+                        num_kv_heads=Hkv, head_dim=D, dtype=jnp.float32,
+                        quantized=kv_dtype is not None,
+                        quant_dtype=jax_codes.get(kv_dtype, jnp.int8))
         )
         self.kv = create_kv_cache(
-            KVCacheConfig(L, num_pages, PS, Hkv, D, torch.float32), torch.device("cpu")
+            KVCacheConfig(L, num_pages, PS, Hkv, D, torch.float32,
+                          quantized=kv_dtype is not None,
+                          quant_dtype=codes.get(kv_dtype, torch.int8)),
+            torch.device("cpu"),
         )
 
     def step(self, mode, rows):
