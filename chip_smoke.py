@@ -22,9 +22,14 @@ Phases, in order; any failure exits non-zero before the last line:
    4-bit GEMMs: Llama-3.2-1B's seven matrices at M of 1, 64 and 2048, a
    group of 120 (GPT-OSS's 2880 -> 5760) and of 100 with a padded Out, each
    GEMM on the same int8 (W4A8) or bf16 (W4A16) rows as its plain version;
-   the row quantizer must match its plain version bit for bit. Tolerance:
+   the row quantizer must match its plain version bit for bit. The grouped
+   int8 delta kernel of the toppings path: Llama-3.2-1B's projection shapes
+   (2048 -> 2048, 512, 8192; 8192 -> 2048) at 1, 7, 64 and 2048 tokens,
+   over five slot layouts (one slot; all eight mixed; a slot with no
+   tokens; a LoRA-only slot; no adapter at all). Tolerance:
    |kernel - plain| <= ATOL + RTOL * |plain| elementwise (see below);
-   padding and zero rows must come out as exact zeros.
+   padding and zero rows must come out as exact zeros, and rows outside a
+   delta slot bit-equal to the delta kernel's input.
 4. engines: ``Engine.generate`` at full width and depth with random
    weights: Llama-3.2-1B in bf16, then with ``quantization="w4a8"``, then
    W4A16 on the same engine and codes (every ``QuantLinear`` switched to
@@ -32,15 +37,26 @@ Phases, in order; any failure exits non-zero before the last line:
    ``kv_cache_dtype="auto"``, which must resolve to int8 KV, then the same
    weights with bf16 KV; Llama-3.2-1B in bf16 with fp8 KV. Each serves
    greedy requests of different lengths, two that share a long prefix
-   (radix hit), one longer than ``chunked_prefill_size``.
+   (radix hit), one longer than ``chunked_prefill_size``. Toppings: after
+   its own phase, the bf16 1B engine registers two LoRA adapters (rank 16,
+   all seven targets, scaling 2.0) and one int8 delta adapter (q, v, gate
+   and down of every layer) and serves the request set again with each
+   request naming none or one of them (``1b-toppings``; the two prompts
+   that share a prefix name different adapters and must not share KV); the
+   W4A8 engine does the same after its W4A16 phase (``w4a8-toppings``, not
+   timed). The delta kernel must launch once per projection and layer of
+   every forward whose batch names an adapter.
    Every kernel's launch count is set to 0 just before and read just
    after; attention must launch at least layers x forwards of its mode
    (the 8-bit kernels for an 8-bit pool, and the bf16 ones never there),
    each W4 kernel of the route (6 x layers + 1) x forwards. The model's
    logits on the kernel path are held against the plain path (plain
-   attention and plain W4 GEMMs; not for the 3B engine with bf16 KV, whose
-   kernels the others hold) for each prompt's first generated token
-   and one decode step after it: the argmax must agree on every row but
+   attention, plain W4 GEMMs and the plain delta function; not for the 3B
+   engine with bf16 KV, whose kernels the others hold) for each prompt's
+   first generated token and one decode step after it (the toppings
+   engines: one mixed batch of none, LoRA and delta rows, extend and one
+   decode step, where each adapter must also move its rows' logits by at
+   least ``ADAPTER_MOVE`` times the reading): the argmax must agree on every row but
    those whose plain top-2 logits are equal or adjacent bf16 values (the
    logits are bf16, so ties occur), and max
    |diff| must stay within LOGIT_RTOL of max |logit|. After each
@@ -48,8 +64,7 @@ Phases, in order; any failure exits non-zero before the last line:
    with 128-token prompts and 128 new tokens, and the device's busy share
    of its decode steps: device time per step over three decode windows
    of a profiled run (``torch.profiler``) against the timed run's wall per
-   step. The 3B int8-KV engine is timed again after the bf16-KV one, so
-   that the two are timed in turns.
+   step.
    Phases 3 and 4 record a failed check and go on, so that a faulty
    kernel still shows every reading; the script exits non-zero after
    phase 4 if any check failed.
@@ -59,8 +74,11 @@ Phases, in order; any failure exits non-zero before the last line:
    version's time and one PyTorch call as a yardstick the port never calls
    (``scaled_dot_product_attention`` on K/V gathered dense, and dequantized
    to bf16, beforehand; ``torch.matmul`` of bf16 x with the weight
-   dequantized to bf16 beforehand). And the host's microseconds per
-   ``write_kv`` call into a bf16, int8 and fp8 pool.
+   dequantized to bf16 beforehand; for the delta kernel ``torch.bmm`` of
+   each delta slot's rows with its panel dequantized and scaled to bf16
+   beforehand), at 1B decode (bs 64, one and three delta slots) and one
+   2048-token prefill chunk. And the host's microseconds per ``write_kv``
+   call into a bf16, int8 and fp8 pool.
 6. one JSON line with every kernel's numbers, one with the engines', the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -104,6 +122,7 @@ ATOL, RTOL = 1e-4, 2.0**-8
 # compared.
 LOGIT_RTOL = {
     "bf16": 3e-2, "w4a8": 1e-1, "w4a16": 3e-2, "3b-w4a8": 1e-1, "1b-fp8kv": 5e-2,
+    "1b-toppings": 5e-2, "w4a8-toppings": 1e-1,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -112,7 +131,18 @@ LOGIT_RTOL = {
 # the gap, so an excuse that scales with the row's own max |diff| would
 # pass every flip; this one is a fixed floor. The 8-bit KV engines take it
 # too, since each path quantizes its own K/V rows.
-ARGMAX_FLOOR = {"bf16": 0.0, "w4a8": 2e-2, "w4a16": 0.0, "3b-w4a8": 2e-2, "1b-fp8kv": 2e-2}
+ARGMAX_FLOOR = {
+    "bf16": 0.0, "w4a8": 2e-2, "w4a16": 0.0, "3b-w4a8": 2e-2, "1b-fp8kv": 2e-2,
+    "1b-toppings": 3e-2, "w4a8-toppings": 3e-2,
+}
+# Each adapter must move its rows' logits (max|adapted - base| / max|base|)
+# by at least this many times the engine's kernel-vs-plain reading, so that
+# a kernel that adds nothing fails.
+ADAPTER_MOVE = 10.0
+# the toppings engines' requests, in the order of phase_engine's prompts
+# and its second request: the last two share a 600-token prefix under
+# different adapters
+TOPPINGS = ["ad1", "dl1", None, "ad2", "ad1", "dl1", "ad2", "dl1"]
 FAILURES: list[str] = []
 
 
@@ -505,6 +535,91 @@ def check_w4(errs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def llama_1b_projections():
+    """(name, In, Out, calls per forward) of Llama-3.2-1B's distinct
+    projection shapes, as the toppings pools keep them (gate and up apart)."""
+    from scratchpad_tpu_torch.config.model_config import get_preset
+
+    c = get_preset("llama-3.2-1b")
+    H, I, L = c.hidden_size, c.intermediate_size, c.num_hidden_layers
+    q_out, kv_out = c.num_attention_heads * c.head_dim, c.num_kv_heads * c.head_dim
+    assert q_out == H
+    return [
+        ("wq|wo", H, q_out, 2 * L), ("wk|wv", H, kv_out, 2 * L),
+        ("gate|up", H, I, 2 * L), ("down", I, H, L),
+    ]
+
+
+# pool adapters of the delta checks: 3 and 0 carry no delta (3 is LoRA only)
+DELTA_HAS = [0, 1, 1, 0, 1, 1, 1, 1]
+# (active_adapters, the slots tokens take)
+DELTA_LAYOUTS = {
+    "one slot": ([0, 2, 0, 0, 0, 0, 0, 0], [1]),
+    "all eight mixed": ([0, 1, 2, 3, 4, 5, 6, 7], list(range(8))),
+    "a slot with no tokens": ([0, 1, 2, 4, 0, 0, 0, 0], [0, 1, 3]),
+    "a LoRA-only slot": ([0, 3, 0, 0, 0, 0, 0, 0], [0, 1]),
+    "no adapter": ([0] * 8, [0]),
+}
+
+
+def delta_pool(In: int, Out: int, layers: int, gen, N: int = 8):
+    """A random delta pool like the manager's: int8 codes ``[N, layers, In,
+    Out]`` (slot 0 zero) and f32 per-out-channel scales, with the flags of
+    ``DELTA_HAS`` and scalings 0.5 to 2.0."""
+    import torch
+
+    dq = torch.randint(-127, 128, (N, layers, In, Out), generator=gen, device="cuda", dtype=torch.int8)
+    dq[0] = 0
+    ds = torch.rand(N, layers, Out, generator=gen, device="cuda") * 2e-3
+    has = torch.tensor(DELTA_HAS[:N], dtype=torch.int32, device="cuda")
+    return dq, ds, has, torch.linspace(0.5, 2.0, N, device="cuda")
+
+
+def delta_rows(T: int, choices, gen):
+    import torch
+
+    pick = torch.randint(0, len(choices), (T,), generator=gen, device="cuda")
+    return torch.tensor(choices, dtype=torch.int32, device="cuda")[pick]
+
+
+def check_delta(errs: dict) -> None:
+    """The grouped delta kernel against its plain version's f32 sums on
+    the rows of delta slots, at Llama-3.2-1B's projection shapes, 1, 7, 64
+    and 2048 tokens and every layout of ``DELTA_LAYOUTS``; every other row
+    must come out bit-equal to the input."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.ldmm import delta_matmul_grouped, delta_matmul_grouped_plain
+
+    for i, (name, In, Out, _) in enumerate(llama_1b_projections()):
+        gen = seeded(8000 + i)
+        dq, ds, has, scaling = delta_pool(In, Out, 3, gen)  # checked at layer 1 of 3
+        for T in (1, 7, 64, 2048):
+            x = torch.randn(T, In, generator=gen, device="cuda").to(torch.bfloat16)
+            out0 = torch.randn(T, Out, generator=gen, device="cuda").to(torch.bfloat16)
+            for layout, (active, choices) in DELTA_LAYOUTS.items():
+                act = torch.tensor(active, dtype=torch.int32, device="cuda")
+                slots = delta_rows(T, choices, gen)
+                args = (x, dq, ds, 1, act, has, scaling, slots)
+                got = delta_matmul_grouped(out0.clone(), *args)
+                ref = delta_matmul_grouped_plain(out0.float(), *args)
+                torch.cuda.synchronize()
+                touched = (slots > 0) & (has[act[slots].long()] > 0)
+                e, ratio = max_err(got[touched], ref[touched]) if bool(touched.any()) else (0.0, 0.0)
+                kept = bool(torch.equal(got[~touched], out0[~touched]))
+                errs["delta_matmul_grouped"] = max(errs["delta_matmul_grouped"], e)
+                log(
+                    f"[check] delta {name} {In}->{Out} T={T} {layout}: {int(touched.sum())} rows in "
+                    f"delta slots, max_abs_err {e:.3e}, err/tol {ratio:.3f}; other rows bit-equal: {kept}"
+                )
+                check(
+                    ratio <= 1 and kept,
+                    f"delta kernel disagrees with its plain version at {name} T={T} {layout}",
+                )
+        del dq, ds
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------- phase 5 (kernels)
 
 
@@ -765,6 +880,98 @@ def phase_w4_timing() -> dict:
     return dict(rows=rows, quant=quant, per_forward=per_fwd)
 
 
+def time_delta(In: int, Out: int, T: int, n_delta: int) -> dict:
+    """The grouped delta kernel at one projection: T rows spread round-robin
+    over slots 0..3 (the engine bench's none, LoRA, LoRA, delta) with
+    ``n_delta`` of slots 1..3 holding a delta adapter, or, for
+    ``n_delta == 0``, one prefill chunk of T rows all in one delta slot.
+    Bound: the bytes of each active delta slot's panel, scales, rows of x
+    and rows of out read and written, or 2 * rows * In * Out operations at
+    the bf16 rate. Library yardstick: ``torch.bmm`` of each delta slot's rows
+    with its panel dequantized and scaled to bf16 beforehand. Calls cycle
+    over enough layers (up to 128 MiB of codes) to leave L2 cold."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.ldmm import delta_matmul_grouped, delta_matmul_grouped_plain
+
+    layers = max(2, min(64, -(-128 * 2**20 // (In * Out))))
+    gen = seeded(9000 + In + Out + T + n_delta)
+    dq, ds, _, scaling = delta_pool(In, Out, layers, gen, N=4)
+    if n_delta:
+        has = torch.tensor([0] + [int(j >= 4 - n_delta) for j in range(1, 4)], dtype=torch.int32, device="cuda")
+        slots = (torch.arange(T, device="cuda") % 4).to(torch.int32)
+    else:
+        has = torch.tensor([0, 1, 0, 0], dtype=torch.int32, device="cuda")
+        slots = torch.ones(T, dtype=torch.int32, device="cuda")
+    act = torch.tensor([0, 1, 2, 3, 0, 0, 0, 0], dtype=torch.int32, device="cuda")
+    x = torch.randn(T, In, generator=gen, device="cuda").to(torch.bfloat16)
+    out = torch.randn(T, Out, generator=gen, device="cuda").to(torch.bfloat16)
+    delta_slots = [j for j in range(1, 4) if int(has[j])]
+    rows = [(slots == j).nonzero()[:, 0] for j in delta_slots]
+    n_rows = sum(len(r) for r in rows)
+    xs = torch.stack([x[r] * scaling[j] for r, j in zip(rows, delta_slots)]).to(torch.bfloat16)
+    n_lib = max(2, min(layers, -(-256 * 2**20 // (len(delta_slots) * In * Out * 2))))
+    deq = [
+        torch.stack([(dq[j, l].float() * ds[j, l]).to(torch.bfloat16) for j in delta_slots])
+        for l in range(n_lib)
+    ]
+    args = lambda l: (x, dq, ds, l, act, has, scaling, slots)
+    nbytes = len(delta_slots) * (In * Out + Out * 4) + n_rows * (In * 2 + Out * 2 * 2)
+    b, by = bound_ms(nbytes, 2.0 * n_rows * In * Out)
+    iters = 50 if T <= 64 else 10
+    what = (
+        f"bs {T}, {n_delta} of 3 adapter slots with a delta" if n_delta
+        else f"one prefill chunk of {T} tokens in one delta slot"
+    )
+    r = dict(
+        shape=f"{In}->{Out}, {what} ({n_rows} rows)",
+        ms=device_ms(lambda l: delta_matmul_grouped(out, *args(l)), layers, iters),
+        plain_ms=device_ms(lambda l: delta_matmul_grouped_plain(out, *args(l)), layers, 2, reps=3),
+        library_ms=device_ms(lambda l: torch.bmm(xs, deq[l % n_lib]), n_lib, iters),
+        bound_ms=b,
+        bound_by=by,
+        nbytes=nbytes,
+        ops=2.0 * n_rows * In * Out,
+    )
+    del dq, ds, deq
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_delta_timing() -> dict:
+    """The delta kernel at each distinct projection of Llama-3.2-1B: bs 64
+    with one and with three delta slots, and one 2048-token prefill chunk.
+    Per forward (16 layers x 7 projections) at bs 64 with one delta slot,
+    the sums of calls x time go to the ``kernels`` line."""
+    rows = {}
+    for name, In, Out, calls in llama_1b_projections():
+        for T, n_delta in ((64, 1), (64, 3), (2048, 0)):
+            r = time_delta(In, Out, T, n_delta)
+            r["calls"] = calls
+            rows[(name, T, n_delta)] = r
+            log(
+                f"[time] delta_matmul_grouped {name} {r['shape']}: {r['ms']:.4f} ms; bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain {r['plain_ms']:.4f} ms; "
+                f"torch.bmm bf16 {r['library_ms']:.4f} ms"
+            )
+    per_fwd = {}
+    for n_delta in (1, 3):
+        dec = [r for (_, T, n), r in rows.items() if T == 64 and n == n_delta]
+        tot = {f: sum(r["calls"] * r[f] for r in dec) for f in ("ms", "plain_ms", "library_ms", "nbytes", "ops")}
+        per_fwd[n_delta] = dict(
+            shape=f"one decode forward of Llama-3.2-1B at bs 64 (7 projections x 16 layers), "
+            f"{n_delta} of 3 adapter slots with a delta",
+            **{f: tot[f] for f in ("ms", "plain_ms", "library_ms")},
+        )
+        per_fwd[n_delta]["bound_ms"], per_fwd[n_delta]["bound_by"] = bound_ms(tot["nbytes"], tot["ops"])
+        p = per_fwd[n_delta]
+        log(
+            f"[time] delta_matmul_grouped {p['shape']}: {p['ms']:.4f} ms; bound {p['bound_ms']:.4f} ms "
+            f"({p['bound_by']}); plain {p['plain_ms']:.4f} ms; torch.bmm bf16 {p['library_ms']:.4f} ms"
+        )
+    return per_fwd
+
+
 def time_kv_write(D: int) -> dict:
     """Host microseconds per ``write_kv`` call (the host's launch work,
     before a synchronize) and host plus device, for one decode step's K/V
@@ -841,52 +1048,6 @@ def phase_timing() -> dict:
 # --------------------------------------------------------------- phase 4
 
 
-def prompt_logits(runner, prompt, next_token):
-    """The model's logits after ``prompt`` (one extend) and after
-    ``next_token`` (one decode step), on pages borrowed from the engine's
-    idle pool and returned after."""
-    import numpy as np
-
-    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
-    from scratchpad_tpu_torch.executor.model_runner import WorkerBatch
-    from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
-
-    ps, n = runner.page_size, len(prompt)
-    pages = runner.page_allocator.alloc(-(-(n + 1) // ps))
-    if pages is None:
-        fail("no free pages for the logits check")
-    try:
-        pos = np.arange(n + 1)
-        loc = pages[pos // ps] * ps + pos % ps
-        common = dict(
-            page_table=pages[None, :].astype(np.int32),
-            sampling_info=SamplingBatchInfo.from_reqs([], 1, runner.model_config.vocab_size),
-        )
-        ext = WorkerBatch(
-            mode=ForwardMode.EXTEND,
-            tokens=np.asarray(prompt),
-            positions=pos[:n],
-            out_cache_loc=loc[:n],
-            req_indices=np.zeros(n, np.int64),
-            seq_lens=np.array([n]),
-            extend_lens=np.array([n]),
-            **common,
-        )
-        dec = WorkerBatch(
-            mode=ForwardMode.DECODE,
-            tokens=np.array([next_token]),
-            positions=pos[n:],
-            out_cache_loc=loc[n:],
-            req_indices=np.zeros(1, np.int64),
-            seq_lens=np.array([n + 1]),
-            extend_lens=np.array([1]),
-            **common,
-        )
-        return runner.forward_logits(ext)[0], runner.forward_logits(dec)[0]
-    finally:
-        runner.page_allocator.free(pages)
-
-
 def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto", params=None):
     """An engine with seeded random weights, or with ``params`` (a state
     dict of the same model, for example another engine's quantized one)."""
@@ -916,6 +1077,190 @@ def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto",
     return engine
 
 
+def topping_states(cfg):
+    """Two LoRA adapters (rank 16 on all seven targets of every layer;
+    peft names) and one delta adapter (HF [out, in] deltas on q, v, gate and
+    down of every layer), as numpy from seeds 11, 12 and 13. Each moves a
+    projection's output by about a third of the base output's size: A is
+    N(0, 1/In), B N(0, 0.04^2) under scaling 2.0, the delta N(0, 0.008^2)."""
+    import numpy as np
+
+    H, I, L, D = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers, cfg.head_dim
+    q, kv = cfg.num_attention_heads * D, cfg.num_kv_heads * D
+    dims = {
+        "q_proj": ("self_attn", H, q), "k_proj": ("self_attn", H, kv),
+        "v_proj": ("self_attn", H, kv), "o_proj": ("self_attn", q, H),
+        "gate_proj": ("mlp", H, I), "up_proj": ("mlp", H, I), "down_proj": ("mlp", I, H),
+    }
+    loras = []
+    for seed in (11, 12):
+        rng = np.random.default_rng(seed)
+        st = {}
+        for l in range(L):
+            for t, (mod, din, dout) in dims.items():
+                pre = f"base_model.model.model.layers.{l}.{mod}.{t}"
+                st[f"{pre}.lora_A.weight"] = rng.standard_normal((16, din), np.float32) / np.float32(math.sqrt(din))
+                st[f"{pre}.lora_B.weight"] = rng.standard_normal((dout, 16), np.float32) * np.float32(0.04)
+        loras.append(st)
+    rng = np.random.default_rng(13)
+    delta = {
+        f"model.layers.{l}.{dims[t][0]}.{t}.weight":
+            rng.standard_normal((dims[t][2], dims[t][1]), np.float32) * np.float32(0.008)
+        for l in range(L)
+        for t in ("q_proj", "v_proj", "gate_proj", "down_proj")
+    }
+    return loras, delta
+
+
+def register_toppings(engine, states, label: str) -> None:
+    """ad1, ad2 (LoRA, scaling 2.0) and dl1 (delta) through
+    ``Engine.register_topping``; logs the host seconds it takes, the pools'
+    bytes on the card and the card's free memory after."""
+    import torch
+
+    loras, delta = states
+    t = time.monotonic()
+    engine.register_topping("ad1", state=loras[0], scaling=2.0)
+    engine.register_topping("ad2", state=loras[1], scaling=2.0)
+    engine.register_topping("dl1", delta_state=delta)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t
+    free, total = torch.cuda.mem_get_info()
+    log(
+        f"[engine {label}] registered ad1, ad2 (LoRA rank 16, 7 targets x "
+        f"{engine.model_config.num_hidden_layers} layers, scaling 2.0) and dl1 (int8 delta on "
+        f"q, v, gate, down) in {secs:.1f} s of host; topping pools "
+        f"{engine.toppings_manager.device_bytes() / 2**30:.3f} GiB on the card; "
+        f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free"
+    )
+
+
+def batch_logits(runner, prompts, next_tokens, names=None):
+    """The model's f32 logits [B, V] after one extend of ``prompts`` as one
+    batch, and after one decode step of ``next_tokens`` (one a row), on
+    pages borrowed from the engine's idle pool and returned after.
+    ``names``: each row's adapter (None for none), or None for a batch that
+    names no adapter."""
+    import numpy as np
+
+    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+    from scratchpad_tpu_torch.executor.model_runner import WorkerBatch
+    from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
+    from scratchpad_tpu_torch.toppings.manager import MAX_ACTIVE_TOPPINGS
+
+    ps, B = runner.page_size, len(prompts)
+    lens = [len(p) for p in prompts]
+    pages = [runner.page_allocator.alloc(-(-(n + 1) // ps)) for n in lens]
+    try:
+        if any(p is None for p in pages):
+            fail("no free pages for the logits check")
+        pt = np.zeros((B, max(len(p) for p in pages)), np.int32)
+        locs = []
+        for i, (p, n) in enumerate(zip(pages, lens)):
+            pt[i, : len(p)] = p
+            pos = np.arange(n + 1)
+            locs.append(p[pos // ps] * ps + pos % ps)
+        extra = {}
+        if names is not None:
+            order = sorted({n for n in names if n})
+            active = np.zeros(MAX_ACTIVE_TOPPINGS, np.int32)
+            active[1 : 1 + len(order)] = [runner.toppings_manager.lookup(n) for n in order]
+            slots = np.array([order.index(n) + 1 if n else 0 for n in names], np.int32)
+            extra = dict(active_adapters=active, adapter_slots=slots)
+        common = dict(
+            page_table=pt,
+            sampling_info=SamplingBatchInfo.from_reqs([], B, runner.model_config.vocab_size),
+            **extra,
+        )
+        ext = WorkerBatch(
+            mode=ForwardMode.EXTEND,
+            tokens=np.concatenate([np.asarray(p) for p in prompts]),
+            positions=np.concatenate([np.arange(n) for n in lens]),
+            out_cache_loc=np.concatenate([l[:-1] for l in locs]),
+            req_indices=np.repeat(np.arange(B), lens),
+            seq_lens=np.array(lens),
+            extend_lens=np.array(lens),
+            **common,
+        )
+        dec = WorkerBatch(
+            mode=ForwardMode.DECODE,
+            tokens=np.asarray(next_tokens),
+            positions=np.array(lens),
+            out_cache_loc=np.array([l[-1] for l in locs]),
+            req_indices=np.arange(B),
+            seq_lens=np.array(lens) + 1,
+            extend_lens=np.ones(B, np.int64),
+            **common,
+        )
+        return runner.forward_logits(ext), runner.forward_logits(dec)
+    finally:
+        for p in pages:
+            if p is not None:
+                runner.page_allocator.free(p)
+
+
+def check_toppings_logits(engine, label: str) -> float:
+    """One mixed batch (two rows each of none, ad1, ad2 and dl1; 5 to 1,000
+    tokens), extend and one decode step: kernel path against plain path
+    with the engine's gate and argmax rule, and each adapter's rows against
+    the same batch naming no adapter, which must move by at least
+    ``ADAPTER_MOVE`` times the worst kernel-vs-plain reading. Returns that
+    reading."""
+    import numpy as np
+    import torch
+
+    runner = engine.scheduler.runner
+    V = runner.model_config.vocab_size
+    rng = np.random.default_rng(5)
+    names = [None, "ad1", "ad2", "dl1"] * 2
+    prompts = [rng.integers(1, V, n).tolist() for n in (5, 37, 128, 300, 511, 64, 200, 1000)]
+    firsts = [p[0] for p in prompts]
+    kern = batch_logits(runner, prompts, firsts, names)
+    with PlainPath(runner.model):
+        plain = batch_logits(runner, prompts, firsts, names)
+    base = batch_logits(runner, prompts, firsts)
+    tol, worst = LOGIT_RTOL[label], 0.0
+    for step in (0, 1):
+        for i, name in enumerate(names):
+            a, b = kern[step][i], plain[step][i]
+            check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{label}: non-finite logits")
+            scale = float(b.abs().max())
+            rel = float((a - b).abs().max()) / scale
+            worst = max(worst, rel)
+            top2 = torch.topk(b, 2).values
+            gap = float(top2[0] - top2[1])
+            tie = gap <= max(
+                math.ldexp(1.0, math.frexp(abs(float(top2[0])))[1] - 8), ARGMAX_FLOOR[label] * scale
+            )
+            same = bool(a.argmax() == b.argmax())
+            check(rel <= tol, f"{label}: row {i} ({name}) step {step}: kernel-path logits differ by {rel:.3e}")
+            check(same or tie, f"{label}: row {i} ({name}) step {step}: argmax differs outside a tie")
+            if not same:
+                log(
+                    f"[engine {label}] mixed row {i} ({name}) step {step}: argmax {int(a.argmax())} vs "
+                    f"{int(b.argmax())}; plain top-2 gap {gap / scale:.3e} of max|logit| (tie {tie})"
+                )
+    moves = {}
+    for step in (0, 1):
+        for i, name in enumerate(names):
+            d = float((kern[step][i] - base[step][i]).abs().max()) / float(base[step][i].abs().max())
+            moves.setdefault(name, []).append(d)
+    log(
+        f"[engine {label}] mixed batch of {len(names)} rows, extend and decode: kernel vs plain "
+        f"worst max|diff|/max|logit| {worst:.3e} (tol {tol}); move against no adapter, min over "
+        f"rows: "
+        + ", ".join(f"{n or 'none'} {min(m):.3e}" for n, m in moves.items())
+        + f" (none rows: max {max(moves[None]):.3e})"
+    )
+    for name in ("ad1", "ad2", "dl1"):
+        check(
+            min(moves[name]) >= ADAPTER_MOVE * worst,
+            f"{label}: {name} moves its rows' logits by {min(moves[name]):.3e}, under "
+            f"{ADAPTER_MOVE} x the kernel-vs-plain reading {worst:.3e}",
+        )
+    return worst
+
+
 def set_w4_route(model, a8: bool) -> None:
     from scratchpad_tpu_torch.models.common import QuantLinear
 
@@ -926,8 +1271,9 @@ def set_w4_route(model, a8: bool) -> None:
 
 class PlainPath:
     """Within the block, the model runs every kernel's plain version: the
-    attention functions it holds, and the W4 functions ``QuantLinear``
-    calls (module globals of ``models.common``)."""
+    attention functions it holds, the W4 functions ``QuantLinear`` calls
+    (module globals of ``models.common``) and the delta function
+    ``apply_topping`` calls (a module global of ``toppings.manager``)."""
 
     def __init__(self, model):
         self.model = model
@@ -935,8 +1281,12 @@ class PlainPath:
     def __enter__(self):
         from scratchpad_tpu_torch.models import common
         from scratchpad_tpu_torch.ops.attention import decode_attention_plain, extend_attention_plain
+        from scratchpad_tpu_torch.ops import ldmm
         from scratchpad_tpu_torch.ops.quant import w4_matmul
+        from scratchpad_tpu_torch.toppings import manager
 
+        self.saved_delta = manager.delta_matmul_grouped
+        manager.delta_matmul_grouped = ldmm.delta_matmul_grouped_plain
         self.saved_attn = (self.model.decode_attention, self.model.extend_attention)
         self.saved_w4 = (common.quantize_rows_int8, common.w4a8_matmul, common.w4a16_matmul)
         self.model.decode_attention, self.model.extend_attention = (
@@ -948,12 +1298,14 @@ class PlainPath:
 
     def __exit__(self, *exc):
         from scratchpad_tpu_torch.models import common
+        from scratchpad_tpu_torch.toppings import manager
 
+        manager.delta_matmul_grouped = self.saved_delta
         self.model.decode_attention, self.model.extend_attention = self.saved_attn
         common.quantize_rows_int8, common.w4a8_matmul, common.w4a16_matmul = self.saved_w4
 
 
-def phase_engine(engine, label: str, w4_kernels=(), logits=True) -> dict:
+def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None) -> dict:
     """Serve the request set through ``Engine.generate`` with every launch
     count set to 0 just before and read just after; check each request,
     the radix hit, the launches of both attention kernels of the pool's
@@ -962,7 +1314,11 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True) -> dict:
     and the head), and, with ``logits``, the kernel-path logits against the
     plain path's. The argmax must agree on every row
     but a bf16 tie: the plain path's top-2 logits equal or one bf16 ulp
-    apart. Each row whose argmax differs is logged with its gap."""
+    apart. Each row whose argmax differs is logged with its gap.
+    ``toppings``: each request's adapter (see ``TOPPINGS``); the delta
+    kernel must then launch once per projection and layer of every forward
+    whose batch names an adapter, and never without ``toppings``, and the
+    logits are those of ``check_toppings_logits``."""
     import numpy as np
     import torch
 
@@ -975,10 +1331,12 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True) -> dict:
     L = cfg.num_hidden_layers
     model = runner.model
     forwards = {ForwardMode.EXTEND: 0, ForwardMode.DECODE: 0}
+    topped = [0]  # forwards whose batch names an adapter
     inner_forward = model.forward
 
     def counting_forward(meta, kv):
         forwards[meta.mode] += 1
+        topped[0] += meta.active_adapters is not None
         return inner_forward(meta, kv)
 
     model.forward = counting_forward
@@ -992,11 +1350,12 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True) -> dict:
     ] + [shared + rng.integers(1, V, 40).tolist()]
     second = [shared + rng.integers(1, V, 25).tolist()]  # radix hit on `shared`
     sp = SamplingParams(temperature=0.0, max_new_tokens=32, ignore_eos=True)
+    tops = toppings or [None] * (len(prompts) + 1)
 
     engine.flush_cache()
     reset_launch_counts()
-    outs = engine.generate(input_ids=prompts, sampling_params=[sp] * len(prompts))
-    outs += engine.generate(input_ids=second, sampling_params=[sp])
+    outs = engine.generate(input_ids=prompts, sampling_params=[sp] * len(prompts), topping=tops[:-1])
+    outs += engine.generate(input_ids=second, sampling_params=[sp], topping=tops[-1])
     counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
     torch.cuda.synchronize()
     model.forward = inner_forward
@@ -1011,20 +1370,34 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True) -> dict:
             f"{label} request {o.rid}: {o.completion_tokens} tokens, finish {o.finish_reason}",
         )
         check(o.prompt_tokens == len(p), f"{label} request {o.rid}: prompt_tokens {o.prompt_tokens} != {len(p)}")
-    check(outs[-1].cached_tokens >= 512, f"{label}: no radix hit: cached_tokens {outs[-1].cached_tokens}")
-    log(f"[engine {label}] radix hit: {outs[-1].cached_tokens} cached tokens; chunked prompt of {len(prompts[5])} tokens")
+    if tops[-1] == tops[-2]:
+        check(outs[-1].cached_tokens >= 512, f"{label}: no radix hit: cached_tokens {outs[-1].cached_tokens}")
+    else:  # the shared prefix's KV was computed under another adapter
+        check(outs[-1].cached_tokens == 0, f"{label}: KV reused across adapters: {outs[-1].cached_tokens}")
+    log(
+        f"[engine {label}] shared 600-token prefix under adapters {tops[-2]} and {tops[-1]}: "
+        f"{outs[-1].cached_tokens} cached tokens; chunked prompt of {len(prompts[5])} tokens"
+    )
     pages = runner.kv_cache_dtype if runner.kv_cache.quantized else "bf16"
     need = {EXTEND[pages]: L * n_ext, DECODE[pages]: L * n_dec}
     for k in w4_kernels:
         need[k] = (6 * L + 1) * (n_ext + n_dec)
     for k, n in need.items():
         check(counts[k] >= n > 0, f"{label}: {k} launched {counts[k]} times, fewer than {n}")
+    # one delta launch per projection and layer of each forward with adapters
+    n_top = 7 * L * topped[0]
+    check(
+        counts["delta_matmul_grouped"] == n_top and (n_top > 0) == (toppings is not None),
+        f"{label}: delta_matmul_grouped launched {counts['delta_matmul_grouped']} times, not "
+        f"{n_top} ({topped[0]} forwards with adapters)",
+    )
     other = "bf16" if runner.kv_cache.quantized else "int8"
     for k in (EXTEND[other], DECODE[other]):
         check(counts[k] == 0, f"{label}: {k} launched {counts[k]} times on a {pages} pool")
     steps = {
         EXTEND[pages]: n_ext, DECODE[pages]: n_dec,
         **{k: n_ext + n_dec for k in w4_kernels},
+        "delta_matmul_grouped": topped[0],
     }
 
     result = dict(
@@ -1034,6 +1407,9 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True) -> dict:
     )
     if not logits:
         return result
+    if toppings:
+        result["worst_logit_rel"] = check_toppings_logits(engine, label)
+        return result
     # kernel path vs plain path logits for each prompt's first generated
     # token (extend) and the step after it (decode), on the card
     tol = LOGIT_RTOL[label]
@@ -1041,11 +1417,11 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True) -> dict:
     agree = ties = 0
     min_margin = math.inf  # the plain path's top-2 gap over max |logit|
     for p, o in zip(prompts + second, outs):
-        kern = prompt_logits(runner, p, o.output_ids[0])
+        kern = batch_logits(runner, [p], [o.output_ids[0]])
         with PlainPath(model):
-            plain = prompt_logits(runner, p, o.output_ids[0])
+            plain = batch_logits(runner, [p], [o.output_ids[0]])
         for step in (0, 1):
-            a, b = kern[step], plain[step]
+            a, b = kern[step][0], plain[step][0]
             check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{label}: non-finite logits")
             scale = float(b.abs().max())
             rel = float((a - b).abs().max()) / scale
@@ -1085,8 +1461,9 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True) -> dict:
 PROFILED_WINDOWS = (2, 5)  # decode windows [2, 5) of the profiled run
 
 
-def phase_engine_times(engine, eng: dict, label: str) -> None:
-    """Decode tokens/s at the bench shape (bs 64, 128 + 128), and the
+def phase_engine_times(engine, eng: dict, label: str, toppings: bool = False) -> None:
+    """Decode tokens/s at the bench shape (bs 64, 128 + 128; with
+    ``toppings``, the requests name none, ad1, ad2 and dl1 in turn), and the
     device's busy share of a decode step: the device time per step over
     decode windows ``PROFILED_WINDOWS`` of a profiled run (all 64 rows
     decoding; a trace of the whole run took ``key_averages`` about a minute
@@ -1116,13 +1493,14 @@ def phase_engine_times(engine, eng: dict, label: str) -> None:
     rng = np.random.default_rng(1)
     bench = [rng.integers(1, runner.model_config.vocab_size, 128).tolist() for _ in range(64)]
     sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    tops = [None, "ad1", "ad2", "dl1"] * 16 if toppings else None
 
     def run():
         engine.flush_cache()
         dec_time[0], dec_tokens[0] = 0.0, 0
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = engine.generate(input_ids=bench, sampling_params=[sp] * 64)
+        res = engine.generate(input_ids=bench, sampling_params=[sp] * 64, topping=tops)
         wall = time.perf_counter() - t
         if any(len(r.output_ids) != 128 for r in res):
             fail("bench requests did not finish with 128 tokens")
@@ -1233,12 +1611,18 @@ KERNELS = {
         replaces="scratchpad_tpu/ops/quant/pallas_w4.py:394 (_w4_kernel_q4) "
         "and :27 (_w4_kernel)",
     ),
+    "delta_matmul_grouped": dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/delta_matmul.cu",
+        replaces="scratchpad_tpu/ops/ldmm.py:51 (_delta_kernel, launched :121 by delta_matmul :72)",
+    ),
 }
 # the engine run whose launches each kernel's entry reports
 KERNEL_ENGINE = {
     "paged_decode_attention": "bf16", "paged_extend_attention": "bf16",
     "paged_decode_attention_quant": "3b-w4a8", "paged_extend_attention_quant": "3b-w4a8",
     "quantize_rows_int8": "w4a8", "w4a8_matmul": "w4a8", "w4a16_matmul": "w4a16",
+    "delta_matmul_grouped": "1b-toppings",
 }
 
 
@@ -1260,17 +1644,18 @@ def main() -> None:
     check_extend(errs)
     check_kv_quantizer()
     check_w4(errs)
+    check_delta(errs)
     # the timed runs follow each engine's checks, and only while every
     # check holds: a faulty tree shows all its readings, quickly
     engines = {}
     w4a8 = ("quantize_rows_int8", "w4a8_matmul")
 
-    def serve(engine, label, w4_kernels=(), logits=True):
+    def serve(engine, label, w4_kernels=(), logits=True, toppings=None, timed=True):
         t = time.monotonic()
-        engines[label] = phase_engine(engine, label, w4_kernels, logits)
+        engines[label] = phase_engine(engine, label, w4_kernels, logits, toppings)
         t_times = time.monotonic()
-        if not FAILURES:
-            phase_engine_times(engine, engines[label], label)
+        if timed and not FAILURES:
+            phase_engine_times(engine, engines[label], label, toppings is not None)
         log(
             f"[engine {label}] phase wall: {t_times - t:.1f} s serving and checking, "
             f"{time.monotonic() - t_times:.1f} s timing"
@@ -1278,6 +1663,11 @@ def main() -> None:
 
     engine = make_engine()
     serve(engine, "bf16")
+    # toppings on the same engine and weights, so that the two rates are
+    # taken in one call
+    states = topping_states(engine.model_config)
+    register_toppings(engine, states, "1b-toppings")
+    serve(engine, "1b-toppings", toppings=TOPPINGS)
     del engine  # frees the pool and the weights for the next engine
     engine = make_engine("w4a8")
     serve(engine, "w4a8", w4a8)
@@ -1285,6 +1675,11 @@ def main() -> None:
     set_w4_route(engine.scheduler.runner.model, a8=False)
     serve(engine, "w4a16", ("w4a16_matmul",))
     engines["w4a16"]["weights"] = "w4a16"
+    # the same toppings on W4A8: the fused gate|up split on the card
+    set_w4_route(engine.scheduler.runner.model, a8=True)
+    register_toppings(engine, states, "w4a8-toppings")
+    del states
+    serve(engine, "w4a8-toppings", w4a8, toppings=TOPPINGS, timed=False)
     del engine
     # Llama-3.2-3B W4A8: kv_cache_dtype=auto must give int8 KV, as the JAX
     # runner's rule does at hidden x layers = 86,016
@@ -1298,16 +1693,11 @@ def main() -> None:
     params = dict(engine.scheduler.runner.model.state_dict())
     del engine
     engine = make_engine("w4a8", preset="llama-3.2-3b", kv_cache_dtype="bfloat16", params=params)
+    del params
     # (its kernels are held elsewhere: bf16 attention at G = 3 in phase 3
     # and in the bf16 engine, W4A8 in both W4A8 engines; it is here for
-    # its launch counts and its times, so its logits are not checked, nor
-    # those of the int8 engine timed again after it)
+    # its launch counts and its times, so its logits are not checked)
     serve(engine, "3b-w4a8-bf16kv", w4a8, logits=False)
-    del engine
-    # int8 KV once more, so that the two KV dtypes are timed in turns
-    engine = make_engine("w4a8", preset="llama-3.2-3b", params=params)
-    del params
-    serve(engine, "3b-w4a8-again", w4a8, logits=False)
     del engine
     engine = make_engine(kv_cache_dtype="fp8")
     serve(engine, "1b-fp8kv")
@@ -1318,6 +1708,8 @@ def main() -> None:
         fail(f"{len(FAILURES)} correctness checks failed; the first: {FAILURES[0]}")
     timing = phase_timing()
     timing.update({k: [v] for k, v in phase_w4_timing()["per_forward"].items()})
+    delta = phase_delta_timing()
+    timing["delta_matmul_grouped"] = [delta[1], delta[3]]
     kernels = []
     for kname, meta in KERNELS.items():
         main_shape = timing[kname][0]  # the other rows are in the [time] lines
@@ -1349,7 +1741,7 @@ def main() -> None:
                 "engines": {
                     label: {
                         "shape": "bs 64, 128 prompt + 128 new tokens",
-                        **{k: e[k] for k in fields},
+                        **{k: e.get(k) for k in fields},  # untimed: null
                     }
                     for label, e in engines.items()
                 }

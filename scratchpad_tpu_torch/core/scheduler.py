@@ -31,13 +31,10 @@ from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
 from scratchpad_tpu_torch.executor.model_runner import ModelRunner, WorkerBatch
 from scratchpad_tpu_torch.memory.tree_group import TreeCacheGroup
 from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
+from scratchpad_tpu_torch.toppings.manager import MAX_ACTIVE_TOPPINGS
 from scratchpad_tpu_torch.utils import get_logger
 
 logger = get_logger("scheduler")
-
-# the JAX package's adapter budget (toppings/manager.py); the port serves no
-# toppings yet (Engine refuses them), so every request has topping_idx 0
-MAX_ACTIVE_TOPPINGS = 8
 
 
 @dataclasses.dataclass

@@ -49,6 +49,10 @@ class ForwardMeta:
     # i32[B + 1] prefix sums of extend_lens (extend only; the extend kernel's
     # ragged query offsets)
     cu_q_lens: torch.Tensor | None = None
+    # toppings: the batch's distinct adapter pool slots (0 = none) and each
+    # request's position in that list; None when no request names an adapter
+    active_adapters: torch.Tensor | None = None  # i32[MAX_ACTIVE_TOPPINGS]
+    adapter_slots: torch.Tensor | None = None  # i32[B]
 
     @property
     def num_tokens(self) -> int:

@@ -12,7 +12,9 @@ batch runs at its real size, since nothing is compiled for its shape.
 
 Attention runs through the kernel wrappers, which launch the hand-written
 CUDA kernels for CUDA tensors and take their plain PyTorch versions for CPU
-tensors.
+tensors. ``attach_toppings`` hands a ``ToppingsManager``'s device pools to
+the model; a batch that names adapters then carries its slot table in the
+same upload buffer as the rest of its integers.
 """
 
 from __future__ import annotations
@@ -52,9 +54,9 @@ _DTYPES = {
 
 @dataclasses.dataclass
 class WorkerBatch:
-    """Host-side batch handed from the scheduler. The fields after
-    ``return_top_logprobs`` belong to features the port does not have yet;
-    the runner refuses a batch that sets them."""
+    """Host-side batch handed from the scheduler. The runner refuses a
+    batch that sets a field of ``_UNPORTED_BATCH_FIELDS``: features the port
+    does not have yet."""
 
     mode: ForwardMode
     tokens: np.ndarray  # i32[T_real]
@@ -77,8 +79,6 @@ class WorkerBatch:
 
 _UNPORTED_BATCH_FIELDS = (
     "vocab_bitmask",
-    "active_adapters",
-    "adapter_slots",
     "input_embeds",
     "mrope_positions",
     "rope_delta",
@@ -229,6 +229,14 @@ class ModelRunner:
         self._generator = torch.Generator(device=self.device).manual_seed(
             self.args.random_seed + 1
         )
+        self.toppings_manager = None
+
+    def attach_toppings(self, manager) -> None:
+        """Serve the adapters of ``manager`` (a ``ToppingsManager`` on this
+        runner's device): the model reads its device pools, which the
+        manager updates in place at each registration."""
+        self.toppings_manager = manager
+        self.model.toppings = manager.device_pools()
 
     def _fill_dense(self, model) -> None:
         """An unquantized model's weights: seeded random ones (with
@@ -352,6 +360,8 @@ class ModelRunner:
                 seq_lens=(positions + 1).to(torch.int32),
                 extend_lens=ones,
                 last_token_idx=rows,
+                active_adapters=meta.active_adapters,
+                adapter_slots=meta.adapter_slots,
             )
             logits = self.model(step_meta, self.kv_cache)
             if counts is not None:
@@ -398,11 +408,15 @@ class ModelRunner:
         """The batch as device tensors, the sampling state and its
         host-known modes (see ``sample``). A decode batch is padded to the
         batch-size and page-table buckets: its padding rows have
-        ``seq_lens == extend_lens == 0`` and write to the dump page 0. An
-        extend batch keeps its real size."""
+        ``seq_lens == extend_lens == 0``, write to the dump page 0 and take
+        adapter slot 0, the zero adapter. An extend batch keeps its real
+        size."""
         for name in _UNPORTED_BATCH_FIELDS:
             if getattr(wb, name) is not None:
                 raise NotImplementedError(f"batch field {name} is not ported yet")
+        adapters = wb.active_adapters is not None
+        if adapters and self.toppings_manager is None:
+            raise ValueError("the batch names adapters but no toppings are attached")
         B_real = len(wb.seq_lens)
         T_real = len(wb.tokens)
         P_real = max(wb.page_table.shape[1] if wb.page_table.size else 1, 1)
@@ -424,7 +438,8 @@ class ModelRunner:
         i64[3 * T : 3 * T + T_real] = wb.req_indices
         csum = np.cumsum(wb.extend_lens)
         i64[4 * T : 4 * T + B_real] = np.maximum(csum - 1, 0)  # last_token_idx
-        i32 = np.zeros(B * P + 3 * B + 1, np.int32)
+        S = len(wb.active_adapters) if adapters else 0
+        i32 = np.zeros(B * P + 3 * B + 1 + (S + B if adapters else 0), np.int32)
         pt = i32[: B * P].reshape(B, P)
         if wb.page_table.size:
             w = min(P_real, P)
@@ -434,6 +449,10 @@ class ModelRunner:
         i32[o + B : o + B + B_real] = wb.extend_lens
         i32[o + 2 * B + 1 : o + 2 * B + 1 + B_real] = csum  # cu_q_lens[1:]
         i32[o + 2 * B + 1 + B_real : o + 3 * B + 1] = csum[-1] if B_real else 0
+        a = o + 3 * B + 1
+        if adapters:
+            i32[a : a + S] = wb.active_adapters
+            i32[a + S : a + S + B_real] = wb.adapter_slots  # padding rows: slot 0
         d64 = torch.from_numpy(i64).to(self.device)
         d32 = torch.from_numpy(i32).to(self.device)
         meta = ForwardMeta(
@@ -447,6 +466,8 @@ class ModelRunner:
             extend_lens=d32[o + B : o + 2 * B],
             last_token_idx=d64[4 * T : 4 * T + B],
             cu_q_lens=d32[o + 2 * B : o + 3 * B + 1],
+            active_adapters=d32[a : a + S] if adapters else None,
+            adapter_slots=d32[a + S : a + S + B] if adapters else None,
         )
 
         si = wb.sampling_info

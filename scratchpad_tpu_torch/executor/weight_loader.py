@@ -6,7 +6,8 @@ pytree — handed over as numpy arrays, so the port never imports JAX — into
 the port's ``state_dict``; the parity tests build both sides from one state
 this way. Quantized stacks (``layers_q``, ``lm_head_q``) are repacked into
 the port's layout with ``pack_w4``, code for code. ``kv_cache_from_jax`` does
-the same for a KV pool, so that both sides can attend over identical pages.
+the same for a KV pool, so that both sides can attend over identical pages,
+and ``toppings_from_jax`` for the adapter pools of a toppings manager.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from scratchpad_tpu_torch.config.model_config import ModelConfig
 from scratchpad_tpu_torch.memory.kv_cache import SCALE_DTYPE, KVCache
 from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
 from scratchpad_tpu_torch.ops.quant.w4a16 import QuantizedLinear, concat_out
+from scratchpad_tpu_torch.toppings.manager import ToppingsManager
 from scratchpad_tpu_torch.utils import get_logger
 
 logger = get_logger("weight_loader")
@@ -184,3 +186,31 @@ def kv_cache_from_jax(kv: Any, scale: Any, num_layers: int, head_dim: int) -> KV
         k_scale=_tensor(sc[..., 0]).to(SCALE_DTYPE),
         v_scale=_tensor(sc[..., 1]).to(SCALE_DTYPE),
     )
+
+
+def toppings_from_jax(jax_manager: Any, device) -> ToppingsManager:
+    """The port's ``ToppingsManager`` holding the adapters of the JAX
+    package's manager: its host pools (``_host_a``, ``_host_b``, ``_host_dq``,
+    ``_host_ds``), scalings, delta slots and names, copied as they are, then
+    uploaded to ``device`` slot by slot. The JAX manager's ``cfg`` supplies
+    the same shape fields as the port's ``ModelConfig``."""
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[np.dtype(jax_manager.dtype).name]
+    m = ToppingsManager(
+        jax_manager.cfg, max_adapters=jax_manager.max_adapters,
+        max_rank=jax_manager.max_rank, dtype=dtype, device=device,
+    )
+    for t in m._dims:
+        m._host_a[t][...] = jax_manager._host_a[t]
+        m._host_b[t][...] = jax_manager._host_b[t]
+    m._scaling[...] = jax_manager._scaling
+    m.name_to_idx = dict(jax_manager.name_to_idx)
+    m._next = jax_manager._next
+    if jax_manager._host_dq is not None:
+        m._alloc_delta_pools()
+        for t in m._dims:
+            m._host_dq[t][...] = jax_manager._host_dq[t]
+            m._host_ds[t][...] = jax_manager._host_ds[t]
+        m._delta_slots = set(jax_manager._delta_slots)
+    for idx in range(m.max_adapters):
+        m._upload(idx)
+    return m

@@ -9,7 +9,10 @@ a quantized model holds ``QuantLinear`` layers instead.
 
 The forward writes each layer's new K/V into the paged pool, then runs
 attention and the 4-bit projections through the CUDA kernel wrappers, which
-take their plain versions for CPU tensors.
+take their plain versions for CPU tensors. With toppings attached
+(``self.toppings``, the manager's device pools) and a batch that names
+adapters, each projection's output gains its tokens' own adapters
+(``apply_topping``); a batch that names none skips that path.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from scratchpad_tpu_torch.ops.attention import (
     decode_attention_gqa,
     write_kv,
 )
+from scratchpad_tpu_torch.toppings.manager import apply_topping
 
 
 def _linear(n_in: int, n_out: int, bias: bool, device, dtype) -> nn.Linear:
@@ -146,6 +150,7 @@ class LlamaForCausalLM(nn.Module):
         # attention impls; the runner may swap in the plain versions
         self.decode_attention = decode_attention_gqa
         self.extend_attention = attention_ragged
+        self.toppings = None  # ToppingsManager.device_pools(), set by the runner
 
     # ------------------------------------------------------------- parameters
 
@@ -264,21 +269,36 @@ class LlamaForCausalLM(nn.Module):
             else self.extend_attention
         )
         cos, sin = rope_cos_sin(meta.positions, self.inv_freq)
+        use_toppings = self.toppings is not None and meta.active_adapters is not None
+        if use_toppings:
+            token_slot = meta.adapter_slots[meta.req_indices]  # i32[T]
+
+        def topped(y, h, name, l):
+            """y + each token's own adapter on projection ``name``."""
+            if not use_toppings:
+                return y
+            return apply_topping(h, y, self.toppings, name, l, meta.active_adapters, token_slot)
+
+        def lin(layer, name, h, l):
+            return topped(getattr(layer, name)(h), h, name, l)
+
         x = self.embed(meta.tokens)  # [T, H]
         for l, layer in enumerate(self.layers):
             h = rms_norm(x, layer.input_norm, eps)
-            q = apply_rope(layer.wq(h).view(T, Hq, D), cos, sin)
-            k = apply_rope(layer.wk(h).view(T, Hkv, D), cos, sin)
-            v = layer.wv(h).view(T, Hkv, D)
+            q = apply_rope(lin(layer, "wq", h, l).view(T, Hq, D), cos, sin)
+            k = apply_rope(lin(layer, "wk", h, l).view(T, Hkv, D), cos, sin)
+            v = lin(layer, "wv", h, l).view(T, Hkv, D)
             write_kv(kv, k, v, l, meta.out_cache_loc)
             attn = attend(q, kv, l, meta, sm_scale=self.sm_scale)
-            x = x + layer.wo(attn.reshape(T, Hq * D))
+            x = x + lin(layer, "wo", attn.reshape(T, Hq * D), l)
             h2 = rms_norm(x, layer.post_norm, eps)
             if layer.fused_gate_up:
+                # the pools keep gate and up apart: each half gets its own
                 gate, up = layer.gate_up(h2).chunk(2, dim=-1)
+                gate, up = topped(gate, h2, "gate", l), topped(up, h2, "up", l)
             else:
-                gate, up = layer.gate(h2), layer.up(h2)
-            x = x + layer.down(silu_mul(gate, up))
+                gate, up = lin(layer, "gate", h2, l), lin(layer, "up", h2, l)
+            x = x + lin(layer, "down", silu_mul(gate, up), l)
         h = rms_norm(x, self.final_norm, eps)
         last = h[meta.last_token_idx]  # [B, H]
         if self.lm_head_q is not None:

@@ -11,6 +11,7 @@ from scratchpad_tpu_torch.ops.attention import (
     paged_extend_attention,
     paged_extend_attention_quant,
 )
+from scratchpad_tpu_torch.ops.ldmm import delta_matmul_grouped
 from scratchpad_tpu_torch.ops.quant.w4_matmul import (
     quantize_rows_int8,
     w4a8_matmul,
@@ -25,6 +26,7 @@ KERNEL_WRAPPERS = (
     quantize_rows_int8,
     w4a8_matmul,
     w4a16_matmul,
+    delta_matmul_grouped,
 )
 
 

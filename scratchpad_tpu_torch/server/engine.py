@@ -2,9 +2,10 @@
 
 Counterpart of ``scratchpad_tpu/server/engine.py`` for one device and one
 host: the engine owns the Scheduler in-process and pumps its step loop.
-The port has ``generate`` and ``generate_stream``; images, videos,
-toppings, grammars, embeddings, scoring and sessions are not ported yet
-and are refused.
+The port has ``generate``, ``generate_stream`` and per-request toppings
+(``register_topping``, then ``generate(..., topping=name)``); images,
+videos, grammars, embeddings, scoring and sessions are not ported yet and
+are refused.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from scratchpad_tpu_torch.core.scheduler import Scheduler, StepEvent
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.metrics import LatencyStats
 from scratchpad_tpu_torch.tokenizer.detokenizer import IncrementalDetokenizer
+from scratchpad_tpu_torch.toppings import ToppingsManager
 from scratchpad_tpu_torch.utils import get_logger
 
 logger = get_logger("engine")
@@ -90,6 +92,7 @@ class Engine:
         self.scheduler = Scheduler(model_config, self.args, params=params)
         # TTFT/ITL/TPOT/E2E sample sink
         self.latency = LatencyStats()
+        self.toppings_manager: Optional[ToppingsManager] = None
 
     def _find_eos_ids(self) -> set[int]:
         ids: set[int] = set()
@@ -111,6 +114,32 @@ class Engine:
 
     # -------------------------------------------------------------- requests
 
+    def register_topping(
+        self,
+        name: str,
+        adapter_path: Optional[str] = None,
+        state: Optional[dict] = None,
+        scaling: float = 1.0,
+        delta_state: Optional[dict] = None,
+    ) -> int:
+        """Register a LoRA adapter (a peft checkpoint directory, or its
+        state dict and scaling) or, through ``delta_state``, a full-rank
+        weight-delta adapter (HF-named [out, in] deltas, stored int8) for
+        per-request serving; returns its pool slot."""
+        runner = self.scheduler.runner
+        if self.toppings_manager is None:
+            self.toppings_manager = ToppingsManager(
+                self.model_config, dtype=runner.dtype, device=runner.device
+            )
+        if delta_state is not None:
+            idx = self.toppings_manager.register_delta(name, delta_state, scaling)
+        elif state is not None:
+            idx = self.toppings_manager.register_state(name, state, scaling)
+        else:
+            idx = self.toppings_manager.register(name, adapter_path)
+        runner.attach_toppings(self.toppings_manager)
+        return idx
+
     def _make_req(
         self,
         prompt: Optional[str],
@@ -122,20 +151,26 @@ class Engine:
         image_data=None,
         video_data=None,
     ) -> Req:
-        if topping or image_data is not None or video_data is not None:
-            raise NotImplementedError("toppings, images and videos are not ported yet")
+        if image_data is not None or video_data is not None:
+            raise NotImplementedError("images and videos are not ported yet")
         sp = sampling_params or SamplingParams()
         if sp.grammar_key() is not None:
             raise NotImplementedError("constrained decoding is not ported yet")
         if input_ids is None:
             assert prompt is not None and self.tokenizer is not None
             input_ids = self.tokenizer.encode(prompt)
+        topping_idx = 0
+        if topping:
+            if self.toppings_manager is None:
+                raise KeyError(f"unknown topping {topping!r}")
+            topping_idx = self.toppings_manager.lookup(topping)
         return Req(
             rid=rid or uuid.uuid4().hex,
             origin_input_ids=list(input_ids),
             sampling_params=sp,
             eos_token_ids=self.eos_token_ids,
             return_logprob=return_logprob,
+            topping_idx=topping_idx,
         )
 
     # ------------------------------------------------------------ sync API
@@ -148,8 +183,11 @@ class Engine:
             Union[SamplingParams, list[SamplingParams]]
         ] = None,
         return_logprob: bool = False,
+        topping: Optional[Union[str, list]] = None,
     ) -> Union[GenerationOutput, list[GenerationOutput]]:
-        """Blocking generation for one prompt or a batch."""
+        """Blocking generation for one prompt or a batch. ``topping``: the
+        registered adapter of every prompt, or a list of one per prompt
+        (None for the base model)."""
         batched = isinstance(prompt, list) or (
             input_ids is not None
             and len(input_ids) > 0
@@ -167,12 +205,15 @@ class Engine:
             if isinstance(sampling_params, list)
             else [sampling_params] * len(prompts)
         )
+        tops = topping if isinstance(topping, list) else [topping] * len(prompts)
         # parallel sampling (n > 1): pre-cache each prompt's prefix with a
         # zero-token warmup request, then expand into n stochastic clones
         if any(s is not None and s.n > 1 for s in sps):
             warmups = [
-                self._make_req(p, i, dataclasses.replace(s, max_new_tokens=0, n=1))
-                for p, i, s in zip(prompts, idss, sps)
+                self._make_req(
+                    p, i, dataclasses.replace(s, max_new_tokens=0, n=1), topping=t
+                )
+                for p, i, s, t in zip(prompts, idss, sps, tops)
                 if s is not None and s.n > 1
             ]
             for r in warmups:
@@ -180,8 +221,8 @@ class Engine:
             while any(not r.finished() for r in warmups):
                 if not self.scheduler.step() and not self.scheduler.has_work():
                     break
-            new = ([], [], [])
-            for p, i, s in zip(prompts, idss, sps):
+            new = ([], [], [], [])
+            for p, i, s, t in zip(prompts, idss, sps, tops):
                 reps = s.n if s is not None else 1
                 for _ in range(reps):
                     new[0].append(p)
@@ -189,11 +230,12 @@ class Engine:
                     new[2].append(
                         dataclasses.replace(s, n=1) if s is not None else None
                     )
-            prompts, idss, sps = new
+                    new[3].append(t)
+            prompts, idss, sps, tops = new
             batched = True
         reqs = [
-            self._make_req(p, i, s, return_logprob)
-            for p, i, s in zip(prompts, idss, sps)
+            self._make_req(p, i, s, return_logprob, topping=t)
+            for p, i, s, t in zip(prompts, idss, sps, tops)
         ]
         for r in reqs:
             self.scheduler.add_request(r)

@@ -38,6 +38,7 @@ KERNEL_SOURCES = (
     "paged_extend_attention",
     "w4a8_matmul",
     "w4a16_matmul",
+    "delta_matmul",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}

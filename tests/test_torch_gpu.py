@@ -14,7 +14,9 @@ int8 rows as their plain versions, and the row quantizer must match its
 plain version bit for bit. The attention kernels over int8 and fp8 pages are
 held to the plain version's f32 dequantize-then-attend at the same
 tolerance, and the KV quantizer on the card to itself on the CPU, bit for
-bit.
+bit. The grouped delta kernel is held to its plain version's f32 sum on the
+rows of delta slots, and every other row must come out bit-equal to the
+input.
 """
 
 import math
@@ -32,6 +34,7 @@ from scratchpad_tpu_torch.ops.attention import (
     paged_extend_attention_quant,
     quantize_rows,
 )
+from scratchpad_tpu_torch.ops.ldmm import delta_matmul_grouped, delta_matmul_grouped_plain
 from scratchpad_tpu_torch.ops.quant.w4_matmul import (
     pack_w4,
     quantize_activations_plain,
@@ -292,3 +295,57 @@ def test_w4_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         w4a8_matmul(x8, ax, gsum, q, s.float(), z, g, out_f)
     with pytest.raises(ValueError):  # weights on the CPU, activations on the card
         w4a8_matmul(x8, ax, gsum, q.cpu(), s.cpu(), z.cpu(), g, out_f)
+
+
+# (active_adapters, slots the tokens take); pool adapter 3 is LoRA only
+DELTA_LAYOUTS = {
+    "one_slot": ([0, 2, 0, 0, 0, 0, 0, 0], [1]),
+    "all_eight_mixed": ([0, 1, 2, 3, 4, 5, 6, 7], list(range(8))),
+    "slot_with_no_tokens": ([0, 1, 2, 4, 0, 0, 0, 0], [0, 1, 3]),
+    "lora_only_slot": ([0, 3, 0, 0, 0, 0, 0, 0], [0, 1]),
+}
+
+
+def _delta_case(T, In, Out, layout, gen, N=8, L=2):
+    active, choices = DELTA_LAYOUTS[layout]
+    dq = torch.randint(-127, 128, (N, L, In, Out), generator=gen, device="cuda", dtype=torch.int8)
+    dq[0] = 0
+    ds = torch.rand(N, L, Out, generator=gen, device="cuda") * 0.002
+    has_delta = torch.tensor([0, 1, 1, 0, 1, 1, 1, 1], dtype=torch.int32, device="cuda")
+    scaling = torch.linspace(0.5, 2.0, N, device="cuda")
+    pick = torch.randint(0, len(choices), (T,), generator=gen, device="cuda")
+    slots = torch.tensor(choices, dtype=torch.int32, device="cuda")[pick]
+    x = torch.randn(T, In, generator=gen, device="cuda").to(torch.bfloat16)
+    out = torch.randn(T, Out, generator=gen, device="cuda").to(torch.bfloat16)
+    act = torch.tensor(active, dtype=torch.int32, device="cuda")
+    return out, (x, dq, ds, 1, act, has_delta, scaling, slots)
+
+
+@pytest.mark.parametrize("layout", list(DELTA_LAYOUTS))
+@pytest.mark.parametrize("T", [1, 7, 64, 300])
+@pytest.mark.parametrize("In,Out", [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)])
+def test_delta_kernel_matches_plain(gen, T, In, Out, layout):
+    """Llama-3.2-1B's projection shapes; the kernel's sums against the plain
+    version's f32 sums on the delta slots' rows, the other rows bit-equal."""
+    out0, args = _delta_case(T, In, Out, layout, gen)
+    got = delta_matmul_grouped(out0.clone(), *args)
+    ref = delta_matmul_grouped_plain(out0.float(), *args)
+    x, dq, ds, layer, act, has_delta, scaling, slots = args
+    touched = (slots > 0) & (has_delta[act[slots].long()] > 0)
+    _close(got[touched], ref[touched])
+    assert torch.equal(got[~touched], out0[~touched])
+
+
+def test_delta_wrapper_raises_on_what_the_kernel_does_not_take(gen):
+    out, args = _delta_case(8, 256, 128, "one_slot", gen)
+    x, dq, ds, layer, act, has_delta, scaling, slots = args
+    with pytest.raises(TypeError):  # f32 activations
+        delta_matmul_grouped(out, x.float(), *args[1:])
+    with pytest.raises(ValueError):  # In not a multiple of 16
+        delta_matmul_grouped(out, x[:, :120].contiguous(), dq[:, :, :120].contiguous(), *args[2:])
+    with pytest.raises(ValueError):  # a layer past the pool
+        delta_matmul_grouped(out, x, dq, ds, 2, act, has_delta, scaling, slots)
+    with pytest.raises(TypeError):  # i64 slots
+        delta_matmul_grouped(out, x, dq, ds, layer, act, has_delta, scaling, slots.long())
+    with pytest.raises(ValueError):  # slots on the CPU
+        delta_matmul_grouped(out, x, dq, ds, layer, act, has_delta, scaling, slots.cpu())

@@ -94,10 +94,11 @@ class Pair:
             torch.device("cpu"),
         )
 
-    def step(self, mode, rows):
+    def step(self, mode, rows, adapters=None):
         """rows: (tokens, start position, pages) per sequence; the step's
-        tokens sit at positions start.. of each sequence. Returns both
-        models' logits [B, V]."""
+        tokens sit at positions start.. of each sequence. ``adapters``: the
+        batch's (active_adapters, adapter_slots) where it names toppings.
+        Returns both models' logits [B, V]."""
         toks, pos, loc, req = [], [], [], []
         for i, (t, start, pages) in enumerate(rows):
             p = np.arange(start, start + len(t))
@@ -116,13 +117,20 @@ class Pair:
             out_cache_loc=np.concatenate(loc), req_indices=np.concatenate(req),
             page_table=pt, seq_lens=seq, extend_lens=ext, last_token_idx=cu[1:] - 1,
         )
+        jextra, extra = {}, {}
+        if adapters is not None:
+            active, slots = (np.asarray(a, np.int32) for a in adapters)
+            jextra = dict(active_adapters=jnp.asarray(active), adapter_slots=jnp.asarray(slots))
+            extra = dict(active_adapters=torch.from_numpy(active), adapter_slots=torch.from_numpy(slots))
         jmeta = JaxMeta(
-            mode=JaxMode(mode.value), **{k: jnp.asarray(v, jnp.int32) for k, v in arrays.items()}
+            mode=JaxMode(mode.value), **{k: jnp.asarray(v, jnp.int32) for k, v in arrays.items()},
+            **jextra,
         )
         self.jkv, jlogits = self.jmodel(self.params, self.jkv, jmeta)
         meta = ForwardMeta(
             mode=mode,
             cu_q_lens=torch.from_numpy(cu),
+            **extra,
             **{
                 k: torch.from_numpy(np.asarray(v)).to(
                     torch.int32 if k in ("page_table", "seq_lens", "extend_lens") else torch.long
@@ -135,23 +143,28 @@ class Pair:
         return np.asarray(jlogits), logits.numpy()
 
 
-def _extend_and_decode(pair, tol):
+def _extend_and_decode(pair, tol, adapters=None):
+    """``adapters``: (active_adapters, slots of the two sequences), for a
+    pair with toppings attached."""
+    two = one = None
+    if adapters is not None:
+        two, one = adapters, (adapters[0], adapters[1][:1])
     rng = np.random.default_rng(1)
     V = pair.cfg.vocab_size
     pages = [np.arange(1, 13), np.arange(13, 25)]  # 48 tokens per sequence
     a = rng.integers(1, V, 30)
     b = rng.integers(1, V, 11)
     # extend: a fresh 20-token prompt next to a fresh 11-token one
-    j, t = pair.step(ForwardMode.EXTEND, [(a[:20], 0, pages[0]), (b, 0, pages[1])])
+    j, t = pair.step(ForwardMode.EXTEND, [(a[:20], 0, pages[0]), (b, 0, pages[1])], two)
     np.testing.assert_allclose(t, j, **tol)
     # extend after a cached prefix: the prompt's last 10 tokens as a chunk
-    j, t = pair.step(ForwardMode.EXTEND, [(a[20:], 20, pages[0])])
+    j, t = pair.step(ForwardMode.EXTEND, [(a[20:], 20, pages[0])], one)
     np.testing.assert_allclose(t, j, **tol)
     # teacher-forced decode steps on both sequences
     for s in range(4):
         nxt = rng.integers(1, V, 2)
         rows = [(nxt[:1], 30 + s, pages[0]), (nxt[1:], 11 + s, pages[1])]
-        j, t = pair.step(ForwardMode.DECODE, rows)
+        j, t = pair.step(ForwardMode.DECODE, rows, two)
         np.testing.assert_allclose(t, j, **tol)
 
 
