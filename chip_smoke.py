@@ -26,7 +26,14 @@ Phases, in order; any failure exits non-zero before the last line:
    int8 delta kernel of the toppings path: Llama-3.2-1B's projection shapes
    (2048 -> 2048, 512, 8192; 8192 -> 2048) at 1, 7, 64 and 2048 tokens,
    over five slot layouts (one slot; all eight mixed; a slot with no
-   tokens; a LoRA-only slot; no adapter at all). Tolerance:
+   tokens; a LoRA-only slot; no adapter at all). The soft cap and the
+   static sliding window at Mistral-7B's shape (G 4, head_dim 128): decode
+   at B 1 and 64, contexts 256, 4096 and 8192, for each (cap, W) of
+   ``CAPS_WINDOWS`` over bf16 pages and ``CAPS_WINDOWS_8BIT`` over int8 and
+   fp8 pages; extend with a 2048-token chunk on 6,000 cached tokens and
+   mixed chunks whose window edge falls inside a query tile and a page; and
+   ``decode_attention_pallas`` (the port of ``pallas_decode._decode_kernel``)
+   at its JAX test's shape with cap 30 and W 8, and at Mistral-7B's. Tolerance:
    |kernel - plain| <= ATOL + RTOL * |plain| elementwise (see below);
    padding and zero rows must come out as exact zeros, and rows outside a
    delta slot bit-equal to the delta kernel's input.
@@ -35,9 +42,17 @@ Phases, in order; any failure exits non-zero before the last line:
    W4A16 on the same engine and codes (every ``QuantLinear`` switched to
    its A16 route); Llama-3.2-3B with ``quantization="w4a8"`` and
    ``kv_cache_dtype="auto"``, which must resolve to int8 KV, then the same
-   weights with bf16 KV; Llama-3.2-1B in bf16 with fp8 KV. Each serves
-   greedy requests of different lengths, two that share a long prefix
-   (radix hit), one longer than ``chunked_prefill_size``. Toppings: after
+   weights with bf16 KV; Llama-3.2-1B in bf16 with fp8 KV; Mistral-7B-v0.1
+   (its published config, window 4096) in bf16 under
+   ``attention_backend="auto"``, then under ``"pallas"`` on the same
+   weights. Each serves greedy requests of different lengths, two that
+   share a long prefix (radix hit), one longer than
+   ``chunked_prefill_size``; Mistral-7B a 6,000-token prompt and a 4,090-token
+   one whose decode crosses the window's edge (``WINDOW_REQUESTS``), and the
+   window must move the long prompt's logits by at least ``WINDOW_MOVE``
+   times the kernel-vs-plain reading against the plain path without it.
+   Under ``pallas`` every decode launch goes through
+   ``decode_attention_pallas``, under ``auto`` none. Toppings: after
    its own phase, the bf16 1B engine registers two LoRA adapters (rank 16,
    all seven targets, scaling 2.0) and one int8 delta adapter (q, v, gate
    and down of every layer) and serves the request set again with each
@@ -77,8 +92,12 @@ Phases, in order; any failure exits non-zero before the last line:
    dequantized to bf16 beforehand; for the delta kernel ``torch.bmm`` of
    each delta slot's rows with its panel dequantized and scaled to bf16
    beforehand), at 1B decode (bs 64, one and three delta slots) and one
-   2048-token prefill chunk. And the host's microseconds per ``write_kv``
-   call into a bf16, int8 and fp8 pool.
+   2048-token prefill chunk. At Mistral-7B's shape: decode at bs 64 and ctx
+   4096 and 8192 without a window and 8192 with W 4096 (through both
+   wrappers), the 2048-token extend chunk on 4096, 5120 and 8192 tokens
+   without a window and on 8192 with it; the bound counts the live window
+   only, the library call masks the window. And the host's microseconds per
+   ``write_kv`` call into a bf16, int8 and fp8 pool.
 6. one JSON line with every kernel's numbers, one with the engines', the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -122,7 +141,7 @@ ATOL, RTOL = 1e-4, 2.0**-8
 # compared.
 LOGIT_RTOL = {
     "bf16": 3e-2, "w4a8": 1e-1, "w4a16": 3e-2, "3b-w4a8": 1e-1, "1b-fp8kv": 5e-2,
-    "1b-toppings": 5e-2, "w4a8-toppings": 1e-1,
+    "1b-toppings": 5e-2, "w4a8-toppings": 1e-1, "mistral-7b": 3e-2, "mistral-7b-pallas": 3e-2,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -133,17 +152,40 @@ LOGIT_RTOL = {
 # too, since each path quantizes its own K/V rows.
 ARGMAX_FLOOR = {
     "bf16": 0.0, "w4a8": 2e-2, "w4a16": 0.0, "3b-w4a8": 2e-2, "1b-fp8kv": 2e-2,
-    "1b-toppings": 3e-2, "w4a8-toppings": 3e-2,
+    "1b-toppings": 3e-2, "w4a8-toppings": 3e-2, "mistral-7b": 0.0, "mistral-7b-pallas": 0.0,
 }
 # Each adapter must move its rows' logits (max|adapted - base| / max|base|)
 # by at least this many times the engine's kernel-vs-plain reading, so that
 # a kernel that adds nothing fails.
 ADAPTER_MOVE = 10.0
+# The same for a sliding window: the kernel path's logits of a prompt longer
+# than the window against the plain path's without the window, so that a
+# window that masks nothing fails.
+WINDOW_MOVE = 10.0
 # the toppings engines' requests, in the order of phase_engine's prompts
 # and its second request: the last two share a 600-token prefix under
 # different adapters
 TOPPINGS = ["ad1", "dl1", None, "ad2", "ad1", "dl1", "ad2", "dl1"]
 FAILURES: list[str] = []
+# Mistral-7B-v0.1's published config.json
+# (huggingface.co/mistralai/Mistral-7B-v0.1, config.json), read through
+# ModelConfig.from_hf_config; the weights are random, drawn on the card
+MISTRAL_7B = {
+    "architectures": ["MistralForCausalLM"],
+    "vocab_size": 32000,
+    "hidden_size": 4096,
+    "intermediate_size": 14336,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0,
+    "sliding_window": 4096,
+    "tie_word_embeddings": False,
+    "hidden_act": "silu",
+    "model_type": "mistral",
+}
 
 
 def fail(msg: str) -> None:
@@ -211,21 +253,21 @@ def at(t, l: int):
     return None if t is None else t[l]
 
 
-def decode_kernel(q, k, v, ks, vs, pt, lens, scale):
+def decode_kernel(q, k, v, ks, vs, pt, lens, scale, cap=None, window=None):
     """The decode wrapper of the pages' kind."""
     from scratchpad_tpu_torch.ops.attention import paged_decode_attention, paged_decode_attention_quant
 
     if ks is None:
-        return paged_decode_attention(q, k, v, pt, lens, scale)
-    return paged_decode_attention_quant(q, k, v, ks, vs, pt, lens, scale)
+        return paged_decode_attention(q, k, v, pt, lens, scale, cap, window)
+    return paged_decode_attention_quant(q, k, v, ks, vs, pt, lens, scale, cap, window)
 
 
-def extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale):
+def extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap=None, window=None):
     from scratchpad_tpu_torch.ops.attention import paged_extend_attention, paged_extend_attention_quant
 
     if ks is None:
-        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale)
-    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale)
+        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale, cap, window)
+    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window)
 
 
 # kernel of each attention route, by the pages' kind
@@ -415,6 +457,188 @@ def check_extend(errs: dict) -> None:
                         ratio <= 1 and zero,
                         f"{kind} extend kernel disagrees with its plain version at G={G} D={D} chunks={chunks}",
                     )
+
+
+# (logit_cap, sliding_window) of the windowed checks at Mistral-7B's shape:
+# a cap alone, a window on a page edge (4096), edges inside a page and a
+# 64-token KV tile (1000), both, and a window of one token
+CAPS_WINDOWS = [(None, None), (50.0, None), (None, 4096), (None, 1000), (30.0, 1000), (None, 1)]
+CAPS_WINDOWS_8BIT = [(30.0, 1000), (None, 4096)]
+# q of the capped checks is scaled up so that scores reach the cap: at the
+# N(0, 1) scores of unit q and K, a cap of 30 moves a score by under 1e-2,
+# and a kernel that skips the cap read only 4.95x the tolerance (PERF.md,
+# Findings)
+CAP_Q_SCALE = 8.0
+
+
+def capped_q(q, cap):
+    return q if cap is None else (q.float() * CAP_Q_SCALE).to(q.dtype)
+
+
+def cap_window(cap, window) -> str:
+    return f"cap={cap} W={window}"
+
+
+def check_window_decode(errs: dict) -> None:
+    """The decode kernels with a soft cap and a static window at Mistral-7B's
+    shape (Hq 32, Hkv 8, D 128, page 16): B 1 and 64 at contexts 256, 4096
+    and 8192 (B 64 with two rows of length 0 and one of length 1), and a
+    batch of padding rows; bf16 pages at every (cap, W) of ``CAPS_WINDOWS``,
+    int8 and fp8 pages at those of ``CAPS_WINDOWS_8BIT``."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import paged_decode_attention_plain
+
+    Hkv, G, D, ps = 8, 4, 128, 16
+    scale = 1.0 / math.sqrt(D)
+    seed = 10_000
+    for kind, grid in (("bf16", CAPS_WINDOWS), ("int8", CAPS_WINDOWS_8BIT), ("fp8", CAPS_WINDOWS_8BIT)):
+        for case in [(B, ctx) for B in (1, 64) for ctx in (256, 4096, 8192)] + [None]:
+            seed += 1
+            gen = seeded(seed)
+            if case is None:
+                lens = torch.tensor([5000, 0, 17, 0], dtype=torch.int32, device="cuda")
+            else:
+                B, ctx = case
+                lens = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
+                lens[0] = ctx
+                if B > 1:
+                    lens[-3:] = torch.tensor([0, 1, 0], device="cuda")
+                lens = lens.to(torch.int32)
+            k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
+            k, v, ks, vs = quant_pages(k[0], v[0], kind)
+            q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+            for cap, window in grid:
+                qc = capped_q(q, cap)
+                out = decode_kernel(qc, k, v, ks, vs, pt, lens, scale, cap, window)
+                ref = paged_decode_attention_plain(qc.float(), k, v, pt, lens, scale, ks, vs, cap, window)
+                torch.cuda.synchronize()
+                e, ratio = max_err(out, ref)
+                zero = bool((out[lens == 0] == 0).all())
+                errs[DECODE[kind]] = max(errs[DECODE[kind]], e)
+                what = "padding rows" if case is None else f"B={case[0]} ctx={case[1]}"
+                log(
+                    f"[check] decode {kind} Mistral shape {what} {cap_window(cap, window)}: "
+                    f"max_abs_err {e:.3e}, max err/tol {ratio:.3f}, zero rows exact: {zero}"
+                )
+                check(
+                    ratio <= 1 and zero,
+                    f"{kind} decode kernel disagrees with its plain version at the Mistral shape "
+                    f"{what} {cap_window(cap, window)}",
+                )
+            del k, v, ks, vs
+
+
+def check_window_extend(errs: dict) -> None:
+    """The extend kernels with (cap, W) of (None, 4096) and (30, 1000) at
+    Mistral-7B's shape: a 2048-token chunk on 6,000 cached tokens, and mixed
+    chunks whose window edge falls inside a query tile and inside a page,
+    beside a fresh prompt and padded tokens; bf16 pages, and int8 and fp8
+    pages at (30, 1000)."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import paged_extend_attention_plain
+
+    cases = [
+        ([(2048, 8048)], 2048),
+        ([(100, 1100), (37, 1037), (300, 300), (1, 5000), (250, 4346)], 720),
+    ]
+    scale = 1.0 / math.sqrt(128)
+    seed = 11_000
+    for kind, grid in (("bf16", [(None, 4096), (30.0, 1000)]), ("int8", [(30.0, 1000)]),
+                       ("fp8", [(30.0, 1000)])):
+        for chunks, T_pad in cases:
+            seed += 1
+            q, k, v, pt, kv_lens, cu = extend_case(chunks, 128, T_pad, seed, G=4)
+            k, v, ks, vs = quant_pages(k, v, kind)
+            n_real = int(cu[-1])
+            for cap, window in grid:
+                qc = capped_q(q, cap)
+                out = extend_kernel(qc, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window)
+                ref = paged_extend_attention_plain(
+                    qc.float(), k, v, pt, kv_lens, cu, scale, ks, vs, cap, window
+                )
+                torch.cuda.synchronize()
+                e, ratio = max_err(out, ref)
+                zero = bool((out[n_real:] == 0).all())
+                errs[EXTEND[kind]] = max(errs[EXTEND[kind]], e)
+                log(
+                    f"[check] extend {kind} Mistral shape chunks={chunks} T={q.shape[0]} "
+                    f"{cap_window(cap, window)}: max_abs_err {e:.3e}, max err/tol {ratio:.3f}, "
+                    f"{q.shape[0] - n_real} padded tokens zero: {zero}"
+                )
+                check(
+                    ratio <= 1 and zero,
+                    f"{kind} extend kernel disagrees with its plain version at the Mistral shape "
+                    f"chunks={chunks} {cap_window(cap, window)}",
+                )
+            del k, v, ks, vs
+
+
+def decode_meta(pt, lens):
+    """A decode ``ForwardMeta`` over page table ``pt`` and lengths ``lens``,
+    for the model-facing ``decode_attention_pallas`` (which reads only those
+    two)."""
+    import torch
+
+    from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
+
+    rows = torch.arange(len(lens), device="cuda")
+    return ForwardMeta(
+        mode=ForwardMode.DECODE, tokens=rows, positions=rows, out_cache_loc=rows,
+        req_indices=rows, page_table=pt, seq_lens=lens, extend_lens=torch.ones_like(lens),
+        last_token_idx=rows,
+    )
+
+
+def pallas_case(B: int, Hq: int, Hkv: int, D: int, ctx: int, gen):
+    """q, a one-layer bf16 pool and a decode ``ForwardMeta`` for
+    ``decode_attention_pallas``: B rows of up to ``ctx`` tokens at page 16,
+    the last row of length 0 when B > 1."""
+    import torch
+
+    from scratchpad_tpu_torch.memory.kv_cache import KVCache
+
+    lens = torch.randint(max(ctx // 2, 1), ctx + 1, (B,), generator=gen, device="cuda")
+    lens[0] = ctx
+    if B > 1:
+        lens[-1] = 0
+    lens = lens.to(torch.int32)
+    k, v, pt = make_pool(lens.tolist(), Hkv, D, 16, 1, gen)
+    q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(torch.bfloat16)
+    return q, KVCache(k, v), decode_meta(pt, lens)
+
+
+def check_pallas_decode(errs: dict) -> None:
+    """Row 9's wrapper, ``decode_attention_pallas``, at its JAX test's shape
+    (``tests/test_pallas_kernels.py::make_case``: B 4, Hq 8, Hkv 2, D 64,
+    page 16, up to 256 tokens) with cap 30 and window 8, and at Mistral-7B's
+    decode shape (B 64, ctx 8192, W 4096), against the plain version; its
+    launch count must rise once a call."""
+    from scratchpad_tpu_torch.ops.attention import decode_attention_pallas, paged_decode_attention_plain
+
+    for i, (B, Hq, Hkv, D, ctx, cap, window) in enumerate(
+        [(4, 8, 2, 64, 256, 30.0, 8), (64, 32, 8, 128, 8192, None, 4096)]
+    ):
+        q, kv, meta = pallas_case(B, Hq, Hkv, D, ctx, seeded(12_000 + i))
+        q = capped_q(q, cap)
+        before = decode_attention_pallas.launches
+        scale = 1.0 / math.sqrt(D)
+        out = decode_attention_pallas(q, kv, 0, meta, sm_scale=scale, logit_cap=cap, sliding_window=window)
+        counted = decode_attention_pallas.launches - before
+        ref = paged_decode_attention_plain(
+            q.float(), kv.k[0], kv.v[0], meta.page_table, meta.seq_lens, scale, None, None, cap, window
+        )
+        e, ratio = max_err(out, ref)
+        zero = bool((out[meta.seq_lens == 0] == 0).all())
+        errs["decode_attention_pallas"] = max(errs["decode_attention_pallas"], e)
+        log(
+            f"[check] decode_attention_pallas B={B} Hq={Hq} Hkv={Hkv} D={D} ctx={ctx} "
+            f"{cap_window(cap, window)}: max_abs_err {e:.3e}, max err/tol {ratio:.3f}, zero rows "
+            f"exact: {zero}, launches counted: {counted}"
+        )
+        check(ratio <= 1 and zero and counted == 1,
+              f"decode_attention_pallas disagrees with its plain version at B={B} D={D}")
 
 
 def check_kv_quantizer() -> None:
@@ -634,13 +858,19 @@ def dense_kv(cache, scale, pt, ps: int, B: int, n: int):
     return gather_kv_rows(cache, scale, slots).to(torch.bfloat16).transpose(1, 2).contiguous()
 
 
-def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16") -> dict:
+def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
+                window=None, wrapper: str = "auto") -> dict:
     """Decode at page 16 over Hkv 8: Llama-3.2-1B is G 4, D 64; 3B is G 3,
-    D 128. ``kind``: bf16 pages, or int8 / fp8 codes with bf16 scales."""
+    D 128; Mistral-7B G 4, D 128, with its window of 4096. ``kind``: bf16
+    pages, or int8 / fp8 codes with bf16 scales. ``wrapper`` "pallas": the
+    kernel through ``decode_attention_pallas`` (row 9). The bound counts
+    the bytes and operations of the live window only; the library call
+    attends over every token, the window as its ``attn_mask``."""
     import torch
     import torch.nn.functional as F
 
-    from scratchpad_tpu_torch.ops.attention import paged_decode_attention_plain
+    from scratchpad_tpu_torch.memory.kv_cache import KVCache
+    from scratchpad_tpu_torch.ops.attention import decode_attention_pallas, paged_decode_attention_plain
 
     Hkv, ps = 8, 16
     elem = 2 if kind == "bf16" else 1
@@ -652,19 +882,32 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16") -
     k, v, ks, vs = quant_pages(k, v, kind)
     q = torch.randn(B, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
-    kern = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale)
-    plain = lambda l: paged_decode_attention_plain(q, k[l], v[l], pt, lens, scale, at(ks, l), at(vs, l))
+    if wrapper == "pallas":
+        meta, pool = decode_meta(pt, lens), KVCache(k, v)
+        kern = lambda l: decode_attention_pallas(q, pool, l, meta, sm_scale=scale, sliding_window=window)
+    else:
+        kern = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale, None, window)
+    plain = lambda l: paged_decode_attention_plain(
+        q, k[l], v[l], pt, lens, scale, at(ks, l), at(vs, l), None, window
+    )
     # dense [B, Hkv, S, D] bf16 copies for the library call, made once
     kd = [dense_kv(k[l], at(ks, l), pt, ps, B, ctx) for l in range(layers)]
     vd = [dense_kv(v[l], at(vs, l), pt, ps, B, ctx) for l in range(layers)]
     q4 = q.view(B, Hkv * G, 1, D)
-    lib = lambda l: F.scaled_dot_product_attention(q4, kd[l], vd[l], scale=scale, enable_gqa=True)
-    kv_bytes = B * ctx * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
+    mask = None
+    if window is not None:
+        mask = (torch.arange(ctx, device="cuda") >= ctx - window)[None, None, None, :]
+    lib = lambda l: F.scaled_dot_product_attention(
+        q4, kd[l], vd[l], attn_mask=mask, scale=scale, enable_gqa=True
+    )
+    live = min(ctx, window or ctx)
+    kv_bytes = B * live * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
     nbytes = q.numel() * 2 * 2 + kv_bytes + pt.numel() * 4 + B * 4
-    flops = 4.0 * B * ctx * Hkv * G * D
+    flops = 4.0 * B * live * Hkv * G * D
     b, by = bound_ms(nbytes, flops)
     r = dict(
-        shape=f"{kind} pages, B={B} ctx={ctx} Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}",
+        shape=f"{kind} pages, B={B} ctx={ctx} window={window} Hq={Hkv * G} Hkv={Hkv} D={D} "
+        f"page={ps}" + (" (decode_attention_pallas)" if wrapper == "pallas" else ""),
         ms=device_ms(kern, layers, 50),
         plain_ms=device_ms(plain, layers, 5),
         library_ms=device_ms(lib, layers, 50),
@@ -676,7 +919,9 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16") -
     return r
 
 
-def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16") -> dict:
+def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None) -> dict:
+    """The extend at page 16 over Hkv 8; with ``window``, the bound counts
+    the keys some query's window holds and the pairs the windows attend."""
     import torch
     import torch.nn.functional as F
 
@@ -697,9 +942,9 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16") -> dict:
     k, v, ks, vs = quant_pages(k, v, kind)
     q = torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
-    kern = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale)
+    kern = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale, None, window)
     plain = lambda l: paged_extend_attention_plain(
-        q, k[l], v[l], pt, kv_lens, cu, scale, at(ks, l), at(vs, l)
+        q, k[l], v[l], pt, kv_lens, cu, scale, at(ks, l), at(vs, l), None, window
     )
     # library yardstick: one SDPA call over the batch when every sequence
     # has the same (q_len, kv_len), with the tail-aligned causal mask
@@ -709,25 +954,28 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16") -> dict:
     kd = [dense_kv(k[l], at(ks, l), pt, ps, B, kl) for l in range(layers)]
     vd = [dense_kv(v[l], at(vs, l), pt, ps, B, kl) for l in range(layers)]
     qd = q.view(B, ql, Hkv * G, D).transpose(1, 2).contiguous()
-    if ql == kl:
+    if ql == kl and window is None:
         lib = lambda l: F.scaled_dot_product_attention(
             qd, kd[l], vd[l], is_causal=True, scale=scale, enable_gqa=True
         )
     else:
-        mask = torch.arange(kl, device="cuda")[None, :] <= (
-            kl - ql + torch.arange(ql, device="cuda")
-        )[:, None]
+        j = torch.arange(kl, device="cuda")[None, :]
+        p = (kl - ql + torch.arange(ql, device="cuda"))[:, None]
+        mask = (j <= p) & (j > p - (window or kl + 1))
         lib = lambda l: F.scaled_dot_product_attention(
             qd, kd[l], vd[l], attn_mask=mask, scale=scale, enable_gqa=True
         )
-    attended = sum(q_ * (k_ - q_) + q_ * (q_ + 1) / 2 for q_, k_ in chunks)
-    kv_bytes = kv_total * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
+    # pairs (query, key) attended, and the keys some query's window holds
+    W = window or max(c[1] for c in chunks) + 1
+    attended = sum(min(p_ + 1, W) for q_, k_ in chunks for p_ in range(k_ - q_, k_))
+    live = sum(k_ - max(k_ - q_ - W + 1, 0) for q_, k_ in chunks)
+    kv_bytes = live * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
     nbytes = T * Hkv * G * D * 2 * 2 + kv_bytes + pt.numel() * 4
     flops = 4.0 * attended * Hkv * G * D
     b, by = bound_ms(nbytes, flops)
     r = dict(
-        shape=f"{kind} pages, {len(chunks)} x (q_len {ql}, kv_len {kl}) Hq={Hkv * G} Hkv={Hkv} "
-        f"D={D} page={ps}",
+        shape=f"{kind} pages, {len(chunks)} x (q_len {ql}, kv_len {kl}) window={window} "
+        f"Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}",
         ms=device_ms(kern, layers, 10),
         plain_ms=device_ms(plain, layers, 2, reps=3),
         library_ms=device_ms(lib, layers, 10),
@@ -1013,10 +1261,19 @@ def time_kv_write(D: int) -> dict:
 def phase_timing() -> dict:
     """The first row of each kernel is its main shape in the ``kernels``
     line: Llama-3.2-1B's for the bf16 kernels, 3B's (G 3, D 128) for the
-    8-bit ones."""
+    8-bit ones, Mistral-7B's (G 4, D 128, window 4096, ctx 8192) for
+    ``decode_attention_pallas``. At Mistral-7B's shape the window's rows
+    time ctx 4096 and 8192 without the window beside ctx 8192 with it, and
+    the 2048-token extend chunk on 4096, 5120 (as many attended pairs as
+    the window's 4096 a query) and 8192 tokens beside 8192 with it."""
     t = {
         "paged_decode_attention": [
             time_decode(64, 256), time_decode(64, 4096), time_decode(64, 4096, 128, 3),
+            time_decode(64, 4096, 128, 4), time_decode(64, 8192, 128, 4),
+            time_decode(64, 8192, 128, 4, window=4096),
+        ],
+        "decode_attention_pallas": [
+            time_decode(64, 8192, 128, 4, window=4096, wrapper="pallas"),
         ],
         "paged_decode_attention_quant": [
             time_decode(64, 4096, 128, 3, "int8"), time_decode(64, 4096, 128, 3, "fp8"),
@@ -1027,6 +1284,8 @@ def phase_timing() -> dict:
             time_extend([(128, 128)] * 64),
             time_extend([(2048, 8192)]),
             time_extend([(128, 128)] * 64, 128, 3),
+            time_extend([(2048, 4096)], 128, 4), time_extend([(2048, 5120)], 128, 4),
+            time_extend([(2048, 8192)], 128, 4), time_extend([(2048, 8192)], 128, 4, window=4096),
         ],
         "paged_extend_attention_quant": [
             time_extend([(128, 128)] * 64, 128, 3, "int8"),
@@ -1048,9 +1307,11 @@ def phase_timing() -> dict:
 # --------------------------------------------------------------- phase 4
 
 
-def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto", params=None):
+def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto", params=None,
+                model_config=None, attention_backend="auto"):
     """An engine with seeded random weights, or with ``params`` (a state
-    dict of the same model, for example another engine's quantized one)."""
+    dict of the same model, for example another engine's quantized one);
+    ``model_config`` in place of the preset."""
     import torch
 
     from scratchpad_tpu_torch.config import ServerArgs
@@ -1061,14 +1322,18 @@ def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto",
     t0 = time.monotonic()
     engine = Engine(
         ServerArgs(
-            preset=preset, random_weights=True, dtype="bfloat16", device="cuda",
-            quantization=quantization, kv_cache_dtype=kv_cache_dtype,
+            preset=None if model_config else preset, random_weights=True, dtype="bfloat16",
+            device="cuda", quantization=quantization, kv_cache_dtype=kv_cache_dtype,
+            attention_backend=attention_backend,
         ),
+        model_config=model_config,
         params=params,
     )
     runner = engine.scheduler.runner
+    name = model_config.architecture if model_config else preset
     log(
-        f"[engine] {preset} {quantization or 'bf16'}, kv_cache_dtype={kv_cache_dtype} -> "
+        f"[engine] {name} {quantization or 'bf16'}, attention_backend={attention_backend}, "
+        f"kv_cache_dtype={kv_cache_dtype} -> "
         f"{runner.kv_cache_dtype} KV, ready in {time.monotonic() - t0:.1f} s "
         f"({runner.quantize_seconds:.1f} s of it quantizing on the host): "
         f"{runner.param_bytes / 2**30:.3f} GiB of parameters and buffers, "
@@ -1305,16 +1570,54 @@ class PlainPath:
         common.quantize_rows_int8, common.w4a8_matmul, common.w4a16_matmul = self.saved_w4
 
 
-def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None) -> dict:
+def weights_fingerprint(model) -> list[float]:
+    """f32 sums of the embedding, the first and last layers' first
+    projection and the head: equal for two draws from one seed."""
+    return [
+        float(t.float().sum())
+        for t in (model.embed.weight, model.layers[0].wq.weight, model.layers[-1].down.weight,
+                  model.lm_head.weight)
+    ]
+
+
+class NoWindow:
+    """Within the block, the model attends without its sliding window."""
+
+    def __init__(self, model):
+        self.cfg = model.cfg
+
+    def __enter__(self):
+        self.saved, self.cfg.sliding_window = self.cfg.sliding_window, None
+
+    def __exit__(self, *exc):
+        self.cfg.sliding_window = self.saved
+
+
+# (prompt tokens, new tokens) of the request set, before the two prompts
+# that share a 600-token prefix (32 new tokens each); "chunk" is
+# chunked_prefill_size
+REQUESTS = [(5, 32), (37, 32), (128, 32), (300, 32), (511, 32), ("chunk+952", 32)]
+# Mistral-7B's, window 4096: a prompt of three 2048-token chunks, the last
+# two past the window, and one whose 16 decode steps cross the window's edge
+WINDOW_REQUESTS = [(5, 32), (37, 32), (300, 32), (6000, 32), (4090, 16)]
+
+
+def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
+                 requests=REQUESTS) -> dict:
     """Serve the request set through ``Engine.generate`` with every launch
     count set to 0 just before and read just after; check each request,
     the radix hit, the launches of both attention kernels of the pool's
-    kind (one per layer and forward of their mode; the other kind's never)
-    and of ``w4_kernels`` (one per quantized matrix and forward: 6 per layer
-    and the head), and, with ``logits``, the kernel-path logits against the
+    kind (one per layer and forward of their mode; the other kind's never),
+    of ``decode_attention_pallas`` (every decode launch under
+    ``attention_backend="pallas"``, none under ``auto``) and of
+    ``w4_kernels`` (one per quantized matrix and forward: 6 per layer and
+    the head), and, with ``logits``, the kernel-path logits against the
     plain path's. The argmax must agree on every row
     but a bf16 tie: the plain path's top-2 logits equal or one bf16 ulp
-    apart. Each row whose argmax differs is logged with its gap.
+    apart. Each row whose argmax differs is logged with its gap. A model
+    with a sliding window must move the logits of each prompt longer than
+    the window by at least ``WINDOW_MOVE`` times the worst reading against
+    the plain path without it.
     ``toppings``: each request's adapter (see ``TOPPINGS``); the delta
     kernel must then launch once per projection and layer of every forward
     whose batch names an adapter, and never without ``toppings``, and the
@@ -1345,17 +1648,17 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None) 
     V = cfg.vocab_size
     shared = rng.integers(1, V, 600).tolist()
     chunk = engine.args.chunked_prefill_size
-    prompts = [
-        rng.integers(1, V, n).tolist() for n in (5, 37, 128, 300, 511, chunk + 952)
-    ] + [shared + rng.integers(1, V, 40).tolist()]
+    lens = [chunk + 952 if n == "chunk+952" else n for n, _ in requests]
+    prompts = [rng.integers(1, V, n).tolist() for n in lens] + [shared + rng.integers(1, V, 40).tolist()]
     second = [shared + rng.integers(1, V, 25).tolist()]  # radix hit on `shared`
-    sp = SamplingParams(temperature=0.0, max_new_tokens=32, ignore_eos=True)
+    new_tokens = [m for _, m in requests] + [32, 32]
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=m, ignore_eos=True) for m in new_tokens]
     tops = toppings or [None] * (len(prompts) + 1)
 
     engine.flush_cache()
     reset_launch_counts()
-    outs = engine.generate(input_ids=prompts, sampling_params=[sp] * len(prompts), topping=tops[:-1])
-    outs += engine.generate(input_ids=second, sampling_params=[sp], topping=tops[-1])
+    outs = engine.generate(input_ids=prompts, sampling_params=sps[:-1], topping=tops[:-1])
+    outs += engine.generate(input_ids=second, sampling_params=sps[-1:], topping=tops[-1])
     counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
     torch.cuda.synchronize()
     model.forward = inner_forward
@@ -1364,9 +1667,9 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None) 
         f"[engine {label}] {len(outs)} requests: {n_ext} extend and {n_dec} decode forwards; "
         f"kernel launches {counts}"
     )
-    for o, p in zip(outs, prompts + second):
+    for o, p, m in zip(outs, prompts + second, new_tokens):
         check(
-            o.completion_tokens == 32 and len(o.output_ids) == 32 and o.finish_reason == "length",
+            o.completion_tokens == m and len(o.output_ids) == m and o.finish_reason == "length",
             f"{label} request {o.rid}: {o.completion_tokens} tokens, finish {o.finish_reason}",
         )
         check(o.prompt_tokens == len(p), f"{label} request {o.rid}: prompt_tokens {o.prompt_tokens} != {len(p)}")
@@ -1376,7 +1679,7 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None) 
         check(outs[-1].cached_tokens == 0, f"{label}: KV reused across adapters: {outs[-1].cached_tokens}")
     log(
         f"[engine {label}] shared 600-token prefix under adapters {tops[-2]} and {tops[-1]}: "
-        f"{outs[-1].cached_tokens} cached tokens; chunked prompt of {len(prompts[5])} tokens"
+        f"{outs[-1].cached_tokens} cached tokens; prompts of {lens} tokens (chunks of {chunk})"
     )
     pages = runner.kv_cache_dtype if runner.kv_cache.quantized else "bf16"
     need = {EXTEND[pages]: L * n_ext, DECODE[pages]: L * n_dec}
@@ -1394,16 +1697,26 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None) 
     other = "bf16" if runner.kv_cache.quantized else "int8"
     for k in (EXTEND[other], DECODE[other]):
         check(counts[k] == 0, f"{label}: {k} launched {counts[k]} times on a {pages} pool")
+    # every decode launch goes through decode_attention_pallas under
+    # attention_backend="pallas", and none under auto
+    pallas = runner.attention_backend == "pallas"
+    check(
+        counts["decode_attention_pallas"] == (counts[DECODE[pages]] if pallas else 0),
+        f"{label} ({runner.attention_backend}): decode_attention_pallas launched "
+        f"{counts['decode_attention_pallas']} times against {counts[DECODE[pages]]} decode launches",
+    )
     steps = {
         EXTEND[pages]: n_ext, DECODE[pages]: n_dec,
         **{k: n_ext + n_dec for k in w4_kernels},
         "delta_matmul_grouped": topped[0],
+        "decode_attention_pallas": n_dec if pallas else 0,
     }
 
     result = dict(
         counts=counts, steps=steps, worst_logit_rel=None,
-        preset=engine.args.preset, weights=engine.args.quantization or "bf16",
-        kv_cache_dtype=runner.kv_cache_dtype,
+        preset=engine.args.preset or cfg.architecture, weights=engine.args.quantization or "bf16",
+        kv_cache_dtype=runner.kv_cache_dtype, attention_backend=runner.attention_backend,
+        output_ids=[o.output_ids for o in outs],
     )
     if not logits:
         return result
@@ -1416,10 +1729,18 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None) 
     worst = {0: 0.0, 1: 0.0}  # by step: 0 = extend, 1 = decode
     agree = ties = 0
     min_margin = math.inf  # the plain path's top-2 gap over max |logit|
+    window = cfg.sliding_window
+    moves = []  # (prompt length, step, kernel path against the plain path without the window)
     for p, o in zip(prompts + second, outs):
         kern = batch_logits(runner, [p], [o.output_ids[0]])
         with PlainPath(model):
             plain = batch_logits(runner, [p], [o.output_ids[0]])
+            if window is not None and len(p) > window:
+                with NoWindow(model):
+                    unwindowed = batch_logits(runner, [p], [o.output_ids[0]])
+                for step in (0, 1):
+                    a, b = kern[step][0], unwindowed[step][0]
+                    moves.append((len(p), step, float((a - b).abs().max()) / float(b.abs().max())))
         for step in (0, 1):
             a, b = kern[step][0], plain[step][0]
             check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{label}: non-finite logits")
@@ -1455,6 +1776,21 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None) 
         f"{min_margin:.3e} of max|logit|"
     )
     result["worst_logit_rel"] = max(worst.values())
+    if window is not None:
+        reading = max(worst.values())
+        log(
+            f"[engine {label}] window {window}: kernel path against the plain path without the "
+            f"window, prompt and step: "
+            + ", ".join(f"{n} tokens step {st} {m:.3e}" for n, st, m in moves)
+            + f" (at least {WINDOW_MOVE} x {reading:.3e})"
+        )
+        check(bool(moves), f"{label}: no prompt longer than the window {window}")
+        for n, st, m in moves:
+            check(
+                m >= WINDOW_MOVE * reading,
+                f"{label}: the window moves the {n}-token prompt's logits (step {st}) by only "
+                f"{m:.3e}, under {WINDOW_MOVE} x the kernel-vs-plain reading {reading:.3e}",
+            )
     return result
 
 
@@ -1616,13 +1952,19 @@ KERNELS = {
         source="scratchpad_tpu_torch/csrc/delta_matmul.cu",
         replaces="scratchpad_tpu/ops/ldmm.py:51 (_delta_kernel, launched :121 by delta_matmul :72)",
     ),
+    # the decode kernel of row 1, through its own wrapper (with its own count)
+    "decode_attention_pallas": dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/pallas_decode.py:34 (_decode_kernel, launched :177)",
+    ),
 }
 # the engine run whose launches each kernel's entry reports
 KERNEL_ENGINE = {
     "paged_decode_attention": "bf16", "paged_extend_attention": "bf16",
     "paged_decode_attention_quant": "3b-w4a8", "paged_extend_attention_quant": "3b-w4a8",
     "quantize_rows_int8": "w4a8", "w4a8_matmul": "w4a8", "w4a16_matmul": "w4a16",
-    "delta_matmul_grouped": "1b-toppings",
+    "delta_matmul_grouped": "1b-toppings", "decode_attention_pallas": "mistral-7b-pallas",
 }
 
 
@@ -1642,6 +1984,9 @@ def main() -> None:
     errs = {k: 0.0 for k in KERNELS}
     check_decode(errs)
     check_extend(errs)
+    check_window_decode(errs)
+    check_window_extend(errs)
+    check_pallas_decode(errs)
     check_kv_quantizer()
     check_w4(errs)
     check_delta(errs)
@@ -1650,9 +1995,10 @@ def main() -> None:
     engines = {}
     w4a8 = ("quantize_rows_int8", "w4a8_matmul")
 
-    def serve(engine, label, w4_kernels=(), logits=True, toppings=None, timed=True):
+    def serve(engine, label, w4_kernels=(), logits=True, toppings=None, timed=True,
+              requests=REQUESTS):
         t = time.monotonic()
-        engines[label] = phase_engine(engine, label, w4_kernels, logits, toppings)
+        engines[label] = phase_engine(engine, label, w4_kernels, logits, toppings, requests)
         t_times = time.monotonic()
         if timed and not FAILURES:
             phase_engine_times(engine, engines[label], label, toppings is not None)
@@ -1702,6 +2048,27 @@ def main() -> None:
     engine = make_engine(kv_cache_dtype="fp8")
     serve(engine, "1b-fp8kv")
     del engine
+    # Mistral-7B at full width and depth, its window through the decode and
+    # extend kernels: attention_backend auto, then pallas on the same
+    # weights (drawn again from the same seed)
+    from scratchpad_tpu_torch.config import ModelConfig
+
+    fingerprints = []
+    for label, backend in (("mistral-7b", "auto"), ("mistral-7b-pallas", "pallas")):
+        engine = make_engine(
+            model_config=ModelConfig.from_hf_config(MISTRAL_7B), attention_backend=backend
+        )
+        fingerprints.append(weights_fingerprint(engine.scheduler.runner.model))
+        serve(engine, label, requests=WINDOW_REQUESTS, timed=backend == "auto")
+        del engine
+    check(fingerprints[0] == fingerprints[1], f"the Mistral engines' weights differ: {fingerprints}")
+    same = sum(
+        a == b for a, b in zip(engines["mistral-7b"]["output_ids"], engines["mistral-7b-pallas"]["output_ids"])
+    )
+    log(
+        f"[engine mistral-7b-pallas] greedy tokens equal to mistral-7b's on {same} of "
+        f"{len(engines['mistral-7b']['output_ids'])} requests (the same kernels on the same weights)"
+    )
     gc.collect()
     torch.cuda.empty_cache()
     if FAILURES:
@@ -1732,7 +2099,7 @@ def main() -> None:
     log(f"[done] {time.monotonic() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     fields = (
-        "preset", "weights", "kv_cache_dtype", "decode_tok_s", "e2e_tok_s",
+        "preset", "weights", "kv_cache_dtype", "attention_backend", "decode_tok_s", "e2e_tok_s",
         "device_busy_share", "device_ms_per_step", "worst_logit_rel",
     )
     log(

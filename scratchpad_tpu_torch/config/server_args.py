@@ -17,6 +17,7 @@ from typing import Optional
 
 QUANTIZATIONS = (None, "w4a8", "w4a16", "w4", "awq", "gptq", "gptq_v2")
 KV_CACHE_DTYPES = ("auto", "bfloat16", "int8", "fp8")
+ATTENTION_BACKENDS = ("auto", "pallas")
 
 
 @dataclasses.dataclass
@@ -74,8 +75,12 @@ class ServerArgs:
     # with one host fetch per window
     decode_window_size: int = 16
 
-    # attention: auto = the hand-written CUDA kernels for CUDA tensors,
-    # their plain PyTorch versions for CPU tensors (the only choice yet)
+    # attention: auto = decode_attention_gqa + attention_ragged; pallas =
+    # decode_attention_pallas (bf16 KV only) + attention_ragged. Both launch
+    # the hand-written CUDA kernels for CUDA tensors and take their plain
+    # PyTorch versions for CPU tensors. The JAX package's other backends
+    # (xla, ragged, gqa, ...) are refused: on the card the plain path may
+    # not serve
     attention_backend: str = "auto"
 
     # not ported yet, refused when set: decode-window pipelining, its
@@ -111,6 +116,11 @@ class ServerArgs:
         if not (self.device == "cpu" or self.device.split(":")[0] == "cuda"):
             raise ValueError(f"device must be cuda, cuda:N or cpu; got {self.device!r}")
         self._refuse_unported()
+        if self.attention_backend == "pallas" and self.kv_cache_dtype in ("int8", "fp8"):
+            raise ValueError(
+                f"attention_backend='pallas' decodes bf16 pages only, not "
+                f"kv_cache_dtype={self.kv_cache_dtype!r} (use attention_backend='auto')"
+            )
         if self.tokenizer_path is None:
             self.tokenizer_path = self.model_path or None
         if self.decode_bs_buckets is None:
@@ -139,7 +149,7 @@ class ServerArgs:
             "enable_dp_attention": self.enable_dp_attention,
             "enable_overlap": bool(self.enable_overlap),
             "decode_pipeline_depth": self.decode_pipeline_depth is not None,
-            "attention_backend": self.attention_backend != "auto",
+            "attention_backend": self.attention_backend not in ATTENTION_BACKENDS,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:

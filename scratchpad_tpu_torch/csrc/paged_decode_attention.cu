@@ -1,20 +1,31 @@
 // Paged GQA decode attention for Hopper (sm_90a): bf16 KV, or int8 / fp8
 // (e4m3) KV with per-(token, head) bf16 scales; f32 accumulation.
 //
-// Replaces two TPU kernels of scratchpad_tpu/ops/attention/gqa_decode.py,
-// both branches of each (bf16 pages, and quantized=True):
-//   _gqa_decode_kernel          (per-sequence flash-decode, chunks of 16 pages)
-//   _gqa_decode_grouped_kernel  (several short sequences per grid step)
+// Replaces three TPU kernels:
+//   scratchpad_tpu/ops/attention/gqa_decode.py, both branches of each (bf16
+//   pages, and quantized=True):
+//     _gqa_decode_kernel          (per-sequence flash-decode, chunks of 16 pages)
+//     _gqa_decode_grouped_kernel  (several short sequences per grid step)
+//   scratchpad_tpu/ops/attention/pallas_decode.py (bf16 pages only):
+//     _decode_kernel              (one request per grid step, 8-page chunks)
 // A TPU core walks its grid in order, so the JAX package needs a second
-// kernel to amortise per-step cost over short sequences. On the GPU the grid
-// of CTAs runs the sequences in parallel, so this one kernel covers both
-// regimes.
+// kernel to amortise per-step cost over short sequences, and its third one
+// differs from the first only in how it schedules page DMAs. On the GPU the
+// grid of CTAs runs the sequences in parallel, so this one kernel covers all
+// three.
 //
 // What it computes, for sequence b and kv head h with G = Hq / Hkv:
 //   out[b, h*G+g, :] = sum_j softmax_j(sm_scale * q[b, h*G+g] . k_j) v_j
 // over the seq_lens[b] cached tokens j of sequence b, found through
 // page_table[b, j / page_size]. Rows with seq_lens[b] == 0 (batch padding)
 // are written as exact zeros.
+//
+// Soft cap and static sliding window (gqa_decode.py:171-172, 395-396;
+// pallas_decode.py:100-107), runtime arguments uniform over the launch, 0
+// meaning none: the score is cap * tanh(s / cap), and only the last W tokens
+// (L - W <= j < L) are live. The token loop starts at max(L - W, 0), so a
+// window reads W tokens, not L; the Pallas kernels walk from chunk 0 (or
+// skip whole chunks below the window) and mask.
 //
 // Layout: k_cache / v_cache are one layer of the pool, [pages, page_size,
 // Hkv, D] row-major; slot s = page * page_size + offset is row s. 8-bit
@@ -136,7 +147,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ page_table,
                     const int* __restrict__ seq_lens,
                     __nv_bfloat16* __restrict__ out, int num_kv_heads,
-                    int max_pages, int page_size, float sm_scale) {
+                    int max_pages, int page_size, float sm_scale, float logit_cap,
+                    int window) {
   constexpr int EPL = D / 32;  // elements of a row per lane
   constexpr bool kQuant = !std::is_same_v<CodeT, __nv_bfloat16>;
   const int b = blockIdx.x;
@@ -172,7 +184,10 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t row_stride = (size_t)num_kv_heads * D;
   const size_t head_off = (size_t)h * D + lane * EPL;
 
-  for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
+  // the window's first token; the softmax over [first, len) is the masked
+  // softmax over [0, len)
+  const int first = (window > 0 && len > window) ? len - window : 0;
+  for (int t0 = first + warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
     float kx[kUnroll][EPL], vx[kUnroll][EPL];
     float sk[kUnroll], sv[kUnroll];  // the rows' scales (8-bit pages)
 #pragma unroll
@@ -198,6 +213,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
           for (int e = 0; e < EPL; ++e) s += qv[g][e] * kx[u][e];
           s = warp_sum(s);
           if constexpr (kQuant) s *= sk[u];
+          if (logit_cap > 0.f) s = logit_cap * tanhf(s / logit_cap);  // uniform branch
           const float m_new = fmaxf(m[g], s);
           const float alpha = __expf(m[g] - m_new);
           const float p = __expf(s - m_new);
@@ -248,13 +264,13 @@ cudaError_t launch_for_d(int G, dim3 grid, cudaStream_t st, const __nv_bfloat16*
                          const CodeT* k, const CodeT* v, const __nv_bfloat16* ks,
                          const __nv_bfloat16* vs, const int* pt, const int* lens,
                          __nv_bfloat16* out, int hkv, int max_pages, int page_size,
-                         float sm_scale) {
+                         float sm_scale, float logit_cap, int window) {
   const dim3 block(kWarps * 32);
 #define SPT_DECODE_CASE(GG)                                                               \
   case GG:                                                                                \
-    paged_decode_kernel<D, GG, CodeT><<<grid, block, 0, st>>>(q, k, v, ks, vs, pt, lens,  \
-                                                              out, hkv, max_pages,        \
-                                                              page_size, sm_scale);       \
+    paged_decode_kernel<D, GG, CodeT><<<grid, block, 0, st>>>(                           \
+        q, k, v, ks, vs, pt, lens, out, hkv, max_pages, page_size, sm_scale, logit_cap,   \
+        window);                                                                          \
     break;
   switch (G) {
     SPT_DECODE_CASE(1)
@@ -276,8 +292,9 @@ template <typename CodeT>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
            const void* v_scale, const void* page_table, const void* seq_lens, void* out,
            int batch, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,
-           int page_size, float sm_scale, void* stream) {
+           int page_size, float sm_scale, float logit_cap, int window, void* stream) {
   if (batch == 0) return 0;
+  if (logit_cap < 0.f || window < 0) return cudaErrorInvalidValue;
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
   const int G = num_q_heads / num_kv_heads;
   const dim3 grid(batch, num_kv_heads);
@@ -294,15 +311,15 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   switch (head_dim) {
     case 32:
       err = launch_for_d<32>(G, grid, st, qp, kp, vp, ksp, vsp, ptp, lp, op, num_kv_heads,
-                             max_pages, page_size, sm_scale);
+                             max_pages, page_size, sm_scale, logit_cap, window);
       break;
     case 64:
       err = launch_for_d<64>(G, grid, st, qp, kp, vp, ksp, vsp, ptp, lp, op, num_kv_heads,
-                             max_pages, page_size, sm_scale);
+                             max_pages, page_size, sm_scale, logit_cap, window);
       break;
     case 128:
       err = launch_for_d<128>(G, grid, st, qp, kp, vp, ksp, vsp, ptp, lp, op, num_kv_heads,
-                              max_pages, page_size, sm_scale);
+                              max_pages, page_size, sm_scale, logit_cap, window);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -313,17 +330,18 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
 }  // namespace
 
 // q [B, Hq, D] bf16; k_cache, v_cache [pages, page_size, Hkv, D] bf16;
-// page_table i32 [B, max_pages]; seq_lens i32 [B]; out [B, Hq, D] bf16.
-// Returns a cudaError_t (0 = launched).
+// page_table i32 [B, max_pages]; seq_lens i32 [B]; out [B, Hq, D] bf16;
+// logit_cap > 0 caps the scores (0: no cap); window > 0 keeps the last
+// window tokens (0: all). Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_attention(const void* q, const void* k_cache,
                                       const void* v_cache, const void* page_table,
                                       const void* seq_lens, void* out, int batch,
                                       int num_q_heads, int num_kv_heads, int head_dim,
                                       int max_pages, int page_size, float sm_scale,
-                                      void* stream) {
+                                      float logit_cap, int window, void* stream) {
   return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, page_table, seq_lens,
                                out, batch, num_q_heads, num_kv_heads, head_dim, max_pages,
-                               page_size, sm_scale, stream);
+                               page_size, sm_scale, logit_cap, window, stream);
 }
 
 // As paged_decode_attention over 8-bit pages: k_cache, v_cache [pages,
@@ -335,16 +353,17 @@ extern "C" int paged_decode_attention_quant(const void* q, const void* k_cache,
                                             const void* seq_lens, void* out, int batch,
                                             int num_q_heads, int num_kv_heads, int head_dim,
                                             int max_pages, int page_size, int code_type,
-                                            float sm_scale, void* stream) {
+                                            float sm_scale, float logit_cap, int window,
+                                            void* stream) {
   switch (code_type) {
     case 0:
       return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, page_table, seq_lens, out,
                             batch, num_q_heads, num_kv_heads, head_dim, max_pages, page_size,
-                            sm_scale, stream);
+                            sm_scale, logit_cap, window, stream);
     case 1:
       return launch<__nv_fp8_e4m3>(q, k_cache, v_cache, k_scale, v_scale, page_table,
                                    seq_lens, out, batch, num_q_heads, num_kv_heads, head_dim,
-                                   max_pages, page_size, sm_scale, stream);
+                                   max_pages, page_size, sm_scale, logit_cap, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

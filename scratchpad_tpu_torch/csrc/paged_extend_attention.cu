@@ -22,6 +22,11 @@
 // covers a chunk that follows a cached radix prefix. Query head h*G+g reads
 // kv head h. Tokens past cu_q_lens[B] (batch padding) are written as zeros.
 //
+// Soft cap and static sliding window (the bundled kernel's soft_cap and
+// sliding_window, ragged_backend.py:98-99; xla_backend.py:477-478), runtime
+// arguments uniform over the launch, 0 meaning none: the score is
+// cap * tanh(s / cap), and the query at position p attends p - W < j <= p.
+//
 // What bounds it: operations at the main path's prefill shapes. A chunk of
 // n new tokens over a cache of c tokens costs about 4 * Hq * D * n * (c +
 // n/2) flops against (n * Hq + 2 * (c + n) * Hkv) * D * 2 B moved, so above a
@@ -37,7 +42,11 @@
 //     owns a 4 x 8 block of the 64 x 64 score tile and 4 rows x D/8 columns
 //     of the output, with online softmax state in f32 registers.
 //   - The KV loop stops at the tile's last causal position, so a tile never
-//     reads the cache past what its queries may see.
+//     reads the cache past what its queries may see, and with a window it
+//     starts at the KV tile that holds its first query's first live position;
+//     each row masks its own window edge inside (it may fall inside a tile
+//     and inside a page). A tile of bq queries under a window W thus reads
+//     about W + bq keys, whatever the cache's length.
 // Not done yet (later work): wgmma / mma.sync tensor-core products,
 // cp.async or TMA double buffering, vector loads.
 
@@ -93,7 +102,7 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ tile_cum,
                     __nv_bfloat16* __restrict__ out, int num_seqs, int num_tokens,
                     int num_kv_heads, int G, int max_pages, int page_size,
-                    float sm_scale) {
+                    float sm_scale, float logit_cap, int window) {
   constexpr int DC = D / 8;  // output columns per thread
   constexpr bool kQuant = !std::is_same_v<CodeT, __nv_bfloat16>;
   extern __shared__ float smem[];
@@ -144,12 +153,14 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
     Qs[r * (D + 1) + d] = val;
   }
 
-  int lim[4];  // last kv position each of this thread's rows may attend
+  // the kv positions [lo, lim] each of this thread's rows may attend
+  int lo[4], lim[4];
   float m[4], l[4], o[4][DC];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = tr + 16 * r;
     lim[r] = row < n_rows ? ctx + i0 + row / G : -1;
+    lo[r] = window > 0 ? lim[r] - window + 1 : 0;
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
@@ -159,7 +170,9 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
   const int* pt = page_table + (size_t)s * max_pages;
   const size_t row_stride = (size_t)num_kv_heads * D;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  // the first kv tile any row of this tile may see: the first query's window
+  const int kv_begin = window > 0 ? max(ctx + i0 - window + 1, 0) / kBK * kBK : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int j = idx / D;
@@ -206,7 +219,9 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
       float mt = -INFINITY;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        if (k0 + tc + 8 * c > lim[r]) sc[r][c] = -INFINITY;
+        const int pos = k0 + tc + 8 * c;
+        if (logit_cap > 0.f) sc[r][c] = logit_cap * tanhf(sc[r][c] / logit_cap);
+        if (pos > lim[r] || pos < lo[r]) sc[r][c] = -INFINITY;
         mt = fmaxf(mt, sc[r][c]);
       }
       mt = group8_max(mt);
@@ -264,7 +279,7 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
                          const int* pt, const int* kv_lens, const int* cu_q,
                          const int* tile_seq, const int* tile_cum, __nv_bfloat16* out,
                          int num_seqs, int num_tokens, int hkv, int G, int max_pages,
-                         int page_size, float sm_scale) {
+                         int page_size, float sm_scale, float logit_cap, int window) {
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(paged_extend_kernel<D, CodeT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -272,7 +287,7 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
   if (err != cudaSuccess) return err;
   paged_extend_kernel<D, CodeT><<<grid, kThreads, bytes, st>>>(
       q, k, v, ks, vs, pt, kv_lens, cu_q, tile_seq, tile_cum, out, num_seqs, num_tokens, hkv,
-      G, max_pages, page_size, sm_scale);
+      G, max_pages, page_size, sm_scale, logit_cap, window);
   return cudaGetLastError();
 }
 
@@ -281,8 +296,10 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
            const void* v_scale, const void* page_table, const void* kv_lens,
            const void* cu_q_lens, const void* tile_seq, const void* tile_cum, void* out,
            int num_tiles, int num_seqs, int num_tokens, int num_q_heads, int num_kv_heads,
-           int head_dim, int max_pages, int page_size, float sm_scale, void* stream) {
+           int head_dim, int max_pages, int page_size, float sm_scale, float logit_cap,
+           int window, void* stream) {
   if (num_tiles == 0 || num_tokens == 0) return 0;
+  if (logit_cap < 0.f || window < 0) return cudaErrorInvalidValue;
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
   const int G = num_q_heads / num_kv_heads;
   if (G > kRows) return cudaErrorInvalidValue;
@@ -304,17 +321,17 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
     case 32:
       err = launch_for_d<32>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                             sm_scale);
+                             sm_scale, logit_cap, window);
       break;
     case 64:
       err = launch_for_d<64>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                             sm_scale);
+                             sm_scale, logit_cap, window);
       break;
     case 128:
       err = launch_for_d<128>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                               num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                              sm_scale);
+                              sm_scale, logit_cap, window);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -334,18 +351,21 @@ extern "C" int paged_extend_tokens_per_tile(int group) {
 // page_table i32 [B, max_pages]; kv_lens i32 [B]; cu_q_lens i32 [B + 1];
 // tile_seq i32 [num_tiles] (sequence of each tile, B for padding tiles);
 // tile_cum i32 [B] (inclusive prefix sum of tiles per sequence);
-// out [T, Hq, D] bf16. Returns a cudaError_t (0 = launched).
+// out [T, Hq, D] bf16; logit_cap > 0 caps the scores (0: no cap); window > 0
+// keeps the last window positions up to each query's own (0: all). Returns
+// a cudaError_t (0 = launched).
 extern "C" int paged_extend_attention(const void* q, const void* k_cache, const void* v_cache,
                                       const void* page_table, const void* kv_lens,
                                       const void* cu_q_lens, const void* tile_seq,
                                       const void* tile_cum, void* out, int num_tiles,
                                       int num_seqs, int num_tokens, int num_q_heads,
                                       int num_kv_heads, int head_dim, int max_pages,
-                                      int page_size, float sm_scale, void* stream) {
+                                      int page_size, float sm_scale, float logit_cap,
+                                      int window, void* stream) {
   return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, page_table, kv_lens,
                                cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                                num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                               page_size, sm_scale, stream);
+                               page_size, sm_scale, logit_cap, window, stream);
 }
 
 // As paged_extend_attention over 8-bit pages: k_cache, v_cache of int8
@@ -356,18 +376,18 @@ extern "C" int paged_extend_attention_quant(
     const void* v_scale, const void* page_table, const void* kv_lens, const void* cu_q_lens,
     const void* tile_seq, const void* tile_cum, void* out, int num_tiles, int num_seqs,
     int num_tokens, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,
-    int page_size, int code_type, float sm_scale, void* stream) {
+    int page_size, int code_type, float sm_scale, float logit_cap, int window, void* stream) {
   switch (code_type) {
     case 0:
       return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
                             cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                             num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                            page_size, sm_scale, stream);
+                            page_size, sm_scale, logit_cap, window, stream);
     case 1:
       return launch<__nv_fp8_e4m3>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
                                    cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                                    num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                                   page_size, sm_scale, stream);
+                                   page_size, sm_scale, logit_cap, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,9 +10,9 @@ batch-size buckets that CUDA graphs will be captured at (later work), so
 their padding rows reach the decode kernel as they will then; an extend
 batch runs at its real size, since nothing is compiled for its shape.
 
-Attention runs through the kernel wrappers, which launch the hand-written
-CUDA kernels for CUDA tensors and take their plain PyTorch versions for CPU
-tensors. ``attach_toppings`` hands a ``ToppingsManager``'s device pools to
+Attention runs through the kernel wrappers that ``attention_backend``
+names (``auto`` or ``pallas``), which launch the hand-written CUDA kernels
+for CUDA tensors and take their plain PyTorch versions for CPU tensors. ``attach_toppings`` hands a ``ToppingsManager``'s device pools to
 the model; a batch that names adapters then carries its slot table in the
 same upload buffer as the rest of its integers.
 """
@@ -38,6 +38,7 @@ from scratchpad_tpu_torch.memory import (
 )
 from scratchpad_tpu_torch.memory.kv_cache import QUANT_KV_DTYPES
 from scratchpad_tpu_torch.models.registry import get_model_class
+from scratchpad_tpu_torch.ops.attention import attention_functions
 from scratchpad_tpu_torch.ops.quant.import_hf import convert_quantized_layers, split_quant_tensors
 from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
 from scratchpad_tpu_torch.sampling.sampler import sample
@@ -111,13 +112,15 @@ def resolve_kv_cache_dtype(args: ServerArgs, cfg: ModelConfig, device: torch.dev
     """The KV pool's dtype: ``int8`` or ``fp8`` (8-bit codes with per-(token,
     head) bf16 scales), or the model dtype. ``auto`` follows the JAX
     runner's model-aware rule (``model_runner.py:207-222``): int8 KV for
-    W4-quantized serving on an accelerator when hidden x layers >= 50,000
-    (3B and up); otherwise, as an explicit ``bfloat16`` does, the pool takes
-    the model dtype. Unlike the JAX runner it leaves ``args`` as it is."""
+    W4-quantized serving on an accelerator through the ``auto`` backend (the
+    JAX runner's ``gqa``) when hidden x layers >= 50,000 (3B and up);
+    otherwise, as an explicit ``bfloat16`` does, the pool takes the model
+    dtype. Unlike the JAX runner it leaves ``args`` as it is."""
     if args.kv_cache_dtype in QUANT_KV_DTYPES:
         return args.kv_cache_dtype
     if (
         args.kv_cache_dtype == "auto"
+        and args.attention_backend == "auto"
         and args.quantization in ("w4a8", "w4a16", "awq", "gptq")
         and device.type == "cuda"
         and cfg.hidden_size * cfg.num_hidden_layers >= 50_000
@@ -178,6 +181,7 @@ class ModelRunner:
             cfg, self.device, self.dtype, quantization=quant,
             quantize_lm_head=quant is not None,
         )
+        self.attention_backend = self._set_attention(self.model)
 
         # ---- parameters
         t0 = time.monotonic()
@@ -230,6 +234,23 @@ class ModelRunner:
             self.args.random_seed + 1
         )
         self.toppings_manager = None
+
+    def _set_attention(self, model) -> str:
+        """Give the model the attention functions of ``attention_backend``.
+        A model that cannot take the ``pallas`` decode raises: the JAX
+        runner sends it to its XLA backend, which the port keeps off the
+        card."""
+        backend = self.args.attention_backend
+        if backend == "pallas" and not getattr(model, "supports_pallas_attention", False):
+            raise NotImplementedError(
+                f"{type(model).__name__} does not support attention_backend='pallas'"
+            )
+        model.decode_attention, model.extend_attention = attention_functions(backend)
+        logger.info(
+            "attention backend %s: decode %s, extend %s", backend,
+            model.decode_attention.__name__, model.extend_attention.__name__,
+        )
+        return backend
 
     def attach_toppings(self, manager) -> None:
         """Serve the adapters of ``manager`` (a ``ToppingsManager`` on this

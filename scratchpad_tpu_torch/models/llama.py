@@ -1,4 +1,4 @@
-"""Llama family (Llama 2/3.x) as a PyTorch ``nn.Module``.
+"""Llama family (Llama 2/3.x, Mistral) as a PyTorch ``nn.Module``.
 
 Counterpart of ``scratchpad_tpu/models/llama.py``. The JAX model stacks the
 layers' weights on a leading axis and unrolls a functional layer loop; here
@@ -8,8 +8,11 @@ HF state dict maps onto the module by renaming alone (``convert_hf_state``);
 a quantized model holds ``QuantLinear`` layers instead.
 
 The forward writes each layer's new K/V into the paged pool, then runs
-attention and the 4-bit projections through the CUDA kernel wrappers, which
-take their plain versions for CPU tensors. With toppings attached
+attention (with the config's uniform ``sliding_window`` and
+``attn_logit_softcap``, as the JAX forward passes them) and the 4-bit
+projections through the CUDA kernel wrappers, which take their plain
+versions for CPU tensors. The runner sets the model's decode and extend
+attention functions from ``attention_backend``. With toppings attached
 (``self.toppings``, the manager's device pools) and a batch that names
 adapters, each projection's output gains its tokens' own adapters
 (``apply_topping``); a batch that names none skips that path.
@@ -44,11 +47,7 @@ from scratchpad_tpu_torch.models.common import (
     rope_cos_sin,
     silu_mul,
 )
-from scratchpad_tpu_torch.ops.attention import (
-    attention_ragged,
-    decode_attention_gqa,
-    write_kv,
-)
+from scratchpad_tpu_torch.ops.attention import write_kv
 from scratchpad_tpu_torch.toppings.manager import apply_topping
 
 
@@ -104,6 +103,9 @@ class LlamaForCausalLM(nn.Module):
     The quantized state comes from ``quantize_state`` or from the JAX
     package's parameters (``weight_loader.params_from_jax``)."""
 
+    # the runner may serve it through attention_backend="pallas"
+    supports_pallas_attention = True
+
     def __init__(
         self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False
     ):
@@ -111,8 +113,6 @@ class LlamaForCausalLM(nn.Module):
         unported = [
             name
             for name, on in (
-                ("sliding_window", cfg.sliding_window),
-                ("attn_logit_softcap", cfg.attn_logit_softcap),
                 ("use_qk_norm", cfg.use_qk_norm),
                 ("multimodal", cfg.multimodal),
                 ("mrope", (cfg.rope_scaling or {}).get("mrope_section")),
@@ -147,9 +147,10 @@ class LlamaForCausalLM(nn.Module):
             persistent=False,
         )
         self.sm_scale = float(rope_attention_scale(cfg) / np.sqrt(cfg.head_dim))
-        # attention impls; the runner may swap in the plain versions
-        self.decode_attention = decode_attention_gqa
-        self.extend_attention = attention_ragged
+        # attention impls (the model-facing functions of ops.attention), set
+        # by the runner from attention_backend
+        self.decode_attention = None
+        self.extend_attention = None
         self.toppings = None  # ToppingsManager.device_pools(), set by the runner
 
     # ------------------------------------------------------------- parameters
@@ -289,7 +290,10 @@ class LlamaForCausalLM(nn.Module):
             k = apply_rope(lin(layer, "wk", h, l).view(T, Hkv, D), cos, sin)
             v = lin(layer, "wv", h, l).view(T, Hkv, D)
             write_kv(kv, k, v, l, meta.out_cache_loc)
-            attn = attend(q, kv, l, meta, sm_scale=self.sm_scale)
+            attn = attend(
+                q, kv, l, meta, sm_scale=self.sm_scale,
+                logit_cap=cfg.attn_logit_softcap, sliding_window=cfg.sliding_window,
+            )
             x = x + lin(layer, "wo", attn.reshape(T, Hq * D), l)
             h2 = rms_norm(x, layer.post_norm, eps)
             if layer.fused_gate_up:

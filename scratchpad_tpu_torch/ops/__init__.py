@@ -2,10 +2,12 @@
 
 ``KERNEL_WRAPPERS`` lists every wrapper of the package that launches a
 hand-written CUDA kernel; each carries a ``launches`` count, which it raises
-only where it launches its kernel.
+only where it launches its kernel. ``decode_attention_pallas`` launches the
+decode kernel through ``paged_decode_attention``, so both counts rise.
 """
 
 from scratchpad_tpu_torch.ops.attention import (
+    decode_attention_pallas,
     paged_decode_attention,
     paged_decode_attention_quant,
     paged_extend_attention,
@@ -27,6 +29,7 @@ KERNEL_WRAPPERS = (
     w4a8_matmul,
     w4a16_matmul,
     delta_matmul_grouped,
+    decode_attention_pallas,
 )
 
 

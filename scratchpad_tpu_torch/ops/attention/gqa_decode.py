@@ -11,6 +11,13 @@ head) bf16 scales, the Pallas kernels' ``quantized`` branch.
 kernel for CUDA tensors, raising on anything the kernel does not take; they
 never fall back. ``sm_scale`` is applied once, inside (the JAX callers
 pre-scale q instead).
+
+Both take the Pallas kernels' static ``logit_cap`` and ``sliding_window``
+(``gqa_decode.py:171-172, 395-396``): the score is ``cap * tanh(s / cap)``
+with ``s = sm_scale * q . k`` (for 8-bit pages, ``s`` already holds the K
+scale), and token ``j`` of a row of length ``L`` is live iff ``L - W <= j <
+L``. The kernel starts its token loop at ``max(L - W, 0)``, so it reads only
+the window.
 """
 
 from __future__ import annotations
@@ -28,11 +35,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "paged_decode_attention": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        [_P] * 6 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I, _P],
         ctypes.c_int,
     ),
     "paged_decode_attention_quant": (
-        [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P],
+        [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _P],
         ctypes.c_int,
     ),
 }
@@ -40,6 +47,22 @@ HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
 # code dtype -> the kernel's code type argument
 CODE_TYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
+def mask_args(logit_cap: Optional[float], sliding_window: Optional[int]) -> tuple[float, int]:
+    """The kernels' runtime form of the cap and the window: 0 for none."""
+    if logit_cap is not None and not logit_cap > 0:
+        raise ValueError(f"logit_cap must be None or > 0, got {logit_cap}")
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"sliding_window must be None or >= 1, got {sliding_window}")
+    return float(logit_cap or 0.0), int(sliding_window or 0)
+
+
+def softcap(scores: torch.Tensor, logit_cap: Optional[float]) -> torch.Tensor:
+    """``cap * tanh(s / cap)``, as ``xla_backend._softcap``."""
+    if logit_cap is None:
+        return scores
+    return logit_cap * torch.tanh(scores / logit_cap)
 
 
 def gather_kv_rows(
@@ -66,10 +89,14 @@ def paged_decode_attention_plain(
     sm_scale: float,
     k_scale: Optional[torch.Tensor] = None,  # [pages, ps, Hkv] for 8-bit pages
     v_scale: Optional[torch.Tensor] = None,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """Gather each row's pages into dense K/V (dequantized in f32 for 8-bit
-    pages) and attend in f32. Rows with ``seq_len == 0`` give exact zeros,
-    like the kernel."""
+    pages) and attend in f32, the cap and the window as in the module
+    docstring. Rows with ``seq_len == 0`` give exact zeros, like the
+    kernel."""
+    mask_args(logit_cap, sliding_window)
     B, Hq, D = q.shape
     _, ps, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -79,8 +106,11 @@ def paged_decode_attention_plain(
     k = gather_kv_rows(k_cache, k_scale, slots)  # [B, S, Hkv, D]
     v = gather_kv_rows(v_cache, v_scale, slots)
     qg = q.float().reshape(B, Hkv, G, D) * sm_scale
-    scores = torch.einsum("bhgd,bshd->bhgs", qg, k)
-    valid = torch.arange(P * ps, device=q.device)[None, :] < seq_lens[:, None]
+    scores = softcap(torch.einsum("bhgd,bshd->bhgs", qg, k), logit_cap)
+    pos = torch.arange(P * ps, device=q.device)[None, :]
+    valid = pos < seq_lens[:, None]
+    if sliding_window is not None:
+        valid &= pos >= seq_lens[:, None] - sliding_window
     valid = valid[:, None, None, :]
     p = torch.softmax(scores.masked_fill(~valid, float("-inf")), dim=-1)
     p = torch.where(valid, p, torch.zeros((), device=q.device))  # len-0 rows
@@ -140,16 +170,21 @@ def paged_decode_attention(
     page_table: torch.Tensor,
     seq_lens: torch.Tensor,
     sm_scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
-    """out [B, Hq, D]: each row's single query over its ``seq_lens`` cached
-    tokens in bf16 pages (see ``csrc/paged_decode_attention.cu``)."""
+    """out [B, Hq, D]: each row's single query over the live window of its
+    ``seq_lens`` cached tokens in bf16 pages (see
+    ``csrc/paged_decode_attention.cu``)."""
     native.check_same_device(q, k_cache, v_cache, page_table, seq_lens)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
-            q, k_cache, v_cache, page_table, seq_lens, sm_scale
+            q, k_cache, v_cache, page_table, seq_lens, sm_scale,
+            logit_cap=logit_cap, sliding_window=sliding_window,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+    cap, window = mask_args(logit_cap, sliding_window)
     _check(q, k_cache, v_cache, None, None, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES)
     B, Hq, D = q.shape
@@ -158,7 +193,7 @@ def paged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         B, Hq, k_cache.shape[2], D, page_table.shape[1], k_cache.shape[1],
-        float(sm_scale), native.stream_handle(q.device),
+        float(sm_scale), cap, window, native.stream_handle(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: cudaError {rc}")
@@ -178,16 +213,21 @@ def paged_decode_attention_quant(
     page_table: torch.Tensor,
     seq_lens: torch.Tensor,
     sm_scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """``paged_decode_attention`` over 8-bit pages: the kernel folds the
-    scales out of its dots, s = (q . k_code) s_k and p' = p s_v."""
+    scales out of its dots, s = (q . k_code) s_k and p' = p s_v; the cap
+    applies to that s."""
     native.check_same_device(q, k_cache, v_cache, k_scale, v_scale, page_table, seq_lens)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
-            q, k_cache, v_cache, page_table, seq_lens, sm_scale, k_scale, v_scale
+            q, k_cache, v_cache, page_table, seq_lens, sm_scale, k_scale, v_scale,
+            logit_cap, sliding_window,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_quant: unsupported device {q.device}")
+    cap, window = mask_args(logit_cap, sliding_window)
     _check(q, k_cache, v_cache, k_scale, v_scale, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES)
     B, Hq, D = q.shape
@@ -197,7 +237,8 @@ def paged_decode_attention_quant(
         k_scale.data_ptr(), v_scale.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         B, Hq, k_cache.shape[2], D, page_table.shape[1], k_cache.shape[1],
-        CODE_TYPES[k_cache.dtype], float(sm_scale), native.stream_handle(q.device),
+        CODE_TYPES[k_cache.dtype], float(sm_scale), cap, window,
+        native.stream_handle(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention_quant launch failed: cudaError {rc}")
@@ -215,11 +256,17 @@ def decode_attention_gqa(
     meta: ForwardMeta,
     *,
     sm_scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Model-facing decode attention over one layer of the pool."""
+    """Model-facing decode attention over one layer of the pool (the
+    ``attention_backend="auto"`` decode)."""
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     if k_scale is None:
-        return paged_decode_attention(q, k, v, meta.page_table, meta.seq_lens, sm_scale)
+        return paged_decode_attention(
+            q, k, v, meta.page_table, meta.seq_lens, sm_scale, logit_cap, sliding_window
+        )
     return paged_decode_attention_quant(
-        q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, sm_scale
+        q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, sm_scale,
+        logit_cap, sliding_window,
     )

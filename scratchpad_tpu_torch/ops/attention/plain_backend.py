@@ -10,6 +10,8 @@ the card.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta
@@ -80,18 +82,34 @@ def write_kv(
 
 
 def decode_attention_plain(
-    q: torch.Tensor, kv: KVCache, layer_idx: int, meta: ForwardMeta, *, sm_scale: float
+    q: torch.Tensor,
+    kv: KVCache,
+    layer_idx: int,
+    meta: ForwardMeta,
+    *,
+    sm_scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     return paged_decode_attention_plain(
-        q, k, v, meta.page_table, meta.seq_lens, sm_scale, k_scale, v_scale
+        q, k, v, meta.page_table, meta.seq_lens, sm_scale, k_scale, v_scale,
+        logit_cap, sliding_window,
     )
 
 
 def extend_attention_plain(
-    q: torch.Tensor, kv: KVCache, layer_idx: int, meta: ForwardMeta, *, sm_scale: float
+    q: torch.Tensor,
+    kv: KVCache,
+    layer_idx: int,
+    meta: ForwardMeta,
+    *,
+    sm_scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     return paged_extend_attention_plain(
-        q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale, k_scale, v_scale
+        q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale, k_scale, v_scale,
+        logit_cap, sliding_window,
     )

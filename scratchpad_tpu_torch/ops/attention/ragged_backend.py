@@ -15,6 +15,12 @@ at ``[cu_q_lens[s], cu_q_lens[s+1])``; its query i attends kv positions
 ``[0, kv_lens[s] - q_len_s + i]`` (causal, aligned to the tail of the
 cache). Tokens past ``cu_q_lens[B]`` are batch padding and come out as
 zeros. ``sm_scale`` is applied once, inside.
+
+The bundled kernel's ``soft_cap`` and ``sliding_window`` (``ragged_backend.py
+:98-99``) follow ``xla_backend.extend_attention_xla``: the score is ``cap *
+tanh(s / cap)``, and the query at position ``p`` attends ``p - W < j <= p``.
+The kernel starts each tile's KV loop at the window of its first query and
+masks each query row on its own inside it.
 """
 
 from __future__ import annotations
@@ -26,23 +32,30 @@ import torch
 
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta
 from scratchpad_tpu_torch.memory.kv_cache import KVCache
-from scratchpad_tpu_torch.ops.attention.gqa_decode import CODE_TYPES, check_pages, gather_kv_rows
+from scratchpad_tpu_torch.ops.attention.gqa_decode import (
+    CODE_TYPES,
+    check_pages,
+    gather_kv_rows,
+    mask_args,
+    softcap,
+)
 from scratchpad_tpu_torch.utils import native
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "paged_extend_attention": (
-        [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+        [_P] * 9 + [_I] * 8 + [ctypes.c_float, ctypes.c_float, _I, _P],
         ctypes.c_int,
     ),
     "paged_extend_attention_quant": (
-        [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
+        [_P] * 11 + [_I] * 9 + [ctypes.c_float, ctypes.c_float, _I, _P],
         ctypes.c_int,
     ),
     "paged_extend_tokens_per_tile": ([_I], ctypes.c_int),
 }
 MAX_GROUP = 64  # a tile holds 64 (token, head) rows
+QUERY_BLOCK = 1024  # query rows the plain version scores at a time
 
 
 def paged_extend_attention_plain(
@@ -55,9 +68,14 @@ def paged_extend_attention_plain(
     sm_scale: float,
     k_scale: Optional[torch.Tensor] = None,  # [pages, ps, Hkv] for 8-bit pages
     v_scale: Optional[torch.Tensor] = None,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """One sequence at a time: gather its live pages (dequantized in f32
-    for 8-bit pages), attend in f32 under the tail-aligned causal mask."""
+    for 8-bit pages), attend in f32 under the tail-aligned causal mask and
+    the window, ``QUERY_BLOCK`` queries at a time (a long prompt's score
+    tensor would not fit the card otherwise)."""
+    mask_args(logit_cap, sliding_window)
     T, Hq, D = q.shape
     _, ps, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -73,13 +91,18 @@ def paged_extend_attention_plain(
         slots = page_table[s].long()[pos // ps] * ps + pos % ps
         k = gather_kv_rows(k_cache, k_scale, slots)  # [S, Hkv, D]
         v = gather_kv_rows(v_cache, v_scale, slots)
-        qs = q[cu[s] : cu[s + 1]].float().reshape(q_len, Hkv, G, D) * sm_scale
-        scores = torch.einsum("thgd,shd->hgts", qs, k)
-        q_pos = kv_len - q_len + torch.arange(q_len, device=q.device)
-        causal = pos[None, :] <= q_pos[:, None]  # [t, S]
-        p = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
-        o = torch.einsum("hgts,shd->thgd", p, v).reshape(q_len, Hq, D)
-        out[cu[s] : cu[s + 1]] = o.to(q.dtype)
+        for i0 in range(0, q_len, QUERY_BLOCK):
+            n = min(QUERY_BLOCK, q_len - i0)
+            t0 = cu[s] + i0
+            qs = q[t0 : t0 + n].float().reshape(n, Hkv, G, D) * sm_scale
+            scores = softcap(torch.einsum("thgd,shd->hgts", qs, k), logit_cap)
+            q_pos = kv_len - q_len + i0 + torch.arange(n, device=q.device)
+            live = pos[None, :] <= q_pos[:, None]  # [t, S]
+            if sliding_window is not None:
+                live &= pos[None, :] > q_pos[:, None] - sliding_window
+            p = torch.softmax(scores.masked_fill(~live, float("-inf")), dim=-1)
+            o = torch.einsum("hgts,shd->thgd", p, v).reshape(n, Hq, D)
+            out[t0 : t0 + n] = o.to(q.dtype)
     return out
 
 
@@ -113,9 +136,11 @@ def _check(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens
         raise ValueError("page_table must be [B, P], kv_lens [B], cu_q_lens [B + 1]")
 
 
-def _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale):
+def _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale,
+            logit_cap, sliding_window):
     """Check the inputs, build the tile map and launch the kernel: the bf16
     entry point without scales, the 8-bit one with them."""
+    cap, window = mask_args(logit_cap, sliding_window)
     _check(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens)
     lib = native.load("paged_extend_attention", _SIGNATURES)
     T, Hq, D = q.shape
@@ -131,11 +156,11 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_len
     )
     stream = native.stream_handle(q.device)
     if k_scale is None:
-        rc = lib.paged_extend_attention(*head, *tail, float(sm_scale), stream)
+        rc = lib.paged_extend_attention(*head, *tail, float(sm_scale), cap, window, stream)
     else:
         rc = lib.paged_extend_attention_quant(
             *head, k_scale.data_ptr(), v_scale.data_ptr(), *tail,
-            CODE_TYPES[k_cache.dtype], float(sm_scale), stream,
+            CODE_TYPES[k_cache.dtype], float(sm_scale), cap, window, stream,
         )
     if rc != 0:
         kind = "bf16" if k_scale is None else str(k_cache.dtype)
@@ -151,17 +176,23 @@ def paged_extend_attention(
     kv_lens: torch.Tensor,
     cu_q_lens: torch.Tensor,
     sm_scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """out [T, Hq, D] for the flat ragged batch over bf16 pages (see the
     module docstring and ``csrc/paged_extend_attention.cu``)."""
     native.check_same_device(q, k_cache, v_cache, page_table, kv_lens, cu_q_lens)
     if q.device.type == "cpu":
         return paged_extend_attention_plain(
-            q, k_cache, v_cache, page_table, kv_lens, cu_q_lens, sm_scale
+            q, k_cache, v_cache, page_table, kv_lens, cu_q_lens, sm_scale,
+            logit_cap=logit_cap, sliding_window=sliding_window,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_extend_attention: unsupported device {q.device}")
-    out = _launch(q, k_cache, v_cache, None, None, page_table, kv_lens, cu_q_lens, sm_scale)
+    out = _launch(
+        q, k_cache, v_cache, None, None, page_table, kv_lens, cu_q_lens, sm_scale,
+        logit_cap, sliding_window,
+    )
     paged_extend_attention.launches += 1
     return out
 
@@ -179,6 +210,8 @@ def paged_extend_attention_quant(
     kv_lens: torch.Tensor,
     cu_q_lens: torch.Tensor,
     sm_scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """``paged_extend_attention`` over 8-bit pages: the kernel dequantizes
     each K/V element with its (token, head) scale as it stages the tile."""
@@ -187,11 +220,15 @@ def paged_extend_attention_quant(
     )
     if q.device.type == "cpu":
         return paged_extend_attention_plain(
-            q, k_cache, v_cache, page_table, kv_lens, cu_q_lens, sm_scale, k_scale, v_scale
+            q, k_cache, v_cache, page_table, kv_lens, cu_q_lens, sm_scale, k_scale, v_scale,
+            logit_cap, sliding_window,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_extend_attention_quant: unsupported device {q.device}")
-    out = _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale)
+    out = _launch(
+        q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale,
+        logit_cap, sliding_window,
+    )
     paged_extend_attention_quant.launches += 1
     return out
 
@@ -206,13 +243,17 @@ def attention_ragged(
     meta: ForwardMeta,
     *,
     sm_scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """Model-facing extend attention over one layer of the pool."""
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     if k_scale is None:
         return paged_extend_attention(
-            q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale
+            q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale,
+            logit_cap, sliding_window,
         )
     return paged_extend_attention_quant(
-        q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale
+        q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale,
+        logit_cap, sliding_window,
     )

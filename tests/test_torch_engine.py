@@ -204,6 +204,8 @@ def test_extend_runs_unpadded_and_decode_pads_to_buckets(engines):
     "setting",
     [
         dict(attention_backend="plain"),
+        dict(attention_backend="ragged"),
+        dict(attention_backend="xla"),
         dict(speculative_algorithm="ngram"),
         dict(quantization="fp8"),
         dict(enable_param_offload=True),

@@ -16,7 +16,11 @@ held to the plain version's f32 dequantize-then-attend at the same
 tolerance, and the KV quantizer on the card to itself on the CPU, bit for
 bit. The grouped delta kernel is held to its plain version's f32 sum on the
 rows of delta slots, and every other row must come out bit-equal to the
-input.
+input. The attention kernels with a soft cap and a static sliding window are
+held to their plain versions at Mistral-7B's shape (G 4, head_dim 128) at
+the same tolerance, over bf16, int8 and fp8 pages, the window's edge inside
+a page and inside a 64-token KV tile; a window at least as long as the
+context gives the kernel's no-window output bit for bit.
 """
 
 import math
@@ -25,7 +29,10 @@ import numpy as np
 import pytest
 import torch
 
+from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
+from scratchpad_tpu_torch.memory.kv_cache import KVCache
 from scratchpad_tpu_torch.ops.attention import (
+    decode_attention_pallas,
     paged_decode_attention,
     paged_decode_attention_plain,
     paged_decode_attention_quant,
@@ -223,6 +230,126 @@ def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(gen):
             fn(q.float(), kc, vc, ks, vs)
     with pytest.raises(ValueError):  # group 9 at decode
         dec(torch.randn(1, 18, 64, device="cuda").to(torch.bfloat16), kc, vc, ks, vs)
+
+
+# (logit_cap, sliding_window) of the windowed checks: edges mid-page (1000),
+# on a page edge (4096), a window of one token
+CAPS_WINDOWS = [(50.0, None), (None, 4096), (None, 1000), (30.0, 1000), (None, 1)]
+CODE_DTYPES = {"bf16": None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _capped(q, cap):
+    """q scaled up for a capped case, so that scores reach the cap (unit q
+    and K give N(0, 1) scores, which a cap of 30 hardly moves)."""
+    return q if cap is None else (q.float() * 8.0).to(q.dtype)
+
+
+def _pages(kind, k, v):
+    if CODE_DTYPES[kind] is None:
+        return k, v, None, None
+    return _quantized(k, v, CODE_DTYPES[kind])
+
+
+def _decode(q, k, v, ks, vs, pt, seq, scale, cap, window):
+    if ks is None:
+        return paged_decode_attention(q, k, v, pt, seq, scale, cap, window)
+    return paged_decode_attention_quant(q, k, v, ks, vs, pt, seq, scale, cap, window)
+
+
+def _extend(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window):
+    if ks is None:
+        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale, cap, window)
+    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window)
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+@pytest.mark.parametrize("cap, window", CAPS_WINDOWS)
+def test_windowed_decode_kernel_matches_plain(gen, kind, cap, window):
+    """Mistral-7B's decode shape (Hq 32, Hkv 8, D 128), contexts past and
+    inside the window, a padding row."""
+    Hkv, G, D, ps = 8, 4, 128, 16
+    lens = [8192, 0, 1000, 4097, 1]
+    k, v, pt = _pool(lens, Hkv, D, ps, gen)
+    k, v, ks, vs = _pages(kind, k, v)
+    q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    q = _capped(q, cap)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(D)
+    out = _decode(q, k, v, ks, vs, pt, seq, scale, cap, window)
+    _close(out, paged_decode_attention_plain(q.float(), k, v, pt, seq, scale, ks, vs, cap, window))
+    assert bool((out[seq == 0] == 0).all())
+
+
+def _windowed_extend_case(Hkv, D, G, gen):
+    # a 2048-token chunk on 6,000 cached tokens; chunks whose window edge
+    # falls inside a query tile and a page; a fresh prompt; padding tokens
+    chunks = [(2048, 8048), (100, 1100), (37, 1037), (0, 0), (300, 300)]
+    k, v, pt = _pool([c[1] for c in chunks], Hkv, D, 16, gen)
+    q_lens = torch.tensor([c[0] for c in chunks], device="cuda")
+    cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
+    cu[1:] = torch.cumsum(q_lens, 0).to(torch.int32)
+    kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
+    T = int(cu[-1]) + 29
+    q = torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    return q, k, v, pt, kv_lens, cu
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+@pytest.mark.parametrize("cap, window", CAPS_WINDOWS)
+def test_windowed_extend_kernel_matches_plain(gen, kind, cap, window):
+    q, k, v, pt, kv_lens, cu = _windowed_extend_case(8, 128, 4, gen)
+    q = _capped(q, cap)
+    k, v, ks, vs = _pages(kind, k, v)
+    scale = 1 / math.sqrt(128)
+    out = _extend(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window)
+    ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, scale, ks, vs, cap, window)
+    _close(out, ref)
+    assert bool((out[int(cu[-1]) :] == 0).all())
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+def test_window_past_the_context_changes_nothing(gen, kind):
+    """A window at least as long as every context gives the no-window
+    kernels' output bit for bit."""
+    q, k, v, pt, kv_lens, cu = _windowed_extend_case(8, 128, 4, gen)
+    k, v, ks, vs = _pages(kind, k, v)
+    for window in (8048, 1 << 30):
+        a = _extend(q, k, v, ks, vs, pt, kv_lens, cu, 0.1, None, None)
+        b = _extend(q, k, v, ks, vs, pt, kv_lens, cu, 0.1, None, window)
+        assert torch.equal(a, b)
+        qd = q[: kv_lens.shape[0]].contiguous()  # one query a sequence
+        a = _decode(qd, k, v, ks, vs, pt, kv_lens, 0.1, None, None)
+        b = _decode(qd, k, v, ks, vs, pt, kv_lens, 0.1, None, window)
+        assert torch.equal(a, b)
+
+
+def test_pallas_decode_wrapper_matches_plain(gen):
+    """Row 9's wrapper at its JAX test's shape (B 4, Hq 8, Hkv 2, D 64,
+    page 16), cap 30 and window 8, a padding row: the decode kernel through
+    ``decode_attention_pallas``, which counts its own launch; an 8-bit pool
+    raises."""
+    lens = [200, 0, 37, 255]
+    k, v, pt = _pool(lens, 2, 64, 16, gen)
+    q = _capped(torch.randn(4, 8, 64, generator=gen, device="cuda").to(torch.bfloat16), 30.0)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    rows = torch.arange(4, device="cuda")
+    meta = ForwardMeta(
+        mode=ForwardMode.DECODE, tokens=rows, positions=rows, out_cache_loc=rows,
+        req_indices=rows, page_table=pt, seq_lens=seq, extend_lens=torch.ones_like(seq),
+        last_token_idx=rows,
+    )
+    before = (decode_attention_pallas.launches, paged_decode_attention.launches)
+    out = decode_attention_pallas(q, KVCache(k[None], v[None]), 0, meta, sm_scale=0.125,
+                                  logit_cap=30.0, sliding_window=8)
+    assert (decode_attention_pallas.launches, paged_decode_attention.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    _close(out, paged_decode_attention_plain(q.float(), k, v, pt, seq, 0.125, None, None, 30.0, 8))
+    assert bool((out[1] == 0).all())
+    kc, vc, ks, vs = _quantized(k, v, torch.int8)
+    with pytest.raises(TypeError):
+        decode_attention_pallas(q, KVCache(kc[None], vc[None], ks[None], vs[None]), 0, meta,
+                                sm_scale=0.125)
 
 
 # (In, Out) -> quantize_stacked's group: 128; 120 (GPT-OSS's half-plane

@@ -29,6 +29,7 @@ from scratchpad_tpu_torch.executor.weight_loader import params_from_jax
 from scratchpad_tpu_torch.memory.kv_cache import KVCacheConfig, create_kv_cache
 from scratchpad_tpu_torch.models.common import compute_inv_freq
 from scratchpad_tpu_torch.models.llama import LlamaForCausalLM
+from scratchpad_tpu_torch.ops.attention import attention_functions
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 PS = 4
@@ -58,9 +59,11 @@ class Pair:
     runner does (``quantize_model_params(fuse_gate_up=True)`` and a 4-bit
     head, ``lm_head_q``) and its model gets the runner's matmul; the port
     loads the same codes through ``params_from_jax``. ``kv_dtype`` (int8 |
-    fp8) gives both models 8-bit KV pools with per-(token, head) scales."""
+    fp8) gives both models 8-bit KV pools with per-(token, head) scales.
+    ``backend``: the port model's attention functions, as the runner sets
+    them for that ``attention_backend``."""
 
-    def __init__(self, overrides, num_pages=64, quantization=None, kv_dtype=None):
+    def __init__(self, overrides, num_pages=64, quantization=None, kv_dtype=None, backend="auto"):
         self.jcfg = jax_get_preset("tiny-debug", dtype="float32", **overrides)
         self.cfg = get_preset("tiny-debug", dtype="float32", **overrides)
         self.jmodel = JaxLlama(self.jcfg)
@@ -78,6 +81,7 @@ class Pair:
             quantization=quantization, quantize_lm_head=quantization is not None,
         )
         self.model.load_state_dict(params_from_jax(params_np, self.cfg))
+        self.model.decode_attention, self.model.extend_attention = attention_functions(backend)
         L, Hkv, D = self.cfg.num_hidden_layers, self.cfg.num_kv_heads, self.cfg.head_dim
         jax_codes = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn}
         codes = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
