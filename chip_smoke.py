@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero before the last line:
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA
    device is a failure.
 2. build: compiles every CUDA kernel of the port from ``scratchpad_tpu_torch/
-   csrc`` with ``nvcc`` for sm_90a, one ``nvcc`` per source, in parallel.
+   csrc`` with ``nvcc`` for sm_90a, one ``nvcc`` per source, in parallel,
+   and with them the decode kernel's four stage variants (``-DSPTPU_DECODE_
+   STAGE=1, 2, 3, 5``, variant libraries of the same source).
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs (the plain version computes and returns f32). Attention, on
    bf16 pages and on int8 and fp8 (e4m3) pages with per-(token, head) bf16
@@ -36,7 +38,18 @@ Phases, in order; any failure exits non-zero before the last line:
    at its JAX test's shape with cap 30 and W 8, and at Mistral-7B's. Tolerance:
    |kernel - plain| <= ATOL + RTOL * |plain| elementwise (see below);
    padding and zero rows must come out as exact zeros, and rows outside a
-   delta slot bit-equal to the delta kernel's input.
+   delta slot bit-equal to the delta kernel's input. The decode ablation
+   probe (``decode_ablate``, the port of ``_ablate.py::make_kernel``) in all
+   five modes at the JAX probe's shape (B 64, Hkv 8, page 16, 16-page
+   chunks) at ctx 192 and 1000 (chunk and page edges inside the rows), with
+   rows of 0 and 1 tokens, at G 3 and 4 and Dp 64 and 128: its ``out``
+   within one bf16 ulp of the plain version's, its ``aux`` with ``m``
+   exact and ``l`` and the checksum within ATOL + 2**-12 * |plain|
+   (``aux_tolerance``: aux is f32, never rounded to bf16). The decode
+   kernel's stage cuts (1, 2, 3 and 5) against their plain functions
+   (``gqa_decode.py::paged_decode_attention_stage_plain``) at each shape
+   the stage table times (Llama-3.2-1B's, 3B's and Mistral-7B's decode at
+   B 64, ctx 4096), within ATOL + RTOL * |plain|.
 4. engines: ``Engine.generate`` at full width and depth with random
    weights: Llama-3.2-1B in bf16, then with ``quantization="w4a8"``, then
    W4A16 on the same engine and codes (every ``QuantLinear`` switched to
@@ -79,7 +92,9 @@ Phases, in order; any failure exits non-zero before the last line:
    with 128-token prompts and 128 new tokens, and the device's busy share
    of its decode steps: device time per step over three decode windows
    of a profiled run (``torch.profiler``) against the timed run's wall per
-   step.
+   step; the trace of those windows, exported and read back by
+   ``tools/analyze_trace.py``, gives ``[profile <label>]`` lines of device
+   time by category and the top 5 ops.
    Phases 3 and 4 record a failed check and go on, so that a faulty
    kernel still shows every reading; the script exits non-zero after
    phase 4 if any check failed.
@@ -97,7 +112,15 @@ Phases, in order; any failure exits non-zero before the last line:
    wrappers), the 2048-token extend chunk on 4096, 5120 and 8192 tokens
    without a window and on 8192 with it; the bound counts the live window
    only, the library call masks the window. And the host's microseconds per
-   ``write_kv`` call into a bf16, int8 and fp8 pool.
+   ``write_kv`` call into a bf16, int8 and fp8 pool. Then the
+   kernel-profiling entry point, this slice's main path:
+   ``tools/decode_ablate.py``'s ``main`` with its defaults, every launch
+   count set to 0 just before and read just after; the probe must launch in
+   every mode, 16 layers a chain, and the stage cuts and the decode kernel
+   must launch. It prints the mode table (each mode's ms per 16 chained
+   layers at the JAX probe's shape, its plain version's and its bounds) and
+   the stage table (each cut's ms at the 1B, 3B and 7B decode shapes beside
+   the full decode's bound).
 6. one JSON line with every kernel's numbers, one with the engines', the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -108,16 +131,16 @@ from __future__ import annotations
 import gc
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+from scratchpad_tpu_torch.tools.timing import BF16_FLOPS, bound_ms, device_ms
+
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-BF16_FLOPS = 989e12  # H100 SXM, dense
-INT8_OPS = 1979e12  # H100 SXM, dense
+# H100 SXM, dense (the memory rate and the bf16 rate are in tools/timing.py)
+INT8_OPS = 1979e12
 # Kernel vs plain version. Every kernel accumulates in f32 and rounds only
 # its output to bf16, which moves a value by at most 2**-8 of itself; ATOL
 # covers the order of the f32 sums. A kernel that drops one page of a
@@ -285,37 +308,6 @@ def max_err(out, ref) -> tuple[float, float]:
     return float(d.max()), float(ratio.max())
 
 
-def device_ms(fn, n_layers: int, iters: int, reps: int = 5) -> float:
-    """Median device milliseconds per call. A sleep kernel holds the stream
-    while the host enqueues ``iters`` calls, so the events time the device
-    work back to back and not the host's launch rate. Calls cycle over
-    ``n_layers`` buffers so that, as on the main path, the data does not
-    stay in the 50 MB L2 cache between calls."""
-    import torch
-
-    for i in range(3):
-        fn(i % n_layers)
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)  # ~0.1 s at H100 clocks
-        start.record()
-        for i in range(iters):
-            fn(i % n_layers)
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / iters)
-    return statistics.median(samples)
-
-
-def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / peak * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
 # ------------------------------------------------------------ phase 1 & 2
 
 
@@ -344,10 +336,11 @@ def phase_device():
 
 
 def phase_build():
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import DECODE_STAGE_TARGETS
     from scratchpad_tpu_torch.utils import native
 
     t0 = time.monotonic()
-    report = native.build()
+    report = native.build(native.KERNEL_SOURCES + DECODE_STAGE_TARGETS)
     for name, r in report.items():
         log(f"[build] {name}: {r['seconds']:.1f} s")
         for line in r["log"].splitlines():
@@ -844,6 +837,105 @@ def check_delta(errs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def bf16_ulp_err(out, ref) -> tuple[float, float]:
+    """max |out - ref| of two bf16 tensors and its largest ratio to one bf16
+    ulp of ``ref`` (<= 1 passes)."""
+    import torch
+
+    r = ref.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r)[1] - 8)
+    d = (out.float() - r).abs()
+    return float(d.max()), float((d / ulp).max())
+
+
+def check_decode_ablate(errs: dict) -> None:
+    """Row 10, the decode ablation probe, against its plain version in all
+    five modes: B 64, Hkv 8, page 16, 16-page chunks, at the JAX probe's ctx
+    192 and at ctx 1000 (4 chunks, edges inside the rows), rows of up to
+    ctx tokens with one of 0 and one of 1; G 3 and 4, Dp 64 and 128, over a
+    random pool and page table. ``out`` within one bf16 ulp, ``aux`` within
+    ``aux_tolerance`` (m exact); one launch a call."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import decode_ablate, decode_ablate_plain
+    from scratchpad_tpu_torch.ops.attention.decode_ablate import MODES, aux_tolerance
+
+    B, Hkv, ps, CP = 64, 8, 16, 16
+    seed = 14_000
+    for ctx in (192, 1000):
+        for G in (3, 4):
+            for Dp in (64, 128):
+                seed += 1
+                gen = seeded(seed)
+                P = -(-ctx // (CP * ps)) * CP
+                pages = B * P + 1
+                kv = torch.randn(pages, ps, 2 * Hkv, Dp, generator=gen, device="cuda").to(torch.bfloat16)
+                pt = torch.randint(0, pages, (B, P), generator=gen, device="cuda", dtype=torch.int32)
+                q = torch.randn(B, Hkv * G, Dp, generator=gen, device="cuda").to(torch.bfloat16)
+                lens = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
+                lens[0], lens[1], lens[2] = ctx, 0, 1
+                lens = lens.to(torch.int32)
+                for mode in MODES:
+                    before = decode_ablate.launches
+                    out, aux = decode_ablate(q, kv, pt, lens, mode)
+                    counted = decode_ablate.launches - before
+                    ref_out, ref_aux = decode_ablate_plain(q, kv, pt, lens, mode)
+                    torch.cuda.synchronize()
+                    e, ulps = bf16_ulp_err(out, ref_out)
+                    tol = aux_tolerance(ref_aux, mode, ATOL)
+                    d = (aux - ref_aux).abs()
+                    m_exact = bool((d[..., 0] == 0).all())
+                    aux_ratio = float((d[..., 1:] / tol[..., 1:]).max())
+                    errs["decode_ablate"] = max(errs["decode_ablate"], e)
+                    log(
+                        f"[check] decode_ablate {mode} ctx={ctx} G={G} Dp={Dp}: out max_abs_err "
+                        f"{e:.3e} ({ulps:.2f} bf16 ulp), aux m exact: {m_exact}, aux l/checksum "
+                        f"max err/tol {aux_ratio:.3f}, launches counted: {counted}"
+                    )
+                    check(ulps <= 1 and m_exact and aux_ratio <= 1 and counted == 1,
+                          f"decode_ablate {mode} disagrees with its plain version at ctx={ctx} "
+                          f"G={G} Dp={Dp}")
+                del kv
+    torch.cuda.empty_cache()
+
+
+def check_decode_stages() -> None:
+    """The decode kernel's stage cuts (variant libraries: stages 1, 2, 3 and
+    5) against their plain functions at every shape the stage table times
+    (``tools/decode_ablate.STAGE_SHAPES``: Llama-3.2-1B, 3B and Mistral-7B):
+    B 64, ctx 4096, page 16, Hkv 8, lengths down to 2048 and one padding
+    row."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import (
+        DECODE_STAGES,
+        paged_decode_attention_stage,
+        paged_decode_attention_stage_plain,
+    )
+    from scratchpad_tpu_torch.tools.decode_ablate import STAGE_SHAPES
+
+    for label, (G, D) in STAGE_SHAPES.items():
+        gen = seeded(15_000 + G + D)
+        lens = torch.randint(2048, 4097, (64,), generator=gen, device="cuda")
+        lens[0], lens[1] = 4096, 0
+        lens = lens.to(torch.int32)
+        k, v, pt = make_pool(lens.tolist(), 8, D, 16, 1, gen)
+        q = torch.randn(64, 8 * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+        scale = 1.0 / math.sqrt(D)
+        for stage in (s for s in DECODE_STAGES if s != 4):
+            out = paged_decode_attention_stage(stage, q, k[0], v[0], pt, lens, scale)
+            ref = paged_decode_attention_stage_plain(stage, q, k[0], v[0], pt, lens, scale)
+            torch.cuda.synchronize()
+            e, ratio = max_err(out, ref)
+            zero = bool((out[lens == 0] == 0).all())
+            log(f"[check] decode stage {stage} {label} G={G} D={D} B=64 ctx=4096: max_abs_err "
+                f"{e:.3e}, max err/tol {ratio:.3f}, zero rows exact: {zero}")
+            check(ratio <= 1 and zero,
+                  f"decode stage {stage} disagrees with its plain function at {label}")
+        del k, v
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------- phase 5 (kernels)
 
 
@@ -1302,6 +1394,43 @@ def phase_timing() -> dict:
     for D in (128, 64):
         time_kv_write(D)
     return t
+
+
+def phase_profiling_tools() -> dict:
+    """This slice's main path: the kernel-profiling entry point,
+    ``tools/decode_ablate.py``'s ``main`` with its defaults, every launch
+    count set to 0 just before and read just after. Returns its rows, the
+    launch counts and the number of 16-layer chains it ran."""
+    from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS, reset_launch_counts
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import paged_decode_attention_stage
+    from scratchpad_tpu_torch.tools import decode_ablate as tool
+
+    reset_launch_counts()
+    paged_decode_attention_stage.launches = 0
+    t = time.monotonic()
+    rows = tool.main([])
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    counts["decode_stage"] = paged_decode_attention_stage.launches
+    log(f"[probe] tools/decode_ablate.py main: {time.monotonic() - t:.1f} s, launches {counts}")
+    modes = [r for r in rows if r["table"] == "mode"]
+    stages = [r for r in rows if r["table"] == "stage"]
+    check(len(modes) == 5 and counts["decode_ablate"] >= 5 * 16,
+          f"the probe ran {len(modes)} modes with {counts['decode_ablate']} launches")
+    check(counts["decode_stage"] > 0 and counts["paged_decode_attention"] > 0,
+          f"the stage table launched the cuts {counts['decode_stage']} times and the decode kernel "
+          f"{counts['paged_decode_attention']} times")
+    for r in modes:
+        log(
+            f"[probe] {r['mode']:12s} {r['ms']:.4f} ms per {r['layers']} layers, "
+            f"{r['ms_per_call']:.4f} ms a call; bound {r['bound_ms']:.4f} ms (live rows), "
+            f"{r['bound_chunk_ms']:.4f} ms (chunk-padded); plain {r['plain_ms']:.4f} ms a call"
+        )
+    for r in stages:
+        log(
+            f"[stage] {r['model']} {r['shape']} stage {r['stage']} ({r['what']}): {r['ms']:.4f} ms, "
+            f"{r['ms_over_bound']:.2f}x the decode's bound {r['bound_ms']:.4f} ms"
+        )
+    return {"rows": rows, "counts": counts}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1806,12 +1935,15 @@ def phase_engine_times(engine, eng: dict, label: str, toppings: bool = False) ->
     per engine to digest) against the wall per step of the timed run. The
     profiler slows the host several times over, so the profiled window's
     own wall is logged but not used."""
+    import tempfile
+
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+    from scratchpad_tpu_torch.tools import analyze_trace
 
     runner = engine.scheduler.runner
     dec_time = [0.0]
@@ -1894,6 +2026,14 @@ def phase_engine_times(engine, eng: dict, label: str, toppings: bool = False) ->
         )
         for key, t in sorted(rows, key=lambda r: -r[1])[:12]:
             log(f"[profile {label}]   {t / 1e3:9.2f} ms  {key[:100]}")
+        # the same windows' trace, by category (tools/analyze_trace.py)
+        with tempfile.TemporaryDirectory() as d:
+            path = Path(d) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            r = analyze_trace.rollup(analyze_trace.load_events(path))
+        eng["trace_by_category_ms"] = {c: us / 1e3 for c, us in r["by_category"].items()}
+        for line in analyze_trace.report(r, top=5):
+            log(f"[profile {label}] {line}")
     else:
         eng["device_busy_share"] = eng["device_ms_per_step"] = None
         log(f"[profile {label}] the profiler recorded no device time: busy share not measured")
@@ -1958,6 +2098,11 @@ KERNELS = {
         source="scratchpad_tpu_torch/csrc/paged_decode_attention.cu",
         replaces="scratchpad_tpu/ops/attention/pallas_decode.py:34 (_decode_kernel, launched :177)",
     ),
+    "decode_ablate": dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/decode_ablate.cu",
+        replaces="tools/profiling/_ablate.py:11 (make_kernel, launched :106)",
+    ),
 }
 # the engine run whose launches each kernel's entry reports
 KERNEL_ENGINE = {
@@ -1990,6 +2135,8 @@ def main() -> None:
     check_kv_quantizer()
     check_w4(errs)
     check_delta(errs)
+    check_decode_ablate(errs)
+    check_decode_stages()
     # the timed runs follow each engine's checks, and only while every
     # check holds: a faulty tree shows all its readings, quickly
     engines = {}
@@ -2077,16 +2224,30 @@ def main() -> None:
     timing.update({k: [v] for k, v in phase_w4_timing()["per_forward"].items()})
     delta = phase_delta_timing()
     timing["delta_matmul_grouped"] = [delta[1], delta[3]]
+    probe = phase_profiling_tools()
+    if FAILURES:
+        fail(f"{len(FAILURES)} correctness checks failed; the first: {FAILURES[0]}")
+    full = next(r for r in probe["rows"] if r.get("mode") == "full")
+    timing["decode_ablate"] = [dict(
+        ms=full["ms_per_call"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
+        bound_by=full["bound_by"], library_ms=None,  # no one PyTorch call computes the statistic
+        shape="full mode, " + full["shape"],
+    )]
     kernels = []
     for kname, meta in KERNELS.items():
         main_shape = timing[kname][0]  # the other rows are in the [time] lines
-        eng = engines[KERNEL_ENGINE[kname]]
+        if kname == "decode_ablate":  # on no serving path: the probe's run
+            counts, per_forward = probe["counts"], None
+        else:
+            eng = engines[KERNEL_ENGINE[kname]]
+            counts = eng["counts"]
+            per_forward = eng["counts"][kname] / max(eng["steps"][kname], 1)
         kernels.append(
             dict(
                 name=kname,
                 **meta,
-                launches=eng["counts"][kname],
-                launches_per_forward=eng["counts"][kname] / max(eng["steps"][kname], 1),
+                launches=counts[kname],
+                launches_per_forward=per_forward,
                 max_abs_err=errs[kname],
                 ms=main_shape["ms"],
                 plain_ms=main_shape["plain_ms"],

@@ -57,6 +57,27 @@
 //     softmax state in f32, and the warps merge through shared memory.
 // Not done yet (later work): a split over the KV axis for small B at long
 // context (at B = 1 only Hkv CTAs run), wider vector loads, tensor cores.
+//
+// Stage cuts, for the decode ablation tool (tools/decode_ablate.py). Built
+// with -DSPTPU_DECODE_STAGE=1, 2 or 3, the token loop stops after
+//   1  the K and V row loads,
+//   2  the loads, the per-token dot and its warp_sum,
+//   3  all that, the cap and the online softmax;
+// with 5, it runs the whole kernel and carries the cuts' V sum as well.
+// `out` holds a checksum of that work over the row's n live tokens t, so
+// that no stage is optimised away (gqa_decode.py's
+// paged_decode_attention_stage_plain defines it):
+//   1  out[g][d] = sum_t (|K[t][d]| + |V[t][d]|)
+//   2  out[g][d] = sum_t |s_g(t)| + sum_t |V[t][d]|
+//   3  out[g][d] = |m_g| + (sum_t |V[t][d]|) / l_g
+//   5  out[g][d] = decode[g][d] + (sum_t |V[t][d]|) / n
+// the warps merging by sums (in 3, m and l by the softmax merge). Sums of
+// magnitudes cannot cancel, so a tolerance relative to the value holds their
+// rounding; the absolute values cost nothing (an operand modifier). Stage 4,
+// the default, is the full kernel: the production build, whose code the cuts
+// leave as it is. Stage 5 less stage 4 is what the V sum itself costs. A cut
+// instantiates only what the tool launches: bf16 pages, G 3 and 4, D 64 and
+// 128; its 8-bit entry point refuses.
 
 #include <cmath>
 #include <type_traits>
@@ -66,7 +87,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef SPTPU_DECODE_STAGE
+#define SPTPU_DECODE_STAGE 4
+#endif
+
 namespace {
+
+constexpr int kStage = SPTPU_DECODE_STAGE;
+static_assert(kStage >= 1 && kStage <= 5, "SPTPU_DECODE_STAGE must be 1 to 5");
 
 constexpr int kWarps = 4;
 constexpr int kUnroll = 4;
@@ -179,6 +207,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
+  float vsum[EPL], ssum[G];  // the stage cuts' checksums
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) vsum[e] = 0.f;
+#pragma unroll
+  for (int g = 0; g < G; ++g) ssum[g] = 0.f;
 
   const int* pt = page_table + (size_t)b * max_pages;
   const size_t row_stride = (size_t)num_kv_heads * D;
@@ -206,23 +239,37 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (t0 + u < len) {  // uniform across the warp
+        if constexpr (kStage != 4) {
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          float s = 0.f;
+          for (int e = 0; e < EPL; ++e) {
+            vsum[e] += kStage == 1 ? fabsf(kx[u][e]) + fabsf(vx[u][e]) : fabsf(vx[u][e]);
+          }
+        }
+        if constexpr (kStage > 1) {
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) s += qv[g][e] * kx[u][e];
-          s = warp_sum(s);
-          if constexpr (kQuant) s *= sk[u];
-          if (logit_cap > 0.f) s = logit_cap * tanhf(s / logit_cap);  // uniform branch
-          const float m_new = fmaxf(m[g], s);
-          const float alpha = __expf(m[g] - m_new);
-          const float p = __expf(s - m_new);
-          l[g] = l[g] * alpha + p;
-          float pv = p;  // p' = p * s_v weighs the raw V codes
-          if constexpr (kQuant) pv *= sv[u];
+          for (int g = 0; g < G; ++g) {
+            float s = 0.f;
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * alpha + pv * vx[u][e];
-          m[g] = m_new;
+            for (int e = 0; e < EPL; ++e) s += qv[g][e] * kx[u][e];
+            s = warp_sum(s);
+            if constexpr (kQuant) s *= sk[u];
+            if constexpr (kStage == 2) {
+              ssum[g] += fabsf(s);
+            } else {
+              if (logit_cap > 0.f) s = logit_cap * tanhf(s / logit_cap);  // uniform branch
+              const float m_new = fmaxf(m[g], s);
+              const float alpha = __expf(m[g] - m_new);
+              const float p = __expf(s - m_new);
+              l[g] = l[g] * alpha + p;
+              if constexpr (kStage >= 4) {
+                float pv = p;  // p' = p * s_v weighs the raw V codes
+                if constexpr (kQuant) pv *= sv[u];
+#pragma unroll
+                for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * alpha + pv * vx[u][e];
+              }
+              m[g] = m_new;
+            }
+          }
         }
       }
     }
@@ -232,30 +279,80 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
   __shared__ float sm_acc[kWarps][G][D];
+#if SPTPU_DECODE_STAGE == 5
+  __shared__ float sm_v[kWarps][D];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int e = 0; e < EPL; ++e) sm_v[warp][lane * EPL + e] = vsum[e];
+#endif
+  if constexpr (kStage >= 4) {
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
+      if (lane == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+      const int g = i / D;
+      const int d = i % D;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+      float den = 0.f, num = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float sc = __expf(sm_m[w][g] - mx);  // 0 for a warp that saw no token
+        den += sm_l[w][g] * sc;
+        num += sm_acc[w][g][d] * sc;
+      }
+#if SPTPU_DECODE_STAGE == 5
+      float vs = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) vs += sm_v[w][d];
+      o[i] = __float2bfloat16(num / den + vs / static_cast<float>(len - first));
+#else
+      o[i] = __float2bfloat16(num / den);
+#endif
+    }
+  } else {
+    // a stage cut's checksum: the V (or K + V) sums in sm_acc[w][0], the
+    // score sums (2) or the softmax state (3) in sm_m, sm_l
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) sm_acc[warp][0][lane * EPL + e] = vsum[e];
     if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int g = i / D;
-    const int d = i % D;
-    float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float sc = __expf(sm_m[w][g] - mx);  // 0 for a warp that saw no token
-      den += sm_l[w][g] * sc;
-      num += sm_acc[w][g][d] * sc;
+      for (int g = 0; g < G; ++g) {
+        sm_m[warp][g] = kStage == 2 ? ssum[g] : m[g];
+        sm_l[warp][g] = l[g];
+      }
     }
-    o[i] = __float2bfloat16(num / den);
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+      [[maybe_unused]] const int g = i / D;  // stage 1's checksum is the same for every g
+      const int d = i % D;
+      float vs = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) vs += sm_acc[w][0][d];
+      float val = vs;
+      if constexpr (kStage == 2) {
+        float ss = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) ss += sm_m[w][g];
+        val = ss + vs;
+      } else if constexpr (kStage == 3) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+        float den = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) den += sm_l[w][g] * __expf(sm_m[w][g] - mx);
+        val = fabsf(mx) + vs / den;
+      }
+      o[i] = __float2bfloat16(val);
+    }
   }
 }
 
@@ -273,6 +370,7 @@ cudaError_t launch_for_d(int G, dim3 grid, cudaStream_t st, const __nv_bfloat16*
         window);                                                                          \
     break;
   switch (G) {
+#if SPTPU_DECODE_STAGE == 4
     SPT_DECODE_CASE(1)
     SPT_DECODE_CASE(2)
     SPT_DECODE_CASE(3)
@@ -281,6 +379,10 @@ cudaError_t launch_for_d(int G, dim3 grid, cudaStream_t st, const __nv_bfloat16*
     SPT_DECODE_CASE(6)
     SPT_DECODE_CASE(7)
     SPT_DECODE_CASE(8)
+#else
+    SPT_DECODE_CASE(3)
+    SPT_DECODE_CASE(4)
+#endif
     default:
       return cudaErrorInvalidValue;
   }
@@ -309,10 +411,12 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   auto* op = static_cast<__nv_bfloat16*>(out);
   cudaError_t err;
   switch (head_dim) {
+#if SPTPU_DECODE_STAGE == 4
     case 32:
       err = launch_for_d<32>(G, grid, st, qp, kp, vp, ksp, vsp, ptp, lp, op, num_kv_heads,
                              max_pages, page_size, sm_scale, logit_cap, window);
       break;
+#endif
     case 64:
       err = launch_for_d<64>(G, grid, st, qp, kp, vp, ksp, vsp, ptp, lp, op, num_kv_heads,
                              max_pages, page_size, sm_scale, logit_cap, window);
@@ -355,6 +459,9 @@ extern "C" int paged_decode_attention_quant(const void* q, const void* k_cache,
                                             int max_pages, int page_size, int code_type,
                                             float sm_scale, float logit_cap, int window,
                                             void* stream) {
+#if SPTPU_DECODE_STAGE != 4
+  return static_cast<int>(cudaErrorNotSupported);  // a stage cut: bf16 pages only
+#else
   switch (code_type) {
     case 0:
       return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, page_table, seq_lens, out,
@@ -367,4 +474,5 @@ extern "C" int paged_decode_attention_quant(const void* q, const void* k_cache,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }

@@ -4,9 +4,12 @@
 hand-written CUDA kernel; each carries a ``launches`` count, which it raises
 only where it launches its kernel. ``decode_attention_pallas`` launches the
 decode kernel through ``paged_decode_attention``, so both counts rise.
+``decode_ablate`` (the ablation probe) lies on no serving path; the
+kernel-profiling tool ``tools/decode_ablate.py`` launches it.
 """
 
 from scratchpad_tpu_torch.ops.attention import (
+    decode_ablate,
     decode_attention_pallas,
     paged_decode_attention,
     paged_decode_attention_quant,
@@ -30,6 +33,7 @@ KERNEL_WRAPPERS = (
     w4a16_matmul,
     delta_matmul_grouped,
     decode_attention_pallas,
+    decode_ablate,
 )
 
 

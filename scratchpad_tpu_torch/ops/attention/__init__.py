@@ -1,3 +1,4 @@
+from scratchpad_tpu_torch.ops.attention.decode_ablate import decode_ablate, decode_ablate_plain
 from scratchpad_tpu_torch.ops.attention.gqa_decode import (
     decode_attention_gqa,
     paged_decode_attention,
@@ -35,6 +36,8 @@ def attention_functions(backend: str):
 
 __all__ = [
     "attention_functions",
+    "decode_ablate",
+    "decode_ablate_plain",
     "attention_ragged",
     "decode_attention_gqa",
     "decode_attention_pallas",

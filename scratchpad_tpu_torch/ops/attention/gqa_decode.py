@@ -18,6 +18,11 @@ with ``s = sm_scale * q . k`` (for 8-bit pages, ``s`` already holds the K
 scale), and token ``j`` of a row of length ``L`` is live iff ``L - W <= j <
 L``. The kernel starts its token loop at ``max(L - W, 0)``, so it reads only
 the window.
+
+``paged_decode_attention_stage`` launches the kernel cut after a stage of its
+token loop (variant libraries of the same source), for the kernel-profiling
+tool ``tools/decode_ablate.py``; ``paged_decode_attention_stage_plain``
+defines what each cut writes.
 """
 
 from __future__ import annotations
@@ -187,6 +192,18 @@ def paged_decode_attention(
     cap, window = mask_args(logit_cap, sliding_window)
     _check(q, k_cache, v_cache, None, None, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES)
+    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: cudaError {rc}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window):
+    """Launch ``lib``'s bf16 entry point; (out, cudaError)."""
     B, Hq, D = q.shape
     out = torch.empty_like(q)
     rc = lib.paged_decode_attention(
@@ -195,13 +212,96 @@ def paged_decode_attention(
         B, Hq, k_cache.shape[2], D, page_table.shape[1], k_cache.shape[1],
         float(sm_scale), cap, window, native.stream_handle(q.device),
     )
+    return out, rc
+
+
+# The decode kernel cut after a stage of its token loop, for the kernel-
+# profiling tool (tools/decode_ablate.py); see csrc/paged_decode_attention.cu.
+# Stage 4 is the production kernel, 5 that kernel carrying the cuts' V sum.
+DECODE_STAGES = (1, 2, 3, 4, 5)
+# the variant libraries of the cuts (stage 4 is the production library)
+DECODE_STAGE_TARGETS = tuple(
+    ("paged_decode_attention", {"SPTPU_DECODE_STAGE": s}) for s in DECODE_STAGES if s != 4
+)
+
+
+def paged_decode_attention_stage_plain(
+    stage, q, k_cache, v_cache, page_table, seq_lens, sm_scale
+) -> torch.Tensor:
+    """f32 ``[B, Hq, D]``: what the decode kernel cut after ``stage`` writes,
+    over the n live tokens t of each row, with ``s = sm_scale q . K[t]`` and
+    query head ``h`` on kv head ``h // G``; rows with ``seq_len == 0`` are
+    zeros:
+
+    1. ``sum_t (|K[t]| + |V[t]|)``;
+    2. ``sum_t |s(t)| + sum_t |V[t]|``;
+    3. ``|m| + (sum_t |V[t]|) / l``, ``m = max_t s``, ``l = sum_t exp(s - m)``;
+    4. the decode itself (``paged_decode_attention_plain``);
+    5. the decode plus ``(sum_t |V[t]|) / n``.
+    """
+    if stage not in DECODE_STAGES:
+        raise ValueError(f"stage {stage} not in {DECODE_STAGES}")
+    if stage == 4:
+        return paged_decode_attention_plain(q.float(), k_cache, v_cache, page_table, seq_lens,
+                                            sm_scale)
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    P = page_table.shape[1]
+    slots = (page_table.long()[:, :, None] * ps + torch.arange(ps, device=q.device)).reshape(B, -1)
+    k = gather_kv_rows(k_cache, None, slots)  # [B, S, Hkv, D] f32
+    v = gather_kv_rows(v_cache, None, slots)
+    valid = (torch.arange(P * ps, device=q.device)[None, :] < seq_lens[:, None])[..., None, None]
+    vsum = torch.where(valid, v.abs(), 0.0).sum(1)[:, :, None]  # [B, Hkv, 1, D]
+    live_rows = (seq_lens > 0)[:, None, None, None]
+    if stage == 1:
+        out = (vsum + torch.where(valid, k.abs(), 0.0).sum(1)[:, :, None]).expand(B, Hkv, G, D)
+    elif stage == 5:
+        full = paged_decode_attention_plain(q.float(), k_cache, v_cache, page_table, seq_lens,
+                                            sm_scale).reshape(B, Hkv, G, D)
+        n = seq_lens.clamp(min=1).float()[:, None, None, None]
+        out = torch.where(live_rows, full + vsum / n, 0.0)
+    else:
+        qg = q.float().reshape(B, Hkv, G, D) * sm_scale
+        s = torch.einsum("bhgd,bshd->bhgs", qg, k)
+        live = valid[..., 0, 0][:, None, None, :]  # [B, 1, 1, S]
+        if stage == 2:
+            out = torch.where(live, s.abs(), 0.0).sum(-1)[..., None] + vsum
+        else:
+            s = s.masked_fill(~live, float("-inf"))
+            m = s.amax(-1)
+            l = torch.exp(s - m[..., None]).sum(-1)
+            out = torch.where(live_rows, m.abs()[..., None] + vsum / l[..., None], 0.0)
+    return out.reshape(B, Hq, D).contiguous()
+
+
+def paged_decode_attention_stage(
+    stage, q, k_cache, v_cache, page_table, seq_lens, sm_scale
+) -> torch.Tensor:
+    """The decode kernel cut after ``stage`` (bf16 ``[B, Hq, D]``, bf16
+    pages, no cap or window) for CUDA tensors, from its variant library
+    (``DECODE_STAGE_TARGETS``); ``paged_decode_attention_stage_plain`` for
+    CPU tensors. Stage 4 is ``paged_decode_attention`` and counts as its
+    launch; this count holds the cuts' launches."""
+    native.check_same_device(q, k_cache, v_cache, page_table, seq_lens)
+    if q.device.type == "cpu":
+        return paged_decode_attention_stage_plain(stage, q, k_cache, v_cache, page_table,
+                                                  seq_lens, sm_scale)
+    if stage not in DECODE_STAGES:
+        raise ValueError(f"stage {stage} not in {DECODE_STAGES}")
+    if stage == 4:
+        return paged_decode_attention(q, k_cache, v_cache, page_table, seq_lens, sm_scale)
+    _check(q, k_cache, v_cache, None, None, page_table, seq_lens)
+    lib = native.load("paged_decode_attention", _SIGNATURES, {"SPTPU_DECODE_STAGE": stage})
+    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, 0.0, 0)
     if rc != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: cudaError {rc}")
-    paged_decode_attention.launches += 1
+        raise RuntimeError(f"decode stage {stage} launch failed: cudaError {rc} (the cuts take "
+                           "bf16 pages at G 3 and 4, D 64 and 128)")
+    paged_decode_attention_stage.launches += 1
     return out
 
 
-paged_decode_attention.launches = 0
+paged_decode_attention_stage.launches = 0
 
 
 def paged_decode_attention_quant(

@@ -6,6 +6,12 @@ shared library with a plain C interface, at first use, into
 hash of its source, so an edited kernel rebuilds and a stale one is never
 loaded. ``build()`` starts one ``nvcc`` per source, all at once.
 
+A variant build compiles one source with compile-time defines (``-D``), so
+that one source gives several libraries, as the decode kernel's stage cuts
+(``SPTPU_DECODE_STAGE``) do. A variant's file name carries its defines
+beside the hash, which covers them too, so it never collides with the
+production library of the same source.
+
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine that has no ``nvcc`` and no card.
 """
@@ -39,9 +45,10 @@ KERNEL_SOURCES = (
     "w4a8_matmul",
     "w4a16_matmul",
     "delta_matmul",
+    "decode_ablate",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -54,26 +61,44 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(name: str) -> Path:
+def _define_flags(defines: dict) -> list[str]:
+    return [f"-D{k}={v}" for k, v in sorted(defines.items())]
+
+
+def _lib_path(name: str, defines: dict | None = None) -> Path:
+    flags = NVCC_FLAGS + _define_flags(defines or {})
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
+    tag = "".join(f"-{k}={v}" for k, v in sorted((defines or {}).items()))
+    return BUILD_DIR / f"lib{name}-{digest}{tag}.so"
 
 
-def build(names=KERNEL_SOURCES) -> dict[str, dict]:
-    """Compile every named source that has no up-to-date library, one
-    ``nvcc`` process per source, all started together. Returns
-    ``{name: {"seconds": s, "log": compiler stderr}}``; raises if any fails."""
+def _target(t) -> tuple[str, dict]:
+    return (t, {}) if isinstance(t, str) else (t[0], dict(t[1]))
+
+
+def _target_label(t) -> str:
+    name, defines = _target(t)
+    return name + "".join(f" {k}={v}" for k, v in sorted(defines.items()))
+
+
+def build(targets=KERNEL_SOURCES) -> dict[str, dict]:
+    """Compile every target that has no up-to-date library, one ``nvcc``
+    process per target, all started together. A target is a source name or
+    a ``(name, {define: value})`` variant. Returns ``{label: {"seconds": s,
+    "log": compiler stderr}}``, the label being the name and each define;
+    raises if any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for name in names:
-        out = _lib_path(name)
+    for t in targets:
+        name, defines = _target(t)
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (
+        cmd = [nvcc, *NVCC_FLAGS, *_define_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[_target_label(t)] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             ),
@@ -94,21 +119,25 @@ def build(names=KERNEL_SOURCES) -> dict[str, dict]:
     return report
 
 
-def load(name: str, functions: dict[str, tuple[list, object]]) -> ctypes.CDLL:
-    """Load (building if needed) ``lib<name>``, declaring ``argtypes`` and
-    ``restype`` for each entry of ``functions``."""
-    lib = _loaded.get(name)
+def load(
+    name: str, functions: dict[str, tuple[list, object]], defines: dict | None = None
+) -> ctypes.CDLL:
+    """Load (building if needed) ``lib<name>``, or its variant built with
+    ``defines``, declaring ``argtypes`` and ``restype`` for each entry of
+    ``functions``."""
+    key = (name, tuple(sorted((defines or {}).items())))
+    lib = _loaded.get(key)
     if lib is not None:
         return lib
-    path = _lib_path(name)
+    path = _lib_path(name, defines)
     if not path.exists():
-        build([name])
+        build([(name, defines or {})])
     lib = ctypes.CDLL(str(path))
     for fn_name, (argtypes, restype) in functions.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = restype
-    _loaded[name] = lib
+    _loaded[key] = lib
     return lib
 
 

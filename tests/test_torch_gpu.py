@@ -20,7 +20,12 @@ input. The attention kernels with a soft cap and a static sliding window are
 held to their plain versions at Mistral-7B's shape (G 4, head_dim 128) at
 the same tolerance, over bf16, int8 and fp8 pages, the window's edge inside
 a page and inside a 64-token KV tile; a window at least as long as the
-context gives the kernel's no-window output bit for bit.
+context gives the kernel's no-window output bit for bit. The decode
+ablation probe's ``out`` must lie within one bf16 ulp of its plain
+version's (both round the same f32 statistic to bf16 once), its ``aux``
+within ``aux_tolerance`` (m exact, the rest ATOL + 2**-12 |plain|); the
+decode kernel's stage cuts are held to their plain functions at ATOL + RTOL
+|plain|, and the profiling tools run at small sizes.
 """
 
 import math
@@ -476,3 +481,106 @@ def test_delta_wrapper_raises_on_what_the_kernel_does_not_take(gen):
         delta_matmul_grouped(out, x, dq, ds, layer, act, has_delta, scaling, slots.long())
     with pytest.raises(ValueError):  # slots on the CPU
         delta_matmul_grouped(out, x, dq, ds, layer, act, has_delta, scaling, slots.cpu())
+
+
+# ------------------------------------------------------------------
+# the decode ablation probe (csrc/decode_ablate.cu) and the decode kernel's
+# stage cuts (SPTPU_DECODE_STAGE), with the kernel-profiling tools
+
+
+def _ulp_ok(out, ref):
+    """bf16 ``out`` within one bf16 ulp of the plain version's bf16 ``ref``."""
+    torch.cuda.synchronize()
+    r = ref.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r)[1] - 8)
+    return bool(((out.float() - r).abs() <= ulp).all())
+
+
+def _aux_ok(aux, ref, mode):
+    """m exact; l and the checksum within ATOL + 2**-12 |plain| (see
+    ``aux_tolerance``)."""
+    from scratchpad_tpu_torch.ops.attention.decode_ablate import aux_tolerance
+
+    return bool(((aux - ref).abs() <= aux_tolerance(ref, mode, ATOL)).all())
+
+
+def _ablate_case(lens, Hkv, G, Dp, gen, ps=16, CP=16):
+    B = len(lens)
+    P = max(max(-(-n // (CP * ps)), 1) for n in lens) * CP
+    pages = B * P + 1
+    kv = torch.randn(pages, ps, 2 * Hkv, Dp, generator=gen, device="cuda").to(torch.bfloat16)
+    pt = torch.randint(0, pages, (B, P), generator=gen, device="cuda", dtype=torch.int32)
+    q = torch.randn(B, Hkv * G, Dp, generator=gen, device="cuda").to(torch.bfloat16)
+    return q, kv, pt, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("mode", ["dma_only", "reshape_only", "sdot_only", "no_pv", "full"])
+@pytest.mark.parametrize("G,Dp", [(3, 64), (4, 64), (3, 128), (4, 128)])
+def test_decode_ablate_kernel_matches_plain(gen, mode, G, Dp):
+    from scratchpad_tpu_torch.ops.attention import decode_ablate, decode_ablate_plain
+
+    # lengths 0 and 1, page and chunk edges (192, 256, 257), 4 chunks (1000)
+    q, kv, pt, lens = _ablate_case([1000, 0, 1, 192, 256, 257, 17], 2, G, Dp, gen)
+    out, aux = decode_ablate(q, kv, pt, lens, mode)
+    ref_out, ref_aux = decode_ablate_plain(q, kv, pt, lens, mode)
+    assert _ulp_ok(out, ref_out) and _aux_ok(aux, ref_aux, mode)
+
+
+def test_decode_ablate_refuses_a_narrow_table(gen):
+    from scratchpad_tpu_torch.ops.attention import decode_ablate
+
+    q, kv, pt, lens = _ablate_case([300, 20], 2, 4, 64, gen)  # 300 tokens: 2 chunks, 32 entries
+    with pytest.raises(ValueError, match="entries a row"):
+        decode_ablate(q, kv, pt[:, :16].contiguous(), lens, "full")
+    # a caller that understates the longest row: the kernel reads nothing past
+    # the table and gives that row NaN
+    out, aux = decode_ablate(q, kv, pt[:, :16].contiguous(), lens, "full", max_seq_len=20)
+    torch.cuda.synchronize()
+    assert bool(aux[0].isnan().all()) and bool(out[0].float().isnan().all())
+    assert bool(torch.isfinite(aux[1]).all())
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3, 5])
+@pytest.mark.parametrize("G,D", [(4, 64), (3, 128), (4, 128)])
+def test_decode_stage_cuts_match_their_plain_functions(gen, stage, G, D):
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import (
+        paged_decode_attention_stage,
+        paged_decode_attention_stage_plain,
+    )
+
+    k, v, pt = _pool([300, 0, 17, 4096], 8, D, 16, gen)
+    q = torch.randn(4, 8 * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    seq = torch.tensor([300, 0, 17, 4096], dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(D)
+    _close(paged_decode_attention_stage(stage, q, k, v, pt, seq, scale),
+           paged_decode_attention_stage_plain(stage, q, k, v, pt, seq, scale))
+
+
+def test_profiling_tools_run_on_the_card(gen, tmp_path):
+    """Each tool's main at a small size on the card, and analyze_trace on a
+    trace the profiler just wrote."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scratchpad_tpu_torch.tools import (
+        analyze_trace,
+        decode_ablate as ablate_tool,
+        decode_kernel_bench,
+        prof_attn,
+        w4_kernel_bench,
+    )
+
+    rows = ablate_tool.main(["--batch", "8", "--layers", "2", "--iters", "2", "--stage-batch", "4",
+                             "--stage-ctx", "512", "--stage-models", "1b"])
+    assert all(r["ms"] > 0 for r in rows) and len(rows) == 5 + 5  # modes, then stages 1 to 5
+    assert [r["out"] for r in rows[:5]][3:] == [192.0, 192.0]  # zeros pool: m 0, l = ctx
+    assert prof_attn.main(["--cases", "t=8:64", "--layers", "2", "--iters", "2"])[0]["ms"] > 0
+    assert decode_kernel_bench.main(["llama-3.2-1b", "64", "8", "--iters", "5"])["us_per_call"] > 0
+    r = w4_kernel_bench.main(["--shape", "a:512:256", "--bs", "4", "--iters", "2", "--route", "a8"])
+    assert r[0]["us"] > 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_attn.main(["--cases", "t=8:64", "--layers", "2", "--iters", "1"])
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json.gz"
+    prof.export_chrome_trace(str(path))
+    r = analyze_trace.rollup(analyze_trace.load_events(path))
+    assert r["by_category"].get("port kernel", 0) > 0 and 0 < r["busy_us"] <= r["span_us"]
