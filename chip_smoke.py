@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: compiles every CUDA kernel of the port from ``scratchpad_tpu_torch/
    csrc`` with ``nvcc`` for sm_90a, one ``nvcc`` per source, in parallel,
    and with them the decode kernel's four stage variants (``-DSPTPU_DECODE_
-   STAGE=1, 2, 3, 5``, variant libraries of the same source).
+   STAGE=1, 2, 3, 5``, variant libraries of the same source). A ``[sass]``
+   line counts the extend library's tensor-core (``HGMMA``, ``HMMA``) and
+   asynchronous-copy (``LDGSTS``, ``UTMALDG``) instructions from
+   ``cuobjdump --dump-sass``; a library without a tensor-core instruction
+   fails.
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs (the plain version computes and returns f32). Attention, on
    bf16 pages and on int8 and fp8 (e4m3) pages with per-(token, head) bf16
@@ -95,6 +99,10 @@ Phases, in order; any failure exits non-zero before the last line:
    step; the trace of those windows, exported and read back by
    ``tools/analyze_trace.py``, gives ``[profile <label>]`` lines of device
    time by category and the top 5 ops.
+   Each engine's serving run, and the warm-up run of its bench batch,
+   print a ``[prefill <label>]`` line: the extend forwards, their device ms
+   (CUDA-event spans) and their wall ms (``tools/prefill_ab.py::
+   PrefillTimer``).
    Phases 3 and 4 record a failed check and go on, so that a faulty
    kernel still shows every reading; the script exits non-zero after
    phase 4 if any check failed.
@@ -136,6 +144,7 @@ import sys
 import time
 from pathlib import Path
 
+from scratchpad_tpu_torch.tools.prefill_ab import MISTRAL_7B, PrefillTimer
 from scratchpad_tpu_torch.tools.timing import BF16_FLOPS, bound_ms, device_ms
 
 ROOT = Path(__file__).resolve().parent
@@ -190,25 +199,6 @@ WINDOW_MOVE = 10.0
 # different adapters
 TOPPINGS = ["ad1", "dl1", None, "ad2", "ad1", "dl1", "ad2", "dl1"]
 FAILURES: list[str] = []
-# Mistral-7B-v0.1's published config.json
-# (huggingface.co/mistralai/Mistral-7B-v0.1, config.json), read through
-# ModelConfig.from_hf_config; the weights are random, drawn on the card
-MISTRAL_7B = {
-    "architectures": ["MistralForCausalLM"],
-    "vocab_size": 32000,
-    "hidden_size": 4096,
-    "intermediate_size": 14336,
-    "num_hidden_layers": 32,
-    "num_attention_heads": 32,
-    "num_key_value_heads": 8,
-    "max_position_embeddings": 32768,
-    "rms_norm_eps": 1e-5,
-    "rope_theta": 10000.0,
-    "sliding_window": 4096,
-    "tie_word_embeddings": False,
-    "hidden_act": "silu",
-    "model_type": "mistral",
-}
 
 
 def fail(msg: str) -> None:
@@ -335,6 +325,18 @@ def phase_device():
     return name, smi_line
 
 
+def sass_counts(sass: str, opcodes) -> dict:
+    """How many instructions of each opcode a ``cuobjdump --dump-sass``
+    listing holds (``/*0280*/ @!P1 HGMMA.64x64x16.F32.BF16 ...``)."""
+    ops = []
+    for line in sass.splitlines():
+        words = line.split("*/", 1)[1].split() if line.lstrip().startswith("/*") and "*/" in line else []
+        words = [w for w in words if not w.startswith("@")]
+        if words:
+            ops.append(words[0].split(".")[0])
+    return {op: ops.count(op) for op in opcodes}
+
+
 def phase_build():
     from scratchpad_tpu_torch.ops.attention.gqa_decode import DECODE_STAGE_TARGETS
     from scratchpad_tpu_torch.utils import native
@@ -347,6 +349,18 @@ def phase_build():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] all kernels in {time.monotonic() - t0:.1f} s")
+    # what the extend kernel runs on: tensor-core products (HGMMA is wgmma,
+    # HMMA mma.sync) and asynchronous copies (LDGSTS is cp.async, UTMALDG a
+    # TMA load), counted in its SASS
+    lib = native._lib_path("paged_extend_attention")
+    sass = subprocess.run(
+        [str(Path(native.nvcc_path()).parent / "cuobjdump"), "--dump-sass", str(lib)],
+        capture_output=True, text=True, timeout=300,
+    )
+    count = sass_counts(sass.stdout, ("HGMMA", "HMMA", "LDGSTS", "UTMALDG"))
+    log(f"[sass] {lib.name}: " + ", ".join(f"{op} {n}" for op, n in count.items()))
+    if sass.returncode != 0 or count["HGMMA"] + count["HMMA"] == 0:
+        fail(f"the extend library has no tensor-core instruction (cuobjdump rc {sass.returncode})")
 
 
 # --------------------------------------------------------------- phase 3
@@ -426,6 +440,7 @@ def check_extend(errs: dict) -> None:
         ([(2048, 4096), (1500, 1500), (300, 845), (200, 200)], 4096),
     ]
     seed = 200
+    worst = 0.0
     for kind in ("bf16", "int8", "fp8"):
         for G in (4, 3):
             for D in (64, 128):
@@ -441,6 +456,7 @@ def check_extend(errs: dict) -> None:
                     n_real = int(cu[-1])
                     zero = bool((out[n_real:] == 0).all())
                     errs[EXTEND[kind]] = max(errs[EXTEND[kind]], e)
+                    worst = max(worst, ratio)
                     log(
                         f"[check] extend {kind} G={G} D={D} chunks={chunks} T={q.shape[0]}: "
                         f"max_abs_err {e:.3e}, max err/tol {ratio:.3f}, {q.shape[0] - n_real} "
@@ -450,6 +466,7 @@ def check_extend(errs: dict) -> None:
                         ratio <= 1 and zero,
                         f"{kind} extend kernel disagrees with its plain version at G={G} D={D} chunks={chunks}",
                     )
+    log(f"[check] extend: worst err/tol {worst:.3f} over {seed - 200} cases")
 
 
 # (logit_cap, sliding_window) of the windowed checks at Mistral-7B's shape:
@@ -538,6 +555,7 @@ def check_window_extend(errs: dict) -> None:
     ]
     scale = 1.0 / math.sqrt(128)
     seed = 11_000
+    worst, n = 0.0, 0
     for kind, grid in (("bf16", [(None, 4096), (30.0, 1000)]), ("int8", [(30.0, 1000)]),
                        ("fp8", [(30.0, 1000)])):
         for chunks, T_pad in cases:
@@ -555,6 +573,7 @@ def check_window_extend(errs: dict) -> None:
                 e, ratio = max_err(out, ref)
                 zero = bool((out[n_real:] == 0).all())
                 errs[EXTEND[kind]] = max(errs[EXTEND[kind]], e)
+                worst, n = max(worst, ratio), n + 1
                 log(
                     f"[check] extend {kind} Mistral shape chunks={chunks} T={q.shape[0]} "
                     f"{cap_window(cap, window)}: max_abs_err {e:.3e}, max err/tol {ratio:.3f}, "
@@ -566,6 +585,7 @@ def check_window_extend(errs: dict) -> None:
                     f"chunks={chunks} {cap_window(cap, window)}",
                 )
             del k, v, ks, vs
+    log(f"[check] extend at the Mistral shape, cap and window: worst err/tol {worst:.3f} over {n} cases")
 
 
 def decode_meta(pt, lens):
@@ -1764,7 +1784,7 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     model = runner.model
     forwards = {ForwardMode.EXTEND: 0, ForwardMode.DECODE: 0}
     topped = [0]  # forwards whose batch names an adapter
-    inner_forward = model.forward
+    inner_forward = model.forward  # the timer below wraps counting_forward
 
     def counting_forward(meta, kv):
         forwards[meta.mode] += 1
@@ -1786,11 +1806,17 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
 
     engine.flush_cache()
     reset_launch_counts()
-    outs = engine.generate(input_ids=prompts, sampling_params=sps[:-1], topping=tops[:-1])
-    outs += engine.generate(input_ids=second, sampling_params=sps[-1:], topping=tops[-1])
+    with PrefillTimer(model) as prefill:
+        outs = engine.generate(input_ids=prompts, sampling_params=sps[:-1], topping=tops[:-1])
+        outs += engine.generate(input_ids=second, sampling_params=sps[-1:], topping=tops[-1])
     counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
     torch.cuda.synchronize()
     model.forward = inner_forward
+    log(
+        f"[prefill {label}] requests of {[len(p) for p in prompts + second]} tokens: "
+        f"{prefill.forwards} extend forwards, device {prefill.device_ms:.3f} ms, "
+        f"wall {prefill.wall_ms:.3f} ms"
+    )
     n_ext, n_dec = forwards[ForwardMode.EXTEND], forwards[ForwardMode.DECODE]
     log(
         f"[engine {label}] {len(outs)} requests: {n_ext} extend and {n_dec} decode forwards; "
@@ -1974,7 +2000,14 @@ def phase_engine_times(engine, eng: dict, label: str, toppings: bool = False) ->
             fail("bench requests did not finish with 128 tokens")
         return dec_tokens[0] / dec_time[0], 64 * 128 / wall, wall
 
-    run()  # warms the caching allocator and cuBLAS
+    # the warm-up run (it warms the caching allocator and cuBLAS) times its
+    # extend forwards; the timed runs below carry no timer
+    with PrefillTimer(runner.model) as prefill:
+        run()
+    log(
+        f"[prefill {label}] bs 64 x 128-token prompts: {prefill.forwards} extend forwards, "
+        f"device {prefill.device_ms:.3f} ms, wall {prefill.wall_ms:.3f} ms"
+    )
     eng["decode_tok_s"], eng["e2e_tok_s"], _ = run()
     log(
         f"[engine {label}] bs 64, 128+128: decode {eng['decode_tok_s']:.1f} tok/s "

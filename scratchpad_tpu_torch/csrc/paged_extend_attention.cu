@@ -1,6 +1,7 @@
 // Paged ragged causal extend (prefill) attention for Hopper (sm_90a): bf16
 // q and out over bf16 pages, or over int8 / fp8 (e4m3) pages with
-// per-(token, head) bf16 scales; f32 accumulation.
+// per-(token, head) bf16 scales; both products on the tensor cores (wgmma),
+// f32 accumulation.
 //
 // Replaces the TPU kernel the JAX package runs for every prefill and
 // chunked-prefill step: the bundled Pallas
@@ -9,10 +10,8 @@
 // fp8 pools the JAX package first dequantizes the batch's pages into a bf16
 // scratch pool (ragged_backend.py::dequant_pages, attention_ragged_quant),
 // because the bundled kernel has no per-row scales. This kernel reads the
-// codes and scales itself and dequantizes each K/V element in f32 as it
-// stages the tile into shared memory: no scratch pool, and the pages move
-// at 1 B per element plus 2 B per (token, head) instead of being read once
-// in 8 bits and then written and read again in bf16.
+// codes and scales itself: no scratch pool, and the pages move at 1 B per
+// element plus 2 B per (token, head).
 //
 // What it computes: the batch is a flat ragged run of T query tokens;
 // sequence s owns tokens [cu_q_lens[s], cu_q_lens[s+1]) and has kv_lens[s]
@@ -21,7 +20,6 @@
 // [0, kv_lens[s] - q_len_s + i]: causal, aligned to the tail, which also
 // covers a chunk that follows a cached radix prefix. Query head h*G+g reads
 // kv head h. Tokens past cu_q_lens[B] (batch padding) are written as zeros.
-//
 // Soft cap and static sliding window (the bundled kernel's soft_cap and
 // sliding_window, ragged_backend.py:98-99; xla_backend.py:477-478), runtime
 // arguments uniform over the launch, 0 meaning none: the score is
@@ -30,25 +28,50 @@
 // What bounds it: operations at the main path's prefill shapes. A chunk of
 // n new tokens over a cache of c tokens costs about 4 * Hq * D * n * (c +
 // n/2) flops against (n * Hq + 2 * (c + n) * Hkv) * D * 2 B moved, so above a
-// few hundred tokens it is far past the card's ~295 flop/byte ridge.
-// This first version is simple and right rather than fast: tiled flash
-// attention on CUDA cores, not tensor cores.
-//   - A CTA takes one tile of bq = 64 / G query tokens of ONE sequence times
-//     the G query heads of ONE kv head: 64 (token, head) rows, so every K/V
-//     tile it loads serves all G heads. Grid (tiles, Hkv); the wrapper builds
-//     the tile -> sequence map (tile_seq, tile_cum) on the device.
-//   - K/V tiles of 64 tokens go through shared memory (K transposed, rows
-//     padded by one float against bank conflicts); each of the 128 threads
-//     owns a 4 x 8 block of the 64 x 64 score tile and 4 rows x D/8 columns
-//     of the output, with online softmax state in f32 registers.
-//   - The KV loop stops at the tile's last causal position, so a tile never
-//     reads the cache past what its queries may see, and with a window it
-//     starts at the KV tile that holds its first query's first live position;
-//     each row masks its own window edge inside (it may fall inside a tile
-//     and inside a page). A tile of bq queries under a window W thus reads
-//     about W + bq keys, whatever the cache's length.
-// Not done yet (later work): wgmma / mma.sync tensor-core products,
-// cp.async or TMA double buffering, vector loads.
+// few hundred tokens it is far past the card's ~295 flop/byte ridge. The
+// design is flash attention on the tensor cores:
+//   - A CTA takes one tile of bq = 128 / G query tokens of ONE sequence
+//     times the G query heads of ONE kv head: 128 (token, head) rows in two
+//     warpgroups of 64 (one wgmma M tile each), so every K/V tile it loads
+//     serves all G heads and both warpgroups. Grid (tiles, Hkv), walked from
+//     the last tile so that the tiles with the most KV start first; the
+//     wrapper builds the tile -> sequence map (tile_seq, tile_cum).
+//   - Warp specialised: a producer warpgroup (56 registers a thread, by
+//     setmaxnreg) fills a ring of four K/V stages in shared memory with
+//     cp.async in 16-byte pieces and hands each to the two compute
+//     warpgroups (224 registers) through full / empty mbarriers, so loads
+//     run ahead of the math and the compute warpgroups never wait for each
+//     other. The stages are 128-byte-swizzled rows that are the wgmma
+//     operands as they land: K [64 tokens][D] is the K-major B of S = QK^T,
+//     V [64 tokens][D] the MN-major (transposed) B of O += PV. Q is loaded
+//     once, in bf16, unscaled; sm_scale (times log2 e) is applied to the f32
+//     scores. head_dim 32 is padded to 64 with zero columns.
+//   - S = QK^T: wgmma m64n64k16, A and B from shared memory. O += PV: wgmma
+//     m64n{64,128}k16 with A = P from registers: the S accumulator's layout
+//     is the A fragment's. One bf16 rounding of P costs up to 12x the
+//     kernel-vs-plain gate (tests/test_torch_extend_tiles.py), so P is split
+//     into P_hi = bf16(P) and P_lo = bf16(P - P_hi), two products over the
+//     same V tile; the row sum l is taken from the unrounded f32 P. On
+//     8-bit pages a third term, bf16(P - P_hi - P_lo), brings P to f32
+//     accuracy: those engines quantize each new K/V row on their kernel and
+//     plain paths alike, which turns the two-term split's 2^-17 into code
+//     flips, and the 3B W4A8 engine's argmax gate failed on one row.
+//   - 8-bit pages: the codes land at 1 B per element in a ring of their
+//     own, and the producer converts them to the bf16 operand stages (int8
+//     and e4m3 are exact in bf16) with the tile's 64 K and 64 V scales
+//     beside them; score column j is multiplied by its K scale in f32, and
+//     the V scale is folded into P (P' = p * s_v) before the split.
+//   - On bf16 pages a compute warpgroup pipelines across tiles: it issues
+//     S_t = Q K_t and the previous tile's O += P V together, and runs tile
+//     t's softmax while that PV is on the tensor cores.
+//   - The KV loop stops at the tile's last causal position and, under a
+//     window, starts at the KV tile that holds its first query's first live
+//     position; a thread masks only a tile that crosses its rows' causal or
+//     window edge, each row by its own bounds.
+//   - The epilogue normalises by l (rows with l == 0 are exact zeros),
+//     rounds to bf16 and stores 16 bytes a thread through shared memory.
+// Not done yet (later work): TMA loads, 128-token KV tiles, more than one
+// CTA on an SM for the short prefill chunks.
 
 #include <cmath>
 #include <type_traits>
@@ -58,38 +81,212 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Stage cuts, for timing only (the output is then not attention): 1 stops
+// each kv tile once it has landed (bf16 pages) or been converted (8-bit
+// pages); 4 skips the copies (bf16 pages: after the first ring's worth of
+// tiles), so the rest computes on stale stages; 0 is the kernel.
+// tools/extend_stages.py times them.
+#ifndef SPTPU_EXTEND_CUT
+#define SPTPU_EXTEND_CUT 0
+#endif
 namespace {
 
-constexpr int kRows = 64;  // (query token, head-in-group) rows per CTA
-constexpr int kBK = 64;    // kv tokens per tile
-constexpr int kThreads = 128;
+constexpr int kRows = 128;       // (query token, head-in-group) rows per CTA
+constexpr int kBK = 64;          // kv tokens per tile
+constexpr int kConsumers = 256;  // two warpgroups of 64 rows compute
+constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup loads
+constexpr int kCodeAhead = 4;  // 8-bit pages: code tiles in flight ahead of conversion
+constexpr int kCodeRing = kCodeAhead + 1;
+constexpr int kBlock = 64;       // bf16 elements in one 128-byte swizzled row
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t)(kRows * (D + 1) + D * (kBK + 1) + kBK * D + kRows * (kBK + 1));
+// Shared memory, byte offsets from a 1024-aligned base (the 128-byte
+// swizzle repeats every 1024 bytes). A bf16 tile of R rows is NB column
+// blocks of [R][128 B].
+template <int D, bool kQuant>
+struct Smem {
+  static constexpr int DP = D < kBlock ? kBlock : D;  // padded head_dim
+  static constexpr int NB = DP / kBlock;
+  static constexpr int kQBlock = kRows * 128;
+  static constexpr int kTBlock = kBK * 128;
+  static constexpr int kTile = NB * kTBlock;  // one bf16 K or V tile
+  // the ring of bf16 K and V operand tiles [kRing][NB][64][128 B] each: four
+  // stages, or three beside the 8-bit pages' own ring of codes
+  static constexpr int kRing = kQuant ? 3 : 4;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + NB * kQBlock;
+  static constexpr int kV = kK + kRing * kTile;
+  // 8-bit pages: the ring's f32 scales [kRing][K, V][64], and the codes'
+  // own ring [kCodeRing][K, V][64][D] with their scales [kCodeRing][K, V][64]
+  static constexpr int kCodeTile = kBK * D;
+  static constexpr int kScales = kV + kRing * kTile;
+  static constexpr int kCodes = kScales + (kQuant ? kRing * 2 * kBK * 4 : 0);
+  static constexpr int kCodeScales = kCodes + (kQuant ? kCodeRing * 2 * kCodeTile : 0);
+  static constexpr int kBars = kCodeScales + (kQuant ? kCodeRing * 2 * kBK * 4 : 0);
+  static constexpr int kBytes = kBars + 2 * kRing * 8;  // u64 full[kRing], empty[kRing]
+  static constexpr size_t kDynamic = kBytes + 1024;  // room to align the base
+};
+
+template <int D, bool kQuant>
+constexpr size_t smem_bytes() { return Smem<D, kQuant>::kDynamic; }
+
+// byte offset of 16-byte chunk `chunk` of row `row` in a 128-byte-swizzled block
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
 }
 
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
-__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
-
-__device__ __forceinline__ float group8_max(float v) {
-#pragma unroll
-  for (int off = 1; off < 8; off <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// wgmma shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ float group8_sum(float v) {
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  // ok false: the 16 bytes are zero-filled and nothing is read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrives once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void mbar_arrive_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 24)) __trap();  // a lost arrival fails the launch instead of hanging it
+  }
+}
+// the compute warpgroups only (the producer warp does not take part)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// pin registers an asynchronous wgmma reads or writes until after its wait
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
 #pragma unroll
-  for (int off = 1; off < 8; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1)
+      : "memory");
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));  // lo in the low half
+}
+
+// four 8-bit codes (one word, code k in byte k) as two bf16x2 words, exactly.
+// int8: byte u = x + 128 under the exponent of 2^23 is the float 2^23 + u,
+// so one subtraction gives x, whose bf16 is the float's high half.
+__device__ __forceinline__ void codes_to_bf16(uint32_t word, int8_t, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = word ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + k)) - 8388736.f);
+  lo = __byte_perm(f[0], f[1], 0x7632);
+  hi = __byte_perm(f[2], f[3], 0x7632);
+}
+// e4m3: through f16, where every e4m3 value is exact
+__device__ __forceinline__ void codes_to_bf16(uint32_t word, __nv_fp8_e4m3, uint32_t& lo, uint32_t& hi) {
+  const __half2_raw h0 = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word & 0xFFFFu), __NV_E4M3);
+  const __half2_raw h1 = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word >> 16), __NV_E4M3);
+  const float2 a = __half22float2(__half2(h0));
+  const float2 b = __half22float2(__half2(h1));
+  lo = pack_bf16(a.x, a.y);
+  hi = pack_bf16(b.x, b.y);
 }
 
 // CodeT: __nv_bfloat16 (bf16 pages, no scales), int8_t or __nv_fp8_e4m3
 // (8-bit pages with k_scale / v_scale [pages, page_size, Hkv] bf16)
 template <int D, typename CodeT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     const CodeT* __restrict__ k_cache,
                     const CodeT* __restrict__ v_cache,
@@ -103,19 +300,32 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out, int num_seqs, int num_tokens,
                     int num_kv_heads, int G, int max_pages, int page_size,
                     float sm_scale, float logit_cap, int window) {
-  constexpr int DC = D / 8;  // output columns per thread
   constexpr bool kQuant = !std::is_same_v<CodeT, __nv_bfloat16>;
-  extern __shared__ float smem[];
-  float* Qs = smem;                     // [kRows][D + 1]
-  float* Ks = Qs + kRows * (D + 1);     // [D][kBK + 1], transposed
-  float* Vs = Ks + D * (kBK + 1);       // [kBK][D]
-  float* Ps = Vs + kBK * D;             // [kRows][kBK + 1]
+  using S = Smem<D, kQuant>;
+  constexpr int kRing = S::kRing;
+  // P in bf16 terms: hi + lo, and on 8-bit pages a third, the rest of P to
+  // f32 accuracy (see the notes above); setmaxnreg's split of the 64,512
+  // registers the launch holds (168 x 384): 128 x 56 + 256 x 224
+  constexpr int kPTerms = kQuant ? 3 : 2;
+  // The third term's registers do not fit beside the previous tile's P, so
+  // on 8-bit pages a tile's PV runs after its own softmax, not across the
+  // next tile's (those kernels are bound by the producer's conversion).
+  constexpr bool kPipelined = kPTerms == 2;
+  constexpr int kProducerRegs = 56;
+  constexpr int kConsumerRegs = 224;
+  constexpr int DP = S::DP;
+  constexpr int NO = DP / 2;  // O accumulator floats a thread (m64 x DP)
+  constexpr int CPR = D / 8;  // 16-byte chunks of a bf16 row of D
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  uint8_t* sm = smem_raw + pad;  // 1024-aligned, generic address
+  const uint32_t sb = raw + pad;  // the same, shared-window address
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 3;  // row group: rows tr + 16 * r
-  const int tc = tid & 7;   // column group: cols tc + 8 * c
   const int h = blockIdx.y;
-  const int tile = blockIdx.x;
+  const int tile = gridDim.x - 1 - blockIdx.x;  // the tiles with the most KV first
   const int hq = num_kv_heads * G;
   const int bq = kRows / G;  // query tokens per tile
   const int s = tile_seq[tile];
@@ -124,10 +334,12 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
     // tiles past the real sequences zero the padding tokens
     const int first_pad_tile = num_seqs > 0 ? tile_cum[num_seqs - 1] : 0;
     const int t0 = cu_q_lens[num_seqs] + (tile - first_pad_tile) * bq;
-    for (int i = tid; i < bq * G * D; i += kThreads) {
-      const int tok = t0 + i / (G * D);
+    const int per_tok = G * CPR;
+    for (int i = tid; i < bq * per_tok; i += kThreads) {
+      const int tok = t0 + i / per_tok;
       if (tok < num_tokens)
-        out[((size_t)tok * hq + (size_t)h * G) * D + i % (G * D)] = __float2bfloat16(0.f);
+        *reinterpret_cast<uint4*>(out + ((size_t)tok * hq + (size_t)h * G) * D +
+                                  (i % per_tok) * 8) = make_uint4(0, 0, 0, 0);
     }
     return;
   }
@@ -141,135 +353,392 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
   const int kv_len = kv_lens[s];
   const int ctx = kv_len - q_len;  // cached tokens before this chunk
   const int kv_end = min(kv_len, ctx + i0 + n_q);  // exclusive bound of kv reads
+  // the first kv tile any row of this tile may see: the first query's window
+  const int kv_begin = window > 0 ? max(ctx + i0 - window + 1, 0) / kBK * kBK : 0;
+  const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
 
-  for (int idx = tid; idx < kRows * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx % D;
-    float val = 0.f;
-    if (r < n_rows) {
-      const int tok = q_start + i0 + r / G;
-      val = __bfloat162float(q[((size_t)tok * hq + (size_t)h * G + r % G) * D + d]) * sm_scale;
+  if constexpr (D < DP) {  // the padding columns stay zero throughout
+    for (int i = tid; i < S::kBars / 16; i += kThreads)
+      reinterpret_cast<uint4*>(sm)[i] = make_uint4(0, 0, 0, 0);
+  }
+
+  // Q, once: row r is token r / G, head r % G; rows past n_rows are zero
+  for (int i = tid; i < kRows * CPR; i += kThreads) {
+    const int r = i / CPR;
+    const int c = i % CPR;
+    const bool ok = r < n_rows;
+    const int tok = q_start + i0 + (ok ? r / G : 0);
+    const __nv_bfloat16* src = q + ((size_t)tok * hq + (size_t)h * G + (ok ? r % G : 0)) * D + c * 8;
+    cp_async16(sb + S::kQ + (c / 8) * S::kQBlock + swz(r, c % 8), src, ok);
+  }
+
+  cp_async_commit();
+  const uint32_t bars = sb + S::kBars;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kRing + st); };
+  if (tid == 0) {
+    for (int st = 0; st < kRing; ++st) {
+      mbar_init(full(st), 128);  // one arrival a producer thread
+      mbar_init(empty(st), kConsumers / 32);  // one arrival a compute warp
     }
-    Qs[r * (D + 1) + d] = val;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  // the kv positions [lo, lim] each of this thread's rows may attend
-  int lo[4], lim[4];
-  float m[4], l[4], o[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = tr + 16 * r;
-    lim[r] = row < n_rows ? ctx + i0 + row / G : -1;
-    lo[r] = window > 0 ? lim[r] - window + 1 : 0;
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) o[r][c] = 0.f;
-  }
+  cp_async_wait<0>();  // Q
+  fence_async_shared();
+  __syncthreads();
 
   const int* pt = page_table + (size_t)s * max_pages;
   const size_t row_stride = (size_t)num_kv_heads * D;
+  auto pool_row = [&](int t, int j) -> int {  // -1: past kv_end (or no tile t)
+    const int pos = kv_begin + t * kBK + j;
+    return t < n_tiles && pos < kv_end ? pt[pos / page_size] * page_size + pos % page_size : -1;
+  };
 
-  // the first kv tile any row of this tile may see: the first query's window
-  const int kv_begin = window > 0 ? max(ctx + i0 - window + 1, 0) / kBK * kBK : 0;
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int j = idx / D;
-      const int d = idx % D;
-      const int pos = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (pos < kv_end) {
-        const size_t row = (size_t)pt[pos / page_size] * page_size + pos % page_size;
-        const size_t off = row * row_stride + (size_t)h * D + d;
-        kx = to_float(k_cache[off]);
-        vx = to_float(v_cache[off]);
-        if constexpr (kQuant) {  // code * its (token, head) scale
-          const size_t srow = row * num_kv_heads + h;
-          kx *= __bfloat162float(k_scale[srow]);
-          vx *= __bfloat162float(v_scale[srow]);
+  if (tid >= kConsumers) {
+    // The producer warpgroup fills the ring: thread p copies 16-byte piece
+    // p + 128 n of the tile's K and of its V (token (p + 128 n) / CH),
+    // zero-filling positions past kv_end, and arrives on full[stage] once
+    // the stage holds the tile. Each of its warps reads the next tile's 64
+    // pool rows (lane l: tokens l and l + 32) while this tile's copies are
+    // issued, and hands them round with shuffles. It waits on empty[stage]
+    // before it writes the stage again.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int p = tid - kConsumers;
+    const int lane = p & 31;
+    if constexpr (!kQuant) {  // bf16 pages: copied straight into the ring
+      constexpr int CH = CPR;  // 16-byte pieces of a K or V row
+      constexpr int NP = kBK * CH / 128;
+      int rr[2] = {pool_row(0, lane), pool_row(0, lane + 32)};
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kRing;
+        mbar_wait(empty(st), ((t / kRing) & 1) ^ 1);
+        const int r0 = rr[0], r1 = rr[1];
+        rr[0] = pool_row(t + 1, lane);
+        rr[1] = pool_row(t + 1, lane + 32);
+        if (SPTPU_EXTEND_CUT == 4 && t >= kRing) {  // timing cut: no copies
+          mbar_arrive(full(st));
+          continue;
+        }
+#pragma unroll 2
+        for (int n = 0; n < NP; ++n) {
+          const int i = p + 128 * n;
+          const int j = i / CH;
+          const int c = i % CH;
+          // the warp's 32 pieces lie in 32 / CH tokens on the same side of 32
+          const int r = __shfl_sync(0xffffffffu, ((p & ~31) + 128 * n) / CH < 32 ? r0 : r1, j % 32);
+          const bool ok = r >= 0;
+          const size_t row = ok ? (size_t)r : 0;
+          const size_t off = row * row_stride + (size_t)h * D + c * 8;
+          const uint32_t o = st * S::kTile + (c / 8) * S::kTBlock + swz(j, c % 8);
+          cp_async16(sb + S::kK + o, k_cache + off, ok);
+          cp_async16(sb + S::kV + o, v_cache + off, ok);
+        }
+        mbar_arrive_copies(full(st));
+      }
+    } else {
+      // 8-bit pages: the codes of tile t + kCodeAhead land in the code ring
+      // while tile t converts to the bf16 operand ring (int8 and e4m3 are
+      // exact in bf16). Thread p also carries K's (p < 64) or V's scale of
+      // token p % 64, loaded with its codes and stored one iteration later.
+      // A tile's copies are issued after the previous tile's proxy fence,
+      // which would otherwise wait for them.
+      constexpr int CH = D / 16;  // 16-byte pieces of a code row
+      constexpr int NP = kBK * CH / 128;
+      constexpr int NC = 2 * kBK * CH / 128;  // 16-code pieces a thread converts
+      float* cscl = reinterpret_cast<float*>(sm + S::kCodeScales);
+      auto issue = [&](int u, int r0, int r1) {
+        const int cs = u % kCodeRing;
+#pragma unroll 2
+        for (int n = 0; n < NP; ++n) {
+          const int i = p + 128 * n;
+          const int j = i / CH;
+          const int c = i % CH;
+          const int r = __shfl_sync(0xffffffffu, ((p & ~31) + 128 * n) / CH < 32 ? r0 : r1, j % 32);
+          const bool ok = r >= 0 && SPTPU_EXTEND_CUT != 4;
+          const size_t off = (r >= 0 ? (size_t)r : 0) * row_stride + (size_t)h * D + c * 16;
+          const uint32_t o = S::kCodes + 2 * cs * S::kCodeTile + j * D + c * 16;
+          cp_async16(sb + o, k_cache + off, ok);
+          cp_async16(sb + o + S::kCodeTile, v_cache + off, ok);
+        }
+        cp_async_commit();
+      };
+      auto scale_of = [&](int r0, int r1) -> float {
+        const int r = (p >> 5) & 1 ? r1 : r0;
+        return r < 0 ? 0.f
+                     : __bfloat162float((p < kBK ? k_scale : v_scale)[(size_t)r * num_kv_heads + h]);
+      };
+      float held = 0.f;  // the scale of the last tile issued
+      for (int u = 0; u < kCodeAhead; ++u) {
+        const int r0 = pool_row(u, lane), r1 = pool_row(u, lane + 32);
+        issue(u, r0, r1);
+        if (u > 0) cscl[((u - 1) % kCodeRing) * 2 * kBK + p] = held;
+        held = scale_of(r0, r1);
+      }
+      int rr[2] = {pool_row(kCodeAhead, lane), pool_row(kCodeAhead, lane + 32)};
+      for (int t = 0; t < n_tiles; ++t) {
+        cp_async_wait<kCodeAhead - 1>();  // this thread's codes of tile t
+        asm volatile("bar.sync 2, 128;\n" ::: "memory");  // everyone's; tile t - 1 converted
+        const int st = t % kRing;
+        const int cs = t % kCodeRing;
+        mbar_wait(empty(st), ((t / kRing) & 1) ^ 1);
+        const uint8_t* codes = sm + S::kCodes + 2 * cs * S::kCodeTile;
+#pragma unroll 2
+        for (int n = 0; n < NC; ++n) {
+          const int i = p + 128 * n;
+          const int which = i / (kBK * CH);  // 0: K, 1: V
+          const int j = (i % (kBK * CH)) / CH;
+          const int c = i % CH;
+          const uint4 raw16 =
+              *reinterpret_cast<const uint4*>(codes + which * S::kCodeTile + j * D + c * 16);
+          uint32_t w[8];
+          codes_to_bf16(raw16.x, CodeT(), w[0], w[1]);
+          codes_to_bf16(raw16.y, CodeT(), w[2], w[3]);
+          codes_to_bf16(raw16.z, CodeT(), w[4], w[5]);
+          codes_to_bf16(raw16.w, CodeT(), w[6], w[7]);
+          uint8_t* dst = sm + (which ? S::kV : S::kK) + st * S::kTile + (2 * c / 8) * S::kTBlock;
+          *reinterpret_cast<uint4*>(dst + swz(j, (2 * c) % 8)) = make_uint4(w[0], w[1], w[2], w[3]);
+          *reinterpret_cast<uint4*>(dst + swz(j, (2 * c + 1) % 8)) = make_uint4(w[4], w[5], w[6], w[7]);
+        }
+        reinterpret_cast<float*>(sm + S::kScales)[st * 2 * kBK + p] = cscl[cs * 2 * kBK + p];
+        fence_async_shared();
+        mbar_arrive(full(st));
+        // the codes of tile u = t + kCodeAhead into tile t - 1's code stage
+        const int u = t + kCodeAhead;
+        cscl[((u - 1) % kCodeRing) * 2 * kBK + p] = held;
+        if (u < n_tiles) {
+          issue(u, rr[0], rr[1]);
+          held = scale_of(rr[0], rr[1]);
+          rr[0] = pool_row(u + 1, lane);
+          rr[1] = pool_row(u + 1, lane + 32);
+        } else {
+          cp_async_commit();
         }
       }
-      Ks[d * (kBK + 1) + j] = kx;
-      Vs[j * D + d] = vx;
     }
-    __syncthreads();
-
-    float sc[4][8];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) sc[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qa[r] = Qs[(tr + 16 * r) * (D + 1) + d];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) kb[c] = Ks[d * (kBK + 1) + tc + 8 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) sc[r][c] += qa[r] * kb[c];
-    }
-
-    float alpha[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int pos = k0 + tc + 8 * c;
-        if (logit_cap > 0.f) sc[r][c] = logit_cap * tanhf(sc[r][c] / logit_cap);
-        if (pos > lim[r] || pos < lo[r]) sc[r][c] = -INFINITY;
-        mt = fmaxf(mt, sc[r][c]);
-      }
-      mt = group8_max(mt);
-      const float m_new = fmaxf(m[r], mt);
-      alpha[r] = m_new == -INFINITY ? 1.f : __expf(m[r] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float p = sc[r][c] == -INFINITY ? 0.f : __expf(sc[r][c] - m_new);
-        sc[r][c] = p;
-        rs += p;
-      }
-      rs = group8_sum(rs);
-      l[r] = l[r] * alpha[r] + rs;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) Ps[(tr + 16 * r) * (kBK + 1) + tc + 8 * c] = sc[r][c];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < DC; ++c) o[r][c] *= alpha[r];
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pa[4], vb[DC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pa[r] = Ps[(tr + 16 * r) * (kBK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vb[c] = Vs[j * D + tc + 8 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) o[r][c] += pa[r] * vb[c];
-    }
+    cp_async_wait<0>();
+    return;
   }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  // this thread's two rows of its warpgroup's 64: the kv positions [lo, lim]
+  // each may attend (lim -1: no row)
+  const int wg = tid / 128;
+  const int lane = tid & 31;
+  const int q4 = lane & 3;
+  const int row0 = 64 * wg + 16 * ((tid & 127) / 32) + lane / 4;
+  int lim[2], lo[2];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = tr + 16 * r;
-    if (row < n_rows) {
-      const int tok = q_start + i0 + row / G;
-      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-      __nv_bfloat16* dst = out + ((size_t)tok * hq + (size_t)h * G + row % G) * D;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    lim[i] = row < n_rows ? ctx + i0 + row / G : -1;
+    lo[i] = window > 0 ? lim[i] - window + 1 : 0;
+  }
+  // a kv tile inside both rows' bounds needs no mask
+  const int thr_hi = min(lim[0], lim[1]);
+  const int thr_lo = max(lo[0], lo[1]);
+
+  float o[NO];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) dst[tc + 8 * c] = __float2bfloat16(o[r][c] * inv);
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's share of the row sum
+  // the score's factor into log2 units (the capped score is already in them)
+  const float mul = logit_cap > 0.f ? 1.f : sm_scale * kLog2e;
+  const float cap_in = logit_cap > 0.f ? sm_scale / logit_cap : 0.f;
+  const float cap_log2 = logit_cap * kLog2e;
+  // Software pipeline (bf16 pages), one warpgroup: iteration t issues S_t =
+  // Q K_t and the previous tile's O += P V, and runs tile t's softmax while
+  // that PV is on the tensor cores. P of the previous tile waits in ph / pl
+  // over V at pv; before the first tile P is zero over tile 0's V. Every
+  // warpgroup runs
+  // every tile (the masks zero what its rows do not see): a wgmma under a
+  // branch the compiler cannot prove uniform is serialized.
+  uint32_t ph[16], pl[16], pr[kPTerms == 3 ? 16 : 1];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) ph[i] = pl[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < (kPTerms == 3 ? 16 : 1); ++i) pr[i] = 0u;
+  uint32_t pv = sb + S::kV;
+  auto issue_pv = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t vd = desc(pv + kk * 16 * 128, S::kTBlock, 1024);
+      if constexpr (DP == 128) {
+        wgmma_rs_n128(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], vd);
+        wgmma_rs_n128(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], vd);
+        if constexpr (kPTerms == 3)
+          wgmma_rs_n128(o, pr[4 * kk], pr[4 * kk + 1], pr[4 * kk + 2], pr[4 * kk + 3], vd);
+      } else {
+        wgmma_rs_n64(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], vd);
+        wgmma_rs_n64(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], vd);
+        if constexpr (kPTerms == 3)
+          wgmma_rs_n64(o, pr[4 * kk], pr[4 * kk + 1], pr[4 * kk + 2], pr[4 * kk + 3], vd);
+      }
     }
+    wgmma_commit();
+  };
+  auto pv_done = [&]() {  // after the wait that covers issue_pv's group
+    keep(o);
+    keep(ph);
+    keep(pl);
+    if constexpr (kPTerms == 3) keep(pr);
+  };
+
+  auto release = [&](int st) {  // this warp is done with ring stage st
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  };
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kv_begin + t * kBK;
+    const int st = t % kRing;
+    mbar_wait(full(st), (t / kRing) & 1);  // tile t landed
+    const int ob = st;  // the bf16 operand buffer of tile t
+    fence_async_shared();
+#if SPTPU_EXTEND_CUT == 1  // timing cut: the loads alone
+    release(st);
+    continue;
+#endif
+    const uint32_t kt = sb + S::kK + ob * S::kTile;
+    const float* sks = reinterpret_cast<const float*>(sm + S::kScales) + ob * 2 * kBK;
+    const float* svs = sks + kBK;
+
+    // S = Q K^T over this warpgroup's 64 rows
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t qa = sb + S::kQ + (kk / 4) * S::kQBlock + wg * 64 * 128 + (kk % 4) * 32;
+      const uint32_t kb = kt + (kk / 4) * S::kTBlock + (kk % 4) * 32;
+      wgmma_ss_n64(sc, desc(qa, 16, 1024), desc(kb, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    if constexpr (kPipelined) {
+      issue_pv();
+      wgmma_wait<1>();  // S_t done; the PV may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    keep(sc);
+
+    // sc[4c + 2i + e] is row row0 + 8i, column 8c + 2q4 + e. Each step is
+    // a loop of its own under a branch uniform over the tile, so that the
+    // unrolled element code has no branches.
+    if constexpr (kQuant) {
+#pragma unroll
+      for (int n = 0; n < 32; ++n) sc[n] *= sks[8 * (n / 4) + 2 * q4 + (n & 1)];
+    }
+    if (logit_cap > 0.f) {  // cap * tanh(s / cap), in log2 units
+#pragma unroll
+      for (int n = 0; n < 32; ++n) sc[n] = cap_log2 * tanhf(sc[n] * cap_in);
+    }
+    if (k0 + kBK - 1 > thr_hi || (window > 0 && k0 < thr_lo)) {  // an edge crosses the tile
+#pragma unroll
+      for (int n = 0; n < 32; ++n) {
+        const int pos = k0 + 8 * (n / 4) + 2 * q4 + (n & 1);
+        const int i = (n >> 1) & 1;
+        sc[n] = pos > lim[i] || pos < lo[i] ? -INFINITY : sc[n];
+      }
+    }
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 32; ++n) mt[(n >> 1) & 1] = fmaxf(mt[(n >> 1) & 1], sc[n]);
+    float mu[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      const float m_new = fmaxf(m[i], mt[i] * mul);
+      mu[i] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing live yet
+      alpha[i] = ex2(m[i] - mu[i]);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(fmaf(sc[4 * c + 2 * i + e], mul, -mu[i]));
+          rs[i] += p;
+          sc[4 * c + 2 * i + e] = kQuant ? p * svs[8 * c + 2 * q4 + e] : p;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+    if constexpr (kPipelined) {
+      wgmma_wait<0>();  // the previous tile's PV
+      pv_done();
+      if (t > 0) release((t - 1) % kRing);  // K and V of tile t - 1 consumed
+    }
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {  // a row's max moved
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          o[4 * c + 2 * i] *= alpha[i];
+          o[4 * c + 2 * i + 1] *= alpha[i];
+        }
+    }
+    // P (8-bit: P * s_v) as bf16 hi + lo (8-bit pages: + the rest); the A
+    // fragment of k-step kk is registers 4kk..4kk+3
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float a = sc[4 * c + 2 * i], b = sc[4 * c + 2 * i + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+        const float2 hf = __bfloat1622float2(hi);
+        ph[2 * c + i] = bits(hi);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+        const float2 lf = __bfloat1622float2(lo);
+        pl[2 * c + i] = bits(lo);
+        if constexpr (kPTerms == 3) pr[2 * c + i] = pack_bf16(a - hf.x - lf.x, b - hf.y - lf.y);
+      }
+    pv = sb + S::kV + ob * S::kTile;
+    if constexpr (!kPipelined) {  // this tile's PV now, then its stage is free
+      wgmma_fence();
+      issue_pv();
+      wgmma_wait<0>();
+      pv_done();
+      release(st);
+    }
+  }
+  if constexpr (kPipelined) {
+    wgmma_fence();
+    issue_pv();
+    wgmma_wait<0>();
+    pv_done();
+  }
+
+  // the row sums over the quad, then O / l through shared memory (Q's
+  // space: each warpgroup writes only its own rows) to 16-byte stores
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  consumers_sync();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+      const int col = 8 * c + 2 * q4;
+      const uint32_t off = S::kQ + (col / 64) * S::kQBlock + swz(row, (col % 64) / 8) + (col % 8) * 2;
+      *reinterpret_cast<uint32_t*>(sm + off) =
+          pack_bf16(o[4 * c + 2 * i] * inv, o[4 * c + 2 * i + 1] * inv);
+    }
+  }
+  consumers_sync();
+  for (int i = tid; i < n_rows * CPR; i += kConsumers) {
+    const int r = i / CPR;
+    const int c = i % CPR;
+    const uint4 v = *reinterpret_cast<const uint4*>(sm + S::kQ + (c / 8) * S::kQBlock + swz(r, c % 8));
+    const int tok = q_start + i0 + r / G;
+    *reinterpret_cast<uint4*>(out + ((size_t)tok * hq + (size_t)h * G + r % G) * D + c * 8) = v;
   }
 }
 
@@ -280,7 +749,7 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
                          const int* tile_seq, const int* tile_cum, __nv_bfloat16* out,
                          int num_seqs, int num_tokens, int hkv, int G, int max_pages,
                          int page_size, float sm_scale, float logit_cap, int window) {
-  constexpr size_t bytes = smem_bytes<D>();
+  constexpr size_t bytes = smem_bytes<D, !std::is_same_v<CodeT, __nv_bfloat16>>();
   cudaError_t err = cudaFuncSetAttribute(paged_extend_kernel<D, CodeT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);

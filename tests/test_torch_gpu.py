@@ -19,7 +19,8 @@ rows of delta slots, and every other row must come out bit-equal to the
 input. The attention kernels with a soft cap and a static sliding window are
 held to their plain versions at Mistral-7B's shape (G 4, head_dim 128) at
 the same tolerance, over bf16, int8 and fp8 pages, the window's edge inside
-a page and inside a 64-token KV tile; a window at least as long as the
+a page and inside a 64-token KV tile, the extend also at head_dim 32 and 64
+with one and eight query heads per kv head; a window at least as long as the
 context gives the kernel's no-window output bit for bit. The decode
 ablation probe's ``out`` must lie within one bf16 ulp of its plain
 version's (both round the same f32 statistic to bf16 once), its ``aux``
@@ -306,6 +307,31 @@ def test_windowed_extend_kernel_matches_plain(gen, kind, cap, window):
     q = _capped(q, cap)
     k, v, ks, vs = _pages(kind, k, v)
     scale = 1 / math.sqrt(128)
+    out = _extend(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window)
+    ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, scale, ks, vs, cap, window)
+    _close(out, ref)
+    assert bool((out[int(cu[-1]) :] == 0).all())
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("cap, window", [(None, 100), (30.0, 37)])
+def test_windowed_extend_other_heads_match_plain(gen, kind, D, G, cap, window):
+    """head_dim 32 and 64, one and eight query heads per kv head (64 and 8
+    query tokens a 64-row tile), the window's edge inside a 64-token KV tile
+    and inside a page: windows of 100 and 37 over chunks of 300 on 1,000,
+    45 on 190 and 1 on 77 cached tokens, a fresh prompt and padding."""
+    chunks = [(300, 1000), (45, 190), (1, 77), (0, 0), (128, 128)]
+    k, v, pt = _pool([c[1] for c in chunks], 2, D, 16, gen)
+    k, v, ks, vs = _pages(kind, k, v)
+    q_lens = torch.tensor([c[0] for c in chunks], device="cuda")
+    cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
+    cu[1:] = torch.cumsum(q_lens, 0).to(torch.int32)
+    kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]) + 21, 2 * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    q = _capped(q, cap)
+    scale = 1 / math.sqrt(D)
     out = _extend(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window)
     ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, scale, ks, vs, cap, window)
     _close(out, ref)
