@@ -1,40 +1,229 @@
 // W4A16 GEMM for Hopper (sm_90a): bf16 activations times 4-bit
-// group-quantized weights on the bf16 tensor cores, f32 accumulation.
+// group-quantized weights on the bf16 tensor cores (wgmma), f32 sums.
 //
 // Replaces two kernels of scratchpad_tpu/ops/quant/pallas_w4.py:
 //   _w4_kernel_q4 (:394)  W4A16 over 4-bit-native storage, g % 32 == 0
 //   _w4_kernel    (:27)   W4A16 over u8 half planes, any g dividing In/2
-// As in w4a8_matmul.cu, one kernel takes every group size that divides In: a
-// 16-wide k-step that crosses a group edge is split into pieces, each with
-// the activations outside its group masked to zero.
 //
 // What it computes, over the port's packed layout
-// (scratchpad_tpu_torch/ops/quant/w4_matmul.py), in the group-factored form
-// of _w4_kernel_q4:
-//   y[m, n] = sum_g s[g,n] * (sum_{k in g} x[m,k] * c[k,n])
-//           - sum_g xg_sum[m,g] * (z[g,n] * s[g,n])
-// with c = nibble - 8 the signed code, z the zero point minus 8, and
-// xg_sum[m, g] the f32 sum of the group's bf16 activations, summed in this
-// kernel from the A fragments it already holds (each lane sums its part of a
-// row, the four lanes of a quad then add theirs). Codes are exact in bf16,
-// so each product is exact and the tensor cores accumulate in f32; a group's
-// f32 sum is folded with its scale at the group's end, the zero correction
-// summed apart and subtracted last. y is bf16 [M, N].
+// (scratchpad_tpu_torch/ops/quant/w4_matmul.py: q [N, Kp/2], s and z [G, N]):
+//   y[m, n] = bf16( sum_g s[g, n] * sum_{k in g} x[m, k] * (c[k, n] - z[g, n]) )
+// with c = nibble - 8 the signed code and z the zero point minus 8. Every
+// quantizer and checkpoint import the port has gives an integral zero, so
+// c - z is an integer in [-16, 15]: exact in bf16. The inner sums run on
+// the tensor cores in f32 and each group's sum is folded with its scale in
+// f32; no scale touches a code before the product (a weight rounded to bf16
+// as (c - z) * s reads about 150x the kernel-vs-plain gate, see
+// tests/test_torch_gemm_tiles.py). The kernel's sum differs from the plain
+// version's group-factored form (w4a16_matmul_plain, _w4_kernel_q4's
+// order) only in the order of its f32 additions.
 //
-// What bounds it: at decode (M <= 64) bytes, the 4-bit weights read once; at
-// prefill the bf16 operations, 2*M*In*Out at 989 TFLOP/s. The work split is
-// w4a8_matmul.cu's: mma.sync.m16n8k16 bf16; for M <= 64 a CTA owns a
-// 16-column strip and its 4 warps split the groups of In, reducing through
-// shared memory; for M > 64 a CTA owns 64 x 64 outputs; each warp loads the
-// next k-step's fragments before computing the current one.
-// Not done yet (later work): wgmma, TMA, a shared-memory ring, a pre-shuffled
-// weight layout for wide loads, a split-K decode path across CTAs.
+// What bounds it: at decode (M <= 64) the bytes, the codes read once; at
+// prefill the bf16 operations, 2 * M * In * Out at 989 TFLOP/s. The design
+// is sm90_gemm.cuh's mainloop: x by TMA and each 64-deep block of the codes
+// by cp.async into a ring; the consumer warpgroups convert a block exactly
+// while the previous one's products run, two codes a lop3: 0x4300 | nibble
+// is bf16 128 + nibble, and one bf16x2 subtraction of 136 + z gives c - z.
+// Prefill tiles are 128 x 128; decode tiles 64 x 256 (the head) or 64 x 64,
+// with K split across CTAs where the columns alone give fewer CTAs than
+// SMs, reduced in one launch. A group that is whole 64-deep blocks (g % 64
+// == 0: every Llama-family width) folds once a group; g % 16 == 0 otherwise
+// folds after its 16-deep step. Groups that cut a 16-deep step (GPT-OSS's
+// 120, 100) run the mma.sync kernel, w4a16_matmul_mma below.
+// Not done yet (later work): decode is bound by x read again for every
+// column tile (L2 to SM) and the split-K reduction, not by the codes' bytes:
+// weights as the register A operand (swap-AB, no bf16 B tile), x shared
+// across a cluster (a two-CTA TMA multicast ran slower: the pair waits on
+// each other's releases), TMA for the codes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_gemm.cuh"
+
 namespace {
+
+// four k-consecutive codes pairs of one packed word (code 2j in the low
+// nibble of byte j, 2j + 1 in its high one; nibble ^ 8) minus the zero, as
+// bf16x2 (code 2j in the low half): exact
+__device__ __forceinline__ void w4_word_to_bf16(uint32_t w, uint32_t sub, uint32_t (&o)[4]) {
+  const uint32_t h = w >> 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // byte j of w (code 2j low) to the low half, byte j of h (code 2j + 1
+    // low) to the high half; nibble ^ 8 is the unsigned c + 8, under the
+    // bf16 exponent of 128 (one lop3)
+    const uint32_t v = ((__byte_perm(w, h, 0x4400 + 0x1111 * j) & 0x000F000Fu) ^ 0x00080008u) | 0x43004300u;
+    __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                               *reinterpret_cast<const __nv_bfloat162*>(&sub));
+    o[j] = bits(r);
+  }
+}
+
+// The W4 op of sm90_gemm_kernel. Raw stage: the codes [BN][32 B] (64 codes
+// of a column), then s and z [SR][BN] bf16 each: the rows of the groups of
+// the block's four 16-deep steps (SR 4), or the one group of the block
+// where a group is whole blocks (SR 1: g % 64 == 0).
+template <int BN, int SR>
+struct W4Op {
+  static constexpr int kBN = BN;
+  static constexpr int kTB = 0;  // B K-major: a column's 64 codes in one swizzled row
+  static constexpr int kCodes = BN * 32;
+  static constexpr int kRow = BN * 2;  // one row of s or z
+  static constexpr int kRawBytes = kCodes + 2 * SR * kRow;
+  const uint8_t* q;
+  const __nv_bfloat16* s;
+  const __nv_bfloat16* z;
+  __nv_bfloat16* y;
+  int N, N_st, Kp, g, ld_sz, G;
+
+  __device__ bool start(int, int, int, int, int, int) const { return true; }
+  __device__ void issue(uint32_t dst, int kb, int n_base, int p) const {
+    const int row_bytes = Kp / 2;
+    for (int i = p; i < BN * 2; i += kCopiers) {
+      const int n = n_base + (i >> 1), off = kb * 32 + (i & 1) * 16;
+      const bool ok = n < N_st && off < row_bytes;
+      cp_async16(dst + i * 16, q + (ok ? (size_t)n * row_bytes + off : 0), ok);
+    }
+    for (int i = p; i < 2 * SR * (BN / 8); i += kCopiers) {  // s rows, then z rows
+      const int row = i / (BN / 8), c = i % (BN / 8), n = n_base + c * 8;
+      const int gi = min((kb * kKB + 16 * (row % SR)) / g, G - 1);
+      const bool ok = n < N_st;
+      const __nv_bfloat16* src = (row < SR ? s : z) + (ok ? (size_t)gi * ld_sz + n : 0);
+      cp_async16(dst + kCodes + row * kRow + c * 16, src, ok);
+    }
+  }
+  // codes of the NCOL columns from n_lo -> the bf16 B tile [BN][128 B], row
+  // n holding c - z of k = 0..63; thread q of the 128 that share them. A
+  // unit is a column's 16 codes of one 16-deep step: loads first, then the
+  // conversions.
+  template <int NCOL>
+  __device__ void convert(const uint8_t* raw, uint8_t* w, int n_lo, int q) const {
+    constexpr int U = NCOL * 4 / 128;
+    const __nv_bfloat16* zr = reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + SR * kRow);
+    uint2 c8[U];
+    __nv_bfloat16 zv[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int u = q + 128 * i, row = n_lo + (u >> 2), kk = u & 3;
+      c8[i] = *reinterpret_cast<const uint2*>(raw + row * 32 + kk * 8);
+      zv[i] = zr[(kk % SR) * BN + row];
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int u = q + 128 * i, row = n_lo + (u >> 2), kk = u & 3;
+      const uint32_t sub = bits(__float2bfloat162_rn(136.f + __bfloat162float(zv[i])));
+      uint32_t o[4];
+      w4_word_to_bf16(c8[i].x, sub, o);
+      *reinterpret_cast<uint4*>(w + swz(row, 2 * kk)) = make_uint4(o[0], o[1], o[2], o[3]);
+      w4_word_to_bf16(c8[i].y, sub, o);
+      *reinterpret_cast<uint4*>(w + swz(row, 2 * kk + 1)) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+  __device__ uint64_t b_desc(uint32_t wb, int n0, int kk) const {
+    return desc(wb + n0 * 128 + kk * 32, 16, 1024);
+  }
+  __device__ bool group_start(int kb) const { return kb % (g / kKB) == 0; }
+  __device__ bool group_end(int kb) const { return (kb + 1) % (g / kKB) == 0; }
+  __device__ bool step_starts(int j) const { return 16 * j % g == 0; }
+  __device__ bool step_ends(int j) const { return 16 * (j + 1) % g == 0; }
+  // tot += acc * s of the group of step kk, column by column, in f32
+  template <int NACC>
+  __device__ void fold(const float (&acc)[NACC], float (&tot)[NACC], const uint8_t* raw, int kk,
+                       int col) const {
+    const __nv_bfloat16* sr = reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + (kk % SR) * kRow) + col;
+#pragma unroll
+    for (int c = 0; c < NACC / 4; ++c) {
+      const float2 sv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sr + 8 * c));
+      tot[4 * c] += acc[4 * c] * sv.x;
+      tot[4 * c + 1] += acc[4 * c + 1] * sv.y;
+      tot[4 * c + 2] += acc[4 * c + 2] * sv.x;
+      tot[4 * c + 3] += acc[4 * c + 3] * sv.y;
+    }
+  }
+  template <int NACC>
+  __device__ void store(const float (&v)[NACC], int m0, int n0, int M) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + 8 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int c = 0; c < NACC / 4; ++c) {
+        const int n = n0 + 8 * c;
+        if (n >= N) continue;
+        __nv_bfloat16* p = y + (size_t)m * N + n;
+        if (n + 1 < N && !(N & 1)) {
+          *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[4 * c + 2 * i], v[4 * c + 2 * i + 1]);
+        } else {
+          p[0] = __float2bfloat16(v[4 * c + 2 * i]);
+          if (n + 1 < N) p[1] = __float2bfloat16(v[4 * c + 2 * i + 1]);
+        }
+      }
+    }
+  }
+};
+
+template <int NC, int WM, int NW>
+cudaError_t launch_w4(const __nv_bfloat16* x, const uint8_t* q, const __nv_bfloat16* s,
+                      const __nv_bfloat16* z, __nv_bfloat16* y, int M, int N, int K, int ld_x,
+                      int Kp, int g, int ld_sz, uint8_t* ws, int splits, cudaStream_t st) {
+  using T = GemmTile<NC, WM, NW>;
+  const GemmArgs a{x, ld_x, M, K, (N + T::BN - 1) / T::BN, (K + kKB - 1) / kKB, splits, ws};
+  const int m_tiles = (M + T::BM - 1) / T::BM;
+  if (g % kKB == 0)
+    return run_gemm<W4Op<T::BN, 1>, NC, WM, NW, false>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g},
+                                                         a, m_tiles, 1, st);
+  return run_gemm<W4Op<T::BN, 4>, NC, WM, NW, true>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g}, a,
+                                                      m_tiles, 1, st);
+}
+
+}  // namespace
+
+// y bf16 [M, N] = x bf16 [M, K] (row stride ld_x) times the packed weight q
+// [ld_sz >= N, Kp/2] with s, z bf16 [K/g, ld_sz], on the tile configuration
+// (0: 128 x 128, 1: 64 x 256, 2: 64 x 64) and K split that
+// ops/quant/w4_matmul.py::gemm_plan gives; workspace: its split-K counters
+// (zero) and partials. g % 16 == 0, ld_sz % 8 == 0 and ld_x % 8 == 0, or
+// cudaErrorInvalidValue (w4a16_matmul_mma takes the other groups). Returns
+// the launch's cudaError_t.
+extern "C" int w4a16_matmul(const void* x, const void* q, const void* s, const void* z, void* y,
+                            int M, int N, int K, int ld_x, int Kp, int g, int ld_sz,
+                            void* stream, void* workspace, int config, int splits) {
+  if (M == 0 || N == 0) return 0;
+  if (g <= 0 || g % 16 || K % g || ld_sz % 8 || ld_x % 8 || splits < 1)
+    return cudaErrorInvalidValue;
+  const auto* xx = (const __nv_bfloat16*)x;
+  const auto* qq = (const uint8_t*)q;
+  const auto* ss = (const __nv_bfloat16*)s;
+  const auto* zz = (const __nv_bfloat16*)z;
+  auto* out = (__nv_bfloat16*)y;
+  auto* ws = (uint8_t*)workspace;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (config) {
+    case 0:
+      return launch_w4<2, 2, 128>(xx, qq, ss, zz, out, M, N, K, ld_x, Kp, g, ld_sz, ws, splits, st);
+    case 1:
+      return launch_w4<2, 1, 128>(xx, qq, ss, zz, out, M, N, K, ld_x, Kp, g, ld_sz, ws, splits, st);
+    case 2:
+      return launch_w4<1, 1, 64>(xx, qq, ss, zz, out, M, N, K, ld_x, Kp, g, ld_sz, ws, splits, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------- the mma.sync kernel
+//
+// The group-factored form of _w4_kernel_q4 on mma.sync.m16n8k16 (see
+// w4a8_matmul.cu for the work split), for any group that divides In: a
+// 16-wide k-step that crosses a group edge is split into pieces, each with
+// the activations outside its group masked to zero.
+//   y[m, n] = sum_g s[g,n] * (sum_{k in g} x[m,k] * c[k,n])
+//           - sum_g xg_sum[m,g] * (z[g,n] * s[g,n])
+// with xg_sum[m, g] the f32 sum of the group's bf16 activations.
+
+namespace {
+namespace mma_sync {
 
 constexpr int kWarps = 4;
 constexpr int kNT = 2;  // n8 tiles per warp: 16 output columns
@@ -112,7 +301,7 @@ __device__ __forceinline__ void load_frags(Frags<MT>& f, const __nv_bfloat16* __
 // The CTA and warp split of w4a8_gemm_kernel (see w4a8_matmul.cu).
 template <int MT, bool SPLITK>
 __global__ void __launch_bounds__(kWarps * 32)
-w4a16_gemm_kernel(const __nv_bfloat16* __restrict__ x, int ld_x, const uint8_t* __restrict__ q,
+w4a16_mma_kernel(const __nv_bfloat16* __restrict__ x, int ld_x, const uint8_t* __restrict__ q,
                   const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ z,
                   __nv_bfloat16* __restrict__ y, int M, int N, int K, int Kp, int g,
                   int ld_sz) {
@@ -252,18 +441,19 @@ template <int MT, bool SPLITK>
 cudaError_t launch_gemm(dim3 grid, cudaStream_t st, const __nv_bfloat16* x, int ld_x,
                         const uint8_t* q, const __nv_bfloat16* s, const __nv_bfloat16* z,
                         __nv_bfloat16* y, int M, int N, int K, int Kp, int g, int ld_sz) {
-  w4a16_gemm_kernel<MT, SPLITK><<<grid, kWarps * 32, 0, st>>>(x, ld_x, q, s, z, y, M, N, K, Kp,
+  w4a16_mma_kernel<MT, SPLITK><<<grid, kWarps * 32, 0, st>>>(x, ld_x, q, s, z, y, M, N, K, Kp,
                                                                g, ld_sz);
   return cudaGetLastError();
 }
 
+}  // namespace mma_sync
 }  // namespace
 
-// y bf16 [M, N] = x bf16 [M, K] (row stride ld_x) times the packed weight q
-// [>= N, Kp/2] with s, z bf16 [K/g, ld_sz]. Returns the launch's cudaError_t.
-extern "C" int w4a16_matmul(const void* x, const void* q, const void* s, const void* z, void* y,
-                            int M, int N, int K, int ld_x, int Kp, int g, int ld_sz,
-                            void* stream) {
+// The mma.sync.m16n8k16 kernel (any group that divides K): what
+// w4a16_matmul does, for the groups it does not take (g % 16 != 0).
+extern "C" int w4a16_matmul_mma(const void* x, const void* q, const void* s, const void* z,
+                                void* y, int M, int N, int K, int ld_x, int Kp, int g, int ld_sz,
+                                void* stream) {
   if (M == 0 || N == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const auto* xx = (const __nv_bfloat16*)x;
@@ -272,11 +462,12 @@ extern "C" int w4a16_matmul(const void* x, const void* q, const void* s, const v
   const auto* zz = (const __nv_bfloat16*)z;
   auto* out = (__nv_bfloat16*)y;
   if (M <= 64) {
-    const dim3 grid(1, (N + kNT * 8 - 1) / (kNT * 8));
-    if (M <= 16) return launch_gemm<1, true>(grid, st, xx, ld_x, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
-    if (M <= 32) return launch_gemm<2, true>(grid, st, xx, ld_x, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
-    return launch_gemm<4, true>(grid, st, xx, ld_x, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
+    const dim3 grid(1, (N + mma_sync::kNT * 8 - 1) / (mma_sync::kNT * 8));
+    if (M <= 16) return mma_sync::launch_gemm<1, true>(grid, st, xx, ld_x, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
+    if (M <= 32) return mma_sync::launch_gemm<2, true>(grid, st, xx, ld_x, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
+    return mma_sync::launch_gemm<4, true>(grid, st, xx, ld_x, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
   }
-  const dim3 grid((M + 63) / 64, (N + kWarps * kNT * 8 - 1) / (kWarps * kNT * 8));
-  return launch_gemm<4, false>(grid, st, xx, ld_x, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
+  constexpr int kCols = mma_sync::kWarps * mma_sync::kNT * 8;
+  const dim3 grid((M + 63) / 64, (N + kCols - 1) / kCols);
+  return mma_sync::launch_gemm<4, false>(grid, st, xx, ld_x, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
 }

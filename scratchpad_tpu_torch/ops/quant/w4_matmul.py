@@ -9,6 +9,11 @@ group size; the per-token int8 quantization of the activations, which the
 JAX package leaves to XLA, is a third (``w4_quantize_rows`` in
 ``w4a8_matmul.cu``).
 
+``gemm_plan`` is the launch plan of the Hopper GEMM mainloop
+(``csrc/sm90_gemm.cuh``) that ``w4a16_matmul`` and the delta kernel
+(``ops/ldmm.py``) run on: the output tile, the K split and the split-K
+workspace, which each wrapper allocates once per device and keeps.
+
 The packed layout, one for every group size. A weight W[In, Out] of
 ``w4a16.QuantizedLinear`` (nibble planes) is stored as
 
@@ -34,6 +39,7 @@ refuse mid-request.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -48,8 +54,12 @@ _SIGNATURES_A8 = {
     "w4a8_matmul": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
 }
 _SIGNATURES_A16 = {
-    "w4a16_matmul": ([_P] * 5 + [_I] * 7 + [_P], ctypes.c_int),
+    "w4a16_matmul": ([_P] * 5 + [_I] * 7 + [_P, _P, _I, _I], ctypes.c_int),
+    "w4a16_matmul_mma": ([_P] * 5 + [_I] * 7 + [_P], ctypes.c_int),
 }
+# the timing cut of csrc/sm90_gemm.cuh: every block loaded and converted, no
+# products, nothing written (tools/gemm_ab.py)
+GEMM_CUT = {"SPTPU_GEMM_CUT": 1}
 K_ALIGN = 32
 # the quantizer keeps one int per group in shared memory
 MAX_GROUPS = 227 * 1024 // 4
@@ -57,6 +67,101 @@ MAX_GROUPS = 227 * 1024 // 4
 
 def padded_in(in_features: int) -> int:
     return -(-in_features // K_ALIGN) * K_ALIGN
+
+
+# ---------------------------------------------------------------- launch plan
+
+SMS = 132  # streaming multiprocessors of one H100 SXM
+K_BLOCK = 64  # the mainloop's k block (kKB)
+# csrc/sm90_gemm.cuh's tile configurations, by the id its kernels take:
+# (rows, columns) of a CTA's output tile
+TILE_CONFIGS = {0: (128, 128), 1: (64, 256), 2: (64, 64)}
+COUNTER_SLOTS = 4096  # kCounterSlots: i32 split-K counters at the workspace's head
+PARTIAL_BYTES = 32 << 20  # the f32 partials a workspace holds
+WORKSPACE_BYTES = COUNTER_SLOTS * 4 + PARTIAL_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One launch of ``sm90_gemm_kernel``: grid ``(n_tiles * splits,
+    m_tiles, slots)``; the CTA of split ``i`` takes k blocks
+    ``k_range(i)``."""
+
+    config: int
+    m_tiles: int
+    n_tiles: int
+    k_blocks: int
+    splits: int
+    slots: int = 1
+
+    @property
+    def tile(self) -> tuple[int, int]:
+        return TILE_CONFIGS[self.config]
+
+    @property
+    def ctas(self) -> int:
+        return self.n_tiles * self.splits * self.m_tiles * self.slots
+
+    def k_range(self, split: int) -> tuple[int, int]:
+        """The k blocks ``[first, end)`` of a split, by the kernel's rule."""
+        return split * self.k_blocks // self.splits, (split + 1) * self.k_blocks // self.splits
+
+    @property
+    def workspace_bytes(self) -> int:
+        """Counters and f32 partials the launch uses (0 without a split)."""
+        if self.splits == 1:
+            return 0
+        bm, bn = self.tile
+        tiles = self.slots * self.m_tiles * self.n_tiles
+        return COUNTER_SLOTS * 4 + tiles * self.splits * bm * bn * 4
+
+
+def gemm_plan(M: int, N: int, K: int, slots: int = 1) -> GemmPlan:
+    """The tile and K split of an ``M x K`` by ``K x N`` product, for each
+    of ``slots`` independent products (the delta kernel's adapter slots).
+
+    Prefill (M > 64): 128 x 128 tiles. Decode: 64 x 256 where N gives at
+    least 128 such tiles (the head, whose activations would otherwise be
+    read once per narrow tile), else 64 x 64. Where the tiles of one slot
+    are fewer than the SMs, K is split so that they fill the card (at most
+    one split per k block), as far as the workspace and its counters hold
+    the partials of every slot."""
+    config = 0 if M > 64 else 1 if N >= 128 * 256 else 2
+    bm, bn = TILE_CONFIGS[config]
+    m_tiles, n_tiles, k_blocks = -(-M // bm), -(-N // bn), -(-K // K_BLOCK)
+    tiles = m_tiles * n_tiles
+    splits = 1 if tiles >= SMS else min(k_blocks, -(-SMS // tiles))
+    plan = GemmPlan(config, m_tiles, n_tiles, k_blocks, splits, slots)
+    while plan.splits > 1 and (
+        slots * tiles > COUNTER_SLOTS or plan.workspace_bytes > WORKSPACE_BYTES
+    ):
+        plan = dataclasses.replace(plan, splits=plan.splits - 1)
+    return plan
+
+
+def w4a16_plan(M: int, N: int, K: int, group_size: int, width: int) -> GemmPlan | None:
+    """``w4a16_matmul``'s plan for ``x [M, K]`` times a packed weight of
+    stored ``width`` columns, ``N`` of them read; None where the group cuts
+    a 16-deep step (GPT-OSS's 120 and 100) or the stored width is not a
+    multiple of 8: the mma.sync kernel (``w4a16_matmul_mma``) takes those."""
+    if group_size % 16 or width % 8:
+        return None
+    return gemm_plan(M, N, K)
+
+
+_workspaces: dict[tuple[str, torch.device], torch.Tensor] = {}
+
+
+def workspace(kernel: str, device) -> torch.Tensor:
+    """``kernel``'s split-K workspace on ``device``: counters zeroed once,
+    then kept zero by the kernel, and room for any plan's partials.
+    Allocated at the first call and kept, so that no call allocates it
+    again (a CUDA graph can capture the call). One stream at a time."""
+    key = (kernel, torch.device(device))
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = _workspaces[key] = torch.zeros(WORKSPACE_BYTES, dtype=torch.uint8, device=device)
+    return ws
 
 
 # ---------------------------------------------------------------- layout
@@ -240,29 +345,55 @@ def w4a8_matmul(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> to
 w4a8_matmul.launches = 0
 
 
+def _w4a16_launch(lib, x, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
+    M, In = x.shape
+    _check_weight(q, s, z, In, group_size, out_features)
+    _check_rows("x", x, torch.bfloat16, In)
+    y = torch.empty(M, out_features, dtype=torch.bfloat16, device=x.device)
+    args = (
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), z.data_ptr(), y.data_ptr(), M, out_features,
+        In, In, padded_in(In), group_size, s.shape[1], native.stream_handle(x.device),
+    )
+    plan = w4a16_plan(M, out_features, In, group_size, s.shape[1])
+    if plan is None:
+        rc = lib.w4a16_matmul_mma(*args)
+    else:
+        ws = workspace("w4a16_matmul", x.device)
+        rc = lib.w4a16_matmul(*args, ws.data_ptr(), plan.config, plan.splits)
+    if rc != 0:
+        raise RuntimeError(f"w4a16_matmul launch failed: cudaError {rc}")
+    return y
+
+
 def w4a16_matmul(x, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
     """``[M, out_features]`` product of ``x [M, In]`` and a packed weight
     (bf16 from the kernel, f32 from the plain version; see
-    ``csrc/w4a16_matmul.cu``)."""
+    ``csrc/w4a16_matmul.cu``, launched on ``w4a16_plan``'s plan)."""
     native.check_same_device(x, q, s, z)
     if x.device.type == "cpu":
         return w4a16_matmul_plain(x, q, s, z, group_size, out_features)
     if x.device.type != "cuda":
         raise ValueError(f"w4a16_matmul: unsupported device {x.device}")
-    M, In = x.shape
-    _check_weight(q, s, z, In, group_size, out_features)
-    _check_rows("x", x, torch.bfloat16, In)
-    lib = native.load("w4a16_matmul", _SIGNATURES_A16)
-    y = torch.empty(M, out_features, dtype=torch.bfloat16, device=x.device)
-    rc = lib.w4a16_matmul(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), z.data_ptr(), y.data_ptr(), M,
-        out_features, In, In, padded_in(In), group_size, s.shape[1],
-        native.stream_handle(x.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"w4a16_matmul launch failed: cudaError {rc}")
+    y = _w4a16_launch(native.load("w4a16_matmul", _SIGNATURES_A16), x, q, s, z, group_size,
+                      out_features)
     w4a16_matmul.launches += 1
     return y
 
 
 w4a16_matmul.launches = 0
+
+
+def w4a16_matmul_cut(x, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
+    """The kernel built with ``GEMM_CUT``, for timing only: it loads and
+    converts every block and takes no product, so its output is not the
+    product. Card only; groups that ``w4a16_plan`` sends to the mma.sync
+    kernel raise."""
+    native.check_same_device(x, q, s, z)
+    if x.device.type != "cuda":
+        raise ValueError("w4a16_matmul_cut runs on the card only")
+    if w4a16_plan(x.shape[0], out_features, x.shape[1], group_size, s.shape[1]) is None:
+        raise ValueError(f"group {group_size} runs the mma.sync kernel, which has no cut")
+    y = _w4a16_launch(native.load("w4a16_matmul", _SIGNATURES_A16, GEMM_CUT), x, q, s, z,
+                      group_size, out_features)
+    return y
+

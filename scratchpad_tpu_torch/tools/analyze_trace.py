@@ -32,9 +32,10 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def port_kernel_names(csrc: Path = CSRC) -> tuple[str, ...]:
-    """The names of the ``__global__`` functions in the port's CUDA sources."""
+    """The names of the ``__global__`` functions in the port's CUDA sources
+    and headers."""
     names = set()
-    for src in sorted(csrc.glob("*.cu")):
+    for src in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         text = src.read_text()
         names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text))
     return tuple(sorted(names))

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
 ``csrc/build/`` (listed in ``.gitignore``). The library file name carries a
-hash of its source, so an edited kernel rebuilds and a stale one is never
-loaded. ``build()`` starts one ``nvcc`` per source, all at once.
+hash of its source and of every header in ``csrc/`` (``*.cuh``), so an
+edited kernel or header rebuilds and a stale library is never loaded.
+``build()`` starts one ``nvcc`` per source, all at once.
 
 A variant build compiles one source with compile-time defines (``-D``), so
 that one source gives several libraries, as the decode kernel's stage cuts
@@ -68,7 +69,8 @@ def _define_flags(defines: dict) -> list[str]:
 def _lib_path(name: str, defines: dict | None = None) -> Path:
     flags = NVCC_FLAGS + _define_flags(defines or {})
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
+    headers = b"".join(h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(flags).encode()).hexdigest()[:12]
     tag = "".join(f"-{k}={v}" for k, v in sorted((defines or {}).items()))
     return BUILD_DIR / f"lib{name}-{digest}{tag}.so"
 

@@ -16,7 +16,9 @@ held to the plain version's f32 dequantize-then-attend at the same
 tolerance, and the KV quantizer on the card to itself on the CPU, bit for
 bit. The grouped delta kernel is held to its plain version's f32 sum on the
 rows of delta slots, and every other row must come out bit-equal to the
-input. The attention kernels with a soft cap and a static sliding window are
+input. The W4A16 and delta kernels are also held at the edges of their
+launch plans (64 | 65 rows, one and two 128-row tiles, an Out of 1000), and
+where a plan splits K, two calls must give the same bits. The attention kernels with a soft cap and a static sliding window are
 held to their plain versions at Mistral-7B's shape (G 4, head_dim 128) at
 the same tolerance, over bf16, int8 and fp8 pages, the window's edge inside
 a page and inside a 64-token KV tile, the extend also at head_dim 32 and 64
@@ -455,6 +457,51 @@ def test_w4_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         w4a8_matmul(x8, ax, gsum, q.cpu(), s.cpu(), z.cpu(), g, out_f)
 
 
+# Llama-3.2-1B's quantized matrices (In, Out), gate|up fused and the head
+LLAMA_1B_W4 = {
+    "wq": (2048, 2048), "wk": (2048, 512), "wo": (2048, 2048), "gate_up": (2048, 16384),
+    "down": (8192, 2048), "lm_head": (2048, 128256),
+}
+
+
+def _random_w4(In, Out, gen, g=128):
+    """Random packed codes with bf16 scales in [0.005, 0.02) and zero points
+    0..15 (stored minus 8), as chip_smoke.py's ``random_w4``."""
+    q = torch.randint(0, 256, (Out, In // 2), generator=gen, device="cuda", dtype=torch.uint8)
+    s = (torch.rand(In // g, Out, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
+    z = (torch.randint(0, 16, (In // g, Out), generator=gen, device="cuda") - 8).to(torch.bfloat16)
+    return q, s, z
+
+
+@pytest.mark.parametrize("M", [65, 129, 200])
+@pytest.mark.parametrize("name", list(LLAMA_1B_W4))
+def test_w4a16_kernel_matches_plain_at_the_plan_edges(gen, name, M):
+    """The Hopper kernel's row edges (64 | 65, one and two 128-row tiles) at
+    the 1B's matrices; the zero row exact."""
+    In, Out = LLAMA_1B_W4[name]
+    q, s, z = _random_w4(In, Out, gen)
+    x = _w4_rows(M, In, gen)
+    out = w4a16_matmul(x, q, s, z, 128, Out)
+    _close(out, w4a16_matmul_plain(x, q, s, z, 128, Out))
+    assert not out[M // 2].any()
+
+
+@pytest.mark.parametrize("name,M", [("wq", 64), ("wk", 64), ("down", 64), ("wk", 65), ("wq", 5)])
+def test_w4a16_split_k_is_bit_exact(gen, name, M):
+    """Two calls of a plan that splits K give the same bits (the last CTA
+    of a tile adds the partials in split order)."""
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import w4a16_plan
+
+    In, Out = LLAMA_1B_W4[name]
+    assert w4a16_plan(M, Out, In, 128, Out).splits > 1
+    q, s, z = _random_w4(In, Out, gen)
+    x = _w4_rows(M, In, gen)
+    a = w4a16_matmul(x, q, s, z, 128, Out)
+    b = w4a16_matmul(x, q, s, z, 128, Out)
+    assert torch.equal(a, b)
+    _close(a, w4a16_matmul_plain(x, q, s, z, 128, Out))
+
+
 # (active_adapters, slots the tokens take); pool adapter 3 is LoRA only
 DELTA_LAYOUTS = {
     "one_slot": ([0, 2, 0, 0, 0, 0, 0, 0], [1]),
@@ -494,6 +541,36 @@ def test_delta_kernel_matches_plain(gen, T, In, Out, layout):
     assert torch.equal(got[~touched], out0[~touched])
 
 
+@pytest.mark.parametrize("layout", list(DELTA_LAYOUTS))
+@pytest.mark.parametrize(
+    "T,In,Out",
+    [(T, In, Out) for T in (65, 129) for In, Out in [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]]
+    + [(T, 2048, 1000) for T in (1, 64, 129)],
+)
+def test_delta_kernel_matches_plain_at_the_plan_edges(gen, T, In, Out, layout):
+    """The Hopper kernel's row edges (64 | 65, 128 | 129) and an Out that no
+    tile width divides (1000, its rows 8-byte aligned only)."""
+    out0, args = _delta_case(T, In, Out, layout, gen)
+    got = delta_matmul_grouped(out0.clone(), *args)
+    ref = delta_matmul_grouped_plain(out0.float(), *args)
+    x, dq, ds, layer, act, has_delta, scaling, slots = args
+    touched = (slots > 0) & (has_delta[act[slots].long()] > 0)
+    _close(got[touched], ref[touched])
+    assert torch.equal(got[~touched], out0[~touched])
+
+
+@pytest.mark.parametrize("T,In,Out", [(64, 2048, 512), (16, 2048, 2048), (64, 8192, 2048), (100, 2048, 512)])
+def test_delta_split_k_is_bit_exact(gen, T, In, Out):
+    """Two calls of a plan that splits K give the same bits."""
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import gemm_plan
+
+    assert gemm_plan(T, Out, In, slots=7).splits > 1
+    out0, args = _delta_case(T, In, Out, "all_eight_mixed", gen)
+    a = delta_matmul_grouped(out0.clone(), *args)
+    b = delta_matmul_grouped(out0.clone(), *args)
+    assert torch.equal(a, b)
+
+
 def test_delta_wrapper_raises_on_what_the_kernel_does_not_take(gen):
     out, args = _delta_case(8, 256, 128, "one_slot", gen)
     x, dq, ds, layer, act, has_delta, scaling, slots = args
@@ -507,6 +584,12 @@ def test_delta_wrapper_raises_on_what_the_kernel_does_not_take(gen):
         delta_matmul_grouped(out, x, dq, ds, layer, act, has_delta, scaling, slots.long())
     with pytest.raises(ValueError):  # slots on the CPU
         delta_matmul_grouped(out, x, dq, ds, layer, act, has_delta, scaling, slots.cpu())
+
+
+def test_delta_wrapper_refuses_an_out_it_cannot_copy(gen):
+    out, args = _delta_case(8, 256, 124, "one_slot", gen)  # rows 4-byte aligned
+    with pytest.raises(ValueError, match="multiple of 8"):
+        delta_matmul_grouped(out, *args)
 
 
 # ------------------------------------------------------------------

@@ -189,7 +189,7 @@ def test_analyze_trace_sums_a_known_trace(tmp_path, capsys):
 def test_analyze_trace_knows_the_port_kernels():
     names = analyze_trace.port_kernel_names()
     for k in ("paged_decode_kernel", "paged_extend_kernel", "decode_ablate_kernel",
-              "w4a8_gemm_kernel", "w4a16_gemm_kernel", "delta_grouped_kernel"):
+              "w4a8_gemm_kernel", "sm90_gemm_kernel", "w4a16_mma_kernel"):
         assert k in names
     assert analyze_trace.category("void decode_ablate_kernel<128, 4, 4>(...)", "kernel", names) == \
         "port kernel"
