@@ -13,11 +13,13 @@ Phases, in order; any failure exits non-zero before the last line:
    csrc`` with ``nvcc`` for sm_90a, one ``nvcc`` per source, in parallel,
    and with them the decode kernel's four stage variants (``-DSPTPU_DECODE_
    STAGE=1, 2, 3, 5``, variant libraries of the same source). ``[sass]``
-   lines count the tensor-core (``HGMMA``, ``HMMA``) and asynchronous-copy
-   (``LDGSTS``, ``UTMALDG``) instructions of the extend, W4A16 and delta
-   libraries (``SASS_LIBRARIES``) from ``cuobjdump --dump-sass``; a library
-   without a tensor-core instruction fails, and so does a W4A16 or delta
-   library without ``HGMMA`` or without an asynchronous copy.
+   lines count the tensor-core (``HGMMA``, ``IGMMA``, ``HMMA``, ``IMMA``)
+   and asynchronous-copy (``LDGSTS``, ``UTMALDG``) instructions of the
+   extend, W4A8, W4A16 and delta libraries (``SASS_LIBRARIES``) from
+   ``cuobjdump --dump-sass``; a library without a tensor-core instruction
+   fails, and so does a W4A16 or delta library without ``HGMMA``, a W4A8
+   library without the integer ``IGMMA``, or any of the three without an
+   asynchronous copy.
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs (the plain version computes and returns f32). Attention, on
    bf16 pages and on int8 and fp8 (e4m3) pages with per-(token, head) bf16
@@ -27,15 +29,17 @@ Phases, in order; any failure exits non-zero before the last line:
    chunk lengths, cached prefixes and padded tokens. The KV quantizer on the
    card must match itself on the CPU bit for bit. The
    4-bit GEMMs: Llama-3.2-1B's seven matrices at M of 1, 64, 65, 129, 200
-   and 2048 (``W4_CHECK_M``), a group of 120 (GPT-OSS's 2880 -> 5760) and
-   of 100 with a padded Out, each GEMM on the same int8 (W4A8) or bf16
-   (W4A16) rows as its plain version; the row quantizer must match its
-   plain version bit for bit. The grouped int8 delta kernel of the toppings
+   and 2048 (``W4_CHECK_M``), groups of 64 and 32 at three of them
+   (``W4_SMALL_GROUPS``), a group of 120 (GPT-OSS's 2880 -> 5760) and of
+   100 with a padded Out (W4A8's ``mma.sync`` route), each GEMM on the same
+   int8 (W4A8) or bf16 (W4A16) rows as its plain version; the row
+   quantizer must match its plain version bit for bit. The grouped int8 delta kernel of the toppings
    path: Llama-3.2-1B's projection shapes (2048 -> 2048, 512, 8192; 8192 ->
    2048) and 2048 -> 1000 at 1, 7, 64, 65, 129 and 2048 tokens, over five
    slot layouts (one slot; all eight mixed; a slot with no tokens; a
-   LoRA-only slot; no adapter at all). Where the W4A16 or delta launch plan
-   splits K across CTAs, a second call must give the same bits. The soft cap and the
+   LoRA-only slot; no adapter at all). Where the W4A8, W4A16 or delta
+   launch plan splits K across CTAs, a second call must give the same
+   bits. The soft cap and the
    static sliding window at Mistral-7B's shape (G 4, head_dim 128): decode
    at B 1 and 64, contexts 256, 4096 and 8192, for each (cap, W) of
    ``CAPS_WINDOWS`` over bf16 pages and ``CAPS_WINDOWS_8BIT`` over int8 and
@@ -78,8 +82,8 @@ Phases, in order; any failure exits non-zero before the last line:
    and down of every layer) and serves the request set again with each
    request naming none or one of them (``1b-toppings``; the two prompts
    that share a prefix name different adapters and must not share KV); the
-   W4A8 engine does the same after its W4A16 phase (``w4a8-toppings``, not
-   timed). The delta kernel must launch once per projection and layer of
+   W4A8 engine does the same after its W4A16 phase (``w4a8-toppings``);
+   neither toppings engine is timed. The delta kernel must launch once per projection and layer of
    every forward whose batch names an adapter.
    Every kernel's launch count is set to 0 just before and read just
    after; attention must launch at least layers x forwards of its mode
@@ -95,8 +99,9 @@ Phases, in order; any failure exits non-zero before the last line:
    those whose plain top-2 logits are equal or adjacent bf16 values (the
    logits are bf16, so ties occur), and max
    |diff| must stay within LOGIT_RTOL of max |logit|. After each
-   engine's checks, while all checks hold: its decode tokens/s at batch 64
-   with 128-token prompts and 128 new tokens, and the device's busy share
+   engine's checks, while all checks hold (but the toppings engines'): its
+   decode tokens/s at batch 64 with 128-token prompts and 128 new tokens,
+   and the device's busy share
    of its decode steps: device time per step over three decode windows
    of a profiled run (``torch.profiler``) against the timed run's wall per
    step; the trace of those windows, exported and read back by
@@ -131,7 +136,9 @@ Phases, in order; any failure exits non-zero before the last line:
    must launch. It prints the mode table (each mode's ms per 16 chained
    layers at the JAX probe's shape, its plain version's and its bounds) and
    the stage table (each cut's ms at the 1B, 3B and 7B decode shapes beside
-   the full decode's bound).
+   the full decode's bound). And ``tools/w4_kernel_bench.py``'s ``main``
+   with ``--route a8`` at GPT-OSS's widths (groups of 120 and 100), the
+   path of W4A8's ``mma.sync`` kernel, counted the same way.
 6. one JSON line with every kernel's numbers, one with the engines', the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -340,9 +347,11 @@ def sass_counts(sass: str, opcodes) -> dict:
     return {op: ops.count(op) for op in opcodes}
 
 
-# the libraries whose SASS phase 2 counts: the extend kernel, and the two
-# GEMMs on csrc/sm90_gemm.cuh, which must hold wgmma and asynchronous copies
-SASS_LIBRARIES = ("paged_extend_attention", "w4a16_matmul", "delta_matmul")
+# the libraries whose SASS phase 2 counts: the extend kernel, and the three
+# GEMMs on csrc/sm90_gemm.cuh, which must hold wgmma (the integer IGMMA for
+# W4A8, HGMMA for the others) and asynchronous copies
+SASS_LIBRARIES = ("paged_extend_attention", "w4a8_matmul", "w4a16_matmul", "delta_matmul")
+SASS_OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "LDGSTS", "UTMALDG")
 
 
 def phase_build():
@@ -357,23 +366,24 @@ def phase_build():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] all kernels in {time.monotonic() - t0:.1f} s")
-    # what the tensor-core kernels run on: products (HGMMA is wgmma, HMMA
-    # mma.sync) and asynchronous copies (LDGSTS is cp.async, UTMALDG a TMA
-    # load), counted in their SASS
+    # what the tensor-core kernels run on: products (HGMMA and IGMMA are
+    # wgmma over bf16 and int8, HMMA and IMMA mma.sync) and asynchronous
+    # copies (LDGSTS is cp.async, UTMALDG a TMA load), counted in their SASS
     for name in SASS_LIBRARIES:
         lib = native._lib_path(name)
         sass = subprocess.run(
             [str(Path(native.nvcc_path()).parent / "cuobjdump"), "--dump-sass", str(lib)],
             capture_output=True, text=True, timeout=300,
         )
-        count = sass_counts(sass.stdout, ("HGMMA", "HMMA", "LDGSTS", "UTMALDG"))
+        count = sass_counts(sass.stdout, SASS_OPCODES)
         log(f"[sass] {lib.name}: " + ", ".join(f"{op} {n}" for op, n in count.items()))
-        if sass.returncode != 0 or count["HGMMA"] + count["HMMA"] == 0:
+        if sass.returncode != 0 or count["HGMMA"] + count["IGMMA"] + count["HMMA"] + count["IMMA"] == 0:
             fail(f"the {name} library has no tensor-core instruction (cuobjdump rc {sass.returncode})")
+        wgmma = "IGMMA" if name == "w4a8_matmul" else "HGMMA"
         if name != "paged_extend_attention" and (
-            count["HGMMA"] == 0 or count["LDGSTS"] + count["UTMALDG"] == 0
+            count[wgmma] == 0 or count["LDGSTS"] + count["UTMALDG"] == 0
         ):
-            fail(f"the {name} library has no wgmma or no asynchronous copy: {count}")
+            fail(f"the {name} library has no {wgmma} (wgmma) or no asynchronous copy: {count}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -711,37 +721,50 @@ def llama_1b_matrices():
     ]
 
 
-def random_w4(In: int, Out: int, copies: int, gen):
+def random_w4(In: int, Out: int, copies: int, gen, group: int | None = None, zeros: tuple = (0, 16)):
     """``copies`` random weights [In -> Out] in the packed layout, with the
-    group and stored width ``quantize_stacked`` gives such a matrix: random
-    code bytes, bf16 scales in [0.005, 0.02), zero points 0..15 (stored
+    stored width ``quantize_stacked`` gives such a matrix and its group (or
+    ``group``): random code bytes, bf16 scales in [0.005, 0.02), integral
+    zero points in ``[zeros[0], zeros[1])``, 0..15 unless asked (stored
     minus 8)."""
     import torch
 
     from scratchpad_tpu_torch.ops.quant.w4_matmul import padded_in
     from scratchpad_tpu_torch.ops.quant.w4a16 import stacked_group_size, stacked_out_width
 
-    g = stacked_group_size(In)
+    g = group or stacked_group_size(In)
     N, _ = stacked_out_width(Out)
     G = In // g
     q = torch.randint(0, 256, (copies, N, padded_in(In) // 2), generator=gen, device="cuda",
                       dtype=torch.uint8)
     s = (torch.rand(copies, G, N, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
-    z = (torch.randint(0, 16, (copies, G, N), generator=gen, device="cuda") - 8).to(torch.bfloat16)
+    z = (torch.randint(*zeros, (copies, G, N), generator=gen, device="cuda") - 8).to(torch.bfloat16)
     return q, s, z, g
 
 
-# M of the W4 checks at Llama-3.2-1B's matrices: decode, the edges of the
-# W4A16 launch plan (64 | 65 rows, one and two 128-row tiles), a prefill chunk
+# M of the W4 checks at Llama-3.2-1B's matrices: decode (the W4A8 decode
+# kernel's token tiles of 8 and 64), the edges of the launch plans (64 | 65
+# rows, one and two 128-row tiles), a prefill chunk
 W4_CHECK_M = (1, 64, 65, 129, 200, 2048)
+# groups of 64 and 32 (folds inside W4A8's and W4A16's k blocks) at three
+# of the 1B's matrices: (name, group, Ms)
+W4_SMALL_GROUPS = [("wq", 64, (1, 64, 200)), ("wk", 32, (5, 64, 129)), ("down", 32, (64, 300))]
+# zero points outside the code range (-8..24: quantize_stacked gives a group
+# of one sign such a zero, which W4A8 adds as a rest at the group's end) at a
+# K whose last k block has zero-filled steps: 320 at prefill (M 65, 200;
+# 128-deep blocks), 352 at decode (M 1, 64; 64-deep blocks). (name, In,
+# Out, group, Ms)
+W4_ZERO_RESTS = [("rest 320", 320, 1000, 32, (65, 200)), ("rest 352", 352, 1000, 32, (1, 64))]
+W4_REST_ZEROS = (-8, 25)
 
 
 def check_w4(errs: dict) -> None:
     """The row quantizer bit for bit, and both W4 GEMMs against their plain
     versions on the same int8 rows (W4A8) or bf16 rows (W4A16), at
-    Llama-3.2-1B's seven matrices and each M of ``W4_CHECK_M``; at GPT-OSS's
-    2880 -> 5760 (g 120) and at 1800 -> 1000 (g 100, Out padded to 1024).
-    Row M // 2 is zeros: its outputs must be exact zeros. Where the W4A16
+    Llama-3.2-1B's seven matrices and each M of ``W4_CHECK_M``, at
+    ``W4_SMALL_GROUPS`` and ``W4_ZERO_RESTS``; at GPT-OSS's 2880 -> 5760
+    (g 120) and at 1800 -> 1000 (g 100, Out padded to 1024), which W4A8
+    sends to its mma.sync kernel. Row M // 2 is zeros: its outputs must be exact zeros. Where a
     plan splits K, a second call must give the same bits."""
     import torch
 
@@ -750,17 +773,22 @@ def check_w4(errs: dict) -> None:
         quantize_rows_int8,
         w4a8_matmul,
         w4a8_matmul_plain,
+        w4a8_plan,
         w4a16_matmul,
         w4a16_matmul_plain,
         w4a16_plan,
     )
 
-    cases = [(name, In, Out, M) for name, In, Out, _ in llama_1b_matrices() for M in W4_CHECK_M]
-    cases += [("gpt-oss gate_up", 2880, 5760, M) for M in (1, 64, 300)]
-    cases += [("g100", 1800, 1000, M) for M in (1, 64, 300)]
-    for i, (name, In, Out, M) in enumerate(cases):
+    mats = {name: (In, Out) for name, In, Out, _ in llama_1b_matrices()}
+    plain = (0, 16)
+    cases = [(name, In, Out, M, None, plain) for name, In, Out, _ in llama_1b_matrices() for M in W4_CHECK_M]
+    cases += [(name, *mats[name], M, g, plain) for name, g, ms in W4_SMALL_GROUPS for M in ms]
+    cases += [("gpt-oss gate_up", 2880, 5760, M, None, plain) for M in (1, 64, 300)]
+    cases += [("g100", 1800, 1000, M, None, plain) for M in (1, 64, 300)]
+    cases += [(name, In, Out, M, g, W4_REST_ZEROS) for name, In, Out, g, ms in W4_ZERO_RESTS for M in ms]
+    for i, (name, In, Out, M, group, zero_range) in enumerate(cases):
         gen = seeded(3000 + i)
-        q, s, z, g = random_w4(In, Out, 1, gen)
+        q, s, z, g = random_w4(In, Out, 1, gen, group, zero_range)
         q, s, z = q[0], s[0], z[0]
         x = torch.randn(M, In, generator=gen, device="cuda").to(torch.bfloat16)
         zero = M // 2 if M > 1 else None
@@ -775,24 +803,31 @@ def check_w4(errs: dict) -> None:
         e8, r8 = max_err(y8, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
         y16 = w4a16_matmul(x, q, s, z, g, Out)
         e16, r16 = max_err(y16, w4a16_matmul_plain(x, q, s, z, g, Out))
+        plan8 = w4a8_plan(M, Out, In, g, s.shape[1])
+        split8 = plan8 is not None and plan8.splits > 1
+        same8 = not split8 or torch.equal(y8, w4a8_matmul(x8, ax, gsum, q, s, z, g, Out))
         plan = w4a16_plan(M, Out, In, g, s.shape[1])
         split = plan is not None and plan.splits > 1
         same = not split or torch.equal(y16, w4a16_matmul(x, q, s, z, g, Out))
         torch.cuda.synchronize()
         zeros = zero is None or bool((y8[zero] == 0).all() and (y16[zero] == 0).all())
+        k8 = "w4a8_matmul" if plan8 is not None else "w4a8_matmul_mma"
         errs["quantize_rows_int8"] = max(errs["quantize_rows_int8"], eq)
-        errs["w4a8_matmul"] = max(errs["w4a8_matmul"], e8)
+        errs[k8] = max(errs[k8], e8)
         errs["w4a16_matmul"] = max(errs["w4a16_matmul"], e16)
+        route8 = f"plan {plan8.config}, split K {plan8.splits}" if plan8 is not None else "mma.sync"
         log(
             f"[check] w4 {name} {In}->{Out} g={g} M={M}: quantizer exact {exact} "
-            f"({n_diff} x8 differ); w4a8 max_abs_err {e8:.3e}, err/tol {r8:.3f}; "
-            f"w4a16 max_abs_err {e16:.3e}, err/tol {r16:.3f}; zero row exact: {zeros}"
+            f"({n_diff} x8 differ); w4a8 ({route8}) max_abs_err {e8:.3e}, err/tol {r8:.3f}"
+            + (f", second call bit-equal: {same8}" if split8 else "")
+            + f"; w4a16 max_abs_err {e16:.3e}, err/tol {r16:.3f}; zero row exact: {zeros}"
             + (f"; split K {plan.splits}, second call bit-equal: {same}" if split else "")
         )
         check(exact, f"row quantizer differs from its plain version at {name} M={M}")
-        check(r8 <= 1 and zeros, f"w4a8 kernel disagrees with its plain version at {name} M={M}")
-        check(r16 <= 1 and zeros, f"w4a16 kernel disagrees with its plain version at {name} M={M}")
-        check(same, f"w4a16 split-K calls differ at {name} M={M}")
+        check(r8 <= 1 and zeros, f"w4a8 kernel disagrees with its plain version at {name} g={g} M={M}")
+        check(r16 <= 1 and zeros, f"w4a16 kernel disagrees with its plain version at {name} g={g} M={M}")
+        check(same8, f"w4a8 split-K calls differ at {name} g={g} M={M}")
+        check(same, f"w4a16 split-K calls differ at {name} g={g} M={M}")
         del q, s, z, x, x8, y8, y16
         torch.cuda.empty_cache()
 
@@ -1219,6 +1254,11 @@ def time_quantizer(In: int, M: int) -> dict:
     return r
 
 
+# the row quantizer's timed shapes (In, M): the 1B's two input widths at
+# decode and at the bench prefill
+QUANT_TIMED = [(In, M) for In in (2048, 8192) for M in (64, 8192)]
+
+
 def phase_w4_timing() -> dict:
     """Every W4 matrix of Llama-3.2-1B at decode (M = 64) and prefill
     (M = 8192, the bench prefill of 64 x 128) shapes; the head at M = 64
@@ -1245,7 +1285,7 @@ def phase_w4_timing() -> dict:
                 f"({t['bound_by']}); plain {t['plain_ms']:.4f} ms; torch.matmul bf16 "
                 f"{t['library_ms']:.4f} ms"
             )
-    quant = {(In, M): time_quantizer(In, M) for In in (2048, 8192) for M in (64, 8192)}
+    quant = {(In, M): time_quantizer(In, M) for In, M in QUANT_TIMED}
     for r in quant.values():
         log(
             f"[time] quantize_rows_int8 {r['shape']}: {r['ms']:.4f} ms; bound "
@@ -1274,6 +1314,14 @@ def phase_w4_timing() -> dict:
         library_ms=None,
         bound_by="bytes",
     )
+    log(
+        f"[time] W4A8 linear, one decode forward of Llama-3.2-1B at bs 64 (97 quantizer and 97 "
+        f"GEMM calls): {per_fwd['quantize_rows_int8']['ms'] + per_fwd['w4a8_matmul']['ms']:.4f} ms; "
+        f"torch.matmul bf16 {per_fwd['w4a8_matmul']['library_ms']:.4f} ms"
+    )
+    # row 6: W4A8 at GPT-OSS's group of 120, the mma.sync kernel's route
+    oss = next(r for r in rows if r["shape"].startswith("gpt-oss"))
+    per_fwd["w4a8_matmul_mma"] = dict(oss["w4a8_matmul"], shape=oss["shape"])
     return dict(rows=rows, quant=quant, per_forward=per_fwd)
 
 
@@ -1487,6 +1535,33 @@ def phase_profiling_tools() -> dict:
             f"[stage] {r['model']} {r['shape']} stage {r['stage']} ({r['what']}): {r['ms']:.4f} ms, "
             f"{r['ms_over_bound']:.2f}x the decode's bound {r['bound_ms']:.4f} ms"
         )
+    return {"rows": rows, "counts": counts}
+
+
+def phase_w4a8_mma_bench() -> dict:
+    """The path of W4A8's mma.sync kernel, which no served model takes:
+    ``tools/w4_kernel_bench.py``'s ``main`` with ``--route a8`` at GPT-OSS's
+    2880 -> 5760 (group 120) and 1800 -> 1000 (group 100), every launch
+    count set to 0 just before and read just after. Returns the launch
+    counts."""
+    from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS, reset_launch_counts
+    from scratchpad_tpu_torch.tools import w4_kernel_bench as tool
+
+    reset_launch_counts()
+    t = time.monotonic()
+    rows = tool.main(["--route", "a8", "--bs", "64", "--iters", "8", "--shape", "gpt-oss gate_up:2880:5760",
+                      "--shape", "g100:1800:1000"])
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    log(f"[bench] tools/w4_kernel_bench.py --route a8 at GPT-OSS's groups: {time.monotonic() - t:.1f} s, "
+        f"launches {counts}")
+    for r in rows:
+        log(f"[bench] {r['name']} {r['In']}->{r['Out']} g={r['group']} bs {r['bs']}: {r['us']:.2f} us, "
+            f"{r['GBs']:.1f} GB/s, finite {r['finite']}")
+    check(all(r["finite"] for r in rows) and [r["group"] for r in rows] == [120, 100],
+          f"w4_kernel_bench at GPT-OSS's groups: {rows}")
+    check(counts["w4a8_matmul_mma"] > 0 and counts["w4a8_matmul"] == 0,
+          f"GPT-OSS's groups launched w4a8_matmul_mma {counts['w4a8_matmul_mma']} and w4a8_matmul "
+          f"{counts['w4a8_matmul']} times")
     return {"rows": rows, "counts": counts}
 
 
@@ -1889,6 +1964,8 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     other = "bf16" if runner.kv_cache.quantized else "int8"
     for k in (EXTEND[other], DECODE[other]):
         check(counts[k] == 0, f"{label}: {k} launched {counts[k]} times on a {pages} pool")
+    # every served model quantizes with groups of 128: never the mma.sync route
+    check(counts["w4a8_matmul_mma"] == 0, f"{label}: w4a8_matmul_mma launched {counts['w4a8_matmul_mma']} times")
     # every decode launch goes through decode_attention_pallas under
     # attention_backend="pallas", and none under auto
     pallas = runner.attention_backend == "pallas"
@@ -1989,9 +2066,8 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
 PROFILED_WINDOWS = (2, 5)  # decode windows [2, 5) of the profiled run
 
 
-def phase_engine_times(engine, eng: dict, label: str, toppings: bool = False) -> None:
-    """Decode tokens/s at the bench shape (bs 64, 128 + 128; with
-    ``toppings``, the requests name none, ad1, ad2 and dl1 in turn), and the
+def phase_engine_times(engine, eng: dict, label: str) -> None:
+    """Decode tokens/s at the bench shape (bs 64, 128 + 128), and the
     device's busy share of a decode step: the device time per step over
     decode windows ``PROFILED_WINDOWS`` of a profiled run (all 64 rows
     decoding; a trace of the whole run took ``key_averages`` about a minute
@@ -2024,14 +2100,13 @@ def phase_engine_times(engine, eng: dict, label: str, toppings: bool = False) ->
     rng = np.random.default_rng(1)
     bench = [rng.integers(1, runner.model_config.vocab_size, 128).tolist() for _ in range(64)]
     sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
-    tops = [None, "ad1", "ad2", "dl1"] * 16 if toppings else None
 
     def run():
         engine.flush_cache()
         dec_time[0], dec_tokens[0] = 0.0, 0
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = engine.generate(input_ids=bench, sampling_params=[sp] * 64, topping=tops)
+        res = engine.generate(input_ids=bench, sampling_params=[sp] * 64)
         wall = time.perf_counter() - t
         if any(len(r.output_ids) != 128 for r in res):
             fail("bench requests did not finish with 128 tokens")
@@ -2148,8 +2223,13 @@ KERNELS = {
     "w4a8_matmul": dict(
         route="cuda",
         source="scratchpad_tpu_torch/csrc/w4a8_matmul.cu",
-        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:363 (_w4a8_kernel_q4) "
-        "and :139 (_w4a8_kernel)",
+        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:363 (_w4a8_kernel_q4)",
+    ),
+    # the groups that cut a 32-deep k step (GPT-OSS's): the mma.sync kernel
+    "w4a8_matmul_mma": dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/w4a8_matmul.cu",
+        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:139 (_w4a8_kernel)",
     ),
     "w4a16_matmul": dict(
         route="cuda",
@@ -2218,7 +2298,7 @@ def main() -> None:
         engines[label] = phase_engine(engine, label, w4_kernels, logits, toppings, requests)
         t_times = time.monotonic()
         if timed and not FAILURES:
-            phase_engine_times(engine, engines[label], label, toppings is not None)
+            phase_engine_times(engine, engines[label], label)
         log(
             f"[engine {label}] phase wall: {t_times - t:.1f} s serving and checking, "
             f"{time.monotonic() - t_times:.1f} s timing"
@@ -2226,11 +2306,12 @@ def main() -> None:
 
     engine = make_engine()
     serve(engine, "bf16")
-    # toppings on the same engine and weights, so that the two rates are
-    # taken in one call
+    # toppings on the same engine and weights, served and checked but not
+    # timed: at its 90 to 130 ms of host a step its timed runs took a fifth
+    # to a quarter of the script's wall (PERF.md §5 keeps its last rates)
     states = topping_states(engine.model_config)
     register_toppings(engine, states, "1b-toppings")
-    serve(engine, "1b-toppings", toppings=TOPPINGS)
+    serve(engine, "1b-toppings", toppings=TOPPINGS, timed=False)
     del engine  # frees the pool and the weights for the next engine
     engine = make_engine("w4a8")
     serve(engine, "w4a8", w4a8)
@@ -2295,6 +2376,7 @@ def main() -> None:
     delta = phase_delta_timing()
     timing["delta_matmul_grouped"] = [delta[1], delta[3]]
     probe = phase_profiling_tools()
+    mma_bench = phase_w4a8_mma_bench()
     if FAILURES:
         fail(f"{len(FAILURES)} correctness checks failed; the first: {FAILURES[0]}")
     full = next(r for r in probe["rows"] if r.get("mode") == "full")
@@ -2308,6 +2390,8 @@ def main() -> None:
         main_shape = timing[kname][0]  # the other rows are in the [time] lines
         if kname == "decode_ablate":  # on no serving path: the probe's run
             counts, per_forward = probe["counts"], None
+        elif kname == "w4a8_matmul_mma":  # on no serving path: the bench's run
+            counts, per_forward = mma_bench["counts"], None
         else:
             eng = engines[KERNEL_ENGINE[kname]]
             counts = eng["counts"]

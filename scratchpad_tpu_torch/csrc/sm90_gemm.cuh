@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels,
-// and the mainloop of its two mixed-input GEMMs.
+// and the mainloop of its three mixed-input GEMMs.
 //
 // The helpers (swizzled shared-memory layout, wgmma descriptors and
 // products, cp.async, mbarriers, the exact int8 -> bf16 converter) are the
@@ -46,6 +46,13 @@
 //     The wrapper computes the plan (tile configuration, splits) and keeps
 //     the workspace (ops/quant/w4_matmul.py::gemm_plan); the C entry builds
 //     x's tensor map at each call.
+//   - W4A8's prefill (w4a8_matmul.cu, an Op whose Acc is int32_t) runs the
+//     same mainloop on the s8 tensor cores: x is int8, so a block is 128
+//     deep (one 128-byte row, as a bf16 block is); the codes become an s8
+//     B tile of c - z and wgmma.m64n128k32.s32.s8.s8 sums them exactly in
+//     i32, folded into f32 with the group's scale (the same four 32-byte
+//     steps a block). W4A8's decode kernel is its own (weights as wgmma's
+//     register A operand), on this header's helpers and splitk_sum.
 // SPTPU_GEMM_CUT=1 builds a timing cut: every block is loaded and
 // converted, no product is taken and nothing is written.
 
@@ -55,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifndef SPTPU_GEMM_CUT
 #define SPTPU_GEMM_CUT 0
@@ -135,6 +144,11 @@ __device__ __forceinline__ void keep(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void keep(int32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A K-major and B K-major (TB 0) or
 // MN-major (TB 1) in shared memory
@@ -210,6 +224,76 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TB)
+      : "memory");
+}
+
+
+// D[64 x 128] (s32) (+)= A[64 x 32] B[32 x 128], s8, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_s8_n128(int32_t (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// D[64 x 8] (s32) (+)= A[64 x 32] B[32 x 8], s8: A in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_s8_n8(int32_t (&d)[4], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// D[64 x 16] (s32) (+)= A[64 x 32] B[32 x 16], s8: A in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_s8_n16(int32_t (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// D[64 x 32] (s32) (+)= A[64 x 32] B[32 x 32], s8: A in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_s8_n32(int32_t (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// D[64 x 64] (s32) (+)= A[64 x 32] B[32 x 64], s8: A in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_s8_n64(int32_t (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate)
       : "memory");
 }
 
@@ -301,12 +385,80 @@ __device__ __forceinline__ void gemm_mma(float (&d)[NACC], uint64_t da, uint64_t
   if constexpr (NW == 128) wgmma_ss_n128<TB>(d, da, db, accumulate);
   else wgmma_ss_n64<TB>(d, da, db, accumulate);
 }
+template <int NW, int TB, int NACC>
+__device__ __forceinline__ void gemm_mma(int32_t (&d)[NACC], uint64_t da, uint64_t db, int accumulate) {
+  static_assert(NW == 128 && TB == 0, "the s8 products: m64n128k32, both operands K-major");
+  wgmma_ss_s8_n128(d, da, db, accumulate);
+}
+
+// An Op's accumulator: float (bf16 products) unless it names another
+// (W4A8's int32_t: s8 x s8 products, 128-deep blocks of int8 x)
+template <class Op, class = void>
+struct OpAcc {
+  using type = float;
+};
+template <class Op>
+struct OpAcc<Op, std::void_t<typename Op::Acc>> {
+  using type = typename Op::Acc;
+};
+template <class Op>
+constexpr bool kOpS8 = std::is_same_v<typename OpAcc<Op>::type, int32_t>;
+
+// Split K: this CTA's partial v [NACC] (thread tid of kConsumers) goes to
+// the workspace, element-major so that a warp's stores are contiguous; the
+// last CTA of the tile to arrive (a counter it then resets) loads every
+// split's partial, kInFlight splits' loads at a time, and adds them in
+// split order into v, so two calls give the same bits. Returns whether this
+// CTA holds the sum. last: a shared int; named barrier 1 over the first
+// kConsumers threads.
+template <int NACC, int kConsumers, int kInFlight = 2>
+__device__ __forceinline__ bool splitk_sum(float (&v)[NACC], const GemmArgs& a, int slot_tile,
+                                           int split, int tid, int* last) {
+  constexpr int E4 = NACC / 4;
+  int* counters = reinterpret_cast<int*>(a.ws);
+  float4* part = reinterpret_cast<float4*>(a.ws + kCounterSlots * 4);
+  float4* base = part + (size_t)slot_tile * a.splits * E4 * kConsumers;
+  float4* mine = base + (size_t)split * E4 * kConsumers;
+#pragma unroll
+  for (int e = 0; e < E4; ++e)
+    __stcg(mine + e * kConsumers + tid, make_float4(v[4 * e], v[4 * e + 1], v[4 * e + 2], v[4 * e + 3]));
+  __threadfence();
+  sync_first<kConsumers>();
+  if (tid == 0) *last = atomicAdd(counters + slot_tile, 1) == a.splits - 1;
+  sync_first<kConsumers>();
+  if (!*last) return false;
+  __threadfence();
+#pragma unroll
+  for (int e = 0; e < E4; ++e) {
+    const float4 f = __ldcg(base + e * kConsumers + tid);
+    v[4 * e] = f.x, v[4 * e + 1] = f.y, v[4 * e + 2] = f.z, v[4 * e + 3] = f.w;
+  }
+  for (int i = 1; i < a.splits; i += kInFlight) {
+    float4 f[kInFlight][E4];
+#pragma unroll
+    for (int h = 0; h < kInFlight; ++h)
+#pragma unroll
+      for (int e = 0; e < E4; ++e)
+        f[h][e] = i + h < a.splits ? __ldcg(base + ((size_t)(i + h) * E4 + e) * kConsumers + tid)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < kInFlight; ++h)
+#pragma unroll
+      for (int e = 0; e < E4; ++e)
+        if (i + h < a.splits)
+          v[4 * e] += f[h][e].x, v[4 * e + 1] += f[h][e].y, v[4 * e + 2] += f[h][e].z,
+              v[4 * e + 3] += f[h][e].w;
+  }
+  if (tid == 0) counters[slot_tile] = 0;  // ready for the next launch
+  return true;
+}
 
 // grid (n_tiles x splits, m_tiles, Op slots). Op (see w4a16_matmul.cu,
 // delta_matmul.cu): kRawBytes, kTB; start (may end the CTA: uniform),
 // issue (the block's copies beyond x), convert (raw codes -> bf16 B tile),
 // b_desc, group_start / group_end (by block), fold, store; with kFold16
-// also step_starts / step_ends (by 16-deep step).
+// also step_starts / step_ends (by 32-byte step: 16 bf16 or 32 int8 deep).
+// An Op with Acc int32_t takes int8 x and an s8 B tile (kOpS8).
 template <class Op, int NC, int WM, int NW, bool kFold16>
 __global__ void __launch_bounds__(GemmTile<NC, WM, NW>::kThreads, NC == 2 ? 1 : 2)
 sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUtensorMap xmap) {
@@ -356,7 +508,7 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
       const uint32_t dst = sb + st * S::kRaw;
       if (p == 0) {
         mbar_expect_tx(landed(st), BM * 128);
-        tma_load_2d(dst, &xmap, kb * kKB, m_base, landed(st));
+        tma_load_2d(dst, &xmap, kb * (kOpS8<Op> ? 2 * kKB : kKB), m_base, landed(st));
       }
       op.issue(dst + S::kX, kb, n_base, p);
       mbar_arrive_copies(landed(st));
@@ -371,9 +523,10 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
   const int wg = tid >> 7, wm = wg / T::WN, wn = wg % T::WN;
   const int lane = tid & 31, q4 = lane & 3;
   const int row0 = 16 * ((tid & 127) >> 5) + (lane >> 2);
-  float acc[NACC], tot[NACC];  // the products since the last fold; the running sum
+  typename OpAcc<Op>::type acc[NACC];  // the products since the last fold
+  float tot[NACC];                      // the running sum
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = tot[i] = 0.f;
+  for (int i = 0; i < NACC; ++i) acc[i] = 0, tot[i] = 0.f;
 
   // The consumers convert: a warpgroup converts the B columns it reads, [wn
   // NW, wn NW + NW); where two warpgroups read one B tile (WM 2), each
@@ -412,7 +565,13 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
       if (t + 1 < n_kb) convert(t + 1);
       wgmma_wait<0>();
       keep(acc);
-      if (t == n_kb - 1 || op.group_end(kb)) op.fold(acc, tot, rawp, kKB / 16 - 1, wn * NW + 2 * q4);
+      if (t == n_kb - 1 || op.group_end(kb)) {
+        if constexpr (kOpS8<Op>)  // W4A8 also takes the step, its rows and its warpgroup
+          op.fold(acc, tot, rawp, kKB / 16 - 1, wn * NW + 2 * q4, kb * (kKB / 16) + kKB / 16 - 1,
+                  m_base + wm * 64 + row0, wn);
+        else
+          op.fold(acc, tot, rawp, kKB / 16 - 1, wn * NW + 2 * q4);
+      }
     } else {  // groups end inside blocks: fold after a 16-deep step
 #pragma unroll
       for (int kk = 0; kk < kKB / 16; ++kk) {
@@ -424,8 +583,12 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
         if (kk == 0 && t + 1 < n_kb) convert(t + 1);
         wgmma_wait<0>();
         keep(acc);
-        if ((t == n_kb - 1 && kk == kKB / 16 - 1) || op.step_ends(j))
-          op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4);
+        if ((t == n_kb - 1 && kk == kKB / 16 - 1) || op.step_ends(j)) {
+          if constexpr (kOpS8<Op>)
+            op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4, j, m_base + wm * 64 + row0, wn);
+          else
+            op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4);
+        }
       }
     }
 #else
@@ -439,46 +602,9 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
 
   auto finish = [&](float (&v)[NACC]) {
     if (a.splits > 1) {
-      // this split's partial, element-major so that a warp's stores are
-      // contiguous; the last CTA of the tile sums all of them in split order
-      constexpr int E4 = NACC / 4;
-      int* counters = reinterpret_cast<int*>(a.ws);
-      float4* part = reinterpret_cast<float4*>(a.ws + kCounterSlots * 4);
       const int slot_tile = (blockIdx.z * gridDim.y + blockIdx.y) * a.n_tiles + n_tile;
-      float4* base = part + (size_t)slot_tile * a.splits * E4 * kConsumers;
-      float4* mine = base + (size_t)split * E4 * kConsumers;
-#pragma unroll
-      for (int e = 0; e < E4; ++e)
-        __stcg(mine + e * kConsumers + tid, make_float4(v[4 * e], v[4 * e + 1], v[4 * e + 2], v[4 * e + 3]));
-      __threadfence();
-      sync_first<kConsumers>();
-      int* last = reinterpret_cast<int*>(sm + S::kFlag);
-      if (tid == 0) *last = atomicAdd(counters + slot_tile, 1) == a.splits - 1;
-      sync_first<kConsumers>();
-      if (!*last) return;
-      __threadfence();
-#pragma unroll
-      for (int e = 0; e < E4; ++e) {
-        const float4 f = __ldcg(base + e * kConsumers + tid);
-        v[4 * e] = f.x, v[4 * e + 1] = f.y, v[4 * e + 2] = f.z, v[4 * e + 3] = f.w;
-      }
-      for (int i = 1; i < a.splits; i += 2) {  // two splits' loads in flight
-        float4 f[2][E4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < E4; ++e)
-            f[h][e] = i + h < a.splits ? __ldcg(base + ((size_t)(i + h) * E4 + e) * kConsumers + tid)
-                                       : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < E4; ++e)
-            if (i + h < a.splits)
-              v[4 * e] += f[h][e].x, v[4 * e + 1] += f[h][e].y, v[4 * e + 2] += f[h][e].z,
-                  v[4 * e + 3] += f[h][e].w;
-      }
-      if (tid == 0) counters[slot_tile] = 0;  // ready for the next launch
+      if (!splitk_sum<NACC, kConsumers>(v, a, slot_tile, split, tid, reinterpret_cast<int*>(sm + S::kFlag)))
+        return;
     }
     op.store(v, m_base + wm * 64 + row0, n_base + wn * NW + 2 * q4, a.M);
   };
@@ -486,10 +612,12 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
 #endif
 }
 
-// the tensor map of x [M, K] (row stride ld_x) in boxes of 64 columns x
-// box_rows rows, 128-byte swizzled as wgmma reads A; rows past M and
-// columns past K load as zeros
-inline cudaError_t x_tensor_map(CUtensorMap* map, const GemmArgs& a, int box_rows) {
+// a 2D tensor map: `dims` {inner, outer} elements of `type` with the outer
+// dimension's stride `stride` bytes, boxes of `box` elements, swizzled
+// `swizzle`; what lies outside `dims` loads as zeros
+inline cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                                 const cuuint64_t (&dims)[2], cuuint64_t stride,
+                                 const cuuint32_t (&box)[2], CUtensorMapSwizzle swizzle) {
   using Encode = decltype(&cuTensorMapEncodeTiled);
   static Encode encode = nullptr;  // looked up at run time: no link to libcuda
   if (encode == nullptr) {
@@ -500,15 +628,22 @@ inline cudaError_t x_tensor_map(CUtensorMap* map, const GemmArgs& a, int box_row
       return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)a.K, (cuuint64_t)a.M};
-  const cuuint64_t strides[1] = {(cuuint64_t)a.ld_x * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kKB, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {stride};
   const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(a.x),
-                            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the tensor map of x [M, K] (row stride ld_x) in boxes of one 128-byte row
+// (64 bf16, or 128 int8 where s8) x box_rows rows, 128-byte swizzled as
+// wgmma reads A; rows past M and columns past K load as zeros
+inline cudaError_t x_tensor_map(CUtensorMap* map, const GemmArgs& a, int box_rows, bool s8 = false) {
+  const int bytes = s8 ? 1 : 2;
+  return tensor_map_2d(map, s8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x,
+                       {(cuuint64_t)a.K, (cuuint64_t)a.M}, (cuuint64_t)a.ld_x * bytes,
+                       {(cuuint32_t)(128 / bytes), (cuuint32_t)box_rows}, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // launch one instantiation; returns the launch's cudaError_t
@@ -517,7 +652,7 @@ cudaError_t run_gemm(const Op& op, const GemmArgs& a, int m_tiles, int slots, cu
   using T = GemmTile<NC, WM, NW>;
   constexpr size_t bytes = GemmSmem<T, Op>::kDynamic;
   CUtensorMap xmap;
-  cudaError_t err = x_tensor_map(&xmap, a, T::BM);
+  cudaError_t err = x_tensor_map(&xmap, a, T::BM, kOpS8<Op>);
   if (err != cudaSuccess) return err;
   auto kernel = sm90_gemm_kernel<Op, NC, WM, NW, kFold16>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);

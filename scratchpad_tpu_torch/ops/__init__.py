@@ -6,6 +6,10 @@ only where it launches its kernel. ``decode_attention_pallas`` launches the
 decode kernel through ``paged_decode_attention``, so both counts rise.
 ``decode_ablate`` (the ablation probe) lies on no serving path; the
 kernel-profiling tool ``tools/decode_ablate.py`` launches it.
+``w4a8_matmul`` sends the groups that cut a 32-deep k step to
+``w4a8_matmul_mma``, whose count rises instead; no model the port serves
+has such groups (GPT-OSS's 120 and 100), and ``tools/w4_kernel_bench.py``
+at GPT-OSS's widths launches it.
 """
 
 from scratchpad_tpu_torch.ops.attention import (
@@ -20,6 +24,7 @@ from scratchpad_tpu_torch.ops.ldmm import delta_matmul_grouped
 from scratchpad_tpu_torch.ops.quant.w4_matmul import (
     quantize_rows_int8,
     w4a8_matmul,
+    w4a8_matmul_mma,
     w4a16_matmul,
 )
 
@@ -30,6 +35,7 @@ KERNEL_WRAPPERS = (
     paged_extend_attention_quant,
     quantize_rows_int8,
     w4a8_matmul,
+    w4a8_matmul_mma,
     w4a16_matmul,
     delta_matmul_grouped,
     decode_attention_pallas,

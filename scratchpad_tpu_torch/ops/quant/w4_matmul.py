@@ -3,16 +3,19 @@ and their plain versions.
 
 Counterpart of ``scratchpad_tpu/ops/quant/pallas_w4.py``, whose four Pallas
 kernels (``_w4a8_kernel_q4``, ``_w4a8_kernel``, ``_w4_kernel_q4``,
-``_w4_kernel``) become two hand-written CUDA kernels,
-``csrc/w4a8_matmul.cu`` and ``csrc/w4a16_matmul.cu``, each taking every
-group size; the per-token int8 quantization of the activations, which the
-JAX package leaves to XLA, is a third (``w4_quantize_rows`` in
+``_w4_kernel``) become the hand-written CUDA kernels of
+``csrc/w4a8_matmul.cu`` and ``csrc/w4a16_matmul.cu``, which between them
+take every group size; the per-token int8 quantization of the activations,
+which the JAX package leaves to XLA, is another (``w4_quantize_rows`` in
 ``w4a8_matmul.cu``).
 
 ``gemm_plan`` is the launch plan of the Hopper GEMM mainloop
-(``csrc/sm90_gemm.cuh``) that ``w4a16_matmul`` and the delta kernel
-(``ops/ldmm.py``) run on: the output tile, the K split and the split-K
-workspace, which each wrapper allocates once per device and keeps.
+(``csrc/sm90_gemm.cuh``) that ``w4a16_matmul``, W4A8's prefill and the
+delta kernel (``ops/ldmm.py``) run on: the output tile, the K split and the
+split-K workspace, which each wrapper allocates once per device and keeps.
+``w4a8_plan`` adds W4A8's decode kernel (swap-AB) and routes the groups
+that cut a 32-deep k step to the ``mma.sync`` kernel
+(``w4a8_matmul_mma``).
 
 The packed layout, one for every group size. A weight W[In, Out] of
 ``w4a16.QuantizedLinear`` (nibble planes) is stored as
@@ -51,18 +54,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES_A8 = {
     "w4_quantize_rows": ([_P, _I, _I, _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
-    "w4a8_matmul": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
+    "w4a8_matmul": ([_P] * 7 + [_I] * 6 + [_P, _P, _I, _I, _I], ctypes.c_int),
+    "w4a8_matmul_mma": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
 }
 _SIGNATURES_A16 = {
     "w4a16_matmul": ([_P] * 5 + [_I] * 7 + [_P, _P, _I, _I], ctypes.c_int),
     "w4a16_matmul_mma": ([_P] * 5 + [_I] * 7 + [_P], ctypes.c_int),
 }
-# the timing cut of csrc/sm90_gemm.cuh: every block loaded and converted, no
-# products, nothing written (tools/gemm_ab.py)
+# the timing cut of csrc/sm90_gemm.cuh (and of W4A8's decode kernel): every
+# block loaded and converted, no products, nothing written (tools/gemm_ab.py)
 GEMM_CUT = {"SPTPU_GEMM_CUT": 1}
 K_ALIGN = 32
-# the quantizer keeps one int per group in shared memory
+# the quantizer keeps one int per group in shared memory, and a row in the
+# registers of at most 1,024 threads
 MAX_GROUPS = 227 * 1024 // 4
+MAX_PADDED_IN = 131072
 
 
 def padded_in(in_features: int) -> int:
@@ -72,10 +78,20 @@ def padded_in(in_features: int) -> int:
 # ---------------------------------------------------------------- launch plan
 
 SMS = 132  # streaming multiprocessors of one H100 SXM
-K_BLOCK = 64  # the mainloop's k block (kKB)
-# csrc/sm90_gemm.cuh's tile configurations, by the id its kernels take:
-# (rows, columns) of a CTA's output tile
+K_BLOCK = 64  # the mainloop's k block over bf16 x (kKB): one 128-byte row
+K_BLOCK_S8 = 128  # the same 128 bytes of int8 x (W4A8's prefill)
+DECODE_K_BLOCK = 64  # W4A8's decode kernel (kDecodeKB)
+DECODE_TOKENS = (8, 16, 32, 64)  # its wgmma N: M rounded up
+# at most this many (64-column tile, 64-deep block) pairs: the 64 tokens of
+# a decode batch go in two tiles of 32 (tools/gemm_ab.py, PERF.md)
+SPLIT_TOKENS = 1024
+# the tile configurations of csrc/sm90_gemm.cuh's mainloop, by the id the
+# kernels take: (rows, columns) of a CTA's output tile
 TILE_CONFIGS = {0: (128, 128), 1: (64, 256), 2: (64, 64)}
+# W4A8's decode kernel (csrc/w4a8_matmul.cu): one warpgroup of 64 columns,
+# the plan's token tile (one of DECODE_TOKENS) its rows
+DECODE_CONFIG = 3
+DECODE_COLUMNS = 64
 COUNTER_SLOTS = 4096  # kCounterSlots: i32 split-K counters at the workspace's head
 PARTIAL_BYTES = 32 << 20  # the f32 partials a workspace holds
 WORKSPACE_BYTES = COUNTER_SLOTS * 4 + PARTIAL_BYTES
@@ -93,9 +109,13 @@ class GemmPlan:
     k_blocks: int
     splits: int
     slots: int = 1
+    k_block: int = K_BLOCK  # the depth of a k block, in elements
+    rows: int = 0  # DECODE_CONFIG's token tile
 
     @property
     def tile(self) -> tuple[int, int]:
+        if self.config == DECODE_CONFIG:
+            return self.rows, DECODE_COLUMNS
         return TILE_CONFIGS[self.config]
 
     @property
@@ -116,24 +136,30 @@ class GemmPlan:
         return COUNTER_SLOTS * 4 + tiles * self.splits * bm * bn * 4
 
 
-def gemm_plan(M: int, N: int, K: int, slots: int = 1) -> GemmPlan:
-    """The tile and K split of an ``M x K`` by ``K x N`` product, for each
+def gemm_plan(M: int, N: int, K: int, slots: int = 1, k_block: int = K_BLOCK) -> GemmPlan:
+    """The tile and K split of the mainloop's ``M x K`` by ``K x N`` product
+    in k blocks of ``k_block`` (64 over bf16 x, 128 over int8 x), for each
     of ``slots`` independent products (the delta kernel's adapter slots).
 
-    Prefill (M > 64): 128 x 128 tiles. Decode: 64 x 256 where N gives at
-    least 128 such tiles (the head, whose activations would otherwise be
-    read once per narrow tile), else 64 x 64. Where the tiles of one slot
-    are fewer than the SMs, K is split so that they fill the card (at most
-    one split per k block), as far as the workspace and its counters hold
-    the partials of every slot."""
+    Prefill (M > 64) 128 x 128 tiles; decode 64 x 256 where N gives at least
+    128 such tiles (the head, whose activations would otherwise be read once
+    per narrow tile), else 64 x 64. Where the tiles of one slot are fewer
+    than the SMs, K is split so that they fill the card (at most one split
+    per k block), as far as the workspace and its counters hold the partials
+    of every slot."""
     config = 0 if M > 64 else 1 if N >= 128 * 256 else 2
     bm, bn = TILE_CONFIGS[config]
-    m_tiles, n_tiles, k_blocks = -(-M // bm), -(-N // bn), -(-K // K_BLOCK)
+    m_tiles, n_tiles, k_blocks = -(-M // bm), -(-N // bn), -(-K // k_block)
     tiles = m_tiles * n_tiles
     splits = 1 if tiles >= SMS else min(k_blocks, -(-SMS // tiles))
-    plan = GemmPlan(config, m_tiles, n_tiles, k_blocks, splits, slots)
+    return _fit_workspace(GemmPlan(config, m_tiles, n_tiles, k_blocks, splits, slots, k_block))
+
+
+def _fit_workspace(plan: GemmPlan) -> GemmPlan:
+    """``plan`` with as many of its splits as the workspace and its counters
+    hold."""
     while plan.splits > 1 and (
-        slots * tiles > COUNTER_SLOTS or plan.workspace_bytes > WORKSPACE_BYTES
+        plan.slots * plan.m_tiles * plan.n_tiles > COUNTER_SLOTS or plan.workspace_bytes > WORKSPACE_BYTES
     ):
         plan = dataclasses.replace(plan, splits=plan.splits - 1)
     return plan
@@ -147,6 +173,48 @@ def w4a16_plan(M: int, N: int, K: int, group_size: int, width: int) -> GemmPlan 
     if group_size % 16 or width % 8:
         return None
     return gemm_plan(M, N, K)
+
+
+def w4a8_plan(M: int, N: int, K: int, group_size: int, width: int) -> GemmPlan | None:
+    """``w4a8_matmul``'s plan for int8 rows ``x8 [M, K]`` times a packed
+    weight of stored ``width`` columns, ``N`` of them read; None where the
+    group cuts a 32-deep k step (GPT-OSS's 120 and 100) or the stored width
+    is not a multiple of 8: the mma.sync kernel (``w4a8_matmul_mma``) takes
+    those.
+
+    Prefill (M > 64): the mainloop's 128 x 128 tile (config 0: two
+    warpgroups along M share one s8 B tile, each converting half of it),
+    128-deep blocks. Decode: the swap-AB kernel (config 3), 64 columns a
+    CTA, 64-deep blocks, the tokens rounded up to 8, 16, 32 or 64 a tile,
+    or two tiles of 32 where the tiles of 64 columns times the k blocks are
+    at most SPLIT_TOKENS (the small projections, whose time goes to each
+    split's sum). K is split for at least one CTA an SM, and up to two
+    (rounded down) where each split keeps 8 k blocks (512 k), as far as the
+    workspace holds."""
+    if group_size % 32 or width % 8:
+        return None
+    if M > 64:
+        return gemm_plan(M, N, K, k_block=K_BLOCK_S8)
+    rows = next(t for t in DECODE_TOKENS if t >= M)
+    if rows == 64 and -(-N // DECODE_COLUMNS) * -(-K // DECODE_K_BLOCK) <= SPLIT_TOKENS:
+        rows = 32
+    return w4a8_decode_plan(M, N, K, rows)
+
+
+def w4a8_decode_plan(M: int, N: int, K: int, rows: int, splits: int | None = None) -> GemmPlan:
+    """The decode kernel's plan at a token tile of ``rows`` (one of
+    ``DECODE_TOKENS``), K split by ``w4a8_plan``'s rule, or ``splits`` ways
+    (``tools/gemm_ab.py``'s sweep of the rule's neighbours): at most one
+    split a k block, and as many as the workspace holds."""
+    if M > 64 or rows not in DECODE_TOKENS:
+        raise ValueError(f"no decode plan for M {M} in token tiles of {rows}")
+    m_tiles, n_tiles, k_blocks = -(-M // rows), -(-N // DECODE_COLUMNS), -(-K // DECODE_K_BLOCK)
+    tiles = m_tiles * n_tiles
+    if splits is None:
+        splits = 1 if tiles >= SMS else max(-(-SMS // tiles), min(2 * SMS // tiles, k_blocks // 8))
+    plan = GemmPlan(DECODE_CONFIG, m_tiles, n_tiles, k_blocks, max(1, min(splits, k_blocks)),
+                    k_block=DECODE_K_BLOCK, rows=rows)
+    return _fit_workspace(plan)
 
 
 _workspaces: dict[tuple[str, torch.device], torch.Tensor] = {}
@@ -191,14 +259,17 @@ def unpack_w4(q: torch.Tensor, in_features: int) -> torch.Tensor:
 
 
 def check_w4_shape(in_features: int, group_size: int) -> None:
-    """What the kernels take: In even, groups that tile In, and no more
-    groups than the quantizer's shared memory holds."""
+    """What the kernels take: In even, groups that tile In, no more groups
+    than the quantizer's shared memory holds and no longer row than its
+    registers hold."""
     if in_features <= 0 or in_features % 2:
         raise ValueError(f"in_features {in_features} must be even and positive")
     if group_size <= 0 or in_features % group_size:
         raise ValueError(f"group_size {group_size} must divide in_features {in_features}")
     if in_features // group_size > MAX_GROUPS:
         raise ValueError(f"{in_features // group_size} groups exceed {MAX_GROUPS}")
+    if padded_in(in_features) > MAX_PADDED_IN:
+        raise ValueError(f"in_features {in_features} exceeds {MAX_PADDED_IN}")
 
 
 # ---------------------------------------------------------------- plain versions
@@ -312,15 +383,7 @@ def quantize_rows_int8(x: torch.Tensor, group_size: int):
 quantize_rows_int8.launches = 0
 
 
-def w4a8_matmul(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
-    """``[M, out_features]`` W4A8 product (bf16 from the kernel, f32 from
-    the plain version) of ``quantize_rows_int8``'s output and a packed
-    weight (see ``csrc/w4a8_matmul.cu``)."""
-    native.check_same_device(x8, ax, gsum, q, s, z)
-    if x8.device.type == "cpu":
-        return w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size, out_features)
-    if x8.device.type != "cuda":
-        raise ValueError(f"w4a8_matmul: unsupported device {x8.device}")
+def _check_a8(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> int:
     In = s.shape[0] * group_size
     _check_weight(q, s, z, In, group_size, out_features)
     M = x8.shape[0]
@@ -329,20 +392,120 @@ def w4a8_matmul(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> to
     _check_rows("gsum", gsum, torch.float32, s.shape[0])
     if ax.shape[0] != M or gsum.shape[0] != M:
         raise ValueError("x8, ax and gsum must have the same rows")
-    lib = native.load("w4a8_matmul", _SIGNATURES_A8)
+    return In
+
+
+def _w4a8_launch(lib, x8, ax, gsum, q, s, z, group_size: int, out_features: int, plan) -> torch.Tensor:
+    In = s.shape[0] * group_size
+    M = x8.shape[0]
+    ws = workspace("w4a8_matmul", x8.device)
     y = torch.empty(M, out_features, dtype=torch.bfloat16, device=x8.device)
     rc = lib.w4a8_matmul(
-        x8.data_ptr(), ax.data_ptr(), gsum.data_ptr(), q.data_ptr(), s.data_ptr(),
-        z.data_ptr(), y.data_ptr(), M, out_features, In, padded_in(In), group_size,
-        s.shape[1], native.stream_handle(x8.device),
+        x8.data_ptr(), ax.data_ptr(), gsum.data_ptr(), q.data_ptr(), s.data_ptr(), z.data_ptr(), y.data_ptr(), M,
+        out_features, In, padded_in(In), group_size, s.shape[1], native.stream_handle(x8.device),
+        ws.data_ptr(), plan.config, plan.splits, plan.tile[0],
     )
     if rc != 0:
         raise RuntimeError(f"w4a8_matmul launch failed: cudaError {rc}")
+    return y
+
+
+def w4a8_matmul(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
+    """``[M, out_features]`` W4A8 product (bf16 from the kernel, f32 from
+    the plain version) of ``quantize_rows_int8``'s output and a packed
+    weight (see ``csrc/w4a8_matmul.cu``), launched on ``w4a8_plan``'s plan;
+    the groups that plan gives no plan run ``w4a8_matmul_mma``. The wgmma
+    kernels fold the zero point into the codes and read ``gsum`` only for
+    a group whose zero lies outside [0, 16] (or is no integer)."""
+    native.check_same_device(x8, ax, gsum, q, s, z)
+    if x8.device.type == "cpu":
+        return w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size, out_features)
+    In = s.shape[0] * group_size
+    plan = w4a8_plan(x8.shape[0], out_features, In, group_size, s.shape[1])
+    if plan is None:
+        return w4a8_matmul_mma(x8, ax, gsum, q, s, z, group_size, out_features)
+    return w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, group_size, out_features, plan)
+
+
+w4a8_matmul.launches = 0
+
+
+def _check_a8_plan(plan: GemmPlan, M: int, N: int, K: int, group_size: int) -> None:
+    """What the kernel's indexing takes of a plan: the tile and the k block
+    of its M, the tiles covering the output, 1 to k_blocks splits, and
+    their partials within the workspace."""
+    decode = M <= 64
+    ok = group_size % 32 == 0 and plan.slots == 1 and plan.config == (DECODE_CONFIG if decode else 0)
+    ok = ok and plan.k_block == (DECODE_K_BLOCK if decode else K_BLOCK_S8)
+    ok = ok and (not decode or plan.rows in DECODE_TOKENS)
+    if ok:
+        bm, bn = plan.tile
+        ok = (plan.m_tiles, plan.n_tiles, plan.k_blocks) == (-(-M // bm), -(-N // bn), -(-K // plan.k_block))
+        ok = ok and 1 <= plan.splits <= plan.k_blocks and _fit_workspace(plan) == plan
+    if not ok:
+        raise ValueError(f"{plan} does not fit a W4A8 product of M {M}, N {N}, K {K}, group {group_size}")
+
+
+def w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, group_size: int, out_features: int,
+                          plan: GemmPlan) -> torch.Tensor:
+    """``w4a8_matmul`` on a given plan of ``w4a8_plan``'s kind (another
+    token tile or K split: ``tools/gemm_ab.py``'s sweep). Raises where the
+    plan does not fit the product; the plain version on the CPU."""
+    native.check_same_device(x8, ax, gsum, q, s, z)
+    In = s.shape[0] * group_size
+    _check_a8_plan(plan, x8.shape[0], out_features, In, group_size)
+    if x8.device.type == "cpu":
+        return w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size, out_features)
+    if x8.device.type != "cuda":
+        raise ValueError(f"w4a8_matmul: unsupported device {x8.device}")
+    _check_a8(x8, ax, gsum, q, s, z, group_size, out_features)
+    y = _w4a8_launch(native.load("w4a8_matmul", _SIGNATURES_A8), x8, ax, gsum, q, s, z, group_size,
+                     out_features, plan)
     w4a8_matmul.launches += 1
     return y
 
 
-w4a8_matmul.launches = 0
+def w4a8_matmul_cut(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
+    """The kernel built with ``GEMM_CUT``, for timing only: it loads and
+    converts every block and takes no product, so its output is not the
+    product. Card only; groups that ``w4a8_plan`` sends to the mma.sync
+    kernel raise."""
+    native.check_same_device(x8, ax, gsum, q, s, z)
+    if x8.device.type != "cuda":
+        raise ValueError("w4a8_matmul_cut runs on the card only")
+    In = _check_a8(x8, ax, gsum, q, s, z, group_size, out_features)
+    plan = w4a8_plan(x8.shape[0], out_features, In, group_size, s.shape[1])
+    if plan is None:
+        raise ValueError(f"group {group_size} runs the mma.sync kernel, which has no cut")
+    return _w4a8_launch(native.load("w4a8_matmul", _SIGNATURES_A8, GEMM_CUT), x8, ax, gsum, q, s, z,
+                        group_size, out_features, plan)
+
+
+def w4a8_matmul_mma(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
+    """The mma.sync kernel (``w4a8_matmul_mma`` in ``csrc/w4a8_matmul.cu``,
+    any group dividing In, reading ``gsum``): the route of the groups that
+    cut a 32-deep k step, which ``w4a8_matmul`` sends here; its plain version
+    on the CPU."""
+    native.check_same_device(x8, ax, gsum, q, s, z)
+    if x8.device.type == "cpu":
+        return w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size, out_features)
+    if x8.device.type != "cuda":
+        raise ValueError(f"w4a8_matmul_mma: unsupported device {x8.device}")
+    In = _check_a8(x8, ax, gsum, q, s, z, group_size, out_features)
+    lib = native.load("w4a8_matmul", _SIGNATURES_A8)
+    y = torch.empty(x8.shape[0], out_features, dtype=torch.bfloat16, device=x8.device)
+    rc = lib.w4a8_matmul_mma(
+        x8.data_ptr(), ax.data_ptr(), gsum.data_ptr(), q.data_ptr(), s.data_ptr(), z.data_ptr(),
+        y.data_ptr(), x8.shape[0], out_features, In, padded_in(In), group_size, s.shape[1],
+        native.stream_handle(x8.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"w4a8_matmul_mma launch failed: cudaError {rc}")
+    w4a8_matmul_mma.launches += 1
+    return y
+
+
+w4a8_matmul_mma.launches = 0
 
 
 def _w4a16_launch(lib, x, q, s, z, group_size: int, out_features: int) -> torch.Tensor:

@@ -1,28 +1,39 @@
 #!/usr/bin/env python3
-"""Time the W4A16 and delta GEMMs of two checkouts in turns, on one card.
+"""Time the W4 and delta GEMMs and the row quantizer of two checkouts in
+turns, on one card.
 
     python3 scratchpad_tpu_torch/tools/gemm_ab.py ROOT_A ROOT_B ROOT_B ROOT_A
 
 Each ROOT is the root of a checkout of the repository. Each runs in a
 process of its own, in the order given, so that two versions of the kernels
 are compared within one call on one card (A, B, B, A). A process builds the
-``w4a16_matmul`` and ``delta_matmul`` libraries of its checkout, times them
-through the wrappers every version takes, and prints one JSON line:
+``w4a8_matmul``, ``w4a16_matmul`` and ``delta_matmul`` libraries of its
+checkout, times them through the wrappers every version takes, and prints
+one JSON line:
 ``{"root", "device", "smi", "ms": {shape: median device ms}, "cut_ms":
-{...}, "per_forward": {...}}``. Where the checkout has the mainloop's
-timing cut (``SPTPU_GEMM_CUT=1``: loads and conversion, no product;
-``w4a16_matmul_cut``, ``delta_matmul_grouped_cut``), ``cut_ms`` holds its
-times at the same shapes, so that loads and math can be told apart.
+{...}, "per_forward": {...}}``. Where the checkout has the kernels' timing
+cut (``SPTPU_GEMM_CUT=1``: loads and conversion, no product;
+``w4a16_matmul_cut``, ``delta_matmul_grouped_cut``, ``w4a8_matmul_cut``),
+``cut_ms`` holds its times at the same shapes, so that loads and math can
+be told apart.
 
 Shapes: ``chip_smoke.py``'s ``phase_w4_timing`` and ``phase_delta_timing``.
-W4A16 (rows 5 and 7 of ``PERF.md``'s kernel table): Llama-3.2-1B's seven
-matrices at M 64 and (but the head) 8192, GPT-OSS's 2880 -> 5760 (g 120) and
-1800 -> 1000 (g 100) at M 64. The delta (row 8): the 1B's four projection
-shapes at bs 64 with one and with three delta slots of three adapter slots,
-and one 2048-token prefill chunk in one slot. ``per_forward`` sums calls x
-ms over one 1B decode forward at bs 64 (97 W4A16 calls; 112 delta calls
-with one, and with three, delta slots). Calls cycle over enough weight
-copies (up to 128 MiB) to leave L2 cold, as ``chip_smoke.py`` times them.
+W4A8 and W4A16 (rows 4 to 7 of ``PERF.md``'s kernel table): Llama-3.2-1B's
+seven matrices at M 64 and (but the head) 8192, GPT-OSS's 2880 -> 5760 (g
+120) and 1800 -> 1000 (g 100) at M 64, W4A8 on int8 rows the quantizer made
+once beforehand. The row quantizer at In 2048 and 8192, M 64 and 8192 (g
+128). The delta (row 8): the 1B's four projection shapes at bs 64 with one
+and with three delta slots of three adapter slots, and one 2048-token
+prefill chunk in one slot. ``per_forward`` sums calls x ms over one 1B
+decode forward at bs 64 (97 W4A8, W4A16 and quantizer calls, and the W4A8
+linear's two together; 112 delta calls with one, and with three, delta
+slots). Calls cycle over enough weight (or activation) copies (up to 128
+MiB) to leave L2 cold, as ``chip_smoke.py`` times them.
+
+Where the checkout has ``w4a8_matmul_with_plan``, ``plan_ms`` also holds W4A8's decode
+kernel at bs 64 under other plans than its own (``PLAN_SWEEP``: token
+tiles of 64 and 32, K splits from 1 to 32) at the 1B's and Llama-3.2-3B's
+matrices, so that the plan's rule can be checked against its neighbours.
 """
 
 from __future__ import annotations
@@ -43,6 +54,16 @@ DELTA_PROJECTIONS = [
     ("wq|wo", 2048, 2048, 32), ("wk|wv", 2048, 512, 32), ("gate|up", 2048, 8192, 32), ("down", 8192, 2048, 16),
 ]
 DELTA_RUNS = ((64, 1), (64, 3), (2048, 0))  # (tokens, delta slots; 0: one prefill chunk)
+QUANT_SHAPES = [(In, M) for In in (2048, 8192) for M in (64, 8192)]
+# W4A8's decode plans tried at bs 64: the 1B's matrices (but the head) and
+# Llama-3.2-3B's, each under token tiles of 64 and 32 and these K splits
+PLAN_SHAPES = [(n, In, Out) for n, In, Out, _ in W4_MATRICES[:6]] + [
+    ("3b wq", 3072, 3072), ("3b wk", 3072, 1024), ("3b gate_up", 3072, 16384), ("3b down", 8192, 3072),
+]
+PLAN_SWEEP = (1, 2, 4, 8, 16, 32)
+# the 1B's quantizer calls a decode forward: 5 of its 6 per-layer inputs and
+# the head's are 2048 wide, the down projection's 8192
+QUANT_CALLS = {2048: 5 * 16 + 1, 8192: 16}
 
 
 def w4_shapes():
@@ -63,9 +84,12 @@ def time_root(root: str) -> dict:
     assert Path(native.__file__).resolve().is_relative_to(Path(root).resolve()), native.__file__
     timing.resolve_device("cuda")
     has_cut = hasattr(wm, "w4a16_matmul_cut")
-    targets = ["w4a16_matmul", "delta_matmul"]
+    has_cut8 = hasattr(wm, "w4a8_matmul_cut")
+    targets = ["w4a8_matmul", "w4a16_matmul", "delta_matmul"]
     if has_cut:
         targets += [(t, wm.GEMM_CUT) for t in ("w4a16_matmul", "delta_matmul")]
+    if has_cut8:
+        targets.append(("w4a8_matmul", wm.GEMM_CUT))
     native.build(targets)
     gen = torch.Generator(device="cuda").manual_seed(0)
     ms, cut_ms = {}, {}
@@ -78,13 +102,48 @@ def time_root(root: str) -> dict:
         s = (torch.rand(copies, In // g, N, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
         z = (torch.randint(0, 16, (copies, In // g, N), generator=gen, device="cuda") - 8).to(torch.bfloat16)
         x = torch.randn(M, In, generator=gen, device="cuda").to(torch.bfloat16)
+        x8, ax, gsum = wm.quantize_rows_int8(x, g)
         iters = 50 if M <= 64 else 10
+        key8 = f"w4a8 {name} {In}->{Out} g={g} M={M}"
+        ms[key8] = timing.device_ms(lambda l: wm.w4a8_matmul(x8, ax, gsum, q[l], s[l], z[l], g, Out), copies, iters)
+        if has_cut8 and wm.w4a8_plan(M, Out, In, g, N) is not None:
+            cut_ms[key8] = timing.device_ms(lambda l: wm.w4a8_matmul_cut(x8, ax, gsum, q[l], s[l], z[l], g, Out),
+                                            copies, iters)
         key = f"w4a16 {name} {In}->{Out} g={g} M={M}"
         ms[key] = timing.device_ms(lambda l: wm.w4a16_matmul(x, q[l], s[l], z[l], g, Out), copies, iters)
         if has_cut and wm.w4a16_plan(M, Out, In, g, N) is not None:
             cut_ms[key] = timing.device_ms(lambda l: wm.w4a16_matmul_cut(x, q[l], s[l], z[l], g, Out),
                                            copies, iters)
         del q, s, z
+        torch.cuda.empty_cache()
+    plan_ms = {}
+    if hasattr(wm, "w4a8_matmul_with_plan"):
+        for name, In, Out in PLAN_SHAPES:
+            copies = max(2, min(64, -(-128 * 2**20 // (Out * In // 2))))
+            q = torch.randint(0, 256, (copies, Out, In // 2), generator=gen, device="cuda", dtype=torch.uint8)
+            s = (torch.rand(copies, In // 128, Out, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
+            z = (torch.randint(0, 16, (copies, In // 128, Out), generator=gen, device="cuda") - 8).to(torch.bfloat16)
+            x8, ax, gsum = wm.quantize_rows_int8(torch.randn(64, In, generator=gen, device="cuda").to(torch.bfloat16), 128)
+            own = wm.w4a8_plan(64, Out, In, 128, Out)
+            for rows in (64, 32):
+                for splits in sorted({sp for sp in PLAN_SWEEP if sp <= own.k_blocks} | {own.splits}):
+                    plan = wm.w4a8_decode_plan(64, Out, In, rows, splits)
+                    if plan.splits != splits:  # the workspace holds fewer
+                        continue
+                    key = f"w4a8 {name} {In}->{Out} M=64 rows={rows} splits={splits} ({plan.ctas} CTAs)"
+                    key += " (the plan)" if plan == own else ""
+                    plan_ms[key] = timing.device_ms(
+                        lambda l: wm.w4a8_matmul_with_plan(x8, ax, gsum, q[l], s[l], z[l], 128, Out, plan), copies, 50
+                    )
+            del q, s, z
+            torch.cuda.empty_cache()
+    for In, M in QUANT_SHAPES:
+        copies = max(2, min(64, -(-128 * 2**20 // (M * In * 2))))
+        xs = torch.randn(copies, M, In, generator=gen, device="cuda").to(torch.bfloat16)
+        ms[f"quantize_rows_int8 In={In} M={M} g=128"] = timing.device_ms(
+            lambda l: wm.quantize_rows_int8(xs[l], 128), copies, 50
+        )
+        del xs
         torch.cuda.empty_cache()
     for name, In, Out, _ in DELTA_PROJECTIONS:
         for T, n_delta in DELTA_RUNS:
@@ -115,17 +174,25 @@ def time_root(root: str) -> dict:
             del dq, ds
             torch.cuda.empty_cache()
     per_forward = {
-        "w4a16 1B decode forward, bs 64 (97 calls)": sum(
-            c * ms[f"w4a16 {n} {In}->{Out} g={stacked_group_size(In)} M=64"] for n, In, Out, c in W4_MATRICES
+        f"{k} 1B decode forward, bs 64 (97 calls)": sum(
+            c * ms[f"{k} {n} {In}->{Out} g={stacked_group_size(In)} M=64"] for n, In, Out, c in W4_MATRICES
         )
+        for k in ("w4a8", "w4a16")
     }
+    per_forward["quantize_rows_int8 1B decode forward, bs 64 (97 calls)"] = sum(
+        c * ms[f"quantize_rows_int8 In={In} M=64 g=128"] for In, c in QUANT_CALLS.items()
+    )
+    per_forward["W4A8 linear (quantizer and GEMM) 1B decode forward, bs 64"] = (
+        per_forward["w4a8 1B decode forward, bs 64 (97 calls)"]
+        + per_forward["quantize_rows_int8 1B decode forward, bs 64 (97 calls)"]
+    )
     for n_delta in (1, 3):
         per_forward[f"delta 1B decode forward, bs 64, {n_delta} delta slots (112 calls)"] = sum(
             c * ms[f"delta {n} {In}->{Out} T=64 {n_delta} delta slots"] for n, In, Out, c in DELTA_PROJECTIONS
         )
     card = timing.card()
     return {"root": root, "device": card["device"], "smi": card["smi"], "ms": ms, "cut_ms": cut_ms,
-            "per_forward": per_forward}
+            "per_forward": per_forward, "plan_ms": plan_ms}
 
 
 def main() -> None:
@@ -148,6 +215,10 @@ def main() -> None:
         print(f"[ab] {key}: {times}" + (f" (cut {cuts})" if cuts else ""), flush=True)
     for key in runs[0]["per_forward"]:
         print(f"[ab] {key}: " + "; ".join(f"{r['per_forward'][key]:.4f}" for r in runs), flush=True)
+    for r in runs:  # each distinct checkout's plan sweep once
+        if r["plan_ms"] and r["root"] not in {p["root"] for p in runs[: runs.index(r)]}:
+            for key, t in r["plan_ms"].items():
+                print(f"[plan] {r['root']} {key}: {t:.4f}", flush=True)
 
 
 if __name__ == "__main__":

@@ -277,7 +277,7 @@ def test_a_header_edit_changes_the_library_path(tmp_path, monkeypatch):
     shutil.copytree(native.CSRC, csrc, ignore=shutil.ignore_patterns("build"))
     monkeypatch.setattr(native, "CSRC", csrc)
     monkeypatch.setattr(native, "BUILD_DIR", csrc / "build")
-    names = ("w4a16_matmul", "delta_matmul", "paged_extend_attention")
+    names = ("w4a8_matmul", "w4a16_matmul", "delta_matmul", "paged_extend_attention")
     before = {n: native._lib_path(n) for n in names}
     variant = native._lib_path("w4a16_matmul", wm.GEMM_CUT)
     assert before == {n: native._lib_path(n) for n in names}  # stable while nothing changes
@@ -289,12 +289,19 @@ def test_a_header_edit_changes_the_library_path(tmp_path, monkeypatch):
 
 
 def test_gemm_ab_times_every_shape_chip_smoke_times():
-    """tools/gemm_ab.py's shapes are phase_w4_timing's and
-    phase_delta_timing's, with their calls per forward."""
+    """tools/gemm_ab.py's shapes are phase_w4_timing's (W4A8 and W4A16 at
+    the same matrices, the row quantizer's) and phase_delta_timing's, with
+    their calls per forward."""
     from scratchpad_tpu_torch.tools import gemm_ab
 
     mats = chip_smoke.llama_1b_matrices()
     assert gemm_ab.W4_MATRICES == [tuple(m) for m in mats]
+    assert gemm_ab.QUANT_SHAPES == chip_smoke.QUANT_TIMED
+    # the quantizer's calls a decode forward: one per W4 matrix, by input width
+    calls = {}
+    for _, In, _, c in mats:
+        calls[In] = calls.get(In, 0) + c
+    assert gemm_ab.QUANT_CALLS == calls
     assert gemm_ab.DELTA_PROJECTIONS == [tuple(p) for p in chip_smoke.llama_1b_projections()]
     timed = [(n, In, Out, M) for n, In, Out, _ in mats for M in ((64,) if n == "lm_head" else (64, 8192))]
     timed += [("gpt-oss gate_up", 2880, 5760, 64), ("g100", 1800, 1000, 64)]

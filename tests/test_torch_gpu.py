@@ -464,12 +464,13 @@ LLAMA_1B_W4 = {
 }
 
 
-def _random_w4(In, Out, gen, g=128):
-    """Random packed codes with bf16 scales in [0.005, 0.02) and zero points
-    0..15 (stored minus 8), as chip_smoke.py's ``random_w4``."""
+def _random_w4(In, Out, gen, g=128, zeros=(0, 16)):
+    """Random packed codes with bf16 scales in [0.005, 0.02) and integral
+    zero points in ``[zeros[0], zeros[1])`` (stored minus 8), as
+    chip_smoke.py's ``random_w4``."""
     q = torch.randint(0, 256, (Out, In // 2), generator=gen, device="cuda", dtype=torch.uint8)
     s = (torch.rand(In // g, Out, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
-    z = (torch.randint(0, 16, (In // g, Out), generator=gen, device="cuda") - 8).to(torch.bfloat16)
+    z = (torch.randint(*zeros, (In // g, Out), generator=gen, device="cuda") - 8).to(torch.bfloat16)
     return q, s, z
 
 
@@ -500,6 +501,120 @@ def test_w4a16_split_k_is_bit_exact(gen, name, M):
     b = w4a16_matmul(x, q, s, z, 128, Out)
     assert torch.equal(a, b)
     _close(a, w4a16_matmul_plain(x, q, s, z, 128, Out))
+
+
+# W4A8 at the edges of its plan (csrc/w4a8_matmul.cu): (In, Out, group).
+# The 1B's matrices (g 128), an Out no tile width divides (1000), groups of
+# 64 and 32 (folds inside a k block), a K that is no multiple of 128 (320,
+# g 32), and GPT-OSS's g 120, which takes the mma.sync kernel
+W4A8_EDGE_SHAPES = [
+    (2048, 2048, 128), (2048, 512, 128), (8192, 2048, 128), (2048, 1000, 64), (1024, 384, 32),
+    (320, 1000, 32), (2880, 5760, 120),
+]
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 129, 200])
+@pytest.mark.parametrize("In,Out,g", W4A8_EDGE_SHAPES)
+def test_w4a8_kernel_matches_plain_at_the_plan_edges(gen, In, Out, g, M):
+    """The decode kernel's token tiles (M 1 to 64: 8 and 64 wide), the
+    prefill tile's row edges (65, 129, 200); the zero row exact."""
+    q, s, z = _random_w4(In, Out, gen, g)
+    x8, ax, gsum = quantize_rows_int8(_w4_rows(M, In, gen), g)
+    out = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
+    _close(out, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
+    assert out.shape == (M, Out) and not out[M // 2].any()
+
+
+@pytest.mark.parametrize("In,Out,g,M", [
+    (2048, 2048, 128, 64), (2048, 512, 128, 64), (8192, 2048, 128, 64), (2048, 512, 128, 5),
+    (2048, 512, 128, 129), (1024, 384, 32, 64), (320, 1000, 32, 200),
+])
+def test_w4a8_split_k_is_bit_exact(gen, In, Out, g, M):
+    """Two calls of a plan that splits K give the same bits."""
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import w4a8_plan
+
+    assert w4a8_plan(M, Out, In, g, Out).splits > 1
+    q, s, z = _random_w4(In, Out, gen, g)
+    x8, ax, gsum = quantize_rows_int8(_w4_rows(M, In, gen), g)
+    a = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
+    b = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
+    assert torch.equal(a, b)
+    _close(a, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
+
+
+# zero points outside the code range (-8..24, as chip_smoke.py's
+# W4_REST_ZEROS) at a K whose last k block has zero-filled steps: 320 at
+# prefill (g 32 and 64: 128-deep blocks), 352 at decode (352 % 64 == 32)
+@pytest.mark.parametrize("In,Out,g,M", [
+    (320, 1000, 32, 65), (320, 1000, 32, 200), (320, 1000, 64, 65), (320, 1000, 64, 200),
+    (352, 1000, 32, 5), (352, 1000, 32, 63), (352, 1000, 32, 64), (352, 512, 32, 200),
+])
+def test_w4a8_and_w4a16_zero_rests_past_k(gen, In, Out, g, M):
+    """W4A8 adds a group's rest once, at the group's last step inside K,
+    and a split K's second call gives the same bits; W4A16 on the same
+    weights."""
+    q, s, z = _random_w4(In, Out, gen, g, zeros=(-8, 25))
+    x = _w4_rows(M, In, gen)
+    x8, ax, gsum = quantize_rows_int8(x, g)
+    a = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
+    _close(a, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
+    assert torch.equal(a, w4a8_matmul(x8, ax, gsum, q, s, z, g, Out))
+    assert not a[M // 2].any()
+    y16 = w4a16_matmul(x, q, s, z, g, Out)
+    _close(y16, w4a16_matmul_plain(x, q, s, z, g, Out))
+    assert not y16[M // 2].any()
+
+
+@pytest.mark.parametrize("rows,splits", [(64, 1), (64, 8), (32, 4), (16, 3), (8, 32)])
+def test_w4a8_matmul_with_plan_matches_plain(gen, rows, splits):
+    """tools/gemm_ab.py's sweep of decode plans: another token tile or K
+    split than the plan's own gives the product too."""
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import w4a8_decode_plan, w4a8_matmul_with_plan
+
+    In, Out, M = 2048, 512, 64
+    plan = w4a8_decode_plan(M, Out, In, rows, splits)
+    assert plan.splits == splits
+    q, s, z = _random_w4(In, Out, gen)
+    x8, ax, gsum = quantize_rows_int8(_w4_rows(M, In, gen), 128)
+    out = w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, 128, Out, plan)
+    _close(out, w4a8_matmul_plain(x8, ax, gsum, q, s, z, 128, Out))
+    assert not out[M // 2].any()
+
+
+@pytest.mark.parametrize("M", [1, 64, 200])
+@pytest.mark.parametrize("In,Out,group", [(2048, 512, 128), (512, 256, 32)])
+def test_w4a8_zero_points_outside_the_code_range(gen, In, Out, group, M):
+    """quantize_stacked gives a group of one sign a zero point outside [0,
+    15] and a constant column one of about -5e7: the kernels fold the rest
+    with gsum at the group's end."""
+    rng = np.random.default_rng(In + M)
+    w = rng.normal(size=(1, In, Out)).astype(np.float32) / np.sqrt(In)
+    w[0, :group, :7] = np.abs(w[0, :group, :7]) + 0.01  # one group of one sign
+    w[0, group:, 7:13] = -np.abs(w[0, group:, 7:13]) - 0.02
+    w[0, :, 13] = 0.5  # constant
+    ql = quantize_stacked(w, group)
+    zero = ql.z.float() + 0
+    assert bool(((zero < 0) | (zero > 15)).any())
+    q, s, z = (t[0].cuda() for t in pack_w4(ql))
+    g = ql.group_size
+    x8, ax, gsum = quantize_rows_int8(_w4_rows(M, In, gen), g)
+    out = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
+    _close(out, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
+    assert not out[M // 2].any()
+
+
+@pytest.mark.parametrize("M", [1, 64, 8192])
+@pytest.mark.parametrize("In,g", [(2048, 128), (8192, 128), (2880, 120)])
+def test_quantize_rows_is_bit_exact_at_model_shapes(gen, M, In, g):
+    """The quantizer's launch shapes: a CTA a row (M 1, 64) and several
+    rows a CTA (M 8192), at the 1B's widths and GPT-OSS's."""
+    x = _w4_rows(M, In, gen) * 3.0
+    out = quantize_rows_int8(x, g)
+    ref = quantize_activations_plain(x, g)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
 
 
 # (active_adapters, slots the tokens take); pool adapter 3 is LoRA only
