@@ -14,24 +14,31 @@ Phases, in order; any failure exits non-zero before the last line:
    and with them the decode kernel's four stage variants (``-DSPTPU_DECODE_
    STAGE=1, 2, 3, 5``, variant libraries of the same source). ``[sass]``
    lines count the tensor-core (``HGMMA``, ``IGMMA``, ``HMMA``, ``IMMA``)
-   and asynchronous-copy (``LDGSTS``, ``UTMALDG``) instructions of the
-   extend, W4A8, W4A16 and delta libraries (``SASS_LIBRARIES``) from
-   ``cuobjdump --dump-sass``; a library without a tensor-core instruction
-   fails, and so does a W4A16 or delta library without ``HGMMA``, a W4A8
-   library without the integer ``IGMMA``, or any of the three without an
+   and asynchronous-copy (``LDGSTS``, ``UTMALDG``, ``UBLKCP``)
+   instructions of the decode, extend, W4A8, W4A16 and delta libraries
+   (``SASS_LIBRARIES``) from ``cuobjdump --dump-sass``; a library without a
+   tensor-core instruction fails, and so does a decode library without
+   ``HMMA`` or ``HGMMA``, a W4A16 or delta library without ``HGMMA``, a W4A8
+   library without the integer ``IGMMA``, or any of these four without an
    asynchronous copy.
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs (the plain version computes and returns f32). Attention, on
    bf16 pages and on int8 and fp8 (e4m3) pages with per-(token, head) bf16
-   scales: decode shapes of short (256) and long (4096) contexts, batch 1
-   and 64, head_dim 64 and 128, 4 and 3 query heads per kv head (Llama-3.2-
-   1B's and 3B's), with ``seq_len == 0`` rows; extend shapes with mixed
+   scales: decode at batch 1, 2 and 64 and contexts of 1, 15, 16, 17, 256
+   and 4096 tokens (``DECODE_CHECK_B``, ``DECODE_CHECK_CTX``), rows ending
+   a token before, on and after a boundary of the decode plan's splits
+   (``split_edge_lens``), head_dim 64 and 128, 4 and 3 query heads per kv
+   head (Llama-3.2-1B's and 3B's), with ``seq_len == 0`` rows; where the
+   plan splits a row across CTAs, a second call must give the same bits;
+   extend shapes with mixed
    chunk lengths, cached prefixes and padded tokens. The KV quantizer on the
    card must match itself on the CPU bit for bit. The
    4-bit GEMMs: Llama-3.2-1B's seven matrices at M of 1, 64, 65, 129, 200
    and 2048 (``W4_CHECK_M``), groups of 64 and 32 at three of them
    (``W4_SMALL_GROUPS``), a group of 120 (GPT-OSS's 2880 -> 5760) and of
-   100 with a padded Out (W4A8's ``mma.sync`` route), each GEMM on the same
+   100 with a padded Out (W4A8's ``mma.sync`` route), ``quantize_stacked``'s
+   zero points outside the code range (``W4_STACKED_RESTS``: groups of one
+   sign, a constant column), each GEMM on the same
    int8 (W4A8) or bf16 (W4A16) rows as its plain version; the row
    quantizer must match its plain version bit for bit. The grouped int8 delta kernel of the toppings
    path: Llama-3.2-1B's projection shapes (2048 -> 2048, 512, 8192; 8192 ->
@@ -43,7 +50,9 @@ Phases, in order; any failure exits non-zero before the last line:
    static sliding window at Mistral-7B's shape (G 4, head_dim 128): decode
    at B 1 and 64, contexts 256, 4096 and 8192, for each (cap, W) of
    ``CAPS_WINDOWS`` over bf16 pages and ``CAPS_WINDOWS_8BIT`` over int8 and
-   fp8 pages; extend with a 2048-token chunk on 6,000 cached tokens and
+   fp8 pages, and rows whose window's first token falls a token before, on
+   and after a split boundary (``SPLIT_EDGE_WINDOWS``), split calls
+   bit-equal; extend with a 2048-token chunk on 6,000 cached tokens and
    mixed chunks whose window edge falls inside a query tile and a page; and
    ``decode_attention_pallas`` (the port of ``pallas_decode._decode_kernel``)
    at its JAX test's shape with cap 30 and W 8, and at Mistral-7B's. Tolerance:
@@ -123,7 +132,9 @@ Phases, in order; any failure exits non-zero before the last line:
    dequantized to bf16 beforehand; for the delta kernel ``torch.bmm`` of
    each delta slot's rows with its panel dequantized and scaled to bf16
    beforehand), at 1B decode (bs 64, one and three delta slots) and one
-   2048-token prefill chunk. At Mistral-7B's shape: decode at bs 64 and ctx
+   2048-token prefill chunk; decode at every shape of ``DECODE_TIMED``, B 1
+   (split across the card) at 4096 and 8192 tokens among them. At
+   Mistral-7B's shape: decode at bs 64 and ctx
    4096 and 8192 without a window and 8192 with W 4096 (through both
    wrappers), the 2048-token extend chunk on 4096, 5120 and 8192 tokens
    without a window and on 8192 with it; the bound counts the live window
@@ -347,11 +358,16 @@ def sass_counts(sass: str, opcodes) -> dict:
     return {op: ops.count(op) for op in opcodes}
 
 
-# the libraries whose SASS phase 2 counts: the extend kernel, and the three
-# GEMMs on csrc/sm90_gemm.cuh, which must hold wgmma (the integer IGMMA for
-# W4A8, HGMMA for the others) and asynchronous copies
-SASS_LIBRARIES = ("paged_extend_attention", "w4a8_matmul", "w4a16_matmul", "delta_matmul")
-SASS_OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "LDGSTS", "UTMALDG")
+# the libraries whose SASS phase 2 counts: the decode and extend kernels,
+# and the three GEMMs on csrc/sm90_gemm.cuh, which must hold wgmma (the
+# integer IGMMA for W4A8, HGMMA for the others) and asynchronous copies; the
+# decode kernel a tensor-core instruction (HMMA: mma.sync) and an
+# asynchronous copy (LDGSTS: cp.async, UTMALDG: a TMA load, UBLKCP: a bulk
+# copy)
+SASS_LIBRARIES = ("paged_decode_attention", "paged_extend_attention", "w4a8_matmul", "w4a16_matmul",
+                  "delta_matmul")
+SASS_OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "LDGSTS", "UTMALDG", "UBLKCP")
+ASYNC_COPIES = ("LDGSTS", "UTMALDG", "UBLKCP")
 
 
 def phase_build():
@@ -379,59 +395,105 @@ def phase_build():
         log(f"[sass] {lib.name}: " + ", ".join(f"{op} {n}" for op, n in count.items()))
         if sass.returncode != 0 or count["HGMMA"] + count["IGMMA"] + count["HMMA"] + count["IMMA"] == 0:
             fail(f"the {name} library has no tensor-core instruction (cuobjdump rc {sass.returncode})")
+        copies = sum(count[op] for op in ASYNC_COPIES)
+        if name == "paged_decode_attention":
+            if count["HMMA"] + count["HGMMA"] == 0 or copies == 0:
+                fail(f"the {name} library has no HMMA or HGMMA or no asynchronous copy: {count}")
+            continue
         wgmma = "IGMMA" if name == "w4a8_matmul" else "HGMMA"
-        if name != "paged_extend_attention" and (
-            count[wgmma] == 0 or count["LDGSTS"] + count["UTMALDG"] == 0
-        ):
+        if name != "paged_extend_attention" and (count[wgmma] == 0 or copies == 0):
             fail(f"the {name} library has no {wgmma} (wgmma) or no asynchronous copy: {count}")
 
 
 # --------------------------------------------------------------- phase 3
 
 
+# B and contexts of the decode checks: one row (split across 256 CTAs at
+# 4096 tokens), two, and the bench's 64; contexts on either side of a page
+# (and a 16-token slice) edge, a short and a long one
+DECODE_CHECK_B = (1, 2, 64)
+DECODE_CHECK_CTX = (1, 15, 16, 17, 256, 4096)
+
+
+def split_edge_lens(ctx: int, Hkv: int, D: int, G: int, window=None, batch: int = 4) -> list[int]:
+    """Four rows of a page table ``ctx`` tokens wide whose last token (or,
+    with ``window``, the window's first) falls one token before, on and one
+    token after a boundary of ``decode_plan``'s splits, beside a row of
+    ``ctx``; the plan is that of ``batch`` rows (these four and any the
+    caller adds)."""
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
+
+    plan = decode_plan(batch, Hkv, -(-ctx // 16), D, G)
+    span = plan.split_pages * 16
+    if plan.splits < 2 or span + (window or 0) + 1 > ctx:
+        raise ValueError(f"no split boundary to test at ctx {ctx}, window {window}: {plan}")
+    edge = span * max(1, (ctx - (window or 0) - 1) // span // 2) + (window or 0)
+    return [ctx, edge - 1, edge, edge + 1]
+
+
+def decode_lens(case, gen, D: int, G: int):
+    """Row lengths of a decode check: ``(B, ctx)`` rows of ctx // 2 to ctx
+    tokens, the first of ctx; "padding" rows of 0 beside real ones; "split
+    edges" (``split_edge_lens`` at 4096 tokens)."""
+    import torch
+
+    if case == "padding":
+        lens = [300, 0, 17, 0]
+    elif case == "split edges":
+        lens = split_edge_lens(4096, 8, D, G)
+    else:
+        B, ctx = case
+        t = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
+        t[0] = ctx
+        return t.to(torch.int32)
+    return torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
 def check_decode(errs: dict) -> None:
     """bf16, int8 and fp8 pages; G = 4 (Hq 32) and G = 3 (Hq 24) over Hkv 8;
-    head_dim 64 and 128; B 1 and 64 at contexts 256 and 4096, and a batch
-    with padding rows, which must come out as exact zeros."""
+    head_dim 64 and 128; B 1, 2 and 64 at each context of
+    ``DECODE_CHECK_CTX``, a batch with padding rows, which must come out as
+    exact zeros, and rows ending one token before, on and after a boundary
+    of the plan's splits. Where the plan splits a row, a second call must
+    give the same bits."""
     import torch
 
     from scratchpad_tpu_torch.ops.attention import paged_decode_attention_plain
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
 
     Hkv, ps = 8, 16
     seed = 0
     for kind in ("bf16", "int8", "fp8"):
         for G in (4, 3):
             for D in (64, 128):
-                cases = [(B, ctx) for B in (1, 64) for ctx in (256, 4096)] + [None]
-                for case in cases:
+                cases = [(B, ctx) for B in DECODE_CHECK_B for ctx in DECODE_CHECK_CTX]
+                for case in cases + ["padding", "split edges"]:
                     seed += 1
                     gen = seeded(seed)
-                    if case is None:  # padding rows: seq_len == 0
-                        lens = torch.tensor([300, 0, 17, 0], dtype=torch.int32, device="cuda")
-                    else:
-                        B, ctx = case
-                        lens = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
-                        lens[0] = ctx
-                        lens = lens.to(torch.int32)
+                    lens = decode_lens(case, gen, D, G)
                     k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
                     k, v, ks, vs = quant_pages(k[0], v[0], kind)
                     q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
                     scale = 1.0 / math.sqrt(D)
                     out = decode_kernel(q, k, v, ks, vs, pt, lens, scale)
                     ref = paged_decode_attention_plain(q.float(), k, v, pt, lens, scale, ks, vs)
+                    plan = decode_plan(len(lens), Hkv, pt.shape[1], D, G)
+                    same = plan.splits == 1 or torch.equal(out, decode_kernel(q, k, v, ks, vs, pt, lens, scale))
                     torch.cuda.synchronize()
                     e, ratio = max_err(out, ref)
                     zero = bool((out[lens == 0] == 0).all())
                     errs[DECODE[kind]] = max(errs[DECODE[kind]], e)
-                    what = "padding rows" if case is None else f"B={case[0]} ctx={case[1]}"
+                    what = case if isinstance(case, str) else f"B={case[0]} ctx={case[1]}"
                     log(
                         f"[check] decode {kind} G={G} D={D} {what}: max_abs_err {e:.3e}, "
                         f"max err/tol {ratio:.3f} (tol {ATOL}+{RTOL}*|ref|), zero rows exact: {zero}"
+                        + (f"; {plan.splits} splits, second call bit-equal: {same}" if plan.splits > 1 else "")
                     )
                     check(
                         ratio <= 1 and zero,
                         f"{kind} decode kernel disagrees with its plain version at G={G} D={D} {what}",
                     )
+                    check(same, f"{kind} decode kernel's split calls differ at G={G} D={D} {what}")
 
 
 def extend_case(chunks, D, T_pad, seed, G=4):
@@ -497,6 +559,9 @@ def check_extend(errs: dict) -> None:
 # 64-token KV tile (1000), both, and a window of one token
 CAPS_WINDOWS = [(None, None), (50.0, None), (None, 4096), (None, 1000), (30.0, 1000), (None, 1)]
 CAPS_WINDOWS_8BIT = [(30.0, 1000), (None, 4096)]
+# the windows whose first token the split-edge rows put one token before, on
+# and one after a boundary of the decode plan's splits
+SPLIT_EDGE_WINDOWS = (1000, 4096)
 # q of the capped checks is scaled up so that scores reach the cap: at the
 # N(0, 1) scores of unit q and K, a cap of 30 moves a score by under 1e-2,
 # and a kernel that skips the cap read only 4.95x the tolerance (PERF.md,
@@ -522,15 +587,20 @@ def check_window_decode(errs: dict) -> None:
 
     from scratchpad_tpu_torch.ops.attention import paged_decode_attention_plain
 
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
+
     Hkv, G, D, ps = 8, 4, 128, 16
     scale = 1.0 / math.sqrt(D)
     seed = 10_000
     for kind, grid in (("bf16", CAPS_WINDOWS), ("int8", CAPS_WINDOWS_8BIT), ("fp8", CAPS_WINDOWS_8BIT)):
-        for case in [(B, ctx) for B in (1, 64) for ctx in (256, 4096, 8192)] + [None]:
+        cases = [(B, ctx) for B in (1, 64) for ctx in (256, 4096, 8192)]
+        for case in cases + ["padding"] + [("split edges", w) for w in SPLIT_EDGE_WINDOWS]:
             seed += 1
             gen = seeded(seed)
-            if case is None:
+            if case == "padding":
                 lens = torch.tensor([5000, 0, 17, 0], dtype=torch.int32, device="cuda")
+            elif case[0] == "split edges":
+                lens = torch.tensor(split_edge_lens(8192, Hkv, D, G, case[1]), dtype=torch.int32, device="cuda")
             else:
                 B, ctx = case
                 lens = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
@@ -541,24 +611,33 @@ def check_window_decode(errs: dict) -> None:
             k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
             k, v, ks, vs = quant_pages(k[0], v[0], kind)
             q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+            plan = decode_plan(len(lens), Hkv, pt.shape[1], D, G)
             for cap, window in grid:
+                if case[0] == "split edges" and window != case[1]:
+                    continue  # those rows put this window's edge on the splits' boundaries
                 qc = capped_q(q, cap)
                 out = decode_kernel(qc, k, v, ks, vs, pt, lens, scale, cap, window)
                 ref = paged_decode_attention_plain(qc.float(), k, v, pt, lens, scale, ks, vs, cap, window)
+                same = plan.splits == 1 or torch.equal(
+                    out, decode_kernel(qc, k, v, ks, vs, pt, lens, scale, cap, window))
                 torch.cuda.synchronize()
                 e, ratio = max_err(out, ref)
                 zero = bool((out[lens == 0] == 0).all())
                 errs[DECODE[kind]] = max(errs[DECODE[kind]], e)
-                what = "padding rows" if case is None else f"B={case[0]} ctx={case[1]}"
+                what = case if isinstance(case, str) else (
+                    f"split edges {lens.tolist()}" if case[0] == "split edges" else f"B={case[0]} ctx={case[1]}")
                 log(
                     f"[check] decode {kind} Mistral shape {what} {cap_window(cap, window)}: "
                     f"max_abs_err {e:.3e}, max err/tol {ratio:.3f}, zero rows exact: {zero}"
+                    + (f"; {plan.splits} splits, second call bit-equal: {same}" if plan.splits > 1 else "")
                 )
                 check(
                     ratio <= 1 and zero,
                     f"{kind} decode kernel disagrees with its plain version at the Mistral shape "
                     f"{what} {cap_window(cap, window)}",
                 )
+                check(same, f"{kind} decode kernel's split calls differ at the Mistral shape {what} "
+                            f"{cap_window(cap, window)}")
             del k, v, ks, vs
 
 
@@ -756,13 +835,40 @@ W4_SMALL_GROUPS = [("wq", 64, (1, 64, 200)), ("wk", 32, (5, 64, 129)), ("down", 
 # Out, group, Ms)
 W4_ZERO_RESTS = [("rest 320", 320, 1000, 32, (65, 200)), ("rest 352", 352, 1000, 32, (1, 64))]
 W4_REST_ZEROS = (-8, 25)
+# quantize_stacked's own zero points outside the code range (stacked_rest_w4):
+# groups of one sign, a constant column (a zero of about -5e7) and nearly
+# constant ones (-500 to -2,000), which W4A16 forms as a clamped code and a
+# rest; (name, In, Out, Ms): group 128 at K 2048, group 112 at K 224 (not a
+# multiple of 128, its last 64-deep block half zero-filled), decode and
+# prefill
+W4_STACKED_RESTS = [("stacked rest 2048", 2048, 512, (1, 64, 200)), ("stacked rest 224", 224, 1000, (1, 64, 130))]
+
+
+def stacked_rest_w4(In: int, Out: int, seed: int):
+    """A weight [In -> Out] quantized by ``quantize_stacked`` (host numpy,
+    from ``seed``) and packed on the card, with groups of one sign, a
+    constant column and nearly constant ones: (q, s, z, group)."""
+    import numpy as np
+
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
+    from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked, stacked_group_size
+
+    rng = np.random.default_rng(seed)
+    g = stacked_group_size(In)
+    w = (rng.normal(size=(1, In, Out)) / np.sqrt(In)).astype(np.float32)
+    w[0, :g, :7] = np.abs(w[0, :g, :7]) + 0.01
+    w[0, g:, 7:13] = -np.abs(w[0, g:, 7:13]) - 0.02
+    w[0, :, 13] = 0.5
+    w[0, :, 14:30] = 0.5 + 3e-2 * w[0, :, 14:30]
+    q, s, z = (t[0].cuda() for t in pack_w4(quantize_stacked(w)))
+    return q, s, z, g
 
 
 def check_w4(errs: dict) -> None:
     """The row quantizer bit for bit, and both W4 GEMMs against their plain
     versions on the same int8 rows (W4A8) or bf16 rows (W4A16), at
     Llama-3.2-1B's seven matrices and each M of ``W4_CHECK_M``, at
-    ``W4_SMALL_GROUPS`` and ``W4_ZERO_RESTS``; at GPT-OSS's 2880 -> 5760
+    ``W4_SMALL_GROUPS``, ``W4_ZERO_RESTS`` and ``W4_STACKED_RESTS``; at GPT-OSS's 2880 -> 5760
     (g 120) and at 1800 -> 1000 (g 100, Out padded to 1024), which W4A8
     sends to its mma.sync kernel. Row M // 2 is zeros: its outputs must be exact zeros. Where a
     plan splits K, a second call must give the same bits."""
@@ -786,10 +892,14 @@ def check_w4(errs: dict) -> None:
     cases += [("gpt-oss gate_up", 2880, 5760, M, None, plain) for M in (1, 64, 300)]
     cases += [("g100", 1800, 1000, M, None, plain) for M in (1, 64, 300)]
     cases += [(name, In, Out, M, g, W4_REST_ZEROS) for name, In, Out, g, ms in W4_ZERO_RESTS for M in ms]
+    cases += [(name, In, Out, M, None, "stacked") for name, In, Out, ms in W4_STACKED_RESTS for M in ms]
     for i, (name, In, Out, M, group, zero_range) in enumerate(cases):
         gen = seeded(3000 + i)
-        q, s, z, g = random_w4(In, Out, 1, gen, group, zero_range)
-        q, s, z = q[0], s[0], z[0]
+        if zero_range == "stacked":
+            q, s, z, g = stacked_rest_w4(In, Out, 3000 + i)
+        else:
+            q, s, z, g = random_w4(In, Out, 1, gen, group, zero_range)
+            q, s, z = q[0], s[0], z[0]
         x = torch.randn(M, In, generator=gen, device="cuda").to(torch.bfloat16)
         zero = M // 2 if M > 1 else None
         if zero is not None:
@@ -1455,6 +1565,28 @@ def time_kv_write(D: int) -> dict:
     return r
 
 
+# the decode timings, (B, ctx, D, G, kind, window, wrapper), each kernel's
+# main shape first: bs 64 at 256 and 4096 tokens and B 1 (split across the
+# card) at Llama-3.2-1B's (G 4, D 64), 3B's (G 3, D 128) and Mistral-7B's
+# (G 4, D 128) shapes, the 7B's window, and 8-bit pages
+DECODE_TIMED = [
+    (64, 256, 64, 4, "bf16", None, "auto"), (64, 4096, 64, 4, "bf16", None, "auto"),
+    (64, 4096, 128, 3, "bf16", None, "auto"), (64, 4096, 128, 4, "bf16", None, "auto"),
+    (64, 8192, 128, 4, "bf16", None, "auto"), (64, 8192, 128, 4, "bf16", 4096, "auto"),
+    (1, 4096, 64, 4, "bf16", None, "auto"), (1, 4096, 128, 3, "bf16", None, "auto"),
+    (1, 8192, 128, 4, "bf16", None, "auto"),
+    (64, 8192, 128, 4, "bf16", 4096, "pallas"),
+    (64, 4096, 128, 3, "int8", None, "auto"), (64, 4096, 128, 3, "fp8", None, "auto"),
+    (64, 4096, 64, 4, "int8", None, "auto"), (64, 4096, 64, 4, "fp8", None, "auto"),
+    (64, 256, 128, 3, "int8", None, "auto"),
+]
+
+
+def decode_timed_kernel(kind: str, wrapper: str) -> str:
+    """The kernel name a ``DECODE_TIMED`` row times."""
+    return "decode_attention_pallas" if wrapper == "pallas" else DECODE[kind]
+
+
 def phase_timing() -> dict:
     """The first row of each kernel is its main shape in the ``kernels``
     line: Llama-3.2-1B's for the bf16 kernels, 3B's (G 3, D 128) for the
@@ -1462,21 +1594,13 @@ def phase_timing() -> dict:
     ``decode_attention_pallas``. At Mistral-7B's shape the window's rows
     time ctx 4096 and 8192 without the window beside ctx 8192 with it, and
     the 2048-token extend chunk on 4096, 5120 (as many attended pairs as
-    the window's 4096 a query) and 8192 tokens beside 8192 with it."""
-    t = {
-        "paged_decode_attention": [
-            time_decode(64, 256), time_decode(64, 4096), time_decode(64, 4096, 128, 3),
-            time_decode(64, 4096, 128, 4), time_decode(64, 8192, 128, 4),
-            time_decode(64, 8192, 128, 4, window=4096),
-        ],
-        "decode_attention_pallas": [
-            time_decode(64, 8192, 128, 4, window=4096, wrapper="pallas"),
-        ],
-        "paged_decode_attention_quant": [
-            time_decode(64, 4096, 128, 3, "int8"), time_decode(64, 4096, 128, 3, "fp8"),
-            time_decode(64, 4096, 64, 4, "int8"), time_decode(64, 4096, 64, 4, "fp8"),
-            time_decode(64, 256, 128, 3, "int8"),
-        ],
+    the window's 4096 a query) and 8192 tokens beside 8192 with it. The
+    decode rows are ``DECODE_TIMED``."""
+    t = {}
+    for B, ctx, D, G, kind, window, wrapper in DECODE_TIMED:
+        t.setdefault(decode_timed_kernel(kind, wrapper), []).append(
+            time_decode(B, ctx, D, G, kind, window, wrapper))
+    t.update({
         "paged_extend_attention": [
             time_extend([(128, 128)] * 64),
             time_extend([(2048, 8192)]),
@@ -1489,7 +1613,7 @@ def phase_timing() -> dict:
             time_extend([(2048, 8192)], 128, 3, "int8"),
             time_extend([(128, 128)] * 64, 128, 3, "fp8"),
         ],
-    }
+    })
     for name, rows in t.items():
         for r in rows:
             log(

@@ -141,15 +141,6 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
-// e4m3: through f16, where every e4m3 value is exact
-__device__ __forceinline__ void codes_to_bf16(uint32_t word, __nv_fp8_e4m3, uint32_t& lo, uint32_t& hi) {
-  const __half2_raw h0 = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word & 0xFFFFu), __NV_E4M3);
-  const __half2_raw h1 = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word >> 16), __NV_E4M3);
-  const float2 a = __half22float2(__half2(h0));
-  const float2 b = __half22float2(__half2(h1));
-  lo = pack_bf16(a.x, a.y);
-  hi = pack_bf16(b.x, b.y);
-}
 
 // CodeT: __nv_bfloat16 (bf16 pages, no scales), int8_t or __nv_fp8_e4m3
 // (8-bit pages with k_scale / v_scale [pages, page_size, Hkv] bf16)

@@ -2,8 +2,10 @@
 // and the mainloop of its three mixed-input GEMMs.
 //
 // The helpers (swizzled shared-memory layout, wgmma descriptors and
-// products, cp.async, mbarriers, the exact int8 -> bf16 converter) are the
-// extend kernel's (paged_extend_attention.cu), which includes this header.
+// products, cp.async, mbarriers, the exact int8 and e4m3 -> bf16
+// converters) are the extend kernel's (paged_extend_attention.cu), which
+// includes this header, as the decode kernel (paged_decode_attention.cu)
+// does for cp.async and the converters.
 //
 // The GEMM mainloop (sm90_gemm_kernel) serves w4a16_matmul.cu (4-bit codes
 // with a zero point and a scale per group) and delta_matmul.cu (int8 delta
@@ -60,6 +62,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -199,6 +202,11 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return bits(__floats2bfloat162_rn(lo, hi));  // lo in the low half
 }
+// lo + hi of a bf16x2 word, in f32
+__device__ __forceinline__ float bf16x2_sum(uint32_t v) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  return f.x + f.y;
+}
 
 // four 8-bit codes (one word, code k in byte k) as two bf16x2 words, exactly.
 // int8: byte u = x + 128 under the exponent of 2^23 is the float 2^23 + u,
@@ -211,6 +219,15 @@ __device__ __forceinline__ void codes_to_bf16(uint32_t word, int8_t, uint32_t& l
     f[k] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + k)) - 8388736.f);
   lo = __byte_perm(f[0], f[1], 0x7632);
   hi = __byte_perm(f[2], f[3], 0x7632);
+}
+// the same for four e4m3 codes: through f16, where every e4m3 value is exact
+__device__ __forceinline__ void codes_to_bf16(uint32_t word, __nv_fp8_e4m3, uint32_t& lo, uint32_t& hi) {
+  const __half2_raw h0 = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word & 0xFFFFu), __NV_E4M3);
+  const __half2_raw h1 = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word >> 16), __NV_E4M3);
+  const float2 a = __half22float2(__half2(h0));
+  const float2 b = __half22float2(__half2(h1));
+  lo = pack_bf16(a.x, a.y);
+  hi = pack_bf16(b.x, b.y);
 }
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A K-major and B K-major (TB 0) or
 // MN-major (TB 1) in shared memory
@@ -404,6 +421,49 @@ struct OpAcc<Op, std::void_t<typename Op::Acc>> {
 template <class Op>
 constexpr bool kOpS8 = std::is_same_v<typename OpAcc<Op>::type, int32_t>;
 
+// An Op whose zero points may leave a rest (kRest: W4A16, see
+// w4a16_matmul.cu): the warpgroups that fold a B tile scan its zeros over
+// the CTA's K range (scan_rest) while block 0 loads, and OR what they found
+// at a barrier before the first conversion; the mainloop is instantiated
+// twice, and only a CTA whose tile has a rest runs the one that converts
+// with the zeros clamped and sums x over each block (or 16-deep step) for
+// the fold, which then adds the rest.
+template <class Op, class = void>
+struct OpRest {
+  static constexpr bool value = false;
+};
+template <class Op>
+struct OpRest<Op, std::void_t<decltype(Op::kRest)>> {
+  static constexpr bool value = Op::kRest;
+};
+template <class Op>
+constexpr bool kOpRest = OpRest<Op>::value;
+
+// named barrier `id` over n threads that also returns the OR of v across them
+__device__ __forceinline__ bool bar_or(int id, int n, bool v) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"((uint32_t)v), "r"(id), "r"(n)
+      : "memory");
+  return r != 0;
+}
+
+// the zero point z + 8 of a stored bf16 z (the W4 layout's zero minus 8),
+// rounded and clamped to [0, 16] (the zero itself for every group that
+// spans 0), and what that left out: r = clamped - zero, exact where it
+// matters (0 unless the zero is out of range or not an integer)
+__device__ __forceinline__ float zero_clamped(__nv_bfloat16 z) {
+  return fminf(fmaxf(rintf(__bfloat162float(z) + 8.f), 0.f), 16.f);
+}
+__device__ __forceinline__ float zero_rest(__nv_bfloat16 z) {
+  return (zero_clamped(z) - 8.f) - __bfloat162float(z);
+}
+
 // Split K: this CTA's partial v [NACC] (thread tid of kConsumers) goes to
 // the workspace, element-major so that a warp's stores are contiguous; the
 // last CTA of the tile to arrive (a counter it then resets) loads every
@@ -528,75 +588,122 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
 #pragma unroll
   for (int i = 0; i < NACC; ++i) acc[i] = 0, tot[i] = 0.f;
 
-  // The consumers convert: a warpgroup converts the B columns it reads, [wn
-  // NW, wn NW + NW); where two warpgroups read one B tile (WM 2), each
-  // converts half of it and the two meet at a named barrier. Block t + 1 is
-  // converted while block t's products run, into the other B stage.
-  auto convert = [&](int t) {
-    mbar_wait(landed(t % S::kStages), (t / S::kStages) & 1);
-    op.template convert<NW / WM>(sm + (t % S::kStages) * S::kRaw + S::kX,
-                                 sm + S::kWRing + (t & 1) * S::kW,
-                                 wn * NW + (WM == 2 ? wm * (NW / 2) : 0), tid & 127);
-    fence_async_shared();
-  };
+  // kOpRest: whether the zeros of the columns this warpgroup folds leave a
+  // rest in the CTA's K range: this thread's share of the scan, ORed over
+  // the B tile's warpgroups before the first conversion (the scan's loads
+  // and block 0's copies are in flight together), so uniform
+  bool rest = false;
+  if constexpr (kOpRest<Op>) {
+    if (n_kb > 0)
+      rest = op.scan_rest(n_base + wn * NW, NW, kb0, n_kb, WM == 2 ? tid : (tid & 127), WM == 2 ? 256 : 128);
+    rest = bar_or(WM == 2 ? 3 : 3 + wg, WM == 2 ? 256 : 128, rest);
+  }
   auto sync_b = [&]() {  // the warpgroups of one B tile
     if constexpr (WM == 2) asm volatile("bar.sync 3, 256;\n" ::: "memory");
     else asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
   };
-  if (n_kb > 0) convert(0);
-  sync_b();
+  // kOpRest: rows row0 and row0 + 8's sums of x over the current group's
+  // blocks (or steps) since its last fold, f32, summed from the x tile's
+  // bf16 by the quad (lane q4 a quarter of the columns)
+  [[maybe_unused]] float xs[2] = {0.f, 0.f};
+  auto add_x_sums = [&](const uint8_t* xt, int kk) {  // kk < 0: the whole block
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      float v = 0.f;
+      if (kk < 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint4 c = *reinterpret_cast<const uint4*>(xt + swz(r, 2 * q4 + h));
+          v += bf16x2_sum(c.x) + bf16x2_sum(c.y) + bf16x2_sum(c.z) + bf16x2_sum(c.w);
+        }
+      } else {
+        const uint2 c = *reinterpret_cast<const uint2*>(xt + swz(r, 2 * kk + (q4 >> 1)) + 8 * (q4 & 1));
+        v = bf16x2_sum(c.x) + bf16x2_sum(c.y);
+      }
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      xs[i] += v;
+    }
+  };
 
+  // The mainloop, instantiated for a tile with a zero rest (kR: kOpRest ops
+  // only) and without one, so that a tile without a rest runs no rest code.
+  // The consumers convert: a warpgroup converts the B columns it reads, [wn
+  // NW, wn NW + NW); where two warpgroups read one B tile (WM 2), each
+  // converts half of it and the two meet at a named barrier. Block t + 1 is
+  // converted while block t's products run, into the other B stage.
   // Every wgmma is issued whatever the branch (a wgmma under a branch the
   // compiler cannot prove uniform is serialized); only the folds branch.
-  for (int t = 0; t < n_kb; ++t) {
-    const int st = t % S::kStages, kb = kb0 + t;
+  auto mainloop = [&](auto rest_tag) {
+    constexpr bool kR = decltype(rest_tag)::value;
+    auto convert = [&](int t) {
+      mbar_wait(landed(t % S::kStages), (t / S::kStages) & 1);
+      uint8_t* raw_t = sm + (t % S::kStages) * S::kRaw + S::kX;
+      uint8_t* w_t = sm + S::kWRing + (t & 1) * S::kW;
+      const int n_lo = wn * NW + (WM == 2 ? wm * (NW / 2) : 0);
+      if constexpr (kOpRest<Op>) op.template convert<NW / WM, kR>(raw_t, w_t, n_lo, tid & 127);
+      else op.template convert<NW / WM>(raw_t, w_t, n_lo, tid & 127);
+      fence_async_shared();
+    };
+    // the fold of step kk (16-deep step j of K)
+    auto fold = [&](const uint8_t* rawp, int kk, int j) {
+      if constexpr (kOpS8<Op>)  // W4A8 also takes its rows and its warpgroup
+        op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4, j, m_base + wm * 64 + row0, wn);
+      else if constexpr (kOpRest<Op>)
+        op.template fold<kR>(acc, tot, rawp, kk, wn * NW + 2 * q4, j, xs);
+      else
+        op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4);
+    };
+    if (n_kb > 0) convert(0);
+    sync_b();
+    for (int t = 0; t < n_kb; ++t) {
+      const int st = t % S::kStages, kb = kb0 + t;
 #if SPTPU_GEMM_CUT != 1
-    const uint32_t xa = sb + st * S::kRaw + wm * 64 * 128;
-    const uint32_t wb = sb + S::kWRing + (t & 1) * S::kW;
-    const uint8_t* rawp = sm + st * S::kRaw + S::kX;
-    if constexpr (!kFold16) {  // a group is whole blocks: fold after a block
-      const int first = t == 0 || op.group_start(kb);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kKB / 16; ++kk)
-        gemm_mma<NW, Op::kTB>(acc, desc(xa + kk * 32, 16, 1024), op.b_desc(wb, wn * NW, kk),
-                              kk > 0 || !first);
-      wgmma_commit();
-      if (t + 1 < n_kb) convert(t + 1);
-      wgmma_wait<0>();
-      keep(acc);
-      if (t == n_kb - 1 || op.group_end(kb)) {
-        if constexpr (kOpS8<Op>)  // W4A8 also takes the step, its rows and its warpgroup
-          op.fold(acc, tot, rawp, kKB / 16 - 1, wn * NW + 2 * q4, kb * (kKB / 16) + kKB / 16 - 1,
-                  m_base + wm * 64 + row0, wn);
-        else
-          op.fold(acc, tot, rawp, kKB / 16 - 1, wn * NW + 2 * q4);
-      }
-    } else {  // groups end inside blocks: fold after a 16-deep step
-#pragma unroll
-      for (int kk = 0; kk < kKB / 16; ++kk) {
-        const int j = kb * (kKB / 16) + kk;
+      const uint32_t xa = sb + st * S::kRaw + wm * 64 * 128;
+      const uint32_t wb = sb + S::kWRing + (t & 1) * S::kW;
+      const uint8_t* rawp = sm + st * S::kRaw + S::kX;
+      if constexpr (!kFold16) {  // a group is whole blocks: fold after a block
+        const int first = t == 0 || op.group_start(kb);
         wgmma_fence();
-        gemm_mma<NW, Op::kTB>(acc, desc(xa + kk * 32, 16, 1024), op.b_desc(wb, wn * NW, kk),
-                              !((t == 0 && kk == 0) || op.step_starts(j)));
+#pragma unroll
+        for (int kk = 0; kk < kKB / 16; ++kk)
+          gemm_mma<NW, Op::kTB>(acc, desc(xa + kk * 32, 16, 1024), op.b_desc(wb, wn * NW, kk),
+                                kk > 0 || !first);
         wgmma_commit();
-        if (kk == 0 && t + 1 < n_kb) convert(t + 1);
+        if (t + 1 < n_kb) convert(t + 1);
         wgmma_wait<0>();
         keep(acc);
-        if ((t == n_kb - 1 && kk == kKB / 16 - 1) || op.step_ends(j)) {
-          if constexpr (kOpS8<Op>)
-            op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4, j, m_base + wm * 64 + row0, wn);
-          else
-            op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4);
+        if constexpr (kR) add_x_sums(sm + st * S::kRaw + wm * 64 * 128, -1);
+        if (t == n_kb - 1 || op.group_end(kb)) fold(rawp, kKB / 16 - 1, kb * (kKB / 16) + kKB / 16 - 1);
+      } else {  // groups end inside blocks: fold after a 16-deep step
+#pragma unroll
+        for (int kk = 0; kk < kKB / 16; ++kk) {
+          const int j = kb * (kKB / 16) + kk;
+          wgmma_fence();
+          gemm_mma<NW, Op::kTB>(acc, desc(xa + kk * 32, 16, 1024), op.b_desc(wb, wn * NW, kk),
+                                !((t == 0 && kk == 0) || op.step_starts(j)));
+          wgmma_commit();
+          if (kk == 0 && t + 1 < n_kb) convert(t + 1);
+          wgmma_wait<0>();
+          keep(acc);
+          if constexpr (kR) add_x_sums(sm + st * S::kRaw + wm * 64 * 128, kk);
+          if ((t == n_kb - 1 && kk == kKB / 16 - 1) || op.step_ends(j)) fold(rawp, kk, j);
         }
       }
-    }
 #else
-    if (t + 1 < n_kb) convert(t + 1);
+      if (t + 1 < n_kb) convert(t + 1);
 #endif
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty_raw(st));  // this warp is done with block t's stage
-    sync_b();  // block t + 1 converted, block t's B read: the stages swap
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_raw(st));  // this warp is done with block t's stage
+      sync_b();  // block t + 1 converted, block t's B read: the stages swap
+    }
+  };
+  if constexpr (kOpRest<Op>) {
+    if (rest) mainloop(std::true_type{});
+    else mainloop(std::false_type{});
+  } else {
+    mainloop(std::false_type{});
   }
 #if SPTPU_GEMM_CUT != 1
 

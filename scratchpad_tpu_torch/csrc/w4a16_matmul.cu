@@ -7,23 +7,41 @@
 //
 // What it computes, over the port's packed layout
 // (scratchpad_tpu_torch/ops/quant/w4_matmul.py: q [N, Kp/2], s and z [G, N]):
-//   y[m, n] = bf16( sum_g s[g, n] * sum_{k in g} x[m, k] * (c[k, n] - z[g, n]) )
-// with c = nibble - 8 the signed code and z the zero point minus 8. Every
-// quantizer and checkpoint import the port has gives an integral zero, so
-// c - z is an integer in [-16, 15]: exact in bf16. The inner sums run on
-// the tensor cores in f32 and each group's sum is folded with its scale in
-// f32; no scale touches a code before the product (a weight rounded to bf16
-// as (c - z) * s reads about 150x the kernel-vs-plain gate, see
-// tests/test_torch_gemm_tiles.py). The kernel's sum differs from the plain
-// version's group-factored form (w4a16_matmul_plain, _w4_kernel_q4's
-// order) only in the order of its f32 additions.
+//   y[m, n] = bf16( sum_g s[g, n] * (D_g[m, n] + xsum[m, g] * r[g, n]) ),
+//   D_g = sum_{k in g} x[m, k] * (nibble[k, n] - zc[g, n])
+// with zero = z + 8 the zero point (z the stored zero minus 8, c = nibble -
+// 8 the signed code, so c - z = nibble - zero), zc = zero clamped to [0, 16]
+// (rounded), r = zc - zero and xsum the f32 sum of x over the group. Every
+// checkpoint import and every group that spans 0 has an integral zero in
+// [0, 16]: there r = 0 and nibble - zc is an integer in [-16, 15], exact in
+// bf16. quantize_stacked gives a group of one sign a zero outside [0, 15]
+// (a constant column one of about -5e7), which no bf16 code can hold: the
+// code takes zc and the rest returns as xsum * r at the group's fold. The
+// inner sums run on the tensor cores in f32 and each group's sum is folded
+// with its scale in f32; no scale touches a code before the product (a
+// weight rounded to bf16 as (c - z) * s reads about 150x the kernel-vs-plain
+// gate, see tests/test_torch_gemm_tiles.py). The kernel's sum differs from
+// the plain version's group-factored form (w4a16_matmul_plain,
+// _w4_kernel_q4's order) only in the order of its f32 additions.
+//
+// Who pays for the rest: the consumers scan the zeros of their columns over
+// the CTA's K range with 16-byte loads while block 0 loads (1/32 of the
+// codes' bytes) and OR the flag at one barrier; only a CTA whose tile has a
+// rest runs the mainloop's other instantiation (sm90_gemm.cuh's kOpRest),
+// which converts with the zeros clamped and sums x over each block from the
+// x tile in shared memory. A tile without a rest runs no rest code: a
+// version that flagged each block at the B tile's barrier instead cost 6 %
+// (gate_up at M 8192 2.10 -> 2.22 ms, tools/gemm_ab.py). Random, AWQ and
+// GPTQ weights never have a rest. The steps past K that fill the last block
+// are zeros and end no group: a rest is added at a step inside K only.
 //
 // What bounds it: at decode (M <= 64) the bytes, the codes read once; at
 // prefill the bf16 operations, 2 * M * In * Out at 989 TFLOP/s. The design
 // is sm90_gemm.cuh's mainloop: x by TMA and each 64-deep block of the codes
 // by cp.async into a ring; the consumer warpgroups convert a block exactly
 // while the previous one's products run, two codes a lop3: 0x4300 | nibble
-// is bf16 128 + nibble, and one bf16x2 subtraction of 136 + z gives c - z.
+// is bf16 128 + nibble, and one bf16x2 subtraction of 128 + zc gives
+// nibble - zc.
 // Prefill tiles are 128 x 128; decode tiles 64 x 256 (the head) or 64 x 64,
 // with K split across CTAs where the columns alone give fewer CTAs than
 // SMs, reduced in one launch. A group that is whole 64-deep blocks (g % 64
@@ -67,6 +85,7 @@ __device__ __forceinline__ void w4_word_to_bf16(uint32_t w, uint32_t sub, uint32
 // where a group is whole blocks (SR 1: g % 64 == 0).
 template <int BN, int SR>
 struct W4Op {
+  static constexpr bool kRest = true;  // a zero outside [0, 16] leaves a rest (kOpRest)
   static constexpr int kBN = BN;
   static constexpr int kTB = 0;  // B K-major: a column's 64 codes in one swizzled row
   static constexpr int kCodes = BN * 32;
@@ -76,7 +95,7 @@ struct W4Op {
   const __nv_bfloat16* s;
   const __nv_bfloat16* z;
   __nv_bfloat16* y;
-  int N, N_st, Kp, g, ld_sz, G;
+  int N, N_st, Kp, g, ld_sz, G, K;
 
   __device__ bool start(int, int, int, int, int, int) const { return true; }
   __device__ void issue(uint32_t dst, int kb, int n_base, int p) const {
@@ -94,11 +113,38 @@ struct W4Op {
       cp_async16(dst + kCodes + row * kRow + c * 16, src, ok);
     }
   }
+  // whether a zero of the columns [n0, n0 + ncols) in the groups of k
+  // blocks [kb0, kb0 + n_kb) lies outside [0, 16] or is no integer: thread
+  // i of nthreads, eight zeros a 16-byte load, four loads in flight
+  __device__ bool scan_rest(int n0, int ncols, int kb0, int n_kb, int i, int nthreads) const {
+    const int g0 = kb0 * kKB / g, g1 = (min((kb0 + n_kb) * kKB, K) - 1) / g;
+    const int per_row = ncols / 8, total = (g1 - g0 + 1) * per_row;
+    bool rest = false;
+    for (int e0 = 0; e0 < total; e0 += 4 * nthreads) {
+      uint4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + i + u * nthreads;
+        const int n = n0 + (e % per_row) * 8;
+        v[u] = e < total && n < N_st
+                   ? *reinterpret_cast<const uint4*>(z + (size_t)(g0 + e / per_row) * ld_sz + n)
+                   : make_uint4(0u, 0u, 0u, 0u);  // zero points of 8
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const __nv_bfloat16* zz = reinterpret_cast<const __nv_bfloat16*>(&v[u]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) rest |= zero_clamped(zz[k]) - 8.f != __bfloat162float(zz[k]);
+      }
+    }
+    return rest;
+  }
   // codes of the NCOL columns from n_lo -> the bf16 B tile [BN][128 B], row
-  // n holding c - z of k = 0..63; thread q of the 128 that share them. A
-  // unit is a column's 16 codes of one 16-deep step: loads first, then the
-  // conversions.
-  template <int NCOL>
+  // n holding nibble - zc of k = 0..63; thread q of the 128 that share
+  // them. A unit is a column's 16 codes of one 16-deep step: loads first,
+  // then the conversions. kClamp (a tile with a rest): the zeros clamped
+  // into [0, 16] (zc), else taken as they are.
+  template <int NCOL, bool kClamp>
   __device__ void convert(const uint8_t* raw, uint8_t* w, int n_lo, int q) const {
     constexpr int U = NCOL * 4 / 128;
     const __nv_bfloat16* zr = reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + SR * kRow);
@@ -113,7 +159,9 @@ struct W4Op {
 #pragma unroll
     for (int i = 0; i < U; ++i) {
       const int u = q + 128 * i, row = n_lo + (u >> 2), kk = u & 3;
-      const uint32_t sub = bits(__float2bfloat162_rn(136.f + __bfloat162float(zv[i])));
+      // 128 + zc, where zc = z + 8 in a tile without a rest
+      const float sub_f = kClamp ? 128.f + zero_clamped(zv[i]) : 136.f + __bfloat162float(zv[i]);
+      const uint32_t sub = bits(__float2bfloat162_rn(sub_f));
       uint32_t o[4];
       w4_word_to_bf16(c8[i].x, sub, o);
       *reinterpret_cast<uint4*>(w + swz(row, 2 * kk)) = make_uint4(o[0], o[1], o[2], o[3]);
@@ -128,11 +176,29 @@ struct W4Op {
   __device__ bool group_end(int kb) const { return (kb + 1) % (g / kKB) == 0; }
   __device__ bool step_starts(int j) const { return 16 * j % g == 0; }
   __device__ bool step_ends(int j) const { return 16 * (j + 1) % g == 0; }
-  // tot += acc * s of the group of step kk, column by column, in f32
-  template <int NACC>
+  // tot += acc * s of the group of step kk (16-deep step j of K), column by
+  // column, in f32; in a tile with a zero rest (kWithRest), (acc + xs * r)
+  // * s with xs the rows' sums of x since the last fold (at a step inside K
+  // only), and xs is cleared
+  template <bool kWithRest, int NACC>
   __device__ void fold(const float (&acc)[NACC], float (&tot)[NACC], const uint8_t* raw, int kk,
-                       int col) const {
+                       int col, int j, float (&xs)[2]) const {
     const __nv_bfloat16* sr = reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + (kk % SR) * kRow) + col;
+    if (kWithRest && 16 * j < K) {
+      const __nv_bfloat16* zr = sr + SR * kRow / 2;
+#pragma unroll
+      for (int c = 0; c < NACC / 4; ++c) {
+        const float2 sv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sr + 8 * c));
+        const float r0 = zero_rest(zr[8 * c]), r1 = zero_rest(zr[8 * c + 1]);
+        tot[4 * c] += fmaf(xs[0], r0, acc[4 * c]) * sv.x;
+        tot[4 * c + 1] += fmaf(xs[0], r1, acc[4 * c + 1]) * sv.y;
+        tot[4 * c + 2] += fmaf(xs[1], r0, acc[4 * c + 2]) * sv.x;
+        tot[4 * c + 3] += fmaf(xs[1], r1, acc[4 * c + 3]) * sv.y;
+      }
+      xs[0] = xs[1] = 0.f;
+      return;
+    }
+    if constexpr (kWithRest) xs[0] = xs[1] = 0.f;
 #pragma unroll
     for (int c = 0; c < NACC / 4; ++c) {
       const float2 sv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sr + 8 * c));
@@ -172,9 +238,9 @@ cudaError_t launch_w4(const __nv_bfloat16* x, const uint8_t* q, const __nv_bfloa
   const GemmArgs a{x, ld_x, M, K, (N + T::BN - 1) / T::BN, (K + kKB - 1) / kKB, splits, ws};
   const int m_tiles = (M + T::BM - 1) / T::BM;
   if (g % kKB == 0)
-    return run_gemm<W4Op<T::BN, 1>, NC, WM, NW, false>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g},
+    return run_gemm<W4Op<T::BN, 1>, NC, WM, NW, false>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g, K},
                                                          a, m_tiles, 1, st);
-  return run_gemm<W4Op<T::BN, 4>, NC, WM, NW, true>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g}, a,
+  return run_gemm<W4Op<T::BN, 4>, NC, WM, NW, true>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g, K}, a,
                                                       m_tiles, 1, st);
 }
 

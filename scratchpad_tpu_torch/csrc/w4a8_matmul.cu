@@ -238,16 +238,8 @@ __device__ __forceinline__ void w4_word_to_s8(uint32_t w, uint32_t zb, uint32_t&
   second = __byte_perm(lo, hi, 0x7362) ^ 0x80808080u;
 }
 
-// the zero point z + 8 of a stored bf16 z, rounded and clamped to [0, 16]
-// (the zero itself for every group that spans 0), and what that left out:
-// r = clamped - zero, exact where it matters (0 unless the zero is out of
-// range or not an integer)
-__device__ __forceinline__ float zero_clamped(__nv_bfloat16 z) {
-  return fminf(fmaxf(rintf(__bfloat162float(z) + 8.f), 0.f), 16.f);
-}
-__device__ __forceinline__ float zero_rest(__nv_bfloat16 z) {
-  return (zero_clamped(z) - 8.f) - __bfloat162float(z);
-}
+// zero_clamped and zero_rest (sm90_gemm.cuh): the zero point clamped into
+// the code range, and the rest it leaves
 // the clamped zero point in every byte
 __device__ __forceinline__ uint32_t zero_bytes(__nv_bfloat16 z) {
   return (uint32_t)zero_clamped(z) * 0x01010101u;

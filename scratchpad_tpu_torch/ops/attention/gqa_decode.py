@@ -16,8 +16,13 @@ Both take the Pallas kernels' static ``logit_cap`` and ``sliding_window``
 (``gqa_decode.py:171-172, 395-396``): the score is ``cap * tanh(s / cap)``
 with ``s = sm_scale * q . k`` (for 8-bit pages, ``s`` already holds the K
 scale), and token ``j`` of a row of length ``L`` is live iff ``L - W <= j <
-L``. The kernel starts its token loop at ``max(L - W, 0)``, so it reads only
-the window.
+L``. The kernel reads only the window.
+
+``decode_plan`` splits each row's pages across CTAs where the batch alone
+would leave the card short of them (B 1 gives Hkv CTAs); it reads only the
+page table's width, never ``seq_lens``, so a call never waits for the card.
+The CTAs of a split row merge in one launch through a workspace allocated
+once per device (``workspace``).
 
 ``paged_decode_attention_stage`` launches the kernel cut after a stage of its
 token loop (variant libraries of the same source), for the kernel-profiling
@@ -28,6 +33,7 @@ defines what each cut writes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
@@ -40,11 +46,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "paged_decode_attention": (
-        [_P] * 6 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I, _P],
+        [_P] * 6 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I, _I, _I, _P, _P],
         ctypes.c_int,
     ),
     "paged_decode_attention_quant": (
-        [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _P],
+        [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _I, _I, _P, _P],
         ctypes.c_int,
     ),
 }
@@ -52,6 +58,98 @@ HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
 # code dtype -> the kernel's code type argument
 CODE_TYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+# ---------------------------------------------------------------- the split
+
+SMS = 132  # streaming multiprocessors of one H100 SXM
+SPLIT_TARGET = 2 * SMS  # CTAs a split launch aims at: two an SM
+MIN_SPLIT_PAGES = 4  # a split's least pages: 64 tokens at page 16, a slice for each warp
+MAX_SPLITS = 128  # kMaxSplits
+COUNTER_SLOTS = 8192  # kDecodeCounterSlots: i32 split counters at the workspace's head
+PARTIAL_BYTES = 8 << 20  # the f32 partials a workspace holds
+WORKSPACE_BYTES = COUNTER_SLOTS * 4 + PARTIAL_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """One launch of the decode kernel: grid ``(splits, Hkv, B)``; split
+    ``s`` of a row takes its pages ``[s * split_pages, (s + 1) *
+    split_pages)``, the live ones of them."""
+
+    batch: int
+    num_kv_heads: int
+    pages: int
+    head_dim: int
+    group: int
+    splits: int
+    split_pages: int
+
+    @property
+    def ctas(self) -> int:
+        return self.splits * self.num_kv_heads * self.batch
+
+    def page_range(self, split: int) -> tuple[int, int]:
+        """The pages ``[first, end)`` of a split, by the kernel's rule."""
+        return split * self.split_pages, min((split + 1) * self.split_pages, self.pages)
+
+    @property
+    def partial_floats(self) -> int:
+        """One split's partial: O ``[G, D]``, m ``[G]``, l ``[G]`` (f32)."""
+        return self.group * (self.head_dim + 2)
+
+    @property
+    def workspace_bytes(self) -> int:
+        """Counters and partials the launch uses (0 without a split): the
+        partial of split ``s`` of (row ``b``, head ``h``) at float ``((b *
+        Hkv + h) * splits + s) * partial_floats`` past the counters, the
+        counter of (b, h) at int ``b * Hkv + h``."""
+        if self.splits == 1:
+            return 0
+        return COUNTER_SLOTS * 4 + self.ctas * self.partial_floats * 4
+
+
+def decode_plan(B: int, Hkv: int, pages: int, D: int, G: int) -> DecodePlan:
+    """The decode kernel's split for ``B`` rows of a page table ``pages``
+    wide, Hkv kv heads of ``D`` lanes and ``G`` query heads each. Where the
+    ``B * Hkv`` (row, head) CTAs are fewer than ``SPLIT_TARGET``, each row's
+    pages are cut into ranges of at least ``MIN_SPLIT_PAGES`` so that the
+    launch reaches it (B 1, Hkv 8 at 4096 tokens: 32 splits of 8 pages, 256
+    CTAs), as far as the counters and the workspace hold them."""
+    pairs = B * Hkv
+    splits = 1
+    if 0 < pairs < SPLIT_TARGET and pairs <= COUNTER_SLOTS:
+        splits = max(1, min(-(-SPLIT_TARGET // pairs), pages // MIN_SPLIT_PAGES, MAX_SPLITS))
+    while True:
+        split_pages = max(1, -(-pages // splits))
+        plan = DecodePlan(B, Hkv, pages, D, G, max(1, -(-pages // split_pages)), split_pages)
+        if plan.workspace_bytes <= WORKSPACE_BYTES or splits == 1:
+            return plan
+        splits -= 1
+
+
+_workspaces: dict[torch.device, torch.Tensor] = {}
+
+
+def workspace(device) -> torch.Tensor:
+    """The split workspace on ``device``: counters zeroed once, then kept
+    zero by the kernel, and room for any plan's partials. Allocated at the
+    first call and kept, so that no call allocates it again. One stream at
+    a time."""
+    device = torch.device(device)
+    ws = _workspaces.get(device)
+    if ws is None:
+        ws = _workspaces[device] = torch.zeros(WORKSPACE_BYTES, dtype=torch.uint8, device=device)
+    return ws
+
+
+def _plan_args(q, k_cache, page_table) -> tuple[int, int, int]:
+    """(splits, split_pages, workspace pointer) of ``decode_plan``'s launch
+    for these shapes."""
+    B, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    plan = decode_plan(B, Hkv, page_table.shape[1], D, Hq // Hkv)
+    ws = workspace(q.device).data_ptr() if plan.splits > 1 else 0
+    return plan.splits, plan.split_pages, ws
 
 
 def mask_args(logit_cap: Optional[float], sliding_window: Optional[int]) -> tuple[float, int]:
@@ -180,7 +278,7 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """out [B, Hq, D]: each row's single query over the live window of its
     ``seq_lens`` cached tokens in bf16 pages (see
-    ``csrc/paged_decode_attention.cu``)."""
+    ``csrc/paged_decode_attention.cu``), split by ``decode_plan``."""
     native.check_same_device(q, k_cache, v_cache, page_table, seq_lens)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
@@ -192,7 +290,8 @@ def paged_decode_attention(
     cap, window = mask_args(logit_cap, sliding_window)
     _check(q, k_cache, v_cache, None, None, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES)
-    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window)
+    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window,
+                           _plan_args(q, k_cache, page_table))
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: cudaError {rc}")
     paged_decode_attention.launches += 1
@@ -202,15 +301,16 @@ def paged_decode_attention(
 paged_decode_attention.launches = 0
 
 
-def _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window):
-    """Launch ``lib``'s bf16 entry point; (out, cudaError)."""
+def _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window, split):
+    """Launch ``lib``'s bf16 entry point on ``split`` (``_plan_args``); (out,
+    cudaError)."""
     B, Hq, D = q.shape
     out = torch.empty_like(q)
     rc = lib.paged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         B, Hq, k_cache.shape[2], D, page_table.shape[1], k_cache.shape[1],
-        float(sm_scale), cap, window, native.stream_handle(q.device),
+        float(sm_scale), cap, window, *split, native.stream_handle(q.device),
     )
     return out, rc
 
@@ -279,7 +379,7 @@ def paged_decode_attention_stage(
     stage, q, k_cache, v_cache, page_table, seq_lens, sm_scale
 ) -> torch.Tensor:
     """The decode kernel cut after ``stage`` (bf16 ``[B, Hq, D]``, bf16
-    pages, no cap or window) for CUDA tensors, from its variant library
+    pages, no cap or window, one split) for CUDA tensors, from its variant library
     (``DECODE_STAGE_TARGETS``); ``paged_decode_attention_stage_plain`` for
     CPU tensors. Stage 4 is ``paged_decode_attention`` and counts as its
     launch; this count holds the cuts' launches."""
@@ -293,10 +393,11 @@ def paged_decode_attention_stage(
         return paged_decode_attention(q, k_cache, v_cache, page_table, seq_lens, sm_scale)
     _check(q, k_cache, v_cache, None, None, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES, {"SPTPU_DECODE_STAGE": stage})
-    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, 0.0, 0)
+    one_split = (1, max(1, page_table.shape[1]), 0)
+    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, 0.0, 0, one_split)
     if rc != 0:
         raise RuntimeError(f"decode stage {stage} launch failed: cudaError {rc} (the cuts take "
-                           "bf16 pages at G 3 and 4, D 64 and 128)")
+                           "bf16 pages at G 3 and 4, D 64 and 128, one split)")
     paged_decode_attention_stage.launches += 1
     return out
 
@@ -338,7 +439,7 @@ def paged_decode_attention_quant(
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         B, Hq, k_cache.shape[2], D, page_table.shape[1], k_cache.shape[1],
         CODE_TYPES[k_cache.dtype], float(sm_scale), cap, window,
-        native.stream_handle(q.device),
+        *_plan_args(q, k_cache, page_table), native.stream_handle(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention_quant launch failed: cudaError {rc}")

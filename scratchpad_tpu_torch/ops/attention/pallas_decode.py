@@ -5,9 +5,9 @@ Pallas ``_decode_kernel`` is a per-request paged flash-decode with a soft cap
 and a static sliding window over bf16 pages. It computes the same function
 as ``gqa_decode._gqa_decode_kernel``; the two differ only in how a TPU core
 schedules its page DMAs (one grid step per request, one DMA per whole page,
-double-buffered 8-page chunks). On the GPU the decode kernel's ``(B, Hkv)``
-grid of CTAs already serves one request per CTA row, so ``_decode_kernel``
-is ported as the same hand-written CUDA kernel,
+double-buffered 8-page chunks). On the GPU the decode kernel's grid of
+(split, kv head, row) CTAs already serves every request in parallel, so
+``_decode_kernel`` is ported as the same hand-written CUDA kernel,
 ``csrc/paged_decode_attention.cu``, reached through this wrapper with its
 own launch count.
 """

@@ -57,10 +57,10 @@ from scratchpad_tpu_torch.tools import timing
 from scratchpad_tpu_torch.utils import native
 
 STAGE_NAMES = {
-    1: "K/V row loads",
-    2: "+ dot and warp_sum",
+    1: "K/V slices loaded and read",
+    2: "+ S = q K^T (mma)",
     3: "+ cap and online softmax",
-    4: "full (+ PV and warp merge)",
+    4: "full (+ PV and the warps' merge)",
     5: "full + the cuts' V sum",
 }
 # (G, D) at Hkv 8: PERF.md's decode rows

@@ -3,11 +3,15 @@
 - A plain emulation of the arithmetic of ``csrc/w4a16_matmul.cu`` and
   ``csrc/delta_matmul.cu`` (the mainloop of ``csrc/sm90_gemm.cuh``) against
   the JAX package's functions on the same numpy-seeded inputs, at the card's
-  gate |emu - ref| <= 1e-4 + 2**-8 |ref|. W4A16: the zero folded into the
-  code (c - z, exact), f32 sums over 64-deep blocks folded with the group's
-  scale at each group end and at each split's end, the splits' partials
-  added in the plan's order, one bf16 rounding; held against
-  ``w4a16_matmul_xla`` and ``_w4_kernel_q4`` in interpret mode. The delta:
+  gate |emu - ref| <= 1e-4 + 2**-8 |ref|. W4A16: the zero point clamped to
+  [0, 16] and folded into the code (nibble - zc, exact), f32 sums over
+  64-deep blocks folded with the group's scale at each group end and at
+  each split's end, with the clamp's rest (the f32 sum of x over the fold's
+  span times zc - zero) added at the fold, the splits' partials added in
+  the plan's order, one bf16 rounding; held against ``w4a16_matmul_xla``
+  and ``_w4_kernel_q4`` in interpret mode, also on ``quantize_stacked``'s
+  groups of one sign and a constant column (zero points far outside the
+  code range), where the parent's c - z in bf16 misses the gate. The delta:
   f32 block sums added in order, split partials likewise, then
   ``bf16(f32(out) + acc * ds * scaling)`` on the slot's rows; held against
   ``out + delta_matmul_xla``. The same emulation with the weight rounded to
@@ -35,7 +39,7 @@ from scratchpad_tpu.ops.quant.pallas_w4 import to_4bit, w4_matmul_4bit
 from scratchpad_tpu.ops.quant.w4a16 import quantize_stacked as jax_quantize_stacked
 from scratchpad_tpu.ops.quant.w4a16 import slice_layer, w4a16_matmul_xla
 from scratchpad_tpu_torch.ops.quant import w4_matmul as wm
-from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked
+from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked, stacked_group_size
 from scratchpad_tpu_torch.utils import native
 
 ATOL, RTOL = 1e-4, 2.0**-8  # chip_smoke.py's kernel-vs-plain gate
@@ -55,20 +59,29 @@ def _bf16(a: np.ndarray) -> np.ndarray:
 # ------------------------------------------------------------------ W4A16
 
 
-def w4a16_emulate(x, q, s, z, group_size, out_features, plan, dequant_bf16=False):
+def w4a16_emulate(x, q, s, z, group_size, out_features, plan, dequant_bf16=False, bf16_code=False):
     """bf16 ``[M, out_features]`` as the kernel sums it (see the module
     docstring); ``dequant_bf16`` rounds ``(c - z) * s`` to bf16 first and
-    sums the plain products instead."""
+    sums the plain products instead; ``bf16_code`` forms c - z as the
+    parent kernel did, one bf16 subtraction of 136 + z, with no rest."""
     M, In = x.shape
     xf = x.float()
     G = In // group_size
-    cz = wm.unpack_w4(q, In)[:, :out_features].float() - z[:, :out_features].float().repeat_interleave(
-        group_size, 0
-    )  # integers in [-16, 15]
+    zf = z[:, :out_features].float()
+    nib = wm.unpack_w4(q, In)[:, :out_features].float() + 8.0  # the nibbles, 0..15
+    zc = torch.clamp(torch.round(zf + 8.0), 0.0, 16.0)  # the clamped zero point
+    rest = (zc - 8.0) - zf  # zero where the zero point is in range
+    if bf16_code:
+        sub = _bf16_t(136.0 + zf)
+        cz = _bf16_t(_bf16_t(128.0 + nib) - sub.repeat_interleave(group_size, 0))
+        rest = torch.zeros_like(rest)
+    else:
+        cz = nib - zc.repeat_interleave(group_size, 0)  # integers in [-16, 15]
     sf = s[:, :out_features].float()
     if dequant_bf16:
-        cz = (cz * sf.repeat_interleave(group_size, 0)).to(torch.bfloat16).float()
-        sf = torch.ones_like(sf)
+        cz = ((nib - 8.0 - zf.repeat_interleave(group_size, 0)) * sf.repeat_interleave(group_size, 0))
+        cz = cz.to(torch.bfloat16).float()
+        sf, rest = torch.ones_like(sf), torch.zeros_like(rest)
     y = None
     for split in range(plan.splits):
         b0, b1 = plan.k_range(split)
@@ -76,10 +89,16 @@ def w4a16_emulate(x, q, s, z, group_size, out_features, plan, dequant_bf16=False
         part = torch.zeros(M, out_features)
         while k < end:  # one fold: to the group's end or the split's
             stop = min((k // group_size + 1) * group_size, end)
-            part = part + (xf[:, k:stop] @ cz[k:stop]) * sf[min(k // group_size, G - 1)]
+            gi = min(k // group_size, G - 1)
+            xs = xf[:, k:stop].sum(1, keepdim=True)  # the rows' f32 sums over the span
+            part = part + (xf[:, k:stop] @ cz[k:stop] + xs * rest[gi]) * sf[gi]
             k = stop
         y = part if y is None else y + part
     return y.to(torch.bfloat16)
+
+
+def _bf16_t(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
 
 
 def _w4_pair(In, Out, M, group, seed):
@@ -115,6 +134,56 @@ def test_w4a16_kernel_arithmetic_meets_the_gate(In, Out, M, group):
     for name, ref in refs.items():
         assert _gate(emu, ref) <= 1.0, name
     assert not emu[M // 2].any()
+
+
+def _w4_rest_pair(In, Out, M, group, seed):
+    """``_w4_pair`` with groups of one sign, a constant column and nearly
+    constant ones, whose zero points ``quantize_stacked`` puts outside [0,
+    15] (about -5e7 for the constant one, -500 to -2,000 for the nearly
+    constant ones, whose codes still vary; ``pack_w4``'s bf16 zero minus 8
+    is exact to 2,048)."""
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=(1, In, Out)) / np.sqrt(In)).astype(np.float32)
+    g = stacked_group_size(In, group)
+    w[0, :g, :7] = np.abs(w[0, :g, :7]) + 0.01
+    w[0, g:, 7:13] = -np.abs(w[0, g:, 7:13]) - 0.02
+    w[0, :, 13] = 0.5
+    w[0, :, 14:30] = 0.5 + 3e-2 * w[0, :, 14:30]  # nearly constant: zeros of -500 to -2,000
+    x = _bf16(rng.normal(size=(M, In)))
+    x[M // 2] = 0.0
+    jq = jax_quantize_stacked(w, group)
+    ql = quantize_stacked(w, group)
+    assert float(ql.z.float().min()) < -1e6 and float(ql.z.float().max()) > 16
+    q, s, z = wm.pack_w4(ql)
+    return jq, (q[0], s[0], z[0]), x
+
+
+# (In, Out, M, group asked of quantize_stacked): decode (64 x 64 tiles, K
+# split) and prefill, group 128; In 224 (group 112: folds inside 64-deep
+# blocks, the last block half past K)
+W4_REST_CASES = [(512, 256, 8, 128), (512, 256, 80, 128), (224, 256, 8, 128), (224, 256, 130, 128)]
+
+
+@pytest.mark.parametrize("In,Out,M,group", W4_REST_CASES)
+def test_w4a16_zero_rests_meet_the_gate(In, Out, M, group):
+    """Zero points outside the code range: the clamped code and the rest at
+    the fold meet the gate against both JAX references; the parent's c - z
+    in bf16 does not."""
+    jq, (q, s, z), x = _w4_rest_pair(In, Out, M, group, seed=In + M)
+    g, out_f = jq.group_size, jq.out_features
+    plan = wm.w4a16_plan(M, out_f, In, g, s.shape[1])
+    assert plan is not None
+    xt = torch.from_numpy(x)
+    emu = w4a16_emulate(xt, q, s, z, g, out_f, plan).float().numpy()
+    refs = {
+        "w4a16_matmul_xla": w4a16_matmul_xla(jnp.asarray(x), slice_layer(jq, 0)),
+        "_w4_kernel_q4": w4_matmul_4bit(jnp.asarray(x), to_4bit(jq), jnp.int32(0), a8=False, out_block=128),
+    }
+    for name, ref in refs.items():
+        assert _gate(emu, ref) <= 1.0, name
+    assert not emu[M // 2].any()
+    parent = w4a16_emulate(xt, q, s, z, g, out_f, plan, bf16_code=True).float().numpy()
+    assert _gate(parent, refs["w4a16_matmul_xla"]) > 1.0
 
 
 @pytest.mark.parametrize("In,Out,M,group", W4_CASES[:2])

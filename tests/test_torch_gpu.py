@@ -270,6 +270,69 @@ def _extend(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window):
     return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window)
 
 
+# (G, D) of the plan-edge checks: G 1 to 8, each head_dim at several G
+EDGE_GROUPS = [(1, 32), (2, 64), (3, 128), (4, 64), (5, 32), (6, 128), (7, 64), (8, 128)]
+# (B, ctx): one row (split across the card), two, the bench's 64; contexts
+# on either side of a page edge, one long and one longer (not at B 64: the
+# plain version's f32 gather of 64 x 8192 rows)
+EDGE_ROWS = [(B, ctx) for B in (1, 2, 64) for ctx in (1, 15, 16, 17, 4096, 8192) if (B, ctx) != (64, 8192)]
+
+
+def _decode_checked(kind, q, k, v, ks, vs, pt, seq, scale, cap=None, window=None):
+    """The kernel against its plain version, zero rows exact, and where the
+    plan splits a row, a second call bit-equal."""
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
+
+    out = _decode(q, k, v, ks, vs, pt, seq, scale, cap, window)
+    _close(out, paged_decode_attention_plain(q.float(), k, v, pt, seq, scale, ks, vs, cap, window))
+    assert bool((out[seq == 0] == 0).all())
+    plan = decode_plan(q.shape[0], k.shape[2], pt.shape[1], q.shape[2], q.shape[1] // k.shape[2])
+    if plan.splits > 1:
+        assert torch.equal(out, _decode(q, k, v, ks, vs, pt, seq, scale, cap, window))
+    return plan
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+@pytest.mark.parametrize("B,ctx", EDGE_ROWS)
+@pytest.mark.parametrize("G,D", EDGE_GROUPS)
+def test_decode_kernel_at_the_plans_edges(gen, kind, B, ctx, G, D):
+    """Rows of ctx // 2 to ctx tokens (the first of ctx, the last of 0 where
+    B > 1) over Hkv 8, page 16: split where B * Hkv is short of the card."""
+    Hkv = 8
+    lens = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
+    lens[0] = ctx
+    if B > 1:
+        lens[-1] = 0
+    lens = lens.tolist()
+    k, v, pt = _pool(lens, Hkv, D, 16, gen)
+    k, v, ks, vs = _pages(kind, k, v)
+    q = torch.randn(B, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    plan = _decode_checked(kind, q, k, v, ks, vs, pt, seq, 1 / math.sqrt(D))
+    if B == 1 and ctx >= 4096:
+        assert plan.ctas >= 132
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+@pytest.mark.parametrize("G,D", [(4, 128), (3, 128), (1, 32), (8, 64)])
+@pytest.mark.parametrize("cap,window", [(None, None), (None, 1000), (30.0, 4096), (None, 1)])
+def test_decode_kernel_at_split_boundaries(gen, kind, G, D, cap, window):
+    """Rows whose last token (or the window's first) falls one token before,
+    on and one token after a boundary of the plan's splits, at 8192 tokens;
+    windows that cross splits; the cap."""
+    import chip_smoke
+
+    Hkv = 8
+    edge_window = window if window and window > 1 else None
+    lens = chip_smoke.split_edge_lens(8192, Hkv, D, G, edge_window, batch=6) + [0, 1]
+    k, v, pt = _pool(lens, Hkv, D, 16, gen)
+    k, v, ks, vs = _pages(kind, k, v)
+    q = _capped(torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16), cap)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    plan = _decode_checked(kind, q, k, v, ks, vs, pt, seq, 1 / math.sqrt(D), cap, window)
+    assert plan.splits > 1
+
+
 @pytest.mark.parametrize("kind", list(CODE_DTYPES))
 @pytest.mark.parametrize("cap, window", CAPS_WINDOWS)
 def test_windowed_decode_kernel_matches_plain(gen, kind, cap, window):
@@ -581,12 +644,15 @@ def test_w4a8_matmul_with_plan_matches_plain(gen, rows, splits):
     assert not out[M // 2].any()
 
 
+@pytest.mark.parametrize("route", ["a8", "a16"])
 @pytest.mark.parametrize("M", [1, 64, 200])
-@pytest.mark.parametrize("In,Out,group", [(2048, 512, 128), (512, 256, 32)])
-def test_w4a8_zero_points_outside_the_code_range(gen, In, Out, group, M):
+@pytest.mark.parametrize("In,Out,group", [(2048, 512, 128), (512, 256, 32), (224, 1000, 128)])
+def test_w4a8_zero_points_outside_the_code_range(gen, In, Out, group, M, route):
     """quantize_stacked gives a group of one sign a zero point outside [0,
     15] and a constant column one of about -5e7: the kernels fold the rest
-    with gsum at the group's end."""
+    at the group's end, W4A8 with gsum, W4A16 with the sum of x over the
+    group (In 224: group 112, K not a multiple of 128, the last 64-deep
+    block half zero-filled)."""
     rng = np.random.default_rng(In + M)
     w = rng.normal(size=(1, In, Out)).astype(np.float32) / np.sqrt(In)
     w[0, :group, :7] = np.abs(w[0, :group, :7]) + 0.01  # one group of one sign
@@ -597,9 +663,15 @@ def test_w4a8_zero_points_outside_the_code_range(gen, In, Out, group, M):
     assert bool(((zero < 0) | (zero > 15)).any())
     q, s, z = (t[0].cuda() for t in pack_w4(ql))
     g = ql.group_size
-    x8, ax, gsum = quantize_rows_int8(_w4_rows(M, In, gen), g)
-    out = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
-    _close(out, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
+    x = _w4_rows(M, In, gen)
+    if route == "a16":
+        out = w4a16_matmul(x, q, s, z, g, Out)
+        _close(out, w4a16_matmul_plain(x, q, s, z, g, Out))
+        assert torch.equal(out, w4a16_matmul(x, q, s, z, g, Out))
+    else:
+        x8, ax, gsum = quantize_rows_int8(x, g)
+        out = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
+        _close(out, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
     assert not out[M // 2].any()
 
 
