@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero before the last line:
    lines count the tensor-core (``HGMMA``, ``IGMMA``, ``HMMA``, ``IMMA``)
    and asynchronous-copy (``LDGSTS``, ``UTMALDG``, ``UBLKCP``)
    instructions of the decode, extend, W4A8, W4A16 and delta libraries
-   (``SASS_LIBRARIES``) from ``cuobjdump --dump-sass``; a library without a
+   (``SASS_LIBRARIES``) from ``cuobjdump --dump-sass``, and of the W4
+   kernels' split-step instantiations (``SPLIT_FUNCTIONS``: the groups
+   that cut a step, each must hold wgmma); a library without a
    tensor-core instruction fails, and so does a decode library without
    ``HMMA`` or ``HGMMA``, a W4A16 or delta library without ``HGMMA``, a W4A8
    library without the integer ``IGMMA``, or any of these four without an
@@ -35,10 +37,15 @@ Phases, in order; any failure exits non-zero before the last line:
    card must match itself on the CPU bit for bit. The
    4-bit GEMMs: Llama-3.2-1B's seven matrices at M of 1, 64, 65, 129, 200
    and 2048 (``W4_CHECK_M``), groups of 64 and 32 at three of them
-   (``W4_SMALL_GROUPS``), a group of 120 (GPT-OSS's 2880 -> 5760) and of
-   100 with a padded Out (W4A8's ``mma.sync`` route), ``quantize_stacked``'s
-   zero points outside the code range (``W4_STACKED_RESTS``: groups of one
-   sign, a constant column), each GEMM on the same
+   (``W4_SMALL_GROUPS``), a group of 120 (GPT-OSS's 2880 -> 5760, at M 1,
+   64, 300 and 8192) and of 100 with a padded Out (groups that cut a
+   tensor-core step: split steps), a group of 24 (``W4_MMA_GROUPS``: W4A8's
+   ``mma.sync`` remainder), W4A16's ``mma.sync`` remainder
+   (``W4A16_MMA_GROUPS``: groups of 1 and 8, and a K that is no multiple
+   of 8), ``quantize_stacked``'s zero points
+   outside the code range (``W4_STACKED_RESTS``: groups of one sign, a
+   constant column; at g 120 nearly constant groups whose zero points lie
+   near -31,000 and above 2,064), each GEMM on the same
    int8 (W4A8) or bf16 (W4A16) rows as its plain version; the row
    quantizer must match its plain version bit for bit. The grouped int8 delta kernel of the toppings
    path: Llama-3.2-1B's projection shapes (2048 -> 2048, 512, 8192; 8192 ->
@@ -148,8 +155,10 @@ Phases, in order; any failure exits non-zero before the last line:
    layers at the JAX probe's shape, its plain version's and its bounds) and
    the stage table (each cut's ms at the 1B, 3B and 7B decode shapes beside
    the full decode's bound). And ``tools/w4_kernel_bench.py``'s ``main``
-   with ``--route a8`` at GPT-OSS's widths (groups of 120 and 100), the
-   path of W4A8's ``mma.sync`` kernel, counted the same way.
+   with ``--route a8`` at GPT-OSS's widths (groups of 120 and 100), which
+   must launch the wgmma kernel (``w4a8_matmul``, split steps) and never
+   the ``mma.sync`` one, then at a group of 24, which must launch
+   ``w4a8_matmul_mma``, counted the same way.
 6. one JSON line with every kernel's numbers, one with the engines', the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -366,6 +375,28 @@ def sass_counts(sass: str, opcodes) -> dict:
 # copy)
 SASS_LIBRARIES = ("paged_decode_attention", "paged_extend_attention", "w4a8_matmul", "w4a16_matmul",
                   "delta_matmul")
+# the W4 kernels' instantiations for groups that cut a tensor-core step
+# (split steps), by a piece of their mangled names, and the wgmma each must
+# hold: W4A16's mainloop op W4Op<BN, 5, true>, W4A8's W4A8Op<128, 5, true>
+# and its decode kernel <NT, 1, true>
+SPLIT_FUNCTIONS = {
+    "w4a16_matmul": (("W4OpILi64ELi5ELb1E", "W4OpILi128ELi5ELb1E", "W4OpILi256ELi5ELb1E"), "HGMMA"),
+    "w4a8_matmul": (("W4A8OpILi128ELi5ELb1E", "w4a8_decode_kernelILi8ELi1ELb1E", "w4a8_decode_kernelILi16ELi1ELb1E",
+                     "w4a8_decode_kernelILi32ELi1ELb1E", "w4a8_decode_kernelILi64ELi1ELb1E"), "IGMMA"),
+}
+
+
+def sass_functions(sass: str) -> dict:
+    """A ``cuobjdump --dump-sass`` listing cut into its functions: {mangled
+    name: its lines}."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {n: "\n".join(lines) for n, lines in funcs.items()}
 SASS_OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "LDGSTS", "UTMALDG", "UBLKCP")
 ASYNC_COPIES = ("LDGSTS", "UTMALDG", "UBLKCP")
 
@@ -379,7 +410,7 @@ def phase_build():
     for name, r in report.items():
         log(f"[build] {name}: {r['seconds']:.1f} s")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error", "warning")):
                 log(f"[build]   {line.strip()}")
     log(f"[build] all kernels in {time.monotonic() - t0:.1f} s")
     # what the tensor-core kernels run on: products (HGMMA and IGMMA are
@@ -393,6 +424,15 @@ def phase_build():
         )
         count = sass_counts(sass.stdout, SASS_OPCODES)
         log(f"[sass] {lib.name}: " + ", ".join(f"{op} {n}" for op, n in count.items()))
+        if name in SPLIT_FUNCTIONS:
+            pieces, wgmma = SPLIT_FUNCTIONS[name]
+            funcs = sass_functions(sass.stdout)
+            for piece in pieces:
+                found = [f for f in funcs if piece in f]
+                n = sum(sass_counts(funcs[f], (wgmma,))[wgmma] for f in found)
+                log(f"[sass]   split steps, {piece}: {len(found)} function(s), {wgmma} {n}")
+                if not found or n == 0:
+                    fail(f"the {name} library's split-step instantiation {piece} has no {wgmma}")
         if sass.returncode != 0 or count["HGMMA"] + count["IGMMA"] + count["HMMA"] + count["IMMA"] == 0:
             fail(f"the {name} library has no tensor-core instruction (cuobjdump rc {sass.returncode})")
         copies = sum(count[op] for op in ASYNC_COPIES)
@@ -804,8 +844,7 @@ def random_w4(In: int, Out: int, copies: int, gen, group: int | None = None, zer
     """``copies`` random weights [In -> Out] in the packed layout, with the
     stored width ``quantize_stacked`` gives such a matrix and its group (or
     ``group``): random code bytes, bf16 scales in [0.005, 0.02), integral
-    zero points in ``[zeros[0], zeros[1])``, 0..15 unless asked (stored
-    minus 8)."""
+    zero points in ``[zeros[0], zeros[1])``, 0..15 unless asked."""
     import torch
 
     from scratchpad_tpu_torch.ops.quant.w4_matmul import padded_in
@@ -817,7 +856,7 @@ def random_w4(In: int, Out: int, copies: int, gen, group: int | None = None, zer
     q = torch.randint(0, 256, (copies, N, padded_in(In) // 2), generator=gen, device="cuda",
                       dtype=torch.uint8)
     s = (torch.rand(copies, G, N, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
-    z = (torch.randint(*zeros, (copies, G, N), generator=gen, device="cuda") - 8).to(torch.bfloat16)
+    z = torch.randint(*zeros, (copies, G, N), generator=gen, device="cuda").to(torch.bfloat16)
     return q, s, z, g
 
 
@@ -842,6 +881,23 @@ W4_REST_ZEROS = (-8, 25)
 # multiple of 128, its last 64-deep block half zero-filled), decode and
 # prefill
 W4_STACKED_RESTS = [("stacked rest 2048", 2048, 512, (1, 64, 200)), ("stacked rest 224", 224, 1000, (1, 64, 130))]
+# quantize_stacked's zero points far outside the code range at GPT-OSS's
+# group of 120 (stacked_far_w4: nearly constant groups, zero points near
+# -31,000, -300 and 2,070), through the split steps: (name, In, Out, Ms)
+W4_STACKED_FAR = [("stacked far 2880", 2880, 640, (1, 64, 300))]
+# a group below a 32-deep step, which W4A8 leaves to its mma.sync kernel
+# (and W4A16 takes on split steps): (name, In, Out, group, Ms)
+W4_MMA_GROUPS = [("g24", 2880, 5760, 24, (1, 64, 300))]
+# what W4A16 leaves to its mma.sync kernel (w4a16_plan gives None): the
+# group quantize_stacked gives In 262 (half 131, a prime: g 1), a K that is
+# no multiple of 8 under a group the split path would take (131), and a
+# group below a 16-deep step at GPT-OSS's width (8); W4A8 takes the first
+# and last on its mma.sync kernel, 131 on split steps. (name, In, Out,
+# group, Ms)
+W4A16_MMA_GROUPS = [
+    ("In 262", 262, 1000, 1, (1, 64, 300)), ("In 262 g131", 262, 1000, 131, (1, 64, 300)),
+    ("g8", 2880, 5760, 8, (1, 64, 300)),
+]
 
 
 def stacked_rest_w4(In: int, Out: int, seed: int):
@@ -864,14 +920,38 @@ def stacked_rest_w4(In: int, Out: int, seed: int):
     return q, s, z, g
 
 
+def stacked_far_w4(In: int, Out: int, seed: int):
+    """A weight [In -> Out] quantized by ``quantize_stacked`` (host numpy,
+    from ``seed``) and packed on the card, whose first columns pair a nearly
+    constant group of 0.5 (zero point near -31,000 in columns 0 and 2, -300
+    in column 1) with one of -0.5 (near 2,070): (q, s, z, group)."""
+    import numpy as np
+
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
+    from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked, stacked_group_size
+
+    rng = np.random.default_rng(seed)
+    g = stacked_group_size(In)
+    w = (rng.normal(size=(1, In, Out)) / np.sqrt(In)).astype(np.float32)
+    for col, g0, zero in ((0, 0, 31000.0), (1, 0, 300.0), (2, 2, 31000.0)):
+        w[0, g0 * g:(g0 + 1) * g, col] = 0.5 + rng.uniform(0, 1, g) * 7.5 / zero
+        w[0, (g0 + 1) * g:(g0 + 2) * g, col] = -0.5 - rng.uniform(0, 1, g) * 7.5 / 2055.0
+    q, s, z = (t[0].cuda() for t in pack_w4(quantize_stacked(w)))
+    return q, s, z, g
+
+
 def check_w4(errs: dict) -> None:
     """The row quantizer bit for bit, and both W4 GEMMs against their plain
     versions on the same int8 rows (W4A8) or bf16 rows (W4A16), at
     Llama-3.2-1B's seven matrices and each M of ``W4_CHECK_M``, at
-    ``W4_SMALL_GROUPS``, ``W4_ZERO_RESTS`` and ``W4_STACKED_RESTS``; at GPT-OSS's 2880 -> 5760
-    (g 120) and at 1800 -> 1000 (g 100, Out padded to 1024), which W4A8
-    sends to its mma.sync kernel. Row M // 2 is zeros: its outputs must be exact zeros. Where a
-    plan splits K, a second call must give the same bits."""
+    ``W4_SMALL_GROUPS``, ``W4_ZERO_RESTS``, ``W4_STACKED_RESTS`` and
+    ``W4_STACKED_FAR``; at GPT-OSS's 2880 -> 5760 (g 120, M 1, 64, 300 and
+    8192) and at 1800 -> 1000 (g 100, Out padded to 1024), whose groups cut
+    tensor-core steps (split steps), at ``W4_MMA_GROUPS`` (W4A8's
+    mma.sync kernel) and at ``W4A16_MMA_GROUPS`` (W4A16's, which its plan
+    must name). Row M // 2 is zeros: its outputs must be exact zeros.
+    Where a plan splits K, a second call must give the same bits. Each
+    case's seconds end its line."""
     import torch
 
     from scratchpad_tpu_torch.ops.quant.w4_matmul import (
@@ -889,14 +969,22 @@ def check_w4(errs: dict) -> None:
     plain = (0, 16)
     cases = [(name, In, Out, M, None, plain) for name, In, Out, _ in llama_1b_matrices() for M in W4_CHECK_M]
     cases += [(name, *mats[name], M, g, plain) for name, g, ms in W4_SMALL_GROUPS for M in ms]
-    cases += [("gpt-oss gate_up", 2880, 5760, M, None, plain) for M in (1, 64, 300)]
+    cases += [("gpt-oss gate_up", 2880, 5760, M, None, plain) for M in (1, 64, 300, 8192)]
     cases += [("g100", 1800, 1000, M, None, plain) for M in (1, 64, 300)]
+    cases += [(name, In, Out, M, g, plain) for name, In, Out, g, ms in W4_MMA_GROUPS for M in ms]
+    mma16 = len(cases)
+    cases += [(name, In, Out, M, g, plain) for name, In, Out, g, ms in W4A16_MMA_GROUPS for M in ms]
+    mma16 = range(mma16, len(cases))
     cases += [(name, In, Out, M, g, W4_REST_ZEROS) for name, In, Out, g, ms in W4_ZERO_RESTS for M in ms]
     cases += [(name, In, Out, M, None, "stacked") for name, In, Out, ms in W4_STACKED_RESTS for M in ms]
+    cases += [(name, In, Out, M, None, "far") for name, In, Out, ms in W4_STACKED_FAR for M in ms]
     for i, (name, In, Out, M, group, zero_range) in enumerate(cases):
+        t_case = time.monotonic()
         gen = seeded(3000 + i)
         if zero_range == "stacked":
             q, s, z, g = stacked_rest_w4(In, Out, 3000 + i)
+        elif zero_range == "far":
+            q, s, z, g = stacked_far_w4(In, Out, 3000 + i)
         else:
             q, s, z, g = random_w4(In, Out, 1, gen, group, zero_range)
             q, s, z = q[0], s[0], z[0]
@@ -904,6 +992,8 @@ def check_w4(errs: dict) -> None:
         zero = M // 2 if M > 1 else None
         if zero is not None:
             x[zero] = 0
+        if zero_range == "far" and M > 2:  # rows of one value: a pair of groups cancels
+            x[M - 1] = 1.0
         x8, ax, gsum = quantize_rows_int8(x, g)
         ref = quantize_activations_plain(x, g)
         exact = all(torch.equal(a, b) for a, b in zip((x8, ax, gsum), ref))
@@ -926,13 +1016,16 @@ def check_w4(errs: dict) -> None:
         errs[k8] = max(errs[k8], e8)
         errs["w4a16_matmul"] = max(errs["w4a16_matmul"], e16)
         route8 = f"plan {plan8.config}, split K {plan8.splits}" if plan8 is not None else "mma.sync"
+        route16 = f"plan {plan.config}" if plan is not None else "mma.sync"
         log(
             f"[check] w4 {name} {In}->{Out} g={g} M={M}: quantizer exact {exact} "
             f"({n_diff} x8 differ); w4a8 ({route8}) max_abs_err {e8:.3e}, err/tol {r8:.3f}"
             + (f", second call bit-equal: {same8}" if split8 else "")
-            + f"; w4a16 max_abs_err {e16:.3e}, err/tol {r16:.3f}; zero row exact: {zeros}"
+            + f"; w4a16 ({route16}) max_abs_err {e16:.3e}, err/tol {r16:.3f}; zero row exact: {zeros}"
             + (f"; split K {plan.splits}, second call bit-equal: {same}" if split else "")
+            + f" ({time.monotonic() - t_case:.2f} s)"
         )
+        check((plan is None) == (i in mma16), f"w4a16 at {name} g={g} M={M} took route {route16}")
         check(exact, f"row quantizer differs from its plain version at {name} M={M}")
         check(r8 <= 1 and zeros, f"w4a8 kernel disagrees with its plain version at {name} g={g} M={M}")
         check(r16 <= 1 and zeros, f"w4a16 kernel disagrees with its plain version at {name} g={g} M={M}")
@@ -1281,12 +1374,13 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     return r
 
 
-def time_w4(name: str, In: int, Out: int, M: int) -> dict:
+def time_w4(name: str, In: int, Out: int, M: int, group: int | None = None) -> dict:
     """Both W4 GEMMs at one matrix and M: median device ms beside the bound,
     the plain versions and ``torch.matmul`` of bf16 x with the weight
     dequantized to bf16 beforehand (a yardstick the port never calls).
     Calls cycle over enough weight copies (up to 128 MiB of codes) that the
-    weights do not stay in L2, as on the main path."""
+    weights do not stay in L2, as on the main path. ``group``: another
+    group than ``quantize_stacked``'s."""
     import torch
 
     from scratchpad_tpu_torch.ops.quant.w4_matmul import (
@@ -1302,12 +1396,12 @@ def time_w4(name: str, In: int, Out: int, M: int) -> dict:
     Kp = padded_in(In)
     copies = max(2, min(64, -(-128 * 2**20 // (Out * Kp // 2))))
     gen = seeded(4000 + In + Out + M)
-    q, s, z, g = random_w4(In, Out, copies, gen)
+    q, s, z, g = random_w4(In, Out, copies, gen, group)
     G = In // g
     x = torch.randn(M, In, generator=gen, device="cuda").to(torch.bfloat16)
     x8, ax, gsum = quantize_rows_int8(x, g)
     deq = [
-        ((unpack_w4(q[l], In)[:, :Out].float() - z[l, :, :Out].float().repeat_interleave(g, 0))
+        ((unpack_w4(q[l], In)[:, :Out].float() + 8.0 - z[l, :, :Out].float().repeat_interleave(g, 0))
          * s[l, :, :Out].float().repeat_interleave(g, 0)).to(torch.bfloat16)
         for l in range(min(copies, max(2, -(-256 * 2**20 // (In * Out * 2)))))
     ]
@@ -1369,22 +1463,33 @@ def time_quantizer(In: int, M: int) -> dict:
 QUANT_TIMED = [(In, M) for In in (2048, 8192) for M in (64, 8192)]
 
 
-def phase_w4_timing() -> dict:
-    """Every W4 matrix of Llama-3.2-1B at decode (M = 64) and prefill
-    (M = 8192, the bench prefill of 64 x 128) shapes; the head at M = 64
-    only, since it runs on each sequence's last token. Per kernel, the
-    per-forward sums at bs 64 (calls x ms over the seven matrices) go to the
-    ``kernels`` line. The groups that the JAX package's u8 half-plane
-    kernels served (120 at GPT-OSS's 2880 -> 5760, and 100) are timed at
-    M = 64 beside them, outside those sums."""
-    rows = []
+def w4_timed_shapes():
+    """(name, In, Out, calls per 1B decode forward, M) of phase_w4_timing:
+    Llama-3.2-1B's matrices at M 64 and (but the head) 8192, then the groups
+    that cut a tensor-core step (GPT-OSS's 2880 -> 5760 at g 120, M 64 and
+    8192; 1800 -> 1000 at g 100, M 64), outside the per-forward sums."""
     shapes = [
         (name, In, Out, calls, M)
         for name, In, Out, calls in llama_1b_matrices()
         for M in ((64,) if name == "lm_head" else (64, 8192))
     ]
     shapes += [("gpt-oss gate_up", 2880, 5760, 0, 64), ("g100", 1800, 1000, 0, 64)]
-    for name, In, Out, calls, M in shapes:
+    return shapes + [("gpt-oss gate_up", 2880, 5760, 0, 8192)]
+
+
+def phase_w4_timing() -> dict:
+    """Every W4 matrix of Llama-3.2-1B at decode (M = 64) and prefill
+    (M = 8192, the bench prefill of 64 x 128) shapes; the head at M = 64
+    only, since it runs on each sequence's last token. Per kernel, the
+    per-forward sums at bs 64 (calls x ms over the seven matrices) go to the
+    ``kernels`` line. The groups that the JAX package's u8 half-plane
+    kernels served (120 at GPT-OSS's 2880 -> 5760, and 100), which cut a
+    tensor-core step, are timed beside them, outside those sums, W4A8's
+    mma.sync kernel at ``W4_MMA_GROUPS``'s group of 24 (M 64), and both
+    mma.sync kernels at ``W4A16_MMA_GROUPS``'s group of 8 (M 64)."""
+    rows = []
+    for name, In, Out, calls, M in w4_timed_shapes():
+        wall = time.monotonic()
         r = time_w4(name, In, Out, M)
         r["calls"] = calls
         rows.append(r)
@@ -1395,6 +1500,7 @@ def phase_w4_timing() -> dict:
                 f"({t['bound_by']}); plain {t['plain_ms']:.4f} ms; torch.matmul bf16 "
                 f"{t['library_ms']:.4f} ms"
             )
+        log(f"[time] {r['shape']}: timed in {time.monotonic() - wall:.1f} s")
     quant = {(In, M): time_quantizer(In, M) for In, M in QUANT_TIMED}
     for r in quant.values():
         log(
@@ -1429,9 +1535,20 @@ def phase_w4_timing() -> dict:
         f"GEMM calls): {per_fwd['quantize_rows_int8']['ms'] + per_fwd['w4a8_matmul']['ms']:.4f} ms; "
         f"torch.matmul bf16 {per_fwd['w4a8_matmul']['library_ms']:.4f} ms"
     )
-    # row 6: W4A8 at GPT-OSS's group of 120, the mma.sync kernel's route
-    oss = next(r for r in rows if r["shape"].startswith("gpt-oss"))
-    per_fwd["w4a8_matmul_mma"] = dict(oss["w4a8_matmul"], shape=oss["shape"])
+    # W4A8's mma.sync kernel: the groups below a 32-deep step
+    name, In, Out, g, _ = W4_MMA_GROUPS[0]
+    r = time_w4(name, In, Out, 64, g)
+    t = r["w4a8_matmul"]
+    log(f"[time] w4a8_matmul_mma {r['shape']}: {t['ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}); plain {t['plain_ms']:.4f} ms; torch.matmul bf16 {t['library_ms']:.4f} ms")
+    per_fwd["w4a8_matmul_mma"] = dict(t, shape=r["shape"])
+    # both mma.sync kernels: a group below a 16-deep step
+    name, In, Out, g, _ = W4A16_MMA_GROUPS[-1]
+    r = time_w4(name, In, Out, 64, g)
+    for k in ("w4a8_matmul", "w4a16_matmul"):
+        t = r[k]
+        log(f"[time] {k}_mma {r['shape']}: {t['ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); plain {t['plain_ms']:.4f} ms; torch.matmul bf16 {t['library_ms']:.4f} ms")
     return dict(rows=rows, quant=quant, per_forward=per_fwd)
 
 
@@ -1663,29 +1780,36 @@ def phase_profiling_tools() -> dict:
 
 
 def phase_w4a8_mma_bench() -> dict:
-    """The path of W4A8's mma.sync kernel, which no served model takes:
-    ``tools/w4_kernel_bench.py``'s ``main`` with ``--route a8`` at GPT-OSS's
-    2880 -> 5760 (group 120) and 1800 -> 1000 (group 100), every launch
-    count set to 0 just before and read just after. Returns the launch
-    counts."""
+    """The W4A8 paths no served model takes: ``tools/w4_kernel_bench.py``'s
+    ``main`` with ``--route a8`` at GPT-OSS's 2880 -> 5760 (group 120) and
+    1800 -> 1000 (group 100), whose groups cut a 32-deep step, which must
+    launch ``w4a8_matmul`` (split steps) and never ``w4a8_matmul_mma``; then
+    at ``W4_MMA_GROUPS``'s group of 24, which must launch the mma.sync
+    kernel. Every launch count is set to 0 just before each run and read
+    just after. Returns the second run's launch counts."""
     from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS, reset_launch_counts
     from scratchpad_tpu_torch.tools import w4_kernel_bench as tool
 
-    reset_launch_counts()
-    t = time.monotonic()
-    rows = tool.main(["--route", "a8", "--bs", "64", "--iters", "8", "--shape", "gpt-oss gate_up:2880:5760",
-                      "--shape", "g100:1800:1000"])
-    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-    log(f"[bench] tools/w4_kernel_bench.py --route a8 at GPT-OSS's groups: {time.monotonic() - t:.1f} s, "
-        f"launches {counts}")
-    for r in rows:
-        log(f"[bench] {r['name']} {r['In']}->{r['Out']} g={r['group']} bs {r['bs']}: {r['us']:.2f} us, "
-            f"{r['GBs']:.1f} GB/s, finite {r['finite']}")
-    check(all(r["finite"] for r in rows) and [r["group"] for r in rows] == [120, 100],
-          f"w4_kernel_bench at GPT-OSS's groups: {rows}")
-    check(counts["w4a8_matmul_mma"] > 0 and counts["w4a8_matmul"] == 0,
-          f"GPT-OSS's groups launched w4a8_matmul_mma {counts['w4a8_matmul_mma']} and w4a8_matmul "
-          f"{counts['w4a8_matmul']} times")
+    name, In, Out, g, _ = W4_MMA_GROUPS[0]
+    runs = [("GPT-OSS's groups", ["--shape", "gpt-oss gate_up:2880:5760", "--shape", "g100:1800:1000"], [120, 100]),
+            (f"group {g}", ["--group", str(g), "--shape", f"{name}:{In}:{Out}"], [g])]
+    counts = {}
+    for label, args, groups in runs:
+        reset_launch_counts()
+        t = time.monotonic()
+        rows = tool.main(["--route", "a8", "--bs", "64", "--iters", "8", *args])
+        counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+        log(f"[bench] tools/w4_kernel_bench.py --route a8 at {label}: {time.monotonic() - t:.1f} s, "
+            f"launches {counts}")
+        for r in rows:
+            log(f"[bench] {r['name']} {r['In']}->{r['Out']} g={r['group']} bs {r['bs']}: {r['us']:.2f} us, "
+                f"{r['GBs']:.1f} GB/s, finite {r['finite']}")
+        check(all(r["finite"] for r in rows) and [r["group"] for r in rows] == groups,
+              f"w4_kernel_bench at {label}: {rows}")
+        mma = groups == [g]
+        check((counts["w4a8_matmul_mma"] > 0) == mma and (counts["w4a8_matmul"] > 0) != mma,
+              f"{label} launched w4a8_matmul_mma {counts['w4a8_matmul_mma']} and w4a8_matmul "
+              f"{counts['w4a8_matmul']} times")
     return {"rows": rows, "counts": counts}
 
 
@@ -2347,13 +2471,14 @@ KERNELS = {
     "w4a8_matmul": dict(
         route="cuda",
         source="scratchpad_tpu_torch/csrc/w4a8_matmul.cu",
-        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:363 (_w4a8_kernel_q4)",
+        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:363 (_w4a8_kernel_q4) "
+        "and :139 (_w4a8_kernel, groups of 32 and more: split steps)",
     ),
-    # the groups that cut a 32-deep k step (GPT-OSS's): the mma.sync kernel
+    # the groups below a 32-deep k step: the mma.sync kernel
     "w4a8_matmul_mma": dict(
         route="cuda",
         source="scratchpad_tpu_torch/csrc/w4a8_matmul.cu",
-        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:139 (_w4a8_kernel)",
+        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:139 (_w4a8_kernel, groups below 32)",
     ),
     "w4a16_matmul": dict(
         route="cuda",
@@ -2398,19 +2523,23 @@ def main() -> None:
         fail(f"{ROOT} is not a checkout of the repository (no scratchpad_tpu_torch/)")
     sys.path.insert(0, str(ROOT))
     t0 = time.monotonic()
+
+    def timed(fn, *args):  # a phase, and its seconds on a line of its own
+        t = time.monotonic()
+        out = fn(*args)
+        log(f"[phase] {fn.__name__}: {time.monotonic() - t:.1f} s")
+        return out
+
     name, smi_line = phase_device()
-    phase_build()
+    timed(phase_build)
     errs = {k: 0.0 for k in KERNELS}
-    check_decode(errs)
-    check_extend(errs)
-    check_window_decode(errs)
-    check_window_extend(errs)
-    check_pallas_decode(errs)
-    check_kv_quantizer()
-    check_w4(errs)
-    check_delta(errs)
-    check_decode_ablate(errs)
-    check_decode_stages()
+    for fn in (check_decode, check_extend, check_window_decode, check_window_extend, check_pallas_decode):
+        timed(fn, errs)
+    timed(check_kv_quantizer)
+    timed(check_w4, errs)
+    timed(check_delta, errs)
+    timed(check_decode_ablate, errs)
+    timed(check_decode_stages)
     # the timed runs follow each engine's checks, and only while every
     # check holds: a faulty tree shows all its readings, quickly
     engines = {}
@@ -2428,6 +2557,7 @@ def main() -> None:
             f"{time.monotonic() - t_times:.1f} s timing"
         )
 
+    t_engines = time.monotonic()
     engine = make_engine()
     serve(engine, "bf16")
     # toppings on the same engine and weights, served and checked but not
@@ -2495,12 +2625,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     if FAILURES:
         fail(f"{len(FAILURES)} correctness checks failed; the first: {FAILURES[0]}")
-    timing = phase_timing()
-    timing.update({k: [v] for k, v in phase_w4_timing()["per_forward"].items()})
-    delta = phase_delta_timing()
+    log(f"[phase] engines: {time.monotonic() - t_engines:.1f} s")
+    timing = timed(phase_timing)
+    timing.update({k: [v] for k, v in timed(phase_w4_timing)["per_forward"].items()})
+    delta = timed(phase_delta_timing)
     timing["delta_matmul_grouped"] = [delta[1], delta[3]]
-    probe = phase_profiling_tools()
-    mma_bench = phase_w4a8_mma_bench()
+    probe = timed(phase_profiling_tools)
+    mma_bench = timed(phase_w4a8_mma_bench)
     if FAILURES:
         fail(f"{len(FAILURES)} correctness checks failed; the first: {FAILURES[0]}")
     full = next(r for r in probe["rows"] if r.get("mode") == "full")

@@ -55,6 +55,15 @@
 //     i32, folded into f32 with the group's scale (the same four 32-byte
 //     steps a block). W4A8's decode kernel is its own (weights as wgmma's
 //     register A operand), on this header's helpers and splitk_sum.
+//   - Groups that end inside a 32-byte step (kSplit ops: a group of at
+//     least one step that is no multiple of it, GPT-OSS's 120 and 100): a
+//     step that holds a group edge is issued twice, on two B slices the
+//     consumers convert: the main tile's slice holds the codes before the
+//     edge (with the first group's zero point, the others 0), a second
+//     tile's the codes from it (with the next group's). The first group is
+//     folded between the two issues; the second issue starts the next
+//     group's sum. Nothing changes in the layout and no byte is added: at
+//     g 120 one 16-deep step in 15 is issued twice, three 32-deep ones in 15.
 // SPTPU_GEMM_CUT=1 builds a timing cut: every block is loaded and
 // converted, no product is taken and nothing is written.
 
@@ -363,11 +372,26 @@ struct GemmTile {
   static constexpr int NACC = NW / 2;  // f32 accumulators a thread holds for m64 x NW
 };
 
+// An Op whose groups may end inside a 32-byte step (kSplit: W4 and W4A8 at
+// groups that are no multiple of a step, see the header's comment): a B
+// stage holds two tiles, the second for the codes from the edge of each
+// step that holds one.
+template <class Op, class = void>
+struct OpSplit {
+  static constexpr bool value = false;
+};
+template <class Op>
+struct OpSplit<Op, std::void_t<decltype(Op::kSplit)>> {
+  static constexpr bool value = Op::kSplit;
+};
+template <class Op>
+constexpr bool kOpSplit = OpSplit<Op>::value;
+
 // Shared memory, byte offsets from a 1024-aligned base: the raw ring
 // [kStages][x block BM x 128 B, then Op's raw bytes], the bf16 B ring
-// [2][BN x 128 B], the mbarriers and the split-K flag. kStages: the deepest
-// ring up to 10 that keeps one CTA of two consumer warpgroups, or two CTAs
-// of one, on an SM.
+// [2][BN x 128 B, and a second such tile for kSplit], the mbarriers and the
+// split-K flag. kStages: the deepest ring up to 10 that keeps one CTA of two
+// consumer warpgroups, or two CTAs of one, on an SM.
 constexpr int gemm_smem_bytes(int stages, int raw, int w) {  // with room to align the base
   return stages * raw + 2 * w + 8 * 2 * stages + 16 + 1024;
 }
@@ -381,7 +405,8 @@ template <class T, class Op>
 struct GemmSmem {
   static constexpr int kX = T::BM * 128;
   static constexpr int kRaw = (kX + Op::kRawBytes + 1023) / 1024 * 1024;
-  static constexpr int kW = T::BN * 128;
+  static constexpr int kWTile = T::BN * 128;
+  static constexpr int kW = kWTile * (kOpSplit<Op> ? 2 : 1);
   static constexpr int kLimit = T::NC == 2 ? 232448 : 115712;
   static constexpr int kStages = gemm_stages(kRaw, kW, kLimit);
   static constexpr int kWRing = kStages * kRaw;
@@ -453,15 +478,20 @@ __device__ __forceinline__ bool bar_or(int id, int n, bool v) {
   return r != 0;
 }
 
-// the zero point z + 8 of a stored bf16 z (the W4 layout's zero minus 8),
+// the zero point z of the W4 layout (bf16, as the JAX package holds it),
 // rounded and clamped to [0, 16] (the zero itself for every group that
-// spans 0), and what that left out: r = clamped - zero, exact where it
-// matters (0 unless the zero is out of range or not an integer)
+// spans 0), and what that left out: r = clamped - z in f32, exact (z is an
+// integral bf16, the clamp an integer: no second rounding of the zero)
 __device__ __forceinline__ float zero_clamped(__nv_bfloat16 z) {
-  return fminf(fmaxf(rintf(__bfloat162float(z) + 8.f), 0.f), 16.f);
+  return fminf(fmaxf(rintf(__bfloat162float(z)), 0.f), 16.f);
 }
 __device__ __forceinline__ float zero_rest(__nv_bfloat16 z) {
-  return (zero_clamped(z) - 8.f) - __bfloat162float(z);
+  return zero_clamped(z) - __bfloat162float(z);
+}
+
+// bytes [0, n) of a word kept (n in 0..4), or its bf16 halves [0, n) (n in 0..2)
+__device__ __forceinline__ uint32_t low_bytes(int n) {
+  return n >= 4 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
 }
 
 // Split K: this CTA's partial v [NACC] (thread tid of kConsumers) goes to
@@ -517,8 +547,11 @@ __device__ __forceinline__ bool splitk_sum(float (&v)[NACC], const GemmArgs& a, 
 // delta_matmul.cu): kRawBytes, kTB; start (may end the CTA: uniform),
 // issue (the block's copies beyond x), convert (raw codes -> bf16 B tile),
 // b_desc, group_start / group_end (by block), fold, store; with kFold16
-// also step_starts / step_ends (by 32-byte step: 16 bf16 or 32 int8 deep).
-// An Op with Acc int32_t takes int8 x and an s8 B tile (kOpS8).
+// also block_offset (the offset of a block's first k inside its group, g
+// the group) and step_starts / step_ends (of the block's 32-byte step kk,
+// 16 bf16 or 32 int8 deep, from that offset); kSplit ops split a step that
+// holds a group edge (g - offset where offset + step > g). An Op with Acc
+// int32_t takes int8 x and an s8 B tile (kOpS8).
 template <class Op, int NC, int WM, int NW, bool kFold16>
 __global__ void __launch_bounds__(GemmTile<NC, WM, NW>::kThreads, NC == 2 ? 1 : 2)
 sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUtensorMap xmap) {
@@ -604,9 +637,10 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
   };
   // kOpRest: rows row0 and row0 + 8's sums of x over the current group's
   // blocks (or steps) since its last fold, f32, summed from the x tile's
-  // bf16 by the quad (lane q4 a quarter of the columns)
+  // bf16 by the quad (lane q4 a quarter of the columns); of step kk, the
+  // k in [lo, hi) of its 16 only (the two pieces of a split step)
   [[maybe_unused]] float xs[2] = {0.f, 0.f};
-  auto add_x_sums = [&](const uint8_t* xt, int kk) {  // kk < 0: the whole block
+  auto add_x_sums = [&](const uint8_t* xt, int kk, int lo = 0, int hi = 16) {  // kk < 0: the whole block
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = row0 + 8 * i;
@@ -618,7 +652,13 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
           v += bf16x2_sum(c.x) + bf16x2_sum(c.y) + bf16x2_sum(c.z) + bf16x2_sum(c.w);
         }
       } else {
-        const uint2 c = *reinterpret_cast<const uint2*>(xt + swz(r, 2 * kk + (q4 >> 1)) + 8 * (q4 & 1));
+        uint2 c = *reinterpret_cast<const uint2*>(xt + swz(r, 2 * kk + (q4 >> 1)) + 8 * (q4 & 1));
+        if (lo > 0 || hi < 16) {  // this lane's four k: 4 q4 .. 4 q4 + 3
+          const int k0 = 4 * q4;
+          const uint32_t keep0 = low_bytes(2 * (min(hi, k0 + 2) - k0)) & ~low_bytes(2 * (lo - k0));
+          const uint32_t keep1 = low_bytes(2 * (min(hi, k0 + 4) - k0 - 2)) & ~low_bytes(2 * (lo - k0 - 2));
+          c.x &= keep0, c.y &= keep1;
+        }
         v = bf16x2_sum(c.x) + bf16x2_sum(c.y);
       }
       v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -634,7 +674,9 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
   // converts half of it and the two meet at a named barrier. Block t + 1 is
   // converted while block t's products run, into the other B stage.
   // Every wgmma is issued whatever the branch (a wgmma under a branch the
-  // compiler cannot prove uniform is serialized); only the folds branch.
+  // compiler cannot prove uniform is serialized); only the folds branch,
+  // and a split step's second issue, whose condition (the k step and the
+  // group) is the same in every thread.
   auto mainloop = [&](auto rest_tag) {
     constexpr bool kR = decltype(rest_tag)::value;
     auto convert = [&](int t) {
@@ -642,16 +684,20 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
       uint8_t* raw_t = sm + (t % S::kStages) * S::kRaw + S::kX;
       uint8_t* w_t = sm + S::kWRing + (t & 1) * S::kW;
       const int n_lo = wn * NW + (WM == 2 ? wm * (NW / 2) : 0);
-      if constexpr (kOpRest<Op>) op.template convert<NW / WM, kR>(raw_t, w_t, n_lo, tid & 127);
+      int r0 = 0;  // kSplit: the offset of the block's first k inside its group
+      if constexpr (kOpSplit<Op>) r0 = op.block_offset(kb0 + t);
+      if constexpr (kOpRest<Op>) op.template convert<NW / WM, kR>(raw_t, w_t, n_lo, tid & 127, r0);
+      else if constexpr (kOpS8<Op>) op.template convert<NW / WM>(raw_t, w_t, n_lo, tid & 127, r0);
       else op.template convert<NW / WM>(raw_t, w_t, n_lo, tid & 127);
       fence_async_shared();
     };
-    // the fold of step kk (16-deep step j of K)
-    auto fold = [&](const uint8_t* rawp, int kk, int j) {
+    // the fold of step kk (32-byte step j of K): piece 0 the whole step, 1
+    // and 2 a split step's codes before and from its group edge
+    auto fold = [&](const uint8_t* rawp, int kk, int j, int piece) {
       if constexpr (kOpS8<Op>)  // W4A8 also takes its rows and its warpgroup
-        op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4, j, m_base + wm * 64 + row0, wn);
+        op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4, j, m_base + wm * 64 + row0, wn, piece);
       else if constexpr (kOpRest<Op>)
-        op.template fold<kR>(acc, tot, rawp, kk, wn * NW + 2 * q4, j, xs);
+        op.template fold<kR>(acc, tot, rawp, kk, wn * NW + 2 * q4, j, xs, piece);
       else
         op.fold(acc, tot, rawp, kk, wn * NW + 2 * q4);
     };
@@ -663,6 +709,7 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
       const uint32_t xa = sb + st * S::kRaw + wm * 64 * 128;
       const uint32_t wb = sb + S::kWRing + (t & 1) * S::kW;
       const uint8_t* rawp = sm + st * S::kRaw + S::kX;
+      [[maybe_unused]] const uint8_t* xt = sm + st * S::kRaw + wm * 64 * 128;
       if constexpr (!kFold16) {  // a group is whole blocks: fold after a block
         const int first = t == 0 || op.group_start(kb);
         wgmma_fence();
@@ -674,21 +721,45 @@ sm90_gemm_kernel(const Op op_in, const GemmArgs a, const __grid_constant__ CUten
         if (t + 1 < n_kb) convert(t + 1);
         wgmma_wait<0>();
         keep(acc);
-        if constexpr (kR) add_x_sums(sm + st * S::kRaw + wm * 64 * 128, -1);
-        if (t == n_kb - 1 || op.group_end(kb)) fold(rawp, kKB / 16 - 1, kb * (kKB / 16) + kKB / 16 - 1);
-      } else {  // groups end inside blocks: fold after a 16-deep step
+        if constexpr (kR) add_x_sums(xt, -1);
+        if (t == n_kb - 1 || op.group_end(kb)) fold(rawp, kKB / 16 - 1, kb * (kKB / 16) + kKB / 16 - 1, 0);
+      } else {  // groups end inside blocks: fold after the 32-byte step that ends one
+        // rr: the offset of step kk's first k inside its group (0..g-1),
+        // carried from step to step, so that the step rules need no
+        // division. A split step's second issue stands apart from the
+        // fold's branch (nested in it, the split instantiations spilled
+        // about 1.5 KB a thread).
+        constexpr int kStepK = kOpS8<Op> ? 32 : 16;  // k of a 32-byte step
+        int rr = op.block_offset(kb);
 #pragma unroll
         for (int kk = 0; kk < kKB / 16; ++kk) {
           const int j = kb * (kKB / 16) + kk;
           wgmma_fence();
           gemm_mma<NW, Op::kTB>(acc, desc(xa + kk * 32, 16, 1024), op.b_desc(wb, wn * NW, kk),
-                                !((t == 0 && kk == 0) || op.step_starts(j)));
+                                !((t == 0 && kk == 0) || op.step_starts(kk, rr)));
           wgmma_commit();
           if (kk == 0 && t + 1 < n_kb) convert(t + 1);
           wgmma_wait<0>();
           keep(acc);
-          if constexpr (kR) add_x_sums(sm + st * S::kRaw + wm * 64 * 128, kk);
-          if ((t == n_kb - 1 && kk == kKB / 16 - 1) || op.step_ends(j)) fold(rawp, kk, j);
+          int cut = 0;  // the offset of a group edge inside the step
+          if constexpr (kOpSplit<Op>) cut = rr + kStepK > op.g ? op.g - rr : 0;
+          const bool end = (t == n_kb - 1 && kk == kKB / 16 - 1) || op.step_ends(kk, rr);
+          if constexpr (kR) add_x_sums(xt, kk, 0, cut ? cut : 16);
+          if (cut || end) fold(rawp, kk, j, cut ? 1 : 0);
+          if constexpr (kOpSplit<Op>) {
+            if (cut) {  // the codes from the edge: the next group's sum starts
+              wgmma_fence();
+              gemm_mma<NW, Op::kTB>(acc, desc(xa + kk * 32, 16, 1024), op.b_desc(wb + S::kWTile, wn * NW, kk),
+                                    0);
+              wgmma_commit();
+              wgmma_wait<0>();
+              keep(acc);
+              if constexpr (kR) add_x_sums(xt, kk, cut, 16);
+              if (end) fold(rawp, kk, j, 2);
+            }
+          }
+          rr += kStepK;
+          if (rr >= op.g) rr -= op.g;
         }
       }
 #else

@@ -4,14 +4,15 @@
 // Replaces two kernels of scratchpad_tpu/ops/quant/pallas_w4.py:
 //   _w4_kernel_q4 (:394)  W4A16 over 4-bit-native storage, g % 32 == 0
 //   _w4_kernel    (:27)   W4A16 over u8 half planes, any g dividing In/2
+//                         (GPT-OSS's 120 and 100: split steps, below)
 //
 // What it computes, over the port's packed layout
 // (scratchpad_tpu_torch/ops/quant/w4_matmul.py: q [N, Kp/2], s and z [G, N]):
 //   y[m, n] = bf16( sum_g s[g, n] * (D_g[m, n] + xsum[m, g] * r[g, n]) ),
 //   D_g = sum_{k in g} x[m, k] * (nibble[k, n] - zc[g, n])
-// with zero = z + 8 the zero point (z the stored zero minus 8, c = nibble -
-// 8 the signed code, so c - z = nibble - zero), zc = zero clamped to [0, 16]
-// (rounded), r = zc - zero and xsum the f32 sum of x over the group. Every
+// with z the zero point (bf16, as the JAX package holds it; c = nibble - 8
+// the signed code, so c - (z - 8) = nibble - z), zc = z clamped to [0, 16]
+// (rounded), r = zc - z in f32 and xsum the f32 sum of x over the group. Every
 // checkpoint import and every group that spans 0 has an integral zero in
 // [0, 16]: there r = 0 and nibble - zc is an integer in [-16, 15], exact in
 // bf16. quantize_stacked gives a group of one sign a zero outside [0, 15]
@@ -46,8 +47,15 @@
 // with K split across CTAs where the columns alone give fewer CTAs than
 // SMs, reduced in one launch. A group that is whole 64-deep blocks (g % 64
 // == 0: every Llama-family width) folds once a group; g % 16 == 0 otherwise
-// folds after its 16-deep step. Groups that cut a 16-deep step (GPT-OSS's
-// 120, 100) run the mma.sync kernel, w4a16_matmul_mma below.
+// folds after its 16-deep step. A group of 16 or more that cuts 16-deep
+// steps (GPT-OSS's 120 and 100: one step in 15, three in 25) splits each
+// such step in two (sm90_gemm.cuh's kSplit): the consumers convert the
+// step's codes before the edge, with the first group's zero point, into
+// the main B tile, and those from it, with the next group's, into a second
+// tile; the step is issued on each, the first group folded between. The
+// block's s and z rows then name the groups at the starts of its four steps
+// and at its end (SR 5). Groups below 16, and K % 8 != 0 (x's rows no whole
+// 16 bytes for the TMA), run the mma.sync kernel, w4a16_matmul_mma below.
 // Not done yet (later work): decode is bound by x read again for every
 // column tile (L2 to SM) and the split-K reduction, not by the codes' bytes:
 // weights as the register A operand (swap-AB, no bf16 B tile), x shared
@@ -81,11 +89,14 @@ __device__ __forceinline__ void w4_word_to_bf16(uint32_t w, uint32_t sub, uint32
 
 // The W4 op of sm90_gemm_kernel. Raw stage: the codes [BN][32 B] (64 codes
 // of a column), then s and z [SR][BN] bf16 each: the rows of the groups of
-// the block's four 16-deep steps (SR 4), or the one group of the block
-// where a group is whole blocks (SR 1: g % 64 == 0).
-template <int BN, int SR>
+// the block's four 16-deep steps (SR 4), with the group at the block's end
+// where a group edge may fall inside a step (SR 5, kSplit), or the one group
+// of the block where a group is whole blocks (SR 1: g % 64 == 0).
+template <int BN, int SR, bool SPLIT = false>
 struct W4Op {
   static constexpr bool kRest = true;  // a zero outside [0, 16] leaves a rest (kOpRest)
+  static constexpr bool kSplit = SPLIT;  // a group edge may fall inside a 16-deep step
+  static_assert(!SPLIT || SR == 5, "a split step reads the next step's group");
   static constexpr int kBN = BN;
   static constexpr int kTB = 0;  // B K-major: a column's 64 codes in one swizzled row
   static constexpr int kCodes = BN * 32;
@@ -128,24 +139,28 @@ struct W4Op {
         const int n = n0 + (e % per_row) * 8;
         v[u] = e < total && n < N_st
                    ? *reinterpret_cast<const uint4*>(z + (size_t)(g0 + e / per_row) * ld_sz + n)
-                   : make_uint4(0u, 0u, 0u, 0u);  // zero points of 8
+                   : make_uint4(0u, 0u, 0u, 0u);  // zero points of 0
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const __nv_bfloat16* zz = reinterpret_cast<const __nv_bfloat16*>(&v[u]);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) rest |= zero_clamped(zz[k]) - 8.f != __bfloat162float(zz[k]);
+        for (int k = 0; k < 8; ++k) rest |= zero_clamped(zz[k]) != __bfloat162float(zz[k]);
       }
     }
     return rest;
   }
   // codes of the NCOL columns from n_lo -> the bf16 B tile [BN][128 B], row
-  // n holding nibble - zc of k = 0..63; thread q of the 128 that share
-  // them. A unit is a column's 16 codes of one 16-deep step: loads first,
-  // then the conversions. kClamp (a tile with a rest): the zeros clamped
-  // into [0, 16] (zc), else taken as they are.
+  // n holding nibble - zc of k = 0..63 of block kb; thread q of the 128 that
+  // share them. A unit is a column's 16 codes of one 16-deep step: loads
+  // first, then the conversions. kClamp (a tile with a rest): the zeros
+  // clamped into [0, 16] (zc), else taken as they are (zc = z). kSplit: a
+  // step that holds a group edge keeps its codes before the edge in this
+  // tile (the others 0) and puts those from it, minus the next group's zero,
+  // into the second tile (w + BN * 128; the others 0); r0 is the offset of
+  // the block's first k inside its group.
   template <int NCOL, bool kClamp>
-  __device__ void convert(const uint8_t* raw, uint8_t* w, int n_lo, int q) const {
+  __device__ void convert(const uint8_t* raw, uint8_t* w, int n_lo, int q, int r0) const {
     constexpr int U = NCOL * 4 / 128;
     const __nv_bfloat16* zr = reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + SR * kRow);
     uint2 c8[U];
@@ -156,17 +171,39 @@ struct W4Op {
       c8[i] = *reinterpret_cast<const uint2*>(raw + row * 32 + kk * 8);
       zv[i] = zr[(kk % SR) * BN + row];
     }
+    // 128 + zc: one bf16x2 subtraction of it from 128 + nibble gives nibble - zc
+    auto sub_of = [](__nv_bfloat16 z) {
+      return bits(__float2bfloat162_rn(128.f + (kClamp ? zero_clamped(z) : __bfloat162float(z))));
+    };
+    int cut = 0;  // every unit of this thread is of step q & 3
+    if constexpr (kSplit) {
+      int rr = r0 + 16 * (q & 3);
+      while (rr >= g) rr -= g;
+      cut = rr + 16 > g ? g - rr : 0;
+    }
 #pragma unroll
     for (int i = 0; i < U; ++i) {
       const int u = q + 128 * i, row = n_lo + (u >> 2), kk = u & 3;
-      // 128 + zc, where zc = z + 8 in a tile without a rest
-      const float sub_f = kClamp ? 128.f + zero_clamped(zv[i]) : 136.f + __bfloat162float(zv[i]);
-      const uint32_t sub = bits(__float2bfloat162_rn(sub_f));
-      uint32_t o[4];
-      w4_word_to_bf16(c8[i].x, sub, o);
-      *reinterpret_cast<uint4*>(w + swz(row, 2 * kk)) = make_uint4(o[0], o[1], o[2], o[3]);
-      w4_word_to_bf16(c8[i].y, sub, o);
-      *reinterpret_cast<uint4*>(w + swz(row, 2 * kk + 1)) = make_uint4(o[0], o[1], o[2], o[3]);
+      const uint32_t sub = sub_of(zv[i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // codes 8h .. 8h + 7 of the step
+        const uint32_t word = h ? c8[i].y : c8[i].x;
+        uint32_t o[4];
+        w4_word_to_bf16(word, sub, o);
+        if constexpr (kSplit) {
+          if (cut) {
+            uint32_t oh[4];
+            w4_word_to_bf16(word, sub_of(zr[(kk + 1) * BN + row]), oh);
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {  // codes 8h + 2p and + 1: the halves before the edge
+              const uint32_t m = low_bytes(2 * (cut - 8 * h - 2 * p));
+              o[p] &= m, oh[p] &= ~m;
+            }
+            *reinterpret_cast<uint4*>(w + BN * 128 + swz(row, 2 * kk + h)) = make_uint4(oh[0], oh[1], oh[2], oh[3]);
+          }
+        }
+        *reinterpret_cast<uint4*>(w + swz(row, 2 * kk + h)) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
     }
   }
   __device__ uint64_t b_desc(uint32_t wb, int n0, int kk) const {
@@ -174,16 +211,23 @@ struct W4Op {
   }
   __device__ bool group_start(int kb) const { return kb % (g / kKB) == 0; }
   __device__ bool group_end(int kb) const { return (kb + 1) % (g / kKB) == 0; }
-  __device__ bool step_starts(int j) const { return 16 * j % g == 0; }
-  __device__ bool step_ends(int j) const { return 16 * (j + 1) % g == 0; }
+  // the offset of block kb's first k inside its group; whether the 16-deep
+  // step whose first k lies at offset rr starts or ends a group (g >= 16:
+  // at most one edge a step; w4_matmul.py's step_cut is g - rr where rr +
+  // 16 > g)
+  __device__ int block_offset(int kb) const { return kb * kKB % g; }
+  __device__ bool step_starts(int, int rr) const { return rr == 0; }
+  __device__ bool step_ends(int, int rr) const { return rr + 16 == g; }
   // tot += acc * s of the group of step kk (16-deep step j of K), column by
   // column, in f32; in a tile with a zero rest (kWithRest), (acc + xs * r)
   // * s with xs the rows' sums of x since the last fold (at a step inside K
-  // only), and xs is cleared
+  // only), and xs is cleared. piece 2: the codes from a split step's edge,
+  // whose group is the next step's (row kk + 1).
   template <bool kWithRest, int NACC>
   __device__ void fold(const float (&acc)[NACC], float (&tot)[NACC], const uint8_t* raw, int kk,
-                       int col, int j, float (&xs)[2]) const {
-    const __nv_bfloat16* sr = reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + (kk % SR) * kRow) + col;
+                       int col, int j, float (&xs)[2], int piece) const {
+    const int row = kk % SR + (piece == 2);
+    const __nv_bfloat16* sr = reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + row * kRow) + col;
     if (kWithRest && 16 * j < K) {
       const __nv_bfloat16* zr = sr + SR * kRow / 2;
 #pragma unroll
@@ -240,8 +284,14 @@ cudaError_t launch_w4(const __nv_bfloat16* x, const uint8_t* q, const __nv_bfloa
   if (g % kKB == 0)
     return run_gemm<W4Op<T::BN, 1>, NC, WM, NW, false>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g, K},
                                                          a, m_tiles, 1, st);
-  return run_gemm<W4Op<T::BN, 4>, NC, WM, NW, true>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g, K}, a,
-                                                      m_tiles, 1, st);
+  // a group that cuts no step keeps SR 4 and one B tile: the split
+  // instantiation ran such groups (32) 1.09x to 1.20x slower on an H100
+  // (tools/gemm_ab.py --groups)
+  if (g % 16 == 0)
+    return run_gemm<W4Op<T::BN, 4>, NC, WM, NW, true>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g, K}, a,
+                                                        m_tiles, 1, st);
+  return run_gemm<W4Op<T::BN, 5, true>, NC, WM, NW, true>({q, s, z, y, N, ld_sz, Kp, g, ld_sz, K / g, K},
+                                                            a, m_tiles, 1, st);
 }
 
 }  // namespace
@@ -250,14 +300,14 @@ cudaError_t launch_w4(const __nv_bfloat16* x, const uint8_t* q, const __nv_bfloa
 // [ld_sz >= N, Kp/2] with s, z bf16 [K/g, ld_sz], on the tile configuration
 // (0: 128 x 128, 1: 64 x 256, 2: 64 x 64) and K split that
 // ops/quant/w4_matmul.py::gemm_plan gives; workspace: its split-K counters
-// (zero) and partials. g % 16 == 0, ld_sz % 8 == 0 and ld_x % 8 == 0, or
+// (zero) and partials. g >= 16, ld_sz % 8 == 0 and ld_x % 8 == 0, or
 // cudaErrorInvalidValue (w4a16_matmul_mma takes the other groups). Returns
 // the launch's cudaError_t.
 extern "C" int w4a16_matmul(const void* x, const void* q, const void* s, const void* z, void* y,
                             int M, int N, int K, int ld_x, int Kp, int g, int ld_sz,
                             void* stream, void* workspace, int config, int splits) {
   if (M == 0 || N == 0) return 0;
-  if (g <= 0 || g % 16 || K % g || ld_sz % 8 || ld_x % 8 || splits < 1)
+  if (g < 16 || K % g || ld_sz % 8 || ld_x % 8 || splits < 1)
     return cudaErrorInvalidValue;
   const auto* xx = (const __nv_bfloat16*)x;
   const auto* qq = (const uint8_t*)q;
@@ -285,7 +335,7 @@ extern "C" int w4a16_matmul(const void* x, const void* q, const void* s, const v
 // 16-wide k-step that crosses a group edge is split into pieces, each with
 // the activations outside its group masked to zero.
 //   y[m, n] = sum_g s[g,n] * (sum_{k in g} x[m,k] * c[k,n])
-//           - sum_g xg_sum[m,g] * (z[g,n] * s[g,n])
+//           - sum_g xg_sum[m,g] * ((z[g,n] - 8) * s[g,n])
 // with xg_sum[m, g] the f32 sum of the group's bf16 activations.
 
 namespace {
@@ -438,9 +488,9 @@ w4a16_mma_kernel(const __nv_bfloat16* __restrict__ x, int ld_x, const uint8_t* _
             for (int j = 0; j < 2; ++j) {
               const int n = n_base + nt * 8 + tig * 2 + j;
               float sv = 0.f, zs = 0.f;
-              if (n < N) {
+              if (n < N) {  // the zero of the signed codes, z - 8, in f32
                 sv = __bfloat162float(s[(size_t)grp * ld_sz + n]);
-                zs = __bfloat162float(z[(size_t)grp * ld_sz + n]) * sv;
+                zs = (__bfloat162float(z[(size_t)grp * ld_sz + n]) - 8.f) * sv;
               }
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt)
@@ -516,7 +566,7 @@ cudaError_t launch_gemm(dim3 grid, cudaStream_t st, const __nv_bfloat16* x, int 
 }  // namespace
 
 // The mma.sync.m16n8k16 kernel (any group that divides K): what
-// w4a16_matmul does, for the groups it does not take (g % 16 != 0).
+// w4a16_matmul does, for the groups it does not take (g < 16, or K % 8).
 extern "C" int w4a16_matmul_mma(const void* x, const void* q, const void* s, const void* z,
                                 void* y, int M, int N, int K, int ld_x, int Kp, int g, int ld_sz,
                                 void* stream) {

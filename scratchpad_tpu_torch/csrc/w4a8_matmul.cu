@@ -6,33 +6,37 @@
 //   _w4a8_kernel_q4 (:363)  W4A8 over 4-bit-native storage, g % 32 == 0:
 //                           w4a8_matmul below
 //   _w4a8_kernel    (:139)  W4A8 over u8 half planes, any g dividing In/2:
-//                           the groups that cut a 32-deep k step (GPT-OSS's
-//                           120 and 100) take w4a8_matmul_mma below
+//                           w4a8_matmul below for every group of 32 or more
+//                           (GPT-OSS's 120 and 100: split steps, below),
+//                           w4a8_matmul_mma for the smaller ones
 //   the activation quantization of _w4_q4_call (:452-461), done outside the
 //   Pallas kernel by XLA: w4_quantize_rows below
 //
 // What it computes, with x8/ax from w4_quantize_rows and the port's packed
 // layout (scratchpad_tpu_torch/ops/quant/w4_matmul.py: q [N, Kp/2], s and z
-// [G, N], c = nibble - 8 the signed code, z the zero point minus 8):
+// [G, N], c = nibble - 8 the signed code, z the zero point in bf16 as the
+// JAX package holds it):
 //   y[m, n] = bf16( ax[m] * sum_g s[g, n] * (D_g[m, n] + gsum[m, g] * r[g, n]) ),
 //   D_g = sum_{k in g} x8[m, k] * (nibble[k, n] - zc[g, n])   (exact in i32)
-// with zero = z + 8 the zero point, zc = zero clamped to [0, 16] (rounded)
-// and r = zc - zero. c - z = nibble - zero, so this is the JAX package's
-// x8 . c + gsum * (-z s) group by group. The quantizers and checkpoint
+// with zc = z clamped to [0, 16] (rounded) and r = zc - z in f32. c - (z -
+// 8) = nibble - z, so this is the JAX package's x8 . c + gsum * (-(z - 8) s)
+// group by group (z - 8 in f32, as its to_4bit takes it). The quantizers and checkpoint
 // imports of the port give integral zero points, in [0, 16] wherever a
 // group's weights span 0 (AWQ and GPTQ v2 0..15, GPTQ v1 1..16,
 // quantize_stacked 0..15): there r = 0, nibble - zc lies in [-16, 15], an
-// exact s8 the tensor cores take, and |D| <= 127 * 16 * 128 = 260,096 over
-// a 128-deep span. So the zero is folded into the code and gsum is read
+// exact s8 the tensor cores take, and |D| <= 127 * 16 * k over k codes. So
+// the zero is folded into the code and gsum is read
 // only for a group whose zero r does not vanish (quantize_stacked gives a
 // group of one sign a zero outside [0, 15], a constant one of -5e7), at the
 // fold that ends the group: once a group, at its last step. The steps past
 // K that fill a block (zeros, by the TMA's and cp.async's fill) end no
 // group, and add no rest. The i32 sum is folded into f32, times the
-// group's scale, at each group's end and at least every 128 k (fold points:
-// after k step j where 32 (j + 1) % g == 0 or (j + 1) % 4 == 0, and at a
-// split's end), converted exactly (|D| < 2^22: the float 1.5 * 2^23 + D,
-// one subtraction, no I2F): tot = fma(f32(D) [+ gsum * r], s, tot); the
+// group's scale, at each group's end, and at a split's end; where g % 128
+// == 0 or g > 2,048 (kSpanFree) also every 128 k, elsewhere a group's sum
+// stays below 2^22 (fold points: after k step j where 32 (j + 1) % g == 0,
+// or (j + 1) % 4 == 0 on those groups), converted exactly (|D| < 2^22: the
+// float 1.5 * 2^23 + D, one subtraction, no I2F): tot = fma(f32(D) [+ gsum
+// * r], s, tot); the
 // splits' f32 sums are added in split order, times ax, and rounded to bf16
 // once.
 //
@@ -64,8 +68,15 @@
 //     z rows of its k steps. K is split across CTAs so that the launch
 //     fills the card; the last CTA of a tile adds the partials in split
 //     order (sm90_gemm.cuh's splitk_sum).
-//   - Groups with g % 32 != 0 run the mma.sync kernel (w4a8_matmul_mma),
-//     routed there by the wrapper's plan: a k step of wgmma cannot be cut.
+//   - A group of 32 or more that is no multiple of 32 (GPT-OSS's 120 and
+//     100) cuts 32-deep steps: at g 120 three in 15, at g 100 seven in 25.
+//     Such a step is issued twice (split), each issue with one group's
+//     codes and the other's zeroed, the first group folded between the two:
+//     at prefill on two s8 B slices (sm90_gemm.cuh's kSplit), at decode on
+//     two register A fragments, the mask an AND on the converted codes. The
+//     s and z rows of a block then also name the group at its end.
+//     Groups below 32 (a step would hold two edges) run the mma.sync kernel
+//     (w4a8_matmul_mma), routed there by the wrapper's plan.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -250,6 +261,10 @@ __device__ __forceinline__ uint32_t zero_bytes(__nv_bfloat16 z) {
 __device__ __forceinline__ float i2f(int32_t v) {
   return __int_as_float(v + 0x4B400000) - 12582912.f;
 }
+// the widest group whose i32 sum stays below 2^22 (|x8 (c - z)| <= 127 x
+// 16 a k: 127 x 16 x 2048 = 4,161,536): a group-end fold alone keeps such a
+// group exact, so the kFold16 paths fold every 128 k only for wider ones
+constexpr int kSpanFree = 2048;
 
 // ---------------------------------------------------------------- prefill
 
@@ -257,14 +272,18 @@ __device__ __forceinline__ float i2f(int32_t v) {
 // (128 codes of a column; 16-byte chunk kk of row r at chunk kk ^ ((r >> 1)
 // & 3), so that eight rows' chunk kk fill the banks once), then s and z
 // [SR][BN] bf16 each: the rows of the
-// groups of the block's four 32-deep steps (SR 4), or the one group of the
-// block (SR 1: g % 128 == 0, a fold a block); then a flag a converting warp
-// (two warpgroups of four), set where one of its columns' zeros leaves a
-// rest r (the fold then reads gsum; the 128 x 128 tile's warpgroups each
-// convert half of the columns both fold, so a fold reads all eight).
-template <int BN, int SR>
+// groups of the block's four 32-deep steps (SR 4), with the group at the
+// block's end where a group edge may fall inside a step (SR 5, kSplit), or
+// the one group of the block (SR 1: g % 128 == 0, a fold a block); then a
+// flag a converting warp (two warpgroups of four), set where one of its
+// columns' zeros leaves a rest r (the fold then reads gsum; the 128 x 128
+// tile's warpgroups each convert half of the columns both fold, so a fold
+// reads all eight).
+template <int BN, int SR, bool SPLIT = false>
 struct W4A8Op {
   using Acc = int32_t;
+  static constexpr bool kSplit = SPLIT;  // a group edge may fall inside a 32-deep step
+  static_assert(!SPLIT || SR == 5, "a split step reads the next step's group");
   static constexpr int kBN = BN;
   static constexpr int kTB = 0;  // B K-major: a column's 128 codes in one swizzled row
   static constexpr int kCodes = BN * 64;
@@ -296,11 +315,15 @@ struct W4A8Op {
     }
   }
   // codes of the NCOL columns from n_lo -> the s8 B tile [BN][128 B], row n
-  // holding c - z of k = 0..127; thread q of the 128 that share them takes
-  // one row's CPT 16-byte chunks (32 codes of a 32-deep step each: all four
-  // for NCOL 128, two for 64), its zero points once, loads first.
+  // holding nibble - zc of k = 0..127 of block kb; thread q of the 128 that
+  // share them takes one row's CPT 16-byte chunks (32 codes of a 32-deep
+  // step each: all four for NCOL 128, two for 64), its zero points once,
+  // loads first. kSplit: a step that holds a group edge keeps its codes
+  // before the edge here (the others 0) and puts those from it, minus the
+  // next group's zero, into the second tile (w + BN * 128; the others 0);
+  // r0 is the offset of the block's first k inside its group.
   template <int NCOL>
-  __device__ void convert(const uint8_t* raw, uint8_t* w, int n_lo, int q) const {
+  __device__ void convert(const uint8_t* raw, uint8_t* w, int n_lo, int q, int r0) const {
     constexpr int CPT = NCOL * 4 / 128;
     const __nv_bfloat16* zr = reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + SR * kRow);
     const int row = n_lo + q % NCOL, k0 = q / NCOL * CPT;
@@ -311,14 +334,15 @@ struct W4A8Op {
       c16[i] = *reinterpret_cast<const uint4*>(raw + row * 64 + ((kk ^ ((row >> 1) & 3)) << 4));
     }
     bool rest = false;
+    auto zero_of = [&](int r) {  // row r's zero point in every byte, and its rest flagged
+      const __nv_bfloat16 zv = zr[r * BN + row];
+      const float zc = zero_clamped(zv);
+      rest |= zc != __bfloat162float(zv);
+      return (uint32_t)zc * 0x01010101u;
+    };
     uint32_t zb[SR < CPT ? SR : CPT];
 #pragma unroll
-    for (int i = 0; i < (SR < CPT ? SR : CPT); ++i) {
-      const __nv_bfloat16 zv = zr[((k0 + i) % SR) * BN + row];
-      const float zc = zero_clamped(zv);
-      rest |= zc - 8.f != __bfloat162float(zv);
-      zb[i] = (uint32_t)zc * 0x01010101u;
-    }
+    for (int i = 0; i < (SR < CPT ? SR : CPT); ++i) zb[i] = zero_of((k0 + i) % SR);
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int kk = k0 + i;
@@ -328,6 +352,26 @@ struct W4A8Op {
       w4_word_to_s8(c16[i].y, z8, o[2], o[3]);
       w4_word_to_s8(c16[i].z, z8, o[4], o[5]);
       w4_word_to_s8(c16[i].w, z8, o[6], o[7]);
+      if constexpr (kSplit) {
+        int rr = r0 + 32 * kk;
+        while (rr >= g) rr -= g;
+        const int cut = rr + 32 > g ? g - rr : 0;
+        if (cut) {
+          const uint32_t z8h = zero_of(kk + 1);
+          uint32_t oh[8];
+          w4_word_to_s8(c16[i].x, z8h, oh[0], oh[1]);
+          w4_word_to_s8(c16[i].y, z8h, oh[2], oh[3]);
+          w4_word_to_s8(c16[i].z, z8h, oh[4], oh[5]);
+          w4_word_to_s8(c16[i].w, z8h, oh[6], oh[7]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {  // codes 4e .. 4e + 3: the bytes before the edge
+            const uint32_t m = low_bytes(cut - 4 * e);
+            o[e] &= m, oh[e] &= ~m;
+          }
+          *reinterpret_cast<uint4*>(w + BN * 128 + swz(row, 2 * kk)) = make_uint4(oh[0], oh[1], oh[2], oh[3]);
+          *reinterpret_cast<uint4*>(w + BN * 128 + swz(row, 2 * kk + 1)) = make_uint4(oh[4], oh[5], oh[6], oh[7]);
+        }
+      }
       *reinterpret_cast<uint4*>(w + swz(row, 2 * kk)) = make_uint4(o[0], o[1], o[2], o[3]);
       *reinterpret_cast<uint4*>(w + swz(row, 2 * kk + 1)) = make_uint4(o[4], o[5], o[6], o[7]);
     }
@@ -341,21 +385,32 @@ struct W4A8Op {
   // g % 128 == 0: a fold every block
   __device__ bool group_start(int) const { return true; }
   __device__ bool group_end(int) const { return true; }
-  // otherwise after every 32-deep step that ends a group or a 128-deep span
-  __device__ bool step_starts(int j) const { return 32 * j % g == 0 || j % 4 == 0; }
-  __device__ bool step_ends(int j) const { return 32 * (j + 1) % g == 0 || (j + 1) % 4 == 0; }
+  // otherwise after every 32-deep step that ends a group (or a 128-deep
+  // span, for a group wider than kSpanFree)
+  // the offset of block kb's first k inside its group; whether the block's
+  // 32-deep step kk, whose first k lies at offset rr, starts or ends a
+  // group, or a 128-deep span where a group's i32 sum could pass 2^22 (g >
+  // kSpanFree) (g >= 32: at most one edge a step; w4_matmul.py's step_cut
+  // is g - rr where rr + 32 > g)
+  __device__ int block_offset(int kb) const { return kb * 128 % g; }
+  __device__ bool step_starts(int kk, int rr) const { return rr == 0 || (g > kSpanFree && kk == 0); }
+  __device__ bool step_ends(int kk, int rr) const { return rr + 32 == g || (g > kSpanFree && kk == 3); }
   // tot += f32(acc) * s of the group of step kk (32-deep step j of K),
   // column by column; at the end of a group whose converting warps flagged
   // a zero rest, (f32(acc) + gsum * r) * s, at a step inside K only (the
   // zero-filled steps of the last block would add the last group's rest
-  // again). Rows m0 and m0 + 8, warpgroup wn.
+  // again). Rows m0 and m0 + 8, warpgroup wn. piece 1: the codes before a
+  // split step's edge, whose group ends there; 2: those from it, whose
+  // group is the next step's (row kk + 1) and goes on.
   template <int NACC>
   __device__ void fold(const int32_t (&acc)[NACC], float (&tot)[NACC], const uint8_t* raw, int kk,
-                       int col, int j, int m0, int wn) const {
-    const __nv_bfloat16* sr = reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + (kk % SR) * kRow) + col;
+                       int col, int j, int m0, int wn, int piece) const {
+    const __nv_bfloat16* sr =
+        reinterpret_cast<const __nv_bfloat16*>(raw + kCodes + (kk % SR + (piece == 2)) * kRow) + col;
     const int4 f0 = reinterpret_cast<const int4*>(raw + kFlags)[0];
     const int4 f1 = reinterpret_cast<const int4*>(raw + kFlags)[1];
-    if ((f0.x | f0.y | f0.z | f0.w | f1.x | f1.y | f1.z | f1.w) && 32 * (j + 1) % g == 0 && 32 * j < K) {
+    if ((f0.x | f0.y | f0.z | f0.w | f1.x | f1.y | f1.z | f1.w) &&
+        (piece == 1 || (piece == 0 && 32 * (j + 1) % g == 0)) && 32 * j < K) {
       const __nv_bfloat16* zr = sr + SR * kRow / 2;
       const int gi = min(32 * j / g, G - 1);
       const float gs0 = m0 < M ? gsum[(size_t)m0 * G + gi] : 0.f;
@@ -411,14 +466,17 @@ constexpr int kDecodeStages = 8;
 
 // Shared memory of the decode kernel, byte offsets from a 1024-aligned
 // base: kDecodeStages stages of [x8 NT x 64 B | codes BN x 32 B | s rows
-// 2 x BN bf16 | z rows 2 x BN bf16], then the mbarriers and the split-K flag.
-template <int NT>
+// R x BN bf16 | z rows R x BN bf16], then the mbarriers and the split-K
+// flag. R: the groups at the starts of the block's two 32-deep steps, and
+// at its end where a group edge may fall inside a step (kSplit: 3).
+template <int NT, bool kSplit>
 struct DecodeSmem {
   static constexpr int BN = 64;
+  static constexpr int R = kSplit ? 3 : 2;
   static constexpr int kX = NT * 64;
   static constexpr int kCodes = BN * 32;
   static constexpr int kRow = BN * 2;
-  static constexpr int kBytes = kX + kCodes + 4 * kRow;  // what the TMA loads a stage
+  static constexpr int kBytes = kX + kCodes + 2 * R * kRow;  // what the TMA loads a stage
   static constexpr int kStage = (kBytes + 1023) / 1024 * 1024;
   static constexpr int kBars = kDecodeStages * kStage;  // u64 empty[stages], landed[stages]
   static constexpr int kFlag = kBars + 16 * kDecodeStages;
@@ -452,17 +510,23 @@ __device__ __forceinline__ void wgmma_rs_s8(int32_t (&d)[NT / 2], const uint32_t
 // warpgroup, then one producer warp, of which one thread loads. SPAN: the
 // 32-deep steps between folds, 4 where g % 128 == 0 (known at compile
 // time); 1 for the other groups, folding after a step by the general rule.
+// kSplit (SPAN 1, a group of 32 or more that is no multiple of 32): a step
+// that holds a group edge is issued twice, on A fragments that keep the
+// codes before the edge (with the first group's zero point) and from it
+// (with the next group's), the rest of each ANDed to 0; the first group
+// is folded between the two.
 // The kernel is bound by its instructions a byte of codes (the fold alone
 // is 3 a byte at 64 tokens), not by its loads or its products: it keeps
 // them few, and registers few enough for three CTAs an SM, so it sums
 // split K one split's partial at a time. (Two warpgroups sharing each x8
 // tile over 128 columns ran the head no faster.)
-template <int NT, int SPAN>
+template <int NT, int SPAN, bool kSplit>
 __global__ void __launch_bounds__(160, 3)
 w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__ CUtensorMap xmap,
                    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap smap,
                    const __grid_constant__ CUtensorMap zmap) {
-  using S = DecodeSmem<NT>;
+  static_assert(!kSplit || SPAN == 1, "a split step folds inside a block");
+  using S = DecodeSmem<NT, kSplit>;
   constexpr int kConsumers = 128, NACC = NT / 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -497,10 +561,10 @@ w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__
         tma_load_2d(dst, &xmap, kb * kDecodeKB, m_base, landed(st));
         tma_load_2d(dst + S::kX, &qmap, kb * (kDecodeKB / 2), n_base, landed(st));
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
+        for (int i = 0; i < S::R; ++i) {
           const int gi = min((kb * kDecodeKB + 32 * i) / d.g, d.G - 1);
           tma_load_2d(dst + S::kX + S::kCodes + i * S::kRow, &smap, n_base, gi, landed(st));
-          tma_load_2d(dst + S::kX + S::kCodes + (2 + i) * S::kRow, &zmap, n_base, gi, landed(st));
+          tma_load_2d(dst + S::kX + S::kCodes + (S::R + i) * S::kRow, &zmap, n_base, gi, landed(st));
         }
       }
     }
@@ -521,9 +585,11 @@ w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__
   // (2 bytes: 4 codes) of the 8-byte chunks 2 kk and 2 kk + 1 of a row:
   // the chunks lie in 16-byte chunk kk, swizzled by the TMA's 32-byte mode.
   // Both steps of a block lie in one group where SPAN is 4: one zero point
-  // a row then.
+  // a row then. kSplit: h holds the codes from a split step's edge (with
+  // the next group's zero point), a those before it.
   struct Frags {
     uint32_t a[2][4];
+    uint32_t h[kSplit ? 2 : 1][4];
   };
   const uint32_t half = (q4 & 1) ? 0x7632 : 0x5410;
   auto frags = [&](int t) {
@@ -531,32 +597,54 @@ w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__
     const int st = t % kDecodeStages;
     mbar_wait(landed(st), (t / kDecodeStages) & 1);
     const uint8_t* codes = sm + st * S::kStage + S::kX;
-    const __nv_bfloat16* zr = reinterpret_cast<const __nv_bfloat16*>(codes + S::kCodes + 2 * S::kRow);
+    const __nv_bfloat16* zr = reinterpret_cast<const __nv_bfloat16*>(codes + S::kCodes + S::R * S::kRow);
+    int cut[2] = {0, 0};  // the offset (1..31) of a group edge inside step kk, or 0
+    if constexpr (kSplit) {
+      int rr = (kb0 + t) * kDecodeKB % d.g;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        cut[kk] = rr + 32 > d.g ? d.g - rr : 0;
+        rr += 32;
+        if (rr >= d.g) rr -= d.g;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + 8 * i;
-      const uint32_t zb0 = zero_bytes(zr[r]);
-      const uint32_t zb1 = SPAN == 1 ? zero_bytes(zr[S::BN + r]) : zb0;
+      uint32_t zb[S::R];
+      zb[0] = zero_bytes(zr[r]);
+#pragma unroll
+      for (int m = 1; m < S::R; ++m) zb[m] = SPAN == 1 ? zero_bytes(zr[m * S::BN + r]) : zb[0];
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         const uint8_t* ck = codes + r * 32 + ((kk ^ ((r >> 2) & 1)) << 4) + 4 * (q4 >> 1);
         const uint32_t u = __byte_perm(*reinterpret_cast<const uint32_t*>(ck),
                                        *reinterpret_cast<const uint32_t*>(ck + 8), half);
-        w4_word_to_s8(u, kk ? zb1 : zb0, f.a[kk][i], f.a[kk][2 + i]);
+        w4_word_to_s8(u, zb[kk], f.a[kk][i], f.a[kk][2 + i]);
+        if constexpr (kSplit) {
+          if (cut[kk]) {  // this thread's codes: 4 q4 .. + 3 and 16 + 4 q4 .. + 3 of the step
+            w4_word_to_s8(u, zb[kk + 1], f.h[kk][i], f.h[kk][2 + i]);
+            const uint32_t m0 = low_bytes(cut[kk] - 4 * q4), m1 = low_bytes(cut[kk] - 16 - 4 * q4);
+            f.a[kk][i] &= m0, f.a[kk][2 + i] &= m1;
+            f.h[kk][i] &= ~m0, f.h[kk][2 + i] &= ~m1;
+          }
+        }
       }
     }
     return f;
   };
   // tot += f32(acc) * s of the group of step kk (32-deep step j), for the
   // thread's two columns; where the step ends the group inside K and a
-  // column's zero leaves a rest r, (f32(acc) + gsum * r) * s
-  auto fold = [&](int st, int kk, int j) {
-    const __nv_bfloat16* sr =
-        reinterpret_cast<const __nv_bfloat16*>(sm + st * S::kStage + S::kX + S::kCodes + kk * S::kRow);
-    const __nv_bfloat16* zr = sr + 2 * S::BN;
+  // column's zero leaves a rest r, (f32(acc) + gsum * r) * s. piece 1: the
+  // codes before a split step's edge, whose group ends there; 2: those from
+  // it, whose group is the next step's (row kk + 1) and goes on.
+  auto fold = [&](int st, int kk, int j, int piece) {
+    const __nv_bfloat16* sr = reinterpret_cast<const __nv_bfloat16*>(sm + st * S::kStage + S::kX + S::kCodes +
+                                                                     (kk + (piece == 2)) * S::kRow);
+    const __nv_bfloat16* zr = sr + S::R * S::BN;
     const float s0 = __bfloat162float(sr[r0]), s1 = __bfloat162float(sr[r0 + 8]);
     const float z0 = zero_rest(zr[r0]), z1 = zero_rest(zr[r0 + 8]);
-    if ((z0 != 0.f || z1 != 0.f) && 32 * (j + 1) % d.g == 0 && 32 * j < a.K) {
+    if ((z0 != 0.f || z1 != 0.f) && (piece == 1 || (piece == 0 && 32 * (j + 1) % d.g == 0)) && 32 * j < a.K) {
       const int gi = min(32 * j / d.g, d.G - 1);
 #pragma unroll
       for (int c = 0; c < NACC / 4; ++c)
@@ -584,17 +672,26 @@ w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__
   uint32_t sink = 0;
   for (int t = 0; t < n_kb; ++t) {
     const Frags f = frags(t);
-    sink ^= f.a[0][0] ^ f.a[0][1] ^ f.a[0][2] ^ f.a[0][3] ^ f.a[1][0] ^ f.a[1][1] ^ f.a[1][2] ^ f.a[1][3];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sink ^= f.a[kk][i];
+        if constexpr (kSplit) sink ^= f.h[kk][i];
+      }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(t % kDecodeStages));
   }
   if (sink == 0x12345678u) d.y[0] = __float2bfloat16(0.f);  // keeps the conversion
   return;
 #endif
-  // Every wgmma is issued whatever the branch; only the folds branch. Block
-  // t + 1 converts while block t's products run. SPAN 4: no fold inside a
-  // block, whose two steps are issued back to back and waited for once;
-  // SPAN 1: a wait, and where the rule says so a fold, after each step.
+  // Every wgmma is issued whatever the branch; only the folds branch, and
+  // a split step's second issue, whose condition (the step and the group)
+  // is the same in every thread. Block t + 1 converts while block t's
+  // products run. SPAN 4: no fold inside a block, whose two steps are
+  // issued back to back and waited for once; SPAN 1: a wait, and where the
+  // rule says so a fold, after each step (the step rules from the offset
+  // of the step inside its group, carried from step to step).
   Frags cur;
   if (n_kb > 0) cur = frags(0);
   for (int t = 0; t < n_kb; ++t) {
@@ -612,12 +709,14 @@ w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__
       keep(acc);
       keep(cur.a[0]);
       keep(cur.a[1]);
-      if (t == n_kb - 1 || (j + 1) % SPAN == 0) fold(st, 1, j);
+      if (t == n_kb - 1 || (j + 1) % SPAN == 0) fold(st, 1, j, 0);
     } else {
+      int rr = kb * kDecodeKB % d.g;  // the offset of step kk's first k inside its group
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         const int j = 2 * kb + kk;  // the 32-deep step
-        const bool restart = (t == 0 && kk == 0) || 32 * j % d.g == 0 || j % 4 == 0;
+        const bool span = d.g > kSpanFree;  // a fold every 128 k
+        const bool restart = (t == 0 && kk == 0) || rr == 0 || (span && j % 4 == 0);
         wgmma_fence();
         wgmma_rs_s8<NT>(acc, cur.a[kk], desc64(xb + kk * 32), !restart);
         wgmma_commit();
@@ -625,7 +724,22 @@ w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__
         wgmma_wait<0>();
         keep(acc);
         keep(cur.a[kk]);
-        if ((t == n_kb - 1 && kk == 1) || 32 * (j + 1) % d.g == 0 || (j + 1) % 4 == 0) fold(st, kk, j);
+        const int cut = kSplit && rr + 32 > d.g ? d.g - rr : 0;
+        const bool end = (t == n_kb - 1 && kk == 1) || rr + 32 == d.g || (span && (j + 1) % 4 == 0);
+        if (cut || end) fold(st, kk, j, cut ? 1 : 0);
+        if constexpr (kSplit) {
+          if (cut) {  // the codes from the edge: the next group's sum starts
+            wgmma_fence();
+            wgmma_rs_s8<NT>(acc, cur.h[kk], desc64(xb + kk * 32), 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            keep(acc);
+            keep(cur.h[kk]);
+            if (end) fold(st, kk, j, 2);
+          }
+        }
+        rr += 32;
+        if (rr >= d.g) rr -= d.g;
       }
     }
     __syncwarp();
@@ -646,10 +760,10 @@ w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__
     }
 }
 
-template <int NT, int SPAN>
+template <int NT, int SPAN, bool kSplit>
 cudaError_t launch_decode(const DecodeArgs& d, const GemmArgs& a, const void* q, const void* s,
                           const void* z, int ld_sz, int Kp, cudaStream_t st) {
-  using S = DecodeSmem<NT>;
+  using S = DecodeSmem<NT, kSplit>;
   CUtensorMap xmap, qmap, smap, zmap;
   cudaError_t err = tensor_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.x, {(cuuint64_t)a.K, (cuuint64_t)a.M},
                                   (cuuint64_t)a.ld_x, {(cuuint32_t)kDecodeKB, (cuuint32_t)NT},
@@ -665,20 +779,20 @@ cudaError_t launch_decode(const DecodeArgs& d, const GemmArgs& a, const void* q,
     err = tensor_map_2d(&zmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, z, {(cuuint64_t)ld_sz, (cuuint64_t)d.G},
                         (cuuint64_t)ld_sz * 2, {(cuuint32_t)S::BN, 1u}, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return err;
-  auto kernel = w4a8_decode_kernel<NT, SPAN>;
+  auto kernel = w4a8_decode_kernel<NT, SPAN, kSplit>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kDynamic);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.n_tiles * a.splits, (a.M + NT - 1) / NT), 160, S::kDynamic, st>>>(d, a, xmap, qmap, smap, zmap);
   return cudaGetLastError();
 }
 
-template <int SPAN>
+template <int SPAN, bool kSplit>
 cudaError_t launch_decode_nt(int rows, const DecodeArgs& d, const GemmArgs& a, const void* q, const void* s,
                              const void* z, int ld_sz, int Kp, cudaStream_t st) {
-  if (rows == 8) return launch_decode<8, SPAN>(d, a, q, s, z, ld_sz, Kp, st);
-  if (rows == 16) return launch_decode<16, SPAN>(d, a, q, s, z, ld_sz, Kp, st);
-  if (rows == 32) return launch_decode<32, SPAN>(d, a, q, s, z, ld_sz, Kp, st);
-  if (rows == 64) return launch_decode<64, SPAN>(d, a, q, s, z, ld_sz, Kp, st);
+  if (rows == 8) return launch_decode<8, SPAN, kSplit>(d, a, q, s, z, ld_sz, Kp, st);
+  if (rows == 16) return launch_decode<16, SPAN, kSplit>(d, a, q, s, z, ld_sz, Kp, st);
+  if (rows == 32) return launch_decode<32, SPAN, kSplit>(d, a, q, s, z, ld_sz, Kp, st);
+  if (rows == 64) return launch_decode<64, SPAN, kSplit>(d, a, q, s, z, ld_sz, Kp, st);
   return cudaErrorInvalidValue;
 }
 
@@ -692,16 +806,23 @@ cudaError_t launch_prefill(const uint8_t* q, const __nv_bfloat16* s, const __nv_
   if (g % 128 == 0)
     return run_gemm<W4A8Op<T::BN, 1>, 2, 2, 128, false>({q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K},
                                                         a, m_tiles, 1, st);
-  return run_gemm<W4A8Op<T::BN, 4>, 2, 2, 128, true>({q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K},
-                                                     a, m_tiles, 1, st);
+  // a group that cuts no step keeps SR 4 and one B tile, and at decode the
+  // kernel without split steps: the split instantiations ran such groups
+  // (64, 32) 1.05x to 1.33x slower on an H100 (tools/gemm_ab.py --groups)
+  if (g % 32 == 0)
+    return run_gemm<W4A8Op<T::BN, 4>, 2, 2, 128, true>({q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K},
+                                                       a, m_tiles, 1, st);
+  return run_gemm<W4A8Op<T::BN, 5, true>, 2, 2, 128, true>(
+      {q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K}, a, m_tiles, 1, st);
 }
 
 // ---------------------------------------------------------------- the mma.sync kernel
 //
-// The first W4A8 kernel, kept for the groups that cut a 32-deep k step: the JAX
+// The first W4A8 kernel, kept for the groups below 32, which a 32-deep
+// step holds more than one edge of: the JAX
 // package's group-factored form on mma.sync.m16n8k32 (s8 x s8 -> s32),
 //   y[m, n] = ax[m] * ( sum_g s[g,n] * (sum_{k in g} x8[m,k] * c[k,n])_i32
-//                     + sum_g gsum[m,g] * (-z[g,n] * s[g,n]) ),
+//                     + sum_g gsum[m,g] * (-(z[g,n] - 8) * s[g,n]) ),
 // each group's integer dot exact in an i32 accumulator (|x8 * c| <= 127 *
 // 8), folded into f32 with its scale at the group's end, the zero
 // correction summed apart and added before the ax scale. A 32-wide k step
@@ -845,9 +966,9 @@ w4a8_gemm_kernel(const int8_t* __restrict__ x8, const float* __restrict__ ax,
             for (int j = 0; j < 2; ++j) {
               const int n = n_base + nt * 8 + tig * 2 + j;
               float sv = 0.f, zs = 0.f;
-              if (n < N) {
+              if (n < N) {  // the zero of the signed codes, z - 8, in f32
                 sv = __bfloat162float(s[(size_t)grp * ld_sz + n]);
-                zs = -(__bfloat162float(z[(size_t)grp * ld_sz + n]) * sv);
+                zs = -((__bfloat162float(z[(size_t)grp * ld_sz + n]) - 8.f) * sv);
               }
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt)
@@ -972,7 +1093,7 @@ extern "C" int w4_quantize_rows(const void* x, int M, int K, int ld_x, int Kp, i
 // swap-AB decode kernel, 64 columns and `rows` tokens (8, 16, 32, 64) a
 // CTA, 64-deep blocks), K split `splits` ways; workspace: the split-K
 // counters (zero) and partials.
-// g % 32 == 0 and ld_sz % 8 == 0, or cudaErrorInvalidValue
+// g >= 32 and ld_sz % 8 == 0, or cudaErrorInvalidValue
 // (w4a8_matmul_mma takes the other groups). gsum f32 [M, K/g] is read only
 // for a group whose zero point leaves a rest (see above). Returns the
 // launch's cudaError_t.
@@ -980,7 +1101,7 @@ extern "C" int w4a8_matmul(const void* x8, const void* ax, const void* gsum, con
                            const void* z, void* y, int M, int N, int K, int Kp, int g, int ld_sz,
                            void* stream, void* workspace, int config, int splits, int rows) {
   if (M == 0 || N == 0) return 0;
-  if (g <= 0 || g % 32 || K % g || ld_sz % 8 || Kp % 32 || splits < 1) return cudaErrorInvalidValue;
+  if (g < 32 || K % g || ld_sz % 8 || Kp % 32 || splits < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const auto* qq = (const uint8_t*)q;
   const auto* ss = (const __nv_bfloat16*)s;
@@ -994,12 +1115,13 @@ extern "C" int w4a8_matmul(const void* x8, const void* ax, const void* gsum, con
   if (config != 3 || M > 64) return cudaErrorInvalidValue;
   const GemmArgs a{xp, Kp, M, K, (N + 63) / 64, (K + kDecodeKB - 1) / kDecodeKB, splits, ws};
   const DecodeArgs d{a8, gs, out, N, g, K / g};
-  if (g % 128 == 0) return launch_decode_nt<4>(rows, d, a, qq, ss, zz, ld_sz, Kp, st);
-  return launch_decode_nt<1>(rows, d, a, qq, ss, zz, ld_sz, Kp, st);
+  if (g % 128 == 0) return launch_decode_nt<4, false>(rows, d, a, qq, ss, zz, ld_sz, Kp, st);
+  if (g % 32 == 0) return launch_decode_nt<1, false>(rows, d, a, qq, ss, zz, ld_sz, Kp, st);  // see launch_prefill
+  return launch_decode_nt<1, true>(rows, d, a, qq, ss, zz, ld_sz, Kp, st);
 }
 
 // The mma.sync.m16n8k32 kernel (any group that divides K): what w4a8_matmul
-// computes, for the groups it does not take (g % 32 != 0), reading gsum.
+// computes, for the groups it does not take (g < 32), reading gsum.
 extern "C" int w4a8_matmul_mma(const void* x8, const void* ax, const void* gsum, const void* q,
                                const void* s, const void* z, void* y, int M, int N, int K, int Kp,
                                int g, int ld_sz, void* stream) {

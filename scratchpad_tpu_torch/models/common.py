@@ -30,7 +30,7 @@ class QuantLinear(nn.Module):
     ``make_w4a8_quant_matmul`` (W4A8): ``a8`` picks the route, per-token
     int8 activations (``quantize_rows_int8`` then ``w4a8_matmul``) or bf16
     activations (``w4a16_matmul``). Buffers ``q``, ``s``, ``z`` (z holds the
-    zero points minus 8; see ``ops/quant/w4_matmul.py``), stored ``N``
+    zero points in bf16; see ``ops/quant/w4_matmul.py``), stored ``N``
     columns wide, of which ``out_features`` are real. A shape or device
     that the kernels do not take is refused here, at load."""
 

@@ -13,9 +13,12 @@ which the JAX package leaves to XLA, is another (``w4_quantize_rows`` in
 (``csrc/sm90_gemm.cuh``) that ``w4a16_matmul``, W4A8's prefill and the
 delta kernel (``ops/ldmm.py``) run on: the output tile, the K split and the
 split-K workspace, which each wrapper allocates once per device and keeps.
-``w4a8_plan`` adds W4A8's decode kernel (swap-AB) and routes the groups
-that cut a 32-deep k step to the ``mma.sync`` kernel
-(``w4a8_matmul_mma``).
+``w4a8_plan`` adds W4A8's decode kernel (swap-AB). Both take every group
+of at least one tensor-core step (16 bf16 or 32 int8 deep), those that cut
+a step too (GPT-OSS's 120 and 100): the kernels issue such a step twice,
+each issue holding one group's codes, and fold between them. The smaller
+groups run the ``mma.sync`` kernels (``w4a16_matmul_mma``,
+``w4a8_matmul_mma``).
 
 The packed layout, one for every group size. A weight W[In, Out] of
 ``w4a16.QuantizedLinear`` (nibble planes) is stored as
@@ -27,11 +30,16 @@ The packed layout, one for every group size. A weight W[In, Out] of
                          (nibble ^ 8), so it sign-extends to an int8 that
                          the s8 tensor cores take as it is.
     s : bf16 [G, N]      scales, G = In / group_size
-    z : bf16 [G, N]      zero points minus 8, so w = (code - z) * s
+    z : bf16 [G, N]      zero points as ``QuantizedLinear.z`` holds them,
+                         so w = (nibble - z) * s = (code - (z - 8)) * s
 
 with N the stored (possibly padded) width. Each output column's codes are
 contiguous along In: that is the ``.col`` B operand of ``mma.sync``. The
-zero point is never stored as a nibble (GPTQ v1 zeros reach 16).
+zero point is never stored as a nibble (GPTQ v1 zeros reach 16), nor
+shifted: every reader takes z - 8 in f32 or folds the 8 into its own
+code-zero arithmetic, which is exact, as the JAX package's ``to_4bit``
+(z - 8 in f32) is. A bf16 z - 8 would round the zero a second time
+wherever |z| passes 256 (z -31,000: -30,976 in bf16, -30,968 after it).
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors, raising on anything the kernel does not take; it
@@ -167,20 +175,36 @@ def _fit_workspace(plan: GemmPlan) -> GemmPlan:
 
 def w4a16_plan(M: int, N: int, K: int, group_size: int, width: int) -> GemmPlan | None:
     """``w4a16_matmul``'s plan for ``x [M, K]`` times a packed weight of
-    stored ``width`` columns, ``N`` of them read; None where the group cuts
-    a 16-deep step (GPT-OSS's 120 and 100) or the stored width is not a
-    multiple of 8: the mma.sync kernel (``w4a16_matmul_mma``) takes those."""
-    if group_size % 16 or width % 8:
+    stored ``width`` columns, ``N`` of them read. Every group of 16 or more
+    (a group that cuts a 16-deep step, as GPT-OSS's 120 and 100 do, splits
+    that step in two, see ``step_cut``). None, the remainder that the
+    mma.sync kernel (``w4a16_matmul_mma``) takes: a group below 16 (a step
+    would hold more than one group edge), a K that is no multiple of 8 (x's
+    rows are no whole 16 bytes for the TMA), or a stored width that is no
+    multiple of 8."""
+    if group_size < 16 or K % 8 or width % 8:
         return None
     return gemm_plan(M, N, K)
 
 
+def step_cut(j: int, group_size: int, step: int) -> int:
+    """Where a group edge falls strictly inside ``step``-deep step ``j``
+    (16 over bf16 x, 32 over int8 x), as an offset in 1..step - 1 from the
+    step's first k, or 0 where none does. With groups of at least ``step``
+    a step holds at most one edge: the kernels issue such a step twice, the
+    first issue holding the codes before the edge (the others zero), the
+    second those from it, and fold the first group between the two."""
+    edge = (step * j // group_size + 1) * group_size
+    return edge - step * j if edge < step * (j + 1) else 0
+
+
 def w4a8_plan(M: int, N: int, K: int, group_size: int, width: int) -> GemmPlan | None:
     """``w4a8_matmul``'s plan for int8 rows ``x8 [M, K]`` times a packed
-    weight of stored ``width`` columns, ``N`` of them read; None where the
-    group cuts a 32-deep k step (GPT-OSS's 120 and 100) or the stored width
-    is not a multiple of 8: the mma.sync kernel (``w4a8_matmul_mma``) takes
-    those.
+    weight of stored ``width`` columns, ``N`` of them read. Every group of
+    32 or more (one that cuts a 32-deep step, as GPT-OSS's 120 and 100 do,
+    splits that step in two, see ``step_cut``). None, the remainder that the
+    mma.sync kernel (``w4a8_matmul_mma``) takes: a group below 32, or a
+    stored width that is no multiple of 8.
 
     Prefill (M > 64): the mainloop's 128 x 128 tile (config 0: two
     warpgroups along M share one s8 B tile, each converting half of it),
@@ -190,28 +214,36 @@ def w4a8_plan(M: int, N: int, K: int, group_size: int, width: int) -> GemmPlan |
     at most SPLIT_TOKENS (the small projections, whose time goes to each
     split's sum). K is split for at least one CTA an SM, and up to two
     (rounded down) where each split keeps 8 k blocks (512 k), as far as the
-    workspace holds."""
-    if group_size % 32 or width % 8:
+    workspace holds. A group that cuts a 32-deep step waits for its products
+    after every step, so its splits go up to three CTAs an SM, each keeping
+    4 k blocks (GPT-OSS's 2880 -> 5760: 4 splits, 360 CTAs, against 2 by
+    the other rule; ``tools/gemm_ab.py``'s sweep)."""
+    if group_size < 32 or width % 8:
         return None
     if M > 64:
         return gemm_plan(M, N, K, k_block=K_BLOCK_S8)
     rows = next(t for t in DECODE_TOKENS if t >= M)
     if rows == 64 and -(-N // DECODE_COLUMNS) * -(-K // DECODE_K_BLOCK) <= SPLIT_TOKENS:
         rows = 32
+    if group_size % 32:
+        return w4a8_decode_plan(M, N, K, rows, per_sm=3, min_blocks=4)
     return w4a8_decode_plan(M, N, K, rows)
 
 
-def w4a8_decode_plan(M: int, N: int, K: int, rows: int, splits: int | None = None) -> GemmPlan:
+def w4a8_decode_plan(M: int, N: int, K: int, rows: int, splits: int | None = None, per_sm: int = 2,
+                     min_blocks: int = 8) -> GemmPlan:
     """The decode kernel's plan at a token tile of ``rows`` (one of
-    ``DECODE_TOKENS``), K split by ``w4a8_plan``'s rule, or ``splits`` ways
-    (``tools/gemm_ab.py``'s sweep of the rule's neighbours): at most one
-    split a k block, and as many as the workspace holds."""
+    ``DECODE_TOKENS``), K split by ``w4a8_plan``'s rule (at least one CTA an
+    SM, up to ``per_sm`` where each split keeps ``min_blocks`` k blocks), or
+    ``splits`` ways (``tools/gemm_ab.py``'s sweep of the rule's
+    neighbours): at most one split a k block, and as many as the workspace
+    holds."""
     if M > 64 or rows not in DECODE_TOKENS:
         raise ValueError(f"no decode plan for M {M} in token tiles of {rows}")
     m_tiles, n_tiles, k_blocks = -(-M // rows), -(-N // DECODE_COLUMNS), -(-K // DECODE_K_BLOCK)
     tiles = m_tiles * n_tiles
     if splits is None:
-        splits = 1 if tiles >= SMS else max(-(-SMS // tiles), min(2 * SMS // tiles, k_blocks // 8))
+        splits = 1 if tiles >= SMS else max(-(-SMS // tiles), min(per_sm * SMS // tiles, k_blocks // min_blocks))
     plan = GemmPlan(DECODE_CONFIG, m_tiles, n_tiles, k_blocks, max(1, min(splits, k_blocks)),
                     k_block=DECODE_K_BLOCK, rows=rows)
     return _fit_workspace(plan)
@@ -237,16 +269,15 @@ def workspace(kernel: str, device) -> torch.Tensor:
 
 def pack_w4(ql: QuantizedLinear) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nibble planes (``q [..., In/2, N]``, ``s``/``z [..., G, N]``) -> the
-    packed layout ``(q [..., N, Kp/2], s [..., G, N], z - 8 [..., G, N])``,
-    on ``ql.q``'s device."""
+    packed layout ``(q [..., N, Kp/2], s [..., G, N], z [..., G, N])``, on
+    ``ql.q``'s device; s and z are the planes' own bf16 values."""
     planes = ql.q
     In = planes.shape[-2] * 2
     nib = torch.cat([planes & 0xF, planes >> 4], dim=-2)  # [..., In, N]
     codes = (nib ^ 8).transpose(-1, -2)  # [..., N, In]
     codes = F.pad(codes, (0, padded_in(In) - In))
     q = (codes[..., 0::2] | (codes[..., 1::2] << 4)).contiguous()
-    z = (ql.z.float() - 8.0).to(torch.bfloat16)  # integers: exact in bf16
-    return q, ql.s.to(torch.bfloat16).contiguous(), z.contiguous()
+    return q, ql.s.to(torch.bfloat16).contiguous(), ql.z.to(torch.bfloat16).contiguous()
 
 
 def unpack_w4(q: torch.Tensor, in_features: int) -> torch.Tensor:
@@ -306,24 +337,30 @@ def _group_dots(xf, q, s, group_size, out_features):
     return acc, sf
 
 
+def _zero_minus_8(z, out_features: int) -> torch.Tensor:
+    """z - 8 in f32, exact: the zero point of the signed codes (nibble -
+    8), as the JAX package's ``to_4bit`` holds it."""
+    return z[:, :out_features].float() - 8.0
+
+
 def w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size: int, out_features: int):
     """f32 ``[M, out_features]``: ``ax * (sum_g (x8_g @ c_g)_i32 * s_g +
-    gsum @ (-z * s))``, the math of ``w4a8_matmul_xla`` and the epilogue
-    order of ``_w4a8_kernel_q4``."""
+    gsum @ (-(z - 8) * s))``, the math of ``w4a8_matmul_xla`` and the
+    epilogue order of ``_w4a8_kernel_q4``."""
     In = s.shape[0] * group_size
     acc, sf = _group_dots(x8[:, :In].float(), q, s, group_size, out_features)
-    zf = z[:, :out_features].float()
+    zf = _zero_minus_8(z, out_features)
     acc = acc + gsum @ (-(zf * sf))
     return acc * ax
 
 
 def w4a16_matmul_plain(x, q, s, z, group_size: int, out_features: int):
-    """f32 ``[M, out_features]``: ``sum_g (x_g @ c_g) * s_g - xg_sum @ (z *
-    s)``, the group-factored f32 math of ``_w4_kernel_q4``."""
+    """f32 ``[M, out_features]``: ``sum_g (x_g @ c_g) * s_g - xg_sum @ ((z
+    - 8) * s)``, the group-factored f32 math of ``_w4_kernel_q4``."""
     M, In = x.shape
     xf = x.float()
     acc, sf = _group_dots(xf, q, s, group_size, out_features)
-    zf = z[:, :out_features].float()
+    zf = _zero_minus_8(z, out_features)
     xg_sum = xf.reshape(M, In // group_size, group_size).sum(2)
     return acc - xg_sum @ (zf * sf)
 
@@ -414,9 +451,9 @@ def w4a8_matmul(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> to
     """``[M, out_features]`` W4A8 product (bf16 from the kernel, f32 from
     the plain version) of ``quantize_rows_int8``'s output and a packed
     weight (see ``csrc/w4a8_matmul.cu``), launched on ``w4a8_plan``'s plan;
-    the groups that plan gives no plan run ``w4a8_matmul_mma``. The wgmma
-    kernels fold the zero point into the codes and read ``gsum`` only for
-    a group whose zero lies outside [0, 16] (or is no integer)."""
+    the groups that plan gives no plan (below 32) run ``w4a8_matmul_mma``.
+    The wgmma kernels fold the zero point into the codes and read ``gsum``
+    only for a group whose zero lies outside [0, 16] (or is no integer)."""
     native.check_same_device(x8, ax, gsum, q, s, z)
     if x8.device.type == "cpu":
         return w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size, out_features)
@@ -435,7 +472,7 @@ def _check_a8_plan(plan: GemmPlan, M: int, N: int, K: int, group_size: int) -> N
     of its M, the tiles covering the output, 1 to k_blocks splits, and
     their partials within the workspace."""
     decode = M <= 64
-    ok = group_size % 32 == 0 and plan.slots == 1 and plan.config == (DECODE_CONFIG if decode else 0)
+    ok = group_size >= 32 and plan.slots == 1 and plan.config == (DECODE_CONFIG if decode else 0)
     ok = ok and plan.k_block == (DECODE_K_BLOCK if decode else K_BLOCK_S8)
     ok = ok and (not decode or plan.rows in DECODE_TOKENS)
     if ok:
@@ -483,9 +520,8 @@ def w4a8_matmul_cut(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -
 
 def w4a8_matmul_mma(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
     """The mma.sync kernel (``w4a8_matmul_mma`` in ``csrc/w4a8_matmul.cu``,
-    any group dividing In, reading ``gsum``): the route of the groups that
-    cut a 32-deep k step, which ``w4a8_matmul`` sends here; its plain version
-    on the CPU."""
+    any group dividing In, reading ``gsum``): the route of the groups below
+    32, which ``w4a8_matmul`` sends here; its plain version on the CPU."""
     native.check_same_device(x8, ax, gsum, q, s, z)
     if x8.device.type == "cpu":
         return w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size, out_features)

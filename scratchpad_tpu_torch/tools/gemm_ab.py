@@ -2,7 +2,7 @@
 """Time the W4 and delta GEMMs and the row quantizer of two checkouts in
 turns, on one card.
 
-    python3 scratchpad_tpu_torch/tools/gemm_ab.py ROOT_A ROOT_B ROOT_B ROOT_A
+    python3 scratchpad_tpu_torch/tools/gemm_ab.py [--w4 | --groups] ROOT_A ROOT_B ROOT_B ROOT_A
 
 Each ROOT is the root of a checkout of the repository. Each runs in a
 process of its own, in the order given, so that two versions of the kernels
@@ -20,8 +20,10 @@ be told apart.
 Shapes: ``chip_smoke.py``'s ``phase_w4_timing`` and ``phase_delta_timing``.
 W4A8 and W4A16 (rows 4 to 7 of ``PERF.md``'s kernel table): Llama-3.2-1B's
 seven matrices at M 64 and (but the head) 8192, GPT-OSS's 2880 -> 5760 (g
-120) and 1800 -> 1000 (g 100) at M 64, W4A8 on int8 rows the quantizer made
-once beforehand. The row quantizer at In 2048 and 8192, M 64 and 8192 (g
+120) at M 64 and 8192 and 1800 -> 1000 (g 100) at M 64 (``W4_ROW7``, the
+groups that cut a tensor-core step), W4A8 on int8 rows the quantizer made
+once beforehand. Each checkout gets random zero points 0..15 in its own
+layout (``zero_offset``: an older ``pack_w4`` stored z - 8). The row quantizer at In 2048 and 8192, M 64 and 8192 (g
 128). The delta (row 8): the 1B's four projection shapes at bs 64 with one
 and with three delta slots of three adapter slots, and one 2048-token
 prefill chunk in one slot. ``per_forward`` sums calls x ms over one 1B
@@ -33,7 +35,13 @@ MiB) to leave L2 cold, as ``chip_smoke.py`` times them.
 Where the checkout has ``w4a8_matmul_with_plan``, ``plan_ms`` also holds W4A8's decode
 kernel at bs 64 under other plans than its own (``PLAN_SWEEP``: token
 tiles of 64 and 32, K splits from 1 to 32) at the 1B's and Llama-3.2-3B's
-matrices, so that the plan's rule can be checked against its neighbours.
+matrices, and at GPT-OSS's groups where the checkout's plan takes them, so
+that the plan's rule can be checked against its neighbours. ``--w4`` times
+the W4 GEMMs alone (no quantizer, no delta) and sweeps GPT-OSS's plans
+only. ``--groups`` times the W4 GEMMs alone at groups of 64 and 32
+(``W4_GROUP_SHAPES``, M 64 and 8192), which fold inside a k block but cut
+no tensor-core step, with no cut and no sweep: a checkout that runs them
+on the split-step instantiations against one that does not.
 """
 
 from __future__ import annotations
@@ -49,6 +57,11 @@ W4_MATRICES = [
     ("gate_up", 2048, 16384, 16), ("down", 8192, 2048, 16), ("lm_head", 2048, 128256, 1),
 ]
 W4_ROW7 = [("gpt-oss gate_up", 2880, 5760, 0), ("g100", 1800, 1000, 0)]
+W4_ROW7_PREFILL = [("gpt-oss gate_up", 2880, 5760, 0)]  # also at M 8192
+# groups of 64 and 32 at the 1B's matrices (chip_smoke.py's W4_SMALL_GROUPS,
+# and gate_up): (name, In, Out, group), each at M 64 and 8192
+W4_GROUP_SHAPES = [("wq", 2048, 2048, 64), ("wk", 2048, 512, 32), ("down", 8192, 2048, 32),
+                   ("gate_up", 2048, 16384, 32)]
 # (name, In, Out, calls per 1B forward with adapters)
 DELTA_PROJECTIONS = [
     ("wq|wo", 2048, 2048, 32), ("wk|wv", 2048, 512, 32), ("gate|up", 2048, 8192, 32), ("down", 8192, 2048, 16),
@@ -57,34 +70,53 @@ DELTA_RUNS = ((64, 1), (64, 3), (2048, 0))  # (tokens, delta slots; 0: one prefi
 QUANT_SHAPES = [(In, M) for In in (2048, 8192) for M in (64, 8192)]
 # W4A8's decode plans tried at bs 64: the 1B's matrices (but the head) and
 # Llama-3.2-3B's, each under token tiles of 64 and 32 and these K splits
-PLAN_SHAPES = [(n, In, Out) for n, In, Out, _ in W4_MATRICES[:6]] + [
-    ("3b wq", 3072, 3072), ("3b wk", 3072, 1024), ("3b gate_up", 3072, 16384), ("3b down", 8192, 3072),
+PLAN_SHAPES = [(n, In, Out, 128) for n, In, Out, _ in W4_MATRICES[:6]] + [
+    ("3b wq", 3072, 3072, 128), ("3b wk", 3072, 1024, 128), ("3b gate_up", 3072, 16384, 128),
+    ("3b down", 8192, 3072, 128),
 ]
+# GPT-OSS's groups, which cut a 32-deep step (name, In, Out, group)
+PLAN_SHAPES_ROW6 = [("gpt-oss gate_up", 2880, 5760, 120), ("g100", 1800, 1000, 100)]
 PLAN_SWEEP = (1, 2, 4, 8, 16, 32)
 # the 1B's quantizer calls a decode forward: 5 of its 6 per-layer inputs and
 # the head's are 2048 wide, the down projection's 8192
 QUANT_CALLS = {2048: 5 * 16 + 1, 8192: 16}
 
 
-def w4_shapes():
+def w4_shapes(groups: bool = False):
+    """(name, In, Out, calls per 1B forward, M, group) of the W4 times;
+    group None: ``quantize_stacked``'s."""
+    if groups:
+        return [(n, In, Out, 0, M, g) for n, In, Out, g in W4_GROUP_SHAPES for M in (64, 8192)]
     out = [(n, In, Out, c, M) for n, In, Out, c in W4_MATRICES for M in ((64,) if n == "lm_head" else (64, 8192))]
-    return out + [(n, In, Out, c, 64) for n, In, Out, c in W4_ROW7]
+    out += [(n, In, Out, c, 64) for n, In, Out, c in W4_ROW7]
+    out += [(n, In, Out, c, 8192) for n, In, Out, c in W4_ROW7_PREFILL]
+    return [(*shape, None) for shape in out]
 
 
-def time_root(root: str) -> dict:
+def zero_offset(wm, QuantizedLinear) -> int:
+    """8 where a checkout's ``pack_w4`` stores the zero point less 8, else
+    0: what a random zero point in 0..15 is stored as, less it."""
+    import torch
+
+    ql = QuantizedLinear(torch.zeros(16, 1, dtype=torch.uint8), torch.ones(1, 1, dtype=torch.bfloat16),
+                         torch.full((1, 1), 8.0, dtype=torch.bfloat16), 32)
+    return 8 - int(wm.pack_w4(ql)[2].float().item())
+
+
+def time_root(root: str, w4_only: bool = False, groups: bool = False) -> dict:
     sys.path.insert(0, root)
     import torch
 
     from scratchpad_tpu_torch.ops import ldmm
     from scratchpad_tpu_torch.ops.quant import w4_matmul as wm
-    from scratchpad_tpu_torch.ops.quant.w4a16 import stacked_group_size, stacked_out_width
+    from scratchpad_tpu_torch.ops.quant.w4a16 import QuantizedLinear, stacked_group_size, stacked_out_width
     from scratchpad_tpu_torch.tools import timing
     from scratchpad_tpu_torch.utils import native
 
     assert Path(native.__file__).resolve().is_relative_to(Path(root).resolve()), native.__file__
     timing.resolve_device("cuda")
-    has_cut = hasattr(wm, "w4a16_matmul_cut")
-    has_cut8 = hasattr(wm, "w4a8_matmul_cut")
+    has_cut = hasattr(wm, "w4a16_matmul_cut") and not groups
+    has_cut8 = hasattr(wm, "w4a8_matmul_cut") and not groups
     targets = ["w4a8_matmul", "w4a16_matmul", "delta_matmul"]
     if has_cut:
         targets += [(t, wm.GEMM_CUT) for t in ("w4a16_matmul", "delta_matmul")]
@@ -92,15 +124,16 @@ def time_root(root: str) -> dict:
         targets.append(("w4a8_matmul", wm.GEMM_CUT))
     native.build(targets)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    off = zero_offset(wm, QuantizedLinear)
     ms, cut_ms = {}, {}
-    for name, In, Out, _, M in w4_shapes():
-        g = stacked_group_size(In)
+    for name, In, Out, _, M, group in w4_shapes(groups):
+        g = group or stacked_group_size(In)
         N = stacked_out_width(Out)[0]
         copies = max(2, min(64, -(-128 * 2**20 // (N * wm.padded_in(In) // 2))))
         q = torch.randint(0, 256, (copies, N, wm.padded_in(In) // 2), generator=gen, device="cuda",
                           dtype=torch.uint8)
         s = (torch.rand(copies, In // g, N, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
-        z = (torch.randint(0, 16, (copies, In // g, N), generator=gen, device="cuda") - 8).to(torch.bfloat16)
+        z = (torch.randint(0, 16, (copies, In // g, N), generator=gen, device="cuda") - off).to(torch.bfloat16)
         x = torch.randn(M, In, generator=gen, device="cuda").to(torch.bfloat16)
         x8, ax, gsum = wm.quantize_rows_int8(x, g)
         iters = 50 if M <= 64 else 10
@@ -117,26 +150,34 @@ def time_root(root: str) -> dict:
         del q, s, z
         torch.cuda.empty_cache()
     plan_ms = {}
-    if hasattr(wm, "w4a8_matmul_with_plan"):
-        for name, In, Out in PLAN_SHAPES:
-            copies = max(2, min(64, -(-128 * 2**20 // (Out * In // 2))))
-            q = torch.randint(0, 256, (copies, Out, In // 2), generator=gen, device="cuda", dtype=torch.uint8)
-            s = (torch.rand(copies, In // 128, Out, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
-            z = (torch.randint(0, 16, (copies, In // 128, Out), generator=gen, device="cuda") - 8).to(torch.bfloat16)
-            x8, ax, gsum = wm.quantize_rows_int8(torch.randn(64, In, generator=gen, device="cuda").to(torch.bfloat16), 128)
-            own = wm.w4a8_plan(64, Out, In, 128, Out)
+    if hasattr(wm, "w4a8_matmul_with_plan") and not groups:
+        for name, In, Out, g in ([] if w4_only else PLAN_SHAPES) + PLAN_SHAPES_ROW6:
+            N = stacked_out_width(Out)[0]
+            own = wm.w4a8_plan(64, Out, In, g, N)
+            if own is None:  # the checkout leaves this group to its mma.sync kernel
+                continue
+            Kp = wm.padded_in(In)
+            copies = max(2, min(64, -(-128 * 2**20 // (N * Kp // 2))))
+            q = torch.randint(0, 256, (copies, N, Kp // 2), generator=gen, device="cuda", dtype=torch.uint8)
+            s = (torch.rand(copies, In // g, N, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
+            z = (torch.randint(0, 16, (copies, In // g, N), generator=gen, device="cuda") - off).to(torch.bfloat16)
+            x8, ax, gsum = wm.quantize_rows_int8(torch.randn(64, In, generator=gen, device="cuda").to(torch.bfloat16), g)
             for rows in (64, 32):
                 for splits in sorted({sp for sp in PLAN_SWEEP if sp <= own.k_blocks} | {own.splits}):
                     plan = wm.w4a8_decode_plan(64, Out, In, rows, splits)
                     if plan.splits != splits:  # the workspace holds fewer
                         continue
-                    key = f"w4a8 {name} {In}->{Out} M=64 rows={rows} splits={splits} ({plan.ctas} CTAs)"
+                    key = f"w4a8 {name} {In}->{Out} g={g} M=64 rows={rows} splits={splits} ({plan.ctas} CTAs)"
                     key += " (the plan)" if plan == own else ""
                     plan_ms[key] = timing.device_ms(
-                        lambda l: wm.w4a8_matmul_with_plan(x8, ax, gsum, q[l], s[l], z[l], 128, Out, plan), copies, 50
+                        lambda l: wm.w4a8_matmul_with_plan(x8, ax, gsum, q[l], s[l], z[l], g, Out, plan), copies, 50
                     )
             del q, s, z
             torch.cuda.empty_cache()
+    if w4_only or groups:
+        card = timing.card()
+        return {"root": root, "device": card["device"], "smi": card["smi"], "ms": ms, "cut_ms": cut_ms,
+                "per_forward": {}, "plan_ms": plan_ms}
     for In, M in QUANT_SHAPES:
         copies = max(2, min(64, -(-128 * 2**20 // (M * In * 2))))
         xs = torch.randn(copies, M, In, generator=gen, device="cuda").to(torch.bfloat16)
@@ -196,15 +237,18 @@ def time_root(root: str) -> dict:
 
 
 def main() -> None:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(time_root(sys.argv[2])), flush=True)
+    args = sys.argv[1:]
+    modes = [a for a in args if a in ("--w4", "--groups")]
+    args = [a for a in args if a not in modes]
+    if len(args) == 2 and args[0] == "--one":
+        print(json.dumps(time_root(args[1], "--w4" in modes, "--groups" in modes)), flush=True)
         return
-    if len(sys.argv) < 2:
+    if not args:
         sys.exit(__doc__)
     runs = []
-    for root in sys.argv[1:]:
-        res = subprocess.run([sys.executable, __file__, "--one", root], check=True, timeout=900,
-                             stdout=subprocess.PIPE, text=True)
+    for root in args:
+        res = subprocess.run([sys.executable, __file__, "--one", root] + modes, check=True,
+                             timeout=900, stdout=subprocess.PIPE, text=True)
         line = res.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))

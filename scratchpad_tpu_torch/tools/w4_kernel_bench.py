@@ -15,8 +15,10 @@ over its weight bytes (4-bit codes, bf16 scales and zeros) and their
 fraction of the H100's 3.35 TB/s, not of the TPU's 819 GB/s (``:35``), then
 the worst fraction. ``--blocks`` set the Pallas kernel's output tile, a TPU
 tiling knob the port's kernels do not have: it is refused. ``--shape
-NAME:In:Out`` replaces the matrices (the tests use small ones);
-``--device cpu`` runs the plain versions, untimed.
+NAME:In:Out`` replaces the matrices (the tests use small ones); ``--group``
+asks ``quantize_stacked`` for another group than 128 (it takes the largest
+that divides In / 2 and is no larger); ``--device cpu`` runs the plain
+versions, untimed.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ L = 4  # stacked layers, cycled so that the weights do not stay in the L2
 def bench_shape(name, In, Out, args, dev) -> dict:
     rng = np.random.default_rng(0)
     w = (rng.standard_normal((L, In, Out), dtype=np.float32) * 0.02)
-    ql = quantize_stacked(w)
+    ql = quantize_stacked(w, args.group)
     del w
     g = ql.group_size
     q, s, z = (t.to(dev) for t in pack_w4(ql))
@@ -73,6 +75,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--bs", type=int, default=32)
     ap.add_argument("--iters", type=int, default=16)
     ap.add_argument("--route", choices=("a16", "a8"), default="a16")
+    ap.add_argument("--group", type=int, default=128)
     ap.add_argument("--blocks", type=int, nargs="*", default=None)
     ap.add_argument("--shape", action="append", default=None, help="NAME:In:Out")
     timing.add_device_arg(ap)

@@ -4,14 +4,24 @@
   ``csrc/delta_matmul.cu`` (the mainloop of ``csrc/sm90_gemm.cuh``) against
   the JAX package's functions on the same numpy-seeded inputs, at the card's
   gate |emu - ref| <= 1e-4 + 2**-8 |ref|. W4A16: the zero point clamped to
-  [0, 16] and folded into the code (nibble - zc, exact), f32 sums over
-  64-deep blocks folded with the group's scale at each group end and at
-  each split's end, with the clamp's rest (the f32 sum of x over the fold's
-  span times zc - zero) added at the fold, the splits' partials added in
-  the plan's order, one bf16 rounding; held against ``w4a16_matmul_xla``
+  [0, 16] and folded into the code (nibble - zc, exact), f32 sums over the
+  kernel's 16-deep steps folded with the group's scale at each group end
+  and at each split's end, with the clamp's rest (the f32 sum of x over the
+  fold's span times zc - z) added at the fold, the splits' partials added
+  in the plan's order, one bf16 rounding; held against ``w4a16_matmul_xla``
   and ``_w4_kernel_q4`` in interpret mode, also on ``quantize_stacked``'s
   groups of one sign and a constant column (zero points far outside the
-  code range), where the parent's c - z in bf16 misses the gate. The delta:
+  code range), where an older kernel's c - z in bf16 misses the gate. At
+  groups that cut a 16-deep step (GPT-OSS's 120 and 100, and 17, the least
+  odd group of the split path): each step that holds a group edge issued
+  twice, the first group folded between the two, the steps past K that
+  fill the last block run; held against the port's plain version and the
+  JAX ``_w4_kernel`` (``w4a16_matmul_pallas``) in interpret mode on f32
+  rows that hold bf16 values, where its z·s stays f32 (on bf16 rows it
+  rounds z·s to bf16, ``pallas_w4.py:46,73``, a change of y of up to
+  2**-9 sum_g |xsum_g z_g s_g|, outside the card's gate), both at the card's
+  gate. The split step's two planted faults (the second issue dropped; the
+  fold and second issue a step late) miss it. The delta:
   f32 block sums added in order, split partials likewise, then
   ``bf16(f32(out) + acc * ds * scaling)`` on the slot's rows; held against
   ``out + delta_matmul_xla``. The same emulation with the weight rounded to
@@ -32,10 +42,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import chip_smoke
 from scratchpad_tpu.ops import ldmm as jax_ldmm
-from scratchpad_tpu.ops.quant.pallas_w4 import to_4bit, w4_matmul_4bit
+from scratchpad_tpu.ops.quant.pallas_w4 import to_4bit, w4_matmul_4bit, w4a16_matmul_pallas
 from scratchpad_tpu.ops.quant.w4a16 import quantize_stacked as jax_quantize_stacked
 from scratchpad_tpu.ops.quant.w4a16 import slice_layer, w4a16_matmul_xla
 from scratchpad_tpu_torch.ops.quant import w4_matmul as wm
@@ -59,41 +70,84 @@ def _bf16(a: np.ndarray) -> np.ndarray:
 # ------------------------------------------------------------------ W4A16
 
 
-def w4a16_emulate(x, q, s, z, group_size, out_features, plan, dequant_bf16=False, bf16_code=False):
+def w4a16_emulate(x, q, s, z, group_size, out_features, plan, dequant_bf16=False, bf16_code=False,
+                  fault=None):
     """bf16 ``[M, out_features]`` as the kernel sums it (see the module
-    docstring); ``dequant_bf16`` rounds ``(c - z) * s`` to bf16 first and
-    sums the plain products instead; ``bf16_code`` forms c - z as the
-    parent kernel did, one bf16 subtraction of 136 + z, with no rest."""
+    docstring), step by step over each split's 16-deep steps, those past In
+    that fill the last block included (x and the codes zero there, the
+    group the last one). A step that holds a group edge (``step_cut``, a
+    group that is no multiple of 16) is issued twice, on a slice of the
+    codes before the edge (the first group's zero) and one of those from it
+    (the next group's), each zero elsewhere, the first group folded between
+    the two; the accumulator restarts where the kernel's ``accumulate`` flag
+    says so, and a fold does not clear it. ``dequant_bf16`` rounds ``(nibble
+    - z) * s`` to bf16 first and sums the plain products instead;
+    ``bf16_code`` forms c - z as an older kernel did, one bf16 subtraction
+    of 136 + bf16(z - 8), with no rest. ``fault`` plants a fault of a split
+    step: ``"drop_second"`` never issues the second slice, ``"fold_late"``
+    takes the fold and the second issue one step late (the next step's
+    second slice, zero where that step holds no edge)."""
     M, In = x.shape
-    xf = x.float()
-    G = In // group_size
-    zf = z[:, :out_features].float()
-    nib = wm.unpack_w4(q, In)[:, :out_features].float() + 8.0  # the nibbles, 0..15
-    zc = torch.clamp(torch.round(zf + 8.0), 0.0, 16.0)  # the clamped zero point
-    rest = (zc - 8.0) - zf  # zero where the zero point is in range
-    if bf16_code:
-        sub = _bf16_t(136.0 + zf)
-        cz = _bf16_t(_bf16_t(128.0 + nib) - sub.repeat_interleave(group_size, 0))
-        rest = torch.zeros_like(rest)
-    else:
-        cz = nib - zc.repeat_interleave(group_size, 0)  # integers in [-16, 15]
-    sf = s[:, :out_features].float()
+    g, G, N = group_size, In // group_size, out_features
+    Kb = plan.k_blocks * K_BLOCK
+    xf = F.pad(x.float(), (0, Kb - In))
+    nib = F.pad(wm.unpack_w4(q, In)[:, :N].float() + 8.0, (0, 0, 0, Kb - In), value=8.0)  # [Kb, N], 0..15
+    zf = z[:, :N].float()
+    zc = torch.clamp(torch.round(zf), 0.0, 16.0)  # the clamped zero point
+    rest = zc - zf  # zero where the zero point is in range
+    sf = s[:, :N].float()
     if dequant_bf16:
-        cz = ((nib - 8.0 - zf.repeat_interleave(group_size, 0)) * sf.repeat_interleave(group_size, 0))
-        cz = cz.to(torch.bfloat16).float()
         sf, rest = torch.ones_like(sf), torch.zeros_like(rest)
+    if bf16_code:
+        sub = _bf16_t(136.0 + _bf16_t(zf - 8.0))
+        rest = torch.zeros_like(rest)
+
+    def codes(k0, gi):  # the 16 codes of the step at k0 less group gi's zero, as the B tile holds them
+        c = nib[k0:k0 + 16]
+        if dequant_bf16:
+            return ((c - zf[gi]) * s[gi, :N].float()).to(torch.bfloat16).float()
+        if bf16_code:
+            return _bf16_t(_bf16_t(128.0 + c) - sub[gi])
+        return c - zc[gi]
+
     y = None
     for split in range(plan.splits):
         b0, b1 = plan.k_range(split)
-        k, end = b0 * K_BLOCK, min(b1 * K_BLOCK, In)
-        part = torch.zeros(M, out_features)
-        while k < end:  # one fold: to the group's end or the split's
-            stop = min((k // group_size + 1) * group_size, end)
-            gi = min(k // group_size, G - 1)
-            xs = xf[:, k:stop].sum(1, keepdim=True)  # the rows' f32 sums over the span
-            part = part + (xf[:, k:stop] @ cz[k:stop] + xs * rest[gi]) * sf[gi]
-            k = stop
-        y = part if y is None else y + part
+        steps = range(b0 * K_BLOCK // 16, b1 * K_BLOCK // 16)
+        tot, acc, xs = torch.zeros(M, N), torch.zeros(M, N), torch.zeros(M, 1)
+
+        def fold(gi, j):
+            nonlocal tot, xs
+            r = rest[gi] if 16 * j < In else torch.zeros_like(rest[gi])
+            tot = tot + (acc + xs * r) * sf[gi]
+            xs = torch.zeros(M, 1)
+
+        for j in steps:
+            k0 = 16 * j
+            xj = xf[:, k0:k0 + 16]
+            glo, ghi = min(k0 // g, G - 1), min((k0 + 16) // g, G - 1)
+            cut = wm.step_cut(j, g, 16) if g % 16 else 0  # where the conversion splits the step
+            lo, hi = codes(k0, glo), torch.zeros(16, N)
+            if cut:
+                lo[cut:] = 0.0
+                hi = codes(k0, ghi)
+                hi[:cut] = 0.0
+            sched = cut  # where the mainloop folds and issues the second slice
+            if fault == "fold_late" and g % 16:
+                sched = wm.step_cut(j - 1, g, 16)
+            if j == steps[0] or k0 % g == 0:
+                acc = torch.zeros(M, N)
+            acc = acc + xj @ lo
+            xs = xs + xj[:, : sched or 16].sum(1, keepdim=True)
+            end = j == steps[-1] or (k0 + 16) % g == 0
+            if sched or end:
+                fold(glo, j)
+            if sched and fault != "drop_second":
+                acc = xj @ hi
+                xs = xs + xj[:, sched:].sum(1, keepdim=True)
+                if end:
+                    fold(ghi, j)
+        y = tot if y is None else y + tot
     return y.to(torch.bfloat16)
 
 
@@ -140,8 +194,7 @@ def _w4_rest_pair(In, Out, M, group, seed):
     """``_w4_pair`` with groups of one sign, a constant column and nearly
     constant ones, whose zero points ``quantize_stacked`` puts outside [0,
     15] (about -5e7 for the constant one, -500 to -2,000 for the nearly
-    constant ones, whose codes still vary; ``pack_w4``'s bf16 zero minus 8
-    is exact to 2,048)."""
+    constant ones, whose codes still vary)."""
     rng = np.random.default_rng(seed)
     w = (rng.normal(size=(1, In, Out)) / np.sqrt(In)).astype(np.float32)
     g = stacked_group_size(In, group)
@@ -184,6 +237,56 @@ def test_w4a16_zero_rests_meet_the_gate(In, Out, M, group):
     assert not emu[M // 2].any()
     parent = w4a16_emulate(xt, q, s, z, g, out_f, plan, bf16_code=True).float().numpy()
     assert _gate(parent, refs["w4a16_matmul_xla"]) > 1.0
+
+
+# (In, Out, M, group asked of quantize_stacked) of the groups that cut a
+# 16-deep step: g 120 (GPT-OSS's half-plane rule; one step in 15 split, K
+# 480 at decode, 240 at prefill with K on a step's edge), g 100 (three in
+# 25; K 200 inside a step, the last split step's second slice past K), and
+# g 17, the least odd group of the split path (K 272 = 16 x 17)
+W4_SPLIT_CASES = [(480, 256, 5, 128), (240, 192, 130, 128), (400, 128, 64, 128), (200, 256, 70, 128),
+                  (272, 128, 3, 17), (272, 128, 65, 17)]
+
+
+def _w4_split_pair(In, Out, M, group, seed):
+    jq, qsz, x = _w4_pair(In, Out, M, group, seed)
+    assert jq.group_size % 16 and jq.group_size >= 16
+    return jq, qsz, x
+
+
+@pytest.mark.parametrize("In,Out,M,group", W4_SPLIT_CASES)
+def test_w4a16_split_steps_meet_the_gate(In, Out, M, group):
+    """The split path's step schedule against the port's plain version and
+    the JAX ``_w4_kernel`` (f32 rows holding bf16 values), at the card's
+    gate; the plan splits K, and some split steps fold mid-block."""
+    jq, (q, s, z), x = _w4_split_pair(In, Out, M, group, seed=In + M)
+    g, out_f = jq.group_size, jq.out_features or Out
+    plan = wm.w4a16_plan(M, out_f, In, g, s.shape[1])
+    assert plan is not None and plan.splits > 1
+    cuts = [j for j in range(plan.k_blocks * K_BLOCK // 16) if wm.step_cut(j, g, 16)]
+    assert cuts and all(0 < wm.step_cut(j, g, 16) < 16 for j in cuts)
+    xt = torch.from_numpy(x)
+    emu = w4a16_emulate(xt, q, s, z, g, out_f, plan).float().numpy()
+    refs = {
+        "plain": wm.w4a16_matmul_plain(xt, q, s, z, g, out_f).numpy(),
+        "_w4_kernel": w4a16_matmul_pallas(jnp.asarray(x), jq, jnp.int32(0), out_block=128),
+    }
+    for name, ref in refs.items():
+        assert _gate(emu, ref) <= 1.0, name
+    assert not emu[M // 2].any()
+
+
+@pytest.mark.parametrize("fault", ["drop_second", "fold_late"])
+@pytest.mark.parametrize("In,Out,M,group", [W4_SPLIT_CASES[0], W4_SPLIT_CASES[3]])
+def test_w4a16_split_step_faults_exceed_the_gate(In, Out, M, group, fault):
+    """What the card checks would see of a faulty split step: the second
+    issue dropped, or the fold and the second issue a step late."""
+    jq, (q, s, z), x = _w4_split_pair(In, Out, M, group, seed=In + M)
+    g, out_f = jq.group_size, jq.out_features or Out
+    plan = wm.w4a16_plan(M, out_f, In, g, s.shape[1])
+    xt = torch.from_numpy(x)
+    emu = w4a16_emulate(xt, q, s, z, g, out_f, plan, fault=fault).float().numpy()
+    assert _gate(emu, wm.w4a16_matmul_plain(xt, q, s, z, g, out_f).numpy()) > 1.0
 
 
 @pytest.mark.parametrize("In,Out,M,group", W4_CASES[:2])
@@ -278,12 +381,16 @@ def _w4_shapes():
 
     mats = [(name, In, Out) for name, In, Out, _ in chip_smoke.llama_1b_matrices()]
     mats += [("gpt-oss gate_up", 2880, 5760), ("g100", 1800, 1000)]
+    mats += [(name, In, Out) for name, In, Out, _ in chip_smoke.W4_STACKED_FAR]
     ms = sorted(set(chip_smoke.W4_CHECK_M) | {64, 8192, 300})
-    return [
+    out = [
         (f"{name} M={M}", M, Out, In, stacked_group_size(In), stacked_out_width(Out)[0])
         for name, In, Out in mats
         for M in ms
     ]
+    return out + [(f"{n} g={g} M={M}", M, Out, In, g, stacked_out_width(Out)[0])
+                  for n, In, Out, g, m_list in chip_smoke.W4_MMA_GROUPS + chip_smoke.W4A16_MMA_GROUPS
+                  for M in m_list]
 
 
 def _delta_shapes():
@@ -318,9 +425,10 @@ def _kernel_workspace_bytes(plan) -> int:
 @pytest.mark.parametrize("label,M,N,K,group,width", _w4_shapes())
 def test_w4a16_plan_covers_every_tile_once(label, M, N, K, group, width):
     plan = wm.w4a16_plan(M, N, K, group, width)
-    if group % 16:  # GPT-OSS's groups: the mma.sync kernel, no plan
+    if group < 16 or K % 8:  # the mma.sync kernel's remainder (chip_smoke.W4A16_MMA_GROUPS)
         assert plan is None
         return
+    assert plan is not None  # GPT-OSS's groups too: split steps
     _assert_covers_once(plan, M, N, K)
     assert plan.workspace_bytes == _kernel_workspace_bytes(plan) <= wm.WORKSPACE_BYTES
     assert plan.splits == 1 or plan.slots * plan.m_tiles * plan.n_tiles <= wm.COUNTER_SLOTS
@@ -373,5 +481,12 @@ def test_gemm_ab_times_every_shape_chip_smoke_times():
     assert gemm_ab.QUANT_CALLS == calls
     assert gemm_ab.DELTA_PROJECTIONS == [tuple(p) for p in chip_smoke.llama_1b_projections()]
     timed = [(n, In, Out, M) for n, In, Out, _ in mats for M in ((64,) if n == "lm_head" else (64, 8192))]
-    timed += [("gpt-oss gate_up", 2880, 5760, 64), ("g100", 1800, 1000, 64)]
-    assert [(n, In, Out, M) for n, In, Out, _, M in gemm_ab.w4_shapes()] == timed
+    timed += [("gpt-oss gate_up", 2880, 5760, 64), ("g100", 1800, 1000, 64), ("gpt-oss gate_up", 2880, 5760, 8192)]
+    assert [(n, In, Out, M) for n, In, Out, _, M, _ in gemm_ab.w4_shapes()] == timed
+    assert {g for *_, g in gemm_ab.w4_shapes()} == {None}  # quantize_stacked's groups
+    assert timed == [(n, In, Out, M) for n, In, Out, _, M in chip_smoke.w4_timed_shapes()]
+    # --groups: chip_smoke.py's W4_SMALL_GROUPS, whose groups cut no step
+    mats = {n: (In, Out) for n, In, Out, _ in mats}
+    small = {(n, *mats[n], g) for n, g, _ in chip_smoke.W4_SMALL_GROUPS}
+    assert small <= set(gemm_ab.W4_GROUP_SHAPES)
+    assert all(g % 32 == 0 for *_, g in gemm_ab.W4_GROUP_SHAPES)

@@ -52,6 +52,7 @@ from scratchpad_tpu_torch.ops.attention import (
 from scratchpad_tpu_torch.ops.ldmm import delta_matmul_grouped, delta_matmul_grouped_plain
 from scratchpad_tpu_torch.ops.quant.w4_matmul import (
     pack_w4,
+    padded_in,
     quantize_activations_plain,
     quantize_rows_int8,
     w4a8_matmul,
@@ -529,11 +530,11 @@ LLAMA_1B_W4 = {
 
 def _random_w4(In, Out, gen, g=128, zeros=(0, 16)):
     """Random packed codes with bf16 scales in [0.005, 0.02) and integral
-    zero points in ``[zeros[0], zeros[1])`` (stored minus 8), as
-    chip_smoke.py's ``random_w4``."""
-    q = torch.randint(0, 256, (Out, In // 2), generator=gen, device="cuda", dtype=torch.uint8)
+    zero points in ``[zeros[0], zeros[1])``, as chip_smoke.py's
+    ``random_w4``."""
+    q = torch.randint(0, 256, (Out, padded_in(In) // 2), generator=gen, device="cuda", dtype=torch.uint8)
     s = (torch.rand(In // g, Out, generator=gen, device="cuda") * 0.015 + 0.005).to(torch.bfloat16)
-    z = (torch.randint(*zeros, (In // g, Out), generator=gen, device="cuda") - 8).to(torch.bfloat16)
+    z = torch.randint(*zeros, (In // g, Out), generator=gen, device="cuda").to(torch.bfloat16)
     return q, s, z
 
 
@@ -569,10 +570,12 @@ def test_w4a16_split_k_is_bit_exact(gen, name, M):
 # W4A8 at the edges of its plan (csrc/w4a8_matmul.cu): (In, Out, group).
 # The 1B's matrices (g 128), an Out no tile width divides (1000), groups of
 # 64 and 32 (folds inside a k block), a K that is no multiple of 128 (320,
-# g 32), and GPT-OSS's g 120, which takes the mma.sync kernel
+# g 32), GPT-OSS's g 120 and g 100 (split steps; K 1800 ends inside a
+# step), g 33 (the least group of the split path) and g 24, which takes the
+# mma.sync kernel
 W4A8_EDGE_SHAPES = [
     (2048, 2048, 128), (2048, 512, 128), (8192, 2048, 128), (2048, 1000, 64), (1024, 384, 32),
-    (320, 1000, 32), (2880, 5760, 120),
+    (320, 1000, 32), (2880, 5760, 120), (1800, 1000, 100), (264, 1000, 33), (2880, 1000, 24),
 ]
 
 
@@ -590,7 +593,8 @@ def test_w4a8_kernel_matches_plain_at_the_plan_edges(gen, In, Out, g, M):
 
 @pytest.mark.parametrize("In,Out,g,M", [
     (2048, 2048, 128, 64), (2048, 512, 128, 64), (8192, 2048, 128, 64), (2048, 512, 128, 5),
-    (2048, 512, 128, 129), (1024, 384, 32, 64), (320, 1000, 32, 200),
+    (2048, 512, 128, 129), (1024, 384, 32, 64), (320, 1000, 32, 200), (2880, 5760, 120, 64),
+    (1800, 1000, 100, 5), (1800, 1000, 100, 200),
 ])
 def test_w4a8_split_k_is_bit_exact(gen, In, Out, g, M):
     """Two calls of a plan that splits K give the same bits."""
@@ -607,10 +611,13 @@ def test_w4a8_split_k_is_bit_exact(gen, In, Out, g, M):
 
 # zero points outside the code range (-8..24, as chip_smoke.py's
 # W4_REST_ZEROS) at a K whose last k block has zero-filled steps: 320 at
-# prefill (g 32 and 64: 128-deep blocks), 352 at decode (352 % 64 == 32)
+# prefill (g 32 and 64: 128-deep blocks), 352 at decode (352 % 64 == 32);
+# and at groups that cut a step, whose rest is added at a split step's
+# first fold (1800, g 100, K inside a step; 2880, g 120)
 @pytest.mark.parametrize("In,Out,g,M", [
     (320, 1000, 32, 65), (320, 1000, 32, 200), (320, 1000, 64, 65), (320, 1000, 64, 200),
     (352, 1000, 32, 5), (352, 1000, 32, 63), (352, 1000, 32, 64), (352, 512, 32, 200),
+    (1800, 1000, 100, 5), (1800, 1000, 100, 64), (1800, 1000, 100, 200), (2880, 1000, 120, 300),
 ])
 def test_w4a8_and_w4a16_zero_rests_past_k(gen, In, Out, g, M):
     """W4A8 adds a group's rest once, at the group's last step inside K,
@@ -626,6 +633,52 @@ def test_w4a8_and_w4a16_zero_rests_past_k(gen, In, Out, g, M):
     y16 = w4a16_matmul(x, q, s, z, g, Out)
     _close(y16, w4a16_matmul_plain(x, q, s, z, g, Out))
     assert not y16[M // 2].any()
+
+
+# W4A16 at groups that cut a 16-deep step (split steps): GPT-OSS's g 120 and
+# g 100 (K 1800 ends inside a step), g 24 and g 17 (K 272: the least odd
+# group of the split path), at the decode and prefill tiles' edges
+W4A16_SPLIT_SHAPES = [(2880, 5760, 120), (1800, 1000, 100), (2880, 1000, 24), (272, 1000, 17)]
+
+
+@pytest.mark.parametrize("M", [1, 64, 65, 129, 300])
+@pytest.mark.parametrize("In,Out,g", W4A16_SPLIT_SHAPES)
+def test_w4a16_split_steps_match_plain(gen, In, Out, g, M):
+    """The split steps of the Hopper kernel against the plain version; where
+    the plan splits K, a second call gives the same bits."""
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import w4a16_plan
+
+    plan = w4a16_plan(M, Out, In, g, Out)
+    assert plan is not None
+    q, s, z = _random_w4(In, Out, gen, g)
+    x = _w4_rows(M, In, gen)
+    out = w4a16_matmul(x, q, s, z, g, Out)
+    _close(out, w4a16_matmul_plain(x, q, s, z, g, Out))
+    assert not out[M // 2].any()
+    if plan.splits > 1:
+        assert torch.equal(out, w4a16_matmul(x, q, s, z, g, Out))
+
+
+# what W4A16 leaves to its mma.sync kernel (chip_smoke.py's
+# W4A16_MMA_GROUPS): g 1 at In 262 (quantize_stacked's group there), a K
+# that is no multiple of 8 (262, g 131), a group below 16 (8); W4A8 runs
+# g 1 and 8 on its mma.sync kernel too, 131 on split steps
+@pytest.mark.parametrize("M", [1, 64, 300])
+@pytest.mark.parametrize("In,Out,g", [(262, 1000, 1), (262, 1000, 131), (2880, 1000, 8)])
+def test_w4_mma_remainder_matches_plain(gen, In, Out, g, M):
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import w4a8_plan, w4a16_plan
+
+    assert w4a16_plan(M, Out, In, g, Out) is None
+    assert (w4a8_plan(M, Out, In, g, Out) is None) == (g < 32)
+    q, s, z = _random_w4(In, Out, gen, g)
+    x = _w4_rows(M, In, gen)
+    y16 = w4a16_matmul(x, q, s, z, g, Out)
+    _close(y16, w4a16_matmul_plain(x, q, s, z, g, Out))
+    assert not y16[M // 2].any()
+    x8, ax, gsum = quantize_rows_int8(x, g)
+    y8 = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
+    _close(y8, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
+    assert not y8[M // 2].any()
 
 
 @pytest.mark.parametrize("rows,splits", [(64, 1), (64, 8), (32, 4), (16, 3), (8, 32)])
@@ -646,7 +699,7 @@ def test_w4a8_matmul_with_plan_matches_plain(gen, rows, splits):
 
 @pytest.mark.parametrize("route", ["a8", "a16"])
 @pytest.mark.parametrize("M", [1, 64, 200])
-@pytest.mark.parametrize("In,Out,group", [(2048, 512, 128), (512, 256, 32), (224, 1000, 128)])
+@pytest.mark.parametrize("In,Out,group", [(2048, 512, 128), (512, 256, 32), (224, 1000, 128), (2880, 640, 128)])
 def test_w4a8_zero_points_outside_the_code_range(gen, In, Out, group, M, route):
     """quantize_stacked gives a group of one sign a zero point outside [0,
     15] and a constant column one of about -5e7: the kernels fold the rest

@@ -2,7 +2,8 @@
 
 - Quantization: the port's numpy copy gives the JAX package's codes, bf16
   scales and zeros, group size and padding, bit for bit; ``pack_w4`` holds
-  the same codes as the JAX half planes and as ``to_4bit``'s 4-bit storage.
+  the same codes as the JAX half planes and as ``to_4bit``'s 4-bit storage,
+  and the JAX package's bf16 zeros (``to_4bit``'s f32 z - 8, plus 8).
 - Activations: ``quantize_activations_plain`` is the JAX formula
   (``pallas_w4.py:453-460``) bit for bit, zero rows and .5 ties included.
 - The plain GEMMs against the JAX references and the interpret-mode Pallas
@@ -91,13 +92,14 @@ def test_pack_w4_holds_the_jax_codes(shape):
     planes = np.asarray(jq.q)
     nibbles = np.concatenate([planes & 0xF, planes >> 4], axis=1)  # [L, In, N]
     np.testing.assert_array_equal(unpack_w4(q, In).numpy().astype(np.int32) + 8, nibbles)
-    np.testing.assert_array_equal(z.float().numpy(), _f32(jq.z) - 8.0)
+    np.testing.assert_array_equal(z.float().numpy(), _f32(jq.z))  # the bf16 zero, as the JAX package holds it
     np.testing.assert_array_equal(s.float().numpy(), _f32(jq.s))
     if jq.group_size % 32 == 0:
-        # byte (n, j) of the port = byte (j, n) of to_4bit's storage
+        # byte (n, j) of the port = byte (j, n) of to_4bit's storage, whose
+        # zero is z - 8 in f32
         q4 = to_4bit(jq)
         np.testing.assert_array_equal(q.transpose(1, 2).numpy()[:, : In // 2], np.asarray(q4.q4))
-        np.testing.assert_array_equal(z.float().numpy(), np.asarray(q4.z))
+        np.testing.assert_array_equal(z.float().numpy() - 8.0, np.asarray(q4.z))
 
 
 def test_activation_quantizer_matches_jax():
@@ -249,4 +251,4 @@ def assert_same_codes(lin, ql, l):
     assert lin.group_size == ql.group_size
     np.testing.assert_array_equal(unpack_w4(lin.q, lin.in_features).numpy() + 8, nibbles)
     np.testing.assert_array_equal(lin.s.float().numpy(), np.asarray(ql.s[l], np.float32))
-    np.testing.assert_array_equal(lin.z.float().numpy() + 8, np.asarray(ql.z[l], np.float32))
+    np.testing.assert_array_equal(lin.z.float().numpy(), np.asarray(ql.z[l], np.float32))

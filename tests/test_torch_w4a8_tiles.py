@@ -5,9 +5,15 @@
   |emu - ref| <= 1e-4 + 2**-8 |ref|: the zero point folded into the code
   (nibble - zc, an s8 with zc the zero clamped to [0, 16]), exact i32 dots a
   32-deep k step, folded into f32 as ``tot = fma(f32(D) [+ gsum * r], s,
-  tot)`` after every step that ends a group or a 128-deep span and at each
-  split's end (r = zc - zero, taken at a group's end), the splits' partials
-  added in the plan's order, times ax, one bf16 rounding. Held against
+  tot)`` after every step that ends a group and at each split's end, and
+  after every 128-deep span where g % 128 == 0 or g > 2,048 (a narrower
+  group's i32 sum stays below 2**22; r = zc - z, taken at a group's end),
+  the splits' partials
+  added in the plan's order, times ax, one bf16 rounding. A step that holds
+  a group edge (a group of 32 or more that is no multiple of 32: GPT-OSS's
+  120 and 100, and 33) is issued twice, the codes before the edge with the
+  first group's zero, then those from it with the next group's, the first
+  group folded (with its rest) between the two. Held against
   ``_w4a8_kernel_q4`` (interpret mode, on the same int8 rows: the JAX
   package's ``_w4_q4_call`` quantizes x under ``jit``, where x / ax becomes
   a product with a reciprocal and rounds some codes the other way) and
@@ -16,7 +22,17 @@
   run as the kernels run them), and weights with groups of one sign (zero
   points outside [0, 15]). Weights packed by hand with zero points outside
   the code range at K 320 (g 64) and 352 (decode, 352 % 64 == 32), against
-  the port's plain version.
+  the port's plain version. The split steps at g 120, 100 and 33, at
+  decode and prefill, against the plain version and the JAX
+  ``_w4a8_kernel`` (u8 half planes) in interpret mode on the same int8
+  rows, at the card's gate, and the split step's two planted faults (the
+  second issue dropped; the fold and second issue a step late) missing it.
+- ``pack_w4``'s zero point: weights whose ``quantize_stacked`` zeros
+  lie near -31,000, -300 and above 2,064 (nearly constant groups), under
+  rows of one value, where a group's zero term cancels against its
+  neighbour's: the port's plain versions against ``w4a16_matmul_xla``,
+  ``_w4_kernel_q4`` and ``_w4a8_kernel_q4`` in interpret mode at the card's
+  gate. An older layout, z - 8 rounded to bf16 again, misses it by far.
 - The codes and zero points every weight source of the port gives:
   ``quantize_stacked`` and the AWQ / GPTQ import keep c - z in [-16, 15]
   wherever a group spans 0, so a 128-deep span's i32 dot stays below 2**22
@@ -26,8 +42,8 @@
 - ``w4_matmul.w4a8_plan`` at every shape ``chip_smoke.py`` checks and
   times: each (output tile, k block) falls to exactly one CTA, Llama-3.2-1B's
   decode shapes launch at least one CTA an SM, the workspace is what the
-  kernels' indexing reaches, and groups that cut a 32-deep k step take the
-  mma.sync kernel (no plan).
+  kernels' indexing reaches; GPT-OSS's groups (120 and 100) take the
+  wgmma kernels too, groups below 32 the mma.sync kernel (no plan).
 """
 
 import dataclasses
@@ -42,9 +58,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 import chip_smoke
 from scratchpad_tpu.ops.quant import import_hf as jax_import_hf
-from scratchpad_tpu.ops.quant.pallas_w4 import _w4a8_kernel_q4, to_4bit
+from scratchpad_tpu.ops.quant.pallas_w4 import _w4a8_kernel, _w4a8_kernel_q4, to_4bit, w4_matmul_4bit
 from scratchpad_tpu.ops.quant.w4a16 import quantize_stacked as jax_quantize_stacked
-from scratchpad_tpu.ops.quant.w4a16 import slice_layer, w4a8_matmul_xla
+from scratchpad_tpu.ops.quant.w4a16 import slice_layer, w4a8_matmul_xla, w4a16_matmul_xla
 from scratchpad_tpu_torch.executor.weight_loader import quantized_layer_state
 from scratchpad_tpu_torch.ops.quant import import_hf
 from scratchpad_tpu_torch.ops.quant import w4_matmul as wm
@@ -52,6 +68,7 @@ from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked, stacked_group
 
 ATOL, RTOL = 1e-4, 2.0**-8  # chip_smoke.py's kernel-vs-plain gate
 I32_EXACT = 2**22  # |D| below this converts to f32 exactly (the 1.5 * 2**23 trick)
+SPAN_FREE = 2048  # the widest group whose i32 sum stays below I32_EXACT (kSpanFree)
 
 
 def _gate(got, ref) -> float:
@@ -69,50 +86,77 @@ def _fma32(a, b, c):
 
 
 def _zero_split(z: np.ndarray):
-    """(zc, r) of stored zeros z (zero point minus 8): the zero point
-    rounded and clamped to [0, 16], and r = (zc - 8) - z in f32."""
+    """(zc, r) of stored zeros z (the zero points, as ``QuantizedLinear.z``
+    holds them): the zero point rounded and clamped to [0, 16], and r = zc -
+    z in f32."""
     zf = z.astype(np.float32)
-    zc = np.clip(np.rint(zf + np.float32(8)), 0, 16).astype(np.float32)
-    return zc, ((zc - np.float32(8)) - zf).astype(np.float32)
+    zc = np.clip(np.rint(zf), 0, 16).astype(np.float32)
+    return zc, (zc - zf).astype(np.float32)
 
 
-def w4a8_emulate(x8, ax, gsum, q, s, z, group_size, out_features, plan):
+def w4a8_emulate(x8, ax, gsum, q, s, z, group_size, out_features, plan, fault=None):
     """bf16 ``[M, out_features]`` as the W4A8 kernels sum it (see the module
     docstring), on the plan's splits of ``plan.k_block``-deep blocks. It
     runs the kernels' own 32-deep steps, those past In that fill the last
     block included: there x and the codes are zeros and the group is the
     last one (the kernels' clamp), and a step that would end a group adds
-    no rest."""
+    no rest. A step that holds a group edge (``step_cut``) is issued twice,
+    on the codes before the edge (the others zero) and on those from it,
+    the first group folded between; the i32 sum restarts where the
+    kernels' ``accumulate`` flag says so, and a fold does not clear it.
+    ``fault`` plants a fault of a split step: ``"drop_second"`` never issues
+    the second slice, ``"fold_late"`` takes the fold and the second issue
+    one step late (the next step's second slice, zero where that step holds
+    no edge)."""
     M = x8.shape[0]
-    G = s.shape[0]
-    In = G * group_size
+    g, G = group_size, s.shape[0]
+    In = G * g
     Kb = plan.k_blocks * plan.k_block  # the k the blocks span, zeros past In
     nib = wm.unpack_w4(q, In)[:, :out_features].numpy().astype(np.int64) + 8  # [In, N]
+    nib = np.pad(nib, ((0, Kb - In), (0, 0)), constant_values=8)
     zc, rest = _zero_split(z[:, :out_features].float().numpy())
     sf = s[:, :out_features].float().numpy()
     xi = np.pad(x8[:, :In].numpy().astype(np.int64), ((0, 0), (0, Kb - In)))
     gs = gsum.numpy()
-    codes = nib - np.repeat(zc.astype(np.int64), group_size, axis=0)  # nibble - zc
-    assert codes.min() >= -16 and codes.max() <= 15
-    codes = np.pad(codes, ((0, Kb - In), (0, 0)))
     y = None
     for split in range(plan.splits):
         b0, b1 = plan.k_range(split)
         steps = range(b0 * plan.k_block // 32, b1 * plan.k_block // 32)
         tot = np.zeros((M, out_features), np.float32)
         d = np.zeros((M, out_features), np.int64)
+
+        def fold(gi, j, group_end):
+            nonlocal tot
+            assert np.abs(d).max() < I32_EXACT
+            inner = d.astype(np.float32)
+            if group_end and 32 * j < In:
+                inner = _fma32(gs[:, gi : gi + 1], rest[gi], inner)
+            tot = _fma32(inner, sf[gi], tot)
+
         for j in steps:
             sl = slice(32 * j, 32 * j + 32)
-            d += xi[:, sl] @ codes[sl]
-            group_end = 32 * (j + 1) % group_size == 0
-            if group_end or (j + 1) % 4 == 0 or j == steps[-1]:
-                assert np.abs(d).max() < I32_EXACT
-                gi = min(32 * j // group_size, G - 1)
-                inner = d.astype(np.float32)
-                if group_end and 32 * j < In:
-                    inner = _fma32(gs[:, gi : gi + 1], rest[gi], inner)
-                tot = _fma32(inner, sf[gi], tot)
-                d[:] = 0
+            glo, ghi = min(32 * j // g, G - 1), min((32 * j + 32) // g, G - 1)
+            cut = wm.step_cut(j, g, 32) if g % 32 else 0  # where the conversion splits the step
+            lo, hi = nib[sl] - zc[glo].astype(np.int64), np.zeros((32, out_features), np.int64)
+            assert lo.min() >= -16 and lo.max() <= 15
+            if cut:
+                lo[cut:] = 0
+                hi = nib[sl] - zc[ghi].astype(np.int64)
+                hi[:cut] = 0
+            sched = cut  # where the kernels fold and issue the second slice
+            if fault == "fold_late" and g % 32:
+                sched = wm.step_cut(j - 1, g, 32)
+            span = g % 128 == 0 or g > SPAN_FREE  # a fold every 128 k
+            if j == steps[0] or 32 * j % g == 0 or (span and j % 4 == 0):
+                d = np.zeros((M, out_features), np.int64)
+            d = d + xi[:, sl] @ lo
+            end = j == steps[-1] or 32 * (j + 1) % g == 0 or (span and (j + 1) % 4 == 0)
+            if sched or end:
+                fold(glo, j, bool(sched) or 32 * (j + 1) % g == 0)
+            if sched and fault != "drop_second":
+                d = xi[:, sl] @ hi
+                if end:
+                    fold(ghi, j, False)
         y = tot if y is None else (y + tot).astype(np.float32)
     return torch.from_numpy((y * ax.numpy()).astype(np.float32)).to(torch.bfloat16)
 
@@ -211,7 +255,7 @@ def test_w4a8_zero_rest_is_added_once_past_k(In, Out, M, group):
     G = In // group
     q = torch.from_numpy(rng.integers(0, 256, (Out, wm.padded_in(In) // 2), dtype=np.uint8))
     s = torch.from_numpy(rng.uniform(0.005, 0.02, (G, Out)).astype(np.float32)).to(torch.bfloat16)
-    z = torch.from_numpy(rng.integers(-8, 25, (G, Out)).astype(np.float32) - 8).to(torch.bfloat16)
+    z = torch.from_numpy(rng.integers(-8, 25, (G, Out)).astype(np.float32)).to(torch.bfloat16)
     x = _bf16(rng.normal(size=(M, In)))
     x[M // 2] = 0.0
     x8, ax, gsum = wm.quantize_activations_plain(torch.from_numpy(x).to(torch.bfloat16), group)
@@ -227,7 +271,7 @@ def test_w4a8_zero_rest_is_added_once_past_k(In, Out, M, group):
 
 def _codes_minus_zero(q, z, In, group):
     nib = wm.unpack_w4(q, In).numpy().astype(np.int64) + 8
-    zero = z.float().numpy().astype(np.float64) + 8
+    zero = z.float().numpy().astype(np.float64)
     return nib - np.repeat(zero, group, axis=0), zero
 
 
@@ -304,9 +348,12 @@ def _w4a8_shapes():
             for n, g, m_list in chip_smoke.W4_SMALL_GROUPS for M in m_list]
     out += [(f"{n} g={g} M={M}", M, Out, In, g, stacked_out_width(Out)[0])
             for n, In, Out, g, m_list in chip_smoke.W4_ZERO_RESTS for M in m_list]
-    for name, In, Out in (("gpt-oss gate_up", 2880, 5760), ("g100", 1800, 1000)):
-        out += [(f"{name} M={M}", M, Out, In, stacked_group_size(In), stacked_out_width(Out)[0])
-                for M in (1, 64, 300)]
+    for name, In, Out, ms in (("gpt-oss gate_up", 2880, 5760, (1, 64, 300, 8192)), ("g100", 1800, 1000, (1, 64, 300)),
+                              *chip_smoke.W4_STACKED_FAR):
+        out += [(f"{name} M={M}", M, Out, In, stacked_group_size(In), stacked_out_width(Out)[0]) for M in ms]
+    out += [(f"{n} g={g} M={M}", M, Out, In, g, stacked_out_width(Out)[0])
+            for n, In, Out, g, m_list in chip_smoke.W4_MMA_GROUPS + chip_smoke.W4A16_MMA_GROUPS
+            for M in m_list]
     return out
 
 
@@ -324,10 +371,10 @@ def _kernel_workspace_bytes(plan) -> int:
 @pytest.mark.parametrize("label,M,N,K,group,width", _w4a8_shapes())
 def test_w4a8_plan_covers_every_tile_once(label, M, N, K, group, width):
     plan = wm.w4a8_plan(M, N, K, group, width)
-    if group % 32:  # GPT-OSS's groups: the mma.sync kernel
+    if group < 32:  # the mma.sync kernel's remainder
         assert plan is None
         return
-    bm, bn = plan.tile
+    bm, bn = plan.tile  # GPT-OSS's groups too: split steps
     if M > 64:
         assert (plan.config, plan.k_block, bm, bn) == (0, 128, 128, 128)
     else:  # swap-AB: the tokens rounded up to the wgmma N, in two tiles of 32 for a small matrix
@@ -350,7 +397,7 @@ def _small_a8(M, In, Out, group, seed):
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.integers(0, 256, (Out, wm.padded_in(In) // 2), dtype=np.uint8))
     s = torch.from_numpy(rng.uniform(0.005, 0.02, (In // group, Out)).astype(np.float32)).to(torch.bfloat16)
-    z = torch.from_numpy(rng.integers(0, 16, (In // group, Out)).astype(np.float32) - 8).to(torch.bfloat16)
+    z = torch.from_numpy(rng.integers(0, 16, (In // group, Out)).astype(np.float32)).to(torch.bfloat16)
     x = torch.from_numpy(_bf16(rng.normal(size=(M, In)))).to(torch.bfloat16)
     return (*wm.quantize_activations_plain(x, group), q, s, z)
 
@@ -372,7 +419,8 @@ def test_w4a8_decode_plans_of_the_sweep_fit_the_kernel(rows, splits):
 
 def test_w4a8_matmul_with_plan_refuses_a_plan_that_does_not_fit():
     """A plan of another M, tile, width or depth, more splits than k
-    blocks, or a group that cuts a 32-deep step: refused before a launch."""
+    blocks, or a group below 32 (the mma.sync kernel's): refused before a
+    launch."""
     M, In, Out = 40, 512, 320
     args = _small_a8(M, In, Out, 32, seed=0)
     own = wm.w4a8_plan(M, Out, In, 32, Out)
@@ -387,8 +435,134 @@ def test_w4a8_matmul_with_plan_refuses_a_plan_that_does_not_fit():
     for plan in wrong:
         with pytest.raises(ValueError):
             wm.w4a8_matmul_with_plan(*args, 32, Out, plan)
-    x8, ax, gsum, q, s, z = _small_a8(M, 480, Out, 48, seed=1)
+    x8, ax, gsum, q, s, z = _small_a8(M, 480, Out, 24, seed=1)
     with pytest.raises(ValueError):
-        wm.w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, 48, Out, wm.w4a8_decode_plan(M, Out, 480, 64))
+        wm.w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, 24, Out, wm.w4a8_decode_plan(M, Out, 480, 64))
     with pytest.raises(ValueError):
         wm.w4a8_decode_plan(65, Out, In, 64)
+
+
+# ------------------------------------------------------------------ split steps
+
+
+def _w4a8_kernel_on(x8, ax, gsum, jq):
+    """``_w4a8_kernel`` (u8 half planes, any group that divides In / 2) in
+    interpret mode on the given int8 rows, with ``_w4a8_call``'s block specs
+    (one row block, 128-column blocks)."""
+    B, In = x8.shape[0], jq.in_features
+    Out, G = jq.q.shape[2], jq.s.shape[1]
+    in_specs = [
+        pl.BlockSpec((B, In), lambda r, o, l: (r, 0)),
+        pl.BlockSpec((B, 1), lambda r, o, l: (r, 0)),
+        pl.BlockSpec((B, G), lambda r, o, l: (r, 0)),
+        pl.BlockSpec((1, In // 2, 128), lambda r, o, l: (l[0], 0, o)),
+        pl.BlockSpec((1, G, 128), lambda r, o, l: (l[0], 0, o)),
+        pl.BlockSpec((1, G, 128), lambda r, o, l: (l[0], 0, o)),
+    ]
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1, grid=(1, Out // 128), in_specs=in_specs,
+        out_specs=pl.BlockSpec((B, 128), lambda r, o, l: (r, o)),
+    )
+    y = pl.pallas_call(
+        jax.tree_util.Partial(_w4a8_kernel, group_size=jq.group_size), grid_spec=grid_spec,
+        out_shape=jax.ShapeDtypeStruct((B, Out), jnp.float32), interpret=True,
+    )(jnp.zeros((1,), jnp.int32), jnp.asarray(x8[:, :In].numpy()), jnp.asarray(ax.numpy()),
+      jnp.asarray(gsum.numpy()), jq.q, jq.s, jq.z)
+    return y[:, : jq.out_true] if jq.out_true else y
+
+
+# (In, Out, M, group asked of quantize_stacked) of the groups that cut a
+# 32-deep step: g 120 (three steps in 15 split; decode at K 480, prefill
+# at K 240 with K inside a step), g 100 (seven in 25; K 200 inside a step:
+# the last split step's second slice lies past K), and g 33, the least
+# group of the split path (K 264 = 8 x 33); decode (token tiles of 8 and 32,
+# K split) and prefill (128 x 128 tiles, K split)
+W4A8_SPLIT_CASES = [(480, 256, 1, 128), (240, 192, 200, 128), (400, 128, 64, 128), (200, 256, 130, 128),
+                    (264, 128, 5, 33), (264, 128, 65, 33)]
+
+
+def _split_case(In, Out, M, group):
+    jq, (q, s, z), x = _pair(In, Out, M, group, seed=In + M)
+    g, out_f = jq.group_size, jq.out_features or Out
+    assert g % 32 and g >= 32
+    plan = wm.w4a8_plan(M, out_f, In, g, s.shape[1])
+    assert plan is not None and plan.splits > 1
+    x8, ax, gsum = wm.quantize_activations_plain(torch.from_numpy(x).to(torch.bfloat16), g)
+    return jq, (x8, ax, gsum, q, s, z), g, out_f, plan
+
+
+@pytest.mark.parametrize("In,Out,M,group", W4A8_SPLIT_CASES)
+def test_w4a8_split_steps_meet_the_gate(In, Out, M, group):
+    """The split path's step schedule against the port's plain version and
+    the JAX ``_w4a8_kernel`` on the same int8 rows, at the card's gate."""
+    jq, args, g, out_f, plan = _split_case(In, Out, M, group)
+    assert any(wm.step_cut(j, g, 32) for j in range(plan.k_blocks * plan.k_block // 32))
+    emu = w4a8_emulate(*args, g, out_f, plan).float().numpy()
+    refs = {"plain": wm.w4a8_matmul_plain(*args, g, out_f).numpy(), "_w4a8_kernel": _w4a8_kernel_on(*args[:3], jq)}
+    for name, ref in refs.items():
+        assert _gate(emu, ref) <= 1.0, name
+    assert not emu[M // 2].any()
+
+
+@pytest.mark.parametrize("fault", ["drop_second", "fold_late"])
+@pytest.mark.parametrize("In,Out,M,group", [W4A8_SPLIT_CASES[2], W4A8_SPLIT_CASES[3]])
+def test_w4a8_split_step_faults_exceed_the_gate(In, Out, M, group, fault):
+    """What the card checks would see of a faulty split step: the second
+    issue dropped, or the fold and the second issue a step late."""
+    _, args, g, out_f, plan = _split_case(In, Out, M, group)
+    emu = w4a8_emulate(*args, g, out_f, plan, fault=fault).float().numpy()
+    assert _gate(emu, wm.w4a8_matmul_plain(*args, g, out_f).numpy()) > 1.0
+
+
+# ------------------------------------------------------------------ pack_w4's zero point
+
+
+def _far_zero_weights(In, Out, group, seed):
+    """Weights [1, In, Out] whose first columns pair a nearly constant group
+    of c = 0.5 (zero point about -31,000 in col 0 and 2, -300 in col 1) with
+    one of -c (zero point about 2,070), the rest N(0, 1/In); and rows of x:
+    random, a zero row, and rows of one value, under which each pair's two
+    groups cancel."""
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=(1, In, Out)) / np.sqrt(In)).astype(np.float32)
+    g = stacked_group_size(In, group)
+    c = 0.5
+    for col, g0, zero_pos in ((0, 0, 31000.0), (1, 0, 300.0), (2, 2, 31000.0)):
+        up = c + rng.uniform(0, 1, g) * 15 * c / zero_pos
+        up[:2] = c, c + 15 * c / zero_pos  # the group's range, pinned
+        down = -c - rng.uniform(0, 1, g) * 15 * c / 2055.0
+        down[:2] = -c, -c - 15 * c / 2055.0
+        w[0, g0 * g:(g0 + 1) * g, col] = up
+        w[0, (g0 + 1) * g:(g0 + 2) * g, col] = down
+    x = _bf16(rng.normal(size=(9, In)))
+    x[4] = 0.0
+    x[6], x[7], x[8] = 1.0, -0.5, 3.0
+    return w, x
+
+
+@pytest.mark.parametrize("In,Out,group", [(512, 256, 128), (480, 256, 120)])
+def test_zero_points_far_outside_the_code_range_match_jax(In, Out, group):
+    """``pack_w4`` stores the zero point as the JAX package's bf16 z, and the
+    plain versions take z - 8 in f32 as its ``to_4bit`` does: W4A16 against
+    ``w4a16_matmul_xla`` and ``_w4_kernel_q4`` (on f32 rows holding bf16
+    values, where both stay in f32), W4A8 against ``_w4a8_kernel_q4`` on the
+    port's int8 rows, at the card's gate."""
+    w, x = _far_zero_weights(In, Out, group, seed=In)
+    jq = jax_quantize_stacked(w, group)
+    zero = np.asarray(jq.z, np.float32)[0]
+    assert zero[0, 0] < -30000 and -320 < zero[0, 1] < -280 and zero[1, 0] >= 2064 and zero[2, 2] < -30000
+    q, s, z = (t[0] for t in wm.pack_w4(quantize_stacked(w, group)))
+    np.testing.assert_array_equal(z.float().numpy(), zero)  # the JAX bf16 zero, unshifted
+    g, out_f = jq.group_size, jq.out_features or Out
+    xt = torch.from_numpy(x)
+    y16 = wm.w4a16_matmul_plain(xt, q, s, z, g, out_f).numpy()
+    refs = {
+        "w4a16_matmul_xla": w4a16_matmul_xla(jnp.asarray(x), slice_layer(jq, 0)),
+        "_w4_kernel_q4": w4_matmul_4bit(jnp.asarray(x), to_4bit(jq), jnp.int32(0), a8=False, out_block=128),
+    }
+    for name, ref in refs.items():
+        assert _gate(y16, ref) <= 1.0, name
+    x8, ax, gsum = wm.quantize_activations_plain(xt.to(torch.bfloat16), g)
+    y8 = wm.w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, out_f).numpy()
+    assert _gate(y8, _w4a8_kernel_q4_on(x8, ax, gsum, jq)) <= 1.0
+    assert not y16[4].any() and not y8[4].any()
