@@ -15,14 +15,14 @@ Phases, in order; any failure exits non-zero before the last line:
    STAGE=1, 2, 3, 5``, variant libraries of the same source). ``[sass]``
    lines count the tensor-core (``HGMMA``, ``IGMMA``, ``HMMA``, ``IMMA``)
    and asynchronous-copy (``LDGSTS``, ``UTMALDG``, ``UBLKCP``)
-   instructions of the decode, extend, W4A8, W4A16 and delta libraries
-   (``SASS_LIBRARIES``) from ``cuobjdump --dump-sass``, and of the W4
-   kernels' split-step instantiations (``SPLIT_FUNCTIONS``: the groups
-   that cut a step, each must hold wgmma); a library without a
-   tensor-core instruction fails, and so does a decode library without
-   ``HMMA`` or ``HGMMA``, a W4A16 or delta library without ``HGMMA``, a W4A8
-   library without the integer ``IGMMA``, or any of these four without an
-   asynchronous copy.
+   instructions of the decode, extend, W4A8, W4A16, delta and probe
+   libraries (``SASS_LIBRARIES``) from ``cuobjdump --dump-sass``, and of
+   the W4 kernels' split-step instantiations (``SPLIT_FUNCTIONS``: the
+   groups that cut a step, each must hold wgmma); a library without a
+   tensor-core instruction fails, and so does a decode or probe library
+   without ``HMMA`` or ``HGMMA``, a W4A16 or delta library without
+   ``HGMMA``, a W4A8 library without the integer ``IGMMA``, or any of these
+   five without an asynchronous copy.
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs (the plain version computes and returns f32). Attention, on
    bf16 pages and on int8 and fp8 (e4m3) pages with per-(token, head) bf16
@@ -69,10 +69,12 @@ Phases, in order; any failure exits non-zero before the last line:
    probe (``decode_ablate``, the port of ``_ablate.py::make_kernel``) in all
    five modes at the JAX probe's shape (B 64, Hkv 8, page 16, 16-page
    chunks) at ctx 192 and 1000 (chunk and page edges inside the rows), with
-   rows of 0 and 1 tokens, at G 3 and 4 and Dp 64 and 128: its ``out``
-   within one bf16 ulp of the plain version's, its ``aux`` with ``m``
-   exact and ``l`` and the checksum within ATOL + 2**-12 * |plain|
-   (``aux_tolerance``: aux is f32, never rounded to bf16). The decode
+   rows of 0 and 1 tokens, at G 1, 2, 3, 4 and 8 and Dp 64 and 128, and at
+   ctx 4096 (16 chunks: the cross-chunk rescale; ``ABLATE_CHECKS``): its
+   ``out`` within one bf16 ulp of the plain version's, its ``aux`` with
+   ``m`` exact and ``l`` and the checksum within ATOL + 2**-12 * |plain|
+   (``aux_tolerance``: aux is f32, never rounded to bf16), one launch a
+   call, and a second call bit-equal (the row counters left at 0). The decode
    kernel's stage cuts (1, 2, 3 and 5) against their plain functions
    (``gqa_decode.py::paged_decode_attention_stage_plain``) at each shape
    the stage table times (Llama-3.2-1B's, 3B's and Mistral-7B's decode at
@@ -368,13 +370,14 @@ def sass_counts(sass: str, opcodes) -> dict:
 
 
 # the libraries whose SASS phase 2 counts: the decode and extend kernels,
-# and the three GEMMs on csrc/sm90_gemm.cuh, which must hold wgmma (the
-# integer IGMMA for W4A8, HGMMA for the others) and asynchronous copies; the
-# decode kernel a tensor-core instruction (HMMA: mma.sync) and an
-# asynchronous copy (LDGSTS: cp.async, UTMALDG: a TMA load, UBLKCP: a bulk
-# copy)
+# the three GEMMs on csrc/sm90_gemm.cuh, which must hold wgmma (the
+# integer IGMMA for W4A8, HGMMA for the others) and asynchronous copies,
+# and the ablation probe; the decode kernel and the probe a tensor-core
+# instruction (HMMA: mma.sync) and an asynchronous copy (LDGSTS: cp.async,
+# UTMALDG: a TMA load, UBLKCP: a bulk copy)
 SASS_LIBRARIES = ("paged_decode_attention", "paged_extend_attention", "w4a8_matmul", "w4a16_matmul",
-                  "delta_matmul")
+                  "delta_matmul", "decode_ablate")
+HMMA_LIBRARIES = ("paged_decode_attention", "decode_ablate")
 # the W4 kernels' instantiations for groups that cut a tensor-core step
 # (split steps), by a piece of their mangled names, and the wgmma each must
 # hold: W4A16's mainloop op W4Op<BN, 5, true>, W4A8's W4A8Op<128, 5, true>
@@ -436,7 +439,7 @@ def phase_build():
         if sass.returncode != 0 or count["HGMMA"] + count["IGMMA"] + count["HMMA"] + count["IMMA"] == 0:
             fail(f"the {name} library has no tensor-core instruction (cuobjdump rc {sass.returncode})")
         copies = sum(count[op] for op in ASYNC_COPIES)
-        if name == "paged_decode_attention":
+        if name in HMMA_LIBRARIES:
             if count["HMMA"] + count["HGMMA"] == 0 or copies == 0:
                 fail(f"the {name} library has no HMMA or HGMMA or no asynchronous copy: {count}")
             continue
@@ -1143,54 +1146,61 @@ def bf16_ulp_err(out, ref) -> tuple[float, float]:
     return float(d.max()), float((d / ulp).max())
 
 
+# check_decode_ablate's cases (ctx, G, Dp) at B 64, Hkv 8, page 16, 16-page
+# chunks: the JAX probe's ctx 192 and 1000 (4 chunks) at every G the kernel
+# is built for, and 4096 (16 chunks)
+ABLATE_CHECKS = [(ctx, G, Dp) for ctx in (192, 1000) for G in (3, 4) for Dp in (64, 128)] + [
+    (ctx, G, Dp) for ctx in (192, 1000) for G in (1, 2, 8) for Dp in (64, 128)
+] + [(4096, 4, 128), (4096, 1, 64), (4096, 8, 128)]
+
+
 def check_decode_ablate(errs: dict) -> None:
     """Row 10, the decode ablation probe, against its plain version in all
-    five modes: B 64, Hkv 8, page 16, 16-page chunks, at the JAX probe's ctx
-    192 and at ctx 1000 (4 chunks, edges inside the rows), rows of up to
-    ctx tokens with one of 0 and one of 1; G 3 and 4, Dp 64 and 128, over a
-    random pool and page table. ``out`` within one bf16 ulp, ``aux`` within
-    ``aux_tolerance`` (m exact); one launch a call."""
+    five modes at each of ``ABLATE_CHECKS``, rows of up to ctx tokens with
+    one of 0 and one of 1, over a random pool and page table. ``out``
+    within one bf16 ulp, ``aux`` within ``aux_tolerance`` (m exact); one
+    launch a call, and a second call bit-equal: the last CTA of a row
+    writes its ``out`` and resets the row's counter."""
     import torch
 
     from scratchpad_tpu_torch.ops.attention import decode_ablate, decode_ablate_plain
     from scratchpad_tpu_torch.ops.attention.decode_ablate import MODES, aux_tolerance
 
     B, Hkv, ps, CP = 64, 8, 16, 16
-    seed = 14_000
-    for ctx in (192, 1000):
-        for G in (3, 4):
-            for Dp in (64, 128):
-                seed += 1
-                gen = seeded(seed)
-                P = -(-ctx // (CP * ps)) * CP
-                pages = B * P + 1
-                kv = torch.randn(pages, ps, 2 * Hkv, Dp, generator=gen, device="cuda").to(torch.bfloat16)
-                pt = torch.randint(0, pages, (B, P), generator=gen, device="cuda", dtype=torch.int32)
-                q = torch.randn(B, Hkv * G, Dp, generator=gen, device="cuda").to(torch.bfloat16)
-                lens = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
-                lens[0], lens[1], lens[2] = ctx, 0, 1
-                lens = lens.to(torch.int32)
-                for mode in MODES:
-                    before = decode_ablate.launches
-                    out, aux = decode_ablate(q, kv, pt, lens, mode)
-                    counted = decode_ablate.launches - before
-                    ref_out, ref_aux = decode_ablate_plain(q, kv, pt, lens, mode)
-                    torch.cuda.synchronize()
-                    e, ulps = bf16_ulp_err(out, ref_out)
-                    tol = aux_tolerance(ref_aux, mode, ATOL)
-                    d = (aux - ref_aux).abs()
-                    m_exact = bool((d[..., 0] == 0).all())
-                    aux_ratio = float((d[..., 1:] / tol[..., 1:]).max())
-                    errs["decode_ablate"] = max(errs["decode_ablate"], e)
-                    log(
-                        f"[check] decode_ablate {mode} ctx={ctx} G={G} Dp={Dp}: out max_abs_err "
-                        f"{e:.3e} ({ulps:.2f} bf16 ulp), aux m exact: {m_exact}, aux l/checksum "
-                        f"max err/tol {aux_ratio:.3f}, launches counted: {counted}"
-                    )
-                    check(ulps <= 1 and m_exact and aux_ratio <= 1 and counted == 1,
-                          f"decode_ablate {mode} disagrees with its plain version at ctx={ctx} "
-                          f"G={G} Dp={Dp}")
-                del kv
+    for i, (ctx, G, Dp) in enumerate(ABLATE_CHECKS):
+        gen = seeded(14_001 + i)
+        P = -(-ctx // (CP * ps)) * CP
+        pages = B * P + 1
+        kv = torch.randn(pages, ps, 2 * Hkv, Dp, generator=gen, device="cuda").to(torch.bfloat16)
+        pt = torch.randint(0, pages, (B, P), generator=gen, device="cuda", dtype=torch.int32)
+        q = torch.randn(B, Hkv * G, Dp, generator=gen, device="cuda").to(torch.bfloat16)
+        lens = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
+        lens[0], lens[1], lens[2] = ctx, 0, 1
+        lens = lens.to(torch.int32)
+        for mode in MODES:
+            before = decode_ablate.launches
+            out, aux = decode_ablate(q, kv, pt, lens, mode)
+            counted = decode_ablate.launches - before
+            again, again_aux = decode_ablate(q, kv, pt, lens, mode)
+            ref_out, ref_aux = decode_ablate_plain(q, kv, pt, lens, mode)
+            torch.cuda.synchronize()
+            e, ulps = bf16_ulp_err(out, ref_out)
+            tol = aux_tolerance(ref_aux, mode, ATOL)
+            d = (aux - ref_aux).abs()
+            m_exact = bool((d[..., 0] == 0).all())
+            aux_ratio = float((d[..., 1:] / tol[..., 1:]).max())
+            same = bool(torch.equal(again, out) and torch.equal(again_aux, aux))
+            errs["decode_ablate"] = max(errs["decode_ablate"], e)
+            log(
+                f"[check] decode_ablate {mode} ctx={ctx} G={G} Dp={Dp}: out max_abs_err "
+                f"{e:.3e} ({ulps:.2f} bf16 ulp), aux m exact: {m_exact}, aux l/checksum "
+                f"max err/tol {aux_ratio:.3f}, launches counted: {counted}, second call "
+                f"bit-equal: {same}"
+            )
+            check(ulps <= 1 and m_exact and aux_ratio <= 1 and counted == 1 and same,
+                  f"decode_ablate {mode} disagrees with its plain version at ctx={ctx} "
+                  f"G={G} Dp={Dp}")
+        del kv
     torch.cuda.empty_cache()
 
 

@@ -21,7 +21,9 @@ same in prose. Two outputs:
 
 ``decode_ablate`` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors, raising on anything the kernel does not take; it
-never falls back.
+never falls back. One launch a call: the last CTA of a row writes its
+``out``, found through a counter per row that the kernel leaves at zero
+(``_counters``).
 """
 
 from __future__ import annotations
@@ -41,8 +43,8 @@ GROUPS = (1, 2, 3, 4, 8)  # query heads per kv head the kernel is built for
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "decode_ablate": ([_P] * 7 + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
-    "decode_ablate_smem_bytes": ([_I] * 5, ctypes.c_int),
+    "decode_ablate": ([_P] * 8 + [_I] * 4 + [ctypes.c_longlong] + [_I] * 4 + [_P], ctypes.c_int),
+    "decode_ablate_smem_bytes": ([_I] * 6, ctypes.c_int),
 }
 
 
@@ -239,6 +241,20 @@ def _check_kernel_args(q, kv, page_table, seq_lens) -> None:
         raise ValueError(f"Hq={Hq} must be {GROUPS} times Hkv={Hkv}")
 
 
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters_for(device, batch: int) -> torch.Tensor:
+    """The kernel's per-row arrival counters on ``device``, at least
+    ``batch`` of them: zeroed when allocated, then kept zero by the kernel,
+    so that no call clears them. One stream at a time."""
+    device = torch.device(device)
+    c = _counters.get(device)
+    if c is None or c.numel() < batch:
+        c = _counters[device] = torch.zeros(max(batch, 256), dtype=torch.int32, device=device)
+    return c
+
+
 def decode_ablate(
     q: torch.Tensor,
     kv: torch.Tensor,
@@ -267,18 +283,20 @@ def decode_ablate(
         max_seq_len = int(seq_lens.max()) if B else 0
     _check_table(page_table, max_seq_len, chunk_pages * ps, chunk_pages)
     lib = native.load("decode_ablate", _SIGNATURES)
-    if lib.decode_ablate_smem_bytes(Hq, Hkv, Dp, ps, chunk_pages) == 0:
+    if lib.decode_ablate_smem_bytes(Hq, Hkv, Dp, ps, chunk_pages, MODES.index(mode)) == 0:
         raise ValueError(
-            f"page_size {ps} x chunk_pages {chunk_pages} at Dp {Dp}, G {Hq // Hkv} needs more "
-            "than the card's 227 KB of shared memory a CTA"
+            f"page_size {ps} x chunk_pages {chunk_pages} at Dp {Dp}, Hq {Hq}, G {Hq // Hkv}: the "
+            "kernel takes pages of at most 256 rows, Hq x 4 bytes within its ring of 8 pages, "
+            "and at most the card's 227 KB of shared memory a CTA"
         )
     out = torch.empty_like(q)
     aux = torch.empty(B, Hq, 3, dtype=torch.float32, device=q.device)
     acc00 = torch.empty(B, dtype=torch.float32, device=q.device)
+    counters = _counters_for(q.device, B)
     rc = lib.decode_ablate(
         q.data_ptr(), kv.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
-        out.data_ptr(), aux.data_ptr(), acc00.data_ptr(), B, Hq, Hkv, Dp,
-        page_table.shape[1], ps, chunk_pages, MODES.index(mode),
+        out.data_ptr(), aux.data_ptr(), acc00.data_ptr(), counters.data_ptr(), B, Hq, Hkv, Dp,
+        kv.shape[0], page_table.shape[1], ps, chunk_pages, MODES.index(mode),
         native.stream_handle(q.device),
     )
     if rc != 0:

@@ -863,16 +863,25 @@ def _ablate_case(lens, Hkv, G, Dp, gen, ps=16, CP=16):
     return q, kv, pt, torch.tensor(lens, dtype=torch.int32, device="cuda")
 
 
+# lengths 0 and 1, page and chunk edges (192, 256, 257), 4 chunks (1000);
+# 16 chunks (4096) and one token short of them, the cross-chunk rescale
+ABLATE_LENS = {"edges": [1000, 0, 1, 192, 256, 257, 17], "ctx4096": [4096, 4095, 1, 0]}
+
+
+@pytest.mark.parametrize("lens", list(ABLATE_LENS), ids=list(ABLATE_LENS))
 @pytest.mark.parametrize("mode", ["dma_only", "reshape_only", "sdot_only", "no_pv", "full"])
-@pytest.mark.parametrize("G,Dp", [(3, 64), (4, 64), (3, 128), (4, 128)])
-def test_decode_ablate_kernel_matches_plain(gen, mode, G, Dp):
+@pytest.mark.parametrize(
+    "G,Dp", [(1, 64), (1, 128), (2, 64), (2, 128), (3, 64), (4, 64), (3, 128), (4, 128), (8, 64), (8, 128)]
+)
+def test_decode_ablate_kernel_matches_plain(gen, mode, G, Dp, lens):
     from scratchpad_tpu_torch.ops.attention import decode_ablate, decode_ablate_plain
 
-    # lengths 0 and 1, page and chunk edges (192, 256, 257), 4 chunks (1000)
-    q, kv, pt, lens = _ablate_case([1000, 0, 1, 192, 256, 257, 17], 2, G, Dp, gen)
+    q, kv, pt, lens = _ablate_case(ABLATE_LENS[lens], 2, G, Dp, gen)
     out, aux = decode_ablate(q, kv, pt, lens, mode)
     ref_out, ref_aux = decode_ablate_plain(q, kv, pt, lens, mode)
     assert _ulp_ok(out, ref_out) and _aux_ok(aux, ref_aux, mode)
+    again, again_aux = decode_ablate(q, kv, pt, lens, mode)  # the counters were left at zero
+    assert torch.equal(again, out) and torch.equal(again_aux, aux)
 
 
 def test_decode_ablate_refuses_a_narrow_table(gen):
