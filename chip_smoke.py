@@ -125,6 +125,25 @@ Phases, in order; any failure exits non-zero before the last line:
    step; the trace of those windows, exported and read back by
    ``tools/analyze_trace.py``, gives ``[profile <label>]`` lines of device
    time by category and the top 5 ops.
+   The decode tokens/s span the decode phase of the bench run, from the
+   first window's dispatch to the last window's fetch (host work between
+   windows included), with overlap at the engine's default: on, as the auto
+   rule resolves it on the card. A timed run that records no window fails.
+   Serving: after its own phase, the bf16 1B engine serves over HTTP
+   (``phase_serve``): the port's ``ServerApp`` on 127.0.0.1, driven by
+   ``urllib``: ``/health``; four sequential greedy completions (16 to 700
+   prompt tokens) whose ids must equal ``Engine.generate`` of each prompt
+   alone; 16 concurrent completions of 16 to 1,024 prompt tokens and 64 new
+   tokens; a streamed completion whose deltas join to the unstreamed ids;
+   echo scoring of prompt + [t1], whose last entry must agree with
+   generate's logprob of t1 within ``ECHO_TOL`` (the entry before it, a
+   planted off-by-one, must not); embeddings of unit norm, bit-equal on a
+   repeat; ``/metrics`` histograms that are not empty; and the decode and
+   extend kernels launched over the phase. ``[serve]`` lines give the
+   requests, the wall and the server's own TTFT and ITL p50 and p99. Then
+   the bench batch with overlap on and off in turns (``phase_overlap``, an
+   ``[overlap 1b-bf16]`` line: decode tokens/s, device ms a step, busy
+   share), whose greedy tokens must be equal both ways.
    Each engine's serving run, and the warm-up run of its bench batch,
    print a ``[prefill <label>]`` line: the extend forwards, their device ms
    (CUDA-event spans) and their wall ms (``tools/prefill_ab.py::
@@ -161,9 +180,9 @@ Phases, in order; any failure exits non-zero before the last line:
    must launch the wgmma kernel (``w4a8_matmul``, split steps) and never
    the ``mma.sync`` one, then at a group of 24, which must launch
    ``w4a8_matmul_mma``, counted the same way.
-6. one JSON line with every kernel's numbers, one with the engines', the
-   ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+6. one JSON line with every kernel's numbers, one with the engines', one
+   with the serving phase's, the ``nvidia-smi`` line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2324,122 +2343,437 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
 PROFILED_WINDOWS = (2, 5)  # decode windows [2, 5) of the profiled run
 
 
-def phase_engine_times(engine, eng: dict, label: str) -> None:
-    """Decode tokens/s at the bench shape (bs 64, 128 + 128), and the
-    device's busy share of a decode step: the device time per step over
-    decode windows ``PROFILED_WINDOWS`` of a profiled run (all 64 rows
-    decoding; a trace of the whole run took ``key_averages`` about a minute
-    per engine to digest) against the wall per step of the timed run. The
-    profiler slows the host several times over, so the profiled window's
-    own wall is logged but not used."""
-    import tempfile
+class DecodeWindows:
+    """Records a runner's decode windows: wraps ``dispatch_decode_window``
+    and ``fetch_decode_window``, which the scheduler's pipelined path calls
+    and ``run_decode_window`` calls for every batch it may pipeline, so a
+    window counts once on either route. ``decode_s`` spans the first
+    dispatch to the last fetch since ``reset``: the decode phase's wall, the
+    host's work between windows included. ``before_dispatch(n, K)`` and
+    ``after_fetch(n)`` hooks see each window's index."""
 
+    def __init__(self, runner):
+        self.runner = runner
+        self.before_dispatch = self.after_fetch = None
+        self.reset()
+
+    def reset(self) -> None:
+        self.dispatched = self.fetched = self.tokens = 0
+        self.first = self.last = None
+
+    @property
+    def decode_s(self) -> float:
+        return self.last - self.first
+
+    def __enter__(self):
+        runner = self.runner
+        self._inner = (runner.dispatch_decode_window, runner.fetch_decode_window)
+        dispatch, fetch = self._inner
+
+        def timed_dispatch(wb, K, prev_tokens=None):
+            if self.before_dispatch is not None:
+                self.before_dispatch(self.dispatched, K)
+            if self.first is None:
+                self.first = time.perf_counter()
+            self.dispatched += 1
+            return dispatch(wb, K, prev_tokens)
+
+        def timed_fetch(pending):
+            out = fetch(pending)  # waits for the window's ids on the host
+            self.last = time.perf_counter()
+            self.tokens += out[0].shape[0] * out[0].shape[1]
+            self.fetched += 1
+            if self.after_fetch is not None:
+                self.after_fetch(self.fetched - 1)
+            return out
+
+        runner.dispatch_decode_window, runner.fetch_decode_window = timed_dispatch, timed_fetch
+        return self
+
+    def __exit__(self, *exc):
+        self.runner.dispatch_decode_window, self.runner.fetch_decode_window = self._inner
+
+
+def bench_run(engine, windows: DecodeWindows, label: str) -> dict:
+    """One run of the bench batch (bs 64, 128-token prompts, 128 new greedy
+    tokens) from an empty cache: decode tokens/s over the decode span,
+    tokens/s end to end, and the output ids. A run that records no decode
+    window fails the script: its rates would time nothing."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+
+    rng = np.random.default_rng(1)
+    V = engine.scheduler.runner.model_config.vocab_size
+    bench = [rng.integers(1, V, 128).tolist() for _ in range(64)]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    engine.flush_cache()
+    torch.cuda.synchronize()
+    windows.reset()
+    t = time.perf_counter()
+    res = engine.generate(input_ids=bench, sampling_params=[sp] * 64)
+    wall = time.perf_counter() - t
+    if any(len(r.output_ids) != 128 for r in res):
+        fail(f"{label}: bench requests did not finish with 128 tokens")
+    if windows.fetched == 0:
+        fail(f"{label}: the timed run recorded no decode window")
+    return dict(
+        decode_tok_s=windows.tokens / windows.decode_s, e2e_tok_s=64 * 128 / wall,
+        windows=windows.fetched, output_ids=[r.output_ids for r in res],
+    )
+
+
+def profiled_run(engine, windows: DecodeWindows, label: str, step_ms: float, tag: str = "profile"):
+    """The bench batch again with ``torch.profiler`` on over decode windows
+    ``PROFILED_WINDOWS``: from the dispatch of the first (after a
+    synchronize) to the fetch of the last (and a synchronize), so the trace
+    holds exactly the windows dispatched in between. The device time is the
+    exported trace's (``tools/analyze_trace.py``: kernels, copies and
+    memsets; one pass, where ``key_averages`` took tens of seconds an
+    engine). Returns (device ms per decode step, busy share against
+    ``step_ms``, the trace's rollup), or (None, None, rollup) where the
+    profiler saw no device time."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from scratchpad_tpu_torch.tools import analyze_trace
 
-    runner = engine.scheduler.runner
-    dec_time = [0.0]
-    dec_tokens = [0]
-    inner_window = runner.run_decode_window
-
-    def timed_window(wb, K):
-        t = time.perf_counter()
-        out = inner_window(wb, K)  # ends in a host fetch of the sampled ids
-        dec_time[0] += time.perf_counter() - t
-        dec_tokens[0] += out[0].shape[0] * out[0].shape[1]
-        return out
-
-    runner.run_decode_window = timed_window
-    rng = np.random.default_rng(1)
-    bench = [rng.integers(1, runner.model_config.vocab_size, 128).tolist() for _ in range(64)]
-    sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
-
-    def run():
-        engine.flush_cache()
-        dec_time[0], dec_tokens[0] = 0.0, 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = engine.generate(input_ids=bench, sampling_params=[sp] * 64)
-        wall = time.perf_counter() - t
-        if any(len(r.output_ids) != 128 for r in res):
-            fail("bench requests did not finish with 128 tokens")
-        return dec_tokens[0] / dec_time[0], 64 * 128 / wall, wall
-
-    # the warm-up run (it warms the caching allocator and cuBLAS) times its
-    # extend forwards; the timed runs below carry no timer
-    with PrefillTimer(runner.model) as prefill:
-        run()
-    log(
-        f"[prefill {label}] bs 64 x 128-token prompts: {prefill.forwards} extend forwards, "
-        f"device {prefill.device_ms:.3f} ms, wall {prefill.wall_ms:.3f} ms"
-    )
-    eng["decode_tok_s"], eng["e2e_tok_s"], _ = run()
-    log(
-        f"[engine {label}] bs 64, 128+128: decode {eng['decode_tok_s']:.1f} tok/s "
-        f"(time inside decode windows), {eng['e2e_tok_s']:.1f} tok/s end to end"
-    )
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    span = {"windows": 0, "steps": 0}
+    span = {"steps": 0, "on": False}
 
-    def profiled_window(wb, K):
-        n = span["windows"]
+    def before_dispatch(n, K):
         if n == PROFILED_WINDOWS[0]:
             torch.cuda.synchronize()
             prof.start()
-            span["t0"] = time.perf_counter()
-        out = timed_window(wb, K)
-        if PROFILED_WINDOWS[0] <= n < PROFILED_WINDOWS[1]:
-            span["steps"] += out[0].shape[0]
-        if n == PROFILED_WINDOWS[1] - 1:
-            torch.cuda.synchronize()
-            span["wall"] = time.perf_counter() - span["t0"]
-            prof.stop()
-        span["windows"] = n + 1
-        return out
+            span.update(on=True, t0=time.perf_counter())
+        if span["on"]:
+            span["steps"] += K
 
-    runner.run_decode_window = profiled_window
-    run()
-    runner.run_decode_window = inner_window
+    def after_fetch(n):
+        if n == PROFILED_WINDOWS[1] - 1 and span["on"]:
+            torch.cuda.synchronize()
+            span.update(on=False, wall=time.perf_counter() - span["t0"])
+            prof.stop()
+
+    windows.before_dispatch, windows.after_fetch = before_dispatch, after_fetch
+    try:
+        bench_run(engine, windows, label)
+    finally:
+        windows.before_dispatch = windows.after_fetch = None
     if "wall" not in span:
-        fail(f"{label}: the bench run had {span['windows']} decode windows, too few to profile")
-    wall = span["wall"]
-    # device-side events only (kernels, copies, memsets): a CPU op's row
-    # repeats the device time of the kernels it launched
-    rows = [
-        (e.key, e.self_device_time_total)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    ]
-    busy_us = sum(t for _, t in rows)
-    if busy_us > 0:
-        step_ms = 64 / eng["decode_tok_s"] * 1e3  # the timed run's wall per decode step
-        eng["device_ms_per_step"] = busy_us / 1e3 / span["steps"]
-        eng["device_busy_share"] = eng["device_ms_per_step"] / step_ms
+        fail(f"{label}: the bench run had {windows.fetched} decode windows, too few to profile")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        r = analyze_trace.rollup(analyze_trace.load_events(path))
+    busy_us = r["busy_us"]
+    if busy_us <= 0:
+        log(f"[{tag} {label}] the profiler recorded no device time: busy share not measured")
+        return None, None, r
+    per_step = busy_us / 1e3 / span["steps"]
+    log(
+        f"[{tag} {label}] bs 64, 128+128 run, decode windows {PROFILED_WINDOWS[0]} to "
+        f"{PROFILED_WINDOWS[1] - 1} ({span['steps']} steps dispatched while tracing): device busy "
+        f"{busy_us / 1e3:.1f} ms, {per_step:.3f} ms per step, against {step_ms:.3f} ms of wall "
+        f"per step in the timed run: busy share {per_step / step_ms:.3f} (the profiled windows' "
+        f"own wall {span['wall'] * 1e3:.1f} ms)"
+    )
+    return per_step, per_step / step_ms, r
+
+
+def phase_engine_times(engine, eng: dict, label: str) -> None:
+    """Decode tokens/s at the bench shape (bs 64, 128 + 128) with the
+    engine's own overlap setting (on, the auto rule's choice on the card),
+    over the decode span (first window dispatched to last window fetched),
+    and the device's busy share of a decode step: the device time per step
+    over decode windows ``PROFILED_WINDOWS`` of a profiled run (all 64 rows
+    decoding; a trace of the whole run took ``key_averages`` about a minute
+    per engine to digest) against the wall per step of the timed run. The
+    profiler slows the host several times over, so the profiled windows'
+    own wall is logged but not used."""
+    from scratchpad_tpu_torch.tools import analyze_trace
+
+    runner = engine.scheduler.runner
+    with DecodeWindows(runner) as windows:
+        # the warm-up run (it warms the caching allocator and cuBLAS) times
+        # its extend forwards; the timed runs below carry no timer
+        with PrefillTimer(runner.model) as prefill:
+            bench_run(engine, windows, label)
         log(
-            f"[profile {label}] bs 64, 128+128 run, decode windows {PROFILED_WINDOWS[0]} to "
-            f"{PROFILED_WINDOWS[1] - 1} ({span['steps']} steps): device busy "
-            f"{busy_us / 1e3:.1f} ms, {eng['device_ms_per_step']:.3f} ms per step, against "
-            f"{step_ms:.3f} ms of wall per step in the timed run: busy share "
-            f"{eng['device_busy_share']:.3f} (the profiled window's own wall {wall * 1e3:.1f} ms)"
+            f"[prefill {label}] bs 64 x 128-token prompts: {prefill.forwards} extend forwards, "
+            f"device {prefill.device_ms:.3f} ms, wall {prefill.wall_ms:.3f} ms"
         )
-        for key, t in sorted(rows, key=lambda r: -r[1])[:12]:
-            log(f"[profile {label}]   {t / 1e3:9.2f} ms  {key[:100]}")
-        # the same windows' trace, by category (tools/analyze_trace.py)
-        with tempfile.TemporaryDirectory() as d:
-            path = Path(d) / "trace.json"
-            prof.export_chrome_trace(str(path))
-            r = analyze_trace.rollup(analyze_trace.load_events(path))
-        eng["trace_by_category_ms"] = {c: us / 1e3 for c, us in r["by_category"].items()}
-        for line in analyze_trace.report(r, top=5):
-            log(f"[profile {label}] {line}")
-    else:
-        eng["device_busy_share"] = eng["device_ms_per_step"] = None
-        log(f"[profile {label}] the profiler recorded no device time: busy share not measured")
+        r = bench_run(engine, windows, label)
+        eng["decode_tok_s"], eng["e2e_tok_s"] = r["decode_tok_s"], r["e2e_tok_s"]
+        log(
+            f"[engine {label}] bs 64, 128+128, overlap {engine.scheduler.overlap_enabled()}: "
+            f"decode {eng['decode_tok_s']:.1f} tok/s (first decode dispatch to last fetch, "
+            f"{r['windows']} windows), {eng['e2e_tok_s']:.1f} tok/s end to end"
+        )
+        step_ms = 64 / eng["decode_tok_s"] * 1e3  # the timed run's wall per decode step
+        per_step, share, rollup = profiled_run(engine, windows, label, step_ms)
+    eng["device_ms_per_step"], eng["device_busy_share"] = per_step, share
+    if per_step is None:
+        return
+    eng["trace_by_category_ms"] = {c: us / 1e3 for c, us in rollup["by_category"].items()}
+    for line in analyze_trace.report(rollup, top=12):
+        log(f"[profile {label}] {line}")
+
+
+def phase_overlap(engine, label: str = "1b-bf16") -> dict:
+    """The bench batch with overlap on and off, in turns (on, off, on, off),
+    then one profiled run each: decode tokens/s, device ms a step and the
+    busy share of each, on one ``[overlap <label>]`` line. The equal-length
+    greedy batch must give the same tokens both ways. A record, not a
+    target: no speed is claimed."""
+    import numpy as np
+
+    sched = engine.scheduler
+    saved = sched.args.enable_overlap
+    rates = {True: [], False: []}
+    ids = {}
+    t0 = time.monotonic()
+    try:
+        with DecodeWindows(sched.runner) as windows:
+            for on in (True, False, True, False):
+                sched.args.enable_overlap = on
+                r = bench_run(engine, windows, f"{label} overlap {on}")
+                rates[on].append(r["decode_tok_s"])
+                ids.setdefault(on, r["output_ids"])
+                check(r["output_ids"] == ids[on], f"{label}: two runs with overlap {on} differ")
+            t_runs = time.monotonic() - t0
+            prof = {}
+            for on in (True, False):
+                sched.args.enable_overlap = on
+                step_ms = 64 / float(np.mean(rates[on])) * 1e3
+                prof[on] = profiled_run(engine, windows, f"{label} overlap {on}", step_ms, "overlap")
+    finally:
+        sched.args.enable_overlap = saved
+    differ = sum(a != b for a, b in zip(ids[True], ids[False]))
+    check(differ == 0, f"{label}: {differ} of 64 greedy rows differ between overlap on and off")
+
+    def part(on):
+        ms, share = prof[on][0], prof[on][1]
+        return (
+            f"overlap {'on' if on else 'off'}: decode {', '.join(f'{x:.1f}' for x in rates[on])} "
+            f"tok/s, device {'not measured' if ms is None else f'{ms:.3f} ms'} a step, busy share "
+            f"{'not measured' if share is None else f'{share:.3f}'}"
+        )
+
+    log(
+        f"[overlap {label}] bs 64, 128+128, runs in turns on/off/on/off: {part(True)}; "
+        f"{part(False)}; greedy tokens equal on {64 - differ} of 64 rows; "
+        f"{t_runs:.1f} s timed runs, {time.monotonic() - t0 - t_runs:.1f} s profiled"
+    )
+    return dict(
+        on=dict(decode_tok_s=rates[True], device_ms_per_step=prof[True][0], busy_share=prof[True][1]),
+        off=dict(decode_tok_s=rates[False], device_ms_per_step=prof[False][0],
+                 busy_share=prof[False][1]),
+    )
+
+
+class IdTokenizer:
+    """Token id i as the one character chr(0x10000 + i), so streamed text
+    maps back to ids one for one (the random-weight engines have no
+    tokenizer)."""
+
+    eos_token_id = None
+    chat_template = None
+
+    def encode(self, text):
+        return [ord(c) - 0x10000 for c in text]
+
+    def decode(self, ids, **kw):
+        return "".join(chr(0x10000 + i) for i in ids)
+
+
+SERVE_SEQUENTIAL = (16, 100, 300, 700)  # prompt tokens of the sequential greedy requests
+SERVE_CONCURRENT = [16, 24, 40, 64, 96, 128, 200, 256, 300, 400, 512, 600, 700, 800, 900, 1024]
+# |score(prompt + [t1])[-1] - generate's logprob of t1|: the head's logits are
+# bf16 (an ulp is 0.03 at the 1B's top logits, about 5), and the score's
+# extend runs one token more; the planted off-by-one reads about 5
+ECHO_TOL = 0.1
+
+
+def _http(url: str, body=None, timeout: float = 120):
+    """(status, JSON) of a request to the server under test."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw
+
+
+def phase_serve(engine, label: str = "1b-bf16") -> dict:
+    """The port's ``ServerApp`` on 127.0.0.1, driven through ``urllib``, on
+    the engine of a finished phase with overlap at its default (on): health;
+    sequential greedy completions whose ids must equal ``Engine.generate`` of
+    each prompt alone (the cache flushed before each, so both prefill the
+    whole prompt); 16 concurrent completions of mixed lengths; a streamed
+    completion whose deltas join to the non-streamed ids; echo scoring of
+    prompt + [t1] against generate's logprob of t1 (``ECHO_TOL``, and the
+    neighbouring entry, a planted off-by-one, must fail it); embeddings of
+    unit norm, bit-equal on a repeat; ``/metrics`` histograms that are not
+    empty; the decode and extend kernels launched over the phase. Prints
+    ``[serve]`` lines: requests, wall, the server's own TTFT and ITL p50 and
+    p99 (as observed)."""
+    import concurrent.futures
+    import socket
+    import urllib.request
+
+    import numpy as np
+
+    from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS, reset_launch_counts
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+    from scratchpad_tpu_torch.server.http_server import ServerApp, ServerThread
+    from scratchpad_tpu_torch.server.metrics import LatencyStats
+    from scratchpad_tpu_torch.tokenizer.detokenizer import IncrementalDetokenizer
+
+    check(engine.scheduler.overlap_enabled(), f"{label}: overlap did not resolve on for the card")
+    V = engine.model_config.vocab_size
+    rng = np.random.default_rng(7)
+    seq = [rng.integers(1, V, n).tolist() for n in SERVE_SEQUENTIAL]
+    conc = [rng.integers(1, V, n).tolist() for n in SERVE_CONCURRENT]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=32, ignore_eos=True)
+    alone = []
+    for p in seq:
+        engine.flush_cache()
+        alone.append(engine.generate(input_ids=p, sampling_params=sp, return_logprob=True))
+    saved = (engine.tokenizer, engine.detokenizer, engine.args.stream_interval)
+    engine.tokenizer = IdTokenizer()
+    engine.detokenizer = IncrementalDetokenizer(engine.tokenizer)
+    # streams take windows as wide as the rest: the same windows, the same
+    # page-table widths, the same decode splits, so the same bits
+    engine.args.stream_interval = engine.args.decode_window_size
+    engine.latency = LatencyStats()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        engine.args.host, engine.args.port = "127.0.0.1", s.getsockname()[1]
+    url = f"http://127.0.0.1:{engine.args.port}"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = ServerThread(ServerApp(engine, engine.args))
+    n_req = 0
+    try:
+        status, body = _http(url + "/health")
+        check(status == 200 and body == {"status": "ok"}, f"{label}: /health answered {status} {body}")
+        n_req += 1
+        for p, ref in zip(seq, alone):
+            check(_http(url + "/flush_cache", {})[0] == 200, f"{label}: /flush_cache refused")
+            status, body = _http(url + "/v1/completions", dict(
+                model="m", prompt=p, max_tokens=32, temperature=0.0, ignore_eos=True, logprobs=1))
+            n_req += 2
+            ids = [int(t) for t in body["choices"][0]["logprobs"]["tokens"]] if status == 200 else []
+            check(ids == ref.output_ids, f"{label}: the served ids of a {len(p)}-token prompt "
+                  f"differ from Engine.generate's: {ids[:8]} against {ref.output_ids[:8]}")
+        t_conc = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(conc)) as ex:
+            answers = list(ex.map(lambda p: _http(url + "/v1/completions", dict(
+                model="m", prompt=p, max_tokens=64, temperature=0.0, ignore_eos=True)), conc))
+        t_conc = time.perf_counter() - t_conc
+        n_req += len(conc)
+        for p, (status, body) in zip(conc, answers):
+            check(status == 200 and body["usage"]["completion_tokens"] == 64,
+                  f"{label}: a concurrent {len(p)}-token request answered {status}")
+        # a streamed completion against the same request unstreamed
+        body = dict(model="m", prompt=seq[1], max_tokens=32, temperature=0.0, ignore_eos=True)
+        _http(url + "/flush_cache", {})
+        status, full = _http(url + "/v1/completions", body)
+        _http(url + "/flush_cache", {})
+        req = urllib.request.Request(url + "/v1/completions",
+                                     data=json.dumps(dict(body, stream=True)).encode())
+        text, done = "", False
+        with urllib.request.urlopen(req, timeout=120) as r:
+            for line in r:
+                line = line.decode().strip()
+                if line == "data: [DONE]":
+                    done = True
+                elif line.startswith("data: "):
+                    text += json.loads(line[6:])["choices"][0]["text"]
+        n_req += 4
+        streamed = IdTokenizer().encode(text)
+        check(done and streamed == IdTokenizer().encode(full["choices"][0]["text"]) == alone[1].output_ids,
+              f"{label}: streamed ids {streamed[:8]} differ from the unstreamed answer's")
+        # echo scoring: score(prompt + [t1])'s last entry against generate's
+        # logprob of t1; the entry before it (a planted off-by-one) must fail
+        reads, planted = [], []
+        for p, ref in zip(seq, alone):
+            status, body = _http(url + "/v1/completions", dict(
+                model="m", prompt=p + [ref.output_ids[0]], max_tokens=1, temperature=0.0,
+                ignore_eos=True, echo=True, logprobs=1))
+            n_req += 1
+            lps = body["choices"][0]["logprobs"]["token_logprobs"] if status == 200 else [None] * 3
+            want = ref.output_token_logprobs[0]
+            reads.append(abs(lps[len(p)] - want))
+            planted.append(abs(lps[len(p) - 1] - want))
+        check(max(reads) <= ECHO_TOL, f"{label}: echo scores differ from generate's logprob by "
+              f"{max(reads):.4f} > {ECHO_TOL}")
+        check(min(planted) > ECHO_TOL, f"{label}: the planted off-by-one reads {min(planted):.4f}, "
+              f"inside the {ECHO_TOL} tolerance: the echo check cannot see it")
+        log(f"[serve {label}] echo: |score - generate logprob| {[f'{x:.4f}' for x in reads]} "
+            f"(tol {ECHO_TOL}); planted off-by-one {[f'{x:.3f}' for x in planted]}")
+        embs = []
+        for _ in range(2):
+            _http(url + "/flush_cache", {})
+            status, body = _http(url + "/v1/embeddings", dict(model="m", input=seq[2]))
+            n_req += 2
+            embs.append(body["data"][0]["embedding"] if status == 200 else [])
+        norm = float(np.linalg.norm(embs[0])) if embs[0] else 0.0
+        check(abs(norm - 1.0) < 1e-3 and embs[0] == embs[1],
+              f"{label}: embeddings of norm {norm:.6f}, equal on a repeat: {embs[0] == embs[1]}")
+        # the server's own latency samples, read before /metrics drains them
+        stats = engine.latency
+        ttft = np.asarray(stats.ttft) * 1e3
+        itl = np.repeat([g for g, _ in stats.itl], [n for _, n in stats.itl]) * 1e3
+        status, metrics = _http(url + "/metrics")
+        n_req += 1
+        counts = {}
+        for line in (metrics.decode() if isinstance(metrics, bytes) else "").splitlines():
+            if "_seconds_count " in line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                counts[name.split(":")[1]] = float(value)
+        for h in ("time_to_first_token_seconds_count", "inter_token_latency_seconds_count",
+                  "e2e_request_latency_seconds_count"):
+            check(counts.get(h, 0) > 0, f"{label}: /metrics {h} is {counts.get(h)}")
+    finally:
+        srv.stop()
+        engine.tokenizer, engine.detokenizer, engine.args.stream_interval = saved
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    for k in ("paged_decode_attention", "paged_extend_attention"):
+        check(launches[k] > 0, f"{label}: {k} launched {launches[k]} times while serving")
+
+    def pct(x, q):
+        return f"{np.percentile(x, q):.3f}" if len(x) else "none"
+
+    log(
+        f"[serve {label}] {n_req} HTTP requests in {wall:.3f} s (server up to down); "
+        f"{len(conc)} concurrent completions ({min(SERVE_CONCURRENT)} to {max(SERVE_CONCURRENT)} "
+        f"prompt tokens, 64 new) in {t_conc:.3f} s; kernel launches decode "
+        f"{launches['paged_decode_attention']}, extend {launches['paged_extend_attention']}"
+    )
+    log(
+        f"[serve {label}] the server's own samples: TTFT p50 {pct(ttft, 50)} ms, p99 "
+        f"{pct(ttft, 99)} ms ({len(ttft)} requests); ITL p50 {pct(itl, 50)} ms, p99 "
+        f"{pct(itl, 99)} ms ({len(itl)} tokens, a window's gap spread over its tokens)"
+    )
+    return dict(requests=n_req, wall_s=wall, launches=launches,
+                ttft_ms_p50_p99=[float(np.percentile(ttft, q)) for q in (50, 99)] if len(ttft) else None,
+                itl_ms_p50_p99=[float(np.percentile(itl, q)) for q in (50, 99)] if len(itl) else None)
 
 
 # ------------------------------------------------------------------ main
@@ -2570,6 +2904,12 @@ def main() -> None:
     t_engines = time.monotonic()
     engine = make_engine()
     serve(engine, "bf16")
+    # the serving surface on the same engine and weights: the HTTP server
+    # over the async runner, overlap at its default (on); then the bench
+    # batch with overlap on and off in turns
+    served = timed(phase_serve, engine)
+    if not FAILURES:
+        engines["bf16"]["overlap"] = timed(phase_overlap, engine)
     # toppings on the same engine and weights, served and checked but not
     # timed: at its 90 to 130 ms of host a step its timed runs took a fifth
     # to a quarter of the script's wall (PERF.md §5 keeps its last rates)
@@ -2680,7 +3020,7 @@ def main() -> None:
     log(json.dumps({"kernels": kernels}))
     fields = (
         "preset", "weights", "kv_cache_dtype", "attention_backend", "decode_tok_s", "e2e_tok_s",
-        "device_busy_share", "device_ms_per_step", "worst_logit_rel",
+        "device_busy_share", "device_ms_per_step", "worst_logit_rel", "overlap",
     )
     log(
         json.dumps(
@@ -2695,6 +3035,7 @@ def main() -> None:
             }
         )
     )
+    log(json.dumps({"serve": {k: v for k, v in served.items() if k != "launches"}}))
     log(smi_line)
     log(
         json.dumps(

@@ -3,14 +3,15 @@
 Counterpart of ``scratchpad_tpu.config.server_args`` for the PyTorch port:
 the same flat dataclass drives the engine and the scheduler, and
 ``resolve()`` materialises derived defaults. It holds only the settings the
-port reads, and the switches of features it does not have yet, which
-``resolve()`` refuses with ``NotImplementedError`` when they are set. The
-HTTP server's settings come with the HTTP surface (later work). The port
-serves on one CUDA device (or the CPU, for tests).
+port reads, the HTTP server's among them, and the switches of features it
+does not have yet, which ``resolve()`` refuses with ``NotImplementedError``
+when they are set. The port serves on one CUDA device (or the CPU, for
+tests).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from typing import Optional
 
@@ -50,6 +51,13 @@ class ServerArgs:
     schedule_conservativeness: float = 1.0
     enable_mixed_chunk: bool = False
     stream_interval: int = 1
+    # seconds without scheduler progress, with requests in flight, before
+    # the async runner fails them (server/async_runner.py)
+    watchdog_timeout: float = 120.0
+    # multi-turn session store bounds (Engine.open_session): LRU capacity
+    # and idle TTL in seconds (<= 0: never expire)
+    max_sessions: int = 1024
+    session_ttl: float = 3600.0
 
     # memory
     page_size: int = 16  # tokens per KV page
@@ -83,11 +91,17 @@ class ServerArgs:
     # not serve
     attention_backend: str = "auto"
 
-    # not ported yet, refused when set: decode-window pipelining, its
-    # depth, speculative decoding (ngram | draft | eagle), sequence- and
-    # pipeline-parallel execution, expert parallelism and DP attention
+    # decode-window pipelining: the next window is dispatched, chained on
+    # the device to the previous window's last ids, before the previous
+    # window's ids reach the host. None = auto: on where the runner's device
+    # is CUDA, off on the CPU (the JAX rule: no mesh, not the CPU)
     enable_overlap: Optional[bool] = None
+    # windows in flight when overlapping; None = 2
     decode_pipeline_depth: Optional[int] = None
+
+    # not ported yet, refused when set: speculative decoding (ngram | draft
+    # | eagle), sequence- and pipeline-parallel execution, expert
+    # parallelism and DP attention
     speculative_algorithm: Optional[str] = None
     speculative_num_draft_tokens: int = 4
     speculative_ngram_max: int = 3  # longest suffix n-gram to match
@@ -100,7 +114,24 @@ class ServerArgs:
     # garbage (reference: nn/layers/sampler.py:54-61 NaN detection)
     enable_nan_detection: bool = True
 
+    # server (server/http_server.py)
+    host: str = "127.0.0.1"
+    port: int = 3000
+    served_model_name: Optional[str] = None  # None: the preset or model_path
+    chat_template: Optional[str] = None  # a conversation.py template name
+    api_key: Optional[str] = None  # Bearer token every /v1 route asks for
+    # split <think> spans into `reasoning_content` while streaming chat.
+    # None = off; "deepseek-r1" starts inside a think block; any other
+    # value splits on explicit tags only
+    reasoning_parser: Optional[str] = None
+    # emit reasoning deltas as they come; False holds each think block
+    stream_reasoning: bool = True
+    # per-request logit processors are not ported (Queue 1, item 6): the
+    # server refuses them, with or without this flag
+    enable_custom_logit_processor: bool = False
+
     # observability
+    enable_metrics: bool = True  # /metrics, Prometheus text exposition
     decode_log_interval: int = 40
 
     # misc
@@ -121,6 +152,10 @@ class ServerArgs:
                 f"attention_backend='pallas' decodes bf16 pages only, not "
                 f"kv_cache_dtype={self.kv_cache_dtype!r} (use attention_backend='auto')"
             )
+        if self.decode_pipeline_depth is not None and self.decode_pipeline_depth < 1:
+            raise ValueError(f"decode_pipeline_depth must be >= 1; got {self.decode_pipeline_depth}")
+        if self.served_model_name is None:
+            self.served_model_name = self.preset or self.model_path or "model"
         if self.tokenizer_path is None:
             self.tokenizer_path = self.model_path or None
         if self.decode_bs_buckets is None:
@@ -147,8 +182,6 @@ class ServerArgs:
             "enable_pp": self.enable_pp,
             "enable_ep": self.enable_ep,
             "enable_dp_attention": self.enable_dp_attention,
-            "enable_overlap": bool(self.enable_overlap),
-            "decode_pipeline_depth": self.decode_pipeline_depth is not None,
             "attention_backend": self.attention_backend not in ATTENTION_BACKENDS,
         }
         bad = [k for k, v in unported.items() if v]
@@ -156,3 +189,37 @@ class ServerArgs:
             raise NotImplementedError(
                 f"not ported to scratchpad_tpu_torch yet: {', '.join(bad)}"
             )
+
+    @classmethod
+    def add_cli_args(cls, parser: argparse.ArgumentParser) -> None:
+        """One ``--flag-name`` for each field, as the JAX package's CLI has."""
+        for f in dataclasses.fields(cls):
+            name = "--" + f.name.replace("_", "-")
+            ann = str(f.type)
+            if isinstance(f.default, bool) or ann == "bool":
+                parser.add_argument(name, action=argparse.BooleanOptionalAction, default=f.default)
+            elif ann == "Optional[bool]":
+                parser.add_argument(name, type=_parse_bool, default=f.default)
+            elif "list" in ann:
+                parser.add_argument(
+                    name, type=lambda v: [int(x) for x in v.split(",")], default=f.default
+                )
+            elif "int" in ann:
+                parser.add_argument(name, type=int, default=f.default)
+            elif "float" in ann:
+                parser.add_argument(name, type=float, default=f.default)
+            else:
+                parser.add_argument(name, type=str, default=f.default)
+
+    @classmethod
+    def from_cli_args(cls, args: argparse.Namespace) -> "ServerArgs":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(args).items() if k in names}).resolve()
+
+
+def _parse_bool(v: str) -> bool:
+    if v.lower() in ("1", "true", "yes", "on"):
+        return True
+    if v.lower() in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected true or false, got {v!r}")

@@ -211,10 +211,7 @@ class Scheduler:
             for r in batch:
                 r.last_feature = None  # plain decode: features not captured
         K = self._decode_window
-        overlap = self.args.enable_overlap
-        if overlap is None:  # auto: the port's eager windows do not pipeline
-            overlap = False
-        if overlap and self._pipeline_ok(batch, wb):
+        if self.overlap_enabled() and self._pipeline_ok(batch, wb):
             pending = self.runner.dispatch_decode_window(wb, K)
             self._inflight = [{"batch": list(batch), "pending": pending, "K": K}]
             return []  # results surface next step, overlapped with host work
@@ -248,6 +245,13 @@ class Scheduler:
         self._log_t0 = now
 
     # ------------------------------------------------------- window pipeline
+
+    def overlap_enabled(self) -> bool:
+        """``enable_overlap``, with None (auto) resolved as the JAX rule
+        does (no mesh, not the CPU): on where the runner's device is CUDA."""
+        if self.args.enable_overlap is not None:
+            return self.args.enable_overlap
+        return self.runner.mesh is None and self.runner.device.type == "cuda"
 
     def _pipeline_ok(self, batch, wb=None) -> bool:
         if wb is not None and not self.runner._packed_supported(wb):
@@ -680,6 +684,9 @@ class Scheduler:
         rope_delta = None
         if any(r.mrope_delta for r in batch):
             rope_delta = np.array([r.mrope_delta for r in batch], np.int32)
+        # the batch's adapters ride along (the JAX copy leaves them out, so
+        # its chained windows decode without them)
+        active, slots = self._build_topping_batch(batch)
         return WorkerBatch(
             mode=ForwardMode.DECODE,
             tokens=np.zeros(B, np.int32),  # overridden by prev_tokens
@@ -690,6 +697,8 @@ class Scheduler:
             seq_lens=positions + 1,
             extend_lens=np.ones(B, np.int32),
             sampling_info=sinfo,
+            active_adapters=active,
+            adapter_slots=slots,
             rope_delta=rope_delta,
         )
 

@@ -53,6 +53,11 @@ class ForwardMeta:
     # request's position in that list; None when no request names an adapter
     active_adapters: torch.Tensor | None = None  # i32[MAX_ACTIVE_TOPPINGS]
     adapter_slots: torch.Tensor | None = None  # i32[B]
+    # what the forward returns instead of logits: the final-normed hidden
+    # state of each row's last token [B, H] (embeddings), or of every token
+    # [T, H] (sequence scoring)
+    capture_hidden: bool = False
+    capture_all_hidden: bool = False
 
     @property
     def num_tokens(self) -> int:

@@ -1,11 +1,15 @@
 """ModelRunner: owns the model, the paged KV pool, the allocators and the step.
 
 Counterpart of ``scratchpad_tpu/executor/model_runner.py``, for the part the
-port has: parameter and KV-pool sizing, ``run_extend`` and the fused decode
-window (``run_decode_window`` / ``decode_multi``). PyTorch runs eagerly: a
-step is the model's forward followed by ``sample``, and a decode window is a
-loop of K steps whose sampled ids stay on the device and feed the next step,
-with one host fetch per window. Decode batches are padded to the
+port has: parameter and KV-pool sizing, ``run_extend``, the fused decode
+window (``run_decode_window`` / ``decode_multi``) and its pipelined halves
+(``dispatch_decode_window`` / ``fetch_decode_window``), embeddings
+(``run_embed``) and teacher-forced scoring (``run_score``). PyTorch runs
+eagerly: a step is the model's forward followed by ``sample``, and a decode
+window is a loop of K steps whose sampled ids stay on the device and feed
+the next step, with one host fetch per window. Host inputs go up from pinned
+buffers without a host sync, so a window can be dispatched while the
+previous one still runs on the card. Decode batches are padded to the
 batch-size buckets that CUDA graphs will be captured at (later work), so
 their padding rows reach the decode kernel as they will then; an extend
 batch runs at its real size, since nothing is compiled for its shape.
@@ -22,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -85,6 +89,17 @@ _UNPORTED_BATCH_FIELDS = (
     "rope_delta",
     "mm_spans",
 )
+
+
+class PendingWindow(NamedTuple):
+    """A dispatched decode window: ``host`` receives ids and logprob bits
+    [2, K, B] once ``done`` (a CUDA event; None on the CPU) has fired;
+    ``last_ids`` [B] stay on the device to chain the next window."""
+
+    host: torch.Tensor
+    last_ids: torch.Tensor
+    rows: int
+    done: Optional[torch.cuda.Event]
 
 
 def _next_bucket(ladder: list[int], n: int) -> int:
@@ -341,7 +356,10 @@ class ModelRunner:
 
     def run_decode_window(self, wb: WorkerBatch, num_steps: int):
         """K fused decode steps; returns (ids[K, B_real], logprobs[K, B_real],
-        tops), tops None or ([1, B, k] values, [1, B, k] ids)."""
+        tops), tops None or ([1, B, k] values, [1, B, k] ids). A batch that
+        the pipelined path takes is dispatched and fetched at once."""
+        if self._packed_supported(wb):
+            return self.fetch_decode_window(self.dispatch_decode_window(wb, num_steps))
         B_real = len(wb.seq_lens)
         if wb.return_top_logprobs and num_steps != 1:
             raise ValueError("top-logprobs needs single-step windows")
@@ -355,18 +373,77 @@ class ModelRunner:
         )
         return host[0][:, :B_real], host[1][:, :B_real], tops
 
-    def decode_multi(self, wb: WorkerBatch, num_steps: int):
+    def _packed_supported(self, wb: WorkerBatch) -> bool:
+        """Whether ``wb`` may run as a pipelined window: no penalty counts,
+        logit bias, grammar mask or top-logprobs (they need the host between
+        windows), and adapters only once a manager is attached (the JAX
+        rule, ``model_runner.py:1067-1081``, for the fields the port has)."""
+        si = wb.sampling_info
+        return (
+            wb.vocab_bitmask is None
+            and si.output_token_counts is None
+            and si.logit_bias is None
+            and (wb.active_adapters is None or self.toppings_manager is not None)
+            and wb.input_embeds is None
+            and wb.mm_spans is None
+            and wb.mrope_positions is None
+            and wb.rope_delta is None
+            and not wb.return_top_logprobs
+        )
+
+    def dispatch_decode_window(
+        self, wb: WorkerBatch, num_steps: int, prev_tokens: Optional[torch.Tensor] = None
+    ) -> PendingWindow:
+        """Launch a K-step decode window and one non-blocking copy of its ids
+        and logprobs to a pinned host buffer, with no host sync; returns the
+        handle ``fetch_decode_window`` waits on. ``prev_tokens``: the previous
+        window's last ids [B bucket], still on the device, as this window's
+        first inputs (``wb.tokens`` is then ignored)."""
+        with torch.inference_mode():
+            ids, chosen, _ = self.decode_multi(wb, num_steps, first_tokens=prev_tokens)
+            both = torch.stack([ids.to(torch.int32), chosen.float().view(torch.int32)])
+            done = None
+            if self.device.type == "cuda":
+                host = torch.empty(both.shape, dtype=torch.int32, pin_memory=True)
+                host.copy_(both, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                host = both
+        return PendingWindow(host, ids[-1], len(wb.seq_lens), done)
+
+    def fetch_decode_window(self, pending: PendingWindow):
+        """Wait for a dispatched window; returns what ``run_decode_window``
+        returns (tops None)."""
+        if pending.done is not None:
+            pending.done.synchronize()
+        host = pending.host.numpy()
+        B_real = pending.rows
+        return host[0][:, :B_real], host[1].view(np.float32)[:, :B_real], None
+
+    def decode_multi(
+        self, wb: WorkerBatch, num_steps: int, first_tokens: Optional[torch.Tensor] = None
+    ):
         """Run a K-step decode window; ``wb`` describes the FIRST step and
         the page table must already cover ``num_steps`` more tokens per
         request. Each step's sampled ids are the next step's inputs without
-        leaving the device. Returns device tensors (ids i64[K, B], chosen
-        logprobs f32[K, B], tops of the last step or None)."""
+        leaving the device; ``first_tokens`` [B bucket], on the device,
+        replaces the first step's inputs. Returns device tensors (ids
+        i64[K, B], chosen logprobs f32[K, B], tops of the last step or
+        None)."""
         meta, sinfo, modes = self._pad_to_buckets(wb)
         ps = self.page_size
         B = meta.batch_size
         rows = torch.arange(B, device=self.device)
         ones = torch.ones(B, dtype=torch.int32, device=self.device)
         tokens, positions = meta.tokens, meta.positions
+        if first_tokens is not None:
+            if first_tokens.shape != tokens.shape:
+                raise ValueError(
+                    f"prev_tokens {tuple(first_tokens.shape)} do not match the window's "
+                    f"{tuple(tokens.shape)} rows"
+                )
+            tokens = first_tokens
         counts = sinfo.output_token_counts
         all_ids, all_chosen, tops = [], [], None
         for _ in range(num_steps):
@@ -396,6 +473,36 @@ class ModelRunner:
             all_chosen.append(chosen)
             tokens, positions = ids, positions + 1
         return torch.stack(all_ids), torch.stack(all_chosen), tops
+
+    def run_embed(self, wb: WorkerBatch) -> np.ndarray:
+        """An extend pass that returns each row's L2-normalised last-token
+        hidden state (after the final norm), f32 [B_real, H]."""
+        with torch.inference_mode():
+            meta, _, _ = self._pad_to_buckets(wb)
+            meta.capture_hidden = True
+            emb = self.model(meta, self.kv_cache).float()
+            emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+            return emb.cpu().numpy()[: len(wb.seq_lens)]
+
+    SCORE_CHUNK = 128  # rows of the [T, V] logits built at a time
+
+    def run_score(self, wb: WorkerBatch) -> np.ndarray:
+        """Teacher-forced next-token logprobs of one extend batch: entry t is
+        log p(tokens[t + 1] | tokens[..t]) (the last entry has no target);
+        returns f32 [T_real]. The head runs ``SCORE_CHUNK`` rows at a time,
+        so the [T, V] logits are never built whole."""
+        T_real = len(wb.tokens)
+        with torch.inference_mode():
+            meta, _, _ = self._pad_to_buckets(wb)
+            meta.capture_all_hidden = True
+            h = self.model(meta, self.kv_cache)  # [T, H]
+            targets = torch.cat([meta.tokens[1:], meta.tokens.new_zeros(1)])
+            out = []
+            for c in range(0, h.shape[0], self.SCORE_CHUNK):
+                logits = self.model.head_logits(h[c : c + self.SCORE_CHUNK])
+                tc = targets[c : c + self.SCORE_CHUNK, None]
+                out.append(logits.gather(1, tc)[:, 0] - torch.logsumexp(logits, dim=-1))
+            return torch.cat(out).cpu().numpy()[:T_real]
 
     def forward_logits(self, wb: WorkerBatch) -> torch.Tensor:
         """The f32 logits [B_real, V] that one step of ``wb`` would sample
@@ -474,8 +581,8 @@ class ModelRunner:
         if adapters:
             i32[a : a + S] = wb.active_adapters
             i32[a + S : a + S + B_real] = wb.adapter_slots  # padding rows: slot 0
-        d64 = torch.from_numpy(i64).to(self.device)
-        d32 = torch.from_numpy(i32).to(self.device)
+        d64 = self._upload(i64)
+        d32 = self._upload(i32)
         meta = ForwardMeta(
             mode=wb.mode,
             tokens=d64[0:T],
@@ -513,4 +620,21 @@ class ModelRunner:
             input_token_mask=padB(si.input_token_mask, False),
             logit_bias=padB(si.logit_bias, 0.0),
         )
-        return meta, sinfo_host.to(self.device), sinfo_host.modes(V)
+        sinfo = SamplingBatchInfo(
+            **{
+                f.name: None if getattr(sinfo_host, f.name) is None
+                else self._upload(getattr(sinfo_host, f.name))
+                for f in dataclasses.fields(sinfo_host)
+            }
+        )
+        return meta, sinfo, sinfo_host.modes(V)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the runner's device. To the card it goes from a pinned
+        copy without a host sync (torch's caching host allocator keeps the
+        pinned block until the copy has run), so a window can be dispatched
+        while earlier work still runs."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)

@@ -304,12 +304,23 @@ class LlamaForCausalLM(nn.Module):
                 gate, up = lin(layer, "gate", h2, l), lin(layer, "up", h2, l)
             x = x + lin(layer, "down", silu_mul(gate, up), l)
         h = rms_norm(x, self.final_norm, eps)
+        if meta.capture_all_hidden:
+            return h  # [T, H], for sequence scoring
         last = h[meta.last_token_idx]  # [B, H]
+        if meta.capture_hidden:
+            return last
+        return self.head_logits(last)
+
+    def head_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """f32 logits of final-normed hidden rows ``h`` [N, H] through the
+        LM head (the 4-bit one where the head is quantized), soft-capped
+        where the model caps them."""
         if self.lm_head_q is not None:
-            logits = self.lm_head_q(last).float()
+            logits = self.lm_head_q(h).float()
         else:
             head = self.embed.weight if self.lm_head is None else self.lm_head.weight
-            logits = (last @ head.T).float()
-        if cfg.logit_softcap:
-            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+            logits = (h @ head.T).float()
+        cap = self.cfg.logit_softcap
+        if cap:
+            logits = cap * torch.tanh(logits / cap)
         return logits

@@ -2,17 +2,23 @@
 
 Counterpart of ``scratchpad_tpu/server/engine.py`` for one device and one
 host: the engine owns the Scheduler in-process and pumps its step loop.
-The port has ``generate``, ``generate_stream`` and per-request toppings
-(``register_topping``, then ``generate(..., topping=name)``); images,
-videos, grammars, embeddings, scoring and sessions are not ported yet and
-are refused.
+The port has ``generate``, ``generate_stream``, per-request toppings
+(``register_topping``, then ``generate(..., topping=name)``), embeddings
+(``encode``), teacher-forced scoring (``score``, ``perplexity``) and
+multi-turn sessions; images, videos and grammars are refused, and so are
+``update_weights`` and ``resize_kv_pool`` (not ported yet). The HTTP server
+drives the same engine from its async runner's thread
+(``server/async_runner.py``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import math
 import os
+import time
 import uuid
 from typing import Any, Iterator, Optional, Union
 
@@ -93,6 +99,8 @@ class Engine:
         # TTFT/ITL/TPOT/E2E sample sink
         self.latency = LatencyStats()
         self.toppings_manager: Optional[ToppingsManager] = None
+        # session id -> (token history, last use on the monotonic clock)
+        self._sessions: collections.OrderedDict = collections.OrderedDict()
 
     def _find_eos_ids(self) -> set[int]:
         ids: set[int] = set()
@@ -336,6 +344,120 @@ class Engine:
                 req.finished_at - req.created_at if req.finished_at else None
             ),
         )
+
+    def encode(
+        self,
+        prompt: Optional[Union[str, list[str]]] = None,
+        input_ids: Optional[Union[list[int], list[list[int]]]] = None,
+    ):
+        """Embeddings: each prompt's L2-normalised last-token hidden state
+        (after the final norm), f32 [H]; a list for a batch."""
+        batched = isinstance(prompt, list) or (
+            input_ids is not None
+            and len(input_ids) > 0
+            and isinstance(input_ids[0], (list, tuple))
+        )
+        prompts = prompt if isinstance(prompt, list) else [prompt]
+        if input_ids is not None and not batched:
+            idss = [input_ids]
+        else:
+            idss = input_ids if input_ids is not None else [None] * len(prompts)
+        if prompt is None:
+            prompts = [None] * len(idss)
+        reqs = []
+        for p, i in zip(prompts, idss):
+            r = self._make_req(p, i, SamplingParams(max_new_tokens=0))
+            r.is_embedding = True
+            reqs.append(r)
+            self.scheduler.add_request(r)
+        while any(not r.finished() for r in reqs):
+            if not self.scheduler.step() and not self.scheduler.has_work():
+                break
+        embs = [r.embedding for r in reqs]
+        return embs if batched else embs[0]
+
+    # --------------------------------------------------------------- sessions
+
+    def _session_sweep(self) -> None:
+        """Expire sessions idle longer than ``session_ttl``, then evict the
+        least recently used above ``max_sessions``."""
+        ttl = self.args.session_ttl
+        if ttl > 0:
+            now = time.monotonic()
+            for sid in [s for s, (_, t) in self._sessions.items() if now - t > ttl]:
+                del self._sessions[sid]
+        cap = self.args.max_sessions
+        while cap > 0 and len(self._sessions) > cap:
+            self._sessions.popitem(last=False)
+
+    def open_session(self) -> str:
+        """A multi-turn session: each ``session_generate`` continues from the
+        turns before it, and the radix cache makes the re-prefill cost only
+        the new tokens."""
+        sid = uuid.uuid4().hex
+        self._sessions[sid] = ([], time.monotonic())
+        self._session_sweep()
+        return sid
+
+    def close_session(self, sid: str) -> None:
+        self._sessions.pop(sid, None)
+
+    def session_generate(
+        self,
+        sid: str,
+        prompt: Optional[str] = None,
+        input_ids: Optional[list[int]] = None,
+        sampling_params: Optional[SamplingParams] = None,
+    ) -> GenerationOutput:
+        if sid not in self._sessions:
+            raise KeyError(f"unknown or expired session {sid!r}")
+        history, _ = self._sessions[sid]
+        if input_ids is None:
+            input_ids = self.tokenizer.encode(prompt)
+        full = history + list(input_ids)
+        out = self.generate(input_ids=full, sampling_params=sampling_params)
+        self._sessions[sid] = (full + out.output_ids, time.monotonic())
+        self._sessions.move_to_end(sid)
+        self._session_sweep()
+        return out
+
+    # ---------------------------------------------------------------- scoring
+
+    def score(self, input_ids: list[int]) -> list[float]:
+        """Teacher-forced next-token logprobs of a sequence: entry t is
+        log p(input_ids[t + 1] | input_ids[..t]). Needs an idle engine; its
+        pages are borrowed and returned."""
+        req = self._make_req(None, input_ids, SamplingParams(max_new_tokens=0))
+        req.is_score = True
+        sched = self.scheduler
+        sched.drain()
+        if sched.has_work():
+            raise RuntimeError("score() needs an idle engine")
+        sched._run_score_req(req)
+        if req.prompt_logprobs is None:
+            raise RuntimeError(f"a {len(input_ids)}-token sequence does not fit the KV pool")
+        return list(req.prompt_logprobs)
+
+    def perplexity(self, input_ids: list[int]) -> float:
+        lps = self.score(input_ids)
+        return math.exp(-sum(lps) / max(len(lps), 1))
+
+    def update_weights(self, model_path: Optional[str] = None, state: Optional[dict] = None):
+        raise NotImplementedError(
+            "update_weights is not ported to scratchpad_tpu_torch yet (ROADMAP Queue 1, item 9)"
+        )
+
+    def resize_kv_pool(self, new_num_tokens: int) -> int:
+        raise NotImplementedError(
+            "resize_kv_pool is not ported to scratchpad_tpu_torch yet (ROADMAP Queue 1, item 9)"
+        )
+
+    def shutdown(self) -> None:
+        """Finish what is in flight and drop the sessions; the engine holds
+        no other process or thread."""
+        for ev in self.scheduler.drain():
+            self._postprocess_event(ev)
+        self._sessions.clear()
 
     def flush_cache(self) -> None:
         """Drop the radix cache and return every page; needs an idle engine."""

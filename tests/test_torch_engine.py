@@ -211,14 +211,59 @@ def test_extend_runs_unpadded_and_decode_pads_to_buckets(engines):
         dict(enable_param_offload=True),
         dict(kv_cache_dtype="int4"),  # not a kv_cache_dtype of the JAX package
         dict(tp_size=2),
-        dict(enable_overlap=True),
-        dict(decode_pipeline_depth=2),
+        "update_weights",
+        "resize_kv_pool",
+        "memory_pool over HTTP",
         dict(host_kv_cache_tokens=1024),
     ],
 )
 def test_unported_settings_are_refused(setting):
-    with pytest.raises(NotImplementedError):
-        ServerArgs(preset="tiny-debug", device="cpu", **setting).resolve()
+    """Settings resolve() refuses, and the engine entries and the HTTP route
+    that stay unported (ROADMAP Queue 1, item 9)."""
+    if isinstance(setting, dict):
+        with pytest.raises(NotImplementedError):
+            ServerArgs(preset="tiny-debug", device="cpu", **setting).resolve()
+        return
+    eng = Engine(ServerArgs(device="cpu", **ARGS))
+    if setting == "update_weights":
+        with pytest.raises(NotImplementedError, match="item 9"):
+            eng.update_weights(state={})
+    elif setting == "resize_kv_pool":
+        with pytest.raises(NotImplementedError, match="item 9"):
+            eng.resize_kv_pool(4096)
+    else:
+        import json
+        import socket
+        import urllib.error
+        import urllib.request
+
+        from scratchpad_tpu_torch.server.http_server import ServerApp, ServerThread
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            eng.args.port = s.getsockname()[1]
+        srv = ServerThread(ServerApp(eng, eng.args))
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{eng.args.port}/memory_pool",
+                data=json.dumps({"max_total_tokens": 4096}).encode(),
+            )
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(req, timeout=30)
+            assert err.value.code == 501 and "item 9" in json.loads(err.value.read())["message"]
+        finally:
+            srv.stop()
+
+
+@pytest.mark.parametrize(
+    "setting",
+    [dict(enable_overlap=True), dict(enable_overlap=False),
+     dict(decode_pipeline_depth=2), dict(enable_overlap=True, decode_pipeline_depth=3)],
+)
+def test_overlap_settings_resolve(setting):
+    args = ServerArgs(preset="tiny-debug", device="cpu", **setting).resolve()
+    for k, v in setting.items():
+        assert getattr(args, k) == v
 
 
 @pytest.mark.parametrize("quantization", ["w4a8", "w4a16", "w4", "awq", "gptq", "gptq_v2"])

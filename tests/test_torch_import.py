@@ -2,7 +2,11 @@
 
 A subprocess imports every module of ``scratchpad_tpu_torch`` (and
 ``chip_smoke``) and serves a tiny CPU Engine, then lists what it loaded;
-a source scan checks every import statement of the package.
+a source scan checks every import statement of the package. A second
+subprocess blocks ``jax``, the JAX package and the serving packages that the
+card's machine lacks (``aiohttp``, ``pydantic``, ``prometheus_client``,
+``requests``), then imports every module, ``server.http_server`` and
+``cli.sp`` among them, and answers a completion over HTTP.
 """
 
 import ast
@@ -46,6 +50,63 @@ def test_import_and_serve_leave_jax_out():
     assert loaded == [], loaded
 
 
+BLOCKED = ("jax", "jaxlib", "scratchpad_tpu", "aiohttp", "pydantic", "prometheus_client", "requests")
+
+_BLOCKED_PROBE = """
+import importlib, json, pkgutil, sys, urllib.request
+
+BLOCKED = %r
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import scratchpad_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(scratchpad_tpu_torch.__path__, "scratchpad_tpu_torch.")]
+assert "scratchpad_tpu_torch.server.http_server" in names and "scratchpad_tpu_torch.cli.sp" in names
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+from scratchpad_tpu_torch.config import ServerArgs
+from scratchpad_tpu_torch.server.engine import Engine
+from scratchpad_tpu_torch.server.http_server import ServerApp, ServerThread
+from scratchpad_tpu_torch.utils.client import post_json
+args = ServerArgs(preset="tiny-debug", random_weights=True, dtype="float32", device="cpu",
+                  page_size=4, max_total_tokens=512, port=int(sys.argv[1]))
+srv = ServerThread(ServerApp(Engine(args), args))
+out = post_json(f"http://127.0.0.1:{args.port}/v1/completions",
+                {"model": "m", "prompt": [1, 2, 3], "max_tokens": 3, "temperature": 0.0,
+                 "ignore_eos": True, "logprobs": 1})
+assert len(out["choices"][0]["logprobs"]["tokens"]) == 3
+with urllib.request.urlopen(f"http://127.0.0.1:{args.port}/metrics") as r:
+    assert b"scratchpad_tpu:time_to_first_token_seconds_count 1.0" in r.read()
+srv.stop()
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)))
+""" % (BLOCKED,)
+
+
+def test_import_and_serve_with_serving_packages_blocked():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_PROBE, str(port)],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 def _imported_modules(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -71,7 +132,7 @@ def test_source_imports_no_jax():
         (str(f.relative_to(ROOT)), name)
         for f in files
         for name in _imported_modules(f)
-        if name.split(".")[0] in ("jax", "jaxlib", "scratchpad_tpu")
+        if name.split(".")[0] in BLOCKED
     ]
     assert bad == []
 
