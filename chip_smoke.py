@@ -78,7 +78,16 @@ Phases, in order; any failure exits non-zero before the last line:
    kernel's stage cuts (1, 2, 3 and 5) against their plain functions
    (``gqa_decode.py::paged_decode_attention_stage_plain``) at each shape
    the stage table times (Llama-3.2-1B's, 3B's and Mistral-7B's decode at
-   B 64, ctx 4096), within ATOL + RTOL * |plain|.
+   B 64, ctx 4096), within ATOL + RTOL * |plain|. Head_dim 256 over bf16
+   pages (Gemma) at Gemma-2-2B's (G 2, Hkv 4) and Gemma-3-1B's (G 4, Hkv 1)
+   shapes: decode at B 1, 2 and 64 and every ``DECODE_CHECK_CTX``, padding
+   rows, split-edge rows, and rows whose window's first token falls a token
+   before, on and after a split boundary or a page edge, under each (cap,
+   window) of ``CAPS_WINDOWS_256`` (caps none and 50; windows none, 4096,
+   512 and 1) on the same pool in turn; extend on ``EXTEND_CASES_256``
+   (mixed chunks, cached prefixes, padding, a 2048-token chunk over 6,000
+   cached tokens); and Gemma's layers in turn on one pool (local, global,
+   local) through both kernels, the two local calls bit-equal.
 4. engines: ``Engine.generate`` at full width and depth with random
    weights: Llama-3.2-1B in bf16, then with ``quantization="w4a8"``, then
    W4A16 on the same engine and codes (every ``QuantLinear`` switched to
@@ -87,7 +96,13 @@ Phases, in order; any failure exits non-zero before the last line:
    weights with bf16 KV; Llama-3.2-1B in bf16 with fp8 KV; Mistral-7B-v0.1
    (its published config, window 4096) in bf16 under
    ``attention_backend="auto"``, then under ``"pallas"`` on the same
-   weights. Each serves greedy requests of different lengths, two that
+   weights; Qwen3-8B in bf16 (qk-norm, an untied head), then with W4A8 at
+   ``QWEN3_W4A8_LAYERS`` layers and the int8 KV that ``"auto"`` gives its
+   full depth (logits only, not timed); Gemma-2-2B in bf16 (head_dim 256,
+   window 4096 on alternate layers, caps 50 and 30) with
+   ``WINDOW_REQUESTS``; Gemma-3-1B (``GEMMA3_1B``, its config.json: window
+   512 on five layers of six, one kv head) with ``GEMMA3_REQUESTS``, not
+   timed. Each serves greedy requests of different lengths, two that
    share a long prefix (radix hit), one longer than
    ``chunked_prefill_size``; Mistral-7B a 6,000-token prompt and a 4,090-token
    one whose decode crosses the window's edge (``WINDOW_REQUESTS``), and the
@@ -162,7 +177,10 @@ Phases, in order; any failure exits non-zero before the last line:
    beforehand), at 1B decode (bs 64, one and three delta slots) and one
    2048-token prefill chunk; decode at every shape of ``DECODE_TIMED``, B 1
    (split across the card) at 4096 and 8192 tokens among them. At
-   Mistral-7B's shape: decode at bs 64 and ctx
+   Gemma-2-2B's (G 2, Hkv 4, head_dim 256): decode at bs 64, ctx 4096 and
+   8192 with its window of 4096, and B 1 at 8192 (``DECODE_TIMED_256``);
+   extend at 64 x (128, 128) and a 2048-token chunk on 8192 with W 4096.
+   At Mistral-7B's shape: decode at bs 64 and ctx
    4096 and 8192 without a window and 8192 with W 4096 (through both
    wrappers), the 2048-token extend chunk on 4096, 5120 and 8192 tokens
    without a window and on 8192 with it; the bound counts the live window
@@ -225,6 +243,7 @@ ATOL, RTOL = 1e-4, 2.0**-8
 LOGIT_RTOL = {
     "bf16": 3e-2, "w4a8": 1e-1, "w4a16": 3e-2, "3b-w4a8": 1e-1, "1b-fp8kv": 5e-2,
     "1b-toppings": 5e-2, "w4a8-toppings": 1e-1, "mistral-7b": 3e-2, "mistral-7b-pallas": 3e-2,
+    "qwen3-8b": 3e-2, "qwen3-8b-w4a8": 1e-1, "gemma-2-2b": 3e-2, "gemma-3-1b": 3e-2,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -232,10 +251,13 @@ LOGIT_RTOL = {
 # (PERF.md, Findings). A flip needs the two logits' differences to sum to
 # the gap, so an excuse that scales with the row's own max |diff| would
 # pass every flip; this one is a fixed floor. The 8-bit KV engines take it
-# too, since each path quantizes its own K/V rows.
+# too, since each path quantizes its own K/V rows. Qwen3-8B W4A8 (8 layers,
+# int8 KV) takes the toppings engines' 3e-2: its sound kernels flip a row
+# at a gap of 2.128e-2, with max |diff| 5.0e-2 (PERF.md, Findings).
 ARGMAX_FLOOR = {
     "bf16": 0.0, "w4a8": 2e-2, "w4a16": 0.0, "3b-w4a8": 2e-2, "1b-fp8kv": 2e-2,
     "1b-toppings": 3e-2, "w4a8-toppings": 3e-2, "mistral-7b": 0.0, "mistral-7b-pallas": 0.0,
+    "qwen3-8b": 0.0, "qwen3-8b-w4a8": 3e-2, "gemma-2-2b": 0.0, "gemma-3-1b": 0.0,
 }
 # Each adapter must move its rows' logits (max|adapted - base| / max|base|)
 # by at least this many times the engine's kernel-vs-plain reading, so that
@@ -431,9 +453,13 @@ def phase_build():
     report = native.build(native.KERNEL_SOURCES + DECODE_STAGE_TARGETS)
     for name, r in report.items():
         log(f"[build] {name}: {r['seconds']:.1f} s")
+        entry = ""  # the kernel (mangled name) ptxas reports on
         for line in r["log"].splitlines():
-            if any(w in line for w in ("registers", "spill", "error", "warning")):
-                log(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif any(w in line for w in ("registers", "spill", "error", "warning")):
+                log(f"[build]   {entry}: {line.strip()}" if "registers" in line or "spill" in line
+                    else f"[build]   {line.strip()}")
     log(f"[build] all kernels in {time.monotonic() - t0:.1f} s")
     # what the tensor-core kernels run on: products (HGMMA and IGMMA are
     # wgmma over bf16 and int8, HMMA and IMMA mma.sync) and asynchronous
@@ -558,13 +584,13 @@ def check_decode(errs: dict) -> None:
                     check(same, f"{kind} decode kernel's split calls differ at G={G} D={D} {what}")
 
 
-def extend_case(chunks, D, T_pad, seed, G=4):
+def extend_case(chunks, D, T_pad, seed, G=4, Hkv=8):
     """chunks: (q_len, kv_len) per sequence; tokens past the chunks up to
     T_pad are padding."""
     import torch
 
     gen = seeded(seed)
-    Hkv, ps = 8, 16
+    ps = 16
     q_lens = [c[0] for c in chunks]
     kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
     cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
@@ -750,6 +776,198 @@ def check_window_extend(errs: dict) -> None:
                 )
             del k, v, ks, vs
     log(f"[check] extend at the Mistral shape, cap and window: worst err/tol {worst:.3f} over {n} cases")
+
+
+# Gemma's attention at head_dim 256 (bf16 pages): (G, Hkv) of Gemma-2-2B
+# (8 query and 4 kv heads) and of Gemma-3-1B (4 and 1)
+HEAD256_SHAPES = ((2, 4), (4, 1))
+# (cap, window) of the head_dim 256 checks: Gemma 2's attention cap of 50 and
+# local window of 4096, Gemma 3's window of 512, a window of one token
+CAPS_WINDOWS_256 = [(None, None), (50.0, None), (None, 4096), (50.0, 4096), (None, 512), (None, 1)]
+# the windows whose first token the page-edge rows put a token before, on
+# and after a page edge, and the split-edge rows on a split boundary
+EDGE_WINDOWS_256 = (512, 4096)
+# the kernels' entries of the head_dim 256 branch in the kernels line
+DECODE_256 = "paged_decode_attention (head_dim 256, per-layer window)"
+EXTEND_256 = "paged_extend_attention (head_dim 256, per-layer window)"
+
+
+def page_edge_lens(window: int, page: int = 16) -> list[int]:
+    """Rows whose window's first token (len - W) falls one token before, on
+    and one token after a page edge, beside a row whose first token lies
+    inside a page."""
+    edge = 5 * page
+    return [window + edge - 1, window + edge, window + edge + 1, window + 40 * page + 3]
+
+
+def head256_lens(case, gen, Hkv: int, G: int):
+    """Row lengths of a head_dim 256 decode check (see ``check_decode_256``)."""
+    import torch
+
+    D = 256
+    if case == "padding":
+        lens = [300, 0, 17, 0]
+    elif case == "split edges":
+        lens = split_edge_lens(4096, Hkv, D, G)
+    elif case[0] == "split edges":
+        lens = split_edge_lens(8192, Hkv, D, G, case[1])
+    elif case[0] == "page edges":
+        lens = page_edge_lens(case[1])
+    else:
+        B, ctx = case
+        t = torch.randint(ctx // 2, ctx + 1, (B,), generator=gen, device="cuda")
+        t[0] = ctx
+        return t.to(torch.int32)
+    return torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def check_decode_256(errs: dict) -> None:
+    """The decode kernel at head_dim 256 over bf16 pages at Gemma-2-2B's and
+    Gemma-3-1B's (G, Hkv): B 1, 2 and 64 at each context of
+    ``DECODE_CHECK_CTX``, a batch with ``seq_len == 0`` rows, rows ending a
+    token before, on and after a boundary of the plan's splits, rows whose
+    window's first token falls a token before, on and after a split boundary
+    or a page edge, each (cap, window) of ``CAPS_WINDOWS_256`` on the same
+    pool in turn (the edge rows at their own window only). Where the plan
+    splits a row, a second call must give the same bits."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import paged_decode_attention, paged_decode_attention_plain
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
+
+    D, ps = 256, 16
+    scale = 1.0 / math.sqrt(D)
+    seed, n, worst = 20_000, 0, 0.0
+    for G, Hkv in HEAD256_SHAPES:
+        cases = [(B, ctx) for B in DECODE_CHECK_B for ctx in DECODE_CHECK_CTX] + ["padding", "split edges"]
+        cases += [(edge, w) for edge in ("split edges", "page edges") for w in EDGE_WINDOWS_256]
+        for case in cases:
+            seed += 1
+            gen = seeded(seed)
+            lens = head256_lens(case, gen, Hkv, G)
+            k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
+            k, v = k[0], v[0]
+            q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+            plan = decode_plan(len(lens), Hkv, pt.shape[1], D, G)
+            edge = isinstance(case, tuple) and isinstance(case[0], str)
+            what = case if isinstance(case, str) else (
+                f"{case[0]} {lens.tolist()}" if edge else f"B={case[0]} ctx={case[1]}")
+            for cap, window in CAPS_WINDOWS_256:
+                if edge and (window != case[1] or cap is not None):
+                    continue
+                qc = capped_q(q, cap)
+                out = paged_decode_attention(qc, k, v, pt, lens, scale, cap, window)
+                ref = paged_decode_attention_plain(qc.float(), k, v, pt, lens, scale, None, None, cap, window)
+                same = plan.splits == 1 or torch.equal(
+                    out, paged_decode_attention(qc, k, v, pt, lens, scale, cap, window))
+                torch.cuda.synchronize()
+                e, ratio = max_err(out, ref)
+                zero = bool((out[lens == 0] == 0).all())
+                errs[DECODE_256] = max(errs[DECODE_256], e)
+                worst, n = max(worst, ratio), n + 1
+                log(
+                    f"[check] decode bf16 G={G} Hkv={Hkv} D=256 {what} {cap_window(cap, window)}: "
+                    f"max_abs_err {e:.3e}, max err/tol {ratio:.3f}, zero rows exact: {zero}"
+                    + (f"; {plan.splits} splits, second call bit-equal: {same}" if plan.splits > 1 else "")
+                )
+                check(ratio <= 1 and zero, f"decode kernel disagrees with its plain version at "
+                                           f"G={G} Hkv={Hkv} D=256 {what} {cap_window(cap, window)}")
+                check(same, f"decode kernel's split calls differ at G={G} Hkv={Hkv} D=256 {what} "
+                            f"{cap_window(cap, window)}")
+            del k, v
+    log(f"[check] decode at head_dim 256: worst err/tol {worst:.3f} over {n} cases")
+
+
+# head_dim 256 extend cases: mixed chunks, cached prefixes and padded
+# tokens; window edges inside a query tile and a page; a 2048-token chunk
+# over 6,000 cached tokens, whose window of 4096 starts inside its KV tiles
+EXTEND_CASES_256 = [
+    ([(1000, 1000), (512, 2560), (7, 1031), (1, 300)], 2048),
+    ([(100, 1100), (37, 1037), (300, 300), (1, 5000), (250, 4346)], 720),
+    ([(2048, 8048)], 2048),
+]
+
+
+def check_extend_256(errs: dict) -> None:
+    """The extend kernel at head_dim 256 over bf16 pages at Gemma-2-2B's and
+    Gemma-3-1B's (G, Hkv), each case of ``EXTEND_CASES_256`` under each
+    (cap, window) of ``CAPS_WINDOWS_256`` on the same pool in turn; padded
+    tokens must come out as exact zeros."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import paged_extend_attention, paged_extend_attention_plain
+
+    scale = 1.0 / 16.0
+    seed, n, worst = 21_000, 0, 0.0
+    for G, Hkv in HEAD256_SHAPES:
+        for chunks, T_pad in EXTEND_CASES_256:
+            seed += 1
+            q, k, v, pt, kv_lens, cu = extend_case(chunks, 256, T_pad, seed, G, Hkv)
+            n_real = int(cu[-1])
+            for cap, window in CAPS_WINDOWS_256:
+                qc = capped_q(q, cap)
+                out = paged_extend_attention(qc, k, v, pt, kv_lens, cu, scale, cap, window)
+                ref = paged_extend_attention_plain(qc.float(), k, v, pt, kv_lens, cu, scale, None, None,
+                                                   cap, window)
+                torch.cuda.synchronize()
+                e, ratio = max_err(out, ref)
+                zero = bool((out[n_real:] == 0).all())
+                errs[EXTEND_256] = max(errs[EXTEND_256], e)
+                worst, n = max(worst, ratio), n + 1
+                log(
+                    f"[check] extend bf16 G={G} Hkv={Hkv} D=256 chunks={chunks} T={q.shape[0]} "
+                    f"{cap_window(cap, window)}: max_abs_err {e:.3e}, max err/tol {ratio:.3f}, "
+                    f"{q.shape[0] - n_real} padded tokens zero: {zero}"
+                )
+                check(ratio <= 1 and zero, f"extend kernel disagrees with its plain version at G={G} "
+                                           f"Hkv={Hkv} D=256 chunks={chunks} {cap_window(cap, window)}")
+            del k, v
+    log(f"[check] extend at head_dim 256: worst err/tol {worst:.3f} over {n} cases")
+
+
+def check_window_sequence_256() -> None:
+    """Gemma's layers in turn on one pool: local (window 4096), global (no
+    window), local again, through both kernels at Gemma-2-2B's shape. Each
+    call must agree with its plain version, the two local calls must give
+    the same bits, and the global call must differ from them (a window that
+    leaks from one call to the next fails here)."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_extend_attention,
+        paged_extend_attention_plain,
+    )
+
+    G, Hkv, D, W = 2, 4, 256, 4096
+    scale = 1.0 / 16.0
+    gen = seeded(22_000)
+    lens = torch.randint(W + 1, 8193, (64,), generator=gen, device="cuda").to(torch.int32)
+    k, v, pt = make_pool(lens.tolist(), Hkv, D, 16, 1, gen)
+    q = torch.randn(64, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    q_ext, k_ext, v_ext, pt_ext, kv_lens, cu = extend_case([(2048, 8048), (300, 5000)], D, 2400, 22_001, G, Hkv)
+    runs = {
+        "decode": (lambda w: paged_decode_attention(q, k[0], v[0], pt, lens, scale, 50.0, w),
+                   lambda w: paged_decode_attention_plain(q.float(), k[0], v[0], pt, lens, scale, None, None,
+                                                          50.0, w)),
+        "extend": (lambda w: paged_extend_attention(q_ext, k_ext, v_ext, pt_ext, kv_lens, cu, scale, 50.0, w),
+                   lambda w: paged_extend_attention_plain(q_ext.float(), k_ext, v_ext, pt_ext, kv_lens, cu,
+                                                          scale, None, None, 50.0, w)),
+    }
+    for name, (kern, plain) in runs.items():
+        outs = [kern(w) for w in (W, None, W)]
+        torch.cuda.synchronize()
+        ratios = [max_err(o, plain(w))[1] for o, w in zip(outs, (W, None, W))]
+        same = torch.equal(outs[0], outs[2])
+        moved = float((outs[0].float() - outs[1].float()).abs().max())
+        log(
+            f"[check] {name} D=256 window sequence local, global, local: err/tol {ratios[0]:.3f}, "
+            f"{ratios[1]:.3f}, {ratios[2]:.3f}; locals bit-equal: {same}; global moves by {moved:.3e}"
+        )
+        check(max(ratios) <= 1 and same and moved > 0,
+              f"{name} kernel at head_dim 256: a per-layer window leaks between calls")
+    del k, v, k_ext, v_ext
 
 
 def decode_meta(pt, lens):
@@ -1275,9 +1493,10 @@ def dense_kv(cache, scale, pt, ps: int, B: int, n: int):
 
 
 def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
-                window=None, wrapper: str = "auto") -> dict:
+                window=None, wrapper: str = "auto", Hkv: int = 8) -> dict:
     """Decode at page 16 over Hkv 8: Llama-3.2-1B is G 4, D 64; 3B is G 3,
-    D 128; Mistral-7B G 4, D 128, with its window of 4096. ``kind``: bf16
+    D 128; Mistral-7B G 4, D 128, with its window of 4096; Gemma-2-2B G 2,
+    D 256 over Hkv 4, its local layers' window 4096. ``kind``: bf16
     pages, or int8 / fp8 codes with bf16 scales. ``wrapper`` "pallas": the
     kernel through ``decode_attention_pallas`` (row 9). The bound counts
     the bytes and operations of the live window only; the library call
@@ -1288,7 +1507,7 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     from scratchpad_tpu_torch.memory.kv_cache import KVCache
     from scratchpad_tpu_torch.ops.attention import decode_attention_pallas, paged_decode_attention_plain
 
-    Hkv, ps = 8, 16
+    ps = 16
     elem = 2 if kind == "bf16" else 1
     per_layer = B * ctx * Hkv * D * 2 * elem
     layers = max(2, min(16, -(-256 * 2**20 // per_layer)))
@@ -1335,15 +1554,17 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     return r
 
 
-def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None) -> dict:
-    """The extend at page 16 over Hkv 8; with ``window``, the bound counts
-    the keys some query's window holds and the pairs the windows attend."""
+def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None,
+                Hkv: int = 8) -> dict:
+    """The extend at page 16 over Hkv 8 (or ``Hkv``); with ``window``, the
+    bound counts the keys some query's window holds and the pairs the
+    windows attend."""
     import torch
     import torch.nn.functional as F
 
     from scratchpad_tpu_torch.ops.attention import paged_extend_attention_plain
 
-    Hkv, ps = 8, 16
+    ps = 16
     elem = 2 if kind == "bf16" else 1
     kv_total = sum(c[1] for c in chunks)
     per_layer = kv_total * Hkv * D * 2 * elem
@@ -1728,6 +1949,14 @@ DECODE_TIMED = [
 ]
 
 
+# Gemma-2-2B's decode (G 2, D 256, Hkv 4) at bs 64 under its local window
+# of 4096 at ctx 4096 and 8192, and one row of 8192 tokens (a global layer)
+DECODE_TIMED_256 = [
+    (64, 8192, 256, 2, "bf16", 4096, "auto"), (64, 4096, 256, 2, "bf16", 4096, "auto"),
+    (1, 8192, 256, 2, "bf16", None, "auto"),
+]
+
+
 def decode_timed_kernel(kind: str, wrapper: str) -> str:
     """The kernel name a ``DECODE_TIMED`` row times."""
     return "decode_attention_pallas" if wrapper == "pallas" else DECODE[kind]
@@ -1762,6 +1991,18 @@ def phase_timing() -> dict:
     })
     for name, rows in t.items():
         for r in rows:
+            log(
+                f"[time] {name} {r['shape']}: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library {r['library_ms']:.4f} ms"
+            )
+    # head_dim 256, Gemma-2-2B's shape (G 2 over Hkv 4), its local window
+    t[DECODE_256] = [time_decode(*row, Hkv=4) for row in DECODE_TIMED_256]
+    t[EXTEND_256] = [
+        time_extend([(128, 128)] * 64, 256, 2, Hkv=4),
+        time_extend([(2048, 8192)], 256, 2, window=4096, Hkv=4),
+    ]
+    for name in (DECODE_256, EXTEND_256):
+        for r in t[name]:
             log(
                 f"[time] {name} {r['shape']}: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library {r['library_ms']:.4f} ms"
@@ -2137,11 +2378,49 @@ class NoWindow:
 REQUESTS = [(5, 32), (37, 32), (128, 32), (300, 32), (511, 32), ("chunk+952", 32)]
 # Mistral-7B's, window 4096: a prompt of three 2048-token chunks, the last
 # two past the window, and one whose 16 decode steps cross the window's edge
+# (Gemma-2-2B's local layers have the same window)
 WINDOW_REQUESTS = [(5, 32), (37, 32), (300, 32), (6000, 32), (4090, 16)]
+# Gemma-3-1B's, window 512: prompts past the window, one in a single chunk
+# and one of two chunks, and one whose 16 decode steps cross its edge; its
+# two prompts that share a prefix share 1,100 tokens, over twice the window
+# (the 600 of the other engines cross it by 113 and 128 tokens, which moved
+# the logits by 9.4 and 9.8 times the kernel-vs-plain reading, PERF.md §6)
+GEMMA3_REQUESTS = [(5, 32), (37, 32), (300, 32), (1500, 32), (3000, 32), (505, 16)]
+GEMMA3_SHARED = 1100
+# Gemma-3-1B's published config.json (huggingface.co/google/gemma-3-1b-pt,
+# config.json, the text model), read through ModelConfig.from_hf_config; the
+# weights are random, drawn on the card
+GEMMA3_1B = {
+    "architectures": ["Gemma3ForCausalLM"],
+    "vocab_size": 262144,
+    "hidden_size": 1152,
+    "intermediate_size": 6912,
+    "num_hidden_layers": 26,
+    "num_attention_heads": 4,
+    "num_key_value_heads": 1,
+    "head_dim": 256,
+    "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0,
+    "rope_local_base_freq": 10000.0,
+    "rope_scaling": None,
+    "query_pre_attn_scalar": 256,
+    "sliding_window": 512,
+    "sliding_window_pattern": 6,
+    "attn_logit_softcapping": None,
+    "final_logit_softcapping": None,
+    "hidden_activation": "gelu_pytorch_tanh",
+    "model_type": "gemma3_text",
+}
+# Qwen3-8B's W4A8 engine keeps this many of its 36 layers (its host-side
+# quantization takes about a second a layer); hidden x layers then falls
+# under the auto rule's 50,000, so it takes int8 KV as auto gives the full
+# depth
+QWEN3_W4A8_LAYERS = 8
 
 
 def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
-                 requests=REQUESTS) -> dict:
+                 requests=REQUESTS, shared_len: int = 600) -> dict:
     """Serve the request set through ``Engine.generate`` with every launch
     count set to 0 just before and read just after; check each request,
     the radix hit, the launches of both attention kernels of the pool's
@@ -2184,7 +2463,7 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
 
     rng = np.random.default_rng(0)
     V = cfg.vocab_size
-    shared = rng.integers(1, V, 600).tolist()
+    shared = rng.integers(1, V, shared_len).tolist()
     chunk = engine.args.chunked_prefill_size
     lens = [chunk + 952 if n == "chunk+952" else n for n, _ in requests]
     prompts = [rng.integers(1, V, n).tolist() for n in lens] + [shared + rng.integers(1, V, 40).tolist()]
@@ -2222,7 +2501,7 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     else:  # the shared prefix's KV was computed under another adapter
         check(outs[-1].cached_tokens == 0, f"{label}: KV reused across adapters: {outs[-1].cached_tokens}")
     log(
-        f"[engine {label}] shared 600-token prefix under adapters {tops[-2]} and {tops[-1]}: "
+        f"[engine {label}] shared {shared_len}-token prefix under adapters {tops[-2]} and {tops[-1]}: "
         f"{outs[-1].cached_tokens} cached tokens; prompts of {lens} tokens (chunks of {chunk})"
     )
     pages = runner.kv_cache_dtype if runner.kv_cache.quantized else "bf16"
@@ -2846,13 +3125,32 @@ KERNELS = {
         source="scratchpad_tpu_torch/csrc/decode_ablate.cu",
         replaces="tools/profiling/_ablate.py:11 (make_kernel, launched :106)",
     ),
+    # the head_dim 256 branch of rows 1 and 3 with Gemma's per-layer windows,
+    # through the bf16 wrappers (their launches: the gemma-2-2b engine's)
+    DECODE_256: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/gqa_decode.py:92 (_gqa_decode_kernel at Dp 256, "
+        "dynamic_window :102, 112-117, 169-170)",
+    ),
+    EXTEND_256: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_extend_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 (bundled ragged_paged_attention "
+        "via _ragged_call; at head_dim 256 the JAX package extends in XLA, "
+        "executor/model_runner.py:185)",
+    ),
 }
+# the wrapper whose launch count a kernel entry reports, where it is not the
+# entry's own name
+KERNEL_WRAPPER = {DECODE_256: "paged_decode_attention", EXTEND_256: "paged_extend_attention"}
 # the engine run whose launches each kernel's entry reports
 KERNEL_ENGINE = {
     "paged_decode_attention": "bf16", "paged_extend_attention": "bf16",
     "paged_decode_attention_quant": "3b-w4a8", "paged_extend_attention_quant": "3b-w4a8",
     "quantize_rows_int8": "w4a8", "w4a8_matmul": "w4a8", "w4a16_matmul": "w4a16",
     "delta_matmul_grouped": "1b-toppings", "decode_attention_pallas": "mistral-7b-pallas",
+    DECODE_256: "gemma-2-2b", EXTEND_256: "gemma-2-2b",
 }
 
 
@@ -2877,8 +3175,10 @@ def main() -> None:
     name, smi_line = phase_device()
     timed(phase_build)
     errs = {k: 0.0 for k in KERNELS}
-    for fn in (check_decode, check_extend, check_window_decode, check_window_extend, check_pallas_decode):
+    for fn in (check_decode, check_extend, check_window_decode, check_window_extend, check_pallas_decode,
+               check_decode_256, check_extend_256):
         timed(fn, errs)
+    timed(check_window_sequence_256)
     timed(check_kv_quantizer)
     timed(check_w4, errs)
     timed(check_delta, errs)
@@ -2890,9 +3190,9 @@ def main() -> None:
     w4a8 = ("quantize_rows_int8", "w4a8_matmul")
 
     def serve(engine, label, w4_kernels=(), logits=True, toppings=None, timed=True,
-              requests=REQUESTS):
+              requests=REQUESTS, shared_len=600):
         t = time.monotonic()
-        engines[label] = phase_engine(engine, label, w4_kernels, logits, toppings, requests)
+        engines[label] = phase_engine(engine, label, w4_kernels, logits, toppings, requests, shared_len)
         t_times = time.monotonic()
         if timed and not FAILURES:
             phase_engine_times(engine, engines[label], label)
@@ -2971,6 +3271,36 @@ def main() -> None:
         f"[engine mistral-7b-pallas] greedy tokens equal to mistral-7b's on {same} of "
         f"{len(engines['mistral-7b']['output_ids'])} requests (the same kernels on the same weights)"
     )
+    # Qwen3-8B at full width and depth, bf16: qk-norm, an untied head
+    from scratchpad_tpu_torch.config.model_config import get_preset
+    from scratchpad_tpu_torch.executor.model_runner import resolve_kv_cache_dtype
+
+    engine = make_engine(preset="qwen3-8b")
+    serve(engine, "qwen3-8b")
+    del engine
+    # Qwen3-8B W4A8, cut in depth, with the int8 KV that kv_cache_dtype auto
+    # gives the full model (logits only; its kernels are held elsewhere)
+    from scratchpad_tpu_torch.config import ServerArgs
+
+    auto_kv = resolve_kv_cache_dtype(
+        ServerArgs(preset="qwen3-8b", quantization="w4a8").resolve(), get_preset("qwen3-8b"),
+        torch.device("cuda"),
+    )
+    check(auto_kv == "int8", f"Qwen3-8B W4A8 auto KV resolved to {auto_kv}, not int8")
+    engine = make_engine("w4a8", kv_cache_dtype="int8",
+                         model_config=get_preset("qwen3-8b", num_hidden_layers=QWEN3_W4A8_LAYERS))
+    serve(engine, "qwen3-8b-w4a8", w4a8, timed=False)
+    del engine
+    # Gemma-2-2B at full width and depth, bf16: head_dim 256, local layers
+    # (window 4096) and global ones in turn, attention cap 50, final cap 30
+    engine = make_engine(preset="gemma-2-2b")
+    serve(engine, "gemma-2-2b", requests=WINDOW_REQUESTS)
+    del engine
+    # Gemma-3-1B (its config.json): qk-norm, two rope bases, window 512 on
+    # five layers of six, G 4 over one kv head
+    engine = make_engine(model_config=ModelConfig.from_hf_config(GEMMA3_1B))
+    serve(engine, "gemma-3-1b", requests=GEMMA3_REQUESTS, timed=False, shared_len=GEMMA3_SHARED)
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
     if FAILURES:
@@ -3000,12 +3330,13 @@ def main() -> None:
         else:
             eng = engines[KERNEL_ENGINE[kname]]
             counts = eng["counts"]
-            per_forward = eng["counts"][kname] / max(eng["steps"][kname], 1)
+            wrapper = KERNEL_WRAPPER.get(kname, kname)
+            per_forward = eng["counts"][wrapper] / max(eng["steps"][wrapper], 1)
         kernels.append(
             dict(
                 name=kname,
                 **meta,
-                launches=counts[kname],
+                launches=counts[KERNEL_WRAPPER.get(kname, kname)],
                 launches_per_forward=per_forward,
                 max_abs_err=errs[kname],
                 ms=main_shape["ms"],

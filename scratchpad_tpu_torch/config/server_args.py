@@ -152,6 +152,11 @@ class ServerArgs:
                 f"attention_backend='pallas' decodes bf16 pages only, not "
                 f"kv_cache_dtype={self.kv_cache_dtype!r} (use attention_backend='auto')"
             )
+        if self.preset is not None and self.kv_cache_dtype in ("int8", "fp8"):
+            from scratchpad_tpu_torch.config.model_config import get_preset
+            from scratchpad_tpu_torch.memory.kv_cache import check_quant_kv_head_dim
+
+            check_quant_kv_head_dim(get_preset(self.preset).head_dim)
         if self.decode_pipeline_depth is not None and self.decode_pipeline_depth < 1:
             raise ValueError(f"decode_pipeline_depth must be >= 1; got {self.decode_pipeline_depth}")
         if self.served_model_name is None:

@@ -32,7 +32,8 @@
 // design is flash attention on the tensor cores:
 //   - A CTA takes one tile of bq = 128 / G query tokens of ONE sequence
 //     times the G query heads of ONE kv head: 128 (token, head) rows in two
-//     warpgroups of 64 (one wgmma M tile each), so every K/V tile it loads
+//     warpgroups of 64 (one wgmma M tile each; at D 256 one warpgroup and
+//     64 / G tokens, below), so every K/V tile it loads
 //     serves all G heads and both warpgroups. Grid (tiles, Hkv), walked from
 //     the last tile so that the tiles with the most KV start first; the
 //     wrapper builds the tile -> sequence map (tile_seq, tile_cum).
@@ -70,6 +71,18 @@
 //     window edge, each row by its own bounds.
 //   - The epilogue normalises by l (rows with l == 0 are exact zeros),
 //     rounds to bf16 and stores 16 bytes a thread through shared memory.
+//   - head_dim 256 (Gemma; bf16 pages only): the same 64-key tiles, but one
+//     consumer warpgroup a CTA (64 rows: bq = 64 / G tokens). Each consumer
+//     thread holds a 64 x 256 f32 O accumulator, 128 registers, beside S
+//     (32) and P (32). ptxas compiles every thread of a launch to the
+//     registers its bounds leave (168 at 384 threads, whatever setmaxnreg
+//     later moves), and the two-warpgroup CTA spilled 724 bytes a thread
+//     there; at 256 threads the bound is 255. Q is 32 KB and a K or V tile
+//     32 KB, so the ring has three stages (224 KB in all, one CTA an SM).
+//     A tile's PV runs after its own softmax, as two m64n128k16 wgmma over
+//     the two halves of V and of O. A simple layout that is right; making
+//     it fast (a second warpgroup's rows in registers it can hold,
+//     pipelining again) is later work.
 // Not done yet (later work): TMA loads, 128-token KV tiles, more than one
 // CTA on an SM for the short prefill chunks.
 
@@ -93,14 +106,22 @@
 #endif
 namespace {
 
-constexpr int kRows = 128;       // (query token, head-in-group) rows per CTA
 constexpr int kBK = 64;          // kv tokens per tile
-constexpr int kConsumers = 256;  // two warpgroups of 64 rows compute
-constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup loads
 constexpr int kCodeAhead = 4;  // 8-bit pages: code tiles in flight ahead of conversion
 constexpr int kCodeRing = kCodeAhead + 1;
 constexpr int kBlock = 64;       // bf16 elements in one 128-byte swizzled row
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The CTA's shape: consumer warpgroups of 64 (query token, head-in-group)
+// rows each, two, or one at D 256 (see the notes above), and one producer
+// warpgroup that loads.
+template <int D>
+struct Cta {
+  static constexpr int kGroups = D > 128 ? 1 : 2;
+  static constexpr int kRows = 64 * kGroups;
+  static constexpr int kConsumers = 128 * kGroups;
+  static constexpr int kThreads = kConsumers + 128;
+};
 
 // Shared memory, byte offsets from a 1024-aligned base (the 128-byte
 // swizzle repeats every 1024 bytes). A bf16 tile of R rows is NB column
@@ -109,12 +130,13 @@ template <int D, bool kQuant>
 struct Smem {
   static constexpr int DP = D < kBlock ? kBlock : D;  // padded head_dim
   static constexpr int NB = DP / kBlock;
-  static constexpr int kQBlock = kRows * 128;
+  static constexpr int kQBlock = Cta<D>::kRows * 128;
   static constexpr int kTBlock = kBK * 128;
   static constexpr int kTile = NB * kTBlock;  // one bf16 K or V tile
   // the ring of bf16 K and V operand tiles [kRing][NB][64][128 B] each: four
-  // stages, or three beside the 8-bit pages' own ring of codes
-  static constexpr int kRing = kQuant ? 3 : 4;
+  // stages, or three beside the 8-bit pages' own ring of codes; three at D
+  // 256, where Q takes 32 KB and a K or V tile 32 KB (224 KB in all)
+  static constexpr int kRing = kQuant || D > 128 ? 3 : 4;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + NB * kQBlock;
   static constexpr int kV = kK + kRing * kTile;
@@ -133,6 +155,7 @@ template <int D, bool kQuant>
 constexpr size_t smem_bytes() { return Smem<D, kQuant>::kDynamic; }
 
 // the compute warpgroups only (the producer warp does not take part)
+template <int kConsumers>
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
@@ -145,7 +168,7 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
 // CodeT: __nv_bfloat16 (bf16 pages, no scales), int8_t or __nv_fp8_e4m3
 // (8-bit pages with k_scale / v_scale [pages, page_size, Hkv] bf16)
 template <int D, typename CodeT>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cta<D>::kThreads, 1)
 paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     const CodeT* __restrict__ k_cache,
                     const CodeT* __restrict__ v_cache,
@@ -162,14 +185,20 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr bool kQuant = !std::is_same_v<CodeT, __nv_bfloat16>;
   using S = Smem<D, kQuant>;
   constexpr int kRing = S::kRing;
+  constexpr int kRows = Cta<D>::kRows, kConsumers = Cta<D>::kConsumers, kThreads = Cta<D>::kThreads;
   // P in bf16 terms: hi + lo, and on 8-bit pages a third, the rest of P to
   // f32 accuracy (see the notes above); setmaxnreg's split of the 64,512
-  // registers the launch holds (168 x 384): 128 x 56 + 256 x 224
+  // registers the two-warpgroup launch holds (168 x 384): 128 x 56 + 256 x
+  // 224. ptxas compiles every thread to the launch's 168 all the same, so
+  // the one-warpgroup CTA of D 256 (256 threads, up to 255 registers a
+  // thread) needs no split.
   constexpr int kPTerms = kQuant ? 3 : 2;
   // The third term's registers do not fit beside the previous tile's P, so
   // on 8-bit pages a tile's PV runs after its own softmax, not across the
   // next tile's (those kernels are bound by the producer's conversion).
-  constexpr bool kPipelined = kPTerms == 2;
+  // At D 256 the PV also runs after the softmax: a simple kernel first.
+  constexpr bool kPipelined = kPTerms == 2 && D <= 128;
+  constexpr bool kSplitRegs = Cta<D>::kGroups == 2;
   constexpr int kProducerRegs = 56;
   constexpr int kConsumerRegs = 224;
   constexpr int DP = S::DP;
@@ -261,7 +290,7 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
     // pool rows (lane l: tokens l and l + 32) while this tile's copies are
     // issued, and hands them round with shuffles. It waits on empty[stage]
     // before it writes the stage again.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if constexpr (kSplitRegs) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     const int p = tid - kConsumers;
     const int lane = p & 31;
     if constexpr (!kQuant) {  // bf16 pages: copied straight into the ring
@@ -378,7 +407,7 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  if constexpr (kSplitRegs) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   // this thread's two rows of its warpgroup's 64: the kv positions [lo, lim]
   // each may attend (lim -1: no row)
   const int wg = tid / 128;
@@ -422,7 +451,17 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t vd = desc(pv + kk * 16 * 128, S::kTBlock, 1024);
-      if constexpr (DP == 128) {
+      if constexpr (DP == 256) {
+        // O's two halves (columns 0-127 and 128-255, accumulator floats 0-63
+        // and 64-127) over the two halves of V (blocks 0-1 and 2-3)
+        float(&o_lo)[64] = *reinterpret_cast<float(*)[64]>(&o[0]);
+        float(&o_hi)[64] = *reinterpret_cast<float(*)[64]>(&o[64]);
+        const uint64_t vd2 = desc(pv + 2 * S::kTBlock + kk * 16 * 128, S::kTBlock, 1024);
+        wgmma_rs_n128(o_lo, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], vd);
+        wgmma_rs_n128(o_lo, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], vd);
+        wgmma_rs_n128(o_hi, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], vd2);
+        wgmma_rs_n128(o_hi, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], vd2);
+      } else if constexpr (DP == 128) {
         wgmma_rs_n128(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], vd);
         wgmma_rs_n128(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], vd);
         if constexpr (kPTerms == 3)
@@ -578,7 +617,7 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  consumers_sync();
+  consumers_sync<kConsumers>();
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
@@ -591,7 +630,7 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
           pack_bf16(o[4 * c + 2 * i] * inv, o[4 * c + 2 * i + 1] * inv);
     }
   }
-  consumers_sync();
+  consumers_sync<kConsumers>();
   for (int i = tid; i < n_rows * CPR; i += kConsumers) {
     const int r = i / CPR;
     const int c = i % CPR;
@@ -609,11 +648,12 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
                          int num_seqs, int num_tokens, int hkv, int G, int max_pages,
                          int page_size, float sm_scale, float logit_cap, int window) {
   constexpr size_t bytes = smem_bytes<D, !std::is_same_v<CodeT, __nv_bfloat16>>();
+  if (G > Cta<D>::kRows) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(paged_extend_kernel<D, CodeT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  paged_extend_kernel<D, CodeT><<<grid, kThreads, bytes, st>>>(
+  paged_extend_kernel<D, CodeT><<<grid, Cta<D>::kThreads, bytes, st>>>(
       q, k, v, ks, vs, pt, kv_lens, cu_q, tile_seq, tile_cum, out, num_seqs, num_tokens, hkv,
       G, max_pages, page_size, sm_scale, logit_cap, window);
   return cudaGetLastError();
@@ -630,7 +670,6 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   if (logit_cap < 0.f || window < 0) return cudaErrorInvalidValue;
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
   const int G = num_q_heads / num_kv_heads;
-  if (G > kRows) return cudaErrorInvalidValue;
   const dim3 grid(num_tiles, num_kv_heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -661,6 +700,14 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
                               num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
                               sm_scale, logit_cap, window);
       break;
+    case 256:  // bf16 pages only (Gemma); 8-bit pages at D 256 are not ported
+      if constexpr (std::is_same_v<CodeT, __nv_bfloat16>)
+        err = launch_for_d<256>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
+                                num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
+                                sm_scale, logit_cap, window);
+      else
+        err = cudaErrorInvalidValue;
+      break;
     default:
       err = cudaErrorInvalidValue;
   }
@@ -669,10 +716,11 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
 
 }  // namespace
 
-// Query tokens of one sequence per CTA tile for G query heads per kv head;
-// the wrapper sizes its tile map with it.
-extern "C" int paged_extend_tokens_per_tile(int group) {
-  return group > 0 && group <= kRows ? kRows / group : 0;
+// Query tokens of one sequence per CTA tile for G query heads per kv head
+// at head_dim D; the wrapper sizes its tile map with it.
+extern "C" int paged_extend_tokens_per_tile(int group, int head_dim) {
+  const int rows = head_dim > 128 ? Cta<256>::kRows : Cta<128>::kRows;
+  return group > 0 && group <= rows ? rows / group : 0;
 }
 
 // q [T, Hq, D] bf16; k_cache, v_cache [pages, page_size, Hkv, D] bf16;

@@ -43,6 +43,13 @@ _JAX_LAYER_KEYS = {
     "bv": ("wv.bias", False),
     "input_norm": ("input_norm", False),
     "post_norm": ("post_norm", False),
+    # Qwen3 and Gemma 3
+    "q_norm": ("q_norm", False),
+    "k_norm": ("k_norm", False),
+    # Gemma's other three norms a layer
+    "post_attn_norm": ("post_attn_norm", False),
+    "pre_ffw_norm": ("pre_ffw_norm", False),
+    "post_ffw_norm": ("post_ffw_norm", False),
 }
 # JAX quantized stack -> port module (separate gate and up stacks are fused)
 _JAX_QUANT_KEYS = {
@@ -82,7 +89,8 @@ def params_from_jax(
     params_np: dict[str, Any], cfg: ModelConfig, transposed: bool = False
 ) -> dict[str, torch.Tensor]:
     """The JAX ``LlamaForCausalLM`` pytree (numpy leaves) as the port's
-    ``state_dict``.
+    ``state_dict``; Qwen2 (q, k, v biases), Qwen3 (``q_norm``, ``k_norm``),
+    Phi-3 and Gemma (four norms a layer, a tied head) pytrees alike.
 
     JAX stores decoder matrices ``[L, in, out]``, or ``[L, out, in]`` when
     its runner transposed the stacks (``model.weights_transposed``, pass it

@@ -37,6 +37,18 @@ import torch
 # kv_cache_dtype -> the code dtype of a quantized pool
 QUANT_KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 SCALE_DTYPE = torch.bfloat16
+# the head_dims the attention kernels take over 8-bit pages; 256 (Gemma)
+# takes bf16 pages only for now
+QUANT_KV_HEAD_DIMS = (32, 64, 128)
+
+
+def check_quant_kv_head_dim(head_dim: int) -> None:
+    """Refuse an 8-bit pool at a head_dim whose 8-bit kernels are not ported."""
+    if head_dim not in QUANT_KV_HEAD_DIMS:
+        raise NotImplementedError(
+            f"kv_cache_dtype int8 or fp8 at head_dim {head_dim} is not ported "
+            f"(8-bit pages take head_dim {QUANT_KV_HEAD_DIMS}); use bfloat16 KV"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +61,10 @@ class KVCacheConfig:
     dtype: torch.dtype = torch.bfloat16
     quantized: bool = False  # 8-bit codes plus per-(token, head) bf16 scales
     quant_dtype: torch.dtype = torch.int8  # int8 | float8_e4m3fn
+
+    def __post_init__(self):
+        if self.quantized:
+            check_quant_kv_head_dim(self.head_dim)
 
     @property
     def num_slots(self) -> int:

@@ -1,7 +1,7 @@
 """Shared building blocks for the port's models.
 
 Counterpart of ``scratchpad_tpu/models/common.py``: the 4-bit linear layer,
-RMSNorm, SiLU-and-mul and rotary embeddings. ``compute_inv_freq`` and
+RMSNorm, SiLU-and-mul, GELU-and-mul and rotary embeddings. ``compute_inv_freq`` and
 ``rope_attention_scale`` are host-side numpy, copied unchanged so both
 packages bake identical frequencies (``tests/test_rope.py`` holds the JAX
 copy to HF).
@@ -100,6 +100,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def gelu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """GELU with the tanh approximation, times up (Gemma's MLP)."""
+    return F.gelu(gate, approximate="tanh") * up
 
 
 def compute_inv_freq(cfg) -> np.ndarray:

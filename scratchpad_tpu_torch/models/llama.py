@@ -1,4 +1,5 @@
-"""Llama family (Llama 2/3.x, Mistral) as a PyTorch ``nn.Module``.
+"""Llama family (Llama 2/3.x, Mistral; Qwen2, Qwen3 and Phi-3 in ``qwen.py``)
+as a PyTorch ``nn.Module``.
 
 Counterpart of ``scratchpad_tpu/models/llama.py``. The JAX model stacks the
 layers' weights on a leading axis and unrolls a functional layer loop; here
@@ -12,7 +13,10 @@ attention (with the config's uniform ``sliding_window`` and
 ``attn_logit_softcap``, as the JAX forward passes them) and the 4-bit
 projections through the CUDA kernel wrappers, which take their plain
 versions for CPU tensors. The runner sets the model's decode and extend
-attention functions from ``attention_backend``. With toppings attached
+attention functions from ``attention_backend``. ``use_qk_norm`` (Qwen3) adds
+a per-head RMSNorm on q and k before rope (``q_norm``, ``k_norm``), which
+stays in the model dtype beside 4-bit projections; ``attention_bias``
+(Qwen2) gives q, k and v their biases. With toppings attached
 (``self.toppings``, the manager's device pools) and a batch that names
 adapters, each projection's output gains its tokens' own adapters
 (``apply_topping``); a batch that names none skips that path.
@@ -85,6 +89,9 @@ class LlamaDecoderLayer(nn.Module):
         self.wk = lin(H, Hkv * D, b)
         self.wv = lin(H, Hkv * D, b)
         self.wo = lin(Hq * D, H, False)
+        if cfg.use_qk_norm:
+            self.q_norm = nn.Parameter(torch.empty(D, device=device, dtype=dtype))
+            self.k_norm = nn.Parameter(torch.empty(D, device=device, dtype=dtype))
         if self.fused_gate_up:
             self.gate_up = lin(H, 2 * I, False)
         else:
@@ -113,7 +120,6 @@ class LlamaForCausalLM(nn.Module):
         unported = [
             name
             for name, on in (
-                ("use_qk_norm", cfg.use_qk_norm),
                 ("multimodal", cfg.multimodal),
                 ("mrope", (cfg.rope_scaling or {}).get("mrope_section")),
             )
@@ -171,6 +177,9 @@ class LlamaForCausalLM(nn.Module):
         for layer in self.layers:
             layer.input_norm.fill_(1.0)
             layer.post_norm.fill_(1.0)
+            if self.cfg.use_qk_norm:
+                layer.q_norm.fill_(1.0)
+                layer.k_norm.fill_(1.0)
             for lin in (layer.wq, layer.wk, layer.wv, layer.wo,
                         layer.gate, layer.up, layer.down):
                 fill(lin.weight, lin.in_features)
@@ -188,6 +197,8 @@ class LlamaForCausalLM(nn.Module):
         "self_attn.q_proj.bias": "wq.bias",
         "self_attn.k_proj.bias": "wk.bias",
         "self_attn.v_proj.bias": "wv.bias",
+        "self_attn.q_norm.weight": "q_norm",
+        "self_attn.k_norm.weight": "k_norm",
         "mlp.gate_proj.weight": "gate.weight",
         "mlp.up_proj.weight": "up.weight",
         "mlp.down_proj.weight": "down.weight",
@@ -286,9 +297,13 @@ class LlamaForCausalLM(nn.Module):
         x = self.embed(meta.tokens)  # [T, H]
         for l, layer in enumerate(self.layers):
             h = rms_norm(x, layer.input_norm, eps)
-            q = apply_rope(lin(layer, "wq", h, l).view(T, Hq, D), cos, sin)
-            k = apply_rope(lin(layer, "wk", h, l).view(T, Hkv, D), cos, sin)
+            q = lin(layer, "wq", h, l).view(T, Hq, D)
+            k = lin(layer, "wk", h, l).view(T, Hkv, D)
             v = lin(layer, "wv", h, l).view(T, Hkv, D)
+            if cfg.use_qk_norm:
+                q = rms_norm(q, layer.q_norm, eps)
+                k = rms_norm(k, layer.k_norm, eps)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
             write_kv(kv, k, v, l, meta.out_cache_loc)
             attn = attend(
                 q, kv, l, meta, sm_scale=self.sm_scale,

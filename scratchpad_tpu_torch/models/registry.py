@@ -1,18 +1,33 @@
 """Model registry mapping HF architecture names to implementations.
 
 Counterpart of ``scratchpad_tpu/models/registry.py``. The port has the Llama
-family only, Mistral included (Llama's architecture and weight names with a
-uniform sliding window); the rest of the JAX package's model zoo is still to
-be ported.
+family (Mistral included: Llama's architecture and weight names with a
+uniform sliding window), Qwen2, Qwen3 and Phi-3 on the Llama decoder, and
+Gemma 2 and Gemma 3 (text); the rest of the JAX package's model zoo is
+still to be ported.
 """
 
 from __future__ import annotations
 
 
 def get_model_class(architecture: str):
+    from scratchpad_tpu_torch.models.gemma import Gemma2ForCausalLM, Gemma3ForCausalLM
     from scratchpad_tpu_torch.models.llama import LlamaForCausalLM
+    from scratchpad_tpu_torch.models.qwen import (
+        Phi3ForCausalLM,
+        Qwen2ForCausalLM,
+        Qwen3ForCausalLM,
+    )
 
-    registry = {"LlamaForCausalLM": LlamaForCausalLM, "MistralForCausalLM": LlamaForCausalLM}
+    registry = {
+        "LlamaForCausalLM": LlamaForCausalLM,
+        "MistralForCausalLM": LlamaForCausalLM,
+        "Qwen2ForCausalLM": Qwen2ForCausalLM,
+        "Qwen3ForCausalLM": Qwen3ForCausalLM,
+        "Phi3ForCausalLM": Phi3ForCausalLM,
+        "Gemma2ForCausalLM": Gemma2ForCausalLM,
+        "Gemma3ForCausalLM": Gemma3ForCausalLM,
+    }
     if architecture not in registry:
         raise NotImplementedError(
             f"architecture {architecture!r} is not ported yet; have {sorted(registry)}"

@@ -12,11 +12,16 @@ kernel for CUDA tensors, raising on anything the kernel does not take; they
 never fall back. ``sm_scale`` is applied once, inside (the JAX callers
 pre-scale q instead).
 
-Both take the Pallas kernels' static ``logit_cap`` and ``sliding_window``
-(``gqa_decode.py:171-172, 395-396``): the score is ``cap * tanh(s / cap)``
-with ``s = sm_scale * q . k`` (for 8-bit pages, ``s`` already holds the K
-scale), and token ``j`` of a row of length ``L`` is live iff ``L - W <= j <
-L``. The kernel reads only the window.
+Both take the Pallas kernels' ``logit_cap`` and ``sliding_window``
+(``gqa_decode.py:171-172, 395-396``) as runtime arguments of each call: the
+score is ``cap * tanh(s / cap)`` with ``s = sm_scale * q . k`` (for 8-bit
+pages, ``s`` already holds the K scale), and token ``j`` of a row of length
+``L`` is live iff ``L - W <= j < L``. The kernel reads only the window. A
+window that changes from call to call is the JAX kernel's traced window
+(``dynamic_window``, ``gqa_decode.py:102, 112-117``), which Gemma's layers
+give one by one; ``mask_args`` reads the JAX package's global-layer
+sentinel (``1 << 30``) as no window. bf16 pages take head_dim 32 to 256,
+8-bit pages 32 to 128 (``kv_cache.QUANT_KV_HEAD_DIMS``).
 
 ``decode_plan`` splits each row's pages across CTAs where the batch alone
 would leave the card short of them (B 1 gives Hkv CTAs); it reads only the
@@ -39,7 +44,7 @@ from typing import Optional
 import torch
 
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta
-from scratchpad_tpu_torch.memory.kv_cache import SCALE_DTYPE, KVCache
+from scratchpad_tpu_torch.memory.kv_cache import QUANT_KV_HEAD_DIMS, SCALE_DTYPE, KVCache
 from scratchpad_tpu_torch.utils import native
 
 _P = ctypes.c_void_p
@@ -54,7 +59,11 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
 }
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+# a window this wide or wider is the JAX package's "global layer" sentinel
+# (models/gemma.py _BIG_WINDOW = 1 << 30; ragged_backend.py's window cond
+# tests < 1 << 29): no window
+GLOBAL_WINDOW = 1 << 29
 MAX_GROUP = 8
 # code dtype -> the kernel's code type argument
 CODE_TYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
@@ -153,11 +162,14 @@ def _plan_args(q, k_cache, page_table) -> tuple[int, int, int]:
 
 
 def mask_args(logit_cap: Optional[float], sliding_window: Optional[int]) -> tuple[float, int]:
-    """The kernels' runtime form of the cap and the window: 0 for none."""
+    """The kernels' runtime form of the cap and the window: 0 for none, a
+    window of ``GLOBAL_WINDOW`` or more included."""
     if logit_cap is not None and not logit_cap > 0:
         raise ValueError(f"logit_cap must be None or > 0, got {logit_cap}")
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be None or >= 1, got {sliding_window}")
+    if sliding_window is not None and sliding_window >= GLOBAL_WINDOW:
+        sliding_window = None
     return float(logit_cap or 0.0), int(sliding_window or 0)
 
 
@@ -199,7 +211,7 @@ def paged_decode_attention_plain(
     pages) and attend in f32, the cap and the window as in the module
     docstring. Rows with ``seq_len == 0`` give exact zeros, like the
     kernel."""
-    mask_args(logit_cap, sliding_window)
+    sliding_window = mask_args(logit_cap, sliding_window)[1] or None
     B, Hq, D = q.shape
     _, ps, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -224,7 +236,8 @@ def paged_decode_attention_plain(
 def check_pages(q, k_cache, v_cache, k_scale, v_scale, max_group: int) -> None:
     """What both attention kernels take: contiguous bf16 q and pages, or
     int8 / e4m3 pages with contiguous bf16 scales ``[pages, ps, Hkv]``;
-    head_dim in ``HEAD_DIMS``; 1..``max_group`` query heads per kv head."""
+    head_dim in ``HEAD_DIMS`` (``QUANT_KV_HEAD_DIMS`` for 8-bit pages);
+    1..``max_group`` query heads per kv head."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("k_scale", k_scale), ("v_scale", v_scale)):
         if t is not None and not t.is_contiguous():
@@ -250,6 +263,8 @@ def check_pages(q, k_cache, v_cache, k_scale, v_scale, max_group: int) -> None:
     Hq, Hkv = q.shape[1], k_cache.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if k_scale is not None and D not in QUANT_KV_HEAD_DIMS:
+        raise ValueError(f"8-bit pages take head_dim {QUANT_KV_HEAD_DIMS}, not {D}")
     if Hq % Hkv or not 1 <= Hq // Hkv <= max_group:
         raise ValueError(f"Hq={Hq} must be 1..{max_group} times Hkv={Hkv}")
 

@@ -20,7 +20,11 @@ The bundled kernel's ``soft_cap`` and ``sliding_window`` (``ragged_backend.py
 :98-99``) follow ``xla_backend.extend_attention_xla``: the score is ``cap *
 tanh(s / cap)``, and the query at position ``p`` attends ``p - W < j <= p``.
 The kernel starts each tile's KV loop at the window of its first query and
-masks each query row on its own inside it.
+masks each query row on its own inside it. Both are runtime arguments of
+each call, so Gemma's layers each pass their own window (the JAX package
+runs Gemma's extend in XLA at head_dim 256, ``executor/model_runner.py:185``,
+and the ragged kernel under ``lax.cond`` at 128, ``make_window_cond_extend``).
+bf16 pages take head_dim 32 to 256, 8-bit pages 32 to 128.
 """
 
 from __future__ import annotations
@@ -52,9 +56,9 @@ _SIGNATURES = {
         [_P] * 11 + [_I] * 9 + [ctypes.c_float, ctypes.c_float, _I, _P],
         ctypes.c_int,
     ),
-    "paged_extend_tokens_per_tile": ([_I], ctypes.c_int),
+    "paged_extend_tokens_per_tile": ([_I, _I], ctypes.c_int),
 }
-MAX_GROUP = 64  # a tile holds 64 (token, head) rows
+MAX_GROUP = 64  # a tile holds 64 or 128 (token, head) rows
 QUERY_BLOCK = 1024  # query rows the plain version scores at a time
 
 
@@ -75,7 +79,7 @@ def paged_extend_attention_plain(
     for 8-bit pages), attend in f32 under the tail-aligned causal mask and
     the window, ``QUERY_BLOCK`` queries at a time (a long prompt's score
     tensor would not fit the card otherwise)."""
-    mask_args(logit_cap, sliding_window)
+    sliding_window = mask_args(logit_cap, sliding_window)[1] or None
     T, Hq, D = q.shape
     _, ps, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -145,7 +149,7 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_len
     lib = native.load("paged_extend_attention", _SIGNATURES)
     T, Hq, D = q.shape
     Hkv = k_cache.shape[2]
-    tile_seq, tile_cum = tile_map(cu_q_lens, T, lib.paged_extend_tokens_per_tile(Hq // Hkv))
+    tile_seq, tile_cum = tile_map(cu_q_lens, T, lib.paged_extend_tokens_per_tile(Hq // Hkv, D))
     out = torch.empty_like(q)
     head = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
     tail = (

@@ -135,6 +135,10 @@ class Engine:
         weight-delta adapter (HF-named [out, in] deltas, stored int8) for
         per-request serving; returns its pool slot."""
         runner = self.scheduler.runner
+        if not getattr(runner.model, "supports_toppings", True):
+            raise NotImplementedError(
+                f"toppings are not ported for {type(runner.model).__name__}"
+            )
         if self.toppings_manager is None:
             self.toppings_manager = ToppingsManager(
                 self.model_config, dtype=runner.dtype, device=runner.device

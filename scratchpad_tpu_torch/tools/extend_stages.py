@@ -72,7 +72,7 @@ def launcher(cut: int, q, k, v, ks, vs, pt, kv_lens, cu):
     """fn(layer) launching the cut's library on the case."""
     lib = native.load("paged_extend_attention", rb._SIGNATURES, {"SPTPU_EXTEND_CUT": cut})
     T, Hq, D = q.shape
-    tile_seq, tile_cum = rb.tile_map(cu, T, lib.paged_extend_tokens_per_tile(Hq // HKV))
+    tile_seq, tile_cum = rb.tile_map(cu, T, lib.paged_extend_tokens_per_tile(Hq // HKV, D))
     out = torch.empty_like(q)
     stream = native.stream_handle(q.device)
     scale = 1.0 / math.sqrt(D)

@@ -23,7 +23,9 @@ held to their plain versions at Mistral-7B's shape (G 4, head_dim 128) at
 the same tolerance, over bf16, int8 and fp8 pages, the window's edge inside
 a page and inside a 64-token KV tile, the extend also at head_dim 32 and 64
 with one and eight query heads per kv head; a window at least as long as the
-context gives the kernel's no-window output bit for bit. The decode
+context gives the kernel's no-window output bit for bit. Both attention
+kernels at head_dim 256 (Gemma, bf16 pages) with caps and windows, windows
+that change from call to call on one pool, and 8-bit pages there refused. The decode
 ablation probe's ``out`` must lie within one bf16 ulp of its plain
 version's (both round the same f32 statistic to bf16 once), its ``aux``
 within ``aux_tolerance`` (m exact, the rest ATOL + 2**-12 |plain|); the
@@ -418,6 +420,75 @@ def test_window_past_the_context_changes_nothing(gen, kind):
         a = _decode(qd, k, v, ks, vs, pt, kv_lens, 0.1, None, None)
         b = _decode(qd, k, v, ks, vs, pt, kv_lens, 0.1, None, window)
         assert torch.equal(a, b)
+
+
+# head_dim 256 (Gemma; bf16 pages): (G, Hkv) of Gemma-2-2B, Gemma-3-1B and
+# the widest group, and (cap, window) pairs of Gemma's layers
+HEAD256_GROUPS = [(2, 4), (4, 1), (8, 1)]
+HEAD256_CAPS_WINDOWS = [(None, None), (50.0, None), (None, 4096), (50.0, 512), (None, 1)]
+
+
+def _scaled_for_cap(q, cap):
+    """q scaled up so that the scores reach a cap of 50."""
+    return q if cap is None else (q.float() * 8).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("G,Hkv", HEAD256_GROUPS)
+@pytest.mark.parametrize("lens", [[256, 0, 17, 200], [4096, 3000, 1], [8192]])
+@pytest.mark.parametrize("cap,window", HEAD256_CAPS_WINDOWS)
+def test_decode_kernel_at_head_dim_256(gen, G, Hkv, lens, cap, window):
+    D = 256
+    k, v, pt = _pool(lens, Hkv, D, 16, gen)
+    q = _scaled_for_cap(torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16), cap)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = paged_decode_attention(q, k, v, pt, seq, 1 / 16, cap, window)
+    _close(out, paged_decode_attention_plain(q.float(), k, v, pt, seq, 1 / 16, None, None, cap, window))
+    assert bool((out[seq == 0] == 0).all())
+
+
+@pytest.mark.parametrize("G,Hkv", HEAD256_GROUPS[:2])
+@pytest.mark.parametrize("cap,window", HEAD256_CAPS_WINDOWS + [(None, 37)])
+def test_extend_kernel_at_head_dim_256(gen, G, Hkv, cap, window):
+    D = 256
+    chunks = [(100, 100), (64, 600), (1, 33), (0, 0), (250, 250), (600, 5000)]
+    k, v, pt = _pool([c[1] for c in chunks], Hkv, D, 16, gen)
+    q_lens = torch.tensor([c[0] for c in chunks], device="cuda")
+    cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
+    cu[1:] = torch.cumsum(q_lens, 0).to(torch.int32)
+    kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
+    T = int(cu[-1]) + 37  # padding tokens
+    q = _scaled_for_cap(torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16), cap)
+    out = paged_extend_attention(q, k, v, pt, kv_lens, cu, 1 / 16, cap, window)
+    _close(out, paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, 1 / 16, None, None, cap, window))
+    assert bool((out[int(cu[-1]) :] == 0).all())
+
+
+def test_head_dim_256_windows_are_per_call(gen):
+    """Gemma's layers in turn on one pool, local (4096), global, local: the
+    two local calls give the same bits, the global one differs."""
+    D, G, Hkv = 256, 2, 4
+    lens = [8000, 5000, 4097]
+    k, v, pt = _pool(lens, Hkv, D, 16, gen)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    outs = [paged_decode_attention(q, k, v, pt, seq, 1 / 16, None, w) for w in (4096, None, 4096)]
+    assert torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], outs[1])
+    cu = torch.tensor([0, 600, 900, 901], dtype=torch.int32, device="cuda")
+    qe = torch.randn(901, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    outs = [paged_extend_attention(qe, k, v, pt, seq, cu, 1 / 16, None, w) for w in (4096, None, 4096)]
+    assert torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], outs[1])
+
+
+def test_8bit_pages_refuse_head_dim_256(gen):
+    k, v, pt = _pool([40], 2, 256, 16, gen)
+    kc, vc, ks, vs = _quantized(k, v, torch.int8)
+    seq = torch.tensor([40], dtype=torch.int32, device="cuda")
+    cu = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    q = torch.randn(1, 4, 256, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention_quant(q, kc, vc, ks, vs, pt, seq, 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_extend_attention_quant(q, kc, vc, ks, vs, pt, seq, cu, 0.1)
 
 
 def test_pallas_decode_wrapper_matches_plain(gen):

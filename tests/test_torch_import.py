@@ -1,7 +1,8 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
-A subprocess imports every module of ``scratchpad_tpu_torch`` (and
-``chip_smoke``) and serves a tiny CPU Engine, then lists what it loaded;
+A subprocess imports every module of ``scratchpad_tpu_torch`` (the Qwen
+and Gemma models among them) and ``chip_smoke``, and serves tiny CPU
+engines of Llama, Gemma 2 and Qwen3, then lists what it loaded;
 a source scan checks every import statement of the package. A second
 subprocess blocks ``jax``, the JAX package and the serving packages that the
 card's machine lacks (``aiohttp``, ``pydantic``, ``prometheus_client``,
@@ -21,17 +22,22 @@ PKG = ROOT / "scratchpad_tpu_torch"
 _PROBE = """
 import importlib, json, pkgutil, sys
 import scratchpad_tpu_torch
-for m in pkgutil.walk_packages(scratchpad_tpu_torch.__path__, "scratchpad_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(scratchpad_tpu_torch.__path__, "scratchpad_tpu_torch.")]
+assert {"scratchpad_tpu_torch.models.gemma", "scratchpad_tpu_torch.models.qwen"} <= set(names)
+for n in names:
+    importlib.import_module(n)
 import chip_smoke
 from scratchpad_tpu_torch.config import ServerArgs
+from scratchpad_tpu_torch.config.model_config import get_preset
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.engine import Engine
-eng = Engine(ServerArgs(preset="tiny-debug", random_weights=True, dtype="float32",
-                        device="cpu", page_size=4, max_total_tokens=512))
-out = eng.generate(input_ids=[1, 2, 3, 4, 5],
-                   sampling_params=SamplingParams(temperature=0.0, max_new_tokens=4))
-assert len(out.output_ids) == 4
+for cfg in (get_preset("tiny-debug"), get_preset("tiny-gemma2"),
+            get_preset("tiny-debug", architecture="Qwen3ForCausalLM")):
+    eng = Engine(ServerArgs(random_weights=True, dtype="float32", device="cpu", page_size=4,
+                            max_total_tokens=512), model_config=cfg)
+    out = eng.generate(input_ids=[1, 2, 3, 4, 5],
+                       sampling_params=SamplingParams(temperature=0.0, max_new_tokens=4))
+    assert len(out.output_ids) == 4
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "scratchpad_tpu"))))
 """
