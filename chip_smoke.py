@@ -87,22 +87,37 @@ Phases, in order; any failure exits non-zero before the last line:
    512 and 1) on the same pool in turn; extend on ``EXTEND_CASES_256``
    (mixed chunks, cached prefixes, padding, a 2048-token chunk over 6,000
    cached tokens); and Gemma's layers in turn on one pool (local, global,
-   local) through both kernels, the two local calls bit-equal.
+   local) through both kernels, the two local calls bit-equal. Attention
+   sinks (``check_sinks``) at GPT-OSS's shape (Hkv 8, G 8, head_dim 64)
+   over bf16, int8 and fp8 pages, without a window and with its 128, sinks
+   of N(0, 2^2) and of 100 (above every score): decode at B 1, 2 and 64
+   and contexts of 1 to 4096 tokens (``SINK_CHECK_CTX``), split-edge and
+   padding rows, split calls bit-equal; extend on mixed chunks.
 4. engines: ``Engine.generate`` at full width and depth with random
    weights: Llama-3.2-1B in bf16, then with ``quantization="w4a8"``, then
    W4A16 on the same engine and codes (every ``QuantLinear`` switched to
    its A16 route); Llama-3.2-3B with ``quantization="w4a8"`` and
    ``kv_cache_dtype="auto"``, which must resolve to int8 KV, then the same
-   weights with bf16 KV; Llama-3.2-1B in bf16 with fp8 KV; Mistral-7B-v0.1
+   weights with bf16 KV (its first ``BF16KV_LAYERS`` layers, not timed);
+   Llama-3.2-1B in bf16 with fp8 KV; Mistral-7B-v0.1
    (its published config, window 4096) in bf16 under
    ``attention_backend="auto"``, then under ``"pallas"`` on the same
-   weights; Qwen3-8B in bf16 (qk-norm, an untied head), then with W4A8 at
-   ``QWEN3_W4A8_LAYERS`` layers and the int8 KV that ``"auto"`` gives its
-   full depth (logits only, not timed); Gemma-2-2B in bf16 (head_dim 256,
-   window 4096 on alternate layers, caps 50 and 30) with
-   ``WINDOW_REQUESTS``; Gemma-3-1B (``GEMMA3_1B``, its config.json: window
-   512 on five layers of six, one kv head) with ``GEMMA3_REQUESTS``, not
-   timed. Each serves greedy requests of different lengths, two that
+   weights (its first ``MISTRAL_PALLAS_LAYERS`` layers); Qwen3-8B in bf16
+   (qk-norm, an untied head), then with W4A8 at ``QWEN3_W4A8_LAYERS``
+   layers and the int8 KV that ``"auto"`` gives its full depth (logits
+   only, not timed); Gemma-2-2B in bf16 (head_dim 256, window 4096 on
+   alternate layers, caps 50 and 30) with ``WINDOW_REQUESTS``; Gemma-3-1B
+   (``GEMMA3_1B``, its config.json: window 512 on five layers of six, one
+   kv head) with ``GEMMA3_REQUESTS``, not timed; GPT-OSS-20B at full width
+   and depth in bf16 (sinks, window 128 on alternate layers, 32 experts,
+   top 4) with ``GPT_OSS_REQUESTS``, timed, where dropping the sinks must
+   move each prompt's logits by at least ``SINK_MOVE`` times the
+   kernel-vs-plain reading; GPT-OSS W4 at ``GPT_OSS_W4_LAYERS`` layers with
+   int8 KV, W4A8 then W4A16 on the same codes (rows 6 and 7 at its groups
+   of 120), and Qwen3-30B-A3B (``QWEN3_30B_A3B``, its config.json: 128
+   experts, top 8) at ``QWEN3_MOE_LAYERS`` layers in bf16, neither timed;
+   ``kv_cache_dtype="auto"`` must give W4 GPT-OSS-20B bf16 KV and W4
+   Qwen3-30B-A3B int8, as the JAX rule does. Each serves greedy requests of different lengths, two that
    share a long prefix (radix hit), one longer than
    ``chunked_prefill_size``; Mistral-7B a 6,000-token prompt and a 4,090-token
    one whose decode crosses the window's edge (``WINDOW_REQUESTS``), and the
@@ -177,6 +192,10 @@ Phases, in order; any failure exits non-zero before the last line:
    beforehand), at 1B decode (bs 64, one and three delta slots) and one
    2048-token prefill chunk; decode at every shape of ``DECODE_TIMED``, B 1
    (split across the card) at 4096 and 8192 tokens among them. At
+   GPT-OSS-20B's (G 8, head_dim 64), with its sinks and, in turns, without
+   them (``DECODE_TIMED_SINKS``; extend at 64 x (128, 128) and a 2048-token
+   chunk on 8192 with and without its window of 128; no library call
+   computes a sink). At
    Gemma-2-2B's (G 2, Hkv 4, head_dim 256): decode at bs 64, ctx 4096 and
    8192 with its window of 4096, and B 1 at 8192 (``DECODE_TIMED_256``);
    extend at 64 x (128, 128) and a 2048-token chunk on 8192 with W 4096.
@@ -205,6 +224,8 @@ Phases, in order; any failure exits non-zero before the last line:
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import gc
 import json
 import math
@@ -239,11 +260,19 @@ ATOL, RTOL = 1e-4, 2.0**-8
 # without the V scale, or an extend kernel that scales V by the K scale,
 # gives worst readings of 0.515 to 0.796 in both, and fp8 decode without
 # the sign bit 1.526 (PERF.md, Findings). The 3B engine with bf16 KV is not
-# compared.
+# compared. GPT-OSS-20B (24 MoE layers, held at the kernel path's routing,
+# see SameRouting) reads 3.036e-2 (3.719e-2 with an earlier loop over its
+# experts). Its witness (phase_engine's ``witness``) shows why: the first
+# layer's attention outputs differ from the plain path's at 0.1 % to 0.2 %
+# of their elements, by one bf16 ulp, and the gap grows steadily over the
+# 24 layers; the plain path with one-ulp noise at that share reads 3.378e-2
+# against itself. No kernel comes closer than one ulp, so it takes 5e-2,
+# above both readings (PERF.md, Findings).
 LOGIT_RTOL = {
     "bf16": 3e-2, "w4a8": 1e-1, "w4a16": 3e-2, "3b-w4a8": 1e-1, "1b-fp8kv": 5e-2,
     "1b-toppings": 5e-2, "w4a8-toppings": 1e-1, "mistral-7b": 3e-2, "mistral-7b-pallas": 3e-2,
     "qwen3-8b": 3e-2, "qwen3-8b-w4a8": 1e-1, "gemma-2-2b": 3e-2, "gemma-3-1b": 3e-2,
+    "gpt-oss-20b": 5e-2, "gpt-oss-w4a8": 1e-1, "gpt-oss-w4a16": 1e-1, "qwen3-30b-a3b": 3e-2,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -253,11 +282,16 @@ LOGIT_RTOL = {
 # pass every flip; this one is a fixed floor. The 8-bit KV engines take it
 # too, since each path quantizes its own K/V rows. Qwen3-8B W4A8 (8 layers,
 # int8 KV) takes the toppings engines' 3e-2: its sound kernels flip a row
-# at a gap of 2.128e-2, with max |diff| 5.0e-2 (PERF.md, Findings).
+# at a gap of 2.128e-2, with max |diff| 5.0e-2 (PERF.md, Findings). The
+# W4 GPT-OSS engines (int8 KV, both routes) take the same 1e-1 and 3e-2;
+# GPT-OSS-20B the 8-bit engines' 2e-2: its kernel path flips rows at plain
+# top-2 gaps of 7.463e-3 to 1.429e-2, and its witness's control (the plain
+# path with one-ulp noise) one at 7.463e-3 (PERF.md, Findings).
 ARGMAX_FLOOR = {
     "bf16": 0.0, "w4a8": 2e-2, "w4a16": 0.0, "3b-w4a8": 2e-2, "1b-fp8kv": 2e-2,
     "1b-toppings": 3e-2, "w4a8-toppings": 3e-2, "mistral-7b": 0.0, "mistral-7b-pallas": 0.0,
     "qwen3-8b": 0.0, "qwen3-8b-w4a8": 3e-2, "gemma-2-2b": 0.0, "gemma-3-1b": 0.0,
+    "gpt-oss-20b": 2e-2, "gpt-oss-w4a8": 3e-2, "gpt-oss-w4a16": 3e-2, "qwen3-30b-a3b": 0.0,
 }
 # Each adapter must move its rows' logits (max|adapted - base| / max|base|)
 # by at least this many times the engine's kernel-vs-plain reading, so that
@@ -267,6 +301,12 @@ ADAPTER_MOVE = 10.0
 # than the window against the plain path's without the window, so that a
 # window that masks nothing fails.
 WINDOW_MOVE = 10.0
+# The same for attention sinks: the kernel path's logits against the plain
+# path's without the sinks (GPT-OSS), so that sinks the kernels drop fail;
+# on the prompts that fit the local window, where every layer's softmax
+# holds at most that many keys beside the sink (on longer prompts a sink of
+# N(0, 2^2) weighs less against a global layer's sum: logged, not gated).
+SINK_MOVE = 10.0
 # the toppings engines' requests, in the order of phase_engine's prompts
 # and its second request: the last two share a 600-token prefix under
 # different adapters
@@ -339,21 +379,21 @@ def at(t, l: int):
     return None if t is None else t[l]
 
 
-def decode_kernel(q, k, v, ks, vs, pt, lens, scale, cap=None, window=None):
+def decode_kernel(q, k, v, ks, vs, pt, lens, scale, cap=None, window=None, sinks=None):
     """The decode wrapper of the pages' kind."""
     from scratchpad_tpu_torch.ops.attention import paged_decode_attention, paged_decode_attention_quant
 
     if ks is None:
-        return paged_decode_attention(q, k, v, pt, lens, scale, cap, window)
-    return paged_decode_attention_quant(q, k, v, ks, vs, pt, lens, scale, cap, window)
+        return paged_decode_attention(q, k, v, pt, lens, scale, cap, window, sinks)
+    return paged_decode_attention_quant(q, k, v, ks, vs, pt, lens, scale, cap, window, sinks)
 
 
-def extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap=None, window=None):
+def extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap=None, window=None, sinks=None):
     from scratchpad_tpu_torch.ops.attention import paged_extend_attention, paged_extend_attention_quant
 
     if ks is None:
-        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale, cap, window)
-    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window)
+        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale, cap, window, sinks)
+    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window, sinks)
 
 
 # kernel of each attention route, by the pages' kind
@@ -790,6 +830,9 @@ EDGE_WINDOWS_256 = (512, 4096)
 # the kernels' entries of the head_dim 256 branch in the kernels line
 DECODE_256 = "paged_decode_attention (head_dim 256, per-layer window)"
 EXTEND_256 = "paged_extend_attention (head_dim 256, per-layer window)"
+# rows 6 and 7 at GPT-OSS's groups of 120, on a served engine
+W4A8_G120 = "w4a8_matmul (groups of 120, GPT-OSS)"
+W4A16_G120 = "w4a16_matmul (groups of 120, GPT-OSS)"
 
 
 def page_edge_lens(window: int, page: int = 16) -> list[int]:
@@ -968,6 +1011,109 @@ def check_window_sequence_256() -> None:
         check(max(ratios) <= 1 and same and moved > 0,
               f"{name} kernel at head_dim 256: a per-layer window leaks between calls")
     del k, v, k_ext, v_ext
+
+
+# GPT-OSS's attention (gpt-oss-20b: 64 query heads over Hkv 8, head_dim 64),
+# its local window of 128 and none (its global layers); sinks of N(0, 2^2)
+# and ones far above every score, whose term is the softmax's max
+SINK_SHAPE = (8, 8, 64)  # Hkv, G, D
+SINK_WINDOWS = (None, 128)
+SINK_KINDS = ("normal", "above")
+SINK_CHECK_CTX = (1, 17, 128, 129, 1000, 4096)
+# the kernels' entries of the sinks branch in the kernels line
+DECODE_SINKS = "paged_decode_attention (sinks)"
+EXTEND_SINKS = "paged_extend_attention (sinks)"
+
+
+def sink_values(kind: str, Hq: int, gen):
+    """f32 [Hq] sinks: N(0, 2^2) ("normal"), or 100 (far above every score:
+    each row's max is its sink, and its weights' sum goes to about zero)."""
+    import torch
+
+    if kind == "normal":
+        return 2.0 * torch.randn(Hq, generator=gen, device="cuda")
+    return torch.full((Hq,), 100.0, device="cuda")
+
+
+def check_sinks(errs: dict) -> None:
+    """Both attention kernels' sinks branch at GPT-OSS's shape (Hkv 8, G 8,
+    head_dim 64) over bf16, int8 and fp8 pages, without a window and with
+    its window of 128, each kind of ``SINK_KINDS``: decode at B 1, 2 and 64
+    and every context of ``SINK_CHECK_CTX`` (B 1 at 4096 split across the
+    card), rows ending a token before, on and after a split boundary, rows
+    of length 0 (exact zeros); a split call bit-equal on a repeat. Extend on
+    mixed chunks, cached prefixes and padding tokens (exact zeros)."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import paged_decode_attention_plain, paged_extend_attention_plain
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
+
+    Hkv, G, D = SINK_SHAPE
+    ps, scale = 16, 1.0 / math.sqrt(D)
+    seed, n, worst = 30_000, 0, 0.0
+    cases = [(B, ctx) for B in DECODE_CHECK_B for ctx in SINK_CHECK_CTX] + ["padding", "split edges"]
+    for kind in ("bf16", "int8", "fp8"):
+        for case in cases:
+            seed += 1
+            gen = seeded(seed)
+            lens = decode_lens(case, gen, D, G)
+            k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
+            k, v, ks, vs = quant_pages(k[0], v[0], kind)
+            q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+            plan = decode_plan(len(lens), Hkv, pt.shape[1], D, G)
+            what = case if isinstance(case, str) else f"B={case[0]} ctx={case[1]}"
+            for window in SINK_WINDOWS:
+                for sk in SINK_KINDS:
+                    sinks = sink_values(sk, Hkv * G, gen)
+                    out = decode_kernel(q, k, v, ks, vs, pt, lens, scale, None, window, sinks)
+                    ref = paged_decode_attention_plain(q.float(), k, v, pt, lens, scale, ks, vs, None,
+                                                       window, sinks)
+                    same = plan.splits == 1 or torch.equal(
+                        out, decode_kernel(q, k, v, ks, vs, pt, lens, scale, None, window, sinks))
+                    torch.cuda.synchronize()
+                    e, ratio = max_err(out, ref)
+                    zero = bool((out[lens == 0] == 0).all()) and bool(torch.isfinite(out.float()).all())
+                    errs[DECODE_SINKS] = max(errs[DECODE_SINKS], e)
+                    worst, n = max(worst, ratio), n + 1
+                    log(
+                        f"[check] decode {kind} sinks {sk} G={G} D={D} {what} window={window}: "
+                        f"max_abs_err {e:.3e}, max err/tol {ratio:.3f}, zero rows exact: {zero}"
+                        + (f"; {plan.splits} splits, second call bit-equal: {same}" if plan.splits > 1 else "")
+                    )
+                    check(ratio <= 1 and zero, f"{kind} decode kernel with sinks ({sk}) disagrees with its "
+                                               f"plain version at {what} window={window}")
+                    check(same, f"{kind} decode kernel's split calls with sinks differ at {what} window={window}")
+            del k, v
+    log(f"[check] decode with sinks: worst err/tol {worst:.3f} over {n} cases")
+    ext_cases = [
+        ([(1000, 1000), (512, 2560), (7, 1031), (1, 300)], 2048),
+        ([(2048, 4096), (1500, 1500), (300, 845), (200, 200)], 4096),
+    ]
+    n, worst = 0, 0.0
+    for kind in ("bf16", "int8", "fp8"):
+        for chunks, T_pad in ext_cases:
+            seed += 1
+            q, k, v, pt, kv_lens, cu = extend_case(chunks, D, T_pad, seed, G, Hkv)
+            k, v, ks, vs = quant_pages(k, v, kind)
+            n_real = int(cu[-1])
+            for window in SINK_WINDOWS:
+                for sk in SINK_KINDS:
+                    sinks = sink_values(sk, Hkv * G, seeded(seed))
+                    out = extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, None, window, sinks)
+                    ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, scale, ks, vs, None,
+                                                       window, sinks)
+                    torch.cuda.synchronize()
+                    e, ratio = max_err(out, ref)
+                    zero = bool((out[n_real:] == 0).all())
+                    errs[EXTEND_SINKS] = max(errs[EXTEND_SINKS], e)
+                    worst, n = max(worst, ratio), n + 1
+                    log(
+                        f"[check] extend {kind} sinks {sk} G={G} D={D} chunks={chunks} window={window}: "
+                        f"max_abs_err {e:.3e}, max err/tol {ratio:.3f}, padded tokens zero: {zero}"
+                    )
+                    check(ratio <= 1 and zero, f"{kind} extend kernel with sinks ({sk}) disagrees with its "
+                                               f"plain version at chunks={chunks} window={window}")
+    log(f"[check] extend with sinks: worst err/tol {worst:.3f} over {n} cases")
 
 
 def decode_meta(pt, lens):
@@ -1255,6 +1401,9 @@ def check_w4(errs: dict) -> None:
         errs["quantize_rows_int8"] = max(errs["quantize_rows_int8"], eq)
         errs[k8] = max(errs[k8], e8)
         errs["w4a16_matmul"] = max(errs["w4a16_matmul"], e16)
+        if g == 120:  # GPT-OSS's groups (rows 6 and 7 on their served path)
+            errs[W4A8_G120] = max(errs[W4A8_G120], e8)
+            errs[W4A16_G120] = max(errs[W4A16_G120], e16)
         route8 = f"plan {plan8.config}, split K {plan8.splits}" if plan8 is not None else "mma.sync"
         route16 = f"plan {plan.config}" if plan is not None else "mma.sync"
         log(
@@ -1492,15 +1641,57 @@ def dense_kv(cache, scale, pt, ps: int, B: int, n: int):
     return gather_kv_rows(cache, scale, slots).to(torch.bfloat16).transpose(1, 2).contiguous()
 
 
+def with_zero_key(t):
+    """Dense ``[B, Hkv, S, D]`` keys or values with one zero row appended
+    (``[B, Hkv, S + 1, D]``): the sink's key and value for the library
+    yardstick."""
+    import torch
+
+    return torch.cat([t, t.new_zeros(*t.shape[:2], 1, t.shape[3])], dim=2)
+
+
+def sink_mask(keep, sinks, dtype=None):
+    """The additive ``attn_mask [1, Hq, Lq, S + 1]`` (bf16, or ``dtype``) of
+    SDPA over keys that end in a zero key (``with_zero_key``): 0 where
+    ``keep [Lq, S]``
+    holds, -inf elsewhere, and each query head's sink in the last column.
+    The zero key's score is 0, so its masked score is the sink, and its zero
+    value adds nothing: the softmax with a sink, in one PyTorch call."""
+    import torch
+
+    Lq, S = keep.shape
+    m = torch.zeros(1, sinks.numel(), Lq, S + 1, dtype=dtype or torch.bfloat16, device=keep.device)
+    m[..., :S].masked_fill_(~keep, float("-inf"))
+    m[..., S] = sinks.to(m.dtype)[:, None]
+    return m
+
+
+def check_sink_yardstick(lib, plain, what: str) -> None:
+    """The sinks' library call computes the kernel's function: within 2^-5
+    of the plain version's max |output| (SDPA rounds in bf16: it read
+    7.8e-3 and 1.6e-2 from the plain versions on the card; sinks dropped or
+    of the wrong sign move a row that sees a few keys by tens of per cent).
+    ``tests/test_torch_sinks.py`` holds its construction in f32 within
+    1e-5."""
+    err, scale = float((lib.float() - plain.float()).abs().max()), float(plain.float().abs().max())
+    log(f"[time] the sinks' SDPA yardstick against the plain {what}: max|diff| {err:.3e} of max|out| {scale:.3e}")
+    check(err <= 2**-5 * scale, f"the sinks' SDPA yardstick differs from the plain {what} by {err:.3e}")
+
+
 def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
-                window=None, wrapper: str = "auto", Hkv: int = 8) -> dict:
+                window=None, wrapper: str = "auto", Hkv: int = 8, sinks: bool = False) -> dict:
     """Decode at page 16 over Hkv 8: Llama-3.2-1B is G 4, D 64; 3B is G 3,
     D 128; Mistral-7B G 4, D 128, with its window of 4096; Gemma-2-2B G 2,
-    D 256 over Hkv 4, its local layers' window 4096. ``kind``: bf16
-    pages, or int8 / fp8 codes with bf16 scales. ``wrapper`` "pallas": the
-    kernel through ``decode_attention_pallas`` (row 9). The bound counts
-    the bytes and operations of the live window only; the library call
-    attends over every token, the window as its ``attn_mask``."""
+    D 256 over Hkv 4, its local layers' window 4096; GPT-OSS-20B G 8, D
+    64, its local window 128. ``kind``: bf16 pages, or int8 / fp8 codes
+    with bf16 scales. ``wrapper`` "pallas": the kernel through
+    ``decode_attention_pallas`` (row 9). The bound counts the bytes and
+    operations of the live window only; the library call attends over every
+    token, the window as its ``attn_mask``. ``sinks``: N(0, 2^2) sinks, the
+    kernel timed with and without them in turns (with, without, without,
+    with; ``ms_without_sinks``); the library call attends over one more,
+    zero key and value, whose additive mask is each head's sink
+    (``sink_mask``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1517,14 +1708,18 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     k, v, ks, vs = quant_pages(k, v, kind)
     q = torch.randn(B, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
+    sk = sink_values("normal", Hkv * G, gen) if sinks else None
     if wrapper == "pallas":
         meta, pool = decode_meta(pt, lens), KVCache(k, v)
         kern = lambda l: decode_attention_pallas(q, pool, l, meta, sm_scale=scale, sliding_window=window)
     else:
-        kern = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale, None, window)
+        kern = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale, None, window, sk)
     plain = lambda l: paged_decode_attention_plain(
-        q, k[l], v[l], pt, lens, scale, at(ks, l), at(vs, l), None, window
+        q, k[l], v[l], pt, lens, scale, at(ks, l), at(vs, l), None, window, sk
     )
+    if sinks:
+        bare = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale, None, window)
+        turns = [device_ms(fn, layers, 50) for fn in (kern, bare, bare, kern)]
     # dense [B, Hkv, S, D] bf16 copies for the library call, made once
     kd = [dense_kv(k[l], at(ks, l), pt, ps, B, ctx) for l in range(layers)]
     vd = [dense_kv(v[l], at(vs, l), pt, ps, B, ctx) for l in range(layers)]
@@ -1532,9 +1727,15 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     mask = None
     if window is not None:
         mask = (torch.arange(ctx, device="cuda") >= ctx - window)[None, None, None, :]
+    if sinks:
+        kd, vd = [with_zero_key(t) for t in kd], [with_zero_key(t) for t in vd]
+        keep = torch.arange(ctx, device="cuda")[None, :] >= ctx - (window or ctx)
+        mask = sink_mask(keep, sk)
     lib = lambda l: F.scaled_dot_product_attention(
         q4, kd[l], vd[l], attn_mask=mask, scale=scale, enable_gqa=True
     )
+    if sinks:
+        check_sink_yardstick(lib(0).view(B, Hkv * G, D), plain(0), "decode")
     live = min(ctx, window or ctx)
     kv_bytes = B * live * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
     nbytes = q.numel() * 2 * 2 + kv_bytes + pt.numel() * 4 + B * 4
@@ -1542,23 +1743,27 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     b, by = bound_ms(nbytes, flops)
     r = dict(
         shape=f"{kind} pages, B={B} ctx={ctx} window={window} Hq={Hkv * G} Hkv={Hkv} D={D} "
-        f"page={ps}" + (" (decode_attention_pallas)" if wrapper == "pallas" else ""),
-        ms=device_ms(kern, layers, 50),
+        f"page={ps}" + (" (decode_attention_pallas)" if wrapper == "pallas" else "")
+        + (", sinks" if sinks else ""),
+        ms=(turns[0] + turns[3]) / 2 if sinks else device_ms(kern, layers, 50),
         plain_ms=device_ms(plain, layers, 5),
         library_ms=device_ms(lib, layers, 50),
         bound_ms=b,
         bound_by=by,
     )
+    if sinks:
+        r["ms_without_sinks"] = (turns[1] + turns[2]) / 2
     del kd, vd, k, v
     torch.cuda.empty_cache()
     return r
 
 
 def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None,
-                Hkv: int = 8) -> dict:
+                Hkv: int = 8, sinks: bool = False) -> dict:
     """The extend at page 16 over Hkv 8 (or ``Hkv``); with ``window``, the
     bound counts the keys some query's window holds and the pairs the
-    windows attend."""
+    windows attend. ``sinks``: as ``time_decode``'s (the library call's
+    mask is then ``[1, Hq, q_len, kv_len + 1]``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1579,10 +1784,16 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     k, v, ks, vs = quant_pages(k, v, kind)
     q = torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
-    kern = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale, None, window)
+    sk = sink_values("normal", Hkv * G, gen) if sinks else None
+    kern = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale, None,
+                                   window, sk)
     plain = lambda l: paged_extend_attention_plain(
-        q, k[l], v[l], pt, kv_lens, cu, scale, at(ks, l), at(vs, l), None, window
+        q, k[l], v[l], pt, kv_lens, cu, scale, at(ks, l), at(vs, l), None, window, sk
     )
+    if sinks:
+        bare = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale, None,
+                                       window)
+        turns = [device_ms(fn, layers, 10) for fn in (kern, bare, bare, kern)]
     # library yardstick: one SDPA call over the batch when every sequence
     # has the same (q_len, kv_len), with the tail-aligned causal mask
     assert len(set(chunks)) == 1, "library yardstick needs one (q_len, kv_len)"
@@ -1591,16 +1802,23 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     kd = [dense_kv(k[l], at(ks, l), pt, ps, B, kl) for l in range(layers)]
     vd = [dense_kv(v[l], at(vs, l), pt, ps, B, kl) for l in range(layers)]
     qd = q.view(B, ql, Hkv * G, D).transpose(1, 2).contiguous()
-    if ql == kl and window is None:
+    j = torch.arange(kl, device="cuda")[None, :]
+    p = (kl - ql + torch.arange(ql, device="cuda"))[:, None]
+    keep = (j <= p) & (j > p - (window or kl + 1))
+    if sinks:
+        kd, vd = [with_zero_key(t) for t in kd], [with_zero_key(t) for t in vd]
+        mask = sink_mask(keep, sk)
+        lib = lambda l: F.scaled_dot_product_attention(
+            qd, kd[l], vd[l], attn_mask=mask, scale=scale, enable_gqa=True
+        )
+        check_sink_yardstick(lib(0).transpose(1, 2).reshape(T, Hkv * G, D), plain(0), "extend")
+    elif ql == kl and window is None:
         lib = lambda l: F.scaled_dot_product_attention(
             qd, kd[l], vd[l], is_causal=True, scale=scale, enable_gqa=True
         )
     else:
-        j = torch.arange(kl, device="cuda")[None, :]
-        p = (kl - ql + torch.arange(ql, device="cuda"))[:, None]
-        mask = (j <= p) & (j > p - (window or kl + 1))
         lib = lambda l: F.scaled_dot_product_attention(
-            qd, kd[l], vd[l], attn_mask=mask, scale=scale, enable_gqa=True
+            qd, kd[l], vd[l], attn_mask=keep, scale=scale, enable_gqa=True
         )
     # pairs (query, key) attended, and the keys some query's window holds
     W = window or max(c[1] for c in chunks) + 1
@@ -1612,13 +1830,15 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     b, by = bound_ms(nbytes, flops)
     r = dict(
         shape=f"{kind} pages, {len(chunks)} x (q_len {ql}, kv_len {kl}) window={window} "
-        f"Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}",
-        ms=device_ms(kern, layers, 10),
+        f"Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}" + (", sinks" if sinks else ""),
+        ms=(turns[0] + turns[3]) / 2 if sinks else device_ms(kern, layers, 10),
         plain_ms=device_ms(plain, layers, 2, reps=3),
         library_ms=device_ms(lib, layers, 10),
         bound_ms=b,
         bound_by=by,
     )
+    if sinks:
+        r["ms_without_sinks"] = (turns[1] + turns[2]) / 2
     del kd, vd, k, v
     torch.cuda.empty_cache()
     return r
@@ -1957,6 +2177,15 @@ DECODE_TIMED_256 = [
 ]
 
 
+# GPT-OSS-20B's decode with its sinks (G 8, D 64, Hkv 8): bs 64 at 4096
+# tokens on a global layer and under its local window of 128, one row of
+# 4096 (split across the card), int8 pages
+DECODE_TIMED_SINKS = [
+    (64, 4096, 64, 8, "bf16", None, "auto"), (64, 4096, 64, 8, "bf16", 128, "auto"),
+    (1, 4096, 64, 8, "bf16", None, "auto"), (64, 4096, 64, 8, "int8", None, "auto"),
+]
+
+
 def decode_timed_kernel(kind: str, wrapper: str) -> str:
     """The kernel name a ``DECODE_TIMED`` row times."""
     return "decode_attention_pallas" if wrapper == "pallas" else DECODE[kind]
@@ -2006,6 +2235,23 @@ def phase_timing() -> dict:
             log(
                 f"[time] {name} {r['shape']}: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library {r['library_ms']:.4f} ms"
+            )
+    # the sinks branch at GPT-OSS-20B's shape (G 8, D 64), each row timed
+    # with and without its sinks in turns
+    Hkv, G, D = SINK_SHAPE
+    t[DECODE_SINKS] = [time_decode(*row, Hkv=Hkv, sinks=True) for row in DECODE_TIMED_SINKS]
+    t[EXTEND_SINKS] = [
+        time_extend([(128, 128)] * 64, D, G, sinks=True),
+        time_extend([(2048, 8192)], D, G, sinks=True),
+        time_extend([(2048, 8192)], D, G, window=128, sinks=True),
+    ]
+    for name in (DECODE_SINKS, EXTEND_SINKS):
+        for r in t[name]:
+            log(
+                f"[time] {name} {r['shape']}: {r['ms']:.4f} ms (without the sinks, in turns: "
+                f"{r['ms_without_sinks']:.4f} ms, x{r['ms'] / r['ms_without_sinks']:.4f}); bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library "
+                f"{r['library_ms']:.4f} ms (SDPA over one more, zero key, the sink its mask)"
             )
     for D in (128, 64):
         time_kv_write(D)
@@ -2349,13 +2595,14 @@ class PlainPath:
         common.quantize_rows_int8, common.w4a8_matmul, common.w4a16_matmul = self.saved_w4
 
 
-def weights_fingerprint(model) -> list[float]:
-    """f32 sums of the embedding, the first and last layers' first
-    projection and the head: equal for two draws from one seed."""
-    return [
+def weights_fingerprint(model, layers: int) -> list[float]:
+    """f32 sums of the embedding and of the first ``layers`` layers' first
+    and last projections: equal for two draws from one seed, whatever the
+    depth of either model."""
+    return [float(model.embed.weight.float().sum())] + [
         float(t.float().sum())
-        for t in (model.embed.weight, model.layers[0].wq.weight, model.layers[-1].down.weight,
-                  model.lm_head.weight)
+        for layer in list(model.layers)[:layers]
+        for t in (layer.wq.weight, layer.down.weight)
     ]
 
 
@@ -2372,6 +2619,145 @@ class NoWindow:
         self.cfg.sliding_window = self.saved
 
 
+class SameRouting:
+    """For a MoE model: ``record()`` keeps the experts that each token's
+    router picks in every layer of the forwards inside it (the model's
+    ``top_experts``, one call a layer and forward), and ``replay()`` makes
+    the forwards inside it pick the same ones, in the same order, counting
+    the (token, layer) picks where the model's own router would have chosen
+    another set. The routing weights still come from each forward's own
+    router logits. A top-k pick across a near-tie of two router logits is
+    a discontinuity: one bf16 rounding upstream flips it, and the token's
+    output moves by a whole expert's share, which no kernel tolerance
+    covers; so the plain path is held to the kernel path at the kernel
+    path's routing, and the reading at its own routing is logged beside."""
+
+    def __init__(self, model):
+        self.model = model
+        self.picks = []
+        self.flips = self.picked = 0
+
+    @contextlib.contextmanager
+    def record(self):
+        inner = self.model.top_experts
+
+        def recording(scores):
+            topi = inner(scores)
+            self.picks.append(topi)
+            return topi
+
+        self.model.top_experts = recording
+        try:
+            yield
+        finally:
+            del self.model.top_experts  # the class's method again
+
+    @contextlib.contextmanager
+    def replay(self):
+        inner = self.model.top_experts
+        picks = iter(self.picks)
+
+        def replaying(scores):
+            topi = next(picks)
+            own = inner(scores)
+            differ = (own.sort(dim=-1).values != topi.sort(dim=-1).values).any(dim=-1)
+            self.flips += int(differ.sum())
+            self.picked += differ.numel()
+            return topi
+
+        self.model.top_experts = replaying
+        try:
+            yield
+        finally:
+            del self.model.top_experts
+
+
+class LayerTrace:
+    """Within the block, keeps each layer's attention output (the input of
+    its ``wo``) and MoE input (the input of its ``router``) of every forward,
+    on the host, in call order."""
+
+    def __init__(self, model):
+        self.model = model
+        self.attn, self.moe = [], []
+
+    def __enter__(self):
+        keep = lambda into: lambda module, inputs, output: into.append(inputs[0].detach().cpu())
+        self.hooks = [
+            h for layer in self.model.layers
+            for h in (layer.wo.register_forward_hook(keep(self.attn)),
+                      layer.router.register_forward_hook(keep(self.moe)))
+        ]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+    def gaps(self, ref: "LayerTrace", layers: int) -> tuple[list, list]:
+        """Per layer, the worst max|self - ref| / max|ref| over the traced
+        forwards: of the attention outputs, and of the MoE inputs."""
+        out = []
+        for xs, ys in ((self.attn, ref.attn), (self.moe, ref.moe)):
+            g = [0.0] * layers
+            for i, (x, y) in enumerate(zip(xs, ys, strict=True)):
+                y = y.float()
+                g[i % layers] = max(g[i % layers], float((x.float() - y).abs().max() / y.abs().max()))
+            out.append(g)
+        return out
+
+
+class UlpNoise:
+    """Within the block (inside ``PlainPath``), each attention call's bf16
+    output moves by one ulp, up or down at random, at a random ``share`` of
+    its nonzero elements: a second plain path, as far from the first as a
+    kernel whose outputs differ from the plain ones by one ulp at that share
+    (the witness's control)."""
+
+    def __init__(self, model, share: float, seed: int):
+        import torch
+
+        self.model, self.share = model, share
+        self.gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+
+    def noisy(self, fn):
+        import torch
+
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            r = torch.rand(out.shape, generator=self.gen, device=out.device)
+            step = (r < self.share / 2).short() - ((r >= self.share / 2) & (r < self.share)).short()
+            return (out.view(torch.int16) + step * (out != 0)).view(out.dtype)
+
+        return call
+
+    def __enter__(self):
+        self.saved = (self.model.decode_attention, self.model.extend_attention)
+        self.model.decode_attention, self.model.extend_attention = (self.noisy(f) for f in self.saved)
+
+    def __exit__(self, *exc):
+        self.model.decode_attention, self.model.extend_attention = self.saved
+
+
+def fmt_layers(g: list) -> str:
+    return "[" + ", ".join(f"{x:.2e}" for x in g) + "]"
+
+
+class NoSinks:
+    """Within the block, the model (GPT-OSS) attends without its sinks: its
+    ``attention_kwargs`` pass ``sinks=None``."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        inner = self.model.attention_kwargs
+        self.model.attention_kwargs = lambda l, layer: dict(inner(l, layer), sinks=None)
+
+    def __exit__(self, *exc):
+        del self.model.attention_kwargs  # the class's method again
+
+
 # (prompt tokens, new tokens) of the request set, before the two prompts
 # that share a 600-token prefix (32 new tokens each); "chunk" is
 # chunked_prefill_size
@@ -2385,6 +2771,11 @@ WINDOW_REQUESTS = [(5, 32), (37, 32), (300, 32), (6000, 32), (4090, 16)]
 # two prompts that share a prefix share 1,100 tokens, over twice the window
 # (the 600 of the other engines cross it by 113 and 128 tokens, which moved
 # the logits by 9.4 and 9.8 times the kernel-vs-plain reading, PERF.md §6)
+# GPT-OSS-20B's, window 128 on its local layers: every prompt but the first
+# two crosses it, and one of 120 tokens decodes 16 across its edge
+GPT_OSS_REQUESTS = [(5, 32), (37, 32), (120, 16), (300, 32), (511, 32), ("chunk+952", 32)]
+# its W4 engines' (two layers, checked only): all but the chunked prompt
+GPT_OSS_W4_REQUESTS = GPT_OSS_REQUESTS[:-1]
 GEMMA3_REQUESTS = [(5, 32), (37, 32), (300, 32), (1500, 32), (3000, 32), (505, 16)]
 GEMMA3_SHARED = 1100
 # Gemma-3-1B's published config.json (huggingface.co/google/gemma-3-1b-pt,
@@ -2416,11 +2807,48 @@ GEMMA3_1B = {
 # quantization takes about a second a layer); hidden x layers then falls
 # under the auto rule's 50,000, so it takes int8 KV as auto gives the full
 # depth
-QWEN3_W4A8_LAYERS = 8
+QWEN3_W4A8_LAYERS = 4
+# GPT-OSS-20B W4 keeps one local and one global layer of its 24 (host
+# quantization of the experts, about 0.8 G weights a layer)
+GPT_OSS_W4_LAYERS = 2
+# Qwen3-30B-A3B's published config.json (huggingface.co/Qwen/Qwen3-30B-A3B,
+# config.json), read through ModelConfig.from_hf_config and cut to
+# QWEN3_MOE_LAYERS of its 48 layers (each 128 experts of 2048 -> 768 -> 2048);
+# the weights are random, drawn on the card
+QWEN3_30B_A3B = {
+    "architectures": ["Qwen3MoeForCausalLM"],
+    "vocab_size": 151936,
+    "hidden_size": 2048,
+    "intermediate_size": 6144,
+    "moe_intermediate_size": 768,
+    "num_hidden_layers": 48,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 4,
+    "head_dim": 128,
+    "num_experts": 128,
+    "num_experts_per_tok": 8,
+    "norm_topk_prob": True,
+    "decoder_sparse_step": 1,
+    "mlp_only_layers": [],
+    "max_position_embeddings": 40960,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0,
+    "rope_scaling": None,
+    "tie_word_embeddings": False,
+    "attention_bias": False,
+    "hidden_act": "silu",
+    "model_type": "qwen3_moe",
+}
+QWEN3_MOE_LAYERS = 4
+# the engines that repeat other engines' kernels, cut in depth: Mistral-7B
+# under attention_backend="pallas" and Llama-3.2-3B W4A8 with bf16 KV
+MISTRAL_PALLAS_LAYERS = 8
+BF16KV_LAYERS = 7
 
 
 def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
-                 requests=REQUESTS, shared_len: int = 600) -> dict:
+                 requests=REQUESTS, shared_len: int = 600, sink_move: bool = False,
+                 witness: bool = False) -> dict:
     """Serve the request set through ``Engine.generate`` with every launch
     count set to 0 just before and read just after; check each request,
     the radix hit, the launches of both attention kernels of the pool's
@@ -2434,7 +2862,16 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     apart. Each row whose argmax differs is logged with its gap. A model
     with a sliding window must move the logits of each prompt longer than
     the window by at least ``WINDOW_MOVE`` times the worst reading against
-    the plain path without it.
+    the plain path without it; a model with sinks logs how far dropping them
+    moves each prompt's logits, and with ``sink_move`` each prompt within
+    the window must move by at least ``SINK_MOVE`` times that reading. A MoE
+    model's plain path runs at the kernel path's routing (``SameRouting``).
+    ``witness`` logs where the kernel path's distance from the plain path
+    grows, layer by layer (``LayerTrace``), beside a control: the plain
+    path against itself with one-ulp noise on its attention outputs
+    (``UlpNoise``) at the share where the kernel's first layer differs.
+    The first layer's attention sees the same q, k and v on both paths, so
+    its outputs must agree within one bf16 ulp of their max (2^-7).
     ``toppings``: each request's adapter (see ``TOPPINGS``); the delta
     kernel must then launch once per projection and layer of every forward
     whose batch names an adapter, and never without ``toppings``, and the
@@ -2443,6 +2880,7 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     import torch
 
     from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+    from scratchpad_tpu_torch.models.common import QuantLinear
     from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS, reset_launch_counts
     from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 
@@ -2478,6 +2916,7 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
         outs = engine.generate(input_ids=prompts, sampling_params=sps[:-1], topping=tops[:-1])
         outs += engine.generate(input_ids=second, sampling_params=sps[-1:], topping=tops[-1])
     counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    by_group = {fn.__name__: dict(fn.group_launches) for fn in KERNEL_WRAPPERS if hasattr(fn, "group_launches")}
     torch.cuda.synchronize()
     model.forward = inner_forward
     log(
@@ -2506,8 +2945,16 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     )
     pages = runner.kv_cache_dtype if runner.kv_cache.quantized else "bf16"
     need = {EXTEND[pages]: L * n_ext, DECODE[pages]: L * n_dec}
+    # one W4 launch per 4-bit matrix and forward (Llama: 6 a layer and the
+    # head; GPT-OSS: q, k, v, o and each expert's two), each at its matrix's
+    # group size (GPT-OSS: 120 where In is 2880, 128 at o)
+    w4_groups = collections.Counter(m.group_size for m in model.modules() if isinstance(m, QuantLinear))
+    n_w4 = sum(w4_groups.values())
     for k in w4_kernels:
-        need[k] = (6 * L + 1) * (n_ext + n_dec)
+        need[k] = n_w4 * (n_ext + n_dec)
+        if k in by_group:
+            want = {g: n * (n_ext + n_dec) for g, n in w4_groups.items()}
+            check(by_group[k] == want, f"{label}: {k} launched {by_group[k]} times by group size, not {want}")
     for k, n in need.items():
         check(counts[k] >= n > 0, f"{label}: {k} launched {counts[k]} times, fewer than {n}")
     # one delta launch per projection and layer of each forward with adapters
@@ -2520,7 +2967,8 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     other = "bf16" if runner.kv_cache.quantized else "int8"
     for k in (EXTEND[other], DECODE[other]):
         check(counts[k] == 0, f"{label}: {k} launched {counts[k]} times on a {pages} pool")
-    # every served model quantizes with groups of 128: never the mma.sync route
+    # every served model quantizes with groups of 128 (GPT-OSS also 120):
+    # never the mma.sync route
     check(counts["w4a8_matmul_mma"] == 0, f"{label}: w4a8_matmul_mma launched {counts['w4a8_matmul_mma']} times")
     # every decode launch goes through decode_attention_pallas under
     # attention_backend="pallas", and none under auto
@@ -2538,7 +2986,7 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     }
 
     result = dict(
-        counts=counts, steps=steps, worst_logit_rel=None,
+        counts=counts, by_group=by_group, steps=steps, worst_logit_rel=None,
         preset=engine.args.preset or cfg.architecture, weights=engine.args.quantization or "bf16",
         kv_cache_dtype=runner.kv_cache_dtype, attention_backend=runner.attention_backend,
         output_ids=[o.output_ids for o in outs],
@@ -2556,16 +3004,58 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     min_margin = math.inf  # the plain path's top-2 gap over max |logit|
     window = cfg.sliding_window
     moves = []  # (prompt length, step, kernel path against the plain path without the window)
-    for p, o in zip(prompts + second, outs):
-        kern = batch_logits(runner, [p], [o.output_ids[0]])
+    has_sinks = hasattr(model.layers[0], "sinks")
+    sink_moves = []  # the same without the sinks
+    moe = hasattr(model, "top_experts")
+    own_routing = 0.0  # MoE: the worst reading with each path's own routing
+    flips = picked = 0
+    # witness: per layer, kernel against plain and control against plain
+    # (attention outputs, MoE inputs); the control's logits readings
+    w_gaps = {"kernel": [[0.0] * L, [0.0] * L], "control": [[0.0] * L, [0.0] * L]}
+    w_shares, w_control, w_flips = [], 0.0, []
+    trace = LayerTrace if witness else lambda model: contextlib.nullcontext()
+    for i, (p, o) in enumerate(zip(prompts + second, outs)):
+        # a MoE model's plain path runs at the kernel path's routing
+        routing = SameRouting(model) if moe else None
+        same = routing.replay if moe else contextlib.nullcontext
+        with routing.record() if moe else contextlib.nullcontext(), trace(model) as k_trace:
+            kern = batch_logits(runner, [p], [o.output_ids[0]])
         with PlainPath(model):
-            plain = batch_logits(runner, [p], [o.output_ids[0]])
+            with same(), trace(model) as p_trace:
+                plain = batch_logits(runner, [p], [o.output_ids[0]])
+            if moe:
+                flips, picked = flips + routing.flips, picked + routing.picked
+            if witness:
+                share = float((k_trace.attn[0] != p_trace.attn[0]).float().mean())
+                with UlpNoise(model, share, seed=i), same(), trace(model) as c_trace:
+                    control = batch_logits(runner, [p], [o.output_ids[0]])
+                w_shares.append(share)
+                for name, t in (("kernel", k_trace), ("control", c_trace)):
+                    for into, g in zip(w_gaps[name], t.gaps(p_trace, L)):
+                        into[:] = map(max, into, g)
+                del k_trace, p_trace, c_trace
+                for step in (0, 1):
+                    a, b = control[step][0], plain[step][0]
+                    w_control = max(w_control, float((a - b).abs().max()) / float(b.abs().max()))
+                    if a.argmax() != b.argmax():
+                        top2 = torch.topk(b, 2).values
+                        w_flips.append(float(top2[0] - top2[1]) / float(b.abs().max()))
+                own = batch_logits(runner, [p], [o.output_ids[0]])
+                for step in (0, 1):
+                    a, b = kern[step][0], own[step][0]
+                    own_routing = max(own_routing, float((a - b).abs().max()) / float(b.abs().max()))
             if window is not None and len(p) > window:
-                with NoWindow(model):
+                with NoWindow(model), same():
                     unwindowed = batch_logits(runner, [p], [o.output_ids[0]])
                 for step in (0, 1):
                     a, b = kern[step][0], unwindowed[step][0]
                     moves.append((len(p), step, float((a - b).abs().max()) / float(b.abs().max())))
+            if has_sinks:
+                with NoSinks(model), same():
+                    unsunk = batch_logits(runner, [p], [o.output_ids[0]])
+                for step in (0, 1):
+                    a, b = kern[step][0], unsunk[step][0]
+                    sink_moves.append((len(p), step, float((a - b).abs().max()) / float(b.abs().max())))
         for step in (0, 1):
             a, b = kern[step][0], plain[step][0]
             check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{label}: non-finite logits")
@@ -2601,6 +3091,35 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
         f"{min_margin:.3e} of max|logit|"
     )
     result["worst_logit_rel"] = max(worst.values())
+    if witness:
+        log(
+            f"[engine {label}] witness: the kernel path's first-layer attention outputs differ from "
+            f"the plain path's at {min(w_shares):.3f} to {max(w_shares):.3f} of their elements; per "
+            f"layer, worst over {2 * len(outs)} rows, max|diff|/max|x| against the plain path: "
+            f"kernel attention outputs {fmt_layers(w_gaps['kernel'][0])}, MoE inputs "
+            f"{fmt_layers(w_gaps['kernel'][1])}; control attention outputs "
+            f"{fmt_layers(w_gaps['control'][0])}, MoE inputs {fmt_layers(w_gaps['control'][1])}"
+        )
+        log(
+            f"[engine {label}] control (the plain path with one-ulp noise on its attention outputs "
+            f"at that share, the kernel path's routing) against the plain path: worst "
+            f"max|diff|/max|logit| {w_control:.3e} (the kernel path {max(worst.values()):.3e}); "
+            f"argmax differs on {len(w_flips)} of {2 * len(outs)} rows, at plain top-2 gaps "
+            + (", ".join(f"{g:.3e}" for g in sorted(w_flips)) or "-") + " of max|logit|"
+        )
+        result["witness_control"] = w_control
+        check(
+            w_gaps["kernel"][0][0] <= 2**-7,
+            f"{label}: the first layer's attention outputs differ from the plain path's by "
+            f"{w_gaps['kernel'][0][0]:.3e} of their max, over one bf16 ulp",
+        )
+    if moe:
+        log(
+            f"[engine {label}] MoE routing: the plain path ran at the kernel path's routing; at its "
+            f"own, its router picked another expert set at {flips} of {picked} (token, layer) "
+            f"picks, and max|diff|/max|logit| read {own_routing:.3e} (not gated)"
+        )
+        result["worst_logit_rel_own_routing"] = own_routing
     if window is not None:
         reading = max(worst.values())
         log(
@@ -2615,6 +3134,22 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
                 m >= WINDOW_MOVE * reading,
                 f"{label}: the window moves the {n}-token prompt's logits (step {st}) by only "
                 f"{m:.3e}, under {WINDOW_MOVE} x the kernel-vs-plain reading {reading:.3e}",
+            )
+    if has_sinks:
+        reading = max(worst.values())
+        log(
+            f"[engine {label}] sinks: kernel path against the plain path without them, prompt and "
+            f"step: " + ", ".join(f"{n} tokens step {st} {m:.3e}" for n, st, m in sink_moves)
+            + f" (at least {SINK_MOVE} x {reading:.3e})"
+        )
+        gated = [(n, st, m) for n, st, m in sink_moves if sink_move and n <= (window or n)]
+        check(bool(gated) or not sink_move, f"{label}: no prompt within the window to move by the sinks")
+        result["sink_move_min"] = min((m for _, _, m in gated), default=None)
+        for n, st, m in gated:
+            check(
+                m >= SINK_MOVE * reading,
+                f"{label}: the sinks move the {n}-token prompt's logits (step {st}) by only "
+                f"{m:.3e}, under {SINK_MOVE} x the kernel-vs-plain reading {reading:.3e}",
             )
     return result
 
@@ -3140,10 +3675,44 @@ KERNELS = {
         "via _ragged_call; at head_dim 256 the JAX package extends in XLA, "
         "executor/model_runner.py:185)",
     ),
+    # the sinks branch of rows 1 and 3 (GPT-OSS), through the bf16 wrappers
+    # (their launches: the gpt-oss-20b engine's)
+    DECODE_SINKS: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/gqa_decode.py:92 (_gqa_decode_kernel, with_sinks "
+        ":128-133, :421-425) and :446 (_gqa_decode_grouped_kernel, with_sinks :493-496, :637-641)",
+    ),
+    EXTEND_SINKS: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_extend_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 (bundled ragged_paged_attention "
+        "via _ragged_call; with sinks the JAX package extends in XLA, xla_backend.py:508-515, "
+        "models/gpt_oss.py:54)",
+    ),
+    # rows 6 and 7 at GPT-OSS's groups of 120, on their served path (the
+    # gpt-oss-w4a8 and gpt-oss-w4a16 engines)
+    W4A8_G120: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/w4a8_matmul.cu",
+        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:139 (_w4a8_kernel, launched :234)",
+    ),
+    W4A16_G120: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/w4a16_matmul.cu",
+        replaces="scratchpad_tpu/ops/quant/pallas_w4.py:27 (_w4_kernel, launched :131)",
+    ),
 }
 # the wrapper whose launch count a kernel entry reports, where it is not the
-# entry's own name
-KERNEL_WRAPPER = {DECODE_256: "paged_decode_attention", EXTEND_256: "paged_extend_attention"}
+# entry's own name, and the group size whose launches it counts, where it
+# counts only one (GPT-OSS's W4 engines launch rows 6 and 7 at groups of
+# 120, and rows 5 and 4 at o's 128)
+KERNEL_GROUP = {W4A8_G120: 120, W4A16_G120: 120}
+KERNEL_WRAPPER = {
+    DECODE_256: "paged_decode_attention", EXTEND_256: "paged_extend_attention",
+    DECODE_SINKS: "paged_decode_attention", EXTEND_SINKS: "paged_extend_attention",
+    W4A8_G120: "w4a8_matmul", W4A16_G120: "w4a16_matmul",
+}
 # the engine run whose launches each kernel's entry reports
 KERNEL_ENGINE = {
     "paged_decode_attention": "bf16", "paged_extend_attention": "bf16",
@@ -3151,6 +3720,8 @@ KERNEL_ENGINE = {
     "quantize_rows_int8": "w4a8", "w4a8_matmul": "w4a8", "w4a16_matmul": "w4a16",
     "delta_matmul_grouped": "1b-toppings", "decode_attention_pallas": "mistral-7b-pallas",
     DECODE_256: "gemma-2-2b", EXTEND_256: "gemma-2-2b",
+    DECODE_SINKS: "gpt-oss-20b", EXTEND_SINKS: "gpt-oss-20b",
+    W4A8_G120: "gpt-oss-w4a8", W4A16_G120: "gpt-oss-w4a16",
 }
 
 
@@ -3172,11 +3743,11 @@ def main() -> None:
         log(f"[phase] {fn.__name__}: {time.monotonic() - t:.1f} s")
         return out
 
-    name, smi_line = phase_device()
+    device_name, smi_line = phase_device()
     timed(phase_build)
     errs = {k: 0.0 for k in KERNELS}
     for fn in (check_decode, check_extend, check_window_decode, check_window_extend, check_pallas_decode,
-               check_decode_256, check_extend_256):
+               check_decode_256, check_extend_256, check_sinks):
         timed(fn, errs)
     timed(check_window_sequence_256)
     timed(check_kv_quantizer)
@@ -3190,9 +3761,10 @@ def main() -> None:
     w4a8 = ("quantize_rows_int8", "w4a8_matmul")
 
     def serve(engine, label, w4_kernels=(), logits=True, toppings=None, timed=True,
-              requests=REQUESTS, shared_len=600):
+              requests=REQUESTS, shared_len=600, sink_move=False, witness=False):
         t = time.monotonic()
-        engines[label] = phase_engine(engine, label, w4_kernels, logits, toppings, requests, shared_len)
+        engines[label] = phase_engine(engine, label, w4_kernels, logits, toppings, requests, shared_len,
+                                      sink_move, witness)
         t_times = time.monotonic()
         if timed and not FAILURES:
             phase_engine_times(engine, engines[label], label)
@@ -3200,6 +3772,10 @@ def main() -> None:
             f"[engine {label}] phase wall: {t_times - t:.1f} s serving and checking, "
             f"{time.monotonic() - t_times:.1f} s timing"
         )
+
+    from scratchpad_tpu_torch.config import ModelConfig, ServerArgs
+    from scratchpad_tpu_torch.config.model_config import get_preset
+    from scratchpad_tpu_torch.executor.model_runner import resolve_kv_cache_dtype
 
     t_engines = time.monotonic()
     engine = make_engine()
@@ -3237,15 +3813,20 @@ def main() -> None:
         f"3B W4A8 auto KV resolved to {engine.scheduler.runner.kv_cache_dtype}, not int8",
     )
     serve(engine, "3b-w4a8", w4a8)
-    # the same quantized weights with bf16 KV: the auto rule's premise
-    params = dict(engine.scheduler.runner.model.state_dict())
+    # the same quantized weights with bf16 KV, the first BF16KV_LAYERS
+    # layers (its kernels are held elsewhere: bf16 attention at G = 3 in
+    # phase 3 and in the bf16 engine, W4A8 in both W4A8 engines; it is here
+    # for its launch counts, so its logits are not checked, and it is no
+    # longer timed)
+    params = {
+        k: t for k, t in engine.scheduler.runner.model.state_dict().items()
+        if not k.startswith("layers.") or int(k.split(".")[1]) < BF16KV_LAYERS
+    }
     del engine
-    engine = make_engine("w4a8", preset="llama-3.2-3b", kv_cache_dtype="bfloat16", params=params)
+    engine = make_engine("w4a8", kv_cache_dtype="bfloat16", params=params,
+                         model_config=get_preset("llama-3.2-3b", num_hidden_layers=BF16KV_LAYERS))
     del params
-    # (its kernels are held elsewhere: bf16 attention at G = 3 in phase 3
-    # and in the bf16 engine, W4A8 in both W4A8 engines; it is here for
-    # its launch counts and its times, so its logits are not checked)
-    serve(engine, "3b-w4a8-bf16kv", w4a8, logits=False)
+    serve(engine, "3b-w4a8-bf16kv", w4a8, logits=False, timed=False)
     del engine
     engine = make_engine(kv_cache_dtype="fp8")
     serve(engine, "1b-fp8kv")
@@ -3253,34 +3834,26 @@ def main() -> None:
     # Mistral-7B at full width and depth, its window through the decode and
     # extend kernels: attention_backend auto, then pallas on the same
     # weights (drawn again from the same seed)
-    from scratchpad_tpu_torch.config import ModelConfig
-
+    # (the pallas engine keeps the first MISTRAL_PALLAS_LAYERS layers: the
+    # same weights there, drawn from the same seed)
     fingerprints = []
-    for label, backend in (("mistral-7b", "auto"), ("mistral-7b-pallas", "pallas")):
+    for label, backend, layers in (("mistral-7b", "auto", MISTRAL_7B["num_hidden_layers"]),
+                                   ("mistral-7b-pallas", "pallas", MISTRAL_PALLAS_LAYERS)):
         engine = make_engine(
-            model_config=ModelConfig.from_hf_config(MISTRAL_7B), attention_backend=backend
+            model_config=ModelConfig.from_hf_config(dict(MISTRAL_7B, num_hidden_layers=layers)),
+            attention_backend=backend,
         )
-        fingerprints.append(weights_fingerprint(engine.scheduler.runner.model))
+        fingerprints.append(weights_fingerprint(engine.scheduler.runner.model, MISTRAL_PALLAS_LAYERS))
         serve(engine, label, requests=WINDOW_REQUESTS, timed=backend == "auto")
         del engine
     check(fingerprints[0] == fingerprints[1], f"the Mistral engines' weights differ: {fingerprints}")
-    same = sum(
-        a == b for a, b in zip(engines["mistral-7b"]["output_ids"], engines["mistral-7b-pallas"]["output_ids"])
-    )
-    log(
-        f"[engine mistral-7b-pallas] greedy tokens equal to mistral-7b's on {same} of "
-        f"{len(engines['mistral-7b']['output_ids'])} requests (the same kernels on the same weights)"
-    )
     # Qwen3-8B at full width and depth, bf16: qk-norm, an untied head
-    from scratchpad_tpu_torch.config.model_config import get_preset
-    from scratchpad_tpu_torch.executor.model_runner import resolve_kv_cache_dtype
 
     engine = make_engine(preset="qwen3-8b")
     serve(engine, "qwen3-8b")
     del engine
     # Qwen3-8B W4A8, cut in depth, with the int8 KV that kv_cache_dtype auto
     # gives the full model (logits only; its kernels are held elsewhere)
-    from scratchpad_tpu_torch.config import ServerArgs
 
     auto_kv = resolve_kv_cache_dtype(
         ServerArgs(preset="qwen3-8b", quantization="w4a8").resolve(), get_preset("qwen3-8b"),
@@ -3301,13 +3874,44 @@ def main() -> None:
     engine = make_engine(model_config=ModelConfig.from_hf_config(GEMMA3_1B))
     serve(engine, "gemma-3-1b", requests=GEMMA3_REQUESTS, timed=False, shared_len=GEMMA3_SHARED)
     del engine
+    # GPT-OSS-20B at full width and depth, bf16 (41.8 GB): sinks through both
+    # attention kernels, a window of 128 on alternate layers, 32 experts
+    # (top 4) in the masked loop; dropping the sinks must move its logits
+    engine = make_engine(preset="gpt-oss-20b")
+    serve(engine, "gpt-oss-20b", requests=GPT_OSS_REQUESTS, sink_move=True, witness=True)
+    del engine
+    # W4: kv_cache_dtype auto keeps GPT-OSS-20B's KV in bf16, as the JAX rule
+    # does (no kernel backend), and gives Qwen3-30B-A3B int8
+    for model_name, cfg, want in (("gpt-oss-20b", get_preset("gpt-oss-20b"), "bfloat16"),
+                                  ("Qwen3-30B-A3B", ModelConfig.from_hf_config(QWEN3_30B_A3B), "int8")):
+        got = resolve_kv_cache_dtype(ServerArgs(quantization="w4a8").resolve(), cfg, torch.device("cuda"))
+        check(got == want, f"{model_name} W4A8 auto KV resolved to {got}, not {want}")
+    # GPT-OSS W4, one local and one global layer, int8 KV: W4A8, then W4A16
+    # on the same codes (rows 6 and 7 at its groups of 120 on a served path)
+    engine = make_engine("w4a8", kv_cache_dtype="int8",
+                         model_config=get_preset("gpt-oss-20b", num_hidden_layers=GPT_OSS_W4_LAYERS))
+    serve(engine, "gpt-oss-w4a8", w4a8, timed=False, requests=GPT_OSS_W4_REQUESTS)
+    set_w4_route(engine.scheduler.runner.model, a8=False)
+    serve(engine, "gpt-oss-w4a16", ("w4a16_matmul",), timed=False, requests=GPT_OSS_W4_REQUESTS)
+    engines["gpt-oss-w4a16"]["weights"] = "w4a16"
+    del engine
+    # Qwen3-30B-A3B (its config.json) at QWEN3_MOE_LAYERS layers, bf16: 128
+    # experts (top 8) in the masked loop, qk-norm
+    engine = make_engine(model_config=ModelConfig.from_hf_config(
+        dict(QWEN3_30B_A3B, num_hidden_layers=QWEN3_MOE_LAYERS)))
+    serve(engine, "qwen3-30b-a3b", timed=False)
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
     if FAILURES:
         fail(f"{len(FAILURES)} correctness checks failed; the first: {FAILURES[0]}")
     log(f"[phase] engines: {time.monotonic() - t_engines:.1f} s")
     timing = timed(phase_timing)
-    timing.update({k: [v] for k, v in timed(phase_w4_timing)["per_forward"].items()})
+    w4_times = timed(phase_w4_timing)
+    timing.update({k: [v] for k, v in w4_times["per_forward"].items()})
+    g120 = next(r for r in w4_times["rows"] if r["shape"] == "gpt-oss gate_up 2880->5760 g=120 M=64")
+    timing[W4A8_G120] = [dict(g120["w4a8_matmul"], shape=g120["shape"])]
+    timing[W4A16_G120] = [dict(g120["w4a16_matmul"], shape=g120["shape"])]
     delta = timed(phase_delta_timing)
     timing["delta_matmul_grouped"] = [delta[1], delta[3]]
     probe = timed(phase_profiling_tools)
@@ -3329,9 +3933,11 @@ def main() -> None:
             counts, per_forward = mma_bench["counts"], None
         else:
             eng = engines[KERNEL_ENGINE[kname]]
-            counts = eng["counts"]
             wrapper = KERNEL_WRAPPER.get(kname, kname)
-            per_forward = eng["counts"][wrapper] / max(eng["steps"][wrapper], 1)
+            counts = dict(eng["counts"])
+            if kname in KERNEL_GROUP:
+                counts[wrapper] = eng["by_group"][wrapper].get(KERNEL_GROUP[kname], 0)
+            per_forward = counts[wrapper] / max(eng["steps"][wrapper], 1)
         kernels.append(
             dict(
                 name=kname,
@@ -3372,7 +3978,7 @@ def main() -> None:
         json.dumps(
             {
                 "ok": True,
-                "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
+                "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
             }
         )
     )

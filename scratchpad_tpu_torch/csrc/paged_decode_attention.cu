@@ -26,6 +26,17 @@
 // meaning none: the score is cap * tanh(s / cap), and only the last W tokens
 // (L - W <= j < L) are live; the kernel reads only those.
 //
+// Attention sinks (gqa_decode.py's with_sinks, :128-133, 421-425 and
+// :493-496, 637-641; GPT-OSS), a nullable f32 [Hq] argument: query head
+// h*G+g's sink is a logit that joins the softmax's denominator and carries
+// no value, out = sum_j e^(s_j) v_j / (e^(sink) + sum_j e^(s_j)). The
+// kernel's running max m is in log2 units with sm_scale (and the cap)
+// folded into the scores, so the raw sink takes log2 e alone. It joins
+// once: at the CTA's own normalisation where the row is not split, else at
+// the merge of the splits, never in a split's partial l; the max it is
+// weighed against includes it, so a sink far above every score stays
+// finite. A row with seq_len == 0 then has num 0 and den 1: exact zeros.
+//
 // Layout: k_cache / v_cache are one layer of the pool, [pages, page_size,
 // Hkv, D] row-major; slot s = page * page_size + offset is row s. 8-bit
 // pages carry k_scale / v_scale [pages, page_size, Hkv] bf16: element d of
@@ -233,6 +244,7 @@ struct DecodeArgs {
   const int* seq_lens;
   __nv_bfloat16* out;
   uint8_t* ws;  // i32 counters [kDecodeCounterSlots], zero between launches, then f32 partials
+  const float* sinks;  // [Hq] sink logits, or nullptr
   int num_kv_heads, max_pages, page_size, splits, split_pages, window;
   float sm_scale, logit_cap;
 };
@@ -566,6 +578,10 @@ paged_decode_kernel(const DecodeArgs a) {
   // the warps' states merged in warp order: element (g, d) of the CTA's
   // numerator, and each head's max and denominator
   auto region = [&](int w) { return reinterpret_cast<const float*>(smem + w * W::kBytes); };
+  // head g's sink in the scores' log2 units (-inf: none)
+  auto sink_log2 = [&](int g) {
+    return a.sinks != nullptr ? a.sinks[h * G + g] * kLog2e : -INFINITY;
+  };
   auto head_max = [&](int g) {
     float mx = -INFINITY;
 #pragma unroll
@@ -608,8 +624,11 @@ paged_decode_kernel(const DecodeArgs a) {
     for (int i = tid; i < G * D; i += kThreads) {
       const int g = i / D, d = i % D;
       const float mx = head_max(g);
-      const float mu = mx == -INFINITY ? 0.f : mx;
-      float den = 0.f, num = 0.f;
+      // the sink joins here where the row is one CTA's, else at the merge
+      const float sink = split_run ? -INFINITY : sink_log2(g);
+      const float top = fmaxf(mx, sink);
+      const float mu = top == -INFINITY ? 0.f : top;
+      float den = ex2(sink - mu), num = 0.f;  // ex2(-inf) = 0: no sink
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
         const float* r = region(w);
@@ -658,8 +677,10 @@ paged_decode_kernel(const DecodeArgs a) {
     if (tid < G) {
       float mx = -INFINITY;
       for (int s = 0; s < a.splits; ++s) mx = fmaxf(mx, ml_s[s * 2 * G + tid]);
-      const float mu = mx == -INFINITY ? 0.f : mx;
-      float den = 0.f;
+      const float sink = sink_log2(tid);  // once, here: no partial holds it
+      const float top = fmaxf(mx, sink);
+      const float mu = top == -INFINITY ? 0.f : top;
+      float den = ex2(sink - mu);
       for (int s = 0; s < a.splits; ++s) {
         const float wt = ex2(ml_s[s * 2 * G + tid] - mu);
         ml_s[s * 2 * G + tid] = wt;
@@ -730,7 +751,8 @@ int launch(DecodeArgs a, int batch, int num_q_heads, int head_dim, void* stream)
     return cudaErrorInvalidValue;
   if (a.splits > 1 && ((long long)batch * a.num_kv_heads > kDecodeCounterSlots || a.ws == nullptr))
     return cudaErrorInvalidValue;
-  if (kStage != 4 && a.splits != 1) return cudaErrorInvalidValue;  // a cut runs one split
+  if (kStage != 4 && (a.splits != 1 || a.sinks != nullptr))
+    return cudaErrorInvalidValue;  // a cut runs one split, without sinks
   const int G = num_q_heads / a.num_kv_heads;
   const dim3 grid(a.splits, a.num_kv_heads, batch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -755,22 +777,24 @@ int launch(DecodeArgs a, int batch, int num_q_heads, int head_dim, void* stream)
 // q [B, Hq, D] bf16; k_cache, v_cache [pages, page_size, Hkv, D] bf16;
 // page_table i32 [B, max_pages]; seq_lens i32 [B]; out [B, Hq, D] bf16;
 // logit_cap > 0 caps the scores (0: no cap); window > 0 keeps the last
-// window tokens (0: all). The plan (gqa_decode.py::decode_plan): each row's
-// pages in `splits` ranges of `split_pages` (splits * split_pages >=
-// max_pages); with splits > 1, workspace holds the split counters (zero)
-// and the partials. Returns a cudaError_t (0 = launched).
+// window tokens (0: all); sinks f32 [Hq] sink logits, or null (see the
+// notes above). The plan (gqa_decode.py::decode_plan): each row's pages in
+// `splits` ranges of `split_pages` (splits * split_pages >= max_pages);
+// with splits > 1, workspace holds the split counters (zero) and the
+// partials. Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_attention(const void* q, const void* k_cache,
                                       const void* v_cache, const void* page_table,
                                       const void* seq_lens, void* out, int batch,
                                       int num_q_heads, int num_kv_heads, int head_dim,
                                       int max_pages, int page_size, float sm_scale,
-                                      float logit_cap, int window, int splits,
-                                      int split_pages, void* workspace, void* stream) {
+                                      float logit_cap, int window, const void* sinks,
+                                      int splits, int split_pages, void* workspace,
+                                      void* stream) {
   const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, nullptr, nullptr,
                      static_cast<const int*>(page_table), static_cast<const int*>(seq_lens),
                      static_cast<__nv_bfloat16*>(out), static_cast<uint8_t*>(workspace),
-                     num_kv_heads, max_pages, page_size, splits, split_pages, window,
-                     sm_scale, logit_cap};
+                     static_cast<const float*>(sinks), num_kv_heads, max_pages, page_size,
+                     splits, split_pages, window, sm_scale, logit_cap};
   return launch<__nv_bfloat16>(a, batch, num_q_heads, head_dim, stream);
 }
 
@@ -784,8 +808,8 @@ extern "C" int paged_decode_attention_quant(const void* q, const void* k_cache,
                                             int num_q_heads, int num_kv_heads, int head_dim,
                                             int max_pages, int page_size, int code_type,
                                             float sm_scale, float logit_cap, int window,
-                                            int splits, int split_pages, void* workspace,
-                                            void* stream) {
+                                            const void* sinks, int splits, int split_pages,
+                                            void* workspace, void* stream) {
 #if SPTPU_DECODE_STAGE != 4
   return static_cast<int>(cudaErrorNotSupported);  // a stage cut: bf16 pages only
 #else
@@ -794,8 +818,8 @@ extern "C" int paged_decode_attention_quant(const void* q, const void* k_cache,
                      static_cast<const __nv_bfloat16*>(v_scale),
                      static_cast<const int*>(page_table), static_cast<const int*>(seq_lens),
                      static_cast<__nv_bfloat16*>(out), static_cast<uint8_t*>(workspace),
-                     num_kv_heads, max_pages, page_size, splits, split_pages, window,
-                     sm_scale, logit_cap};
+                     static_cast<const float*>(sinks), num_kv_heads, max_pages, page_size,
+                     splits, split_pages, window, sm_scale, logit_cap};
   switch (code_type) {
     case 0: return launch<int8_t>(a, batch, num_q_heads, head_dim, stream);
     case 1: return launch<__nv_fp8_e4m3>(a, batch, num_q_heads, head_dim, stream);

@@ -24,6 +24,14 @@
 // sliding_window, ragged_backend.py:98-99; xla_backend.py:477-478), runtime
 // arguments uniform over the launch, 0 meaning none: the score is
 // cap * tanh(s / cap), and the query at position p attends p - W < j <= p.
+// Attention sinks (GPT-OSS; the JAX package extends it in XLA,
+// xla_backend.py:508-515, models/gpt_oss.py:54), a nullable f32 [Hq]
+// argument: query head h*G+g's sink joins each of its rows' softmax
+// denominators and carries no value. It is a raw logit, so it takes log2 e
+// alone (the scores' max m holds sm_scale and the cap), and joins at the
+// epilogue, against a max that includes it: l' = l 2^(m - m') + 2^(sink -
+// m'), O' = O 2^(m - m'), m' = max(m, sink). Rows with nothing live (and
+// padding rows) stay exact zeros.
 //
 // What bounds it: operations at the main path's prefill shapes. A chunk of
 // n new tokens over a cache of c tokens costs about 4 * Hq * D * n * (c +
@@ -181,7 +189,8 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ tile_cum,
                     __nv_bfloat16* __restrict__ out, int num_seqs, int num_tokens,
                     int num_kv_heads, int G, int max_pages, int page_size,
-                    float sm_scale, float logit_cap, int window) {
+                    float sm_scale, float logit_cap, int window,
+                    const float* __restrict__ sinks) {
   constexpr bool kQuant = !std::is_same_v<CodeT, __nv_bfloat16>;
   using S = Smem<D, kQuant>;
   constexpr int kRing = S::kRing;
@@ -621,7 +630,14 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float scale = 1.f, den = l[i];
+    if (sinks != nullptr) {  // the row's head's sink joins its denominator
+      const float sink = sinks[h * G + row % G] * kLog2e;
+      const float top = fmaxf(m[i], sink);
+      scale = ex2(m[i] - top);  // 0 for a row with nothing live
+      den = fmaf(l[i], scale, ex2(sink - top));
+    }
+    const float inv = den > 0.f ? scale / den : 0.f;
 #pragma unroll
     for (int c = 0; c < DP / 8; ++c) {
       const int col = 8 * c + 2 * q4;
@@ -646,7 +662,8 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
                          const int* pt, const int* kv_lens, const int* cu_q,
                          const int* tile_seq, const int* tile_cum, __nv_bfloat16* out,
                          int num_seqs, int num_tokens, int hkv, int G, int max_pages,
-                         int page_size, float sm_scale, float logit_cap, int window) {
+                         int page_size, float sm_scale, float logit_cap, int window,
+                         const float* sinks) {
   constexpr size_t bytes = smem_bytes<D, !std::is_same_v<CodeT, __nv_bfloat16>>();
   if (G > Cta<D>::kRows) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(paged_extend_kernel<D, CodeT>,
@@ -655,7 +672,7 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
   if (err != cudaSuccess) return err;
   paged_extend_kernel<D, CodeT><<<grid, Cta<D>::kThreads, bytes, st>>>(
       q, k, v, ks, vs, pt, kv_lens, cu_q, tile_seq, tile_cum, out, num_seqs, num_tokens, hkv,
-      G, max_pages, page_size, sm_scale, logit_cap, window);
+      G, max_pages, page_size, sm_scale, logit_cap, window, sinks);
   return cudaGetLastError();
 }
 
@@ -665,7 +682,7 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
            const void* cu_q_lens, const void* tile_seq, const void* tile_cum, void* out,
            int num_tiles, int num_seqs, int num_tokens, int num_q_heads, int num_kv_heads,
            int head_dim, int max_pages, int page_size, float sm_scale, float logit_cap,
-           int window, void* stream) {
+           int window, const void* sinks, void* stream) {
   if (num_tiles == 0 || num_tokens == 0) return 0;
   if (logit_cap < 0.f || window < 0) return cudaErrorInvalidValue;
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
@@ -683,28 +700,29 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   const auto* tsp = static_cast<const int*>(tile_seq);
   const auto* tcp = static_cast<const int*>(tile_cum);
   auto* op = static_cast<__nv_bfloat16*>(out);
+  const auto* skp = static_cast<const float*>(sinks);
   cudaError_t err;
   switch (head_dim) {
     case 32:
       err = launch_for_d<32>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                             sm_scale, logit_cap, window);
+                             sm_scale, logit_cap, window, skp);
       break;
     case 64:
       err = launch_for_d<64>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                             sm_scale, logit_cap, window);
+                             sm_scale, logit_cap, window, skp);
       break;
     case 128:
       err = launch_for_d<128>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                               num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                              sm_scale, logit_cap, window);
+                              sm_scale, logit_cap, window, skp);
       break;
     case 256:  // bf16 pages only (Gemma); 8-bit pages at D 256 are not ported
       if constexpr (std::is_same_v<CodeT, __nv_bfloat16>)
         err = launch_for_d<256>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                                 num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                                sm_scale, logit_cap, window);
+                                sm_scale, logit_cap, window, skp);
       else
         err = cudaErrorInvalidValue;
       break;
@@ -728,8 +746,8 @@ extern "C" int paged_extend_tokens_per_tile(int group, int head_dim) {
 // tile_seq i32 [num_tiles] (sequence of each tile, B for padding tiles);
 // tile_cum i32 [B] (inclusive prefix sum of tiles per sequence);
 // out [T, Hq, D] bf16; logit_cap > 0 caps the scores (0: no cap); window > 0
-// keeps the last window positions up to each query's own (0: all). Returns
-// a cudaError_t (0 = launched).
+// keeps the last window positions up to each query's own (0: all); sinks
+// f32 [Hq] sink logits, or null. Returns a cudaError_t (0 = launched).
 extern "C" int paged_extend_attention(const void* q, const void* k_cache, const void* v_cache,
                                       const void* page_table, const void* kv_lens,
                                       const void* cu_q_lens, const void* tile_seq,
@@ -737,11 +755,11 @@ extern "C" int paged_extend_attention(const void* q, const void* k_cache, const 
                                       int num_seqs, int num_tokens, int num_q_heads,
                                       int num_kv_heads, int head_dim, int max_pages,
                                       int page_size, float sm_scale, float logit_cap,
-                                      int window, void* stream) {
+                                      int window, const void* sinks, void* stream) {
   return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, page_table, kv_lens,
                                cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                                num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                               page_size, sm_scale, logit_cap, window, stream);
+                               page_size, sm_scale, logit_cap, window, sinks, stream);
 }
 
 // As paged_extend_attention over 8-bit pages: k_cache, v_cache of int8
@@ -752,18 +770,19 @@ extern "C" int paged_extend_attention_quant(
     const void* v_scale, const void* page_table, const void* kv_lens, const void* cu_q_lens,
     const void* tile_seq, const void* tile_cum, void* out, int num_tiles, int num_seqs,
     int num_tokens, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,
-    int page_size, int code_type, float sm_scale, float logit_cap, int window, void* stream) {
+    int page_size, int code_type, float sm_scale, float logit_cap, int window, const void* sinks,
+    void* stream) {
   switch (code_type) {
     case 0:
       return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
                             cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                             num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                            page_size, sm_scale, logit_cap, window, stream);
+                            page_size, sm_scale, logit_cap, window, sinks, stream);
     case 1:
       return launch<__nv_fp8_e4m3>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
                                    cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                                    num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                                   page_size, sm_scale, logit_cap, window, stream);
+                                   page_size, sm_scale, logit_cap, window, sinks, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -128,14 +128,17 @@ def resolve_kv_cache_dtype(args: ServerArgs, cfg: ModelConfig, device: torch.dev
     head) bf16 scales), or the model dtype. ``auto`` follows the JAX
     runner's model-aware rule (``model_runner.py:207-222``): int8 KV for
     W4-quantized serving on an accelerator through the ``auto`` backend (the
-    JAX runner's ``gqa``) when hidden x layers >= 50,000 (3B and up);
-    otherwise, as an explicit ``bfloat16`` does, the pool takes the model
-    dtype. Unlike the JAX runner it leaves ``args`` as it is."""
+    JAX runner's ``gqa``, which a model class without
+    ``supports_pallas_attention`` never gets: ``:198``) when hidden x layers
+    >= 50,000 (3B and up); otherwise, as an explicit ``bfloat16`` does, the
+    pool takes the model dtype. Unlike the JAX runner it leaves ``args`` as
+    it is."""
     if args.kv_cache_dtype in QUANT_KV_DTYPES:
         return args.kv_cache_dtype
     if (
         args.kv_cache_dtype == "auto"
         and args.attention_backend == "auto"
+        and getattr(get_model_class(cfg.architecture), "supports_pallas_attention", False)
         and args.quantization in ("w4a8", "w4a16", "awq", "gptq")
         and device.type == "cuda"
         and cfg.hidden_size * cfg.num_hidden_layers >= 50_000
@@ -191,10 +194,12 @@ class ModelRunner:
         quant = None if self.args.quantization is None else _QUANT_ROUTE[self.args.quantization]
         # the JAX runner's quantize_lm_head auto rule: a 4-bit head whenever
         # the decoder weights are 4-bit (a bf16 head is a third of a W4
-        # engine's per-step weight reads at tied-embedding models)
+        # engine's per-step weight reads at tied-embedding models), for the
+        # classes whose logits read it
         self.model = model_cls(
             cfg, self.device, self.dtype, quantization=quant,
-            quantize_lm_head=quant is not None,
+            quantize_lm_head=quant is not None
+            and getattr(model_cls, "supports_quantized_lm_head", True),
         )
         self.attention_backend = self._set_attention(self.model)
 

@@ -51,10 +51,30 @@ _JAX_LAYER_KEYS = {
     "pre_ffw_norm": ("pre_ffw_norm", False),
     "post_ffw_norm": ("post_ffw_norm", False),
 }
+# the MoE families' own layer keys (Mixtral, Qwen3-MoE, GPT-OSS), as
+# _JAX_LAYER_KEYS; their expert stacks [E, In, Out] (gate_up, down, w1, w2,
+# w3) keep that orientation in the port
+_JAX_MOE_KEYS = {
+    "router": ("router.weight", True),
+    "router_w": ("router.weight", True),
+    "router_b": ("router.bias", False),
+    "bo": ("wo.bias", False),
+    "sinks": ("sinks", False),
+    "gate_up": ("gate_up", False),
+    "gate_up_b": ("gate_up_b", False),
+    "down": ("down", False),
+    "down_b": ("down_b", False),
+    "w1": ("w1", False),
+    "w2": ("w2", False),
+    "w3": ("w3", False),
+}
 # JAX quantized stack -> port module (separate gate and up stacks are fused)
 _JAX_QUANT_KEYS = {
     "wq": "wq", "wk": "wk", "wv": "wv", "wo": "wo", "down": "down", "gate_up_f": "gate_up",
 }
+# the quantized expert stacks of a MoE model, [L * E, ...] with (layer l,
+# expert e) at l * E + e; in the port one QuantLinear an expert, "{key}.{e}"
+_JAX_QUANT_EXPERT_KEYS = ("gate_up", "down", "w1", "w2", "w3")
 
 
 def load_hf_state(model_path: str) -> dict[str, torch.Tensor]:
@@ -90,7 +110,10 @@ def params_from_jax(
 ) -> dict[str, torch.Tensor]:
     """The JAX ``LlamaForCausalLM`` pytree (numpy leaves) as the port's
     ``state_dict``; Qwen2 (q, k, v biases), Qwen3 (``q_norm``, ``k_norm``),
-    Phi-3 and Gemma (four norms a layer, a tied head) pytrees alike.
+    Phi-3 and Gemma (four norms a layer, a tied head) pytrees alike, and
+    those of the MoE families (``cfg.num_experts > 0``: Mixtral, Qwen3-MoE,
+    GPT-OSS), whose expert stacks ``[L, E, In, Out]`` keep their
+    orientation in the port.
 
     JAX stores decoder matrices ``[L, in, out]``, or ``[L, out, in]`` when
     its runner transposed the stacks (``model.weights_transposed``, pass it
@@ -101,10 +124,17 @@ def params_from_jax(
     ``out_true``: the JAX ``QuantizedLinear`` after ``jax.tree.map(np.asarray)``."""
     H, D = cfg.hidden_size, cfg.head_dim
     Hq, Hkv, I = cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size
+    E, Ie = cfg.num_experts, cfg.moe_intermediate_size or cfg.intermediate_size
     out_in = {  # nn.Linear orientation [out, in]
         "wq": (Hq * D, H), "wk": (Hkv * D, H), "wv": (Hkv * D, H),
         "wo": (H, Hq * D), "gate": (I, H), "up": (I, H), "down": (H, I),
+        "router": (E, H), "router_w": (E, H),
     }
+    in_out = {  # the expert stacks [E, In, Out]
+        "gate_up": (E, H, 2 * Ie), "down": (E, Ie, H),
+        "w1": (E, H, Ie), "w3": (E, H, Ie), "w2": (E, Ie, H),
+    }
+    layer_keys = {**_JAX_LAYER_KEYS, **_JAX_MOE_KEYS} if E > 0 else _JAX_LAYER_KEYS
     state: dict[str, torch.Tensor] = {
         "embed.weight": _tensor(params_np["embed"]),
         "final_norm": _tensor(params_np["final_norm"]),
@@ -112,15 +142,21 @@ def params_from_jax(
     if "lm_head" in params_np and not cfg.tie_word_embeddings:
         state["lm_head.weight"] = _tensor(params_np["lm_head"])
     for key, stack in params_np["layers"].items():
-        if key not in _JAX_LAYER_KEYS:
+        if key not in layer_keys:
             raise KeyError(f"unmapped JAX layer parameter {key!r}")
-        name, is_matrix = _JAX_LAYER_KEYS[key]
+        name, is_matrix = layer_keys[key]
         stack = np.asarray(stack)
         if stack.shape[0] != cfg.num_hidden_layers:
             raise ValueError(f"{key}: {stack.shape[0]} layers, expected {cfg.num_hidden_layers}")
+        experts = E > 0 and key in in_out
         for l in range(stack.shape[0]):
             w = stack[l]
-            if is_matrix:
+            if experts:
+                if transposed:
+                    w = np.swapaxes(w, -1, -2)
+                if w.shape != in_out[key]:
+                    raise ValueError(f"{key}: got {w.shape} after orientation, expected {in_out[key]}")
+            elif is_matrix:
                 if not transposed:
                     w = w.T
                 if w.shape != out_in[key]:
@@ -130,7 +166,7 @@ def params_from_jax(
         k: QuantizedLinear(_tensor(v.q), _tensor(v.s), _tensor(v.z), v.group_size, v.out_true)
         for k, v in params_np.get("layers_q", {}).items()
     }
-    state.update(quantized_layer_state(layers_q))
+    state.update(quantized_layer_state(layers_q, E))
     if "lm_head_q" in params_np:
         ql = params_np["lm_head_q"]
         packed = pack_w4(
@@ -141,20 +177,34 @@ def params_from_jax(
     return state
 
 
-def quantized_layer_state(layers_q: dict[str, QuantizedLinear]) -> dict[str, torch.Tensor]:
+def quantized_layer_state(
+    layers_q: dict[str, QuantizedLinear], num_experts: int = 0
+) -> dict[str, torch.Tensor]:
     """The port's per-layer ``q``/``s``/``z`` entries of stacked quantized
     weights named as the JAX package's ``layers_q``. Separate gate and up
-    stacks (a checkpoint import) are fused along Out into ``gate_up``."""
+    stacks (a checkpoint import) are fused along Out into ``gate_up``. With
+    ``num_experts`` E > 0, the expert stacks (``gate_up``, ``down``, ``w1``,
+    ``w2``, ``w3``) hold L * E slices, (layer l, expert e) at the flat index
+    l * E + e (``quantize_stacked``'s 4-D rule), and go to ``{key}.{e}`` of
+    layer l."""
     layers_q = dict(layers_q)
     if "gate" in layers_q and "up" in layers_q:
         layers_q["gate_up_f"] = concat_out(layers_q.pop("gate"), layers_q.pop("up"))
     state = {}
     for key, ql in layers_q.items():
-        if key not in _JAX_QUANT_KEYS:
+        experts = num_experts > 0 and key in _JAX_QUANT_EXPERT_KEYS
+        if not experts and key not in _JAX_QUANT_KEYS:
             raise KeyError(f"unmapped quantized stack {key!r}")
-        for l, qsz in enumerate(zip(*pack_w4(ql))):
+        if experts and ql.q.shape[0] % num_experts:
+            raise ValueError(f"{key}: {ql.q.shape[0]} slices are not layers x {num_experts} experts")
+        for i, qsz in enumerate(zip(*pack_w4(ql))):
+            if experts:
+                l, e = divmod(i, num_experts)
+                name = f"layers.{l}.{key}.{e}"
+            else:
+                name = f"layers.{i}.{_JAX_QUANT_KEYS[key]}"
             for part, t in zip("qsz", qsz):
-                state[f"layers.{l}.{_JAX_QUANT_KEYS[key]}.{part}"] = t
+                state[f"{name}.{part}"] = t
     return state
 
 

@@ -112,6 +112,8 @@ def compute_inv_freq(cfg) -> np.ndarray:
 
     Host-side (numpy) precompute, copied from the JAX package; scaling is
     baked into inv_freq and rope is applied on the fly in the forward.
+    YaRN also reads ``rope_scaling["truncate"]``, which the JAX copy
+    ignores (it always truncates, HF's default).
     """
     head_dim = cfg.head_dim
     inv_freq = 1.0 / (
@@ -154,8 +156,12 @@ def compute_inv_freq(cfg) -> np.ndarray:
                     2 * np.log(base)
                 )
 
-            low = max(int(np.floor(corr_dim(beta_fast))), 0)
-            high = min(int(np.ceil(corr_dim(beta_slow))), dim - 1)
+            # the correction range, floored and ceiled unless the config
+            # says truncate: false (HF's rule; GPT-OSS's checkpoints say so)
+            low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+            if rs.get("truncate", True):
+                low, high = int(np.floor(low)), int(np.ceil(high))
+            low, high = max(low, 0), min(high, dim - 1)
             ramp = np.clip(
                 (np.arange(dim // 2, dtype=np.float64) - low)
                 / max(high - low, 0.001),

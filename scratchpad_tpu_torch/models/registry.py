@@ -2,9 +2,9 @@
 
 Counterpart of ``scratchpad_tpu/models/registry.py``. The port has the Llama
 family (Mistral included: Llama's architecture and weight names with a
-uniform sliding window), Qwen2, Qwen3 and Phi-3 on the Llama decoder, and
-Gemma 2 and Gemma 3 (text); the rest of the JAX package's model zoo is
-still to be ported.
+uniform sliding window), Qwen2, Qwen3 and Phi-3 on the Llama decoder,
+Gemma 2 and Gemma 3 (text), and the MoE decoders Mixtral, Qwen3-MoE and
+GPT-OSS; the rest of the JAX package's model zoo is still to be ported.
 """
 
 from __future__ import annotations
@@ -12,7 +12,9 @@ from __future__ import annotations
 
 def get_model_class(architecture: str):
     from scratchpad_tpu_torch.models.gemma import Gemma2ForCausalLM, Gemma3ForCausalLM
+    from scratchpad_tpu_torch.models.gpt_oss import GptOssForCausalLM
     from scratchpad_tpu_torch.models.llama import LlamaForCausalLM
+    from scratchpad_tpu_torch.models.mixtral import MixtralForCausalLM, Qwen3MoeForCausalLM
     from scratchpad_tpu_torch.models.qwen import (
         Phi3ForCausalLM,
         Qwen2ForCausalLM,
@@ -27,6 +29,9 @@ def get_model_class(architecture: str):
         "Phi3ForCausalLM": Phi3ForCausalLM,
         "Gemma2ForCausalLM": Gemma2ForCausalLM,
         "Gemma3ForCausalLM": Gemma3ForCausalLM,
+        "MixtralForCausalLM": MixtralForCausalLM,
+        "Qwen3MoeForCausalLM": Qwen3MoeForCausalLM,
+        "GptOssForCausalLM": GptOssForCausalLM,
     }
     if architecture not in registry:
         raise NotImplementedError(

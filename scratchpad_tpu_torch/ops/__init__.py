@@ -2,14 +2,15 @@
 
 ``KERNEL_WRAPPERS`` lists every wrapper of the package that launches a
 hand-written CUDA kernel; each carries a ``launches`` count, which it raises
-only where it launches its kernel. ``decode_attention_pallas`` launches the
+only where it launches its kernel (the W4 GEMMs also count by group
+size, ``group_launches``). ``decode_attention_pallas`` launches the
 decode kernel through ``paged_decode_attention``, so both counts rise.
 ``decode_ablate`` (the ablation probe) lies on no serving path; the
 kernel-profiling tool ``tools/decode_ablate.py`` launches it.
-``w4a8_matmul`` sends the groups that cut a 32-deep k step to
-``w4a8_matmul_mma``, whose count rises instead; no model the port serves
-has such groups (GPT-OSS's 120 and 100), and ``tools/w4_kernel_bench.py``
-at GPT-OSS's widths launches it.
+``w4a8_matmul`` sends the groups below 32 to ``w4a8_matmul_mma``, whose
+count rises instead; no model the port serves has such groups (its
+quantizer picks 128, or GPT-OSS's 120), and ``tools/w4_kernel_bench.py``
+launches it.
 """
 
 from scratchpad_tpu_torch.ops.attention import (
@@ -46,6 +47,8 @@ KERNEL_WRAPPERS = (
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "group_launches"):
+            fn.group_launches = {}
 
 
 __all__ = ["KERNEL_WRAPPERS", "reset_launch_counts"]

@@ -23,6 +23,12 @@ give one by one; ``mask_args`` reads the JAX package's global-layer
 sentinel (``1 << 30``) as no window. bf16 pages take head_dim 32 to 256,
 8-bit pages 32 to 128 (``kv_cache.QUANT_KV_HEAD_DIMS``).
 
+``sinks`` (f32 ``[Hq]`` or None; the Pallas kernels' ``with_sinks``,
+``gqa_decode.py:128-133, 421-425``, GPT-OSS) gives each query head a logit
+that joins its softmax and carries no value, as
+``xla_backend.decode_attention_xla:418-426`` computes it: the sink is a raw
+logit (no ``sm_scale``, no cap). A row with ``seq_len == 0`` stays zeros.
+
 ``decode_plan`` splits each row's pages across CTAs where the batch alone
 would leave the card short of them (B 1 gives Hkv CTAs); it reads only the
 page table's width, never ``seq_lens``, so a call never waits for the card.
@@ -51,11 +57,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "paged_decode_attention": (
-        [_P] * 6 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I, _I, _I, _P, _P],
+        [_P] * 6 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I, _P, _I, _I, _P, _P],
         ctypes.c_int,
     ),
     "paged_decode_attention_quant": (
-        [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _I, _I, _P, _P],
+        [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _P, _I, _I, _P, _P],
         ctypes.c_int,
     ),
 }
@@ -173,6 +179,31 @@ def mask_args(logit_cap: Optional[float], sliding_window: Optional[int]) -> tupl
     return float(logit_cap or 0.0), int(sliding_window or 0)
 
 
+def sinks_arg(sinks: Optional[torch.Tensor], q: torch.Tensor) -> int:
+    """The kernels' pointer to ``sinks`` (0 for none): contiguous f32
+    ``[Hq]`` on q's device."""
+    if sinks is None:
+        return 0
+    if sinks.dtype != torch.float32 or sinks.shape != (q.shape[1],) or not sinks.is_contiguous():
+        raise ValueError(
+            f"sinks must be contiguous f32 [{q.shape[1]}], got {sinks.dtype} {tuple(sinks.shape)}"
+        )
+    native.check_same_device(q, sinks)
+    return sinks.data_ptr()
+
+
+def softmax_with_sinks(
+    scores: torch.Tensor, sinks: Optional[torch.Tensor], head_shape: tuple
+) -> torch.Tensor:
+    """softmax over the last axis of masked f32 ``scores``, with each
+    head's sink logit (``sinks`` viewed as ``head_shape``, broadcast over the
+    rest) in the denominator: ``xla_backend``'s concatenate-then-drop."""
+    if sinks is None:
+        return torch.softmax(scores, dim=-1)
+    sk = sinks.float().reshape(head_shape).expand(scores.shape[:-1] + (1,))
+    return torch.softmax(torch.cat([scores, sk], dim=-1), dim=-1)[..., :-1]
+
+
 def softcap(scores: torch.Tensor, logit_cap: Optional[float]) -> torch.Tensor:
     """``cap * tanh(s / cap)``, as ``xla_backend._softcap``."""
     if logit_cap is None:
@@ -206,10 +237,11 @@ def paged_decode_attention_plain(
     v_scale: Optional[torch.Tensor] = None,
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,  # f32 [Hq]
 ) -> torch.Tensor:
     """Gather each row's pages into dense K/V (dequantized in f32 for 8-bit
-    pages) and attend in f32, the cap and the window as in the module
-    docstring. Rows with ``seq_len == 0`` give exact zeros, like the
+    pages) and attend in f32, the cap, the window and the sinks as in the
+    module docstring. Rows with ``seq_len == 0`` give exact zeros, like the
     kernel."""
     sliding_window = mask_args(logit_cap, sliding_window)[1] or None
     B, Hq, D = q.shape
@@ -227,7 +259,7 @@ def paged_decode_attention_plain(
     if sliding_window is not None:
         valid &= pos >= seq_lens[:, None] - sliding_window
     valid = valid[:, None, None, :]
-    p = torch.softmax(scores.masked_fill(~valid, float("-inf")), dim=-1)
+    p = softmax_with_sinks(scores.masked_fill(~valid, float("-inf")), sinks, (1, Hkv, G, 1))
     p = torch.where(valid, p, torch.zeros((), device=q.device))  # len-0 rows
     out = torch.einsum("bhgs,bshd->bhgd", p, v)
     return out.reshape(B, Hq, D).to(q.dtype)
@@ -290,6 +322,7 @@ def paged_decode_attention(
     sm_scale: float,
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """out [B, Hq, D]: each row's single query over the live window of its
     ``seq_lens`` cached tokens in bf16 pages (see
@@ -298,7 +331,7 @@ def paged_decode_attention(
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache, v_cache, page_table, seq_lens, sm_scale,
-            logit_cap=logit_cap, sliding_window=sliding_window,
+            logit_cap=logit_cap, sliding_window=sliding_window, sinks=sinks,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
@@ -306,7 +339,7 @@ def paged_decode_attention(
     _check(q, k_cache, v_cache, None, None, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES)
     out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window,
-                           _plan_args(q, k_cache, page_table))
+                           sinks_arg(sinks, q), _plan_args(q, k_cache, page_table))
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: cudaError {rc}")
     paged_decode_attention.launches += 1
@@ -316,16 +349,17 @@ def paged_decode_attention(
 paged_decode_attention.launches = 0
 
 
-def _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window, split):
-    """Launch ``lib``'s bf16 entry point on ``split`` (``_plan_args``); (out,
-    cudaError)."""
+def _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window, sinks,
+                 split):
+    """Launch ``lib``'s bf16 entry point with the ``sinks`` pointer (0 for
+    none) on ``split`` (``_plan_args``); (out, cudaError)."""
     B, Hq, D = q.shape
     out = torch.empty_like(q)
     rc = lib.paged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         B, Hq, k_cache.shape[2], D, page_table.shape[1], k_cache.shape[1],
-        float(sm_scale), cap, window, *split, native.stream_handle(q.device),
+        float(sm_scale), cap, window, sinks, *split, native.stream_handle(q.device),
     )
     return out, rc
 
@@ -409,7 +443,8 @@ def paged_decode_attention_stage(
     _check(q, k_cache, v_cache, None, None, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES, {"SPTPU_DECODE_STAGE": stage})
     one_split = (1, max(1, page_table.shape[1]), 0)
-    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, 0.0, 0, one_split)
+    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, 0.0, 0, 0,
+                           one_split)
     if rc != 0:
         raise RuntimeError(f"decode stage {stage} launch failed: cudaError {rc} (the cuts take "
                            "bf16 pages at G 3 and 4, D 64 and 128, one split)")
@@ -431,6 +466,7 @@ def paged_decode_attention_quant(
     sm_scale: float,
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``paged_decode_attention`` over 8-bit pages: the kernel folds the
     scales out of its dots, s = (q . k_code) s_k and p' = p s_v; the cap
@@ -439,7 +475,7 @@ def paged_decode_attention_quant(
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache, v_cache, page_table, seq_lens, sm_scale, k_scale, v_scale,
-            logit_cap, sliding_window,
+            logit_cap, sliding_window, sinks,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_quant: unsupported device {q.device}")
@@ -453,7 +489,7 @@ def paged_decode_attention_quant(
         k_scale.data_ptr(), v_scale.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         B, Hq, k_cache.shape[2], D, page_table.shape[1], k_cache.shape[1],
-        CODE_TYPES[k_cache.dtype], float(sm_scale), cap, window,
+        CODE_TYPES[k_cache.dtype], float(sm_scale), cap, window, sinks_arg(sinks, q),
         *_plan_args(q, k_cache, page_table), native.stream_handle(q.device),
     )
     if rc != 0:
@@ -474,15 +510,16 @@ def decode_attention_gqa(
     sm_scale: float,
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Model-facing decode attention over one layer of the pool (the
     ``attention_backend="auto"`` decode)."""
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     if k_scale is None:
         return paged_decode_attention(
-            q, k, v, meta.page_table, meta.seq_lens, sm_scale, logit_cap, sliding_window
+            q, k, v, meta.page_table, meta.seq_lens, sm_scale, logit_cap, sliding_window, sinks
         )
     return paged_decode_attention_quant(
         q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, sm_scale,
-        logit_cap, sliding_window,
+        logit_cap, sliding_window, sinks,
     )

@@ -432,6 +432,14 @@ def _check_a8(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> int:
     return In
 
 
+def count_launch(wrapper, group_size: int) -> None:
+    """One launch of ``wrapper``'s kernel: its ``launches`` and its
+    ``group_launches`` at ``group_size`` (rows 4/5 and 6/7 of the kernel
+    table share these wrappers and differ by group)."""
+    wrapper.launches += 1
+    wrapper.group_launches[group_size] = wrapper.group_launches.get(group_size, 0) + 1
+
+
 def _w4a8_launch(lib, x8, ax, gsum, q, s, z, group_size: int, out_features: int, plan) -> torch.Tensor:
     In = s.shape[0] * group_size
     M = x8.shape[0]
@@ -465,6 +473,7 @@ def w4a8_matmul(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> to
 
 
 w4a8_matmul.launches = 0
+w4a8_matmul.group_launches = {}
 
 
 def _check_a8_plan(plan: GemmPlan, M: int, N: int, K: int, group_size: int) -> None:
@@ -498,7 +507,7 @@ def w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, group_size: int, out_features: 
     _check_a8(x8, ax, gsum, q, s, z, group_size, out_features)
     y = _w4a8_launch(native.load("w4a8_matmul", _SIGNATURES_A8), x8, ax, gsum, q, s, z, group_size,
                      out_features, plan)
-    w4a8_matmul.launches += 1
+    count_launch(w4a8_matmul, group_size)
     return y
 
 
@@ -575,11 +584,12 @@ def w4a16_matmul(x, q, s, z, group_size: int, out_features: int) -> torch.Tensor
         raise ValueError(f"w4a16_matmul: unsupported device {x.device}")
     y = _w4a16_launch(native.load("w4a16_matmul", _SIGNATURES_A16), x, q, s, z, group_size,
                       out_features)
-    w4a16_matmul.launches += 1
+    count_launch(w4a16_matmul, group_size)
     return y
 
 
 w4a16_matmul.launches = 0
+w4a16_matmul.group_launches = {}
 
 
 def w4a16_matmul_cut(x, q, s, z, group_size: int, out_features: int) -> torch.Tensor:

@@ -20,9 +20,13 @@ repacks these planes into it.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+_THREADS = min(8, os.cpu_count() or 1)
 
 
 @dataclasses.dataclass
@@ -92,7 +96,9 @@ def stacked_out_width(Out: int) -> tuple[int, int]:
 
 
 def quantize_stacked(w_stacked, group_size: int = 128) -> QuantizedLinear:
-    """Quantize a layer-stacked weight [L, In, Out], one layer at a time.
+    """Quantize a layer-stacked weight [L, In, Out], one layer at a time, in
+    column blocks on several host threads (the codes are the JAX
+    package's).
 
     Expert-stacked weights [L, E, In, Out] flatten (layer, expert) onto the
     leading axis, as in the JAX package."""
@@ -105,18 +111,29 @@ def quantize_stacked(w_stacked, group_size: int = 128) -> QuantizedLinear:
     packed = np.empty((L, In // 2, Out), np.uint8)
     scale = np.empty((L, G, Out), np.float32)
     zero = np.empty((L, G, Out), np.float32)
-    for l in range(L):
-        wl = np.asarray(w[l], np.float32).reshape(G, g, Out)
+
+    def block(l: int, c0: int, c1: int) -> None:
+        # columns [c0, c1) of slice l: every step runs column by column, so
+        # a block's codes are those of the whole slice
+        wl = np.asarray(w[l, :, c0:c1], np.float32).reshape(G, g, c1 - c0)
         wmin = wl.min(axis=1)  # [G, Out]
         wmax = wl.max(axis=1)
         sc = np.maximum((wmax - wmin) / 15.0, 1e-8)
         ze = np.round(-wmin / sc)
         q = np.clip(
             np.round(wl / sc[:, None, :]) + ze[:, None, :], 0, 15
-        ).astype(np.uint8).reshape(In, Out)
-        packed[l] = q[: In // 2] | (q[In // 2 :] << 4)
-        scale[l] = sc
-        zero[l] = ze
+        ).astype(np.uint8).reshape(In, c1 - c0)
+        packed[l, :, c0:c1] = q[: In // 2] | (q[In // 2 :] << 4)
+        scale[l, :, c0:c1] = sc
+        zero[l, :, c0:c1] = ze
+
+    # numpy leaves the GIL in these array passes: each slice runs in column
+    # blocks of at least 128 on the host's cores
+    cols = max(128, -(-Out // _THREADS // 128) * 128)
+    jobs = [(l, c0, min(c0 + cols, Out)) for l in range(L) for c0 in range(0, Out, cols)]
+    with ThreadPoolExecutor(_THREADS) as pool:
+        for f in [pool.submit(block, *job) for job in jobs]:
+            f.result()
     stored, out_true = stacked_out_width(Out)
     if out_true:
         # padded columns dequantize to exactly zero; callers slice them off
@@ -141,7 +158,12 @@ def concat_out(a: QuantizedLinear, b: QuantizedLinear) -> QuantizedLinear:
     )
 
 
-QUANT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+QUANT_TARGETS = (
+    "wq", "wk", "wv", "wo", "gate", "up", "down",
+    # MoE expert stacks [L, E, In, Out] (flattened to L*E on the lead axis;
+    # "down" doubles as GPT-OSS's 4-D expert down projection)
+    "w1", "w2", "w3", "gate_up",
+)
 
 
 def quantize_model_params(

@@ -25,7 +25,11 @@ a page and inside a 64-token KV tile, the extend also at head_dim 32 and 64
 with one and eight query heads per kv head; a window at least as long as the
 context gives the kernel's no-window output bit for bit. Both attention
 kernels at head_dim 256 (Gemma, bf16 pages) with caps and windows, windows
-that change from call to call on one pool, and 8-bit pages there refused. The decode
+that change from call to call on one pool, and 8-bit pages there refused.
+Both attention kernels with attention sinks (GPT-OSS's shape: Hkv 8, G 8,
+head_dim 64) over bf16, int8 and fp8 pages, with and without its window of
+128, a split launch (B 1, ctx 4096) bit-equal on a repeat, sinks far below
+and far above every score, and zero rows exact zeros. The decode
 ablation probe's ``out`` must lie within one bf16 ulp of its plain
 version's (both round the same f32 statistic to bf16 once), its ``aux``
 within ``aux_tolerance`` (m exact, the rest ATOL + 2**-12 |plain|); the
@@ -1013,3 +1017,81 @@ def test_profiling_tools_run_on_the_card(gen, tmp_path):
     prof.export_chrome_trace(str(path))
     r = analyze_trace.rollup(analyze_trace.load_events(path))
     assert r["by_category"].get("port kernel", 0) > 0 and 0 < r["busy_us"] <= r["span_us"]
+
+
+# ------------------------------------------------------------ attention sinks
+
+# (name, sinks of GPT-OSS's 64 query heads): N(0, 2^2), far below every
+# score, far above every score (the softmax's max is the sink's)
+SINK_KINDS = ["normal", "minus8", "plus100"]
+
+
+def _sink_values(kind, Hq, gen):
+    if kind == "normal":
+        return 2.0 * torch.randn(Hq, generator=gen, device="cuda")
+    return torch.full((Hq,), -8.0 if kind == "minus8" else 100.0, device="cuda")
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("sink", SINK_KINDS)
+@pytest.mark.parametrize("lens", [[4096], [1, 0, 200, 130], [300, 0] * 32])
+def test_decode_kernel_with_sinks_matches_plain(gen, kind, window, sink, lens):
+    """GPT-OSS's decode (Hkv 8, G 8, D 64): one row split across the card, a
+    short batch and B 64, rows of length 0; a split call bit-equal on a
+    repeat (``_decode_checked``)."""
+    Hkv, G, D = 8, 8, 64
+    k, v, pt = _pool(lens, Hkv, D, 16, gen)
+    k, v, ks, vs = _pages(kind, k, v)
+    q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    sinks = _sink_values(sink, Hkv * G, gen)
+    scale = 1 / math.sqrt(D)
+    if ks is None:
+        out = paged_decode_attention(q, k, v, pt, seq, scale, None, window, sinks)
+    else:
+        out = paged_decode_attention_quant(q, k, v, ks, vs, pt, seq, scale, None, window, sinks)
+    ref = paged_decode_attention_plain(q.float(), k, v, pt, seq, scale, ks, vs, None, window, sinks)
+    _close(out, ref)
+    assert bool(torch.isfinite(out.float()).all()) and bool((out[seq == 0] == 0).all())
+    again = (paged_decode_attention(q, k, v, pt, seq, scale, None, window, sinks) if ks is None
+             else paged_decode_attention_quant(q, k, v, ks, vs, pt, seq, scale, None, window, sinks))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("sink", SINK_KINDS)
+def test_extend_kernel_with_sinks_matches_plain(gen, kind, window, sink):
+    """GPT-OSS's extend (Hkv 8, G 8, D 64): mixed chunks, a cached prefix,
+    padding tokens exact zeros."""
+    q, k, v, pt, kv_lens, cu = _extend_case(8, 64, 8, gen)
+    k, v, ks, vs = _pages(kind, k, v)
+    sinks = _sink_values(sink, 64, gen)
+    if ks is None:
+        out = paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.125, None, window, sinks)
+    else:
+        out = paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, 0.125, None, window, sinks)
+    ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, 0.125, ks, vs, None, window,
+                                       sinks)
+    _close(out, ref)
+    assert bool((out[int(cu[-1]) :] == 0).all())
+
+
+def test_sinks_change_the_output_and_are_checked(gen):
+    """The sinks branch is live in both kernels (N(0, 2^2) sinks move the
+    outputs), and a sinks tensor the kernels do not take is refused."""
+    q, k, v, pt, kv_lens, cu = _extend_case(8, 64, 8, gen)
+    sinks = _sink_values("normal", 64, gen)
+    a = paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.125, sinks=sinks)
+    b = paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.125)
+    assert float((a.float() - b.float()).abs().max()) > 1e-2
+    qd = q[:4].contiguous()
+    seq = torch.tensor([100, 600, 33, 250], dtype=torch.int32, device="cuda")
+    pt4 = pt[[0, 1, 2, 4]].contiguous()
+    a = paged_decode_attention(qd, k, v, pt4, seq, 0.125, sinks=sinks)
+    b = paged_decode_attention(qd, k, v, pt4, seq, 0.125)
+    assert float((a.float() - b.float()).abs().max()) > 1e-2
+    for bad in (sinks.to(torch.bfloat16), sinks[:32], sinks.cpu()):
+        with pytest.raises((ValueError, RuntimeError)):
+            paged_decode_attention(qd, k, v, pt4, seq, 0.125, sinks=bad)

@@ -1,8 +1,9 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
-A subprocess imports every module of ``scratchpad_tpu_torch`` (the Qwen
-and Gemma models among them) and ``chip_smoke``, and serves tiny CPU
-engines of Llama, Gemma 2 and Qwen3, then lists what it loaded;
+A subprocess imports every module of ``scratchpad_tpu_torch`` (the Qwen,
+Gemma, Mixtral and GPT-OSS models among them) and ``chip_smoke``, and serves
+tiny CPU engines of Llama, Gemma 2, Qwen3, GPT-OSS and Qwen3-MoE, then lists
+what it loaded;
 a source scan checks every import statement of the package. A second
 subprocess blocks ``jax``, the JAX package and the serving packages that the
 card's machine lacks (``aiohttp``, ``pydantic``, ``prometheus_client``,
@@ -23,7 +24,8 @@ _PROBE = """
 import importlib, json, pkgutil, sys
 import scratchpad_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(scratchpad_tpu_torch.__path__, "scratchpad_tpu_torch.")]
-assert {"scratchpad_tpu_torch.models.gemma", "scratchpad_tpu_torch.models.qwen"} <= set(names)
+assert {"scratchpad_tpu_torch.models.gemma", "scratchpad_tpu_torch.models.qwen",
+        "scratchpad_tpu_torch.models.mixtral", "scratchpad_tpu_torch.models.gpt_oss"} <= set(names)
 for n in names:
     importlib.import_module(n)
 import chip_smoke
@@ -32,7 +34,9 @@ from scratchpad_tpu_torch.config.model_config import get_preset
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.engine import Engine
 for cfg in (get_preset("tiny-debug"), get_preset("tiny-gemma2"),
-            get_preset("tiny-debug", architecture="Qwen3ForCausalLM")):
+            get_preset("tiny-debug", architecture="Qwen3ForCausalLM"), get_preset("tiny-gpt-oss"),
+            get_preset("tiny-debug", architecture="Qwen3MoeForCausalLM", num_experts=4,
+                       num_experts_per_tok=2)):
     eng = Engine(ServerArgs(random_weights=True, dtype="float32", device="cpu", page_size=4,
                             max_total_tokens=512), model_config=cfg)
     out = eng.generate(input_ids=[1, 2, 3, 4, 5],

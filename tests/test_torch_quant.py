@@ -58,8 +58,9 @@ from scratchpad_tpu_torch.executor.weight_loader import quantized_layer_state
 TOL = dict(rtol=1e-5, atol=1e-5)
 # (L, In, Out) -> group: 128; 120 (half-plane rule, GPT-OSS); 100 (not a
 # multiple of 8); 64 with a padded Out (out_true 200)
-SHAPES = [(2, 256, 256), (2, 240, 256), (1, 200, 128), (1, 128, 200)]
-GROUPS = {(2, 256, 256): 128, (2, 240, 256): 120, (1, 200, 128): 100, (1, 128, 200): 64}
+SHAPES = [(2, 256, 256), (2, 240, 256), (1, 200, 128), (1, 128, 200), (1, 256, 1000)]
+GROUPS = {(2, 256, 256): 128, (2, 240, 256): 120, (1, 200, 128): 100, (1, 128, 200): 64,
+          (1, 256, 1000): 128}
 
 
 def _weights(shape, seed=0):
@@ -76,7 +77,7 @@ def test_quantize_stacked_matches_jax(shape):
     jq = jax_quantize_stacked(w)
     pq = quantize_stacked(w)
     assert pq.group_size == jq.group_size == GROUPS[shape]
-    assert pq.out_true == jq.out_true == (200 if shape[2] == 200 else 0)
+    assert pq.out_true == jq.out_true == (shape[2] if shape[2] % 128 else 0)
     np.testing.assert_array_equal(pq.q.numpy(), np.asarray(jq.q))
     assert pq.s.dtype == pq.z.dtype == torch.bfloat16 and jq.s.dtype == jnp.bfloat16
     np.testing.assert_array_equal(pq.s.float().numpy(), _f32(jq.s))
@@ -252,3 +253,20 @@ def assert_same_codes(lin, ql, l):
     np.testing.assert_array_equal(unpack_w4(lin.q, lin.in_features).numpy() + 8, nibbles)
     np.testing.assert_array_equal(lin.s.float().numpy(), np.asarray(ql.s[l], np.float32))
     np.testing.assert_array_equal(lin.z.float().numpy(), np.asarray(ql.z[l], np.float32))
+
+
+def test_w4_launch_counts_by_group_size():
+    """The W4 GEMM wrappers count each launch in ``launches`` and by group
+    size in ``group_launches``; ``reset_launch_counts`` clears both."""
+    from scratchpad_tpu_torch.ops import reset_launch_counts
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import count_launch, w4a8_matmul, w4a16_matmul
+
+    reset_launch_counts()
+    for g in (120, 120, 128):
+        count_launch(w4a8_matmul, g)
+    count_launch(w4a16_matmul, 120)
+    assert (w4a8_matmul.launches, w4a8_matmul.group_launches) == (3, {120: 2, 128: 1})
+    assert (w4a16_matmul.launches, w4a16_matmul.group_launches) == (1, {120: 1})
+    reset_launch_counts()
+    assert w4a8_matmul.launches == w4a16_matmul.launches == 0
+    assert w4a8_matmul.group_launches == w4a16_matmul.group_launches == {}

@@ -276,13 +276,18 @@ def test_phi3_splits_fused_checkpoints_as_jax():
 
 def test_registry_maps_the_ported_families():
     from scratchpad_tpu_torch.models.gemma import Gemma2ForCausalLM, Gemma3ForCausalLM
+    from scratchpad_tpu_torch.models.gpt_oss import GptOssForCausalLM
+    from scratchpad_tpu_torch.models.mixtral import MixtralForCausalLM, Qwen3MoeForCausalLM
     from scratchpad_tpu_torch.models.qwen import Phi3ForCausalLM, Qwen2ForCausalLM, Qwen3ForCausalLM
 
     for name, cls in (("Qwen2ForCausalLM", Qwen2ForCausalLM), ("Qwen3ForCausalLM", Qwen3ForCausalLM),
                       ("Phi3ForCausalLM", Phi3ForCausalLM), ("Gemma2ForCausalLM", Gemma2ForCausalLM),
-                      ("Gemma3ForCausalLM", Gemma3ForCausalLM)):
+                      ("Gemma3ForCausalLM", Gemma3ForCausalLM),
+                      ("MixtralForCausalLM", MixtralForCausalLM),
+                      ("Qwen3MoeForCausalLM", Qwen3MoeForCausalLM),
+                      ("GptOssForCausalLM", GptOssForCausalLM)):
         assert get_model_class(name) is cls
-    for name in ("MixtralForCausalLM", "GptOssForCausalLM", "Gemma3ForConditionalGeneration",
+    for name in ("Llama4ForCausalLM", "Gemma3ForConditionalGeneration",
                  "Qwen2VLForConditionalGeneration", "DeepseekV3ForCausalLM"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_model_class(name)
