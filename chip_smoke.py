@@ -92,7 +92,15 @@ Phases, in order; any failure exits non-zero before the last line:
    over bf16, int8 and fp8 pages, without a window and with its 128, sinks
    of N(0, 2^2) and of 100 (above every score): decode at B 1, 2 and 64
    and contexts of 1 to 4096 tokens (``SINK_CHECK_CTX``), split-edge and
-   padding rows, split calls bit-equal; extend on mixed chunks.
+   padding rows, split calls bit-equal; extend on mixed chunks. Llama-4's
+   chunk (``check_chunks``) at Scout's shape (Hkv 8, head_dim 128, G 5) and
+   G 4 over bf16, int8 and fp8 pages, chunks of 16, 100, 1000 and 8192
+   (``CHUNK_SIZES``): decode on rows a token before, on and after a chunk
+   edge and past two chunks (split across the card), one row of 2C + 17
+   (split), and B 64 (one CTA a row and head), split calls bit-equal; extend
+   on a prompt across the edge, a chunk after a cached prefix that starts a
+   token before it, a one-token row and padding tokens, so that query
+   tiles straddle the edge.
 4. engines: ``Engine.generate`` at full width and depth with random
    weights: Llama-3.2-1B in bf16, then with ``quantization="w4a8"``, then
    W4A16 on the same engine and codes (every ``QuantLinear`` switched to
@@ -116,6 +124,17 @@ Phases, in order; any failure exits non-zero before the last line:
    int8 KV, W4A8 then W4A16 on the same codes (rows 6 and 7 at its groups
    of 120), and Qwen3-30B-A3B (``QWEN3_30B_A3B``, its config.json: 128
    experts, top 8) at ``QWEN3_MOE_LAYERS`` layers in bf16, neither timed;
+   Llama-4 Scout's text decoder (``LLAMA4_SCOUT``, its config) at
+   ``LLAMA4_LAYERS`` layers in bf16 (chunks of 8192 on three rope layers, a
+   global NoPE layer, 16 experts top 1 and a shared expert, G 5) with
+   ``LLAMA4_REQUESTS``, not timed, where dropping the chunk must move the
+   logits of each row past the chunk's edge by at least ``CHUNK_MOVE`` times
+   the kernel-vs-plain reading; Apertus-8B (``APERTUS_8B``, its
+   config.json: weighted qk-norm, the xIELU MLP) at full width and depth in
+   bf16, timed. The engines that are checked only and whose kernels other
+   engines hold serve shorter request sets (``UNTIMED_REQUESTS``,
+   ``TOPPINGS_REQUESTS``, ``GPT_OSS_W4_REQUESTS``, ``GEMMA3_REQUESTS``;
+   ``mistral-7b-pallas`` the two prompts past its window);
    ``kv_cache_dtype="auto"`` must give W4 GPT-OSS-20B bf16 KV and W4
    Qwen3-30B-A3B int8, as the JAX rule does. Each serves greedy requests of different lengths, two that
    share a long prefix (radix hit), one longer than
@@ -195,7 +214,11 @@ Phases, in order; any failure exits non-zero before the last line:
    GPT-OSS-20B's (G 8, head_dim 64), with its sinks and, in turns, without
    them (``DECODE_TIMED_SINKS``; extend at 64 x (128, 128) and a 2048-token
    chunk on 8192 with and without its window of 128; no library call
-   computes a sink). At
+   computes a sink). At Llama-4 Scout's (G 5, head_dim 128) with its chunk
+   of 8192 and, in turns, without it: decode at bs 64 and B 1 at ctx 12,000
+   (3,808 live keys a row), extend over positions 6,952 to 8,999 (across the
+   edge) and at 64 x (128, 128); the bound counts the chunk's keys and
+   pairs only, the library call masks the chunk. At
    Gemma-2-2B's (G 2, Hkv 4, head_dim 256): decode at bs 64, ctx 4096 and
    8192 with its window of 4096, and B 1 at 8192 (``DECODE_TIMED_256``);
    extend at 64 x (128, 128) and a 2048-token chunk on 8192 with W 4096.
@@ -273,6 +296,7 @@ LOGIT_RTOL = {
     "1b-toppings": 5e-2, "w4a8-toppings": 1e-1, "mistral-7b": 3e-2, "mistral-7b-pallas": 3e-2,
     "qwen3-8b": 3e-2, "qwen3-8b-w4a8": 1e-1, "gemma-2-2b": 3e-2, "gemma-3-1b": 3e-2,
     "gpt-oss-20b": 5e-2, "gpt-oss-w4a8": 1e-1, "gpt-oss-w4a16": 1e-1, "qwen3-30b-a3b": 3e-2,
+    "llama4-scout": 3e-2, "apertus-8b": 3e-2,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -292,6 +316,7 @@ ARGMAX_FLOOR = {
     "1b-toppings": 3e-2, "w4a8-toppings": 3e-2, "mistral-7b": 0.0, "mistral-7b-pallas": 0.0,
     "qwen3-8b": 0.0, "qwen3-8b-w4a8": 3e-2, "gemma-2-2b": 0.0, "gemma-3-1b": 0.0,
     "gpt-oss-20b": 2e-2, "gpt-oss-w4a8": 3e-2, "gpt-oss-w4a16": 3e-2, "qwen3-30b-a3b": 0.0,
+    "llama4-scout": 0.0, "apertus-8b": 0.0,
 }
 # Each adapter must move its rows' logits (max|adapted - base| / max|base|)
 # by at least this many times the engine's kernel-vs-plain reading, so that
@@ -307,6 +332,11 @@ WINDOW_MOVE = 10.0
 # holds at most that many keys beside the sink (on longer prompts a sink of
 # N(0, 2^2) weighs less against a global layer's sum: logged, not gated).
 SINK_MOVE = 10.0
+# The same for Llama-4's chunked attention: the kernel path's logits of each
+# row whose query sits past the first chunk's edge against the plain path's
+# without the chunk (every layer global), so that a chunk that masks
+# nothing fails.
+CHUNK_MOVE = 10.0
 # the toppings engines' requests, in the order of phase_engine's prompts
 # and its second request: the last two share a 600-token prefix under
 # different adapters
@@ -379,21 +409,21 @@ def at(t, l: int):
     return None if t is None else t[l]
 
 
-def decode_kernel(q, k, v, ks, vs, pt, lens, scale, cap=None, window=None, sinks=None):
+def decode_kernel(q, k, v, ks, vs, pt, lens, scale, cap=None, window=None, sinks=None, chunk=None):
     """The decode wrapper of the pages' kind."""
     from scratchpad_tpu_torch.ops.attention import paged_decode_attention, paged_decode_attention_quant
 
     if ks is None:
-        return paged_decode_attention(q, k, v, pt, lens, scale, cap, window, sinks)
-    return paged_decode_attention_quant(q, k, v, ks, vs, pt, lens, scale, cap, window, sinks)
+        return paged_decode_attention(q, k, v, pt, lens, scale, cap, window, sinks, chunk)
+    return paged_decode_attention_quant(q, k, v, ks, vs, pt, lens, scale, cap, window, sinks, chunk)
 
 
-def extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap=None, window=None, sinks=None):
+def extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap=None, window=None, sinks=None, chunk=None):
     from scratchpad_tpu_torch.ops.attention import paged_extend_attention, paged_extend_attention_quant
 
     if ks is None:
-        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale, cap, window, sinks)
-    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window, sinks)
+        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale, cap, window, sinks, chunk)
+    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window, sinks, chunk)
 
 
 # kernel of each attention route, by the pages' kind
@@ -1116,6 +1146,114 @@ def check_sinks(errs: dict) -> None:
     log(f"[check] extend with sinks: worst err/tol {worst:.3f} over {n} cases")
 
 
+# Llama-4's chunked attention: Scout's shape (Hkv 8, D 128, G 5) and G 4;
+# chunks on a page edge (16), inside a page (100), 1000, and Scout's 8192
+CHUNK_SHAPE = (8, 5, 128)  # Hkv, G, D
+CHUNK_SIZES = (16, 100, 1000, 8192)
+# the kernels' entries of the chunk branch in the kernels line
+DECODE_CHUNK = "paged_decode_attention (chunk)"
+EXTEND_CHUNK = "paged_extend_attention (chunk)"
+
+
+def chunk_decode_lens(case, C: int, gen):
+    """Row lengths of a chunked decode check: "edges", a token before, on and
+    after a chunk edge, past two chunks, and a row of 0 (five rows, split
+    across the card); "split", one row of 2C + 17; "B=64", rows of C to
+    1.5 C + 17 tokens, the first of 1.5 C + 17 (one CTA a row and head)."""
+    import torch
+
+    if case == "edges":
+        lens = [C - 1, C, C + 1, 2 * C + 17, 0]
+    elif case == "split":
+        lens = [2 * C + 17]
+    else:
+        top = C + C // 2 + 17
+        t = torch.randint(C, top + 1, (64,), generator=gen, device="cuda")
+        t[0] = top
+        return t.to(torch.int32)
+    return torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def chunk_extend_chunks(C: int) -> list:
+    """(q_len, kv_len): a fresh prompt across the chunk edge at C, a chunk
+    after a cached prefix whose first query sits a token before it, a
+    one-token row past two chunks, and a short fresh prompt; the query
+    tiles (128 / G tokens of G heads) straddle the edges at every offset
+    the lengths give."""
+    return [(C + 150, C + 150), (300, C + 299), (1, 2 * C + 17), (64, 64)]
+
+
+def check_chunks(errs: dict) -> None:
+    """Both attention kernels' chunk branch over bf16, int8 and fp8 pages at
+    G 5 and 4 (Hkv 8, D 128) and each chunk of ``CHUNK_SIZES``: decode on
+    the rows of ``chunk_decode_lens`` (a split and an unsplit launch; a
+    split call bit-equal on a repeat; rows of length 0 exact zeros);
+    extend on ``chunk_extend_chunks`` and padding tokens (exact zeros)."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import paged_decode_attention_plain, paged_extend_attention_plain
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
+
+    Hkv, _, D = CHUNK_SHAPE
+    ps, scale = 16, 1.0 / math.sqrt(D)
+    seed, n, worst = 40_000, 0, 0.0
+    for kind in ("bf16", "int8", "fp8"):
+        for G in (5, 4):
+            for C in CHUNK_SIZES:
+                for case in ("edges", "split", "B=64"):
+                    seed += 1
+                    gen = seeded(seed)
+                    lens = chunk_decode_lens(case, C, gen)
+                    k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
+                    k, v, ks, vs = quant_pages(k[0], v[0], kind)
+                    q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+                    plan = decode_plan(len(lens), Hkv, pt.shape[1], D, G)
+                    out = decode_kernel(q, k, v, ks, vs, pt, lens, scale, chunk=C)
+                    ref = paged_decode_attention_plain(q.float(), k, v, pt, lens, scale, ks, vs, chunk_size=C)
+                    same = plan.splits == 1 or torch.equal(out, decode_kernel(q, k, v, ks, vs, pt, lens, scale,
+                                                                              chunk=C))
+                    torch.cuda.synchronize()
+                    e, ratio = max_err(out, ref)
+                    zero = bool((out[lens == 0] == 0).all())
+                    errs[DECODE_CHUNK] = max(errs[DECODE_CHUNK], e)
+                    worst, n = max(worst, ratio), n + 1
+                    what = f"{case} {lens.tolist()[:5]}"
+                    log(
+                        f"[check] decode {kind} chunk {C} G={G} D={D} {what}: max_abs_err {e:.3e}, "
+                        f"max err/tol {ratio:.3f}, zero rows exact: {zero}"
+                        + (f"; {plan.splits} splits, second call bit-equal: {same}" if plan.splits > 1 else "")
+                    )
+                    check(ratio <= 1 and zero, f"{kind} decode kernel with chunk {C} disagrees with its plain "
+                                               f"version at G={G} {what}")
+                    check(same, f"{kind} decode kernel's split calls with chunk {C} differ at G={G} {what}")
+                    del k, v, ks, vs
+    log(f"[check] decode with a chunk: worst err/tol {worst:.3f} over {n} cases")
+    n, worst = 0, 0.0
+    for kind in ("bf16", "int8", "fp8"):
+        for G in (5, 4):
+            for C in CHUNK_SIZES:
+                seed += 1
+                chunks = chunk_extend_chunks(C)
+                q, k, v, pt, kv_lens, cu = extend_case(chunks, D, sum(c[0] for c in chunks) + 29, seed, G, Hkv)
+                k, v, ks, vs = quant_pages(k, v, kind)
+                n_real = int(cu[-1])
+                out = extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, chunk=C)
+                ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, scale, ks, vs, chunk_size=C)
+                torch.cuda.synchronize()
+                e, ratio = max_err(out, ref)
+                zero = bool((out[n_real:] == 0).all())
+                errs[EXTEND_CHUNK] = max(errs[EXTEND_CHUNK], e)
+                worst, n = max(worst, ratio), n + 1
+                log(
+                    f"[check] extend {kind} chunk {C} G={G} D={D} chunks={chunks}: max_abs_err {e:.3e}, "
+                    f"max err/tol {ratio:.3f}, padded tokens zero: {zero}"
+                )
+                check(ratio <= 1 and zero, f"{kind} extend kernel with chunk {C} disagrees with its plain "
+                                           f"version at G={G} chunks={chunks}")
+                del k, v, ks, vs
+    log(f"[check] extend with a chunk: worst err/tol {worst:.3f} over {n} cases")
+
+
 def decode_meta(pt, lens):
     """A decode ``ForwardMeta`` over page table ``pt`` and lengths ``lens``,
     for the model-facing ``decode_attention_pallas`` (which reads only those
@@ -1679,7 +1817,8 @@ def check_sink_yardstick(lib, plain, what: str) -> None:
 
 
 def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
-                window=None, wrapper: str = "auto", Hkv: int = 8, sinks: bool = False) -> dict:
+                window=None, wrapper: str = "auto", Hkv: int = 8, sinks: bool = False,
+                chunk: int | None = None) -> dict:
     """Decode at page 16 over Hkv 8: Llama-3.2-1B is G 4, D 64; 3B is G 3,
     D 128; Mistral-7B G 4, D 128, with its window of 4096; Gemma-2-2B G 2,
     D 256 over Hkv 4, its local layers' window 4096; GPT-OSS-20B G 8, D
@@ -1691,7 +1830,9 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     kernel timed with and without them in turns (with, without, without,
     with; ``ms_without_sinks``); the library call attends over one more,
     zero key and value, whose additive mask is each head's sink
-    (``sink_mask``)."""
+    (``sink_mask``). ``chunk``: Llama-4's chunk, timed with and without
+    it in turns the same way (``ms_without_chunk``); the bound counts the
+    query's chunk only, and the library call masks the chunk."""
     import torch
     import torch.nn.functional as F
 
@@ -1713,20 +1854,22 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
         meta, pool = decode_meta(pt, lens), KVCache(k, v)
         kern = lambda l: decode_attention_pallas(q, pool, l, meta, sm_scale=scale, sliding_window=window)
     else:
-        kern = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale, None, window, sk)
+        kern = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale, None, window, sk,
+                                       chunk)
     plain = lambda l: paged_decode_attention_plain(
-        q, k[l], v[l], pt, lens, scale, at(ks, l), at(vs, l), None, window, sk
+        q, k[l], v[l], pt, lens, scale, at(ks, l), at(vs, l), None, window, sk, chunk
     )
-    if sinks:
+    if sinks or chunk:
         bare = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale, None, window)
         turns = [device_ms(fn, layers, 50) for fn in (kern, bare, bare, kern)]
     # dense [B, Hkv, S, D] bf16 copies for the library call, made once
     kd = [dense_kv(k[l], at(ks, l), pt, ps, B, ctx) for l in range(layers)]
     vd = [dense_kv(v[l], at(vs, l), pt, ps, B, ctx) for l in range(layers)]
     q4 = q.view(B, Hkv * G, 1, D)
+    first = (ctx - 1) // chunk * chunk if chunk else max(ctx - (window or ctx), 0)
     mask = None
-    if window is not None:
-        mask = (torch.arange(ctx, device="cuda") >= ctx - window)[None, None, None, :]
+    if window is not None or chunk:
+        mask = (torch.arange(ctx, device="cuda") >= first)[None, None, None, :]
     if sinks:
         kd, vd = [with_zero_key(t) for t in kd], [with_zero_key(t) for t in vd]
         keep = torch.arange(ctx, device="cuda")[None, :] >= ctx - (window or ctx)
@@ -1736,7 +1879,7 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     )
     if sinks:
         check_sink_yardstick(lib(0).view(B, Hkv * G, D), plain(0), "decode")
-    live = min(ctx, window or ctx)
+    live = ctx - first
     kv_bytes = B * live * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
     nbytes = q.numel() * 2 * 2 + kv_bytes + pt.numel() * 4 + B * 4
     flops = 4.0 * B * live * Hkv * G * D
@@ -1744,26 +1887,27 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     r = dict(
         shape=f"{kind} pages, B={B} ctx={ctx} window={window} Hq={Hkv * G} Hkv={Hkv} D={D} "
         f"page={ps}" + (" (decode_attention_pallas)" if wrapper == "pallas" else "")
-        + (", sinks" if sinks else ""),
-        ms=(turns[0] + turns[3]) / 2 if sinks else device_ms(kern, layers, 50),
+        + (", sinks" if sinks else "") + (f", chunk {chunk} ({live} live keys a row)" if chunk else ""),
+        ms=(turns[0] + turns[3]) / 2 if sinks or chunk else device_ms(kern, layers, 50),
         plain_ms=device_ms(plain, layers, 5),
         library_ms=device_ms(lib, layers, 50),
         bound_ms=b,
         bound_by=by,
     )
-    if sinks:
-        r["ms_without_sinks"] = (turns[1] + turns[2]) / 2
+    if sinks or chunk:
+        r["ms_without_sinks" if sinks else "ms_without_chunk"] = (turns[1] + turns[2]) / 2
     del kd, vd, k, v
     torch.cuda.empty_cache()
     return r
 
 
 def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None,
-                Hkv: int = 8, sinks: bool = False) -> dict:
-    """The extend at page 16 over Hkv 8 (or ``Hkv``); with ``window``, the
-    bound counts the keys some query's window holds and the pairs the
-    windows attend. ``sinks``: as ``time_decode``'s (the library call's
-    mask is then ``[1, Hq, q_len, kv_len + 1]``)."""
+                Hkv: int = 8, sinks: bool = False, chunk: int | None = None) -> dict:
+    """The extend at page 16 over Hkv 8 (or ``Hkv``); with ``window`` (or
+    ``chunk``), the bound counts the keys some query's window (or chunk)
+    holds and the pairs the windows (chunks) attend. ``sinks`` and
+    ``chunk``: as ``time_decode``'s (the library call's mask is then
+    ``[1, Hq, q_len, kv_len + 1]``, or the chunk's boolean one)."""
     import torch
     import torch.nn.functional as F
 
@@ -1786,11 +1930,11 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     scale = 1.0 / math.sqrt(D)
     sk = sink_values("normal", Hkv * G, gen) if sinks else None
     kern = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale, None,
-                                   window, sk)
+                                   window, sk, chunk)
     plain = lambda l: paged_extend_attention_plain(
-        q, k[l], v[l], pt, kv_lens, cu, scale, at(ks, l), at(vs, l), None, window, sk
+        q, k[l], v[l], pt, kv_lens, cu, scale, at(ks, l), at(vs, l), None, window, sk, chunk
     )
-    if sinks:
+    if sinks or chunk:
         bare = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale, None,
                                        window)
         turns = [device_ms(fn, layers, 10) for fn in (kern, bare, bare, kern)]
@@ -1805,6 +1949,8 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     j = torch.arange(kl, device="cuda")[None, :]
     p = (kl - ql + torch.arange(ql, device="cuda"))[:, None]
     keep = (j <= p) & (j > p - (window or kl + 1))
+    if chunk:
+        keep &= j >= p // chunk * chunk
     if sinks:
         kd, vd = [with_zero_key(t) for t in kd], [with_zero_key(t) for t in vd]
         mask = sink_mask(keep, sk)
@@ -1812,7 +1958,7 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
             qd, kd[l], vd[l], attn_mask=mask, scale=scale, enable_gqa=True
         )
         check_sink_yardstick(lib(0).transpose(1, 2).reshape(T, Hkv * G, D), plain(0), "extend")
-    elif ql == kl and window is None:
+    elif ql == kl and window is None and not chunk:
         lib = lambda l: F.scaled_dot_product_attention(
             qd, kd[l], vd[l], is_causal=True, scale=scale, enable_gqa=True
         )
@@ -1820,25 +1966,31 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
         lib = lambda l: F.scaled_dot_product_attention(
             qd, kd[l], vd[l], attn_mask=keep, scale=scale, enable_gqa=True
         )
-    # pairs (query, key) attended, and the keys some query's window holds
+    # pairs (query, key) attended, and the keys some query's window (or
+    # chunk) holds: from the first query's first live key to the last key
     W = window or max(c[1] for c in chunks) + 1
-    attended = sum(min(p_ + 1, W) for q_, k_ in chunks for p_ in range(k_ - q_, k_))
-    live = sum(k_ - max(k_ - q_ - W + 1, 0) for q_, k_ in chunks)
+
+    def start(p_):
+        return p_ // chunk * chunk if chunk else max(p_ - W + 1, 0)
+
+    attended = sum(p_ + 1 - start(p_) for q_, k_ in chunks for p_ in range(k_ - q_, k_))
+    live = sum(k_ - start(k_ - q_) for q_, k_ in chunks)
     kv_bytes = live * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
     nbytes = T * Hkv * G * D * 2 * 2 + kv_bytes + pt.numel() * 4
     flops = 4.0 * attended * Hkv * G * D
     b, by = bound_ms(nbytes, flops)
     r = dict(
         shape=f"{kind} pages, {len(chunks)} x (q_len {ql}, kv_len {kl}) window={window} "
-        f"Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}" + (", sinks" if sinks else ""),
-        ms=(turns[0] + turns[3]) / 2 if sinks else device_ms(kern, layers, 10),
+        f"Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}" + (", sinks" if sinks else "")
+        + (f", chunk {chunk}" if chunk else ""),
+        ms=(turns[0] + turns[3]) / 2 if sinks or chunk else device_ms(kern, layers, 10),
         plain_ms=device_ms(plain, layers, 2, reps=3),
         library_ms=device_ms(lib, layers, 10),
         bound_ms=b,
         bound_by=by,
     )
-    if sinks:
-        r["ms_without_sinks"] = (turns[1] + turns[2]) / 2
+    if sinks or chunk:
+        r["ms_without_sinks" if sinks else "ms_without_chunk"] = (turns[1] + turns[2]) / 2
     del kd, vd, k, v
     torch.cuda.empty_cache()
     return r
@@ -2253,6 +2405,25 @@ def phase_timing() -> dict:
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library "
                 f"{r['library_ms']:.4f} ms (SDPA over one more, zero key, the sink its mask)"
             )
+    # the chunk branch at Llama-4 Scout's shape (Hkv 8, G 5, D 128) and chunk
+    # (8192), each row timed with and without its chunk in turns: decode at
+    # ctx 12,000 (3,808 live keys a row), B 64 and B 1 (split across the
+    # card); extend over positions 6,952 to 8,999 (across the edge at
+    # 8,192) and 64 x (128, 128)
+    Hkv, G, D = CHUNK_SHAPE
+    t[DECODE_CHUNK] = [time_decode(B, 12000, D, G, Hkv=Hkv, chunk=8192) for B in (64, 1)]
+    t[EXTEND_CHUNK] = [
+        time_extend([(2048, 9000)], D, G, Hkv=Hkv, chunk=8192),
+        time_extend([(128, 128)] * 64, D, G, Hkv=Hkv, chunk=8192),
+    ]
+    for name in (DECODE_CHUNK, EXTEND_CHUNK):
+        for r in t[name]:
+            log(
+                f"[time] {name} {r['shape']}: {r['ms']:.4f} ms (without the chunk, in turns: "
+                f"{r['ms_without_chunk']:.4f} ms, x{r['ms'] / r['ms_without_chunk']:.4f}); bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library "
+                f"{r['library_ms']:.4f} ms (SDPA, the chunk as a boolean mask)"
+            )
     for D in (128, 64):
         time_kv_write(D)
     return t
@@ -2333,10 +2504,11 @@ def phase_w4a8_mma_bench() -> dict:
 
 
 def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto", params=None,
-                model_config=None, attention_backend="auto"):
+                model_config=None, attention_backend="auto", max_total_tokens=None):
     """An engine with seeded random weights, or with ``params`` (a state
     dict of the same model, for example another engine's quantized one);
-    ``model_config`` in place of the preset."""
+    ``model_config`` in place of the preset; ``max_total_tokens`` caps the
+    KV pool (else 0.85 of free memory)."""
     import torch
 
     from scratchpad_tpu_torch.config import ServerArgs
@@ -2349,7 +2521,7 @@ def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto",
         ServerArgs(
             preset=None if model_config else preset, random_weights=True, dtype="bfloat16",
             device="cuda", quantization=quantization, kv_cache_dtype=kv_cache_dtype,
-            attention_backend=attention_backend,
+            attention_backend=attention_backend, max_total_tokens=max_total_tokens,
         ),
         model_config=model_config,
         params=params,
@@ -2743,6 +2915,21 @@ def fmt_layers(g: list) -> str:
     return "[" + ", ".join(f"{x:.2e}" for x in g) + "]"
 
 
+class NoChunk:
+    """Within the block, the model (Llama-4) attends without its chunks:
+    every layer's ``chunk_size`` None."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        self.saved = self.model.layer_chunks
+        self.model.layer_chunks = [None] * len(self.saved)
+
+    def __exit__(self, *exc):
+        self.model.layer_chunks = self.saved
+
+
 class NoSinks:
     """Within the block, the model (GPT-OSS) attends without its sinks: its
     ``attention_kwargs`` pass ``sinks=None``."""
@@ -2774,9 +2961,15 @@ WINDOW_REQUESTS = [(5, 32), (37, 32), (300, 32), (6000, 32), (4090, 16)]
 # GPT-OSS-20B's, window 128 on its local layers: every prompt but the first
 # two crosses it, and one of 120 tokens decodes 16 across its edge
 GPT_OSS_REQUESTS = [(5, 32), (37, 32), (120, 16), (300, 32), (511, 32), ("chunk+952", 32)]
-# its W4 engines' (two layers, checked only): all but the chunked prompt
-GPT_OSS_W4_REQUESTS = GPT_OSS_REQUESTS[:-1]
-GEMMA3_REQUESTS = [(5, 32), (37, 32), (300, 32), (1500, 32), (3000, 32), (505, 16)]
+# its W4 engines' (two layers, checked only): a prompt within the window,
+# the one that decodes across its edge, one past it
+GPT_OSS_W4_REQUESTS = [(5, 16), (120, 16), (300, 16)]
+# the other engines that are checked only, whose kernels other engines hold
+# too: a short prompt, one of a page and more, one longer than a chunk
+UNTIMED_REQUESTS = [(5, 16), (300, 16), ("chunk+952", 16)]
+# the toppings engines': REQUESTS's prompts (one a TOPPINGS entry), 16 new
+TOPPINGS_REQUESTS = [(n, 16) for n, _ in REQUESTS]
+GEMMA3_REQUESTS = [(5, 16), (1500, 16), (3000, 16), (505, 16)]
 GEMMA3_SHARED = 1100
 # Gemma-3-1B's published config.json (huggingface.co/google/gemma-3-1b-pt,
 # config.json, the text model), read through ModelConfig.from_hf_config; the
@@ -2840,6 +3033,75 @@ QWEN3_30B_A3B = {
     "model_type": "qwen3_moe",
 }
 QWEN3_MOE_LAYERS = 4
+# Llama-4 Scout's text decoder: the text_config of its published config.json
+# (huggingface.co/meta-llama/Llama-4-Scout-17B-16E-Instruct), which is
+# transformers' Llama4TextConfig() defaults, read through
+# ModelConfig.from_hf_config and cut to LLAMA4_LAYERS of its 48 layers
+# (three chunked rope layers and one global NoPE layer: its no_rope_layers,
+# every fourth layer 0, and moe_layers, every layer, are the ones the config
+# derives). max_position_embeddings is transformers' default, 131,072 (the
+# published 10,485,760 would give each request slot a page table of 655,360
+# pages). The weights are random, drawn on the card.
+LLAMA4_SCOUT = {
+    "architectures": ["Llama4ForCausalLM"],
+    "vocab_size": 202048,
+    "hidden_size": 5120,
+    "intermediate_size": 8192,
+    "intermediate_size_mlp": 16384,
+    "num_hidden_layers": 48,
+    "num_attention_heads": 40,
+    "num_key_value_heads": 8,
+    "head_dim": 128,
+    "num_local_experts": 16,
+    "num_experts_per_tok": 1,
+    "interleave_moe_layer_step": 1,
+    "use_qk_norm": True,
+    "attention_chunk_size": 8192,
+    "attn_temperature_tuning": True,
+    "floor_scale": 8192,
+    "attn_scale": 0.1,
+    "max_position_embeddings": 131072,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 500000.0,
+    "rope_scaling": {"rope_type": "llama3", "factor": 16.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 1.0, "original_max_position_embeddings": 8192},
+    "tie_word_embeddings": False,
+    "attention_bias": False,
+    "hidden_act": "silu",
+    "model_type": "llama4_text",
+}
+LLAMA4_LAYERS = 4
+# its KV pool: 4 layers of 8 heads at 128 take 16 KB a token; the masked
+# experts of a logits check's 8,300-token forward take about 10 GB beside it
+LLAMA4_KV_TOKENS = 131072
+# Llama-4's requests, chunk 8192: prompts that cross the chunk's edge in
+# their prefill (8,300) and end on it (8,192: the logits check's decode step
+# is the first token of the second chunk, which sees only itself), one
+# whose 32 decode steps cross it (8,180), and two short ones
+LLAMA4_REQUESTS = [(5, 32), (300, 32), (8192, 16), (8300, 16), (8180, 32)]
+# Apertus-8B's published config.json (huggingface.co/swiss-ai/Apertus-8B-2509,
+# config.json), read through ModelConfig.from_hf_config at full width and
+# depth; the weights are random, drawn on the card
+APERTUS_8B = {
+    "architectures": ["ApertusForCausalLM"],
+    "vocab_size": 131072,
+    "hidden_size": 4096,
+    "intermediate_size": 21504,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "hidden_act": "xielu",
+    "qk_norm": True,
+    "max_position_embeddings": 65536,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 12000000.0,
+    "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    "tie_word_embeddings": False,
+    "attention_bias": False,
+    "mlp_bias": False,
+    "model_type": "apertus",
+}
 # the engines that repeat other engines' kernels, cut in depth: Mistral-7B
 # under attention_backend="pallas" and Llama-3.2-3B W4A8 with bf16 KV
 MISTRAL_PALLAS_LAYERS = 8
@@ -2862,7 +3124,9 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     apart. Each row whose argmax differs is logged with its gap. A model
     with a sliding window must move the logits of each prompt longer than
     the window by at least ``WINDOW_MOVE`` times the worst reading against
-    the plain path without it; a model with sinks logs how far dropping them
+    the plain path without it, and a model with chunks (Llama-4) each row
+    whose query sits past the first chunk's edge by ``CHUNK_MOVE`` times it
+    against the plain path without them; a model with sinks logs how far dropping them
     moves each prompt's logits, and with ``sink_move`` each prompt within
     the window must move by at least ``SINK_MOVE`` times that reading. A MoE
     model's plain path runs at the kernel path's routing (``SameRouting``).
@@ -3006,6 +3270,8 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     moves = []  # (prompt length, step, kernel path against the plain path without the window)
     has_sinks = hasattr(model.layers[0], "sinks")
     sink_moves = []  # the same without the sinks
+    chunk = cfg.attention_chunk_size if hasattr(model, "layer_chunks") else None
+    chunk_moves = []  # the same without the chunks, of the rows past the first chunk
     moe = hasattr(model, "top_experts")
     own_routing = 0.0  # MoE: the worst reading with each path's own routing
     flips = picked = 0
@@ -3050,6 +3316,13 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
                 for step in (0, 1):
                     a, b = kern[step][0], unwindowed[step][0]
                     moves.append((len(p), step, float((a - b).abs().max()) / float(b.abs().max())))
+            if chunk is not None and len(p) >= chunk:
+                with NoChunk(model), same():
+                    unchunked = batch_logits(runner, [p], [o.output_ids[0]])
+                for step in (0, 1):
+                    if len(p) - 1 + step >= chunk:  # the row's query sits past the first edge
+                        a, b = kern[step][0], unchunked[step][0]
+                        chunk_moves.append((len(p), step, float((a - b).abs().max()) / float(b.abs().max())))
             if has_sinks:
                 with NoSinks(model), same():
                     unsunk = batch_logits(runner, [p], [o.output_ids[0]])
@@ -3134,6 +3407,22 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
                 m >= WINDOW_MOVE * reading,
                 f"{label}: the window moves the {n}-token prompt's logits (step {st}) by only "
                 f"{m:.3e}, under {WINDOW_MOVE} x the kernel-vs-plain reading {reading:.3e}",
+            )
+    if chunk is not None:
+        reading = max(worst.values())
+        log(
+            f"[engine {label}] chunk {chunk}: kernel path against the plain path without the "
+            f"chunks, prompt and step: "
+            + ", ".join(f"{n} tokens step {st} {m:.3e}" for n, st, m in chunk_moves)
+            + f" (at least {CHUNK_MOVE} x {reading:.3e})"
+        )
+        check(bool(chunk_moves), f"{label}: no prompt past the chunk {chunk}")
+        result["chunk_move_min"] = min((m for _, _, m in chunk_moves), default=None)
+        for n, st, m in chunk_moves:
+            check(
+                m >= CHUNK_MOVE * reading,
+                f"{label}: the chunk moves the {n}-token prompt's logits (step {st}) by only "
+                f"{m:.3e}, under {CHUNK_MOVE} x the kernel-vs-plain reading {reading:.3e}",
             )
     if has_sinks:
         reading = max(worst.values())
@@ -3690,6 +3979,21 @@ KERNELS = {
         "via _ragged_call; with sinks the JAX package extends in XLA, xla_backend.py:508-515, "
         "models/gpt_oss.py:54)",
     ),
+    # the chunk branch of rows 1 and 3 (Llama-4), through the bf16 wrappers
+    # (their launches: the llama4-scout engine's)
+    DECODE_CHUNK: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/gqa_decode.py:92 (_gqa_decode_kernel, chunk_size: "
+        "mask_start :166-168, first_chunk :175-181)",
+    ),
+    EXTEND_CHUNK: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_extend_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 (bundled ragged_paged_attention "
+        "via _ragged_call; with a chunk the JAX package extends in XLA, xla_backend.py:479-483, "
+        "models/llama4.py:48)",
+    ),
     # rows 6 and 7 at GPT-OSS's groups of 120, on their served path (the
     # gpt-oss-w4a8 and gpt-oss-w4a16 engines)
     W4A8_G120: dict(
@@ -3711,6 +4015,7 @@ KERNEL_GROUP = {W4A8_G120: 120, W4A16_G120: 120}
 KERNEL_WRAPPER = {
     DECODE_256: "paged_decode_attention", EXTEND_256: "paged_extend_attention",
     DECODE_SINKS: "paged_decode_attention", EXTEND_SINKS: "paged_extend_attention",
+    DECODE_CHUNK: "paged_decode_attention", EXTEND_CHUNK: "paged_extend_attention",
     W4A8_G120: "w4a8_matmul", W4A16_G120: "w4a16_matmul",
 }
 # the engine run whose launches each kernel's entry reports
@@ -3721,6 +4026,7 @@ KERNEL_ENGINE = {
     "delta_matmul_grouped": "1b-toppings", "decode_attention_pallas": "mistral-7b-pallas",
     DECODE_256: "gemma-2-2b", EXTEND_256: "gemma-2-2b",
     DECODE_SINKS: "gpt-oss-20b", EXTEND_SINKS: "gpt-oss-20b",
+    DECODE_CHUNK: "llama4-scout", EXTEND_CHUNK: "llama4-scout",
     W4A8_G120: "gpt-oss-w4a8", W4A16_G120: "gpt-oss-w4a16",
 }
 
@@ -3747,7 +4053,7 @@ def main() -> None:
     timed(phase_build)
     errs = {k: 0.0 for k in KERNELS}
     for fn in (check_decode, check_extend, check_window_decode, check_window_extend, check_pallas_decode,
-               check_decode_256, check_extend_256, check_sinks):
+               check_decode_256, check_extend_256, check_sinks, check_chunks):
         timed(fn, errs)
     timed(check_window_sequence_256)
     timed(check_kv_quantizer)
@@ -3791,7 +4097,7 @@ def main() -> None:
     # to a quarter of the script's wall (PERF.md §5 keeps its last rates)
     states = topping_states(engine.model_config)
     register_toppings(engine, states, "1b-toppings")
-    serve(engine, "1b-toppings", toppings=TOPPINGS, timed=False)
+    serve(engine, "1b-toppings", toppings=TOPPINGS, timed=False, requests=TOPPINGS_REQUESTS)
     del engine  # frees the pool and the weights for the next engine
     engine = make_engine("w4a8")
     serve(engine, "w4a8", w4a8)
@@ -3803,7 +4109,7 @@ def main() -> None:
     set_w4_route(engine.scheduler.runner.model, a8=True)
     register_toppings(engine, states, "w4a8-toppings")
     del states
-    serve(engine, "w4a8-toppings", w4a8, toppings=TOPPINGS, timed=False)
+    serve(engine, "w4a8-toppings", w4a8, toppings=TOPPINGS, timed=False, requests=TOPPINGS_REQUESTS)
     del engine
     # Llama-3.2-3B W4A8: kv_cache_dtype=auto must give int8 KV, as the JAX
     # runner's rule does at hidden x layers = 86,016
@@ -3826,7 +4132,7 @@ def main() -> None:
     engine = make_engine("w4a8", kv_cache_dtype="bfloat16", params=params,
                          model_config=get_preset("llama-3.2-3b", num_hidden_layers=BF16KV_LAYERS))
     del params
-    serve(engine, "3b-w4a8-bf16kv", w4a8, logits=False, timed=False)
+    serve(engine, "3b-w4a8-bf16kv", w4a8, logits=False, timed=False, requests=UNTIMED_REQUESTS)
     del engine
     engine = make_engine(kv_cache_dtype="fp8")
     serve(engine, "1b-fp8kv")
@@ -3844,7 +4150,8 @@ def main() -> None:
             attention_backend=backend,
         )
         fingerprints.append(weights_fingerprint(engine.scheduler.runner.model, MISTRAL_PALLAS_LAYERS))
-        serve(engine, label, requests=WINDOW_REQUESTS, timed=backend == "auto")
+        serve(engine, label, requests=WINDOW_REQUESTS if backend == "auto" else WINDOW_REQUESTS[3:],
+              timed=backend == "auto")
         del engine
     check(fingerprints[0] == fingerprints[1], f"the Mistral engines' weights differ: {fingerprints}")
     # Qwen3-8B at full width and depth, bf16: qk-norm, an untied head
@@ -3862,7 +4169,7 @@ def main() -> None:
     check(auto_kv == "int8", f"Qwen3-8B W4A8 auto KV resolved to {auto_kv}, not int8")
     engine = make_engine("w4a8", kv_cache_dtype="int8",
                          model_config=get_preset("qwen3-8b", num_hidden_layers=QWEN3_W4A8_LAYERS))
-    serve(engine, "qwen3-8b-w4a8", w4a8, timed=False)
+    serve(engine, "qwen3-8b-w4a8", w4a8, timed=False, requests=UNTIMED_REQUESTS)
     del engine
     # Gemma-2-2B at full width and depth, bf16: head_dim 256, local layers
     # (window 4096) and global ones in turn, attention cap 50, final cap 30
@@ -3899,7 +4206,24 @@ def main() -> None:
     # experts (top 8) in the masked loop, qk-norm
     engine = make_engine(model_config=ModelConfig.from_hf_config(
         dict(QWEN3_30B_A3B, num_hidden_layers=QWEN3_MOE_LAYERS)))
-    serve(engine, "qwen3-30b-a3b", timed=False)
+    serve(engine, "qwen3-30b-a3b", timed=False, requests=UNTIMED_REQUESTS)
+    del engine
+    # Llama-4 Scout's text decoder (LLAMA4_SCOUT, its config) at
+    # LLAMA4_LAYERS layers, bf16: the chunk of 8192 through both attention
+    # kernels on its rope layers, a global NoPE layer with the temperature,
+    # 16 experts (top 1) masked and dense beside the shared expert, G 5;
+    # dropping the chunk must move the logits of the rows past its edge
+    engine = make_engine(model_config=ModelConfig.from_hf_config(
+        dict(LLAMA4_SCOUT, num_hidden_layers=LLAMA4_LAYERS)), max_total_tokens=LLAMA4_KV_TOKENS)
+    chunks = engine.scheduler.runner.model.layer_chunks
+    check(chunks == [8192, 8192, 8192, None], f"llama4-scout's layer chunks are {chunks}")
+    serve(engine, "llama4-scout", timed=False, requests=LLAMA4_REQUESTS)
+    del engine
+    # Apertus-8B (its config.json) at full width and depth, bf16: weighted
+    # qk-norm, the gateless xIELU MLP, G 4 at head_dim 128 through both
+    # attention kernels
+    engine = make_engine(model_config=ModelConfig.from_hf_config(APERTUS_8B))
+    serve(engine, "apertus-8b")
     del engine
     gc.collect()
     torch.cuda.empty_cache()

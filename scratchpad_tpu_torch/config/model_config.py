@@ -14,6 +14,9 @@ import os
 from typing import Any, Optional
 
 
+LLAMA4_ARCHITECTURES = ("Llama4ForCausalLM", "Llama4TextModel")
+
+
 @dataclasses.dataclass
 class ModelConfig:
     """Architecture of a decoder-only transformer.
@@ -48,6 +51,7 @@ class ModelConfig:
     # Llama4 text options
     intermediate_size_mlp: Optional[int] = None  # dense layers' ffw width
     no_rope_layers: Optional[list] = None  # 1 = rope, 0 = NoPE
+    no_rope_layer_interval: int = 4  # without the list: every this many-th layer is NoPE
     attention_chunk_size: Optional[int] = None
     floor_scale: float = 8192.0
     attn_scale: float = 0.1
@@ -88,6 +92,13 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim is None:
             self.head_dim = self.hidden_size // self.num_attention_heads
+        if self.architecture in LLAMA4_ARCHITECTURES and not self.no_rope_layers:
+            # HF Llama4TextConfig: a list left out or empty makes every
+            # no_rope_layer_interval-th layer NoPE (the JAX copy reads it as
+            # all rope layers)
+            self.no_rope_layers = [
+                int((l + 1) % self.no_rope_layer_interval != 0) for l in range(self.num_hidden_layers)
+            ]
 
     @property
     def num_kv_heads(self) -> int:

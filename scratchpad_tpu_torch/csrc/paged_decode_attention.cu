@@ -26,6 +26,16 @@
 // meaning none: the score is cap * tanh(s / cap), and only the last W tokens
 // (L - W <= j < L) are live; the kernel reads only those.
 //
+// Chunked attention (gqa_decode.py's chunk_size, mask_start :166-168;
+// Llama-4's rope layers), a runtime argument uniform over the launch, 0
+// meaning none: a row of length L attends only the chunk that holds its
+// query, tokens (L - 1) / C * C <= j < L, and the kernel reads only those,
+// as first_chunk (:175-181) skips the chunks below. A split whose pages lie
+// wholly below that start holds no live token and writes the empty partial
+// that the merge ignores, as under a window. A launch with both a window and
+// a chunk is refused (the JAX mask_start lets the chunk win; no model passes
+// both).
+//
 // Attention sinks (gqa_decode.py's with_sinks, :128-133, 421-425 and
 // :493-496, 637-641; GPT-OSS), a nullable f32 [Hq] argument: query head
 // h*G+g's sink is a logit that joins the softmax's denominator and carries
@@ -66,7 +76,8 @@
 //     the last CTA of its (row, head) to arrive (a counter it then resets,
 //     as sm90_gemm.cuh's splitk_sum) merges the partials in split order, so
 //     two calls give the same bits and a layer is one launch. A CTA whose
-//     range holds no live token (past seq_len, or below the window) writes
+//     range holds no live token (past seq_len, or below the window or the
+//     chunk's start) writes
 //     m = -inf, l = 0, O = 0, which the merge weighs by 0.
 //   - Four warps a CTA, each its own pipeline: warp w takes the 16-token
 //     slices w, w + 4, ... of the CTA's range and keeps a ring of 3 slices
@@ -245,7 +256,7 @@ struct DecodeArgs {
   __nv_bfloat16* out;
   uint8_t* ws;  // i32 counters [kDecodeCounterSlots], zero between launches, then f32 partials
   const float* sinks;  // [Hq] sink logits, or nullptr
-  int num_kv_heads, max_pages, page_size, splits, split_pages, window;
+  int num_kv_heads, max_pages, page_size, splits, split_pages, window, chunk;
   float sm_scale, logit_cap;
 };
 
@@ -272,9 +283,10 @@ paged_decode_kernel(const DecodeArgs a) {
   const int len = a.seq_lens[b];
   const int ps = a.page_size;
 
-  // the CTA's live tokens [lo, hi): its split's pages, from the window's
-  // first token on
-  const int first = (a.window > 0 && len > a.window) ? len - a.window : 0;
+  // the CTA's live tokens [lo, hi): its split's pages, from the first token
+  // of the query's chunk or of the window on
+  const int first = a.chunk > 0 ? max(len - 1, 0) / a.chunk * a.chunk
+                    : (a.window > 0 && len > a.window) ? len - a.window : 0;
   const int span = a.split_pages * ps;
   const int lo = max(split * span, first);
   const int hi = min(split * span + span, len);
@@ -744,7 +756,8 @@ cudaError_t launch_for_d(int G, const DecodeArgs& a, dim3 grid, cudaStream_t st)
 template <typename CodeT>
 int launch(DecodeArgs a, int batch, int num_q_heads, int head_dim, void* stream) {
   if (batch == 0) return 0;
-  if (a.logit_cap < 0.f || a.window < 0 || a.page_size <= 0) return cudaErrorInvalidValue;
+  if (a.logit_cap < 0.f || a.window < 0 || a.chunk < 0 || a.page_size <= 0) return cudaErrorInvalidValue;
+  if (a.window > 0 && a.chunk > 0) return cudaErrorInvalidValue;  // one mask or the other
   if (a.num_kv_heads <= 0 || num_q_heads % a.num_kv_heads != 0) return cudaErrorInvalidValue;
   if (a.splits < 1 || a.splits > kMaxSplits || a.split_pages < 1 ||
       (long long)a.splits * a.split_pages < a.max_pages)
@@ -777,7 +790,9 @@ int launch(DecodeArgs a, int batch, int num_q_heads, int head_dim, void* stream)
 // q [B, Hq, D] bf16; k_cache, v_cache [pages, page_size, Hkv, D] bf16;
 // page_table i32 [B, max_pages]; seq_lens i32 [B]; out [B, Hq, D] bf16;
 // logit_cap > 0 caps the scores (0: no cap); window > 0 keeps the last
-// window tokens (0: all); sinks f32 [Hq] sink logits, or null (see the
+// window tokens (0: all); chunk > 0 keeps the tokens of the query's chunk
+// of that many (0: all; not with a window); sinks f32 [Hq] sink logits, or
+// null (see the
 // notes above). The plan (gqa_decode.py::decode_plan): each row's pages in
 // `splits` ranges of `split_pages` (splits * split_pages >= max_pages);
 // with splits > 1, workspace holds the split counters (zero) and the
@@ -787,14 +802,14 @@ extern "C" int paged_decode_attention(const void* q, const void* k_cache,
                                       const void* seq_lens, void* out, int batch,
                                       int num_q_heads, int num_kv_heads, int head_dim,
                                       int max_pages, int page_size, float sm_scale,
-                                      float logit_cap, int window, const void* sinks,
-                                      int splits, int split_pages, void* workspace,
-                                      void* stream) {
+                                      float logit_cap, int window, int chunk,
+                                      const void* sinks, int splits, int split_pages,
+                                      void* workspace, void* stream) {
   const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, nullptr, nullptr,
                      static_cast<const int*>(page_table), static_cast<const int*>(seq_lens),
                      static_cast<__nv_bfloat16*>(out), static_cast<uint8_t*>(workspace),
                      static_cast<const float*>(sinks), num_kv_heads, max_pages, page_size,
-                     splits, split_pages, window, sm_scale, logit_cap};
+                     splits, split_pages, window, chunk, sm_scale, logit_cap};
   return launch<__nv_bfloat16>(a, batch, num_q_heads, head_dim, stream);
 }
 
@@ -808,7 +823,7 @@ extern "C" int paged_decode_attention_quant(const void* q, const void* k_cache,
                                             int num_q_heads, int num_kv_heads, int head_dim,
                                             int max_pages, int page_size, int code_type,
                                             float sm_scale, float logit_cap, int window,
-                                            const void* sinks, int splits, int split_pages,
+                                            int chunk, const void* sinks, int splits, int split_pages,
                                             void* workspace, void* stream) {
 #if SPTPU_DECODE_STAGE != 4
   return static_cast<int>(cudaErrorNotSupported);  // a stage cut: bf16 pages only
@@ -819,7 +834,7 @@ extern "C" int paged_decode_attention_quant(const void* q, const void* k_cache,
                      static_cast<const int*>(page_table), static_cast<const int*>(seq_lens),
                      static_cast<__nv_bfloat16*>(out), static_cast<uint8_t*>(workspace),
                      static_cast<const float*>(sinks), num_kv_heads, max_pages, page_size,
-                     splits, split_pages, window, sm_scale, logit_cap};
+                     splits, split_pages, window, chunk, sm_scale, logit_cap};
   switch (code_type) {
     case 0: return launch<int8_t>(a, batch, num_q_heads, head_dim, stream);
     case 1: return launch<__nv_fp8_e4m3>(a, batch, num_q_heads, head_dim, stream);

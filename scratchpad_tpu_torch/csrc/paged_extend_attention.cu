@@ -24,6 +24,12 @@
 // sliding_window, ragged_backend.py:98-99; xla_backend.py:477-478), runtime
 // arguments uniform over the launch, 0 meaning none: the score is
 // cap * tanh(s / cap), and the query at position p attends p - W < j <= p.
+// Chunked attention (Llama-4's rope layers; the JAX package extends
+// Llama-4 in XLA, xla_backend.py:479-483, models/llama4.py:48), a runtime
+// argument uniform over the launch, 0 meaning none, never with a window: the
+// query at position p attends p / C * C <= j <= p, the keys of its own chunk
+// of C. A tile's KV loop starts at its first query's chunk start, and the
+// rows of a tile that straddles a chunk edge each mask by their own start.
 // Attention sinks (GPT-OSS; the JAX package extends it in XLA,
 // xla_backend.py:508-515, models/gpt_oss.py:54), a nullable f32 [Hq]
 // argument: query head h*G+g's sink joins each of its rows' softmax
@@ -74,9 +80,9 @@
 //     S_t = Q K_t and the previous tile's O += P V together, and runs tile
 //     t's softmax while that PV is on the tensor cores.
 //   - The KV loop stops at the tile's last causal position and, under a
-//     window, starts at the KV tile that holds its first query's first live
-//     position; a thread masks only a tile that crosses its rows' causal or
-//     window edge, each row by its own bounds.
+//     window or a chunk, starts at the KV tile that holds its first query's
+//     first live position; a thread masks only a tile that crosses its rows'
+//     causal, window or chunk edge, each row by its own bounds.
 //   - The epilogue normalises by l (rows with l == 0 are exact zeros),
 //     rounds to bf16 and stores 16 bytes a thread through shared memory.
 //   - head_dim 256 (Gemma; bf16 pages only): the same 64-key tiles, but one
@@ -189,7 +195,7 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ tile_cum,
                     __nv_bfloat16* __restrict__ out, int num_seqs, int num_tokens,
                     int num_kv_heads, int G, int max_pages, int page_size,
-                    float sm_scale, float logit_cap, int window,
+                    float sm_scale, float logit_cap, int window, int chunk,
                     const float* __restrict__ sinks) {
   constexpr bool kQuant = !std::is_same_v<CodeT, __nv_bfloat16>;
   using S = Smem<D, kQuant>;
@@ -250,8 +256,11 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
   const int kv_len = kv_lens[s];
   const int ctx = kv_len - q_len;  // cached tokens before this chunk
   const int kv_end = min(kv_len, ctx + i0 + n_q);  // exclusive bound of kv reads
-  // the first kv tile any row of this tile may see: the first query's window
-  const int kv_begin = window > 0 ? max(ctx + i0 - window + 1, 0) / kBK * kBK : 0;
+  // the first kv tile any row of this tile may see: the first query's chunk
+  // or window
+  const int first_live = chunk > 0 ? (ctx + i0) / chunk * chunk
+                         : window > 0 ? max(ctx + i0 - window + 1, 0) : 0;
+  const int kv_begin = first_live / kBK * kBK;
   const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
 
   if constexpr (D < DP) {  // the padding columns stay zero throughout
@@ -428,7 +437,7 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     lim[i] = row < n_rows ? ctx + i0 + row / G : -1;
-    lo[i] = window > 0 ? lim[i] - window + 1 : 0;
+    lo[i] = chunk > 0 ? max(lim[i], 0) / chunk * chunk : window > 0 ? lim[i] - window + 1 : 0;
   }
   // a kv tile inside both rows' bounds needs no mask
   const int thr_hi = min(lim[0], lim[1]);
@@ -541,7 +550,7 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < 32; ++n) sc[n] = cap_log2 * tanhf(sc[n] * cap_in);
     }
-    if (k0 + kBK - 1 > thr_hi || (window > 0 && k0 < thr_lo)) {  // an edge crosses the tile
+    if (k0 + kBK - 1 > thr_hi || k0 < thr_lo) {  // an edge crosses the tile (thr_lo 0: none)
 #pragma unroll
       for (int n = 0; n < 32; ++n) {
         const int pos = k0 + 8 * (n / 4) + 2 * q4 + (n & 1);
@@ -663,7 +672,7 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
                          const int* tile_seq, const int* tile_cum, __nv_bfloat16* out,
                          int num_seqs, int num_tokens, int hkv, int G, int max_pages,
                          int page_size, float sm_scale, float logit_cap, int window,
-                         const float* sinks) {
+                         int chunk, const float* sinks) {
   constexpr size_t bytes = smem_bytes<D, !std::is_same_v<CodeT, __nv_bfloat16>>();
   if (G > Cta<D>::kRows) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(paged_extend_kernel<D, CodeT>,
@@ -672,7 +681,7 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
   if (err != cudaSuccess) return err;
   paged_extend_kernel<D, CodeT><<<grid, Cta<D>::kThreads, bytes, st>>>(
       q, k, v, ks, vs, pt, kv_lens, cu_q, tile_seq, tile_cum, out, num_seqs, num_tokens, hkv,
-      G, max_pages, page_size, sm_scale, logit_cap, window, sinks);
+      G, max_pages, page_size, sm_scale, logit_cap, window, chunk, sinks);
   return cudaGetLastError();
 }
 
@@ -682,9 +691,10 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
            const void* cu_q_lens, const void* tile_seq, const void* tile_cum, void* out,
            int num_tiles, int num_seqs, int num_tokens, int num_q_heads, int num_kv_heads,
            int head_dim, int max_pages, int page_size, float sm_scale, float logit_cap,
-           int window, const void* sinks, void* stream) {
+           int window, int chunk, const void* sinks, void* stream) {
   if (num_tiles == 0 || num_tokens == 0) return 0;
-  if (logit_cap < 0.f || window < 0) return cudaErrorInvalidValue;
+  if (logit_cap < 0.f || window < 0 || chunk < 0) return cudaErrorInvalidValue;
+  if (window > 0 && chunk > 0) return cudaErrorInvalidValue;  // one mask or the other
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
   const int G = num_q_heads / num_kv_heads;
   const dim3 grid(num_tiles, num_kv_heads);
@@ -706,23 +716,23 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
     case 32:
       err = launch_for_d<32>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                             sm_scale, logit_cap, window, skp);
+                             sm_scale, logit_cap, window, chunk, skp);
       break;
     case 64:
       err = launch_for_d<64>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                             sm_scale, logit_cap, window, skp);
+                             sm_scale, logit_cap, window, chunk, skp);
       break;
     case 128:
       err = launch_for_d<128>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                               num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                              sm_scale, logit_cap, window, skp);
+                              sm_scale, logit_cap, window, chunk, skp);
       break;
     case 256:  // bf16 pages only (Gemma); 8-bit pages at D 256 are not ported
       if constexpr (std::is_same_v<CodeT, __nv_bfloat16>)
         err = launch_for_d<256>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                                 num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                                sm_scale, logit_cap, window, skp);
+                                sm_scale, logit_cap, window, chunk, skp);
       else
         err = cudaErrorInvalidValue;
       break;
@@ -746,8 +756,10 @@ extern "C" int paged_extend_tokens_per_tile(int group, int head_dim) {
 // tile_seq i32 [num_tiles] (sequence of each tile, B for padding tiles);
 // tile_cum i32 [B] (inclusive prefix sum of tiles per sequence);
 // out [T, Hq, D] bf16; logit_cap > 0 caps the scores (0: no cap); window > 0
-// keeps the last window positions up to each query's own (0: all); sinks
-// f32 [Hq] sink logits, or null. Returns a cudaError_t (0 = launched).
+// keeps the last window positions up to each query's own (0: all); chunk > 0
+// keeps the positions of the query's own chunk of that many (0: all; not
+// with a window); sinks f32 [Hq] sink logits, or null. Returns a
+// cudaError_t (0 = launched).
 extern "C" int paged_extend_attention(const void* q, const void* k_cache, const void* v_cache,
                                       const void* page_table, const void* kv_lens,
                                       const void* cu_q_lens, const void* tile_seq,
@@ -755,11 +767,11 @@ extern "C" int paged_extend_attention(const void* q, const void* k_cache, const 
                                       int num_seqs, int num_tokens, int num_q_heads,
                                       int num_kv_heads, int head_dim, int max_pages,
                                       int page_size, float sm_scale, float logit_cap,
-                                      int window, const void* sinks, void* stream) {
+                                      int window, int chunk, const void* sinks, void* stream) {
   return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, page_table, kv_lens,
                                cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                                num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                               page_size, sm_scale, logit_cap, window, sinks, stream);
+                               page_size, sm_scale, logit_cap, window, chunk, sinks, stream);
 }
 
 // As paged_extend_attention over 8-bit pages: k_cache, v_cache of int8
@@ -770,19 +782,19 @@ extern "C" int paged_extend_attention_quant(
     const void* v_scale, const void* page_table, const void* kv_lens, const void* cu_q_lens,
     const void* tile_seq, const void* tile_cum, void* out, int num_tiles, int num_seqs,
     int num_tokens, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,
-    int page_size, int code_type, float sm_scale, float logit_cap, int window, const void* sinks,
-    void* stream) {
+    int page_size, int code_type, float sm_scale, float logit_cap, int window, int chunk,
+    const void* sinks, void* stream) {
   switch (code_type) {
     case 0:
       return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
                             cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                             num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                            page_size, sm_scale, logit_cap, window, sinks, stream);
+                            page_size, sm_scale, logit_cap, window, chunk, sinks, stream);
     case 1:
       return launch<__nv_fp8_e4m3>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
                                    cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                                    num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                                   page_size, sm_scale, logit_cap, window, sinks, stream);
+                                   page_size, sm_scale, logit_cap, window, chunk, sinks, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

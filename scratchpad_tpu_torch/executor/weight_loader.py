@@ -46,14 +46,19 @@ _JAX_LAYER_KEYS = {
     # Qwen3 and Gemma 3
     "q_norm": ("q_norm", False),
     "k_norm": ("k_norm", False),
+    # Apertus: its two norms' names, and xIELU's two f32 scalars a layer
+    "attn_norm": ("attn_norm", False),
+    "ffw_norm": ("ffw_norm", False),
+    "alpha_p": ("alpha_p", False),
+    "alpha_n": ("alpha_n", False),
     # Gemma's other three norms a layer
     "post_attn_norm": ("post_attn_norm", False),
     "pre_ffw_norm": ("pre_ffw_norm", False),
     "post_ffw_norm": ("post_ffw_norm", False),
 }
-# the MoE families' own layer keys (Mixtral, Qwen3-MoE, GPT-OSS), as
-# _JAX_LAYER_KEYS; their expert stacks [E, In, Out] (gate_up, down, w1, w2,
-# w3) keep that orientation in the port
+# the MoE families' own layer keys (Mixtral, Qwen3-MoE, GPT-OSS, Llama-4),
+# as _JAX_LAYER_KEYS; their expert stacks [E, In, Out] (gate_up, down, w1,
+# w2, w3) keep that orientation in the port
 _JAX_MOE_KEYS = {
     "router": ("router.weight", True),
     "router_w": ("router.weight", True),
@@ -67,6 +72,12 @@ _JAX_MOE_KEYS = {
     "w1": ("w1", False),
     "w2": ("w2", False),
     "w3": ("w3", False),
+    # Llama-4: the shared expert, and a dense layer's down (beside the MoE
+    # layers' expert stack "down")
+    "s_gate": ("s_gate.weight", True),
+    "s_up": ("s_up.weight", True),
+    "s_down": ("s_down.weight", True),
+    "down_d": ("down_d.weight", True),
 }
 # JAX quantized stack -> port module (separate gate and up stacks are fused)
 _JAX_QUANT_KEYS = {
@@ -110,10 +121,13 @@ def params_from_jax(
 ) -> dict[str, torch.Tensor]:
     """The JAX ``LlamaForCausalLM`` pytree (numpy leaves) as the port's
     ``state_dict``; Qwen2 (q, k, v biases), Qwen3 (``q_norm``, ``k_norm``),
-    Phi-3 and Gemma (four norms a layer, a tied head) pytrees alike, and
-    those of the MoE families (``cfg.num_experts > 0``: Mixtral, Qwen3-MoE,
-    GPT-OSS), whose expert stacks ``[L, E, In, Out]`` keep their
-    orientation in the port.
+    Phi-3, Apertus and Gemma (four norms a layer, a tied head) pytrees
+    alike, and those of the MoE families (``cfg.num_experts > 0``: Mixtral,
+    Qwen3-MoE, GPT-OSS), whose expert stacks ``[L, E, In, Out]`` keep their
+    orientation in the port. ``layers`` is a dict of ``[L, ...]`` stacks,
+    or (Llama-4, whose dense and MoE layers differ) a list of L dicts of one
+    layer's arrays; a dense layer's MLP is ``intermediate_size_mlp`` wide
+    where the config sets it.
 
     JAX stores decoder matrices ``[L, in, out]``, or ``[L, out, in]`` when
     its runner transposed the stacks (``model.weights_transposed``, pass it
@@ -125,10 +139,12 @@ def params_from_jax(
     H, D = cfg.hidden_size, cfg.head_dim
     Hq, Hkv, I = cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size
     E, Ie = cfg.num_experts, cfg.moe_intermediate_size or cfg.intermediate_size
+    Im = cfg.intermediate_size_mlp or I
     out_in = {  # nn.Linear orientation [out, in]
         "wq": (Hq * D, H), "wk": (Hkv * D, H), "wv": (Hkv * D, H),
-        "wo": (H, Hq * D), "gate": (I, H), "up": (I, H), "down": (H, I),
+        "wo": (H, Hq * D), "gate": (Im, H), "up": (Im, H), "down": (H, I),
         "router": (E, H), "router_w": (E, H),
+        "s_gate": (I, H), "s_up": (I, H), "s_down": (H, I), "down_d": (H, Im),
     }
     in_out = {  # the expert stacks [E, In, Out]
         "gate_up": (E, H, 2 * Ie), "down": (E, Ie, H),
@@ -141,27 +157,33 @@ def params_from_jax(
     }
     if "lm_head" in params_np and not cfg.tie_word_embeddings:
         state["lm_head.weight"] = _tensor(params_np["lm_head"])
-    for key, stack in params_np["layers"].items():
+    L = cfg.num_hidden_layers
+    layers = params_np["layers"]
+    if isinstance(layers, dict):
+        stacks = {key: np.asarray(stack) for key, stack in layers.items()}
+        for key, stack in stacks.items():
+            if stack.shape[0] != L:
+                raise ValueError(f"{key}: {stack.shape[0]} layers, expected {L}")
+        items = [(key, l, stack[l]) for key, stack in stacks.items() for l in range(L)]
+    else:
+        if len(layers) != L:
+            raise ValueError(f"{len(layers)} layers, expected {L}")
+        items = [(key, l, np.asarray(w)) for l, lp in enumerate(layers) for key, w in lp.items()]
+    for key, l, w in items:
         if key not in layer_keys:
             raise KeyError(f"unmapped JAX layer parameter {key!r}")
         name, is_matrix = layer_keys[key]
-        stack = np.asarray(stack)
-        if stack.shape[0] != cfg.num_hidden_layers:
-            raise ValueError(f"{key}: {stack.shape[0]} layers, expected {cfg.num_hidden_layers}")
-        experts = E > 0 and key in in_out
-        for l in range(stack.shape[0]):
-            w = stack[l]
-            if experts:
-                if transposed:
-                    w = np.swapaxes(w, -1, -2)
-                if w.shape != in_out[key]:
-                    raise ValueError(f"{key}: got {w.shape} after orientation, expected {in_out[key]}")
-            elif is_matrix:
-                if not transposed:
-                    w = w.T
-                if w.shape != out_in[key]:
-                    raise ValueError(f"{key}: got {w.shape} after orientation, expected {out_in[key]}")
-            state[f"layers.{l}.{name}"] = _tensor(w)
+        if E > 0 and key in in_out:
+            if transposed:
+                w = np.swapaxes(w, -1, -2)
+            if w.shape != in_out[key]:
+                raise ValueError(f"{key}: got {w.shape} after orientation, expected {in_out[key]}")
+        elif is_matrix:
+            if not transposed:
+                w = w.T
+            if w.shape != out_in[key]:
+                raise ValueError(f"{key}: got {w.shape} after orientation, expected {out_in[key]}")
+        state[f"layers.{l}.{name}"] = _tensor(w)
     layers_q = {
         k: QuantizedLinear(_tensor(v.q), _tensor(v.s), _tensor(v.z), v.group_size, v.out_true)
         for k, v in params_np.get("layers_q", {}).items()

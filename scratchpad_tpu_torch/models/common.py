@@ -1,7 +1,8 @@
 """Shared building blocks for the port's models.
 
 Counterpart of ``scratchpad_tpu/models/common.py``: the 4-bit linear layer,
-RMSNorm, SiLU-and-mul, GELU-and-mul and rotary embeddings. ``compute_inv_freq`` and
+RMSNorm, SiLU-and-mul, GELU-and-mul and rotary embeddings (half-split and
+interleaved pairs). ``compute_inv_freq`` and
 ``rope_attention_scale`` are host-side numpy, copied unchanged so both
 packages bake identical frequencies (``tests/test_rope.py`` holds the JAX
 copy to HF).
@@ -233,3 +234,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Interleaved-pair (complex) rope, as the JAX ``apply_rope_interleaved``
+    (Llama-4): the pair ``(x[2j], x[2j+1])`` rotates by ``pos * inv_freq[j]``;
+    x [T, H, D], ``cos``/``sin`` from ``rope_cos_sin``."""
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)

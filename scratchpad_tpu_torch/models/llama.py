@@ -133,8 +133,7 @@ class LlamaForCausalLM(nn.Module):
         H, V = cfg.hidden_size, cfg.vocab_size
         self.embed = skip_init(nn.Embedding, V, H, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(cfg, device, dtype, quantization)
-            for _ in range(cfg.num_hidden_layers)
+            self._make_layer(device, dtype, quantization) for _ in range(cfg.num_hidden_layers)
         )
         self.final_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.lm_head = (
@@ -158,6 +157,9 @@ class LlamaForCausalLM(nn.Module):
         self.decode_attention = None
         self.extend_attention = None
         self.toppings = None  # ToppingsManager.device_pools(), set by the runner
+
+    def _make_layer(self, device, dtype, quantization) -> nn.Module:
+        return LlamaDecoderLayer(self.cfg, device, dtype, quantization)
 
     # ------------------------------------------------------------- parameters
 

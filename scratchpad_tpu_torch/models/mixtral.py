@@ -90,10 +90,12 @@ def routing_weights(topv: torch.Tensor, topi: torch.Tensor, E: int, dtype) -> to
 
 class MoeDecoderLayer(nn.Module):
     """Norms, the attention projections (biased where ``attn_bias``) and,
-    with ``quantization``, their ``QuantLinear``s; the subclass's model adds
-    the router and the experts."""
+    with ``quantization``, their ``QuantLinear``s, and with ``qk_norm`` the
+    per-head norms' weights; the subclass's model adds the router and the
+    experts."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype, quantization, attn_bias: bool):
+    def __init__(self, cfg: ModelConfig, device, dtype, quantization, attn_bias: bool,
+                 qk_norm: bool):
         super().__init__()
         H, D = cfg.hidden_size, cfg.head_dim
         Hq, Hkv = cfg.num_attention_heads, cfg.num_kv_heads
@@ -108,7 +110,7 @@ class MoeDecoderLayer(nn.Module):
         self.wk = lin(H, Hkv * D)
         self.wv = lin(H, Hkv * D)
         self.wo = lin(Hq * D, H)
-        if cfg.use_qk_norm:
+        if qk_norm:
             self.q_norm = nn.Parameter(torch.empty(D, device=device, dtype=dtype))
             self.k_norm = nn.Parameter(torch.empty(D, device=device, dtype=dtype))
 
@@ -116,9 +118,10 @@ class MoeDecoderLayer(nn.Module):
 class MoeForCausalLM(nn.Module):
     """The layer loop, weights and head shared by the MoE families:
     ``forward(meta, kv) -> f32 logits [B, V]`` at each row's last token.
-    A subclass builds its layers' experts (``_add_experts``), names its
-    expert stacks (``EXPERT_STACKS``) and runs them (``_moe``); its
-    ``attention_kwargs`` gives each layer's extra attention arguments."""
+    A subclass builds its layers' experts (``_add_experts``; or the whole
+    layer, ``_make_layer``), names its expert stacks (``EXPERT_STACKS``) and
+    runs them (``_moe``); its ``attention_kwargs`` gives each layer's extra
+    attention arguments."""
 
     supports_pallas_attention = True
     supports_toppings = False
@@ -154,11 +157,9 @@ class MoeForCausalLM(nn.Module):
         self.quantization = quantization
         H, V = cfg.hidden_size, cfg.vocab_size
         self.embed = skip_init(nn.Embedding, V, H, device=device, dtype=dtype)
-        self.layers = nn.ModuleList()
-        for _ in range(cfg.num_hidden_layers):
-            layer = MoeDecoderLayer(cfg, device, dtype, quantization, self.ATTN_BIAS)
-            self._add_experts(layer, device, dtype)
-            self.layers.append(layer)
+        self.layers = nn.ModuleList(
+            self._make_layer(l, device, dtype) for l in range(cfg.num_hidden_layers)
+        )
         self.final_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.lm_head = None if cfg.tie_word_embeddings else _linear(H, V, False, device, dtype)
         self.register_buffer(
@@ -172,6 +173,12 @@ class MoeForCausalLM(nn.Module):
     @property
     def intermediate_size(self) -> int:
         return self.cfg.moe_intermediate_size or self.cfg.intermediate_size
+
+    def _make_layer(self, l: int, device, dtype) -> MoeDecoderLayer:
+        layer = MoeDecoderLayer(self.cfg, device, dtype, self.quantization, self.ATTN_BIAS,
+                                self.cfg.use_qk_norm)
+        self._add_experts(layer, device, dtype)
+        return layer
 
     def _add_experts(self, layer: MoeDecoderLayer, device, dtype) -> None:
         raise NotImplementedError

@@ -2,18 +2,21 @@
 
 Counterpart of ``scratchpad_tpu/models/registry.py``. The port has the Llama
 family (Mistral included: Llama's architecture and weight names with a
-uniform sliding window), Qwen2, Qwen3 and Phi-3 on the Llama decoder,
-Gemma 2 and Gemma 3 (text), and the MoE decoders Mixtral, Qwen3-MoE and
-GPT-OSS; the rest of the JAX package's model zoo is still to be ported.
+uniform sliding window), Qwen2, Qwen3, Phi-3 and Apertus on the Llama
+decoder, Gemma 2 and Gemma 3 (text), and the MoE decoders Mixtral,
+Qwen3-MoE, GPT-OSS and Llama-4 (text); the rest of the JAX package's model
+zoo is still to be ported.
 """
 
 from __future__ import annotations
 
 
 def get_model_class(architecture: str):
+    from scratchpad_tpu_torch.models.apertus import ApertusForCausalLM
     from scratchpad_tpu_torch.models.gemma import Gemma2ForCausalLM, Gemma3ForCausalLM
     from scratchpad_tpu_torch.models.gpt_oss import GptOssForCausalLM
     from scratchpad_tpu_torch.models.llama import LlamaForCausalLM
+    from scratchpad_tpu_torch.models.llama4 import Llama4ForCausalLM
     from scratchpad_tpu_torch.models.mixtral import MixtralForCausalLM, Qwen3MoeForCausalLM
     from scratchpad_tpu_torch.models.qwen import (
         Phi3ForCausalLM,
@@ -32,6 +35,9 @@ def get_model_class(architecture: str):
         "MixtralForCausalLM": MixtralForCausalLM,
         "Qwen3MoeForCausalLM": Qwen3MoeForCausalLM,
         "GptOssForCausalLM": GptOssForCausalLM,
+        "Llama4ForCausalLM": Llama4ForCausalLM,
+        "Llama4TextModel": Llama4ForCausalLM,
+        "ApertusForCausalLM": ApertusForCausalLM,
     }
     if architecture not in registry:
         raise NotImplementedError(

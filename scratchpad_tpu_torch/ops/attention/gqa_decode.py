@@ -23,6 +23,13 @@ give one by one; ``mask_args`` reads the JAX package's global-layer
 sentinel (``1 << 30``) as no window. bf16 pages take head_dim 32 to 256,
 8-bit pages 32 to 128 (``kv_cache.QUANT_KV_HEAD_DIMS``).
 
+``chunk_size`` (None or C >= 1; the Pallas kernel's ``chunk_size``,
+``mask_start``, ``gqa_decode.py:166-168``, Llama-4's rope layers) keeps the
+chunk of C tokens that holds the query: token ``j`` of a row of length ``L``
+is live iff ``(L - 1) // C * C <= j < L``, and the kernel reads only those.
+A call takes a window or a chunk, not both (the JAX ``mask_start`` would let
+the chunk win; no model passes both).
+
 ``sinks`` (f32 ``[Hq]`` or None; the Pallas kernels' ``with_sinks``,
 ``gqa_decode.py:128-133, 421-425``, GPT-OSS) gives each query head a logit
 that joins its softmax and carries no value, as
@@ -57,11 +64,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "paged_decode_attention": (
-        [_P] * 6 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I, _P, _I, _I, _P, _P],
+        [_P] * 6 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I, _I, _P, _I, _I, _P, _P],
         ctypes.c_int,
     ),
     "paged_decode_attention_quant": (
-        [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _P, _I, _I, _P, _P],
+        [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _I, _P, _I, _I, _P, _P],
         ctypes.c_int,
     ),
 }
@@ -167,16 +174,23 @@ def _plan_args(q, k_cache, page_table) -> tuple[int, int, int]:
     return plan.splits, plan.split_pages, ws
 
 
-def mask_args(logit_cap: Optional[float], sliding_window: Optional[int]) -> tuple[float, int]:
-    """The kernels' runtime form of the cap and the window: 0 for none, a
-    window of ``GLOBAL_WINDOW`` or more included."""
+def mask_args(
+    logit_cap: Optional[float], sliding_window: Optional[int], chunk_size: Optional[int] = None
+) -> tuple[float, int, int]:
+    """The kernels' runtime form of the cap, the window and the chunk: 0 for
+    none, a window of ``GLOBAL_WINDOW`` or more included. A window and a
+    chunk together are refused."""
     if logit_cap is not None and not logit_cap > 0:
         raise ValueError(f"logit_cap must be None or > 0, got {logit_cap}")
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be None or >= 1, got {sliding_window}")
+    if chunk_size is not None and chunk_size < 1:
+        raise ValueError(f"chunk_size must be None or >= 1, got {chunk_size}")
     if sliding_window is not None and sliding_window >= GLOBAL_WINDOW:
         sliding_window = None
-    return float(logit_cap or 0.0), int(sliding_window or 0)
+    if sliding_window is not None and chunk_size is not None:
+        raise ValueError(f"a window ({sliding_window}) and a chunk ({chunk_size}) in one call")
+    return float(logit_cap or 0.0), int(sliding_window or 0), int(chunk_size or 0)
 
 
 def sinks_arg(sinks: Optional[torch.Tensor], q: torch.Tensor) -> int:
@@ -238,12 +252,13 @@ def paged_decode_attention_plain(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,  # f32 [Hq]
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     """Gather each row's pages into dense K/V (dequantized in f32 for 8-bit
-    pages) and attend in f32, the cap, the window and the sinks as in the
-    module docstring. Rows with ``seq_len == 0`` give exact zeros, like the
-    kernel."""
-    sliding_window = mask_args(logit_cap, sliding_window)[1] or None
+    pages) and attend in f32, the cap, the window, the chunk and the sinks
+    as in the module docstring. Rows with ``seq_len == 0`` give exact zeros,
+    like the kernel."""
+    _, sliding_window, chunk_size = (a or None for a in mask_args(logit_cap, sliding_window, chunk_size))
     B, Hq, D = q.shape
     _, ps, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -258,6 +273,8 @@ def paged_decode_attention_plain(
     valid = pos < seq_lens[:, None]
     if sliding_window is not None:
         valid &= pos >= seq_lens[:, None] - sliding_window
+    if chunk_size is not None:
+        valid &= pos >= (seq_lens[:, None] - 1).clamp(min=0) // chunk_size * chunk_size
     valid = valid[:, None, None, :]
     p = softmax_with_sinks(scores.masked_fill(~valid, float("-inf")), sinks, (1, Hkv, G, 1))
     p = torch.where(valid, p, torch.zeros((), device=q.device))  # len-0 rows
@@ -323,22 +340,23 @@ def paged_decode_attention(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
-    """out [B, Hq, D]: each row's single query over the live window of its
-    ``seq_lens`` cached tokens in bf16 pages (see
+    """out [B, Hq, D]: each row's single query over the live window (or
+    chunk) of its ``seq_lens`` cached tokens in bf16 pages (see
     ``csrc/paged_decode_attention.cu``), split by ``decode_plan``."""
     native.check_same_device(q, k_cache, v_cache, page_table, seq_lens)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache, v_cache, page_table, seq_lens, sm_scale,
-            logit_cap=logit_cap, sliding_window=sliding_window, sinks=sinks,
+            logit_cap=logit_cap, sliding_window=sliding_window, sinks=sinks, chunk_size=chunk_size,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    cap, window = mask_args(logit_cap, sliding_window)
+    masks = mask_args(logit_cap, sliding_window, chunk_size)
     _check(q, k_cache, v_cache, None, None, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES)
-    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window,
+    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, masks,
                            sinks_arg(sinks, q), _plan_args(q, k_cache, page_table))
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: cudaError {rc}")
@@ -349,17 +367,17 @@ def paged_decode_attention(
 paged_decode_attention.launches = 0
 
 
-def _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, cap, window, sinks,
-                 split):
-    """Launch ``lib``'s bf16 entry point with the ``sinks`` pointer (0 for
-    none) on ``split`` (``_plan_args``); (out, cudaError)."""
+def _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, masks, sinks, split):
+    """Launch ``lib``'s bf16 entry point with ``masks`` (``mask_args``) and
+    the ``sinks`` pointer (0 for none) on ``split`` (``_plan_args``); (out,
+    cudaError)."""
     B, Hq, D = q.shape
     out = torch.empty_like(q)
     rc = lib.paged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         B, Hq, k_cache.shape[2], D, page_table.shape[1], k_cache.shape[1],
-        float(sm_scale), cap, window, sinks, *split, native.stream_handle(q.device),
+        float(sm_scale), *masks, sinks, *split, native.stream_handle(q.device),
     )
     return out, rc
 
@@ -443,7 +461,7 @@ def paged_decode_attention_stage(
     _check(q, k_cache, v_cache, None, None, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES, {"SPTPU_DECODE_STAGE": stage})
     one_split = (1, max(1, page_table.shape[1]), 0)
-    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, 0.0, 0, 0,
+    out, rc = _launch_bf16(lib, q, k_cache, v_cache, page_table, seq_lens, sm_scale, (0.0, 0, 0), 0,
                            one_split)
     if rc != 0:
         raise RuntimeError(f"decode stage {stage} launch failed: cudaError {rc} (the cuts take "
@@ -467,6 +485,7 @@ def paged_decode_attention_quant(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     """``paged_decode_attention`` over 8-bit pages: the kernel folds the
     scales out of its dots, s = (q . k_code) s_k and p' = p s_v; the cap
@@ -475,11 +494,11 @@ def paged_decode_attention_quant(
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache, v_cache, page_table, seq_lens, sm_scale, k_scale, v_scale,
-            logit_cap, sliding_window, sinks,
+            logit_cap, sliding_window, sinks, chunk_size,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_quant: unsupported device {q.device}")
-    cap, window = mask_args(logit_cap, sliding_window)
+    masks = mask_args(logit_cap, sliding_window, chunk_size)
     _check(q, k_cache, v_cache, k_scale, v_scale, page_table, seq_lens)
     lib = native.load("paged_decode_attention", _SIGNATURES)
     B, Hq, D = q.shape
@@ -489,7 +508,7 @@ def paged_decode_attention_quant(
         k_scale.data_ptr(), v_scale.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         B, Hq, k_cache.shape[2], D, page_table.shape[1], k_cache.shape[1],
-        CODE_TYPES[k_cache.dtype], float(sm_scale), cap, window, sinks_arg(sinks, q),
+        CODE_TYPES[k_cache.dtype], float(sm_scale), *masks, sinks_arg(sinks, q),
         *_plan_args(q, k_cache, page_table), native.stream_handle(q.device),
     )
     if rc != 0:
@@ -511,15 +530,17 @@ def decode_attention_gqa(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     """Model-facing decode attention over one layer of the pool (the
     ``attention_backend="auto"`` decode)."""
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     if k_scale is None:
         return paged_decode_attention(
-            q, k, v, meta.page_table, meta.seq_lens, sm_scale, logit_cap, sliding_window, sinks
+            q, k, v, meta.page_table, meta.seq_lens, sm_scale, logit_cap, sliding_window, sinks,
+            chunk_size,
         )
     return paged_decode_attention_quant(
         q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, sm_scale,
-        logit_cap, sliding_window, sinks,
+        logit_cap, sliding_window, sinks, chunk_size,
     )

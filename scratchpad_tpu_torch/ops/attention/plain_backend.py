@@ -91,11 +91,12 @@ def decode_attention_plain(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     return paged_decode_attention_plain(
         q, k, v, meta.page_table, meta.seq_lens, sm_scale, k_scale, v_scale,
-        logit_cap, sliding_window, sinks,
+        logit_cap, sliding_window, sinks, chunk_size,
     )
 
 
@@ -109,9 +110,10 @@ def extend_attention_plain(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     return paged_extend_attention_plain(
         q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale, k_scale, v_scale,
-        logit_cap, sliding_window, sinks,
+        logit_cap, sliding_window, sinks, chunk_size,
     )

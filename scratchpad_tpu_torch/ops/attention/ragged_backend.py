@@ -26,6 +26,13 @@ runs Gemma's extend in XLA at head_dim 256, ``executor/model_runner.py:185``,
 and the ragged kernel under ``lax.cond`` at 128, ``make_window_cond_extend``).
 bf16 pages take head_dim 32 to 256, 8-bit pages 32 to 128.
 
+``chunk_size`` (None or C >= 1, Llama-4's rope layers) follows
+``xla_backend.extend_attention_xla:479-483``: the query at position ``p``
+attends the keys of its own chunk, ``p // C * C <= j <= p``. The JAX
+package extends Llama-4 in XLA (``models/llama4.py:48``), so this branch is
+the port's own. The kernel starts each tile's KV loop at its first query's
+chunk, and a tile that straddles a chunk edge masks each row by its own.
+
 ``sinks`` (f32 ``[Hq]`` or None, GPT-OSS) follows
 ``xla_backend.extend_attention_xla:508-515``: each query head's sink logit
 joins every one of its rows' softmax and carries no value. The JAX package
@@ -57,11 +64,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "paged_extend_attention": (
-        [_P] * 9 + [_I] * 8 + [ctypes.c_float, ctypes.c_float, _I, _P, _P],
+        [_P] * 9 + [_I] * 8 + [ctypes.c_float, ctypes.c_float, _I, _I, _P, _P],
         ctypes.c_int,
     ),
     "paged_extend_attention_quant": (
-        [_P] * 11 + [_I] * 9 + [ctypes.c_float, ctypes.c_float, _I, _P, _P],
+        [_P] * 11 + [_I] * 9 + [ctypes.c_float, ctypes.c_float, _I, _I, _P, _P],
         ctypes.c_int,
     ),
     "paged_extend_tokens_per_tile": ([_I, _I], ctypes.c_int),
@@ -83,12 +90,13 @@ def paged_extend_attention_plain(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,  # f32 [Hq]
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     """One sequence at a time: gather its live pages (dequantized in f32
     for 8-bit pages), attend in f32 under the tail-aligned causal mask, the
-    window and the sinks, ``QUERY_BLOCK`` queries at a time (a long prompt's
-    score tensor would not fit the card otherwise)."""
-    sliding_window = mask_args(logit_cap, sliding_window)[1] or None
+    window or the chunk, and the sinks, ``QUERY_BLOCK`` queries at a time
+    (a long prompt's score tensor would not fit the card otherwise)."""
+    _, sliding_window, chunk_size = (a or None for a in mask_args(logit_cap, sliding_window, chunk_size))
     T, Hq, D = q.shape
     _, ps, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -113,6 +121,8 @@ def paged_extend_attention_plain(
             live = pos[None, :] <= q_pos[:, None]  # [t, S]
             if sliding_window is not None:
                 live &= pos[None, :] > q_pos[:, None] - sliding_window
+            if chunk_size is not None:
+                live &= pos[None, :] >= q_pos[:, None] // chunk_size * chunk_size
             p = softmax_with_sinks(scores.masked_fill(~live, float("-inf")), sinks, (Hkv, G, 1, 1))
             o = torch.einsum("hgts,shd->thgd", p, v).reshape(n, Hq, D)
             out[t0 : t0 + n] = o.to(q.dtype)
@@ -150,10 +160,10 @@ def _check(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens
 
 
 def _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale,
-            logit_cap, sliding_window, sinks):
+            logit_cap, sliding_window, sinks, chunk_size):
     """Check the inputs, build the tile map and launch the kernel: the bf16
     entry point without scales, the 8-bit one with them."""
-    cap, window = mask_args(logit_cap, sliding_window)
+    masks = mask_args(logit_cap, sliding_window, chunk_size)
     _check(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens)
     sinks_ptr = sinks_arg(sinks, q)
     lib = native.load("paged_extend_attention", _SIGNATURES)
@@ -170,11 +180,11 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_len
     )
     stream = native.stream_handle(q.device)
     if k_scale is None:
-        rc = lib.paged_extend_attention(*head, *tail, float(sm_scale), cap, window, sinks_ptr, stream)
+        rc = lib.paged_extend_attention(*head, *tail, float(sm_scale), *masks, sinks_ptr, stream)
     else:
         rc = lib.paged_extend_attention_quant(
             *head, k_scale.data_ptr(), v_scale.data_ptr(), *tail,
-            CODE_TYPES[k_cache.dtype], float(sm_scale), cap, window, sinks_ptr, stream,
+            CODE_TYPES[k_cache.dtype], float(sm_scale), *masks, sinks_ptr, stream,
         )
     if rc != 0:
         kind = "bf16" if k_scale is None else str(k_cache.dtype)
@@ -193,6 +203,7 @@ def paged_extend_attention(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     """out [T, Hq, D] for the flat ragged batch over bf16 pages (see the
     module docstring and ``csrc/paged_extend_attention.cu``)."""
@@ -200,13 +211,13 @@ def paged_extend_attention(
     if q.device.type == "cpu":
         return paged_extend_attention_plain(
             q, k_cache, v_cache, page_table, kv_lens, cu_q_lens, sm_scale,
-            logit_cap=logit_cap, sliding_window=sliding_window, sinks=sinks,
+            logit_cap=logit_cap, sliding_window=sliding_window, sinks=sinks, chunk_size=chunk_size,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_extend_attention: unsupported device {q.device}")
     out = _launch(
         q, k_cache, v_cache, None, None, page_table, kv_lens, cu_q_lens, sm_scale,
-        logit_cap, sliding_window, sinks,
+        logit_cap, sliding_window, sinks, chunk_size,
     )
     paged_extend_attention.launches += 1
     return out
@@ -228,6 +239,7 @@ def paged_extend_attention_quant(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     """``paged_extend_attention`` over 8-bit pages: the kernel dequantizes
     each K/V element with its (token, head) scale as it stages the tile."""
@@ -237,13 +249,13 @@ def paged_extend_attention_quant(
     if q.device.type == "cpu":
         return paged_extend_attention_plain(
             q, k_cache, v_cache, page_table, kv_lens, cu_q_lens, sm_scale, k_scale, v_scale,
-            logit_cap, sliding_window, sinks,
+            logit_cap, sliding_window, sinks, chunk_size,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_extend_attention_quant: unsupported device {q.device}")
     out = _launch(
         q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale,
-        logit_cap, sliding_window, sinks,
+        logit_cap, sliding_window, sinks, chunk_size,
     )
     paged_extend_attention_quant.launches += 1
     return out
@@ -262,15 +274,16 @@ def attention_ragged(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
+    chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     """Model-facing extend attention over one layer of the pool."""
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     if k_scale is None:
         return paged_extend_attention(
             q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale,
-            logit_cap, sliding_window, sinks,
+            logit_cap, sliding_window, sinks, chunk_size,
         )
     return paged_extend_attention_quant(
         q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale,
-        logit_cap, sliding_window, sinks,
+        logit_cap, sliding_window, sinks, chunk_size,
     )

@@ -83,11 +83,11 @@ def launcher(cut: int, q, k, v, ks, vs, pt, kv_lens, cu):
                 HKV, D, pt.shape[1], PAGE)
         head = (q.data_ptr(), k[l].data_ptr(), v[l].data_ptr())
         if ks is None:
-            rc = lib.paged_extend_attention(*head, *tail, scale, 0.0, 0, None, stream)
+            rc = lib.paged_extend_attention(*head, *tail, scale, 0.0, 0, 0, None, stream)
         else:
             rc = lib.paged_extend_attention_quant(
                 *head, ks[l].data_ptr(), vs[l].data_ptr(), *tail, CODE_TYPES[k.dtype], scale,
-                0.0, 0, None, stream,
+                0.0, 0, 0, None, stream,
             )
         if rc != 0:
             raise RuntimeError(f"extend cut {cut}: cudaError {rc}")

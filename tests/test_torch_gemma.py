@@ -218,9 +218,9 @@ def test_extend_256_per_layer_windows_match_jax(chunks, Hq, Hkv, _D, ps, T_pad, 
 
 
 def test_global_sentinel_is_no_window():
-    assert mask_args(None, 1 << 30) == (0.0, 0)
-    assert mask_args(None, GLOBAL_WINDOW - 1) == (0.0, GLOBAL_WINDOW - 1)
-    assert mask_args(50.0, 4096) == (50.0, 4096)
+    assert mask_args(None, 1 << 30) == (0.0, 0, 0)
+    assert mask_args(None, GLOBAL_WINDOW - 1) == (0.0, GLOBAL_WINDOW - 1, 0)
+    assert mask_args(50.0, 4096) == (50.0, 4096, 0)
 
 
 @pytest.mark.parametrize("B, G, Hkv, pages", [(1, 2, 4, 512), (1, 4, 1, 512), (64, 2, 4, 512),

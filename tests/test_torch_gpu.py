@@ -29,7 +29,10 @@ that change from call to call on one pool, and 8-bit pages there refused.
 Both attention kernels with attention sinks (GPT-OSS's shape: Hkv 8, G 8,
 head_dim 64) over bf16, int8 and fp8 pages, with and without its window of
 128, a split launch (B 1, ctx 4096) bit-equal on a repeat, sinks far below
-and far above every score, and zero rows exact zeros. The decode
+and far above every score, and zero rows exact zeros. Both attention
+kernels with Llama-4's chunk (G 4 and 5, head_dim 128, chunks of 16 to
+8192) over bf16, int8 and fp8 pages, rows at chunk edges, a split launch
+bit-equal on a repeat, extend tiles that straddle an edge. The decode
 ablation probe's ``out`` must lie within one bf16 ulp of its plain
 version's (both round the same f32 statistic to bf16 once), its ``aux``
 within ``aux_tolerance`` (m exact, the rest ATOL + 2**-12 |plain|); the
@@ -1095,3 +1098,83 @@ def test_sinks_change_the_output_and_are_checked(gen):
     for bad in (sinks.to(torch.bfloat16), sinks[:32], sinks.cpu()):
         with pytest.raises((ValueError, RuntimeError)):
             paged_decode_attention(qd, k, v, pt4, seq, 0.125, sinks=bad)
+
+
+# Llama-4's chunked attention: Scout's grouping (G 5) and G 4 at head_dim
+# 128; chunks on a page edge (16) and inside a page (100), 1000, and
+# Scout's 8192
+CHUNK_SIZES = [16, 100, 1000, 8192]
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+@pytest.mark.parametrize("G", [4, 5])
+@pytest.mark.parametrize("C", CHUNK_SIZES)
+@pytest.mark.parametrize("batch", ["edges", "split"])
+def test_decode_kernel_with_chunk_matches_plain(gen, kind, G, C, batch):
+    """Rows a token before, on and after a chunk edge, past two chunks and
+    of length 0 ("edges"), or one row of 2C + 17 split across the card
+    ("split", bit-equal on a repeat): the kernel reads only the query's
+    chunk, and a split wholly below its start adds nothing."""
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
+
+    Hkv, D = 8, 128
+    lens = [C - 1, C, C + 1, 2 * C + 17, 0] if batch == "edges" else [2 * C + 17]
+    k, v, pt = _pool(lens, Hkv, D, 16, gen)
+    k, v, ks, vs = _pages(kind, k, v)
+    q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(D)
+
+    def run():
+        if ks is None:
+            return paged_decode_attention(q, k, v, pt, seq, scale, chunk_size=C)
+        return paged_decode_attention_quant(q, k, v, ks, vs, pt, seq, scale, chunk_size=C)
+
+    out = run()
+    _close(out, paged_decode_attention_plain(q.float(), k, v, pt, seq, scale, ks, vs, chunk_size=C))
+    assert bool((out[seq == 0] == 0).all())
+    if decode_plan(len(lens), Hkv, pt.shape[1], D, G).splits > 1:
+        assert torch.equal(out, run())
+
+
+@pytest.mark.parametrize("kind", list(CODE_DTYPES))
+@pytest.mark.parametrize("G", [4, 5])
+@pytest.mark.parametrize("C", CHUNK_SIZES)
+def test_extend_kernel_with_chunk_matches_plain(gen, kind, G, C):
+    """Query tiles that straddle a chunk edge (each row masked by its own
+    chunk's start): a prompt across the edge, a chunk after a cached prefix
+    that starts a token before it, a one-token row past two chunks, and
+    padding tokens (exact zeros)."""
+    Hkv, D = 8, 128
+    chunks = [(C + 150, C + 150), (300, C + 299), (1, 2 * C + 17)]
+    k, v, pt = _pool([c[1] for c in chunks], Hkv, D, 16, gen)
+    k, v, ks, vs = _pages(kind, k, v)
+    cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
+    cu[1:] = torch.cumsum(torch.tensor([c[0] for c in chunks], device="cuda"), 0).to(torch.int32)
+    kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]) + 29, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    if ks is None:
+        out = paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.1, chunk_size=C)
+    else:
+        out = paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, 0.1, chunk_size=C)
+    _close(out, paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, 0.1, ks, vs, chunk_size=C))
+    assert bool((out[int(cu[-1]) :] == 0).all())
+
+
+def test_chunk_changes_the_output_and_is_checked(gen):
+    """The chunk branch is live in both kernels, and a call with a window
+    and a chunk is refused."""
+    q, k, v, pt, kv_lens, cu = _extend_case(8, 128, 5, gen)
+    a = paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.1, chunk_size=64)
+    b = paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.1)
+    assert float((a.float() - b.float()).abs().max()) > 1e-2
+    qd = q[:4].contiguous()
+    seq = torch.tensor([100, 600, 33, 250], dtype=torch.int32, device="cuda")
+    pt4 = pt[[0, 1, 2, 4]].contiguous()
+    a = paged_decode_attention(qd, k, v, pt4, seq, 0.1, chunk_size=64)
+    b = paged_decode_attention(qd, k, v, pt4, seq, 0.1)
+    assert float((a.float() - b.float()).abs().max()) > 1e-2
+    with pytest.raises(ValueError, match="window"):
+        paged_decode_attention(qd, k, v, pt4, seq, 0.1, sliding_window=128, chunk_size=64)
+    with pytest.raises(ValueError, match="window"):
+        paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.1, sliding_window=128, chunk_size=64)

@@ -1,9 +1,9 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
 A subprocess imports every module of ``scratchpad_tpu_torch`` (the Qwen,
-Gemma, Mixtral and GPT-OSS models among them) and ``chip_smoke``, and serves
-tiny CPU engines of Llama, Gemma 2, Qwen3, GPT-OSS and Qwen3-MoE, then lists
-what it loaded;
+Gemma, Mixtral, GPT-OSS, Llama-4 and Apertus models among them) and
+``chip_smoke``, and serves tiny CPU engines of Llama, Gemma 2, Qwen3,
+GPT-OSS, Qwen3-MoE, Llama-4 and Apertus, then lists what it loaded;
 a source scan checks every import statement of the package. A second
 subprocess blocks ``jax``, the JAX package and the serving packages that the
 card's machine lacks (``aiohttp``, ``pydantic``, ``prometheus_client``,
@@ -25,7 +25,8 @@ import importlib, json, pkgutil, sys
 import scratchpad_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(scratchpad_tpu_torch.__path__, "scratchpad_tpu_torch.")]
 assert {"scratchpad_tpu_torch.models.gemma", "scratchpad_tpu_torch.models.qwen",
-        "scratchpad_tpu_torch.models.mixtral", "scratchpad_tpu_torch.models.gpt_oss"} <= set(names)
+        "scratchpad_tpu_torch.models.mixtral", "scratchpad_tpu_torch.models.gpt_oss",
+        "scratchpad_tpu_torch.models.llama4", "scratchpad_tpu_torch.models.apertus"} <= set(names)
 for n in names:
     importlib.import_module(n)
 import chip_smoke
@@ -36,7 +37,11 @@ from scratchpad_tpu_torch.server.engine import Engine
 for cfg in (get_preset("tiny-debug"), get_preset("tiny-gemma2"),
             get_preset("tiny-debug", architecture="Qwen3ForCausalLM"), get_preset("tiny-gpt-oss"),
             get_preset("tiny-debug", architecture="Qwen3MoeForCausalLM", num_experts=4,
-                       num_experts_per_tok=2)):
+                       num_experts_per_tok=2),
+            get_preset("tiny-debug", architecture="Llama4ForCausalLM", num_experts=4,
+                       num_experts_per_tok=1, interleave_moe_layer_step=2, use_qk_norm=True,
+                       attention_chunk_size=4, floor_scale=4),
+            get_preset("tiny-debug", architecture="ApertusForCausalLM")):
     eng = Engine(ServerArgs(random_weights=True, dtype="float32", device="cpu", page_size=4,
                             max_total_tokens=512), model_config=cfg)
     out = eng.generate(input_ids=[1, 2, 3, 4, 5],

@@ -9,6 +9,10 @@
   engine's with overlap off. The JAX package's chained windows drop the
   adapters (``scheduler.py::_build_decode_wb_ahead`` builds no adapter
   table), which the last assertion of that test shows.
+- MoE engines in pipelined windows: a tiny GPT-OSS engine (sinks, a window
+  of 8 on its local layer) and a tiny Llama-4 engine (chunks of 8, a NoPE
+  layer) with ``enable_overlap=True`` give the JAX engine's tokens with
+  overlap off, on the same weights.
 - The auto rule: overlap is off on the CPU in both packages and on for a
   CUDA runner in the port.
 - ``encode``, ``score``, ``perplexity`` and sessions at the ``Engine``
@@ -28,9 +32,11 @@ import pytest
 import torch
 
 from scratchpad_tpu.config import ServerArgs as JaxServerArgs
+from scratchpad_tpu.config.model_config import get_preset as jax_get_preset
 from scratchpad_tpu.sampling.sampling_params import SamplingParams as JaxSamplingParams
 from scratchpad_tpu.server.engine import Engine as JaxEngine
 from scratchpad_tpu_torch.config import ServerArgs
+from scratchpad_tpu_torch.config.model_config import get_preset
 from scratchpad_tpu_torch.executor.weight_loader import params_from_jax
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.engine import Engine
@@ -116,6 +122,38 @@ def test_pipelined_windows_keep_the_adapters(reference):
     # their adapter; the base-model row is unaffected
     assert runs["jax on"][2] == runs["jax off"][2]
     assert runs["jax on"][0] != runs["jax off"][0]
+
+
+def _moe_family(family: str):
+    """The JAX and the port config of a tiny MoE engine, and the test
+    module's perturbation of its weights (norms, biases and sinks moved)."""
+    if family == "gpt-oss":
+        from test_torch_moe import moe_perturbed
+
+        cfgs = jax_get_preset("tiny-gpt-oss", dtype="float32"), get_preset("tiny-gpt-oss", dtype="float32")
+        return (*cfgs, moe_perturbed)
+    from test_torch_llama4 import configs, perturbed
+
+    return (*configs("scout"), perturbed)
+
+
+@pytest.mark.parametrize("family", ["gpt-oss", "llama4"])
+def test_pipelined_windows_on_moe_engines(family):
+    jcfg, cfg, perturbed = _moe_family(family)
+    args = {k: v for k, v in ARGS.items() if k != "preset"}
+    jeng = JaxEngine(JaxServerArgs(**args, enable_overlap=False, warmup_capture=False), model_config=jcfg)
+    params = perturbed(jax.tree.map(np.asarray, jeng.scheduler.runner.params), seed=3)
+    jeng.scheduler.runner.params = jax.tree.map(jax.numpy.asarray, params)
+    on = Engine(ServerArgs(device="cpu", **args, enable_overlap=True), model_config=cfg)
+    on.scheduler.runner.model.load_state_dict(params_from_jax(params, on.model_config))
+    calls = _count_pipelined(on)
+    expect = _greedy(jeng, JaxSamplingParams)
+    for p, ids in zip(PROMPTS, expect):
+        assert top2_margin(on, p, ids) > MARGIN, f"near tie on {p}"
+    assert _greedy(on, SamplingParams) == expect
+    assert calls[0] > 0  # the port really pipelined
+    on.flush_cache()
+    assert on.scheduler.allocator.available_pages == on.scheduler.allocator.num_pages - 1
 
 
 def test_overlap_auto_rule(reference):

@@ -275,8 +275,10 @@ def test_phi3_splits_fused_checkpoints_as_jax():
 
 
 def test_registry_maps_the_ported_families():
+    from scratchpad_tpu_torch.models.apertus import ApertusForCausalLM
     from scratchpad_tpu_torch.models.gemma import Gemma2ForCausalLM, Gemma3ForCausalLM
     from scratchpad_tpu_torch.models.gpt_oss import GptOssForCausalLM
+    from scratchpad_tpu_torch.models.llama4 import Llama4ForCausalLM
     from scratchpad_tpu_torch.models.mixtral import MixtralForCausalLM, Qwen3MoeForCausalLM
     from scratchpad_tpu_torch.models.qwen import Phi3ForCausalLM, Qwen2ForCausalLM, Qwen3ForCausalLM
 
@@ -285,9 +287,11 @@ def test_registry_maps_the_ported_families():
                       ("Gemma3ForCausalLM", Gemma3ForCausalLM),
                       ("MixtralForCausalLM", MixtralForCausalLM),
                       ("Qwen3MoeForCausalLM", Qwen3MoeForCausalLM),
-                      ("GptOssForCausalLM", GptOssForCausalLM)):
+                      ("GptOssForCausalLM", GptOssForCausalLM),
+                      ("Llama4ForCausalLM", Llama4ForCausalLM), ("Llama4TextModel", Llama4ForCausalLM),
+                      ("ApertusForCausalLM", ApertusForCausalLM)):
         assert get_model_class(name) is cls
-    for name in ("Llama4ForCausalLM", "Gemma3ForConditionalGeneration",
+    for name in ("Llama4ForConditionalGeneration", "Gemma3ForConditionalGeneration",
                  "Qwen2VLForConditionalGeneration", "DeepseekV3ForCausalLM"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_model_class(name)
