@@ -22,7 +22,8 @@ Phases, in order; any failure exits non-zero before the last line:
    tensor-core instruction fails, and so does a decode or probe library
    without ``HMMA`` or ``HGMMA``, a W4A16 or delta library without
    ``HGMMA``, a W4A8 library without the integer ``IGMMA``, or any of these
-   five without an asynchronous copy.
+   five without an asynchronous copy. Then the grammar backend's host
+   libraries (``csrc/fsm.cpp``, ``csrc/pda.cpp``) with the host compiler.
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs (the plain version computes and returns f32). Attention, on
    bf16 pages and on int8 and fp8 (e4m3) pages with per-(token, head) bf16
@@ -87,7 +88,13 @@ Phases, in order; any failure exits non-zero before the last line:
    512 and 1) on the same pool in turn; extend on ``EXTEND_CASES_256``
    (mixed chunks, cached prefixes, padding, a 2048-token chunk over 6,000
    cached tokens); and Gemma's layers in turn on one pool (local, global,
-   local) through both kernels, the two local calls bit-equal. Attention
+   local) through both kernels, the two local calls bit-equal. Rows 1dq
+   and 3dq, head_dim 256 over int8 and fp8 pages at the same two shapes:
+   decode on ``DECODE_CASES_256_8BIT`` (one row split across the card, B 64
+   unsplit, padding rows, rows whose window's first token falls a token
+   before, on and after a split boundary or a page edge) and extend on
+   ``EXTEND_CASES_256``, each under ``CAPS_WINDOWS_256_8BIT`` (windows 4096
+   and 512, each with and without the cap of 50), split calls bit-equal. Attention
    sinks (``check_sinks``) at GPT-OSS's shape (Hkv 8, G 8, head_dim 64)
    over bf16, int8 and fp8 pages, without a window and with its 128, sinks
    of N(0, 2^2) and of 100 (above every score): decode at B 1, 2 and 64
@@ -116,7 +123,11 @@ Phases, in order; any failure exits non-zero before the last line:
    only, not timed); Gemma-2-2B in bf16 (head_dim 256, window 4096 on
    alternate layers, caps 50 and 30) with ``WINDOW_REQUESTS``; Gemma-3-1B
    (``GEMMA3_1B``, its config.json: window 512 on five layers of six, one
-   kv head) with ``GEMMA3_REQUESTS``, not timed; GPT-OSS-20B at full width
+   kv head; ``GEMMA3_LAYERS`` of its 26 layers) with ``GEMMA3_REQUESTS``,
+   not timed; Gemma-2-2B on int8 KV at
+   ``GEMMA_KV8_LAYERS`` layers (rows 1dq and 3dq on a served path,
+   ``GEMMA_KV8_REQUESTS`` across the window's edge, the 8-bit gate 1e-1),
+   then on fp8 KV at the same depth, neither timed; GPT-OSS-20B at full width
    and depth in bf16 (sinks, window 128 on alternate layers, 32 experts,
    top 4) with ``GPT_OSS_REQUESTS``, timed, where dropping the sinks must
    move each prompt's logits by at least ``SINK_MOVE`` times the
@@ -189,10 +200,18 @@ Phases, in order; any failure exits non-zero before the last line:
    planted off-by-one, must not); embeddings of unit norm, bit-equal on a
    repeat; ``/metrics`` histograms that are not empty; and the decode and
    extend kernels launched over the phase. ``[serve]`` lines give the
-   requests, the wall and the server's own TTFT and ITL p50 and p99. Then
-   the bench batch with overlap on and off in turns (``phase_overlap``, an
-   ``[overlap 1b-bf16]`` line: decode tokens/s, device ms a step, busy
-   share), whose greedy tokens must be equal both ways.
+   requests, the wall and the server's own TTFT and ITL p50 and p99.
+   Then the bench batch with overlap on and off in turns (``phase_overlap``,
+   an ``[overlap 1b-bf16]`` line: decode tokens/s, device ms a step, busy
+   share), whose greedy tokens must be equal both ways. Constrained
+   decoding follows the 1B toppings engine, on a Llama-3.2-1B bf16 engine
+   built with ``tokenizer_path="chars"`` (``phase_grammar``, ``[grammar]``
+   lines): regex, JSON-schema, EBNF (DFA and pushdown) and structural-tag
+   requests through ``Engine.generate`` beside a free one and through the
+   HTTP server (chat ``response_format``; completions' ``regex``, ``ebnf``,
+   ``json_schema``), every output valid; a literal-heavy regex in fewer
+   forwards than half its tokens; every state mask walked by the native
+   ``fsm`` and ``pda`` libraries.
    Each engine's serving run, and the warm-up run of its bench batch,
    print a ``[prefill <label>]`` line: the extend forwards, their device ms
    (CUDA-event spans) and their wall ms (``tools/prefill_ab.py::
@@ -221,7 +240,10 @@ Phases, in order; any failure exits non-zero before the last line:
    pairs only, the library call masks the chunk. At
    Gemma-2-2B's (G 2, Hkv 4, head_dim 256): decode at bs 64, ctx 4096 and
    8192 with its window of 4096, and B 1 at 8192 (``DECODE_TIMED_256``);
-   extend at 64 x (128, 128) and a 2048-token chunk on 8192 with W 4096.
+   extend at 64 x (128, 128) and a 2048-token chunk on 8192 with W 4096;
+   and rows 1dq and 3dq there on int8 and fp8 pages, each beside the bf16
+   pages it was quantized from in turns (``DECODE_TIMED_256_8BIT``; extend
+   at 64 x (128, 128) and the 2048-token chunk on 8192 with W 4096).
    At Mistral-7B's shape: decode at bs 64 and ctx
    4096 and 8192 without a window and 8192 with W 4096 (through both
    wrappers), the 2048-token extend chunk on 4096, 5120 and 8192 tokens
@@ -241,7 +263,7 @@ Phases, in order; any failure exits non-zero before the last line:
    the ``mma.sync`` one, then at a group of 24, which must launch
    ``w4a8_matmul_mma``, counted the same way.
 6. one JSON line with every kernel's numbers, one with the engines', one
-   with the serving phase's, the ``nvidia-smi`` line, and as the last line
+   with the serving and grammar phases', the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -296,7 +318,7 @@ LOGIT_RTOL = {
     "1b-toppings": 5e-2, "w4a8-toppings": 1e-1, "mistral-7b": 3e-2, "mistral-7b-pallas": 3e-2,
     "qwen3-8b": 3e-2, "qwen3-8b-w4a8": 1e-1, "gemma-2-2b": 3e-2, "gemma-3-1b": 3e-2,
     "gpt-oss-20b": 5e-2, "gpt-oss-w4a8": 1e-1, "gpt-oss-w4a16": 1e-1, "qwen3-30b-a3b": 3e-2,
-    "llama4-scout": 3e-2, "apertus-8b": 3e-2,
+    "llama4-scout": 3e-2, "apertus-8b": 3e-2, "gemma-2-2b-int8kv": 1e-1, "gemma-2-2b-fp8kv": 1e-1,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -316,7 +338,7 @@ ARGMAX_FLOOR = {
     "1b-toppings": 3e-2, "w4a8-toppings": 3e-2, "mistral-7b": 0.0, "mistral-7b-pallas": 0.0,
     "qwen3-8b": 0.0, "qwen3-8b-w4a8": 3e-2, "gemma-2-2b": 0.0, "gemma-3-1b": 0.0,
     "gpt-oss-20b": 2e-2, "gpt-oss-w4a8": 3e-2, "gpt-oss-w4a16": 3e-2, "qwen3-30b-a3b": 0.0,
-    "llama4-scout": 0.0, "apertus-8b": 0.0,
+    "llama4-scout": 0.0, "apertus-8b": 0.0, "gemma-2-2b-int8kv": 2e-2, "gemma-2-2b-fp8kv": 2e-2,
 }
 # Each adapter must move its rows' logits (max|adapted - base| / max|base|)
 # by at least this many times the engine's kernel-vs-plain reading, so that
@@ -531,6 +553,9 @@ def phase_build():
                 log(f"[build]   {entry}: {line.strip()}" if "registers" in line or "spill" in line
                     else f"[build]   {line.strip()}")
     log(f"[build] all kernels in {time.monotonic() - t0:.1f} s")
+    # the grammar backend's host libraries (csrc/fsm.cpp, csrc/pda.cpp)
+    for name, r in native.build_host().items():
+        log(f"[build] {name} ({native.host_compiler()}): {r['seconds']:.1f} s {r['log'].strip()}")
     # what the tensor-core kernels run on: products (HGMMA and IGMMA are
     # wgmma over bf16 and int8, HMMA and IMMA mma.sync) and asynchronous
     # copies (LDGSTS is cp.async, UTMALDG a TMA load), counted in their SASS
@@ -1041,6 +1066,111 @@ def check_window_sequence_256() -> None:
         check(max(ratios) <= 1 and same and moved > 0,
               f"{name} kernel at head_dim 256: a per-layer window leaks between calls")
     del k, v, k_ext, v_ext
+
+
+# rows 1dq and 3dq: 8-bit pages at head_dim 256 (Gemma on int8 or fp8 KV),
+# under Gemma 2's window of 4096 and Gemma 3's of 512, each with and without
+# the cap of 50
+CAPS_WINDOWS_256_8BIT = [(None, None), (None, 4096), (50.0, 4096), (None, 512), (50.0, 512)]
+DECODE_CASES_256_8BIT = [(1, 17), (1, 4096), (2, 8192), (64, 4096), "padding", ("split edges", 512),
+                         ("split edges", 4096), ("page edges", 512), ("page edges", 4096)]
+DECODE_256_8BIT = "paged_decode_attention_quant (head_dim 256, per-layer window)"
+EXTEND_256_8BIT = "paged_extend_attention_quant (head_dim 256, per-layer window)"
+
+
+def check_decode_256_8bit(errs: dict) -> None:
+    """Row 1dq: the decode kernel at head_dim 256 over int8 and fp8 pages at
+    Gemma-2-2B's and Gemma-3-1B's (G, Hkv), on ``DECODE_CASES_256_8BIT``
+    (one row split across the card, B 64 unsplit, padding rows, rows whose
+    window's first token falls a token before, on and after a split boundary
+    or a page edge) under each (cap, window) of ``CAPS_WINDOWS_256_8BIT``
+    (the edge rows at their own window, with and without the cap). Where
+    the plan splits a row, a second call must give the same bits."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import paged_decode_attention_plain
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
+
+    D, ps = 256, 16
+    scale = 1.0 / math.sqrt(D)
+    seed, n, worst, splits = 23_000, 0, 0.0, 0
+    for kind in ("int8", "fp8"):
+        for G, Hkv in HEAD256_SHAPES:
+            for case in DECODE_CASES_256_8BIT:
+                seed += 1
+                gen = seeded(seed)
+                edge = isinstance(case, tuple) and isinstance(case[0], str)
+                lens = head256_lens(case, gen, Hkv, G)
+                k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, 1, gen)
+                k, v, ks, vs = quant_pages(k[0], v[0], kind)
+                q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+                plan = decode_plan(len(lens), Hkv, pt.shape[1], D, G)
+                what = case if isinstance(case, str) else (
+                    f"{case[0]} {lens.tolist()}" if edge else f"B={case[0]} ctx={case[1]}")
+                for cap, window in CAPS_WINDOWS_256_8BIT:
+                    if edge and window != case[1]:
+                        continue
+                    qc = capped_q(q, cap)
+                    out = decode_kernel(qc, k, v, ks, vs, pt, lens, scale, cap, window)
+                    ref = paged_decode_attention_plain(qc.float(), k, v, pt, lens, scale, ks, vs, cap, window)
+                    same = plan.splits == 1 or torch.equal(
+                        out, decode_kernel(qc, k, v, ks, vs, pt, lens, scale, cap, window))
+                    torch.cuda.synchronize()
+                    e, ratio = max_err(out, ref)
+                    zero = bool((out[lens == 0] == 0).all())
+                    errs[DECODE_256_8BIT] = max(errs[DECODE_256_8BIT], e)
+                    worst, n, splits = max(worst, ratio), n + 1, splits + (plan.splits > 1)
+                    log(
+                        f"[check] decode {kind} G={G} Hkv={Hkv} D=256 {what} {cap_window(cap, window)}: "
+                        f"max_abs_err {e:.3e}, max err/tol {ratio:.3f}, zero rows exact: {zero}"
+                        + (f"; {plan.splits} splits, second call bit-equal: {same}" if plan.splits > 1 else "")
+                    )
+                    check(ratio <= 1 and zero, f"{kind} decode kernel disagrees with its plain version at "
+                                               f"G={G} Hkv={Hkv} D=256 {what} {cap_window(cap, window)}")
+                    check(same, f"{kind} decode kernel's split calls differ at G={G} Hkv={Hkv} D=256 {what} "
+                                f"{cap_window(cap, window)}")
+                del k, v
+    log(f"[check] 8-bit decode at head_dim 256: worst err/tol {worst:.3f} over {n} cases ({splits} split)")
+
+
+def check_extend_256_8bit(errs: dict) -> None:
+    """Row 3dq: the extend kernel at head_dim 256 over int8 and fp8 pages at
+    Gemma-2-2B's and Gemma-3-1B's (G, Hkv), each case of
+    ``EXTEND_CASES_256`` (window edges inside a query tile and a KV tile)
+    under each (cap, window) of ``CAPS_WINDOWS_256_8BIT``; padded tokens
+    must come out as exact zeros."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import paged_extend_attention_plain
+
+    scale = 1.0 / 16.0
+    seed, n, worst = 24_000, 0, 0.0
+    for kind in ("int8", "fp8"):
+        for G, Hkv in HEAD256_SHAPES:
+            for chunks, T_pad in EXTEND_CASES_256:
+                seed += 1
+                q, k, v, pt, kv_lens, cu = extend_case(chunks, 256, T_pad, seed, G, Hkv)
+                k, v, ks, vs = quant_pages(k, v, kind)
+                n_real = int(cu[-1])
+                for cap, window in CAPS_WINDOWS_256_8BIT:
+                    qc = capped_q(q, cap)
+                    out = extend_kernel(qc, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window)
+                    ref = paged_extend_attention_plain(qc.float(), k, v, pt, kv_lens, cu, scale, ks, vs,
+                                                       cap, window)
+                    torch.cuda.synchronize()
+                    e, ratio = max_err(out, ref)
+                    zero = bool((out[n_real:] == 0).all())
+                    errs[EXTEND_256_8BIT] = max(errs[EXTEND_256_8BIT], e)
+                    worst, n = max(worst, ratio), n + 1
+                    log(
+                        f"[check] extend {kind} G={G} Hkv={Hkv} D=256 chunks={chunks} T={q.shape[0]} "
+                        f"{cap_window(cap, window)}: max_abs_err {e:.3e}, max err/tol {ratio:.3f}, "
+                        f"{q.shape[0] - n_real} padded tokens zero: {zero}"
+                    )
+                    check(ratio <= 1 and zero, f"{kind} extend kernel disagrees with its plain version at "
+                                               f"G={G} Hkv={Hkv} D=256 chunks={chunks} {cap_window(cap, window)}")
+                del k, v
+    log(f"[check] 8-bit extend at head_dim 256: worst err/tol {worst:.3f} over {n} cases")
 
 
 # GPT-OSS's attention (gpt-oss-20b: 64 query heads over Hkv 8, head_dim 64),
@@ -1818,7 +1948,7 @@ def check_sink_yardstick(lib, plain, what: str) -> None:
 
 def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
                 window=None, wrapper: str = "auto", Hkv: int = 8, sinks: bool = False,
-                chunk: int | None = None) -> dict:
+                chunk: int | None = None, beside_bf16: bool = False) -> dict:
     """Decode at page 16 over Hkv 8: Llama-3.2-1B is G 4, D 64; 3B is G 3,
     D 128; Mistral-7B G 4, D 128, with its window of 4096; Gemma-2-2B G 2,
     D 256 over Hkv 4, its local layers' window 4096; GPT-OSS-20B G 8, D
@@ -1832,7 +1962,9 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     zero key and value, whose additive mask is each head's sink
     (``sink_mask``). ``chunk``: Llama-4's chunk, timed with and without
     it in turns the same way (``ms_without_chunk``); the bound counts the
-    query's chunk only, and the library call masks the chunk."""
+    query's chunk only, and the library call masks the chunk.
+    ``beside_bf16``: 8-bit pages timed in turns with the bf16 pages they
+    were quantized from, the same call (``ms_bf16``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1846,6 +1978,7 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     gen = seeded(1000 + B + ctx + D + G)
     lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
     k, v, pt = make_pool(lens.tolist(), Hkv, D, ps, layers, gen)
+    k16, v16 = (k, v) if beside_bf16 else (None, None)
     k, v, ks, vs = quant_pages(k, v, kind)
     q = torch.randn(B, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
@@ -1862,6 +1995,9 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
     if sinks or chunk:
         bare = lambda l: decode_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, lens, scale, None, window)
         turns = [device_ms(fn, layers, 50) for fn in (kern, bare, bare, kern)]
+    if beside_bf16:
+        b16 = lambda l: decode_kernel(q, k16[l], v16[l], None, None, pt, lens, scale, None, window)
+        turns = [device_ms(fn, layers, 50) for fn in (kern, b16, b16, kern)]
     # dense [B, Hkv, S, D] bf16 copies for the library call, made once
     kd = [dense_kv(k[l], at(ks, l), pt, ps, B, ctx) for l in range(layers)]
     vd = [dense_kv(v[l], at(vs, l), pt, ps, B, ctx) for l in range(layers)]
@@ -1888,26 +2024,29 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
         shape=f"{kind} pages, B={B} ctx={ctx} window={window} Hq={Hkv * G} Hkv={Hkv} D={D} "
         f"page={ps}" + (" (decode_attention_pallas)" if wrapper == "pallas" else "")
         + (", sinks" if sinks else "") + (f", chunk {chunk} ({live} live keys a row)" if chunk else ""),
-        ms=(turns[0] + turns[3]) / 2 if sinks or chunk else device_ms(kern, layers, 50),
+        ms=(turns[0] + turns[3]) / 2 if sinks or chunk or beside_bf16 else device_ms(kern, layers, 50),
         plain_ms=device_ms(plain, layers, 5),
         library_ms=device_ms(lib, layers, 50),
         bound_ms=b,
         bound_by=by,
     )
-    if sinks or chunk:
-        r["ms_without_sinks" if sinks else "ms_without_chunk"] = (turns[1] + turns[2]) / 2
-    del kd, vd, k, v
+    if sinks or chunk or beside_bf16:
+        r["ms_bf16" if beside_bf16 else "ms_without_sinks" if sinks else "ms_without_chunk"] = (
+            (turns[1] + turns[2]) / 2)
+    del kd, vd, k, v, k16, v16
     torch.cuda.empty_cache()
     return r
 
 
 def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None,
-                Hkv: int = 8, sinks: bool = False, chunk: int | None = None) -> dict:
+                Hkv: int = 8, sinks: bool = False, chunk: int | None = None,
+                beside_bf16: bool = False) -> dict:
     """The extend at page 16 over Hkv 8 (or ``Hkv``); with ``window`` (or
     ``chunk``), the bound counts the keys some query's window (or chunk)
     holds and the pairs the windows (chunks) attend. ``sinks`` and
     ``chunk``: as ``time_decode``'s (the library call's mask is then
-    ``[1, Hq, q_len, kv_len + 1]``, or the chunk's boolean one)."""
+    ``[1, Hq, q_len, kv_len + 1]``, or the chunk's boolean one), and so is
+    ``beside_bf16``."""
     import torch
     import torch.nn.functional as F
 
@@ -1925,6 +2064,7 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     cu[1:] = torch.cumsum(torch.tensor(q_lens, device="cuda"), 0).to(torch.int32)
     T = sum(q_lens)
     k, v, pt = make_pool(kv_lens.tolist(), Hkv, D, ps, layers, gen)
+    k16, v16 = (k, v) if beside_bf16 else (None, None)
     k, v, ks, vs = quant_pages(k, v, kind)
     q = torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
@@ -1938,6 +2078,9 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
         bare = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale, None,
                                        window)
         turns = [device_ms(fn, layers, 10) for fn in (kern, bare, bare, kern)]
+    if beside_bf16:
+        b16 = lambda l: extend_kernel(q, k16[l], v16[l], None, None, pt, kv_lens, cu, scale, None, window)
+        turns = [device_ms(fn, layers, 10) for fn in (kern, b16, b16, kern)]
     # library yardstick: one SDPA call over the batch when every sequence
     # has the same (q_len, kv_len), with the tail-aligned causal mask
     assert len(set(chunks)) == 1, "library yardstick needs one (q_len, kv_len)"
@@ -1983,15 +2126,16 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
         shape=f"{kind} pages, {len(chunks)} x (q_len {ql}, kv_len {kl}) window={window} "
         f"Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}" + (", sinks" if sinks else "")
         + (f", chunk {chunk}" if chunk else ""),
-        ms=(turns[0] + turns[3]) / 2 if sinks or chunk else device_ms(kern, layers, 10),
+        ms=(turns[0] + turns[3]) / 2 if sinks or chunk or beside_bf16 else device_ms(kern, layers, 10),
         plain_ms=device_ms(plain, layers, 2, reps=3),
         library_ms=device_ms(lib, layers, 10),
         bound_ms=b,
         bound_by=by,
     )
-    if sinks or chunk:
-        r["ms_without_sinks" if sinks else "ms_without_chunk"] = (turns[1] + turns[2]) / 2
-    del kd, vd, k, v
+    if sinks or chunk or beside_bf16:
+        r["ms_bf16" if beside_bf16 else "ms_without_sinks" if sinks else "ms_without_chunk"] = (
+            (turns[1] + turns[2]) / 2)
+    del kd, vd, k, v, k16, v16
     torch.cuda.empty_cache()
     return r
 
@@ -2329,6 +2473,16 @@ DECODE_TIMED_256 = [
 ]
 
 
+# rows 1dq and 3dq at Gemma-2-2B's shape on 8-bit pages, each beside the
+# bf16 pages it was quantized from in turns: decode at bs 64 under the local
+# window of 4096 (ctx 8192, int8 and fp8; ctx 4096) and one global row of
+# 8192 tokens (split across the card)
+DECODE_TIMED_256_8BIT = [
+    (64, 8192, 256, 2, "int8", 4096, "auto"), (64, 8192, 256, 2, "fp8", 4096, "auto"),
+    (64, 4096, 256, 2, "int8", 4096, "auto"), (1, 8192, 256, 2, "int8", None, "auto"),
+]
+
+
 # GPT-OSS-20B's decode with its sinks (G 8, D 64, Hkv 8): bs 64 at 4096
 # tokens on a global layer and under its local window of 128, one row of
 # 4096 (split across the card), int8 pages
@@ -2387,6 +2541,21 @@ def phase_timing() -> dict:
             log(
                 f"[time] {name} {r['shape']}: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library {r['library_ms']:.4f} ms"
+            )
+    # rows 1dq and 3dq (8-bit pages at D 256), each beside bf16 pages in turns
+    t[DECODE_256_8BIT] = [time_decode(*row, Hkv=4, beside_bf16=True) for row in DECODE_TIMED_256_8BIT]
+    t[EXTEND_256_8BIT] = [
+        time_extend([(128, 128)] * 64, 256, 2, "int8", Hkv=4, beside_bf16=True),
+        time_extend([(128, 128)] * 64, 256, 2, "fp8", Hkv=4, beside_bf16=True),
+        time_extend([(2048, 8192)], 256, 2, "int8", window=4096, Hkv=4, beside_bf16=True),
+    ]
+    for name in (DECODE_256_8BIT, EXTEND_256_8BIT):
+        for r in t[name]:
+            log(
+                f"[time] {name} {r['shape']}: {r['ms']:.4f} ms (bf16 pages, in turns: "
+                f"{r['ms_bf16']:.4f} ms, x{r['ms'] / r['ms_bf16']:.4f}); bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library {r['library_ms']:.4f} ms "
+                f"(SDPA on the pages dequantized to dense bf16)"
             )
     # the sinks branch at GPT-OSS-20B's shape (G 8, D 64), each row timed
     # with and without its sinks in turns
@@ -2504,11 +2673,12 @@ def phase_w4a8_mma_bench() -> dict:
 
 
 def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto", params=None,
-                model_config=None, attention_backend="auto", max_total_tokens=None):
+                model_config=None, attention_backend="auto", max_total_tokens=None, tokenizer_path=None):
     """An engine with seeded random weights, or with ``params`` (a state
     dict of the same model, for example another engine's quantized one);
     ``model_config`` in place of the preset; ``max_total_tokens`` caps the
-    KV pool (else 0.85 of free memory)."""
+    KV pool (else 0.85 of free memory); ``tokenizer_path`` as a user gives
+    it (``"chars"``: the port's character tokenizer)."""
     import torch
 
     from scratchpad_tpu_torch.config import ServerArgs
@@ -2522,6 +2692,7 @@ def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto",
             preset=None if model_config else preset, random_weights=True, dtype="bfloat16",
             device="cuda", quantization=quantization, kv_cache_dtype=kv_cache_dtype,
             attention_backend=attention_backend, max_total_tokens=max_total_tokens,
+            tokenizer_path=tokenizer_path,
         ),
         model_config=model_config,
         params=params,
@@ -2971,6 +3142,10 @@ UNTIMED_REQUESTS = [(5, 16), (300, 16), ("chunk+952", 16)]
 TOPPINGS_REQUESTS = [(n, 16) for n, _ in REQUESTS]
 GEMMA3_REQUESTS = [(5, 16), (1500, 16), (3000, 16), (505, 16)]
 GEMMA3_SHARED = 1100
+# Gemma-3-1B keeps 12 of its 26 layers (ten local, two global;
+# its kernels, rows 1d and 3d at G 4 over one kv head, are held by phase 3):
+# the cut pays for the gemma-2-2b-int8kv engine
+GEMMA3_LAYERS = 12
 # Gemma-3-1B's published config.json (huggingface.co/google/gemma-3-1b-pt,
 # config.json, the text model), read through ModelConfig.from_hf_config; the
 # weights are random, drawn on the card
@@ -3001,6 +3176,10 @@ GEMMA3_1B = {
 # under the auto rule's 50,000, so it takes int8 KV as auto gives the full
 # depth
 QWEN3_W4A8_LAYERS = 4
+# Gemma-2-2B on int8 KV (rows 1dq, 3dq): 8 of its 26 layers, four local and
+# four global, untimed; the prompts cross the local window's edge (4096)
+GEMMA_KV8_LAYERS = 8
+GEMMA_KV8_REQUESTS = [(5, 16), (300, 16), (6000, 16), (4090, 16)]
 # GPT-OSS-20B W4 keeps one local and one global layer of its 24 (host
 # quantization of the experts, about 0.8 G weights a layer)
 GPT_OSS_W4_LAYERS = 2
@@ -3879,6 +4058,170 @@ def phase_serve(engine, label: str = "1b-bf16") -> dict:
                 itl_ms_p50_p99=[float(np.percentile(itl, q)) for q in (50, 99)] if len(itl) else None)
 
 
+# the grammar phase's grammars. Every grammar's language is finite, or the
+# request's logit bias (keys: character token ids) steers the greedy pick to
+# a short word of it, so that each output ends inside max new tokens at a
+# state where the grammar allows only eos
+GRAMMAR_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string", "maxLength": 6}, "ok": {"type": "boolean"},
+    "tag": {"enum": ["red", "green"]}}, "required": ["name", "ok", "tag"]}
+# the schema's longest word: twelve places of up to 8 blanks (json_schema.WS)
+# beside at most 44 other characters
+GRAMMAR_SCHEMA_TOKENS = 160
+GRAMMAR_EBNF = 'root ::= cmd " " arg\ncmd ::= "GET" | "PUT" | "DEL"\narg ::= [a-z] [a-z]? [0-9]'
+GRAMMAR_PDA = 'root ::= "(" root ")" | "x"'
+# the literal-heavy grammar: all but one choice and eos are forced tokens
+GRAMMAR_LITERAL = r"The answer is (yes|no)\. Done!"
+GRAMMAR_TAG = {"structures": [{"begin": "<", "schema": {"enum": ["a", "b"]}, "end": ">"}],
+               "triggers": ["<"]}
+
+
+def _schema_ok(text: str) -> bool:
+    try:
+        v = json.loads(text)
+    except ValueError:
+        return False
+    return (isinstance(v, dict) and set(v) == {"name", "ok", "tag"} and isinstance(v["name"], str)
+            and len(v["name"]) <= 6 and isinstance(v["ok"], bool) and v["tag"] in ("red", "green"))
+
+
+def _tag_ok(text: str) -> bool:
+    """Free text in which every trigger opens a whole structure: < "a" or
+    "b" >."""
+    import re
+
+    return all(m is not None for m in
+               (re.match(r'<"[ab]">', text[i:]) for i, c in enumerate(text) if c == "<"))
+
+
+def phase_grammar(engine, label: str = "1b-bf16") -> dict:
+    """Constrained decoding on an engine built with ``tokenizer_path="chars"``,
+    which loads the port's character tokenizer (``tokenizer/chars.py``: id =
+    ord(char) + 1, eos 0, every other id decodes to nothing) and with it the
+    grammar backend and its native walks: greedy requests under a regex, a
+    JSON schema, an EBNF grammar (DFA), a recursive EBNF grammar (pushdown)
+    and a structural tag through
+    ``Engine.generate`` in one batch beside a free request, then through the
+    HTTP server's chat ``response_format`` (``json_schema``,
+    ``json_object``, ``structural_tag``) and completions' ``regex``,
+    ``ebnf`` and ``json_schema``. Every output must match or parse; the
+    literal-heavy regex must append its forced tokens without model steps
+    (fewer forwards than tokens); only the native ``fsm`` and ``pda``
+    libraries, built from ``csrc/`` into ``csrc/build/``, may have walked a
+    state's mask."""
+    import re
+    import socket
+
+    from scratchpad_tpu_torch.constrained.backend import WALKS
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+    from scratchpad_tpu_torch.server.http_server import ServerApp, ServerThread
+    from scratchpad_tpu_torch.tokenizer.chars import CharTokenizer
+    from scratchpad_tpu_torch.utils import native
+
+    tok = engine.tokenizer
+    check(isinstance(tok, CharTokenizer) and engine.grammar_backend is not None and engine.grammar_backend.native
+          and engine.eos_token_ids == {tok.eos_token_id},
+          f"{label}: the engine did not load the character tokenizer and the native grammar backend "
+          f"({type(tok).__name__}, {engine.grammar_backend}, eos {sorted(engine.eos_token_ids)})")
+    t0 = time.perf_counter()
+    WALKS.clear()
+    bias_pda = {tok.encode("x")[0]: 100.0}
+    bias_tag = {tok.encode("<")[0]: 100.0}
+    requests = [
+        ("regex", dict(regex=r"(yes|no)!"), 8, lambda t: re.fullmatch(r"(yes|no)!", t) is not None),
+        ("json_schema", dict(json_schema=json.dumps(GRAMMAR_SCHEMA)), GRAMMAR_SCHEMA_TOKENS, _schema_ok),
+        ("ebnf", dict(ebnf=GRAMMAR_EBNF), 16, lambda t: re.fullmatch(r"(GET|PUT|DEL) [a-z]{1,3}[0-9]", t)
+         is not None),
+        ("ebnf (pushdown)", dict(ebnf=GRAMMAR_PDA, logit_bias=bias_pda), 16, lambda t: t == "x"),
+        ("structural_tag", dict(structural_tag=json.dumps(GRAMMAR_TAG), logit_bias=bias_tag), 40, _tag_ok),
+        ("literal regex", dict(regex=GRAMMAR_LITERAL), 48,
+         lambda t: re.fullmatch(GRAMMAR_LITERAL, t) is not None),
+    ]
+    prompt = tok.encode("Q: answer in the format asked. A: ")
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=n, **kw) for _, kw, n, _ in requests]
+    free = SamplingParams(temperature=0.0, max_new_tokens=24, ignore_eos=True)
+    engine.flush_cache()
+    outs = engine.generate(input_ids=[prompt] * (len(requests) + 1), sampling_params=sps + [free])
+    for (what, _, _, ok), out in zip(requests, outs):
+        # the structural tag's free text may run to the length limit: its
+        # 5-token structures fill max new tokens exactly
+        good = ok(out.text) and (out.finish_reason == "stop" or what == "structural_tag")
+        log(f"[grammar {label}] generate {what}: {out.text!r} ({len(out.output_ids)} tokens, "
+            f"{out.finish_reason}); valid: {good}")
+        check(good, f"{label}: the {what} grammar's output {out.text!r} ({out.finish_reason}) is not valid")
+    check(len(outs[-1].output_ids) == 24, f"{label}: the free request beside the grammars gave "
+          f"{len(outs[-1].output_ids)} tokens")
+    # the literal-heavy grammar alone: its forced tokens come without forwards
+    forwards = [0]
+    hook = engine.scheduler.runner.model.register_forward_hook(lambda *a: forwards.__setitem__(0, forwards[0] + 1))
+    try:
+        engine.flush_cache()
+        out = engine.generate(input_ids=prompt, sampling_params=sps[-1])
+    finally:
+        hook.remove()
+    good = re.fullmatch(GRAMMAR_LITERAL, out.text) is not None
+    log(f"[grammar {label}] literal regex alone: {out.text!r}, {len(out.output_ids)} tokens in "
+        f"{forwards[0]} forwards")
+    check(good and forwards[0] < len(out.output_ids) // 2,
+          f"{label}: the literal-heavy grammar took {forwards[0]} forwards for {len(out.output_ids)} "
+          f"tokens (jump-forward appends forced tokens without model steps)")
+    # the same grammars over HTTP
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        engine.args.host, engine.args.port = "127.0.0.1", sk.getsockname()[1]
+    url = f"http://127.0.0.1:{engine.args.port}"
+    srv = ServerThread(ServerApp(engine, engine.args))
+    n_http = 0
+    try:
+        chats = [
+            ("response_format json_schema", dict(response_format={
+                "type": "json_schema", "json_schema": {"name": "s", "schema": GRAMMAR_SCHEMA}}), _schema_ok),
+            ("response_format json_object", dict(
+                response_format={"type": "json_object"},
+                logit_bias={str(tok.encode(c)[0]): b for c, b in (("{", 40.0), ("}", 30.0))}
+                | {str(tok.eos_token_id): 50.0}),
+             lambda t: json.loads(t) == {}),
+            ("response_format structural_tag", dict(
+                response_format={"type": "structural_tag", **GRAMMAR_TAG},
+                logit_bias={str(k): v for k, v in bias_tag.items()}, max_tokens=40), _tag_ok),
+        ]
+        for what, extra, ok in chats:
+            body = dict(model="m", messages=[{"role": "user", "content": "answer in the format asked"}],
+                        max_tokens=GRAMMAR_SCHEMA_TOKENS, temperature=0.0) | extra
+            status, resp = _http(url + "/v1/chat/completions", body)
+            n_http += 1
+            text = resp["choices"][0]["message"]["content"] if status == 200 else None
+            good = status == 200 and text is not None and ok(text)
+            log(f"[grammar {label}] chat {what}: status {status}, {text!r}; valid: {good}")
+            check(good, f"{label}: chat {what} answered {status} {str(resp)[:200]}")
+        comps = [
+            ("regex", dict(regex=r"(yes|no)!"), lambda t: re.fullmatch(r"(yes|no)!", t) is not None),
+            ("ebnf", dict(ebnf=GRAMMAR_EBNF), lambda t: re.fullmatch(r"(GET|PUT|DEL) [a-z]{1,3}[0-9]", t)
+             is not None),
+            ("json_schema", dict(json_schema=json.dumps(GRAMMAR_SCHEMA)), _schema_ok),
+        ]
+        for what, extra, ok in comps:
+            status, resp = _http(url + "/v1/completions", dict(
+                model="m", prompt="Q: answer in the format asked. A: ", max_tokens=GRAMMAR_SCHEMA_TOKENS,
+                temperature=0.0) | extra)
+            n_http += 1
+            text = resp["choices"][0]["text"] if status == 200 else None
+            good = status == 200 and text is not None and ok(text)
+            log(f"[grammar {label}] completion {what}: status {status}, {text!r}; valid: {good}")
+            check(good, f"{label}: completion {what} answered {status} {str(resp)[:200]}")
+    finally:
+        srv.stop()
+    walks = dict(WALKS)
+    libs = {name: native.host_lib_path(name) for name in native.HOST_SOURCES}
+    log(f"[grammar {label}] state masks walked: {walks}; libraries "
+        f"{ {n: p.name for n, p in libs.items()} }; {time.perf_counter() - t0:.1f} s")
+    check(walks.get("fsm native", 0) > 0 and walks.get("pda native", 0) > 0
+          and not walks.get("fsm python") and not walks.get("pda python")
+          and all(p.exists() for p in libs.values()),
+          f"{label}: the grammar masks were not all walked by the native fsm and pda libraries: {walks}")
+    return dict(walks=walks, http_requests=n_http, seconds=time.perf_counter() - t0)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3994,6 +4337,22 @@ KERNELS = {
         "via _ragged_call; with a chunk the JAX package extends in XLA, xla_backend.py:479-483, "
         "models/llama4.py:48)",
     ),
+    # rows 1dq and 3dq: 8-bit pages at head_dim 256 (Gemma on int8 or fp8
+    # KV), through the 8-bit wrappers (their launches: the gemma-2-2b-int8kv
+    # engine's)
+    DECODE_256_8BIT: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/gqa_decode.py:92 (_gqa_decode_kernel at Dp 256, "
+        "quantized branch :120-142, :281-290, :323-331, :371-405, dynamic_window :102, 112-117)",
+    ),
+    EXTEND_256_8BIT: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_extend_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 (bundled ragged_paged_attention "
+        "via _ragged_call; on 8-bit pages at head_dim 256 the JAX package extends in XLA, "
+        "executor/model_runner.py:456)",
+    ),
     # rows 6 and 7 at GPT-OSS's groups of 120, on their served path (the
     # gpt-oss-w4a8 and gpt-oss-w4a16 engines)
     W4A8_G120: dict(
@@ -4017,6 +4376,7 @@ KERNEL_WRAPPER = {
     DECODE_SINKS: "paged_decode_attention", EXTEND_SINKS: "paged_extend_attention",
     DECODE_CHUNK: "paged_decode_attention", EXTEND_CHUNK: "paged_extend_attention",
     W4A8_G120: "w4a8_matmul", W4A16_G120: "w4a16_matmul",
+    DECODE_256_8BIT: "paged_decode_attention_quant", EXTEND_256_8BIT: "paged_extend_attention_quant",
 }
 # the engine run whose launches each kernel's entry reports
 KERNEL_ENGINE = {
@@ -4028,6 +4388,7 @@ KERNEL_ENGINE = {
     DECODE_SINKS: "gpt-oss-20b", EXTEND_SINKS: "gpt-oss-20b",
     DECODE_CHUNK: "llama4-scout", EXTEND_CHUNK: "llama4-scout",
     W4A8_G120: "gpt-oss-w4a8", W4A16_G120: "gpt-oss-w4a16",
+    DECODE_256_8BIT: "gemma-2-2b-int8kv", EXTEND_256_8BIT: "gemma-2-2b-int8kv",
 }
 
 
@@ -4053,7 +4414,8 @@ def main() -> None:
     timed(phase_build)
     errs = {k: 0.0 for k in KERNELS}
     for fn in (check_decode, check_extend, check_window_decode, check_window_extend, check_pallas_decode,
-               check_decode_256, check_extend_256, check_sinks, check_chunks):
+               check_decode_256, check_extend_256, check_decode_256_8bit, check_extend_256_8bit,
+               check_sinks, check_chunks):
         timed(fn, errs)
     timed(check_window_sequence_256)
     timed(check_kv_quantizer)
@@ -4099,6 +4461,11 @@ def main() -> None:
     register_toppings(engine, states, "1b-toppings")
     serve(engine, "1b-toppings", toppings=TOPPINGS, timed=False, requests=TOPPINGS_REQUESTS)
     del engine  # frees the pool and the weights for the next engine
+    # constrained decoding, Engine.generate and HTTP, on the same weights
+    # drawn again, with the tokenizer a user names: tokenizer_path="chars"
+    engine = make_engine(tokenizer_path="chars")
+    grammar = timed(phase_grammar, engine)
+    del engine
     engine = make_engine("w4a8")
     serve(engine, "w4a8", w4a8)
     # W4A16 on the same engine and codes: every QuantLinear takes the A16 route
@@ -4155,7 +4522,6 @@ def main() -> None:
         del engine
     check(fingerprints[0] == fingerprints[1], f"the Mistral engines' weights differ: {fingerprints}")
     # Qwen3-8B at full width and depth, bf16: qk-norm, an untied head
-
     engine = make_engine(preset="qwen3-8b")
     serve(engine, "qwen3-8b")
     del engine
@@ -4176,9 +4542,21 @@ def main() -> None:
     engine = make_engine(preset="gemma-2-2b")
     serve(engine, "gemma-2-2b", requests=WINDOW_REQUESTS)
     del engine
+    # Gemma-2-2B on int8 KV (rows 1dq and 3dq on a served path), GEMMA_KV8_LAYERS
+    # layers: local and global layers in turn, prompts across the window's edge
+    engine = make_engine(kv_cache_dtype="int8",
+                         model_config=get_preset("gemma-2-2b", num_hidden_layers=GEMMA_KV8_LAYERS))
+    serve(engine, "gemma-2-2b-int8kv", timed=False, requests=GEMMA_KV8_REQUESTS)
+    del engine
+    # the same on fp8 KV, at the same depth
+    engine = make_engine(kv_cache_dtype="fp8",
+                         model_config=get_preset("gemma-2-2b", num_hidden_layers=GEMMA_KV8_LAYERS))
+    serve(engine, "gemma-2-2b-fp8kv", timed=False, requests=GEMMA_KV8_REQUESTS)
+    del engine
     # Gemma-3-1B (its config.json): qk-norm, two rope bases, window 512 on
     # five layers of six, G 4 over one kv head
-    engine = make_engine(model_config=ModelConfig.from_hf_config(GEMMA3_1B))
+    engine = make_engine(model_config=ModelConfig.from_hf_config(
+        dict(GEMMA3_1B, num_hidden_layers=GEMMA3_LAYERS)))
     serve(engine, "gemma-3-1b", requests=GEMMA3_REQUESTS, timed=False, shared_len=GEMMA3_SHARED)
     del engine
     # GPT-OSS-20B at full width and depth, bf16 (41.8 GB): sinks through both
@@ -4296,7 +4674,7 @@ def main() -> None:
             }
         )
     )
-    log(json.dumps({"serve": {k: v for k, v in served.items() if k != "launches"}}))
+    log(json.dumps({"serve": {k: v for k, v in served.items() if k != "launches"}, "grammar": grammar}))
     log(smi_line)
     log(
         json.dumps(

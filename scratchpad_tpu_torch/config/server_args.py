@@ -26,7 +26,7 @@ class ServerArgs:
     # model / weights
     model_path: str = ""
     preset: Optional[str] = None  # built-in architecture preset (offline runs)
-    tokenizer_path: Optional[str] = None
+    tokenizer_path: Optional[str] = None  # "chars", where no such path exists: tokenizer/chars.py
     dtype: str = "bfloat16"
     # None | w4a8 (4-bit weights, per-token int8 activations) | w4a16 (also
     # w4) | awq | gptq | gptq_v2 (import an AutoAWQ/AutoGPTQ int4
@@ -130,6 +130,11 @@ class ServerArgs:
     # server refuses them, with or without this flag
     enable_custom_logit_processor: bool = False
 
+    # constrained decoding (regex, json_schema, ebnf, structural_tag): the
+    # native regex/json FSM engine, its token walk in csrc/fsm.cpp and
+    # csrc/pda.cpp
+    grammar_backend: str = "native"
+
     # observability
     enable_metrics: bool = True  # /metrics, Prometheus text exposition
     decode_log_interval: int = 40
@@ -152,11 +157,8 @@ class ServerArgs:
                 f"attention_backend='pallas' decodes bf16 pages only, not "
                 f"kv_cache_dtype={self.kv_cache_dtype!r} (use attention_backend='auto')"
             )
-        if self.preset is not None and self.kv_cache_dtype in ("int8", "fp8"):
-            from scratchpad_tpu_torch.config.model_config import get_preset
-            from scratchpad_tpu_torch.memory.kv_cache import check_quant_kv_head_dim
-
-            check_quant_kv_head_dim(get_preset(self.preset).head_dim)
+        if self.grammar_backend != "native":
+            raise ValueError(f"grammar_backend must be 'native'; got {self.grammar_backend!r}")
         if self.decode_pipeline_depth is not None and self.decode_pipeline_depth < 1:
             raise ValueError(f"decode_pipeline_depth must be >= 1; got {self.decode_pipeline_depth}")
         if self.served_model_name is None:

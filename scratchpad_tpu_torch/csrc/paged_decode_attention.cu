@@ -114,15 +114,22 @@
 // D 128; 8-bit pages 42 and 98 KB with their bf16 tiles and scales): four
 // CTAs an SM at D 64, two at D 128, as the registers allow too.
 //
-// head_dim 256 (Gemma; bf16 pages only): the same code at D 256. A slice of
-// one head is 8 KB of K and 8 KB of V, so the ring takes 192 KB and one CTA
-// (four warps) an SM, with up to 128 KB of loads in flight an SM, past what
-// the card's latency needs. A thread's O fragments are 32 n8 tiles (128
-// f32 registers) beside q's 32 A registers; the merge state ([kMaxG][D]
-// f32, 8 KB) still fits a warp's 48 KB region, and a split's partial is
-// G (D + 2) floats, which decode_plan's 8 MB workspace holds at any plan of
+// head_dim 256 (Gemma): the same code at D 256. A slice of one head is 8 KB
+// of K and 8 KB of V, so the ring takes 192 KB and one CTA (four warps) an
+// SM, with up to 128 KB of loads in flight an SM, past what the card's
+// latency needs. A thread's O fragments are 32 n8 tiles (128 f32
+// registers) beside q's 32 A registers; the merge state ([kMaxG][D] f32,
+// 8 KB) still fits a warp's region, and a split's partial is G (D + 2)
+// floats, which decode_plan's 8 MB workspace holds at any plan of
 // SPLIT_TARGET CTAs. The window is per call (Gemma's local and global
-// layers alternate launches), as at every head_dim.
+// layers alternate launches), as at every head_dim. 8-bit pages at D 256
+// (Gemma on int8 or fp8 KV): a warp holds a ring of three slices of codes
+// (24 KB), their scales (384 B) and the two bf16 tiles a slice converts to
+// (16 KB), 41,344 B; 165,376 B a CTA, one CTA an SM as with bf16 pages. The
+// third P term and the scale multiplies push D 256's 255 registers further:
+// ptxas -v spills 64 bytes a thread at G 2 to 7 (68 at G 8, 112 stored and
+// 136 loaded at G 1), int8 and e4m3 alike, against 20 to 32 of bf16 pages
+// at D 256 in the same build.
 //
 // Stage cuts, for the decode ablation tool (tools/decode_ablate.py). Built
 // with -DSPTPU_DECODE_STAGE=1, 2 or 3, a warp's slice stops after
@@ -776,10 +783,7 @@ int launch(DecodeArgs a, int batch, int num_q_heads, int head_dim, void* stream)
     case 64: return static_cast<int>(launch_for_d<64, CodeT>(G, a, grid, st));
     case 128: return static_cast<int>(launch_for_d<128, CodeT>(G, a, grid, st));
 #if SPTPU_DECODE_STAGE == 4
-    case 256:  // bf16 pages only (Gemma); 8-bit pages at D 256 are not ported
-      if constexpr (std::is_same_v<CodeT, __nv_bfloat16>)
-        return static_cast<int>(launch_for_d<256, CodeT>(G, a, grid, st));
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 256: return static_cast<int>(launch_for_d<256, CodeT>(G, a, grid, st));
 #endif
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

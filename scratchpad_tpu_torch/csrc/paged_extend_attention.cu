@@ -85,7 +85,7 @@
 //     causal, window or chunk edge, each row by its own bounds.
 //   - The epilogue normalises by l (rows with l == 0 are exact zeros),
 //     rounds to bf16 and stores 16 bytes a thread through shared memory.
-//   - head_dim 256 (Gemma; bf16 pages only): the same 64-key tiles, but one
+//   - head_dim 256 (Gemma): the same 64-key tiles, but one
 //     consumer warpgroup a CTA (64 rows: bq = 64 / G tokens). Each consumer
 //     thread holds a 64 x 256 f32 O accumulator, 128 registers, beside S
 //     (32) and P (32). ptxas compiles every thread of a launch to the
@@ -94,9 +94,19 @@
 //     there; at 256 threads the bound is 255. Q is 32 KB and a K or V tile
 //     32 KB, so the ring has three stages (224 KB in all, one CTA an SM).
 //     A tile's PV runs after its own softmax, as two m64n128k16 wgmma over
-//     the two halves of V and of O. A simple layout that is right; making
-//     it fast (a second warpgroup's rows in registers it can hold,
-//     pipelining again) is later work.
+//     the two halves of V and of O (three terms of P each on 8-bit pages).
+//     A simple layout that is right; making it fast (a second warpgroup's
+//     rows in registers it can hold, pipelining again) is later work.
+//   - 8-bit pages at head_dim 256: the D 128 layout does not fit. Q 32 KB,
+//     three bf16 stages of K and V 192 KB and a code ring of five stages of
+//     2 x 16 KB would be 384 KB; even two bf16 and two code stages come to
+//     232,480 B with scales, barriers and alignment, 32 B over the card's
+//     232,448. So this variant has no code ring (Smem::kDirect): each
+//     producer thread loads its 16 pieces of 16 codes of the next tile from
+//     device memory into registers (64 a thread) as soon as it has handed
+//     the current tile over, and converts them into the bf16 stage once that
+//     stage is free. Q 32,768 + ring 196,608 + scales 1,536 + barriers 48 +
+//     alignment 1,024 = 231,984 B, one CTA an SM.
 // Not done yet (later work): TMA loads, 128-token KV tiles, more than one
 // CTA on an SM for the short prefill chunks.
 
@@ -151,6 +161,10 @@ struct Smem {
   // stages, or three beside the 8-bit pages' own ring of codes; three at D
   // 256, where Q takes 32 KB and a K or V tile 32 KB (224 KB in all)
   static constexpr int kRing = kQuant || D > 128 ? 3 : 4;
+  // 8-bit pages at D 256: no room for a code ring beside three bf16
+  // stages, so the producer converts the codes from its registers
+  static constexpr bool kDirect = kQuant && D > 128;
+  static constexpr int kCodeStages = kQuant && !kDirect ? kCodeRing : 0;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + NB * kQBlock;
   static constexpr int kV = kK + kRing * kTile;
@@ -159,10 +173,11 @@ struct Smem {
   static constexpr int kCodeTile = kBK * D;
   static constexpr int kScales = kV + kRing * kTile;
   static constexpr int kCodes = kScales + (kQuant ? kRing * 2 * kBK * 4 : 0);
-  static constexpr int kCodeScales = kCodes + (kQuant ? kCodeRing * 2 * kCodeTile : 0);
-  static constexpr int kBars = kCodeScales + (kQuant ? kCodeRing * 2 * kBK * 4 : 0);
+  static constexpr int kCodeScales = kCodes + kCodeStages * 2 * kCodeTile;
+  static constexpr int kBars = kCodeScales + kCodeStages * 2 * kBK * 4;
   static constexpr int kBytes = kBars + 2 * kRing * 8;  // u64 full[kRing], empty[kRing]
   static constexpr size_t kDynamic = kBytes + 1024;  // room to align the base
+  static_assert(kDynamic <= 232448, "a block's shared memory on the H100");
 };
 
 template <int D, bool kQuant>
@@ -341,6 +356,64 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
         }
         mbar_arrive_copies(full(st));
       }
+    } else if constexpr (S::kDirect) {
+      // 8-bit pages at D 256: thread p loads 16-byte pieces p + 128 n of the
+      // tile's K and V codes (token ((p + 128 n) % 1024) / 16) into its
+      // registers, and K's (p < 64) or V's scale of token p % 64. Tile t +
+      // 1's loads are issued as soon as tile t is handed over, so they run
+      // while the producer waits for tile t + 1's stage; then they are
+      // converted (exactly) into the stage, as the code ring's are below.
+      constexpr int CH = D / 16;              // 16-byte pieces of a code row
+      constexpr int NC = 2 * kBK * CH / 128;  // pieces a thread loads and converts
+      uint4 held[NC];
+      float held_scale = 0.f;
+      auto load = [&](int r0, int r1) {
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          const int i = p + 128 * n;
+          const int which = i / (kBK * CH);  // 0: K, 1: V
+          const int j = (i % (kBK * CH)) / CH;
+          const int c = i % CH;
+          // the warp's 32 pieces lie in two tokens on the same side of 32
+          const int r = __shfl_sync(0xffffffffu, j < 32 ? r0 : r1, j % 32);
+          const CodeT* src =
+              (which ? v_cache : k_cache) + (size_t)(r >= 0 ? r : 0) * row_stride + (size_t)h * D + c * 16;
+          held[n] = r >= 0 && SPTPU_EXTEND_CUT != 4 ? __ldg(reinterpret_cast<const uint4*>(src))
+                                                     : make_uint4(0, 0, 0, 0);
+        }
+        const int r = (p >> 5) & 1 ? r1 : r0;
+        held_scale = r < 0 ? 0.f
+                           : __bfloat162float((p < kBK ? k_scale : v_scale)[(size_t)r * num_kv_heads + h]);
+      };
+      load(pool_row(0, lane), pool_row(0, lane + 32));
+      int rr[2] = {pool_row(1, lane), pool_row(1, lane + 32)};
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kRing;
+        mbar_wait(empty(st), ((t / kRing) & 1) ^ 1);
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          const int i = p + 128 * n;
+          const int which = i / (kBK * CH);
+          const int j = (i % (kBK * CH)) / CH;
+          const int c = i % CH;
+          uint32_t w[8];
+          codes_to_bf16(held[n].x, CodeT(), w[0], w[1]);
+          codes_to_bf16(held[n].y, CodeT(), w[2], w[3]);
+          codes_to_bf16(held[n].z, CodeT(), w[4], w[5]);
+          codes_to_bf16(held[n].w, CodeT(), w[6], w[7]);
+          uint8_t* dst = sm + (which ? S::kV : S::kK) + st * S::kTile + (2 * c / 8) * S::kTBlock;
+          *reinterpret_cast<uint4*>(dst + swz(j, (2 * c) % 8)) = make_uint4(w[0], w[1], w[2], w[3]);
+          *reinterpret_cast<uint4*>(dst + swz(j, (2 * c + 1) % 8)) = make_uint4(w[4], w[5], w[6], w[7]);
+        }
+        reinterpret_cast<float*>(sm + S::kScales)[st * 2 * kBK + p] = held_scale;
+        fence_async_shared();
+        mbar_arrive(full(st));
+        if (t + 1 < n_tiles) {
+          load(rr[0], rr[1]);
+          rr[0] = pool_row(t + 2, lane);
+          rr[1] = pool_row(t + 2, lane + 32);
+        }
+      }
     } else {
       // 8-bit pages: the codes of tile t + kCodeAhead land in the code ring
       // while tile t converts to the bf16 operand ring (int8 and e4m3 are
@@ -479,6 +552,10 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
         wgmma_rs_n128(o_lo, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], vd);
         wgmma_rs_n128(o_hi, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], vd2);
         wgmma_rs_n128(o_hi, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], vd2);
+        if constexpr (kPTerms == 3) {
+          wgmma_rs_n128(o_lo, pr[4 * kk], pr[4 * kk + 1], pr[4 * kk + 2], pr[4 * kk + 3], vd);
+          wgmma_rs_n128(o_hi, pr[4 * kk], pr[4 * kk + 1], pr[4 * kk + 2], pr[4 * kk + 3], vd2);
+        }
       } else if constexpr (DP == 128) {
         wgmma_rs_n128(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], vd);
         wgmma_rs_n128(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], vd);
@@ -728,13 +805,10 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
                               num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
                               sm_scale, logit_cap, window, chunk, skp);
       break;
-    case 256:  // bf16 pages only (Gemma); 8-bit pages at D 256 are not ported
-      if constexpr (std::is_same_v<CodeT, __nv_bfloat16>)
-        err = launch_for_d<256>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
-                                num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                                sm_scale, logit_cap, window, chunk, skp);
-      else
-        err = cudaErrorInvalidValue;
+    case 256:
+      err = launch_for_d<256>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
+                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
+                              sm_scale, logit_cap, window, chunk, skp);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -83,7 +83,6 @@ class WorkerBatch:
 
 
 _UNPORTED_BATCH_FIELDS = (
-    "vocab_bitmask",
     "input_embeds",
     "mrope_positions",
     "rope_delta",
@@ -624,6 +623,10 @@ class ModelRunner:
             output_token_counts=padB(si.output_token_counts, 0),
             input_token_mask=padB(si.input_token_mask, False),
             logit_bias=padB(si.logit_bias, 0.0),
+            # padding rows allow every token; the words go up as int32 (the
+            # same bits), which every device's indexing and shifts take
+            vocab_bitmask=None if wb.vocab_bitmask is None
+            else padB(wb.vocab_bitmask, 0xFFFFFFFF).view(np.int32),
         )
         sinfo = SamplingBatchInfo(
             **{

@@ -37,16 +37,15 @@ import torch
 # kv_cache_dtype -> the code dtype of a quantized pool
 QUANT_KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 SCALE_DTYPE = torch.bfloat16
-# the head_dims the attention kernels take over 8-bit pages; 256 (Gemma)
-# takes bf16 pages only for now
-QUANT_KV_HEAD_DIMS = (32, 64, 128)
+# the head_dims the attention kernels take over 8-bit pages (256: Gemma)
+QUANT_KV_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def check_quant_kv_head_dim(head_dim: int) -> None:
-    """Refuse an 8-bit pool at a head_dim whose 8-bit kernels are not ported."""
+    """Refuse an 8-bit pool at a head_dim the 8-bit kernels do not take."""
     if head_dim not in QUANT_KV_HEAD_DIMS:
         raise NotImplementedError(
-            f"kv_cache_dtype int8 or fp8 at head_dim {head_dim} is not ported "
+            f"kv_cache_dtype int8 or fp8 at head_dim {head_dim} is not supported "
             f"(8-bit pages take head_dim {QUANT_KV_HEAD_DIMS}); use bfloat16 KV"
         )
 

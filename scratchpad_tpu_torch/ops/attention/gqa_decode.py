@@ -20,8 +20,8 @@ pages, ``s`` already holds the K scale), and token ``j`` of a row of length
 window that changes from call to call is the JAX kernel's traced window
 (``dynamic_window``, ``gqa_decode.py:102, 112-117``), which Gemma's layers
 give one by one; ``mask_args`` reads the JAX package's global-layer
-sentinel (``1 << 30``) as no window. bf16 pages take head_dim 32 to 256,
-8-bit pages 32 to 128 (``kv_cache.QUANT_KV_HEAD_DIMS``).
+sentinel (``1 << 30``) as no window. bf16 and 8-bit pages take head_dim
+32, 64, 128 and 256 (``HEAD_DIMS``).
 
 ``chunk_size`` (None or C >= 1; the Pallas kernel's ``chunk_size``,
 ``mask_start``, ``gqa_decode.py:166-168``, Llama-4's rope layers) keeps the
@@ -57,7 +57,7 @@ from typing import Optional
 import torch
 
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta
-from scratchpad_tpu_torch.memory.kv_cache import QUANT_KV_HEAD_DIMS, SCALE_DTYPE, KVCache
+from scratchpad_tpu_torch.memory.kv_cache import SCALE_DTYPE, KVCache
 from scratchpad_tpu_torch.utils import native
 
 _P = ctypes.c_void_p
@@ -285,7 +285,7 @@ def paged_decode_attention_plain(
 def check_pages(q, k_cache, v_cache, k_scale, v_scale, max_group: int) -> None:
     """What both attention kernels take: contiguous bf16 q and pages, or
     int8 / e4m3 pages with contiguous bf16 scales ``[pages, ps, Hkv]``;
-    head_dim in ``HEAD_DIMS`` (``QUANT_KV_HEAD_DIMS`` for 8-bit pages);
+    head_dim in ``HEAD_DIMS`` (bf16 and 8-bit pages alike);
     1..``max_group`` query heads per kv head."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("k_scale", k_scale), ("v_scale", v_scale)):
@@ -312,8 +312,6 @@ def check_pages(q, k_cache, v_cache, k_scale, v_scale, max_group: int) -> None:
     Hq, Hkv = q.shape[1], k_cache.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    if k_scale is not None and D not in QUANT_KV_HEAD_DIMS:
-        raise ValueError(f"8-bit pages take head_dim {QUANT_KV_HEAD_DIMS}, not {D}")
     if Hq % Hkv or not 1 <= Hq // Hkv <= max_group:
         raise ValueError(f"Hq={Hq} must be 1..{max_group} times Hkv={Hkv}")
 

@@ -24,7 +24,9 @@ masks each query row on its own inside it. Both are runtime arguments of
 each call, so Gemma's layers each pass their own window (the JAX package
 runs Gemma's extend in XLA at head_dim 256, ``executor/model_runner.py:185``,
 and the ragged kernel under ``lax.cond`` at 128, ``make_window_cond_extend``).
-bf16 pages take head_dim 32 to 256, 8-bit pages 32 to 128.
+bf16 and 8-bit pages take head_dim 32, 64, 128 and 256 (at 256 the 8-bit
+kernel converts the codes from registers: no code ring fits beside its
+bf16 stages).
 
 ``chunk_size`` (None or C >= 1, Llama-4's rope layers) follows
 ``xla_backend.extend_attention_xla:479-483``: the query at position ``p``

@@ -2,8 +2,9 @@
 
 Counterpart of ``scratchpad_tpu/sampling/batch_info.py``: host numpy arrays
 built from the scheduler's requests (``from_reqs``), moved to the device by
-``to(device)``. Padding rows are greedy. The port has no grammar bitmask and
-no custom logit processors yet.
+``to(device)``. Padding rows are greedy. A grammar's allow-mask rides in
+``vocab_bitmask``, which the runner fills from the scheduler's batch. The
+port has no custom logit processors yet.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ class SamplingBatchInfo:
     input_token_mask: Optional[np.ndarray] = None  # bool[B, V]
     # additive OpenAI logit_bias (None when no request in the batch has one)
     logit_bias: Optional[np.ndarray] = None  # f32[B, V]
+    # grammar allow-mask (None when no request in the batch has a grammar)
+    vocab_bitmask: Optional[np.ndarray] = None  # u32[B, ceil(V / 32)]
 
     @property
     def needs_penalties(self) -> bool:

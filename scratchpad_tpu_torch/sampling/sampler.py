@@ -7,6 +7,8 @@ in scaled-logit space, found by a joint multi-way bisection
 sort runs per step. Random draws use an explicit ``torch.Generator``
 (Gumbel-max, the same construction as ``jax.random.categorical``); the bits
 differ from JAX's, so tests compare sampled output as a distribution.
+A grammar's allow-mask (``apply_vocab_bitmask``) bans logits after the
+penalties and before the filters, as the JAX sampler does.
 """
 
 from __future__ import annotations
@@ -101,6 +103,32 @@ def apply_penalties(logits: torch.Tensor, info: SamplingBatchInfo) -> torch.Tens
     return torch.where(seen, penalized, logits)
 
 
+_BIT_INDEX: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _bit_index(vocab_size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each token's mask word and bit, built once a vocab size and device."""
+    key = (vocab_size, str(device))
+    idx = _BIT_INDEX.get(key)
+    if idx is None:
+        ids = torch.arange(vocab_size, device=device, dtype=torch.int64)
+        idx = _BIT_INDEX[key] = (ids // 32, (ids % 32).to(torch.int32))
+    return idx
+
+
+def apply_vocab_bitmask(logits: torch.Tensor, bitmask: torch.Tensor) -> torch.Tensor:
+    """Mask logits [B, V] with a packed u32 allow-mask [B, ceil(V / 32)]
+    (bit t % 32 of word t // 32 allows token t; int32 words of the same
+    bits are taken too): a banned logit becomes ``_NEG``. The JAX
+    ``sampler.apply_vocab_bitmask``; no Pallas kernel there, torch ops
+    here."""
+    word, bit = _bit_index(logits.shape[1], logits.device)
+    if bitmask.dtype != torch.int32:
+        bitmask = bitmask.view(torch.int32)
+    allowed = (bitmask[:, word] >> bit) & 1
+    return torch.where(allowed.bool(), logits, _NEG)
+
+
 def sample(
     logits: torch.Tensor,  # f32[B, V]
     info: SamplingBatchInfo,  # tensors on logits.device
@@ -110,8 +138,8 @@ def sample(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (token ids i64[B], logprobs): the full post-penalty f32[B, V]
     log-softmax, or with ``full_logprobs=False`` just the chosen token's
-    logprob f32[B]. Order: logit bias -> penalties -> temperature -> top-k
-    -> top-p -> min-p -> categorical.
+    logprob f32[B]. Order: logit bias -> penalties -> grammar mask ->
+    temperature -> top-k -> top-p -> min-p -> categorical.
 
     ``modes`` is (any row samples, any row filters), known on the host
     before the batch moved to the device (``SamplingBatchInfo.modes``); the
@@ -121,6 +149,8 @@ def sample(
     if info.logit_bias is not None:
         logits = logits + info.logit_bias
     logits = apply_penalties(logits, info)
+    if info.vocab_bitmask is not None:
+        logits = apply_vocab_bitmask(logits, info.vocab_bitmask)
     ids = torch.argmax(logits, dim=-1)
     if modes is None:
         modes = SamplingBatchInfo.modes(info, V)

@@ -4,9 +4,12 @@ Counterpart of ``scratchpad_tpu/server/engine.py`` for one device and one
 host: the engine owns the Scheduler in-process and pumps its step loop.
 The port has ``generate``, ``generate_stream``, per-request toppings
 (``register_topping``, then ``generate(..., topping=name)``), embeddings
-(``encode``), teacher-forced scoring (``score``, ``perplexity``) and
-multi-turn sessions; images, videos and grammars are refused, and so are
-``update_weights`` and ``resize_kv_pool`` (not ported yet). The HTTP server
+(``encode``), teacher-forced scoring (``score``, ``perplexity``),
+multi-turn sessions and constrained decoding (``SamplingParams``'s
+``regex``, ``json_schema``, ``ebnf`` and ``structural_tag``, through the
+grammar backend of ``constrained/`` once a tokenizer is loaded); images and
+videos are refused, and so are ``update_weights`` and ``resize_kv_pool``
+(not ported yet). The HTTP server
 drives the same engine from its async runner's thread
 (``server/async_runner.py``).
 """
@@ -28,6 +31,7 @@ from scratchpad_tpu_torch.core.req import FinishReason, Req
 from scratchpad_tpu_torch.core.scheduler import Scheduler, StepEvent
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.metrics import LatencyStats
+from scratchpad_tpu_torch.tokenizer import load_tokenizer
 from scratchpad_tpu_torch.tokenizer.detokenizer import IncrementalDetokenizer
 from scratchpad_tpu_torch.toppings import ToppingsManager
 from scratchpad_tpu_torch.utils import get_logger
@@ -89,9 +93,7 @@ class Engine:
 
         self.tokenizer = tokenizer
         if self.tokenizer is None and self.args.tokenizer_path:
-            from transformers import AutoTokenizer
-
-            self.tokenizer = AutoTokenizer.from_pretrained(self.args.tokenizer_path)
+            self.tokenizer = load_tokenizer(self.args.tokenizer_path)
         self.detokenizer = IncrementalDetokenizer(self.tokenizer)
 
         self.eos_token_ids: frozenset[int] = frozenset(self._find_eos_ids())
@@ -101,6 +103,12 @@ class Engine:
         self.toppings_manager: Optional[ToppingsManager] = None
         # session id -> (token history, last use on the monotonic clock)
         self._sessions: collections.OrderedDict = collections.OrderedDict()
+        # grammars need the tokenizer's strings of the vocabulary
+        self.grammar_backend = None
+        if self.tokenizer is not None:
+            from scratchpad_tpu_torch.constrained import GrammarBackend
+
+            self.grammar_backend = GrammarBackend(self.tokenizer, model_config.vocab_size)
 
     def _find_eos_ids(self) -> set[int]:
         ids: set[int] = set()
@@ -166,8 +174,9 @@ class Engine:
         if image_data is not None or video_data is not None:
             raise NotImplementedError("images and videos are not ported yet")
         sp = sampling_params or SamplingParams()
-        if sp.grammar_key() is not None:
-            raise NotImplementedError("constrained decoding is not ported yet")
+        gk = sp.grammar_key()
+        if gk is not None and self.grammar_backend is None:
+            raise ValueError("constrained decoding needs a tokenizer (none is loaded)")
         if input_ids is None:
             assert prompt is not None and self.tokenizer is not None
             input_ids = self.tokenizer.encode(prompt)
@@ -176,7 +185,7 @@ class Engine:
             if self.toppings_manager is None:
                 raise KeyError(f"unknown topping {topping!r}")
             topping_idx = self.toppings_manager.lookup(topping)
-        return Req(
+        req = Req(
             rid=rid or uuid.uuid4().hex,
             origin_input_ids=list(input_ids),
             sampling_params=sp,
@@ -184,6 +193,9 @@ class Engine:
             return_logprob=return_logprob,
             topping_idx=topping_idx,
         )
+        if gk is not None:
+            req.grammar = self.grammar_backend.get_grammar(*gk)
+        return req
 
     # ------------------------------------------------------------ sync API
 

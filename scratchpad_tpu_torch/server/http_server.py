@@ -5,10 +5,11 @@ standard library: ``asyncio.start_server`` and a small HTTP/1.1 handler
 that reads a request line, headers and a ``Content-Length`` body, answers
 JSON with ``Content-Length`` and streams ``text/event-stream`` with chunked
 encoding; connections are kept alive unless the client asks to close them. Every JAX route is here, with the same statuses and response
-keys. What the port does not have is refused explicitly: images, video,
-``response_format`` grammars, regex/ebnf/json_schema constraints and custom
-logit processors answer 400, ``/update_weights`` and a ``/memory_pool``
-resize answer 501. The handlers await the async runner's streams; the
+keys. Constrained decoding is served: ``regex``, ``ebnf`` and
+``json_schema`` on completions and chat, and chat's ``response_format``
+``json_object``, ``json_schema`` and ``structural_tag``. What the port does
+not have is refused explicitly: images, video and custom logit processors
+answer 400, ``/update_weights`` and a ``/memory_pool`` resize answer 501. The handlers await the async runner's streams; the
 engine itself runs on the runner's scheduler thread.
 """
 
@@ -69,19 +70,14 @@ class NotPorted(ValueError):
 
 
 def _sampling_from(req, max_tokens: int) -> SamplingParams:
-    """The request's sampling parameters; raises ``NotPorted`` for a custom
-    logit processor or a grammar (regex, ebnf, json_schema)."""
+    """The request's sampling parameters, its grammar (regex, ebnf,
+    json_schema) among them; raises ``NotPorted`` for a custom logit
+    processor."""
     if getattr(req, "custom_logit_processor", None):
         raise NotPorted(
             "custom_logit_processor is not ported to scratchpad_tpu_torch yet "
             "(ROADMAP Queue 1, item 6)"
         )
-    for name in ("regex", "ebnf", "json_schema"):
-        if getattr(req, name, None):
-            raise NotPorted(
-                f"{name} (constrained decoding) is not ported to scratchpad_tpu_torch yet "
-                "(ROADMAP Queue 1, item 5)"
-            )
     # OpenAI logit_bias keys are token-id strings
     bias = {int(k): float(v) for k, v in req.logit_bias.items()} if req.logit_bias else None
     return SamplingParams(
@@ -97,7 +93,31 @@ def _sampling_from(req, max_tokens: int) -> SamplingParams:
         ignore_eos=req.ignore_eos,
         skip_special_tokens=req.skip_special_tokens,
         logit_bias=bias,
+        regex=req.regex,
+        ebnf=req.ebnf,
+        json_schema=req.json_schema,
     )
+
+
+def _response_format_grammar(sp: SamplingParams, fmt) -> None:
+    """Chat's ``response_format`` as the grammar of ``sp``, as the JAX
+    server maps it: ``json_object`` the generic JSON grammar,
+    ``json_schema`` its ``schema``, ``structural_tag`` its structures and
+    triggers."""
+    if fmt is None or fmt.type == "text":
+        return
+    if fmt.type == "json_object":
+        sp.json_schema = "true"
+    elif fmt.type == "json_schema":
+        sp.json_schema = json.dumps((fmt.json_schema or {}).get("schema", {}))
+    elif fmt.type == "structural_tag":
+        structures = [
+            {"begin": s["begin"], "schema": s.get("schema"), "end": s["end"]}
+            for s in (fmt.structures or [])
+        ]
+        sp.structural_tag = json.dumps({"structures": structures, "triggers": fmt.triggers or []})
+    else:
+        raise ValueError(f"unknown response_format type {fmt.type!r}")
 
 
 def _usage(out: GenerationOutput) -> UsageInfo:
@@ -504,6 +524,9 @@ class ServerApp:
         if self.engine.tokenizer is None and any(p is not None for p in prompts):
             return self._bad_request("no tokenizer loaded; send token-id prompts")
         sp = _sampling_from(creq, creq.max_tokens)
+        bad = self._grammar_refused(sp)
+        if bad is not None:
+            return bad
         if creq.stream:
             return await self._stream_completion(request, writer, creq, prompts, idss, sp)
         outs = await asyncio.gather(
@@ -596,6 +619,21 @@ class ServerApp:
             "text_offset": [],
         }
 
+    def _grammar_refused(self, sp: SamplingParams):
+        """A 400 answer for a grammar that cannot be served (no tokenizer,
+        or one that does not compile), else None; a good grammar is
+        compiled here, into the backend's cache."""
+        key = sp.grammar_key()
+        if key is None:
+            return None
+        if self.engine.grammar_backend is None:
+            return self._bad_request("constrained decoding needs a tokenizer (none is loaded)")
+        try:
+            self.engine.grammar_backend.get_grammar(*key)
+        except (ValueError, KeyError, TypeError, RecursionError) as e:
+            return self._bad_request(f"{key[0]} grammar does not compile: {e}")
+        return None
+
     # ------------------------------------------------------ chat completions
 
     def _flatten_content(self, messages: list[ChatMessage]) -> None:
@@ -638,13 +676,15 @@ class ServerApp:
         if self.engine.tokenizer is None:
             return self._bad_request("no tokenizer loaded; chat API unavailable")
         self._flatten_content(creq.messages)
-        if creq.response_format is not None and creq.response_format.type != "text":
-            raise NotPorted(
-                f"response_format {creq.response_format.type!r} (constrained decoding) is not "
-                "ported to scratchpad_tpu_torch yet (ROADMAP Queue 1, item 5)"
-            )
         prompt = self._apply_chat_template(creq.messages)
         sp = _sampling_from(creq, creq.max_completion_tokens or creq.max_tokens or 512)
+        try:
+            _response_format_grammar(sp, creq.response_format)
+        except (KeyError, TypeError, ValueError) as e:
+            return self._bad_request(f"response_format: {e}")
+        bad = self._grammar_refused(sp)
+        if bad is not None:
+            return bad
         if creq.stream:
             return await self._stream_chat(request, writer, creq, prompt, sp)
         outs = await asyncio.gather(

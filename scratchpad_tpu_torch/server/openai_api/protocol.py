@@ -192,8 +192,7 @@ class ChatMessage:
 
 @dataclasses.dataclass
 class ResponseFormat:
-    # text | json_object | json_schema | structural_tag; only "text" is
-    # served (the grammars are not ported)
+    # text | json_object | json_schema | structural_tag
     type: str = "text"
     json_schema: Optional[Dict[str, Any]] = None
     structures: Optional[List[Dict[str, Any]]] = None

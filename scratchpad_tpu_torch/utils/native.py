@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels and bind them with ctypes.
+"""Build the port's CUDA kernels and host libraries and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
@@ -13,6 +13,13 @@ that one source gives several libraries, as the decode kernel's stage cuts
 beside the hash, which covers them too, so it never collides with the
 production library of the same source.
 
+The grammar backend's host code (``csrc/fsm.cpp``, ``csrc/pda.cpp``: the
+token walks that fill a grammar state's vocabulary mask) builds the same way
+with the host compiler (``$CXX``, else ``g++``) into the same directory,
+named by a hash of its source and flags (``build_host``, ``load_host``). A
+failed build raises: the caller that asked for the native library gets no
+quiet fallback.
+
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine that has no ``nvcc`` and no card.
 """
@@ -24,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -49,7 +57,11 @@ KERNEL_SOURCES = (
     "decode_ablate",
 )
 
+HOST_SOURCES = ("fsm", "pda")  # csrc/<name>.cpp
+HOST_FLAGS = ["-O2", "-shared", "-fPIC"]
+
 _loaded: dict[tuple, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -156,3 +168,58 @@ def check_same_device(q, *others) -> None:
     for t in others:
         if t.device != q.device:
             raise ValueError(f"inputs on {t.device} and {q.device}: one device expected")
+
+
+# ------------------------------------------------------- host libraries
+
+
+def host_compiler() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
+def host_lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha1(src + " ".join(HOST_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_host(names=HOST_SOURCES) -> dict[str, dict]:
+    """Compile every host library of ``names`` that has no up-to-date
+    build, one compiler process each, all started together; returns
+    ``{name: {"seconds": s, "log": compiler output}}`` and raises if any
+    fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = host_lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}.so")
+        cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[name] = (proc, tmp, out, time.monotonic())
+    report, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        report[name] = {"seconds": time.monotonic() - t0, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(f"{host_compiler()} failed for " + "\n".join(failed))
+    return report
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """Load (building if needed) the host library ``lib<name>``; raises if
+    it cannot be built or loaded."""
+    key = ("host", name)
+    with _host_lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            path = host_lib_path(name)
+            if not path.exists():
+                build_host([name])
+            lib = _loaded[key] = ctypes.CDLL(str(path))
+        return lib

@@ -22,7 +22,7 @@ kernels', and Gemma 2 against HF transformers on the same random weights.
   ``convert_hf_state``: the logits of every position of a prompt longer
   than the window within 1e-4.
 - What the port refuses for Gemma: quantization, toppings, the ``pallas``
-  backend, 8-bit KV at head_dim 256.
+  backend; 8-bit KV at head_dim 256, refused until it was ported, builds.
 """
 
 import jax.numpy as jnp
@@ -290,15 +290,25 @@ def test_gemma_refuses_what_is_not_ported():
 
 
 @pytest.mark.parametrize("kv_cache_dtype", ["int8", "fp8"])
-def test_8bit_kv_at_head_dim_256_is_refused(kv_cache_dtype):
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        ServerArgs(preset="gemma-2-2b", device="cpu", kv_cache_dtype=kv_cache_dtype).resolve()
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        KVCacheConfig(2, 8, 16, 4, 256, torch.bfloat16, quantized=True)
+def test_8bit_kv_at_head_dim_256_builds(kv_cache_dtype):
+    """The settings that were refused before 8-bit pages at head_dim 256
+    were ported now build: a pool of 2 Hkv 256 code bytes and 2 Hkv bf16
+    scales a token and layer. Another head_dim is still refused."""
+    args = ServerArgs(preset="gemma-2-2b", device="cpu", kv_cache_dtype=kv_cache_dtype).resolve()
+    assert args.kv_cache_dtype == kv_cache_dtype
+    code = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[kv_cache_dtype]
+    pool = KVCacheConfig(2, 8, 16, 4, 256, torch.bfloat16, quantized=True, quant_dtype=code)
+    assert pool.bytes_per_token() == 2 * (2 * 4 * 256 + 2 * 4 * 2)
+    with pytest.raises(NotImplementedError, match="head_dim 96"):
+        KVCacheConfig(2, 8, 16, 4, 96, torch.bfloat16, quantized=True)
     cfg = get_preset("tiny-gemma2", dtype="float32", head_dim=256)
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        ModelRunner(cfg, ServerArgs(device="cpu", dtype="float32", kv_cache_dtype=kv_cache_dtype,
-                                    max_total_tokens=256, random_weights=True))
+    runner = ModelRunner(cfg, ServerArgs(device="cpu", dtype="float32", kv_cache_dtype=kv_cache_dtype,
+                                         max_total_tokens=256, random_weights=True))
+    kv = runner.kv_cache
+    assert runner.kv_cache_dtype == kv_cache_dtype and kv.quantized
+    assert kv.k.dtype == code and kv.k.shape[3:] == (cfg.num_key_value_heads, 256)
+    assert kv.k_scale.dtype == torch.bfloat16 and kv.k_scale.shape == kv.k.shape[:-1]
+    assert runner.kv_bytes_per_token() == cfg.num_hidden_layers * 2 * cfg.num_key_value_heads * (256 + 2)
     # bf16 pages at head_dim 256 hold D lanes, no padding
     pool = KVCacheConfig(2, 8, 16, 4, 256, torch.bfloat16)
     assert pool.bytes_per_token() == 2 * 2 * 4 * 256 * 2

@@ -24,8 +24,8 @@ the same tolerance, over bf16, int8 and fp8 pages, the window's edge inside
 a page and inside a 64-token KV tile, the extend also at head_dim 32 and 64
 with one and eight query heads per kv head; a window at least as long as the
 context gives the kernel's no-window output bit for bit. Both attention
-kernels at head_dim 256 (Gemma, bf16 pages) with caps and windows, windows
-that change from call to call on one pool, and 8-bit pages there refused.
+kernels at head_dim 256 (Gemma) with caps and windows over bf16, int8 and
+fp8 pages, and windows that change from call to call on one pool.
 Both attention kernels with attention sinks (GPT-OSS's shape: Hkv 8, G 8,
 head_dim 64) over bf16, int8 and fp8 pages, with and without its window of
 128, a split launch (B 1, ctx 4096) bit-equal on a repeat, sinks far below
@@ -486,16 +486,48 @@ def test_head_dim_256_windows_are_per_call(gen):
     assert torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], outs[1])
 
 
-def test_8bit_pages_refuse_head_dim_256(gen):
-    k, v, pt = _pool([40], 2, 256, 16, gen)
-    kc, vc, ks, vs = _quantized(k, v, torch.int8)
-    seq = torch.tensor([40], dtype=torch.int32, device="cuda")
-    cu = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
-    q = torch.randn(1, 4, 256, device="cuda").to(torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        paged_decode_attention_quant(q, kc, vc, ks, vs, pt, seq, 0.1)
-    with pytest.raises(ValueError, match="head_dim"):
-        paged_extend_attention_quant(q, kc, vc, ks, vs, pt, seq, cu, 0.1)
+CODES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+@pytest.mark.parametrize("code", list(CODES))
+@pytest.mark.parametrize("G,Hkv", HEAD256_GROUPS)
+@pytest.mark.parametrize("lens", [[256, 0, 17, 200], [4096, 3000, 1], [8192]])
+@pytest.mark.parametrize("cap,window", HEAD256_CAPS_WINDOWS)
+def test_8bit_decode_kernel_at_head_dim_256(gen, code, G, Hkv, lens, cap, window):
+    """Row 1dq: 8-bit pages at head_dim 256 (Gemma on int8 or fp8 KV); a
+    split launch (one row of 8192) gives the same bits on a repeat."""
+    D = 256
+    k, v, pt = _pool(lens, Hkv, D, 16, gen)
+    kc, vc, ks, vs = _quantized(k, v, CODES[code])
+    q = _scaled_for_cap(torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16), cap)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = paged_decode_attention_quant(q, kc, vc, ks, vs, pt, seq, 1 / 16, cap, window)
+    _close(out, paged_decode_attention_plain(q.float(), kc, vc, pt, seq, 1 / 16, ks, vs, cap, window))
+    assert bool((out[seq == 0] == 0).all())
+    if len(lens) == 1:
+        assert torch.equal(out, paged_decode_attention_quant(q, kc, vc, ks, vs, pt, seq, 1 / 16, cap, window))
+
+
+@pytest.mark.parametrize("code", list(CODES))
+@pytest.mark.parametrize("G,Hkv", HEAD256_GROUPS[:2])
+@pytest.mark.parametrize("cap,window", HEAD256_CAPS_WINDOWS + [(None, 37)])
+def test_8bit_extend_kernel_at_head_dim_256(gen, code, G, Hkv, cap, window):
+    """Row 3dq: the extend kernel's own layout for 8-bit pages at head_dim
+    256 (codes converted from registers), on mixed chunks, a cached prefix
+    and padding tokens."""
+    D = 256
+    chunks = [(100, 100), (64, 600), (1, 33), (0, 0), (250, 250), (600, 5000)]
+    k, v, pt = _pool([c[1] for c in chunks], Hkv, D, 16, gen)
+    kc, vc, ks, vs = _quantized(k, v, CODES[code])
+    q_lens = torch.tensor([c[0] for c in chunks], device="cuda")
+    cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
+    cu[1:] = torch.cumsum(q_lens, 0).to(torch.int32)
+    kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
+    T = int(cu[-1]) + 37  # padding tokens
+    q = _scaled_for_cap(torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16), cap)
+    out = paged_extend_attention_quant(q, kc, vc, ks, vs, pt, kv_lens, cu, 1 / 16, cap, window)
+    _close(out, paged_extend_attention_plain(q.float(), kc, vc, pt, kv_lens, cu, 1 / 16, ks, vs, cap, window))
+    assert bool((out[int(cu[-1]) :] == 0).all())
 
 
 def test_pallas_decode_wrapper_matches_plain(gen):

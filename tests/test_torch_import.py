@@ -1,9 +1,10 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
 A subprocess imports every module of ``scratchpad_tpu_torch`` (the Qwen,
-Gemma, Mixtral, GPT-OSS, Llama-4 and Apertus models among them) and
-``chip_smoke``, and serves tiny CPU engines of Llama, Gemma 2, Qwen3,
-GPT-OSS, Qwen3-MoE, Llama-4 and Apertus, then lists what it loaded;
+Gemma, Mixtral, GPT-OSS, Llama-4 and Apertus models and the ``constrained``
+modules among them) and ``chip_smoke``, and serves tiny CPU engines of
+Llama, Gemma 2, Qwen3, GPT-OSS, Qwen3-MoE, Llama-4 and Apertus and a
+regex and a recursive EBNF grammar, then lists what it loaded;
 a source scan checks every import statement of the package. A second
 subprocess blocks ``jax``, the JAX package and the serving packages that the
 card's machine lacks (``aiohttp``, ``pydantic``, ``prometheus_client``,
@@ -27,6 +28,8 @@ names = [m.name for m in pkgutil.walk_packages(scratchpad_tpu_torch.__path__, "s
 assert {"scratchpad_tpu_torch.models.gemma", "scratchpad_tpu_torch.models.qwen",
         "scratchpad_tpu_torch.models.mixtral", "scratchpad_tpu_torch.models.gpt_oss",
         "scratchpad_tpu_torch.models.llama4", "scratchpad_tpu_torch.models.apertus"} <= set(names)
+assert {"scratchpad_tpu_torch.constrained." + m for m in (
+    "backend", "ebnf", "json_schema", "leftrec", "pda", "regex_fsm", "structural_tag")} <= set(names)
 for n in names:
     importlib.import_module(n)
 import chip_smoke
@@ -47,6 +50,14 @@ for cfg in (get_preset("tiny-debug"), get_preset("tiny-gemma2"),
     out = eng.generate(input_ids=[1, 2, 3, 4, 5],
                        sampling_params=SamplingParams(temperature=0.0, max_new_tokens=4))
     assert len(out.output_ids) == 4
+# constrained decoding: a regex and a recursive EBNF grammar (pushdown)
+eng = Engine(ServerArgs(preset="tiny-debug", random_weights=True, dtype="float32", device="cpu",
+                        page_size=4, max_total_tokens=512, tokenizer_path="chars"))
+outs = eng.generate(input_ids=[[1, 2, 3]] * 2, sampling_params=[
+    SamplingParams(temperature=0.0, max_new_tokens=8, regex="(yes|no)!"),
+    SamplingParams(temperature=0.0, max_new_tokens=8, ebnf='root ::= "(" root ")" | "x"',
+                   logit_bias={ord("x") + 1: 100.0})])
+assert outs[0].text in ("yes!", "no!") and outs[1].text == "x", [o.text for o in outs]
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "scratchpad_tpu"))))
 """

@@ -10,7 +10,8 @@ the port's engine, with the JAX weights handed over through
   ``tests/test_server_chat.py``: completions (greedy ids and logprobs,
   ``n``, parallel requests, streaming, echo, ``logit_bias``), chat with the
   fallback template, embeddings, files and batches, bad bodies, the
-  refusals, ``/metrics`` and ``/system_info``.
+  refusals, a ``regex`` and a ``response_format`` grammar, ``/metrics`` and
+  ``/system_info``.
 - Pair B, scripted weights: every layer's output projections are zero, so
   the last token alone picks the next, and the head walks a chain from the
   fallback template's last token through ids that decode to ``SCRIPT``, a
@@ -524,16 +525,47 @@ def test_routes_and_methods(servers):
         ("/memory_pool", {"max_total_tokens": 4096}, 501),
         ("/v1/chat/completions", {"model": "m", "messages": [{"role": "user", "content": [
             {"type": "image_url", "image_url": {"url": "data:,"}}]}]}, 400),
-        ("/v1/chat/completions", {"model": "m", "messages": [{"role": "user", "content": "x"}],
-                                  "response_format": {"type": "json_object"}}, 400),
         ("/v1/completions", {"model": "m", "prompt": [1], "custom_logit_processor": "x"}, 400),
-        ("/v1/completions", {"model": "m", "prompt": [1], "regex": "a+"}, 400),
     ],
-    ids=["update_weights", "memory_pool", "image", "response_format", "logit_processor", "regex"],
+    ids=["update_weights", "memory_pool", "image", "logit_processor"],
 )
 def test_unported_features_are_refused_over_http(servers, path, body, status):
     s, p = request(servers["a"][1], path, body)
     assert s == status and "not ported" in (p.get("message") or ""), p
+
+
+# a schema whose longest word fits max_tokens: four places of up to 8
+# blanks beside 12 other characters
+GRAMMAR_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}}, "required": ["ok"]}
+
+
+@pytest.mark.parametrize(
+    "path,body",
+    [
+        ("/v1/chat/completions", {"model": "m", "messages": [{"role": "user", "content": "x"}],
+                                  "max_tokens": 48, "temperature": 0.0, "response_format": {
+                                      "type": "json_schema",
+                                      "json_schema": {"name": "s", "schema": GRAMMAR_SCHEMA}}}),
+        ("/v1/completions", {"model": "m", "prompt": [1], "max_tokens": 8, "temperature": 0.0,
+                             "regex": "(yes|no)!"}),
+    ],
+    ids=["response_format", "regex"],
+)
+def test_grammars_are_served_over_http(servers, path, body):
+    """A ``response_format`` and a ``regex`` answer 200 on both sides, with
+    the same text, which matches the grammar."""
+    import re
+
+    (sj, j), (sp, p) = both(servers, path, body)
+    assert sj == sp == 200, (j, p)
+    if "messages" in body:
+        texts = [r["choices"][0]["message"]["content"] for r in (j, p)]
+        v = json.loads(texts[1])
+        assert isinstance(v, dict) and set(v) == {"ok"} and isinstance(v["ok"], bool), texts[1]
+    else:
+        texts = [r["choices"][0]["text"] for r in (j, p)]
+        assert re.fullmatch(r"(yes|no)!", texts[1]), texts[1]
+    assert texts[0] == texts[1]
 
 
 def test_profile_writes_a_trace_analyze_trace_reads(servers, tmp_path):
