@@ -140,9 +140,16 @@ Phases, in order; any failure exits non-zero before the last line:
    global NoPE layer, 16 experts top 1 and a shared expert, G 5) with
    ``LLAMA4_REQUESTS``, not timed, where dropping the chunk must move the
    logits of each row past the chunk's edge by at least ``CHUNK_MOVE`` times
-   the kernel-vs-plain reading; Apertus-8B (``APERTUS_8B``, its
-   config.json: weighted qk-norm, the xIELU MLP) at full width and depth in
-   bf16, timed. The engines that are checked only and whose kernels other
+   the kernel-vs-plain reading; DeepSeek-V2-Lite (``DEEPSEEK_V2_LITE``, its
+   config.json: multi-head latent attention over a latent pool of 31,104
+   bytes a token, YaRN, one dense layer, then 64 routed experts top 6 beside
+   2 shared ones) at full width and depth in bf16, not timed: it must
+   launch neither attention kernel, and its plain path is HF's expanded
+   form (``ExpandedMla``), which without its rope term must move the logits
+   by at least ``ROPE_MOVE`` times the reading; Apertus-8B (``APERTUS_8B``,
+   its config.json: weighted qk-norm, the xIELU MLP) at ``APERTUS_LAYERS``
+   of its 32 layers in bf16, not timed (Qwen3-8B's run times its attention
+   shapes). The engines that are checked only and whose kernels other
    engines hold serve shorter request sets (``UNTIMED_REQUESTS``,
    ``TOPPINGS_REQUESTS``, ``GPT_OSS_W4_REQUESTS``, ``GEMMA3_REQUESTS``;
    ``mistral-7b-pallas`` the two prompts past its window);
@@ -203,7 +210,12 @@ Phases, in order; any failure exits non-zero before the last line:
    requests, the wall and the server's own TTFT and ITL p50 and p99.
    Then the bench batch with overlap on and off in turns (``phase_overlap``,
    an ``[overlap 1b-bf16]`` line: decode tokens/s, device ms a step, busy
-   share), whose greedy tokens must be equal both ways. Constrained
+   share), whose greedy tokens must be equal both ways. Then custom logit
+   processors on the same engine (``phase_custom``, a ``[custom]`` line):
+   one greedy batch whose rows ban their own free ids, take a per-row
+   ``custom_params`` boost, or take no processor; no banned id appears, the
+   rows boosted by 0 and those without a processor give their free ids, and
+   no pipelined window carries a processor row. Constrained
    decoding follows the 1B toppings engine, on a Llama-3.2-1B bf16 engine
    built with ``tokenizer_path="chars"`` (``phase_grammar``, ``[grammar]``
    lines): regex, JSON-schema, EBNF (DFA and pushdown) and structural-tag
@@ -263,7 +275,8 @@ Phases, in order; any failure exits non-zero before the last line:
    the ``mma.sync`` one, then at a group of 24, which must launch
    ``w4a8_matmul_mma``, counted the same way.
 6. one JSON line with every kernel's numbers, one with the engines', one
-   with the serving and grammar phases', the ``nvidia-smi`` line, and as the last line
+   with the serving, grammar and custom-processor phases', the
+   ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -319,6 +332,7 @@ LOGIT_RTOL = {
     "qwen3-8b": 3e-2, "qwen3-8b-w4a8": 1e-1, "gemma-2-2b": 3e-2, "gemma-3-1b": 3e-2,
     "gpt-oss-20b": 5e-2, "gpt-oss-w4a8": 1e-1, "gpt-oss-w4a16": 1e-1, "qwen3-30b-a3b": 3e-2,
     "llama4-scout": 3e-2, "apertus-8b": 3e-2, "gemma-2-2b-int8kv": 1e-1, "gemma-2-2b-fp8kv": 1e-1,
+    "deepseek-v2-lite": 3e-2,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -339,6 +353,7 @@ ARGMAX_FLOOR = {
     "qwen3-8b": 0.0, "qwen3-8b-w4a8": 3e-2, "gemma-2-2b": 0.0, "gemma-3-1b": 0.0,
     "gpt-oss-20b": 2e-2, "gpt-oss-w4a8": 3e-2, "gpt-oss-w4a16": 3e-2, "qwen3-30b-a3b": 0.0,
     "llama4-scout": 0.0, "apertus-8b": 0.0, "gemma-2-2b-int8kv": 2e-2, "gemma-2-2b-fp8kv": 2e-2,
+    "deepseek-v2-lite": 0.0,
 }
 # Each adapter must move its rows' logits (max|adapted - base| / max|base|)
 # by at least this many times the engine's kernel-vs-plain reading, so that
@@ -359,6 +374,11 @@ SINK_MOVE = 10.0
 # without the chunk (every layer global), so that a chunk that masks
 # nothing fails.
 CHUNK_MOVE = 10.0
+# The same for DeepSeek's latent attention, whose "plain path" is HF's
+# expanded form (``ExpandedMla``): that form without the q_rope . k_rope term
+# of its scores must move the logits by this many times the reading, so
+# that a yardstick blind to the rope half of the latent fails.
+ROPE_MOVE = 10.0
 # the toppings engines' requests, in the order of phase_engine's prompts
 # and its second request: the last two share a 600-token prefix under
 # different adapters
@@ -3017,42 +3037,51 @@ class SameRouting:
 
 class LayerTrace:
     """Within the block, keeps each layer's attention output (the input of
-    its ``wo``) and MoE input (the input of its ``router``) of every forward,
-    on the host, in call order."""
+    its ``wo``) and MoE input (the input of its ``_moe``, on the layers that
+    have experts) of every forward, on the host, in call order, with its
+    layer."""
 
     def __init__(self, model):
         self.model = model
         self.attn, self.moe = [], []
 
     def __enter__(self):
-        keep = lambda into: lambda module, inputs, output: into.append(inputs[0].detach().cpu())
-        self.hooks = [
-            h for layer in self.model.layers
-            for h in (layer.wo.register_forward_hook(keep(self.attn)),
-                      layer.router.register_forward_hook(keep(self.moe)))
-        ]
+        keep = lambda into, l: lambda module, inputs, output: into.append((l, inputs[0].detach().cpu()))
+        self.hooks = [layer.wo.register_forward_hook(keep(self.attn, l))
+                      for l, layer in enumerate(self.model.layers)]
+        index = {id(layer): l for l, layer in enumerate(self.model.layers)}
+        inner = self.model._moe
+
+        def moe(h, layer):
+            self.moe.append((index[id(layer)], h.detach().cpu()))
+            return inner(h, layer)
+
+        self.model._moe = moe
         return self
 
     def __exit__(self, *exc):
         for h in self.hooks:
             h.remove()
+        del self.model._moe  # the class's method again
 
     def gaps(self, ref: "LayerTrace", layers: int) -> tuple[list, list]:
         """Per layer, the worst max|self - ref| / max|ref| over the traced
-        forwards: of the attention outputs, and of the MoE inputs."""
+        forwards: of the attention outputs, and of the MoE inputs (0 for a
+        layer without experts)."""
         out = []
         for xs, ys in ((self.attn, ref.attn), (self.moe, ref.moe)):
             g = [0.0] * layers
-            for i, (x, y) in enumerate(zip(xs, ys, strict=True)):
+            for (l, x), (m, y) in zip(xs, ys, strict=True):
+                assert l == m, (l, m)
                 y = y.float()
-                g[i % layers] = max(g[i % layers], float((x.float() - y).abs().max() / y.abs().max()))
+                g[l] = max(g[l], float((x.float() - y).abs().max() / y.abs().max()))
             out.append(g)
         return out
 
 
 class UlpNoise:
-    """Within the block (inside ``PlainPath``), each attention call's bf16
-    output moves by one ulp, up or down at random, at a random ``share`` of
+    """Within the block (inside ``PlainPath`` or ``ExpandedMla``), each
+    attention call's bf16 output moves by one ulp, up or down at random, at a random ``share`` of
     its nonzero elements: a second plain path, as far from the first as a
     kernel whose outputs differ from the plain ones by one ulp at that share
     (the witness's control)."""
@@ -3075,11 +3104,20 @@ class UlpNoise:
         return call
 
     def __enter__(self):
+        if self.model.cfg.is_mla:  # DeepSeek: its latent attention's output
+            self.saved = self.model.__dict__.get("latent_attention")
+            self.model.latent_attention = self.noisy(self.model.latent_attention)
+            return
         self.saved = (self.model.decode_attention, self.model.extend_attention)
         self.model.decode_attention, self.model.extend_attention = (self.noisy(f) for f in self.saved)
 
     def __exit__(self, *exc):
-        self.model.decode_attention, self.model.extend_attention = self.saved
+        if not self.model.cfg.is_mla:
+            self.model.decode_attention, self.model.extend_attention = self.saved
+        elif self.saved is None:
+            del self.model.latent_attention
+        else:
+            self.model.latent_attention = self.saved
 
 
 def fmt_layers(g: list) -> str:
@@ -3114,6 +3152,65 @@ class NoSinks:
 
     def __exit__(self, *exc):
         del self.model.attention_kwargs  # the class's method again
+
+
+class ExpandedMla:
+    """Within the block, the DeepSeek model attends in HF's expanded form
+    (``modeling_deepseek_v2.py``'s attention) instead of its absorbed
+    latent path: from each sequence's latent rows ``[c | k_rope]`` every
+    head's K = ``[W_UK c; k_rope]`` and V = ``W_UV c``, in f32, and the
+    softmax of ``q_nope . k_nope + q_rope . k_rope`` over the causal prefix;
+    the output [T, Hq, dv] in the model dtype. With ``rope=False`` the
+    scores leave out ``q_rope . k_rope`` (``ROPE_MOVE``'s yardstick). The
+    model's own ``latent_attention`` is restored on exit."""
+
+    QUERY_BLOCK = 1024
+
+    def __init__(self, model, rope: bool = True):
+        self.model, self.rope = model, rope
+
+    def __enter__(self):
+        self.saved = self.model.__dict__.get("latent_attention")
+        self.model.latent_attention = self.attend
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            del self.model.latent_attention  # the class's method again
+        else:
+            self.model.latent_attention = self.saved
+
+    def attend(self, l, layer, q_nope, q_rope, kv, meta, spans):
+        import torch
+
+        from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+        from scratchpad_tpu_torch.ops.attention.mla_backend import extend_spans, latent_rows
+
+        cfg = self.model.cfg
+        r, dv, scale = cfg.kv_lora_rank, cfg.v_head_dim, self.model.sm_scale
+        if meta.mode == ForwardMode.DECODE:
+            spans = [(b, b + 1, n) for b, n in enumerate(meta.seq_lens.tolist())]
+        elif spans is None:
+            spans = extend_spans(meta)
+        T, Hq, _ = q_nope.shape
+        out = q_nope.new_zeros(T, Hq, dv)
+        w_uk, w_uv = layer.w_uk.float(), layer.w_uv.float()
+        for s, (a, b, n) in enumerate(spans):
+            if a == b or n == 0:
+                continue
+            lat = latent_rows(kv, l, meta.page_table[s], n).float()
+            c, k_rope = lat[:, :r], lat[:, r:]
+            k_nope = torch.einsum("sr,hnr->hsn", c, w_uk)  # [Hq, S, dn]
+            v = torch.einsum("sr,hrv->hsv", c, w_uv)  # [Hq, S, dv]
+            pos = torch.arange(n, device=lat.device)
+            for t0 in range(a, b, self.QUERY_BLOCK):
+                t1 = min(t0 + self.QUERY_BLOCK, b)
+                scores = torch.einsum("thn,hsn->hts", q_nope[t0:t1].float(), k_nope)
+                if self.rope:
+                    scores = scores + torch.einsum("thd,sd->hts", q_rope[t0:t1].float(), k_rope)
+                live = pos[None, :] <= meta.positions[t0:t1, None]
+                p = torch.softmax(scores.masked_fill(~live[None], float("-inf")) * scale, dim=-1)
+                out[t0:t1] = torch.einsum("hts,hsv->thv", p, v).to(out.dtype)
+        return out
 
 
 # (prompt tokens, new tokens) of the request set, before the two prompts
@@ -3281,6 +3378,51 @@ APERTUS_8B = {
     "mlp_bias": False,
     "model_type": "apertus",
 }
+# Apertus-8B is served at APERTUS_LAYERS of its 32 layers, untimed: its
+# attention shapes (G 4 at head_dim 128) are timed in Qwen3-8B's run, its
+# xIELU MLP is torch, held by its logits (PERF.md keeps its last timing)
+APERTUS_LAYERS = 8
+# DeepSeek-V2-Lite's published config.json (huggingface.co/deepseek-ai/
+# DeepSeek-V2-Lite, config.json), read through ModelConfig.from_hf_config at
+# full width and depth (15.7B parameters, 31.4 GB in bf16); the weights are
+# random, drawn on the card. Its latent pool holds 27 x (512 + 64) x 2 =
+# 31,104 bytes a token.
+DEEPSEEK_V2_LITE = {
+    "architectures": ["DeepseekV2ForCausalLM"],
+    "vocab_size": 102400,
+    "hidden_size": 2048,
+    "intermediate_size": 10944,
+    "moe_intermediate_size": 1408,
+    "num_hidden_layers": 27,
+    "num_attention_heads": 16,
+    "num_key_value_heads": 16,
+    "q_lora_rank": None,
+    "kv_lora_rank": 512,
+    "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64,
+    "v_head_dim": 128,
+    "n_routed_experts": 64,
+    "num_experts_per_tok": 6,
+    "n_shared_experts": 2,
+    "first_k_dense_replace": 1,
+    "moe_layer_freq": 1,
+    "topk_method": "greedy",
+    "n_group": 1,
+    "topk_group": 1,
+    "norm_topk_prob": False,
+    "routed_scaling_factor": 1.0,
+    "scoring_func": "softmax",
+    "hidden_act": "silu",
+    "max_position_embeddings": 163840,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 10000,
+    "rope_scaling": {"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096,
+                     "beta_fast": 32, "beta_slow": 1, "mscale": 0.707, "mscale_all_dim": 0.707},
+    "tie_word_embeddings": False,
+    "attention_bias": False,
+    "model_type": "deepseek_v2",
+}
+DEEPSEEK_KV_BYTES = 31_104
 # the engines that repeat other engines' kernels, cut in depth: Mistral-7B
 # under attention_backend="pallas" and Llama-3.2-3B W4A8 with bf16 KV
 MISTRAL_PALLAS_LAYERS = 8
@@ -3318,7 +3460,10 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     ``toppings``: each request's adapter (see ``TOPPINGS``); the delta
     kernel must then launch once per projection and layer of every forward
     whose batch names an adapter, and never without ``toppings``, and the
-    logits are those of ``check_toppings_logits``."""
+    logits are those of ``check_toppings_logits``. A model on a latent pool
+    (DeepSeek's MLA) must launch no attention kernel at all, and its plain
+    path is HF's expanded form (``ExpandedMla``), against which the logits
+    without the rope term must move by ``ROPE_MOVE`` times the reading."""
     import numpy as np
     import torch
 
@@ -3387,7 +3532,9 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
         f"{outs[-1].cached_tokens} cached tokens; prompts of {lens} tokens (chunks of {chunk})"
     )
     pages = runner.kv_cache_dtype if runner.kv_cache.quantized else "bf16"
-    need = {EXTEND[pages]: L * n_ext, DECODE[pages]: L * n_dec}
+    # a latent pool (DeepSeek's MLA) attends in torch: no attention kernel
+    mla = runner.kv_cache.mla
+    need = {} if mla else {EXTEND[pages]: L * n_ext, DECODE[pages]: L * n_dec}
     # one W4 launch per 4-bit matrix and forward (Llama: 6 a layer and the
     # head; GPT-OSS: q, k, v, o and each expert's two), each at its matrix's
     # group size (GPT-OSS: 120 where In is 2880, 128 at o)
@@ -3408,8 +3555,10 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
         f"{n_top} ({topped[0]} forwards with adapters)",
     )
     other = "bf16" if runner.kv_cache.quantized else "int8"
-    for k in (EXTEND[other], DECODE[other]):
-        check(counts[k] == 0, f"{label}: {k} launched {counts[k]} times on a {pages} pool")
+    idle = [EXTEND[other], DECODE[other]] + ([EXTEND[pages], DECODE[pages]] if mla else [])
+    for k in idle:
+        check(counts[k] == 0, f"{label}: {k} launched {counts[k]} times on a "
+                              f"{'latent' if mla else pages} pool")
     # every served model quantizes with groups of 128 (GPT-OSS also 120):
     # never the mma.sync route
     check(counts["w4a8_matmul_mma"] == 0, f"{label}: w4a8_matmul_mma launched {counts['w4a8_matmul_mma']} times")
@@ -3453,6 +3602,9 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     chunk_moves = []  # the same without the chunks, of the rows past the first chunk
     moe = hasattr(model, "top_experts")
     own_routing = 0.0  # MoE: the worst reading with each path's own routing
+    # MLA: the plain path is HF's expanded form; the same without the rope term
+    plain_path = ExpandedMla if mla else PlainPath
+    rope_moves = []
     flips = picked = 0
     # witness: per layer, kernel against plain and control against plain
     # (attention outputs, MoE inputs); the control's logits readings
@@ -3465,13 +3617,13 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
         same = routing.replay if moe else contextlib.nullcontext
         with routing.record() if moe else contextlib.nullcontext(), trace(model) as k_trace:
             kern = batch_logits(runner, [p], [o.output_ids[0]])
-        with PlainPath(model):
+        with plain_path(model):
             with same(), trace(model) as p_trace:
                 plain = batch_logits(runner, [p], [o.output_ids[0]])
             if moe:
                 flips, picked = flips + routing.flips, picked + routing.picked
             if witness:
-                share = float((k_trace.attn[0] != p_trace.attn[0]).float().mean())
+                share = float((k_trace.attn[0][1] != p_trace.attn[0][1]).float().mean())
                 with UlpNoise(model, share, seed=i), same(), trace(model) as c_trace:
                     control = batch_logits(runner, [p], [o.output_ids[0]])
                 w_shares.append(share)
@@ -3502,6 +3654,12 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
                     if len(p) - 1 + step >= chunk:  # the row's query sits past the first edge
                         a, b = kern[step][0], unchunked[step][0]
                         chunk_moves.append((len(p), step, float((a - b).abs().max()) / float(b.abs().max())))
+            if mla:
+                with ExpandedMla(model, rope=False), same():
+                    unroped = batch_logits(runner, [p], [o.output_ids[0]])
+                for step in (0, 1):
+                    a, b = kern[step][0], unroped[step][0]
+                    rope_moves.append((len(p), step, float((a - b).abs().max()) / float(b.abs().max())))
             if has_sinks:
                 with NoSinks(model), same():
                     unsunk = batch_logits(runner, [p], [o.output_ids[0]])
@@ -3602,6 +3760,21 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
                 m >= CHUNK_MOVE * reading,
                 f"{label}: the chunk moves the {n}-token prompt's logits (step {st}) by only "
                 f"{m:.3e}, under {CHUNK_MOVE} x the kernel-vs-plain reading {reading:.3e}",
+            )
+    if mla:
+        reading = max(worst.values())
+        log(
+            f"[engine {label}] latent attention: kernel path against HF's expanded form without "
+            f"the q_rope . k_rope term, prompt and step: "
+            + ", ".join(f"{n} tokens step {st} {m:.3e}" for n, st, m in rope_moves)
+            + f" (at least {ROPE_MOVE} x {reading:.3e})"
+        )
+        result["rope_move_min"] = min(m for _, _, m in rope_moves)
+        for n, st, m in rope_moves:
+            check(
+                m >= ROPE_MOVE * reading,
+                f"{label}: dropping the rope term moves the {n}-token prompt's logits (step {st}) "
+                f"by only {m:.3e}, under {ROPE_MOVE} x the absorbed-vs-expanded reading {reading:.3e}",
             )
     if has_sinks:
         reading = max(worst.values())
@@ -3855,6 +4028,127 @@ def phase_overlap(engine, label: str = "1b-bf16") -> dict:
         off=dict(decode_tok_s=rates[False], device_ms_per_step=prof[False][0],
                  busy_share=prof[False][1]),
     )
+
+
+class BoostByParam:
+    """A custom logit processor (the torch contract of
+    ``sampling/custom_logit_processor.py``): adds each row's
+    ``custom_params["boost"]`` to one token's logit, in place, as the
+    contract allows."""
+
+    def __init__(self, token_id: int):
+        self.token_id = token_id
+
+    def __call__(self, logits, params):
+        logits[:, self.token_id] += params["boost"]
+        return logits
+
+
+# the custom-processor phase's prompts and new tokens: rows 0 and 1 ban their
+# own free ids, rows 2 and 3 take a boost of BOOST and of 0, rows 4 and 5
+# none; the last two outlive the others, so their windows pipeline after
+CUSTOM_REQUESTS = [(5, 16), (300, 16), (37, 16), (128, 16), (511, 48), (40, 48)]
+BOOST = 1e4
+
+
+def phase_custom(engine, label: str = "1b-bf16") -> dict:
+    """Custom logit processors through ``Engine.generate``, overlap on: one
+    greedy batch whose rows 0 to 3 take a ``BoostByParam`` of 0 (their free
+    ids, in the windows the second run takes), then the same batch (cache
+    flushed between) with a ``BannedTokensProcessor`` of each of rows 0 and
+    1's own free ids, a ``BoostByParam`` shared by rows 2 and 3 (its per-row
+    ``custom_params`` boost ``BOOST`` and 0) and none on rows 4 and 5.
+    Every request finishes; no banned id appears; row 2 gives the boosted
+    token only, rows 3 to 5 their free ids; windows were pipelined, and none
+    of them carries a processor row. Then ``sample`` on the card's logits: a
+    processor that bans one token in place on every row it is handed, on
+    row 0 of three, leaves row 1's id and log-softmax equal to its run alone
+    and the caller's logits unchanged (a per-row boost of 0 cannot show a
+    write that leaks). One ``[custom]`` line."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
+    from scratchpad_tpu_torch.sampling.custom_logit_processor import BannedTokensProcessor
+    from scratchpad_tpu_torch.sampling.sampler import sample
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner = engine.scheduler.runner
+    V = runner.model_config.vocab_size
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, V, n).tolist() for n, _ in CUSTOM_REQUESTS]
+    new = [m for _, m in CUSTOM_REQUESTS]
+    boost_id = V // 3
+    check(engine.scheduler.overlap_enabled(), f"{label}: overlap is off for the custom-processor phase")
+
+    def run(procs):
+        engine.flush_cache()
+        return engine.generate(input_ids=prompts, sampling_params=[
+            SamplingParams(temperature=0.0, max_new_tokens=m, ignore_eos=True, **kw)
+            for m, kw in zip(new, procs)])
+
+    t0 = time.monotonic()
+    boost = BoostByParam(boost_id)
+    # the free run keeps rows 0 to 3 on a processor that adds 0, so that both
+    # runs take the same windows (a window's page-table width sets the decode
+    # kernel's split, and so the last bits of every row's logits)
+    free = run([dict(custom_logit_processor=boost, custom_params={"boost": 0.0})] * 4 + [{}, {}])
+    procs = [dict(custom_logit_processor=BannedTokensProcessor(free[i].output_ids)) for i in (0, 1)]
+    procs += [dict(custom_logit_processor=boost, custom_params={"boost": b}) for b in (BOOST, 0.0)]
+    procs += [{}, {}]
+    windows = []  # each pipelined window's processors (None: none)
+    inner = runner.dispatch_decode_window
+
+    def dispatch(wb, *a, **k):
+        windows.append(wb.sampling_info.custom_processors)
+        return inner(wb, *a, **k)
+
+    runner.dispatch_decode_window = dispatch
+    try:
+        outs = run(procs)
+    finally:
+        runner.dispatch_decode_window = inner
+    for o, m in zip(free + outs, new + new):
+        check(o.completion_tokens == m and o.finish_reason == "length",
+              f"{label} custom: request {o.rid}: {o.completion_tokens} tokens, finish {o.finish_reason}")
+    ids = [o.output_ids for o in outs]
+    banned = [len(set(ids[i]) & set(free[i].output_ids)) for i in (0, 1)]
+    check(banned == [0, 0], f"{label} custom: banned ids appear: {banned}")
+    check(ids[2] == [boost_id] * new[2], f"{label} custom: the boosted row gave {ids[2][:8]}")
+    same = [ids[i] == free[i].output_ids for i in (3, 4, 5)]
+    check(all(same), f"{label} custom: rows 3 to 5 differ from their free ids: {same}")
+    carried = sum(w is not None for w in windows)
+    check(windows and carried == 0,
+          f"{label} custom: {len(windows)} pipelined windows, {carried} of them with processors")
+
+    logits = torch.randn(3, V, generator=torch.Generator().manual_seed(7)).mul_(3).to(runner.device)
+    before = logits.clone()
+    free_id = int(logits[1].argmax())
+
+    def ban_in_place(x, params):
+        x[:, free_id] = -1e30
+        return x
+
+    reqs = [types.SimpleNamespace(sampling_params=SamplingParams(temperature=0.0, **kw), output_ids=[],
+                                  origin_input_ids=[1])
+            for kw in (dict(custom_logit_processor=ban_in_place), {})]
+    pair, pair_lp = sample(logits, SamplingBatchInfo.from_reqs(reqs, 3, V).to(runner.device), None)
+    solo, solo_lp = sample(logits[1:2].clone(), SamplingBatchInfo.from_reqs(reqs[1:], 1, V).to(runner.device), None)
+    isolated = (pair.tolist()[1] == solo.tolist()[0] == free_id and pair.tolist()[0] != free_id
+                and torch.equal(pair_lp[1], solo_lp[0]) and torch.equal(logits, before))
+    check(isolated, f"{label} custom: an in-place processor reached another row: ids {pair.tolist()}, "
+                    f"alone {solo.tolist()}, free id {free_id}")
+    log(
+        f"[custom] {label}: {len(prompts)} requests of {[len(p) for p in prompts]} tokens, overlap on: "
+        f"banned ids in rows 0, 1: {banned}; boost {BOOST:g} row {ids[2][:4]}... (token {boost_id}); "
+        f"rows 3 to 5 equal to their free ids: {same}; {len(windows)} pipelined windows, {carried} with "
+        f"a processor row; an in-place processor kept to its row: {isolated}; "
+        f"{time.monotonic() - t0:.1f} s"
+    )
+    return dict(banned=banned, rows_equal=same, pipelined_windows=len(windows),
+                windows_with_processors=carried, in_place_isolated=isolated)
 
 
 class IdTokenizer:
@@ -4454,6 +4748,9 @@ def main() -> None:
     served = timed(phase_serve, engine)
     if not FAILURES:
         engines["bf16"]["overlap"] = timed(phase_overlap, engine)
+    # custom logit processors on the same engine: banned ids, a per-row
+    # boost and free rows in one batch, none of them in a pipelined window
+    custom = timed(phase_custom, engine)
     # toppings on the same engine and weights, served and checked but not
     # timed: at its 90 to 130 ms of host a step its timed runs took a fifth
     # to a quarter of the script's wall (PERF.md §5 keeps its last rates)
@@ -4597,11 +4894,29 @@ def main() -> None:
     check(chunks == [8192, 8192, 8192, None], f"llama4-scout's layer chunks are {chunks}")
     serve(engine, "llama4-scout", timed=False, requests=LLAMA4_REQUESTS)
     del engine
-    # Apertus-8B (its config.json) at full width and depth, bf16: weighted
-    # qk-norm, the gateless xIELU MLP, G 4 at head_dim 128 through both
-    # attention kernels
-    engine = make_engine(model_config=ModelConfig.from_hf_config(APERTUS_8B))
-    serve(engine, "apertus-8b")
+    # DeepSeek-V2-Lite (its config.json) at full width and depth, bf16:
+    # multi-head latent attention in torch over the latent pool (one
+    # [c_kv | k_rope] row of 576 a token and layer; no attention kernel),
+    # YaRN on the rope dims, one dense layer, then 64 routed experts (top 6,
+    # softmax greedy) masked and dense beside 2 shared ones; its logits held
+    # against HF's expanded form at the kernel path's routing
+    engine = make_engine(model_config=ModelConfig.from_hf_config(DEEPSEEK_V2_LITE))
+    runner = engine.scheduler.runner
+    log(
+        f"[engine deepseek-v2-lite] latent pool: {runner.max_total_num_tokens} KV tokens of "
+        f"{runner.kv_bytes_per_token()} B (layers x (kv_lora_rank + qk_rope_head_dim) x 2)"
+    )
+    check(runner.kv_cache.mla and runner.kv_bytes_per_token() == DEEPSEEK_KV_BYTES,
+          f"deepseek-v2-lite: {runner.kv_bytes_per_token()} KV bytes a token, not {DEEPSEEK_KV_BYTES}")
+    del runner
+    serve(engine, "deepseek-v2-lite", timed=False, requests=UNTIMED_REQUESTS, witness=True)
+    del engine
+    # Apertus-8B (its config.json) at APERTUS_LAYERS of its 32 layers, bf16,
+    # untimed: weighted qk-norm, the gateless xIELU MLP, G 4 at head_dim 128
+    # through both attention kernels
+    engine = make_engine(model_config=ModelConfig.from_hf_config(
+        dict(APERTUS_8B, num_hidden_layers=APERTUS_LAYERS)))
+    serve(engine, "apertus-8b", timed=False, requests=UNTIMED_REQUESTS)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -4674,7 +4989,8 @@ def main() -> None:
             }
         )
     )
-    log(json.dumps({"serve": {k: v for k, v in served.items() if k != "launches"}, "grammar": grammar}))
+    log(json.dumps({"serve": {k: v for k, v in served.items() if k != "launches"}, "grammar": grammar,
+                    "custom": custom}))
     log(smi_line)
     log(
         json.dumps(

@@ -126,8 +126,9 @@ class ServerArgs:
     reasoning_parser: Optional[str] = None
     # emit reasoning deltas as they come; False holds each think block
     stream_reasoning: bool = True
-    # per-request logit processors are not ported (Queue 1, item 6): the
-    # server refuses them, with or without this flag
+    # decode per-request custom logit processors sent over HTTP (a pickled
+    # payload: unpickling runs arbitrary code); without it the server
+    # answers 400 to a request that names one
     enable_custom_logit_processor: bool = False
 
     # constrained decoding (regex, json_schema, ebnf, structural_tag): the

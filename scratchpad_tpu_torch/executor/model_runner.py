@@ -16,9 +16,16 @@ batch runs at its real size, since nothing is compiled for its shape.
 
 Attention runs through the kernel wrappers that ``attention_backend``
 names (``auto`` or ``pallas``), which launch the hand-written CUDA kernels
-for CUDA tensors and take their plain PyTorch versions for CPU tensors. ``attach_toppings`` hands a ``ToppingsManager``'s device pools to
-the model; a batch that names adapters then carries its slot table in the
-same upload buffer as the rest of its integers.
+for CUDA tensors and take their plain PyTorch versions for CPU tensors. A
+model with multi-head latent attention (DeepSeek, ``cfg.is_mla``) gets a
+latent pool instead (one ``[c_kv | k_rope]`` row a token and layer, in the
+model dtype; 8-bit refused) and attends through
+``ops/attention/mla_backend.py`` alone. ``attach_toppings`` hands a
+``ToppingsManager``'s device pools to the model; a batch that names
+adapters then carries its slot table in the same upload buffer as the rest
+of its integers. A batch with a custom logit processor carries the
+processors, their row masks (padded to the batch bucket) and their params
+to the sampler, and never runs as a pipelined window.
 """
 
 from __future__ import annotations
@@ -190,6 +197,11 @@ class ModelRunner:
 
         model_cls = get_model_class(cfg.architecture)
         self.kv_cache_dtype = resolve_kv_cache_dtype(self.args, cfg, self.device)
+        if cfg.is_mla and self.kv_cache_dtype in QUANT_KV_DTYPES:
+            raise NotImplementedError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r} for {cfg.architecture}: an 8-bit latent "
+                "(MLA) pool is not supported, as in the JAX package; use 'auto' (the model dtype)"
+            )
         quant = None if self.args.quantization is None else _QUANT_ROUTE[self.args.quantization]
         # the JAX runner's quantize_lm_head auto rule: a 4-bit head whenever
         # the decoder weights are 4-bit (a bf16 head is a third of a W4
@@ -260,10 +272,15 @@ class ModelRunner:
         runner sends it to its XLA backend, which the port keeps off the
         card."""
         backend = self.args.attention_backend
+        mla = model.cfg.is_mla
         if backend == "pallas" and not getattr(model, "supports_pallas_attention", False):
             raise NotImplementedError(
                 f"{type(model).__name__} does not support attention_backend='pallas'"
+                + (" (multi-head latent attention runs over its latent pool only)" if mla else "")
             )
+        if mla:  # never the decode and extend kernels
+            logger.info("attention backend %s: multi-head latent attention (mla_backend)", backend)
+            return backend
         model.decode_attention, model.extend_attention = attention_functions(backend)
         logger.info(
             "attention backend %s: decode %s, extend %s", backend,
@@ -328,6 +345,12 @@ class ModelRunner:
 
     def _kv_config(self, num_pages: int) -> KVCacheConfig:
         cfg = self.model_config
+        if cfg.is_mla:  # one [c_kv | k_rope] row a token and layer (JAX :707-712)
+            return KVCacheConfig(
+                num_layers=cfg.num_hidden_layers, num_pages=num_pages, page_size=self.page_size,
+                num_kv_heads=1, head_dim=self.model.mla_latent_dim,
+                dtype=_DTYPES[self.kv_cache_dtype], mla=True,
+            )
         quant_kv = QUANT_KV_DTYPES.get(self.kv_cache_dtype)
         return KVCacheConfig(
             num_layers=cfg.num_hidden_layers,
@@ -342,7 +365,7 @@ class ModelRunner:
 
     def kv_bytes_per_token(self) -> int:
         """K and V of one token over every layer, an 8-bit pool's scales
-        included."""
+        included; a latent pool's one row a layer."""
         return self._kv_config(0).bytes_per_token()
 
     # ------------------------------------------------------------------ steps
@@ -379,14 +402,16 @@ class ModelRunner:
 
     def _packed_supported(self, wb: WorkerBatch) -> bool:
         """Whether ``wb`` may run as a pipelined window: no penalty counts,
-        logit bias, grammar mask or top-logprobs (they need the host between
-        windows), and adapters only once a manager is attached (the JAX
-        rule, ``model_runner.py:1067-1081``, for the fields the port has)."""
+        logit bias, custom logit processor, grammar mask or top-logprobs
+        (they need the host between windows), and adapters only once a
+        manager is attached (the JAX rule, ``model_runner.py:1067-1081``,
+        for the fields the port has)."""
         si = wb.sampling_info
         return (
             wb.vocab_bitmask is None
             and si.output_token_counts is None
             and si.logit_bias is None
+            and si.custom_processors is None
             and (wb.active_adapters is None or self.toppings_manager is not None)
             and wb.input_embeds is None
             and wb.mm_spans is None
@@ -627,15 +652,14 @@ class ModelRunner:
             # same bits), which every device's indexing and shifts take
             vocab_bitmask=None if wb.vocab_bitmask is None
             else padB(wb.vocab_bitmask, 0xFFFFFFFF).view(np.int32),
+            custom_processors=si.custom_processors,
+            # the mask is [P, B_real]: padding rows take no processor
+            custom_proc_mask=None if si.custom_proc_mask is None
+            else np.pad(si.custom_proc_mask, [(0, 0), (0, B - si.custom_proc_mask.shape[1])]),
+            custom_proc_params=None if si.custom_proc_params is None
+            else tuple({k: padB(v, 0.0) for k, v in d.items()} for d in si.custom_proc_params),
         )
-        sinfo = SamplingBatchInfo(
-            **{
-                f.name: None if getattr(sinfo_host, f.name) is None
-                else self._upload(getattr(sinfo_host, f.name))
-                for f in dataclasses.fields(sinfo_host)
-            }
-        )
-        return meta, sinfo, sinfo_host.modes(V)
+        return meta, sinfo_host.map_arrays(self._upload), sinfo_host.modes(V)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """``a`` on the runner's device. To the card it goes from a pinned

@@ -79,6 +79,19 @@ _JAX_MOE_KEYS = {
     "s_down": ("s_down.weight", True),
     "down_d": ("down_d.weight", True),
 }
+# DeepSeek's layer keys (both groups, ``layers_dense`` and ``layers``):
+# the JAX [in, out] matrices, transposed into nn.Linear's [out, in]; the
+# rest keep their orientation (w_uk [Hq, dn, r], w_uv [Hq, r, dv], the
+# expert stacks [E, In, Out], the f32 router_bias [E])
+_JAX_DEEPSEEK_MATRICES = {
+    "wq": "wq.weight", "wq_a": "wq_a.weight", "wq_b": "wq_b.weight", "wkv_a": "wkv_a.weight",
+    "wo": "wo.weight", "gate": "gate.weight", "up": "up.weight", "down": "down.weight",
+    "router": "router.weight", "shared_gate": "shared_gate.weight",
+    "shared_up": "shared_up.weight", "shared_down": "shared_down.weight",
+}
+_JAX_DEEPSEEK_OTHERS = (
+    "input_norm", "post_norm", "q_norm", "kv_norm", "w_uk", "w_uv", "router_bias", "w1", "w2", "w3",
+)
 # JAX quantized stack -> port module (separate gate and up stacks are fused)
 _JAX_QUANT_KEYS = {
     "wq": "wq", "wk": "wk", "wv": "wv", "wo": "wo", "down": "down", "gate_up_f": "gate_up",
@@ -124,8 +137,9 @@ def params_from_jax(
     Phi-3, Apertus and Gemma (four norms a layer, a tied head) pytrees
     alike, and those of the MoE families (``cfg.num_experts > 0``: Mixtral,
     Qwen3-MoE, GPT-OSS), whose expert stacks ``[L, E, In, Out]`` keep their
-    orientation in the port. ``layers`` is a dict of ``[L, ...]`` stacks,
-    or (Llama-4, whose dense and MoE layers differ) a list of L dicts of one
+    orientation in the port; DeepSeek's (``cfg.is_mla``) two layer groups go
+    through ``_deepseek_state_from_jax``. ``layers`` is a dict of ``[L, ...]``
+    stacks, or (Llama-4, whose dense and MoE layers differ) a list of L dicts of one
     layer's arrays; a dense layer's MLP is ``intermediate_size_mlp`` wide
     where the config sets it.
 
@@ -136,6 +150,10 @@ def params_from_jax(
     Quantized stacks come as objects with numpy ``q``, ``s``, ``z`` (nibble
     planes ``[L, In/2, Out]``, ``[L, G, Out]``), ``group_size`` and
     ``out_true``: the JAX ``QuantizedLinear`` after ``jax.tree.map(np.asarray)``."""
+    if cfg.is_mla:
+        if transposed:
+            raise ValueError("DeepSeek's JAX stacks are never transposed by its runner")
+        return _deepseek_state_from_jax(params_np, cfg)
     H, D = cfg.hidden_size, cfg.head_dim
     Hq, Hkv, I = cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size
     E, Ie = cfg.num_experts, cfg.moe_intermediate_size or cfg.intermediate_size
@@ -196,6 +214,53 @@ def params_from_jax(
         )
         for part, t in zip("qsz", packed):
             state[f"lm_head_q.{part}"] = t[0]
+    return state
+
+
+def _deepseek_state_from_jax(params_np: dict[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The JAX DeepSeek pytree: its dense layers' stacks (``layers_dense``,
+    the first ``first_k_dense_replace`` layers) and its MoE layers' stacks
+    (``layers``, the rest), each ``[L_group, ...]``, as the port's
+    ``state_dict``; every JAX matrix's shape is checked against the port's
+    [out, in] after the transpose."""
+    H, Hq, E = cfg.hidden_size, cfg.num_attention_heads, cfg.num_experts
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r, qr, I = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.intermediate_size
+    Is = (cfg.moe_intermediate_size or I) * max(cfg.n_shared_experts, 1)
+    out_in = {
+        "wq": (Hq * (dn + dr), H), "wq_a": (qr, H), "wq_b": (Hq * (dn + dr), qr),
+        "wkv_a": (r + dr, H), "wo": (H, Hq * dv), "gate": (I, H), "up": (I, H), "down": (H, I),
+        "router": (E, H), "shared_gate": (Is, H), "shared_up": (Is, H), "shared_down": (H, Is),
+    }
+    state: dict[str, torch.Tensor] = {
+        "embed.weight": _tensor(params_np["embed"]),
+        "final_norm": _tensor(params_np["final_norm"]),
+    }
+    if "lm_head" in params_np and not cfg.tie_word_embeddings:
+        state["lm_head.weight"] = _tensor(params_np["lm_head"])
+    first = 0
+    for group in ("layers_dense", "layers"):
+        stacks = {k: np.asarray(v) for k, v in params_np.get(group, {}).items()}
+        n = {a.shape[0] for a in stacks.values()}
+        if len(n) > 1:
+            raise ValueError(f"{group}: stacks of {sorted(n)} layers")
+        for key, stack in stacks.items():
+            for i, w in enumerate(stack):
+                if key in _JAX_DEEPSEEK_MATRICES:
+                    w = w.T
+                    if w.shape != out_in[key]:
+                        raise ValueError(
+                            f"{group}.{key}: got {w.shape} after the transpose, expected {out_in[key]}"
+                        )
+                    name = _JAX_DEEPSEEK_MATRICES[key]
+                elif key in _JAX_DEEPSEEK_OTHERS:
+                    name = key
+                else:
+                    raise KeyError(f"unmapped JAX DeepSeek parameter {group}.{key}")
+                state[f"layers.{first + i}.{name}"] = _tensor(w)
+        first += n.pop() if n else 0
+    if first != cfg.num_hidden_layers:
+        raise ValueError(f"{first} layers, expected {cfg.num_hidden_layers}")
     return state
 
 

@@ -22,6 +22,13 @@ so that slot ``s`` of head ``h`` holds ``k[s, h, :] * k_scale[s, h]``. This
 is the JAX pool's per-(token, head slot) scale, which it keeps as
 interleaved ``[k0, v0, k1, v1, ...]`` lanes of one padded scale array.
 
+A latent pool (``mla``, DeepSeek's multi-head latent attention) holds one
+vector a token and layer, ``[c_kv (kv_lora_rank) | k_rope
+(qk_rope_head_dim)]``, in ``k`` as ``[num_layers, num_pages, page_size, 1,
+r + dr]``, and no V: the JAX package's ``MLATokenToKVPool`` layout
+(``memory/kv_cache.py:86-89``), one head of width r + dr. An 8-bit latent
+pool is refused, as the JAX runner refuses it (``model_runner.py:709-711``).
+
 Writes update the pool in place (``ops/attention/plain_backend.write_kv``):
 PyTorch tensors are mutable, so the port keeps one pool for the engine's
 lifetime instead of threading a new array through every step.
@@ -60,8 +67,18 @@ class KVCacheConfig:
     dtype: torch.dtype = torch.bfloat16
     quantized: bool = False  # 8-bit codes plus per-(token, head) bf16 scales
     quant_dtype: torch.dtype = torch.int8  # int8 | float8_e4m3fn
+    # a latent pool: one [c_kv | k_rope] row a token and layer (num_kv_heads
+    # 1, head_dim r + dr), no V
+    mla: bool = False
 
     def __post_init__(self):
+        if self.mla and self.quantized:
+            raise NotImplementedError(
+                "an 8-bit latent (MLA) pool is not supported, as in the JAX package; "
+                "use kv_cache_dtype='auto' or the model dtype"
+            )
+        if self.mla and self.num_kv_heads != 1:
+            raise ValueError(f"a latent pool holds one row a token, not {self.num_kv_heads} heads")
         if self.quantized:
             check_quant_kv_head_dim(self.head_dim)
 
@@ -72,7 +89,10 @@ class KVCacheConfig:
 
     def bytes_per_token(self) -> int:
         """K and V of one token over every layer, scales included:
-        2 L Hkv (D + 2) bytes for a quantized pool."""
+        2 L Hkv (D + 2) bytes for a quantized pool; a latent pool's one row
+        a layer, L (r + dr) itemsize."""
+        if self.mla:
+            return self.num_layers * self.head_dim * self.dtype.itemsize
         rows = 2 * self.num_layers * self.num_kv_heads
         if self.quantized:
             return rows * (self.head_dim + SCALE_DTYPE.itemsize)
@@ -81,14 +101,19 @@ class KVCacheConfig:
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor  # [L, num_pages, ps, Hkv, D]
-    v: torch.Tensor  # [L, num_pages, ps, Hkv, D]
+    k: torch.Tensor  # [L, num_pages, ps, Hkv, D]; a latent pool's rows
+    v: Optional[torch.Tensor]  # [L, num_pages, ps, Hkv, D]; None in a latent pool
     k_scale: Optional[torch.Tensor] = None  # bf16 [L, num_pages, ps, Hkv]
     v_scale: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    @property
+    def mla(self) -> bool:
+        """A latent pool: ``k`` holds ``[c_kv | k_rope]`` rows, no V."""
+        return self.v is None
 
     @property
     def num_layers(self) -> int:
@@ -110,6 +135,8 @@ class KVCache:
         """Contiguous views of one layer: K and V ``[num_pages, ps, Hkv,
         D]`` and their scales ``[num_pages, ps, Hkv]`` (None for a pool
         that is not quantized)."""
+        if self.mla:
+            raise ValueError("a latent (MLA) pool has no K and V; ops/attention/mla_backend.py reads it")
         if not self.quantized:
             return self.k[layer_idx], self.v[layer_idx], None, None
         return (
@@ -128,6 +155,8 @@ def create_kv_cache(cfg: KVCacheConfig, device: torch.device) -> KVCache:
         cfg.num_kv_heads,
         cfg.head_dim,
     )
+    if cfg.mla:
+        return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device), v=None)
     if not cfg.quantized:
         return KVCache(
             k=torch.zeros(shape, dtype=cfg.dtype, device=device),

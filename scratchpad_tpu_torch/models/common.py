@@ -2,10 +2,10 @@
 
 Counterpart of ``scratchpad_tpu/models/common.py``: the 4-bit linear layer,
 RMSNorm, SiLU-and-mul, GELU-and-mul and rotary embeddings (half-split and
-interleaved pairs). ``compute_inv_freq`` and
-``rope_attention_scale`` are host-side numpy, copied unchanged so both
-packages bake identical frequencies (``tests/test_rope.py`` holds the JAX
-copy to HF).
+interleaved pairs). ``compute_inv_freq``, ``rope_attention_scale`` and
+DeepSeek's YaRN multiplier (``deepseek_yarn_scale``) are host-side numpy,
+copied unchanged so both packages bake identical frequencies
+(``tests/test_rope.py`` holds the JAX copy to HF).
 """
 
 from __future__ import annotations
@@ -217,6 +217,29 @@ def rope_attention_scale(cfg) -> float:
             return 1.0
         return 1.0 + np.log(factor) / np.log(orig)
     return 1.0
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's magnitude factor ``0.1 * mscale * ln(scale) + 1`` (1 where
+    ``scale <= 1``), HF's ``yarn_get_mscale``."""
+    return float(0.1 * mscale * np.log(scale) + 1.0) if scale > 1 else 1.0
+
+
+def deepseek_yarn_scale(rs) -> float:
+    """DeepSeek's YaRN multiplier of the rope dims' cos and sin (HF's
+    ``attention_scaling``; JAX ``deepseek.py:47-61``): ``attention_factor``
+    where given, else ``mscale(factor, mscale) / mscale(factor,
+    mscale_all_dim)`` where both are set, else ``mscale(factor)``; 1 without
+    YaRN."""
+    if not rs or rs.get("rope_type", rs.get("type")) != "yarn":
+        return 1.0
+    if rs.get("attention_factor") is not None:
+        return float(rs["attention_factor"])
+    factor = rs["factor"]
+    mscale, mad = rs.get("mscale"), rs.get("mscale_all_dim")
+    if mscale and mad:
+        return yarn_mscale(factor, mscale) / yarn_mscale(factor, mad)
+    return yarn_mscale(factor)
 
 
 def rope_cos_sin(

@@ -148,11 +148,7 @@ class MoeForCausalLM(nn.Module):
             raise NotImplementedError(
                 f"{type(self).__name__} options not ported: {', '.join(unported)}"
             )
-        if cfg.num_experts <= 0 or not 0 < cfg.num_experts_per_tok <= cfg.num_experts:
-            raise ValueError(
-                f"a MoE model needs 0 < num_experts_per_tok <= num_experts, got "
-                f"{cfg.num_experts_per_tok} and {cfg.num_experts}"
-            )
+        self._check_experts(cfg)
         self.cfg = cfg
         self.quantization = quantization
         H, V = cfg.hidden_size, cfg.vocab_size
@@ -169,6 +165,14 @@ class MoeForCausalLM(nn.Module):
         self.decode_attention = None  # set by the runner from attention_backend
         self.extend_attention = None
         self.toppings = None
+
+    @staticmethod
+    def _check_experts(cfg: ModelConfig) -> None:
+        if cfg.num_experts <= 0 or not 0 < cfg.num_experts_per_tok <= cfg.num_experts:
+            raise ValueError(
+                f"a MoE model needs 0 < num_experts_per_tok <= num_experts, got "
+                f"{cfg.num_experts_per_tok} and {cfg.num_experts}"
+            )
 
     @property
     def intermediate_size(self) -> int:

@@ -3,9 +3,10 @@
 Counterpart of ``scratchpad_tpu/models/registry.py``. The port has the Llama
 family (Mistral included: Llama's architecture and weight names with a
 uniform sliding window), Qwen2, Qwen3, Phi-3 and Apertus on the Llama
-decoder, Gemma 2 and Gemma 3 (text), and the MoE decoders Mixtral,
-Qwen3-MoE, GPT-OSS and Llama-4 (text); the rest of the JAX package's model
-zoo is still to be ported.
+decoder, Gemma 2 and Gemma 3 (text), the MoE decoders Mixtral,
+Qwen3-MoE, GPT-OSS and Llama-4 (text), and DeepSeek-V2 and V3 (multi-head
+latent attention); the rest of the JAX package's model zoo is still to be
+ported.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 def get_model_class(architecture: str):
     from scratchpad_tpu_torch.models.apertus import ApertusForCausalLM
+    from scratchpad_tpu_torch.models.deepseek import DeepseekV2ForCausalLM, DeepseekV3ForCausalLM
     from scratchpad_tpu_torch.models.gemma import Gemma2ForCausalLM, Gemma3ForCausalLM
     from scratchpad_tpu_torch.models.gpt_oss import GptOssForCausalLM
     from scratchpad_tpu_torch.models.llama import LlamaForCausalLM
@@ -38,6 +40,8 @@ def get_model_class(architecture: str):
         "Llama4ForCausalLM": Llama4ForCausalLM,
         "Llama4TextModel": Llama4ForCausalLM,
         "ApertusForCausalLM": ApertusForCausalLM,
+        "DeepseekV2ForCausalLM": DeepseekV2ForCausalLM,
+        "DeepseekV3ForCausalLM": DeepseekV3ForCausalLM,
     }
     if architecture not in registry:
         raise NotImplementedError(

@@ -3,8 +3,10 @@
 Counterpart of ``scratchpad_tpu/sampling/batch_info.py``: host numpy arrays
 built from the scheduler's requests (``from_reqs``), moved to the device by
 ``to(device)``. Padding rows are greedy. A grammar's allow-mask rides in
-``vocab_bitmask``, which the runner fills from the scheduler's batch. The
-port has no custom logit processors yet.
+``vocab_bitmask``, which the runner fills from the scheduler's batch.
+Custom logit processors (``sampling/custom_logit_processor.py``) ride as the
+batch's distinct processors, a row mask for each and each one's per-row
+params.
 """
 
 from __future__ import annotations
@@ -32,6 +34,17 @@ class SamplingBatchInfo:
     logit_bias: Optional[np.ndarray] = None  # f32[B, V]
     # grammar allow-mask (None when no request in the batch has a grammar)
     vocab_bitmask: Optional[np.ndarray] = None  # u32[B, ceil(V / 32)]
+    # custom logit processors (None when no request in the batch has one):
+    # the batch's distinct processors in the order first seen; row mask i
+    # marks processor i's rows, and params i holds one f32[B] array a key
+    # of its requests' custom_params (0 on the rows without it)
+    custom_processors: Optional[tuple] = None
+    custom_proc_mask: Optional[np.ndarray] = None  # bool[P, B]
+    custom_proc_params: Optional[tuple] = None  # tuple[dict[str, f32[B]]]
+
+    # the fields that are not one array: the processors and their params'
+    # dicts of arrays
+    HOST_FIELDS = ("custom_processors", "custom_proc_params")
 
     @property
     def needs_penalties(self) -> bool:
@@ -46,21 +59,29 @@ class SamplingBatchInfo:
         return sampling, filtering
 
     def to(self, device) -> "SamplingBatchInfo":
-        """Tensor copy of every present field on ``device``."""
+        """Tensor copy of every present field on ``device`` (the processors
+        as they are, their params' arrays as tensors)."""
+        return self.map_arrays(lambda a: torch.as_tensor(a).to(device))
+
+    def map_arrays(self, fn) -> "SamplingBatchInfo":
+        """A copy with ``fn`` applied to every present array, the
+        processors' params included; the processors themselves are kept."""
+        out = {
+            f.name: None if getattr(self, f.name) is None else fn(getattr(self, f.name))
+            for f in dataclasses.fields(self)
+            if f.name not in self.HOST_FIELDS
+        }
+        params = self.custom_proc_params
         return SamplingBatchInfo(
-            **{
-                f.name: None
-                if getattr(self, f.name) is None
-                else torch.as_tensor(getattr(self, f.name)).to(device)
-                for f in dataclasses.fields(self)
-            }
+            **out,
+            custom_processors=self.custom_processors,
+            custom_proc_params=None if params is None
+            else tuple({k: fn(v) for k, v in d.items()} for d in params),
         )
 
     @staticmethod
     def from_reqs(reqs, bucket_size: int, vocab_size: int) -> "SamplingBatchInfo":
         """Build padded host arrays from scheduler Req objects."""
-        if any(r.sampling_params.custom_logit_processor is not None for r in reqs):
-            raise NotImplementedError("custom logit processors are not ported yet")
         B = bucket_size
         temperature = np.zeros(B, np.float32)
         top_p = np.ones(B, np.float32)
@@ -99,6 +120,24 @@ class SamplingBatchInfo:
                     )
                     out_counts[i, ids] = counts
                 in_mask[i, np.asarray(r.origin_input_ids, np.int64)] = True
+        procs = mask = pparams = None
+        if any(r.sampling_params.custom_logit_processor is not None for r in reqs):
+            groups: dict = {}  # processor -> its rows, in the order first seen
+            for i, r in enumerate(reqs):
+                proc = r.sampling_params.custom_logit_processor
+                if proc is not None:
+                    groups.setdefault(proc, []).append(i)
+            procs = tuple(groups)
+            mask = np.zeros((len(procs), B), np.bool_)
+            pparams = []
+            for pi, rows in enumerate(groups.values()):
+                mask[pi, rows] = True
+                d = {}
+                for i in rows:
+                    for k, v in (reqs[i].sampling_params.custom_params or {}).items():
+                        d.setdefault(k, np.zeros(B, np.float32))[i] = float(v)
+                pparams.append(dict(sorted(d.items())))
+            pparams = tuple(pparams)
         return SamplingBatchInfo(
             temperature=temperature,
             top_p=top_p,
@@ -110,4 +149,7 @@ class SamplingBatchInfo:
             output_token_counts=out_counts,
             input_token_mask=in_mask,
             logit_bias=bias,
+            custom_processors=procs,
+            custom_proc_mask=mask,
+            custom_proc_params=pparams,
         )

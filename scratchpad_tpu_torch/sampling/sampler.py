@@ -8,7 +8,10 @@ sort runs per step. Random draws use an explicit ``torch.Generator``
 (Gumbel-max, the same construction as ``jax.random.categorical``); the bits
 differ from JAX's, so tests compare sampled output as a distribution.
 A grammar's allow-mask (``apply_vocab_bitmask``) bans logits after the
-penalties and before the filters, as the JAX sampler does.
+penalties and before the filters, as the JAX sampler does. Custom logit
+processors (``sampling/custom_logit_processor.py``) run first of all, each
+on the whole batch, their rows blended back by mask (JAX
+``sampler.py:174-186``).
 """
 
 from __future__ import annotations
@@ -138,14 +141,21 @@ def sample(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (token ids i64[B], logprobs): the full post-penalty f32[B, V]
     log-softmax, or with ``full_logprobs=False`` just the chosen token's
-    logprob f32[B]. Order: logit bias -> penalties -> grammar mask ->
-    temperature -> top-k -> top-p -> min-p -> categorical.
+    logprob f32[B]. Order: custom processors -> logit bias -> penalties ->
+    grammar mask -> temperature -> top-k -> top-p -> min-p -> categorical.
 
     ``modes`` is (any row samples, any row filters), known on the host
     before the batch moved to the device (``SamplingBatchInfo.modes``); the
     greedy hot path then skips the draw without a device sync. ``None``
     reads both from ``info``."""
     B, V = logits.shape
+    if info.custom_processors:
+        for i, proc in enumerate(info.custom_processors):
+            params = info.custom_proc_params[i] if info.custom_proc_params is not None else {}
+            # a copy: a processor that writes in place must not reach the
+            # rows that the blend keeps (other requests, padding)
+            out = proc(logits.clone(), params)
+            logits = torch.where(info.custom_proc_mask[i][:, None], out, logits)
     if info.logit_bias is not None:
         logits = logits + info.logit_bias
     logits = apply_penalties(logits, info)

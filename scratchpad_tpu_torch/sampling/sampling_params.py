@@ -36,11 +36,10 @@ class SamplingParams:
     # additive per-token-id logit bias (OpenAI logit_bias), applied on
     # device before penalties/softmax (reference: nn/layers/sampler.py:162)
     logit_bias: Optional[dict] = None  # {token_id: bias}
-    # user-supplied logit transform: a jax-traceable callable
-    # fn(logits[B, V], params) -> logits traced into the device sampling
-    # step (sampling/custom_logit_processor.py; reference:
-    # sampling/custom_logit_processor.py:1-38). Scalar knobs ride
-    # custom_params as f32 per-row values.
+    # user-supplied logit transform: a callable fn(logits f32[B, V], params)
+    # -> logits, applied by the sampler before logit_bias
+    # (sampling/custom_logit_processor.py). Scalar knobs ride custom_params
+    # as f32 per-row values.
     custom_logit_processor: Optional[object] = None
     custom_params: Optional[dict] = None  # {name: float}
 

@@ -7,9 +7,11 @@ JSON with ``Content-Length`` and streams ``text/event-stream`` with chunked
 encoding; connections are kept alive unless the client asks to close them. Every JAX route is here, with the same statuses and response
 keys. Constrained decoding is served: ``regex``, ``ebnf`` and
 ``json_schema`` on completions and chat, and chat's ``response_format``
-``json_object``, ``json_schema`` and ``structural_tag``. What the port does
-not have is refused explicitly: images, video and custom logit processors
-answer 400, ``/update_weights`` and a ``/memory_pool`` resize answer 501. The handlers await the async runner's streams; the
+``json_object``, ``json_schema`` and ``structural_tag``. A custom logit
+processor is decoded behind ``--enable-custom-logit-processor`` and
+answers 400 without it, as the JAX server does. What the port does not have
+is refused explicitly: images and video answer 400, ``/update_weights`` and
+a ``/memory_pool`` resize answer 501. The handlers await the async runner's streams; the
 engine itself runs on the runner's scheduler thread.
 """
 
@@ -29,6 +31,7 @@ from urllib.parse import urlsplit
 import torch
 
 from scratchpad_tpu_torch.config import ServerArgs
+from scratchpad_tpu_torch.sampling.custom_logit_processor import CustomLogitProcessor
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.async_runner import AsyncEngineRunner
 from scratchpad_tpu_torch.server.engine import Engine, GenerationOutput
@@ -69,18 +72,32 @@ class NotPorted(ValueError):
     """A request that asks for a feature the port does not have (400)."""
 
 
-def _sampling_from(req, max_tokens: int) -> SamplingParams:
+def _sampling_from(req, max_tokens: int, allow_custom_logit: bool = False) -> SamplingParams:
     """The request's sampling parameters, its grammar (regex, ebnf,
-    json_schema) among them; raises ``NotPorted`` for a custom logit
-    processor."""
+    json_schema) and its custom logit processor among them. A processor's
+    payload is decoded only with ``allow_custom_logit`` (the server's
+    ``enable_custom_logit_processor``): unpickling runs arbitrary code.
+    Raises ``ValueError`` (400) for a processor without the flag, as the
+    JAX server does (``http_server.py:52-59``), and for a payload that does
+    not decode."""
+    proc = None
     if getattr(req, "custom_logit_processor", None):
-        raise NotPorted(
-            "custom_logit_processor is not ported to scratchpad_tpu_torch yet "
-            "(ROADMAP Queue 1, item 6)"
-        )
+        if not allow_custom_logit:
+            raise ValueError(
+                "custom_logit_processor requires the server to run with "
+                "--enable-custom-logit-processor"
+            )
+        try:
+            proc = CustomLogitProcessor.from_str(req.custom_logit_processor)
+        except Exception as e:  # base64, zlib or pickle: a payload that does not decode
+            raise ValueError(f"custom_logit_processor does not decode: {e!r}") from e
+        if not callable(proc):
+            raise ValueError(f"custom_logit_processor decodes to a {type(proc).__name__}, not a callable")
     # OpenAI logit_bias keys are token-id strings
     bias = {int(k): float(v) for k, v in req.logit_bias.items()} if req.logit_bias else None
     return SamplingParams(
+        custom_logit_processor=proc,
+        custom_params=getattr(req, "custom_params", None),
         max_new_tokens=max_tokens,
         temperature=req.temperature,
         top_p=req.top_p,
@@ -523,7 +540,10 @@ class ServerApp:
         prompts, idss = self._normalize_prompt(creq.prompt)
         if self.engine.tokenizer is None and any(p is not None for p in prompts):
             return self._bad_request("no tokenizer loaded; send token-id prompts")
-        sp = _sampling_from(creq, creq.max_tokens)
+        try:
+            sp = _sampling_from(creq, creq.max_tokens, self.args.enable_custom_logit_processor)
+        except ValueError as e:
+            return self._bad_request(str(e))
         bad = self._grammar_refused(sp)
         if bad is not None:
             return bad
@@ -677,7 +697,11 @@ class ServerApp:
             return self._bad_request("no tokenizer loaded; chat API unavailable")
         self._flatten_content(creq.messages)
         prompt = self._apply_chat_template(creq.messages)
-        sp = _sampling_from(creq, creq.max_completion_tokens or creq.max_tokens or 512)
+        try:
+            sp = _sampling_from(creq, creq.max_completion_tokens or creq.max_tokens or 512,
+                                self.args.enable_custom_logit_processor)
+        except ValueError as e:
+            return self._bad_request(str(e))
         try:
             _response_format_grammar(sp, creq.response_format)
         except (KeyError, TypeError, ValueError) as e:

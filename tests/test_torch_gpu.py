@@ -37,7 +37,13 @@ ablation probe's ``out`` must lie within one bf16 ulp of its plain
 version's (both round the same f32 statistic to bf16 once), its ``aux``
 within ``aux_tolerance`` (m exact, the rest ATOL + 2**-12 |plain|); the
 decode kernel's stage cuts are held to their plain functions at ATOL + RTOL
-|plain|, and the profiling tools run at small sizes.
+|plain|, and the profiling tools run at small sizes. Two engines on the
+card through ``chip_smoke.py``'s phases: custom logit processors on a tiny
+Llama (banned ids absent, a per-row boost, free rows unchanged, no
+processor row in a pipelined window), and a small DeepSeek-V2 of
+DeepSeek-V2-Lite's structure, whose absorbed latent attention must launch no
+attention kernel and hold its logits to HF's expanded form within 3e-2 of
+max |logit| at one routing, the rope term moving them by 10x that.
 """
 
 import math
@@ -1210,3 +1216,42 @@ def test_chunk_changes_the_output_and_is_checked(gen):
         paged_decode_attention(qd, k, v, pt4, seq, 0.1, sliding_window=128, chunk_size=64)
     with pytest.raises(ValueError, match="window"):
         paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.1, sliding_window=128, chunk_size=64)
+
+
+def test_custom_logit_processors_on_the_card(gen):
+    """``chip_smoke.phase_custom`` on a tiny Llama in bf16, overlap on."""
+    import chip_smoke
+    from scratchpad_tpu_torch.config import ServerArgs
+    from scratchpad_tpu_torch.config.model_config import get_preset
+    from scratchpad_tpu_torch.server.engine import Engine
+
+    eng = Engine(ServerArgs(random_weights=True, dtype="bfloat16", page_size=16, max_total_tokens=8192),
+                 model_config=get_preset("tiny-debug", head_dim=64))
+    chip_smoke.FAILURES.clear()
+    out = chip_smoke.phase_custom(eng, "tiny")
+    assert chip_smoke.FAILURES == []
+    assert out["pipelined_windows"] > 0 and out["windows_with_processors"] == 0 and out["in_place_isolated"]
+
+
+def test_deepseek_latent_attention_matches_expanded_form(gen):
+    """``chip_smoke.phase_engine`` on DeepSeek-V2-Lite's config at narrow
+    widths (4 layers, 16 experts top 4, 2 shared) in bf16: every request
+    finishes with a radix hit, no attention kernel launches, and the logits
+    hold against HF's expanded form (``ExpandedMla``) at the kernel path's
+    routing, with the rope term moving them by ``ROPE_MOVE`` times that."""
+    import chip_smoke
+    from scratchpad_tpu_torch.config import ModelConfig, ServerArgs
+    from scratchpad_tpu_torch.server.engine import Engine
+
+    cfg = ModelConfig.from_hf_config(dict(
+        chip_smoke.DEEPSEEK_V2_LITE, vocab_size=4096, hidden_size=512, intermediate_size=1024,
+        moe_intermediate_size=128, num_hidden_layers=4, num_attention_heads=8, num_key_value_heads=8,
+        n_routed_experts=16, num_experts_per_tok=4, max_position_embeddings=16384))
+    eng = Engine(ServerArgs(random_weights=True, dtype="bfloat16", page_size=16, max_total_tokens=16384),
+                 model_config=cfg)
+    assert eng.scheduler.runner.kv_bytes_per_token() == 4 * 576 * 2
+    chip_smoke.FAILURES.clear()
+    out = chip_smoke.phase_engine(eng, "deepseek-v2-lite", requests=chip_smoke.UNTIMED_REQUESTS)
+    assert chip_smoke.FAILURES == []
+    assert out["worst_logit_rel"] <= chip_smoke.LOGIT_RTOL["deepseek-v2-lite"]
+    assert out["rope_move_min"] >= chip_smoke.ROPE_MOVE * out["worst_logit_rel"]

@@ -1,10 +1,12 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
 A subprocess imports every module of ``scratchpad_tpu_torch`` (the Qwen,
-Gemma, Mixtral, GPT-OSS, Llama-4 and Apertus models and the ``constrained``
-modules among them) and ``chip_smoke``, and serves tiny CPU engines of
-Llama, Gemma 2, Qwen3, GPT-OSS, Qwen3-MoE, Llama-4 and Apertus and a
-regex and a recursive EBNF grammar, then lists what it loaded;
+Gemma, Mixtral, GPT-OSS, Llama-4, Apertus and DeepSeek models, the latent
+attention, the custom logit processors and the ``constrained`` modules
+among them) and ``chip_smoke``, and serves tiny CPU engines of Llama,
+Gemma 2, Qwen3, GPT-OSS, Qwen3-MoE, Llama-4, Apertus and DeepSeek-V3, a
+custom logit processor and a regex and a recursive EBNF grammar, then
+lists what it loaded;
 a source scan checks every import statement of the package. A second
 subprocess blocks ``jax``, the JAX package and the serving packages that the
 card's machine lacks (``aiohttp``, ``pydantic``, ``prometheus_client``,
@@ -27,7 +29,9 @@ import scratchpad_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(scratchpad_tpu_torch.__path__, "scratchpad_tpu_torch.")]
 assert {"scratchpad_tpu_torch.models.gemma", "scratchpad_tpu_torch.models.qwen",
         "scratchpad_tpu_torch.models.mixtral", "scratchpad_tpu_torch.models.gpt_oss",
-        "scratchpad_tpu_torch.models.llama4", "scratchpad_tpu_torch.models.apertus"} <= set(names)
+        "scratchpad_tpu_torch.models.llama4", "scratchpad_tpu_torch.models.apertus",
+        "scratchpad_tpu_torch.models.deepseek", "scratchpad_tpu_torch.ops.attention.mla_backend",
+        "scratchpad_tpu_torch.sampling.custom_logit_processor"} <= set(names)
 assert {"scratchpad_tpu_torch.constrained." + m for m in (
     "backend", "ebnf", "json_schema", "leftrec", "pda", "regex_fsm", "structural_tag")} <= set(names)
 for n in names:
@@ -44,12 +48,24 @@ for cfg in (get_preset("tiny-debug"), get_preset("tiny-gemma2"),
             get_preset("tiny-debug", architecture="Llama4ForCausalLM", num_experts=4,
                        num_experts_per_tok=1, interleave_moe_layer_step=2, use_qk_norm=True,
                        attention_chunk_size=4, floor_scale=4),
-            get_preset("tiny-debug", architecture="ApertusForCausalLM")):
+            get_preset("tiny-debug", architecture="ApertusForCausalLM"),
+            get_preset("tiny-debug", architecture="DeepseekV3ForCausalLM", kv_lora_rank=32,
+                       qk_nope_head_dim=16, qk_rope_head_dim=16, v_head_dim=32, num_experts=4,
+                       num_experts_per_tok=2, n_shared_experts=1, first_k_dense_replace=1,
+                       moe_intermediate_size=64, n_group=2, topk_group=1)):
     eng = Engine(ServerArgs(random_weights=True, dtype="float32", device="cpu", page_size=4,
                             max_total_tokens=512), model_config=cfg)
     out = eng.generate(input_ids=[1, 2, 3, 4, 5],
                        sampling_params=SamplingParams(temperature=0.0, max_new_tokens=4))
     assert len(out.output_ids) == 4
+# a custom logit processor beside a free row
+from scratchpad_tpu_torch.sampling.custom_logit_processor import BannedTokensProcessor
+free = eng.generate(input_ids=[1, 2, 3], sampling_params=SamplingParams(temperature=0.0, max_new_tokens=4))
+outs = eng.generate(input_ids=[[1, 2, 3]] * 2, sampling_params=[
+    SamplingParams(temperature=0.0, max_new_tokens=4,
+                   custom_logit_processor=BannedTokensProcessor(free.output_ids)),
+    SamplingParams(temperature=0.0, max_new_tokens=4)])
+assert not set(outs[0].output_ids) & set(free.output_ids) and outs[1].output_ids == free.output_ids
 # constrained decoding: a regex and a recursive EBNF grammar (pushdown)
 eng = Engine(ServerArgs(preset="tiny-debug", random_weights=True, dtype="float32", device="cpu",
                         page_size=4, max_total_tokens=512, tokenizer_path="chars"))

@@ -276,6 +276,7 @@ def test_phi3_splits_fused_checkpoints_as_jax():
 
 def test_registry_maps_the_ported_families():
     from scratchpad_tpu_torch.models.apertus import ApertusForCausalLM
+    from scratchpad_tpu_torch.models.deepseek import DeepseekV2ForCausalLM, DeepseekV3ForCausalLM
     from scratchpad_tpu_torch.models.gemma import Gemma2ForCausalLM, Gemma3ForCausalLM
     from scratchpad_tpu_torch.models.gpt_oss import GptOssForCausalLM
     from scratchpad_tpu_torch.models.llama4 import Llama4ForCausalLM
@@ -289,9 +290,11 @@ def test_registry_maps_the_ported_families():
                       ("Qwen3MoeForCausalLM", Qwen3MoeForCausalLM),
                       ("GptOssForCausalLM", GptOssForCausalLM),
                       ("Llama4ForCausalLM", Llama4ForCausalLM), ("Llama4TextModel", Llama4ForCausalLM),
-                      ("ApertusForCausalLM", ApertusForCausalLM)):
+                      ("ApertusForCausalLM", ApertusForCausalLM),
+                      ("DeepseekV2ForCausalLM", DeepseekV2ForCausalLM),
+                      ("DeepseekV3ForCausalLM", DeepseekV3ForCausalLM)):
         assert get_model_class(name) is cls
     for name in ("Llama4ForConditionalGeneration", "Gemma3ForConditionalGeneration",
-                 "Qwen2VLForConditionalGeneration", "DeepseekV3ForCausalLM"):
+                 "Qwen2VLForConditionalGeneration", "MllamaForConditionalGeneration"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_model_class(name)

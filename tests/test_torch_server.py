@@ -10,7 +10,8 @@ the port's engine, with the JAX weights handed over through
   ``tests/test_server_chat.py``: completions (greedy ids and logprobs,
   ``n``, parallel requests, streaming, echo, ``logit_bias``), chat with the
   fallback template, embeddings, files and batches, bad bodies, the
-  refusals, a ``regex`` and a ``response_format`` grammar, ``/metrics`` and
+  refusals, a ``regex`` and a ``response_format`` grammar, custom logit
+  processors behind ``enable_custom_logit_processor``, ``/metrics`` and
   ``/system_info``.
 - Pair B, scripted weights: every layer's output projections are zero, so
   the last token alone picks the next, and the head walks a chain from the
@@ -190,7 +191,7 @@ def servers():
     ja, pa, ja_url, pa_url = _serve(*a)
     jb, pb, jb_url, pb_url = _serve(*b)
     yield dict(a=(ja_url, pa_url), b=(jb_url, pb_url), tops=tops, port_app=pa.app,
-               bias=bias)
+               bias=bias, args=(ja.app.args, pa.app.args))
     for s in (ja, pa, jb, pb):
         s.stop()
 
@@ -525,13 +526,51 @@ def test_routes_and_methods(servers):
         ("/memory_pool", {"max_total_tokens": 4096}, 501),
         ("/v1/chat/completions", {"model": "m", "messages": [{"role": "user", "content": [
             {"type": "image_url", "image_url": {"url": "data:,"}}]}]}, 400),
-        ("/v1/completions", {"model": "m", "prompt": [1], "custom_logit_processor": "x"}, 400),
     ],
-    ids=["update_weights", "memory_pool", "image", "logit_processor"],
+    ids=["update_weights", "memory_pool", "image"],
 )
 def test_unported_features_are_refused_over_http(servers, path, body, status):
     s, p = request(servers["a"][1], path, body)
     assert s == status and "not ported" in (p.get("message") or ""), p
+
+
+@pytest.mark.parametrize("route", ["completions", "chat"])
+def test_custom_logit_processor_over_http(servers, route):
+    """A ``BannedTokensProcessor`` of each package's own (base64, zlib,
+    pickle), banning the ids of the free greedy answer: without
+    ``--enable-custom-logit-processor`` both servers answer 400 with the
+    JAX message; with it, 200 with equal texts (and, on completions, equal
+    ids) that hold none of the banned ids."""
+    from scratchpad_tpu.sampling.custom_logit_processor import BannedTokensProcessor as JaxBanned
+    from scratchpad_tpu_torch.sampling.custom_logit_processor import BannedTokensProcessor
+
+    if route == "completions":
+        path, body = "/v1/completions", completion(prompt=PROMPTS[2], max_tokens=6)
+        answer = lambda out: ids_and_lps(out["choices"][0])[0]
+    else:
+        path = "/v1/chat/completions"
+        body = dict(model="tiny", messages=CHAT, max_tokens=6, temperature=0.0, ignore_eos=True)
+        answer = lambda out: CharTokenizer().encode(out["choices"][0]["message"]["content"])
+    (sj, j), (sp, p) = both(servers, path, body)
+    assert sj == sp == 200 and answer(j) == answer(p)
+    banned = answer(p)
+    assert banned
+    bodies = [dict(body, custom_logit_processor=cls(banned).to_str(), custom_params={"unused": 1.0})
+              for cls in (JaxBanned, BannedTokensProcessor)]
+    (sj, j), (sp, p) = (request(u, path, b) for u, b in zip(servers["a"], bodies))
+    assert sj == sp == 400 and j["message"] == p["message"] == (
+        "custom_logit_processor requires the server to run with --enable-custom-logit-processor")
+    for args in servers["args"]:
+        args.enable_custom_logit_processor = True
+    try:
+        (sj, j), (sp, p) = (request(u, path, b) for u, b in zip(servers["a"], bodies))
+    finally:
+        for args in servers["args"]:
+            args.enable_custom_logit_processor = False
+    assert sj == sp == 200, (j, p)
+    assert j["choices"][0]["text" if route == "completions" else "message"] == \
+        p["choices"][0]["text" if route == "completions" else "message"]
+    assert answer(j) == answer(p) and not set(answer(p)) & set(banned), (answer(p), banned)
 
 
 # a schema whose longest word fits max_tokens: four places of up to 8
