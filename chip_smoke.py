@@ -107,7 +107,13 @@ Phases, in order; any failure exits non-zero before the last line:
    (split), and B 64 (one CTA a row and head), split calls bit-equal; extend
    on a prompt across the edge, a chunk after a cached prefix that starts a
    token before it, a one-token row and padding tokens, so that query
-   tiles straddle the edge.
+   tiles straddle the edge. Gemma 3's bidirectional image spans
+   (``check_spans``, rows 3m and 3qm) over bf16, int8 and fp8 pages at
+   ``SPAN_SHAPES`` (Gemma-3-4B's G 2 at D 256; G 6 and 1 at D 128), without
+   a window and with one of 128 (shorter than a span), on ``SPAN_ROWS``: a
+   256-token span across query tiles beside a second span, a span after a
+   cached prefix, rows without spans, padding tokens (exact zeros); the
+   spans must move the output, and spans with a chunk are refused.
 4. engines: ``Engine.generate`` at full width and depth with random
    weights: Llama-3.2-1B in bf16, then with ``quantization="w4a8"``, then
    W4A16 on the same engine and codes (every ``QuantLinear`` switched to
@@ -149,7 +155,24 @@ Phases, in order; any failure exits non-zero before the last line:
    by at least ``ROPE_MOVE`` times the reading; Apertus-8B (``APERTUS_8B``,
    its config.json: weighted qk-norm, the xIELU MLP) at ``APERTUS_LAYERS``
    of its 32 layers in bf16, not timed (Qwen3-8B's run times its attention
-   shapes). The engines that are checked only and whose kernels other
+   shapes). The vision engines, not timed (``phase_vlm``): Qwen2-VL-2B (the
+   ``qwen2-vl-2b`` preset at full width and depth, its 32-layer tower at 448
+   px) with two one-image requests, a two-image request, a video of
+   ``VIDEO_FRAMES`` frames and a text request; Gemma-3-4B-it
+   (``GEMMA3_4B_MM``, its config.json: SigLIP at 896 px, 27 layers, 256
+   tokens an image) at ``GEMMA3_MM_LAYERS`` of its 34 decoder layers, on
+   bf16 KV (row 3m) and on fp8 KV with the same weights (row 3qm); and
+   LLaVA-1.5-7B (``LLAVA_15_7B``, its config.json: CLIP ViT-L/14 at 336 px,
+   layer -2) at ``LLAVA_LAYERS`` of 32: each request's tokens; the attention
+   kernels once a layer and forward (Gemma 3: the extend launches with
+   spans once a layer and extend forward whose batch carries them); the
+   first prompt with another image reuses only the text before its image
+   and answers otherwise; kernel-path logits against the plain path's as
+   the text engines'; the other image must move them by ``IMAGE_MOVE``
+   times the reading, and on Gemma 3 leaving the spans out by ``SPAN_MOVE``
+   times it. Llama-3.1-8B with fp8 weights and fp8 KV (BASELINE config 4)
+   at ``FP8_LAYERS`` of 32, not timed, with its weights' bytes against bf16.
+   The engines that are checked only and whose kernels other
    engines hold serve shorter request sets (``UNTIMED_REQUESTS``,
    ``TOPPINGS_REQUESTS``, ``GPT_OSS_W4_REQUESTS``, ``GEMMA3_REQUESTS``;
    ``mistral-7b-pallas`` the two prompts past its window);
@@ -210,7 +233,8 @@ Phases, in order; any failure exits non-zero before the last line:
    requests, the wall and the server's own TTFT and ITL p50 and p99.
    Then the bench batch with overlap on and off in turns (``phase_overlap``,
    an ``[overlap 1b-bf16]`` line: decode tokens/s, device ms a step, busy
-   share), whose greedy tokens must be equal both ways. Then custom logit
+   share; each setting's profiled run must repeat its tokens), whose greedy
+   tokens must be equal both ways. Then custom logit
    processors on the same engine (``phase_custom``, a ``[custom]`` line):
    one greedy batch whose rows ban their own free ids, take a per-row
    ``custom_params`` boost, or take no processor; no banned id appears, the
@@ -255,8 +279,12 @@ Phases, in order; any failure exits non-zero before the last line:
    extend at 64 x (128, 128) and a 2048-token chunk on 8192 with W 4096;
    and rows 1dq and 3dq there on int8 and fp8 pages, each beside the bf16
    pages it was quantized from in turns (``DECODE_TIMED_256_8BIT``; extend
-   at 64 x (128, 128) and the 2048-token chunk on 8192 with W 4096).
-   At Mistral-7B's shape: decode at bs 64 and ctx
+   at 64 x (128, 128) and the 2048-token chunk on 8192 with W 4096). Rows
+   3m and 3qm at Gemma-3-4B's shape (G 2, Hkv 4, D 256): a 2,048-token
+   prompt holding seven 256-token spans (``GEMMA3_SPANS``), without a
+   window and with its local 1024 (bf16), and on int8 and fp8 pages, each
+   with and without the spans in turns; the library call takes the spans
+   in its boolean mask. At Mistral-7B's shape: decode at bs 64 and ctx
    4096 and 8192 without a window and 8192 with W 4096 (through both
    wrappers), the 2048-token extend chunk on 4096, 5120 and 8192 tokens
    without a window and on 8192 with it; the bound counts the live window
@@ -332,7 +360,8 @@ LOGIT_RTOL = {
     "qwen3-8b": 3e-2, "qwen3-8b-w4a8": 1e-1, "gemma-2-2b": 3e-2, "gemma-3-1b": 3e-2,
     "gpt-oss-20b": 5e-2, "gpt-oss-w4a8": 1e-1, "gpt-oss-w4a16": 1e-1, "qwen3-30b-a3b": 3e-2,
     "llama4-scout": 3e-2, "apertus-8b": 3e-2, "gemma-2-2b-int8kv": 1e-1, "gemma-2-2b-fp8kv": 1e-1,
-    "deepseek-v2-lite": 3e-2,
+    "deepseek-v2-lite": 3e-2, "qwen2-vl-2b": 3e-2, "gemma-3-4b-mm": 3e-2, "gemma-3-4b-mm-fp8kv": 1e-1,
+    "llava-1.5-7b": 3e-2, "llama-3.1-8b-fp8": 1e-1,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -353,7 +382,8 @@ ARGMAX_FLOOR = {
     "qwen3-8b": 0.0, "qwen3-8b-w4a8": 3e-2, "gemma-2-2b": 0.0, "gemma-3-1b": 0.0,
     "gpt-oss-20b": 2e-2, "gpt-oss-w4a8": 3e-2, "gpt-oss-w4a16": 3e-2, "qwen3-30b-a3b": 0.0,
     "llama4-scout": 0.0, "apertus-8b": 0.0, "gemma-2-2b-int8kv": 2e-2, "gemma-2-2b-fp8kv": 2e-2,
-    "deepseek-v2-lite": 0.0,
+    "deepseek-v2-lite": 0.0, "qwen2-vl-2b": 0.0, "gemma-3-4b-mm": 0.0, "gemma-3-4b-mm-fp8kv": 2e-2,
+    "llava-1.5-7b": 0.0, "llama-3.1-8b-fp8": 2e-2,
 }
 # Each adapter must move its rows' logits (max|adapted - base| / max|base|)
 # by at least this many times the engine's kernel-vs-plain reading, so that
@@ -460,12 +490,14 @@ def decode_kernel(q, k, v, ks, vs, pt, lens, scale, cap=None, window=None, sinks
     return paged_decode_attention_quant(q, k, v, ks, vs, pt, lens, scale, cap, window, sinks, chunk)
 
 
-def extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap=None, window=None, sinks=None, chunk=None):
+def extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap=None, window=None, sinks=None, chunk=None,
+                  spans=None):
     from scratchpad_tpu_torch.ops.attention import paged_extend_attention, paged_extend_attention_quant
 
     if ks is None:
-        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale, cap, window, sinks, chunk)
-    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window, sinks, chunk)
+        return paged_extend_attention(q, k, v, pt, kv_lens, cu, scale, cap, window, sinks, chunk, spans)
+    return paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, scale, cap, window, sinks, chunk,
+                                        spans)
 
 
 # kernel of each attention route, by the pages' kind
@@ -1404,6 +1436,77 @@ def check_chunks(errs: dict) -> None:
     log(f"[check] extend with a chunk: worst err/tol {worst:.3f} over {n} cases")
 
 
+# rows 3m and 3qm: the extend kernel's bidirectional image spans (Gemma 3
+# multimodal), through the bf16 and 8-bit wrappers
+EXTEND_SPANS = "paged_extend_attention (spans)"
+EXTEND_SPANS_8BIT = "paged_extend_attention_quant (spans)"
+# (Hkv, G, D): Gemma-3-4B's (the served path), Qwen2-VL-2B's and
+# LLaVA-1.5-7B's groups at D 128 (their engines carry no spans)
+SPAN_SHAPES = ((4, 2, 256), (2, 6, 128), (8, 1, 128))
+SPAN_WINDOWS = (None, 128)  # Gemma 3's local window is 1024: 128 is shorter than a span
+# (q_len, kv_len) a row and its spans, absolute [s0, s1), (0, 0) for none:
+# a 256-token span across several query tiles beside a second span, a span
+# after a cached prefix, a row without spans, a one-token row, a padding row
+SPAN_ROWS = [
+    ((700, 700), [(10, 266), (300, 556)]),
+    ((400, 1000), [(650, 906), (0, 0)]),
+    ((90, 90), [(0, 0), (0, 0)]),
+    ((1, 33), [(0, 0), (0, 0)]),
+    ((0, 0), [(0, 0), (0, 0)]),
+]
+# seven 256-token image spans in a 2,048-token prompt (the timed shape)
+GEMMA3_SPANS = [(16 + 272 * i, 16 + 272 * i + 256) for i in range(7)]
+
+
+def check_spans(errs: dict) -> None:
+    """Rows 3m and 3qm: the extend kernel's span branch over bf16, int8 and
+    fp8 pages at ``SPAN_SHAPES``, without a window and with one of 128
+    (shorter than a span), on ``SPAN_ROWS`` and padding tokens (exact
+    zeros); the spans must move the output (the same call without them), and
+    a call with spans and a chunk is refused."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import paged_extend_attention_plain
+
+    seed, n, worst = 50_000, 0, {EXTEND_SPANS: 0.0, EXTEND_SPANS_8BIT: 0.0}
+    chunks = [r[0] for r in SPAN_ROWS]
+    for kind in ("bf16", "int8", "fp8"):
+        name = EXTEND_SPANS if kind == "bf16" else EXTEND_SPANS_8BIT
+        for Hkv, G, D in SPAN_SHAPES:
+            for window in SPAN_WINDOWS:
+                seed += 1
+                q, k, v, pt, kv_lens, cu = extend_case(chunks, D, sum(c[0] for c in chunks) + 29, seed, G, Hkv)
+                k, v, ks, vs = quant_pages(k, v, kind)
+                spans = torch.tensor([r[1] for r in SPAN_ROWS], dtype=torch.int32, device="cuda")
+                scale, n_real = 1.0 / math.sqrt(D), int(cu[-1])
+                out = extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, window=window, spans=spans)
+                causal = extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale, window=window)
+                ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, scale, ks, vs,
+                                                   sliding_window=window, mm_spans=spans)
+                torch.cuda.synchronize()
+                e, ratio = max_err(out, ref)
+                zero = bool((out[n_real:] == 0).all())
+                moved = float((out.float() - causal.float()).abs().max())
+                errs[name] = max(errs[name], e)
+                worst[name], n = max(worst[name], ratio), n + 1
+                log(
+                    f"[check] extend {kind} spans G={G} Hkv={Hkv} D={D} window={window}: max_abs_err "
+                    f"{e:.3e}, max err/tol {ratio:.3f}, padded tokens zero: {zero}, the spans move the "
+                    f"output by {moved:.3e}"
+                )
+                check(ratio <= 1 and zero, f"{kind} extend kernel with spans disagrees with its plain "
+                                           f"version at G={G} D={D} window={window}")
+                check(moved > 1e-2, f"{kind} extend kernel: the spans do not move the output at G={G} D={D}")
+                del k, v, ks, vs
+    q, k, v, pt, kv_lens, cu = extend_case(chunks, 128, sum(c[0] for c in chunks), seed + 1, 4, 2)
+    try:
+        extend_kernel(q, k, v, None, None, pt, kv_lens, cu, 0.1, chunk=64, spans=spans)
+        check(False, "the extend kernel took spans with a chunk")
+    except ValueError as e:
+        check("chunk" in str(e), f"spans with a chunk: refused for another reason: {e}")
+    log(f"[check] extend with spans: worst err/tol {worst} over {n} cases")
+
+
 def decode_meta(pt, lens):
     """A decode ``ForwardMeta`` over page table ``pt`` and lengths ``lens``,
     for the model-facing ``decode_attention_pallas`` (which reads only those
@@ -2060,13 +2163,15 @@ def time_decode(B: int, ctx: int, D: int = 64, G: int = 4, kind: str = "bf16",
 
 def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None,
                 Hkv: int = 8, sinks: bool = False, chunk: int | None = None,
-                beside_bf16: bool = False) -> dict:
+                beside_bf16: bool = False, spans=None) -> dict:
     """The extend at page 16 over Hkv 8 (or ``Hkv``); with ``window`` (or
     ``chunk``), the bound counts the keys some query's window (or chunk)
     holds and the pairs the windows (chunks) attend. ``sinks`` and
     ``chunk``: as ``time_decode``'s (the library call's mask is then
     ``[1, Hq, q_len, kv_len + 1]``, or the chunk's boolean one), and so is
-    ``beside_bf16``."""
+    ``beside_bf16``. ``spans``: every sequence's bidirectional spans, timed
+    with and without them in turns; the bound counts the pairs they add and
+    the library call takes them in its boolean mask."""
     import torch
     import torch.nn.functional as F
 
@@ -2089,12 +2194,13 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     q = torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
     sk = sink_values("normal", Hkv * G, gen) if sinks else None
+    mm = None if spans is None else torch.tensor([spans] * len(chunks), dtype=torch.int32, device="cuda")
     kern = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale, None,
-                                   window, sk, chunk)
+                                   window, sk, chunk, mm)
     plain = lambda l: paged_extend_attention_plain(
-        q, k[l], v[l], pt, kv_lens, cu, scale, at(ks, l), at(vs, l), None, window, sk, chunk
+        q, k[l], v[l], pt, kv_lens, cu, scale, at(ks, l), at(vs, l), None, window, sk, chunk, mm
     )
-    if sinks or chunk:
+    if sinks or chunk or spans:
         bare = lambda l: extend_kernel(q, k[l], v[l], at(ks, l), at(vs, l), pt, kv_lens, cu, scale, None,
                                        window)
         turns = [device_ms(fn, layers, 10) for fn in (kern, bare, bare, kern)]
@@ -2114,6 +2220,8 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     keep = (j <= p) & (j > p - (window or kl + 1))
     if chunk:
         keep &= j >= p // chunk * chunk
+    for s0, s1 in spans or ():
+        keep |= (p >= s0) & (p < s1) & (j >= s0) & (j < s1)
     if sinks:
         kd, vd = [with_zero_key(t) for t in kd], [with_zero_key(t) for t in vd]
         mask = sink_mask(keep, sk)
@@ -2121,7 +2229,7 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
             qd, kd[l], vd[l], attn_mask=mask, scale=scale, enable_gqa=True
         )
         check_sink_yardstick(lib(0).transpose(1, 2).reshape(T, Hkv * G, D), plain(0), "extend")
-    elif ql == kl and window is None and not chunk:
+    elif ql == kl and window is None and not chunk and not spans:
         lib = lambda l: F.scaled_dot_product_attention(
             qd, kd[l], vd[l], is_causal=True, scale=scale, enable_gqa=True
         )
@@ -2134,10 +2242,14 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     W = window or max(c[1] for c in chunks) + 1
 
     def start(p_):
-        return p_ // chunk * chunk if chunk else max(p_ - W + 1, 0)
+        lo = p_ // chunk * chunk if chunk else max(p_ - W + 1, 0)
+        return min([lo] + [s0 for s0, s1 in spans or () if s0 <= p_ < s1])
 
-    attended = sum(p_ + 1 - start(p_) for q_, k_ in chunks for p_ in range(k_ - q_, k_))
-    live = sum(k_ - start(k_ - q_) for q_, k_ in chunks)
+    def end(p_, k_):  # the last key the query sees
+        return max([p_] + [min(s1, k_) - 1 for s0, s1 in spans or () if s0 <= p_ < s1])
+
+    attended = sum(end(p_, k_) + 1 - start(p_) for q_, k_ in chunks for p_ in range(k_ - q_, k_))
+    live = sum(k_ - min(start(p_) for p_ in range(k_ - q_, k_)) for q_, k_ in chunks)
     kv_bytes = live * Hkv * 2 * (D * elem + (0 if kind == "bf16" else 2))
     nbytes = T * Hkv * G * D * 2 * 2 + kv_bytes + pt.numel() * 4
     flops = 4.0 * attended * Hkv * G * D
@@ -2145,16 +2257,17 @@ def time_extend(chunks, D: int = 64, G: int = 4, kind: str = "bf16", window=None
     r = dict(
         shape=f"{kind} pages, {len(chunks)} x (q_len {ql}, kv_len {kl}) window={window} "
         f"Hq={Hkv * G} Hkv={Hkv} D={D} page={ps}" + (", sinks" if sinks else "")
-        + (f", chunk {chunk}" if chunk else ""),
-        ms=(turns[0] + turns[3]) / 2 if sinks or chunk or beside_bf16 else device_ms(kern, layers, 10),
+        + (f", chunk {chunk}" if chunk else "") + (f", {len(spans)} spans" if spans else ""),
+        ms=(turns[0] + turns[3]) / 2 if sinks or chunk or spans or beside_bf16 else device_ms(kern, layers, 10),
         plain_ms=device_ms(plain, layers, 2, reps=3),
         library_ms=device_ms(lib, layers, 10),
         bound_ms=b,
         bound_by=by,
     )
-    if sinks or chunk or beside_bf16:
-        r["ms_bf16" if beside_bf16 else "ms_without_sinks" if sinks else "ms_without_chunk"] = (
-            (turns[1] + turns[2]) / 2)
+    if sinks or chunk or spans or beside_bf16:
+        key = ("ms_bf16" if beside_bf16 else "ms_without_sinks" if sinks else "ms_without_chunk" if chunk
+               else "ms_without_spans")
+        r[key] = (turns[1] + turns[2]) / 2
     del kd, vd, k, v, k16, v16
     torch.cuda.empty_cache()
     return r
@@ -2612,6 +2725,25 @@ def phase_timing() -> dict:
                 f"{r['ms_without_chunk']:.4f} ms, x{r['ms'] / r['ms_without_chunk']:.4f}); bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library "
                 f"{r['library_ms']:.4f} ms (SDPA, the chunk as a boolean mask)"
+            )
+    # rows 3m and 3qm at Gemma-3-4B's shape (Hkv 4, G 2, D 256): a
+    # 2,048-token prompt holding seven 256-token spans, without a window and
+    # with its local layers' 1024, each timed with and without the spans in
+    # turns; the 8-bit rows on int8 and fp8 pages
+    t[EXTEND_SPANS] = [
+        time_extend([(2048, 2048)], 256, 2, Hkv=4, spans=GEMMA3_SPANS),
+        time_extend([(2048, 2048)], 256, 2, Hkv=4, window=1024, spans=GEMMA3_SPANS),
+    ]
+    t[EXTEND_SPANS_8BIT] = [
+        time_extend([(2048, 2048)], 256, 2, kind, Hkv=4, spans=GEMMA3_SPANS) for kind in ("int8", "fp8")
+    ]
+    for name in (EXTEND_SPANS, EXTEND_SPANS_8BIT):
+        for r in t[name]:
+            log(
+                f"[time] {name} {r['shape']}: {r['ms']:.4f} ms (without the spans, in turns: "
+                f"{r['ms_without_spans']:.4f} ms, x{r['ms'] / r['ms_without_spans']:.4f}); bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library "
+                f"{r['library_ms']:.4f} ms (SDPA, the spans in a boolean mask)"
             )
     for D in (128, 64):
         time_kv_write(D)
@@ -3795,6 +3927,333 @@ def phase_engine(engine, label: str, w4_kernels=(), logits=True, toppings=None,
     return result
 
 
+def log_fp8_bytes(engine) -> None:
+    """The fp8 engine's parameter and buffer bytes against the same model
+    in bf16 (every fp8 code a bf16 weight, its scales gone)."""
+    from scratchpad_tpu_torch.ops.quant.fp8 import Fp8Linear
+
+    runner = engine.scheduler.runner
+    fp8 = [m for m in runner.model.modules() if isinstance(m, Fp8Linear)]
+    codes = sum(m.w8.numel() for m in fp8)
+    scales = sum(m.s.numel() * 4 for m in fp8)
+    bf16 = runner.param_bytes - codes - scales + 2 * codes
+    log(
+        f"[engine llama-3.1-8b-fp8] weights: {runner.param_bytes} B with fp8 projections ({codes} B of "
+        f"codes, {scales} B of f32 scales) against {bf16} B in bf16: x{runner.param_bytes / bf16:.4f}"
+    )
+    check(runner.param_bytes < 0.7 * bf16, "the fp8 engine's weights are not smaller than bf16's")
+
+
+# ---------------------------------------------------------------- vision
+
+# A different image must move the logits of a request by at least this many
+# times the engine's kernel-vs-plain reading; Gemma 3's spans (the same
+# batch with mm_spans left out) the logits of its image requests by
+# SPAN_MOVE times it: the logits are those of the text row after the image,
+# which sees the image rows' change through its own causal attention only
+# (8.5e-2, 5.0e-2 and 6.0e-2 against a reading of 4.7e-3 in a first run)
+IMAGE_MOVE = 10.0
+SPAN_MOVE = 5.0
+# Gemma-3-4B-it's published config.json (huggingface.co/google/gemma-3-4b-it,
+# config.json: its text_config and vision_config, the Gemma3TextConfig
+# defaults it leaves out written in), read through
+# ModelConfig.from_hf_config; the SigLIP tower at its full 27 layers and
+# 896 px (4,096 patches pooled to 256 tokens an image), the decoder cut to
+# GEMMA3_MM_LAYERS of its 34 (five local layers, window 1024, and a global
+# one, then two local) to pay for the vision engines
+GEMMA3_4B_MM = {
+    "architectures": ["Gemma3ForConditionalGeneration"],
+    "boi_token_index": 255999,
+    "eoi_token_index": 256000,
+    "image_token_index": 262144,
+    "mm_tokens_per_image": 256,
+    "text_config": {
+        "vocab_size": 262208,
+        "hidden_size": 2560,
+        "intermediate_size": 10240,
+        "num_hidden_layers": 34,
+        "num_attention_heads": 8,
+        "num_key_value_heads": 4,
+        "head_dim": 256,
+        "max_position_embeddings": 131072,
+        "rms_norm_eps": 1e-6,
+        "rope_theta": 1000000.0,
+        "rope_local_base_freq": 10000.0,
+        "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+        "query_pre_attn_scalar": 256,
+        "sliding_window": 1024,
+        "sliding_window_pattern": 6,
+        "model_type": "gemma3_text",
+    },
+    "vision_config": {
+        "hidden_size": 1152,
+        "image_size": 896,
+        "intermediate_size": 4304,
+        "num_attention_heads": 16,
+        "num_hidden_layers": 27,
+        "patch_size": 14,
+        "layer_norm_eps": 1e-6,
+        "num_channels": 3,
+        "model_type": "siglip_vision_model",
+    },
+}
+GEMMA3_MM_LAYERS = 8
+# LLaVA-1.5-7B's published config.json (huggingface.co/llava-hf/
+# llava-1.5-7b-hf, config.json; its text_config is Vicuna-7B-v1.5's Llama,
+# the LlamaConfig defaults it leaves out written in): CLIP ViT-L/14 at 336
+# px, the features of layer -2 without the class token (576 an image); the
+# decoder cut to LLAVA_LAYERS of its 32, the tower at full depth
+LLAVA_15_7B = {
+    "architectures": ["LlavaForConditionalGeneration"],
+    "image_token_index": 32000,
+    "projector_hidden_act": "gelu",
+    "vision_feature_layer": -2,
+    "vision_feature_select_strategy": "default",
+    "text_config": {
+        "vocab_size": 32064,
+        "hidden_size": 4096,
+        "intermediate_size": 11008,
+        "num_hidden_layers": 32,
+        "num_attention_heads": 32,
+        "num_key_value_heads": 32,
+        "max_position_embeddings": 4096,
+        "rms_norm_eps": 1e-5,
+        "rope_theta": 10000.0,
+        "tie_word_embeddings": False,
+        "model_type": "llama",
+    },
+    "vision_config": {
+        "hidden_size": 1024,
+        "image_size": 336,
+        "intermediate_size": 4096,
+        "num_attention_heads": 16,
+        "num_hidden_layers": 24,
+        "patch_size": 14,
+        "layer_norm_eps": 1e-5,
+        "num_channels": 3,
+        "model_type": "clip_vision_model",
+    },
+}
+LLAVA_LAYERS = 8
+# Llama-3.1-8B with fp8 weights and fp8 KV (BASELINE config 4), cut to
+# FP8_LAYERS of its 32 layers
+FP8_LAYERS = 8
+# Qwen2-VL's special ids (its tokenizer's <|vision_start|>, <|vision_end|>,
+# <|image_pad|>, <|video_pad|>)
+QWEN2_VL_IDS = dict(vstart=151652, vend=151653, image=151655, video=151656)
+VIDEO_FRAMES = 8
+
+
+def mm_logits(runner, req, next_token: int, spans: bool = True):
+    """The model's f32 logits [1, V] after one extend of ``req``'s prompt
+    (its vision rows, 3-D rope table and spans as the scheduler hands them
+    over; ``spans`` False leaves the spans out) and after one decode step of
+    ``next_token``, on pages borrowed from the engine's idle pool."""
+    import numpy as np
+
+    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+    from scratchpad_tpu_torch.executor.model_runner import WorkerBatch
+    from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
+
+    ids = np.asarray(req.origin_input_ids)
+    n, ps = len(ids), runner.page_size
+    pages = runner.page_allocator.alloc(-(-(n + 1) // ps))
+    if pages is None:
+        fail("no free pages for the logits check")
+    try:
+        pos = np.arange(n + 1)
+        loc = pages[pos // ps] * ps + pos % ps
+        mm = {}
+        if req.mm_positions is not None:
+            emb = np.zeros((n, runner.model_config.hidden_size), np.float32)
+            emb[req.mm_positions] = req.mm_features
+            mm["input_embeds"] = emb
+        if req.mrope_table is not None:
+            mm["mrope_positions"] = req.mrope_table
+        if spans and req.mm_spans:
+            mm["mm_spans"] = np.asarray([req.mm_spans], np.int32)
+        common = dict(page_table=pages[None, :].astype(np.int32),
+                      sampling_info=SamplingBatchInfo.from_reqs([], 1, runner.model_config.vocab_size))
+        ext = WorkerBatch(mode=ForwardMode.EXTEND, tokens=ids, positions=pos[:n], out_cache_loc=loc[:n],
+                          req_indices=np.zeros(n, np.int64), seq_lens=np.array([n]), extend_lens=np.array([n]),
+                          **common, **mm)
+        dec = WorkerBatch(mode=ForwardMode.DECODE, tokens=np.array([next_token]), positions=np.array([n]),
+                          out_cache_loc=loc[n:], req_indices=np.zeros(1, np.int64), seq_lens=np.array([n + 1]),
+                          extend_lens=np.ones(1, np.int64), **common,
+                          rope_delta=np.array([req.mrope_delta]) if req.mrope_table is not None else None)
+        return runner.forward_logits(ext), runner.forward_logits(dec)
+    finally:
+        runner.page_allocator.free(pages)
+
+
+def vlm_traffic(engine, label: str):
+    """The engine's requests: (prompt ids, images [N, C, S, S] or None, video
+    frames [T, C, S, S] or None, new tokens), each image a seeded random
+    pixel array in the normalised range: two one-image requests, a request
+    with two images, on Qwen2-VL a video of ``VIDEO_FRAMES`` frames, and a
+    text request; then the first prompt with another image (the radix and
+    image-move checks)."""
+    import numpy as np
+
+    model = engine.scheduler.runner.model
+    S, V = model.vision.image_size, engine.model_config.vocab_size
+    rng = np.random.default_rng(7)
+    text = lambda n: rng.integers(1, min(V, 32000), n).tolist()
+    px = lambda n: rng.standard_normal((n, 3, S, S)).astype(np.float32)
+    if getattr(model, "uses_mrope", False):
+        q = QWEN2_VL_IDS
+        img = lambda: [q["vstart"], q["image"], q["vend"]]
+        traffic = [
+            (text(20) + img() + text(30), px(1), None, 16),
+            (text(5) + img() + text(200), px(1), None, 16),
+            (text(12) + img() + text(7) + img() + text(9), px(2), None, 16),
+            (text(10) + [q["vstart"], q["video"], q["vend"]] + text(15), None, px(VIDEO_FRAMES), 16),
+            (text(300), None, None, 16),
+        ]
+    else:
+        tok = model.image_token_index
+        traffic = [
+            (text(20) + [tok] + text(30), px(1), None, 16),
+            (text(200) + [tok] + text(5), px(1), None, 16),
+            (text(12) + [tok] + text(7) + [tok] + text(9), px(2), None, 16),
+            (text(300), None, None, 16),
+        ]
+    other = px(1)
+    return traffic, (traffic[0][0], other, None, 16)
+
+
+def phase_vlm(engine, label: str, span_move: bool = False) -> dict:
+    """A vision engine's traffic (``vlm_traffic``) through ``Engine.generate``
+    in one batch, every launch count set to 0 just before and read just
+    after: each request's tokens; the extend and decode kernels of the
+    pool's kind launched once a layer and forward (Gemma 3: the extend
+    launches with spans, rows 3m or 3qm, once a layer and extend forward
+    whose batch carries spans); the first prompt with another image reuses
+    only the text before its image and answers otherwise. Then for each
+    request the kernel-path logits (after the extend and one decode step)
+    against the plain path's, with the text engines' gate and argmax rule;
+    the other image must move the first request's logits by ``IMAGE_MOVE``
+    times the worst reading, and with ``span_move`` leaving the spans out
+    must move each image request's by ``SPAN_MOVE`` times it."""
+    import torch
+
+    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+    from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS, reset_launch_counts
+    from scratchpad_tpu_torch.ops.attention import paged_extend_attention, paged_extend_attention_quant
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner = engine.scheduler.runner
+    model = runner.model
+    L = runner.model_config.num_hidden_layers
+    traffic, again = vlm_traffic(engine, label)
+    forwards = {ForwardMode.EXTEND: 0, ForwardMode.DECODE: 0}
+    spanned = [0]  # extend forwards whose batch carries spans
+    inner_forward = model.forward
+
+    def counting_forward(meta, kv):
+        forwards[meta.mode] += 1
+        spanned[0] += meta.mm_spans is not None
+        return inner_forward(meta, kv)
+
+    model.forward = counting_forward
+    sp = lambda m: SamplingParams(temperature=0.0, max_new_tokens=m, ignore_eos=True)
+    engine.flush_cache()
+    t = time.monotonic()
+    reset_launch_counts()
+    try:
+        outs = engine.generate(input_ids=[r[0] for r in traffic], image_data=[r[1] for r in traffic],
+                               video_data=[r[2] for r in traffic], sampling_params=[sp(r[3]) for r in traffic],
+                               return_logprob=True)
+        out2 = engine.generate(input_ids=again[0], image_data=again[1], sampling_params=sp(again[3]),
+                               return_logprob=True)
+        torch.cuda.synchronize()
+    finally:
+        model.forward = inner_forward
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    counts[EXTEND_SPANS] = paged_extend_attention.span_launches
+    counts[EXTEND_SPANS_8BIT] = paged_extend_attention_quant.span_launches
+    wall = time.monotonic() - t
+    n_ext, n_dec = forwards[ForwardMode.EXTEND], forwards[ForwardMode.DECODE]
+    pages = runner.kv_cache_dtype if runner.kv_cache.quantized else "bf16"
+    lens = [len(o.output_ids) for o in outs + [out2]]
+    log(
+        f"[engine {label}] {len(traffic) + 1} requests ({sum(r[1] is not None for r in traffic)} with "
+        f"images, {sum(r[2] is not None for r in traffic)} with a video) in {wall:.1f} s: {n_ext} extend "
+        f"and {n_dec} decode forwards, {spanned[0]} with spans; kernel launches {counts}"
+    )
+    for o, r in zip(outs + [out2], traffic + [again]):
+        check(len(o.output_ids) == r[3] and o.finish_reason == "length",
+              f"{label} request {o.rid}: {len(o.output_ids)} tokens, finish {o.finish_reason}")
+    need = {EXTEND[pages]: L * n_ext, DECODE[pages]: L * n_dec}
+    if span_move:
+        need[EXTEND_SPANS if pages == "bf16" else EXTEND_SPANS_8BIT] = L * spanned[0]
+    for k, n in need.items():
+        check(counts[k] >= n > 0, f"{label}: {k} launched {counts[k]} times, fewer than {n}")
+    check(span_move or counts[EXTEND_SPANS] + counts[EXTEND_SPANS_8BIT] == 0,
+          f"{label}: extend launches with spans on a model without them")
+    image_at = traffic[0][0].index(next(t for t in traffic[0][0] if t in (
+        getattr(model, "image_token_index", -1), QWEN2_VL_IDS["image"])))
+    check(out2.cached_tokens <= image_at, f"{label}: {out2.cached_tokens} cached tokens across another image "
+                                          f"(the image starts at row {image_at})")
+    # random weights repeat a few tokens: the answers differ in their ids or
+    # in the logprobs of their first tokens
+    lp_gap = abs(out2.output_token_logprobs[0] - outs[0].output_token_logprobs[0])
+    check(out2.output_ids != outs[0].output_ids or lp_gap > 1e-3,
+          f"{label}: another image gave the same answer (first logprobs {lp_gap:.3e} apart)")
+    log(f"[engine {label}] the first prompt with another image: {out2.cached_tokens} cached tokens (its image "
+        f"starts at row {image_at}), tokens {'differ' if out2.output_ids != outs[0].output_ids else 'equal'}, "
+        f"the first tokens' logprobs {lp_gap:.3e} apart")
+    # kernel path against the plain path, each request's extend and decode
+    tol = LOGIT_RTOL[label]
+    worst, agree, rows = 0.0, 0, 0
+    kern_rows, span_moves = [], []
+    reqs = [engine._make_req(None, r[0], None, image_data=r[1], video_data=r[2]) for r in traffic + [again]]
+    for req, o in zip(reqs[:-1], outs):
+        kern = mm_logits(runner, req, o.output_ids[0])
+        with PlainPath(model):
+            plain = mm_logits(runner, req, o.output_ids[0])
+        kern_rows.append(kern)
+        if span_move and req.mm_spans:
+            flat = mm_logits(runner, req, o.output_ids[0], spans=False)
+            span_moves.append(max(float((a[0] - b[0]).abs().max() / b[0].abs().max())
+                                  for a, b in zip(kern, flat)))
+        for step in (0, 1):
+            a, b = kern[step][0], plain[step][0]
+            check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{label}: non-finite logits")
+            scale = float(b.abs().max())
+            rel = float((a - b).abs().max()) / scale
+            worst = max(worst, rel)
+            top2 = torch.topk(b, 2).values
+            gap = float(top2[0] - top2[1])
+            tie = gap <= max(math.ldexp(1.0, math.frexp(abs(float(top2[0])))[1] - 8),
+                             ARGMAX_FLOOR[label] * scale)
+            same = bool(a.argmax() == b.argmax())
+            agree, rows = agree + same, rows + 1
+            check(rel <= tol, f"{label}: kernel-path logits differ from the plain path by {rel:.3e} of max |logit|")
+            check(same or tie, f"{label} request {o.rid} step {step}: argmax differs outside a bf16 tie")
+    moved = mm_logits(runner, reqs[-1], outs[0].output_ids[0])
+    image_move = max(float((a[0] - b[0]).abs().max() / b[0].abs().max()) for a, b in zip(moved, kern_rows[0]))
+    log(
+        f"[engine {label}] kernel vs plain logits over {rows} rows: worst max|diff|/max|logit| {worst:.3e} "
+        f"(tol {tol}); argmax agrees on {agree} of {rows}; another image moves the first request's logits "
+        f"by {image_move:.3e} (at least {IMAGE_MOVE} x {worst:.3e})"
+        + (f"; leaving the spans out moves the image requests' by "
+           + ", ".join(f"{m:.3e}" for m in span_moves) + f" (at least {SPAN_MOVE} x {worst:.3e})"
+           if span_move else "")
+    )
+    check(image_move >= IMAGE_MOVE * worst, f"{label}: another image moves the logits by only {image_move:.3e}")
+    for m in span_moves:
+        check(m >= SPAN_MOVE * worst, f"{label}: leaving the spans out moves the logits by only {m:.3e}")
+    check(not span_move or bool(span_moves), f"{label}: no image request to move by the spans")
+    steps = {EXTEND[pages]: n_ext, DECODE[pages]: n_dec, EXTEND_SPANS: spanned[0], EXTEND_SPANS_8BIT: spanned[0]}
+    return dict(
+        counts=counts, by_group={}, steps=steps, worst_logit_rel=worst, image_move=image_move,
+        span_move_min=min(span_moves, default=None), preset=engine.args.preset or runner.model_config.architecture,
+        weights=engine.args.quantization or "bf16", kv_cache_dtype=runner.kv_cache_dtype,
+        attention_backend=runner.attention_backend,
+    )
+
+
 PROFILED_WINDOWS = (2, 5)  # decode windows [2, 5) of the profiled run
 
 
@@ -3915,7 +4374,7 @@ def profiled_run(engine, windows: DecodeWindows, label: str, step_ms: float, tag
 
     windows.before_dispatch, windows.after_fetch = before_dispatch, after_fetch
     try:
-        bench_run(engine, windows, label)
+        ran = bench_run(engine, windows, label)
     finally:
         windows.before_dispatch = windows.after_fetch = None
     if "wall" not in span:
@@ -3924,6 +4383,7 @@ def profiled_run(engine, windows: DecodeWindows, label: str, step_ms: float, tag
         path = Path(d) / "trace.json"
         prof.export_chrome_trace(str(path))
         r = analyze_trace.rollup(analyze_trace.load_events(path))
+    r["output_ids"] = ran["output_ids"]
     busy_us = r["busy_us"]
     if busy_us <= 0:
         log(f"[{tag} {label}] the profiler recorded no device time: busy share not measured")
@@ -3979,11 +4439,11 @@ def phase_engine_times(engine, eng: dict, label: str) -> None:
 
 
 def phase_overlap(engine, label: str = "1b-bf16") -> dict:
-    """The bench batch with overlap on and off, in turns (on, off, on, off),
-    then one profiled run each: decode tokens/s, device ms a step and the
-    busy share of each, on one ``[overlap <label>]`` line. The equal-length
-    greedy batch must give the same tokens both ways. A record, not a
-    target: no speed is claimed."""
+    """The bench batch with overlap on and off, in turns (on, off), then one
+    profiled run each, which must repeat its setting's tokens: decode
+    tokens/s, device ms a step and the busy share of each, on one
+    ``[overlap <label>]`` line. The equal-length greedy batch must give the
+    same tokens both ways. A record, not a target: no speed is claimed."""
     import numpy as np
 
     sched = engine.scheduler
@@ -3993,18 +4453,18 @@ def phase_overlap(engine, label: str = "1b-bf16") -> dict:
     t0 = time.monotonic()
     try:
         with DecodeWindows(sched.runner) as windows:
-            for on in (True, False, True, False):
+            for on in (True, False):
                 sched.args.enable_overlap = on
                 r = bench_run(engine, windows, f"{label} overlap {on}")
                 rates[on].append(r["decode_tok_s"])
-                ids.setdefault(on, r["output_ids"])
-                check(r["output_ids"] == ids[on], f"{label}: two runs with overlap {on} differ")
+                ids[on] = r["output_ids"]
             t_runs = time.monotonic() - t0
             prof = {}
             for on in (True, False):
                 sched.args.enable_overlap = on
                 step_ms = 64 / float(np.mean(rates[on])) * 1e3
                 prof[on] = profiled_run(engine, windows, f"{label} overlap {on}", step_ms, "overlap")
+                check(prof[on][2]["output_ids"] == ids[on], f"{label}: two runs with overlap {on} differ")
     finally:
         sched.args.enable_overlap = saved
     differ = sum(a != b for a, b in zip(ids[True], ids[False]))
@@ -4019,7 +4479,7 @@ def phase_overlap(engine, label: str = "1b-bf16") -> dict:
         )
 
     log(
-        f"[overlap {label}] bs 64, 128+128, runs in turns on/off/on/off: {part(True)}; "
+        f"[overlap {label}] bs 64, 128+128, runs in turns on/off: {part(True)}; "
         f"{part(False)}; greedy tokens equal on {64 - differ} of 64 rows; "
         f"{t_runs:.1f} s timed runs, {time.monotonic() - t0 - t_runs:.1f} s profiled"
     )
@@ -4659,6 +5119,23 @@ KERNELS = {
         source="scratchpad_tpu_torch/csrc/w4a16_matmul.cu",
         replaces="scratchpad_tpu/ops/quant/pallas_w4.py:27 (_w4_kernel, launched :131)",
     ),
+    # rows 3m and 3qm: the span branch (Gemma 3 multimodal), through the
+    # bf16 and 8-bit wrappers (their launches with spans: the gemma-3-4b-mm
+    # and gemma-3-4b-mm-fp8kv engines')
+    EXTEND_SPANS: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_extend_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 (bundled ragged_paged_attention "
+        "via _ragged_call; with image spans the JAX package extends in XLA, xla_backend.py:484-507, "
+        "models/gemma.py:326)",
+    ),
+    EXTEND_SPANS_8BIT: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_extend_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 (bundled ragged_paged_attention "
+        "via _ragged_call; on 8-bit pages with image spans the JAX package extends in XLA, "
+        "xla_backend.py:484-507)",
+    ),
 }
 # the wrapper whose launch count a kernel entry reports, where it is not the
 # entry's own name, and the group size whose launches it counts, where it
@@ -4683,6 +5160,7 @@ KERNEL_ENGINE = {
     DECODE_CHUNK: "llama4-scout", EXTEND_CHUNK: "llama4-scout",
     W4A8_G120: "gpt-oss-w4a8", W4A16_G120: "gpt-oss-w4a16",
     DECODE_256_8BIT: "gemma-2-2b-int8kv", EXTEND_256_8BIT: "gemma-2-2b-int8kv",
+    EXTEND_SPANS: "gemma-3-4b-mm", EXTEND_SPANS_8BIT: "gemma-3-4b-mm-fp8kv",
 }
 
 
@@ -4709,7 +5187,7 @@ def main() -> None:
     errs = {k: 0.0 for k in KERNELS}
     for fn in (check_decode, check_extend, check_window_decode, check_window_extend, check_pallas_decode,
                check_decode_256, check_extend_256, check_decode_256_8bit, check_extend_256_8bit,
-               check_sinks, check_chunks):
+               check_sinks, check_chunks, check_spans):
         timed(fn, errs)
     timed(check_window_sequence_256)
     timed(check_kv_quantizer)
@@ -4917,6 +5395,34 @@ def main() -> None:
     engine = make_engine(model_config=ModelConfig.from_hf_config(
         dict(APERTUS_8B, num_hidden_layers=APERTUS_LAYERS)))
     serve(engine, "apertus-8b", timed=False, requests=UNTIMED_REQUESTS)
+    del engine
+    # the vision engines, untimed: images and a video through the towers,
+    # the vision rows spliced into the decoders, Qwen2-VL's multimodal rope,
+    # Gemma 3's bidirectional spans through rows 3m (bf16 KV) and 3qm (fp8
+    # KV, the same weights)
+    engine = make_engine(preset="qwen2-vl-2b")
+    engines["qwen2-vl-2b"] = timed(phase_vlm, engine, "qwen2-vl-2b")
+    del engine
+    engine = make_engine(model_config=ModelConfig.from_hf_config(
+        dict(GEMMA3_4B_MM, text_config=dict(GEMMA3_4B_MM["text_config"], num_hidden_layers=GEMMA3_MM_LAYERS))))
+    engines["gemma-3-4b-mm"] = timed(phase_vlm, engine, "gemma-3-4b-mm", True)
+    params = engine.scheduler.runner.model.state_dict()
+    cfg = engine.model_config
+    del engine
+    engine = make_engine(kv_cache_dtype="fp8", params=params, model_config=cfg)
+    del params
+    engines["gemma-3-4b-mm-fp8kv"] = timed(phase_vlm, engine, "gemma-3-4b-mm-fp8kv", True)
+    del engine
+    engine = make_engine(model_config=ModelConfig.from_hf_config(
+        dict(LLAVA_15_7B, text_config=dict(LLAVA_15_7B["text_config"], num_hidden_layers=LLAVA_LAYERS))))
+    engines["llava-1.5-7b"] = timed(phase_vlm, engine, "llava-1.5-7b")
+    del engine
+    # Llama-3.1-8B with fp8 weights and fp8 KV (BASELINE config 4), cut in
+    # depth: its weights' bytes against the same layers in bf16
+    engine = make_engine("fp8", kv_cache_dtype="fp8",
+                         model_config=get_preset("llama-3.1-8b", num_hidden_layers=FP8_LAYERS))
+    log_fp8_bytes(engine)
+    serve(engine, "llama-3.1-8b-fp8", timed=False, requests=UNTIMED_REQUESTS)
     del engine
     gc.collect()
     torch.cuda.empty_cache()

@@ -16,7 +16,7 @@ import dataclasses
 from typing import Optional
 
 
-QUANTIZATIONS = (None, "w4a8", "w4a16", "w4", "awq", "gptq", "gptq_v2")
+QUANTIZATIONS = (None, "w4a8", "w4a16", "w4", "awq", "gptq", "gptq_v2", "fp8")
 KV_CACHE_DTYPES = ("auto", "bfloat16", "int8", "fp8")
 ATTENTION_BACKENDS = ("auto", "pallas")
 
@@ -30,8 +30,8 @@ class ServerArgs:
     dtype: str = "bfloat16"
     # None | w4a8 (4-bit weights, per-token int8 activations) | w4a16 (also
     # w4) | awq | gptq | gptq_v2 (import an AutoAWQ/AutoGPTQ int4
-    # checkpoint bit-exact; random weights quantize the random init). fp8
-    # is not ported yet
+    # checkpoint bit-exact; random weights quantize the random init) | fp8
+    # (e4m3 codes with one f32 scale per output channel, quantized at load)
     quantization: Optional[str] = None
     # auto | bfloat16 (the model dtype) | int8 | fp8 (e4m3): 8-bit KV codes
     # with one bf16 scale per (token, head). auto picks int8 for W4 serving
@@ -135,6 +135,12 @@ class ServerArgs:
     # native regex/json FSM engine, its token walk in csrc/fsm.cpp and
     # csrc/pda.cpp
     grammar_backend: str = "native"
+
+    # multimodal chat: the text each image or video part becomes before the
+    # chat template, and the frames sampled from a video
+    mm_image_token: str = "<image>"
+    mm_video_token: str = "<video>"
+    video_frames: int = 8
 
     # observability
     enable_metrics: bool = True  # /metrics, Prometheus text exposition

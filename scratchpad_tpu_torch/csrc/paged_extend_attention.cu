@@ -38,6 +38,17 @@
 // epilogue, against a max that includes it: l' = l 2^(m - m') + 2^(sink -
 // m'), O' = O 2^(m - m'), m' = max(m, sink). Rows with nothing live (and
 // padding rows) stay exact zeros.
+// Bidirectional image spans (Gemma 3 multimodal, rows 3m and 3qm; the JAX
+// package extends it in XLA, xla_backend.py:484-507, the mm_spans mask), a
+// nullable i32 [B, num_spans, 2] argument of absolute [s0, s1) positions,
+// (0, 0) meaning none, never with a chunk: a query at p inside a span also
+// attends every key j < kv_len of that span, which overrides causality and
+// the window. A span holds p, so a row's live keys stay one interval, [min(lo,
+// s0), max(p, s1 - 1)]: each row widens its own bounds, and a tile widens its
+// KV loop to the spans that hold any of its queries (from the smallest s0 to
+// the largest s1). The scheduler keeps a span inside one extend chunk
+// (Req.clamp_chunk_for_spans) and the keys are written before attention, so
+// every key a span needs is in the pool. Decode has no spans.
 //
 // What bounds it: operations at the main path's prefill shapes. A chunk of
 // n new tokens over a cache of c tokens costs about 4 * Hq * D * n * (c +
@@ -79,10 +90,11 @@
 //   - On bf16 pages a compute warpgroup pipelines across tiles: it issues
 //     S_t = Q K_t and the previous tile's O += P V together, and runs tile
 //     t's softmax while that PV is on the tensor cores.
-//   - The KV loop stops at the tile's last causal position and, under a
-//     window or a chunk, starts at the KV tile that holds its first query's
-//     first live position; a thread masks only a tile that crosses its rows'
-//     causal, window or chunk edge, each row by its own bounds.
+//   - The KV loop stops at the tile's last causal position (or its spans'
+//     last key) and, under a window, a chunk or a span, starts at the KV
+//     tile that holds its first live position; a thread masks only a tile
+//     that crosses its rows' causal, window, chunk or span edge, each row by
+//     its own bounds.
 //   - The epilogue normalises by l (rows with l == 0 are exact zeros),
 //     rounds to bf16 and stores 16 bytes a thread through shared memory.
 //   - head_dim 256 (Gemma): the same 64-key tiles, but one
@@ -211,7 +223,8 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out, int num_seqs, int num_tokens,
                     int num_kv_heads, int G, int max_pages, int page_size,
                     float sm_scale, float logit_cap, int window, int chunk,
-                    const float* __restrict__ sinks) {
+                    const float* __restrict__ sinks, const int* __restrict__ mm_spans,
+                    int num_spans) {
   constexpr bool kQuant = !std::is_same_v<CodeT, __nv_bfloat16>;
   using S = Smem<D, kQuant>;
   constexpr int kRing = S::kRing;
@@ -270,11 +283,21 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_rows = n_q * G;
   const int kv_len = kv_lens[s];
   const int ctx = kv_len - q_len;  // cached tokens before this chunk
-  const int kv_end = min(kv_len, ctx + i0 + n_q);  // exclusive bound of kv reads
+  int kv_end = min(kv_len, ctx + i0 + n_q);  // exclusive bound of kv reads
   // the first kv tile any row of this tile may see: the first query's chunk
   // or window
-  const int first_live = chunk > 0 ? (ctx + i0) / chunk * chunk
-                         : window > 0 ? max(ctx + i0 - window + 1, 0) : 0;
+  int first_live = chunk > 0 ? (ctx + i0) / chunk * chunk
+                   : window > 0 ? max(ctx + i0 - window + 1, 0) : 0;
+  const int* spans = mm_spans != nullptr ? mm_spans + (size_t)s * num_spans * 2 : nullptr;
+  if (spans != nullptr) {  // the spans that hold one of this tile's queries
+    for (int m = 0; m < num_spans; ++m) {
+      const int s0 = spans[2 * m], s1 = spans[2 * m + 1];
+      if (s0 < s1 && s0 < ctx + i0 + n_q && s1 > ctx + i0) {
+        kv_end = max(kv_end, min(s1, kv_len));
+        first_live = min(first_live, s0);
+      }
+    }
+  }
   const int kv_begin = first_live / kBK * kBK;
   const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
 
@@ -509,8 +532,18 @@ paged_extend_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
-    lim[i] = row < n_rows ? ctx + i0 + row / G : -1;
-    lo[i] = chunk > 0 ? max(lim[i], 0) / chunk * chunk : window > 0 ? lim[i] - window + 1 : 0;
+    const int p = row < n_rows ? ctx + i0 + row / G : -1;  // the query's position
+    lim[i] = p;
+    lo[i] = chunk > 0 ? max(p, 0) / chunk * chunk : window > 0 ? p - window + 1 : 0;
+    if (spans != nullptr && p >= 0) {  // a span that holds p: its whole range too
+      for (int m = 0; m < num_spans; ++m) {
+        const int s0 = spans[2 * m], s1 = spans[2 * m + 1];
+        if (s0 <= p && p < s1) {
+          lo[i] = min(lo[i], s0);
+          lim[i] = max(lim[i], min(s1, kv_len) - 1);
+        }
+      }
+    }
   }
   // a kv tile inside both rows' bounds needs no mask
   const int thr_hi = min(lim[0], lim[1]);
@@ -749,7 +782,7 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
                          const int* tile_seq, const int* tile_cum, __nv_bfloat16* out,
                          int num_seqs, int num_tokens, int hkv, int G, int max_pages,
                          int page_size, float sm_scale, float logit_cap, int window,
-                         int chunk, const float* sinks) {
+                         int chunk, const float* sinks, const int* mm_spans, int num_spans) {
   constexpr size_t bytes = smem_bytes<D, !std::is_same_v<CodeT, __nv_bfloat16>>();
   if (G > Cta<D>::kRows) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(paged_extend_kernel<D, CodeT>,
@@ -758,7 +791,7 @@ cudaError_t launch_for_d(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, con
   if (err != cudaSuccess) return err;
   paged_extend_kernel<D, CodeT><<<grid, Cta<D>::kThreads, bytes, st>>>(
       q, k, v, ks, vs, pt, kv_lens, cu_q, tile_seq, tile_cum, out, num_seqs, num_tokens, hkv,
-      G, max_pages, page_size, sm_scale, logit_cap, window, chunk, sinks);
+      G, max_pages, page_size, sm_scale, logit_cap, window, chunk, sinks, mm_spans, num_spans);
   return cudaGetLastError();
 }
 
@@ -768,10 +801,13 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
            const void* cu_q_lens, const void* tile_seq, const void* tile_cum, void* out,
            int num_tiles, int num_seqs, int num_tokens, int num_q_heads, int num_kv_heads,
            int head_dim, int max_pages, int page_size, float sm_scale, float logit_cap,
-           int window, int chunk, const void* sinks, void* stream) {
+           int window, int chunk, const void* sinks, const void* mm_spans, int num_spans,
+           void* stream) {
   if (num_tiles == 0 || num_tokens == 0) return 0;
   if (logit_cap < 0.f || window < 0 || chunk < 0) return cudaErrorInvalidValue;
   if (window > 0 && chunk > 0) return cudaErrorInvalidValue;  // one mask or the other
+  // spans with a chunk: no model makes the pair, and the kernel refuses it
+  if (mm_spans != nullptr && (chunk > 0 || num_spans <= 0)) return cudaErrorInvalidValue;
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
   const int G = num_q_heads / num_kv_heads;
   const dim3 grid(num_tiles, num_kv_heads);
@@ -788,27 +824,28 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   const auto* tcp = static_cast<const int*>(tile_cum);
   auto* op = static_cast<__nv_bfloat16*>(out);
   const auto* skp = static_cast<const float*>(sinks);
+  const auto* spp = static_cast<const int*>(mm_spans);
   cudaError_t err;
   switch (head_dim) {
     case 32:
       err = launch_for_d<32>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                             sm_scale, logit_cap, window, chunk, skp);
+                             sm_scale, logit_cap, window, chunk, skp, spp, num_spans);
       break;
     case 64:
       err = launch_for_d<64>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                              num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                             sm_scale, logit_cap, window, chunk, skp);
+                             sm_scale, logit_cap, window, chunk, skp, spp, num_spans);
       break;
     case 128:
       err = launch_for_d<128>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                               num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                              sm_scale, logit_cap, window, chunk, skp);
+                              sm_scale, logit_cap, window, chunk, skp, spp, num_spans);
       break;
     case 256:
       err = launch_for_d<256>(grid, st, qp, kp, vp, ksp, vsp, ptp, klp, cqp, tsp, tcp, op,
                               num_seqs, num_tokens, num_kv_heads, G, max_pages, page_size,
-                              sm_scale, logit_cap, window, chunk, skp);
+                              sm_scale, logit_cap, window, chunk, skp, spp, num_spans);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -832,7 +869,8 @@ extern "C" int paged_extend_tokens_per_tile(int group, int head_dim) {
 // out [T, Hq, D] bf16; logit_cap > 0 caps the scores (0: no cap); window > 0
 // keeps the last window positions up to each query's own (0: all); chunk > 0
 // keeps the positions of the query's own chunk of that many (0: all; not
-// with a window); sinks f32 [Hq] sink logits, or null. Returns a
+// with a window); sinks f32 [Hq] sink logits, or null; mm_spans i32 [B,
+// num_spans, 2] bidirectional spans, or null (not with a chunk). Returns a
 // cudaError_t (0 = launched).
 extern "C" int paged_extend_attention(const void* q, const void* k_cache, const void* v_cache,
                                       const void* page_table, const void* kv_lens,
@@ -841,11 +879,13 @@ extern "C" int paged_extend_attention(const void* q, const void* k_cache, const 
                                       int num_seqs, int num_tokens, int num_q_heads,
                                       int num_kv_heads, int head_dim, int max_pages,
                                       int page_size, float sm_scale, float logit_cap,
-                                      int window, int chunk, const void* sinks, void* stream) {
+                                      int window, int chunk, const void* sinks,
+                                      const void* mm_spans, int num_spans, void* stream) {
   return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, page_table, kv_lens,
                                cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                                num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                               page_size, sm_scale, logit_cap, window, chunk, sinks, stream);
+                               page_size, sm_scale, logit_cap, window, chunk, sinks, mm_spans,
+                               num_spans, stream);
 }
 
 // As paged_extend_attention over 8-bit pages: k_cache, v_cache of int8
@@ -857,18 +897,20 @@ extern "C" int paged_extend_attention_quant(
     const void* tile_seq, const void* tile_cum, void* out, int num_tiles, int num_seqs,
     int num_tokens, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,
     int page_size, int code_type, float sm_scale, float logit_cap, int window, int chunk,
-    const void* sinks, void* stream) {
+    const void* sinks, const void* mm_spans, int num_spans, void* stream) {
   switch (code_type) {
     case 0:
       return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
                             cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                             num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                            page_size, sm_scale, logit_cap, window, chunk, sinks, stream);
+                            page_size, sm_scale, logit_cap, window, chunk, sinks, mm_spans,
+                            num_spans, stream);
     case 1:
       return launch<__nv_fp8_e4m3>(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens,
                                    cu_q_lens, tile_seq, tile_cum, out, num_tiles, num_seqs,
                                    num_tokens, num_q_heads, num_kv_heads, head_dim, max_pages,
-                                   page_size, sm_scale, logit_cap, window, chunk, sinks, stream);
+                                   page_size, sm_scale, logit_cap, window, chunk, sinks, mm_spans,
+                               num_spans, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -53,6 +53,15 @@ class ForwardMeta:
     # request's position in that list; None when no request names an adapter
     active_adapters: torch.Tensor | None = None  # i32[MAX_ACTIVE_TOPPINGS]
     adapter_slots: torch.Tensor | None = None  # i32[B]
+    # multimodal: the vision features of the rows whose ids are negative
+    # placeholders [T, H] (zeros elsewhere); Qwen2-VL's 3-D rope positions
+    # [3, T] for extend rows of image prompts, or the per-request shift of
+    # every later row [B]; Gemma 3's bidirectional image spans, absolute
+    # [start, end) positions [B, M, 2] ((0, 0): none), extend only
+    input_embeds: torch.Tensor | None = None
+    mrope_positions: torch.Tensor | None = None
+    rope_delta: torch.Tensor | None = None
+    mm_spans: torch.Tensor | None = None
     # what the forward returns instead of logits: the final-normed hidden
     # state of each row's last token [B, H] (embeddings), or of every token
     # [T, H] (sequence scoring)

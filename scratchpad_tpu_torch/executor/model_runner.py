@@ -25,7 +25,14 @@ model dtype; 8-bit refused) and attends through
 adapters then carries its slot table in the same upload buffer as the rest
 of its integers. A batch with a custom logit processor carries the
 processors, their row masks (padded to the batch bucket) and their params
-to the sampler, and never runs as a pipelined window.
+to the sampler, and never runs as a pipelined window. For the vision
+models, ``encode_images`` and ``encode_videos`` run the tower and projector
+when a request is made, ``VISION_BATCH`` images at a time, and a batch's
+multimodal fields (vision rows, 3-D rope positions, rope shifts, image
+spans) go up beside its integers; such a batch never runs as a pipelined
+window either. ``quantization="fp8"`` quantizes the dense init on its device
+(``ops/quant/fp8.py``), and the KV pool's sizing leaves the forwards'
+workspace free (``forward_workspace_bytes``).
 """
 
 from __future__ import annotations
@@ -66,9 +73,10 @@ _DTYPES = {
 
 @dataclasses.dataclass
 class WorkerBatch:
-    """Host-side batch handed from the scheduler. The runner refuses a
-    batch that sets a field of ``_UNPORTED_BATCH_FIELDS``: features the port
-    does not have yet."""
+    """Host-side batch handed from the scheduler. The multimodal fields:
+    vision features of the placeholder rows [T_real, H] f32, Qwen2-VL's 3-D
+    positions [3, T_real] or its per-request shift [B_real], Gemma 3's
+    bidirectional spans [B_real, M, 2]."""
 
     mode: ForwardMode
     tokens: np.ndarray  # i32[T_real]
@@ -87,14 +95,6 @@ class WorkerBatch:
     mrope_positions: Optional[np.ndarray] = None
     rope_delta: Optional[np.ndarray] = None
     mm_spans: Optional[np.ndarray] = None
-
-
-_UNPORTED_BATCH_FIELDS = (
-    "input_embeds",
-    "mrope_positions",
-    "rope_delta",
-    "mm_spans",
-)
 
 
 class PendingWindow(NamedTuple):
@@ -122,10 +122,11 @@ def _pow2_bucket(n: int, lo: int, hi: int) -> int:
     return min(b, hi)
 
 
-# quantization -> the model's route: w4a8, or w4a16 for every other W4 name
+# quantization -> the model's route: w4a8, w4a16 for every other W4 name,
+# or fp8
 _QUANT_ROUTE = {
     "w4a8": "w4a8", "w4a16": "w4a16", "w4": "w4a16",
-    "awq": "w4a16", "gptq": "w4a16", "gptq_v2": "w4a16",
+    "awq": "w4a16", "gptq": "w4a16", "gptq_v2": "w4a16", "fp8": "fp8",
 }
 
 
@@ -156,6 +157,13 @@ def resolve_kv_cache_dtype(args: ServerArgs, cfg: ModelConfig, device: torch.dev
         )
         return "int8"
     return args.dtype
+
+
+def kv_budget_bytes(free: int, total: int, mem_fraction: float, workspace: int) -> int:
+    """Bytes the KV pool may take: ``mem_fraction`` of the card less what
+    is already held, less the ``workspace`` that forwards allocate beside
+    the pool (MLA's decode gather, a vision tower's activations)."""
+    return int(total * mem_fraction) - (total - free) - workspace
 
 
 def resolve_device(name: str) -> torch.device:
@@ -206,10 +214,10 @@ class ModelRunner:
         # the JAX runner's quantize_lm_head auto rule: a 4-bit head whenever
         # the decoder weights are 4-bit (a bf16 head is a third of a W4
         # engine's per-step weight reads at tied-embedding models), for the
-        # classes whose logits read it
+        # classes whose logits read it; fp8 leaves the head
         self.model = model_cls(
             cfg, self.device, self.dtype, quantization=quant,
-            quantize_lm_head=quant is not None
+            quantize_lm_head=quant in ("w4a8", "w4a16")
             and getattr(model_cls, "supports_quantized_lm_head", True),
         )
         self.attention_backend = self._set_attention(self.model)
@@ -334,12 +342,30 @@ class ModelRunner:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()  # the dense weights' blocks, before the pool is sized
 
+    # images (or video temporal patches) the vision tower encodes at once
+    VISION_BATCH = 4
+
+    def forward_workspace_bytes(self) -> int:
+        """What a forward allocates beside the pool and the weights that the
+        pool's sizing must leave free: MLA's decode gather bound
+        (``mla_backend.DECODE_GATHER_BYTES``) and the vision tower's peak for
+        ``VISION_BATCH`` images."""
+        from scratchpad_tpu_torch.ops.attention.mla_backend import DECODE_GATHER_BYTES
+
+        ws = DECODE_GATHER_BYTES if self.model_config.is_mla else 0
+        vision = getattr(self.model, "vision", None)
+        if vision is not None:
+            ws += vision.workspace_bytes(self.VISION_BATCH)
+        return ws
+
     def _profile_kv_tokens(self) -> int:
         if self.args.max_total_tokens:
             return self.args.max_total_tokens
         if self.device.type == "cuda":
             free, total = torch.cuda.mem_get_info(self.device)
-            budget = int(total * self.args.mem_fraction_static) - (total - free)
+            budget = kv_budget_bytes(
+                free, total, self.args.mem_fraction_static, self.forward_workspace_bytes()
+            )
             return int(max(budget // self.kv_bytes_per_token(), 4096))
         return 2**16  # CPU default
 
@@ -489,6 +515,7 @@ class ModelRunner:
                 last_token_idx=rows,
                 active_adapters=meta.active_adapters,
                 adapter_slots=meta.adapter_slots,
+                rope_delta=meta.rope_delta,
             )
             logits = self.model(step_meta, self.kv_cache)
             if counts is not None:
@@ -502,6 +529,32 @@ class ModelRunner:
             all_chosen.append(chosen)
             tokens, positions = ids, positions + 1
         return torch.stack(all_ids), torch.stack(all_chosen), tops
+
+    # ----------------------------------------------------------------- vision
+
+    def encode_images(self, pixel_values: np.ndarray) -> np.ndarray:
+        """The model's vision tower and projector: [N, C, S, S] pixels ->
+        f32 [N, tokens, H], ``VISION_BATCH`` images at a time."""
+        if not hasattr(self.model, "encode_images"):
+            raise ValueError(f"{self.model_config.architecture} is not a multimodal model")
+        return self._encode(self.model.encode_images, pixel_values, self.VISION_BATCH)
+
+    def encode_videos(self, frames: np.ndarray) -> np.ndarray:
+        """A video's frames [T, C, S, S] -> f32 [grid_t, tokens, H] (real
+        temporal patches, ``models/qwen2_vl.py::encode_video``),
+        ``VISION_BATCH`` temporal patches at a time."""
+        if not getattr(self.model, "supports_video", False):
+            raise ValueError(f"{self.model_config.architecture} does not support video")
+        return self._encode(self.model.encode_video, frames, self.VISION_BATCH * self.model.vision.tpatch)
+
+    def _encode(self, fn, pixels: np.ndarray, step: int) -> np.ndarray:
+        with torch.inference_mode():
+            px = torch.from_numpy(np.ascontiguousarray(pixels, np.float32))
+            out = [
+                fn(px[i : i + step].to(self.device, self.dtype)).float().cpu()
+                for i in range(0, px.shape[0], step)
+            ]
+        return torch.cat(out).numpy()
 
     def run_embed(self, wb: WorkerBatch) -> np.ndarray:
         """An extend pass that returns each row's L2-normalised last-token
@@ -568,9 +621,6 @@ class ModelRunner:
         ``seq_lens == extend_lens == 0``, write to the dump page 0 and take
         adapter slot 0, the zero adapter. An extend batch keeps its real
         size."""
-        for name in _UNPORTED_BATCH_FIELDS:
-            if getattr(wb, name) is not None:
-                raise NotImplementedError(f"batch field {name} is not ported yet")
         adapters = wb.active_adapters is not None
         if adapters and self.toppings_manager is None:
             raise ValueError("the batch names adapters but no toppings are attached")
@@ -626,6 +676,7 @@ class ModelRunner:
             active_adapters=d32[a : a + S] if adapters else None,
             adapter_slots=d32[a + S : a + S + B] if adapters else None,
         )
+        self._upload_multimodal(wb, meta, B, T)
 
         si = wb.sampling_info
         V = self.model_config.vocab_size
@@ -660,6 +711,28 @@ class ModelRunner:
             else tuple({k: padB(v, 0.0) for k, v in d.items()} for d in si.custom_proc_params),
         )
         return meta, sinfo_host.map_arrays(self._upload), sinfo_host.modes(V)
+
+    def _upload_multimodal(self, wb: WorkerBatch, meta: ForwardMeta, B: int, T: int) -> None:
+        """The batch's multimodal fields on the device, padded to its B and
+        T (padding rows: zero features, positions and spans); the spans go
+        to the extend kernel through ``meta.mm_spans``."""
+        T_real, B_real = len(wb.tokens), len(wb.seq_lens)
+        if wb.input_embeds is not None:
+            emb = np.zeros((T, wb.input_embeds.shape[1]), np.float32)
+            emb[:T_real] = wb.input_embeds
+            meta.input_embeds = self._upload(emb).to(self.dtype)
+        if wb.mrope_positions is not None:
+            mpos = np.zeros((3, T), np.int64)
+            mpos[:, :T_real] = wb.mrope_positions
+            meta.mrope_positions = self._upload(mpos)
+        if wb.rope_delta is not None:
+            delta = np.zeros(B, np.int64)
+            delta[:B_real] = wb.rope_delta
+            meta.rope_delta = self._upload(delta)
+        if wb.mm_spans is not None:
+            spans = np.zeros((B,) + wb.mm_spans.shape[1:], np.int32)
+            spans[:B_real] = wb.mm_spans
+            meta.mm_spans = self._upload(spans)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """``a`` on the runner's device. To the card it goes from a pinned

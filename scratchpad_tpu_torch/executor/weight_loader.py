@@ -126,7 +126,37 @@ def _tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes arrays; numpy has no bf16
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":  # the codes' bits, as they are
+        return torch.from_numpy(np.array(a).view(np.uint8)).view(torch.float8_e4m3fn)
     return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _flat_state(tree: Any, prefix: str) -> dict[str, torch.Tensor]:
+    """A nested dict of numpy leaves as ``state_dict`` entries, the keys
+    joined with dots under ``prefix`` (the vision models' ``vision`` and
+    ``projector`` pytrees keep the JAX names in the port)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_state(v, f"{prefix}.{k}"))
+        return out
+    return {prefix: _tensor(tree)}
+
+
+def _fp8_layer_state(layers_q: dict, num_experts: int) -> dict[str, torch.Tensor]:
+    """The JAX package's ``Fp8Linear`` stacks (numpy ``w8 [L, In, Out]``,
+    ``s [L, Out]``; expert stacks ``[L * E, ...]``, (layer l, expert e) at l *
+    E + e) as the port's ``Fp8Linear`` and ``Fp8ExpertStack`` buffers."""
+    state = {}
+    for key, fl in layers_q.items():
+        w8, sc = _tensor(fl.w8), _tensor(fl.s)
+        if num_experts > 0 and key in _JAX_QUANT_EXPERT_KEYS:
+            E = num_experts
+            w8, sc = w8.view(-1, E, *w8.shape[1:]), sc.view(-1, E, sc.shape[-1])
+        for l in range(w8.shape[0]):
+            state[f"layers.{l}.{key}.w8"] = w8[l].contiguous()
+            state[f"layers.{l}.{key}.s"] = sc[l].contiguous()
+    return state
 
 
 def params_from_jax(
@@ -149,7 +179,11 @@ def params_from_jax(
     shape, so the orientation is an argument and the shapes are checked.
     Quantized stacks come as objects with numpy ``q``, ``s``, ``z`` (nibble
     planes ``[L, In/2, Out]``, ``[L, G, Out]``), ``group_size`` and
-    ``out_true``: the JAX ``QuantizedLinear`` after ``jax.tree.map(np.asarray)``."""
+    ``out_true``: the JAX ``QuantizedLinear`` after ``jax.tree.map(np.asarray)``;
+    or, for fp8, with ``w8`` and ``s`` (the JAX ``Fp8Linear``). The vision
+    models' ``vision`` and ``projector`` pytrees keep their JAX names
+    (``vision.layers.wq``, Qwen2-VL's ``vision.blocks.qkv_w`` and
+    ``vision.merger.w1``)."""
     if cfg.is_mla:
         if transposed:
             raise ValueError("DeepSeek's JAX stacks are never transposed by its runner")
@@ -202,11 +236,18 @@ def params_from_jax(
             if w.shape != out_in[key]:
                 raise ValueError(f"{key}: got {w.shape} after orientation, expected {out_in[key]}")
         state[f"layers.{l}.{name}"] = _tensor(w)
+    raw_q = params_np.get("layers_q", {})
+    fp8 = {k: v for k, v in raw_q.items() if hasattr(v, "w8")}
+    state.update(_fp8_layer_state(fp8, E))
     layers_q = {
         k: QuantizedLinear(_tensor(v.q), _tensor(v.s), _tensor(v.z), v.group_size, v.out_true)
-        for k, v in params_np.get("layers_q", {}).items()
+        for k, v in raw_q.items()
+        if k not in fp8
     }
     state.update(quantized_layer_state(layers_q, E))
+    for tree in ("vision", "projector"):
+        if tree in params_np:
+            state.update(_flat_state(params_np[tree], tree))
     if "lm_head_q" in params_np:
         ql = params_np["lm_head_q"]
         packed = pack_w4(

@@ -2,7 +2,7 @@
 
 Counterpart of ``scratchpad_tpu/models/common.py``: the 4-bit linear layer,
 RMSNorm, SiLU-and-mul, GELU-and-mul and rotary embeddings (half-split and
-interleaved pairs). ``compute_inv_freq``, ``rope_attention_scale`` and
+interleaved pairs) and multimodal rope (``apply_mrope``). ``compute_inv_freq``, ``rope_attention_scale`` and
 DeepSeek's YaRN multiplier (``deepseek_yarn_scale``) are host-side numpy,
 copied unchanged so both packages bake identical frequencies
 (``tests/test_rope.py`` holds the JAX copy to HF).
@@ -257,6 +257,41 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_channel_components(mrope_section: list[int], head_dim: int) -> np.ndarray:
+    """Per-channel component index (0 = t, 1 = h, 2 = w) of multimodal rope,
+    copied from the JAX package: HF splits the doubled cos/sin (size
+    head_dim) into the section list repeated twice and assigns the
+    components round-robin, so the pattern has period head_dim / 2 and the
+    rotate-half pairs (j, j + head_dim / 2) share a component."""
+    comp = np.zeros(head_dim, np.int32)
+    o = 0
+    for i, s in enumerate(list(mrope_section) * 2):
+        comp[o : o + s] = i % 3
+        o += s
+    assert o == head_dim, (mrope_section, head_dim)
+    return comp
+
+
+def mrope_cos_sin(
+    mpos: torch.Tensor,  # i[3, T] (t, h, w) positions
+    inv_freq: torch.Tensor,  # f32[D/2]
+    comp: torch.Tensor,  # i64[D] channel -> component
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rope_cos_sin``'s tables for multimodal 3-D positions: channel j of
+    the half takes the position of its component (the pair j, j + D/2 shares
+    it), so ``apply_rope`` with them is the JAX ``apply_mrope``."""
+    half = inv_freq.shape[0]
+    angles = mpos.float()[comp[:half]].T * inv_freq[None, :]  # [T, D/2]
+    return torch.cos(angles)[:, None, :], torch.sin(angles)[:, None, :]
+
+
+def apply_mrope(x: torch.Tensor, mpos: torch.Tensor, inv_freq: torch.Tensor,
+                comp: torch.Tensor) -> torch.Tensor:
+    """Multimodal 3-D rope (Qwen2-VL), the JAX ``apply_mrope``; equals
+    ``apply_rope`` where the three components are equal (text rows)."""
+    return apply_rope(x, *mrope_cos_sin(mpos, inv_freq, comp))
 
 
 def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,9 @@ Python and each layer hands its own window to the attention call: the
 config's ``sliding_window`` on a local layer, None on a global one. The
 decode and extend kernels take the window per call, so one launch serves
 each layer. Quantization and toppings are refused, as the JAX Gemma has
-neither.
+neither. ``Gemma3ForConditionalGeneration`` adds the SigLIP tower and its
+pooled, normed projection; its image rows enter unscaled and attend each
+other both ways (``ForwardMeta.mm_spans``, read by the extend kernel).
 """
 
 from __future__ import annotations
@@ -84,16 +86,16 @@ class GemmaForCausalLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False):
         super().__init__()
-        unported = [
-            name
-            for name, on in (
-                ("quantization", quantization is not None or quantize_lm_head),
-                ("multimodal", cfg.multimodal),
+        if quantization is not None or quantize_lm_head:
+            raise NotImplementedError(
+                f"Gemma options not ported: quantization={quantization!r} (the JAX Gemma "
+                "classes read no quantized layers)"
             )
-            if on
-        ]
-        if unported:
-            raise NotImplementedError(f"Gemma options not ported: {', '.join(unported)}")
+        if cfg.multimodal and not getattr(self, "is_multimodal", False):
+            raise ValueError(
+                f"{type(self).__name__} is a text model; a vision config needs "
+                "Gemma3ForConditionalGeneration"
+            )
         self.cfg = cfg
         H, V, D = cfg.hidden_size, cfg.vocab_size, cfg.head_dim
         self.embed = skip_init(nn.Embedding, V, H, device=device, dtype=dtype)
@@ -203,8 +205,11 @@ class GemmaForCausalLM(nn.Module):
             True: rope_cos_sin(meta.positions, self.inv_freq_local),
             False: rope_cos_sin(meta.positions, self.inv_freq_global),
         }
-        x = self.embed(meta.tokens)  # [T, H]
+        mm = meta.input_embeds is not None
+        x = self.embed(meta.tokens.clamp_min(0) if mm else meta.tokens)  # [T, H]
         x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype)
+        if mm:  # vision rows (negative placeholder ids) spliced in unscaled, as HF
+            x = torch.where((meta.tokens < 0)[:, None], meta.input_embeds.to(x.dtype), x)
         for l, (layer, window) in enumerate(zip(self.layers, self.layer_windows())):
             h = gemma_rms_norm(x, layer.input_norm, eps)
             q = layer.wq(h).view(T, Hq, D)
@@ -250,3 +255,89 @@ class Gemma3ForCausalLM(GemmaForCausalLM):
     def __init__(self, cfg: ModelConfig, *args, **kwargs):
         cfg.use_qk_norm = True
         super().__init__(cfg, *args, **kwargs)
+
+
+class Gemma3ForConditionalGeneration(Gemma3ForCausalLM):
+    """Gemma 3 multimodal: a SigLIP tower, its patch grid average-pooled to
+    ``mm_tokens_per_image`` soft tokens, a (1 + w) RMS norm and a projector
+    ``[Hv, H]``, and the Gemma 3 text decoder (JAX ``gemma.py:302-420``). An
+    image's rows enter unscaled where text rows are scaled by sqrt(H), and
+    attend each other both ways: the engine gives each request its spans,
+    which the extend kernel reads from ``ForwardMeta.mm_spans`` (rows 3m and
+    3qm), overriding causality and the sliding window."""
+
+    is_multimodal = True
+    bidirectional_image_attention = True
+    # SigLIP's normalisation (mean and std 0.5) instead of CLIP's
+    image_mean = (0.5, 0.5, 0.5)
+    image_std = (0.5, 0.5, 0.5)
+
+    def __init__(self, cfg: ModelConfig, *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        from scratchpad_tpu_torch.models.vision import SigLIPVisionTower
+
+        device, dtype = self.final_norm.device, self.final_norm.dtype
+        mm = cfg.multimodal or {}
+        if "vision_config" not in mm:
+            raise ValueError("Gemma 3 multimodal needs multimodal.vision_config")
+        self.image_token_index = mm.get("image_token_index", 262144)
+        self.vision = SigLIPVisionTower(mm["vision_config"], device, dtype)
+        self.mm_tokens_per_image = mm.get("mm_tokens_per_image", 256)
+        tps = int(round(self.mm_tokens_per_image**0.5))
+        ppi = self.vision.grid
+        if tps * tps != self.mm_tokens_per_image or ppi % tps:
+            raise ValueError(f"{self.mm_tokens_per_image} tokens do not pool a {ppi} x {ppi} grid")
+        self.pool_kernel = ppi // tps
+        self.tokens_per_side = tps
+        Hv, H = self.vision.hidden, cfg.hidden_size
+        self.projector = nn.ParameterDict({
+            "w": nn.Parameter(torch.empty(Hv, H, device=device, dtype=dtype)),
+            "norm": nn.Parameter(torch.empty(Hv, device=device, dtype=dtype)),
+        })
+
+    @property
+    def num_image_tokens(self) -> int:
+        return self.mm_tokens_per_image
+
+    @torch.no_grad()
+    def init_random_(self, generator: torch.Generator) -> None:
+        super().init_random_(generator)
+        self.vision.init_random_(generator)
+        w = self.projector["w"]
+        r = torch.randn(w.shape, generator=generator, device=w.device, dtype=torch.float32)
+        w.copy_(r / math.sqrt(w.shape[0]))
+        self.projector["norm"].zero_()  # the (1 + w) convention
+
+    def convert_hf_state(self, state: dict, dtype=None) -> dict[str, torch.Tensor]:
+        """HF names in either layout (``model.language_model.*`` or the older
+        ``language_model.model.*``); the SigLIP pooling head is unused."""
+        lang, vision, proj = {}, {}, {}
+        for name, w in state.items():
+            if name.startswith("model.language_model."):
+                lang["model." + name[len("model.language_model."):]] = w
+            elif name.startswith("language_model.model."):
+                lang["model." + name[len("language_model.model."):]] = w
+            elif ".vision_tower.vision_model." in name or name.startswith("vision_tower.vision_model."):
+                sub = name.split("vision_tower.vision_model.", 1)[1]
+                if not sub.startswith("head."):
+                    vision[sub] = w
+            elif "multi_modal_projector." in name:
+                proj[name.split("multi_modal_projector.", 1)[1]] = w
+            elif name in ("lm_head.weight", "language_model.lm_head.weight"):
+                pass  # Gemma ties its head
+            else:
+                raise KeyError(f"unmapped HF weight {name}")
+        out = super().convert_hf_state(lang, dtype)
+        out.update(self.vision.convert_hf_state(vision, dtype, prefix="vision."))
+        for key, hf in (("w", "mm_input_projection_weight"), ("norm", "mm_soft_emb_norm.weight")):
+            t = torch.as_tensor(np.asarray(proj[hf]) if not torch.is_tensor(proj[hf]) else proj[hf])
+            out[f"projector.{key}"] = t.to(dtype) if dtype is not None else t  # w is [Hv, H] already
+        return out
+
+    def encode_images(self, px: torch.Tensor) -> torch.Tensor:
+        """[N, C, S, S] -> pooled projected features [N, mm_tokens, H]."""
+        feats = self.vision(px)  # [N, P, Hv]
+        N, _, Hv = feats.shape
+        k, tps = self.pool_kernel, self.tokens_per_side
+        pooled = feats.view(N, tps, k, tps, k, Hv).mean(dim=(2, 4)).reshape(N, tps * tps, Hv)
+        return gemma_rms_norm(pooled, self.projector["norm"], self.vision.eps) @ self.projector["w"]

@@ -37,6 +37,7 @@ from torch import nn
 from scratchpad_tpu_torch.config.model_config import ModelConfig
 from scratchpad_tpu_torch.models.common import rope_attention_scale
 from scratchpad_tpu_torch.models.llama import _linear
+from scratchpad_tpu_torch.ops.quant.fp8 import Fp8ExpertStack
 from scratchpad_tpu_torch.models.mixtral import (
     MoeForCausalLM,
     expert_stack,
@@ -107,6 +108,9 @@ class GptOssForCausalLM(MoeForCausalLM):
         logits = layer.router(h).float()  # [T, E]
         topi = self.top_experts(logits)
         w = routing_weights(torch.softmax(logits.gather(1, topi), dim=-1), topi, E, h.dtype)
+        if isinstance(layer.gate_up, Fp8ExpertStack):  # fp8 stacks: all experts at once
+            gu = layer.gate_up(h) + layer.gate_up_b[:, None]  # [E, T, 2I]
+            return weighted_sum(layer.down(clamped_swiglu(gu)) + layer.down_b[:, None], w)
         if not isinstance(layer.gate_up, nn.ModuleList):  # bf16 stacks: all experts at once
             gu = torch.matmul(h, layer.gate_up) + layer.gate_up_b[:, None]  # [E, T, 2I]
             out = torch.matmul(clamped_swiglu(gu), layer.down) + layer.down_b[:, None]

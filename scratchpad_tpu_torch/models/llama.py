@@ -20,6 +20,11 @@ stays in the model dtype beside 4-bit projections; ``attention_bias``
 (``self.toppings``, the manager's device pools) and a batch that names
 adapters, each projection's output gains its tokens' own adapters
 (``apply_topping``); a batch that names none skips that path.
+``quantization="fp8"`` makes every projection an ``Fp8Linear`` (gate and up
+apart, the head left). For the vision models built on it (LLaVA,
+Qwen2-VL), ``embed_tokens`` takes the batch's vision features on the rows
+of negative placeholder ids, and ``rope_tables`` ropes by Qwen2-VL's 3-D
+positions (``mrope_comp``) or by positions shifted by ``rope_delta``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from torch.nn.utils import skip_init
 from scratchpad_tpu_torch.config.model_config import ModelConfig
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
 from scratchpad_tpu_torch.memory.kv_cache import KVCache
+from scratchpad_tpu_torch.ops.quant.fp8 import Fp8Linear, fp8_state, quantize_fp8_stacked
 from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
 from scratchpad_tpu_torch.ops.quant.w4a16 import (
     quantize_model_params,
@@ -46,6 +52,8 @@ from scratchpad_tpu_torch.models.common import (
     QuantLinear,
     apply_rope,
     compute_inv_freq,
+    mrope_channel_components,
+    mrope_cos_sin,
     rms_norm,
     rope_attention_scale,
     rope_cos_sin,
@@ -68,9 +76,11 @@ def _quant_linear(n_in: int, n_out: int, a8: bool, bias: bool, device, dtype) ->
 
 
 class LlamaDecoderLayer(nn.Module):
-    """``quantization`` set: every projection is a ``QuantLinear``, gate and
-    up fused into one ``gate_up`` (gate | up along Out), as the JAX
-    package's ``quantize_model_params(fuse_gate_up=True)`` stores them."""
+    """``quantization`` w4a8 or w4a16: every projection is a ``QuantLinear``,
+    gate and up fused into one ``gate_up`` (gate | up along Out), as the JAX
+    package's ``quantize_model_params(fuse_gate_up=True)`` stores them;
+    ``fp8``: every projection is an ``Fp8Linear``, gate and up apart, as
+    ``quantize_model_params_fp8`` stores them."""
 
     def __init__(self, cfg: ModelConfig, device, dtype, quantization=None):
         super().__init__()
@@ -79,9 +89,11 @@ class LlamaDecoderLayer(nn.Module):
         b = cfg.attention_bias
         self.input_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.post_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
-        self.fused_gate_up = quantization is not None
+        self.fused_gate_up = quantization in ("w4a8", "w4a16")
         if quantization is None:
             lin = lambda n_in, n_out, bias: _linear(n_in, n_out, bias, device, dtype)
+        elif quantization == "fp8":
+            lin = lambda n_in, n_out, bias: Fp8Linear(n_in, n_out, bias, device, dtype)
         else:
             a8 = quantization == "w4a8"
             lin = lambda n_in, n_out, bias: _quant_linear(n_in, n_out, a8, bias, device, dtype)
@@ -104,7 +116,7 @@ class LlamaForCausalLM(nn.Module):
     """``forward(meta, kv) -> f32 logits [B, V]`` at each row's last token.
 
     ``quantization`` (w4a8, or w4a16 and its aliases) builds the decoder's
-    projections as ``QuantLinear``; ``quantize_lm_head`` adds ``lm_head_q``,
+    projections as ``QuantLinear``, ``fp8`` as ``Fp8Linear``; ``quantize_lm_head`` adds ``lm_head_q``,
     a 4-bit copy of the head (``embed.T`` when tied; an untied ``lm_head``
     is then dropped), while ``embed`` stays in the model dtype for lookups.
     The quantized state comes from ``quantize_state`` or from the JAX
@@ -117,17 +129,10 @@ class LlamaForCausalLM(nn.Module):
         self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False
     ):
         super().__init__()
-        unported = [
-            name
-            for name, on in (
-                ("multimodal", cfg.multimodal),
-                ("mrope", (cfg.rope_scaling or {}).get("mrope_section")),
-            )
-            if on
-        ]
-        if unported:
-            raise NotImplementedError(
-                f"Llama options not ported yet: {', '.join(unported)}"
+        if cfg.multimodal and not getattr(self, "is_multimodal", False):
+            raise ValueError(
+                f"{type(self).__name__} is a text model; {cfg.architecture} with a vision "
+                "config needs its multimodal class"
             )
         self.cfg = cfg
         H, V = cfg.hidden_size, cfg.vocab_size
@@ -151,6 +156,10 @@ class LlamaForCausalLM(nn.Module):
             torch.as_tensor(compute_inv_freq(cfg), device=device),
             persistent=False,
         )
+        # multimodal rope (Qwen2-VL): each channel's component, from the
+        # config's mrope_section
+        section = (cfg.rope_scaling or {}).get("mrope_section")
+        self.set_mrope_section(section, device)
         self.sm_scale = float(rope_attention_scale(cfg) / np.sqrt(cfg.head_dim))
         # attention impls (the model-facing functions of ops.attention), set
         # by the runner from attention_backend
@@ -160,6 +169,15 @@ class LlamaForCausalLM(nn.Module):
 
     def _make_layer(self, device, dtype, quantization) -> nn.Module:
         return LlamaDecoderLayer(self.cfg, device, dtype, quantization)
+
+    def set_mrope_section(self, section, device) -> None:
+        """Rope by 3-D positions on extend rows that carry them (None: none)."""
+        comp = None
+        if section:
+            comp = torch.as_tensor(
+                mrope_channel_components(section, self.cfg.head_dim), dtype=torch.long, device=device
+            )
+        self.register_buffer("mrope_comp", comp, persistent=False)
 
     # ------------------------------------------------------------- parameters
 
@@ -242,22 +260,24 @@ class LlamaForCausalLM(nn.Module):
         package's ``quantize_model_params(fuse_gate_up=True)`` (copied,
         bit-identical codes) and ``pack_w4``; the head through
         ``quantize_stacked``. Layers that arrive quantized (an imported int4
-        checkpoint) are kept as they are. Quantization runs in host numpy;
-        the packing runs on this model's device."""
+        checkpoint) are kept as they are. Quantization and packing run on
+        this model's device."""
         device = self.final_norm.device
         state = dict(state)
+        if isinstance(self.layers[0].wq, Fp8Linear):
+            return self._quantize_state_fp8(state, device)
 
         def packed(ql) -> tuple[torch.Tensor, ...]:
             ql = dataclasses.replace(ql, q=ql.q.to(device), s=ql.s.to(device), z=ql.z.to(device))
             return tuple(t[0] for t in pack_w4(ql))
 
-        def host_in_out(w: torch.Tensor) -> np.ndarray:
-            return w.float().cpu().numpy().T[None]  # [1, in, out]
+        def in_out(w: torch.Tensor) -> torch.Tensor:
+            return w.to(device).T[None]  # [1, in, out]
 
         if self.layers[0].fused_gate_up and "layers.0.wq.weight" in state:
             for l in range(len(self.layers)):
                 dense = {
-                    t: host_in_out(state.pop(f"layers.{l}.{t}.weight"))
+                    t: in_out(state.pop(f"layers.{l}.{t}.weight"))
                     for t in ("wq", "wk", "wv", "wo", "gate", "up", "down")
                 }
                 for t, ql in quantize_model_params(dense, fuse_gate_up=True).items():
@@ -266,11 +286,45 @@ class LlamaForCausalLM(nn.Module):
                         state[f"layers.{l}.{name}.{key}"] = v
         if self.lm_head_q is not None:
             head = state["embed.weight"] if self.cfg.tie_word_embeddings else state.pop("lm_head.weight")
-            for key, v in zip("qsz", packed(quantize_stacked(host_in_out(head)))):
+            for key, v in zip("qsz", packed(quantize_stacked(in_out(head)))):
                 state[f"lm_head_q.{key}"] = v
         return state
 
+    def _quantize_state_fp8(self, state: dict, device) -> dict:
+        """fp8: each layer's ``[out, in]`` weights transposed to ``[1, in,
+        out]`` through ``quantize_fp8_stacked`` on their own device (the JAX
+        package's ``quantize_model_params_fp8``, whose codes it gives bit for
+        bit; gate and up apart, the head left)."""
+        for l in range(len(self.layers)):
+            for t in ("wq", "wk", "wv", "wo", "gate", "up", "down"):
+                codes, scales = quantize_fp8_stacked(state.pop(f"layers.{l}.{t}.weight").T[None])
+                state.update(fp8_state(codes[0], scales[0], f"layers.{l}.{t}", device))
+        return state
+
     # ---------------------------------------------------------------- forward
+
+    def embed_tokens(self, meta: ForwardMeta) -> torch.Tensor:
+        """[T, H]: the embedding of each id, and where a batch carries vision
+        features, those features on the rows whose ids are negative
+        placeholders (clamped to 0 for the lookup: ``nn.Embedding`` raises
+        on a negative id, where JAX's ``take`` clips it)."""
+        if meta.input_embeds is None:
+            return self.embed(meta.tokens)
+        x = self.embed(meta.tokens.clamp_min(0))
+        return torch.where((meta.tokens < 0)[:, None], meta.input_embeds.to(x.dtype), x)
+
+    def rope_tables(self, meta: ForwardMeta, inv_freq: torch.Tensor):
+        """The forward's cos and sin: by 3-D positions on extend rows of
+        image prompts (``mrope_positions``), else by position, shifted by
+        each request's ``rope_delta`` where the batch carries one (the three
+        components are equal past the prompt, so the shifted 1-D rope is
+        exact; JAX ``llama.py:349-363``)."""
+        if self.mrope_comp is not None and meta.mrope_positions is not None:
+            return mrope_cos_sin(meta.mrope_positions, inv_freq, self.mrope_comp)
+        pos = meta.positions
+        if meta.rope_delta is not None:
+            pos = pos + meta.rope_delta[meta.req_indices]
+        return rope_cos_sin(pos, inv_freq)
 
     def forward(self, meta: ForwardMeta, kv: KVCache) -> torch.Tensor:
         cfg = self.cfg
@@ -282,7 +336,7 @@ class LlamaForCausalLM(nn.Module):
             if meta.mode == ForwardMode.DECODE
             else self.extend_attention
         )
-        cos, sin = rope_cos_sin(meta.positions, self.inv_freq)
+        cos, sin = self.rope_tables(meta, self.inv_freq)
         use_toppings = self.toppings is not None and meta.active_adapters is not None
         if use_toppings:
             token_slot = meta.adapter_slots[meta.req_indices]  # i32[T]
@@ -296,7 +350,7 @@ class LlamaForCausalLM(nn.Module):
         def lin(layer, name, h, l):
             return topped(getattr(layer, name)(h), h, name, l)
 
-        x = self.embed(meta.tokens)  # [T, H]
+        x = self.embed_tokens(meta)  # [T, H]
         for l, layer in enumerate(self.layers):
             h = rms_norm(x, layer.input_norm, eps)
             q = lin(layer, "wq", h, l).view(T, Hq, D)

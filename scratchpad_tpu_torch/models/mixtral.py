@@ -35,9 +35,11 @@ runner's auto rule leaves it for classes without
 Both classes decode and extend through the attention kernels
 (``supports_pallas_attention`` True, the JAX runner's default for a class
 that does not set it). Toppings are refused (no JAX MoE model applies
-them), and so are expert parallelism (``_moe_ep``: ``enable_ep`` is refused
-with the rest of distributed serving) and fp8 experts (``quantization``
-``fp8`` is refused with the rest of fp8).
+them), and so is expert parallelism (``_moe_ep``: ``enable_ep`` is refused
+with the rest of distributed serving). ``quantization="fp8"`` (``Fp8Linear``
+attention projections, ``Fp8ExpertStack`` experts, the JAX
+``quantize_model_params_fp8``) runs the experts as the bf16 stacks do, each
+stack upcast to the model dtype in one batched product.
 """
 
 from __future__ import annotations
@@ -62,15 +64,24 @@ from scratchpad_tpu_torch.models.common import (
 )
 from scratchpad_tpu_torch.models.llama import _linear, _quant_linear
 from scratchpad_tpu_torch.ops.attention import write_kv
+from scratchpad_tpu_torch.ops.quant.fp8 import (
+    Fp8ExpertStack,
+    Fp8Linear,
+    fp8_state,
+    quantize_fp8_stacked,
+)
 from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
 from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_model_params
 
 
 def expert_stack(E: int, n_in: int, n_out: int, quantization, device, dtype):
-    """E experts' ``[In, Out]`` matrices: one ``[E, In, Out]`` parameter, or
-    with ``quantization`` one ``QuantLinear`` an expert."""
+    """E experts' ``[In, Out]`` matrices: one ``[E, In, Out]`` parameter,
+    with ``fp8`` one ``Fp8ExpertStack`` (codes ``[E, In, Out]``), or with a
+    4-bit ``quantization`` one ``QuantLinear`` an expert."""
     if quantization is None:
         return nn.Parameter(torch.empty(E, n_in, n_out, device=device, dtype=dtype))
+    if quantization == "fp8":
+        return Fp8ExpertStack(E, n_in, n_out, device)
     a8 = quantization == "w4a8"
     return nn.ModuleList(_quant_linear(n_in, n_out, a8, False, device, dtype) for _ in range(E))
 
@@ -103,6 +114,8 @@ class MoeDecoderLayer(nn.Module):
         self.post_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         if quantization is None:
             lin = lambda n_in, n_out: _linear(n_in, n_out, attn_bias, device, dtype)
+        elif quantization == "fp8":
+            lin = lambda n_in, n_out: Fp8Linear(n_in, n_out, attn_bias, device, dtype)
         else:
             a8 = quantization == "w4a8"
             lin = lambda n_in, n_out: _quant_linear(n_in, n_out, a8, attn_bias, device, dtype)
@@ -140,7 +153,7 @@ class MoeForCausalLM(nn.Module):
             for name, on in (
                 ("quantize_lm_head", quantize_lm_head),
                 ("multimodal", cfg.multimodal),
-                ("quantization", quantization not in (None, "w4a8", "w4a16")),
+                ("quantization", quantization not in (None, "w4a8", "w4a16", "fp8")),
             )
             if on
         ]
@@ -290,20 +303,22 @@ class MoeForCausalLM(nn.Module):
     def quantize_state(self, state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """This quantized model's ``state_dict`` from its unquantized twin's,
         one layer at a time: q, k, v and o (``[1, In, Out]``) and the expert
-        stacks (``[1, E, In, Out]``) through ``quantize_model_params`` in host
-        numpy, as the JAX runner quantizes its ``[L, ...]`` stacks (a 4-D
+        stacks (``[1, E, In, Out]``) through ``quantize_model_params`` on this
+        model's device, as the JAX runner quantizes its ``[L, ...]`` stacks (a 4-D
         stack flattens to ``L * E``, so expert e of layer l holds the codes of
         the JAX stack's slice ``l * E + e``), then ``pack_w4`` on this model's
         device. Biases, norms, sinks, the router and the head stay."""
         device = self.final_norm.device
         state = dict(state)
+        if self.quantization == "fp8":
+            return self._quantize_state_fp8(state, device)
         for l in range(len(self.layers)):
             dense = {
-                t: state.pop(f"layers.{l}.{t}.weight").float().cpu().numpy().T[None]
+                t: state.pop(f"layers.{l}.{t}.weight").to(device).T[None]
                 for t in ("wq", "wk", "wv", "wo")
             }
             for t in self.EXPERT_STACKS:  # [E, In, Out]
-                dense[t] = state.pop(f"layers.{l}.{t}").float().cpu().numpy()[None]
+                dense[t] = state.pop(f"layers.{l}.{t}").to(device)[None]
             for t, ql in quantize_model_params(dense).items():
                 packed = pack_w4(dataclasses.replace(
                     ql, q=ql.q.to(device), s=ql.s.to(device), z=ql.z.to(device)))
@@ -312,6 +327,20 @@ class MoeForCausalLM(nn.Module):
                     name = f"layers.{l}.{t}.{e}" if expert else f"layers.{l}.{t}"
                     for key, v in zip("qsz", qsz):
                         state[f"{name}.{key}"] = v
+        return state
+
+    def _quantize_state_fp8(self, state: dict, device) -> dict:
+        """fp8, as the JAX ``quantize_model_params_fp8``: q, k, v and o
+        (``[1, In, Out]``) and the expert stacks (``[1, E, In, Out]``,
+        flattened to ``E`` codes) through ``quantize_fp8_stacked`` on their
+        device; biases, norms, sinks, the router and the head stay."""
+        for l in range(len(self.layers)):
+            for t in ("wq", "wk", "wv", "wo"):
+                codes, scales = quantize_fp8_stacked(state.pop(f"layers.{l}.{t}.weight").T[None])
+                state.update(fp8_state(codes[0], scales[0], f"layers.{l}.{t}", device))
+            for t in self.EXPERT_STACKS:
+                codes, scales = quantize_fp8_stacked(state.pop(f"layers.{l}.{t}")[None])
+                state.update(fp8_state(codes, scales, f"layers.{l}.{t}", device))
         return state
 
     # ---------------------------------------------------------------- forward
@@ -381,6 +410,8 @@ class MixtralForCausalLM(MoeForCausalLM):
         if self.norm_topk:
             topv = topv / topv.sum(dim=-1, keepdim=True)
         w = routing_weights(topv, topi, E, h.dtype)
+        if isinstance(layer.w1, Fp8ExpertStack):  # fp8 stacks: all experts at once
+            return weighted_sum(layer.w2(silu_mul(layer.w1(h), layer.w3(h))), w)
         if not isinstance(layer.w1, nn.ModuleList):  # bf16 stacks: all experts at once
             act = silu_mul(torch.matmul(h, layer.w1), torch.matmul(h, layer.w3))  # [E, T, I]
             return weighted_sum(torch.matmul(act, layer.w2), w)

@@ -3,7 +3,8 @@
 ``KERNEL_WRAPPERS`` lists every wrapper of the package that launches a
 hand-written CUDA kernel; each carries a ``launches`` count, which it raises
 only where it launches its kernel (the W4 GEMMs also count by group
-size, ``group_launches``). ``decode_attention_pallas`` launches the
+size, ``group_launches``, and the extend wrappers the launches with
+bidirectional spans, rows 3m and 3qm, ``span_launches``). ``decode_attention_pallas`` launches the
 decode kernel through ``paged_decode_attention``, so both counts rise.
 ``decode_ablate`` (the ablation probe) lies on no serving path; the
 kernel-profiling tool ``tools/decode_ablate.py`` launches it.
@@ -49,6 +50,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "group_launches"):
             fn.group_launches = {}
+        if hasattr(fn, "span_launches"):
+            fn.span_launches = 0
 
 
 __all__ = ["KERNEL_WRAPPERS", "reset_launch_counts"]

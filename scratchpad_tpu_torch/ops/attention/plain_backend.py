@@ -115,5 +115,5 @@ def extend_attention_plain(
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     return paged_extend_attention_plain(
         q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale, k_scale, v_scale,
-        logit_cap, sliding_window, sinks, chunk_size,
+        logit_cap, sliding_window, sinks, chunk_size, meta.mm_spans,
     )

@@ -40,6 +40,15 @@ chunk, and a tile that straddles a chunk edge masks each row by its own.
 joins every one of its rows' softmax and carries no value. The JAX package
 extends GPT-OSS in XLA (``models/gpt_oss.py:54``); the port keeps its plain
 path off the card, so the extend kernel takes the sinks.
+
+``mm_spans`` (i32 ``[B, M, 2]`` or None, Gemma 3 multimodal; rows 3m and
+3qm) follows ``xla_backend.extend_attention_xla:484-507``: absolute ``[s0,
+s1)`` ranges, ``(0, 0)`` for none; a query at ``p`` inside a span also
+attends every key ``j < kv_len`` of that span, both ways, whatever the
+causal rule or the window say. The JAX package extends Gemma 3 multimodal
+in XLA (``models/gemma.py:326``); the port's Gemma extends through the
+kernel, which widens each row's bounds to its span and each tile's KV loop
+to the spans of its queries. Spans with a chunk are refused.
 """
 
 from __future__ import annotations
@@ -66,11 +75,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "paged_extend_attention": (
-        [_P] * 9 + [_I] * 8 + [ctypes.c_float, ctypes.c_float, _I, _I, _P, _P],
+        [_P] * 9 + [_I] * 8 + [ctypes.c_float, ctypes.c_float, _I, _I, _P, _P, _I, _P],
         ctypes.c_int,
     ),
     "paged_extend_attention_quant": (
-        [_P] * 11 + [_I] * 9 + [ctypes.c_float, ctypes.c_float, _I, _I, _P, _P],
+        [_P] * 11 + [_I] * 9 + [ctypes.c_float, ctypes.c_float, _I, _I, _P, _P, _I, _P],
         ctypes.c_int,
     ),
     "paged_extend_tokens_per_tile": ([_I, _I], ctypes.c_int),
@@ -93,12 +102,14 @@ def paged_extend_attention_plain(
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,  # f32 [Hq]
     chunk_size: Optional[int] = None,
+    mm_spans: Optional[torch.Tensor] = None,  # i32 [B, M, 2]
 ) -> torch.Tensor:
     """One sequence at a time: gather its live pages (dequantized in f32
     for 8-bit pages), attend in f32 under the tail-aligned causal mask, the
-    window or the chunk, and the sinks, ``QUERY_BLOCK`` queries at a time
-    (a long prompt's score tensor would not fit the card otherwise)."""
+    window or the chunk, the spans and the sinks, ``QUERY_BLOCK`` queries at
+    a time (a long prompt's score tensor would not fit the card otherwise)."""
     _, sliding_window, chunk_size = (a or None for a in mask_args(logit_cap, sliding_window, chunk_size))
+    span_args(mm_spans, chunk_size, kv_lens)
     T, Hq, D = q.shape
     _, ps, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -125,10 +136,35 @@ def paged_extend_attention_plain(
                 live &= pos[None, :] > q_pos[:, None] - sliding_window
             if chunk_size is not None:
                 live &= pos[None, :] >= q_pos[:, None] // chunk_size * chunk_size
+            if mm_spans is not None:  # the same span, both ways (pos < kv_len)
+                s0, s1 = mm_spans[s, :, 0].long(), mm_spans[s, :, 1].long()
+                q_in = (q_pos[:, None] >= s0) & (q_pos[:, None] < s1)  # [t, M]
+                kv_in = (pos[None, :] >= s0[:, None]) & (pos[None, :] < s1[:, None])  # [M, S]
+                live |= (q_in[:, :, None] & kv_in[None]).any(dim=1)
             p = softmax_with_sinks(scores.masked_fill(~live, float("-inf")), sinks, (Hkv, G, 1, 1))
             o = torch.einsum("hgts,shd->thgd", p, v).reshape(n, Hq, D)
             out[t0 : t0 + n] = o.to(q.dtype)
     return out
+
+
+def span_args(mm_spans: Optional[torch.Tensor], chunk_size: Optional[int],
+              kv_lens: torch.Tensor) -> tuple[int, int]:
+    """The kernel's pointer to ``mm_spans`` and its spans a sequence (0, 0
+    for none): contiguous i32 ``[B, M, 2]`` on the batch's device, M >= 1,
+    never with a chunk (no model makes the pair)."""
+    if mm_spans is None:
+        return 0, 0
+    if chunk_size:
+        raise ValueError(f"bidirectional spans and a chunk ({chunk_size}) in one call")
+    B = kv_lens.shape[0]
+    if (mm_spans.dtype != torch.int32 or mm_spans.dim() != 3 or mm_spans.shape[0] != B
+            or mm_spans.shape[2] != 2 or mm_spans.shape[1] < 1 or not mm_spans.is_contiguous()):
+        raise ValueError(
+            f"mm_spans must be contiguous int32 [{B}, M, 2], got {mm_spans.dtype} "
+            f"{tuple(mm_spans.shape)}"
+        )
+    native.check_same_device(kv_lens, mm_spans)
+    return mm_spans.data_ptr(), mm_spans.shape[1]
 
 
 def tile_map(
@@ -162,12 +198,13 @@ def _check(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens
 
 
 def _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale,
-            logit_cap, sliding_window, sinks, chunk_size):
+            logit_cap, sliding_window, sinks, chunk_size, mm_spans):
     """Check the inputs, build the tile map and launch the kernel: the bf16
     entry point without scales, the 8-bit one with them."""
     masks = mask_args(logit_cap, sliding_window, chunk_size)
     _check(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens)
     sinks_ptr = sinks_arg(sinks, q)
+    spans = span_args(mm_spans, masks[2], kv_lens)
     lib = native.load("paged_extend_attention", _SIGNATURES)
     T, Hq, D = q.shape
     Hkv = k_cache.shape[2]
@@ -182,11 +219,11 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_len
     )
     stream = native.stream_handle(q.device)
     if k_scale is None:
-        rc = lib.paged_extend_attention(*head, *tail, float(sm_scale), *masks, sinks_ptr, stream)
+        rc = lib.paged_extend_attention(*head, *tail, float(sm_scale), *masks, sinks_ptr, *spans, stream)
     else:
         rc = lib.paged_extend_attention_quant(
             *head, k_scale.data_ptr(), v_scale.data_ptr(), *tail,
-            CODE_TYPES[k_cache.dtype], float(sm_scale), *masks, sinks_ptr, stream,
+            CODE_TYPES[k_cache.dtype], float(sm_scale), *masks, sinks_ptr, *spans, stream,
         )
     if rc != 0:
         kind = "bf16" if k_scale is None else str(k_cache.dtype)
@@ -206,6 +243,7 @@ def paged_extend_attention(
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
     chunk_size: Optional[int] = None,
+    mm_spans: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """out [T, Hq, D] for the flat ragged batch over bf16 pages (see the
     module docstring and ``csrc/paged_extend_attention.cu``)."""
@@ -214,18 +252,21 @@ def paged_extend_attention(
         return paged_extend_attention_plain(
             q, k_cache, v_cache, page_table, kv_lens, cu_q_lens, sm_scale,
             logit_cap=logit_cap, sliding_window=sliding_window, sinks=sinks, chunk_size=chunk_size,
+            mm_spans=mm_spans,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_extend_attention: unsupported device {q.device}")
     out = _launch(
         q, k_cache, v_cache, None, None, page_table, kv_lens, cu_q_lens, sm_scale,
-        logit_cap, sliding_window, sinks, chunk_size,
+        logit_cap, sliding_window, sinks, chunk_size, mm_spans,
     )
     paged_extend_attention.launches += 1
+    paged_extend_attention.span_launches += mm_spans is not None
     return out
 
 
 paged_extend_attention.launches = 0
+paged_extend_attention.span_launches = 0  # the launches with spans (row 3m)
 
 
 def paged_extend_attention_quant(
@@ -242,6 +283,7 @@ def paged_extend_attention_quant(
     sliding_window: Optional[int] = None,
     sinks: Optional[torch.Tensor] = None,
     chunk_size: Optional[int] = None,
+    mm_spans: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``paged_extend_attention`` over 8-bit pages: the kernel dequantizes
     each K/V element with its (token, head) scale as it stages the tile."""
@@ -251,19 +293,21 @@ def paged_extend_attention_quant(
     if q.device.type == "cpu":
         return paged_extend_attention_plain(
             q, k_cache, v_cache, page_table, kv_lens, cu_q_lens, sm_scale, k_scale, v_scale,
-            logit_cap, sliding_window, sinks, chunk_size,
+            logit_cap, sliding_window, sinks, chunk_size, mm_spans,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_extend_attention_quant: unsupported device {q.device}")
     out = _launch(
         q, k_cache, v_cache, k_scale, v_scale, page_table, kv_lens, cu_q_lens, sm_scale,
-        logit_cap, sliding_window, sinks, chunk_size,
+        logit_cap, sliding_window, sinks, chunk_size, mm_spans,
     )
     paged_extend_attention_quant.launches += 1
+    paged_extend_attention_quant.span_launches += mm_spans is not None
     return out
 
 
 paged_extend_attention_quant.launches = 0
+paged_extend_attention_quant.span_launches = 0  # the launches with spans (row 3qm)
 
 
 def attention_ragged(
@@ -278,14 +322,16 @@ def attention_ragged(
     sinks: Optional[torch.Tensor] = None,
     chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
-    """Model-facing extend attention over one layer of the pool."""
+    """Model-facing extend attention over one layer of the pool; the
+    batch's bidirectional spans (``meta.mm_spans``, Gemma 3 multimodal) go
+    to the kernel with it."""
     k, v, k_scale, v_scale = kv.layer(layer_idx)
     if k_scale is None:
         return paged_extend_attention(
             q, k, v, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale,
-            logit_cap, sliding_window, sinks, chunk_size,
+            logit_cap, sliding_window, sinks, chunk_size, meta.mm_spans,
         )
     return paged_extend_attention_quant(
         q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale,
-        logit_cap, sliding_window, sinks, chunk_size,
+        logit_cap, sliding_window, sinks, chunk_size, meta.mm_spans,
     )

@@ -1,10 +1,13 @@
 """Group-quantized 4-bit weights: the JAX package's storage, copied.
 
-Counterpart of ``scratchpad_tpu/ops/quant/w4a16.py``. The quantization runs in
-host numpy and is a verbatim copy of the JAX package's (``quantize_w4``,
-``quantize_stacked``, ``quantize_model_params``), so both packages produce the
-same codes, bit for bit. Its result keeps the JAX storage ("nibble planes"):
-a weight W[In, Out] is
+Counterpart of ``scratchpad_tpu/ops/quant/w4a16.py``. The quantization is a
+verbatim copy of the JAX package's (``quantize_w4``, ``quantize_stacked``,
+``quantize_model_params``), so both packages produce the same codes, bit for
+bit. ``quantize_stacked`` runs in torch on the weights' own device: every
+step is a min, a max, an IEEE f32 division, a round half to even or a
+clip, which give the JAX package's numpy bits on the CPU and on the card,
+so the engines quantize their weights where they lie. Its result keeps
+the JAX storage ("nibble planes"): a weight W[In, Out] is
 
     q : uint8 [..., In/2, Out]   low nibble  = rows [0, In/2)
                                  high nibble = rows [In/2, In)
@@ -20,13 +23,9 @@ repacks these planes into it.
 from __future__ import annotations
 
 import dataclasses
-import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-
-_THREADS = min(8, os.cpu_count() or 1)
 
 
 @dataclasses.dataclass
@@ -96,54 +95,40 @@ def stacked_out_width(Out: int) -> tuple[int, int]:
 
 
 def quantize_stacked(w_stacked, group_size: int = 128) -> QuantizedLinear:
-    """Quantize a layer-stacked weight [L, In, Out], one layer at a time, in
-    column blocks on several host threads (the codes are the JAX
-    package's).
+    """Quantize a layer-stacked weight [L, In, Out] (a tensor, on its own
+    device; numpy on the CPU), one layer at a time; the codes are the JAX
+    package's.
 
     Expert-stacked weights [L, E, In, Out] flatten (layer, expert) onto the
     leading axis, as in the JAX package."""
-    w = np.asarray(w_stacked)  # keep the source dtype: NO whole-array f32
-    if w.ndim == 4:
+    w = w_stacked if torch.is_tensor(w_stacked) else torch.from_numpy(np.asarray(w_stacked, np.float32))
+    if w.dim() == 4:
         w = w.reshape(-1, *w.shape[2:])
     L, In, Out = w.shape
     g = stacked_group_size(In, group_size)
     G = In // g
-    packed = np.empty((L, In // 2, Out), np.uint8)
-    scale = np.empty((L, G, Out), np.float32)
-    zero = np.empty((L, G, Out), np.float32)
-
-    def block(l: int, c0: int, c1: int) -> None:
-        # columns [c0, c1) of slice l: every step runs column by column, so
-        # a block's codes are those of the whole slice
-        wl = np.asarray(w[l, :, c0:c1], np.float32).reshape(G, g, c1 - c0)
-        wmin = wl.min(axis=1)  # [G, Out]
-        wmax = wl.max(axis=1)
-        sc = np.maximum((wmax - wmin) / 15.0, 1e-8)
-        ze = np.round(-wmin / sc)
-        q = np.clip(
-            np.round(wl / sc[:, None, :]) + ze[:, None, :], 0, 15
-        ).astype(np.uint8).reshape(In, c1 - c0)
-        packed[l, :, c0:c1] = q[: In // 2] | (q[In // 2 :] << 4)
-        scale[l, :, c0:c1] = sc
-        zero[l, :, c0:c1] = ze
-
-    # numpy leaves the GIL in these array passes: each slice runs in column
-    # blocks of at least 128 on the host's cores
-    cols = max(128, -(-Out // _THREADS // 128) * 128)
-    jobs = [(l, c0, min(c0 + cols, Out)) for l in range(L) for c0 in range(0, Out, cols)]
-    with ThreadPoolExecutor(_THREADS) as pool:
-        for f in [pool.submit(block, *job) for job in jobs]:
-            f.result()
+    packed = torch.empty((L, In // 2, Out), dtype=torch.uint8, device=w.device)
+    scale = torch.empty((L, G, Out), dtype=torch.float32, device=w.device)
+    zero = torch.empty_like(scale)
+    for l in range(L):
+        wl = w[l].float().reshape(G, g, Out)
+        wmin, wmax = wl.amin(dim=1), wl.amax(dim=1)
+        # a tensor divisor: CUDA divides by a host scalar through its reciprocal
+        sc = torch.clamp_min((wmax - wmin) / torch.full_like(wmax, 15.0), 1e-8)
+        ze = torch.round(-wmin / sc)
+        q = torch.clamp(torch.round(wl / sc[:, None, :]) + ze[:, None, :], 0, 15)
+        q = q.to(torch.uint8).reshape(In, Out)
+        packed[l] = q[: In // 2] | (q[In // 2 :] << 4)
+        scale[l], zero[l] = sc, ze
     stored, out_true = stacked_out_width(Out)
-    if out_true:
-        # padded columns dequantize to exactly zero; callers slice them off
+    if out_true:  # padded columns dequantize to exactly zero; callers slice them off
         pad = stored - Out
-        packed = np.pad(packed, ((0, 0), (0, 0), (0, pad)))
-        scale = np.pad(scale, ((0, 0), (0, 0), (0, pad)), constant_values=1.0)
-        zero = np.pad(zero, ((0, 0), (0, 0), (0, pad)))
+        packed = torch.nn.functional.pad(packed, (0, pad))
+        scale = torch.nn.functional.pad(scale, (0, pad), value=1.0)
+        zero = torch.nn.functional.pad(zero, (0, pad))
     return QuantizedLinear(
-        q=torch.from_numpy(packed), s=_bf16(scale), z=_bf16(zero),
-        group_size=g, out_true=out_true,
+        q=packed, s=scale.to(torch.bfloat16), z=zero.to(torch.bfloat16), group_size=g,
+        out_true=out_true,
     )
 
 
@@ -169,17 +154,16 @@ QUANT_TARGETS = (
 def quantize_model_params(
     layers: dict, group_size: int = 128, fuse_gate_up: bool = False
 ) -> dict[str, QuantizedLinear]:
-    """The quantized stacks of a dict of ``[L, In, Out]`` numpy stacks, by
-    target name, as ``params["layers_q"]`` of the JAX package's function.
+    """The quantized stacks of a dict of ``[L, In, Out]`` stacks (numpy, or
+    tensors quantized on their device), by target name, as ``params["layers_q"]`` of the JAX package's function.
     ``fuse_gate_up`` concatenates gate|up along Out into one stack,
     ``gate_up_f``: quantization runs along In, so each column's codes are
     those of quantizing gate and up apart."""
     layers = dict(layers)
     layers_q = {}
     if fuse_gate_up and "gate" in layers and "up" in layers:
-        g = np.asarray(layers.pop("gate"))
-        u = np.asarray(layers.pop("up"))
-        layers_q["gate_up_f"] = quantize_stacked(np.concatenate([g, u], axis=-1), group_size)
+        g, u = (torch.as_tensor(layers.pop(t)) for t in ("gate", "up"))
+        layers_q["gate_up_f"] = quantize_stacked(torch.cat([g, u], dim=-1), group_size)
     for t in QUANT_TARGETS:
         if t in layers:
             layers_q[t] = quantize_stacked(layers.pop(t), group_size)

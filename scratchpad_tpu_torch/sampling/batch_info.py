@@ -119,7 +119,10 @@ class SamplingBatchInfo:
                         np.asarray(r.output_ids, np.int64), return_counts=True
                     )
                     out_counts[i, ids] = counts
-                in_mask[i, np.asarray(r.origin_input_ids, np.int64)] = True
+                # a vision prompt's placeholders are negative ids: they
+                # mark no token of the vocabulary
+                ids = np.asarray(r.origin_input_ids, np.int64)
+                in_mask[i, ids[ids >= 0]] = True
         procs = mask = pparams = None
         if any(r.sampling_params.custom_logit_processor is not None for r in reqs):
             groups: dict = {}  # processor -> its rows, in the order first seen

@@ -186,10 +186,19 @@ class AsyncEngineRunner:
         rid: Optional[str] = None,
         return_logprob: bool = False,
         stream: bool = False,
+        image_data=None,
+        video_data=None,
     ):
         """Async generator yielding ("delta", str) items, then ("done",
-        GenerationOutput) or ("error", message)."""
-        req = self.engine._make_req(prompt, input_ids, sampling_params, return_logprob, rid=rid)
+        GenerationOutput) or ("error", message). A request with images or a
+        video is made on the scheduler thread, whose model encodes them."""
+        if image_data is None and video_data is None:
+            req = self.engine._make_req(prompt, input_ids, sampling_params, return_logprob, rid=rid)
+        else:
+            req = await self.call(lambda: self.engine._make_req(
+                prompt, input_ids, sampling_params, return_logprob, rid=rid,
+                image_data=image_data, video_data=video_data,
+            ))
         req.stream = stream
         st = self._submit(req)
         try:

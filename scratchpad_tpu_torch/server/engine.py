@@ -5,11 +5,14 @@ host: the engine owns the Scheduler in-process and pumps its step loop.
 The port has ``generate``, ``generate_stream``, per-request toppings
 (``register_topping``, then ``generate(..., topping=name)``), embeddings
 (``encode``), teacher-forced scoring (``score``, ``perplexity``),
-multi-turn sessions and constrained decoding (``SamplingParams``'s
+multi-turn sessions, constrained decoding (``SamplingParams``'s
 ``regex``, ``json_schema``, ``ebnf`` and ``structural_tag``, through the
-grammar backend of ``constrained/`` once a tokenizer is loaded); images and
-videos are refused, and so are ``update_weights`` and ``resize_kv_pool``
-(not ported yet). The HTTP server
+grammar backend of ``constrained/`` once a tokenizer is loaded) and, for
+the vision models, ``image_data`` and ``video_data``: the tower encodes
+them when the request is made, and each placeholder id expands into
+negative ids hashed from the content (so the radix cache never aliases two
+images) whose rows take the features. ``update_weights`` and
+``resize_kv_pool`` are refused (not ported yet). The HTTP server
 drives the same engine from its async runner's thread
 (``server/async_runner.py``).
 """
@@ -18,12 +21,15 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import json
 import math
 import os
 import time
 import uuid
 from typing import Any, Iterator, Optional, Union
+
+import numpy as np
 
 from scratchpad_tpu_torch.config import ModelConfig, ServerArgs
 from scratchpad_tpu_torch.config.model_config import get_preset
@@ -171,8 +177,6 @@ class Engine:
         image_data=None,
         video_data=None,
     ) -> Req:
-        if image_data is not None or video_data is not None:
-            raise NotImplementedError("images and videos are not ported yet")
         sp = sampling_params or SamplingParams()
         gk = sp.grammar_key()
         if gk is not None and self.grammar_backend is None:
@@ -180,6 +184,18 @@ class Engine:
         if input_ids is None:
             assert prompt is not None and self.tokenizer is not None
             input_ids = self.tokenizer.encode(prompt)
+        if any(t < 0 for t in input_ids):
+            # negative ids are the vision rows' placeholders, which only
+            # image_data and video_data make (the embedding cannot look
+            # one up)
+            raise ValueError("input_ids must be non-negative token ids")
+        mm = {}
+        if image_data is not None and video_data is not None:
+            raise ValueError("one request carries images or one video, not both")
+        if video_data is not None:
+            input_ids, mm = self._prepare_video(list(input_ids), video_data)
+        elif image_data is not None:
+            input_ids, mm = self._prepare_multimodal(list(input_ids), image_data)
         topping_idx = 0
         if topping:
             if self.toppings_manager is None:
@@ -192,10 +208,147 @@ class Engine:
             eos_token_ids=self.eos_token_ids,
             return_logprob=return_logprob,
             topping_idx=topping_idx,
+            **mm,
         )
         if gk is not None:
             req.grammar = self.grammar_backend.get_grammar(*gk)
         return req
+
+    # ------------------------------------------------------------ multimodal
+
+    def _vision_model(self, what: str):
+        model = self.scheduler.runner.model
+        if not getattr(model, "is_multimodal", False):
+            raise ValueError(f"{self.model_config.architecture} does not accept {what}")
+        return model
+
+    def preprocess_image(self, img) -> np.ndarray:
+        """A PIL image -> normalised f32 [3, S, S] pixels at the model's
+        resolution (SigLIP's mean and std for Gemma 3, CLIP's otherwise)."""
+        from scratchpad_tpu_torch.multimodal import preprocess_clip
+
+        model = self._vision_model("images")
+        if hasattr(model, "image_mean"):
+            return preprocess_clip(
+                img, model.vision.image_size,
+                mean=np.asarray(model.image_mean, np.float32),
+                std=np.asarray(model.image_std, np.float32),
+            )
+        return preprocess_clip(img, model.vision.image_size)
+
+    @staticmethod
+    def _content_hash(px: np.ndarray) -> int:
+        return int.from_bytes(hashlib.blake2b(px.tobytes(), digest_size=8).digest(), "little")
+
+    def _check_size(self, model, px: np.ndarray, what: str) -> None:
+        S = model.vision.image_size
+        if px.shape[2:] != (S, S):
+            raise ValueError(
+                f"{what} are {px.shape[2]}x{px.shape[3]} but {self.model_config.architecture} "
+                f"expects {S}x{S} pixels (use Engine.preprocess_image)"
+            )
+
+    def _prepare_multimodal(self, input_ids: list[int], image_data):
+        """Encode the images [N, C, S, S] (or one [C, S, S]) and splice them
+        into the prompt (JAX ``engine.py:414-530``): each image token expands
+        into the image's rows (or, in a prompt that arrives expanded, each
+        token is one row), whose ids are ``-1 - pid``, pid hashed from the
+        image's pixels (blake2b) plus the row; the features ride on the
+        request. Qwen2-VL gets its 3-D rope table, Gemma 3 its spans."""
+        model = self._vision_model("images")
+        px = np.asarray(image_data, np.float32)
+        if px.ndim == 3:
+            px = px[None]
+        if px.ndim != 4:
+            raise ValueError("image_data must be [N, C, H, W] pixel values")
+        self._check_size(model, px, "images")
+        feats = self.scheduler.runner.encode_images(px)  # [N, P, H]
+        N, Pn, H = feats.shape
+        img_tok = model.image_token_index
+        n_ph = sum(1 for t in input_ids if t == img_tok)
+        if n_ph == N * Pn:
+            expand = 1  # the prompt arrived expanded (HF-processor style)
+        elif n_ph == N:
+            expand = Pn
+        else:
+            raise ValueError(f"prompt has {n_ph} image tokens for {N} images ({Pn} rows each)")
+        hashes = [self._content_hash(px[i]) for i in range(N)]
+        out_ids: list[int] = []
+        positions: list[int] = []
+        spans: list[tuple[int, int]] = []  # (start row, rows) an image
+        consumed = 0
+        for t in input_ids:
+            if t != img_tok:
+                out_ids.append(t)
+                continue
+            if expand == 1:
+                img_i, patch0 = divmod(consumed, Pn)
+                if patch0 == 0:
+                    spans.append((len(out_ids), Pn))
+            else:
+                img_i, patch0 = consumed, 0
+                spans.append((len(out_ids), Pn))
+            for j in range(expand):
+                positions.append(len(out_ids))
+                out_ids.append(-1 - (hashes[img_i] + patch0 + j) % (2**30))
+            consumed += 1
+        mm = dict(mm_positions=np.asarray(positions, np.int64), mm_features=feats.reshape(N * Pn, H))
+        if getattr(model, "uses_mrope", False):
+            mm["mrope_table"], mm["mrope_delta"] = model.compute_mrope(out_ids, spans)
+        if getattr(model, "bidirectional_image_attention", False):
+            mm["mm_spans"] = [(s0, s0 + n) for s0, n in spans]
+        return out_ids, mm
+
+    def _prepare_video(self, input_ids: list[int], video_data):
+        """Encode a video's frames [T, C, S, S] and splice them into the
+        prompt (JAX ``engine.py:336-412``): the one video token (or a run of
+        grid_t x rows of them) expands into content-hashed ids, and the
+        mrope time axis advances a temporal patch at a time."""
+        model = self.scheduler.runner.model
+        if not getattr(model, "supports_video", False):
+            raise ValueError(f"{self.model_config.architecture} does not accept video_data")
+        px = np.asarray(video_data, np.float32)
+        if px.ndim != 4:
+            raise ValueError("video_data must be [T, C, H, W] frame pixels")
+        self._check_size(model, px, "video frames")
+        feats = self.scheduler.runner.encode_videos(px)  # [grid_t, P, H]
+        T, Pn, H = feats.shape
+        vid_tok = model.video_token_index
+        n_ph = sum(1 for t in input_ids if t == vid_tok)
+        if n_ph == 1:
+            expand = T * Pn
+        elif n_ph == T * Pn:
+            expand = 1
+            first = input_ids.index(vid_tok)
+            if any(t != vid_tok for t in input_ids[first : first + T * Pn]):
+                raise ValueError("pre-expanded video tokens must form one contiguous run")
+        else:
+            raise ValueError(
+                f"prompt has {n_ph} video tokens for a {T}-patch video ({Pn} rows a patch); "
+                f"send 1 or {T * Pn}"
+            )
+        vhash = self._content_hash(px)
+        out_ids: list[int] = []
+        positions: list[int] = []
+        spans: list[tuple] = []
+        consumed = 0
+        for t in input_ids:
+            if t != vid_tok:
+                out_ids.append(t)
+                continue
+            if consumed == 0:
+                spans.append((len(out_ids), T * Pn, T))
+            for j in range(expand):
+                positions.append(len(out_ids))
+                out_ids.append(-1 - (vhash + consumed * expand + j) % (2**30))
+            consumed += 1
+        table, delta = model.compute_mrope(out_ids, spans)
+        return out_ids, dict(
+            mm_positions=np.asarray(positions, np.int64),
+            mm_features=feats.reshape(T * Pn, H),
+            mrope_table=table,
+            mrope_delta=delta,
+        )
 
     # ------------------------------------------------------------ sync API
 
@@ -208,10 +361,14 @@ class Engine:
         ] = None,
         return_logprob: bool = False,
         topping: Optional[Union[str, list]] = None,
+        image_data=None,
+        video_data=None,
     ) -> Union[GenerationOutput, list[GenerationOutput]]:
         """Blocking generation for one prompt or a batch. ``topping``: the
         registered adapter of every prompt, or a list of one per prompt
-        (None for the base model)."""
+        (None for the base model). ``image_data``: pixels [N, C, H, W] (see
+        ``preprocess_image``), or a list of such, one a prompt;
+        ``video_data``: frames [T, C, H, W], or a list of one a prompt."""
         batched = isinstance(prompt, list) or (
             input_ids is not None
             and len(input_ids) > 0
@@ -230,14 +387,17 @@ class Engine:
             else [sampling_params] * len(prompts)
         )
         tops = topping if isinstance(topping, list) else [topping] * len(prompts)
+        imgs = image_data if isinstance(image_data, list) else [image_data] * len(prompts)
+        vids = video_data if isinstance(video_data, list) else [video_data] * len(prompts)
         # parallel sampling (n > 1): pre-cache each prompt's prefix with a
         # zero-token warmup request, then expand into n stochastic clones
         if any(s is not None and s.n > 1 for s in sps):
             warmups = [
                 self._make_req(
-                    p, i, dataclasses.replace(s, max_new_tokens=0, n=1), topping=t
+                    p, i, dataclasses.replace(s, max_new_tokens=0, n=1), topping=t,
+                    image_data=im, video_data=vd,
                 )
-                for p, i, s, t in zip(prompts, idss, sps, tops)
+                for p, i, s, t, im, vd in zip(prompts, idss, sps, tops, imgs, vids)
                 if s is not None and s.n > 1
             ]
             for r in warmups:
@@ -245,8 +405,8 @@ class Engine:
             while any(not r.finished() for r in warmups):
                 if not self.scheduler.step() and not self.scheduler.has_work():
                     break
-            new = ([], [], [], [])
-            for p, i, s, t in zip(prompts, idss, sps, tops):
+            new = ([], [], [], [], [], [])
+            for p, i, s, t, im, vd in zip(prompts, idss, sps, tops, imgs, vids):
                 reps = s.n if s is not None else 1
                 for _ in range(reps):
                     new[0].append(p)
@@ -255,11 +415,13 @@ class Engine:
                         dataclasses.replace(s, n=1) if s is not None else None
                     )
                     new[3].append(t)
-            prompts, idss, sps, tops = new
+                    new[4].append(im)
+                    new[5].append(vd)
+            prompts, idss, sps, tops, imgs, vids = new
             batched = True
         reqs = [
-            self._make_req(p, i, s, return_logprob, topping=t)
-            for p, i, s, t in zip(prompts, idss, sps, tops)
+            self._make_req(p, i, s, return_logprob, topping=t, image_data=im, video_data=vd)
+            for p, i, s, t, im, vd in zip(prompts, idss, sps, tops, imgs, vids)
         ]
         for r in reqs:
             self.scheduler.add_request(r)

@@ -9,9 +9,12 @@ keys. Constrained decoding is served: ``regex``, ``ebnf`` and
 ``json_schema`` on completions and chat, and chat's ``response_format``
 ``json_object``, ``json_schema`` and ``structural_tag``. A custom logit
 processor is decoded behind ``--enable-custom-logit-processor`` and
-answers 400 without it, as the JAX server does. What the port does not have
-is refused explicitly: images and video answer 400, ``/update_weights`` and
-a ``/memory_pool`` resize answer 501. The handlers await the async runner's streams; the
+answers 400 without it, as the JAX server does. Chat takes ``image_url``,
+``image``, ``video_url`` and ``video`` parts (a ``data:`` URL, raw base64
+or a local path; a remote URL, a model without vision or a missing
+decoding library answer 400), decoded off the event loop and encoded on
+the scheduler thread. What the port does not have is refused explicitly:
+``/update_weights`` and a ``/memory_pool`` resize answer 501. The handlers await the async runner's streams; the
 engine itself runs on the runner's scheduler thread.
 """
 
@@ -66,10 +69,6 @@ _REASONS = {
     501: "Not Implemented",
 }
 MAX_BODY = 64 << 20
-
-
-class NotPorted(ValueError):
-    """A request that asks for a feature the port does not have (400)."""
 
 
 def _sampling_from(req, max_tokens: int, allow_custom_logit: bool = False) -> SamplingParams:
@@ -357,8 +356,6 @@ class ServerApp:
                 return json_response(dump(ErrorResponse(message="invalid api key", code=401)), 401)
         try:
             return await handler(req, writer)
-        except NotPorted as e:
-            return self._bad_request(str(e))
         except (ConnectionError, asyncio.CancelledError):
             raise
         except Exception as e:  # a fault of the server: 500, with the message
@@ -656,9 +653,31 @@ class ServerApp:
 
     # ------------------------------------------------------ chat completions
 
-    def _flatten_content(self, messages: list[ChatMessage]) -> None:
-        """Text parts join into the message's content; image and video parts
-        are refused (the vision models are not ported)."""
+    def _decode_preprocess_image(self, src):
+        from scratchpad_tpu_torch.multimodal import decode_image
+
+        return self.engine.preprocess_image(decode_image(src))
+
+    def _decode_preprocess_video(self, src):
+        import numpy as np
+
+        from scratchpad_tpu_torch.multimodal.video import decode_video
+
+        frames = decode_video(src, num_frames=self.args.video_frames)
+        return np.stack([self.engine.preprocess_image(f) for f in frames])
+
+    async def _extract_media(self, messages: list[ChatMessage]):
+        """Text parts join into the message's content; an ``image_url`` or
+        ``image`` part becomes ``mm_image_token`` in it and a ``video_url`` or
+        ``video`` part ``mm_video_token`` (JAX ``http_server.py:460-520``).
+        Returns (images [N, C, S, S] or None, video frames [T, C, S, S] or
+        None), decoded and preprocessed in worker threads, all images of the
+        request at once. Raises ``ValueError`` (400): media for a model
+        without vision, images and a video together, two videos, a remote
+        URL, a payload that does not decode, a missing decoding library."""
+        import numpy as np
+
+        images, video = [], None
         for m in messages:
             if not isinstance(m.content, list):
                 continue
@@ -668,11 +687,31 @@ class ServerApp:
                 if ptype == "text":
                     texts.append(part.get("text", ""))
                 elif ptype in ("image_url", "image", "video_url", "video"):
-                    raise NotPorted(
-                        f"{ptype} content is not ported to scratchpad_tpu_torch yet "
-                        "(ROADMAP Queue 1, item 8)"
-                    )
+                    url = part.get("image_url" if ptype.startswith("image") else "video_url")
+                    src = (url.get("url") if isinstance(url, dict) else url) or part.get(ptype)
+                    if ptype.startswith("image"):
+                        images.append(src)
+                        texts.append(self.args.mm_image_token)
+                    elif video is not None:
+                        raise ValueError("one video per request")
+                    else:
+                        video = src
+                        texts.append(self.args.mm_video_token)
             m.content = "".join(texts)
+        if not images and video is None:
+            return None, None
+        if not getattr(self.engine.scheduler.runner.model, "is_multimodal", False):
+            raise ValueError(
+                f"{self.engine.model_config.architecture} does not accept images or video"
+            )
+        if images and video is not None:
+            raise ValueError("a request carries images or one video, not both")
+        if video is not None:
+            return None, await asyncio.to_thread(self._decode_preprocess_video, video)
+        pixels = await asyncio.gather(
+            *[asyncio.to_thread(self._decode_preprocess_image, src) for src in images]
+        )
+        return np.stack(pixels), None
 
     def _apply_chat_template(self, messages: list[ChatMessage]) -> str:
         tok = self.engine.tokenizer
@@ -695,7 +734,10 @@ class ServerApp:
             return self._bad_request(str(e))
         if self.engine.tokenizer is None:
             return self._bad_request("no tokenizer loaded; chat API unavailable")
-        self._flatten_content(creq.messages)
+        try:
+            media = await self._extract_media(creq.messages)
+        except (ValueError, TypeError) as e:
+            return self._bad_request(str(e))
         prompt = self._apply_chat_template(creq.messages)
         try:
             sp = _sampling_from(creq, creq.max_completion_tokens or creq.max_tokens or 512,
@@ -709,11 +751,18 @@ class ServerApp:
         bad = self._grammar_refused(sp)
         if bad is not None:
             return bad
-        if creq.stream:
-            return await self._stream_chat(request, writer, creq, prompt, sp)
-        outs = await asyncio.gather(
-            *[self.runner.generate_full(prompt=prompt, sampling_params=sp) for _ in range(creq.n)]
-        )
+        try:
+            if creq.stream:
+                return await self._stream_chat(request, writer, creq, prompt, sp, media)
+            outs = await asyncio.gather(*[
+                self.runner.generate_full(prompt=prompt, sampling_params=sp, image_data=media[0],
+                                          video_data=media[1])
+                for _ in range(creq.n)
+            ])
+        except ValueError as e:  # the prompt's placeholders do not fit the media
+            if request.stream is not None and request.stream.started:
+                raise
+            return self._bad_request(str(e))
         from scratchpad_tpu_torch.server.openai_api.function_call_parser import FunctionCallParser
         from scratchpad_tpu_torch.server.openai_api.reasoning_parser import split_reasoning
 
@@ -748,7 +797,7 @@ class ServerApp:
             dump(ChatCompletionResponse(model=creq.model, choices=choices, usage=usage))
         )
 
-    async def _stream_chat(self, request, writer, creq, prompt, sp):
+    async def _stream_chat(self, request, writer, creq, prompt, sp, media=(None, None)):
         resp = EventStream(request, writer)
         first = True
         cid = None
@@ -801,7 +850,7 @@ class ServerApp:
                 await _send(DeltaMessage(content=text))
 
         async for kind, payload in self.runner.generate(
-            prompt=prompt, sampling_params=sp, stream=True
+            prompt=prompt, sampling_params=sp, stream=True, image_data=media[0], video_data=media[1]
         ):
             if not resp.started:
                 await resp.prepare()

@@ -28,6 +28,7 @@ from jax.experimental.pallas import tpu as pltpu
 from scratchpad_tpu_torch.ops.attention import decode_ablate, paged_decode_attention_plain
 from scratchpad_tpu_torch.ops.attention.decode_ablate import MODES, NEG
 from scratchpad_tpu_torch.ops.attention.gqa_decode import paged_decode_attention_stage_plain
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ABLATE = Path(__file__).resolve().parent.parent / "tools" / "profiling" / "_ablate.py"
 

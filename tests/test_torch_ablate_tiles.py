@@ -46,6 +46,7 @@ from scratchpad_tpu_torch.ops.attention.decode_ablate import (
     lane_dot,
     num_chunks,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ATOL = 1e-4  # chip_smoke.py's ATOL
 WARPS = 4

@@ -39,6 +39,7 @@ from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_model import PS, TOL, Pair, _extend_and_decode
 from test_torch_moe import ENGINE_ARGS, greedy_match
 from test_torch_qwen import hf_random, port_from_hf, prompt_logits
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 HF_APERTUS = dict(
     vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2,

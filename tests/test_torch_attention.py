@@ -36,6 +36,7 @@ from scratchpad_tpu_torch.ops.attention import (
     paged_extend_attention_plain,
     write_kv,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 LAYERS, LAYER = 2, 1

@@ -21,6 +21,7 @@ from scratchpad_tpu_torch.ops.attention import attention_ragged, extend_attentio
 from test_torch_attention import LAYER, _extend_inputs, _pools
 from test_torch_chunk import TOL, TOL_8BIT
 from test_torch_kv_quant import _quant_pools
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _extend_metas(chunks, pt, kv_lens, q_lens, cu, T):

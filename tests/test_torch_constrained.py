@@ -54,6 +54,7 @@ from scratchpad_tpu_torch.server.engine import Engine
 from scratchpad_tpu_torch.tokenizer import load_tokenizer
 from scratchpad_tpu_torch.tokenizer.chars import CharTokenizer
 from scratchpad_tpu_torch.utils import native
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 V = 300  # tokens 257.. decode to nothing: never allowed

@@ -42,6 +42,7 @@ from scratchpad_tpu_torch.sampling.custom_logit_processor import (
 from scratchpad_tpu_torch.sampling.sampler import sample
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.engine import Engine
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 V = 512
 

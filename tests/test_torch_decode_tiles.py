@@ -35,6 +35,7 @@ from scratchpad_tpu_torch.ops.attention import gqa_decode as gd
 from scratchpad_tpu_torch.utils import native
 from test_torch_attention import LAYER, _case, _decode_metas, _pools
 from test_torch_kv_quant import _quant_pools
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ATOL, RTOL = 1e-4, 2.0**-8  # chip_smoke.py's kernel-vs-plain gate
 LOG2E = 1.4426950408889634

@@ -46,6 +46,7 @@ from scratchpad_tpu_torch.ops.attention import mla_backend
 from scratchpad_tpu_torch.ops.attention.mla_backend import mla_attention, write_latent
 from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_model import PS, TOL, Pair, _extend_and_decode
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TINY = dict(
     architectures=["DeepseekV2ForCausalLM"], vocab_size=512, hidden_size=64, intermediate_size=128,

@@ -16,6 +16,7 @@ from scratchpad_tpu_torch.executor.weight_loader import params_from_jax
 from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_deepseek import ENGINE_ARGS, LATENT, configs, perturbed
 from test_torch_moe import greedy_match
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def test_engine_greedy_matches_jax():

@@ -29,6 +29,7 @@ from scratchpad_tpu_torch.executor.weight_loader import params_from_jax
 from scratchpad_tpu_torch.models.registry import get_model_class
 from test_torch_deepseek import TINY, V3, V3_YARN, YARN, latent_pools, prompt_logits
 from test_torch_model import PS, TOL
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def hf_deepseek(arch: str, seed: int, **overrides):

@@ -24,6 +24,7 @@ from scratchpad_tpu_torch.executor.weight_loader import params_from_jax
 from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.engine import Engine
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ARGS = dict(
     preset="tiny-debug",
@@ -207,7 +208,7 @@ def test_extend_runs_unpadded_and_decode_pads_to_buckets(engines):
         dict(attention_backend="ragged"),
         dict(attention_backend="xla"),
         dict(speculative_algorithm="ngram"),
-        dict(quantization="fp8"),
+        dict(enable_pp=True),  # fp8 weights, once here, are served since they were ported
         dict(enable_param_offload=True),
         dict(kv_cache_dtype="int4"),  # not a kv_cache_dtype of the JAX package
         dict(tp_size=2),

@@ -31,6 +31,7 @@ from scratchpad_tpu.ops.attention.xla_backend import extend_attention_xla
 from scratchpad_tpu_torch.ops.attention import quantize_rows
 from scratchpad_tpu_torch.ops.attention.ragged_backend import tile_map
 from test_torch_attention import LAYER, _extend_inputs, _pools
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ATOL, RTOL = 1e-4, 2.0**-8  # chip_smoke.py's kernel-vs-plain gate
 LOG2E = 1.4426950408889634

@@ -52,6 +52,7 @@ from scratchpad_tpu.ops.quant.w4a16 import slice_layer, w4a16_matmul_xla
 from scratchpad_tpu_torch.ops.quant import w4_matmul as wm
 from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked, stacked_group_size
 from scratchpad_tpu_torch.utils import native
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ATOL, RTOL = 1e-4, 2.0**-8  # chip_smoke.py's kernel-vs-plain gate
 K_BLOCK = wm.K_BLOCK

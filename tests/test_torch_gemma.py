@@ -65,6 +65,7 @@ from test_torch_qwen import (
 )
 from test_torch_window import EXTEND_CASES
 from test_torch_window import TOL as ATTN_TOL
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 GEMMA2 = ("Gemma2ForCausalLM", "tiny-gemma2", {})
 # Gemma 3 at tiny-gemma2's widths: six layers (five local, one global), a

@@ -52,6 +52,7 @@ from test_torch_qwen import (
     _teacher_forced_margins,
     perturbed,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KV_DTYPES = ("int8", "fp8")
 

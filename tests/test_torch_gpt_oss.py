@@ -39,6 +39,7 @@ from scratchpad_tpu_torch.models.registry import get_model_class
 from test_torch_model import TOL, _extend_and_decode
 from test_torch_moe import MoePair, engine_pair, greedy_match, synthetic_hf_state
 from test_torch_qwen import hf_random, port_from_hf, prompt_logits
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 YARN = {"rope_type": "yarn", "factor": 32.0, "original_max_position_embeddings": 64,
         "beta_fast": 32.0, "beta_slow": 1.0}

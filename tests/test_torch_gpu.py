@@ -1255,3 +1255,58 @@ def test_deepseek_latent_attention_matches_expanded_form(gen):
     assert chip_smoke.FAILURES == []
     assert out["worst_logit_rel"] <= chip_smoke.LOGIT_RTOL["deepseek-v2-lite"]
     assert out["rope_move_min"] >= chip_smoke.ROPE_MOVE * out["worst_logit_rel"]
+
+
+# bidirectional image spans (rows 3m and 3qm, Gemma 3 multimodal): (q_len,
+# kv_len) a row and its spans, absolute [s0, s1); a span across several
+# 64-row query tiles, two spans in a row, a span after a cached prefix, a
+# span longer than the window of 128, a row without spans, padding rows
+SPAN_ROWS = [
+    ((700, 700), [(10, 266), (300, 556)]),
+    ((400, 1000), [(650, 906), (0, 0)]),
+    ((90, 90), [(0, 0), (0, 0)]),
+    ((1, 33), [(0, 0), (0, 0)]),
+    ((0, 0), [(0, 0), (0, 0)]),
+]
+
+
+def _span_case(Hkv, D, G, gen):
+    chunks = [r[0] for r in SPAN_ROWS]
+    k, v, pt = _pool([c[1] for c in chunks], Hkv, D, 16, gen)
+    q_lens = torch.tensor([c[0] for c in chunks], device="cuda")
+    cu = torch.zeros(len(chunks) + 1, dtype=torch.int32, device="cuda")
+    cu[1:] = torch.cumsum(q_lens, 0).to(torch.int32)
+    kv_lens = torch.tensor([c[1] for c in chunks], dtype=torch.int32, device="cuda")
+    T = int(cu[-1]) + 37  # padding tokens
+    q = torch.randn(T, Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+    spans = torch.tensor([r[1] for r in SPAN_ROWS], dtype=torch.int32, device="cuda")
+    return q, k, v, pt, kv_lens, cu, spans
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("D, G", [(256, 2), (256, 4), (128, 6), (128, 1), (64, 4)])
+def test_extend_kernel_with_spans_matches_plain(gen, kind, window, D, G):
+    """Rows 3m and 3qm against the plain version at Gemma 3's D 256 (G 2
+    and 4), Qwen2-VL's and LLaVA's D 128 shapes and D 64; padding tokens
+    exact zeros; the spans move the rows inside them."""
+    q, k, v, pt, kv_lens, cu, spans = _span_case(2, D, G, gen)
+    ks = vs = None
+    if kind != "bf16":
+        k, v, ks, vs = _quantized(k, v, torch.int8 if kind == "int8" else torch.float8_e4m3fn)
+    kw = dict(sliding_window=window, mm_spans=spans)
+    if ks is None:
+        out = paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.1, **kw)
+        causal = paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.1, sliding_window=window)
+    else:
+        out = paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, 0.1, **kw)
+        causal = paged_extend_attention_quant(q, k, v, ks, vs, pt, kv_lens, cu, 0.1, sliding_window=window)
+    _close(out, paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, 0.1, ks, vs, **kw))
+    assert bool((out[int(cu[-1]) :] == 0).all())
+    assert float((out.float() - causal.float()).abs().max()) > 1e-2
+
+
+def test_spans_with_a_chunk_are_refused(gen):
+    q, k, v, pt, kv_lens, cu, spans = _span_case(2, 128, 4, gen)
+    with pytest.raises(ValueError, match="chunk"):
+        paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.1, chunk_size=64, mm_spans=spans)

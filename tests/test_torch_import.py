@@ -19,6 +19,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "scratchpad_tpu_torch"
@@ -178,3 +179,86 @@ def test_source_imports_no_jax():
     ]
     assert bad == []
 
+
+
+_NO_DECODERS_PROBE = """
+import base64, importlib, json, pkgutil, sys, urllib.error, urllib.request
+
+DECODERS = ("PIL", "cv2")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in DECODERS:
+            raise ModuleNotFoundError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import scratchpad_tpu_torch
+for m in pkgutil.walk_packages(scratchpad_tpu_torch.__path__, "scratchpad_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+import numpy as np
+from scratchpad_tpu_torch.config import ServerArgs
+from scratchpad_tpu_torch.config.model_config import ModelConfig
+from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+from scratchpad_tpu_torch.server.engine import Engine
+from scratchpad_tpu_torch.server.http_server import ServerApp, ServerThread
+
+
+class Chars:
+    eos_token_id = 0
+    chat_template = None
+
+    def encode(self, text):
+        return [ord(c) + 1 for c in text]
+
+    def decode(self, ids, **kw):
+        return "".join(chr(i - 1) for i in ids if 0 < i <= 256)
+
+
+cfg = ModelConfig(**json.loads(sys.argv[2]), dtype="float32")
+args = ServerArgs(random_weights=True, dtype="float32", device="cpu", page_size=4,
+                  max_total_tokens=512, port=int(sys.argv[1]), mm_image_token=chr(499))
+eng = Engine(args, model_config=cfg, tokenizer=Chars())
+px = np.zeros((1, 3, 24, 24), np.float32)
+out = eng.generate(input_ids=[3, 500, 4], image_data=px,
+                   sampling_params=SamplingParams(temperature=0.0, max_new_tokens=3))
+assert len(out.output_ids) == 3
+srv = ServerThread(ServerApp(eng, args))
+body = {"model": "m", "max_tokens": 2, "messages": [{"role": "user", "content": [
+    {"type": "image_url", "image_url": {"url": "data:image/png;base64," + base64.b64encode(b"x").decode()}}]}]}
+req = urllib.request.Request(f"http://127.0.0.1:{args.port}/v1/chat/completions",
+                             data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+try:
+    urllib.request.urlopen(req)
+    raise AssertionError("an image without pillow was served")
+except urllib.error.HTTPError as e:
+    assert e.code == 400 and "pillow" in json.loads(e.read())["message"]
+srv.stop()
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in DECODERS)))
+"""
+
+
+def test_import_and_serve_images_without_decoders():
+    """With PIL and OpenCV blocked, every module and ``chip_smoke`` import,
+    a LLaVA engine serves pixels handed to it, and an image part over HTTP
+    answers 400 naming pillow: the decoders load only inside the functions
+    that decode."""
+    import socket
+
+    from test_torch_vision import model_kw
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_DECODERS_PROBE, str(port), json.dumps(model_kw("llava"))],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -51,6 +51,7 @@ from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_attention import LAYER, LAYERS, _case, _decode_metas
 from test_torch_engine import ARGS, _greedy_tokens_match
 from test_torch_model import VARIANTS, Pair
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 CODES = {"int8": (torch.int8, jnp.int8), "fp8": (torch.float8_e4m3fn, jnp.float8_e4m3fn)}

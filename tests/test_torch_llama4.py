@@ -47,6 +47,7 @@ from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_model import PS, TOL, Pair, _extend_and_decode
 from test_torch_moe import synthetic_hf_state
 from test_torch_qwen import hf_random, port_from_hf, prompt_logits
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TINY = dict(
     architectures=["Llama4ForCausalLM"], vocab_size=512, hidden_size=128, intermediate_size=96,

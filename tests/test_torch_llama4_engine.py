@@ -17,6 +17,7 @@ from scratchpad_tpu_torch.executor.weight_loader import params_from_jax
 from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_llama4 import LAYOUTS, configs, perturbed
 from test_torch_moe import ENGINE_ARGS, greedy_match
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def engines(layout):

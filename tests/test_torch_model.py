@@ -30,6 +30,7 @@ from scratchpad_tpu_torch.memory.kv_cache import KVCacheConfig, create_kv_cache
 from scratchpad_tpu_torch.models.common import compute_inv_freq
 from scratchpad_tpu_torch.models.llama import LlamaForCausalLM
 from scratchpad_tpu_torch.ops.attention import attention_functions
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 PS = 4

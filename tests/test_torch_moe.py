@@ -54,6 +54,7 @@ from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_engine import _teacher_forced_margins
 from test_torch_model import PS, TOL, Pair, _extend_and_decode
 from test_torch_qwen import HF_TINY, hf_random, port_from_hf, prompt_logits
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 MARGIN = 1e-3
 ENGINE_ARGS = dict(
@@ -362,8 +363,9 @@ def test_auto_kv_follows_the_jax_rule_for_moe(quantization):
 
 def test_moe_refusals():
     """What stays unported is refused with a clear error: toppings on the
-    MoE models (no JAX MoE model applies them), fp8 experts, expert
-    parallelism, and GPT-OSS under ``attention_backend="pallas"``."""
+    MoE models (no JAX MoE model applies them), expert parallelism, and
+    GPT-OSS under ``attention_backend="pallas"``; fp8 experts, refused until
+    they were ported, build."""
     small = dict(random_weights=True, dtype="float32", device="cpu", page_size=4,
                  max_total_tokens=256)
     for cfg in (get_preset("tiny-gpt-oss"), get_preset("tiny-debug", **MIXTRAL),
@@ -371,9 +373,10 @@ def test_moe_refusals():
         eng = Engine(ServerArgs(**small), model_config=cfg)
         with pytest.raises(NotImplementedError, match="toppings are not ported"):
             eng.register_topping("ad", state={}, scaling=1.0)
-        for bad in (dict(quantization="fp8"), dict(enable_ep=True)):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                Engine(ServerArgs(**small, **bad), model_config=cfg)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Engine(ServerArgs(**small, enable_ep=True), model_config=cfg)
+        fp8 = Engine(ServerArgs(**small, quantization="fp8"), model_config=cfg)
+        assert fp8.scheduler.runner.model.layers[0].wq.w8.dtype == torch.float8_e4m3fn
     with pytest.raises(NotImplementedError, match="attention_backend='pallas'"):
         Engine(ServerArgs(**small, attention_backend="pallas"), model_config=get_preset("tiny-gpt-oss"))
     # Mixtral takes the pallas decode, as the JAX runner's default allows

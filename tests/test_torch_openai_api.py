@@ -22,6 +22,7 @@ from scratchpad_tpu_torch.server.openai_api import conversation as conv
 from scratchpad_tpu_torch.server.openai_api import function_call_parser as fc
 from scratchpad_tpu_torch.server.openai_api import protocol as proto
 from scratchpad_tpu_torch.server.openai_api import reasoning_parser as rp
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REQUESTS = ("CompletionRequest", "ChatCompletionRequest", "EmbeddingRequest")
 RANDOM = dict(max_examples=150, deadline=None, suppress_health_check=[HealthCheck.too_slow])

@@ -42,6 +42,7 @@ from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_toppings import lora_state
 from torch_margins import top2_margin
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ARGS = dict(preset="tiny-debug", random_weights=True, dtype="float32", page_size=4,
             max_total_tokens=2048, decode_window_size=4)

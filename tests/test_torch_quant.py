@@ -54,6 +54,7 @@ from scratchpad_tpu_torch.ops.quant.w4_matmul import (
 )
 from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked
 from scratchpad_tpu_torch.executor.weight_loader import quantized_layer_state
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # (L, In, Out) -> group: 128; 120 (half-plane rule, GPT-OSS); 100 (not a
@@ -80,6 +81,22 @@ def test_quantize_stacked_matches_jax(shape):
     assert pq.out_true == jq.out_true == (shape[2] if shape[2] % 128 else 0)
     np.testing.assert_array_equal(pq.q.numpy(), np.asarray(jq.q))
     assert pq.s.dtype == pq.z.dtype == torch.bfloat16 and jq.s.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(pq.s.float().numpy(), _f32(jq.s))
+    np.testing.assert_array_equal(pq.z.float().numpy(), _f32(jq.z))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2, 3, 256, 128)])
+def test_quantize_stacked_on_tensors_matches_jax(shape):
+    """The engines quantize at load on their own device: a tensor takes the
+    torch route, whose codes, scales and zeros are the JAX numpy ones bit
+    for bit (zero and constant columns included)."""
+    w = _weights(shape, seed=2)
+    w[..., 0, :] = 0.0  # a row of zeros
+    w[..., 3] = 0.5  # a constant column: a zero range, the 1e-8 floor
+    jq = jax_quantize_stacked(w)
+    pq = quantize_stacked(torch.from_numpy(w))
+    assert pq.group_size == jq.group_size and pq.out_true == jq.out_true
+    np.testing.assert_array_equal(pq.q.numpy(), np.asarray(jq.q))
     np.testing.assert_array_equal(pq.s.float().numpy(), _f32(jq.s))
     np.testing.assert_array_equal(pq.z.float().numpy(), _f32(jq.z))
 

@@ -20,6 +20,7 @@ from scratchpad_tpu_torch.executor.weight_loader import params_from_jax
 from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_engine import ARGS, _greedy_tokens_match
 from test_torch_quant import assert_same_codes
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.fixture(scope="module", params=["w4a8", "w4a16"])

@@ -44,6 +44,7 @@ from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_engine import _teacher_forced_margins
 from test_torch_model import PS, TOL, Pair, _extend_and_decode
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 MARGIN = 1e-3
 QWEN_ARCHS = ["Qwen2ForCausalLM", "Qwen3ForCausalLM", "Phi3ForCausalLM"]
@@ -277,8 +278,14 @@ def test_phi3_splits_fused_checkpoints_as_jax():
 def test_registry_maps_the_ported_families():
     from scratchpad_tpu_torch.models.apertus import ApertusForCausalLM
     from scratchpad_tpu_torch.models.deepseek import DeepseekV2ForCausalLM, DeepseekV3ForCausalLM
-    from scratchpad_tpu_torch.models.gemma import Gemma2ForCausalLM, Gemma3ForCausalLM
+    from scratchpad_tpu_torch.models.gemma import (
+        Gemma2ForCausalLM,
+        Gemma3ForCausalLM,
+        Gemma3ForConditionalGeneration,
+    )
     from scratchpad_tpu_torch.models.gpt_oss import GptOssForCausalLM
+    from scratchpad_tpu_torch.models.llava import LlavaForConditionalGeneration
+    from scratchpad_tpu_torch.models.qwen2_vl import Qwen2VLForConditionalGeneration
     from scratchpad_tpu_torch.models.llama4 import Llama4ForCausalLM
     from scratchpad_tpu_torch.models.mixtral import MixtralForCausalLM, Qwen3MoeForCausalLM
     from scratchpad_tpu_torch.models.qwen import Phi3ForCausalLM, Qwen2ForCausalLM, Qwen3ForCausalLM
@@ -292,9 +299,11 @@ def test_registry_maps_the_ported_families():
                       ("Llama4ForCausalLM", Llama4ForCausalLM), ("Llama4TextModel", Llama4ForCausalLM),
                       ("ApertusForCausalLM", ApertusForCausalLM),
                       ("DeepseekV2ForCausalLM", DeepseekV2ForCausalLM),
-                      ("DeepseekV3ForCausalLM", DeepseekV3ForCausalLM)):
+                      ("DeepseekV3ForCausalLM", DeepseekV3ForCausalLM),
+                      ("LlavaForConditionalGeneration", LlavaForConditionalGeneration),
+                      ("Qwen2VLForConditionalGeneration", Qwen2VLForConditionalGeneration),
+                      ("Gemma3ForConditionalGeneration", Gemma3ForConditionalGeneration)):
         assert get_model_class(name) is cls
-    for name in ("Llama4ForConditionalGeneration", "Gemma3ForConditionalGeneration",
-                 "Qwen2VLForConditionalGeneration", "MllamaForConditionalGeneration"):
+    for name in ("Llama4ForConditionalGeneration", "MllamaForConditionalGeneration"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_model_class(name)

@@ -7,6 +7,7 @@ qk-norm and ``norm_topk_prob`` on and off.
 import pytest
 
 import test_torch_moe as moe
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.mark.parametrize("variant", ["qwen3-moe", "qwen3-moe-unnormed"])

@@ -4,6 +4,7 @@ Greedy ids are compared bit for bit, penalties and the sort-free cutoff
 (hence the kept tokens' probabilities) numerically, and sampled draws as a
 distribution: ``torch.Generator`` and ``jax.random`` give different bits
 from one seed, so both sides' empirical distributions are held to the
+import torch_threads  # noqa: F401  (one torch thread a test process)
 exact filtered one by total variation.
 """
 

@@ -35,6 +35,7 @@ from scratchpad_tpu_torch.ops.attention import (
 from scratchpad_tpu_torch.ops.attention.gqa_decode import sinks_arg
 from test_torch_attention import LAYER, _case, _decode_metas, _extend_inputs, _pools
 from test_torch_kv_quant import _quant_pools
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 TOL_8BIT = dict(rtol=2e-4, atol=2e-4)

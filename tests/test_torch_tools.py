@@ -22,6 +22,7 @@ from scratchpad_tpu_torch.tools import (
     prof_attn,
     w4_kernel_bench,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TINY_ABLATE = ["--device", "cpu", "--batch", "2", "--ctx", "20", "--layers", "2", "--kv-heads", "2",
                "--q-heads", "4", "--dp", "64", "--page-size", "4", "--chunk-pages", "2",

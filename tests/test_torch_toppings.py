@@ -41,6 +41,7 @@ from scratchpad_tpu_torch.server.engine import Engine
 from scratchpad_tpu_torch.toppings.manager import MAX_ACTIVE_TOPPINGS, ToppingsManager, apply_topping
 from test_torch_engine import ARGS
 from test_torch_model import VARIANTS, Pair, _extend_and_decode
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 S = MAX_ACTIVE_TOPPINGS

@@ -65,6 +65,7 @@ from scratchpad_tpu_torch.executor.weight_loader import quantized_layer_state
 from scratchpad_tpu_torch.ops.quant import import_hf
 from scratchpad_tpu_torch.ops.quant import w4_matmul as wm
 from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked, stacked_group_size, stacked_out_width
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ATOL, RTOL = 1e-4, 2.0**-8  # chip_smoke.py's kernel-vs-plain gate
 I32_EXACT = 2**22  # |D| below this converts to f32 exactly (the 1.5 * 2**23 trick)

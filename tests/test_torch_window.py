@@ -60,6 +60,7 @@ from test_torch_engine import _teacher_forced_margins
 from test_torch_kv_quant import _logits_rel_check, _quant_pools
 from test_torch_model import TOL as LOGIT_TOL
 from test_torch_model import Pair, _extend_and_decode
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 TOL_8BIT = dict(rtol=2e-4, atol=2e-4)
