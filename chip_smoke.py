@@ -384,7 +384,24 @@ ARGMAX_FLOOR = {
     "llama4-scout": 0.0, "apertus-8b": 0.0, "gemma-2-2b-int8kv": 2e-2, "gemma-2-2b-fp8kv": 2e-2,
     "deepseek-v2-lite": 0.0, "qwen2-vl-2b": 0.0, "gemma-3-4b-mm": 0.0, "gemma-3-4b-mm-fp8kv": 2e-2,
     "llava-1.5-7b": 0.0, "llama-3.1-8b-fp8": 2e-2,
+    # the spec engines' tokens against the target's teacher-forced chain
+    # (phase_spec), one extend of prompt + output: a path of other shapes
+    # than the decode steps and verify forwards that chose them, so the
+    # gap is that of two bf16 paths, not of a kernel and its plain version.
+    # The bf16 engines take GPT-OSS-20B's 2e-2: the same engines' plain
+    # decode, teacher-forced alike (phase_spec's control), part from the
+    # chain at top-2 gaps of 1.471e-2 (1B) and 1.299e-2 (8B), as speculation
+    # does (1.471e-2 at the 1B); the W4A8 int8-KV engine Qwen3-8B W4A8's 3e-2
+    # (PERF.md, Findings)
+    "1b-ngram": 2e-2, "1b-draft-self": 2e-2, "8b-draft-1b": 2e-2, "8b-eagle": 2e-2, "8b-w4a8-ngram": 3e-2,
 }
+# A spec engine may excuse as ties at most this many more of its tokens
+# than its plain-decode control excuses of the same requests' tokens (both
+# teacher-forced alike), so that the floor above cannot hide a verify path
+# that shifts the logits: each excused token is a bf16 rounding event of
+# either chain, and the five engines' counts were at or under their
+# controls' (PERF.md, Findings).
+SPEC_TIE_SLACK = 4
 # Each adapter must move its rows' logits (max|adapted - base| / max|base|)
 # by at least this many times the engine's kernel-vs-plain reading, so that
 # a kernel that adds nothing fails.
@@ -2650,6 +2667,9 @@ def phase_timing() -> dict:
             time_extend([(128, 128)] * 64, 128, 3),
             time_extend([(2048, 4096)], 128, 4), time_extend([(2048, 5120)], 128, 4),
             time_extend([(2048, 8192)], 128, 4), time_extend([(2048, 8192)], 128, 4, window=4096),
+            # a speculative verification at Llama-3.1-8B's shape: 64
+            # requests of k + 1 = 5 rows on 4,096 tokens
+            time_extend([(SPEC_K + 1, 4096)] * 64, 128, 4),
         ],
         "paged_extend_attention_quant": [
             time_extend([(128, 128)] * 64, 128, 3, "int8"),
@@ -2825,12 +2845,14 @@ def phase_w4a8_mma_bench() -> dict:
 
 
 def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto", params=None,
-                model_config=None, attention_backend="auto", max_total_tokens=None, tokenizer_path=None):
+                model_config=None, attention_backend="auto", max_total_tokens=None, tokenizer_path=None,
+                **extra):
     """An engine with seeded random weights, or with ``params`` (a state
     dict of the same model, for example another engine's quantized one);
     ``model_config`` in place of the preset; ``max_total_tokens`` caps the
     KV pool (else 0.85 of free memory); ``tokenizer_path`` as a user gives
-    it (``"chars"``: the port's character tokenizer)."""
+    it (``"chars"``: the port's character tokenizer); ``extra``: other
+    ``ServerArgs`` fields (speculation, the host tier, offload)."""
     import torch
 
     from scratchpad_tpu_torch.config import ServerArgs
@@ -2844,7 +2866,7 @@ def make_engine(quantization=None, preset="llama-3.2-1b", kv_cache_dtype="auto",
             preset=None if model_config else preset, random_weights=True, dtype="bfloat16",
             device="cuda", quantization=quantization, kv_cache_dtype=kv_cache_dtype,
             attention_backend=attention_backend, max_total_tokens=max_total_tokens,
-            tokenizer_path=tokenizer_path,
+            tokenizer_path=tokenizer_path, **extra,
         ),
         model_config=model_config,
         params=params,
@@ -4979,6 +5001,463 @@ def phase_grammar(engine, label: str = "1b-bf16") -> dict:
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------ speculative decoding
+
+
+SPEC_K = 4  # speculative_num_draft_tokens, the default
+# the spec engines' requests (prompt, new tokens): two prompts that repeat a
+# 16-token base (ngram drafts find it), two random ones, one across a page
+SPEC_REQUESTS = [("rep 64", 48), ("rep 160", 48), (300, 48), (1000, 32)]
+# the W4A8 engine's: its random ids rarely repeat, and an ngram proposal
+# is tried only between decode windows, so it serves with windows of one
+# token (SPEC_W4A8_WINDOW) and long random prompts, which hold more of the
+# ids it emits
+SPEC_W4A8_REQUESTS = [(6000, 48), (6000, 48), ("rep 160", 48)]
+SPEC_W4A8_WINDOW = 1
+# the W4A8 ngram engine's depth (Llama-3.1-8B, int8 KV)
+SPEC_W4A8_LAYERS = 4
+
+
+def spec_prompts(V: int, requests, seed: int = 7) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, _ in requests:
+        if isinstance(n, str):  # "rep N": a 16-token base repeated to N tokens
+            m = int(n.split()[1])
+            out.append((rng.integers(1, V, 16).tolist() * (m // 16 + 1))[:m])
+        else:
+            out.append(rng.integers(1, V, n).tolist())
+    return out
+
+
+def teacher_forced(runner, tokens: list) -> dict:
+    """Each position's argmax, top logit and top-2 gap and the row's max
+    |logit| (numpy [T]), from ONE extend forward of ``tokens`` through the
+    engine's own kernels, the head 128 rows at a time, on pages borrowed
+    from the idle pool."""
+    import numpy as np
+    import torch
+
+    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+    from scratchpad_tpu_torch.executor.model_runner import WorkerBatch
+    from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
+
+    ps, n = runner.page_size, len(tokens)
+    pages = runner.page_allocator.alloc(-(-n // ps))
+    if pages is None:
+        fail("no free pages for the teacher-forced pass")
+    try:
+        pos = np.arange(n)
+        wb = WorkerBatch(
+            mode=ForwardMode.EXTEND, tokens=np.asarray(tokens), positions=pos,
+            out_cache_loc=pages[pos // ps] * ps + pos % ps, req_indices=np.zeros(n, np.int64),
+            page_table=pages[None], seq_lens=np.array([n]), extend_lens=np.array([n]),
+            sampling_info=SamplingBatchInfo.from_reqs([], 1, runner.model_config.vocab_size),
+        )
+        out = {k: [] for k in ("argmax", "top1", "gap", "scale")}
+        with torch.inference_mode():
+            _, _, _, h = runner._hidden(wb)
+            for c in range(0, n, 128):
+                logits = runner.model.head_logits(h[c : c + 128])
+                top2 = torch.topk(logits, 2)
+                out["argmax"].append(top2.indices[:, 0])
+                out["top1"].append(top2.values[:, 0])
+                out["gap"].append(top2.values[:, 0] - top2.values[:, 1])
+                out["scale"].append(logits.abs().max(dim=-1).values)
+        return {k: torch.cat(v).cpu().numpy() for k, v in out.items()}
+    finally:
+        runner.page_allocator.free(pages)
+
+
+def chain_flips(runner, label: str, prompts, outs, floor: float):
+    """Teacher-force each prompt plus its output (``teacher_forced``) and
+    log each token that is not the argmax there; returns the passes and
+    (ties, flips outside a tie, the widest top-2 gap over max |logit| at
+    such a token, the share of output positions whose top-2 gap lies
+    within the tie rule, where a wrong token would be excused)."""
+    ties = flips = under = n = 0
+    widest = 0.0
+    forced = []
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        tf = teacher_forced(runner, p + o.output_ids)
+        forced.append(tf)
+        for j, tok in enumerate(o.output_ids):
+            row = len(p) - 1 + j
+            under += bf16_tie(tf, row, floor)
+            n += 1
+            if int(tf["argmax"][row]) != tok:
+                tie = bf16_tie(tf, row, floor)
+                rel = float(tf["gap"][row] / tf["scale"][row])
+                ties += tie
+                flips += not tie
+                widest = max(widest, rel)
+                log(f"[spec {label}] request {i} token {j}: {tok} against the teacher-forced argmax "
+                    f"{int(tf['argmax'][row])}, top-2 gap {float(tf['gap'][row]):.4g} ({rel:.3e} of "
+                    f"max|logit|; tie {tie})")
+    return forced, (ties, flips, widest, under / max(n, 1))
+
+
+def bf16_tie(tf: dict, row: int, floor: float) -> bool:
+    """``phase_engine``'s rule: a top-2 gap of at most one bf16 ulp of the
+    top logit, or ``floor`` of max |logit| (the W4A8 and 8-bit engines')."""
+    top1, gap, scale = (float(tf[k][row]) for k in ("top1", "gap", "scale"))
+    return gap <= max(math.ldexp(1.0, math.frexp(abs(top1))[1] - 8), floor * scale)
+
+
+class SpecSpy:
+    """Counts a spec engine's verify forwards (greedy and sampled), the
+    drafts they check and the attention launches they make; the proposal
+    windows (the draft model's or the EAGLE head's) and theirs; and the
+    greedy verifications' rejections: (request, position of the corrected
+    token, target token, draft token)."""
+
+    def __init__(self, engine):
+        from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS
+
+        self.launch = lambda: collections.Counter({fn.__name__: fn.launches for fn in KERNEL_WRAPPERS})
+        sched = engine.scheduler
+        self.verifies = self.drafts = self.windows = self.window_steps = 0
+        self.verify_launches = collections.Counter()
+        self.window_launches = collections.Counter()
+        self.rejections = []
+        self.request = None  # the request running alone, where rejections are mapped
+        self.patched = []
+        runner = sched.runner
+        self._wrap(runner, "run_spec_verify", self._verify)
+        self._wrap(runner, "run_spec_verify_sampled", self._verify)
+        if sched.draft_runner is not None:
+            self._wrap(sched.draft_runner, "run_decode_window", self._window)
+        if sched.eagle is not None:
+            self._wrap(sched.eagle, "propose", self._window)
+
+    def _wrap(self, obj, name, spy):
+        inner = getattr(obj, name)
+        self.patched.append((obj, name))
+        setattr(obj, name, lambda *a, **kw: spy(inner, *a, **kw))
+
+    def _verify(self, inner, wb, *a, **kw):
+        before = self.launch()
+        out = inner(wb, *a, **kw)
+        self.verify_launches += self.launch() - before
+        self.verifies += 1
+        self.drafts += len(wb.tokens) - len(wb.seq_lens)
+        if inner.__name__ == "run_spec_verify":
+            ids, s = out[0], 0
+            for n in wb.extend_lens:
+                d, got = wb.tokens[s + 1 : s + n], ids[s : s + n]
+                miss = [j for j in range(len(d)) if got[j] != d[j]]
+                if miss:
+                    j = miss[0]
+                    self.rejections.append((self.request, int(wb.positions[s]) + j + 1, int(got[j]), int(d[j])))
+                s += n
+        return out
+
+    def _window(self, inner, *a, **kw):
+        k = a[-1]
+        before = self.launch()
+        out = inner(*a, **kw)
+        self.window_launches += self.launch() - before
+        self.windows += 1
+        self.window_steps += k
+        return out
+
+    def restore(self):
+        for obj, name in self.patched:
+            delattr(obj, name)
+
+
+def phase_spec(engine, label: str, requests=SPEC_REQUESTS, draft_layers: int = 0,
+               self_draft: bool = False, sampled: bool = False) -> dict:
+    """Serve ``requests`` through ``Engine.generate`` on a spec engine, every
+    launch count set to 0 just before and read just after: each verify
+    forward must launch the pool's extend kernel once a layer, each draft
+    window the decode kernel once a draft layer and step (the EAGLE head's:
+    once a step). Every token must be the target's own greedy choice: prompt
+    plus output teacher-forced through ONE extend of the same engine, each
+    position's argmax against the emitted token, a difference excused only
+    as a bf16 tie (``bf16_tie`` with the engine's ``ARGMAX_FLOOR``), counted.
+    ``self_draft`` (the target drafting for itself): requests one at a time,
+    and every rejected draft must sit at such a tie. ``sampled``: the same
+    requests at temperature 1 and top-k 1 must give the greedy tokens up to
+    a tie."""
+    from scratchpad_tpu_torch.ops import reset_launch_counts
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+
+    sched = engine.scheduler
+    runner = sched.runner
+    L = runner.model_config.num_hidden_layers
+    floor = ARGMAX_FLOOR[label]
+    prompts = spec_prompts(runner.model_config.vocab_size, requests)
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=m, ignore_eos=True) for _, m in requests]
+    plain_sps = [SamplingParams(temperature=0.0, max_new_tokens=m, min_new_tokens=m, ignore_eos=True)
+                 for _, m in requests]
+    engine.flush_cache()
+    s0, a0 = sched.num_spec_steps, sched.num_spec_accepted
+    spy = SpecSpy(engine)
+    reset_launch_counts()
+    t = time.monotonic()
+    if self_draft:
+        outs = []
+        for i, (p, sp) in enumerate(zip(prompts, sps)):
+            spy.request = i
+            outs.append(engine.generate(input_ids=p, sampling_params=sp))
+    else:
+        outs = engine.generate(input_ids=prompts, sampling_params=sps)
+    wall = time.monotonic() - t
+    counts = spy.launch()
+    spy.restore()
+    steps, accepted = sched.num_spec_steps - s0, sched.num_spec_accepted - a0
+    pages = runner.kv_cache_dtype if runner.kv_cache.quantized else "bf16"
+    ext = EXTEND[pages]
+    for o, (_, m) in zip(outs, requests):
+        check(len(o.output_ids) == m, f"{label} request {o.rid}: {len(o.output_ids)} tokens, not {m}")
+    check(steps > 0 and spy.verifies > 0, f"{label}: no speculative step ({steps} steps)")
+    check(spy.verify_launches[ext] == L * spy.verifies > 0,
+          f"{label}: {spy.verify_launches[ext]} {ext} launches in {spy.verifies} verify forwards of {L} layers")
+    if draft_layers:
+        got = spy.window_launches["paged_decode_attention"]
+        check(got == draft_layers * spy.window_steps > 0,
+              f"{label}: {got} draft decode launches in {spy.window_steps} steps of {draft_layers} layers")
+    rate = accepted / max(spy.drafts, 1)
+    log(
+        f"[spec {label}] {len(outs)} requests in {wall:.2f} s: {steps} verify steps in {spy.verifies} "
+        f"forwards, {accepted} of {spy.drafts} drafts accepted (rate {rate:.3f}); {ext} launches in "
+        f"verification {spy.verify_launches[ext]}; proposal windows {spy.windows} ({spy.window_steps} "
+        f"steps, decode launches {spy.window_launches['paged_decode_attention']}); all launches {dict(counts)}"
+    )
+    # the target's own greedy chain, teacher-forced; then the control: the
+    # same requests on plain decode (min_new_tokens keeps a request off the
+    # speculative path), teacher-forced alike
+    engine.flush_cache()  # the passes borrow pages from the idle pool
+    forced, (ties, flips, widest, under) = chain_flips(runner, label, prompts, outs, floor)
+    check(flips == 0, f"{label}: {flips} tokens leave the target's greedy chain outside a bf16 tie")
+    s1 = sched.num_spec_steps
+    plain = engine.generate(input_ids=prompts, sampling_params=plain_sps)
+    check(sched.num_spec_steps == s1, f"{label}: the control speculated")
+    engine.flush_cache()
+    _, control = chain_flips(runner, label + " control", prompts, plain, floor)
+    log(f"[spec {label}] teacher-forced: {ties} tokens at a bf16 tie, {flips} outside one, the widest "
+        f"difference at a top-2 gap of {widest:.3e} of max|logit|, {under:.3f} of the output positions "
+        f"within the tie rule; the control (plain decode): {control[0]} at a tie, {control[1]} outside "
+        f"one (widest {control[2]:.3e}), {control[3]:.3f} of its positions within the rule")
+    check(ties <= control[0] + SPEC_TIE_SLACK,
+          f"{label}: {ties} tokens excused as ties against the plain-decode control's {control[0]} "
+          f"(slack {SPEC_TIE_SLACK})")
+    result = dict(label=label, steps=steps, accepted=accepted, drafts=spy.drafts, rate=rate,
+                  verifies=spy.verifies, verify_launches=spy.verify_launches[ext], kernel=ext,
+                  windows=spy.windows, window_steps=spy.window_steps, ties=ties, widest_gap=widest,
+                  under_share=under, control_ties=control[0], control_flips=control[0] + control[1],
+                  control_widest_gap=control[2], control_under_share=control[3], wall_s=wall)
+    if self_draft:
+        rejected_ties = sum(
+            bf16_tie(forced[i], pos - 1, floor) for i, pos, _, _ in spy.rejections
+        )
+        check(rejected_ties == len(spy.rejections),
+              f"{label}: {len(spy.rejections) - rejected_ties} drafts rejected outside a bf16 tie "
+              f"({spy.rejections})")
+        log(f"[spec {label}] the target drafting for itself: {len(spy.rejections)} rejections, "
+            f"{rejected_ties} of them at a bf16 tie")
+        result["rejections"] = len(spy.rejections)
+    if sampled:
+        k1 = [SamplingParams(temperature=1.0, top_k=1, max_new_tokens=m, ignore_eos=True) for _, m in requests]
+        outs_k1 = engine.generate(input_ids=prompts, sampling_params=k1)
+        k1_ties = 0
+        for i, (p, a, b) in enumerate(zip(prompts, outs, outs_k1)):
+            j = next((j for j, (x, y) in enumerate(zip(a.output_ids, b.output_ids)) if x != y), None)
+            if j is not None:  # the chains part at a tie, then go their own ways
+                tie = bf16_tie(forced[i], len(p) - 1 + j, floor)
+                k1_ties += tie
+                check(tie, f"{label}: temperature 1, top-k 1 leaves the greedy tokens at request {i} "
+                           f"token {j} outside a bf16 tie")
+        log(f"[spec {label}] temperature 1, top-k 1 (sampled verification): the greedy tokens, "
+            f"{k1_ties} requests parting at a bf16 tie")
+        result["sampled_ties"] = k1_ties
+    return result
+
+
+def phase_specs(p1b) -> dict:
+    """The spec engines, all bf16 but the last: the 1B on ngram drafts and
+    drafting for itself, Llama-3.1-8B drafted by the 1B and by a seeded
+    EAGLE head (the same 8B weights), and the 8B W4A8 on int8 KV at
+    ``SPEC_W4A8_LAYERS`` layers on ngram drafts (rows 3q and 4). The target
+    and the draft pools share the card: the split is logged and each pool
+    checked."""
+    import torch
+
+    from scratchpad_tpu_torch.config.model_config import get_preset
+
+    out = {}
+    engine = make_engine(params=p1b, speculative_algorithm="ngram")
+    out["1b-ngram"] = phase_spec(engine, "1b-ngram", sampled=True)
+    del engine
+    engine = make_engine(params=p1b, speculative_algorithm="draft", speculative_draft_preset="llama-3.2-1b")
+    engine.scheduler.draft_runner.model.load_state_dict(p1b)
+    out["1b-draft-self"] = phase_spec(engine, "1b-draft-self", draft_layers=16, self_draft=True)
+    del engine
+    engine = make_engine(preset="llama-3.1-8b", speculative_algorithm="draft",
+                         speculative_draft_preset="llama-3.2-1b")
+    target, drafter = engine.scheduler.runner, engine.scheduler.draft_runner
+    free, total = torch.cuda.mem_get_info()
+    log(
+        f"[spec 8b-draft-1b] pools: target {target.max_total_num_tokens} tokens x "
+        f"{target.kv_bytes_per_token()} B, draft {drafter.max_total_num_tokens} tokens x "
+        f"{drafter.kv_bytes_per_token()} B beside {drafter.param_bytes / 2**30:.2f} GiB of draft "
+        f"parameters; {free / 2**30:.1f} of {total / 2**30:.1f} GiB free"
+    )
+    check(drafter.page_allocator.num_pages == target.page_allocator.num_pages,
+          "the draft pool does not mirror the target's pages")
+    out["8b-draft-1b"] = phase_spec(engine, "8b-draft-1b", draft_layers=16)
+    p8b = engine.scheduler.runner.model.state_dict()
+    del engine, target, drafter
+    engine = make_engine(preset="llama-3.1-8b", params=p8b, speculative_algorithm="eagle")
+    del p8b
+    out["8b-eagle"] = phase_spec(engine, "8b-eagle", draft_layers=1)
+    del engine
+    engine = make_engine("w4a8", kv_cache_dtype="int8", speculative_algorithm="ngram",
+                         decode_window_size=SPEC_W4A8_WINDOW,
+                         model_config=get_preset("llama-3.1-8b", num_hidden_layers=SPEC_W4A8_LAYERS))
+    out["8b-w4a8-ngram"] = phase_spec(engine, "8b-w4a8-ngram", requests=SPEC_W4A8_REQUESTS)
+    del engine
+    return out
+
+
+# ------------------------------------------------------------ memory extras
+
+
+MEM_KV_TOKENS = 8192  # small pools, so that four 3,000-token prompts evict
+MEM_HOST_TOKENS = 32768
+MEM_PROMPT = 3000
+
+
+def pool_bytes(runner, pages) -> list:
+    """The bytes of ``pages`` of every pool tensor (K, V, scales)."""
+    import torch
+
+    idx = torch.as_tensor(pages, dtype=torch.long, device=runner.device)
+    return [t.index_select(1, idx).contiguous().view(torch.uint8) for t in runner._pool_tensors()]
+
+
+def phase_memory(p1b) -> dict:
+    """The memory extras on Llama-3.2-1B: on bf16 and on int8 pools, pages
+    gathered to the host and scattered back to other page ids come back bit
+    for bit, and a prompt served, evicted to the host tier and promoted
+    back gives the tokens of a radix hit on the device (the same pages);
+    on bf16, a resize down and
+    up still serves the same tokens, and ``update_weights`` to another
+    seed's weights and back gives bit-equal logits; parameter offload (two
+    groups) gives the resident engine's logits bit for bit, with both step
+    times."""
+    import numpy as np
+    import torch
+
+    from scratchpad_tpu_torch.models.llama import LlamaForCausalLM
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+
+    out = {}
+    rng = np.random.default_rng(11)
+    sp = SamplingParams(temperature=0.0, max_new_tokens=16, ignore_eos=True)
+    first = None
+    for kv in ("bfloat16", "int8"):
+        engine = make_engine(params=p1b, kv_cache_dtype=kv, max_total_tokens=MEM_KV_TOKENS,
+                             host_kv_cache_tokens=MEM_HOST_TOKENS)
+        runner = engine.scheduler.runner
+        V = runner.model_config.vocab_size
+        pa = rng.integers(1, V, MEM_PROMPT).tolist()
+        a = engine.generate(input_ids=pa, sampling_params=sp)
+        # a radix hit on the device: the promoted prompt must give its tokens
+        # (the same cached pages, the same tail extend)
+        hit = engine.generate(input_ids=pa, sampling_params=sp)
+        src = engine.scheduler.tree_cache.get(0).match_prefix(pa).page_ids[:64]
+        dst = runner.page_allocator.alloc(len(src))
+        host = [t.cpu() for t in runner.gather_pages(src)]
+        runner.scatter_pages(dst, host)
+        same = all(torch.equal(x, y) for x, y in zip(pool_bytes(runner, src), pool_bytes(runner, dst)))
+        runner.page_allocator.free(dst)
+        check(same and len(src) > 0, f"memory {kv}: {len(src)} pages gathered and scattered back differ")
+        for _ in range(3):
+            engine.generate(input_ids=rng.integers(1, V, MEM_PROMPT).tolist(), sampling_params=sp)
+        tier = engine.scheduler.host_tier
+        again = engine.generate(input_ids=pa, sampling_params=sp)
+        check(tier.stored_pages > 0 and tier.restored_pages > 0 and again.cached_tokens == hit.cached_tokens > 0,
+              f"memory {kv}: stored {tier.stored_pages}, restored {tier.restored_pages} pages, "
+              f"{again.cached_tokens} cached tokens against the device hit's {hit.cached_tokens}")
+        check(again.output_ids == hit.output_ids, f"memory {kv}: the promoted prompt's tokens differ from the hit's")
+        log(f"[memory {kv}] {len(src)} pages round-trip bit-equal {same}; host tier stored "
+            f"{tier.stored_pages}, restored {tier.restored_pages} pages; the promoted prompt: "
+            f"{again.cached_tokens} cached tokens, tokens equal to the device hit's "
+            f"{again.output_ids == hit.output_ids} (to the full prefill's {again.output_ids == a.output_ids})")
+        out[kv] = dict(round_trip=same, stored=tier.stored_pages, restored=tier.restored_pages,
+                       cached=again.cached_tokens)
+        if kv == "bfloat16":
+            first = a.output_ids
+            sizes = []
+            for tokens in (4096, 65536):
+                sizes.append(engine.resize_kv_pool(tokens))
+                got = engine.generate(input_ids=pa, sampling_params=sp)
+                # the host tier outlives a resize: its pages come back as a hit
+                want = hit if got.cached_tokens else a
+                check(got.output_ids == want.output_ids and got.cached_tokens in (0, hit.cached_tokens),
+                      f"memory: after a resize to {tokens} tokens the tokens differ "
+                      f"({got.cached_tokens} cached tokens)")
+                sizes.append(got.cached_tokens)
+            log(f"[memory] resize down and up: {sizes[0::2]} tokens, {sizes[1::2]} cached tokens (the host "
+                f"tier's pages promoted), the tokens of a hit or a full prefill as each had")
+            q = rng.integers(1, V, 500).tolist()
+            base = batch_logits(runner, [q], [first[0]])
+            dense = LlamaForCausalLM(runner.model_config, runner.device, runner.dtype)
+            dense.init_random_(torch.Generator(device=runner.device).manual_seed(1))
+            ok1, msg1 = engine.update_weights(state=dense.state_dict())
+            del dense
+            moved = batch_logits(runner, [q], [first[0]])
+            ok2, msg2 = engine.update_weights(state=p1b)
+            back = batch_logits(runner, [q], [first[0]])
+            move = max(float((m[0] - b[0]).abs().max() / b[0].abs().max()) for m, b in zip(moved, base))
+            equal = all(torch.equal(x, y) for x, y in zip(back, base))
+            check(ok1 and ok2 and equal and move > 0.1,
+                  f"memory: update_weights ({msg1}, {msg2}): logits back bit-equal {equal}, moved {move:.3e}")
+            log(f"[memory] update_weights to another seed and back: logits moved {move:.3e} of max|logit|, "
+                f"then bit-equal {equal}")
+            out["update"] = dict(moved=move, equal=equal)
+        del engine, runner
+    # parameter offload against the resident engine on the same weights
+    prompts = [rng.integers(1, V, n).tolist() for n in (100, 300, 700, 1000)]
+    spn = SamplingParams(temperature=0.0, max_new_tokens=32, ignore_eos=True)
+    res = {}
+    for name, kw in (("resident", {}), ("offload", dict(enable_param_offload=True, param_offload_groups=2))):
+        engine = make_engine(params=p1b, max_total_tokens=65536, **kw)
+        runner = engine.scheduler.runner
+        logits = [batch_logits(runner, [p], [1]) for p in prompts[:2]]
+        engine.generate(input_ids=prompts, sampling_params=spn)  # warm
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        engine.generate(input_ids=prompts, sampling_params=spn)
+        torch.cuda.synchronize()
+        resident_bytes = sum(x.numel() * x.element_size() for x in runner.model.state_dict().values())
+        res[name] = dict(logits=logits, ms_per_token=(time.monotonic() - t) * 1e3 / 32,
+                         resident_gib=resident_bytes / 2**30)
+        del engine, runner
+    # offload moves where the weights live, not the arithmetic: the same
+    # kernels on the same shapes give the same bits
+    pairs = [(a[0], b[0]) for ra, rb in zip(res["offload"]["logits"], res["resident"]["logits"])
+             for a, b in zip(ra, rb)]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+    check(equal, f"memory: offload logits differ from the resident engine's by {rel:.3e} of max|logit|")
+    log(
+        f"[memory] param offload, 2 groups: logits bit-equal to the resident engine's {equal} "
+        f"({rel:.3e} of max|logit|); {res['offload']['ms_per_token']:.2f} ms of wall a generated token (4 requests, "
+        f"prefill included, windows of one) against {res['resident']['ms_per_token']:.2f} ms resident; "
+        f"weights on the card "
+        f"{res['offload']['resident_gib']:.3f} GiB between forwards against {res['resident']['resident_gib']:.3f} GiB"
+    )
+    out["offload"] = {k: {kk: vv for kk, vv in v.items() if kk != "logits"} for k, v in res.items()}
+    out["offload"]["logit_rel"] = rel
+    out["offload"]["logits_equal"] = equal
+    return out
+
+
 KERNELS = {
     "paged_decode_attention": dict(
         route="cuda",
@@ -5235,12 +5714,18 @@ def main() -> None:
     states = topping_states(engine.model_config)
     register_toppings(engine, states, "1b-toppings")
     serve(engine, "1b-toppings", toppings=TOPPINGS, timed=False, requests=TOPPINGS_REQUESTS)
-    del engine  # frees the pool and the weights for the next engine
+    p1b = engine.scheduler.runner.model.state_dict()  # for the spec and memory engines
+    del engine  # frees the pool for the next engine
     # constrained decoding, Engine.generate and HTTP, on the same weights
     # drawn again, with the tokenizer a user names: tokenizer_path="chars"
     engine = make_engine(tokenizer_path="chars")
     grammar = timed(phase_grammar, engine)
     del engine
+    # speculative decoding (ngram, draft model, EAGLE) and the memory extras
+    # (host KV tier, pool resize, weight update, parameter offload)
+    specs = timed(phase_specs, p1b)
+    memory = timed(phase_memory, p1b)
+    del p1b
     engine = make_engine("w4a8")
     serve(engine, "w4a8", w4a8)
     # W4A16 on the same engine and codes: every QuantLinear takes the A16 route
@@ -5277,7 +5762,7 @@ def main() -> None:
     serve(engine, "3b-w4a8-bf16kv", w4a8, logits=False, timed=False, requests=UNTIMED_REQUESTS)
     del engine
     engine = make_engine(kv_cache_dtype="fp8")
-    serve(engine, "1b-fp8kv")
+    serve(engine, "1b-fp8kv", timed=False)
     del engine
     # Mistral-7B at full width and depth, its window through the decode and
     # extend kernels: attention_backend auto, then pallas on the same
@@ -5315,7 +5800,7 @@ def main() -> None:
     # Gemma-2-2B at full width and depth, bf16: head_dim 256, local layers
     # (window 4096) and global ones in turn, attention cap 50, final cap 30
     engine = make_engine(preset="gemma-2-2b")
-    serve(engine, "gemma-2-2b", requests=WINDOW_REQUESTS)
+    serve(engine, "gemma-2-2b", requests=WINDOW_REQUESTS, timed=False)
     del engine
     # Gemma-2-2B on int8 KV (rows 1dq and 3dq on a served path), GEMMA_KV8_LAYERS
     # layers: local and global layers in turn, prompts across the window's edge
@@ -5338,7 +5823,7 @@ def main() -> None:
     # attention kernels, a window of 128 on alternate layers, 32 experts
     # (top 4) in the masked loop; dropping the sinks must move its logits
     engine = make_engine(preset="gpt-oss-20b")
-    serve(engine, "gpt-oss-20b", requests=GPT_OSS_REQUESTS, sink_move=True, witness=True)
+    serve(engine, "gpt-oss-20b", requests=GPT_OSS_REQUESTS, sink_move=True, witness=True, timed=False)
     del engine
     # W4: kv_cache_dtype auto keeps GPT-OSS-20B's KV in bf16, as the JAX rule
     # does (no kernel backend), and gives Qwen3-30B-A3B int8
@@ -5496,7 +5981,7 @@ def main() -> None:
         )
     )
     log(json.dumps({"serve": {k: v for k, v in served.items() if k != "launches"}, "grammar": grammar,
-                    "custom": custom}))
+                    "custom": custom, "spec": specs, "memory": memory}))
     log(smi_line)
     log(
         json.dumps(

@@ -63,9 +63,13 @@ class ServerArgs:
     page_size: int = 16  # tokens per KV page
     mem_fraction_static: float = 0.85
     disable_radix_cache: bool = False
-    # not ported yet, refused when set: CPU parameter offload and the host
-    # KV tier
+    # parameter offload: the decoder layers live in (pinned) host memory in
+    # param_offload_groups groups, group g + 1 copied to the card on a side
+    # stream while group g computes (Llama family only)
     enable_param_offload: bool = False
+    param_offload_groups: int = 4
+    # host KV tier: pages the radix cache evicts go to a host arena of this
+    # many tokens and come back on a later prefix hit (0 = off)
     host_kv_cache_tokens: int = 0
 
     # parallelism: not ported yet, refused above 1 (the port serves on one
@@ -99,12 +103,18 @@ class ServerArgs:
     # windows in flight when overlapping; None = 2
     decode_pipeline_depth: Optional[int] = None
 
-    # not ported yet, refused when set: speculative decoding (ngram | draft
-    # | eagle), sequence- and pipeline-parallel execution, expert
-    # parallelism and DP attention
+    # speculative decoding: None | "ngram" (prompt-lookup drafts) | "draft"
+    # (a small draft model proposes k greedy tokens; its KV pool shares the
+    # target's page geometry) | "eagle" (a one-layer head on the target's
+    # features). The drafts are verified in one extend forward of the target,
+    # greedy or sampled
     speculative_algorithm: Optional[str] = None
     speculative_num_draft_tokens: int = 4
     speculative_ngram_max: int = 3  # longest suffix n-gram to match
+    speculative_draft_preset: Optional[str] = None
+    speculative_draft_model_path: Optional[str] = None
+    # not ported yet, refused when set: sequence- and pipeline-parallel
+    # execution, expert parallelism and DP attention
     enable_sp_prefill: bool = False
     enable_pp: bool = False
     enable_ep: bool = False
@@ -154,8 +164,27 @@ class ServerArgs:
 
     def resolve(self) -> "ServerArgs":
         """Materialise derived defaults; idempotent."""
+        if self.speculative_algorithm not in (None, "none", "ngram", "draft", "eagle"):
+            raise ValueError(
+                f"unknown speculative_algorithm {self.speculative_algorithm!r}"
+                " (expected ngram | draft | eagle)"
+            )
         if self.speculative_algorithm == "none":
             self.speculative_algorithm = None
+        if self.speculative_algorithm == "draft" and not (
+            self.speculative_draft_preset or self.speculative_draft_model_path
+        ):
+            raise ValueError(
+                "speculative_algorithm='draft' needs speculative_draft_preset"
+                " or speculative_draft_model_path"
+            )
+        if self.enable_param_offload and self.speculative_algorithm:
+            raise ValueError("enable_param_offload is incompatible with speculative decoding")
+        if self.host_kv_cache_tokens and self.speculative_algorithm == "draft":
+            raise ValueError(
+                "host_kv_cache_tokens is incompatible with draft-model "
+                "speculation (promoted pages have no draft-model KV)"
+            )
         if not (self.device == "cpu" or self.device.split(":")[0] == "cuda"):
             raise ValueError(f"device must be cuda, cuda:N or cpu; got {self.device!r}")
         self._refuse_unported()
@@ -182,11 +211,8 @@ class ServerArgs:
     def _refuse_unported(self) -> None:
         """Options whose code paths the port does not have yet."""
         unported = {
-            "speculative_algorithm": self.speculative_algorithm is not None,
             "quantization": self.quantization not in QUANTIZATIONS,
             "kv_cache_dtype": self.kv_cache_dtype not in KV_CACHE_DTYPES,
-            "enable_param_offload": self.enable_param_offload,
-            "host_kv_cache_tokens": self.host_kv_cache_tokens > 0,
             "tp_size/dp_size/pp_size/sp_size": max(
                 self.tp_size, self.dp_size, self.pp_size, self.sp_size
             )

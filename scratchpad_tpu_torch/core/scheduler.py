@@ -37,6 +37,75 @@ from scratchpad_tpu_torch.utils import get_logger
 logger = get_logger("scheduler")
 
 
+def draft_model_config(args: ServerArgs, target_cfg: ModelConfig) -> ModelConfig:
+    """The draft model's config: ``speculative_draft_preset`` (its weights
+    from ``speculative_draft_model_path`` where one is given) or the
+    checkpoint at that path, at the target's context length."""
+    from scratchpad_tpu_torch.config.model_config import get_preset
+
+    if args.speculative_draft_preset:
+        dcfg = get_preset(args.speculative_draft_preset, dtype=args.dtype)
+        if args.speculative_draft_model_path:
+            dcfg.model_path = args.speculative_draft_model_path
+    else:
+        dcfg = ModelConfig.from_pretrained(args.speculative_draft_model_path, dtype=args.dtype)
+    dcfg.max_position_embeddings = target_cfg.max_position_embeddings
+    return dcfg
+
+
+def spec_companion(args: ServerArgs, cfg: ModelConfig) -> tuple[int, int]:
+    """(parameter bytes, KV bytes a token) of the draft model or EAGLE head
+    that speculation puts beside the target, counted on the meta device
+    before anything is allocated, so that the target's pool leaves them
+    room (``ModelRunner(companion=)``); (0, 0) without one."""
+    import torch
+
+    from scratchpad_tpu_torch.executor.model_runner import _DTYPES
+    from scratchpad_tpu_torch.memory import KVCacheConfig
+    from scratchpad_tpu_torch.models.llama import LlamaDecoderLayer
+    from scratchpad_tpu_torch.models.registry import get_model_class
+
+    algo = args.speculative_algorithm
+    if algo not in ("draft", "eagle"):
+        return 0, 0
+    dt, meta = _DTYPES[args.dtype], torch.device("meta")
+    if algo == "draft":
+        dcfg = draft_model_config(args, cfg)
+        model = get_model_class(dcfg.architecture)(dcfg, meta, dt)
+        layers = dcfg.num_hidden_layers
+    else:  # fc [2H -> H] and one decoder layer
+        dcfg = cfg
+        model = LlamaDecoderLayer(cfg, meta, dt)
+        layers = 1
+    n = sum(t.numel() for t in model.parameters()) + (2 * cfg.hidden_size**2 if algo == "eagle" else 0)
+    kv = KVCacheConfig(
+        num_layers=layers, num_pages=0, page_size=args.page_size,
+        num_kv_heads=dcfg.num_kv_heads, head_dim=dcfg.head_dim, dtype=dt,
+    )
+    return n * dt.itemsize, kv.bytes_per_token()
+
+
+def build_draft_runner(target_runner: ModelRunner, args: ServerArgs) -> ModelRunner:
+    """A second ``ModelRunner`` for draft-model speculation, unquantized,
+    with a model-dtype pool that mirrors the target's page geometry, so
+    page tables and radix pages serve both (JAX ``scheduler.py:39-71``)."""
+    if getattr(target_runner.model, "is_multimodal", False):
+        raise ValueError("draft-model speculation requires a text model")
+    dcfg = draft_model_config(args, target_runner.model_config)
+    dargs = dataclasses.replace(
+        args,
+        max_total_tokens=target_runner.max_total_num_tokens,
+        quantization=None,
+        kv_cache_dtype="auto",
+        speculative_algorithm=None,
+    )
+    runner = ModelRunner(dcfg, dargs)
+    assert (
+        runner.page_allocator.num_pages == target_runner.page_allocator.num_pages
+    ), "draft KV pool must mirror the target's page geometry"
+    return runner
+
+
 @dataclasses.dataclass
 class StepEvent:
     """One request's progress this step (may cover a multi-token window)."""
@@ -57,17 +126,26 @@ class Scheduler:
     ):
         self.args = server_args.resolve()
         self.model_config = model_config
-        self.runner = runner or ModelRunner(model_config, self.args, mesh, params)
+        self.runner = runner or ModelRunner(
+            model_config, self.args, mesh, params,
+            companion=spec_companion(self.args, model_config),
+        )
         self.page_size = self.runner.page_size
         self.allocator = self.runner.page_allocator
         self.req_slots = self.runner.req_slots
 
-        # speculative decoding (draft model, EAGLE head) is not ported yet;
-        # its code below stays reachable only through these two fields
-        if self.args.speculative_algorithm is not None:
-            raise NotImplementedError("speculative decoding is not ported yet")
+        # draft-model speculation: a second runner whose KV pool mirrors the
+        # target's page geometry, so page tables / radix pages serve both
         self.draft_runner: Optional[ModelRunner] = None
+        if self.args.speculative_algorithm == "draft":
+            self.draft_runner = build_draft_runner(self.runner, self.args)
+        # EAGLE: a feature-conditioned one-layer head sharing the target's
+        # embedding and head
         self.eagle = None
+        if self.args.speculative_algorithm == "eagle":
+            from scratchpad_tpu_torch.executor.eagle import EagleRunner
+
+            self.eagle = EagleRunner(self.runner, self.args)
 
         self.tree_cache = TreeCacheGroup(
             self.page_size, disable=self.args.disable_radix_cache
@@ -76,7 +154,10 @@ class Scheduler:
         # back on later prefix hits (reference: memory/het_pool.py two-tier)
         self.host_tier = None
         if self.args.host_kv_cache_tokens > 0:
-            raise NotImplementedError("the host KV tier is not ported yet")
+            from scratchpad_tpu_torch.memory.host_kv_tier import HostKVTier
+
+            self.host_tier = HostKVTier(self.runner, self.args.host_kv_cache_tokens)
+            self.tree_cache.set_evict_hook(self.host_tier.on_evict)
         self.policy = SchedulePolicy(self.args.schedule_policy, self.tree_cache)
 
         self.waiting: list[Req] = []
@@ -194,7 +275,11 @@ class Scheduler:
                         r.last_feature = None  # features not captured
             if self.draft_runner is not None:
                 # mirror the extend so the draft's KV tracks the target's
-                self.draft_runner.run_kv_only(wb)
+                # (the base model's K/V: the draft has no adapters, and a
+                # request with one never speculates)
+                self.draft_runner.run_kv_only(
+                    dataclasses.replace(wb, active_adapters=None, adapter_slots=None)
+                )
                 for r, chunk in zip(batch, chunk_lens):
                     r.draft_len = r.computed_len + chunk
             return self._process_extend_result(
@@ -254,6 +339,11 @@ class Scheduler:
         return self.runner.mesh is None and self.runner.device.type == "cuda"
 
     def _pipeline_ok(self, batch, wb=None) -> bool:
+        # a speculative engine tries its drafts before every window; chained
+        # windows would never come back to them (the JAX copy chains on, so
+        # its ngram engine stops speculating after a window without drafts)
+        if self.args.speculative_algorithm is not None:
+            return False
         if wb is not None and not self.runner._packed_supported(wb):
             return False
         return not any(
@@ -278,8 +368,7 @@ class Scheduler:
         if lag:
             self._draft_catch_up(lag)
         wb = self._build_worker_batch(batch, ForwardMode.DECODE, None)
-        out = self.draft_runner.decode_multi(wb, k)
-        ids = np.asarray(out.next_token_ids)[:, : len(batch)]  # [k, B]
+        ids, _, _ = self.draft_runner.run_decode_window(wb, k)  # [k, B]
         for r in batch:
             r.draft_len = r.computed_len + k
         return [[int(t) for t in ids[:, i]] for i in range(len(batch))]
@@ -416,6 +505,11 @@ class Scheduler:
             # the sampler masks EOS until min_new_tokens; the verify
             # samplers don't
             and r.sampling_params.min_new_tokens <= len(r.output_ids)
+            # the verify samplers run no custom processor, and the verify
+            # batch carries no adapter table (the JAX copy verifies a
+            # topping's row on the base model)
+            and r.sampling_params.custom_logit_processor is None
+            and r.topping_idx == 0
             for r in batch
         )
         return ok
@@ -1478,13 +1572,13 @@ class Scheduler:
         slots = tier.match(req.topping_idx, req.origin_input_ids, m.num_pages)
         if not slots:
             return
-        kv, scale = tier.load(slots)  # copy out before any further eviction
+        loaded = tier.load(slots)  # copy out before any further eviction
         tree.inc_lock_ref(m.last_node)  # _alloc_pages may evict; protect match
         pages = self._alloc_pages(len(slots))
         tree.dec_lock_ref(m.last_node)
         if pages is None:
             return
-        self.runner.scatter_pages(pages, kv, scale)
+        self.runner.scatter_pages(pages, loaded)
         total = m.num_pages + len(slots)
         key = req.origin_input_ids[: total * self.page_size]
         all_pages = np.concatenate([m.page_ids, pages]).astype(np.int32)
@@ -1508,6 +1602,8 @@ class Scheduler:
                 self.draft_runner.page_allocator.num_pages
                 == self.allocator.num_pages
             )
+        if self.eagle is not None:  # the JAX copy leaves its pool at the old size
+            self.eagle.resize_pool(self.allocator.num_pages)
         return tokens
 
     def check_memory_leak(self) -> None:

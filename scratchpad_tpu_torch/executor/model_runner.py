@@ -4,7 +4,11 @@ Counterpart of ``scratchpad_tpu/executor/model_runner.py``, for the part the
 port has: parameter and KV-pool sizing, ``run_extend``, the fused decode
 window (``run_decode_window`` / ``decode_multi``) and its pipelined halves
 (``dispatch_decode_window`` / ``fetch_decode_window``), embeddings
-(``run_embed``) and teacher-forced scoring (``run_score``). PyTorch runs
+(``run_embed``), teacher-forced scoring (``run_score``), speculative
+verification (``run_spec_verify``, ``_h``, ``_sampled``,
+``run_extend_with_hidden``, ``run_kv_only``) and the memory extras (pages
+to and from the host KV tier, ``resize_kv_pool``, ``update_weights``,
+parameter offload through ``executor/param_offload.py``). PyTorch runs
 eagerly: a step is the model's forward followed by ``sample``, and a decode
 window is a loop of K steps whose sampled ids stay on the device and feed
 the next step, with one host fetch per window. Host inputs go up from pinned
@@ -12,7 +16,8 @@ buffers without a host sync, so a window can be dispatched while the
 previous one still runs on the card. Decode batches are padded to the
 batch-size buckets that CUDA graphs will be captured at (later work), so
 their padding rows reach the decode kernel as they will then; an extend
-batch runs at its real size, since nothing is compiled for its shape.
+batch runs at its real size, since nothing is compiled for its shape. Every
+forward runs at least ``MIN_ROWS`` rows.
 
 Attention runs through the kernel wrappers that ``attention_backend``
 names (``auto`` or ``pallas``), which launch the hand-written CUDA kernels
@@ -108,6 +113,14 @@ class PendingWindow(NamedTuple):
     done: Optional[torch.cuda.Event]
 
 
+# the fewest rows (requests, and tokens) a forward runs at: a matmul of one
+# row takes torch's vector path (gemv on the CPU), whose sums are ordered
+# otherwise than the matrix path's, so a request's logits would depend on
+# whether it was batched alone. From two rows on, each row's result is the
+# same at every row count.
+MIN_ROWS = 2
+
+
 def _next_bucket(ladder: list[int], n: int) -> int:
     for b in ladder:
         if b >= n:
@@ -189,10 +202,14 @@ class ModelRunner:
         server_args: ServerArgs,
         mesh: Any = None,
         params: Optional[dict[str, torch.Tensor]] = None,
+        companion: tuple[int, int] = (0, 0),
     ):
         """``params``: a ``state_dict`` for the model (for example from
         ``weight_loader.params_from_jax``); None loads ``model_path`` or,
-        with ``random_weights``, draws seeded random weights."""
+        with ``random_weights``, draws seeded random weights. ``companion``:
+        (parameter bytes, KV bytes a token) of a draft model or EAGLE head
+        that will share the card and this pool's token count; the pool is
+        sized so that both fit."""
         if mesh is not None:
             raise NotImplementedError("device meshes are not ported yet")
         self.mesh = None
@@ -218,7 +235,9 @@ class ModelRunner:
         self.model = model_cls(
             cfg, self.device, self.dtype, quantization=quant,
             quantize_lm_head=quant in ("w4a8", "w4a16")
-            and getattr(model_cls, "supports_quantized_lm_head", True),
+            and getattr(model_cls, "supports_quantized_lm_head", True)
+            # an EAGLE head shares the target's bf16 head (JAX :579-593)
+            and self.args.speculative_algorithm != "eagle",
         )
         self.attention_backend = self._set_attention(self.model)
 
@@ -244,8 +263,15 @@ class ModelRunner:
             self.quantize_seconds,
         )
 
+        self.param_offload = None
+        if self.args.enable_param_offload:
+            from scratchpad_tpu_torch.executor.param_offload import ParamOffload
+
+            self.param_offload = ParamOffload(self.model, self.args.param_offload_groups)
+
         # ---- KV pool sizing
         self.max_context_len = server_args.context_length or cfg.context_len
+        self.companion = companion
         num_tokens = self._profile_kv_tokens()
         num_pages = num_tokens // self.page_size + 1  # +1 = reserved dump page
         self.kv_config = self._kv_config(num_pages)
@@ -363,10 +389,18 @@ class ModelRunner:
             return self.args.max_total_tokens
         if self.device.type == "cuda":
             free, total = torch.cuda.mem_get_info(self.device)
+            companion_params, companion_bpt = self.companion
             budget = kv_budget_bytes(
                 free, total, self.args.mem_fraction_static, self.forward_workspace_bytes()
-            )
-            return int(max(budget // self.kv_bytes_per_token(), 4096))
+            ) - companion_params
+            tokens = int(max(budget // (self.kv_bytes_per_token() + companion_bpt), 4096))
+            if companion_params:
+                logger.info(
+                    "KV split: %d tokens, %d B a token here and %d B a token beside it, "
+                    "after %.2f GiB of the companion's parameters",
+                    tokens, self.kv_bytes_per_token(), companion_bpt, companion_params / 2**30,
+                )
+            return tokens
         return 2**16  # CPU default
 
     def _kv_config(self, num_pages: int) -> KVCacheConfig:
@@ -401,7 +435,7 @@ class ModelRunner:
         B_real = len(wb.seq_lens)
         with torch.inference_mode():
             meta, sinfo, modes = self._pad_to_buckets(wb)
-            logits = self.model(meta, self.kv_cache)
+            logits = self._forward(meta)
             ids, chosen, tops = self._sample(logits, sinfo, modes, wb.return_top_logprobs)
             host = self._fetch(ids[None], chosen[None])
         tops = None if tops is None else tuple(t.cpu().numpy()[:B_real] for t in tops)
@@ -517,7 +551,7 @@ class ModelRunner:
                 adapter_slots=meta.adapter_slots,
                 rope_delta=meta.rope_delta,
             )
-            logits = self.model(step_meta, self.kv_cache)
+            logits = self._forward(step_meta)
             if counts is not None:
                 sinfo = dataclasses.replace(sinfo, output_token_counts=counts)
             ids, chosen, tops = self._sample(
@@ -562,7 +596,7 @@ class ModelRunner:
         with torch.inference_mode():
             meta, _, _ = self._pad_to_buckets(wb)
             meta.capture_hidden = True
-            emb = self.model(meta, self.kv_cache).float()
+            emb = self._forward(meta).float()
             emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
             return emb.cpu().numpy()[: len(wb.seq_lens)]
 
@@ -577,7 +611,7 @@ class ModelRunner:
         with torch.inference_mode():
             meta, _, _ = self._pad_to_buckets(wb)
             meta.capture_all_hidden = True
-            h = self.model(meta, self.kv_cache)  # [T, H]
+            h = self._forward(meta)  # [T, H]
             targets = torch.cat([meta.tokens[1:], meta.tokens.new_zeros(1)])
             out = []
             for c in range(0, h.shape[0], self.SCORE_CHUNK):
@@ -586,12 +620,198 @@ class ModelRunner:
                 out.append(logits.gather(1, tc)[:, 0] - torch.logsumexp(logits, dim=-1))
             return torch.cat(out).cpu().numpy()[:T_real]
 
+    def _forward(self, meta: ForwardMeta) -> torch.Tensor:
+        """The model's forward over the pool: its layers streamed from the
+        host a group at a time under parameter offload."""
+        if self.param_offload is not None:
+            return self.param_offload.forward(meta, self.kv_cache)
+        return self.model(meta, self.kv_cache)
+
+    # ------------------------------------------------ speculative decoding
+
+    def _hidden(self, wb: WorkerBatch):
+        """An extend forward of ``wb`` that keeps every row's final-normed
+        hidden state: (meta, sampling state, modes, h [T, H])."""
+        meta, sinfo, modes = self._pad_to_buckets(wb)
+        meta.capture_all_hidden = True
+        return meta, sinfo, modes, self._forward(meta)
+
+    def _head_rows(self, h: torch.Tensor, pick):
+        """``pick(logits, c)`` over the head's logits ``SCORE_CHUNK`` rows
+        at a time (c: the chunk's first row), so the [T, V] logits are
+        never built whole; its (ids, logprobs) chunks joined."""
+        ids, lps = [], []
+        for c in range(0, h.shape[0], self.SCORE_CHUNK):
+            i, lp = pick(self.model.head_logits(h[c : c + self.SCORE_CHUNK]), c)
+            ids.append(i)
+            lps.append(lp)
+        return torch.cat(ids), torch.cat(lps)
+
+    def _spec_out(self, wb: WorkerBatch, ids, lps, h, return_hidden: bool):
+        host = self._fetch(ids[None], lps[None])
+        T_real = len(wb.tokens)
+        out = (host[0][0, :T_real], host[1][0, :T_real])
+        if return_hidden:
+            out += (h[:T_real].float().cpu().numpy(),)
+        return out
+
+    def run_spec_verify(self, wb: WorkerBatch, return_hidden: bool = False):
+        """Greedy speculative verification: one extend forward over
+        ``[last_token, draft_1..draft_k]`` rows a request; returns the
+        greedy token and its logprob at EVERY row (ids [T_real], logprobs
+        [T_real]), and with ``return_hidden`` the rows' features (final-normed
+        hidden states, f32 [T_real, H]) for EAGLE. Rejected rows' K/V stay
+        past the request's length and are overwritten later."""
+        with torch.inference_mode():
+            _, _, _, h = self._hidden(wb)
+
+            def greedy(logits, c):
+                i = logits.argmax(dim=-1)
+                return i, logits.gather(1, i[:, None])[:, 0] - torch.logsumexp(logits, dim=-1)
+
+            ids, lps = self._head_rows(h, greedy)
+            return self._spec_out(wb, ids, lps, h, return_hidden)
+
+    def run_spec_verify_h(self, wb: WorkerBatch):
+        """``run_spec_verify`` with the rows' features (EAGLE)."""
+        return self.run_spec_verify(wb, return_hidden=True)
+
+    def run_spec_verify_sampled(self, wb: WorkerBatch, return_hidden: bool = False):
+        """Sampled speculative verification: the target continuation
+        SAMPLED at every row with its request's temperature, top-k, top-p
+        and min-p (the rows gathered by ``req_indices``; the head's logits
+        soft-capped as served). The proposals are deterministic (a point
+        mass q), so the accept rule min(1, p/q) with its residual resample
+        reduces to: sample t_j ~ p_j at every row, accept while t_j equals
+        the draft, and emit the first mismatching t_j; the emitted token is
+        p_j-distributed either way (JAX ``model_runner.py:1715-1727``). Each
+        chunk draws from the runner's generator in turn, so no stream repeats
+        across chunks or steps."""
+        with torch.inference_mode():
+            meta, sinfo, modes, h = self._hidden(wb)
+            ri = meta.req_indices
+
+            def sampled(logits, c):
+                rows = ri[c : c + logits.shape[0]]
+                info = SamplingBatchInfo(
+                    temperature=sinfo.temperature[rows], top_p=sinfo.top_p[rows],
+                    top_k=sinfo.top_k[rows], min_p=sinfo.min_p[rows],
+                )
+                return sample(logits, info, self._generator, full_logprobs=False, modes=modes)
+
+            ids, lps = self._head_rows(h, sampled)
+            return self._spec_out(wb, ids, lps, h, return_hidden)
+
+    def run_extend_with_hidden(self, wb: WorkerBatch):
+        """An extend step that also returns every row's feature: (ids
+        [B_real], logprobs [B_real], features f32 [T_real, H]), the EAGLE
+        prefill."""
+        if wb.return_top_logprobs:
+            raise ValueError("run_extend_with_hidden takes no top-logprobs")
+        B_real = len(wb.seq_lens)
+        with torch.inference_mode():
+            meta, sinfo, modes, h = self._hidden(wb)
+            logits = self.model.head_logits(h[meta.last_token_idx])
+            ids, chosen, _ = self._sample(logits, sinfo, modes, False)
+            host = self._fetch(ids[None], chosen[None])
+            feats = h[: len(wb.tokens)].float().cpu().numpy()
+        return host[0][0, :B_real], host[1][0, :B_real], feats
+
+    def run_kv_only(self, wb: WorkerBatch) -> None:
+        """An extend forward that only writes the batch's K/V (a draft
+        model's pool kept in step with the target's accepted tokens); the
+        head does not run."""
+        with torch.inference_mode():
+            meta, _, _ = self._pad_to_buckets(wb)
+            meta.capture_hidden = True
+            self._forward(meta)
+
+    # --------------------------------------------------- memory extras
+
+    def gather_pages(self, page_ids: np.ndarray) -> list[torch.Tensor]:
+        """Logical pages of every layer as copies on the device, one tensor
+        ``[n, L, ps, ...]`` for each of the pool's K, V and, in an 8-bit
+        pool, K and V scales (a latent pool: its one tensor). Enqueued on
+        the current stream, so it reads the pages as every earlier step left
+        them; the host KV tier copies them out."""
+        idx = torch.as_tensor(np.asarray(page_ids, np.int64), device=self.device)
+        return [t.index_select(1, idx).transpose(0, 1).contiguous() for t in self._pool_tensors()]
+
+    def scatter_pages(self, page_ids: np.ndarray, pages: list[torch.Tensor]) -> None:
+        """Write ``pages`` (as ``gather_pages`` gives them, on any device)
+        into the pool at ``page_ids``."""
+        idx = torch.as_tensor(np.asarray(page_ids, np.int64), device=self.device)
+        with torch.inference_mode():
+            for t, p in zip(self._pool_tensors(), pages):
+                p = p.to(self.device, non_blocking=True).transpose(0, 1)
+                if t.element_size() == 1:  # fp8 codes as bytes (no CPU index_copy_ for fp8)
+                    t, p = t.view(torch.uint8), p.view(torch.uint8)
+                t.index_copy_(1, idx, p)
+
+    def _pool_tensors(self) -> list[torch.Tensor]:
+        kv = self.kv_cache
+        return [t for t in (kv.k, kv.v, kv.k_scale, kv.v_scale) if t is not None]
+
+    def resize_kv_pool(self, new_num_tokens: int) -> int:
+        """Reallocate the pool for ``new_num_tokens`` tokens (the old one is
+        released first); the caller must have flushed every cached page, as
+        page ids start again. Returns the new token capacity."""
+        ps = self.page_size
+        new_pages = new_num_tokens // ps + 1
+        if new_pages < 2:
+            raise ValueError("KV pool must hold at least one page")
+        self.kv_cache = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.kv_config = dataclasses.replace(self.kv_config, num_pages=new_pages)
+        self.kv_cache = create_kv_cache(self.kv_config, self.device)
+        self.page_allocator = PageAllocator(new_pages, ps)
+        dump = self.page_allocator.alloc(1)
+        assert dump is not None and dump[0] == 0
+        self.max_running_requests = min(self.args.max_running_requests, new_pages - 1)
+        self.max_total_num_tokens = (new_pages - 1) * ps
+        logger.info(
+            "KV pool resized: %d pages x %d tokens (%.2f GiB)", new_pages - 1, ps,
+            new_pages * ps * self.kv_config.bytes_per_token() / 2**30,
+        )
+        return self.max_total_num_tokens
+
+    def update_weights(self, state: dict) -> tuple[bool, str]:
+        """Swap in new weights: ``state`` is an HF-named state dict, or the
+        unquantized model's own ``state_dict`` names (``layers.0.wq.weight``).
+        A W4 or fp8 engine quantizes it again on its device. Every name and
+        shape is checked before a weight is copied, so a bad state leaves
+        the old weights in place. The caller flushes the radix cache, whose
+        K/V belong to the old weights."""
+        try:
+            with torch.inference_mode():
+                hf = any(k.startswith("model.") for k in state)
+                dense = self.model.convert_hf_state(state, self.dtype) if hf else {
+                    k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(self.dtype)
+                    for k, v in state.items()
+                }
+                if self.args.quantization is not None:
+                    dense = self.model.quantize_state(dense)
+                owner = self.param_offload or self.model
+                target = owner.state_dict()
+                missing = sorted(set(target) - set(dense))
+                extra = sorted(set(dense) - set(target))
+                if missing or extra:
+                    raise KeyError(f"missing {missing[:4]}, unexpected {extra[:4]}")
+                for k, v in dense.items():
+                    if v.shape != target[k].shape:
+                        raise ValueError(f"{k}: shape {tuple(v.shape)}, expected {tuple(target[k].shape)}")
+                owner.load_state_dict(dense)
+            return True, "ok"
+        except Exception as e:  # noqa: BLE001
+            return False, f"update failed, rolled back: {e}"
+
     def forward_logits(self, wb: WorkerBatch) -> torch.Tensor:
         """The f32 logits [B_real, V] that one step of ``wb`` would sample
         from (its new K/V is written to the pool as in a real step)."""
         with torch.inference_mode():
             meta, _, _ = self._pad_to_buckets(wb)
-            return self.model(meta, self.kv_cache)[: len(wb.seq_lens)]
+            return self._forward(meta)[: len(wb.seq_lens)]
 
     def _sample(self, logits, sinfo, modes, want_tops: bool):
         if not want_tops:
@@ -620,7 +840,7 @@ class ModelRunner:
         batch-size and page-table buckets: its padding rows have
         ``seq_lens == extend_lens == 0``, write to the dump page 0 and take
         adapter slot 0, the zero adapter. An extend batch keeps its real
-        size."""
+        size. Either is padded to ``MIN_ROWS`` requests and tokens."""
         adapters = wb.active_adapters is not None
         if adapters and self.toppings_manager is None:
             raise ValueError("the batch names adapters but no toppings are attached")
@@ -631,10 +851,11 @@ class ModelRunner:
             B = _next_bucket(self.args.decode_bs_buckets, B_real)
             if B_real > B:
                 raise ValueError(f"{B_real} rows exceed the largest bucket {B}")
+            B = max(B, MIN_ROWS)
             T = B
             P = _pow2_bucket(P_real, 4, self.max_pages_per_req)
         else:
-            B, T, P = B_real, T_real, P_real
+            B, T, P = max(B_real, MIN_ROWS), max(T_real, MIN_ROWS), P_real
 
         # one int64 and one int32 host buffer -> two host-to-device copies
         i64 = np.zeros(4 * T + B, np.int64)

@@ -12,6 +12,7 @@ and ``toppings_from_jax`` for the adapter pools of a toppings manager.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -255,6 +256,24 @@ def params_from_jax(
         )
         for part, t in zip("qsz", packed):
             state[f"lm_head_q.{part}"] = t[0]
+    return state
+
+
+def eagle_params_from_jax(params_np: dict[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The JAX ``EagleRunner.params`` (numpy leaves: ``layers``, stacks of
+    one layer, ``fc`` [2H, H] and ``fc_b`` or None) as the ``state_dict`` of
+    the port's ``EagleRunner``, for a target of config ``cfg``."""
+    one = dataclasses.replace(cfg, num_hidden_layers=1)
+    H = cfg.hidden_size
+    stub = {"embed": np.zeros((1, H), np.float32), "final_norm": np.ones(H, np.float32)}
+    state = {
+        k: v
+        for k, v in params_from_jax({**stub, "layers": params_np["layers"]}, one).items()
+        if k.startswith("layers.")
+    }
+    state["fc.weight"] = _tensor(np.asarray(params_np["fc"]).T)
+    if params_np.get("fc_b") is not None:
+        state["fc.bias"] = _tensor(params_np["fc_b"])
     return state
 
 

@@ -112,6 +112,68 @@ class LlamaDecoderLayer(nn.Module):
         self.down = lin(I, H, False)
 
 
+def decoder_layers(
+    layers: nn.ModuleList,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    meta: ForwardMeta,
+    kv: KVCache,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    attend,
+    sm_scale: float,
+    toppings=None,
+    first: int = 0,
+    last=None,
+) -> torch.Tensor:
+    """Llama decoder ``layers`` ``first`` to ``last - 1`` (all by default)
+    over the residual stream ``x`` [T, H], with the rope tables ``cos``,
+    ``sin`` and the attention function ``attend``; layer l writes and reads
+    the pool's layer l. ``toppings`` adds each token's adapter where the
+    batch names any. The target model and the EAGLE head both run it."""
+    T = meta.num_tokens
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    use_toppings = toppings is not None and meta.active_adapters is not None
+    if use_toppings:
+        token_slot = meta.adapter_slots[meta.req_indices]  # i32[T]
+
+    def topped(y, h, name, l):
+        """y + each token's own adapter on projection ``name``."""
+        if not use_toppings:
+            return y
+        return apply_topping(h, y, toppings, name, l, meta.active_adapters, token_slot)
+
+    def lin(layer, name, h, l):
+        return topped(getattr(layer, name)(h), h, name, l)
+
+    for l in range(first, len(layers) if last is None else last):
+        layer = layers[l]
+        h = rms_norm(x, layer.input_norm, eps)
+        q = lin(layer, "wq", h, l).view(T, Hq, D)
+        k = lin(layer, "wk", h, l).view(T, Hkv, D)
+        v = lin(layer, "wv", h, l).view(T, Hkv, D)
+        if cfg.use_qk_norm:
+            q = rms_norm(q, layer.q_norm, eps)
+            k = rms_norm(k, layer.k_norm, eps)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        write_kv(kv, k, v, l, meta.out_cache_loc)
+        attn = attend(
+            q, kv, l, meta, sm_scale=sm_scale,
+            logit_cap=cfg.attn_logit_softcap, sliding_window=cfg.sliding_window,
+        )
+        x = x + lin(layer, "wo", attn.reshape(T, Hq * D), l)
+        h2 = rms_norm(x, layer.post_norm, eps)
+        if layer.fused_gate_up:
+            # the pools keep gate and up apart: each half gets its own
+            gate, up = layer.gate_up(h2).chunk(2, dim=-1)
+            gate, up = topped(gate, h2, "gate", l), topped(up, h2, "up", l)
+        else:
+            gate, up = lin(layer, "gate", h2, l), lin(layer, "up", h2, l)
+        x = x + lin(layer, "down", silu_mul(gate, up), l)
+    return x
+
+
 class LlamaForCausalLM(nn.Module):
     """``forward(meta, kv) -> f32 logits [B, V]`` at each row's last token.
 
@@ -327,54 +389,29 @@ class LlamaForCausalLM(nn.Module):
         return rope_cos_sin(pos, inv_freq)
 
     def forward(self, meta: ForwardMeta, kv: KVCache) -> torch.Tensor:
-        cfg = self.cfg
-        T = meta.num_tokens
-        Hq, Hkv, D = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
-        eps = cfg.rms_norm_eps
+        return self.finish(self.run_layers(self.embed_tokens(meta), meta, kv), meta)
+
+    def run_layers(
+        self, x: torch.Tensor, meta: ForwardMeta, kv: KVCache, first: int = 0, last=None
+    ) -> torch.Tensor:
+        """Decoder layers ``first`` to ``last - 1`` (all by default) over the
+        residual stream ``x`` [T, H]; layer l writes and reads the pool's
+        layer l. Parameter offload runs them a group at a time."""
         attend = (
             self.decode_attention
             if meta.mode == ForwardMode.DECODE
             else self.extend_attention
         )
         cos, sin = self.rope_tables(meta, self.inv_freq)
-        use_toppings = self.toppings is not None and meta.active_adapters is not None
-        if use_toppings:
-            token_slot = meta.adapter_slots[meta.req_indices]  # i32[T]
+        return decoder_layers(
+            self.layers, self.cfg, x, meta, kv, cos, sin, attend, self.sm_scale,
+            toppings=self.toppings, first=first, last=last,
+        )
 
-        def topped(y, h, name, l):
-            """y + each token's own adapter on projection ``name``."""
-            if not use_toppings:
-                return y
-            return apply_topping(h, y, self.toppings, name, l, meta.active_adapters, token_slot)
-
-        def lin(layer, name, h, l):
-            return topped(getattr(layer, name)(h), h, name, l)
-
-        x = self.embed_tokens(meta)  # [T, H]
-        for l, layer in enumerate(self.layers):
-            h = rms_norm(x, layer.input_norm, eps)
-            q = lin(layer, "wq", h, l).view(T, Hq, D)
-            k = lin(layer, "wk", h, l).view(T, Hkv, D)
-            v = lin(layer, "wv", h, l).view(T, Hkv, D)
-            if cfg.use_qk_norm:
-                q = rms_norm(q, layer.q_norm, eps)
-                k = rms_norm(k, layer.k_norm, eps)
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            write_kv(kv, k, v, l, meta.out_cache_loc)
-            attn = attend(
-                q, kv, l, meta, sm_scale=self.sm_scale,
-                logit_cap=cfg.attn_logit_softcap, sliding_window=cfg.sliding_window,
-            )
-            x = x + lin(layer, "wo", attn.reshape(T, Hq * D), l)
-            h2 = rms_norm(x, layer.post_norm, eps)
-            if layer.fused_gate_up:
-                # the pools keep gate and up apart: each half gets its own
-                gate, up = layer.gate_up(h2).chunk(2, dim=-1)
-                gate, up = topped(gate, h2, "gate", l), topped(up, h2, "up", l)
-            else:
-                gate, up = lin(layer, "gate", h2, l), lin(layer, "up", h2, l)
-            x = x + lin(layer, "down", silu_mul(gate, up), l)
-        h = rms_norm(x, self.final_norm, eps)
+    def finish(self, x: torch.Tensor, meta: ForwardMeta) -> torch.Tensor:
+        """The final norm, then every row's hidden state (``capture_all_hidden``),
+        the last rows' (``capture_hidden``) or the last rows' logits."""
+        h = rms_norm(x, self.final_norm, self.cfg.rms_norm_eps)
         if meta.capture_all_hidden:
             return h  # [T, H], for sequence scoring
         last = h[meta.last_token_idx]  # [B, H]

@@ -80,8 +80,8 @@ def mla_attention(
     ``mla_backend.py:53-102``), each query at position p attending the
     cached positions ``j <= p`` of its sequence. ``spans``: the extend
     batch's ``extend_spans`` (computed here when None). Decode rows with
-    ``seq_lens == 0`` (padding) come out finite; extend tokens past the
-    last sequence come out as zeros."""
+    ``seq_lens == 0`` (padding) and extend tokens past the last sequence
+    come out as zeros, as the attention kernels' padding rows do."""
     T, Hq, r = q_lat.shape
     D = kv.k.shape[-1]
     if meta.mode == ForwardMode.DECODE:
@@ -127,5 +127,5 @@ def _decode_block(q_lat, q_rope, kv, layer_idx, page_table, seq_lens, sm_scale):
     )
     live = torch.arange(lat.shape[1], device=lat.device)[None, :] < seq_lens[:, None]
     scores = torch.where(live[:, None, :], scores * sm_scale, _NEG)
-    p = torch.softmax(scores, dim=-1)
+    p = torch.softmax(scores, dim=-1) * (seq_lens > 0)[:, None, None]  # padding rows: zeros
     return torch.einsum("bhs,bsr->bhr", p, ckv).to(q_lat.dtype)

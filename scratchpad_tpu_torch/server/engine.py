@@ -11,8 +11,10 @@ grammar backend of ``constrained/`` once a tokenizer is loaded) and, for
 the vision models, ``image_data`` and ``video_data``: the tower encodes
 them when the request is made, and each placeholder id expands into
 negative ids hashed from the content (so the radix cache never aliases two
-images) whose rows take the features. ``update_weights`` and
-``resize_kv_pool`` are refused (not ported yet). The HTTP server
+images) whose rows take the features. Speculative decoding
+(``speculative_algorithm`` ngram, draft or eagle) is the scheduler's;
+``update_weights`` swaps the weights and ``resize_kv_pool`` reallocates the
+pool, each flushing the radix cache. The HTTP server
 drives the same engine from its async runner's thread
 (``server/async_runner.py``).
 """
@@ -621,14 +623,28 @@ class Engine:
         return math.exp(-sum(lps) / max(len(lps), 1))
 
     def update_weights(self, model_path: Optional[str] = None, state: Optional[dict] = None):
-        raise NotImplementedError(
-            "update_weights is not ported to scratchpad_tpu_torch yet (ROADMAP Queue 1, item 9)"
-        )
+        """Swap the weights in place (``state``: HF names, or the
+        unquantized model's own; else the checkpoint at ``model_path``);
+        returns (ok, message). On success the radix cache is flushed: its
+        K/V belong to the old weights. Needs an idle engine."""
+        self.scheduler.drain()
+        if self.scheduler.has_work():
+            raise RuntimeError("update_weights needs an idle engine")
+        if state is None:
+            from scratchpad_tpu_torch.executor.weight_loader import load_hf_state
+
+            state = load_hf_state(model_path)
+        ok, msg = self.scheduler.runner.update_weights(state)
+        if ok:
+            self.flush_cache()
+        return ok, msg
 
     def resize_kv_pool(self, new_num_tokens: int) -> int:
-        raise NotImplementedError(
-            "resize_kv_pool is not ported to scratchpad_tpu_torch yet (ROADMAP Queue 1, item 9)"
-        )
+        """Grow or shrink the KV pool (the draft's and the EAGLE head's
+        follow it); flushes the radix cache and returns the new token
+        capacity. Needs an idle engine."""
+        self.scheduler.drain()
+        return self.scheduler.resize_kv_pool(new_num_tokens)
 
     def shutdown(self) -> None:
         """Finish what is in flight and drop the sessions; the engine holds
@@ -644,3 +660,5 @@ class Engine:
         self.scheduler.tree_cache.reset()
         self.scheduler.allocator.clear()
         self.scheduler.allocator.alloc(1)  # re-reserve dump page
+        if self.scheduler.host_tier is not None:
+            self.scheduler.host_tier.reset()

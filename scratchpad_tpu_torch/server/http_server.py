@@ -13,8 +13,9 @@ answers 400 without it, as the JAX server does. Chat takes ``image_url``,
 ``image``, ``video_url`` and ``video`` parts (a ``data:`` URL, raw base64
 or a local path; a remote URL, a model without vision or a missing
 decoding library answer 400), decoded off the event loop and encoded on
-the scheduler thread. What the port does not have is refused explicitly:
-``/update_weights`` and a ``/memory_pool`` resize answer 501. The handlers await the async runner's streams; the
+the scheduler thread. ``/update_weights`` and a ``/memory_pool`` resize
+run on the scheduler thread of an idle engine (409 while requests run).
+The handlers await the async runner's streams; the
 engine itself runs on the runner's scheduler thread.
 """
 
@@ -62,7 +63,6 @@ from scratchpad_tpu_torch.utils import get_logger
 
 logger = get_logger("http_server")
 
-UNPORTED_QUEUE_ITEM = "ROADMAP Queue 1, item 9"
 _REASONS = {
     200: "OK", 100: "Continue", 400: "Bad Request", 401: "Unauthorized", 404: "Not Found",
     405: "Method Not Allowed", 409: "Conflict", 500: "Internal Server Error",
@@ -419,8 +419,8 @@ class ServerApp:
                 "retractions": sched.num_retractions,
                 "spec_steps": sched.num_spec_steps,
                 "spec_accepted_tokens": sched.num_spec_accepted,
-                "host_kv_stored_pages": 0,  # the host KV tier is not ported
-                "host_kv_restored_pages": 0,
+                "host_kv_stored_pages": sched.host_tier.stored_pages if sched.host_tier else 0,
+                "host_kv_restored_pages": sched.host_tier.restored_pages if sched.host_tier else 0,
                 "args": {
                     k: v
                     for k, v in dataclasses.asdict(self.args).items()
@@ -441,13 +441,23 @@ class ServerApp:
         return json_response({"status": "ok"})
 
     async def memory_pool(self, request, writer) -> Response:
-        """A KV-pool resize: validated as the JAX server does, then refused
-        (``resize_kv_pool`` is not ported)."""
+        """Grow or shrink the KV pool at run time (JAX
+        ``http_server.py:205-225``): 409 while requests run."""
         body = request.json()
         tokens = body.get("max_total_tokens") if isinstance(body, dict) else None
         if not isinstance(tokens, int) or tokens <= 0:
             return self._bad_request("max_total_tokens (positive int) required")
-        return self._not_ported("resizing the KV pool (/memory_pool)")
+
+        def resize():
+            if self.engine.scheduler.has_work():
+                return 409, {"status": "busy"}
+            try:
+                return 200, {"status": "ok", "max_total_tokens": self.engine.resize_kv_pool(tokens)}
+            except (RuntimeError, ValueError) as e:
+                return 409, {"status": "error", "message": str(e)}
+
+        status, out = await self.runner.call(resize)
+        return json_response(out, status)
 
     async def abort_request(self, request, writer) -> Response:
         body = request.json()
@@ -455,7 +465,22 @@ class ServerApp:
         return json_response({"status": "ok"})
 
     async def update_weights(self, request, writer) -> Response:
-        return self._not_ported("update_weights")
+        """Reload the weights from ``model_path`` in place (JAX
+        ``http_server.py:227-240``): 409 while requests run, 500 with the
+        message when the state does not fit the model."""
+        body = request.json()
+        path = body.get("model_path") if isinstance(body, dict) else None
+        if not path:
+            return self._bad_request("model_path required")
+
+        def update():
+            if self.engine.scheduler.has_work():
+                return 409, {"status": "busy"}
+            ok, msg = self.engine.update_weights(model_path=path)
+            return (200 if ok else 500), {"status": "ok" if ok else "error", "message": msg}
+
+        status, out = await self.runner.call(update)
+        return json_response(out, status)
 
     async def start_profile(self, request, writer) -> Response:
         """Start ``torch.profiler`` (the card's kernels where there is one);
@@ -883,15 +908,6 @@ class ServerApp:
 
     def _bad_request(self, msg: str) -> Response:
         return json_response(dump(ErrorResponse(message=msg)), 400)
-
-    def _not_ported(self, what: str) -> Response:
-        return json_response(
-            {
-                "status": "error",
-                "message": f"{what} is not ported to scratchpad_tpu_torch yet ({UNPORTED_QUEUE_ITEM})",
-            },
-            501,
-        )
 
 
 class ServerThread:

@@ -35,6 +35,7 @@ ARGS = dict(
     chunked_prefill_size=16,
 )
 MARGIN = 1e-3
+LP_TOL = 1e-4  # chosen logprobs, port against JAX (f32)
 
 
 @pytest.fixture(scope="module")
@@ -207,53 +208,18 @@ def test_extend_runs_unpadded_and_decode_pads_to_buckets(engines):
         dict(attention_backend="plain"),
         dict(attention_backend="ragged"),
         dict(attention_backend="xla"),
-        dict(speculative_algorithm="ngram"),
         dict(enable_pp=True),  # fp8 weights, once here, are served since they were ported
-        dict(enable_param_offload=True),
         dict(kv_cache_dtype="int4"),  # not a kv_cache_dtype of the JAX package
         dict(tp_size=2),
-        "update_weights",
-        "resize_kv_pool",
-        "memory_pool over HTTP",
-        dict(host_kv_cache_tokens=1024),
     ],
+    # the ids these cases had beside the refusals of speculation and the
+    # memory extras, which are served now
+    ids=["setting0", "setting1", "setting2", "setting4", "setting6", "setting7"],
 )
 def test_unported_settings_are_refused(setting):
-    """Settings resolve() refuses, and the engine entries and the HTTP route
-    that stay unported (ROADMAP Queue 1, item 9)."""
-    if isinstance(setting, dict):
-        with pytest.raises(NotImplementedError):
-            ServerArgs(preset="tiny-debug", device="cpu", **setting).resolve()
-        return
-    eng = Engine(ServerArgs(device="cpu", **ARGS))
-    if setting == "update_weights":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            eng.update_weights(state={})
-    elif setting == "resize_kv_pool":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            eng.resize_kv_pool(4096)
-    else:
-        import json
-        import socket
-        import urllib.error
-        import urllib.request
-
-        from scratchpad_tpu_torch.server.http_server import ServerApp, ServerThread
-
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            eng.args.port = s.getsockname()[1]
-        srv = ServerThread(ServerApp(eng, eng.args))
-        try:
-            req = urllib.request.Request(
-                f"http://127.0.0.1:{eng.args.port}/memory_pool",
-                data=json.dumps({"max_total_tokens": 4096}).encode(),
-            )
-            with pytest.raises(urllib.error.HTTPError) as err:
-                urllib.request.urlopen(req, timeout=30)
-            assert err.value.code == 501 and "item 9" in json.loads(err.value.read())["message"]
-        finally:
-            srv.stop()
+    """Settings resolve() refuses: the paths the port does not have."""
+    with pytest.raises(NotImplementedError):
+        ServerArgs(preset="tiny-debug", device="cpu", **setting).resolve()
 
 
 @pytest.mark.parametrize(
@@ -297,3 +263,24 @@ def test_kv_cache_dtype_auto_rule(quantization, preset, device, int8):
         args.kv_cache_dtype = explicit
         assert resolve_kv_cache_dtype(args, cfg, dev) == explicit
         assert args.kv_cache_dtype == explicit
+
+
+def test_n_2_through_the_prefix_warm_up_matches_jax(engines):
+    """``Engine.generate`` with ``n=2`` caches the prompt with a zero-token
+    warm-up request, then runs two clones. Greedy clones are bit-equal in
+    ids and logprobs, and equal the JAX engine's within ``LP_TOL``; a
+    sampled pair still gives two full choices."""
+    jeng, eng = engines
+    p = _prompt(23, seed=12)
+    sp = dict(temperature=0.0, max_new_tokens=10, ignore_eos=True, n=2)
+    outs = eng.generate(input_ids=p, sampling_params=SamplingParams(**sp), return_logprob=True)
+    jouts = jeng.generate(input_ids=p, sampling_params=JaxSamplingParams(**sp), return_logprob=True)
+    assert len(outs) == len(jouts) == 2
+    assert outs[0].output_ids == outs[1].output_ids == jouts[0].output_ids == jouts[1].output_ids
+    assert outs[0].output_token_logprobs == outs[1].output_token_logprobs
+    np.testing.assert_allclose(outs[0].output_token_logprobs, jouts[0].output_token_logprobs, atol=LP_TOL, rtol=0)
+    assert outs[0].cached_tokens == outs[1].cached_tokens == jouts[0].cached_tokens > 0
+    sampled = eng.generate(input_ids=p, sampling_params=SamplingParams(
+        temperature=0.9, max_new_tokens=8, ignore_eos=True, n=2))
+    assert [len(o.output_ids) for o in sampled] == [8, 8]
+    eng.scheduler.check_memory_leak()

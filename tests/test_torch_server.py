@@ -523,20 +523,18 @@ def test_routes_and_methods(servers):
 @pytest.mark.parametrize(
     "path,body,status",
     [
-        ("/update_weights", {"model_path": "/nowhere"}, 501),
-        ("/memory_pool", {"max_total_tokens": 4096}, 501),
         ("/v1/chat/completions", {"model": "m", "messages": [{"role": "user", "content": [
             {"type": "image_url", "image_url": {"url": "data:,"}}]}]}, 400),
     ],
-    ids=["update_weights", "memory_pool", "image"],
+    ids=["image"],
 )
 def test_unported_features_are_refused_over_http(servers, path, body, status):
-    """The routes still unported answer 501; an image, refused while the
-    vision models were unported, now answers 400 from a text model
-    (``tests/test_torch_mm_http.py`` serves images on vision models)."""
+    """An image, refused while the vision models were unported, answers 400
+    from a text model (``tests/test_torch_mm_http.py`` serves images on
+    vision models). ``/update_weights`` and ``/memory_pool``, once refused
+    here, are served (``tests/test_torch_memory_extras.py``)."""
     s, p = request(servers["a"][1], path, body)
-    why = "does not accept images" if path.endswith("completions") else "not ported"
-    assert s == status and why in (p.get("message") or ""), p
+    assert s == status and "does not accept images" in (p.get("message") or ""), p
 
 
 @pytest.mark.parametrize("route", ["completions", "chat"])
