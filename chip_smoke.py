@@ -170,7 +170,22 @@ Phases, in order; any failure exits non-zero before the last line:
    and answers otherwise; kernel-path logits against the plain path's as
    the text engines'; the other image must move them by ``IMAGE_MOVE``
    times the reading, and on Gemma 3 leaving the spans out by ``SPAN_MOVE``
-   times it. Llama-3.1-8B with fp8 weights and fp8 KV (BASELINE config 4)
+   times it. Llama-3.2-11B-Vision (``LLAMA32_11B_VISION``, its config.json:
+   a tiled ViT of 32 + 8 layers at 560 px, four tiles of 1,601 patches;
+   cross layers every fifth) at ``MLLAMA_LAYERS`` of its 40 decoder layers
+   (self 0-2, cross 3, self 4-7, cross 8, self 9), the tower at full depth,
+   not timed (``phase_mllama``): images at 1 x 1, 1 x 2 (2 of 4 tiles live)
+   and 2 x 2 behind image-first prompts, one behind Llama 3's system and
+   user headers, and a text request in one batch over ``MLLAMA_SLOTS``
+   cross slots (two image requests wait for a freed slot); rows 3 and 1
+   launch once a self layer and forward, the cross layers neither; the chat
+   prompt with another image or none reuses no page of the chat request
+   (its every row attends the image), and with its own image again reuses
+   the prompt past it; the logits and image-move checks of ``phase_vlm``;
+   the first cross layer against an unblocked reference; ``[mllama]``
+   lines with the tower's ms an image, the cross buffer's GiB, the KV
+   tokens and the card.
+   Llama-3.1-8B with fp8 weights and fp8 KV (BASELINE config 4)
    at ``FP8_LAYERS`` of 32, not timed, with its weights' bytes against bf16.
    The engines that are checked only and whose kernels other
    engines hold serve shorter request sets (``UNTIMED_REQUESTS``,
@@ -361,7 +376,7 @@ LOGIT_RTOL = {
     "gpt-oss-20b": 5e-2, "gpt-oss-w4a8": 1e-1, "gpt-oss-w4a16": 1e-1, "qwen3-30b-a3b": 3e-2,
     "llama4-scout": 3e-2, "apertus-8b": 3e-2, "gemma-2-2b-int8kv": 1e-1, "gemma-2-2b-fp8kv": 1e-1,
     "deepseek-v2-lite": 3e-2, "qwen2-vl-2b": 3e-2, "gemma-3-4b-mm": 3e-2, "gemma-3-4b-mm-fp8kv": 1e-1,
-    "llava-1.5-7b": 3e-2, "llama-3.1-8b-fp8": 1e-1,
+    "llava-1.5-7b": 3e-2, "llama-3.1-8b-fp8": 1e-1, "llama-3.2-11b-vision": 3e-2,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -383,7 +398,7 @@ ARGMAX_FLOOR = {
     "gpt-oss-20b": 2e-2, "gpt-oss-w4a8": 3e-2, "gpt-oss-w4a16": 3e-2, "qwen3-30b-a3b": 0.0,
     "llama4-scout": 0.0, "apertus-8b": 0.0, "gemma-2-2b-int8kv": 2e-2, "gemma-2-2b-fp8kv": 2e-2,
     "deepseek-v2-lite": 0.0, "qwen2-vl-2b": 0.0, "gemma-3-4b-mm": 0.0, "gemma-3-4b-mm-fp8kv": 2e-2,
-    "llava-1.5-7b": 0.0, "llama-3.1-8b-fp8": 2e-2,
+    "llava-1.5-7b": 0.0, "llama-3.1-8b-fp8": 2e-2, "llama-3.2-11b-vision": 0.0,
     # the spec engines' tokens against the target's teacher-forced chain
     # (phase_spec), one extend of prompt + output: a path of other shapes
     # than the decode steps and verify forwards that chose them, so the
@@ -535,12 +550,8 @@ def max_err(out, ref) -> tuple[float, float]:
 # ------------------------------------------------------------ phase 1 & 2
 
 
-def phase_device():
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: no CUDA device")
-    name = torch.cuda.get_device_name(0)
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True,
@@ -549,7 +560,16 @@ def phase_device():
     )
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    smi_line = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA device")
+    name = torch.cuda.get_device_name(0)
+    smi_line = card_line()
     log(
         f"[device] {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)"
@@ -4070,9 +4090,12 @@ def mm_logits(runner, req, next_token: int, spans: bool = True):
     """The model's f32 logits [1, V] after one extend of ``req``'s prompt
     (its vision rows, 3-D rope table and spans as the scheduler hands them
     over; ``spans`` False leaves the spans out) and after one decode step of
-    ``next_token``, on pages borrowed from the engine's idle pool."""
+    ``next_token``, on pages borrowed from the engine's idle pool; an
+    Mllama request's image written, as admission writes it, into the idle
+    engine's cross slot ``req.cross_slot``."""
     import numpy as np
 
+    from scratchpad_tpu_torch.core.scheduler import cross_batch_fields
     from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
     from scratchpad_tpu_torch.executor.model_runner import WorkerBatch
     from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
@@ -4094,14 +4117,18 @@ def mm_logits(runner, req, next_token: int, spans: bool = True):
             mm["mrope_positions"] = req.mrope_table
         if spans and req.mm_spans:
             mm["mm_spans"] = np.asarray([req.mm_spans], np.int32)
+        cross = {}
+        if req.cross_states is not None:
+            runner.write_cross(req.cross_slot, req.cross_states)
+            cross = cross_batch_fields([req], runner.kv_config.cross_len)
         common = dict(page_table=pages[None, :].astype(np.int32),
                       sampling_info=SamplingBatchInfo.from_reqs([], 1, runner.model_config.vocab_size))
         ext = WorkerBatch(mode=ForwardMode.EXTEND, tokens=ids, positions=pos[:n], out_cache_loc=loc[:n],
                           req_indices=np.zeros(n, np.int64), seq_lens=np.array([n]), extend_lens=np.array([n]),
-                          **common, **mm)
+                          **common, **mm, **cross)
         dec = WorkerBatch(mode=ForwardMode.DECODE, tokens=np.array([next_token]), positions=np.array([n]),
                           out_cache_loc=loc[n:], req_indices=np.zeros(1, np.int64), seq_lens=np.array([n + 1]),
-                          extend_lens=np.ones(1, np.int64), **common,
+                          extend_lens=np.ones(1, np.int64), **common, **cross,
                           rope_delta=np.array([req.mrope_delta]) if req.mrope_table is not None else None)
         return runner.forward_logits(ext), runner.forward_logits(dec)
     finally:
@@ -4142,6 +4169,38 @@ def vlm_traffic(engine, label: str):
         ]
     other = px(1)
     return traffic, (traffic[0][0], other, None, 16)
+
+
+def kernel_vs_plain(runner, label: str, reqs, outs):
+    """Each request's kernel-path logits after its extend and one decode
+    step (``mm_logits``) against the plain path's, under the text engines'
+    gate (``LOGIT_RTOL``) and argmax rule (a bf16 tie or ``ARGMAX_FLOOR``);
+    returns (the kernel rows, the worst max |diff| / max |logit|, rows whose
+    argmax agrees, rows)."""
+    import torch
+
+    tol = LOGIT_RTOL[label]
+    worst, agree, rows, kern_rows = 0.0, 0, 0, []
+    for req, o in zip(reqs, outs):
+        kern = mm_logits(runner, req, o.output_ids[0])
+        with PlainPath(runner.model):
+            plain = mm_logits(runner, req, o.output_ids[0])
+        kern_rows.append(kern)
+        for step in (0, 1):
+            a, b = kern[step][0], plain[step][0]
+            check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{label}: non-finite logits")
+            scale = float(b.abs().max())
+            rel = float((a - b).abs().max()) / scale
+            worst = max(worst, rel)
+            top2 = torch.topk(b, 2).values
+            gap = float(top2[0] - top2[1])
+            tie = gap <= max(math.ldexp(1.0, math.frexp(abs(float(top2[0])))[1] - 8),
+                             ARGMAX_FLOOR[label] * scale)
+            same = bool(a.argmax() == b.argmax())
+            agree, rows = agree + same, rows + 1
+            check(rel <= tol, f"{label}: kernel-path logits differ from the plain path by {rel:.3e} of max |logit|")
+            check(same or tie, f"{label} request {o.rid} step {step}: argmax differs outside a bf16 tie")
+    return kern_rows, worst, agree, rows
 
 
 def phase_vlm(engine, label: str, span_move: bool = False) -> dict:
@@ -4227,32 +4286,14 @@ def phase_vlm(engine, label: str, span_move: bool = False) -> dict:
         f"the first tokens' logprobs {lp_gap:.3e} apart")
     # kernel path against the plain path, each request's extend and decode
     tol = LOGIT_RTOL[label]
-    worst, agree, rows = 0.0, 0, 0
-    kern_rows, span_moves = [], []
+    span_moves = []
     reqs = [engine._make_req(None, r[0], None, image_data=r[1], video_data=r[2]) for r in traffic + [again]]
-    for req, o in zip(reqs[:-1], outs):
-        kern = mm_logits(runner, req, o.output_ids[0])
-        with PlainPath(model):
-            plain = mm_logits(runner, req, o.output_ids[0])
-        kern_rows.append(kern)
+    kern_rows, worst, agree, rows = kernel_vs_plain(runner, label, reqs[:-1], outs)
+    for req, o, kern in zip(reqs[:-1], outs, kern_rows):
         if span_move and req.mm_spans:
             flat = mm_logits(runner, req, o.output_ids[0], spans=False)
             span_moves.append(max(float((a[0] - b[0]).abs().max() / b[0].abs().max())
                                   for a, b in zip(kern, flat)))
-        for step in (0, 1):
-            a, b = kern[step][0], plain[step][0]
-            check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{label}: non-finite logits")
-            scale = float(b.abs().max())
-            rel = float((a - b).abs().max()) / scale
-            worst = max(worst, rel)
-            top2 = torch.topk(b, 2).values
-            gap = float(top2[0] - top2[1])
-            tie = gap <= max(math.ldexp(1.0, math.frexp(abs(float(top2[0])))[1] - 8),
-                             ARGMAX_FLOOR[label] * scale)
-            same = bool(a.argmax() == b.argmax())
-            agree, rows = agree + same, rows + 1
-            check(rel <= tol, f"{label}: kernel-path logits differ from the plain path by {rel:.3e} of max |logit|")
-            check(same or tie, f"{label} request {o.rid} step {step}: argmax differs outside a bf16 tie")
     moved = mm_logits(runner, reqs[-1], outs[0].output_ids[0])
     image_move = max(float((a[0] - b[0]).abs().max() / b[0].abs().max()) for a, b in zip(moved, kern_rows[0]))
     log(
@@ -4273,6 +4314,332 @@ def phase_vlm(engine, label: str, span_move: bool = False) -> dict:
         span_move_min=min(span_moves, default=None), preset=engine.args.preset or runner.model_config.architecture,
         weights=engine.args.quantization or "bf16", kv_cache_dtype=runner.kv_cache_dtype,
         attention_backend=runner.attention_backend,
+    )
+
+
+# Llama-3.2-11B-Vision-Instruct's published config.json (huggingface.co/
+# meta-llama/Llama-3.2-11B-Vision-Instruct, config.json: its text_config and
+# vision_config, read through ModelConfig.from_hf_config; the 8 extra
+# embedding rows are the model's own): the decoder cut to MLLAMA_LAYERS of
+# its 40 (self layers 0-2, cross 3, self 4-7, cross 8, self 9), the tower at
+# its full 32 local and 8 global layers
+LLAMA32_11B_VISION = {
+    "architectures": ["MllamaForConditionalGeneration"],
+    "image_token_index": 128256,
+    "text_config": {
+        "vocab_size": 128256,
+        "hidden_size": 4096,
+        "intermediate_size": 14336,
+        "num_hidden_layers": 40,
+        "cross_attention_layers": [3, 8, 13, 18, 23, 28, 33, 38],
+        "num_attention_heads": 32,
+        "num_key_value_heads": 8,
+        "max_position_embeddings": 131072,
+        "rms_norm_eps": 1e-5,
+        "rope_theta": 500000.0,
+        "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                         "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+        "tie_word_embeddings": False,
+        "model_type": "mllama_text_model",
+    },
+    "vision_config": {
+        "hidden_size": 1280,
+        "attention_heads": 16,
+        "num_hidden_layers": 32,
+        "num_global_layers": 8,
+        "image_size": 560,
+        "patch_size": 14,
+        "max_num_tiles": 4,
+        "intermediate_size": 5120,
+        "intermediate_layers_indices": [3, 7, 15, 23, 30],
+        "vision_output_dim": 7680,
+        "num_channels": 3,
+        "norm_eps": 1e-5,
+        "supported_aspect_ratios": [[1, 1], [1, 2], [1, 3], [1, 4], [2, 1], [2, 2], [3, 1], [4, 1]],
+        "model_type": "mllama_vision_model",
+    },
+}
+MLLAMA_LAYERS = 10
+# two cross slots for four image requests: two of them wait for a freed one
+MLLAMA_SLOTS = 2
+# the cross gates (and the tower's): HF's init leaves them at 0, where
+# tanh(0) takes every effect of the image away
+MLLAMA_GATE = 0.8
+# The other image of the image-move check: its pixels a standard normal
+# shifted by this much. Another unshifted draw of white noise moved the chat
+# request's logits by only 4.7 times the kernel-vs-plain reading; the phase
+# logs that move, and, in the first cross layer, how evenly the chat
+# request's rows attend and how far the two noise images' attention outputs
+# and mean V rows lie apart (``cross_readings``)
+MLLAMA_SHIFT = 1.0
+# Llama 3's chat template in its published tokenizer's ids: <|begin_of_text|>
+# <|start_header_id|> "system" <|end_header_id|> "\n\n", a system prompt of
+# MLLAMA_SYSTEM tokens and <|eot_id|>, then <|start_header_id|> "user"
+# <|end_header_id|> "\n\n" before the image, and <|eot_id|>
+# <|start_header_id|> "assistant" <|end_header_id|> "\n\n" after the question
+LLAMA3_SYSTEM_HEAD = [128000, 128006, 9125, 128007, 271]
+LLAMA3_USER_HEAD = [128009, 128006, 882, 128007, 271]
+LLAMA3_ASSISTANT_HEAD = [128009, 128006, 78191, 128007, 271]
+MLLAMA_SYSTEM = 40
+
+
+def mllama_traffic(engine):
+    """(prompt ids, image, new tokens) of the Mllama phase, each image a
+    seeded random tile stack in the normalised range as ``preprocess_image``
+    gives it (tiles, aspect-ratio id, live tiles): a chat prompt with the
+    image after Llama 3's system and user headers (2 x 2), image-first
+    prompts at 1 x 1, 1 x 2 (2 of 4 tiles live) and 2 x 2, and a text
+    request; then, one at a time, the chat prompt with another image, its
+    pixels shifted by ``MLLAMA_SHIFT`` (the radix and image-move checks),
+    the chat prompt's text with no image, and the chat prompt with its own
+    image again (the radix checks); and a third image of unshifted noise
+    for the chat prompt (its move is logged, not gated)."""
+    import numpy as np
+
+    model = engine.scheduler.runner.model
+    v, tok = model.vision, model.image_token_index
+    rng = np.random.default_rng(7)
+    text = lambda n: rng.integers(1, 32000, n).tolist()
+
+    def image(rows, cols, shift=0.0):
+        px = np.zeros((v.max_tiles, 3, v.image_size, v.image_size), np.float32)
+        px[: rows * cols] = rng.standard_normal((rows * cols, 3, v.image_size, v.image_size)) + shift
+        return px, v.supported_aspect_ratios.index((rows, cols)) + 1, rows * cols
+
+    chat = LLAMA3_SYSTEM_HEAD + text(MLLAMA_SYSTEM) + LLAMA3_USER_HEAD + [tok] + text(24) + LLAMA3_ASSISTANT_HEAD
+    traffic = [
+        (chat, image(2, 2), 16),
+        ([tok] + text(30), image(1, 1), 16),
+        ([tok] + text(200), image(1, 2), 16),
+        ([tok] + text(12), image(2, 2), 16),
+        (text(300), None, 16),
+    ]
+    later = [(chat, image(2, 2, MLLAMA_SHIFT), 16), ([t for t in chat if t != tok], None, 16), traffic[0]]
+    return traffic, later, image(2, 2)
+
+
+# The cross layer (plain torch, blocked under CROSS_SCORE_BYTES) against
+# an unblocked reference on the card, max |diff| / max |out|; the blocked
+# run's limit forces this many query blocks
+CROSS_RTOL = 1e-5
+CROSS_BLOCKS = 4
+
+
+def cross_attention_reference(q, kv_slot, live: int, text_rows: int, scale: float):
+    """``models/mllama.py::cross_attention`` written out, in f32, with no
+    blocking: rows from ``text_rows`` on attend the first ``live`` cross
+    rows, the rows before them every cross row; [n, Hq * D]."""
+    import torch
+
+    n, Hq, D = q.shape
+    S, Hkv = kv_slot.shape[0], kv_slot.shape[1] // 2
+    k = kv_slot[:, 0::2].float().repeat_interleave(Hq // Hkv, dim=1)  # [S, Hq, D]
+    v = kv_slot[:, 1::2].float().repeat_interleave(Hq // Hkv, dim=1)
+    s = torch.einsum("thd,shd->hts", q.float(), k) * scale
+    masked = (torch.arange(n, device=q.device)[:, None] >= text_rows) & (torch.arange(S, device=q.device) >= live)
+    a = torch.softmax(s.masked_fill(masked, float("-inf")), dim=-1)
+    return torch.einsum("hts,shd->thd", a, v).reshape(n, Hq * D)
+
+
+def cross_readings(q, kv_ref, kv_other, live: int, text_rows: int, scale: float) -> dict:
+    """Why another image moves the logits little, in one cross layer, on the
+    rows that attend the live tiles: the mean entropy of their attention
+    over its largest, log(live) (1: even), the two images' attention
+    outputs apart (|o_other - o_ref| / |o_ref|, Frobenius), and their mean
+    V rows apart (the same ratio): if the rows attend almost evenly, the
+    outputs are near the mean V rows and part as they do."""
+    import torch
+
+    rows = slice(text_rows, q.shape[0])
+    qf = q[rows].float()
+    Hq, Hkv = q.shape[1], kv_ref.shape[1] // 2
+    k = kv_ref[:live, 0::2].float().repeat_interleave(Hq // Hkv, dim=1)
+    a = torch.softmax(torch.einsum("thd,shd->hts", qf, k) * scale, dim=-1)
+    entropy = float(-(a * a.clamp_min(1e-30).log()).sum(-1).mean()) / math.log(live)
+    o_ref = cross_attention_reference(q[rows], kv_ref, live, 0, scale)
+    o_other = cross_attention_reference(q[rows], kv_other, live, 0, scale)
+    mean_v = lambda kv: kv[:live, 1::2].float().mean(0)
+    return dict(
+        entropy=entropy,
+        out_apart=float((o_other - o_ref).norm() / o_ref.norm()),
+        mean_v_apart=float((mean_v(kv_other) - mean_v(kv_ref)).norm() / mean_v(kv_ref).norm()),
+    )
+
+
+def phase_mllama(engine, label: str = "llama-3.2-11b-vision") -> dict:
+    """The Mllama engine's traffic (``mllama_traffic``) through
+    ``Engine.generate`` in one batch, its gates at ``MLLAMA_GATE``, every
+    launch count set to 0 just before and read just after: each request's
+    tokens; the extend and decode kernels launched exactly once a self
+    layer and forward (the cross layers launch neither); at most
+    ``MLLAMA_SLOTS`` images in a forward, four served. Then, one at a time
+    in the same count: the chat prompt with another image and its text
+    with no image reuse no page of the chat request (every row of it
+    attends its image in the cross layers; its image lies past the first
+    page) and the first answers otherwise; the chat prompt with its own
+    image again reuses its prompt past the image. Then each request's
+    kernel-path logits against the plain path's (``kernel_vs_plain``) in a
+    free cross slot; the other image must move the chat request's by
+    ``IMAGE_MOVE`` times the worst reading; the first cross layer on the
+    1 x 2 request and the chat request against ``cross_attention_reference``
+    in ``CROSS_BLOCKS`` blocks and in one (``CROSS_RTOL``), and its
+    ``cross_readings`` for the unshifted and the shifted image. The tower's
+    ms an image (a 2 x 2 stack, device-synchronised, warm), the cross
+    buffer's GiB and the KV tokens go on ``[mllama]`` lines beside the
+    card's name and power limit."""
+    import numpy as np
+    import torch
+
+    import scratchpad_tpu_torch.models.mllama as mllama_module
+    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+    from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS, reset_launch_counts
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner = engine.scheduler.runner
+    model = runner.model
+    L = model.num_kv_layers  # the kernels' layers: the self layers alone
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "gate" in name.split(".")[-1] and p.shape[-1] == 1:
+                p.fill_(MLLAMA_GATE)
+    traffic, later, noise = mllama_traffic(engine)
+    px, ar, nt = traffic[0][1]
+    for _ in range(2):  # warm
+        runner.encode_images(px[None], [ar], [nt])
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    reps = 3
+    for _ in range(reps):
+        runner.encode_images(px[None], [ar], [nt])
+    torch.cuda.synchronize()
+    tower_ms = (time.monotonic() - t) / reps * 1e3
+    cross_gib = runner.kv_config.cross_bytes() / 2**30
+    card = card_line()
+    log(f"[mllama] {label}: tower {tower_ms:.1f} ms an image (4 tiles of {model.vision.num_patches} patches, "
+        f"{model.vision.num_layers} + {model.vision.global_layers} layers, with the host copies); cross buffer "
+        f"{cross_gib:.3f} GiB ({runner.kv_config.cross_slots} slots x {runner.kv_config.cross_layers} layers x "
+        f"{runner.kv_config.cross_len} rows); {runner.max_total_num_tokens} KV tokens over {L} self layers; {card}")
+
+    forwards = {ForwardMode.EXTEND: 0, ForwardMode.DECODE: 0}
+    images_at_once = [0]
+    inner_forward = model.forward
+
+    def counting_forward(meta, kv):
+        forwards[meta.mode] += 1
+        images_at_once[0] = max(images_at_once[0], len(meta.cross_requests or ()))
+        return inner_forward(meta, kv)
+
+    model.forward = counting_forward
+    sp = lambda m: SamplingParams(temperature=0.0, max_new_tokens=m, ignore_eos=True)
+    engine.flush_cache()
+    t = time.monotonic()
+    reset_launch_counts()
+    try:
+        outs = engine.generate(input_ids=[r[0] for r in traffic], image_data=[r[1] for r in traffic],
+                               sampling_params=[sp(r[2]) for r in traffic], return_logprob=True)
+        outs_later = [engine.generate(input_ids=r[0], image_data=r[1], sampling_params=sp(r[2]),
+                                      return_logprob=True) for r in later]
+        torch.cuda.synchronize()
+    finally:
+        model.forward = inner_forward
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    wall = time.monotonic() - t
+    n_ext, n_dec = forwards[ForwardMode.EXTEND], forwards[ForwardMode.DECODE]
+    n_img = sum(r[1] is not None for r in traffic + later)
+    log(f"[engine {label}] {len(traffic) + len(later)} requests ({n_img} with an image) in {wall:.1f} s: {n_ext} "
+        f"extend and {n_dec} decode forwards over {L} self layers, at most {images_at_once[0]} images in a forward "
+        f"({MLLAMA_SLOTS} cross slots); kernel launches {counts}")
+    for o, r in zip(outs + outs_later, traffic + later):
+        check(len(o.output_ids) == r[2] and o.finish_reason == "length",
+              f"{label} request {o.rid}: {len(o.output_ids)} tokens, finish {o.finish_reason}")
+    need = {EXTEND["bf16"]: L * n_ext, DECODE["bf16"]: L * n_dec}
+    for k, n in need.items():
+        check(counts[k] == n > 0, f"{label}: {k} launched {counts[k]} times, not {n} (once a self layer and forward)")
+    check(images_at_once[0] <= MLLAMA_SLOTS < sum(r[1] is not None for r in traffic),
+          f"{label}: {images_at_once[0]} images in a forward over {MLLAMA_SLOTS} slots")
+    image_at, ps = traffic[0][0].index(model.image_token_index), runner.page_size
+    check(image_at >= 2 * ps, f"{label}: the chat image at row {image_at} leaves no whole page before it")
+    other, text_only, same = outs_later
+    for o, what in ((other, "another image"), (text_only, "no image")):
+        check(o.cached_tokens == 0, f"{label}: the chat prompt with {what} reused {o.cached_tokens} tokens of "
+                                    f"the chat request's (its image at row {image_at})")
+    check(same.cached_tokens > image_at, f"{label}: the chat prompt with its own image again reused only "
+                                         f"{same.cached_tokens} tokens (its image at row {image_at})")
+    lp_gap = abs(other.output_token_logprobs[0] - outs[0].output_token_logprobs[0])
+    check(other.output_ids != outs[0].output_ids or lp_gap > 1e-3,
+          f"{label}: another image gave the same answer (first logprobs {lp_gap:.3e} apart)")
+    engine.scheduler.check_memory_leak()
+    reqs = [engine._make_req(None, r[0], None, image_data=r[1]) for r in traffic + later[:1]]
+    noise_req = engine._make_req(None, later[0][0], None, image_data=noise)
+    slot = engine.scheduler.cross_slot_free[-1]  # the engine is idle: every slot is free
+    for r in reqs + [noise_req]:
+        r.cross_slot = slot if r.cross_states is not None else None
+    kern_rows, worst, agree, rows = kernel_vs_plain(runner, label, reqs[:-1], outs)
+
+    captured = []
+    inner_attention = mllama_module.cross_attention
+
+    def capturing(q, kv_slot, live, text_rows, scale):
+        captured.append((q.clone(), kv_slot.clone(), live, text_rows, scale))
+        return inner_attention(q, kv_slot, live, text_rows, scale)
+
+    def move(req):
+        """The logits' move from the chat request's, and its first cross
+        layer's inputs on the extend."""
+        captured.clear()
+        mllama_module.cross_attention = capturing
+        try:
+            moved = mm_logits(runner, req, outs[0].output_ids[0])
+        finally:
+            mllama_module.cross_attention = inner_attention
+        return max(float((a[0] - b[0]).abs().max() / b[0].abs().max()) for a, b in zip(moved, kern_rows[0])), \
+            captured[0]
+
+    _, chat_in = move(reqs[0])
+    _, wide_in = move(reqs[2])  # 1 x 2: 2 of 4 tiles live, 201 rows
+    image_move, shifted_in = move(reqs[-1])
+    noise_move, noise_in = move(noise_req)
+    cross_err = 0.0
+    limit = mllama_module.CROSS_SCORE_BYTES
+    for q, kv_slot, live, text_rows, scale in (chat_in, wide_in):
+        ref = cross_attention_reference(q, kv_slot, live, text_rows, scale)
+        step = -(-q.shape[0] // CROSS_BLOCKS)
+        try:
+            mllama_module.CROSS_SCORE_BYTES = step * q.shape[1] * kv_slot.shape[0] * 8
+            blocked = inner_attention(q, kv_slot, live, text_rows, scale)
+        finally:
+            mllama_module.CROSS_SCORE_BYTES = limit
+        whole = inner_attention(q, kv_slot, live, text_rows, scale)
+        for out in (blocked, whole):
+            cross_err = max(cross_err, float((out - ref).abs().max() / ref.abs().max()))
+    check(cross_err <= CROSS_RTOL, f"{label}: the cross layer differs from its reference by {cross_err:.3e}")
+    q, kv_chat, live, text_rows, scale = chat_in
+    readings = {name: cross_readings(q, kv_chat, x[1], live, text_rows, scale)
+                for name, x in (("unshifted", noise_in), ("shifted", shifted_in))}
+    log(f"[engine {label}] the chat prompt (image at row {image_at}, pages of {ps}) with another image: "
+        f"{other.cached_tokens} cached tokens, first logprobs {lp_gap:.3e} apart; with no image "
+        f"{text_only.cached_tokens} cached tokens; with its own image again {same.cached_tokens}; kernel vs plain "
+        f"logits over {rows} rows: worst max|diff|/max|logit| {worst:.3e} (tol {LOGIT_RTOL[label]}); argmax "
+        f"agrees on {agree} of {rows}; another image moves the chat request's logits by {image_move:.3e} (at "
+        f"least {IMAGE_MOVE} x {worst:.3e}); unshifted noise by {noise_move:.3e} (not gated); the first cross "
+        f"layer against its reference, in {CROSS_BLOCKS} blocks and in one, on the chat and 1 x 2 requests: "
+        f"{cross_err:.3e} (tol {CROSS_RTOL})")
+    for name, r in readings.items():
+        log(f"[engine {label}] first cross layer, chat request, {name} image against its own: attention "
+            f"entropy {r['entropy']:.4f} of log(live rows); outputs {r['out_apart']:.3e} apart; mean V rows "
+            f"{r['mean_v_apart']:.3e} apart")
+    check(image_move >= IMAGE_MOVE * worst, f"{label}: another image moves the logits by only {image_move:.3e}")
+    engine.scheduler.check_memory_leak()
+    return dict(
+        counts=counts, by_group={}, steps={EXTEND["bf16"]: n_ext, DECODE["bf16"]: n_dec},
+        worst_logit_rel=worst, image_move=image_move, noise_move=noise_move, cross_err=cross_err,
+        cross_readings=readings, cached_tokens=[o.cached_tokens for o in outs_later],
+        preset=runner.model_config.architecture, weights="bf16",
+        kv_cache_dtype=runner.kv_cache_dtype, attention_backend=runner.attention_backend,
+        self_layers=L, launches_per_forward={EXTEND["bf16"]: counts[EXTEND["bf16"]] / max(n_ext, 1),
+                                             DECODE["bf16"]: counts[DECODE["bf16"]] / max(n_dec, 1)},
+        images_at_once=images_at_once[0], tower_ms=tower_ms, cross_gib=cross_gib,
+        kv_tokens=runner.max_total_num_tokens, card=card,
     )
 
 
@@ -5901,6 +6268,13 @@ def main() -> None:
     engine = make_engine(model_config=ModelConfig.from_hf_config(
         dict(LLAVA_15_7B, text_config=dict(LLAVA_15_7B["text_config"], num_hidden_layers=LLAVA_LAYERS))))
     engines["llava-1.5-7b"] = timed(phase_vlm, engine, "llava-1.5-7b")
+    del engine
+    # Mllama: Llama-3.2-11B-Vision's tiled tower at full depth, its decoder
+    # cut to MLLAMA_LAYERS (two cross layers), two cross slots
+    engine = make_engine(model_config=ModelConfig.from_hf_config(dict(
+        LLAMA32_11B_VISION, text_config=dict(LLAMA32_11B_VISION["text_config"], num_hidden_layers=MLLAMA_LAYERS))),
+        cross_kv_slots=MLLAMA_SLOTS)
+    engines["llama-3.2-11b-vision"] = timed(phase_mllama, engine)
     del engine
     # Llama-3.1-8B with fp8 weights and fp8 KV (BASELINE config 4), cut in
     # depth: its weights' bytes against the same layers in bf16

@@ -151,6 +151,9 @@ class ServerArgs:
     mm_image_token: str = "<image>"
     mm_video_token: str = "<video>"
     video_frames: int = 8
+    # cross-attention (Mllama): requests with an image served at once, each
+    # holding one slot of the cross-attention K/V buffer while it runs
+    cross_kv_slots: int = 16
 
     # observability
     enable_metrics: bool = True  # /metrics, Prometheus text exposition

@@ -77,6 +77,14 @@ class Req:
     # Gemma3-MM: absolute (start, end) prompt ranges whose tokens attend
     # BIDIRECTIONALLY (HF token-type mask; reference: gemma3_mm.py:212-232)
     mm_spans: Optional[list] = None
+    # cross attention (Mllama): the image's projected vision states [S_img,
+    # H], its slot in KVCache.cross (None until admission, which writes
+    # the slot), its live cross rows (n_tiles x patches; None: all) and the
+    # position of its <|image|> placeholder
+    cross_states: Optional[np.ndarray] = None
+    cross_slot: Optional[int] = None
+    cross_len: Optional[int] = None
+    cross_start: int = 0
     # draft-model speculation: positions [0, draft_len) hold valid KV in the
     # DRAFT runner's pool (invariant: == computed_len right after any draft
     # forward; lags behind after plain decode windows, caught up on demand)
@@ -111,6 +119,16 @@ class Req:
     finished_at: Optional[float] = None
     retract_count: int = 0
     stats_done: bool = False  # terminal latency samples already recorded
+
+    @property
+    def image_key(self) -> Optional[int]:
+        """What a cross-attention (Mllama) request's KV depends on from its
+        first row besides its tokens: its image, as the placeholder's
+        content-hashed id. Every row attends the image in the cross layers,
+        the rows before the placeholder too (as in HF), so no prefix of it
+        may serve a request with another image or none (the radix cache
+        keeps a tree per image, ``TreeCacheGroup.key_of``)."""
+        return None if self.cross_states is None else self.origin_input_ids[self.cross_start]
 
     @property
     def fill_ids(self) -> list[int]:

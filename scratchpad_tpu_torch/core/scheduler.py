@@ -115,6 +115,20 @@ class StepEvent:
     finished: bool
 
 
+def cross_batch_fields(batch: list[Req], slot_rows: int) -> dict:
+    """A batch's cross-attention fields for its ``WorkerBatch`` (JAX
+    :1169-1192), none where no request holds a slot: each request's slot (0:
+    none), live cross rows (``slot_rows``, the slot's, where it sets none)
+    and image placeholder position."""
+    if not any(r.cross_slot for r in batch):
+        return {}
+    return dict(
+        cross_slots=np.array([r.cross_slot or 0 for r in batch], np.int32),
+        cross_lens=np.array([slot_rows if r.cross_len is None else r.cross_len for r in batch], np.int32),
+        cross_starts=np.array([r.cross_start for r in batch], np.int64),
+    )
+
+
 class Scheduler:
     def __init__(
         self,
@@ -133,6 +147,15 @@ class Scheduler:
         self.page_size = self.runner.page_size
         self.allocator = self.runner.page_allocator
         self.req_slots = self.runner.req_slots
+        # cross attention (Mllama): the free slots of KVCache.cross (slot 0
+        # unused), one a running request with an image (JAX :131-141)
+        self.cross_slot_free: list[int] = []
+        if getattr(self.runner.model, "has_cross_attention", False):
+            self.cross_slot_free = list(range(self.runner.kv_config.cross_slots - 1, 0, -1))
+            if self.args.speculative_algorithm:
+                raise ValueError(
+                    "speculative decoding is not supported for cross-attention (Mllama) models yet"
+                )
 
         # draft-model speculation: a second runner whose KV pool mirrors the
         # target's page geometry, so page tables / radix pages serve both
@@ -944,6 +967,8 @@ class Scheduler:
                 and len(active_toppings) >= MAX_ACTIVE_TOPPINGS - 1
             ):
                 continue  # adapter budget full; retry next round
+            if req.cross_states is not None and req.cross_slot is None and not self.cross_slot_free:
+                continue  # every cross-KV slot taken; retry next round
             self._promote_host_prefix(req)
             res = adder.add_one_req(req)
             if adder.can_run_list and adder.can_run_list[-1] is req:
@@ -951,6 +976,9 @@ class Scheduler:
                 self.waiting.remove(req)
                 if req.topping_idx:
                     active_toppings.add(req.topping_idx)
+                if req.cross_states is not None and req.cross_slot is None:
+                    req.cross_slot = self.cross_slot_free.pop()
+                    self.runner.write_cross(req.cross_slot, req.cross_states)
             if res != AddReqResult.CONTINUE:
                 break
             if adder.new_chunked_req is not None:
@@ -985,6 +1013,7 @@ class Scheduler:
                 # roll back admission for this req
                 if req.last_node is not None:
                     self.tree_cache.for_req(req).dec_lock_ref(req.last_node)
+                self._free_cross_slot(req)
                 req.reset_for_retract()
                 self.waiting.insert(0, req)
                 continue
@@ -1200,6 +1229,7 @@ class Scheduler:
         for i, r in enumerate(batch):
             page_table[i, : len(r.pages)] = r.pages
 
+        cross = cross_batch_fields(batch, self.runner.kv_config.cross_len)
         sinfo = SamplingBatchInfo.from_reqs(
             batch, len(batch), self.model_config.vocab_size
         )
@@ -1224,7 +1254,13 @@ class Scheduler:
             mrope_positions=mrope_positions,
             rope_delta=rope_delta,
             mm_spans=mm_spans,
+            **cross,
         )
+
+    def _free_cross_slot(self, req: Req) -> None:
+        if req.cross_slot is not None:
+            self.cross_slot_free.append(req.cross_slot)
+            req.cross_slot = None
 
     @staticmethod
     def _mrope_rows(r: Req, start: int, end: int) -> np.ndarray:
@@ -1518,6 +1554,7 @@ class Scheduler:
     def _release_req(self, req: Req, keep_outputs: bool) -> None:
         """Return KV pages + slot; insert finished KV into the radix tree
         (reference: radix_cache.py:145-178 cache_finished_req)."""
+        self._free_cross_slot(req)
         ps = self.page_size
         if self.tree_cache.disable:
             if len(req.pages):
@@ -1569,7 +1606,7 @@ class Scheduler:
             return
         tree = self.tree_cache.for_req(req)
         m = tree.match_prefix(req.origin_input_ids)
-        slots = tier.match(req.topping_idx, req.origin_input_ids, m.num_pages)
+        slots = tier.match(self.tree_cache.key_of(req), req.origin_input_ids, m.num_pages)
         if not slots:
             return
         loaded = tier.load(slots)  # copy out before any further eviction
@@ -1578,6 +1615,9 @@ class Scheduler:
         tree.dec_lock_ref(m.last_node)
         if pages is None:
             return
+        # eviction drops an image's tree that it empties (one that matched
+        # nothing here); the request's tree is then a new one
+        tree = self.tree_cache.for_req(req)
         self.runner.scatter_pages(pages, loaded)
         total = m.num_pages + len(slots)
         key = req.origin_input_ids[: total * self.page_size]
@@ -1615,3 +1655,6 @@ class Scheduler:
         expect = self.allocator.num_pages - 1  # minus reserved dump page
         assert total == expect, f"KV page leak: {total} != {expect}"
         assert self.req_slots.available_slots == self.req_slots.max_reqs
+        if getattr(self.runner.model, "has_cross_attention", False):
+            n = self.runner.kv_config.cross_slots
+            assert sorted(self.cross_slot_free) == list(range(1, n)), "cross-KV slot leak"

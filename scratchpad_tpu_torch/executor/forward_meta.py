@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +34,21 @@ class ForwardMode(enum.Enum):
 
     def is_decode(self) -> bool:
         return self == ForwardMode.DECODE
+
+
+class CrossRequest(NamedTuple):
+    """A request with an image in a cross-attention (Mllama) forward, on the
+    host: the JAX meta's ``cross_slots`` and ``cross_lens`` entry of the
+    request, its token rows, and where its image placeholder falls."""
+
+    slot: int  # its slot in KVCache.cross
+    first: int  # its first token row in this forward
+    end: int  # one past its last token row
+    live: int  # cross rows of its live tiles (the JAX cross_lens)
+    # its leading rows before the image placeholder: they attend every
+    # cross row and get no cross MLP (HF's processor mask); the rest attend
+    # the live rows
+    text_rows: int
 
 
 @dataclasses.dataclass
@@ -62,6 +78,10 @@ class ForwardMeta:
     mrope_positions: torch.Tensor | None = None
     rope_delta: torch.Tensor | None = None
     mm_spans: torch.Tensor | None = None
+    # cross attention (Mllama): the batch's requests with an image, host
+    # side (the model loops over them; None or empty: the cross layers do
+    # not run)
+    cross_requests: tuple[CrossRequest, ...] | None = None
     # what the forward returns instead of logits: the final-normed hidden
     # state of each row's last token [B, H] (embeddings), or of every token
     # [T, H] (sequence scoring)

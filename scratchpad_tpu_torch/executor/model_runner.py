@@ -81,7 +81,9 @@ class WorkerBatch:
     """Host-side batch handed from the scheduler. The multimodal fields:
     vision features of the placeholder rows [T_real, H] f32, Qwen2-VL's 3-D
     positions [3, T_real] or its per-request shift [B_real], Gemma 3's
-    bidirectional spans [B_real, M, 2]."""
+    bidirectional spans [B_real, M, 2]; Mllama's cross-attention slots
+    (0: no image), live cross rows and image placeholder positions
+    [B_real]."""
 
     mode: ForwardMode
     tokens: np.ndarray  # i32[T_real]
@@ -100,6 +102,9 @@ class WorkerBatch:
     mrope_positions: Optional[np.ndarray] = None
     rope_delta: Optional[np.ndarray] = None
     mm_spans: Optional[np.ndarray] = None
+    cross_slots: Optional[np.ndarray] = None
+    cross_lens: Optional[np.ndarray] = None
+    cross_starts: Optional[np.ndarray] = None
 
 
 class PendingWindow(NamedTuple):
@@ -226,6 +231,12 @@ class ModelRunner:
             raise NotImplementedError(
                 f"kv_cache_dtype={self.kv_cache_dtype!r} for {cfg.architecture}: an 8-bit latent "
                 "(MLA) pool is not supported, as in the JAX package; use 'auto' (the model dtype)"
+            )
+        if getattr(model_cls, "has_cross_attention", False) and self.kv_cache_dtype in QUANT_KV_DTYPES:
+            raise NotImplementedError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r} for {cfg.architecture}: 8-bit KV for a "
+                "cross-attention model has no parity test against the JAX engine yet (ROADMAP.md); "
+                "use 'auto' (the model dtype)"
             )
         quant = None if self.args.quantization is None else _QUANT_ROUTE[self.args.quantization]
         # the JAX runner's quantize_lm_head auto rule: a 4-bit head whenever
@@ -372,17 +383,28 @@ class ModelRunner:
     VISION_BATCH = 4
 
     def forward_workspace_bytes(self) -> int:
-        """What a forward allocates beside the pool and the weights that the
-        pool's sizing must leave free: MLA's decode gather bound
-        (``mla_backend.DECODE_GATHER_BYTES``) and the vision tower's peak for
-        ``VISION_BATCH`` images."""
+        """What the pool's sizing must leave free beside the pool and the
+        weights: what a forward allocates (MLA's decode gather bound,
+        ``mla_backend.DECODE_GATHER_BYTES``; the vision tower's peak for the
+        images it encodes at once; a cross layer's scores,
+        ``mllama.cross_workspace_bytes``) and a cross-attention model's slot
+        buffer, allocated beside the pool."""
         from scratchpad_tpu_torch.ops.attention.mla_backend import DECODE_GATHER_BYTES
 
         ws = DECODE_GATHER_BYTES if self.model_config.is_mla else 0
         vision = getattr(self.model, "vision", None)
         if vision is not None:
-            ws += vision.workspace_bytes(self.VISION_BATCH)
+            ws += vision.workspace_bytes(self._vision_batch)
+        if getattr(self.model, "has_cross_attention", False):
+            from scratchpad_tpu_torch.models.mllama import cross_workspace_bytes
+
+            ws += self._kv_config(0).cross_bytes() + cross_workspace_bytes(self.model.cfg, self.model.cross_len)
         return ws
+
+    @property
+    def _vision_batch(self) -> int:
+        """Images (or video temporal patches) the tower encodes at once."""
+        return getattr(self.model.vision, "encode_batch", self.VISION_BATCH)
 
     def _profile_kv_tokens(self) -> int:
         if self.args.max_total_tokens:
@@ -412,8 +434,14 @@ class ModelRunner:
                 dtype=_DTYPES[self.kv_cache_dtype], mla=True,
             )
         quant_kv = QUANT_KV_DTYPES.get(self.kv_cache_dtype)
+        # a cross-attention model pages its self layers only, and keeps its
+        # images' K/V in slots beside the pool (JAX :713-744)
+        cross = {}
+        if getattr(self.model, "has_cross_attention", False):
+            cross = dict(cross_layers=len(self.model.cross_idx), cross_len=self.model.cross_len,
+                         cross_slots=self.args.cross_kv_slots + 1)
         return KVCacheConfig(
-            num_layers=cfg.num_hidden_layers,
+            num_layers=getattr(self.model, "num_kv_layers", cfg.num_hidden_layers),
             num_pages=num_pages,
             page_size=self.page_size,
             num_kv_heads=cfg.num_kv_heads,
@@ -421,6 +449,7 @@ class ModelRunner:
             dtype=self.dtype if quant_kv else _DTYPES[self.kv_cache_dtype],
             quantized=quant_kv is not None,
             quant_dtype=quant_kv or torch.int8,
+            **cross,
         )
 
     def kv_bytes_per_token(self) -> int:
@@ -477,6 +506,7 @@ class ModelRunner:
             and wb.mm_spans is None
             and wb.mrope_positions is None
             and wb.rope_delta is None
+            and wb.cross_slots is None
             and not wb.return_top_logprobs
         )
 
@@ -550,6 +580,8 @@ class ModelRunner:
                 active_adapters=meta.active_adapters,
                 adapter_slots=meta.adapter_slots,
                 rope_delta=meta.rope_delta,
+                # every step masks the padding tiles as the first did
+                cross_requests=meta.cross_requests,
             )
             logits = self._forward(step_meta)
             if counts is not None:
@@ -566,12 +598,23 @@ class ModelRunner:
 
     # ----------------------------------------------------------------- vision
 
-    def encode_images(self, pixel_values: np.ndarray) -> np.ndarray:
+    def encode_images(self, pixel_values: np.ndarray, ar_ids=None, n_tiles=None) -> np.ndarray:
         """The model's vision tower and projector: [N, C, S, S] pixels ->
-        f32 [N, tokens, H], ``VISION_BATCH`` images at a time."""
+        f32 [N, tokens, H], or a tiled model's tiles [N, T, C, S, S] with
+        their aspect-ratio ids and live tile counts [N] -> f32 [N, T x
+        patches, H] (JAX :1086-1110); the tower's ``encode_batch`` images at
+        a time (``VISION_BATCH`` where it sets none)."""
         if not hasattr(self.model, "encode_images"):
             raise ValueError(f"{self.model_config.architecture} is not a multimodal model")
-        return self._encode(self.model.encode_images, pixel_values, self.VISION_BATCH)
+        tiled = () if ar_ids is None else tuple(
+            torch.as_tensor(np.asarray(a, np.int64), device=self.device) for a in (ar_ids, n_tiles)
+        )
+        return self._encode(self.model.encode_images, pixel_values, self._vision_batch, *tiled)
+
+    def image_token_embedding(self) -> np.ndarray:
+        """The learned ``<|image|>`` embedding row, f32 [H] (Mllama's
+        placeholder; JAX :1127-1130)."""
+        return self.model.embed.weight[self.model.image_token_index].float().cpu().numpy()
 
     def encode_videos(self, frames: np.ndarray) -> np.ndarray:
         """A video's frames [T, C, S, S] -> f32 [grid_t, tokens, H] (real
@@ -579,13 +622,15 @@ class ModelRunner:
         ``VISION_BATCH`` temporal patches at a time."""
         if not getattr(self.model, "supports_video", False):
             raise ValueError(f"{self.model_config.architecture} does not support video")
-        return self._encode(self.model.encode_video, frames, self.VISION_BATCH * self.model.vision.tpatch)
+        return self._encode(self.model.encode_video, frames, self._vision_batch * self.model.vision.tpatch)
 
-    def _encode(self, fn, pixels: np.ndarray, step: int) -> np.ndarray:
+    def _encode(self, fn, pixels: np.ndarray, step: int, *rows: torch.Tensor) -> np.ndarray:
+        """``fn`` over ``pixels``, and the tensors ``rows`` row for row,
+        ``step`` rows at a time."""
         with torch.inference_mode():
             px = torch.from_numpy(np.ascontiguousarray(pixels, np.float32))
             out = [
-                fn(px[i : i + step].to(self.device, self.dtype)).float().cpu()
+                fn(px[i : i + step].to(self.device, self.dtype), *(r[i : i + step] for r in rows)).float().cpu()
                 for i in range(0, px.shape[0], step)
             ]
         return torch.cat(out).numpy()
@@ -954,6 +999,31 @@ class ModelRunner:
             spans = np.zeros((B,) + wb.mm_spans.shape[1:], np.int32)
             spans[:B_real] = wb.mm_spans
             meta.mm_spans = self._upload(spans)
+        if wb.cross_slots is not None:
+            self._cross_fields(wb, meta)
+
+    def _cross_fields(self, wb: WorkerBatch, meta: ForwardMeta) -> None:
+        """The batch's requests with an image as ``CrossRequest``s, their
+        rows from the host's extend lengths and positions, so no value
+        comes back from the card (JAX :1463-1488)."""
+        from scratchpad_tpu_torch.executor.forward_meta import CrossRequest
+
+        first = np.cumsum(wb.extend_lens) - wb.extend_lens
+        reqs = []
+        for b, slot in enumerate(wb.cross_slots):
+            if slot == 0:
+                continue
+            t0, n = int(first[b]), int(wb.extend_lens[b])
+            before = int(wb.cross_starts[b]) - int(wb.positions[t0])
+            reqs.append(CrossRequest(int(slot), t0, t0 + n, int(wb.cross_lens[b]), min(max(before, 0), n)))
+        meta.cross_requests = tuple(reqs)
+
+    def write_cross(self, slot: int, states: np.ndarray) -> None:
+        """An admitted request's image, vision states f32 [S_img, H], as
+        each cross layer's K and V in its slot of the cross buffer (JAX
+        ``_write_cross``, which runs inside the first extend)."""
+        with torch.inference_mode():
+            self.model.write_cross(self.kv_cache, slot, self._upload(np.asarray(states, np.float32)))
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """``a`` on the runner's device. To the card it goes from a pinned

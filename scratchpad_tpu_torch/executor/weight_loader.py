@@ -184,7 +184,8 @@ def params_from_jax(
     or, for fp8, with ``w8`` and ``s`` (the JAX ``Fp8Linear``). The vision
     models' ``vision`` and ``projector`` pytrees keep their JAX names
     (``vision.layers.wq``, Qwen2-VL's ``vision.blocks.qkv_w`` and
-    ``vision.merger.w1``)."""
+    ``vision.merger.w1``, Mllama's ``vision.local.wq``), as do Mllama's
+    stacked ``cross_layers``; its ``layers`` are its self layers."""
     if cfg.is_mla:
         if transposed:
             raise ValueError("DeepSeek's JAX stacks are never transposed by its runner")
@@ -210,7 +211,8 @@ def params_from_jax(
     }
     if "lm_head" in params_np and not cfg.tie_word_embeddings:
         state["lm_head.weight"] = _tensor(params_np["lm_head"])
-    L = cfg.num_hidden_layers
+    # Mllama stacks its self layers alone (its cross layers: ``cross_layers``)
+    L = cfg.num_hidden_layers - sum(i < cfg.num_hidden_layers for i in cfg.cross_attention_layers or [])
     layers = params_np["layers"]
     if isinstance(layers, dict):
         stacks = {key: np.asarray(stack) for key, stack in layers.items()}
@@ -246,7 +248,7 @@ def params_from_jax(
         if k not in fp8
     }
     state.update(quantized_layer_state(layers_q, E))
-    for tree in ("vision", "projector"):
+    for tree in ("vision", "projector", "cross_layers"):
         if tree in params_np:
             state.update(_flat_state(params_np[tree], tree))
     if "lm_head_q" in params_np:

@@ -29,6 +29,12 @@ r + dr]``, and no V: the JAX package's ``MLATokenToKVPool`` layout
 (``memory/kv_cache.py:86-89``), one head of width r + dr. An 8-bit latent
 pool is refused, as the JAX runner refuses it (``model_runner.py:709-711``).
 
+A cross-attention model (Mllama) keeps the paged pool for its self layers
+only and its images' K and V in ``KVCache.cross``, ``[cross_slots,
+cross_layers, cross_len, 2 Hkv, D]`` in the model dtype (a head's K at row
+2h, its V at 2h + 1, as the JAX pool's), one slot a running request with
+an image and slot 0 unused (JAX ``memory/kv_cache.py:90-95, 318-330``).
+
 Writes update the pool in place (``ops/attention/plain_backend.write_kv``):
 PyTorch tensors are mutable, so the port keeps one pool for the engine's
 lifetime instead of threading a new array through every step.
@@ -70,6 +76,11 @@ class KVCacheConfig:
     # a latent pool: one [c_kv | k_rope] row a token and layer (num_kv_heads
     # 1, head_dim r + dr), no V
     mla: bool = False
+    # cross-attention K/V slots (Mllama): layers, rows a slot, slots (the
+    # unused slot 0 included); 0 layers: none
+    cross_layers: int = 0
+    cross_len: int = 0
+    cross_slots: int = 0
 
     def __post_init__(self):
         if self.mla and self.quantized:
@@ -98,6 +109,13 @@ class KVCacheConfig:
             return rows * (self.head_dim + SCALE_DTYPE.itemsize)
         return rows * self.head_dim * self.dtype.itemsize
 
+    def cross_bytes(self) -> int:
+        """The cross-attention buffer's bytes (0 without one)."""
+        return (
+            self.cross_slots * self.cross_layers * self.cross_len * 2 * self.num_kv_heads
+            * self.head_dim * self.dtype.itemsize
+        )
+
 
 @dataclasses.dataclass
 class KVCache:
@@ -105,6 +123,9 @@ class KVCache:
     v: Optional[torch.Tensor]  # [L, num_pages, ps, Hkv, D]; None in a latent pool
     k_scale: Optional[torch.Tensor] = None  # bf16 [L, num_pages, ps, Hkv]
     v_scale: Optional[torch.Tensor] = None
+    # [slots, cross layers, S_img, 2 Hkv, D]: a cross-attention model's
+    # image K and V (None otherwise)
+    cross: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
@@ -148,6 +169,16 @@ class KVCache:
 
 
 def create_kv_cache(cfg: KVCacheConfig, device: torch.device) -> KVCache:
+    kv = _create_pool(cfg, device)
+    if cfg.cross_layers:
+        kv.cross = torch.zeros(
+            (cfg.cross_slots, cfg.cross_layers, cfg.cross_len, 2 * cfg.num_kv_heads, cfg.head_dim),
+            dtype=cfg.dtype, device=device,
+        )
+    return kv
+
+
+def _create_pool(cfg: KVCacheConfig, device: torch.device) -> KVCache:
     shape = (
         cfg.num_layers,
         cfg.num_pages,

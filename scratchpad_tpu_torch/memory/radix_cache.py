@@ -189,8 +189,9 @@ class RadixCache:
     # ------------------------------------------------------------- lock / evict
 
     def inc_lock_ref(self, node: TreeNode) -> None:
-        """Protect the path root->node from eviction."""
-        while node is not None and node is not self.root:
+        """Protect the path root->node from eviction (a root, also that of
+        a tree ``TreeCacheGroup`` has dropped since the match, is a no-op)."""
+        while node is not None and node.parent is not None:
             if node.lock_ref == 0:
                 n = len(node.value)
                 self._evictable_pages -= n
@@ -199,7 +200,7 @@ class RadixCache:
             node = node.parent
 
     def dec_lock_ref(self, node: TreeNode) -> None:
-        while node is not None and node is not self.root:
+        while node is not None and node.parent is not None:
             assert node.lock_ref > 0, "unbalanced dec_lock_ref"
             node.lock_ref -= 1
             if node.lock_ref == 0:

@@ -1,9 +1,12 @@
-"""A family of radix caches keyed by adapter (topping) id.
+"""A family of radix caches keyed by adapter (topping) id and image.
 
 KV contents depend on the active LoRA adapter (k/v projections may carry
 adapter deltas), so prefix reuse is only sound within the same adapter.
 The reference keys its radix cache by token ids alone and mixes adapter KV;
-here each adapter id gets its own tree sharing one page pool.
+here each adapter id gets its own tree sharing one page pool. A
+cross-attention (Mllama) request's KV depends on its image from its first
+row (``Req.image_key``), so such a request gets a tree of its adapter and
+image; a tree of an image is dropped once eviction has emptied it.
 """
 
 from __future__ import annotations
@@ -46,8 +49,16 @@ class TreeCacheGroup:
                 self._trees[topping_idx] = tree
         return self._trees[topping_idx]
 
+    def key_of(self, req):
+        """The key of the tree that may hold ``req``'s prefix: its adapter
+        id, or (adapter id, image key) for a request whose KV depends on
+        an image (also the host tier's key)."""
+        topping = getattr(req, "topping_idx", 0)
+        image = getattr(req, "image_key", None)
+        return topping if image is None or self.disable else (topping, image)
+
     def for_req(self, req):
-        return self.get(getattr(req, "topping_idx", 0))
+        return self.get(self.key_of(req))
 
     @property
     def evictable_pages(self) -> int:
@@ -66,8 +77,12 @@ class TreeCacheGroup:
             if done >= num_pages:
                 break
             done += tree.evict(num_pages - done, free_fn)
+        for key in [k for k, t in self._trees.items() if isinstance(k, tuple) and not t.root.children]:
+            del self._trees[key]
         return done
 
     def reset(self) -> None:
+        for key in [k for k in self._trees if isinstance(k, tuple)]:
+            del self._trees[key]
         for t in self._trees.values():
             t.reset()

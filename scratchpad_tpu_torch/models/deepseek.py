@@ -23,7 +23,10 @@ Counterpart of ``scratchpad_tpu/models/deepseek.py``, on the MoE base of
   (``modeling_deepseek_v3.py:371-377``). The JAX class uses
   ``(dn + dr)^-0.5`` for both (``deepseek.py:92``): with V3's published
   YaRN (factor 40, ``mscale_all_dim`` 1) its scores are 1/1.874 of HF's.
-  That gap is the JAX package's, not copied (``ROADMAP.md`` Queue 3).
+  That gap is the JAX package's, not copied (``ROADMAP.md`` Queue 3). V2
+  keeps ``(dn + dr)^-0.5`` under YaRN, as HF's V2 and the JAX package do,
+  and logs a warning at load naming the ``mscale(factor,
+  mscale_all_dim)^2`` it leaves out (1.590x at V2-Lite's YaRN).
 - **Layers.** The first ``first_k_dense_replace`` layers are dense (SwiGLU,
   ``intermediate_size``); the rest are MoE: the routed experts, masked and
   dense as Mixtral's (bf16 stacks ``[E, In, Out]``, one batched matmul a
@@ -73,6 +76,9 @@ from scratchpad_tpu_torch.models.mixtral import (
     weighted_sum,
 )
 from scratchpad_tpu_torch.ops.attention.mla_backend import extend_spans, mla_attention, write_latent
+from scratchpad_tpu_torch.utils import get_logger
+
+logger = get_logger("models.deepseek")
 
 
 def group_mask(scores: torch.Tensor, group_best: torch.Tensor, topk_group: int) -> torch.Tensor:
@@ -110,6 +116,18 @@ class DeepseekV2ForCausalLM(MoeForCausalLM):
         self.inv_freq = torch.as_tensor(compute_inv_freq(rope_cfg), device=device)
         self.rope_scale = deepseek_yarn_scale(cfg.rope_scaling)
         self.sm_scale = self.softmax_scale(cfg)
+        rs = cfg.rope_scaling or {}
+        if (
+            type(self).softmax_scale is DeepseekV2ForCausalLM.softmax_scale
+            and "yarn" in (rs.get("type"), rs.get("rope_type"))
+            and rs.get("mscale_all_dim")
+        ):
+            logger.warning(
+                "%s under YaRN (factor %s, mscale_all_dim %s): the softmax scale stays (dn + dr)^-0.5, "
+                "as in HF's DeepseekV2Attention and the JAX package; the mscale(factor, "
+                "mscale_all_dim)^2 = %.3fx that V3 applies is not applied (ROADMAP.md Queue 3)",
+                name, rs["factor"], rs["mscale_all_dim"], yarn_mscale(rs["factor"], rs["mscale_all_dim"]) ** 2,
+            )
 
     @staticmethod
     def _check_experts(cfg: ModelConfig) -> None:

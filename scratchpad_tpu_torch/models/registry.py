@@ -5,9 +5,10 @@ family (Mistral included: Llama's architecture and weight names with a
 uniform sliding window), Qwen2, Qwen3, Phi-3 and Apertus on the Llama
 decoder, Gemma 2 and Gemma 3 (text), the MoE decoders Mixtral,
 Qwen3-MoE, GPT-OSS and Llama-4 (text), DeepSeek-V2 and V3 (multi-head
-latent attention), and the vision models LLaVA (CLIP on Llama), Qwen2-VL
-and Gemma 3 multimodal (SigLIP); the rest of the JAX package's model zoo
-(Mllama, whose cross-attention is the next slice) is still to be ported.
+latent attention), and the vision models LLaVA (CLIP on Llama), Qwen2-VL,
+Gemma 3 multimodal (SigLIP) and Mllama (Llama 3.2 Vision: a tiled ViT and
+cross-attention layers) — every model family of the JAX package. Llama 4's
+multimodal class is not in the JAX package either, and is refused.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ def get_model_class(architecture: str):
     from scratchpad_tpu_torch.models.llama4 import Llama4ForCausalLM
     from scratchpad_tpu_torch.models.llava import LlavaForConditionalGeneration
     from scratchpad_tpu_torch.models.mixtral import MixtralForCausalLM, Qwen3MoeForCausalLM
+    from scratchpad_tpu_torch.models.mllama import MllamaForCausalLM
     from scratchpad_tpu_torch.models.qwen import (
         Phi3ForCausalLM,
         Qwen2ForCausalLM,
@@ -52,13 +54,8 @@ def get_model_class(architecture: str):
         "LlavaForConditionalGeneration": LlavaForConditionalGeneration,
         "Qwen2VLForConditionalGeneration": Qwen2VLForConditionalGeneration,
         "Gemma3ForConditionalGeneration": Gemma3ForConditionalGeneration,
+        "MllamaForConditionalGeneration": MllamaForCausalLM,
     }
-    if architecture == "MllamaForConditionalGeneration":
-        raise NotImplementedError(
-            "architecture 'MllamaForConditionalGeneration' is not ported yet: its "
-            "cross-attention layers (cross_slots, cross_states in core/) are the next slice "
-            "(ROADMAP Queue 1)"
-        )
     if architecture not in registry:
         raise NotImplementedError(
             f"architecture {architecture!r} is not ported yet; have {sorted(registry)}"

@@ -1,10 +1,12 @@
 """Image decoding and CLIP-style preprocessing for VLM requests.
 
-Counterpart of ``scratchpad_tpu/multimodal/image.py`` (less Mllama's tiled
-preprocessing, whose model is not ported yet). It takes the OpenAI chat
-API's ``image_url`` forms that work offline: ``data:`` URLs, raw base64
-and local file paths; a remote URL is refused, as the JAX package refuses
-it. PIL is imported inside the functions that decode.
+Counterpart of ``scratchpad_tpu/multimodal/image.py``: CLIP's square crop,
+and Mllama's tiles (``select_tiling``, ``preprocess_tiled``: HF
+``MllamaImageProcessor``'s canvas, the tiles equal to the JAX package's
+bit for bit). It takes the OpenAI chat API's ``image_url`` forms that work
+offline: ``data:`` URLs, raw base64 and local file paths; a remote URL is
+refused, as the JAX package refuses it. PIL is imported inside the
+functions that decode.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import base64
 import binascii
 import io
+import math
 import os
 
 import numpy as np
@@ -77,3 +80,50 @@ def preprocess_clip(img, image_size: int, mean=CLIP_MEAN, std=CLIP_STD) -> np.nd
     x = np.asarray(img, np.float32) / 255.0  # [S, S, 3]
     x = (x - mean) / std
     return x.transpose(2, 0, 1)
+
+
+def select_tiling(w: int, h: int, tile_size: int, supported) -> tuple[int, int, int]:
+    """The tile grid for a ``w`` x ``h`` image, as HF's
+    ``get_optimal_tiled_canvas`` picks it: of the ``supported`` (rows,
+    columns) grids, the smallest upscale that fits the image, else the
+    largest downscale, ties to the smaller canvas. Returns (aspect-ratio id,
+    1-based, rows, columns)."""
+    best = None
+    for i, (th, tw) in enumerate(supported):
+        ch, cw = th * tile_size, tw * tile_size
+        scale = min(cw / w, ch / h)
+        key = (0, scale, ch * cw) if scale >= 1 else (1, -scale, ch * cw)
+        if best is None or key < best[0]:
+            best = (key, i + 1, th, tw)
+    return best[1], best[2], best[3]
+
+
+def preprocess_tiled(img, tile_size: int, supported, max_tiles: int, mean=CLIP_MEAN, std=CLIP_STD):
+    """HF ``MllamaImageProcessor``: resize into the chosen tile canvas with
+    the aspect kept (bilinear, the other side floored), pad with zeros,
+    normalise, split into row-major tiles, and zero-pad the stack to
+    ``max_tiles``. Returns (tiles f32 [max_tiles, 3, S, S], aspect-ratio id
+    (1-based), live tiles)."""
+    Image = require("PIL.Image", "pillow")
+    w, h = img.size
+    ar_id, th, tw = select_tiling(w, h, tile_size, supported)
+    ch, cw = th * tile_size, tw * tile_size
+    # HF get_image_size_fit_to_canvas: the target clamped into [tile_size,
+    # canvas], scaled by the binding side, the other side floored
+    tgt_w = min(max(w, tile_size), cw)
+    tgt_h = min(max(h, tile_size), ch)
+    scale_w, scale_h = tgt_w / w, tgt_h / h
+    if scale_w < scale_h:
+        nw, nh = tgt_w, min(math.floor(h * scale_w) or 1, tgt_h)
+    else:
+        nw, nh = min(math.floor(w * scale_h) or 1, tgt_w), tgt_h
+    img = img.resize((nw, nh), Image.BILINEAR)
+    canvas = np.zeros((ch, cw, 3), np.float32)
+    canvas[:nh, :nw] = np.asarray(img, np.float32) / 255.0
+    x = ((canvas - mean) / std).transpose(2, 0, 1)  # [3, ch, cw]
+    n = th * tw
+    out = np.zeros((max_tiles, 3, tile_size, tile_size), np.float32)
+    out[:n] = (
+        x.reshape(3, th, tile_size, tw, tile_size).transpose(1, 3, 0, 2, 4).reshape(n, 3, tile_size, tile_size)
+    )
+    return out, ar_id, n

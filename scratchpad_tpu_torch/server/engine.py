@@ -224,12 +224,20 @@ class Engine:
             raise ValueError(f"{self.model_config.architecture} does not accept {what}")
         return model
 
-    def preprocess_image(self, img) -> np.ndarray:
+    def preprocess_image(self, img):
         """A PIL image -> normalised f32 [3, S, S] pixels at the model's
-        resolution (SigLIP's mean and std for Gemma 3, CLIP's otherwise)."""
+        resolution (SigLIP's mean and std for Gemma 3, CLIP's otherwise);
+        for a tiled model (Mllama, ``max_num_tiles`` > 1), HF's tiles as a
+        (tiles f32 [max_tiles, 3, S, S], aspect-ratio id, live tiles) tuple
+        (``multimodal/image.py::preprocess_tiled``; JAX :300-320)."""
         from scratchpad_tpu_torch.multimodal import preprocess_clip
 
         model = self._vision_model("images")
+        if getattr(model, "has_cross_attention", False) and model.vision.max_tiles > 1:
+            from scratchpad_tpu_torch.multimodal.image import preprocess_tiled
+
+            v = model.vision
+            return preprocess_tiled(img, v.image_size, v.supported_aspect_ratios, v.max_tiles)
         if hasattr(model, "image_mean"):
             return preprocess_clip(
                 img, model.vision.image_size,
@@ -239,8 +247,11 @@ class Engine:
         return preprocess_clip(img, model.vision.image_size)
 
     @staticmethod
-    def _content_hash(px: np.ndarray) -> int:
-        return int.from_bytes(hashlib.blake2b(px.tobytes(), digest_size=8).digest(), "little")
+    def _content_hash(px: np.ndarray, *extra: int) -> int:
+        h = hashlib.blake2b(px.tobytes(), digest_size=8)
+        for e in extra:
+            h.update(np.int64(e).tobytes())
+        return int.from_bytes(h.digest(), "little")
 
     def _check_size(self, model, px: np.ndarray, what: str) -> None:
         S = model.vision.image_size
@@ -256,8 +267,11 @@ class Engine:
         into the image's rows (or, in a prompt that arrives expanded, each
         token is one row), whose ids are ``-1 - pid``, pid hashed from the
         image's pixels (blake2b) plus the row; the features ride on the
-        request. Qwen2-VL gets its 3-D rope table, Gemma 3 its spans."""
+        request. Qwen2-VL gets its 3-D rope table, Gemma 3 its spans;
+        Mllama's image goes to ``_prepare_cross``."""
         model = self._vision_model("images")
+        if getattr(model, "has_cross_attention", False):
+            return self._prepare_cross(model, input_ids, image_data)
         px = np.asarray(image_data, np.float32)
         if px.ndim == 3:
             px = px[None]
@@ -300,6 +314,43 @@ class Engine:
         if getattr(model, "bidirectional_image_attention", False):
             mm["mm_spans"] = [(s0, s0 + n) for s0, n in spans]
         return out_ids, mm
+
+    def _prepare_cross(self, model, input_ids: list[int], image_data):
+        """Mllama's one image a request (JAX ``engine.py:425-470``): a tiled
+        ``(tiles [T, C, S, S], aspect-ratio id, live tiles)`` tuple from
+        ``preprocess_image``, or one tile's pixels [C, S, S] (or [1, C, S,
+        S]). The tower's states ride on the request as its cross states; its
+        ``<|image|>`` token stays one row, whose id is ``-1 - hash`` of the
+        tiles, aspect ratio and live tiles, and whose embedding is the
+        learned ``<|image|>`` row. That id is also the request's
+        ``image_key``: the radix cache keeps the prompt, the text before the
+        placeholder included, in a tree of that image."""
+        if isinstance(image_data, tuple):
+            tiles, ar_id, n_tiles = image_data
+            px = np.asarray(tiles, np.float32)[None]  # [1, T, C, S, S]
+        else:
+            px = np.asarray(image_data, np.float32)
+            if px.ndim == 3:
+                px = px[None]
+            if px.ndim != 4 or px.shape[0] != 1:
+                raise ValueError("Mllama takes one image a request: [C, S, S] pixels or a tiled tuple")
+            px, ar_id, n_tiles = px[:, None], 1, 1  # one tile
+        self._check_size(model, px[0], "image tiles")
+        if not 1 <= int(n_tiles) <= px.shape[1]:
+            raise ValueError(f"{n_tiles} live tiles in a stack of {px.shape[1]}")
+        states = self.scheduler.runner.encode_images(px, [ar_id], [n_tiles])[0]  # [T x patches, H]
+        img_tok = model.image_token_index
+        n_ph = sum(1 for t in input_ids if t == img_tok)
+        if n_ph != 1:
+            raise ValueError(f"prompt has {n_ph} image tokens for 1 image (Mllama takes one a request)")
+        at = input_ids.index(img_tok)
+        out_ids = list(input_ids)
+        out_ids[at] = -1 - self._content_hash(px, ar_id, n_tiles) % (2**30)
+        emb = self.scheduler.runner.image_token_embedding()
+        return out_ids, dict(
+            mm_positions=np.array([at], np.int64), mm_features=emb[None],
+            cross_states=states, cross_len=int(n_tiles) * model.vision.num_patches, cross_start=at,
+        )
 
     def _prepare_video(self, input_ids: list[int], video_data):
         """Encode a video's frames [T, C, S, S] and splice them into the

@@ -697,7 +697,8 @@ class ServerApp:
         ``video`` part ``mm_video_token`` (JAX ``http_server.py:460-520``).
         Returns (images [N, C, S, S] or None, video frames [T, C, S, S] or
         None), decoded and preprocessed in worker threads, all images of the
-        request at once. Raises ``ValueError`` (400): media for a model
+        request at once; a tiled model's one image is its ``(tiles, ar_id,
+        n_tiles)`` tuple (``Engine.preprocess_image``). Raises ``ValueError`` (400): media for a model
         without vision, images and a video together, two videos, a remote
         URL, a payload that does not decode, a missing decoding library."""
         import numpy as np
@@ -736,6 +737,12 @@ class ServerApp:
         pixels = await asyncio.gather(
             *[asyncio.to_thread(self._decode_preprocess_image, src) for src in images]
         )
+        if isinstance(pixels[0], tuple):
+            # a tiled model's (tiles, aspect-ratio id, live tiles), one image
+            # a request (JAX http_server.py:531-537)
+            if len(pixels) > 1:
+                raise ValueError("one tiled image per request (Mllama)")
+            return pixels[0], None
         return np.stack(pixels), None
 
     def _apply_chat_template(self, messages: list[ChatMessage]) -> str:

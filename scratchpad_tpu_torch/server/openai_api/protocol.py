@@ -136,7 +136,8 @@ class CompletionRequest:
     echo: bool = False
     frequency_penalty: float = 0.0
     logit_bias: Optional[Dict[str, float]] = None
-    # refused by this server: per-request logit processors are not ported
+    # a pickled per-request logit processor and its params: served only
+    # under --enable-custom-logit-processor (http_server.sampling_params)
     custom_logit_processor: Optional[str] = None
     custom_params: Optional[Dict[str, float]] = None
     logprobs: Optional[int] = None

@@ -284,3 +284,37 @@ def test_latent_pool_bytes():
     lite = KVCacheConfig(27, 0, 16, 1, 512 + 64, torch.bfloat16, mla=True)
     assert lite.bytes_per_token() == 31_104
     assert 27 * 16 * (192 + 128) * 2 / lite.bytes_per_token() == pytest.approx(8.89, abs=0.01)
+
+
+# DeepSeek-V2-Lite's published YaRN (config.json: factor 40, mscale and
+# mscale_all_dim 0.707): the factor V3's scale would add is 1.590x
+V2_LITE_YARN = dict(YARN, mscale=0.707, mscale_all_dim=0.707)
+
+
+@pytest.mark.parametrize(
+    "overrides,warned",
+    [(dict(rope_scaling=V2_LITE_YARN), True), ({}, False),
+     (dict(V3, rope_scaling=V3_YARN), False)],
+    ids=["v2-yarn", "v2-no-yarn", "v3-yarn"],
+)
+def test_v2_yarn_scale_warning(overrides, warned):
+    """A V2 config under YaRN with a nonzero ``mscale_all_dim`` keeps the
+    reference's (dn + dr)^-0.5 and says so at load, naming the mscale^2
+    factor it leaves out; V3 applies that factor and stays quiet."""
+    import logging
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("scratchpad_tpu_torch.models.deepseek")
+    log.addHandler(handler)
+    try:
+        _, cfg = configs(**overrides)
+        model = get_model_class(cfg.architecture)(cfg, torch.device("cpu"), torch.float32)
+    finally:
+        log.removeHandler(handler)
+    msgs = [r.getMessage() for r in records if r.levelno == logging.WARNING]
+    assert bool(msgs) == warned, msgs
+    if warned:
+        assert "1.590x" in msgs[0] and "not applied" in msgs[0]
+        assert model.sm_scale == pytest.approx((16 + 8) ** -0.5)

@@ -37,13 +37,15 @@ ablation probe's ``out`` must lie within one bf16 ulp of its plain
 version's (both round the same f32 statistic to bf16 once), its ``aux``
 within ``aux_tolerance`` (m exact, the rest ATOL + 2**-12 |plain|); the
 decode kernel's stage cuts are held to their plain functions at ATOL + RTOL
-|plain|, and the profiling tools run at small sizes. Two engines on the
+|plain|, and the profiling tools run at small sizes. Three engines on the
 card through ``chip_smoke.py``'s phases: custom logit processors on a tiny
 Llama (banned ids absent, a per-row boost, free rows unchanged, no
-processor row in a pipelined window), and a small DeepSeek-V2 of
+processor row in a pipelined window), a small DeepSeek-V2 of
 DeepSeek-V2-Lite's structure, whose absorbed latent attention must launch no
 attention kernel and hold its logits to HF's expanded form within 3e-2 of
-max |logit| at one routing, the rope term moving them by 10x that.
+max |logit| at one routing, the rope term moving them by 10x that, and a
+narrow Mllama of Llama-3.2-11B-Vision's structure through
+``phase_mllama``.
 """
 
 import math
@@ -1255,6 +1257,45 @@ def test_deepseek_latent_attention_matches_expanded_form(gen):
     assert chip_smoke.FAILURES == []
     assert out["worst_logit_rel"] <= chip_smoke.LOGIT_RTOL["deepseek-v2-lite"]
     assert out["rope_move_min"] >= chip_smoke.ROPE_MOVE * out["worst_logit_rel"]
+
+
+def test_mllama_phase_on_the_card(gen):
+    """``chip_smoke.phase_mllama`` on Llama-3.2-11B-Vision's structure at
+    narrow widths (10 decoder layers, cross layers 3 and 8, hidden 1024 with
+    8 heads of 128 over 2 kv heads; a tower of 4 + 2 layers of 128 at 112
+    px) in bf16, two cross slots: every request finishes, rows 3 and 1
+    launch exactly once a self layer and forward (8, the cross layers
+    none), at most two images share a forward, the chat prompt with another
+    image or none reuses no page of the chat request while its own image
+    again reuses the prompt past it, the logits hold against the plain path
+    and another image moves them by ``IMAGE_MOVE`` times that, and the cross
+    layer holds against its unblocked reference."""
+    import chip_smoke
+    from scratchpad_tpu_torch.config import ModelConfig, ServerArgs
+    from scratchpad_tpu_torch.server.engine import Engine
+
+    full = chip_smoke.LLAMA32_11B_VISION
+    cfg = ModelConfig.from_hf_config(dict(
+        full, text_config=dict(full["text_config"], num_hidden_layers=10, hidden_size=1024,
+                               intermediate_size=2048, num_attention_heads=8, num_key_value_heads=2),
+        vision_config=dict(full["vision_config"], hidden_size=128, attention_heads=2, num_hidden_layers=4,
+                           num_global_layers=2, image_size=112, intermediate_size=256,
+                           intermediate_layers_indices=[1, 3], vision_output_dim=384)))
+    eng = Engine(ServerArgs(random_weights=True, dtype="bfloat16", page_size=16, max_total_tokens=16384,
+                            cross_kv_slots=chip_smoke.MLLAMA_SLOTS), model_config=cfg)
+    chip_smoke.FAILURES.clear()
+    out = chip_smoke.phase_mllama(eng)
+    assert chip_smoke.FAILURES == []
+    assert out["self_layers"] == 8
+    assert set(out["launches_per_forward"].values()) == {8.0}
+    assert 0 < out["images_at_once"] <= chip_smoke.MLLAMA_SLOTS
+    assert out["worst_logit_rel"] <= chip_smoke.LOGIT_RTOL["llama-3.2-11b-vision"]
+    assert out["image_move"] >= chip_smoke.IMAGE_MOVE * out["worst_logit_rel"]
+    other, text_only, same = out["cached_tokens"]
+    assert other == text_only == 0 < same
+    assert out["cross_err"] <= chip_smoke.CROSS_RTOL
+    assert out["tower_ms"] > 0 and out["cross_gib"] > 0 and "NVIDIA" in out["card"]
+    eng.scheduler.check_memory_leak()
 
 
 # bidirectional image spans (rows 3m and 3qm, Gemma 3 multimodal): (q_len,

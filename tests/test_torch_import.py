@@ -1,11 +1,12 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
 A subprocess imports every module of ``scratchpad_tpu_torch`` (the Qwen,
-Gemma, Mixtral, GPT-OSS, Llama-4, Apertus and DeepSeek models, the latent
-attention, the custom logit processors and the ``constrained`` modules
-among them) and ``chip_smoke``, and serves tiny CPU engines of Llama,
-Gemma 2, Qwen3, GPT-OSS, Qwen3-MoE, Llama-4, Apertus and DeepSeek-V3, a
-custom logit processor and a regex and a recursive EBNF grammar, then
+Gemma, Mixtral, GPT-OSS, Llama-4, Apertus, DeepSeek and Mllama models, the
+latent attention, the custom logit processors and the ``constrained``
+modules among them) and ``chip_smoke``, and serves tiny CPU engines of
+Llama, Gemma 2, Qwen3, GPT-OSS, Qwen3-MoE, Llama-4, Apertus, DeepSeek-V3
+and Mllama (a tiled image), a custom logit processor and a regex and a
+recursive EBNF grammar, then
 lists what it loaded;
 a source scan checks every import statement of the package. A second
 subprocess blocks ``jax``, the JAX package and the serving packages that the
@@ -32,7 +33,8 @@ assert {"scratchpad_tpu_torch.models.gemma", "scratchpad_tpu_torch.models.qwen",
         "scratchpad_tpu_torch.models.mixtral", "scratchpad_tpu_torch.models.gpt_oss",
         "scratchpad_tpu_torch.models.llama4", "scratchpad_tpu_torch.models.apertus",
         "scratchpad_tpu_torch.models.deepseek", "scratchpad_tpu_torch.ops.attention.mla_backend",
-        "scratchpad_tpu_torch.sampling.custom_logit_processor"} <= set(names)
+        "scratchpad_tpu_torch.sampling.custom_logit_processor",
+        "scratchpad_tpu_torch.models.mllama"} <= set(names)
 assert {"scratchpad_tpu_torch.constrained." + m for m in (
     "backend", "ebnf", "json_schema", "leftrec", "pda", "regex_fsm", "structural_tag")} <= set(names)
 for n in names:
@@ -59,6 +61,21 @@ for cfg in (get_preset("tiny-debug"), get_preset("tiny-gemma2"),
     out = eng.generate(input_ids=[1, 2, 3, 4, 5],
                        sampling_params=SamplingParams(temperature=0.0, max_new_tokens=4))
     assert len(out.output_ids) == 4
+# Mllama: a tiled image through the tower and the cross layers
+import numpy as np
+from scratchpad_tpu_torch.config.model_config import ModelConfig
+vision = dict(hidden_size=16, intermediate_size=32, num_hidden_layers=2, num_global_layers=1,
+              attention_heads=2, image_size=16, patch_size=8, max_num_tiles=2,
+              supported_aspect_ratios=[[1, 1], [1, 2]], intermediate_layers_indices=[0])
+mcfg = ModelConfig(architecture="MllamaForConditionalGeneration", vocab_size=512, hidden_size=64,
+                   intermediate_size=128, num_hidden_layers=3, num_attention_heads=4,
+                   num_key_value_heads=2, cross_attention_layers=[1],
+                   multimodal=dict(vision_config=vision, image_token_index=500))
+meng = Engine(ServerArgs(random_weights=True, dtype="float32", device="cpu", page_size=4,
+                         max_total_tokens=512), model_config=mcfg)
+out = meng.generate(input_ids=[500, 1, 2], image_data=(np.ones((2, 3, 16, 16), np.float32), 2, 2),
+                    sampling_params=SamplingParams(temperature=0.0, max_new_tokens=4))
+assert len(out.output_ids) == 4
 # a custom logit processor beside a free row
 from scratchpad_tpu_torch.sampling.custom_logit_processor import BannedTokensProcessor
 free = eng.generate(input_ids=[1, 2, 3], sampling_params=SamplingParams(temperature=0.0, max_new_tokens=4))

@@ -288,6 +288,7 @@ def test_registry_maps_the_ported_families():
     from scratchpad_tpu_torch.models.qwen2_vl import Qwen2VLForConditionalGeneration
     from scratchpad_tpu_torch.models.llama4 import Llama4ForCausalLM
     from scratchpad_tpu_torch.models.mixtral import MixtralForCausalLM, Qwen3MoeForCausalLM
+    from scratchpad_tpu_torch.models.mllama import MllamaForCausalLM
     from scratchpad_tpu_torch.models.qwen import Phi3ForCausalLM, Qwen2ForCausalLM, Qwen3ForCausalLM
 
     for name, cls in (("Qwen2ForCausalLM", Qwen2ForCausalLM), ("Qwen3ForCausalLM", Qwen3ForCausalLM),
@@ -302,8 +303,8 @@ def test_registry_maps_the_ported_families():
                       ("DeepseekV3ForCausalLM", DeepseekV3ForCausalLM),
                       ("LlavaForConditionalGeneration", LlavaForConditionalGeneration),
                       ("Qwen2VLForConditionalGeneration", Qwen2VLForConditionalGeneration),
-                      ("Gemma3ForConditionalGeneration", Gemma3ForConditionalGeneration)):
+                      ("Gemma3ForConditionalGeneration", Gemma3ForConditionalGeneration),
+                      ("MllamaForConditionalGeneration", MllamaForCausalLM)):
         assert get_model_class(name) is cls
-    for name in ("Llama4ForConditionalGeneration", "MllamaForConditionalGeneration"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_model_class(name)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        get_model_class("Llama4ForConditionalGeneration")

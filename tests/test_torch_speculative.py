@@ -176,6 +176,22 @@ def test_spec_matches_plain_greedy(plain, ngram, prompt_kind):
     ngram[1].scheduler.check_memory_leak()
 
 
+@pytest.mark.parametrize("algo", [dict(speculative_algorithm="ngram"), DRAFT], ids=["ngram", "draft"])
+def test_spec_on_w4a8_int8_kv_matches_jax(algo):
+    """Speculation on a W4A8 target over an int8 KV pool (the target's
+    4-bit codes carried across; the draft model unquantized on a pool of
+    the model dtype, as both packages build it): the same greedy ids and
+    accepted drafts as the JAX engine, the chosen logprobs within
+    ``LP_TOL``."""
+    jeng, eng = make_pair(quantization="w4a8", kv_cache_dtype="int8", **algo)
+    runner = eng.scheduler.runner
+    assert runner.kv_cache.quantized and runner.kv_cache.k.dtype == torch.int8
+    (jo, js, ja), (po, ps, pa) = run_both((jeng, eng), greedy_prompts("repetitive"), max_new_tokens=24, **GREEDY)
+    assert_same(jo, po)
+    assert ps > 0 and (ps, pa) == (js, ja)
+    eng.scheduler.check_memory_leak()
+
+
 def test_spec_acceptance_on_forced_repetition(ngram):
     (jo, js, ja), (po, ps, pa) = run_both(ngram, [5, 6, 7, 8] * 6, max_new_tokens=32, **GREEDY)
     assert_same(jo, po)

@@ -13,7 +13,8 @@ through ``params_from_jax``):
 - a presence penalty on an image request counts only the prompt's real
   ids (the placeholders are negative), where the JAX engine raises;
 - the refusals: images for a text model, images and a video together,
-  negative ids from the caller, Mllama.
+  negative ids from the caller, Llama 4's multimodal class (Mllama now
+  resolves to the port's class).
 """
 
 import jax
@@ -149,13 +150,17 @@ def test_multimodal_refusals():
                      video_data=pixels("qwen2vl", 2))
     with pytest.raises(ValueError, match="image tokens"):
         eng.generate(input_ids=[QWEN_IMG, QWEN_IMG], image_data=pixels("qwen2vl", 1))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        get_model_class("MllamaForConditionalGeneration")
+    from scratchpad_tpu_torch.models.mllama import MllamaForCausalLM
+
+    assert get_model_class("MllamaForConditionalGeneration") is MllamaForCausalLM
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        get_model_class("Llama4ForConditionalGeneration")
 
 
 def test_multimodal_batches_never_run_as_pipelined_windows():
-    """Each of the four multimodal fields keeps a batch off the pipelined
-    path (the JAX rule, ``model_runner.py:1067-1084``)."""
+    """Each of the five multimodal fields keeps a batch off the pipelined
+    path (the JAX rule, ``model_runner.py:1067-1084``), Mllama's cross
+    slots among them."""
     from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
     from scratchpad_tpu_torch.executor.model_runner import WorkerBatch
     from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
@@ -169,7 +174,8 @@ def test_multimodal_batches_never_run_as_pipelined_windows():
     assert runner._packed_supported(WorkerBatch(**base))
     for field, value in (("input_embeds", np.zeros((2, 128), np.float32)),
                          ("mrope_positions", np.zeros((3, 2), np.int32)),
-                         ("rope_delta", np.zeros(2, np.int32)), ("mm_spans", np.zeros((2, 1, 2), np.int32))):
+                         ("rope_delta", np.zeros(2, np.int32)), ("mm_spans", np.zeros((2, 1, 2), np.int32)),
+                         ("cross_slots", np.ones(2, np.int32))):
         assert not runner._packed_supported(WorkerBatch(**base, **{field: value})), field
 
 
