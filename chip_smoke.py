@@ -107,7 +107,9 @@ Phases, in order; any failure exits non-zero before the last line:
    (split), and B 64 (one CTA a row and head), split calls bit-equal; extend
    on a prompt across the edge, a chunk after a cached prefix that starts a
    token before it, a one-token row and padding tokens, so that query
-   tiles straddle the edge. Gemma 3's bidirectional image spans
+   tiles straddle the edge. Rows 1, 3, 1q and 3q at a tp 2 rank's heads of
+   Llama-3.1-8B (Hkv 4, G 4, D 128; ``check_tp_heads``). Gemma 3's
+   bidirectional image spans
    (``check_spans``, rows 3m and 3qm) over bf16, int8 and fp8 pages at
    ``SPAN_SHAPES`` (Gemma-3-4B's G 2 at D 256; G 6 and 1 at D 128), without
    a window and with one of 128 (shorter than a span), on ``SPAN_ROWS``: a
@@ -126,16 +128,18 @@ Phases, in order; any failure exits non-zero before the last line:
    weights (its first ``MISTRAL_PALLAS_LAYERS`` layers); Qwen3-8B in bf16
    (qk-norm, an untied head), then with W4A8 at ``QWEN3_W4A8_LAYERS``
    layers and the int8 KV that ``"auto"`` gives its full depth (logits
-   only, not timed); Gemma-2-2B in bf16 (head_dim 256, window 4096 on
-   alternate layers, caps 50 and 30) with ``WINDOW_REQUESTS``; Gemma-3-1B
+   only, not timed); Gemma-2-2B in bf16 at ``GEMMA2_LAYERS`` layers
+   (head_dim 256, window 4096 on alternate layers, caps 50 and 30) with
+   ``WINDOW_REQUESTS``, not timed; Gemma-3-1B
    (``GEMMA3_1B``, its config.json: window 512 on five layers of six, one
    kv head; ``GEMMA3_LAYERS`` of its 26 layers) with ``GEMMA3_REQUESTS``,
    not timed; Gemma-2-2B on int8 KV at
    ``GEMMA_KV8_LAYERS`` layers (rows 1dq and 3dq on a served path,
    ``GEMMA_KV8_REQUESTS`` across the window's edge, the 8-bit gate 1e-1),
    then on fp8 KV at the same depth, neither timed; GPT-OSS-20B at full width
-   and depth in bf16 (sinks, window 128 on alternate layers, 32 experts,
-   top 4) with ``GPT_OSS_REQUESTS``, timed, where dropping the sinks must
+   and ``GPT_OSS_LAYERS`` layers in bf16 (sinks, window 128 on alternate
+   layers, 32 experts, top 4) with ``GPT_OSS_REQUESTS``, not timed, where
+   dropping the sinks must
    move each prompt's logits by at least ``SINK_MOVE`` times the
    kernel-vs-plain reading; GPT-OSS W4 at ``GPT_OSS_W4_LAYERS`` layers with
    int8 KV, W4A8 then W4A16 on the same codes (rows 6 and 7 at its groups
@@ -147,9 +151,10 @@ Phases, in order; any failure exits non-zero before the last line:
    ``LLAMA4_REQUESTS``, not timed, where dropping the chunk must move the
    logits of each row past the chunk's edge by at least ``CHUNK_MOVE`` times
    the kernel-vs-plain reading; DeepSeek-V2-Lite (``DEEPSEEK_V2_LITE``, its
-   config.json: multi-head latent attention over a latent pool of 31,104
-   bytes a token, YaRN, one dense layer, then 64 routed experts top 6 beside
-   2 shared ones) at full width and depth in bf16, not timed: it must
+   config.json: multi-head latent attention over a latent pool of 1,152
+   bytes a token and layer, YaRN, one dense layer, then 64 routed experts
+   top 6 beside 2 shared ones) at full width and ``DEEPSEEK_LAYERS`` layers
+   in bf16, not timed: it must
    launch neither attention kernel, and its plain path is HF's expanded
    form (``ExpandedMla``), which without its rope term must move the logits
    by at least ``ROPE_MOVE`` times the reading; Apertus-8B (``APERTUS_8B``,
@@ -187,6 +192,18 @@ Phases, in order; any failure exits non-zero before the last line:
    tokens and the card.
    Llama-3.1-8B with fp8 weights and fp8 KV (BASELINE config 4)
    at ``FP8_LAYERS`` of 32, not timed, with its weights' bytes against bf16.
+   Tensor parallelism (``phase_tp``, ``[tp ...]`` lines): Llama-3.1-8B at
+   full width and depth in bf16 at tp 1, then at tp 2 on the same weights
+   (the engine spawns rank 1; both ranks on cuda:0 over gloo, since NCCL
+   takes one rank a GPU), on bf16 and then int8 KV, each tp 1 engine freed
+   before its ranks start: every rank's launches of the pool's decode and
+   extend kernels (32 a forward of their mode, over 4 kv heads), its
+   collectives (66 a forward) and its digests of the sampled ids and
+   logprobs and of the gathered logits, which must equal the leader's;
+   logits against tp 1 within ``LOGIT_RTOL`` and the argmax and (bf16) the
+   greedy ids the same but at a tie; a decode step's wall and rank 0's
+   device time at tp 1 and tp 2; and the four kernels at the rank's shapes,
+   timed.
    The engines that are checked only and whose kernels other
    engines hold serve shorter request sets (``UNTIMED_REQUESTS``,
    ``TOPPINGS_REQUESTS``, ``GPT_OSS_W4_REQUESTS``, ``GEMMA3_REQUESTS``;
@@ -317,8 +334,9 @@ Phases, in order; any failure exits non-zero before the last line:
    must launch the wgmma kernel (``w4a8_matmul``, split steps) and never
    the ``mma.sync`` one, then at a group of 24, which must launch
    ``w4a8_matmul_mma``, counted the same way.
-6. one JSON line with every kernel's numbers, one with the engines', one
-   with the serving, grammar and custom-processor phases', the
+6. one JSON line with every kernel's numbers (the tensor-parallel rows with
+   each rank's launches), one with the engines', one with the serving,
+   grammar, custom-processor, spec, memory and tensor-parallel phases', the
    ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -361,22 +379,29 @@ ATOL, RTOL = 1e-4, 2.0**-8
 # without the V scale, or an extend kernel that scales V by the K scale,
 # gives worst readings of 0.515 to 0.796 in both, and fp8 decode without
 # the sign bit 1.526 (PERF.md, Findings). The 3B engine with bf16 KV is not
-# compared. GPT-OSS-20B (24 MoE layers, held at the kernel path's routing,
-# see SameRouting) reads 3.036e-2 (3.719e-2 with an earlier loop over its
-# experts). Its witness (phase_engine's ``witness``) shows why: the first
-# layer's attention outputs differ from the plain path's at 0.1 % to 0.2 %
-# of their elements, by one bf16 ulp, and the gap grows steadily over the
-# 24 layers; the plain path with one-ulp noise at that share reads 3.378e-2
-# against itself. No kernel comes closer than one ulp, so it takes 5e-2,
-# above both readings (PERF.md, Findings).
+# compared. GPT-OSS-20B (held at the kernel path's routing, see
+# SameRouting): its witness (phase_engine's ``witness``) shows the first
+# layer's attention outputs differing from the plain path's at 0.1 % to
+# 0.2 % of their elements, by one bf16 ulp, and the gap growing layer by
+# layer; at its full 24 layers it read 3.036e-2 against 3.378e-2 for the
+# plain path with one-ulp noise at that share, and took 5e-2. At its
+# GPT_OSS_LAYERS (4) it reads 1.897e-2 against the control's 2.038e-2, so
+# it takes the bf16 engines' 3e-2 again. The other engines cut in depth
+# take gates near 1.5 to 3 times their cut readings (PERF.md, Findings):
+# DeepSeek-V2-Lite at DEEPSEEK_LAYERS 1.298e-2 (control 1.486e-2), 2e-2;
+# Gemma-2-2B at GEMMA2_LAYERS 4.665e-3, 1e-2; its int8 and fp8 KV engines
+# at GEMMA_KV8_LAYERS 3.205e-3 and 3.895e-3, 1e-2.
 LOGIT_RTOL = {
     "bf16": 3e-2, "w4a8": 1e-1, "w4a16": 3e-2, "3b-w4a8": 1e-1, "1b-fp8kv": 5e-2,
     "1b-toppings": 5e-2, "w4a8-toppings": 1e-1, "mistral-7b": 3e-2, "mistral-7b-pallas": 3e-2,
-    "qwen3-8b": 3e-2, "qwen3-8b-w4a8": 1e-1, "gemma-2-2b": 3e-2, "gemma-3-1b": 3e-2,
-    "gpt-oss-20b": 5e-2, "gpt-oss-w4a8": 1e-1, "gpt-oss-w4a16": 1e-1, "qwen3-30b-a3b": 3e-2,
-    "llama4-scout": 3e-2, "apertus-8b": 3e-2, "gemma-2-2b-int8kv": 1e-1, "gemma-2-2b-fp8kv": 1e-1,
-    "deepseek-v2-lite": 3e-2, "qwen2-vl-2b": 3e-2, "gemma-3-4b-mm": 3e-2, "gemma-3-4b-mm-fp8kv": 1e-1,
+    "qwen3-8b": 3e-2, "qwen3-8b-w4a8": 1e-1, "gemma-2-2b": 1e-2, "gemma-3-1b": 3e-2,
+    "gpt-oss-20b": 3e-2, "gpt-oss-w4a8": 1e-1, "gpt-oss-w4a16": 1e-1, "qwen3-30b-a3b": 3e-2,
+    "llama4-scout": 3e-2, "apertus-8b": 3e-2, "gemma-2-2b-int8kv": 1e-2, "gemma-2-2b-fp8kv": 1e-2,
+    "deepseek-v2-lite": 2e-2, "qwen2-vl-2b": 3e-2, "gemma-3-4b-mm": 3e-2, "gemma-3-4b-mm-fp8kv": 1e-1,
     "llava-1.5-7b": 3e-2, "llama-3.1-8b-fp8": 1e-1, "llama-3.2-11b-vision": 3e-2,
+    # tensor parallelism: Llama-3.1-8B at tp 2 against tp 1 on the same
+    # weights (phase_tp), the bf16 engines' and the 8-bit KV engines' gates
+    "llama-3.1-8b-tp2": 3e-2, "llama-3.1-8b-tp2-int8kv": 1e-1,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -388,9 +413,10 @@ LOGIT_RTOL = {
 # int8 KV) takes the toppings engines' 3e-2: its sound kernels flip a row
 # at a gap of 2.128e-2, with max |diff| 5.0e-2 (PERF.md, Findings). The
 # W4 GPT-OSS engines (int8 KV, both routes) take the same 1e-1 and 3e-2;
-# GPT-OSS-20B the 8-bit engines' 2e-2: its kernel path flips rows at plain
-# top-2 gaps of 7.463e-3 to 1.429e-2, and its witness's control (the plain
-# path with one-ulp noise) one at 7.463e-3 (PERF.md, Findings).
+# GPT-OSS-20B the 8-bit engines' 2e-2: at its full 24 layers its kernel
+# path flipped rows at plain top-2 gaps of 7.463e-3 to 1.429e-2, and its
+# witness's control (the plain path with one-ulp noise) one at 7.463e-3
+# (PERF.md, Findings).
 ARGMAX_FLOOR = {
     "bf16": 0.0, "w4a8": 2e-2, "w4a16": 0.0, "3b-w4a8": 2e-2, "1b-fp8kv": 2e-2,
     "1b-toppings": 3e-2, "w4a8-toppings": 3e-2, "mistral-7b": 0.0, "mistral-7b-pallas": 0.0,
@@ -409,6 +435,11 @@ ARGMAX_FLOOR = {
     # does (1.471e-2 at the 1B); the W4A8 int8-KV engine Qwen3-8B W4A8's 3e-2
     # (PERF.md, Findings)
     "1b-ngram": 2e-2, "1b-draft-self": 2e-2, "8b-draft-1b": 2e-2, "8b-eagle": 2e-2, "8b-w4a8-ngram": 3e-2,
+    # tp 2 against tp 1 (phase_tp): two bf16 paths as well, since tp 2 rounds
+    # each rank's partial product of o and down to bf16 where tp 1 rounds
+    # one sum, so they take the spec engines' 2e-2; the int8 pair too, as
+    # the 8-bit KV engines
+    "llama-3.1-8b-tp2": 2e-2, "llama-3.1-8b-tp2-int8kv": 2e-2,
 }
 # A spec engine may excuse as ties at most this many more of its tokens
 # than its plain-decode control excuses of the same requests' tokens (both
@@ -3447,9 +3478,16 @@ GEMMA3_1B = {
 # under the auto rule's 50,000, so it takes int8 KV as auto gives the full
 # depth
 QWEN3_W4A8_LAYERS = 4
-# Gemma-2-2B on int8 KV (rows 1dq, 3dq): 8 of its 26 layers, four local and
-# four global, untimed; the prompts cross the local window's edge (4096)
-GEMMA_KV8_LAYERS = 8
+# Gemma-2-2B on int8 KV (rows 1dq, 3dq): 4 of its 26 layers, two local and
+# two global, untimed; the prompts cross the local window's edge (4096)
+GEMMA_KV8_LAYERS = 4
+# the untimed Gemma-2-2B, GPT-OSS-20B and DeepSeek-V2-Lite engines' depths
+# (three local and three global layers; two and two; the dense layer and
+# three MoE layers), cut with the spec engines' 8B targets (SPEC_8B_LAYERS)
+# to pay for phase_tp's seconds: each ran at full depth until then
+GEMMA2_LAYERS = 6
+GPT_OSS_LAYERS = 4
+DEEPSEEK_LAYERS = 4
 GEMMA_KV8_REQUESTS = [(5, 16), (300, 16), (6000, 16), (4090, 16)]
 # GPT-OSS-20B W4 keeps one local and one global layer of its 24 (host
 # quantization of the experts, about 0.8 G weights a layer)
@@ -3596,7 +3634,7 @@ DEEPSEEK_V2_LITE = {
     "attention_bias": False,
     "model_type": "deepseek_v2",
 }
-DEEPSEEK_KV_BYTES = 31_104
+DEEPSEEK_KV_BYTES_A_LAYER = 1_152  # (kv_lora_rank 512 + qk_rope_head_dim 64) x 2 B
 # the engines that repeat other engines' kernels, cut in depth: Mistral-7B
 # under attention_backend="pallas" and Llama-3.2-3B W4A8 with bf16 KV
 MISTRAL_PALLAS_LAYERS = 8
@@ -5383,6 +5421,9 @@ SPEC_W4A8_REQUESTS = [(6000, 48), (6000, 48), ("rep 160", 48)]
 SPEC_W4A8_WINDOW = 1
 # the W4A8 ngram engine's depth (Llama-3.1-8B, int8 KV)
 SPEC_W4A8_LAYERS = 4
+# the 8B targets of the draft-model and EAGLE engines, cut in depth to pay
+# for phase_tp's seconds (full depth, 32 layers, until then)
+SPEC_8B_LAYERS = 8
 
 
 def spec_prompts(V: int, requests, seed: int = 7) -> list:
@@ -5646,8 +5687,9 @@ def phase_spec(engine, label: str, requests=SPEC_REQUESTS, draft_layers: int = 0
 
 def phase_specs(p1b) -> dict:
     """The spec engines, all bf16 but the last: the 1B on ngram drafts and
-    drafting for itself, Llama-3.1-8B drafted by the 1B and by a seeded
-    EAGLE head (the same 8B weights), and the 8B W4A8 on int8 KV at
+    drafting for itself, Llama-3.1-8B at full width and ``SPEC_8B_LAYERS``
+    layers drafted by the 1B and by a seeded EAGLE head (the same 8B
+    weights), and the 8B W4A8 on int8 KV at
     ``SPEC_W4A8_LAYERS`` layers on ngram drafts (rows 3q and 4). The target
     and the draft pools share the card: the split is logged and each pool
     checked."""
@@ -5663,7 +5705,8 @@ def phase_specs(p1b) -> dict:
     engine.scheduler.draft_runner.model.load_state_dict(p1b)
     out["1b-draft-self"] = phase_spec(engine, "1b-draft-self", draft_layers=16, self_draft=True)
     del engine
-    engine = make_engine(preset="llama-3.1-8b", speculative_algorithm="draft",
+    target_cfg = get_preset("llama-3.1-8b", num_hidden_layers=SPEC_8B_LAYERS)
+    engine = make_engine(model_config=target_cfg, speculative_algorithm="draft",
                          speculative_draft_preset="llama-3.2-1b")
     target, drafter = engine.scheduler.runner, engine.scheduler.draft_runner
     free, total = torch.cuda.mem_get_info()
@@ -5678,7 +5721,7 @@ def phase_specs(p1b) -> dict:
     out["8b-draft-1b"] = phase_spec(engine, "8b-draft-1b", draft_layers=16)
     p8b = engine.scheduler.runner.model.state_dict()
     del engine, target, drafter
-    engine = make_engine(preset="llama-3.1-8b", params=p8b, speculative_algorithm="eagle")
+    engine = make_engine(model_config=target_cfg, params=p8b, speculative_algorithm="eagle")
     del p8b
     out["8b-eagle"] = phase_spec(engine, "8b-eagle", draft_layers=1)
     del engine
@@ -5694,6 +5737,9 @@ def phase_specs(p1b) -> dict:
 
 
 MEM_KV_TOKENS = 8192  # small pools, so that four 3,000-token prompts evict
+# the memory engines' depth: the 1B's first 4 of its 16 layers, cut to pay
+# for phase_tp's seconds (the whole 1B until then)
+MEM_LAYERS = 4
 MEM_HOST_TOKENS = 32768
 MEM_PROMPT = 3000
 
@@ -5707,7 +5753,8 @@ def pool_bytes(runner, pages) -> list:
 
 
 def phase_memory(p1b) -> dict:
-    """The memory extras on Llama-3.2-1B: on bf16 and on int8 pools, pages
+    """The memory extras on Llama-3.2-1B's first ``MEM_LAYERS`` layers (the
+    bf16 engine's weights): on bf16 and on int8 pools, pages
     gathered to the host and scattered back to other page ids come back bit
     for bit, and a prompt served, evicted to the host tier and promoted
     back gives the tokens of a radix hit on the device (the same pages);
@@ -5722,13 +5769,17 @@ def phase_memory(p1b) -> dict:
     from scratchpad_tpu_torch.models.llama import LlamaForCausalLM
     from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 
+    from scratchpad_tpu_torch.config.model_config import get_preset
+
     out = {}
     rng = np.random.default_rng(11)
     sp = SamplingParams(temperature=0.0, max_new_tokens=16, ignore_eos=True)
     first = None
+    cfg = get_preset("llama-3.2-1b", num_hidden_layers=MEM_LAYERS)
+    p1b = {k: t for k, t in p1b.items() if not k.startswith("layers.") or int(k.split(".")[1]) < MEM_LAYERS}
     for kv in ("bfloat16", "int8"):
         engine = make_engine(params=p1b, kv_cache_dtype=kv, max_total_tokens=MEM_KV_TOKENS,
-                             host_kv_cache_tokens=MEM_HOST_TOKENS)
+                             host_kv_cache_tokens=MEM_HOST_TOKENS, model_config=cfg)
         runner = engine.scheduler.runner
         V = runner.model_config.vocab_size
         pa = rng.integers(1, V, MEM_PROMPT).tolist()
@@ -5793,7 +5844,7 @@ def phase_memory(p1b) -> dict:
     spn = SamplingParams(temperature=0.0, max_new_tokens=32, ignore_eos=True)
     res = {}
     for name, kw in (("resident", {}), ("offload", dict(enable_param_offload=True, param_offload_groups=2))):
-        engine = make_engine(params=p1b, max_total_tokens=65536, **kw)
+        engine = make_engine(params=p1b, max_total_tokens=65536, model_config=cfg, **kw)
         runner = engine.scheduler.runner
         logits = [batch_logits(runner, [p], [1]) for p in prompts[:2]]
         engine.generate(input_ids=prompts, sampling_params=spn)  # warm
@@ -5823,6 +5874,321 @@ def phase_memory(p1b) -> dict:
     out["offload"]["logit_rel"] = rel
     out["offload"]["logits_equal"] = equal
     return out
+
+
+# ------------------------------------------------------- tensor parallel
+
+
+TP_SIZE = 2
+TP_PRESET = "llama-3.1-8b"
+# the greedy requests of the tp 1 reference and the tp 2 engine, and a
+# sampled one that each serves in the same batch
+TP_REQUESTS = [(5, 16), (37, 16), (300, 16), (600, 16)]
+TP_SAMPLED = dict(temperature=0.8, top_p=0.9, max_new_tokens=16, ignore_eos=True)
+TP_KV_TOKENS = 65536  # every engine's pool, explicit: two ranks share the card
+TP_STEP = (64, 512, 2)  # the timed decode window: rows, cached tokens, steps
+# rows 1, 3, 1q and 3q at a tp 2 rank's heads of Llama-3.1-8B (Hkv 4, G 4, D 128)
+TP_HEADS = (4, 4, 128)
+DECODE_TP = "paged_decode_attention (tp 2 rank: Hkv 4)"
+EXTEND_TP = "paged_extend_attention (tp 2 rank: Hkv 4)"
+TP_EXTEND_CASES = [([(1000, 1000), (512, 2560), (7, 1031), (1, 300)], 2048)]
+
+
+def check_tp_heads(errs: dict) -> None:
+    """Rows 1, 3, 1q and 3q at a tp 2 rank's heads of Llama-3.1-8B (Hkv 4,
+    G 4, D 128; ``TP_HEADS``) over bf16 and int8 pages: decode at B 1, 2 and
+    64 and contexts of 1, 17 and 4096 tokens, padding rows (exact zeros) and
+    rows a token before, on and after a boundary of the plan's splits (a
+    second call bit-equal where the plan splits); extend on mixed chunks
+    with padding. The bf16 rows' errors go to ``errs`` (their kernel
+    entries); the int8 rows' are logged and gated alike."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.attention import (
+        paged_decode_attention_plain,
+        paged_extend_attention_plain,
+    )
+    from scratchpad_tpu_torch.ops.attention.gqa_decode import decode_plan
+
+    Hkv, G, D = TP_HEADS
+    scale = 1.0 / math.sqrt(D)
+    seed = 5000
+    for kind in ("bf16", "int8"):
+        cases = [(B, ctx) for B in DECODE_CHECK_B for ctx in (1, 17, 4096)] + ["padding", "split edges"]
+        for case in cases:
+            seed += 1
+            gen = seeded(seed)
+            if case == "padding":
+                lens = torch.tensor([300, 0, 17, 0], dtype=torch.int32, device="cuda")
+            elif case == "split edges":
+                lens = torch.tensor(split_edge_lens(4096, Hkv, D, G), dtype=torch.int32, device="cuda")
+            else:
+                lens = decode_lens(case, gen, D, G)
+            k, v, pt = make_pool(lens.tolist(), Hkv, D, 16, 1, gen)
+            k, v, ks, vs = quant_pages(k[0], v[0], kind)
+            q = torch.randn(len(lens), Hkv * G, D, generator=gen, device="cuda").to(torch.bfloat16)
+            out = decode_kernel(q, k, v, ks, vs, pt, lens, scale)
+            ref = paged_decode_attention_plain(q.float(), k, v, pt, lens, scale, ks, vs)
+            plan = decode_plan(len(lens), Hkv, pt.shape[1], D, G)
+            same = plan.splits == 1 or torch.equal(out, decode_kernel(q, k, v, ks, vs, pt, lens, scale))
+            torch.cuda.synchronize()
+            e, ratio = max_err(out, ref)
+            zero = bool((out[lens == 0] == 0).all())
+            name = DECODE_TP if kind == "bf16" else "paged_decode_attention_quant (tp 2 rank)"
+            errs[name] = max(errs.get(name, 0.0), e)
+            what = case if isinstance(case, str) else f"B={case[0]} ctx={case[1]}"
+            log(f"[check] {name} {what}: max_abs_err {e:.3e}, max err/tol {ratio:.3f}, zero rows exact: "
+                f"{zero}" + (f"; {plan.splits} splits, second call bit-equal: {same}" if plan.splits > 1 else ""))
+            check(ratio <= 1 and zero and same, f"{name} disagrees with its plain version at {what}")
+        for chunks, T_pad in TP_EXTEND_CASES:
+            seed += 1
+            q, k, v, pt, kv_lens, cu = extend_case(chunks, D, T_pad, seed, G, Hkv)
+            k, v, ks, vs = quant_pages(k, v, kind)
+            out = extend_kernel(q, k, v, ks, vs, pt, kv_lens, cu, scale)
+            ref = paged_extend_attention_plain(q.float(), k, v, pt, kv_lens, cu, scale, ks, vs)
+            torch.cuda.synchronize()
+            e, ratio = max_err(out, ref)
+            zero = bool((out[int(cu[-1]):] == 0).all())
+            name = EXTEND_TP if kind == "bf16" else "paged_extend_attention_quant (tp 2 rank)"
+            errs[name] = max(errs.get(name, 0.0), e)
+            log(f"[check] {name} chunks={chunks} T={q.shape[0]}: max_abs_err {e:.3e}, max err/tol "
+                f"{ratio:.3f}, padded tokens zero: {zero}")
+            check(ratio <= 1 and zero, f"{name} disagrees with its plain version at chunks={chunks}")
+
+
+def tp_step_times(engine, label: str) -> dict:
+    """One decode window of ``TP_STEP`` (rows, cached tokens, steps) through
+    ``run_decode_window`` (relayed to every rank at tp 2), on pages borrowed
+    from the idle pool: the wall a step (one window after one to warm up,
+    from its call to its ids on the host), and rank 0's
+    device busy time a step from a ``torch.profiler`` trace of one more
+    window (this process's kernels only; a follower's run beside them). At
+    tp 2 on one card each step's 66 collectives go through host memory, so
+    the window is short."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+    from scratchpad_tpu_torch.executor.model_runner import WorkerBatch
+    from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
+    from scratchpad_tpu_torch.tools import analyze_trace
+
+    runner = engine.scheduler.runner
+    B, ctx, K = TP_STEP
+    ps, V = runner.page_size, runner.model_config.vocab_size
+    pages = [runner.page_allocator.alloc(-(-(ctx + K) // ps)) for _ in range(B)]
+    if any(p is None for p in pages):
+        fail(f"{label}: no free pages for the timed decode window")
+    try:
+        pt = np.stack(pages).astype(np.int32)
+        wb = WorkerBatch(
+            mode=ForwardMode.DECODE, tokens=np.random.default_rng(3).integers(1, V, B),
+            positions=np.full(B, ctx), out_cache_loc=pt[:, ctx // ps] * ps + ctx % ps,
+            req_indices=np.arange(B), page_table=pt, seq_lens=np.full(B, ctx + 1),
+            extend_lens=np.ones(B, np.int64), sampling_info=SamplingBatchInfo.from_reqs([], B, V),
+        )
+        runner.run_decode_window(wb, K)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runner.run_decode_window(wb, K)
+        wall_ms = (time.perf_counter() - t) * 1e3 / K
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            runner.run_decode_window(wb, K)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = Path(d) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            busy = analyze_trace.rollup(analyze_trace.load_events(path))["busy_us"]
+    finally:
+        for p in pages:
+            if p is not None:
+                runner.page_allocator.free(p)
+    return dict(wall_ms=wall_ms, device_ms=busy / 1e3 / K if busy > 0 else None)
+
+
+def tp_reference(kv: str, prompts, sps, timed: bool) -> dict:
+    """The tp 1 engine of ``TP_PRESET`` at full width and depth (bf16
+    weights, seed 0) on ``kv`` pages: its ids of ``prompts`` (the greedy
+    ones first, then the sampled one, in one batch), the logits of the
+    prompts' extend as one batch, as ``Engine.generate`` runs it, and of the
+    decode step after it (``batch_logits``), each output teacher-forced
+    through one extend (``teacher_forced``), and with ``timed`` the decode
+    step's times; then it is freed."""
+    engine = make_engine(preset=TP_PRESET, kv_cache_dtype=kv, max_total_tokens=TP_KV_TOKENS)
+    runner = engine.scheduler.runner
+    outs = engine.generate(input_ids=prompts, sampling_params=sps)[: len(TP_REQUESTS)]
+    greedy = prompts[: len(TP_REQUESTS)]
+    ref = dict(
+        ids=[o.output_ids for o in outs],
+        logits=[t.float().cpu() for t in batch_logits(runner, greedy, [o.output_ids[0] for o in outs])],
+        forced=[teacher_forced(runner, p + o.output_ids) for p, o in zip(greedy, outs)],
+        param_bytes=runner.param_bytes, kv_tokens=runner.max_total_num_tokens,
+        step=tp_step_times(engine, "tp 1") if timed else None,
+    )
+    del engine, runner
+    return ref
+
+
+def phase_tp(errs: dict, engines: dict) -> dict:
+    """Tensor parallelism on the one card: ``TP_PRESET`` at full width and
+    depth, bf16 weights, at tp 2 (two ranks on cuda:0, gloo: NCCL takes one
+    rank a GPU) against the tp 1 engine on the same weights (seed 0; each
+    rank draws the tp 1 tensors and keeps its shard), on bf16 and on int8
+    pages (the tp 1 engine freed before the ranks start). Each tp 2 engine
+    serves ``TP_REQUESTS`` greedy and one sampled request through
+    ``Engine.generate`` with every rank's counts set to 0 just before and
+    read just after (each follower reports its own). Checks: every request
+    finishes; the greedy ids equal the tp 1 engine's until a position
+    where the tp 1 engine's teacher-forced top-2 gap is a tie
+    (``bf16_tie`` at ``ARGMAX_FLOOR``; on int8 pages, where each engine
+    quantizes its own K/V rows, the parting is logged with its gap and not
+    gated: the int8 engines are held to their logits gate); on every rank
+    32 launches of the
+    pool's decode kernel (row 1, 1q) in each decode forward and 32 of its
+    extend kernel (row 3, 3q) in each extend forward, none of the other
+    kind, over 4 kv heads; 2 collectives a layer plus the embedding's and
+    the head's in each forward; every rank's digest of its sampled ids
+    and logprobs bit-equal to the leader's, and of its ``forward_logits``
+    results (the gathered logits) too; the first-token and next-step
+    logits within ``LOGIT_RTOL`` of the tp 1 engine's max |logit|, the
+    argmax the same but at a tie. Then the decode step's wall and device
+    time at tp 1 and tp 2 on one ``[tp]`` line with the card's name and
+    power limit, and rows 1 and 3 at the rank's shapes, timed."""
+    import numpy as np
+    import torch
+
+    from scratchpad_tpu_torch.config.model_config import get_preset
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+
+    t0 = time.monotonic()
+    cfg = get_preset(TP_PRESET)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    prompts = spec_prompts(V, TP_REQUESTS, seed=11)
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=m, ignore_eos=True) for _, m in TP_REQUESTS]
+    # the sampled request rides in the same batch
+    served, served_sps = prompts + spec_prompts(V, [(200, 0)], seed=12), sps + [SamplingParams(**TP_SAMPLED)]
+    result = {}
+    for kv, pages, label in (("bfloat16", "bf16", "llama-3.1-8b-tp2"), ("int8", "int8", "llama-3.1-8b-tp2-int8kv")):
+        floor, tol = ARGMAX_FLOOR[label], LOGIT_RTOL[label]
+        ref = tp_reference(kv, served, served_sps, timed=pages == "bf16")
+        t = time.monotonic()
+        engine = make_engine(preset=TP_PRESET, kv_cache_dtype=kv, max_total_tokens=TP_KV_TOKENS, tp_size=TP_SIZE)
+        try:
+            start_s = time.monotonic() - t
+            runner = engine.scheduler.runner
+            g = engine.tp_group
+            runner.reset_counts()  # every rank's
+            outs = engine.generate(input_ids=served, sampling_params=served_sps)
+            reports = [runner.tp_report()] + runner.follower_reports()
+            # the greedy ids against tp 1's, until a tie parts them
+            parted = 0
+            for i, (p, o, want) in enumerate(zip(prompts, outs, ref["ids"])):
+                j = next((j for j, (a, b) in enumerate(zip(o.output_ids, want)) if a != b), None)
+                if j is not None:
+                    tf, row = ref["forced"][i], len(p) - 1 + j
+                    tie = bf16_tie(tf, row, floor)
+                    parted += 1
+                    log(f"[tp {label}] request {i} parts from tp 1 at token {j} ({o.output_ids[j]} against "
+                        f"{want[j]}); tp 1's teacher-forced top-2 gap there {tf['gap'][row] / tf['scale'][row]:.3e} "
+                        f"of max|logit|, a tie at {floor}: {tie}")
+                    if pages == "bf16":
+                        check(tie, f"{label} request {i}: greedy ids part from tp 1 at token {j} outside a tie")
+            for o in outs:
+                check(o.finish_reason == "length" and len(o.output_ids) == o.completion_tokens > 0,
+                      f"{label} request {o.rid}: {o.completion_tokens} tokens, finish {o.finish_reason}")
+            other = "bf16" if pages == "int8" else "int8"
+            for rep in reports:
+                n_ext, n_dec = rep["forwards"]["extend"], rep["forwards"]["decode"]
+                lc = rep["launches"]
+                r = rep["rank"]
+                check(rep["kv_heads"] == cfg.num_kv_heads // TP_SIZE,
+                      f"{label} rank {r}: a pool of {rep['kv_heads']} kv heads")
+                check(lc[DECODE[pages]] == L * n_dec > 0,
+                      f"{label} rank {r}: {DECODE[pages]} launched {lc[DECODE[pages]]} times in {n_dec} decode forwards")
+                check(lc[EXTEND[pages]] == L * n_ext > 0,
+                      f"{label} rank {r}: {EXTEND[pages]} launched {lc[EXTEND[pages]]} times in {n_ext} extend forwards")
+                check(lc[DECODE[other]] == lc[EXTEND[other]] == 0, f"{label} rank {r}: {other} kernels launched")
+                check(rep["collectives"] == (2 * L + 2) * (n_ext + n_dec),
+                      f"{label} rank {r}: {rep['collectives']} collectives in {n_ext + n_dec} forwards")
+                for key in ("forwards", "token_digest", "tokens_sampled"):
+                    check(rep[key] == reports[0][key], f"{label} rank {r}: {key} {rep[key]} against the leader's "
+                                                        f"{reports[0][key]}")
+            # the logits against tp 1's, on the same inputs
+            worst, flips = 0.0, 0
+            got = batch_logits(runner, prompts, [o[0] for o in ref["ids"]])
+            for i in range(len(prompts)):
+                for step in (0, 1):
+                    a, b = got[step][i].float().cpu(), ref["logits"][step][i]
+                    check(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
+                    scale = float(b.abs().max())
+                    rel = float((a - b).abs().max()) / scale
+                    worst = max(worst, rel)
+                    top2 = torch.topk(b, 2).values
+                    gap = float(top2[0] - top2[1])
+                    tie = gap <= max(math.ldexp(1.0, math.frexp(abs(float(top2[0])))[1] - 8), floor * scale)
+                    if a.argmax() != b.argmax():
+                        flips += 1
+                        log(f"[tp {label}] request {i} step {step}: argmax {int(a.argmax())} (tp 2) against "
+                            f"{int(b.argmax())} (tp 1), tp 1's top-2 gap {gap / scale:.3e} of max|logit|, tie {tie}")
+                        check(tie, f"{label} request {i} step {step}: argmax differs from tp 1 outside a tie")
+                    check(rel <= tol, f"{label}: logits differ from tp 1 by {rel:.3e} of max|logit| (tol {tol})")
+            digests = [runner.tp_report()] + runner.follower_reports()
+            check(len({d["logits_digest"] for d in digests}) == 1,
+                  f"{label}: the ranks' gathered logits differ: {[d['logits_digest'] for d in digests]}")
+            step = tp_step_times(engine, label) if pages == "bf16" else None
+        finally:
+            engine.shutdown()
+            del engine
+        n_fwd = sum(reports[0]["forwards"].values())
+        counts = {k: sum(rep["launches"][k] for rep in reports) for k in reports[0]["launches"]}
+        engines[label] = dict(
+            counts=counts, steps={DECODE[pages]: TP_SIZE * reports[0]["forwards"]["decode"],
+                                  EXTEND[pages]: TP_SIZE * reports[0]["forwards"]["extend"]},
+            launches_by_rank={k: [rep["launches"][k] for rep in reports] for k in counts},
+            preset=TP_PRESET, weights="bf16", kv_cache_dtype=kv, attention_backend="auto",
+            worst_logit_rel=worst, tp_size=TP_SIZE,
+        )
+        log(
+            f"[tp {label}] backend {g.backend}, devices {[rep['device'] for rep in reports]}, started in "
+            f"{start_s:.1f} s; parameters a rank {[round(rep['param_bytes'] / 2**30, 3) for rep in reports]} "
+            f"GiB against {ref['param_bytes'] / 2**30:.3f} GiB at tp 1; KV tokens a rank "
+            f"{[rep['kv_tokens'] for rep in reports]} ({ref['kv_tokens']} at tp 1); forwards "
+            f"{reports[0]['forwards']}, collectives a forward {reports[0]['collectives'] / max(n_fwd, 1):.1f} "
+            f"(2 x {L} layers + 2); launches by rank "
+            f"{ {k: v for k, v in engines[label]['launches_by_rank'].items() if any(v)} }; "
+            f"{reports[0]['tokens_sampled']} sampled ids and logprobs bit-equal on every rank; logits "
+            f"against tp 1: worst max|diff| {worst:.3e} of max|logit| (tol {tol}), argmax differs on {flips} "
+            f"of {2 * len(prompts)} rows; greedy ids part from tp 1 in {parted} of {len(prompts)} requests; "
+            f"follower packages: jax {'jax' in reports[-1]['packages']}, scratchpad_tpu "
+            f"{'scratchpad_tpu' in reports[-1]['packages']}"
+        )
+        result[label] = dict(worst_logit_rel=worst, flips=flips, parted=parted, start_s=start_s,
+                             param_gib=[rep["param_bytes"] / 2**30 for rep in reports],
+                             kv_tokens=[rep["kv_tokens"] for rep in reports])
+        if step is not None:
+            result["step"] = {"tp1": ref["step"], "tp2": step}
+    timing = {}
+    if not FAILURES:  # rows 1 and 3 at the rank's shapes
+        Hkv, G, D = TP_HEADS
+        timing[DECODE_TP] = [time_decode(64, 4096, D=D, G=G, Hkv=Hkv)]
+        timing[EXTEND_TP] = [time_extend([(128, 128)] * 64, D=D, G=G, Hkv=Hkv)]
+        for name, rows in timing.items():
+            r = rows[0]
+            log(f"[time] {name} {r['shape']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"plain {r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.4f} ms")
+    s = result.get("step", {})
+    fmt = lambda d, k: "not measured" if not d or d.get(k) is None else f"{d[k]:.3f} ms"
+    log(
+        f"[tp] {TP_PRESET} tp {TP_SIZE} on one card, {card_line()}: decode step at {TP_STEP[0]} rows x "
+        f"{TP_STEP[1]} cached tokens, wall {fmt(s.get('tp1'), 'wall_ms')} at tp 1 and "
+        f"{fmt(s.get('tp2'), 'wall_ms')} at tp 2; rank 0's device busy {fmt(s.get('tp1'), 'device_ms')} "
+        f"at tp 1 and {fmt(s.get('tp2'), 'device_ms')} at tp 2; phase {time.monotonic() - t0:.1f} s"
+    )
+    result["seconds"] = time.monotonic() - t0
+    return result, timing
 
 
 KERNELS = {
@@ -5982,6 +6348,20 @@ KERNELS = {
         "via _ragged_call; on 8-bit pages with image spans the JAX package extends in XLA, "
         "xla_backend.py:484-507)",
     ),
+    # rows 1 and 3 on a tensor-parallel rank's heads (Llama-3.1-8B at tp 2:
+    # Hkv 4, G 4, D 128), launched by both ranks (phase_tp)
+    DECODE_TP: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/gqa_decode.py:92 (_gqa_decode_kernel) and :446 "
+        "(_gqa_decode_grouped_kernel), on each rank's heads through make_decode_attention_gqa_tp :1114",
+    ),
+    EXTEND_TP: dict(
+        route="cuda",
+        source="scratchpad_tpu_torch/csrc/paged_extend_attention.cu",
+        replaces="scratchpad_tpu/ops/attention/ragged_backend.py:90 (bundled ragged_paged_attention "
+        "via _ragged_call), on each rank's heads through make_attention_ragged_tp :513",
+    ),
 }
 # the wrapper whose launch count a kernel entry reports, where it is not the
 # entry's own name, and the group size whose launches it counts, where it
@@ -5994,6 +6374,7 @@ KERNEL_WRAPPER = {
     DECODE_CHUNK: "paged_decode_attention", EXTEND_CHUNK: "paged_extend_attention",
     W4A8_G120: "w4a8_matmul", W4A16_G120: "w4a16_matmul",
     DECODE_256_8BIT: "paged_decode_attention_quant", EXTEND_256_8BIT: "paged_extend_attention_quant",
+    DECODE_TP: "paged_decode_attention", EXTEND_TP: "paged_extend_attention",
 }
 # the engine run whose launches each kernel's entry reports
 KERNEL_ENGINE = {
@@ -6007,6 +6388,7 @@ KERNEL_ENGINE = {
     W4A8_G120: "gpt-oss-w4a8", W4A16_G120: "gpt-oss-w4a16",
     DECODE_256_8BIT: "gemma-2-2b-int8kv", EXTEND_256_8BIT: "gemma-2-2b-int8kv",
     EXTEND_SPANS: "gemma-3-4b-mm", EXTEND_SPANS_8BIT: "gemma-3-4b-mm-fp8kv",
+    DECODE_TP: "llama-3.1-8b-tp2", EXTEND_TP: "llama-3.1-8b-tp2",
 }
 
 
@@ -6033,7 +6415,7 @@ def main() -> None:
     errs = {k: 0.0 for k in KERNELS}
     for fn in (check_decode, check_extend, check_window_decode, check_window_extend, check_pallas_decode,
                check_decode_256, check_extend_256, check_decode_256_8bit, check_extend_256_8bit,
-               check_sinks, check_chunks, check_spans):
+               check_sinks, check_chunks, check_spans, check_tp_heads):
         timed(fn, errs)
     timed(check_window_sequence_256)
     timed(check_kv_quantizer)
@@ -6093,6 +6475,8 @@ def main() -> None:
     specs = timed(phase_specs, p1b)
     memory = timed(phase_memory, p1b)
     del p1b
+    # tensor parallelism: Llama-3.1-8B at tp 2, two ranks on the one card
+    tp, tp_timing = timed(phase_tp, errs, engines)
     engine = make_engine("w4a8")
     serve(engine, "w4a8", w4a8)
     # W4A16 on the same engine and codes: every QuantLinear takes the A16 route
@@ -6164,9 +6548,10 @@ def main() -> None:
                          model_config=get_preset("qwen3-8b", num_hidden_layers=QWEN3_W4A8_LAYERS))
     serve(engine, "qwen3-8b-w4a8", w4a8, timed=False, requests=UNTIMED_REQUESTS)
     del engine
-    # Gemma-2-2B at full width and depth, bf16: head_dim 256, local layers
-    # (window 4096) and global ones in turn, attention cap 50, final cap 30
-    engine = make_engine(preset="gemma-2-2b")
+    # Gemma-2-2B at full width and GEMMA2_LAYERS layers, bf16: head_dim 256,
+    # local layers (window 4096) and global ones in turn, attention cap 50,
+    # final cap 30
+    engine = make_engine(model_config=get_preset("gemma-2-2b", num_hidden_layers=GEMMA2_LAYERS))
     serve(engine, "gemma-2-2b", requests=WINDOW_REQUESTS, timed=False)
     del engine
     # Gemma-2-2B on int8 KV (rows 1dq and 3dq on a served path), GEMMA_KV8_LAYERS
@@ -6186,10 +6571,10 @@ def main() -> None:
         dict(GEMMA3_1B, num_hidden_layers=GEMMA3_LAYERS)))
     serve(engine, "gemma-3-1b", requests=GEMMA3_REQUESTS, timed=False, shared_len=GEMMA3_SHARED)
     del engine
-    # GPT-OSS-20B at full width and depth, bf16 (41.8 GB): sinks through both
-    # attention kernels, a window of 128 on alternate layers, 32 experts
+    # GPT-OSS-20B at full width and GPT_OSS_LAYERS layers, bf16: sinks through
+    # both attention kernels, a window of 128 on alternate layers, 32 experts
     # (top 4) in the masked loop; dropping the sinks must move its logits
-    engine = make_engine(preset="gpt-oss-20b")
+    engine = make_engine(model_config=get_preset("gpt-oss-20b", num_hidden_layers=GPT_OSS_LAYERS))
     serve(engine, "gpt-oss-20b", requests=GPT_OSS_REQUESTS, sink_move=True, witness=True, timed=False)
     del engine
     # W4: kv_cache_dtype auto keeps GPT-OSS-20B's KV in bf16, as the JAX rule
@@ -6224,20 +6609,23 @@ def main() -> None:
     check(chunks == [8192, 8192, 8192, None], f"llama4-scout's layer chunks are {chunks}")
     serve(engine, "llama4-scout", timed=False, requests=LLAMA4_REQUESTS)
     del engine
-    # DeepSeek-V2-Lite (its config.json) at full width and depth, bf16:
+    # DeepSeek-V2-Lite (its config.json) at full width and DEEPSEEK_LAYERS
+    # layers, bf16:
     # multi-head latent attention in torch over the latent pool (one
     # [c_kv | k_rope] row of 576 a token and layer; no attention kernel),
     # YaRN on the rope dims, one dense layer, then 64 routed experts (top 6,
     # softmax greedy) masked and dense beside 2 shared ones; its logits held
     # against HF's expanded form at the kernel path's routing
-    engine = make_engine(model_config=ModelConfig.from_hf_config(DEEPSEEK_V2_LITE))
+    engine = make_engine(model_config=ModelConfig.from_hf_config(
+        dict(DEEPSEEK_V2_LITE, num_hidden_layers=DEEPSEEK_LAYERS)))
     runner = engine.scheduler.runner
     log(
         f"[engine deepseek-v2-lite] latent pool: {runner.max_total_num_tokens} KV tokens of "
         f"{runner.kv_bytes_per_token()} B (layers x (kv_lora_rank + qk_rope_head_dim) x 2)"
     )
-    check(runner.kv_cache.mla and runner.kv_bytes_per_token() == DEEPSEEK_KV_BYTES,
-          f"deepseek-v2-lite: {runner.kv_bytes_per_token()} KV bytes a token, not {DEEPSEEK_KV_BYTES}")
+    kv_bytes = DEEPSEEK_KV_BYTES_A_LAYER * DEEPSEEK_LAYERS
+    check(runner.kv_cache.mla and runner.kv_bytes_per_token() == kv_bytes,
+          f"deepseek-v2-lite: {runner.kv_bytes_per_token()} KV bytes a token, not {kv_bytes}")
     del runner
     serve(engine, "deepseek-v2-lite", timed=False, requests=UNTIMED_REQUESTS, witness=True)
     del engine
@@ -6289,6 +6677,7 @@ def main() -> None:
         fail(f"{len(FAILURES)} correctness checks failed; the first: {FAILURES[0]}")
     log(f"[phase] engines: {time.monotonic() - t_engines:.1f} s")
     timing = timed(phase_timing)
+    timing.update(tp_timing)
     w4_times = timed(phase_w4_timing)
     timing.update({k: [v] for k, v in w4_times["per_forward"].items()})
     g120 = next(r for r in w4_times["rows"] if r["shape"] == "gpt-oss gate_up 2880->5760 g=120 M=64")
@@ -6333,6 +6722,9 @@ def main() -> None:
                 bound_by=main_shape["bound_by"],
                 library_ms=main_shape["library_ms"],
                 shape=main_shape["shape"],
+                # a tensor-parallel engine's kernels: each rank's launches
+                **({"launches_by_rank": eng["launches_by_rank"][KERNEL_WRAPPER.get(kname, kname)]}
+                   if per_forward is not None and "launches_by_rank" in eng else {}),
             )
         )
     log(f"[done] {time.monotonic() - t0:.1f} s")
@@ -6355,7 +6747,7 @@ def main() -> None:
         )
     )
     log(json.dumps({"serve": {k: v for k, v in served.items() if k != "launches"}, "grammar": grammar,
-                    "custom": custom, "spec": specs, "memory": memory}))
+                    "custom": custom, "spec": specs, "memory": memory, "tp": tp}))
     log(smi_line)
     log(
         json.dumps(

@@ -7,7 +7,8 @@ Counterpart of ``scratchpad_tpu/cli/sp.py`` (argparse):
     python -m scratchpad_tpu_torch.cli.sp eval --eval-data rows.jsonl [--base-url URL]
     python -m scratchpad_tpu_torch.cli.sp version
 
-Every ``ServerArgs`` field is a flag (``--page-size 4``, ``--no-enable-metrics``);
+Every ``ServerArgs`` field is a flag (``--page-size 4``, ``--no-enable-metrics``;
+``--tp-size 2`` serves on two tensor-parallel processes);
 ``--device`` defaults to ``cuda`` and raises where no card exists (``--device
 cpu`` runs the plain PyTorch path). There is no ``benchmark`` subcommand: the
 port's benchmark comes with ``bench_gpu.py`` (ROADMAP Queue 1, item 1).

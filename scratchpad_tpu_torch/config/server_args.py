@@ -72,13 +72,19 @@ class ServerArgs:
     # many tokens and come back on a later prefix hit (0 = off)
     host_kv_cache_tokens: int = 0
 
-    # parallelism: not ported yet, refused above 1 (the port serves on one
-    # device)
+    # parallelism: tensor parallelism, one process a rank (parallel/,
+    # parallel/multihost.py: rank 0 leads, the others replay its runner
+    # commands) for the Llama family; the other sizes are refused above 1
     tp_size: int = 1
     dp_size: int = 1
     pp_size: int = 1
     sp_size: int = 1
     num_nodes: int = 1
+    # the ranks' rendezvous (host:port of torch.distributed's store) and the
+    # leader's control plane (host:port); None: free local ports, the
+    # control plane's at dist_init_addr's port + 1 where only that is given
+    dist_init_addr: Optional[str] = None
+    control_plane_addr: Optional[str] = None
     # decode batch-size buckets: decode batches are padded up to the next
     # one, the shapes CUDA graphs will be captured at (later work)
     decode_bs_buckets: Optional[list[int]] = None
@@ -191,6 +197,10 @@ class ServerArgs:
         if not (self.device == "cpu" or self.device.split(":")[0] == "cuda"):
             raise ValueError(f"device must be cuda, cuda:N or cpu; got {self.device!r}")
         self._refuse_unported()
+        if self.tp_size < 1:
+            raise ValueError(f"tp_size must be >= 1; got {self.tp_size}")
+        if self.tp_size > 1:
+            self._resolve_tp()
         if self.attention_backend == "pallas" and self.kv_cache_dtype in ("int8", "fp8"):
             raise ValueError(
                 f"attention_backend='pallas' decodes bf16 pages only, not "
@@ -211,15 +221,44 @@ class ServerArgs:
             ] or [1]
         return self
 
+    def _resolve_tp(self) -> None:
+        """Tensor parallelism's rendezvous addresses (JAX
+        ``server_args.py:244-250``, free local ports by default), and the
+        options it does not serve yet, each refused with its ROADMAP item
+        (Queue 1, item 10)."""
+        from scratchpad_tpu_torch.parallel import free_port
+
+        if self.dist_init_addr is None:
+            self.dist_init_addr = f"127.0.0.1:{free_port()}"
+            if self.control_plane_addr is None:
+                self.control_plane_addr = f"127.0.0.1:{free_port()}"
+        if self.control_plane_addr is None:
+            host, port = self.dist_init_addr.rsplit(":", 1)
+            self.control_plane_addr = f"{host}:{int(port) + 1}"
+        refused = {
+            "quantization": (self.quantization is not None, "(b), quantized weights"),
+            "speculative_algorithm": (self.speculative_algorithm is not None, "(c), speculation"),
+            "host_kv_cache_tokens": (self.host_kv_cache_tokens > 0, "(c), the host KV tier"),
+            "enable_param_offload": (self.enable_param_offload, "(c), parameter offload"),
+            "enable_custom_logit_processor": (
+                self.enable_custom_logit_processor, "(c), custom logit processors"),
+            "attention_backend='pallas'": (
+                self.attention_backend == "pallas",
+                "(a); the JAX runner has no tensor-parallel pallas decode and falls back to XLA",
+            ),
+        }
+        for name, (bad, item) in refused.items():
+            if bad:
+                raise NotImplementedError(
+                    f"{name} under tp_size={self.tp_size} is not ported yet (ROADMAP Queue 1, item 10{item})"
+                )
+
     def _refuse_unported(self) -> None:
         """Options whose code paths the port does not have yet."""
         unported = {
             "quantization": self.quantization not in QUANTIZATIONS,
             "kv_cache_dtype": self.kv_cache_dtype not in KV_CACHE_DTYPES,
-            "tp_size/dp_size/pp_size/sp_size": max(
-                self.tp_size, self.dp_size, self.pp_size, self.sp_size
-            )
-            > 1,
+            "dp_size/pp_size/sp_size": max(self.dp_size, self.pp_size, self.sp_size) > 1,
             "num_nodes": self.num_nodes > 1,
             "enable_sp_prefill": self.enable_sp_prefill,
             "enable_pp": self.enable_pp,

@@ -43,7 +43,9 @@ workspace free (``forward_workspace_bytes``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
+import sys
 import time
 from typing import Any, NamedTuple, Optional
 
@@ -52,7 +54,7 @@ import torch
 
 from scratchpad_tpu_torch.config import ModelConfig, ServerArgs
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
-from scratchpad_tpu_torch.executor.weight_loader import load_hf_state, quantized_layer_state
+from scratchpad_tpu_torch.executor.weight_loader import load_hf_state, quantized_layer_state, shard_state
 from scratchpad_tpu_torch.memory import (
     KVCacheConfig,
     PageAllocator,
@@ -63,6 +65,7 @@ from scratchpad_tpu_torch.memory.kv_cache import QUANT_KV_DTYPES
 from scratchpad_tpu_torch.models.registry import get_model_class
 from scratchpad_tpu_torch.ops.attention import attention_functions
 from scratchpad_tpu_torch.ops.quant.import_hf import convert_quantized_layers, split_quant_tensors
+from scratchpad_tpu_torch.parallel import check_tp_model
 from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
 from scratchpad_tpu_torch.sampling.sampler import sample
 from scratchpad_tpu_torch.utils import get_logger
@@ -214,18 +217,23 @@ class ModelRunner:
         with ``random_weights``, draws seeded random weights. ``companion``:
         (parameter bytes, KV bytes a token) of a draft model or EAGLE head
         that will share the card and this pool's token count; the pool is
-        sized so that both fit."""
-        if mesh is not None:
-            raise NotImplementedError("device meshes are not ported yet")
-        self.mesh = None
+        sized so that both fit. ``mesh``: a tensor-parallel rank's group
+        (``parallel.TPGroup``; the JAX runner's mesh), or None. The rank
+        then runs on the group's device, holds its shard of the weights
+        (``params`` is the single-device state, cut by ``shard_state``) and
+        a pool of its Hkv / tp heads, whose page count is the minimum over
+        the ranks, since the leader's page tables index every rank's pool."""
+        self.mesh = mesh
         self.model_config = model_config
         self.args = server_args.resolve()
-        self.device = resolve_device(self.args.device)
+        self.device = resolve_device(self.args.device) if mesh is None else mesh.device
         self.dtype = _DTYPES[self.args.dtype]
         self.page_size = self.args.page_size
         cfg = model_config
 
         model_cls = get_model_class(cfg.architecture)
+        if mesh is not None:
+            check_tp_model(cfg, mesh.size)
         self.kv_cache_dtype = resolve_kv_cache_dtype(self.args, cfg, self.device)
         if cfg.is_mla and self.kv_cache_dtype in QUANT_KV_DTYPES:
             raise NotImplementedError(
@@ -249,6 +257,7 @@ class ModelRunner:
             and getattr(model_cls, "supports_quantized_lm_head", True)
             # an EAGLE head shares the target's bf16 head (JAX :579-593)
             and self.args.speculative_algorithm != "eagle",
+            **({} if mesh is None else {"tp": mesh}),
         )
         self.attention_backend = self._set_attention(self.model)
 
@@ -256,7 +265,7 @@ class ModelRunner:
         t0 = time.monotonic()
         self.quantize_seconds = 0.0
         if params is not None:
-            self.model.load_state_dict(params)
+            self.model.load_state_dict(self._shard(params))
         elif quant is None:
             self._fill_dense(self.model)
         else:
@@ -280,10 +289,15 @@ class ModelRunner:
 
             self.param_offload = ParamOffload(self.model, self.args.param_offload_groups)
 
-        # ---- KV pool sizing
+        # ---- KV pool sizing, after every rank has loaded its weights; a
+        # rank's pool takes the fewest tokens of any rank's
         self.max_context_len = server_args.context_length or cfg.context_len
         self.companion = companion
+        if mesh is not None:
+            mesh.barrier("loaded")
         num_tokens = self._profile_kv_tokens()
+        if mesh is not None:
+            num_tokens = mesh.min_int(num_tokens)
         num_pages = num_tokens // self.page_size + 1  # +1 = reserved dump page
         self.kv_config = self._kv_config(num_pages)
         self.kv_cache = create_kv_cache(self.kv_config, self.device)
@@ -306,10 +320,19 @@ class ModelRunner:
             num_pages * self.page_size * self.kv_config.bytes_per_token() / 2**30,
             self.max_running_requests,
         )
+        # every tensor-parallel rank draws from a generator seeded alike, so
+        # that a sampled window is the same on every rank
         self._generator = torch.Generator(device=self.device).manual_seed(
             self.args.random_seed + 1
         )
         self.toppings_manager = None
+        # forwards run by mode, and (tensor parallel) digests of every token
+        # and logprob this rank sampled and of every forward_logits result,
+        # for tp_report
+        self.forward_counts = dict.fromkeys(ForwardMode, 0)
+        self._token_digest = hashlib.blake2b(digest_size=16)
+        self._logits_digest = hashlib.blake2b(digest_size=16)
+        self._tokens_sampled = 0
 
     def _set_attention(self, model) -> str:
         """Give the model the attention functions of ``attention_backend``.
@@ -326,7 +349,10 @@ class ModelRunner:
         if mla:  # never the decode and extend kernels
             logger.info("attention backend %s: multi-head latent attention (mla_backend)", backend)
             return backend
-        model.decode_attention, model.extend_attention = attention_functions(backend)
+        cfg = model.cfg  # a tensor-parallel rank's model holds its group
+        model.decode_attention, model.extend_attention = attention_functions(
+            backend, getattr(model, "tp", None), (cfg.num_attention_heads, cfg.num_kv_heads)
+        )
         logger.info(
             "attention backend %s: decode %s, extend %s", backend,
             model.decode_attention.__name__, model.extend_attention.__name__,
@@ -349,7 +375,12 @@ class ModelRunner:
             model.init_random_(gen)
         else:
             state = load_hf_state(cfg.model_path)
-            model.load_state_dict(model.convert_hf_state(state, self.dtype))
+            model.load_state_dict(self._shard(model.convert_hf_state(state, self.dtype)))
+
+    def _shard(self, state: dict) -> dict:
+        """A single-device ``state_dict`` as this rank's shards (as it is at
+        tp 1)."""
+        return state if self.mesh is None else shard_state(state, self.mesh.rank, self.mesh.size)
 
     def _load_quantized(self, model_cls) -> None:
         """Quantize at load, as the JAX runner does (``model_runner.py:495-610``):
@@ -415,6 +446,8 @@ class ModelRunner:
             budget = kv_budget_bytes(
                 free, total, self.args.mem_fraction_static, self.forward_workspace_bytes()
             ) - companion_params
+            if self.mesh is not None:  # the ranks on this card share its budget
+                budget //= self.mesh.ranks_on_device
             tokens = int(max(budget // (self.kv_bytes_per_token() + companion_bpt), 4096))
             if companion_params:
                 logger.info(
@@ -444,7 +477,7 @@ class ModelRunner:
             num_layers=getattr(self.model, "num_kv_layers", cfg.num_hidden_layers),
             num_pages=num_pages,
             page_size=self.page_size,
-            num_kv_heads=cfg.num_kv_heads,
+            num_kv_heads=cfg.num_kv_heads // (1 if self.mesh is None else self.mesh.size),
             head_dim=cfg.head_dim,
             dtype=self.dtype if quant_kv else _DTYPES[self.kv_cache_dtype],
             quantized=quant_kv is not None,
@@ -537,6 +570,7 @@ class ModelRunner:
         if pending.done is not None:
             pending.done.synchronize()
         host = pending.host.numpy()
+        self._record(host)
         B_real = pending.rows
         return host[0][:, :B_real], host[1].view(np.float32)[:, :B_real], None
 
@@ -668,6 +702,7 @@ class ModelRunner:
     def _forward(self, meta: ForwardMeta) -> torch.Tensor:
         """The model's forward over the pool: its layers streamed from the
         host a group at a time under parameter offload."""
+        self.forward_counts[meta.mode] += 1
         if self.param_offload is not None:
             return self.param_offload.forward(meta, self.kv_cache)
         return self.model(meta, self.kv_cache)
@@ -856,7 +891,10 @@ class ModelRunner:
         from (its new K/V is written to the pool as in a real step)."""
         with torch.inference_mode():
             meta, _, _ = self._pad_to_buckets(wb)
-            return self._forward(meta)[: len(wb.seq_lens)]
+            logits = self._forward(meta)[: len(wb.seq_lens)]
+        if self.mesh is not None:
+            self._logits_digest.update(logits.cpu().numpy().tobytes())
+        return logits
 
     def _sample(self, logits, sinfo, modes, want_tops: bool):
         if not want_tops:
@@ -869,13 +907,54 @@ class ModelRunner:
         topv, topi = torch.topk(logprobs, self.TOP_LOGPROBS_K, dim=-1)
         return ids, chosen, (topv, topi)
 
-    @staticmethod
-    def _fetch(ids: torch.Tensor, chosen: torch.Tensor):
+    def _fetch(self, ids: torch.Tensor, chosen: torch.Tensor):
         """ONE device-to-host copy of ids [K, B] and their logprobs [K, B]
         (the f32 logprobs ride as their int32 bit patterns)."""
         both = torch.stack([ids.to(torch.int32), chosen.float().view(torch.int32)])
         host = both.cpu().numpy()
+        self._record(host)
         return host[0], host[1].view(np.float32)
+
+    # ------------------------------------------------------ tensor parallel
+
+    def _record(self, host: np.ndarray) -> None:
+        """Fold sampled ids and logprob bits (int32 [2, K, B]) into this
+        rank's digest (tensor parallel only): every rank samples the same."""
+        if self.mesh is not None:
+            self._token_digest.update(np.ascontiguousarray(host).tobytes())
+            self._tokens_sampled += host[0].size
+
+    def reset_counts(self) -> None:
+        """Set this rank's kernel launch counts, forward counts and
+        collective count to 0."""
+        from scratchpad_tpu_torch.ops import reset_launch_counts
+
+        reset_launch_counts()
+        self.forward_counts = dict.fromkeys(self.forward_counts, 0)
+        if self.mesh is not None:
+            self.mesh.collectives = 0
+
+    def tp_report(self) -> dict:
+        """What this rank has done since ``reset_counts``: kernel launches,
+        forwards by mode and collectives; with its placement, parameter
+        bytes, pool, the digests of every token it sampled and of every
+        ``forward_logits`` result, and the top-level packages it has
+        imported."""
+        from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS
+
+        tp = self.mesh
+        return dict(
+            rank=0 if tp is None else tp.rank, device=str(self.device),
+            backend=None if tp is None else tp.backend,
+            param_bytes=self.param_bytes, kv_tokens=self.max_total_num_tokens,
+            kv_heads=self.kv_cache.num_kv_heads,
+            launches={fn.__name__: fn.launches for fn in KERNEL_WRAPPERS},
+            forwards={m.name.lower(): n for m, n in self.forward_counts.items()},
+            collectives=0 if tp is None else tp.collectives,
+            tokens_sampled=self._tokens_sampled, token_digest=self._token_digest.hexdigest(),
+            logits_digest=self._logits_digest.hexdigest(),
+            packages=sorted({m.split(".")[0] for m in sys.modules}),
+        )
 
     # -------------------------------------------------------------- bucketing
 

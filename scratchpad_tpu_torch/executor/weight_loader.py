@@ -8,6 +8,7 @@ this way. Quantized stacks (``layers_q``, ``lm_head_q``) are repacked into
 the port's layout with ``pack_w4``, code for code. ``kv_cache_from_jax`` does
 the same for a KV pool, so that both sides can attend over identical pages,
 and ``toppings_from_jax`` for the adapter pools of a toppings manager.
+``shard_state`` cuts a single-device state into a tensor-parallel rank's.
 """
 
 from __future__ import annotations
@@ -259,6 +260,19 @@ def params_from_jax(
         for part, t in zip("qsz", packed):
             state[f"lm_head_q.{part}"] = t[0]
     return state
+
+
+def shard_state(state: dict[str, torch.Tensor], rank: int, tp: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s shards of a Llama-family ``state_dict`` at tensor
+    parallel size ``tp``: the counterpart of the JAX ``place_params`` with
+    ``LlamaForCausalLM.param_specs`` (``models/llama.py:116-143``), by
+    ``parallel.shard_tensor``: q, k, v, gate, up and the q, k, v biases by
+    output column (whole heads), o and down by input row, the embedding and
+    an untied head by vocabulary row (V padded up to a multiple of ``tp``),
+    the norms replicated."""
+    from scratchpad_tpu_torch.parallel import shard_tensor
+
+    return {name: shard_tensor(name, t, rank, tp) for name, t in state.items()}
 
 
 def eagle_params_from_jax(params_np: dict[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:

@@ -35,6 +35,11 @@ cross_layers, cross_len, 2 Hkv, D]`` in the model dtype (a head's K at row
 2h, its V at 2h + 1, as the JAX pool's), one slot a running request with
 an image and slot 0 unused (JAX ``memory/kv_cache.py:90-95, 318-330``).
 
+A tensor-parallel rank's pool holds its Hkv / tp heads (and their scales):
+the layout is per head already, so the JAX ``scale_shards`` lane blocks
+(``memory/kv_cache.py:133-149``, a workaround for the TPU's lanes) have no
+counterpart; the runner sizes every rank's pool to the same page count.
+
 Writes update the pool in place (``ops/attention/plain_backend.write_kv``):
 PyTorch tensors are mutable, so the port keeps one pool for the engine's
 lifetime instead of threading a new array through every step.

@@ -1,7 +1,8 @@
 """Shared building blocks for the port's models.
 
 Counterpart of ``scratchpad_tpu/models/common.py``: the 4-bit linear layer,
-RMSNorm, SiLU-and-mul, GELU-and-mul and rotary embeddings (half-split and
+the row-parallel sum of tensor parallelism (``row_parallel_sum``), RMSNorm,
+SiLU-and-mul, GELU-and-mul and rotary embeddings (half-split and
 interleaved pairs) and multimodal rope (``apply_mrope``). ``compute_inv_freq``, ``rope_attention_scale`` and
 DeepSeek's YaRN multiplier (``deepseek_yarn_scale``) are host-side numpy,
 copied unchanged so both packages bake identical frequencies
@@ -89,6 +90,13 @@ class QuantLinear(nn.Module):
             y = w4a16_matmul(x, self.q, self.s, self.z, g, n)
         y = y.to(x.dtype)  # the plain versions return f32
         return y if self.bias is None else y + self.bias
+
+
+def row_parallel_sum(y: torch.Tensor, tp=None) -> torch.Tensor:
+    """A row-parallel projection's partial products ``y`` summed over the
+    tensor-parallel group ``tp`` (``parallel.TPGroup``; None at tp 1).
+    Column-parallel projections need no collective."""
+    return y if tp is None else tp.row_sum(y)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:

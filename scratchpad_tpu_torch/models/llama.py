@@ -24,7 +24,10 @@ adapters, each projection's output gains its tokens' own adapters
 apart, the head left). For the vision models built on it (LLaVA,
 Qwen2-VL), ``embed_tokens`` takes the batch's vision features on the rows
 of negative placeholder ids, and ``rope_tables`` ropes by Qwen2-VL's 3-D
-positions (``mrope_comp``) or by positions shifted by ``rope_delta``.
+positions (``mrope_comp``) or by positions shifted by ``rope_delta``. Under tensor parallelism (``tp``) a
+rank's model holds its heads, MLP columns and vocabulary rows, and sums o's
+and down's partial products over the group (``models/common.py::
+row_parallel_sum``).
 """
 
 from __future__ import annotations
@@ -57,9 +60,11 @@ from scratchpad_tpu_torch.models.common import (
     rms_norm,
     rope_attention_scale,
     rope_cos_sin,
+    row_parallel_sum,
     silu_mul,
 )
 from scratchpad_tpu_torch.ops.attention import write_kv
+from scratchpad_tpu_torch.parallel import shard_tensor, vocab_rows
 from scratchpad_tpu_torch.toppings.manager import apply_topping
 
 
@@ -80,12 +85,15 @@ class LlamaDecoderLayer(nn.Module):
     gate and up fused into one ``gate_up`` (gate | up along Out), as the JAX
     package's ``quantize_model_params(fuse_gate_up=True)`` stores them;
     ``fp8``: every projection is an ``Fp8Linear``, gate and up apart, as
-    ``quantize_model_params_fp8`` stores them."""
+    ``quantize_model_params_fp8`` stores them. ``tp_size``: a
+    tensor-parallel rank's layer, over ``Hq / tp_size`` query heads,
+    ``Hkv / tp_size`` kv heads and ``I / tp_size`` MLP columns (bf16
+    weights)."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None):
+    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, tp_size: int = 1):
         super().__init__()
         H, D = cfg.hidden_size, cfg.head_dim
-        Hq, Hkv, I = cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size
+        Hq, Hkv, I = (n // tp_size for n in (cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size))
         b = cfg.attention_bias
         self.input_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.post_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
@@ -125,14 +133,20 @@ def decoder_layers(
     toppings=None,
     first: int = 0,
     last=None,
+    tp=None,
 ) -> torch.Tensor:
     """Llama decoder ``layers`` ``first`` to ``last - 1`` (all by default)
     over the residual stream ``x`` [T, H], with the rope tables ``cos``,
     ``sin`` and the attention function ``attend``; layer l writes and reads
     the pool's layer l. ``toppings`` adds each token's adapter where the
-    batch names any. The target model and the EAGLE head both run it."""
+    batch names any. The target model and the EAGLE head both run it.
+    ``tp``: a tensor-parallel rank's group (``parallel.TPGroup``); the
+    layers then run on the rank's heads and MLP columns, and the outputs of
+    o and down are summed over the group, so that ``x`` stays the same on
+    every rank."""
     T = meta.num_tokens
-    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
+    n = 1 if tp is None else tp.size
+    Hq, Hkv, D = cfg.num_attention_heads // n, cfg.num_kv_heads // n, cfg.head_dim
     eps = cfg.rms_norm_eps
     use_toppings = toppings is not None and meta.active_adapters is not None
     if use_toppings:
@@ -162,7 +176,7 @@ def decoder_layers(
             q, kv, l, meta, sm_scale=sm_scale,
             logit_cap=cfg.attn_logit_softcap, sliding_window=cfg.sliding_window,
         )
-        x = x + lin(layer, "wo", attn.reshape(T, Hq * D), l)
+        x = x + row_parallel_sum(lin(layer, "wo", attn.reshape(T, Hq * D), l), tp)
         h2 = rms_norm(x, layer.post_norm, eps)
         if layer.fused_gate_up:
             # the pools keep gate and up apart: each half gets its own
@@ -170,7 +184,7 @@ def decoder_layers(
             gate, up = topped(gate, h2, "gate", l), topped(up, h2, "up", l)
         else:
             gate, up = lin(layer, "gate", h2, l), lin(layer, "up", h2, l)
-        x = x + lin(layer, "down", silu_mul(gate, up), l)
+        x = x + row_parallel_sum(lin(layer, "down", silu_mul(gate, up), l), tp)
     return x
 
 
@@ -182,13 +196,21 @@ class LlamaForCausalLM(nn.Module):
     a 4-bit copy of the head (``embed.T`` when tied; an untied ``lm_head``
     is then dropped), while ``embed`` stays in the model dtype for lookups.
     The quantized state comes from ``quantize_state`` or from the JAX
-    package's parameters (``weight_loader.params_from_jax``)."""
+    package's parameters (``weight_loader.params_from_jax``).
+
+    ``tp`` (a ``parallel.TPGroup``): a tensor-parallel rank's model, in bf16
+    (or f32) weights. The layers hold the rank's heads and MLP columns
+    (``decoder_layers``), the embedding and an untied head the rank's
+    ``vocab_rows`` rows of the vocabulary padded up to a multiple of the
+    group's size; the lookup sums the ranks' rows (an id outside a rank's
+    range gives it a zero row), and the head's columns are gathered into
+    the whole vocabulary on every rank, the padded ones dropped."""
 
     # the runner may serve it through attention_backend="pallas"
     supports_pallas_attention = True
 
     def __init__(
-        self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False
+        self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False, tp=None
     ):
         super().__init__()
         if cfg.multimodal and not getattr(self, "is_multimodal", False):
@@ -196,8 +218,13 @@ class LlamaForCausalLM(nn.Module):
                 f"{type(self).__name__} is a text model; {cfg.architecture} with a vision "
                 "config needs its multimodal class"
             )
+        if tp is not None and (quantization or quantize_lm_head):
+            raise NotImplementedError("quantized weights under tensor parallelism (ROADMAP Queue 1, item 10(b))")
         self.cfg = cfg
-        H, V = cfg.hidden_size, cfg.vocab_size
+        self.tp = tp
+        self.tp_size = 1 if tp is None else tp.size
+        H = cfg.hidden_size
+        V = vocab_rows(cfg.vocab_size, self.tp_size)  # the rank's vocabulary rows
         self.embed = skip_init(nn.Embedding, V, H, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
             self._make_layer(device, dtype, quantization) for _ in range(cfg.num_hidden_layers)
@@ -230,7 +257,7 @@ class LlamaForCausalLM(nn.Module):
         self.toppings = None  # ToppingsManager.device_pools(), set by the runner
 
     def _make_layer(self, device, dtype, quantization) -> nn.Module:
-        return LlamaDecoderLayer(self.cfg, device, dtype, quantization)
+        return LlamaDecoderLayer(self.cfg, device, dtype, quantization, self.tp_size)
 
     def set_mrope_section(self, section, device) -> None:
         """Rope by 3-D positions on extend rows that carry them (None: none)."""
@@ -246,30 +273,39 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator) -> None:
         """Random weights (benchmarks, tests without checkpoints), the JAX
-        package's scheme: normal / sqrt(fan_in), norms at one, biases zero."""
+        package's scheme: normal / sqrt(fan_in), norms at one, biases zero.
+        A tensor-parallel rank draws each single-device tensor in turn, as
+        tp 1 does, and keeps its shard (``parallel.shard_tensor``): every
+        rank then holds the tp 1 weights, and one whole tensor at most is
+        alive at a time."""
+        cfg = self.cfg
+        rank = 0 if self.tp is None else self.tp.rank
 
-        def fill(w: torch.Tensor, fan_in: int) -> None:
-            r = torch.randn(
-                w.shape, generator=generator, device=w.device, dtype=torch.float32
-            )
-            w.copy_(r / math.sqrt(fan_in))
+        def fill(w: torch.Tensor, name: str, shape: tuple) -> None:
+            # shape: the single-device [out, in] (w's own at tp 1); fan-in: in
+            shape = tuple(w.shape) if self.tp is None else shape
+            r = torch.randn(shape, generator=generator, device=w.device, dtype=torch.float32)
+            w.copy_(shard_tensor(name, r / math.sqrt(shape[-1]), rank, self.tp_size))
 
-        H = self.cfg.hidden_size
-        fill(self.embed.weight, H)
+        H, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+        Hq, Hkv = cfg.num_attention_heads * D, cfg.num_kv_heads * D
+        shapes = {"wq": (Hq, H), "wk": (Hkv, H), "wv": (Hkv, H), "wo": (H, Hq),
+                  "gate": (I, H), "up": (I, H), "down": (H, I)}
+        fill(self.embed.weight, "embed.weight", (cfg.vocab_size, H))
         for layer in self.layers:
             layer.input_norm.fill_(1.0)
             layer.post_norm.fill_(1.0)
-            if self.cfg.use_qk_norm:
+            if cfg.use_qk_norm:
                 layer.q_norm.fill_(1.0)
                 layer.k_norm.fill_(1.0)
-            for lin in (layer.wq, layer.wk, layer.wv, layer.wo,
-                        layer.gate, layer.up, layer.down):
-                fill(lin.weight, lin.in_features)
+            for t, shape in shapes.items():
+                lin = getattr(layer, t)
+                fill(lin.weight, f"layers.0.{t}.weight", shape)
                 if lin.bias is not None:
                     lin.bias.zero_()
         self.final_norm.fill_(1.0)
         if self.lm_head is not None:
-            fill(self.lm_head.weight, H)
+            fill(self.lm_head.weight, "lm_head.weight", (cfg.vocab_size, H))
 
     HF_LAYER_MAP = {
         "self_attn.q_proj.weight": "wq.weight",
@@ -371,9 +407,21 @@ class LlamaForCausalLM(nn.Module):
         placeholders (clamped to 0 for the lookup: ``nn.Embedding`` raises
         on a negative id, where JAX's ``take`` clips it)."""
         if meta.input_embeds is None:
-            return self.embed(meta.tokens)
-        x = self.embed(meta.tokens.clamp_min(0))
+            return self.lookup(meta.tokens)
+        x = self.lookup(meta.tokens.clamp_min(0))
         return torch.where((meta.tokens < 0)[:, None], meta.input_embeds.to(x.dtype), x)
+
+    def lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``ids``; under tensor parallelism each rank
+        looks up the ids in its vocabulary range, zero rows elsewhere, and
+        the ranks' rows are summed: exact, one rank holds each row."""
+        if self.tp is None:
+            return self.embed(ids)
+        rows = self.embed.num_embeddings
+        local = ids - self.tp.rank * rows
+        inside = (local >= 0) & (local < rows)
+        x = self.embed(local.clamp(0, rows - 1))
+        return self.tp.all_reduce(torch.where(inside[:, None], x, torch.zeros_like(x)))
 
     def rope_tables(self, meta: ForwardMeta, inv_freq: torch.Tensor):
         """The forward's cos and sin: by 3-D positions on extend rows of
@@ -405,7 +453,7 @@ class LlamaForCausalLM(nn.Module):
         cos, sin = self.rope_tables(meta, self.inv_freq)
         return decoder_layers(
             self.layers, self.cfg, x, meta, kv, cos, sin, attend, self.sm_scale,
-            toppings=self.toppings, first=first, last=last,
+            toppings=self.toppings, first=first, last=last, tp=self.tp,
         )
 
     def finish(self, x: torch.Tensor, meta: ForwardMeta) -> torch.Tensor:
@@ -428,6 +476,8 @@ class LlamaForCausalLM(nn.Module):
         else:
             head = self.embed.weight if self.lm_head is None else self.lm_head.weight
             logits = (h @ head.T).float()
+            if self.tp is not None:  # the rank's columns -> every column, on every rank
+                logits = self.tp.gather_vocab(logits, self.cfg.vocab_size)
         cap = self.cfg.logit_softcap
         if cap:
             logits = cap * torch.tanh(logits / cap)

@@ -1,6 +1,7 @@
 from scratchpad_tpu_torch.ops.attention.decode_ablate import decode_ablate, decode_ablate_plain
 from scratchpad_tpu_torch.ops.attention.gqa_decode import (
     decode_attention_gqa,
+    make_decode_attention_gqa_tp,
     paged_decode_attention,
     paged_decode_attention_plain,
     paged_decode_attention_quant,
@@ -14,6 +15,7 @@ from scratchpad_tpu_torch.ops.attention.plain_backend import (
 )
 from scratchpad_tpu_torch.ops.attention.ragged_backend import (
     attention_ragged,
+    make_attention_ragged_tp,
     paged_extend_attention,
     paged_extend_attention_plain,
     paged_extend_attention_quant,
@@ -21,16 +23,26 @@ from scratchpad_tpu_torch.ops.attention.ragged_backend import (
 
 
 
-def attention_functions(backend: str):
+def attention_functions(backend: str, tp=None, heads=None):
     """The model's (decode, extend) attention under ``attention_backend``,
     the part of the JAX runner's choice (``model_runner.py:173-466``) that
     the port has: ``auto`` decodes through ``decode_attention_gqa`` and
     ``pallas`` through ``decode_attention_pallas``; both extend through
     ``attention_ragged`` (the JAX package's ``pallas`` extends through its
-    XLA path, which the port keeps off the card)."""
+    XLA path, which the port keeps off the card). On a tensor-parallel rank
+    (``tp``, a ``parallel.TPGroup``, with the model's (Hq, Hkv) ``heads``)
+    ``auto`` takes the rank-local wrappers of the same kernels (JAX
+    :235-273, :418-424); ``pallas`` is refused there, as the JAX runner has
+    no tensor-parallel wrapper for it."""
     decode = {"auto": decode_attention_gqa, "pallas": decode_attention_pallas}.get(backend)
     if decode is None:
         raise NotImplementedError(f"attention_backend={backend!r} is not ported")
+    if tp is not None:
+        if backend != "auto":
+            raise NotImplementedError(
+                f"attention_backend={backend!r} under tensor parallelism (ROADMAP Queue 1, item 10(a))"
+            )
+        return make_decode_attention_gqa_tp(tp, heads), make_attention_ragged_tp(tp, heads)
     return decode, attention_ragged
 
 
@@ -43,6 +55,8 @@ __all__ = [
     "decode_attention_pallas",
     "decode_attention_plain",
     "extend_attention_plain",
+    "make_attention_ragged_tp",
+    "make_decode_attention_gqa_tp",
     "paged_decode_attention",
     "paged_decode_attention_plain",
     "paged_decode_attention_quant",

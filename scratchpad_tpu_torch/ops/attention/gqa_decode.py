@@ -542,3 +542,29 @@ def decode_attention_gqa(
         q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, sm_scale,
         logit_cap, sliding_window, sinks, chunk_size,
     )
+
+
+def check_rank_heads(q: torch.Tensor, kv: KVCache, heads: tuple[int, int], group, what: str) -> None:
+    """A tensor-parallel rank's attention call holds the rank's own heads:
+    ``q`` its Hq / tp query heads and the pool its Hkv / tp kv heads, of the
+    model's (Hq, Hkv) ``heads``."""
+    Hq, Hkv = (h // group.size for h in heads)
+    if q.shape[1] != Hq or kv.num_kv_heads != Hkv:
+        raise ValueError(
+            f"{what} on rank {group.rank} of {group.size}: q holds {q.shape[1]} heads and the pool "
+            f"{kv.num_kv_heads}, not the rank's {Hq} and {Hkv}"
+        )
+
+
+def make_decode_attention_gqa_tp(group, heads: tuple[int, int]):
+    """Decode on a tensor-parallel rank, the counterpart of the JAX
+    ``make_decode_attention_gqa_tp`` (``gqa_decode.py:1114``): heads are
+    independent, so each rank runs the unmodified kernel (row 1, or 1q on
+    8-bit pages) over its local Hq/tp query heads and Hkv/tp kv heads, with
+    no collective. ``heads``: the model's (Hq, Hkv)."""
+
+    def decode_attention_gqa_tp(q, kv: KVCache, layer_idx: int, meta: ForwardMeta, **kw):
+        check_rank_heads(q, kv, heads, group, "decode_attention_gqa_tp")
+        return decode_attention_gqa(q, kv, layer_idx, meta, **kw)
+
+    return decode_attention_gqa_tp

@@ -63,6 +63,7 @@ from scratchpad_tpu_torch.memory.kv_cache import KVCache
 from scratchpad_tpu_torch.ops.attention.gqa_decode import (
     CODE_TYPES,
     check_pages,
+    check_rank_heads,
     gather_kv_rows,
     mask_args,
     sinks_arg,
@@ -335,3 +336,16 @@ def attention_ragged(
         q, k, v, k_scale, v_scale, meta.page_table, meta.seq_lens, meta.cu_q_lens, sm_scale,
         logit_cap, sliding_window, sinks, chunk_size, meta.mm_spans,
     )
+
+
+def make_attention_ragged_tp(group, heads: tuple[int, int]):
+    """Extend on a tensor-parallel rank, the counterpart of the JAX
+    ``make_attention_ragged_tp`` (``ragged_backend.py:513``): each rank runs
+    the unmodified kernel (row 3, or 3q on 8-bit pages) over its local heads,
+    with no collective. ``heads``: the model's (Hq, Hkv)."""
+
+    def attention_ragged_tp(q, kv: KVCache, layer_idx: int, meta: ForwardMeta, **kw):
+        check_rank_heads(q, kv, heads, group, "attention_ragged_tp")
+        return attention_ragged(q, kv, layer_idx, meta, **kw)
+
+    return attention_ragged_tp

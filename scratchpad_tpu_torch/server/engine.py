@@ -17,6 +17,13 @@ images) whose rows take the features. Speculative decoding
 pool, each flushing the radix cache. The HTTP server
 drives the same engine from its async runner's thread
 (``server/async_runner.py``).
+
+With ``tp_size > 1`` the engine is the leader of a tensor-parallel group
+(``parallel/multihost.py``): it starts ranks 1 to tp - 1 as ``spawn``
+processes, each running ``run_follower``, serves on rank 0 through a
+``LeaderRunner`` that relays every forward to them, and stops them at
+``shutdown``. A follower that dies or raises makes the engine raise within
+``parallel.DIST_TIMEOUT_S``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import json
 import math
 import os
 import time
+import traceback
 import uuid
 from typing import Any, Iterator, Optional, Union
 
@@ -79,6 +87,39 @@ def _resolve_model_config(args: ServerArgs) -> ModelConfig:
     return model_config
 
 
+def run_follower(server_args: ServerArgs, rank: int, model_config: ModelConfig) -> None:
+    """A follower rank of tensor-parallel serving, the counterpart of the JAX
+    ``run_follower`` (``engine.py:60-92``): connect to the leader's control
+    plane, take the single-device weights it sends (or None: draw or load
+    them as the leader does), build this rank's ``ModelRunner`` in the group
+    and replay the leader's command stream until it stops. An error goes to
+    the leader before the process ends."""
+    from scratchpad_tpu_torch.executor.model_runner import ModelRunner
+    from scratchpad_tpu_torch.parallel import init_tp_group
+    from scratchpad_tpu_torch.parallel.multihost import ControlPlane, follower_loop
+
+    args = server_args.resolve()
+    ctrl = ControlPlane(args.control_plane_addr, 0, is_leader=False, rank=rank)
+    group = None
+    try:
+        _, params = ctrl.recv()
+        group = init_tp_group(args, rank, ctrl)
+        runner = ModelRunner(model_config, args, group, params)
+        del params
+        logger.info("tensor-parallel rank %d of %d ready on %s", rank, args.tp_size, runner.device)
+        follower_loop(runner, ctrl)
+    except BaseException:
+        try:
+            ctrl.send_up(("error", traceback.format_exc()))
+        except OSError:
+            pass
+        raise
+    finally:
+        if group is not None:
+            group.close()
+        ctrl.close()
+
+
 class Engine:
     def __init__(
         self,
@@ -89,9 +130,10 @@ class Engine:
         params: Optional[dict] = None,
     ):
         """``params``: the model's ``state_dict`` to serve (see
-        ``ModelRunner``); None loads or draws the weights."""
+        ``ModelRunner``; under tensor parallelism the single-device state,
+        which each rank cuts); None loads or draws the weights."""
         if mesh is not None:
-            raise NotImplementedError("device meshes are not ported yet")
+            raise NotImplementedError("pass tp_size in ServerArgs: the port builds its group from it")
         self.args = server_args.resolve()
         if model_config is None:
             model_config = _resolve_model_config(self.args)
@@ -105,7 +147,16 @@ class Engine:
         self.detokenizer = IncrementalDetokenizer(self.tokenizer)
 
         self.eos_token_ids: frozenset[int] = frozenset(self._find_eos_ids())
-        self.scheduler = Scheduler(model_config, self.args, params=params)
+        self.tp_group = self._ctrl = None
+        self._followers: list = []
+        if self.args.tp_size == 1:
+            self.scheduler = Scheduler(model_config, self.args, params=params)
+        else:
+            try:
+                self._start_tp(model_config, params)
+            except BaseException:
+                self._stop_tp(kill=True)
+                raise
         # TTFT/ITL/TPOT/E2E sample sink
         self.latency = LatencyStats()
         self.toppings_manager: Optional[ToppingsManager] = None
@@ -117,6 +168,60 @@ class Engine:
             from scratchpad_tpu_torch.constrained import GrammarBackend
 
             self.grammar_backend = GrammarBackend(self.tokenizer, model_config.vocab_size)
+
+    def _start_tp(self, model_config: ModelConfig, params) -> None:
+        """Lead a tensor-parallel group (JAX ``engine.py:119-160``): start the
+        followers, hand them the weights, join the group as rank 0, build the
+        scheduler over it and wrap its runner in ``LeaderRunner``."""
+        from scratchpad_tpu_torch.parallel import check_tp_model, init_tp_group
+        from scratchpad_tpu_torch.parallel.multihost import (
+            ControlPlane,
+            LeaderRunner,
+            start_followers,
+            watch_processes,
+        )
+
+        args = self.args
+        check_tp_model(model_config, args.tp_size)
+        t0 = time.monotonic()
+        self._followers = start_followers(args, model_config, run_follower)
+        self._ctrl = ControlPlane(
+            args.control_plane_addr, args.tp_size - 1, is_leader=True,
+            watch=watch_processes(self._followers),
+        )
+        self._ctrl.broadcast(("params", params))
+        self.tp_group = init_tp_group(args, 0, self._ctrl)
+        self.scheduler = Scheduler(model_config, args, mesh=self.tp_group, params=params)
+        runner = self.scheduler.runner
+        self.scheduler.runner = LeaderRunner(runner, self._ctrl)
+        g = self.tp_group
+        logger.info(
+            "[tp] %d ranks, backend %s, rank 0 on %s (%d ranks on it), %.2f GiB of parameters and "
+            "%d KV tokens a rank, ready in %.1f s",
+            g.size, g.backend, g.device, g.ranks_on_device, runner.param_bytes / 2**30,
+            runner.max_total_num_tokens, time.monotonic() - t0,
+        )
+
+    def _stop_tp(self, kill: bool = False) -> None:
+        """Stop the followers (``kill``: at once) and leave the group."""
+        from scratchpad_tpu_torch.parallel import DIST_TIMEOUT_S
+        from scratchpad_tpu_torch.parallel.multihost import stop_followers
+
+        if kill:
+            for p in self._followers:
+                p.kill()
+        if self._ctrl is not None:
+            self._ctrl.close()
+        stop_followers(self._followers, 0 if kill else DIST_TIMEOUT_S)
+        if self.tp_group is not None:
+            self.tp_group.close()
+        else:  # the rendezvous may have begun before the failure
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        self.tp_group = self._ctrl = None
+        self._followers = []
 
     def _find_eos_ids(self) -> set[int]:
         ids: set[int] = set()
@@ -150,6 +255,8 @@ class Engine:
         state dict and scaling) or, through ``delta_state``, a full-rank
         weight-delta adapter (HF-named [out, in] deltas, stored int8) for
         per-request serving; returns its pool slot."""
+        if self.args.tp_size > 1:
+            raise NotImplementedError("toppings under tp_size > 1 (ROADMAP Queue 1, item 10(c))")
         runner = self.scheduler.runner
         if not getattr(runner.model, "supports_toppings", True):
             raise NotImplementedError(
@@ -180,6 +287,10 @@ class Engine:
         video_data=None,
     ) -> Req:
         sp = sampling_params or SamplingParams()
+        if sp.custom_logit_processor is not None and self.args.tp_size > 1:
+            raise NotImplementedError(
+                "custom logit processors under tp_size > 1 (ROADMAP Queue 1, item 10(c))"
+            )
         gk = sp.grammar_key()
         if gk is not None and self.grammar_backend is None:
             raise ValueError("constrained decoding needs a tokenizer (none is loaded)")
@@ -698,11 +809,14 @@ class Engine:
         return self.scheduler.resize_kv_pool(new_num_tokens)
 
     def shutdown(self) -> None:
-        """Finish what is in flight and drop the sessions; the engine holds
-        no other process or thread."""
+        """Finish what is in flight and drop the sessions; under tensor
+        parallelism, then stop and join the followers and leave the group.
+        The engine holds no other process or thread."""
         for ev in self.scheduler.drain():
             self._postprocess_event(ev)
         self._sessions.clear()
+        if self._followers:
+            self._stop_tp()
 
     def flush_cache(self) -> None:
         """Drop the radix cache and return every page; needs an idle engine."""

@@ -210,7 +210,7 @@ def test_extend_runs_unpadded_and_decode_pads_to_buckets(engines):
         dict(attention_backend="xla"),
         dict(enable_pp=True),  # fp8 weights, once here, are served since they were ported
         dict(kv_cache_dtype="int4"),  # not a kv_cache_dtype of the JAX package
-        dict(tp_size=2),
+        dict(tp_size=2, quantization="w4a8"),  # tp 2 serves bf16 weights; 4-bit ones come later
     ],
     # the ids these cases had beside the refusals of speculation and the
     # memory extras, which are served now

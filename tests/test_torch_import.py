@@ -12,11 +12,14 @@ a source scan checks every import statement of the package. A second
 subprocess blocks ``jax``, the JAX package and the serving packages that the
 card's machine lacks (``aiohttp``, ``pydantic``, ``prometheus_client``,
 ``requests``), then imports every module, ``server.http_server`` and
-``cli.sp`` among them, and answers a completion over HTTP.
+``cli.sp`` among them, and answers a completion over HTTP. A third starts a
+tensor-parallel engine (two CPU ranks) with the same packages blocked, and
+its spawned follower, a fresh interpreter, reports the packages it loaded.
 """
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -34,7 +37,8 @@ assert {"scratchpad_tpu_torch.models.gemma", "scratchpad_tpu_torch.models.qwen",
         "scratchpad_tpu_torch.models.llama4", "scratchpad_tpu_torch.models.apertus",
         "scratchpad_tpu_torch.models.deepseek", "scratchpad_tpu_torch.ops.attention.mla_backend",
         "scratchpad_tpu_torch.sampling.custom_logit_processor",
-        "scratchpad_tpu_torch.models.mllama"} <= set(names)
+        "scratchpad_tpu_torch.models.mllama", "scratchpad_tpu_torch.parallel",
+        "scratchpad_tpu_torch.parallel.multihost"} <= set(names)
 assert {"scratchpad_tpu_torch.constrained." + m for m in (
     "backend", "ebnf", "json_schema", "leftrec", "pda", "regex_fsm", "structural_tag")} <= set(names)
 for n in names:
@@ -273,6 +277,55 @@ def test_import_and_serve_images_without_decoders():
     proc = subprocess.run(
         [sys.executable, "-c", _NO_DECODERS_PROBE, str(port), json.dumps(model_kw("llava"))],
         cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+_TP_PROBE = """
+import json, sys
+
+BLOCKED = %r
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import torch
+
+torch.set_num_threads(1)
+from scratchpad_tpu_torch.config import ServerArgs
+from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+from scratchpad_tpu_torch.server.engine import Engine
+
+if __name__ == "__main__":
+    eng = Engine(ServerArgs(preset="tiny-debug", random_weights=True, dtype="float32", device="cpu",
+                            page_size=4, max_total_tokens=512, tp_size=2))
+    out = eng.generate(input_ids=[1, 2, 3], sampling_params=SamplingParams(temperature=0.0, max_new_tokens=3))
+    assert len(out.output_ids) == 3
+    (follower,) = eng.scheduler.runner.follower_reports()
+    eng.shutdown()
+    print(json.dumps(sorted(set(follower["packages"]) & set(BLOCKED))))
+""" % (BLOCKED,)
+
+
+def test_a_spawned_follower_imports_no_jax_nor_serving_packages(tmp_path):
+    """The follower rank is a ``spawn`` process: it loads what its own
+    imports pull in, which must hold none of the blocked packages."""
+    script = tmp_path / "tp_probe.py"
+    script.write_text(_TP_PROBE)
+    proc = subprocess.run(
+        [sys.executable, str(script)],
+        cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)),
         capture_output=True,
         text=True,
         timeout=240,
