@@ -126,7 +126,8 @@ Phases, in order; any failure exits non-zero before the last line:
    (its published config, window 4096) in bf16 under
    ``attention_backend="auto"``, then under ``"pallas"`` on the same
    weights (its first ``MISTRAL_PALLAS_LAYERS`` layers); Qwen3-8B in bf16
-   (qk-norm, an untied head), then with W4A8 at ``QWEN3_W4A8_LAYERS``
+   (qk-norm, an untied head; not timed since PR 23, whose
+   ``phase_tp_families`` it pays for), then with W4A8 at ``QWEN3_W4A8_LAYERS``
    layers and the int8 KV that ``"auto"`` gives its full depth (logits
    only, not timed); Gemma-2-2B in bf16 at ``GEMMA2_LAYERS`` layers
    (head_dim 256, window 4096 on alternate layers, caps 50 and 30) with
@@ -159,8 +160,8 @@ Phases, in order; any failure exits non-zero before the last line:
    form (``ExpandedMla``), which without its rope term must move the logits
    by at least ``ROPE_MOVE`` times the reading; Apertus-8B (``APERTUS_8B``,
    its config.json: weighted qk-norm, the xIELU MLP) at ``APERTUS_LAYERS``
-   of its 32 layers in bf16, not timed (Qwen3-8B's run times its attention
-   shapes). The vision engines, not timed (``phase_vlm``): Qwen2-VL-2B (the
+   of its 32 layers in bf16, not timed (Mistral-7B's run times its
+   attention shapes). The vision engines, not timed (``phase_vlm``): Qwen2-VL-2B (the
    ``qwen2-vl-2b`` preset at full width and depth, its 32-layer tower at 448
    px) with two one-image requests, a two-image request, a video of
    ``VIDEO_FRAMES`` frames and a text request; Gemma-3-4B-it
@@ -195,7 +196,7 @@ Phases, in order; any failure exits non-zero before the last line:
    Tensor parallelism (``phase_tp``, ``[tp ...]`` lines): Llama-3.1-8B at
    full width and depth in bf16 at tp 1, then at tp 2 on the same weights
    (the engine spawns rank 1; both ranks on cuda:0 over gloo, since NCCL
-   takes one rank a GPU), on bf16 and then int8 KV, each tp 1 engine freed
+   takes one rank a GPU), on bf16 and then int8 KV (8 layers since PR 23), each tp 1 engine freed
    before its ranks start: every rank's launches of the pool's decode and
    extend kernels (32 a forward of their mode, over 4 kv heads), its
    collectives (66 a forward) and its digests of the sampled ids and
@@ -203,7 +204,17 @@ Phases, in order; any failure exits non-zero before the last line:
    logits against tp 1 within ``LOGIT_RTOL`` and the argmax and (bf16) the
    greedy ids the same but at a tie; a decode step's wall and rank 0's
    device time at tp 1 and tp 2; and the four kernels at the rank's shapes,
-   timed.
+   timed. The other text families at tp 2 (``phase_tp_families``,
+   ``TP_FAMILIES``): Gemma-2-2B on bf16 and int8 KV, GPT-OSS-20B,
+   Qwen3-30B-A3B (through ``attention_backend="pallas"``), Llama-4
+   Scout and DeepSeek-V2-Lite, each at full width and its tp 1 engine's
+   depth, held by the same checks (``check_tp_engine``) to the reference
+   that its tp 1 engine gave just after its own phase (``tp_reference``):
+   rows 1d/3d, 1dq/3dq, 1s/3s, 1c/3c and 9 once a layer a forward on each
+   rank; two collectives a layer and forward plus two (GPT-OSS, whose
+   experts are whole on every rank: one); every rank's router picks (MoE)
+   equal to the leader's; the logits gated on the rows whose routing picked
+   tp 1's experts, the others logged with the router's margins.
    The engines that are checked only and whose kernels other
    engines hold serve shorter request sets (``UNTIMED_REQUESTS``,
    ``TOPPINGS_REQUESTS``, ``GPT_OSS_W4_REQUESTS``, ``GEMMA3_REQUESTS``;
@@ -402,6 +413,11 @@ LOGIT_RTOL = {
     # tensor parallelism: Llama-3.1-8B at tp 2 against tp 1 on the same
     # weights (phase_tp), the bf16 engines' and the 8-bit KV engines' gates
     "llama-3.1-8b-tp2": 3e-2, "llama-3.1-8b-tp2-int8kv": 1e-1,
+    # the other text families at tp 2 against their tp 1 engines
+    # (phase_tp_families), the same gates
+    "gemma-2-2b-tp2": 3e-2, "gemma-2-2b-tp2-int8kv": 1e-1, "gpt-oss-20b-tp2": 3e-2,
+    "qwen3-30b-a3b-tp2": 3e-2, "llama4-scout-tp2": 3e-2,
+    "deepseek-v2-lite-tp2": 3e-2,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -440,6 +456,9 @@ ARGMAX_FLOOR = {
     # one sum, so they take the spec engines' 2e-2; the int8 pair too, as
     # the 8-bit KV engines
     "llama-3.1-8b-tp2": 2e-2, "llama-3.1-8b-tp2-int8kv": 2e-2,
+    "gemma-2-2b-tp2": 2e-2, "gemma-2-2b-tp2-int8kv": 2e-2, "gpt-oss-20b-tp2": 2e-2,
+    "qwen3-30b-a3b-tp2": 2e-2, "llama4-scout-tp2": 2e-2,
+    "deepseek-v2-lite-tp2": 2e-2,
 }
 # A spec engine may excuse as ties at most this many more of its tokens
 # than its plain-decode control excuses of the same requests' tokens (both
@@ -3591,7 +3610,7 @@ APERTUS_8B = {
     "model_type": "apertus",
 }
 # Apertus-8B is served at APERTUS_LAYERS of its 32 layers, untimed: its
-# attention shapes (G 4 at head_dim 128) are timed in Qwen3-8B's run, its
+# attention shapes (G 4 at head_dim 128) are timed in Mistral-7B's run, its
 # xIELU MLP is torch, held by its logits (PERF.md keeps its last timing)
 APERTUS_LAYERS = 8
 # DeepSeek-V2-Lite's published config.json (huggingface.co/deepseek-ai/
@@ -5886,6 +5905,8 @@ TP_PRESET = "llama-3.1-8b"
 TP_REQUESTS = [(5, 16), (37, 16), (300, 16), (600, 16)]
 TP_SAMPLED = dict(temperature=0.8, top_p=0.9, max_new_tokens=16, ignore_eos=True)
 TP_KV_TOKENS = 65536  # every engine's pool, explicit: two ranks share the card
+# the int8 KV pair's depth (of 32), cut to pay for phase_tp_families
+TP_INT8_LAYERS = 8
 TP_STEP = (64, 512, 2)  # the timed decode window: rows, cached tokens, steps
 # rows 1, 3, 1q and 3q at a tp 2 rank's heads of Llama-3.1-8B (Hkv 4, G 4, D 128)
 TP_HEADS = (4, 4, 128)
@@ -6009,27 +6030,263 @@ def tp_step_times(engine, label: str) -> dict:
     return dict(wall_ms=wall_ms, device_ms=busy / 1e3 / K if busy > 0 else None)
 
 
-def tp_reference(kv: str, prompts, sps, timed: bool) -> dict:
-    """The tp 1 engine of ``TP_PRESET`` at full width and depth (bf16
-    weights, seed 0) on ``kv`` pages: its ids of ``prompts`` (the greedy
-    ones first, then the sampled one, in one batch), the logits of the
-    prompts' extend as one batch, as ``Engine.generate`` runs it, and of the
-    decode step after it (``batch_logits``), each output teacher-forced
-    through one extend (``teacher_forced``), and with ``timed`` the decode
-    step's times; then it is freed."""
-    engine = make_engine(preset=TP_PRESET, kv_cache_dtype=kv, max_total_tokens=TP_KV_TOKENS)
+def tp_traffic(V: int):
+    """``TP_REQUESTS`` greedy and one ``TP_SAMPLED`` request in one batch,
+    as the tp 1 reference and the tp 2 engine serve them: (the greedy
+    prompts, every prompt, every request's sampling parameters)."""
+    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
+
+    prompts = spec_prompts(V, TP_REQUESTS, seed=11)
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=m, ignore_eos=True) for _, m in TP_REQUESTS]
+    return prompts, prompts + spec_prompts(V, [(200, 0)], seed=12), sps + [SamplingParams(**TP_SAMPLED)]
+
+
+class RouterLog:
+    """For a MoE model: within ``record()``, each router pick of the
+    forwards inside it (``top_experts``, one call a MoE layer and forward),
+    on the host (``calls``): the experts [T, k], sorted, and each token's
+    margin of its k-th pick over the next score, over the row's max
+    |score|; and the picks as made, on the device (``picks``: a
+    ``SameRouting``'s to replay)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.calls = []
+        self.picks = []  # the picks as the model made them, on its device
+
+    @contextlib.contextmanager
+    def record(self):
+        import torch
+
+        inner = self.model.top_experts
+        k = self.model.cfg.num_experts_per_tok
+
+        def recording(scores):
+            topi = inner(scores)
+            top = torch.topk(scores.float(), k + 1, dim=-1).values
+            gap = (top[:, k - 1] - top[:, k]) / scores.float().abs().max(dim=-1).values.clamp_min(1e-30)
+            self.calls.append((topi.sort(dim=-1).values.cpu(), gap.cpu()))
+            self.picks.append(topi)
+            return topi
+
+        self.model.top_experts = recording
+        try:
+            yield self
+        finally:
+            del self.model.top_experts  # the class's method again
+
+
+def router_flips(ref_calls, calls, rows) -> list:
+    """The (layer, token) picks of the tokens ``rows`` where ``calls``'
+    expert set differs from ``ref_calls``' (two ``RouterLog.calls`` of the
+    same forward), each with the reference's margin there."""
+    out = []
+    for l, ((ref_i, ref_gap), (i, _)) in enumerate(zip(ref_calls, calls)):
+        for t in rows:
+            if not bool((ref_i[t] == i[t]).all()):
+                out.append((l, t, float(ref_gap[t])))
+    return out
+
+
+def tp_reference(engine, label: str, timed: bool = False) -> dict:
+    """What a tp 2 engine of ``label`` is held to, from the tp 1 ``engine``
+    of the same weights: its ids of ``tp_traffic`` (the greedy requests'),
+    the logits of the greedy prompts' extend as one batch and of the decode
+    step after it (``batch_logits``), each greedy output teacher-forced
+    through one extend (``teacher_forced``), with ``timed`` the decode
+    step's times (``tp_step_times``); for a MoE model the router's picks in
+    those forwards (``RouterLog``); its KV dtype, parameter bytes and
+    pool."""
     runner = engine.scheduler.runner
-    outs = engine.generate(input_ids=prompts, sampling_params=sps)[: len(TP_REQUESTS)]
-    greedy = prompts[: len(TP_REQUESTS)]
-    ref = dict(
-        ids=[o.output_ids for o in outs],
-        logits=[t.float().cpu() for t in batch_logits(runner, greedy, [o.output_ids[0] for o in outs])],
-        forced=[teacher_forced(runner, p + o.output_ids) for p, o in zip(greedy, outs)],
+    prompts, served, sps = tp_traffic(runner.model_config.vocab_size)
+    outs = engine.generate(input_ids=served, sampling_params=sps)[: len(TP_REQUESTS)]
+    moe = hasattr(runner.model, "top_experts")
+    picks = RouterLog(runner.model) if moe else None
+    with picks.record() if moe else contextlib.nullcontext():
+        logits = batch_logits(runner, prompts, [o.output_ids[0] for o in outs])
+    forced, forced_picks = [], []
+    for p, o in zip(prompts, outs):
+        tf_picks = RouterLog(runner.model) if moe else None
+        with tf_picks.record() if moe else contextlib.nullcontext():
+            forced.append(teacher_forced(runner, p + o.output_ids))
+        forced_picks.append(tf_picks and tf_picks.calls)
+    return dict(
+        ids=[o.output_ids for o in outs], logits=[t.float().cpu() for t in logits], forced=forced,
+        picks=picks and picks.calls, forced_picks=forced_picks, kv=runner.kv_cache_dtype,
         param_bytes=runner.param_bytes, kv_tokens=runner.max_total_num_tokens,
-        step=tp_step_times(engine, "tp 1") if timed else None,
+        step=tp_step_times(engine, f"{label} tp 1") if timed else None,
     )
-    del engine, runner
-    return ref
+
+
+def forced_router_picks(runner, tokens: list) -> list:
+    """The leader's ``RouterLog.calls`` of one extend of ``tokens`` through
+    ``forward_logits`` (every rank runs it), on pages borrowed from the idle
+    pool: the tp 2 side of ``teacher_forced``'s routing."""
+    import numpy as np
+
+    from scratchpad_tpu_torch.executor.forward_meta import ForwardMode
+    from scratchpad_tpu_torch.executor.model_runner import WorkerBatch
+    from scratchpad_tpu_torch.sampling.batch_info import SamplingBatchInfo
+
+    ps, n = runner.page_size, len(tokens)
+    pages = runner.page_allocator.alloc(-(-n // ps))
+    if pages is None:
+        fail("no free pages for the teacher-forced routing")
+    try:
+        pos = np.arange(n)
+        wb = WorkerBatch(
+            mode=ForwardMode.EXTEND, tokens=np.asarray(tokens), positions=pos,
+            out_cache_loc=pages[pos // ps] * ps + pos % ps, req_indices=np.zeros(n, np.int64),
+            page_table=pages[None], seq_lens=np.array([n]), extend_lens=np.array([n]),
+            sampling_info=SamplingBatchInfo.from_reqs([], 1, runner.model_config.vocab_size),
+        )
+        log_ = RouterLog(runner.model)
+        with log_.record():
+            runner.forward_logits(wb)
+        return log_.calls
+    finally:
+        runner.page_allocator.free(pages)
+
+
+def check_tp_engine(engine, ref: dict, label: str, launches: dict, per_layer: int = 2, kv_heads=None,
+                    tp1=None) -> dict:
+    """Hold the tp 2 ``engine`` to its tp 1 reference ``ref`` (``tp_reference``)
+    on ``tp_traffic`` through ``Engine.generate``, every rank's counts set
+    to 0 just before and read just after (each follower reports its own).
+    Checks: every request finishes; the greedy ids equal tp 1's until a
+    position where tp 1's teacher-forced top-2 gap is a tie (``bf16_tie``
+    at ``ARGMAX_FLOOR``; a MoE engine's parting where its own routing of the
+    same tokens picks another expert set first is logged with the router's
+    margin and not gated; on int8 pages, where each engine quantizes its
+    own K/V rows, a parting is logged and not gated); on every rank
+    ``launches`` (wrapper -> "decode" or "extend") once a layer in each
+    forward of that mode and every other attention kernel never, a pool of
+    ``kv_heads`` kv heads, ``per_layer`` collectives a layer plus the
+    lookup's and the head's in each forward, and the leader's forwards,
+    sampled ids and logprobs, router picks and gathered logits; the
+    first-token and next-step logits within ``LOGIT_RTOL`` of tp 1's max
+    |logit|, the argmax the same but at a tie. A MoE model's are held at one
+    routing: the tp 1 engine ``tp1``, alive beside the ranks, replays tp 2's
+    picks (``SameRouting``), as ``phase_engine`` holds the plain path at the
+    kernel path's; the reading at tp 1's own routing is logged beside, with
+    the rows whose picks part and tp 1's router margins there (one pick
+    across a near tie moves a token by a whole expert's share), not
+    gated."""
+    import torch
+
+    cfg = engine.model_config
+    L, floor, tol = cfg.num_hidden_layers, ARGMAX_FLOOR[label], LOGIT_RTOL[label]
+    prompts, served, sps = tp_traffic(cfg.vocab_size)
+    runner = engine.scheduler.runner
+    moe = hasattr(runner.model, "top_experts")
+    runner.reset_counts()  # every rank's
+    outs = engine.generate(input_ids=served, sampling_params=sps)
+    reports = [runner.tp_report()] + runner.follower_reports()
+    # the greedy ids against tp 1's, until a tie parts them
+    parted = routed_apart = 0
+    for i, (p, o, want) in enumerate(zip(prompts, outs, ref["ids"])):
+        j = next((j for j, (a, b) in enumerate(zip(o.output_ids, want)) if a != b), None)
+        if j is None:
+            continue
+        tf, row = ref["forced"][i], len(p) - 1 + j
+        tie = bf16_tie(tf, row, floor)
+        parted += 1
+        flips = []
+        if moe and not tie:  # its own routing of tp 1's tokens, up to the parting
+            flips = router_flips(ref["forced_picks"][i], forced_router_picks(runner, p + want), range(row + 1))
+            routed_apart += bool(flips)
+        log(f"[tp {label}] request {i} parts from tp 1 at token {j} ({o.output_ids[j]} against {want[j]}); "
+            f"tp 1's teacher-forced top-2 gap there {tf['gap'][row] / tf['scale'][row]:.3e} of max|logit|, a "
+            f"tie at {floor}: {tie}" + (f"; routing of tp 1's tokens up to there: {len(flips)} other expert "
+                                        f"sets, tp 1's router margins {[round(g, 5) for _, _, g in flips[:8]]}"
+                                        if moe and not tie else ""))
+        if ref["kv"] not in ("int8", "fp8"):
+            check(tie or bool(flips), f"{label} request {i}: greedy ids part from tp 1 at token {j} outside a "
+                                      "tie and with tp 1's routing")
+    for o in outs:
+        check(o.finish_reason == "length" and len(o.output_ids) == o.completion_tokens > 0,
+              f"{label} request {o.rid}: {o.completion_tokens} tokens, finish {o.finish_reason}")
+    for rep in reports:
+        n_ext, n_dec = rep["forwards"]["extend"], rep["forwards"]["decode"]
+        lc, r = rep["launches"], rep["rank"]
+        if kv_heads is not None:
+            check(rep["kv_heads"] == kv_heads, f"{label} rank {r}: a pool of {rep['kv_heads']} kv heads")
+        for name in ATTENTION_WRAPPERS:
+            n = {"decode": n_dec, "extend": n_ext}.get(launches.get(name), 0)
+            check(lc[name] == L * n and (n > 0 or name not in launches),
+                  f"{label} rank {r}: {name} launched {lc[name]} times in {n_dec} decode and {n_ext} extend "
+                  f"forwards, not {L} a {launches.get(name, 'no')} forward")
+        check(rep["collectives"] == (per_layer * L + 2) * (n_ext + n_dec),
+              f"{label} rank {r}: {rep['collectives']} collectives in {n_ext + n_dec} forwards")
+        for key in ("forwards", "token_digest", "tokens_sampled", "router_picks", "router_digest"):
+            check(rep[key] == reports[0][key], f"{label} rank {r}: {key} {rep[key]} against the leader's "
+                                                f"{reports[0][key]}")
+    # the logits against tp 1's, on the same inputs (a MoE model's at tp 2's
+    # routing, replayed on tp 1)
+    worst, flips, apart, own_worst = 0.0, 0, 0, 0.0
+    picks = RouterLog(runner.model) if moe else None
+    with picks.record() if moe else contextlib.nullcontext():
+        got = batch_logits(runner, prompts, [o[0] for o in ref["ids"]])
+    want = ref["logits"]
+    if moe:
+        same = SameRouting(tp1.scheduler.runner.model)
+        same.picks = picks.picks
+        with same.replay():
+            want = [t.float().cpu() for t in batch_logits(tp1.scheduler.runner, prompts, [o[0] for o in ref["ids"]])]
+        log(f"[tp {label}] MoE routing: tp 1 ran at tp 2's routing; at its own, its router picked another "
+            f"expert set at {same.flips} of {same.picked} (token, layer) picks")
+    starts = [0]
+    for p in prompts:
+        starts.append(starts[-1] + len(p))
+    n_moe = len(picks.calls) // 2 if moe else 0
+    for i in range(len(prompts)):
+        for step in (0, 1):
+            a, b = got[step][i].float().cpu(), want[step][i]
+            check(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
+            scale = float(b.abs().max())
+            rel = float((a - b).abs().max()) / scale
+            if moe:  # at tp 1's own routing: this row's tokens' picks up to this
+                # forward (the step reads the extend's KV), logged
+                own = ref["logits"][step][i]
+                own_rel = float((a - own).abs().max()) / float(own.abs().max())
+                own_worst = max(own_worst, own_rel)
+                moved = router_flips(ref["picks"][:n_moe], picks.calls[:n_moe], range(starts[i], starts[i + 1]))
+                if step == 1:
+                    moved += router_flips(ref["picks"][n_moe:], picks.calls[n_moe:], [i])
+                apart += bool(moved)
+                if moved:
+                    log(f"[tp {label}] request {i} step {step}: at tp 1's own routing its picks part at "
+                        f"{len(moved)} (layer, token) picks, tp 1's router margins there "
+                        f"{[round(g, 5) for _, _, g in moved[:8]]}; logits max|diff| {own_rel:.3e} of "
+                        f"max|logit| there, {rel:.3e} at one routing")
+            worst = max(worst, rel)
+            top2 = torch.topk(b, 2).values
+            gap = float(top2[0] - top2[1])
+            tie = gap <= max(math.ldexp(1.0, math.frexp(abs(float(top2[0])))[1] - 8), floor * scale)
+            if a.argmax() != b.argmax():
+                flips += 1
+                log(f"[tp {label}] request {i} step {step}: argmax {int(a.argmax())} (tp 2) against "
+                    f"{int(b.argmax())} (tp 1), tp 1's top-2 gap {gap / scale:.3e} of max|logit|, tie {tie}")
+                check(tie, f"{label} request {i} step {step}: argmax differs from tp 1 outside a tie")
+            check(rel <= tol, f"{label}: logits differ from tp 1 by {rel:.3e} of max|logit| (tol {tol})")
+    digests = [runner.tp_report()] + runner.follower_reports()
+    check(len({d["logits_digest"] for d in digests}) == 1,
+          f"{label}: the ranks' gathered logits differ: {[d['logits_digest'] for d in digests]}")
+    check(len({d["router_digest"] for d in digests}) == 1,
+          f"{label}: the ranks' router picks differ: {[d['router_digest'] for d in digests]}")
+    return dict(reports=reports, worst=worst, flips=flips, parted=parted, routed_apart=routed_apart,
+                apart=apart, own_worst=own_worst, rows=2 * len(prompts))
+
+
+def tp_engine_record(reports: list, label: str, launches: dict, **extra) -> dict:
+    """The ``engines`` entry of a tp 2 engine: launches summed over the
+    ranks and by rank, each kernel's forwards on every rank."""
+    counts = {k: sum(rep["launches"][k] for rep in reports) for k in reports[0]["launches"]}
+    return dict(
+        counts=counts, steps={k: TP_SIZE * reports[0]["forwards"][mode] for k, mode in launches.items()},
+        launches_by_rank={k: [rep["launches"][k] for rep in reports] for k in counts}, weights="bf16",
+        tp_size=TP_SIZE, **extra,
+    )
 
 
 def phase_tp(errs: dict, engines: dict) -> dict:
@@ -6037,120 +6294,43 @@ def phase_tp(errs: dict, engines: dict) -> dict:
     depth, bf16 weights, at tp 2 (two ranks on cuda:0, gloo: NCCL takes one
     rank a GPU) against the tp 1 engine on the same weights (seed 0; each
     rank draws the tp 1 tensors and keeps its shard), on bf16 and on int8
-    pages (the tp 1 engine freed before the ranks start). Each tp 2 engine
-    serves ``TP_REQUESTS`` greedy and one sampled request through
-    ``Engine.generate`` with every rank's counts set to 0 just before and
-    read just after (each follower reports its own). Checks: every request
-    finishes; the greedy ids equal the tp 1 engine's until a position
-    where the tp 1 engine's teacher-forced top-2 gap is a tie
-    (``bf16_tie`` at ``ARGMAX_FLOOR``; on int8 pages, where each engine
-    quantizes its own K/V rows, the parting is logged with its gap and not
-    gated: the int8 engines are held to their logits gate); on every rank
-    32 launches of the
-    pool's decode kernel (row 1, 1q) in each decode forward and 32 of its
-    extend kernel (row 3, 3q) in each extend forward, none of the other
-    kind, over 4 kv heads; 2 collectives a layer plus the embedding's and
-    the head's in each forward; every rank's digest of its sampled ids
-    and logprobs bit-equal to the leader's, and of its ``forward_logits``
-    results (the gathered logits) too; the first-token and next-step
-    logits within ``LOGIT_RTOL`` of the tp 1 engine's max |logit|, the
-    argmax the same but at a tie. Then the decode step's wall and device
-    time at tp 1 and tp 2 on one ``[tp]`` line with the card's name and
-    power limit, and rows 1 and 3 at the rank's shapes, timed."""
-    import numpy as np
-    import torch
-
+    pages (the int8 pair at ``TP_INT8_LAYERS`` layers; the tp 1 engine
+    freed before the ranks start), through
+    ``check_tp_engine``: on every rank one launch a layer of the pool's
+    decode kernel (row 1, 1q) in each decode forward and of its extend
+    kernel (row 3, 3q) in each extend forward, none of the other kind, over
+    4 kv heads; 2 collectives a layer plus the embedding's and the head's in
+    each forward. Then the decode step's wall and device time at tp 1 and tp 2
+    on one ``[tp]`` line with the card's name and power limit, and rows 1
+    and 3 at the rank's shapes, timed."""
     from scratchpad_tpu_torch.config.model_config import get_preset
-    from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 
     t0 = time.monotonic()
-    cfg = get_preset(TP_PRESET)
-    L, V = cfg.num_hidden_layers, cfg.vocab_size
-    prompts = spec_prompts(V, TP_REQUESTS, seed=11)
-    sps = [SamplingParams(temperature=0.0, max_new_tokens=m, ignore_eos=True) for _, m in TP_REQUESTS]
-    # the sampled request rides in the same batch
-    served, served_sps = prompts + spec_prompts(V, [(200, 0)], seed=12), sps + [SamplingParams(**TP_SAMPLED)]
     result = {}
     for kv, pages, label in (("bfloat16", "bf16", "llama-3.1-8b-tp2"), ("int8", "int8", "llama-3.1-8b-tp2-int8kv")):
-        floor, tol = ARGMAX_FLOOR[label], LOGIT_RTOL[label]
-        ref = tp_reference(kv, served, served_sps, timed=pages == "bf16")
+        tol = LOGIT_RTOL[label]
+        # the int8 pair at TP_INT8_LAYERS, to pay for phase_tp_families
+        cfg = get_preset(TP_PRESET, **({} if pages == "bf16" else {"num_hidden_layers": TP_INT8_LAYERS}))
+        L = cfg.num_hidden_layers
+        engine = make_engine(model_config=cfg, kv_cache_dtype=kv, max_total_tokens=TP_KV_TOKENS)
+        ref = tp_reference(engine, label, timed=pages == "bf16")
+        del engine
         t = time.monotonic()
-        engine = make_engine(preset=TP_PRESET, kv_cache_dtype=kv, max_total_tokens=TP_KV_TOKENS, tp_size=TP_SIZE)
+        engine = make_engine(model_config=get_preset(TP_PRESET, num_hidden_layers=L), kv_cache_dtype=kv,
+                             max_total_tokens=TP_KV_TOKENS, tp_size=TP_SIZE)
+        launches = {DECODE[pages]: "decode", EXTEND[pages]: "extend"}
         try:
             start_s = time.monotonic() - t
-            runner = engine.scheduler.runner
             g = engine.tp_group
-            runner.reset_counts()  # every rank's
-            outs = engine.generate(input_ids=served, sampling_params=served_sps)
-            reports = [runner.tp_report()] + runner.follower_reports()
-            # the greedy ids against tp 1's, until a tie parts them
-            parted = 0
-            for i, (p, o, want) in enumerate(zip(prompts, outs, ref["ids"])):
-                j = next((j for j, (a, b) in enumerate(zip(o.output_ids, want)) if a != b), None)
-                if j is not None:
-                    tf, row = ref["forced"][i], len(p) - 1 + j
-                    tie = bf16_tie(tf, row, floor)
-                    parted += 1
-                    log(f"[tp {label}] request {i} parts from tp 1 at token {j} ({o.output_ids[j]} against "
-                        f"{want[j]}); tp 1's teacher-forced top-2 gap there {tf['gap'][row] / tf['scale'][row]:.3e} "
-                        f"of max|logit|, a tie at {floor}: {tie}")
-                    if pages == "bf16":
-                        check(tie, f"{label} request {i}: greedy ids part from tp 1 at token {j} outside a tie")
-            for o in outs:
-                check(o.finish_reason == "length" and len(o.output_ids) == o.completion_tokens > 0,
-                      f"{label} request {o.rid}: {o.completion_tokens} tokens, finish {o.finish_reason}")
-            other = "bf16" if pages == "int8" else "int8"
-            for rep in reports:
-                n_ext, n_dec = rep["forwards"]["extend"], rep["forwards"]["decode"]
-                lc = rep["launches"]
-                r = rep["rank"]
-                check(rep["kv_heads"] == cfg.num_kv_heads // TP_SIZE,
-                      f"{label} rank {r}: a pool of {rep['kv_heads']} kv heads")
-                check(lc[DECODE[pages]] == L * n_dec > 0,
-                      f"{label} rank {r}: {DECODE[pages]} launched {lc[DECODE[pages]]} times in {n_dec} decode forwards")
-                check(lc[EXTEND[pages]] == L * n_ext > 0,
-                      f"{label} rank {r}: {EXTEND[pages]} launched {lc[EXTEND[pages]]} times in {n_ext} extend forwards")
-                check(lc[DECODE[other]] == lc[EXTEND[other]] == 0, f"{label} rank {r}: {other} kernels launched")
-                check(rep["collectives"] == (2 * L + 2) * (n_ext + n_dec),
-                      f"{label} rank {r}: {rep['collectives']} collectives in {n_ext + n_dec} forwards")
-                for key in ("forwards", "token_digest", "tokens_sampled"):
-                    check(rep[key] == reports[0][key], f"{label} rank {r}: {key} {rep[key]} against the leader's "
-                                                        f"{reports[0][key]}")
-            # the logits against tp 1's, on the same inputs
-            worst, flips = 0.0, 0
-            got = batch_logits(runner, prompts, [o[0] for o in ref["ids"]])
-            for i in range(len(prompts)):
-                for step in (0, 1):
-                    a, b = got[step][i].float().cpu(), ref["logits"][step][i]
-                    check(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
-                    scale = float(b.abs().max())
-                    rel = float((a - b).abs().max()) / scale
-                    worst = max(worst, rel)
-                    top2 = torch.topk(b, 2).values
-                    gap = float(top2[0] - top2[1])
-                    tie = gap <= max(math.ldexp(1.0, math.frexp(abs(float(top2[0])))[1] - 8), floor * scale)
-                    if a.argmax() != b.argmax():
-                        flips += 1
-                        log(f"[tp {label}] request {i} step {step}: argmax {int(a.argmax())} (tp 2) against "
-                            f"{int(b.argmax())} (tp 1), tp 1's top-2 gap {gap / scale:.3e} of max|logit|, tie {tie}")
-                        check(tie, f"{label} request {i} step {step}: argmax differs from tp 1 outside a tie")
-                    check(rel <= tol, f"{label}: logits differ from tp 1 by {rel:.3e} of max|logit| (tol {tol})")
-            digests = [runner.tp_report()] + runner.follower_reports()
-            check(len({d["logits_digest"] for d in digests}) == 1,
-                  f"{label}: the ranks' gathered logits differ: {[d['logits_digest'] for d in digests]}")
+            out = check_tp_engine(engine, ref, label, launches, kv_heads=cfg.num_kv_heads // TP_SIZE)
             step = tp_step_times(engine, label) if pages == "bf16" else None
         finally:
             engine.shutdown()
             del engine
+        reports, worst = out["reports"], out["worst"]
         n_fwd = sum(reports[0]["forwards"].values())
-        counts = {k: sum(rep["launches"][k] for rep in reports) for k in reports[0]["launches"]}
-        engines[label] = dict(
-            counts=counts, steps={DECODE[pages]: TP_SIZE * reports[0]["forwards"]["decode"],
-                                  EXTEND[pages]: TP_SIZE * reports[0]["forwards"]["extend"]},
-            launches_by_rank={k: [rep["launches"][k] for rep in reports] for k in counts},
-            preset=TP_PRESET, weights="bf16", kv_cache_dtype=kv, attention_backend="auto",
-            worst_logit_rel=worst, tp_size=TP_SIZE,
-        )
+        engines[label] = tp_engine_record(reports, label, launches, preset=TP_PRESET, kv_cache_dtype=kv,
+                                          attention_backend="auto", worst_logit_rel=worst)
         log(
             f"[tp {label}] backend {g.backend}, devices {[rep['device'] for rep in reports]}, started in "
             f"{start_s:.1f} s; parameters a rank {[round(rep['param_bytes'] / 2**30, 3) for rep in reports]} "
@@ -6160,12 +6340,12 @@ def phase_tp(errs: dict, engines: dict) -> dict:
             f"(2 x {L} layers + 2); launches by rank "
             f"{ {k: v for k, v in engines[label]['launches_by_rank'].items() if any(v)} }; "
             f"{reports[0]['tokens_sampled']} sampled ids and logprobs bit-equal on every rank; logits "
-            f"against tp 1: worst max|diff| {worst:.3e} of max|logit| (tol {tol}), argmax differs on {flips} "
-            f"of {2 * len(prompts)} rows; greedy ids part from tp 1 in {parted} of {len(prompts)} requests; "
-            f"follower packages: jax {'jax' in reports[-1]['packages']}, scratchpad_tpu "
-            f"{'scratchpad_tpu' in reports[-1]['packages']}"
+            f"against tp 1: worst max|diff| {worst:.3e} of max|logit| (tol {tol}), argmax differs on "
+            f"{out['flips']} of {out['rows']} rows; greedy ids part from tp 1 in {out['parted']} of "
+            f"{len(TP_REQUESTS)} requests; follower packages: jax {'jax' in reports[-1]['packages']}, "
+            f"scratchpad_tpu {'scratchpad_tpu' in reports[-1]['packages']}"
         )
-        result[label] = dict(worst_logit_rel=worst, flips=flips, parted=parted, start_s=start_s,
+        result[label] = dict(worst_logit_rel=worst, flips=out["flips"], parted=out["parted"], start_s=start_s,
                              param_gib=[rep["param_bytes"] / 2**30 for rep in reports],
                              kv_tokens=[rep["kv_tokens"] for rep in reports])
         if step is not None:
@@ -6189,6 +6369,105 @@ def phase_tp(errs: dict, engines: dict) -> dict:
     )
     result["seconds"] = time.monotonic() - t0
     return result, timing
+
+
+# the other text families at tp 2 (phase_tp_families): label -> (the tp 1
+# engine it is held to, KV pages, attention backend, collectives a layer).
+# Their pools take TP_FAMILY_KV_TOKENS each, and their tp 1 engines'
+# TP1_KV_TOKENS (Llama-4 Scout's LLAMA4_KV_TOKENS): those engines stay alive
+# beside the ranks. GPT-OSS keeps its experts whole on every rank (one
+# collective a layer: o's sum); DeepSeek keeps the whole latent pool on
+# every rank and launches no attention kernel; Qwen3-30B-A3B serves through
+# attention_backend="pallas" (row 9 on a rank's heads; row 1 on a rank is
+# phase_tp's and the other families'), against its tp 1 engine's auto.
+TP_FAMILIES = {
+    "gemma-2-2b-tp2": ("gemma-2-2b", "bf16", "auto", 2),
+    "gemma-2-2b-tp2-int8kv": ("gemma-2-2b-int8kv", "int8", "auto", 2),
+    "gpt-oss-20b-tp2": ("gpt-oss-20b", "bf16", "auto", 1),
+    "qwen3-30b-a3b-tp2": ("qwen3-30b-a3b", "bf16", "pallas", 2),
+    "llama4-scout-tp2": ("llama4-scout", "bf16", "auto", 2),
+    "deepseek-v2-lite-tp2": ("deepseek-v2-lite", "bf16", "auto", 2),
+}
+TP_FAMILY_KV_TOKENS = 32768
+TP1_KV_TOKENS = 65536
+ATTENTION_WRAPPERS = ("paged_decode_attention", "paged_extend_attention", "paged_decode_attention_quant",
+                      "paged_extend_attention_quant", "decode_attention_pallas")
+
+
+def tp_family_launches(cfg, pages: str, backend: str) -> dict:
+    """The attention wrappers a tp 2 engine launches once a layer in each
+    forward of their mode: none for MLA (its latent attention is torch);
+    the pool's decode and extend kernels; under ``pallas`` row 9's wrapper
+    beside the decode kernel it launches."""
+    if cfg.is_mla:
+        return {}
+    out = {DECODE[pages]: "decode", EXTEND[pages]: "extend"}
+    if backend == "pallas":
+        out["decode_attention_pallas"] = "decode"
+    return out
+
+
+def phase_tp_families(tp1, label: str, engines: dict) -> dict:
+    """Tensor parallelism for the other text families on the one card: the
+    tp 2 configurations of ``TP_FAMILIES`` held to the tp 1 engine ``tp1``
+    of ``label`` (just after its own phase, alive beside the ranks), each at
+    full width and that engine's depth, bf16 weights drawn from seed 0 (each
+    rank draws the tp 1 tensors and keeps its shard), two ranks on cuda:0
+    over gloo, through ``check_tp_engine`` against ``tp1``'s reference
+    (``tp_reference``) and, for MoE, ``tp1`` at tp 2's routing. Each
+    ``[tp <label>]`` line gives the launches a forward on a rank of each
+    attention kernel (rows 1d, 3d, 1dq, 3dq, 1s, 3s, 1c, 3c and 9), the
+    collectives a forward, the ranks' parameters and KV tokens."""
+    cfg = tp1.model_config
+    result = {}
+    ref = None
+    for tp_label in (k for k, v in TP_FAMILIES.items() if v[0] == label):
+        _, pages, backend, per_layer = TP_FAMILIES[tp_label]
+        ref = ref or tp_reference(tp1, tp_label)
+        launches = tp_family_launches(cfg, pages, backend)
+        t = time.monotonic()
+        kv = ref["kv"] if ref["kv"] in ("int8", "fp8") else "auto"  # "auto": the model dtype
+        engine = make_engine(model_config=cfg, kv_cache_dtype=kv, attention_backend=backend,
+                             max_total_tokens=TP_FAMILY_KV_TOKENS, tp_size=TP_SIZE)
+        try:
+            start_s = time.monotonic() - t
+            out = check_tp_engine(engine, ref, tp_label, launches, per_layer,
+                                  kv_heads=1 if cfg.is_mla else cfg.num_kv_heads // TP_SIZE, tp1=tp1)
+        finally:
+            engine.shutdown()
+            del engine
+        reports = out["reports"]
+        n = reports[0]["forwards"]
+        engines[tp_label] = tp_engine_record(reports, tp_label, launches, preset=label, kv_cache_dtype=ref["kv"],
+                                             attention_backend=backend, worst_logit_rel=out["worst"])
+        per_forward = {k: [rep["launches"][k] / max(n[mode], 1) for rep in reports] for k, mode in launches.items()}
+        L = cfg.num_hidden_layers
+        moe = ref["picks"] is not None
+        log(
+            f"[tp {tp_label}] {cfg.architecture} at {L} layers, started in {start_s:.1f} s; parameters a rank "
+            f"{[round(rep['param_bytes'] / 2**30, 3) for rep in reports]} GiB against "
+            f"{ref['param_bytes'] / 2**30:.3f} GiB at tp 1; KV tokens a rank {[rep['kv_tokens'] for rep in reports]} "
+            f"of {[rep['kv_heads'] for rep in reports]} kv heads"
+            + (" (the whole latent pool on every rank)" if cfg.is_mla else "")
+            + f"; forwards {n}, collectives a forward "
+            f"{reports[0]['collectives'] / max(sum(n.values()), 1):.1f} ({per_layer} x {L} layers + 2); "
+            f"attention launches a forward by rank {per_forward or 'none (MLA in torch)'}; "
+            f"{reports[0]['tokens_sampled']} sampled ids and logprobs and "
+            f"{reports[0]['router_picks'] or 0} router picks bit-equal on every rank; logits against tp 1"
+            + (" at tp 2's routing" if moe else "")
+            + f": worst max|diff| {out['worst']:.3e} of max|logit| (tol {LOGIT_RTOL[tp_label]}), argmax "
+            f"differs on {out['flips']} of {out['rows']} rows"
+            + (f"; at tp 1's own routing {out['own_worst']:.3e}, its picks parting on {out['apart']} rows"
+               if moe else "")
+            + f"; greedy ids part from tp 1 in {out['parted']} of {len(TP_REQUESTS)} requests "
+            f"({out['routed_apart']} after the routing parted)"
+        )
+        result[tp_label] = dict(worst_logit_rel=out["worst"], flips=out["flips"], parted=out["parted"],
+                                own_routing_worst=out["own_worst"] if moe else None, rows_routed_apart=out["apart"],
+                                start_s=start_s, launches_per_forward=per_forward,
+                                collectives_per_forward=reports[0]["collectives"] / max(sum(n.values()), 1),
+                                kv_tokens=[rep["kv_tokens"] for rep in reports])
+    return result
 
 
 KERNELS = {
@@ -6446,6 +6725,13 @@ def main() -> None:
     from scratchpad_tpu_torch.executor.model_runner import resolve_kv_cache_dtype
 
     t_engines = time.monotonic()
+    tp_families, tp_seconds = {}, []  # phase_tp_families' results, one call a tp 1 family engine
+
+    def tp_family(engine, label):  # the tp 2 configurations held to this tp 1 engine
+        t = time.monotonic()
+        tp_families.update(timed(phase_tp_families, engine, label, engines))
+        tp_seconds.append(time.monotonic() - t)
+
     engine = make_engine()
     serve(engine, "bf16")
     # the serving surface on the same engine and weights: the HTTP server
@@ -6532,9 +6818,10 @@ def main() -> None:
               timed=backend == "auto")
         del engine
     check(fingerprints[0] == fingerprints[1], f"the Mistral engines' weights differ: {fingerprints}")
-    # Qwen3-8B at full width and depth, bf16: qk-norm, an untied head
+    # Qwen3-8B at full width and depth, bf16: qk-norm, an untied head; not
+    # timed, to pay for phase_tp_families (PERF.md keeps its last timing)
     engine = make_engine(preset="qwen3-8b")
-    serve(engine, "qwen3-8b")
+    serve(engine, "qwen3-8b", timed=False)
     del engine
     # Qwen3-8B W4A8, cut in depth, with the int8 KV that kv_cache_dtype auto
     # gives the full model (logits only; its kernels are held elsewhere)
@@ -6551,14 +6838,17 @@ def main() -> None:
     # Gemma-2-2B at full width and GEMMA2_LAYERS layers, bf16: head_dim 256,
     # local layers (window 4096) and global ones in turn, attention cap 50,
     # final cap 30
-    engine = make_engine(model_config=get_preset("gemma-2-2b", num_hidden_layers=GEMMA2_LAYERS))
+    engine = make_engine(model_config=get_preset("gemma-2-2b", num_hidden_layers=GEMMA2_LAYERS),
+                         max_total_tokens=TP1_KV_TOKENS)
     serve(engine, "gemma-2-2b", requests=WINDOW_REQUESTS, timed=False)
+    tp_family(engine, "gemma-2-2b")
     del engine
     # Gemma-2-2B on int8 KV (rows 1dq and 3dq on a served path), GEMMA_KV8_LAYERS
     # layers: local and global layers in turn, prompts across the window's edge
-    engine = make_engine(kv_cache_dtype="int8",
+    engine = make_engine(kv_cache_dtype="int8", max_total_tokens=TP1_KV_TOKENS,
                          model_config=get_preset("gemma-2-2b", num_hidden_layers=GEMMA_KV8_LAYERS))
     serve(engine, "gemma-2-2b-int8kv", timed=False, requests=GEMMA_KV8_REQUESTS)
+    tp_family(engine, "gemma-2-2b-int8kv")
     del engine
     # the same on fp8 KV, at the same depth
     engine = make_engine(kv_cache_dtype="fp8",
@@ -6574,8 +6864,10 @@ def main() -> None:
     # GPT-OSS-20B at full width and GPT_OSS_LAYERS layers, bf16: sinks through
     # both attention kernels, a window of 128 on alternate layers, 32 experts
     # (top 4) in the masked loop; dropping the sinks must move its logits
-    engine = make_engine(model_config=get_preset("gpt-oss-20b", num_hidden_layers=GPT_OSS_LAYERS))
+    engine = make_engine(model_config=get_preset("gpt-oss-20b", num_hidden_layers=GPT_OSS_LAYERS),
+                         max_total_tokens=TP1_KV_TOKENS)
     serve(engine, "gpt-oss-20b", requests=GPT_OSS_REQUESTS, sink_move=True, witness=True, timed=False)
+    tp_family(engine, "gpt-oss-20b")
     del engine
     # W4: kv_cache_dtype auto keeps GPT-OSS-20B's KV in bf16, as the JAX rule
     # does (no kernel backend), and gives Qwen3-30B-A3B int8
@@ -6595,8 +6887,9 @@ def main() -> None:
     # Qwen3-30B-A3B (its config.json) at QWEN3_MOE_LAYERS layers, bf16: 128
     # experts (top 8) in the masked loop, qk-norm
     engine = make_engine(model_config=ModelConfig.from_hf_config(
-        dict(QWEN3_30B_A3B, num_hidden_layers=QWEN3_MOE_LAYERS)))
+        dict(QWEN3_30B_A3B, num_hidden_layers=QWEN3_MOE_LAYERS)), max_total_tokens=TP1_KV_TOKENS)
     serve(engine, "qwen3-30b-a3b", timed=False, requests=UNTIMED_REQUESTS)
+    tp_family(engine, "qwen3-30b-a3b")
     del engine
     # Llama-4 Scout's text decoder (LLAMA4_SCOUT, its config) at
     # LLAMA4_LAYERS layers, bf16: the chunk of 8192 through both attention
@@ -6608,6 +6901,7 @@ def main() -> None:
     chunks = engine.scheduler.runner.model.layer_chunks
     check(chunks == [8192, 8192, 8192, None], f"llama4-scout's layer chunks are {chunks}")
     serve(engine, "llama4-scout", timed=False, requests=LLAMA4_REQUESTS)
+    tp_family(engine, "llama4-scout")
     del engine
     # DeepSeek-V2-Lite (its config.json) at full width and DEEPSEEK_LAYERS
     # layers, bf16:
@@ -6617,7 +6911,7 @@ def main() -> None:
     # softmax greedy) masked and dense beside 2 shared ones; its logits held
     # against HF's expanded form at the kernel path's routing
     engine = make_engine(model_config=ModelConfig.from_hf_config(
-        dict(DEEPSEEK_V2_LITE, num_hidden_layers=DEEPSEEK_LAYERS)))
+        dict(DEEPSEEK_V2_LITE, num_hidden_layers=DEEPSEEK_LAYERS)), max_total_tokens=TP1_KV_TOKENS)
     runner = engine.scheduler.runner
     log(
         f"[engine deepseek-v2-lite] latent pool: {runner.max_total_num_tokens} KV tokens of "
@@ -6628,7 +6922,11 @@ def main() -> None:
           f"deepseek-v2-lite: {runner.kv_bytes_per_token()} KV bytes a token, not {kv_bytes}")
     del runner
     serve(engine, "deepseek-v2-lite", timed=False, requests=UNTIMED_REQUESTS, witness=True)
+    tp_family(engine, "deepseek-v2-lite")
     del engine
+    tp_families["seconds"] = sum(tp_seconds)
+    log(f"[tp] the other text families at tp {TP_SIZE} on one card, {card_line()}: "
+        f"phase_tp_families {tp_families['seconds']:.1f} s in all")
     # Apertus-8B (its config.json) at APERTUS_LAYERS of its 32 layers, bf16,
     # untimed: weighted qk-norm, the gateless xIELU MLP, G 4 at head_dim 128
     # through both attention kernels
@@ -6747,7 +7045,7 @@ def main() -> None:
         )
     )
     log(json.dumps({"serve": {k: v for k, v in served.items() if k != "launches"}, "grammar": grammar,
-                    "custom": custom, "spec": specs, "memory": memory, "tp": tp}))
+                    "custom": custom, "spec": specs, "memory": memory, "tp": tp, "tp_families": tp_families}))
     log(smi_line)
     log(
         json.dumps(

@@ -242,10 +242,6 @@ class ServerArgs:
             "enable_param_offload": (self.enable_param_offload, "(c), parameter offload"),
             "enable_custom_logit_processor": (
                 self.enable_custom_logit_processor, "(c), custom logit processors"),
-            "attention_backend='pallas'": (
-                self.attention_backend == "pallas",
-                "(a); the JAX runner has no tensor-parallel pallas decode and falls back to XLA",
-            ),
         }
         for name, (bad, item) in refused.items():
             if bad:

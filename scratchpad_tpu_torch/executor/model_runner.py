@@ -380,7 +380,9 @@ class ModelRunner:
     def _shard(self, state: dict) -> dict:
         """A single-device ``state_dict`` as this rank's shards (as it is at
         tp 1)."""
-        return state if self.mesh is None else shard_state(state, self.mesh.rank, self.mesh.size)
+        if self.mesh is None:
+            return state
+        return shard_state(state, self.mesh.rank, self.mesh.size, self.model.tp_family)
 
     def _load_quantized(self, model_cls) -> None:
         """Quantize at load, as the JAX runner does (``model_runner.py:495-610``):
@@ -937,9 +939,9 @@ class ModelRunner:
     def tp_report(self) -> dict:
         """What this rank has done since ``reset_counts``: kernel launches,
         forwards by mode and collectives; with its placement, parameter
-        bytes, pool, the digests of every token it sampled and of every
-        ``forward_logits`` result, and the top-level packages it has
-        imported."""
+        bytes, pool, the digests of every token it sampled, of every
+        ``forward_logits`` result and (MoE, tensor parallel) of every router
+        pick, and the top-level packages it has imported."""
         from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS
 
         tp = self.mesh
@@ -953,6 +955,10 @@ class ModelRunner:
             collectives=0 if tp is None else tp.collectives,
             tokens_sampled=self._tokens_sampled, token_digest=self._token_digest.hexdigest(),
             logits_digest=self._logits_digest.hexdigest(),
+            # a MoE rank's router picks (parallel: every rank's the same)
+            router_picks=getattr(self.model, "router_picks", None),
+            router_digest=(None if getattr(self.model, "router_digest", None) is None
+                           else int(self.model.router_digest)),
             packages=sorted({m.split(".")[0] for m in sys.modules}),
         )
 

@@ -262,17 +262,21 @@ def params_from_jax(
     return state
 
 
-def shard_state(state: dict[str, torch.Tensor], rank: int, tp: int) -> dict[str, torch.Tensor]:
-    """Rank ``rank``'s shards of a Llama-family ``state_dict`` at tensor
-    parallel size ``tp``: the counterpart of the JAX ``place_params`` with
-    ``LlamaForCausalLM.param_specs`` (``models/llama.py:116-143``), by
-    ``parallel.shard_tensor``: q, k, v, gate, up and the q, k, v biases by
-    output column (whole heads), o and down by input row, the embedding and
-    an untied head by vocabulary row (V padded up to a multiple of ``tp``),
-    the norms replicated."""
+def shard_state(
+    state: dict[str, torch.Tensor], rank: int, tp: int, family: str = "llama"
+) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s shards of a ``family`` model's ``state_dict`` at
+    tensor parallel size ``tp`` (a key of ``parallel.TP_LAYOUTS``, the
+    model class's ``tp_family``): the counterpart of the JAX
+    ``place_params`` with the family's ``param_specs``, by
+    ``parallel.shard_tensor``. For the Llama family (``models/llama.py
+    :116-143``): q, k, v, gate, up and the q, k, v biases by output column
+    (whole heads), o and down by input row, the embedding and an untied head
+    by vocabulary row (V padded up to a multiple of ``tp``), the norms
+    replicated; the other families as their tables say."""
     from scratchpad_tpu_torch.parallel import shard_tensor
 
-    return {name: shard_tensor(name, t, rank, tp) for name, t in state.items()}
+    return {name: shard_tensor(name, t, rank, tp, family) for name, t in state.items()}
 
 
 def eagle_params_from_jax(params_np: dict[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:

@@ -17,12 +17,12 @@ It decodes and extends through the attention kernels under
 ``attention_backend`` ``auto`` and ``pallas`` (``supports_pallas_attention``,
 the JAX runner's default for a class that does not set it). Quantization and
 toppings are refused: the JAX forward reads no ``layers_q`` and applies no
-adapters.
+adapters. Under tensor parallelism (``tp``) a rank holds its heads and its
+columns of up (rows of o and down), as JAX ``apertus.py:87-107`` places
+them; the norms and xIELU's two scalars are replicated.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +31,7 @@ from torch import nn
 from scratchpad_tpu_torch.config.model_config import ModelConfig
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
 from scratchpad_tpu_torch.memory.kv_cache import KVCache
-from scratchpad_tpu_torch.models.common import apply_rope, rms_norm, rope_cos_sin
+from scratchpad_tpu_torch.models.common import apply_rope, fill_random, rms_norm, rope_cos_sin, row_parallel_sum
 from scratchpad_tpu_torch.models.llama import LlamaForCausalLM, _linear
 from scratchpad_tpu_torch.ops.attention import write_kv
 
@@ -51,10 +51,10 @@ def xielu(x: torch.Tensor, alpha_p: torch.Tensor, alpha_n: torch.Tensor) -> torc
 
 
 class ApertusDecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, device, dtype, tp_size: int = 1):
         super().__init__()
         H, D = cfg.hidden_size, cfg.head_dim
-        Hq, Hkv, I = cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size
+        Hq, Hkv, I = (n // tp_size for n in (cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size))
         param = lambda n, dt=dtype: nn.Parameter(torch.empty(n, device=device, dtype=dt))
         self.attn_norm, self.ffw_norm = param(H), param(H)
         self.q_norm, self.k_norm = param(D), param(D)
@@ -73,36 +73,33 @@ class ApertusForCausalLM(LlamaForCausalLM):
 
     supports_pallas_attention = True
     supports_toppings = False
+    tp_family = "apertus"
 
-    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False):
+    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False, tp=None):
         if quantization is not None or quantize_lm_head:
             raise NotImplementedError("ApertusForCausalLM options not ported: quantization")
-        super().__init__(cfg, device, dtype)
+        super().__init__(cfg, device, dtype, tp=tp)
 
     def _make_layer(self, device, dtype, quantization) -> nn.Module:
-        return ApertusDecoderLayer(self.cfg, device, dtype)
+        return ApertusDecoderLayer(self.cfg, device, dtype, self.tp_size)
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator) -> None:
         """Random weights, the JAX package's scheme: normal / sqrt(fan_in),
-        norms at one, both xIELU scalars at 0.8."""
-
-        def fill(w: torch.Tensor, fan_in: int) -> None:
-            r = torch.randn(w.shape, generator=generator, device=w.device, dtype=torch.float32)
-            w.copy_(r / math.sqrt(fan_in))
-
-        H = self.cfg.hidden_size
-        fill(self.embed.weight, H)
+        norms at one, both xIELU scalars at 0.8; a tensor-parallel rank
+        keeps its shard of each tp 1 draw (``common.fill_random``)."""
+        fill = lambda w, name: fill_random(w, name, generator, self.tp, self.tp_family, self.cfg.vocab_size)
+        fill(self.embed.weight, "embed.weight")
         for layer in self.layers:
             for norm in (layer.attn_norm, layer.ffw_norm, layer.q_norm, layer.k_norm):
                 norm.fill_(1.0)
             layer.alpha_p.fill_(ALPHA_INIT)
             layer.alpha_n.fill_(ALPHA_INIT)
-            for lin in (layer.wq, layer.wk, layer.wv, layer.wo, layer.up, layer.down):
-                fill(lin.weight, lin.in_features)
+            for t in ("wq", "wk", "wv", "wo", "up", "down"):
+                fill(getattr(layer, t).weight, f"layers.0.{t}.weight")
         self.final_norm.fill_(1.0)
         if self.lm_head is not None:
-            fill(self.lm_head.weight, H)
+            fill(self.lm_head.weight, "lm_head.weight")
 
     HF_LAYER_MAP = {
         "self_attn.q_proj.weight": "wq.weight",
@@ -133,11 +130,11 @@ class ApertusForCausalLM(LlamaForCausalLM):
     def forward(self, meta: ForwardMeta, kv: KVCache) -> torch.Tensor:
         cfg = self.cfg
         T = meta.num_tokens
-        Hq, Hkv, D = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
-        eps = cfg.rms_norm_eps
+        Hq, Hkv = cfg.num_attention_heads // self.tp_size, cfg.num_kv_heads // self.tp_size
+        D, eps = cfg.head_dim, cfg.rms_norm_eps
         attend = self.decode_attention if meta.mode == ForwardMode.DECODE else self.extend_attention
         cos, sin = rope_cos_sin(meta.positions, self.inv_freq)
-        x = self.embed(meta.tokens)  # [T, H]
+        x = self.lookup(meta.tokens)  # [T, H]
         for l, layer in enumerate(self.layers):
             h = rms_norm(x, layer.attn_norm, eps)
             q = rms_norm(layer.wq(h).view(T, Hq, D), layer.q_norm, eps)
@@ -146,9 +143,9 @@ class ApertusForCausalLM(LlamaForCausalLM):
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
             write_kv(kv, k, v, l, meta.out_cache_loc)
             attn = attend(q, kv, l, meta, sm_scale=self.sm_scale)
-            x = x + layer.wo(attn.reshape(T, Hq * D))
+            x = x + row_parallel_sum(layer.wo(attn.reshape(T, Hq * D)), self.tp)
             h2 = rms_norm(x, layer.ffw_norm, eps)
-            x = x + layer.down(xielu(layer.up(h2), layer.alpha_p, layer.alpha_n))
+            x = x + row_parallel_sum(layer.down(xielu(layer.up(h2), layer.alpha_p, layer.alpha_n)), self.tp)
         h = rms_norm(x, self.final_norm, eps)
         if meta.capture_all_hidden:
             return h  # [T, H], for sequence scoring

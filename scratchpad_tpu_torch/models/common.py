@@ -1,7 +1,10 @@
 """Shared building blocks for the port's models.
 
 Counterpart of ``scratchpad_tpu/models/common.py``: the 4-bit linear layer,
-the row-parallel sum of tensor parallelism (``row_parallel_sum``), RMSNorm,
+tensor parallelism's row-parallel sum (``row_parallel_sum``), its
+vocabulary-parallel embedding and head (``vocab_lookup``, ``vocab_logits``)
+and its seeded random fill (``fill_random``: a rank keeps its shard of
+each single-device draw), RMSNorm,
 SiLU-and-mul, GELU-and-mul and rotary embeddings (half-split and
 interleaved pairs) and multimodal rope (``apply_mrope``). ``compute_inv_freq``, ``rope_attention_scale`` and
 DeepSeek's YaRN multiplier (``deepseek_yarn_scale``) are host-side numpy,
@@ -97,6 +100,59 @@ def row_parallel_sum(y: torch.Tensor, tp=None) -> torch.Tensor:
     tensor-parallel group ``tp`` (``parallel.TPGroup``; None at tp 1).
     Column-parallel projections need no collective."""
     return y if tp is None else tp.row_sum(y)
+
+
+def vocab_lookup(embed: nn.Embedding, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """The embedding rows of ``ids``; under tensor parallelism (``tp``) each
+    rank looks up the ids in its vocabulary range, zero rows elsewhere, and
+    the ranks' rows are summed: exact, one rank holds each row."""
+    if tp is None:
+        return embed(ids)
+    rows = embed.num_embeddings
+    local = ids - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = embed(local.clamp(0, rows - 1))
+    return tp.all_reduce(torch.where(inside[:, None], x, torch.zeros_like(x)))
+
+
+def vocab_logits(h: torch.Tensor, head: torch.Tensor, vocab_size: int, tp=None) -> torch.Tensor:
+    """f32 logits of rows ``h`` [N, H] through the head ``head`` [V, H]; under
+    tensor parallelism the rank's columns are gathered into every column,
+    on every rank, the padded ones dropped."""
+    logits = (h @ head.T).float()
+    return logits if tp is None else tp.gather_vocab(logits, vocab_size)
+
+
+def fill_random(w: torch.Tensor, name: str, generator: torch.Generator, tp=None, family: str = "llama",
+                vocab_size: int = 0, fan_in_dim: int = -1) -> None:
+    """``w`` (the tensor ``name`` of ``family``'s ``state_dict``, or a rank's
+    shard of it) filled with N(0, 1) / sqrt(fan-in), the JAX package's
+    scheme, drawn at the single-device shape on ``w``'s device and cut to
+    the rank's shard: every rank of every tensor-parallel size holds the tp
+    1 weights of the same seed. The fan-in is the single-device shape's
+    dimension ``fan_in_dim`` (In of an [out, in] weight)."""
+    from scratchpad_tpu_torch.parallel import full_shape, shard_tensor
+
+    size, rank = (1, 0) if tp is None else (tp.size, tp.rank)
+    shape = tuple(w.shape) if tp is None else full_shape(name, tuple(w.shape), size, vocab_size, family)
+    r = torch.randn(shape, generator=generator, device=w.device, dtype=torch.float32)
+    w.copy_(shard_tensor(name, r / float(np.sqrt(shape[fan_in_dim])), rank, size, family))
+
+
+def fill_experts(p: torch.Tensor, name: str, generator: torch.Generator, tp=None, family: str = "llama") -> None:
+    """An expert stack ``p`` [E, In, Out] (or a rank's shard) filled as
+    ``fill_random`` fills it, one expert at a time (a stack is drawn whole
+    nowhere: GPT-OSS-20B's take 38 GB in bf16), each over its fan-in In."""
+    from scratchpad_tpu_torch.parallel import cut, full_shape, split_of
+
+    size, rank = (1, 0) if tp is None else (tp.size, tp.rank)
+    E, In, Out = full_shape(name, tuple(p.shape), size, 0, family)
+    split = split_of(name, family) if tp is not None else None
+    # the stack's split, on one expert [In, Out]
+    split = None if split is None else (("halves", 1) if isinstance(split, tuple) else split - 1)
+    for e in range(E):
+        r = torch.randn((In, Out), generator=generator, device=p.device, dtype=torch.float32)
+        p[e].copy_(cut(r / float(np.sqrt(In)), split, rank, size, name))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:

@@ -46,12 +46,21 @@ out, ``ops/quant/w4a16.py:156-161``, so it cannot serve 4-bit weights
 either), 8-bit KV (``memory/kv_cache.py``), ``attention_backend="pallas"``
 (``supports_pallas_attention`` False) and toppings. The model never calls
 the decode or extend attention kernels.
+
+Under tensor parallelism (``tp``), as JAX ``deepseek.py:191-236`` places
+it: a rank holds its q heads (``wq`` or ``wq_b`` by column, ``w_uk`` and
+``w_uv`` by head), its rows of ``wo``, and its share of the dense MLP, of
+the shared experts and of each routed expert's width; the latent path
+(``wkv_a``, ``wq_a``, the norms), the router and V3's ``router_bias`` are
+replicated. Every rank keeps the whole latent pool (JAX
+``kv_cache.py:269``) and writes the same rows into it. A layer's two
+collectives are o's sum and one sum of the routed and the shared experts'
+partial sums.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 from torch import nn
@@ -63,9 +72,12 @@ from scratchpad_tpu_torch.models.common import (
     apply_rope_interleaved,
     compute_inv_freq,
     deepseek_yarn_scale,
+    fill_random,
     rms_norm,
     rope_cos_sin,
+    row_parallel_sum,
     silu_mul,
+    vocab_lookup,
     yarn_mscale,
 )
 from scratchpad_tpu_torch.models.llama import _linear
@@ -92,13 +104,14 @@ def group_mask(scores: torch.Tensor, group_best: torch.Tensor, topk_group: int) 
 
 class DeepseekV2ForCausalLM(MoeForCausalLM):
     supports_pallas_attention = False  # MLA attends through its latent backend
+    tp_family = "deepseek"
     EXPERT_STACKS = ("w1", "w3", "w2")
     BIASES = ("router_bias",)
     # V3's sigmoid router with the correction bias; a V2 config that names
     # topk_method "noaux_tc" routes so too
     noaux_tc = False
 
-    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False):
+    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False, tp=None):
         name = type(self).__name__
         if quantization is not None or quantize_lm_head:
             raise NotImplementedError(
@@ -111,7 +124,7 @@ class DeepseekV2ForCausalLM(MoeForCausalLM):
         self.noaux_tc = self.noaux_tc or cfg.topk_method == "noaux_tc"
         # without routed experts every layer is dense
         self.n_dense = cfg.first_k_dense_replace if cfg.num_experts else cfg.num_hidden_layers
-        super().__init__(cfg, device, dtype)
+        super().__init__(cfg, device, dtype, tp=tp)
         rope_cfg = dataclasses.replace(cfg, head_dim=cfg.qk_rope_head_dim)
         self.inv_freq = torch.as_tensor(compute_inv_freq(rope_cfg), device=device)
         self.rope_scale = deepseek_yarn_scale(cfg.rope_scaling)
@@ -153,8 +166,8 @@ class DeepseekV2ForCausalLM(MoeForCausalLM):
         """Norms and the MLA projections; then a dense SwiGLU (``gate``,
         ``up``, ``down``) or the router, the routed expert stacks and the
         shared experts (``shared_*``); ``layer.moe`` says which."""
-        cfg = self.cfg
-        H, Hq, E = cfg.hidden_size, cfg.num_attention_heads, cfg.num_experts
+        cfg, n = self.cfg, self.tp_size
+        H, Hq, E = cfg.hidden_size, cfg.num_attention_heads // n, cfg.num_experts
         dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
         lin = lambda n_in, n_out: _linear(n_in, n_out, False, device, dtype)
@@ -170,10 +183,10 @@ class DeepseekV2ForCausalLM(MoeForCausalLM):
         layer.wo = lin(Hq * dv, H)
         layer.moe = l >= self.n_dense
         if not layer.moe:
-            I = cfg.intermediate_size
+            I = cfg.intermediate_size // n
             layer.gate, layer.up, layer.down = lin(H, I), lin(H, I), lin(I, H)
             return layer
-        Im = self.intermediate_size
+        Im = self.intermediate_size // n
         layer.router = lin(H, E)
         if self.noaux_tc:
             # f32, as HF and the JAX package keep it: a bf16 bias can flip a
@@ -190,14 +203,14 @@ class DeepseekV2ForCausalLM(MoeForCausalLM):
     def _init_extra_(self, name: str, p: torch.Tensor, generator) -> None:
         if name not in ("w_uk", "w_uv"):
             return super()._init_extra_(name, p, generator)
-        r = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
-        p.copy_(r / math.sqrt(p.shape[-2]))
+        fill_random(p, f"layers.0.{name}", generator, self.tp, self.tp_family, fan_in_dim=-2)
 
     # ---------------------------------------------------------------- routing
 
     def _moe(self, h: torch.Tensor, layer) -> torch.Tensor:
         """The routed experts, masked and dense, plus the shared experts
-        (JAX ``deepseek.py:405-457``)."""
+        (JAX ``deepseek.py:405-457``); under tensor parallelism a rank's
+        partial sum of both."""
         cfg = self.cfg
         E = cfg.num_experts
         T = h.shape[0]
@@ -290,7 +303,7 @@ class DeepseekV2ForCausalLM(MoeForCausalLM):
 
     def _attention(self, l, layer, h, meta, kv, cos, sin, spans) -> torch.Tensor:
         cfg = self.cfg
-        T, Hq, eps = h.shape[0], cfg.num_attention_heads, cfg.rms_norm_eps
+        T, Hq, eps = h.shape[0], cfg.num_attention_heads // self.tp_size, cfg.rms_norm_eps
         dn, dr, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
         if cfg.q_lora_rank:
             q = layer.wq_b(rms_norm(layer.wq_a(h), layer.q_norm, eps))
@@ -303,7 +316,7 @@ class DeepseekV2ForCausalLM(MoeForCausalLM):
         k_rope = apply_rope_interleaved(ckv[:, None, r:], cos, sin)[:, 0]
         write_latent(kv, torch.cat([c, k_rope], dim=-1), l, meta.out_cache_loc)
         attn = self.latent_attention(l, layer, q_nope, q_rope, kv, meta, spans)
-        return layer.wo(attn.reshape(T, Hq * cfg.v_head_dim))
+        return self.o_proj(layer, attn.reshape(T, Hq * cfg.v_head_dim))
 
     def forward(self, meta: ForwardMeta, kv: KVCache) -> torch.Tensor:
         cfg = self.cfg
@@ -313,14 +326,14 @@ class DeepseekV2ForCausalLM(MoeForCausalLM):
             cos, sin = cos * self.rope_scale, sin * self.rope_scale
         # an extend's sequence bounds come to the host once a forward
         spans = None if meta.mode == ForwardMode.DECODE else extend_spans(meta)
-        x = self.embed(meta.tokens)  # [T, H]
+        x = vocab_lookup(self.embed, meta.tokens, self.tp)  # [T, H]
         for l, layer in enumerate(self.layers):
             x = x + self._attention(l, layer, rms_norm(x, layer.input_norm, eps), meta, kv, cos, sin, spans)
             h2 = rms_norm(x, layer.post_norm, eps)
             if layer.moe:
-                x = x + self._moe(h2, layer)
+                x = x + self.moe_sum(self._moe(h2, layer))
             else:
-                x = x + layer.down(silu_mul(layer.gate(h2), layer.up(h2)))
+                x = x + row_parallel_sum(layer.down(silu_mul(layer.gate(h2), layer.up(h2))), self.tp)
         h = rms_norm(x, self.final_norm, eps)
         if meta.capture_all_hidden:
             return h  # [T, H], for sequence scoring

@@ -21,8 +21,13 @@ Python and each layer hands its own window to the attention call: the
 config's ``sliding_window`` on a local layer, None on a global one. The
 decode and extend kernels take the window per call, so one launch serves
 each layer. Quantization and toppings are refused, as the JAX Gemma has
-neither. ``Gemma3ForConditionalGeneration`` adds the SigLIP tower and its
-pooled, normed projection; its image rows enter unscaled and attend each
+neither. Under tensor parallelism (``tp``) a rank holds its heads, its MLP
+columns and its vocabulary rows (JAX ``gemma.py:139-161``): the lookup sums
+the ranks' rows before the sqrt(hidden) scale, o's and down's partial
+products are summed before ``post_attn_norm`` and ``post_ffw_norm``, and
+the final soft cap applies to the gathered logits.
+``Gemma3ForConditionalGeneration`` adds the SigLIP tower and its pooled,
+normed projection; its image rows enter unscaled and attend each
 other both ways (``ForwardMeta.mm_spans``, read by the extend kernel).
 """
 
@@ -38,8 +43,17 @@ from torch.nn.utils import skip_init
 from scratchpad_tpu_torch.config.model_config import ModelConfig
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
 from scratchpad_tpu_torch.memory.kv_cache import KVCache
-from scratchpad_tpu_torch.models.common import apply_rope, gelu_mul, rope_cos_sin
+from scratchpad_tpu_torch.models.common import (
+    apply_rope,
+    fill_random,
+    gelu_mul,
+    rope_cos_sin,
+    row_parallel_sum,
+    vocab_logits,
+    vocab_lookup,
+)
 from scratchpad_tpu_torch.ops.attention import write_kv
+from scratchpad_tpu_torch.parallel import vocab_rows
 
 LOCAL_ROPE_THETA = 10000.0  # Gemma 3's local layers
 
@@ -59,10 +73,10 @@ def _linear(n_in: int, n_out: int, device, dtype) -> nn.Linear:
 class GemmaDecoderLayer(nn.Module):
     NORMS = ("input_norm", "post_attn_norm", "pre_ffw_norm", "post_ffw_norm")
 
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, device, dtype, tp_size: int = 1):
         super().__init__()
         H, D = cfg.hidden_size, cfg.head_dim
-        Hq, Hkv, I = cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size
+        Hq, Hkv, I = (n // tp_size for n in (cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size))
         for name in self.NORMS:
             setattr(self, name, nn.Parameter(torch.empty(H, device=device, dtype=dtype)))
         if cfg.use_qk_norm:
@@ -83,8 +97,9 @@ class GemmaForCausalLM(nn.Module):
     # per-layer windows go to the auto kernels; the runner refuses "pallas"
     supports_pallas_attention = False
     supports_toppings = False
+    tp_family = "gemma"
 
-    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False):
+    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False, tp=None):
         super().__init__()
         if quantization is not None or quantize_lm_head:
             raise NotImplementedError(
@@ -97,10 +112,13 @@ class GemmaForCausalLM(nn.Module):
                 "Gemma3ForConditionalGeneration"
             )
         self.cfg = cfg
-        H, V, D = cfg.hidden_size, cfg.vocab_size, cfg.head_dim
+        self.tp = tp
+        self.tp_size = 1 if tp is None else tp.size
+        H, D = cfg.hidden_size, cfg.head_dim
+        V = vocab_rows(cfg.vocab_size, self.tp_size)  # the rank's vocabulary rows
         self.embed = skip_init(nn.Embedding, V, H, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
-            GemmaDecoderLayer(cfg, device, dtype) for _ in range(cfg.num_hidden_layers)
+            GemmaDecoderLayer(cfg, device, dtype, self.tp_size) for _ in range(cfg.num_hidden_layers)
         )
         self.final_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         scalar = cfg.query_pre_attn_scalar
@@ -139,19 +157,16 @@ class GemmaForCausalLM(nn.Module):
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator) -> None:
         """Random weights, the JAX package's scheme: normal / sqrt(fan_in),
-        norms at zero (a scale of one)."""
-
-        def fill(w: torch.Tensor, fan_in: int) -> None:
-            r = torch.randn(w.shape, generator=generator, device=w.device, dtype=torch.float32)
-            w.copy_(r / math.sqrt(fan_in))
-
-        fill(self.embed.weight, self.cfg.hidden_size)
+        norms at zero (a scale of one); a tensor-parallel rank keeps its
+        shard of each tp 1 draw (``common.fill_random``)."""
+        fill = lambda w, name: fill_random(w, name, generator, self.tp, self.tp_family, self.cfg.vocab_size)
+        fill(self.embed.weight, "embed.weight")
         for layer in self.layers:
             for name, p in layer.named_parameters():
                 if name.endswith("norm"):
                     p.zero_()
-            for lin in (layer.wq, layer.wk, layer.wv, layer.wo, layer.gate, layer.up, layer.down):
-                fill(lin.weight, lin.in_features)
+            for t in ("wq", "wk", "wv", "wo", "gate", "up", "down"):
+                fill(getattr(layer, t).weight, f"layers.0.{t}.weight")
         self.final_norm.zero_()
 
     HF_LAYER_MAP = {
@@ -198,15 +213,16 @@ class GemmaForCausalLM(nn.Module):
     def forward(self, meta: ForwardMeta, kv: KVCache) -> torch.Tensor:
         cfg = self.cfg
         T = meta.num_tokens
-        Hq, Hkv, D = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
-        eps = cfg.rms_norm_eps
+        Hq, Hkv = cfg.num_attention_heads // self.tp_size, cfg.num_kv_heads // self.tp_size
+        D, eps = cfg.head_dim, cfg.rms_norm_eps
         attend = self.decode_attention if meta.mode == ForwardMode.DECODE else self.extend_attention
         rope = {
             True: rope_cos_sin(meta.positions, self.inv_freq_local),
             False: rope_cos_sin(meta.positions, self.inv_freq_global),
         }
         mm = meta.input_embeds is not None
-        x = self.embed(meta.tokens.clamp_min(0) if mm else meta.tokens)  # [T, H]
+        # the ranks' rows summed, then scaled
+        x = vocab_lookup(self.embed, meta.tokens.clamp_min(0) if mm else meta.tokens, self.tp)  # [T, H]
         x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype)
         if mm:  # vision rows (negative placeholder ids) spliced in unscaled, as HF
             x = torch.where((meta.tokens < 0)[:, None], meta.input_embeds.to(x.dtype), x)
@@ -225,9 +241,11 @@ class GemmaForCausalLM(nn.Module):
                 q, kv, l, meta, sm_scale=self.sm_scale,
                 logit_cap=cfg.attn_logit_softcap, sliding_window=window,
             )
-            x = x + gemma_rms_norm(layer.wo(attn.reshape(T, Hq * D)), layer.post_attn_norm, eps)
+            # o's and down's partial products summed before their norms
+            o = row_parallel_sum(layer.wo(attn.reshape(T, Hq * D)), self.tp)
+            x = x + gemma_rms_norm(o, layer.post_attn_norm, eps)
             h2 = gemma_rms_norm(x, layer.pre_ffw_norm, eps)
-            mlp = layer.down(gelu_mul(layer.gate(h2), layer.up(h2)))
+            mlp = row_parallel_sum(layer.down(gelu_mul(layer.gate(h2), layer.up(h2))), self.tp)
             x = x + gemma_rms_norm(mlp, layer.post_ffw_norm, eps)
         h = gemma_rms_norm(x, self.final_norm, eps)
         if meta.capture_all_hidden:
@@ -238,9 +256,10 @@ class GemmaForCausalLM(nn.Module):
         return self.head_logits(last)
 
     def head_logits(self, h: torch.Tensor) -> torch.Tensor:
-        """f32 logits of final-normed rows ``h`` [N, H] through the tied head,
-        soft-capped where the model caps them."""
-        logits = (h @ self.embed.weight.T).float()
+        """f32 logits of final-normed rows ``h`` [N, H] through the tied head
+        (every column, gathered under tensor parallelism), soft-capped where
+        the model caps them."""
+        logits = vocab_logits(h, self.embed.weight, self.cfg.vocab_size, self.tp)
         cap = self.cfg.logit_softcap
         if cap:
             logits = cap * torch.tanh(logits / cap)

@@ -27,6 +27,14 @@ biases stay in the model dtype and are added after the 4-bit GEMM, as the
 JAX model adds them (``:235``, ``:247``). The runner refuses
 ``attention_backend="pallas"`` for it (``supports_pallas_attention``
 False), as the JAX runner sends it to XLA.
+
+Under tensor parallelism (``tp``) a rank holds its heads (q, k, v and
+their biases by column, o by row), and the experts, the router, their
+biases, o's bias and the sinks whole, as the JAX spec places them
+(``gpt_oss.py:140-163``): every rank runs every expert on the same hidden
+state, so the MoE needs no collective (``MOE_SUM`` False), o's bias is
+added once after o's sum, and each rank hands the kernels the sinks of its
+own heads.
 """
 
 from __future__ import annotations
@@ -63,12 +71,14 @@ SINK_STD = 2.0
 
 class GptOssForCausalLM(MoeForCausalLM):
     supports_pallas_attention = False  # per-layer windows and sinks
+    tp_family = "gpt_oss"
     ATTN_BIAS = True
     EXPERT_STACKS = ("gate_up", "down")
     BIASES = ("gate_up_b", "down_b")
+    MOE_SUM = False  # every rank holds every expert
 
-    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False):
-        super().__init__(cfg, device, dtype, quantization, quantize_lm_head)
+    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False, tp=None):
+        super().__init__(cfg, device, dtype, quantization, quantize_lm_head, tp)
         self.sm_scale = float(rope_attention_scale(cfg) / cfg.head_dim**0.5)
 
     def _add_experts(self, layer, device, dtype) -> None:
@@ -99,7 +109,11 @@ class GptOssForCausalLM(MoeForCausalLM):
         return [w if kind == "sliding_attention" else None for kind in kinds]
 
     def attention_kwargs(self, l, layer) -> dict:
-        return dict(sliding_window=self.layer_windows()[l], sinks=layer.sinks.float())
+        sinks = layer.sinks  # [Hq], whole on every rank: the rank's heads' entries
+        if self.tp is not None:
+            n = sinks.shape[0] // self.tp_size
+            sinks = sinks[self.tp.rank * n : (self.tp.rank + 1) * n]
+        return dict(sliding_window=self.layer_windows()[l], sinks=sinks.float())
 
     def _moe(self, h: torch.Tensor, layer) -> torch.Tensor:
         """Top-k then softmax over the k, and the clamped interleaved

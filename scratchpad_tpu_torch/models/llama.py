@@ -33,7 +33,6 @@ row_parallel_sum``).
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -54,6 +53,7 @@ from scratchpad_tpu_torch.ops.quant.w4a16 import (
 from scratchpad_tpu_torch.models.common import (
     QuantLinear,
     apply_rope,
+    fill_random,
     compute_inv_freq,
     mrope_channel_components,
     mrope_cos_sin,
@@ -62,9 +62,11 @@ from scratchpad_tpu_torch.models.common import (
     rope_cos_sin,
     row_parallel_sum,
     silu_mul,
+    vocab_logits,
+    vocab_lookup,
 )
 from scratchpad_tpu_torch.ops.attention import write_kv
-from scratchpad_tpu_torch.parallel import shard_tensor, vocab_rows
+from scratchpad_tpu_torch.parallel import vocab_rows
 from scratchpad_tpu_torch.toppings.manager import apply_topping
 
 
@@ -208,6 +210,7 @@ class LlamaForCausalLM(nn.Module):
 
     # the runner may serve it through attention_backend="pallas"
     supports_pallas_attention = True
+    tp_family = "llama"  # its parallel.TP_LAYOUTS table
 
     def __init__(
         self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False, tp=None
@@ -279,33 +282,22 @@ class LlamaForCausalLM(nn.Module):
         rank then holds the tp 1 weights, and one whole tensor at most is
         alive at a time."""
         cfg = self.cfg
-        rank = 0 if self.tp is None else self.tp.rank
-
-        def fill(w: torch.Tensor, name: str, shape: tuple) -> None:
-            # shape: the single-device [out, in] (w's own at tp 1); fan-in: in
-            shape = tuple(w.shape) if self.tp is None else shape
-            r = torch.randn(shape, generator=generator, device=w.device, dtype=torch.float32)
-            w.copy_(shard_tensor(name, r / math.sqrt(shape[-1]), rank, self.tp_size))
-
-        H, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
-        Hq, Hkv = cfg.num_attention_heads * D, cfg.num_kv_heads * D
-        shapes = {"wq": (Hq, H), "wk": (Hkv, H), "wv": (Hkv, H), "wo": (H, Hq),
-                  "gate": (I, H), "up": (I, H), "down": (H, I)}
-        fill(self.embed.weight, "embed.weight", (cfg.vocab_size, H))
+        fill = lambda w, name: fill_random(w, name, generator, self.tp, self.tp_family, cfg.vocab_size)
+        fill(self.embed.weight, "embed.weight")
         for layer in self.layers:
             layer.input_norm.fill_(1.0)
             layer.post_norm.fill_(1.0)
             if cfg.use_qk_norm:
                 layer.q_norm.fill_(1.0)
                 layer.k_norm.fill_(1.0)
-            for t, shape in shapes.items():
+            for t in ("wq", "wk", "wv", "wo", "gate", "up", "down"):
                 lin = getattr(layer, t)
-                fill(lin.weight, f"layers.0.{t}.weight", shape)
+                fill(lin.weight, f"layers.0.{t}.weight")
                 if lin.bias is not None:
                     lin.bias.zero_()
         self.final_norm.fill_(1.0)
         if self.lm_head is not None:
-            fill(self.lm_head.weight, "lm_head.weight", (cfg.vocab_size, H))
+            fill(self.lm_head.weight, "lm_head.weight")
 
     HF_LAYER_MAP = {
         "self_attn.q_proj.weight": "wq.weight",
@@ -412,16 +404,9 @@ class LlamaForCausalLM(nn.Module):
         return torch.where((meta.tokens < 0)[:, None], meta.input_embeds.to(x.dtype), x)
 
     def lookup(self, ids: torch.Tensor) -> torch.Tensor:
-        """The embedding rows of ``ids``; under tensor parallelism each rank
-        looks up the ids in its vocabulary range, zero rows elsewhere, and
-        the ranks' rows are summed: exact, one rank holds each row."""
-        if self.tp is None:
-            return self.embed(ids)
-        rows = self.embed.num_embeddings
-        local = ids - self.tp.rank * rows
-        inside = (local >= 0) & (local < rows)
-        x = self.embed(local.clamp(0, rows - 1))
-        return self.tp.all_reduce(torch.where(inside[:, None], x, torch.zeros_like(x)))
+        """The embedding rows of ``ids``, vocabulary-parallel under tensor
+        parallelism (``common.vocab_lookup``)."""
+        return vocab_lookup(self.embed, ids, self.tp)
 
     def rope_tables(self, meta: ForwardMeta, inv_freq: torch.Tensor):
         """The forward's cos and sin: by 3-D positions on extend rows of
@@ -475,9 +460,7 @@ class LlamaForCausalLM(nn.Module):
             logits = self.lm_head_q(h).float()
         else:
             head = self.embed.weight if self.lm_head is None else self.lm_head.weight
-            logits = (h @ head.T).float()
-            if self.tp is not None:  # the rank's columns -> every column, on every rank
-                logits = self.tp.gather_vocab(logits, self.cfg.vocab_size)
+            logits = vocab_logits(h, head, self.cfg.vocab_size, self.tp)
         cap = self.cfg.logit_softcap
         if cap:
             logits = cap * torch.tanh(logits / cap)

@@ -34,6 +34,15 @@ extend branch is the port's own); ``attention_backend="pallas"`` is refused
 (``supports_pallas_attention`` False), and so are quantization and toppings
 (the JAX forward reads no ``layers_q`` and applies no adapters). An 8-bit KV
 pool (``kv_cache_dtype`` int8 or fp8) runs both kernels' 8-bit branches.
+
+Under tensor parallelism (``tp``) a rank holds its heads, its rows of o,
+its share of the dense MLP, of the shared expert and of each expert's width
+(JAX ``llama4.py:122-150``). The fused ``gate_up`` stack ``[E, H, 2I]`` is
+read as gate ``[..., :I]`` and up ``[..., I:]``, so a rank's shard holds its
+share of the gate columns, then its share of the up columns
+(``parallel.HALVES``): a plain cut of the fused axis would give rank 0
+gate columns only. The routed and the shared experts' partial sums are
+added before the layer's one MoE collective.
 """
 
 from __future__ import annotations
@@ -44,7 +53,14 @@ from torch import nn
 from scratchpad_tpu_torch.config.model_config import ModelConfig
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
 from scratchpad_tpu_torch.memory.kv_cache import KVCache
-from scratchpad_tpu_torch.models.common import apply_rope_interleaved, rms_norm, rope_cos_sin, silu_mul
+from scratchpad_tpu_torch.models.common import (
+    apply_rope_interleaved,
+    rms_norm,
+    rope_cos_sin,
+    row_parallel_sum,
+    silu_mul,
+    vocab_lookup,
+)
 from scratchpad_tpu_torch.models.llama import _linear
 from scratchpad_tpu_torch.models.mixtral import (
     MoeDecoderLayer,
@@ -72,12 +88,13 @@ def l2_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
 
 class Llama4ForCausalLM(MoeForCausalLM):
     supports_pallas_attention = False  # per-layer chunked and global masks
+    tp_family = "llama4"
     EXPERT_STACKS = ("gate_up", "down")
 
-    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False):
+    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False, tp=None):
         if quantization is not None or quantize_lm_head:
             raise NotImplementedError("Llama4ForCausalLM options not ported: quantization")
-        super().__init__(cfg, device, dtype)
+        super().__init__(cfg, device, dtype, tp=tp)
         L = cfg.num_hidden_layers
         if len(cfg.no_rope_layers) != L:
             raise ValueError(f"no_rope_layers has {len(cfg.no_rope_layers)} entries for {L} layers")
@@ -93,9 +110,9 @@ class Llama4ForCausalLM(MoeForCausalLM):
         """Attention (no qk-norm weights: the L2 norm has none), then the
         router, the expert stacks and the shared expert (``moe``), or the
         dense MLP."""
-        cfg = self.cfg
-        H, E, I = cfg.hidden_size, cfg.num_experts, cfg.intermediate_size
-        layer = MoeDecoderLayer(cfg, device, dtype, None, False, qk_norm=False)
+        cfg, n = self.cfg, self.tp_size
+        H, E, I = cfg.hidden_size, cfg.num_experts, cfg.intermediate_size // n
+        layer = MoeDecoderLayer(cfg, device, dtype, None, False, qk_norm=False, tp_size=n)
         layer.moe = l in moe_layer_ids(cfg)
         lin = lambda n_in, n_out: _linear(n_in, n_out, False, device, dtype)
         if layer.moe:
@@ -104,21 +121,22 @@ class Llama4ForCausalLM(MoeForCausalLM):
             layer.down = expert_stack(E, I, H, None, device, dtype)
             layer.s_gate, layer.s_up, layer.s_down = lin(H, I), lin(H, I), lin(I, H)
         else:
-            Im = cfg.intermediate_size_mlp or I
+            Im = (cfg.intermediate_size_mlp or cfg.intermediate_size) // n
             layer.gate, layer.up, layer.down_d = lin(H, Im), lin(H, Im), lin(Im, H)
         return layer
 
     def _moe(self, h: torch.Tensor, layer) -> torch.Tensor:
         """Top-k, a sigmoid of the picked logits, the weights on each
         expert's input; masked and dense, with the shared expert
-        (``llama4.py:198-221``)."""
-        E, I = self.cfg.num_experts, self.cfg.intermediate_size
+        (``llama4.py:198-221``); under tensor parallelism a rank's partial
+        sum of both."""
+        E = self.cfg.num_experts
         logits = layer.router(h).float()  # [T, E]
         topi = self.top_experts(logits)
         w = routing_weights(torch.sigmoid(logits.gather(1, topi)), topi, E, h.dtype)
         y = layer.s_down(silu_mul(layer.s_gate(h), layer.s_up(h)))
         gu = torch.matmul(h[None] * w.T[:, :, None], layer.gate_up)  # [E, T, 2I]
-        out = torch.matmul(silu_mul(gu[..., :I], gu[..., I:]), layer.down)  # [E, T, H]
+        out = torch.matmul(silu_mul(*gu.chunk(2, dim=-1)), layer.down)  # [E, T, H]
         return y + out.sum(dim=0)
 
     HF_LAYER_MAP = {
@@ -145,8 +163,8 @@ class Llama4ForCausalLM(MoeForCausalLM):
     def forward(self, meta: ForwardMeta, kv: KVCache) -> torch.Tensor:
         cfg = self.cfg
         T = meta.num_tokens
-        Hq, Hkv, D = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
-        eps = cfg.rms_norm_eps
+        Hq, Hkv = cfg.num_attention_heads // self.tp_size, cfg.num_kv_heads // self.tp_size
+        D, eps = cfg.head_dim, cfg.rms_norm_eps
         attend = self.decode_attention if meta.mode == ForwardMode.DECODE else self.extend_attention
         cos, sin = rope_cos_sin(meta.positions, self.inv_freq)
         # the NoPE layers' temperature, by position
@@ -154,7 +172,7 @@ class Llama4ForCausalLM(MoeForCausalLM):
             torch.log1p(torch.floor((meta.positions.float() + 1.0) / cfg.floor_scale)) * cfg.attn_scale
             + 1.0
         )[:, None, None]
-        x = self.embed(meta.tokens)  # [T, H]
+        x = vocab_lookup(self.embed, meta.tokens, self.tp)  # [T, H]
         for l, layer in enumerate(self.layers):
             h = rms_norm(x, layer.input_norm, eps)
             q = layer.wq(h).view(T, Hq, D)
@@ -168,12 +186,12 @@ class Llama4ForCausalLM(MoeForCausalLM):
                 q = (q * temp).to(q.dtype)
             write_kv(kv, k, v, l, meta.out_cache_loc)
             attn = attend(q, kv, l, meta, sm_scale=self.sm_scale, chunk_size=self.layer_chunks[l])
-            x = x + layer.wo(attn.reshape(T, Hq * D))
+            x = x + self.o_proj(layer, attn.reshape(T, Hq * D))
             h2 = rms_norm(x, layer.post_norm, eps)
             if layer.moe:
-                x = x + self._moe(h2, layer)
+                x = x + self.moe_sum(self._moe(h2, layer))
             else:
-                x = x + layer.down_d(silu_mul(layer.gate(h2), layer.up(h2)))
+                x = x + row_parallel_sum(layer.down_d(silu_mul(layer.gate(h2), layer.up(h2))), self.tp)
         h = rms_norm(x, self.final_norm, eps)
         if meta.capture_all_hidden:
             return h  # [T, H], for sequence scoring

@@ -45,7 +45,6 @@ stack upcast to the model dtype in one batched product.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -58,9 +57,14 @@ from scratchpad_tpu_torch.memory.kv_cache import KVCache
 from scratchpad_tpu_torch.models.common import (
     apply_rope,
     compute_inv_freq,
+    fill_experts,
+    fill_random,
     rms_norm,
     rope_cos_sin,
+    row_parallel_sum,
     silu_mul,
+    vocab_logits,
+    vocab_lookup,
 )
 from scratchpad_tpu_torch.models.llama import _linear, _quant_linear
 from scratchpad_tpu_torch.ops.attention import write_kv
@@ -72,6 +76,12 @@ from scratchpad_tpu_torch.ops.quant.fp8 import (
 )
 from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
 from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_model_params
+from scratchpad_tpu_torch.parallel import vocab_rows
+
+# the router digest's modulus and multiplier (a rolling hash kept on the
+# device: no host sync a layer)
+DIGEST_MOD = 2**31 - 1
+DIGEST_MUL = 1_000_003
 
 
 def expert_stack(E: int, n_in: int, n_out: int, quantization, device, dtype):
@@ -106,10 +116,10 @@ class MoeDecoderLayer(nn.Module):
     experts."""
 
     def __init__(self, cfg: ModelConfig, device, dtype, quantization, attn_bias: bool,
-                 qk_norm: bool):
+                 qk_norm: bool, tp_size: int = 1):
         super().__init__()
         H, D = cfg.hidden_size, cfg.head_dim
-        Hq, Hkv = cfg.num_attention_heads, cfg.num_kv_heads
+        Hq, Hkv = cfg.num_attention_heads // tp_size, cfg.num_kv_heads // tp_size
         self.input_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.post_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         if quantization is None:
@@ -139,13 +149,17 @@ class MoeForCausalLM(nn.Module):
     supports_pallas_attention = True
     supports_toppings = False
     supports_quantized_lm_head = False
+    tp_family = "mixtral"
     ATTN_BIAS = False
     EXPERT_STACKS: tuple = ()
     # the subclass's extra per-layer tensors that are biases (zero at init)
     BIASES: tuple = ()
+    # under tensor parallelism: the experts' outputs are a rank's partial
+    # sums, added over the group
+    MOE_SUM = True
 
     def __init__(
-        self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False
+        self, cfg: ModelConfig, device, dtype, quantization=None, quantize_lm_head=False, tp=None
     ):
         super().__init__()
         unported = [
@@ -161,10 +175,15 @@ class MoeForCausalLM(nn.Module):
             raise NotImplementedError(
                 f"{type(self).__name__} options not ported: {', '.join(unported)}"
             )
+        if tp is not None and quantization:
+            raise NotImplementedError("quantized weights under tensor parallelism (ROADMAP Queue 1, item 10(b))")
         self._check_experts(cfg)
         self.cfg = cfg
         self.quantization = quantization
-        H, V = cfg.hidden_size, cfg.vocab_size
+        self.tp = tp
+        self.tp_size = 1 if tp is None else tp.size
+        H = cfg.hidden_size
+        V = vocab_rows(cfg.vocab_size, self.tp_size)  # the rank's vocabulary rows
         self.embed = skip_init(nn.Embedding, V, H, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
             self._make_layer(l, device, dtype) for l in range(cfg.num_hidden_layers)
@@ -178,6 +197,10 @@ class MoeForCausalLM(nn.Module):
         self.decode_attention = None  # set by the runner from attention_backend
         self.extend_attention = None
         self.toppings = None
+        # tensor parallel: a digest of every router pick (an i64 on the
+        # device) and their count
+        self.router_digest = torch.zeros((), dtype=torch.int64, device=device)
+        self.router_picks = 0
 
     @staticmethod
     def _check_experts(cfg: ModelConfig) -> None:
@@ -193,7 +216,7 @@ class MoeForCausalLM(nn.Module):
 
     def _make_layer(self, l: int, device, dtype) -> MoeDecoderLayer:
         layer = MoeDecoderLayer(self.cfg, device, dtype, self.quantization, self.ATTN_BIAS,
-                                self.cfg.use_qk_norm)
+                                self.cfg.use_qk_norm, self.tp_size)
         self._add_experts(layer, device, dtype)
         return layer
 
@@ -209,8 +232,35 @@ class MoeForCausalLM(nn.Module):
     def top_experts(self, scores: torch.Tensor) -> torch.Tensor:
         """i64 [T, k]: each token's k experts, by its router ``scores`` [T, E]
         (``lax.top_k``'s order: descending). One call a layer and forward, so
-        a caller may record and replay a forward's routing."""
-        return torch.topk(scores, self.cfg.num_experts_per_tok, dim=-1).indices
+        a caller may record and replay a forward's routing. A
+        tensor-parallel rank folds the picks into ``router_digest``."""
+        topi = torch.topk(scores, self.cfg.num_experts_per_tok, dim=-1).indices
+        if self.tp is not None:
+            self.fold_picks(topi)
+        return topi
+
+    def fold_picks(self, topi: torch.Tensor) -> None:
+        """``router_digest`` <- a rolling hash of it and the picks ``topi``,
+        on the device (position-weighted, modulo ``DIGEST_MOD``)."""
+        n = topi.numel()
+        pos = torch.arange(n, device=topi.device, dtype=torch.int64)
+        h = ((topi.reshape(-1).long() + 1) * (pos * 40503 % 65521 + 1)).sum() % DIGEST_MOD
+        self.router_digest = (self.router_digest * DIGEST_MUL + h) % DIGEST_MOD
+        self.router_picks += n
+
+    def o_proj(self, layer, attn: torch.Tensor) -> torch.Tensor:
+        """o of the attention output ``attn`` [T, Hq D]; under tensor
+        parallelism the ranks' partial products summed, o's bias (GPT-OSS)
+        added once, after the sum."""
+        if self.tp is None:
+            return layer.wo(attn)
+        y = row_parallel_sum(torch.nn.functional.linear(attn, layer.wo.weight), self.tp)
+        return y if layer.wo.bias is None else y + layer.wo.bias
+
+    def moe_sum(self, y: torch.Tensor) -> torch.Tensor:
+        """The experts' output ``y``: a rank's partial sum, added over the
+        group (``MOE_SUM``), or already whole."""
+        return row_parallel_sum(y, self.tp) if self.MOE_SUM else y
 
     # ------------------------------------------------------------- parameters
 
@@ -218,14 +268,12 @@ class MoeForCausalLM(nn.Module):
     def init_random_(self, generator: torch.Generator) -> None:
         """Random weights, the JAX package's scheme: normal / sqrt(fan_in),
         norms at one, biases at zero. An expert stack is drawn one expert at
-        a time on its device (GPT-OSS-20B's stacks are 38 GB in bf16; one
-        f32 draw of a layer's would not fit beside them)."""
-
-        def fill(w: torch.Tensor, fan_in: int) -> None:
-            r = torch.randn(w.shape, generator=generator, device=w.device, dtype=torch.float32)
-            w.copy_(r / math.sqrt(fan_in))
-
-        fill(self.embed.weight, self.cfg.hidden_size)
+        a time on its device (``common.fill_experts``; GPT-OSS-20B's stacks
+        are 38 GB in bf16: one f32 draw of a layer's would not fit beside
+        them). A tensor-parallel rank keeps its shard of each tp 1 draw."""
+        family, tp = self.tp_family, self.tp
+        fill = lambda w, name: fill_random(w, name, generator, tp, family, self.cfg.vocab_size)
+        fill(self.embed.weight, "embed.weight")
         for layer in self.layers:
             for name, p in layer.named_parameters(recurse=False):
                 if name.endswith("norm"):
@@ -233,18 +281,17 @@ class MoeForCausalLM(nn.Module):
                 elif name in self.BIASES:
                     p.zero_()
                 elif name in self.EXPERT_STACKS:
-                    for e in range(p.shape[0]):
-                        fill(p[e], p.shape[1])
+                    fill_experts(p, f"layers.0.{name}", generator, tp, family)
                 else:
                     self._init_extra_(name, p, generator)
-            for lin in layer.children():
+            for name, lin in layer.named_children():
                 if isinstance(lin, nn.Linear):
-                    fill(lin.weight, lin.in_features)
+                    fill(lin.weight, f"layers.0.{name}.weight")
                     if lin.bias is not None:
                         lin.bias.zero_()
         self.final_norm.fill_(1.0)
         if self.lm_head is not None:
-            fill(self.lm_head.weight, self.cfg.hidden_size)
+            fill(self.lm_head.weight, "lm_head.weight")
 
     def _init_extra_(self, name: str, p: torch.Tensor, generator) -> None:
         raise ValueError(f"no random init for {name}")
@@ -348,11 +395,11 @@ class MoeForCausalLM(nn.Module):
     def forward(self, meta: ForwardMeta, kv: KVCache) -> torch.Tensor:
         cfg = self.cfg
         T = meta.num_tokens
-        Hq, Hkv, D = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
-        eps = cfg.rms_norm_eps
+        Hq, Hkv = cfg.num_attention_heads // self.tp_size, cfg.num_kv_heads // self.tp_size
+        D, eps = cfg.head_dim, cfg.rms_norm_eps
         attend = self.decode_attention if meta.mode == ForwardMode.DECODE else self.extend_attention
         cos, sin = rope_cos_sin(meta.positions, self.inv_freq)
-        x = self.embed(meta.tokens)  # [T, H]
+        x = vocab_lookup(self.embed, meta.tokens, self.tp)  # [T, H]
         for l, layer in enumerate(self.layers):
             h = rms_norm(x, layer.input_norm, eps)
             q = layer.wq(h).view(T, Hq, D)
@@ -367,8 +414,8 @@ class MoeForCausalLM(nn.Module):
                 q, kv, l, meta, sm_scale=self.sm_scale, logit_cap=None,
                 **self.attention_kwargs(l, layer),
             )
-            x = x + layer.wo(attn.reshape(T, Hq * D))
-            x = x + self._moe(rms_norm(x, layer.post_norm, eps), layer)
+            x = x + self.o_proj(layer, attn.reshape(T, Hq * D))
+            x = x + self.moe_sum(self._moe(rms_norm(x, layer.post_norm, eps), layer))
         h = rms_norm(x, self.final_norm, eps)
         if meta.capture_all_hidden:
             return h  # [T, H], for sequence scoring
@@ -378,9 +425,10 @@ class MoeForCausalLM(nn.Module):
         return self.head_logits(last)
 
     def head_logits(self, h: torch.Tensor) -> torch.Tensor:
-        """f32 logits of final-normed hidden rows ``h`` [N, H]."""
+        """f32 logits of final-normed hidden rows ``h`` [N, H] (every column,
+        gathered under tensor parallelism)."""
         head = self.embed.weight if self.lm_head is None else self.lm_head.weight
-        return (h @ head.T).float()
+        return vocab_logits(h, head, self.cfg.vocab_size, self.tp)
 
 
 class MixtralForCausalLM(MoeForCausalLM):
@@ -395,7 +443,7 @@ class MixtralForCausalLM(MoeForCausalLM):
 
     def _add_experts(self, layer, device, dtype) -> None:
         cfg = self.cfg
-        H, E, I = cfg.hidden_size, cfg.num_experts, self.intermediate_size
+        H, E, I = cfg.hidden_size, cfg.num_experts, self.intermediate_size // self.tp_size
         layer.router = _linear(H, E, False, device, dtype)
         layer.w1 = expert_stack(E, H, I, self.quantization, device, dtype)
         layer.w3 = expert_stack(E, H, I, self.quantization, device, dtype)

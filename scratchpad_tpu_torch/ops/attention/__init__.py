@@ -1,7 +1,7 @@
 from scratchpad_tpu_torch.ops.attention.decode_ablate import decode_ablate, decode_ablate_plain
 from scratchpad_tpu_torch.ops.attention.gqa_decode import (
     decode_attention_gqa,
-    make_decode_attention_gqa_tp,
+    make_decode_attention_tp,
     paged_decode_attention,
     paged_decode_attention_plain,
     paged_decode_attention_quant,
@@ -31,18 +31,15 @@ def attention_functions(backend: str, tp=None, heads=None):
     ``attention_ragged`` (the JAX package's ``pallas`` extends through its
     XLA path, which the port keeps off the card). On a tensor-parallel rank
     (``tp``, a ``parallel.TPGroup``, with the model's (Hq, Hkv) ``heads``)
-    ``auto`` takes the rank-local wrappers of the same kernels (JAX
-    :235-273, :418-424); ``pallas`` is refused there, as the JAX runner has
-    no tensor-parallel wrapper for it."""
+    each takes the rank-local wrapper of the same kernel (JAX :235-273,
+    :418-424): ``pallas`` decodes through ``decode_attention_pallas`` (row
+    9) on the rank's heads, where the JAX runner falls back to XLA with a
+    warning (:272-273)."""
     decode = {"auto": decode_attention_gqa, "pallas": decode_attention_pallas}.get(backend)
     if decode is None:
         raise NotImplementedError(f"attention_backend={backend!r} is not ported")
     if tp is not None:
-        if backend != "auto":
-            raise NotImplementedError(
-                f"attention_backend={backend!r} under tensor parallelism (ROADMAP Queue 1, item 10(a))"
-            )
-        return make_decode_attention_gqa_tp(tp, heads), make_attention_ragged_tp(tp, heads)
+        return make_decode_attention_tp(decode, tp, heads), make_attention_ragged_tp(tp, heads)
     return decode, attention_ragged
 
 
@@ -56,7 +53,7 @@ __all__ = [
     "decode_attention_plain",
     "extend_attention_plain",
     "make_attention_ragged_tp",
-    "make_decode_attention_gqa_tp",
+    "make_decode_attention_tp",
     "paged_decode_attention",
     "paged_decode_attention_plain",
     "paged_decode_attention_quant",

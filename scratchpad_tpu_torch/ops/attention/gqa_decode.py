@@ -556,15 +556,19 @@ def check_rank_heads(q: torch.Tensor, kv: KVCache, heads: tuple[int, int], group
         )
 
 
-def make_decode_attention_gqa_tp(group, heads: tuple[int, int]):
-    """Decode on a tensor-parallel rank, the counterpart of the JAX
-    ``make_decode_attention_gqa_tp`` (``gqa_decode.py:1114``): heads are
-    independent, so each rank runs the unmodified kernel (row 1, or 1q on
-    8-bit pages) over its local Hq/tp query heads and Hkv/tp kv heads, with
-    no collective. ``heads``: the model's (Hq, Hkv)."""
+def make_decode_attention_tp(decode, group, heads: tuple[int, int]):
+    """Decode on a tensor-parallel rank through the model-facing ``decode``
+    (``decode_attention_gqa`` or ``decode_attention_pallas``), the
+    counterpart of the JAX ``make_decode_attention_gqa_tp``
+    (``gqa_decode.py:1114``): heads are independent, so each rank runs the
+    unmodified kernel (row 1, 1q on 8-bit pages, or row 9) over its local
+    Hq/tp query heads and Hkv/tp kv heads, with no collective. ``heads``:
+    the model's (Hq, Hkv)."""
+    what = f"{decode.__name__}_tp"
 
-    def decode_attention_gqa_tp(q, kv: KVCache, layer_idx: int, meta: ForwardMeta, **kw):
-        check_rank_heads(q, kv, heads, group, "decode_attention_gqa_tp")
-        return decode_attention_gqa(q, kv, layer_idx, meta, **kw)
+    def decode_attention_tp(q, kv: KVCache, layer_idx: int, meta: ForwardMeta, **kw):
+        check_rank_heads(q, kv, heads, group, what)
+        return decode(q, kv, layer_idx, meta, **kw)
 
-    return decode_attention_gqa_tp
+    decode_attention_tp.__name__ = decode_attention_tp.__qualname__ = what
+    return decode_attention_tp

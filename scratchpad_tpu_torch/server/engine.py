@@ -195,11 +195,14 @@ class Engine:
         runner = self.scheduler.runner
         self.scheduler.runner = LeaderRunner(runner, self._ctrl)
         g = self.tp_group
+        # MLA: every rank keeps the whole latent pool (JAX kv_cache.py:269),
+        # so its KV tokens a rank do not grow with tp
+        pool = "the whole latent pool on every rank" if model_config.is_mla else "its kv heads' pool"
         logger.info(
-            "[tp] %d ranks, backend %s, rank 0 on %s (%d ranks on it), %.2f GiB of parameters and "
-            "%d KV tokens a rank, ready in %.1f s",
-            g.size, g.backend, g.device, g.ranks_on_device, runner.param_bytes / 2**30,
-            runner.max_total_num_tokens, time.monotonic() - t0,
+            "[tp] %s: %d ranks, backend %s, rank 0 on %s (%d ranks on it), %.2f GiB of parameters and "
+            "%d KV tokens a rank (%s), ready in %.1f s",
+            model_config.architecture, g.size, g.backend, g.device, g.ranks_on_device,
+            runner.param_bytes / 2**30, runner.max_total_num_tokens, pool, time.monotonic() - t0,
         )
 
     def _stop_tp(self, kill: bool = False) -> None:

@@ -1351,3 +1351,57 @@ def test_spans_with_a_chunk_are_refused(gen):
     q, k, v, pt, kv_lens, cu, spans = _span_case(2, 128, 4, gen)
     with pytest.raises(ValueError, match="chunk"):
         paged_extend_attention(q, k, v, pt, kv_lens, cu, 0.1, chunk_size=64, mm_spans=spans)
+
+
+@pytest.mark.parametrize(
+    "label, hf",
+    [
+        ("gemma-2-2b-tp2", dict(architectures=["Gemma2ForCausalLM"], hidden_size=512, intermediate_size=1024,
+                                num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+                                query_pre_attn_scalar=256, sliding_window=128, attn_logit_softcapping=50.0,
+                                final_logit_softcapping=30.0, tie_word_embeddings=True)),
+        ("gpt-oss-20b-tp2", dict(architectures=["GptOssForCausalLM"], hidden_size=512, intermediate_size=256,
+                                 num_attention_heads=16, num_key_value_heads=4, head_dim=64,
+                                 num_local_experts=8, num_experts_per_tok=2, sliding_window=128,
+                                 layer_types=["sliding_attention", "full_attention"] * 2, attention_bias=True)),
+        ("qwen3-30b-a3b-tp2", dict(architectures=["Qwen3MoeForCausalLM"], hidden_size=512,
+                                          moe_intermediate_size=128, num_attention_heads=8,
+                                          num_key_value_heads=4, head_dim=128, num_experts=16,
+                                          num_experts_per_tok=4, norm_topk_prob=True)),
+        ("llama4-scout-tp2", dict(architectures=["Llama4ForCausalLM"], hidden_size=512, intermediate_size=256,
+                                  intermediate_size_mlp=512, num_attention_heads=10, num_key_value_heads=2,
+                                  head_dim=128, num_local_experts=4, num_experts_per_tok=1, use_qk_norm=True,
+                                  attention_chunk_size=256, attn_temperature_tuning=True, floor_scale=256,
+                                  attn_scale=0.1)),
+        ("deepseek-v2-lite-tp2", dict(architectures=["DeepseekV2ForCausalLM"], hidden_size=512,
+                                      intermediate_size=1024, moe_intermediate_size=128, num_attention_heads=8,
+                                      num_key_value_heads=8, kv_lora_rank=128, qk_nope_head_dim=64,
+                                      qk_rope_head_dim=32, v_head_dim=64, n_routed_experts=16,
+                                      num_experts_per_tok=4, n_shared_experts=2, first_k_dense_replace=1,
+                                      n_group=1, topk_group=1)),
+    ],
+    ids=["gemma2", "gpt-oss", "qwen3-moe-pallas", "llama4", "deepseek"],
+)
+def test_tp_families_phase_on_the_card(label, hf, gen):
+    """``chip_smoke.phase_tp_families`` on one family of ``TP_FAMILIES`` at
+    narrow widths (4 layers, bf16, vocabulary 4096): the tp 2 engines (two
+    ranks on cuda:0 over gloo) held to the tp 1 engine beside them: no
+    check fails, each attention kernel of the configuration's path launches
+    once a layer a forward on every rank (none for MLA), and the
+    collectives a forward are ``per_layer`` a layer plus two."""
+    import chip_smoke
+    from scratchpad_tpu_torch.config import ModelConfig, ServerArgs
+    from scratchpad_tpu_torch.server.engine import Engine
+
+    cfg = ModelConfig.from_hf_config(dict(hf, vocab_size=4096, num_hidden_layers=4, max_position_embeddings=16384,
+                                          rms_norm_eps=1e-6, rope_theta=10000.0))
+    ref_label, _, _, per_layer = chip_smoke.TP_FAMILIES[label]
+    eng = Engine(ServerArgs(random_weights=True, dtype="bfloat16", page_size=16, max_total_tokens=16384),
+                 model_config=cfg)
+    chip_smoke.FAILURES.clear()
+    out = chip_smoke.phase_tp_families(eng, ref_label, {})[label]
+    assert chip_smoke.FAILURES == []
+    assert out["collectives_per_forward"] == per_layer * 4 + 2
+    assert all(n == [4.0, 4.0] for n in out["launches_per_forward"].values())
+    assert bool(out["launches_per_forward"]) != cfg.is_mla
+    assert out["worst_logit_rel"] <= chip_smoke.LOGIT_RTOL[label]

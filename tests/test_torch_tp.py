@@ -9,8 +9,14 @@ the rendezvous settings and every refusal.
   the dense model's, on the same state: equal to f32 rounding of the head's
   matmul (1e-5 of max |logit|; the embedding bit for bit), the padded
   vocabulary columns dropped.
+- Every text family's layout (``parallel.TP_LAYOUTS``): each rank's shards
+  have the shapes of its tp 2 model's tensors and join back to the
+  single-device state; Llama-4's fused gate|up stack is cut into each
+  rank's gate and up shares, which joined as gate then up give the stack.
+- ``attention_backend`` ``auto`` and ``pallas`` on a rank's heads.
 - Each option that tp > 1 does not serve yet raises with its ROADMAP item,
-  from ``ServerArgs``, from the model check, and from a live engine.
+  from ``ServerArgs``, from the model check (the vision classes), and from a
+  live engine.
 - Faults: a follower that raises at load, and one killed while serving,
   make the engine raise within ``FAULT_S``, well before ``DIST_TIMEOUT_S``.
 - ``sp serve --tp-size 2`` answers a chat request with ``Engine.generate``'s
@@ -40,10 +46,21 @@ from scratchpad_tpu_torch.memory.kv_cache import KVCacheConfig, create_kv_cache
 from scratchpad_tpu_torch.models.common import row_parallel_sum
 from scratchpad_tpu_torch.models.llama import LlamaForCausalLM
 from scratchpad_tpu_torch.ops.attention import attention_functions
-from scratchpad_tpu_torch.parallel import TPGroup, check_tp_model, free_port, shard_tensor, vocab_rows
+from scratchpad_tpu_torch.models.registry import get_model_class
+from scratchpad_tpu_torch.parallel import (
+    TPGroup,
+    check_tp_model,
+    free_port,
+    shard_tensor,
+    split_of,
+    tp_family,
+    vocab_rows,
+)
 from scratchpad_tpu_torch.sampling.sampling_params import SamplingParams
 from scratchpad_tpu_torch.server.engine import Engine
 from test_torch_engine import ARGS, MARGIN, _teacher_forced_margins
+from test_torch_mllama import model_kw as mllama_kw
+from test_torch_vision import model_kw as vlm_kw
 from torch_tp_ranks import LayerMoreInFollowers, vocab_rank
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -158,20 +175,23 @@ def _pool(heads: int) -> tuple:
 def test_rank_attention_wrappers_take_the_rank_heads_only():
     """A rank of tp 2 over the model's (Hq 4, Hkv 2): q of 2 heads over a
     pool of 1 kv head runs the wrapped kernel (here its plain version);
-    the model-wide head counts are refused."""
+    the model-wide head counts are refused. ``pallas`` decodes through
+    ``decode_attention_pallas`` on the rank's heads, as ``auto`` does
+    through ``decode_attention_gqa``."""
     group = TPGroup(rank=1, size=2, device=torch.device("cpu"), backend="gloo", ranks_on_device=2)
     decode, extend = attention_functions("auto", group, (4, 2))
     assert (decode.__name__, extend.__name__) == ("decode_attention_gqa_tp", "attention_ragged_tp")
+    pallas, pallas_extend = attention_functions("pallas", group, (4, 2))
+    assert (pallas.__name__, pallas_extend.__name__) == ("decode_attention_pallas_tp", "attention_ragged_tp")
     kv, meta = _pool(1)
     q = torch.randn(2, 2, 32)
     assert decode(q, kv, 0, meta, sm_scale=0.2).shape == (2, 2, 32)
     assert extend(q, kv, 0, meta, sm_scale=0.2).shape == (2, 2, 32)
+    assert torch.equal(pallas(q, kv, 0, meta, sm_scale=0.2), decode(q, kv, 0, meta, sm_scale=0.2))
     kv_full, _ = _pool(2)
-    for fn in (decode, extend):
+    for fn in (decode, extend, pallas):
         with pytest.raises(ValueError, match="not the rank's 2 and 1"):
             fn(torch.randn(2, 4, 32), kv_full, 0, meta, sm_scale=0.2)
-    with pytest.raises(NotImplementedError, match=r"item 10\(a\)"):
-        attention_functions("pallas", group, (4, 2))
 
 
 def test_rendezvous_addresses_resolve():
@@ -192,9 +212,8 @@ def test_rendezvous_addresses_resolve():
         (dict(host_kv_cache_tokens=4096), r"10\(c\)"),
         (dict(enable_param_offload=True), r"10\(c\)"),
         (dict(enable_custom_logit_processor=True), r"10\(c\)"),
-        (dict(attention_backend="pallas"), r"10\(a\)"),
     ],
-    ids=["w4a8", "fp8", "speculation", "host-tier", "offload", "custom-processors", "pallas"],
+    ids=["w4a8", "fp8", "speculation", "host-tier", "offload", "custom-processors"],
 )
 def test_tp_refuses_what_it_does_not_serve_yet(setting, item):
     with pytest.raises(NotImplementedError, match=f"tp_size=2 is not ported yet .*item {item}"):
@@ -212,27 +231,100 @@ def test_other_parallel_modes_stay_refused(setting):
 
 
 TINY_MOE = dict(num_experts=4, num_experts_per_tok=2)
+# one tiny config of every text family that tensor parallelism serves
+FAMILIES = {
+    "gemma2": get_preset("tiny-gemma2"),
+    "gemma3": get_preset("tiny-gemma2", architecture="Gemma3ForCausalLM", sliding_window_pattern=2),
+    "phi3": get_preset("tiny-debug", architecture="Phi3ForCausalLM"),
+    "apertus": get_preset("tiny-debug", architecture="ApertusForCausalLM"),
+    "mixtral": get_preset("tiny-debug", architecture="MixtralForCausalLM", **TINY_MOE),
+    "qwen3-moe": get_preset("tiny-debug", architecture="Qwen3MoeForCausalLM", moe_intermediate_size=96, **TINY_MOE),
+    "gpt-oss": get_preset("tiny-gpt-oss", tie_word_embeddings=False),
+    "llama4": get_preset("tiny-debug", architecture="Llama4ForCausalLM", interleave_moe_layer_step=2,
+                         intermediate_size_mlp=160, attention_chunk_size=8, **TINY_MOE),
+    "deepseek-v2": get_preset("tiny-debug", architecture="DeepseekV2ForCausalLM", kv_lora_rank=32,
+                              qk_nope_head_dim=16, qk_rope_head_dim=16, v_head_dim=32, first_k_dense_replace=1,
+                              n_shared_experts=1, moe_intermediate_size=32, **TINY_MOE),
+    "deepseek-v3": get_preset("tiny-debug", architecture="DeepseekV3ForCausalLM", kv_lora_rank=32, q_lora_rank=24,
+                              qk_nope_head_dim=16, qk_rope_head_dim=16, v_head_dim=32, first_k_dense_replace=1,
+                              n_shared_experts=1, moe_intermediate_size=32, **TINY_MOE),
+}
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_every_family_shards_to_its_tp_model_and_joins_back(name):
+    """The family's seeded single-device state, cut by its layout: each
+    rank's shard has the shape of its tp 2 model's tensor of that name, and
+    the ranks' shards joined along the split give back the state (the
+    vocabulary's padding dropped); a replicated tensor is the same on every
+    rank."""
+    cfg = FAMILIES[name]
+    check_tp_model(cfg, TP)
+    family = tp_family(cfg)
+    cls = get_model_class(cfg.architecture)
+    model = cls(cfg, "cpu", torch.float32)
+    model.init_random_(torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    group = TPGroup(rank=0, size=TP, device=torch.device("cpu"), backend="gloo", ranks_on_device=TP)
+    want = {k: tuple(t.shape) for k, t in cls(cfg, "cpu", torch.float32, tp=group).state_dict().items()}
+    shards = [shard_state(state, r, TP, family) for r in range(TP)]
+    assert set(want) == set(state)
+    for key, full in state.items():
+        parts = [s[key] for s in shards]
+        assert all(tuple(p.shape) == want[key] for p in parts), (key, parts[0].shape, want[key])
+        split = split_of(key, family)
+        if split is None:
+            assert all(torch.equal(p, full) for p in parts), key
+        elif split == "vocab":
+            assert torch.equal(torch.cat(parts)[: cfg.vocab_size], full), key
+        elif isinstance(split, tuple):  # Llama-4's gate|up: each rank's gate share, then its up share
+            halves = [p.chunk(2, split[1]) for p in parts]
+            joined = [torch.cat([h[i] for h in halves], split[1]) for i in (0, 1)]
+            assert torch.equal(torch.cat(joined, split[1]), full), key
+        else:
+            assert torch.equal(torch.cat(parts, split), full), key
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_llama4_gate_up_shards_join_as_gate_then_up(size):
+    """``shard_tensor`` on Llama-4's fused gate|up stack [E, H, 2I]: rank
+    r's shard is [E, H, 2I / size], its first half gate columns [r I / size,
+    (r + 1) I / size) and its second half the same up columns; the ranks'
+    gate halves, then their up halves, joined give back the stack. A plain
+    cut of the fused axis would give rank 0 gate columns only."""
+    E, H, I = 3, 8, 16
+    gu = torch.randn(E, H, 2 * I, generator=torch.Generator().manual_seed(size))
+    gate, up = gu[..., :I], gu[..., I:]
+    shards = [shard_tensor("layers.1.gate_up", gu, r, size, "llama4") for r in range(size)]
+    w = I // size
+    for r, sh in enumerate(shards):
+        assert sh.shape == (E, H, 2 * w)
+        assert torch.equal(sh[..., :w], gate[..., r * w : (r + 1) * w])
+        assert torch.equal(sh[..., w:], up[..., r * w : (r + 1) * w])
+    gates, ups = (torch.cat([sh[..., half] for sh in shards], -1) for half in (slice(0, w), slice(w, None)))
+    joined = torch.cat([gates, ups], -1)
+    assert torch.equal(joined, gu)
+    with pytest.raises(ValueError, match="does not split"):
+        shard_tensor("layers.1.gate_up", torch.zeros(E, H, 6), 0, 4, "llama4")
 
 
 @pytest.mark.parametrize(
     "cfg",
     [
-        get_preset("tiny-gemma2"),
-        get_preset("tiny-debug", architecture="Phi3ForCausalLM"),
-        get_preset("tiny-debug", architecture="ApertusForCausalLM"),
-        get_preset("tiny-debug", architecture="MixtralForCausalLM", **TINY_MOE),
-        get_preset("tiny-gpt-oss"),
-        get_preset("tiny-debug", architecture="DeepseekV2ForCausalLM", kv_lora_rank=32, qk_nope_head_dim=16,
-                   qk_rope_head_dim=16, v_head_dim=32, **TINY_MOE),
-        get_preset("tiny-debug", architecture="LlavaForConditionalGeneration"),
+        ModelConfig(**vlm_kw("llava"), dtype="float32"),
+        ModelConfig(**vlm_kw("qwen2vl"), dtype="float32"),
+        ModelConfig(**vlm_kw("gemma3"), dtype="float32"),
+        ModelConfig(**mllama_kw(), dtype="float32"),
     ],
-    ids=["gemma2", "phi3", "apertus", "mixtral", "gpt-oss", "deepseek", "llava"],
+    ids=["llava", "qwen2-vl", "gemma3-mm", "mllama"],
 )
 def test_tp_refuses_the_other_families_before_any_rank_starts(cfg):
-    with pytest.raises(NotImplementedError, match=r"Llama family .*item 10\(a\)"):
+    """The vision classes wait for the leader's relay of image encoding
+    (ROADMAP Queue 1, item 10(c)): refused by the model check and by the
+    engine before it starts a follower."""
+    with pytest.raises(NotImplementedError, match=r"vision models .*item 10\(c\)"):
         check_tp_model(cfg, 2)
-    # the engine refuses before it starts a follower
-    with pytest.raises(NotImplementedError, match=r"item 10\(a\)"):
+    with pytest.raises(NotImplementedError, match=r"item 10\(c\)"):
         Engine(ServerArgs(random_weights=True, dtype="float32", device="cpu", page_size=4,
                           max_total_tokens=512, tp_size=2), model_config=cfg)
     assert not mp.active_children()
@@ -243,6 +335,29 @@ def test_tp_must_divide_the_kv_heads():
         check_tp_model(get_preset("tiny-debug", num_key_value_heads=1, num_attention_heads=4), 2)
     for arch in ("LlamaForCausalLM", "MistralForCausalLM", "Qwen2ForCausalLM", "Qwen3ForCausalLM"):
         check_tp_model(get_preset("tiny-debug", architecture=arch), 2)
+
+
+@pytest.mark.parametrize(
+    "cfg, match",
+    [
+        # Gemma 3 1B: one kv head
+        (get_preset("tiny-gemma2", architecture="Gemma3ForCausalLM", num_key_value_heads=1),
+         r"num_key_value_heads \(1\)"),
+        (get_preset("tiny-debug", architecture="MixtralForCausalLM", intermediate_size=97, **TINY_MOE),
+         r"moe_intermediate_size \(97\)"),
+        # MLA: the query heads, not the kv heads, and the shared experts' width
+        (get_preset("tiny-debug", architecture="DeepseekV2ForCausalLM", kv_lora_rank=32, qk_nope_head_dim=16,
+                    qk_rope_head_dim=16, v_head_dim=32, num_attention_heads=3, num_key_value_heads=2,
+                    moe_intermediate_size=33, n_shared_experts=1, **TINY_MOE),
+         r"num_attention_heads \(3\), .*moe_intermediate_size \(33\), shared experts' width \(33\)"),
+    ],
+    ids=["gemma3-one-kv-head", "mixtral-expert-width", "deepseek-heads-and-widths"],
+)
+def test_tp_must_divide_each_family_split(cfg, match):
+    with pytest.raises(ValueError, match=match):
+        check_tp_model(cfg, 2)
+    # GPT-OSS's experts stay whole: an odd expert width is no obstacle
+    check_tp_model(get_preset("tiny-gpt-oss", intermediate_size=97), 2)
 
 
 def test_a_follower_that_raises_at_load_makes_the_engine_raise():

@@ -60,10 +60,10 @@ def _tp_engine(args=None, **kw) -> Engine:
     return Engine(ServerArgs(device="cpu", tp_size=2, **ARGS, **(args or {})), **kw)
 
 
-def _compare(prompts, outs, ref_outs, eng, stop_at_tie: bool) -> int:
+def _compare(prompts, outs, ref_outs, eng, stop_at_tie: bool, lp_tol: float = LP_TOL) -> int:
     """The same ids up to the first near tie of ``eng``'s teacher-forced
     margins (all of them unless ``stop_at_tie``), chosen logprobs within
-    ``LP_TOL``; returns the tokens compared."""
+    ``lp_tol``; returns the tokens compared."""
     compared = 0
     for p, o, r in zip(prompts, outs, ref_outs):
         assert len(o.output_ids) == len(r.output_ids)
@@ -75,7 +75,7 @@ def _compare(prompts, outs, ref_outs, eng, stop_at_tie: bool) -> int:
         else:
             assert min(margins) > MARGIN, min(margins)
         assert o.output_ids[:n] == r.output_ids[:n]
-        np.testing.assert_allclose(o.output_token_logprobs[:n], r.output_token_logprobs[:n], rtol=0, atol=LP_TOL)
+        np.testing.assert_allclose(o.output_token_logprobs[:n], r.output_token_logprobs[:n], rtol=0, atol=lp_tol)
         compared += n
     return compared
 
