@@ -418,6 +418,16 @@ LOGIT_RTOL = {
     "gemma-2-2b-tp2": 3e-2, "gemma-2-2b-tp2-int8kv": 1e-1, "gpt-oss-20b-tp2": 3e-2,
     "qwen3-30b-a3b-tp2": 3e-2, "llama4-scout-tp2": 3e-2,
     "deepseek-v2-lite-tp2": 3e-2,
+    # quantized weights at tp 2 against their tp 1 engines (phase_tp_quant),
+    # the same gates by KV pages, 3e-2 on bf16 KV and 1e-1 on 8-bit, and
+    # the 8-bit gate for W4A8 on bf16 KV too: each engine quantizes its own
+    # activation rows at int8, as an 8-bit KV engine its K/V rows. On one
+    # H100 the 8B pair read 6.163e-2 with each rank's partial product of o
+    # and down rounded to bf16, 3.804e-2 with it kept f32 until the group's
+    # sum, as now, and its twin's own kernel and plain paths 4.892e-2 apart
+    # on the same codes (PERF.md, Findings)
+    "llama-3.1-8b-w4a8-tp2": 1e-1, "gpt-oss-20b-w4a8-tp2": 1e-1, "gpt-oss-20b-w4a16-tp2": 1e-1,
+    "llama-3.1-8b-fp8-tp2": 1e-1,
 }
 # The argmax must agree on every row but a bf16 tie at the top. W4A8 also
 # excuses a row whose plain top-2 gap is at most this share of max |logit|:
@@ -459,6 +469,8 @@ ARGMAX_FLOOR = {
     "gemma-2-2b-tp2": 2e-2, "gemma-2-2b-tp2-int8kv": 2e-2, "gpt-oss-20b-tp2": 2e-2,
     "qwen3-30b-a3b-tp2": 2e-2, "llama4-scout-tp2": 2e-2,
     "deepseek-v2-lite-tp2": 2e-2,
+    "llama-3.1-8b-w4a8-tp2": 2e-2, "gpt-oss-20b-w4a8-tp2": 2e-2, "gpt-oss-20b-w4a16-tp2": 2e-2,
+    "llama-3.1-8b-fp8-tp2": 2e-2,
 }
 # A spec engine may excuse as ties at most this many more of its tokens
 # than its plain-decode control excuses of the same requests' tokens (both
@@ -1806,7 +1818,8 @@ def stacked_far_w4(In: int, Out: int, seed: int):
 
 def check_w4(errs: dict) -> None:
     """The row quantizer bit for bit, and both W4 GEMMs against their plain
-    versions on the same int8 rows (W4A8) or bf16 rows (W4A16), at
+    versions on the same int8 rows (W4A8, whose f32 output must round to
+    its bf16 one bit for bit) or bf16 rows (W4A16), at
     Llama-3.2-1B's seven matrices and each M of ``W4_CHECK_M``, at
     ``W4_SMALL_GROUPS``, ``W4_ZERO_RESTS``, ``W4_STACKED_RESTS`` and
     ``W4_STACKED_FAR``; at GPT-OSS's 2880 -> 5760 (g 120, M 1, 64, 300 and
@@ -1865,6 +1878,10 @@ def check_w4(errs: dict) -> None:
         eq = max(float((a.float() - b.float()).abs().max()) for a, b in zip((x8, ax, gsum), ref))
         y8 = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out)
         e8, r8 = max_err(y8, w4a8_matmul_plain(x8, ax, gsum, q, s, z, g, Out))
+        # the f32 output (a tensor-parallel rank's row-parallel partial):
+        # the same f32 values that the bf16 output rounds
+        y8f = w4a8_matmul(x8, ax, gsum, q, s, z, g, Out, f32=True)
+        f32_same = y8f.dtype == torch.float32 and torch.equal(y8f.to(torch.bfloat16), y8)
         y16 = w4a16_matmul(x, q, s, z, g, Out)
         e16, r16 = max_err(y16, w4a16_matmul_plain(x, q, s, z, g, Out))
         plan8 = w4a8_plan(M, Out, In, g, s.shape[1])
@@ -1888,6 +1905,7 @@ def check_w4(errs: dict) -> None:
             f"[check] w4 {name} {In}->{Out} g={g} M={M}: quantizer exact {exact} "
             f"({n_diff} x8 differ); w4a8 ({route8}) max_abs_err {e8:.3e}, err/tol {r8:.3f}"
             + (f", second call bit-equal: {same8}" if split8 else "")
+            + f", f32 output rounds to the bf16 one: {f32_same}"
             + f"; w4a16 ({route16}) max_abs_err {e16:.3e}, err/tol {r16:.3f}; zero row exact: {zeros}"
             + (f"; split K {plan.splits}, second call bit-equal: {same}" if split else "")
             + f" ({time.monotonic() - t_case:.2f} s)"
@@ -1897,8 +1915,9 @@ def check_w4(errs: dict) -> None:
         check(r8 <= 1 and zeros, f"w4a8 kernel disagrees with its plain version at {name} g={g} M={M}")
         check(r16 <= 1 and zeros, f"w4a16 kernel disagrees with its plain version at {name} g={g} M={M}")
         check(same8, f"w4a8 split-K calls differ at {name} g={g} M={M}")
+        check(f32_same, f"w4a8's f32 output does not round to its bf16 output at {name} g={g} M={M}")
         check(same, f"w4a16 split-K calls differ at {name} g={g} M={M}")
-        del q, s, z, x, x8, y8, y16
+        del q, s, z, x, x8, y8, y8f, y16
         torch.cuda.empty_cache()
 
 
@@ -6157,8 +6176,9 @@ def check_tp_engine(engine, ref: dict, label: str, launches: dict, per_layer: in
     position where tp 1's teacher-forced top-2 gap is a tie (``bf16_tie``
     at ``ARGMAX_FLOOR``; a MoE engine's parting where its own routing of the
     same tokens picks another expert set first is logged with the router's
-    margin and not gated; on int8 pages, where each engine quantizes its
-    own K/V rows, a parting is logged and not gated); on every rank
+    margin and not gated; on 8-bit pages, where each engine quantizes its
+    own K/V rows, and under W4A8, where it quantizes its own activation
+    rows, a parting is logged and not gated); on every rank
     ``launches`` (wrapper -> "decode" or "extend") once a layer in each
     forward of that mode and every other attention kernel never, a pool of
     ``kv_heads`` kv heads, ``per_layer`` collectives a layer plus the
@@ -6200,7 +6220,7 @@ def check_tp_engine(engine, ref: dict, label: str, launches: dict, per_layer: in
             f"tie at {floor}: {tie}" + (f"; routing of tp 1's tokens up to there: {len(flips)} other expert "
                                         f"sets, tp 1's router margins {[round(g, 5) for _, _, g in flips[:8]]}"
                                         if moe and not tie else ""))
-        if ref["kv"] not in ("int8", "fp8"):
+        if ref["kv"] not in ("int8", "fp8") and runner.args.quantization != "w4a8":
             check(tie or bool(flips), f"{label} request {i}: greedy ids part from tp 1 at token {j} outside a "
                                       "tie and with tp 1's routing")
     for o in outs:
@@ -6278,13 +6298,13 @@ def check_tp_engine(engine, ref: dict, label: str, launches: dict, per_layer: in
                 apart=apart, own_worst=own_worst, rows=2 * len(prompts))
 
 
-def tp_engine_record(reports: list, label: str, launches: dict, **extra) -> dict:
+def tp_engine_record(reports: list, label: str, launches: dict, weights: str = "bf16", **extra) -> dict:
     """The ``engines`` entry of a tp 2 engine: launches summed over the
     ranks and by rank, each kernel's forwards on every rank."""
     counts = {k: sum(rep["launches"][k] for rep in reports) for k in reports[0]["launches"]}
     return dict(
         counts=counts, steps={k: TP_SIZE * reports[0]["forwards"][mode] for k, mode in launches.items()},
-        launches_by_rank={k: [rep["launches"][k] for rep in reports] for k in counts}, weights="bf16",
+        launches_by_rank={k: [rep["launches"][k] for rep in reports] for k in counts}, weights=weights,
         tp_size=TP_SIZE, **extra,
     )
 
@@ -6467,6 +6487,196 @@ def phase_tp_families(tp1, label: str, engines: dict) -> dict:
                                 start_s=start_s, launches_per_forward=per_forward,
                                 collectives_per_forward=reports[0]["collectives"] / max(sum(n.values()), 1),
                                 kv_tokens=[rep["kv_tokens"] for rep in reports])
+    return result
+
+
+# quantized weights at tp 2 (phase_tp_quant): label -> (the tp 1 engine it
+# is held to, quantization, KV pages, collectives a layer: W4A8 adds each
+# row-parallel projection's row maximum). The Llama-3.1-8B W4A8 pair at
+# TP_QUANT_LAYERS layers, its tp 1 twin (no 4-bit head, as no tp 2 engine
+# has one) freed before the ranks start; the others held to the engines of
+# their own phases, alive beside the ranks (GPT-OSS's at one routing).
+TP_QUANT = {
+    "llama-3.1-8b-w4a8-tp2": ("llama-3.1-8b-w4a8", "w4a8", "bf16", 4),
+    "gpt-oss-20b-w4a8-tp2": ("gpt-oss-w4a8", "w4a8", "int8", 2),
+    "gpt-oss-20b-w4a16-tp2": ("gpt-oss-w4a16", "w4a16", "int8", 1),
+    "llama-3.1-8b-fp8-tp2": ("llama-3.1-8b-fp8", "fp8", "fp8", 2),
+}
+TP_QUANT_LAYERS = 8
+# a rank's load may peak at its parameters, its largest whole tensor as
+# drawn (f32; a weight kept unquantized is copied from the rank's view of
+# it, a quantized one is far smaller) and this much besides (a quantized
+# weight's model-dtype copy and the quantizer's temporaries, the
+# allocator's blocks)
+LOAD_SLACK = 512 << 20
+
+
+def tp_quant_launches(cfg, quantization: str):
+    """(the W4 GEMM's wrapper, its launches a forward on a tp 2 rank by
+    group size, the row quantizer's launches a forward), predicted from the
+    shard shapes: each 4-bit projection once a layer (every expert's, in
+    the masked dense loop; GPT-OSS's whole on every rank), at the group of
+    its whole input (a row-parallel slice keeps its layer's group); the
+    quantizer once a W4A8 projection; the head in bf16. fp8: none."""
+    from scratchpad_tpu_torch.ops.quant.w4a16 import stacked_group_size
+
+    if quantization == "fp8":
+        return None, {}, 0
+    H = cfg.hidden_size
+    ins = [H, H, H, cfg.num_attention_heads * cfg.head_dim]  # q, k, v, o
+    if cfg.num_experts:  # GPT-OSS: every expert's gate|up and down
+        ins += [H, cfg.intermediate_size] * cfg.num_experts
+    else:  # the fused gate|up, down
+        ins += [H, cfg.intermediate_size]
+    groups = collections.Counter(stacked_group_size(w) for w in ins)
+    per_forward = {g: n * cfg.num_hidden_layers for g, n in groups.items()}
+    wrapper = "w4a8_matmul" if quantization == "w4a8" else "w4a16_matmul"
+    return wrapper, per_forward, sum(per_forward.values()) if quantization == "w4a8" else 0
+
+
+def largest_whole_bytes(cfg) -> int:
+    """f32 bytes of the model's largest single-device tensor that a rank
+    draws or converts whole: the embedding or head (V x H), or an MLP's
+    gate|up (2I x H)."""
+    return 4 * max(cfg.vocab_size * cfg.hidden_size, 2 * cfg.intermediate_size * cfg.hidden_size)
+
+
+def check_quantizer_given_amax(errs: dict) -> None:
+    """The row quantizer with a given row maximum (a tensor-parallel rank's
+    W4A8 row-parallel projection: its slice of the row, the whole row's
+    maximum) bit for bit against its plain version on the same inputs, and
+    equal to the whole row's codes at the slice, at the tp 2 shares of
+    Llama-3.1-8B's o (2,048 of 4,096) and down (7,168 of 14,336) and M 1,
+    64, 300 and 2,048 (row M // 2 zeros)."""
+    import torch
+
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import quantize_activations_plain, quantize_rows_int8, row_amax
+
+    g = 128
+    for In in (4096, 14336):
+        for M in (1, 64, 300, 2048):
+            gen = seeded(7000 + In + M)
+            x = torch.randn(M, In, generator=gen, device="cuda").to(torch.bfloat16)
+            x[M // 2] = 0
+            whole = quantize_activations_plain(x, g)
+            parts = [p.contiguous() for p in x.chunk(TP_SIZE, dim=1)]
+            amax = torch.maximum(*(row_amax(p) for p in parts))
+            exact = at_slice = True
+            for r, part in enumerate(parts):
+                got = quantize_rows_int8(part, g, amax)
+                ref = quantize_activations_plain(part, g, amax)
+                exact &= all(torch.equal(a, b) for a, b in zip(got, ref))
+                n = In // TP_SIZE
+                at_slice &= torch.equal(got[0], whole[0][:, r * n : (r + 1) * n]) and torch.equal(got[1], whole[1])
+                eq = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+                errs["quantize_rows_int8"] = max(errs["quantize_rows_int8"], eq)
+            log(f"[check] quantizer, given row maximum, a rank's {In // TP_SIZE} of {In} M={M}: bit-equal to "
+                f"plain {exact}, the whole row's codes at the slice {at_slice}")
+            check(exact and at_slice, f"the quantizer with a given maximum parts at In {In} M {M}")
+
+
+def phase_tp_quant(tp1, label: str, engines: dict) -> dict:
+    """Quantized weights at tp 2 on the one card: the configurations of
+    ``TP_QUANT`` held to the tp 1 engine ``tp1`` of ``label`` (None: the
+    Llama-3.1-8B W4A8 twin at ``TP_QUANT_LAYERS``, built here and freed
+    before the ranks start), each at full width and that engine's depth,
+    seed 0 (each rank draws the tp 1 tensors whole, quantizes and cuts
+    them), two ranks on cuda:0 over gloo, through ``check_tp_engine``
+    (3e-2 of max|logit| on bf16 KV, 1e-1 on 8-bit KV or activations). On
+    top of its checks, on every rank: the W4 GEMMs' launches by group size
+    and the row quantizer's exactly as ``tp_quant_launches`` predicts, the
+    collectives exactly (``TP_QUANT``'s a layer, plus 2), and its load's
+    peak within its parameters, its largest whole tensor in f32 and
+    ``LOAD_SLACK``. One ``[tp <label>]`` line each."""
+    from scratchpad_tpu_torch.config.model_config import get_preset
+
+    result = {}
+    for tp_label in (k for k, v in TP_QUANT.items() if v[0] == label):
+        _, quantization, pages, per_layer = TP_QUANT[tp_label]
+        t = time.monotonic()
+        if tp1 is None:  # the tp 1 twin, freed before the ranks start
+            cfg = get_preset(TP_PRESET, num_hidden_layers=TP_QUANT_LAYERS)
+            twin = make_engine(quantization, model_config=cfg, max_total_tokens=TP_KV_TOKENS, quantize_lm_head=False)
+            check(twin.scheduler.runner.model.lm_head_q is None, f"{tp_label}: the tp 1 twin has a 4-bit head")
+            ref = tp_reference(twin, tp_label)
+            # the twin's own kernel path against its plain path on the same
+            # inputs: how far two bf16 paths over these codes part
+            prompts, _, _ = tp_traffic(cfg.vocab_size)
+            with PlainPath(twin.scheduler.runner.model):
+                plain = batch_logits(twin.scheduler.runner, prompts, [o[0] for o in ref["ids"]])
+            control = max(float((a.float().cpu() - b.float().cpu()).abs().max()) / float(b.float().abs().max())
+                          for step in (0, 1) for a, b in zip(ref["logits"][step], plain[step]))
+            del twin, plain
+        else:
+            cfg, control = tp1.model_config, None
+            ref = tp_reference(tp1, tp_label)
+        ref_s = time.monotonic() - t
+        launches = {DECODE[pages]: "decode", EXTEND[pages]: "extend"}
+        kv = ref["kv"] if ref["kv"] in ("int8", "fp8") else "auto"  # "auto": the model dtype at tp 2
+        t = time.monotonic()
+        engine = make_engine(quantization, model_config=cfg, kv_cache_dtype=kv, max_total_tokens=TP_FAMILY_KV_TOKENS,
+                             tp_size=TP_SIZE)
+        try:
+            start_s = time.monotonic() - t
+            check(engine.scheduler.runner.kv_cache_dtype == (pages if pages != "bf16" else "bfloat16"),
+                  f"{tp_label}: KV {engine.scheduler.runner.kv_cache_dtype}, not {pages}")
+            check(getattr(engine.scheduler.runner.model, "lm_head_q", None) is None, f"{tp_label}: a 4-bit head")
+            out = check_tp_engine(engine, ref, tp_label, launches, per_layer,
+                                  kv_heads=cfg.num_kv_heads // TP_SIZE, tp1=tp1 if cfg.num_experts else None)
+        finally:
+            engine.shutdown()
+            del engine
+        reports, n = out["reports"], out["reports"][0]["forwards"]
+        n_fwd = sum(n.values())
+        wrapper, w4_per_forward, quant_per_forward = tp_quant_launches(cfg, quantization)
+        bound = largest_whole_bytes(cfg)
+        for rep in reports:
+            r, lc, gl = rep["rank"], rep["launches"], rep["group_launches"]
+            for w in ("w4a8_matmul", "w4a16_matmul"):
+                want = {g: c * n_fwd for g, c in w4_per_forward.items()} if w == wrapper else {}
+                got = {g: c for g, c in gl[w].items() if c}
+                check(got == want, f"{tp_label} rank {r}: {w} launched {got} by group in {n_fwd} forwards, not {want}")
+            check(lc["w4a8_matmul_mma"] == 0, f"{tp_label} rank {r}: w4a8_matmul_mma launched")
+            check(lc["quantize_rows_int8"] == quant_per_forward * n_fwd,
+                  f"{tp_label} rank {r}: the quantizer launched {lc['quantize_rows_int8']} times in {n_fwd} "
+                  f"forwards, not {quant_per_forward} a forward")
+            limit = rep["param_bytes"] + bound + LOAD_SLACK
+            check(rep["load_peak_bytes"] <= limit, f"{tp_label} rank {r}: the load peaked at "
+                                                   f"{rep['load_peak_bytes']} B, above {limit} B")
+        engines[tp_label] = tp_engine_record(reports, tp_label, launches, weights=quantization, preset=label,
+                                             kv_cache_dtype=ref["kv"], attention_backend="auto",
+                                             worst_logit_rel=out["worst"])
+        gib = lambda b: round(b / 2**30, 3)
+        per_fwd = lambda k, mode=None: [rep["launches"][k] / max(n[mode] if mode else n_fwd, 1) for rep in reports]
+        w4_by_rank = ({g: [rep["group_launches"][wrapper].get(g, 0) / max(n_fwd, 1) for rep in reports]
+                       for g in w4_per_forward} if wrapper else {})
+        L = cfg.num_hidden_layers
+        log(
+            f"[tp {tp_label}] {cfg.architecture} {quantization} at {L} layers, {ref['kv']} KV, against "
+            f"{label} (reference {ref_s:.1f} s), started in {start_s:.1f} s; parameters a rank "
+            f"{[gib(rep['param_bytes']) for rep in reports]} GiB against {gib(ref['param_bytes'])} GiB at tp 1; "
+            f"load peak a rank {[gib(rep['load_peak_bytes']) for rep in reports]} GiB (bound: parameters + "
+            f"{gib(bound)} GiB + {gib(LOAD_SLACK)} GiB); forwards {n}, collectives a forward "
+            f"{reports[0]['collectives'] / max(n_fwd, 1):.1f} ({per_layer} x {L} layers + 2); {wrapper or 'no W4 GEMM'}"
+            f" a forward by group and rank {w4_by_rank}; quantize_rows_int8 a forward by rank "
+            f"{per_fwd('quantize_rows_int8')}; attention a forward of its mode by rank "
+            f"{ {k: per_fwd(k, mode) for k, mode in launches.items()} }; {reports[0]['tokens_sampled']} sampled ids"
+            + (f" and {reports[0]['router_picks']} router picks" if cfg.num_experts else "")
+            + f" bit-equal on every rank; logits against tp 1" + (" at tp 2's routing" if cfg.num_experts else "")
+            + f": worst max|diff| {out['worst']:.3e} of max|logit| (tol {LOGIT_RTOL[tp_label]}), argmax differs on "
+            f"{out['flips']} of {out['rows']} rows"
+            + (f"; at tp 1's own routing {out['own_worst']:.3e}" if cfg.num_experts else "")
+            + (f"; tp 1's own kernel path against its plain path {control:.3e}" if control is not None else "")
+            + f"; greedy ids part from tp 1 in {out['parted']} of {len(TP_REQUESTS)} requests"
+        )
+        result[tp_label] = dict(
+            worst_logit_rel=out["worst"], flips=out["flips"], parted=out["parted"], start_s=start_s,
+            own_routing_worst=out["own_worst"] if cfg.num_experts else None, tp1_kernel_vs_plain=control,
+            param_gib=[gib(rep["param_bytes"]) for rep in reports],
+            load_peak_gib=[gib(rep["load_peak_bytes"]) for rep in reports],
+            collectives_per_forward=reports[0]["collectives"] / max(n_fwd, 1),
+            w4_per_forward_by_group=w4_by_rank, quantizer_per_forward=per_fwd("quantize_rows_int8"),
+        )
     return result
 
 
@@ -6699,6 +6909,7 @@ def main() -> None:
     timed(check_window_sequence_256)
     timed(check_kv_quantizer)
     timed(check_w4, errs)
+    timed(check_quantizer_given_amax, errs)
     timed(check_delta, errs)
     timed(check_decode_ablate, errs)
     timed(check_decode_stages)
@@ -6763,6 +6974,10 @@ def main() -> None:
     del p1b
     # tensor parallelism: Llama-3.1-8B at tp 2, two ranks on the one card
     tp, tp_timing = timed(phase_tp, errs, engines)
+    # quantized weights at tp 2 (phase_tp_quant): Llama-3.1-8B W4A8 against
+    # its tp 1 twin here; GPT-OSS W4 and Llama-3.1-8B fp8 after their own
+    # engines' phases, against them
+    tp_quant = timed(phase_tp_quant, None, "llama-3.1-8b-w4a8", engines)
     engine = make_engine("w4a8")
     serve(engine, "w4a8", w4a8)
     # W4A16 on the same engine and codes: every QuantLinear takes the A16 route
@@ -6782,7 +6997,9 @@ def main() -> None:
         engine.scheduler.runner.kv_cache_dtype == "int8",
         f"3B W4A8 auto KV resolved to {engine.scheduler.runner.kv_cache_dtype}, not int8",
     )
-    serve(engine, "3b-w4a8", w4a8)
+    # untimed, to pay for phase_tp_quant's seconds (PERF.md keeps its last
+    # timing)
+    serve(engine, "3b-w4a8", w4a8, timed=False)
     # the same quantized weights with bf16 KV, the first BF16KV_LAYERS
     # layers (its kernels are held elsewhere: bf16 attention at G = 3 in
     # phase 3 and in the bf16 engine, W4A8 in both W4A8 engines; it is here
@@ -6814,8 +7031,9 @@ def main() -> None:
             attention_backend=backend,
         )
         fingerprints.append(weights_fingerprint(engine.scheduler.runner.model, MISTRAL_PALLAS_LAYERS))
-        serve(engine, label, requests=WINDOW_REQUESTS if backend == "auto" else WINDOW_REQUESTS[3:],
-              timed=backend == "auto")
+        # untimed, to pay for phase_tp_quant's seconds (PERF.md keeps its
+        # last timing)
+        serve(engine, label, requests=WINDOW_REQUESTS if backend == "auto" else WINDOW_REQUESTS[3:], timed=False)
         del engine
     check(fingerprints[0] == fingerprints[1], f"the Mistral engines' weights differ: {fingerprints}")
     # Qwen3-8B at full width and depth, bf16: qk-norm, an untied head; not
@@ -6831,6 +7049,12 @@ def main() -> None:
         torch.device("cuda"),
     )
     check(auto_kv == "int8", f"Qwen3-8B W4A8 auto KV resolved to {auto_kv}, not int8")
+    # ... and at tp 2, the model dtype (the JAX rule's mesh is None)
+    auto_kv = resolve_kv_cache_dtype(
+        ServerArgs(preset="qwen3-8b", quantization="w4a8", tp_size=TP_SIZE).resolve(), get_preset("qwen3-8b"),
+        torch.device("cuda"),
+    )
+    check(auto_kv == "bfloat16", f"Qwen3-8B W4A8 auto KV at tp {TP_SIZE} resolved to {auto_kv}, not bfloat16")
     engine = make_engine("w4a8", kv_cache_dtype="int8",
                          model_config=get_preset("qwen3-8b", num_hidden_layers=QWEN3_W4A8_LAYERS))
     serve(engine, "qwen3-8b-w4a8", w4a8, timed=False, requests=UNTIMED_REQUESTS)
@@ -6880,9 +7104,11 @@ def main() -> None:
     engine = make_engine("w4a8", kv_cache_dtype="int8",
                          model_config=get_preset("gpt-oss-20b", num_hidden_layers=GPT_OSS_W4_LAYERS))
     serve(engine, "gpt-oss-w4a8", w4a8, timed=False, requests=GPT_OSS_W4_REQUESTS)
+    tp_quant.update(timed(phase_tp_quant, engine, "gpt-oss-w4a8", engines))
     set_w4_route(engine.scheduler.runner.model, a8=False)
     serve(engine, "gpt-oss-w4a16", ("w4a16_matmul",), timed=False, requests=GPT_OSS_W4_REQUESTS)
     engines["gpt-oss-w4a16"]["weights"] = "w4a16"
+    tp_quant.update(timed(phase_tp_quant, engine, "gpt-oss-w4a16", engines))
     del engine
     # Qwen3-30B-A3B (its config.json) at QWEN3_MOE_LAYERS layers, bf16: 128
     # experts (top 8) in the masked loop, qk-norm
@@ -6968,6 +7194,7 @@ def main() -> None:
                          model_config=get_preset("llama-3.1-8b", num_hidden_layers=FP8_LAYERS))
     log_fp8_bytes(engine)
     serve(engine, "llama-3.1-8b-fp8", timed=False, requests=UNTIMED_REQUESTS)
+    tp_quant.update(timed(phase_tp_quant, engine, "llama-3.1-8b-fp8", engines))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -7045,7 +7272,8 @@ def main() -> None:
         )
     )
     log(json.dumps({"serve": {k: v for k, v in served.items() if k != "launches"}, "grammar": grammar,
-                    "custom": custom, "spec": specs, "memory": memory, "tp": tp, "tp_families": tp_families}))
+                    "custom": custom, "spec": specs, "memory": memory, "tp": tp, "tp_families": tp_families,
+                    "tp_quant": tp_quant}))
     log(smi_line)
     log(
         json.dumps(

@@ -39,6 +39,10 @@ class ServerArgs:
     # (executor/model_runner.resolve_kv_cache_dtype), and the model dtype
     # otherwise
     kv_cache_dtype: str = "auto"
+    # a 4-bit LM head; None: the JAX runner's auto rule, on for W4-quantized
+    # classes that read it at tp 1; never under tp_size > 1 (a logged
+    # warning where set)
+    quantize_lm_head: Optional[bool] = None
     random_weights: bool = False  # initialise random weights (benchmarks)
     context_length: Optional[int] = None
 
@@ -236,7 +240,6 @@ class ServerArgs:
             host, port = self.dist_init_addr.rsplit(":", 1)
             self.control_plane_addr = f"{host}:{int(port) + 1}"
         refused = {
-            "quantization": (self.quantization is not None, "(b), quantized weights"),
             "speculative_algorithm": (self.speculative_algorithm is not None, "(c), speculation"),
             "host_kv_cache_tokens": (self.host_kv_cache_tokens > 0, "(c), the host KV tier"),
             "enable_param_offload": (self.enable_param_offload, "(c), parameter offload"),

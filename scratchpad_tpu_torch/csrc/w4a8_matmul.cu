@@ -123,11 +123,21 @@ __device__ __forceinline__ void team_sync(int team, int T) {
   else asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "r"(T) : "memory");
 }
 
+// one output element: bf16, or f32 where y_f32 (a tensor-parallel rank's
+// row-parallel partial product, which the group sums in f32 before its one
+// rounding to bf16)
+__device__ __forceinline__ void put_y(void* y, int y_f32, size_t i, float v) {
+  if (y_f32)
+    static_cast<float*>(y)[i] = v;
+  else
+    static_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16(v);
+}
+
 template <int VW, int V>
 __global__ void __launch_bounds__(1024)
 quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, int ld_x, int Kp, int g,
                      int T, int8_t* __restrict__ x8, float* __restrict__ ax_out,
-                     float* __restrict__ gsum) {
+                     float* __restrict__ gsum, const float* __restrict__ amax_in) {
   extern __shared__ int quant_smem[];  // per team: [G] group sums, [T / 32] warp maxima
   const int G = K / g;
   const int team = threadIdx.x / T, t = threadIdx.x - team * T, lane = threadIdx.x & 31;
@@ -162,11 +172,17 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, int ld_x
       amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
     }
   }
+  // a given row maximum (the whole row's, where x is a slice of it) skips
+  // the team's reduction; the barrier still orders the zeroed group sums
+  if (amax_in == nullptr) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if (lane == 0) warp_max[t >> 5] = amax;
+    for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (lane == 0) warp_max[t >> 5] = amax;
+  }
   team_sync(team, T);  // the warp maxima, and the zeroed group sums
-  for (int w = 0; w < T / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+  if (amax_in != nullptr) amax = row ? amax_in[m] : 0.f;
+  else
+    for (int w = 0; w < T / 32; ++w) amax = fmaxf(amax, warp_max[w]);
   const float ax = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
 
 #pragma unroll
@@ -224,13 +240,13 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, int ld_x
 template <int VW, int V>
 cudaError_t launch_quantize(dim3 grid, int threads, size_t smem, cudaStream_t st,
                             const __nv_bfloat16* x, int M, int K, int ld_x, int Kp, int g, int T,
-                            int8_t* x8, float* ax, float* gsum) {
+                            int8_t* x8, float* ax, float* gsum, const float* amax) {
   auto kernel = quantize_rows_kernel<VW, V>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, threads, smem, st>>>(x, M, K, ld_x, Kp, g, T, x8, ax, gsum);
+  kernel<<<grid, threads, smem, st>>>(x, M, K, ld_x, Kp, g, T, x8, ax, gsum, amax);
   return cudaGetLastError();
 }
 
@@ -295,8 +311,8 @@ struct W4A8Op {
   const __nv_bfloat16* z;
   const float* ax;
   const float* gsum;
-  __nv_bfloat16* y;
-  int M, N, N_st, Kp, g, ld_sz, G, K;
+  void* y;  // bf16, or f32 where y_f32
+  int M, N, N_st, Kp, g, ld_sz, G, K, y_f32;
 
   __device__ bool start(int, int, int, int, int, int) const { return true; }
   __device__ void issue(uint32_t dst, int kb, int n_base, int p) const {
@@ -446,13 +462,14 @@ struct W4A8Op {
       for (int c = 0; c < NACC / 4; ++c) {
         const int n = n0 + 8 * c;
         if (n >= N) continue;
-        __nv_bfloat16* p = y + (size_t)m * N + n;
+        const size_t i0 = (size_t)m * N + n;
         const float v0 = v[4 * c + 2 * i] * a, v1 = v[4 * c + 2 * i + 1] * a;
-        if (n + 1 < N && !(N & 1)) {
-          *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+        if (n + 1 < N && !(N & 1) && !y_f32) {
+          auto* p = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(y) + i0);
+          *p = __floats2bfloat162_rn(v0, v1);
         } else {
-          p[0] = __float2bfloat16(v0);
-          if (n + 1 < N) p[1] = __float2bfloat16(v1);
+          put_y(y, y_f32, i0, v0);
+          if (n + 1 < N) put_y(y, y_f32, i0 + 1, v1);
         }
       }
     }
@@ -486,8 +503,8 @@ struct DecodeSmem {
 struct DecodeArgs {
   const float* ax;
   const float* gsum;
-  __nv_bfloat16* y;
-  int N, g, G;
+  void* y;  // bf16, or f32 where y_f32
+  int N, g, G, y_f32;
 };
 
 // wgmma descriptor of a K-major operand in 64-byte-swizzled rows of 64 B
@@ -682,7 +699,7 @@ w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(t % kDecodeStages));
   }
-  if (sink == 0x12345678u) d.y[0] = __float2bfloat16(0.f);  // keeps the conversion
+  if (sink == 0x12345678u) put_y(d.y, d.y_f32, 0, 0.f);  // keeps the conversion
   return;
 #endif
   // Every wgmma is issued whatever the branch; only the folds branch, and
@@ -756,7 +773,7 @@ w4a8_decode_kernel(const DecodeArgs d, const GemmArgs a, const __grid_constant__
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int m = m_base + 8 * c + 2 * q4 + (e & 1), n = n_base + r0 + 8 * (e >> 1);
-      if (m < a.M && n < d.N) d.y[(size_t)m * d.N + n] = __float2bfloat16(tot[4 * c + e] * d.ax[m]);
+      if (m < a.M && n < d.N) put_y(d.y, d.y_f32, (size_t)m * d.N + n, tot[4 * c + e] * d.ax[m]);
     }
 }
 
@@ -798,22 +815,22 @@ cudaError_t launch_decode_nt(int rows, const DecodeArgs& d, const GemmArgs& a, c
 
 // the prefill: 128 x 128 tiles, two warpgroups along M sharing the B tile
 cudaError_t launch_prefill(const uint8_t* q, const __nv_bfloat16* s, const __nv_bfloat16* z, const float* ax,
-                           const float* gsum, __nv_bfloat16* y, int M, int N, int K, int Kp, int g, int ld_sz,
+                           const float* gsum, void* y, int y_f32, int M, int N, int K, int Kp, int g, int ld_sz,
                            const __nv_bfloat16* x8, uint8_t* ws, int splits, cudaStream_t st) {
   using T = GemmTile<2, 2, 128>;
   const GemmArgs a{x8, Kp, M, K, (N + T::BN - 1) / T::BN, (K + 127) / 128, splits, ws};
   const int m_tiles = (M + T::BM - 1) / T::BM;
   if (g % 128 == 0)
-    return run_gemm<W4A8Op<T::BN, 1>, 2, 2, 128, false>({q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K},
-                                                        a, m_tiles, 1, st);
+    return run_gemm<W4A8Op<T::BN, 1>, 2, 2, 128, false>(
+        {q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K, y_f32}, a, m_tiles, 1, st);
   // a group that cuts no step keeps SR 4 and one B tile, and at decode the
   // kernel without split steps: the split instantiations ran such groups
   // (64, 32) 1.05x to 1.33x slower on an H100 (tools/gemm_ab.py --groups)
   if (g % 32 == 0)
-    return run_gemm<W4A8Op<T::BN, 4>, 2, 2, 128, true>({q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K},
-                                                       a, m_tiles, 1, st);
+    return run_gemm<W4A8Op<T::BN, 4>, 2, 2, 128, true>(
+        {q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K, y_f32}, a, m_tiles, 1, st);
   return run_gemm<W4A8Op<T::BN, 5, true>, 2, 2, 128, true>(
-      {q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K}, a, m_tiles, 1, st);
+      {q, s, z, ax, gsum, y, M, N, ld_sz, Kp, g, ld_sz, K / g, K, y_f32}, a, m_tiles, 1, st);
 }
 
 // ---------------------------------------------------------------- the mma.sync kernel
@@ -910,7 +927,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 w4a8_gemm_kernel(const int8_t* __restrict__ x8, const float* __restrict__ ax,
                  const float* __restrict__ gsum, const uint8_t* __restrict__ q,
                  const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ z,
-                 __nv_bfloat16* __restrict__ y, int M, int N, int K, int Kp, int g,
+                 void* __restrict__ y, int y_f32, int M, int N, int K, int Kp, int g,
                  int ld_sz) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -1030,8 +1047,7 @@ w4a8_gemm_kernel(const int8_t* __restrict__ x8, const float* __restrict__ ax,
         for (int j = 0; j < 2; ++j) {
           const int n = n_base + nt * 8 + tig * 2 + j;
           if (n < N)
-            y[(size_t)m * N + n] =
-                __float2bfloat16((acc[mt][nt][2 * h + j] + acz[mt][nt][2 * h + j]) * a);
+            put_y(y, y_f32, (size_t)m * N + n, (acc[mt][nt][2 * h + j] + acz[mt][nt][2 * h + j]) * a);
         }
     }
 }
@@ -1039,9 +1055,9 @@ w4a8_gemm_kernel(const int8_t* __restrict__ x8, const float* __restrict__ ax,
 template <int MT, bool SPLITK>
 cudaError_t launch_gemm(dim3 grid, cudaStream_t st, const int8_t* x8, const float* ax,
                         const float* gsum, const uint8_t* q, const __nv_bfloat16* s,
-                        const __nv_bfloat16* z, __nv_bfloat16* y, int M, int N, int K, int Kp,
+                        const __nv_bfloat16* z, void* y, int y_f32, int M, int N, int K, int Kp,
                         int g, int ld_sz) {
-  w4a8_gemm_kernel<MT, SPLITK><<<grid, kWarps * 32, 0, st>>>(x8, ax, gsum, q, s, z, y, M, N, K,
+  w4a8_gemm_kernel<MT, SPLITK><<<grid, kWarps * 32, 0, st>>>(x8, ax, gsum, q, s, z, y, y_f32, M, N, K,
                                                               Kp, g, ld_sz);
   return cudaGetLastError();
 }
@@ -1050,10 +1066,12 @@ cudaError_t launch_gemm(dim3 grid, cudaStream_t st, const int8_t* x8, const floa
 }  // namespace
 
 // x bf16 [M, K] (row stride ld_x) -> x8 s8 [M, Kp], ax f32 [M], gsum f32
-// [M, K/g]. Returns the launch's cudaError_t (cudaErrorInvalidValue for a
-// row the registers cannot hold: Kp above 131,072).
+// [M, K/g]. amax: null, or f32 [M] row maxima to quantize with instead of
+// x's own (a tensor-parallel rank's slice of a row whose maximum was taken
+// over the group). Returns the launch's cudaError_t (cudaErrorInvalidValue
+// for a row the registers cannot hold: Kp above 131,072).
 extern "C" int w4_quantize_rows(const void* x, int M, int K, int ld_x, int Kp, int g, void* x8,
-                                void* ax, void* gsum, void* stream) {
+                                void* ax, void* gsum, const void* amax, void* stream) {
   if (M == 0) return 0;
   if (g <= 0 || K % g || Kp % 32 || Kp < K) return cudaErrorInvalidValue;
   const bool wide = K % 8 == 0 && ld_x % 8 == 0 && g >= 16;
@@ -1076,9 +1094,10 @@ extern "C" int w4_quantize_rows(const void* x, int M, int K, int ld_x, int Kp, i
   auto* q8 = (int8_t*)x8;
   auto* a = (float*)ax;
   auto* gs = (float*)gsum;
+  const auto* given = (const float*)amax;
 #define SPTPU_QUANT(VW_, V_) \
   if (VW == VW_ && V == V_)  \
-    return launch_quantize<VW_, V_>(grid, R * T, smem_of(R), st, xx, M, K, ld_x, Kp, g, T, q8, a, gs);
+    return launch_quantize<VW_, V_>(grid, R * T, smem_of(R), st, xx, M, K, ld_x, Kp, g, T, q8, a, gs, given);
   SPTPU_QUANT(16, 1) SPTPU_QUANT(16, 2) SPTPU_QUANT(16, 4) SPTPU_QUANT(16, 8)
   SPTPU_QUANT(2, 1) SPTPU_QUANT(2, 2) SPTPU_QUANT(2, 4) SPTPU_QUANT(2, 8) SPTPU_QUANT(2, 16)
   SPTPU_QUANT(2, 32) SPTPU_QUANT(2, 64)
@@ -1086,10 +1105,10 @@ extern "C" int w4_quantize_rows(const void* x, int M, int K, int ld_x, int Kp, i
   return cudaErrorInvalidValue;
 }
 
-// y bf16 [M, N] = the W4A8 product of x8 s8 [M, Kp] and ax f32 [M] with the
-// packed weight q [ld_sz >= N, Kp/2] and s, z bf16 [K/g, ld_sz], on the
-// plan of ops/quant/w4_matmul.py::w4a8_plan: config 0 (M > 64: 128 x 128
-// tiles of the sm90_gemm.cuh mainloop, 128-deep blocks) or 3 (M <= 64: the
+// y bf16 [M, N] (f32 where y_f32) = the W4A8 product of x8 s8 [M, Kp] and
+// ax f32 [M] with the packed weight q [ld_sz >= N, Kp/2] and s, z bf16
+// [K/g, ld_sz], on the plan of ops/quant/w4_matmul.py::w4a8_plan: config 0
+// (M > 64: 128 x 128 tiles of the sm90_gemm.cuh mainloop, 128-deep blocks) or 3 (M <= 64: the
 // swap-AB decode kernel, 64 columns and `rows` tokens (8, 16, 32, 64) a
 // CTA, 64-deep blocks), K split `splits` ways; workspace: the split-K
 // counters (zero) and partials.
@@ -1099,22 +1118,21 @@ extern "C" int w4_quantize_rows(const void* x, int M, int K, int ld_x, int Kp, i
 // launch's cudaError_t.
 extern "C" int w4a8_matmul(const void* x8, const void* ax, const void* gsum, const void* q, const void* s,
                            const void* z, void* y, int M, int N, int K, int Kp, int g, int ld_sz,
-                           void* stream, void* workspace, int config, int splits, int rows) {
+                           void* stream, void* workspace, int config, int splits, int rows, int y_f32) {
   if (M == 0 || N == 0) return 0;
   if (g < 32 || K % g || ld_sz % 8 || Kp % 32 || splits < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const auto* qq = (const uint8_t*)q;
   const auto* ss = (const __nv_bfloat16*)s;
   const auto* zz = (const __nv_bfloat16*)z;
-  auto* out = (__nv_bfloat16*)y;
   auto* ws = (uint8_t*)workspace;
   const auto* xp = (const __nv_bfloat16*)x8;  // GemmArgs' x; the tensor maps read int8
   const auto* a8 = (const float*)ax;
   const auto* gs = (const float*)gsum;
-  if (config == 0) return launch_prefill(qq, ss, zz, a8, gs, out, M, N, K, Kp, g, ld_sz, xp, ws, splits, st);
+  if (config == 0) return launch_prefill(qq, ss, zz, a8, gs, y, y_f32, M, N, K, Kp, g, ld_sz, xp, ws, splits, st);
   if (config != 3 || M > 64) return cudaErrorInvalidValue;
   const GemmArgs a{xp, Kp, M, K, (N + 63) / 64, (K + kDecodeKB - 1) / kDecodeKB, splits, ws};
-  const DecodeArgs d{a8, gs, out, N, g, K / g};
+  const DecodeArgs d{a8, gs, y, N, g, K / g, y_f32};
   if (g % 128 == 0) return launch_decode_nt<4, false>(rows, d, a, qq, ss, zz, ld_sz, Kp, st);
   if (g % 32 == 0) return launch_decode_nt<1, false>(rows, d, a, qq, ss, zz, ld_sz, Kp, st);  // see launch_prefill
   return launch_decode_nt<1, true>(rows, d, a, qq, ss, zz, ld_sz, Kp, st);
@@ -1124,7 +1142,7 @@ extern "C" int w4a8_matmul(const void* x8, const void* ax, const void* gsum, con
 // computes, for the groups it does not take (g < 32), reading gsum.
 extern "C" int w4a8_matmul_mma(const void* x8, const void* ax, const void* gsum, const void* q,
                                const void* s, const void* z, void* y, int M, int N, int K, int Kp,
-                               int g, int ld_sz, void* stream) {
+                               int g, int ld_sz, void* stream, int y_f32) {
   if (M == 0 || N == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const auto* a8 = (const int8_t*)x8;
@@ -1133,14 +1151,13 @@ extern "C" int w4a8_matmul_mma(const void* x8, const void* ax, const void* gsum,
   const auto* qq = (const uint8_t*)q;
   const auto* ss = (const __nv_bfloat16*)s;
   const auto* zz = (const __nv_bfloat16*)z;
-  auto* out = (__nv_bfloat16*)y;
   using namespace mma_sync;
   if (M <= 64) {
     const dim3 grid(1, (N + kNT * 8 - 1) / (kNT * 8));
-    if (M <= 16) return launch_gemm<1, true>(grid, st, a8, a, gs, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
-    if (M <= 32) return launch_gemm<2, true>(grid, st, a8, a, gs, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
-    return launch_gemm<4, true>(grid, st, a8, a, gs, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
+    if (M <= 16) return launch_gemm<1, true>(grid, st, a8, a, gs, qq, ss, zz, y, y_f32, M, N, K, Kp, g, ld_sz);
+    if (M <= 32) return launch_gemm<2, true>(grid, st, a8, a, gs, qq, ss, zz, y, y_f32, M, N, K, Kp, g, ld_sz);
+    return launch_gemm<4, true>(grid, st, a8, a, gs, qq, ss, zz, y, y_f32, M, N, K, Kp, g, ld_sz);
   }
   const dim3 grid((M + 63) / 64, (N + kWarps * kNT * 8 - 1) / (kWarps * kNT * 8));
-  return launch_gemm<4, false>(grid, st, a8, a, gs, qq, ss, zz, out, M, N, K, Kp, g, ld_sz);
+  return launch_gemm<4, false>(grid, st, a8, a, gs, qq, ss, zz, y, y_f32, M, N, K, Kp, g, ld_sz);
 }

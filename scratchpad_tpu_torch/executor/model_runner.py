@@ -54,7 +54,12 @@ import torch
 
 from scratchpad_tpu_torch.config import ModelConfig, ServerArgs
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
-from scratchpad_tpu_torch.executor.weight_loader import load_hf_state, quantized_layer_state, shard_state
+from scratchpad_tpu_torch.executor.weight_loader import (
+    load_hf_state,
+    quantized_layer_state,
+    shard_state,
+    w4_real_widths,
+)
 from scratchpad_tpu_torch.memory import (
     KVCacheConfig,
     PageAllocator,
@@ -158,9 +163,10 @@ def resolve_kv_cache_dtype(args: ServerArgs, cfg: ModelConfig, device: torch.dev
     W4-quantized serving on an accelerator through the ``auto`` backend (the
     JAX runner's ``gqa``, which a model class without
     ``supports_pallas_attention`` never gets: ``:198``) when hidden x layers
-    >= 50,000 (3B and up); otherwise, as an explicit ``bfloat16`` does, the
-    pool takes the model dtype. Unlike the JAX runner it leaves ``args`` as
-    it is."""
+    >= 50,000 (3B and up) on a single device (the JAX ``mesh is None``:
+    ``tp_size`` 1); otherwise, as an explicit ``bfloat16`` does, the pool
+    takes the model dtype. Unlike the JAX runner it leaves ``args`` as it
+    is."""
     if args.kv_cache_dtype in QUANT_KV_DTYPES:
         return args.kv_cache_dtype
     if (
@@ -169,6 +175,7 @@ def resolve_kv_cache_dtype(args: ServerArgs, cfg: ModelConfig, device: torch.dev
         and getattr(get_model_class(cfg.architecture), "supports_pallas_attention", False)
         and args.quantization in ("w4a8", "w4a16", "awq", "gptq")
         and device.type == "cuda"
+        and args.tp_size == 1
         and cfg.hidden_size * cfg.num_hidden_layers >= 50_000
     ):
         logger.info(
@@ -233,7 +240,7 @@ class ModelRunner:
 
         model_cls = get_model_class(cfg.architecture)
         if mesh is not None:
-            check_tp_model(cfg, mesh.size)
+            check_tp_model(cfg, mesh.size, self.args.quantization)
         self.kv_cache_dtype = resolve_kv_cache_dtype(self.args, cfg, self.device)
         if cfg.is_mla and self.kv_cache_dtype in QUANT_KV_DTYPES:
             raise NotImplementedError(
@@ -247,16 +254,15 @@ class ModelRunner:
                 "use 'auto' (the model dtype)"
             )
         quant = None if self.args.quantization is None else _QUANT_ROUTE[self.args.quantization]
-        # the JAX runner's quantize_lm_head auto rule: a 4-bit head whenever
-        # the decoder weights are 4-bit (a bf16 head is a third of a W4
-        # engine's per-step weight reads at tied-embedding models), for the
-        # classes whose logits read it; fp8 leaves the head
+        qlm = self.quantize_lm_head = self._quantize_lm_head(model_cls, quant)
+        # the allocator's peak above what the process held before the model
+        # (another engine of the process, say) is the load's
+        held = 0
+        if self.device.type == "cuda":
+            held = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
         self.model = model_cls(
-            cfg, self.device, self.dtype, quantization=quant,
-            quantize_lm_head=quant in ("w4a8", "w4a16")
-            and getattr(model_cls, "supports_quantized_lm_head", True)
-            # an EAGLE head shares the target's bf16 head (JAX :579-593)
-            and self.args.speculative_algorithm != "eagle",
+            cfg, self.device, self.dtype, quantization=quant, quantize_lm_head=qlm,
             **({} if mesh is None else {"tp": mesh}),
         )
         self.attention_backend = self._set_attention(self.model)
@@ -266,10 +272,17 @@ class ModelRunner:
         self.quantize_seconds = 0.0
         if params is not None:
             self.model.load_state_dict(self._shard(params))
-        elif quant is None:
+        elif quant is None and not qlm:
             self._fill_dense(self.model)
+        elif mesh is not None:
+            self._load_quantized_tp(model_cls)
         else:
             self._load_quantized(model_cls)
+        # the allocator's peak while the model was built and its weights
+        # loaded (a rank's, in its own process); None on the CPU
+        self.load_peak_bytes = (
+            torch.cuda.max_memory_allocated(self.device) - held if self.device.type == "cuda" else None
+        )
         self.model.requires_grad_(False)
         # quantized weights live in buffers
         self.param_bytes = sum(
@@ -377,12 +390,39 @@ class ModelRunner:
             state = load_hf_state(cfg.model_path)
             model.load_state_dict(self._shard(model.convert_hf_state(state, self.dtype)))
 
+    def _quantize_lm_head(self, model_cls, quant) -> bool:
+        """The JAX runner's ``quantize_lm_head`` (``model_runner.py:579-610``):
+        ``None`` is its auto rule, a 4-bit head whenever the decoder weights
+        are 4-bit (a bf16 head is a third of a W4 engine's per-step weight
+        reads at tied-embedding models), for the classes whose logits read
+        it, never beside an EAGLE head (it shares the target's bf16 head);
+        fp8 leaves the head. A mesh never quantizes it: under tp_size > 1 the
+        head stays the vocabulary-parallel bf16 one, and a set flag is
+        ignored with a warning, as the JAX runner ignores it."""
+        qlm = self.args.quantize_lm_head
+        if qlm is None:
+            qlm = (
+                quant in ("w4a8", "w4a16")
+                and getattr(model_cls, "supports_quantized_lm_head", True)
+                and self.args.speculative_algorithm != "eagle"
+            )
+        if qlm and self.mesh is not None:
+            if self.args.quantize_lm_head:
+                logger.warning(
+                    "quantize_lm_head=True under tp_size=%d is ignored: the head stays the "
+                    "vocabulary-parallel %s one, as the JAX runner keeps it on a mesh",
+                    self.mesh.size, self.args.dtype,
+                )
+            qlm = False
+        return bool(qlm)
+
     def _shard(self, state: dict) -> dict:
         """A single-device ``state_dict`` as this rank's shards (as it is at
-        tp 1)."""
+        tp 1); a padded W4 stored width is cut at its real columns."""
         if self.mesh is None:
             return state
-        return shard_state(state, self.mesh.rank, self.mesh.size, self.model.tp_family)
+        size, family = self.mesh.size, self.model.tp_family
+        return shard_state(state, self.mesh.rank, size, family, w4_real_widths(self.model, size))
 
     def _load_quantized(self, model_cls) -> None:
         """Quantize at load, as the JAX runner does (``model_runner.py:495-610``):
@@ -411,6 +451,45 @@ class ModelRunner:
         del state
         if self.device.type == "cuda":
             torch.cuda.empty_cache()  # the dense weights' blocks, before the pool is sized
+
+    @torch.no_grad()
+    def _load_quantized_tp(self, model_cls) -> None:
+        """A tensor-parallel rank's quantized weights, one whole tensor at a
+        time: each tensor of the unquantized twin drawn (a twin on the meta
+        device draws the tp 1 stream: ``init_random_(place=...)``) or
+        converted from the checkpoint, quantized whole on the device and cut
+        to the rank's part (the model's ``place_whole``), then freed. A
+        rank's peak is its shards and one whole tensor (gate|up: two)
+        beside them. An awq or gptq checkpoint's int4 tensors come
+        quantized: the converted state is cut as ``params`` are."""
+        cfg = self.model_config
+        t = time.monotonic()
+        method = self.args.quantization
+        pending: dict = {}
+
+        def place(name, whole, expert=None):
+            self.model.place_whole(name, whole, pending, expert)
+
+        twin = model_cls(cfg, torch.device("meta"), self.dtype)
+        self.model.reset_constants_()
+        if method in ("awq", "gptq", "gptq_v2") and cfg.model_path and not self.args.random_weights:
+            plain, quant = split_quant_tensors(load_hf_state(cfg.model_path))
+            state = twin.convert_hf_state(plain, self.dtype)
+            state.update(quantized_layer_state(convert_quantized_layers(
+                quant, cfg.num_hidden_layers, "awq" if method == "awq" else "gptq",
+                gptq_v2=method == "gptq_v2",
+            )))
+            self.model.load_state_dict(self._shard(state))
+        elif self.args.random_weights or not cfg.model_path:
+            twin.init_random_(torch.Generator(device=self.device).manual_seed(self.args.random_seed), place=place)
+        else:
+            for name, w in twin.convert_hf_state(load_hf_state(cfg.model_path), self.dtype).items():
+                place(name, w)
+        if pending:
+            raise ValueError(f"gate without up (or up without gate) at load: {sorted(pending)}")
+        self.quantize_seconds = time.monotonic() - t
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     # images (or video temporal patches) the vision tower encodes at once
     VISION_BATCH = 4
@@ -938,8 +1017,9 @@ class ModelRunner:
 
     def tp_report(self) -> dict:
         """What this rank has done since ``reset_counts``: kernel launches,
-        forwards by mode and collectives; with its placement, parameter
-        bytes, pool, the digests of every token it sampled, of every
+        forwards by mode and collectives (the W4 GEMMs' launches also by
+        group size); with its placement, parameter bytes and the
+        allocator's peak while they were loaded, pool, the digests of every token it sampled, of every
         ``forward_logits`` result and (MoE, tensor parallel) of every router
         pick, and the top-level packages it has imported."""
         from scratchpad_tpu_torch.ops import KERNEL_WRAPPERS
@@ -948,9 +1028,11 @@ class ModelRunner:
         return dict(
             rank=0 if tp is None else tp.rank, device=str(self.device),
             backend=None if tp is None else tp.backend,
-            param_bytes=self.param_bytes, kv_tokens=self.max_total_num_tokens,
-            kv_heads=self.kv_cache.num_kv_heads,
+            param_bytes=self.param_bytes, load_peak_bytes=self.load_peak_bytes,
+            kv_tokens=self.max_total_num_tokens, kv_heads=self.kv_cache.num_kv_heads,
             launches={fn.__name__: fn.launches for fn in KERNEL_WRAPPERS},
+            group_launches={fn.__name__: dict(fn.group_launches) for fn in KERNEL_WRAPPERS
+                            if hasattr(fn, "group_launches")},
             forwards={m.name.lower(): n for m, n in self.forward_counts.items()},
             collectives=0 if tp is None else tp.collectives,
             tokens_sampled=self._tokens_sampled, token_digest=self._token_digest.hexdigest(),

@@ -263,7 +263,7 @@ def params_from_jax(
 
 
 def shard_state(
-    state: dict[str, torch.Tensor], rank: int, tp: int, family: str = "llama"
+    state: dict[str, torch.Tensor], rank: int, tp: int, family: str = "llama", out_true=None
 ) -> dict[str, torch.Tensor]:
     """Rank ``rank``'s shards of a ``family`` model's ``state_dict`` at
     tensor parallel size ``tp`` (a key of ``parallel.TP_LAYOUTS``, the
@@ -273,10 +273,33 @@ def shard_state(
     :116-143``): q, k, v, gate, up and the q, k, v biases by output column
     (whole heads), o and down by input row, the embedding and an untied head
     by vocabulary row (V padded up to a multiple of ``tp``), the norms
-    replicated; the other families as their tables say."""
+    replicated; the other families as their tables say. Quantized weights
+    (W4's ``q``, ``s``, ``z``, fp8's ``w8``, ``s``) are cut in the packed
+    layout (``parallel.cut_w4``, ``cut_fp8``); ``out_true`` maps a W4
+    module's name to its single-device real width, where its stored width
+    is padded (``QuantizedLinear.out_true``; absent: every stored column is
+    real)."""
     from scratchpad_tpu_torch.parallel import shard_tensor
 
-    return {name: shard_tensor(name, t, rank, tp, family) for name, t in state.items()}
+    widths = out_true or {}
+    return {
+        name: shard_tensor(name, t, rank, tp, family, widths.get(name.rsplit(".", 1)[0], 0))
+        for name, t in state.items()
+    }
+
+
+def w4_real_widths(model, size: int) -> dict[str, int]:
+    """``shard_state``'s ``out_true`` for a tensor-parallel rank's ``model``
+    at group size ``size``: each column-split ``QuantLinear``'s
+    single-device real width, the rank's width times ``size``."""
+    from scratchpad_tpu_torch.models.common import QuantLinear
+    from scratchpad_tpu_torch.parallel import split_of
+
+    return {
+        prefix: m.out_features * size
+        for prefix, m in model.named_modules()
+        if isinstance(m, QuantLinear) and split_of(f"{prefix}.q", model.tp_family)[1] in ("column", "halves")
+    }
 
 
 def eagle_params_from_jax(params_np: dict[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:

@@ -1,7 +1,9 @@
 """Shared building blocks for the port's models.
 
 Counterpart of ``scratchpad_tpu/models/common.py``: the 4-bit linear layer,
-tensor parallelism's row-parallel sum (``row_parallel_sum``), its
+the one place where a dense weight becomes quantized buffers
+(``quantize_weight``) and a tensor-parallel rank's quantized load
+(``place_whole``), tensor parallelism's row-parallel sum (``row_parallel_sum``), its
 vocabulary-parallel embedding and head (``vocab_lookup``, ``vocab_logits``)
 and its seeded random fill (``fill_random``: a rank keeps its shard of
 each single-device draw), RMSNorm,
@@ -19,13 +21,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scratchpad_tpu_torch.ops.quant.fp8 import quantize_fp8_stacked
 from scratchpad_tpu_torch.ops.quant.w4_matmul import (
     check_w4_shape,
+    pack_w4,
     padded_in,
     quantize_rows_int8,
+    row_amax,
     w4a8_matmul,
     w4a16_matmul,
 )
+from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_stacked
 
 
 class QuantLinear(nn.Module):
@@ -37,7 +43,14 @@ class QuantLinear(nn.Module):
     activations (``w4a16_matmul``). Buffers ``q``, ``s``, ``z`` (z holds the
     zero points in bf16; see ``ops/quant/w4_matmul.py``), stored ``N``
     columns wide, of which ``out_features`` are real. A shape or device
-    that the kernels do not take is refused here, at load."""
+    that the kernels do not take is refused here, at load.
+
+    ``tp``: the tensor-parallel group of a row-parallel layer, whose input
+    is a rank's slice of the whole row (``in_features`` of it). W4A8 then
+    quantizes the slice with the whole row's scale, as the single device
+    does: the slice's row maxima, their maximum over the group (one
+    collective), then the quantizer with it (``partial``). Its output is the
+    rank's partial product; the caller sums it over the group."""
 
     def __init__(
         self,
@@ -49,13 +62,14 @@ class QuantLinear(nn.Module):
         bias: bool,
         device,
         dtype,
+        tp=None,
     ):
         super().__init__()
         check_w4_shape(in_features, group_size)
         if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"the W4 kernels take bf16 activations, not {dtype}")
         self.in_features, self.out_features = in_features, out_features
-        self.group_size, self.a8 = group_size, a8
+        self.group_size, self.a8, self.tp = group_size, a8, tp
         G = in_features // group_size
         self.register_buffer(
             "q", torch.zeros(stored_width, padded_in(in_features) // 2, dtype=torch.uint8, device=device)
@@ -84,15 +98,100 @@ class QuantLinear(nn.Module):
             self.z = self.z.new_zeros(G, N)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def partial(self, x: torch.Tensor, amax=None) -> torch.Tensor:
+        """The product of ``x`` without the bias, in ``x``'s dtype; a
+        row-parallel W4A8 layer's in f32, a rank's partial product, which
+        the group sums before its one rounding (``row_parallel``). W4A8
+        quantizes each row with ``amax`` (f32 [M, 1]) where given, else
+        with its own maximum, taken over the group where the layer is
+        row-parallel."""
         g, n = self.group_size, self.out_features
         if self.a8:
-            x8, ax, gsum = quantize_rows_int8(x, g)
-            y = w4a8_matmul(x8, ax, gsum, self.q, self.s, self.z, g, n)
+            if amax is None and self.tp is not None:
+                amax = self.tp.all_reduce(row_amax(x), op="max")
+            x8, ax, gsum = quantize_rows_int8(x, g, amax)
+            y = w4a8_matmul(x8, ax, gsum, self.q, self.s, self.z, g, n, f32=self.tp is not None)
+            if self.tp is not None:
+                return y.float()  # the plain version's is f32 already
         else:
             y = w4a16_matmul(x, self.q, self.s, self.z, g, n)
-        y = y.to(x.dtype)  # the plain versions return f32
+        return y.to(x.dtype)  # the plain versions return f32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.partial(x)
         return y if self.bias is None else y + self.bias
+
+
+def quantize_weight(prefix: str, w: torch.Tensor, quantization: str) -> tuple[dict, int]:
+    """The buffers of the quantized module ``prefix`` made from its whole
+    dense weight ``w`` ``[In, Out]`` on ``w``'s device, the JAX package's
+    codes bit for bit: fp8's ``w8`` and ``s`` (``quantize_fp8_stacked``),
+    a 4-bit route's packed ``q``, ``s`` and ``z`` (``quantize_stacked``,
+    ``pack_w4``; Llama's fused gate|up is the weight ``[In, 2I]``, as
+    ``quantize_model_params(fuse_gate_up=True)`` fuses it). Also the real
+    columns of a padded 4-bit stored width (0 where none is, and for fp8),
+    which a column cut needs. ``quantize_state`` keeps the buffers whole, a
+    tensor-parallel rank's ``place_whole`` its cut of them."""
+    if quantization == "fp8":
+        codes, scales = quantize_fp8_stacked(w[None])
+        return {f"{prefix}.w8": codes[0], f"{prefix}.s": scales[0]}, 0
+    ql = quantize_stacked(w[None])
+    return {f"{prefix}.{part}": t[0] for part, t in zip("qsz", pack_w4(ql))}, ql.out_true
+
+
+def state_tensor(module: nn.Module, name: str) -> torch.Tensor:
+    """``module``'s parameter or buffer ``name``."""
+    try:
+        return module.get_parameter(name)
+    except AttributeError:
+        return module.get_buffer(name)
+
+
+@torch.no_grad()
+def place_whole(model: nn.Module, name: str, whole: torch.Tensor, pending: dict, expert=None) -> None:
+    """Load the whole single-device tensor ``name`` (a ``state_dict`` name
+    of the unquantized twin; an expert stack's expert ``expert``, or the
+    whole stack ``[E, In, Out]`` an expert at a time) into ``model``, a
+    quantized tensor-parallel rank's. A weight that the model quantizes
+    (the class's ``QUANT_TARGETS`` of a layer, each expert of its
+    ``EXPERT_STACKS``) goes through ``quantize_weight`` on the model's
+    device in its dtype (``quantize_state``'s codes at tp 1), then the
+    rank's cut of each buffer is kept (``cut_w4``, ``cut_fp8``); Llama's
+    4-bit gate waits in ``pending`` for up, and the two are quantized as the
+    fused gate|up. Any other tensor is copied from the rank's view of it
+    (``copy_cut_``). One whole tensor (gate|up: two) is alive at a time.
+    The model classes take it as their method."""
+    from scratchpad_tpu_torch.parallel import copy_cut_, cut_fp8, cut_w4, split_of
+
+    tp, family = model.tp, model.tp_family
+    parts = name.split(".")
+    in_layer = parts[0] == "layers"
+    stack = in_layer and len(parts) == 3 and parts[2] in getattr(model, "EXPERT_STACKS", ())
+    if stack and expert is None:
+        for e in range(whole.shape[0]):
+            place_whole(model, name, whole[e], pending, e)
+        return
+    if not (stack or (in_layer and parts[2] in model.QUANT_TARGETS and parts[3:] == ["weight"])):
+        copy_cut_(state_tensor(model, name), whole, split_of(name, family), tp.rank, tp.size, name)
+        return
+    w = whole.to(device=model.final_norm.device, dtype=model.final_norm.dtype)
+    w, prefix = (w, name) if stack else (w.T, name[: -len(".weight")])  # [In, Out]
+    l = int(parts[1])
+    if parts[2] in ("gate", "up") and getattr(model.layers[l], "fused_gate_up", False):
+        pending[(l, parts[2])] = w
+        if (l, "gate") not in pending or (l, "up") not in pending:
+            return
+        w, prefix = torch.cat([pending.pop((l, "gate")), pending.pop((l, "up"))], dim=1), f"layers.{l}.gate_up"
+    fp8 = model.quantization == "fp8"
+    if stack and not fp8:  # a 4-bit expert is a QuantLinear of its own
+        prefix, expert = f"{prefix}.{expert}", None
+    bufs, out_true = quantize_weight(prefix, w, model.quantization)
+    for key, v in bufs.items():
+        _, kind, part = split_of(key, family)
+        v = (cut_fp8(v, part, kind, tp.rank, tp.size, key) if fp8
+             else cut_w4(v, part, kind, tp.rank, tp.size, out_true, key))
+        dst = state_tensor(model, key)
+        (dst if expert is None else dst[expert]).copy_(v)
 
 
 def row_parallel_sum(y: torch.Tensor, tp=None) -> torch.Tensor:
@@ -100,6 +199,19 @@ def row_parallel_sum(y: torch.Tensor, tp=None) -> torch.Tensor:
     tensor-parallel group ``tp`` (``parallel.TPGroup``; None at tp 1).
     Column-parallel projections need no collective."""
     return y if tp is None else tp.row_sum(y)
+
+
+def row_parallel(lin: nn.Module, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """A row-parallel projection ``lin`` (``nn.Linear``, ``QuantLinear`` or
+    ``Fp8Linear``) of the rank's slice ``x``: the rank's partial product
+    (a quantized layer's ``partial``: fp8's stays f32), summed over the
+    group in f32 and rounded once to ``x``'s dtype, the bias added once,
+    after the sum. ``lin(x)`` at tp 1."""
+    if tp is None:
+        return lin(x)
+    y = F.linear(x, lin.weight) if isinstance(lin, nn.Linear) else lin.partial(x)
+    y = tp.row_sum(y).to(x.dtype)
+    return y if lin.bias is None else y + lin.bias
 
 
 def vocab_lookup(embed: nn.Embedding, ids: torch.Tensor, tp=None) -> torch.Tensor:
@@ -124,25 +236,34 @@ def vocab_logits(h: torch.Tensor, head: torch.Tensor, vocab_size: int, tp=None) 
 
 
 def fill_random(w: torch.Tensor, name: str, generator: torch.Generator, tp=None, family: str = "llama",
-                vocab_size: int = 0, fan_in_dim: int = -1) -> None:
+                vocab_size: int = 0, fan_in_dim: int = -1, place=None) -> None:
     """``w`` (the tensor ``name`` of ``family``'s ``state_dict``, or a rank's
     shard of it) filled with N(0, 1) / sqrt(fan-in), the JAX package's
-    scheme, drawn at the single-device shape on ``w``'s device and cut to
-    the rank's shard: every rank of every tensor-parallel size holds the tp
-    1 weights of the same seed. The fan-in is the single-device shape's
-    dimension ``fan_in_dim`` (In of an [out, in] weight)."""
+    scheme, drawn at the single-device shape on the generator's device and
+    cut to the rank's shard: every rank of every tensor-parallel size holds
+    the tp 1 weights of the same seed. The fan-in is the single-device
+    shape's dimension ``fan_in_dim`` (In of an [out, in] weight).
+    ``place(name, whole)``: takes the whole draw instead of ``w`` (a model
+    on the meta device, whose draws a quantizing load places)."""
     from scratchpad_tpu_torch.parallel import full_shape, shard_tensor
 
     size, rank = (1, 0) if tp is None else (tp.size, tp.rank)
     shape = tuple(w.shape) if tp is None else full_shape(name, tuple(w.shape), size, vocab_size, family)
-    r = torch.randn(shape, generator=generator, device=w.device, dtype=torch.float32)
-    w.copy_(shard_tensor(name, r / float(np.sqrt(shape[fan_in_dim])), rank, size, family))
+    # scaled in place: one f32 copy of the whole tensor alive at a time
+    whole = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    whole.div_(float(np.sqrt(shape[fan_in_dim])))
+    if place is not None:
+        place(name, whole)
+    else:
+        w.copy_(shard_tensor(name, whole, rank, size, family))
 
 
-def fill_experts(p: torch.Tensor, name: str, generator: torch.Generator, tp=None, family: str = "llama") -> None:
+def fill_experts(p: torch.Tensor, name: str, generator: torch.Generator, tp=None, family: str = "llama",
+                 place=None) -> None:
     """An expert stack ``p`` [E, In, Out] (or a rank's shard) filled as
     ``fill_random`` fills it, one expert at a time (a stack is drawn whole
-    nowhere: GPT-OSS-20B's take 38 GB in bf16), each over its fan-in In."""
+    nowhere: GPT-OSS-20B's take 38 GB in bf16), each over its fan-in In;
+    ``place(name, whole, e)`` takes each expert's whole draw instead."""
     from scratchpad_tpu_torch.parallel import cut, full_shape, split_of
 
     size, rank = (1, 0) if tp is None else (tp.size, tp.rank)
@@ -151,8 +272,12 @@ def fill_experts(p: torch.Tensor, name: str, generator: torch.Generator, tp=None
     # the stack's split, on one expert [In, Out]
     split = None if split is None else (("halves", 1) if isinstance(split, tuple) else split - 1)
     for e in range(E):
-        r = torch.randn((In, Out), generator=generator, device=p.device, dtype=torch.float32)
-        p[e].copy_(cut(r / float(np.sqrt(In)), split, rank, size, name))
+        whole = torch.randn((In, Out), generator=generator, device=generator.device, dtype=torch.float32)
+        whole.div_(float(np.sqrt(In)))
+        if place is not None:
+            place(name, whole, e)
+        else:
+            p[e].copy_(cut(whole, split, rank, size, name))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:

@@ -200,10 +200,10 @@ class DeepseekV2ForCausalLM(MoeForCausalLM):
             layer.shared_gate, layer.shared_up, layer.shared_down = lin(H, Is), lin(H, Is), lin(Is, H)
         return layer
 
-    def _init_extra_(self, name: str, p: torch.Tensor, generator) -> None:
-        if name not in ("w_uk", "w_uv"):
-            return super()._init_extra_(name, p, generator)
-        fill_random(p, f"layers.0.{name}", generator, self.tp, self.tp_family, fan_in_dim=-2)
+    def _init_extra_(self, name: str, p: torch.Tensor, generator, place=None) -> None:
+        if name.rsplit(".", 1)[-1] not in ("w_uk", "w_uv"):
+            return super()._init_extra_(name, p, generator, place)
+        fill_random(p, name, generator, self.tp, self.tp_family, fan_in_dim=-2, place=place)
 
     # ---------------------------------------------------------------- routing
 

@@ -91,11 +91,14 @@ class GptOssForCausalLM(MoeForCausalLM):
         layer.down = expert_stack(E, I, H, self.quantization, device, dtype)
         layer.down_b = nn.Parameter(torch.empty(E, H, device=device, dtype=dtype))
 
-    def _init_extra_(self, name, p, generator) -> None:
-        if name != "sinks":
-            return super()._init_extra_(name, p, generator)
-        r = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
-        p.copy_(r * SINK_STD)
+    def _init_extra_(self, name, p, generator, place=None) -> None:
+        if not name.endswith(".sinks"):
+            return super()._init_extra_(name, p, generator, place)
+        r = torch.randn(p.shape, generator=generator, device=generator.device, dtype=torch.float32)
+        if place is not None:
+            place(name, r * SINK_STD)
+        else:
+            p.copy_(r * SINK_STD)
 
     def layer_windows(self) -> list:
         """Each layer's window, None on a global layer (read from the config

@@ -27,12 +27,13 @@ of negative placeholder ids, and ``rope_tables`` ropes by Qwen2-VL's 3-D
 positions (``mrope_comp``) or by positions shifted by ``rope_delta``. Under tensor parallelism (``tp``) a
 rank's model holds its heads, MLP columns and vocabulary rows, and sums o's
 and down's partial products over the group (``models/common.py::
-row_parallel_sum``).
+row_parallel``); with quantized weights each projection holds the rank's
+cut of the whole tensor's codes (``parallel.cut_w4``, ``cut_fp8``; the
+fused 4-bit gate|up by ``HALVES``), and a row-parallel W4A8 projection
+quantizes its slice with the whole row's scale (``QuantLinear``'s ``tp``).
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
@@ -42,11 +43,8 @@ from torch.nn.utils import skip_init
 from scratchpad_tpu_torch.config.model_config import ModelConfig
 from scratchpad_tpu_torch.executor.forward_meta import ForwardMeta, ForwardMode
 from scratchpad_tpu_torch.memory.kv_cache import KVCache
-from scratchpad_tpu_torch.ops.quant.fp8 import Fp8Linear, fp8_state, quantize_fp8_stacked
-from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
+from scratchpad_tpu_torch.ops.quant.fp8 import Fp8Linear
 from scratchpad_tpu_torch.ops.quant.w4a16 import (
-    quantize_model_params,
-    quantize_stacked,
     stacked_group_size,
     stacked_out_width,
 )
@@ -57,10 +55,12 @@ from scratchpad_tpu_torch.models.common import (
     compute_inv_freq,
     mrope_channel_components,
     mrope_cos_sin,
+    place_whole,
+    quantize_weight,
     rms_norm,
     rope_attention_scale,
     rope_cos_sin,
-    row_parallel_sum,
+    row_parallel,
     silu_mul,
     vocab_logits,
     vocab_lookup,
@@ -75,11 +75,25 @@ def _linear(n_in: int, n_out: int, bias: bool, device, dtype) -> nn.Linear:
     return skip_init(nn.Linear, n_in, n_out, bias=bias, device=device, dtype=dtype)
 
 
-def _quant_linear(n_in: int, n_out: int, a8: bool, bias: bool, device, dtype) -> QuantLinear:
-    # the shapes quantize_stacked gives a weight [n_in, n_out]; filled by
-    # load_state_dict
+def _quant_linear(n_in: int, n_out: int, a8: bool, bias: bool, device, dtype, tp=None) -> QuantLinear:
+    """The shapes quantize_stacked gives a weight [n_in, n_out]; filled by
+    load_state_dict. ``tp``: a row-parallel rank's group, ``n_in`` its share
+    of the whole input ``n_in * tp.size``, whose group size it keeps."""
     stored, _ = stacked_out_width(n_out)
-    return QuantLinear(n_in, n_out, stacked_group_size(n_in), stored, a8, bias, device, dtype)
+    g = stacked_group_size(n_in if tp is None else n_in * tp.size)
+    return QuantLinear(n_in, n_out, g, stored, a8, bias, device, dtype, tp)
+
+
+def projection_maker(quantization, device, dtype):
+    """``lin(n_in, n_out, bias, tp=None)``: a projection of ``quantization``
+    (None: ``nn.Linear``; fp8: ``Fp8Linear``; else ``QuantLinear``), ``tp``
+    the group of a row-parallel one."""
+    if quantization is None:
+        return lambda n_in, n_out, bias, tp=None: _linear(n_in, n_out, bias, device, dtype)
+    if quantization == "fp8":
+        return lambda n_in, n_out, bias, tp=None: Fp8Linear(n_in, n_out, bias, device, dtype)
+    a8 = quantization == "w4a8"
+    return lambda n_in, n_out, bias, tp=None: _quant_linear(n_in, n_out, a8, bias, device, dtype, tp)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -87,30 +101,26 @@ class LlamaDecoderLayer(nn.Module):
     gate and up fused into one ``gate_up`` (gate | up along Out), as the JAX
     package's ``quantize_model_params(fuse_gate_up=True)`` stores them;
     ``fp8``: every projection is an ``Fp8Linear``, gate and up apart, as
-    ``quantize_model_params_fp8`` stores them. ``tp_size``: a
-    tensor-parallel rank's layer, over ``Hq / tp_size`` query heads,
-    ``Hkv / tp_size`` kv heads and ``I / tp_size`` MLP columns (bf16
-    weights)."""
+    ``quantize_model_params_fp8`` stores them. ``tp`` (a ``parallel.TPGroup``):
+    a tensor-parallel rank's layer, over ``Hq / tp``
+    query heads, ``Hkv / tp`` kv heads and ``I / tp`` MLP columns, o and
+    down over the rank's share of their inputs (a fused gate_up holds the
+    rank's gate columns, then its up columns)."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, tp_size: int = 1):
+    def __init__(self, cfg: ModelConfig, device, dtype, quantization=None, tp=None):
         super().__init__()
+        tp_size = 1 if tp is None else tp.size
         H, D = cfg.hidden_size, cfg.head_dim
         Hq, Hkv, I = (n // tp_size for n in (cfg.num_attention_heads, cfg.num_kv_heads, cfg.intermediate_size))
         b = cfg.attention_bias
         self.input_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.post_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.fused_gate_up = quantization in ("w4a8", "w4a16")
-        if quantization is None:
-            lin = lambda n_in, n_out, bias: _linear(n_in, n_out, bias, device, dtype)
-        elif quantization == "fp8":
-            lin = lambda n_in, n_out, bias: Fp8Linear(n_in, n_out, bias, device, dtype)
-        else:
-            a8 = quantization == "w4a8"
-            lin = lambda n_in, n_out, bias: _quant_linear(n_in, n_out, a8, bias, device, dtype)
+        lin = projection_maker(quantization, device, dtype)
         self.wq = lin(H, Hq * D, b)
         self.wk = lin(H, Hkv * D, b)
         self.wv = lin(H, Hkv * D, b)
-        self.wo = lin(Hq * D, H, False)
+        self.wo = lin(Hq * D, H, False, tp)
         if cfg.use_qk_norm:
             self.q_norm = nn.Parameter(torch.empty(D, device=device, dtype=dtype))
             self.k_norm = nn.Parameter(torch.empty(D, device=device, dtype=dtype))
@@ -119,7 +129,7 @@ class LlamaDecoderLayer(nn.Module):
         else:
             self.gate = lin(H, I, False)
             self.up = lin(H, I, False)
-        self.down = lin(I, H, False)
+        self.down = lin(I, H, False, tp)
 
 
 def decoder_layers(
@@ -163,6 +173,9 @@ def decoder_layers(
     def lin(layer, name, h, l):
         return topped(getattr(layer, name)(h), h, name, l)
 
+    def row(layer, name, h, l):  # o and down: summed over the group
+        return lin(layer, name, h, l) if tp is None else row_parallel(getattr(layer, name), h, tp)
+
     for l in range(first, len(layers) if last is None else last):
         layer = layers[l]
         h = rms_norm(x, layer.input_norm, eps)
@@ -178,7 +191,7 @@ def decoder_layers(
             q, kv, l, meta, sm_scale=sm_scale,
             logit_cap=cfg.attn_logit_softcap, sliding_window=cfg.sliding_window,
         )
-        x = x + row_parallel_sum(lin(layer, "wo", attn.reshape(T, Hq * D), l), tp)
+        x = x + row(layer, "wo", attn.reshape(T, Hq * D), l)
         h2 = rms_norm(x, layer.post_norm, eps)
         if layer.fused_gate_up:
             # the pools keep gate and up apart: each half gets its own
@@ -186,7 +199,7 @@ def decoder_layers(
             gate, up = topped(gate, h2, "gate", l), topped(up, h2, "up", l)
         else:
             gate, up = lin(layer, "gate", h2, l), lin(layer, "up", h2, l)
-        x = x + row_parallel_sum(lin(layer, "down", silu_mul(gate, up), l), tp)
+        x = x + row(layer, "down", silu_mul(gate, up), l)
     return x
 
 
@@ -200,13 +213,15 @@ class LlamaForCausalLM(nn.Module):
     The quantized state comes from ``quantize_state`` or from the JAX
     package's parameters (``weight_loader.params_from_jax``).
 
-    ``tp`` (a ``parallel.TPGroup``): a tensor-parallel rank's model, in bf16
-    (or f32) weights. The layers hold the rank's heads and MLP columns
-    (``decoder_layers``), the embedding and an untied head the rank's
-    ``vocab_rows`` rows of the vocabulary padded up to a multiple of the
-    group's size; the lookup sums the ranks' rows (an id outside a rank's
-    range gives it a zero row), and the head's columns are gathered into
-    the whole vocabulary on every rank, the padded ones dropped."""
+    ``tp`` (a ``parallel.TPGroup``): a tensor-parallel rank's model. The
+    layers hold the rank's heads and MLP columns (``decoder_layers``; 4-bit
+    or fp8 codes of the whole tensors, cut: ``place_whole``), the embedding
+    and an untied head the rank's ``vocab_rows`` rows of the vocabulary
+    padded up to a multiple of the group's size; the lookup sums the ranks'
+    rows (an id outside a rank's range gives it a zero row), and the head's
+    columns are gathered into the whole vocabulary on every rank, the
+    padded ones dropped. The head stays in the model dtype (no
+    ``quantize_lm_head``), as the JAX runner leaves it on a mesh."""
 
     # the runner may serve it through attention_backend="pallas"
     supports_pallas_attention = True
@@ -221,9 +236,11 @@ class LlamaForCausalLM(nn.Module):
                 f"{type(self).__name__} is a text model; {cfg.architecture} with a vision "
                 "config needs its multimodal class"
             )
-        if tp is not None and (quantization or quantize_lm_head):
-            raise NotImplementedError("quantized weights under tensor parallelism (ROADMAP Queue 1, item 10(b))")
+        if tp is not None and quantize_lm_head:
+            raise ValueError("a tensor-parallel model keeps its vocabulary-parallel head in the model dtype "
+                             "(the JAX runner quantizes the head only without a mesh)")
         self.cfg = cfg
+        self.quantization = quantization
         self.tp = tp
         self.tp_size = 1 if tp is None else tp.size
         H = cfg.hidden_size
@@ -260,7 +277,7 @@ class LlamaForCausalLM(nn.Module):
         self.toppings = None  # ToppingsManager.device_pools(), set by the runner
 
     def _make_layer(self, device, dtype, quantization) -> nn.Module:
-        return LlamaDecoderLayer(self.cfg, device, dtype, quantization, self.tp_size)
+        return LlamaDecoderLayer(self.cfg, device, dtype, quantization, tp=self.tp)
 
     def set_mrope_section(self, section, device) -> None:
         """Rope by 3-D positions on extend rows that carry them (None: none)."""
@@ -274,30 +291,39 @@ class LlamaForCausalLM(nn.Module):
     # ------------------------------------------------------------- parameters
 
     @torch.no_grad()
-    def init_random_(self, generator: torch.Generator) -> None:
+    def init_random_(self, generator: torch.Generator, place=None) -> None:
         """Random weights (benchmarks, tests without checkpoints), the JAX
         package's scheme: normal / sqrt(fan_in), norms at one, biases zero.
         A tensor-parallel rank draws each single-device tensor in turn, as
         tp 1 does, and keeps its shard (``parallel.shard_tensor``): every
         rank then holds the tp 1 weights, and one whole tensor at most is
-        alive at a time."""
+        alive at a time. ``place(name, whole)`` takes each draw instead
+        (``common.fill_random``)."""
         cfg = self.cfg
-        fill = lambda w, name: fill_random(w, name, generator, self.tp, self.tp_family, cfg.vocab_size)
+        fill = lambda w, name: fill_random(w, name, generator, self.tp, self.tp_family, cfg.vocab_size,
+                                           place=place)
+        self.reset_constants_()
         fill(self.embed.weight, "embed.weight")
-        for layer in self.layers:
-            layer.input_norm.fill_(1.0)
-            layer.post_norm.fill_(1.0)
-            if cfg.use_qk_norm:
-                layer.q_norm.fill_(1.0)
-                layer.k_norm.fill_(1.0)
+        for l, layer in enumerate(self.layers):
             for t in ("wq", "wk", "wv", "wo", "gate", "up", "down"):
-                lin = getattr(layer, t)
-                fill(lin.weight, f"layers.0.{t}.weight")
-                if lin.bias is not None:
-                    lin.bias.zero_()
-        self.final_norm.fill_(1.0)
+                fill(getattr(layer, t).weight, f"layers.{l}.{t}.weight")
         if self.lm_head is not None:
             fill(self.lm_head.weight, "lm_head.weight")
+
+    @torch.no_grad()
+    def reset_constants_(self) -> None:
+        """Norms at one, biases at zero: the random init's constants."""
+        for name, p in self.named_parameters():
+            if name.endswith("norm"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+
+    # the decoder weights a quantized model quantizes, by layer
+    QUANT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+    # a quantized tensor-parallel rank's load, one whole tensor at a time
+    place_whole = place_whole
 
     HF_LAYER_MAP = {
         "self_attn.q_proj.weight": "wq.weight",
@@ -346,49 +372,23 @@ class LlamaForCausalLM(nn.Module):
     def quantize_state(self, state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """This quantized model's ``state_dict`` from the ``state_dict`` of
         its unquantized twin: each layer's ``[out, in]`` weights, transposed
-        to ``[in, out]`` so that groups run along In, go through the JAX
-        package's ``quantize_model_params(fuse_gate_up=True)`` (copied,
-        bit-identical codes) and ``pack_w4``; the head through
-        ``quantize_stacked``. Layers that arrive quantized (an imported int4
-        checkpoint) are kept as they are. Quantization and packing run on
-        this model's device."""
+        to ``[in, out]`` so that groups run along In (gate and up joined
+        into the 4-bit routes' fused gate|up), through ``quantize_weight``
+        on this model's device; the head through it where it is 4-bit.
+        Layers that arrive quantized (an imported int4 checkpoint) are kept
+        as they are."""
         device = self.final_norm.device
         state = dict(state)
-        if isinstance(self.layers[0].wq, Fp8Linear):
-            return self._quantize_state_fp8(state, device)
-
-        def packed(ql) -> tuple[torch.Tensor, ...]:
-            ql = dataclasses.replace(ql, q=ql.q.to(device), s=ql.s.to(device), z=ql.z.to(device))
-            return tuple(t[0] for t in pack_w4(ql))
-
-        def in_out(w: torch.Tensor) -> torch.Tensor:
-            return w.to(device).T[None]  # [1, in, out]
-
-        if self.layers[0].fused_gate_up and "layers.0.wq.weight" in state:
-            for l in range(len(self.layers)):
-                dense = {
-                    t: in_out(state.pop(f"layers.{l}.{t}.weight"))
-                    for t in ("wq", "wk", "wv", "wo", "gate", "up", "down")
-                }
-                for t, ql in quantize_model_params(dense, fuse_gate_up=True).items():
-                    name = "gate_up" if t == "gate_up_f" else t
-                    for key, v in zip("qsz", packed(ql)):
-                        state[f"layers.{l}.{name}.{key}"] = v
-        if self.lm_head_q is not None:
+        if self.quantization is not None and "layers.0.wq.weight" in state:
+            for l, layer in enumerate(self.layers):
+                dense = {t: state.pop(f"layers.{l}.{t}.weight").to(device).T for t in self.QUANT_TARGETS}
+                if layer.fused_gate_up:
+                    dense["gate_up"] = torch.cat([dense.pop("gate"), dense.pop("up")], dim=1)
+                for t, w in dense.items():
+                    state.update(quantize_weight(f"layers.{l}.{t}", w, self.quantization)[0])
+        if self.lm_head_q is not None:  # 4-bit whatever the layers' route
             head = state["embed.weight"] if self.cfg.tie_word_embeddings else state.pop("lm_head.weight")
-            for key, v in zip("qsz", packed(quantize_stacked(in_out(head)))):
-                state[f"lm_head_q.{key}"] = v
-        return state
-
-    def _quantize_state_fp8(self, state: dict, device) -> dict:
-        """fp8: each layer's ``[out, in]`` weights transposed to ``[1, in,
-        out]`` through ``quantize_fp8_stacked`` on their own device (the JAX
-        package's ``quantize_model_params_fp8``, whose codes it gives bit for
-        bit; gate and up apart, the head left)."""
-        for l in range(len(self.layers)):
-            for t in ("wq", "wk", "wv", "wo", "gate", "up", "down"):
-                codes, scales = quantize_fp8_stacked(state.pop(f"layers.{l}.{t}.weight").T[None])
-                state.update(fp8_state(codes[0], scales[0], f"layers.{l}.{t}", device))
+            state.update(quantize_weight("lm_head_q", head.to(device).T, "w4a16")[0])
         return state
 
     # ---------------------------------------------------------------- forward

@@ -112,7 +112,7 @@ class Llama4ForCausalLM(MoeForCausalLM):
         dense MLP."""
         cfg, n = self.cfg, self.tp_size
         H, E, I = cfg.hidden_size, cfg.num_experts, cfg.intermediate_size // n
-        layer = MoeDecoderLayer(cfg, device, dtype, None, False, qk_norm=False, tp_size=n)
+        layer = MoeDecoderLayer(cfg, device, dtype, None, False, qk_norm=False, tp=self.tp)
         layer.moe = l in moe_layer_ids(cfg)
         lin = lambda n_in, n_out: _linear(n_in, n_out, False, device, dtype)
         if layer.moe:

@@ -40,11 +40,18 @@ with the rest of distributed serving). ``quantization="fp8"`` (``Fp8Linear``
 attention projections, ``Fp8ExpertStack`` experts, the JAX
 ``quantize_model_params_fp8``) runs the experts as the bf16 stacks do, each
 stack upcast to the model dtype in one batched product.
+
+Under tensor parallelism (``tp``) quantized weights are cut as the bf16
+ones (``parallel.TP_LAYOUTS``): each rank holds its cut of the whole
+tensors' codes (``place_whole``), w1 and w3 by each expert's Out, w2 by
+its In. A W4A8 w2 quantizes each expert's slice of its input with the
+whole row's scale: every expert's activations first, then one maximum over
+the group for all of them ``[E, T]``, then the w2 calls (one collective a
+layer, not one an expert); fp8's w2 partial products stay f32 until the
+experts' sum over the group.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
@@ -59,23 +66,20 @@ from scratchpad_tpu_torch.models.common import (
     compute_inv_freq,
     fill_experts,
     fill_random,
+    place_whole,
+    quantize_weight,
     rms_norm,
     rope_cos_sin,
+    row_parallel,
     row_parallel_sum,
     silu_mul,
     vocab_logits,
     vocab_lookup,
 )
-from scratchpad_tpu_torch.models.llama import _linear, _quant_linear
+from scratchpad_tpu_torch.models.llama import _linear, _quant_linear, projection_maker
 from scratchpad_tpu_torch.ops.attention import write_kv
-from scratchpad_tpu_torch.ops.quant.fp8 import (
-    Fp8ExpertStack,
-    Fp8Linear,
-    fp8_state,
-    quantize_fp8_stacked,
-)
-from scratchpad_tpu_torch.ops.quant.w4_matmul import pack_w4
-from scratchpad_tpu_torch.ops.quant.w4a16 import quantize_model_params
+from scratchpad_tpu_torch.ops.quant.fp8 import Fp8ExpertStack
+from scratchpad_tpu_torch.ops.quant.w4_matmul import row_amax
 from scratchpad_tpu_torch.parallel import vocab_rows
 
 # the router digest's modulus and multiplier (a rolling hash kept on the
@@ -84,16 +88,17 @@ DIGEST_MOD = 2**31 - 1
 DIGEST_MUL = 1_000_003
 
 
-def expert_stack(E: int, n_in: int, n_out: int, quantization, device, dtype):
+def expert_stack(E: int, n_in: int, n_out: int, quantization, device, dtype, tp=None):
     """E experts' ``[In, Out]`` matrices: one ``[E, In, Out]`` parameter,
     with ``fp8`` one ``Fp8ExpertStack`` (codes ``[E, In, Out]``), or with a
-    4-bit ``quantization`` one ``QuantLinear`` an expert."""
+    4-bit ``quantization`` one ``QuantLinear`` an expert (``tp``: a
+    row-parallel rank's group, ``n_in`` its share)."""
     if quantization is None:
         return nn.Parameter(torch.empty(E, n_in, n_out, device=device, dtype=dtype))
     if quantization == "fp8":
         return Fp8ExpertStack(E, n_in, n_out, device)
     a8 = quantization == "w4a8"
-    return nn.ModuleList(_quant_linear(n_in, n_out, a8, False, device, dtype) for _ in range(E))
+    return nn.ModuleList(_quant_linear(n_in, n_out, a8, False, device, dtype, tp) for _ in range(E))
 
 
 def weighted_sum(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -113,26 +118,22 @@ class MoeDecoderLayer(nn.Module):
     """Norms, the attention projections (biased where ``attn_bias``) and,
     with ``quantization``, their ``QuantLinear``s, and with ``qk_norm`` the
     per-head norms' weights; the subclass's model adds the router and the
-    experts."""
+    experts. ``tp``: a tensor-parallel rank's group (its heads; o over its
+    share of the input)."""
 
     def __init__(self, cfg: ModelConfig, device, dtype, quantization, attn_bias: bool,
-                 qk_norm: bool, tp_size: int = 1):
+                 qk_norm: bool, tp=None):
         super().__init__()
+        tp_size = 1 if tp is None else tp.size
         H, D = cfg.hidden_size, cfg.head_dim
         Hq, Hkv = cfg.num_attention_heads // tp_size, cfg.num_kv_heads // tp_size
         self.input_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
         self.post_norm = nn.Parameter(torch.empty(H, device=device, dtype=dtype))
-        if quantization is None:
-            lin = lambda n_in, n_out: _linear(n_in, n_out, attn_bias, device, dtype)
-        elif quantization == "fp8":
-            lin = lambda n_in, n_out: Fp8Linear(n_in, n_out, attn_bias, device, dtype)
-        else:
-            a8 = quantization == "w4a8"
-            lin = lambda n_in, n_out: _quant_linear(n_in, n_out, a8, attn_bias, device, dtype)
-        self.wq = lin(H, Hq * D)
-        self.wk = lin(H, Hkv * D)
-        self.wv = lin(H, Hkv * D)
-        self.wo = lin(Hq * D, H)
+        lin = projection_maker(quantization, device, dtype)
+        self.wq = lin(H, Hq * D, attn_bias)
+        self.wk = lin(H, Hkv * D, attn_bias)
+        self.wv = lin(H, Hkv * D, attn_bias)
+        self.wo = lin(Hq * D, H, attn_bias, tp)
         if qk_norm:
             self.q_norm = nn.Parameter(torch.empty(D, device=device, dtype=dtype))
             self.k_norm = nn.Parameter(torch.empty(D, device=device, dtype=dtype))
@@ -175,8 +176,6 @@ class MoeForCausalLM(nn.Module):
             raise NotImplementedError(
                 f"{type(self).__name__} options not ported: {', '.join(unported)}"
             )
-        if tp is not None and quantization:
-            raise NotImplementedError("quantized weights under tensor parallelism (ROADMAP Queue 1, item 10(b))")
         self._check_experts(cfg)
         self.cfg = cfg
         self.quantization = quantization
@@ -216,7 +215,7 @@ class MoeForCausalLM(nn.Module):
 
     def _make_layer(self, l: int, device, dtype) -> MoeDecoderLayer:
         layer = MoeDecoderLayer(self.cfg, device, dtype, self.quantization, self.ATTN_BIAS,
-                                self.cfg.use_qk_norm, self.tp_size)
+                                self.cfg.use_qk_norm, tp=self.tp)
         self._add_experts(layer, device, dtype)
         return layer
 
@@ -251,11 +250,8 @@ class MoeForCausalLM(nn.Module):
     def o_proj(self, layer, attn: torch.Tensor) -> torch.Tensor:
         """o of the attention output ``attn`` [T, Hq D]; under tensor
         parallelism the ranks' partial products summed, o's bias (GPT-OSS)
-        added once, after the sum."""
-        if self.tp is None:
-            return layer.wo(attn)
-        y = row_parallel_sum(torch.nn.functional.linear(attn, layer.wo.weight), self.tp)
-        return y if layer.wo.bias is None else y + layer.wo.bias
+        added once, after the sum (``common.row_parallel``)."""
+        return row_parallel(layer.wo, attn, self.tp)
 
     def moe_sum(self, y: torch.Tensor) -> torch.Tensor:
         """The experts' output ``y``: a rank's partial sum, added over the
@@ -265,36 +261,48 @@ class MoeForCausalLM(nn.Module):
     # ------------------------------------------------------------- parameters
 
     @torch.no_grad()
-    def init_random_(self, generator: torch.Generator) -> None:
+    def init_random_(self, generator: torch.Generator, place=None) -> None:
         """Random weights, the JAX package's scheme: normal / sqrt(fan_in),
         norms at one, biases at zero. An expert stack is drawn one expert at
         a time on its device (``common.fill_experts``; GPT-OSS-20B's stacks
         are 38 GB in bf16: one f32 draw of a layer's would not fit beside
-        them). A tensor-parallel rank keeps its shard of each tp 1 draw."""
+        them). A tensor-parallel rank keeps its shard of each tp 1 draw.
+        ``place(name, whole[, e])`` takes each draw instead."""
         family, tp = self.tp_family, self.tp
-        fill = lambda w, name: fill_random(w, name, generator, tp, family, self.cfg.vocab_size)
+        fill = lambda w, name: fill_random(w, name, generator, tp, family, self.cfg.vocab_size, place=place)
+        self.reset_constants_()
         fill(self.embed.weight, "embed.weight")
-        for layer in self.layers:
+        for l, layer in enumerate(self.layers):
             for name, p in layer.named_parameters(recurse=False):
-                if name.endswith("norm"):
-                    p.fill_(1.0)
-                elif name in self.BIASES:
-                    p.zero_()
-                elif name in self.EXPERT_STACKS:
-                    fill_experts(p, f"layers.0.{name}", generator, tp, family)
+                if name.endswith("norm") or name in self.BIASES:
+                    continue
+                if name in self.EXPERT_STACKS:
+                    fill_experts(p, f"layers.{l}.{name}", generator, tp, family, place)
                 else:
-                    self._init_extra_(name, p, generator)
+                    self._init_extra_(f"layers.{l}.{name}", p, generator, place)
             for name, lin in layer.named_children():
                 if isinstance(lin, nn.Linear):
-                    fill(lin.weight, f"layers.0.{name}.weight")
-                    if lin.bias is not None:
-                        lin.bias.zero_()
-        self.final_norm.fill_(1.0)
+                    fill(lin.weight, f"layers.{l}.{name}.weight")
         if self.lm_head is not None:
             fill(self.lm_head.weight, "lm_head.weight")
 
-    def _init_extra_(self, name: str, p: torch.Tensor, generator) -> None:
+    @torch.no_grad()
+    def reset_constants_(self) -> None:
+        """Norms at one, biases (``BIASES`` too) at zero: the random init's
+        constants."""
+        for name, p in self.named_parameters():
+            if name.endswith("norm"):
+                p.fill_(1.0)
+            elif name.endswith("bias") or name.rsplit(".", 1)[-1] in self.BIASES:
+                p.zero_()
+
+    def _init_extra_(self, name: str, p: torch.Tensor, generator, place=None) -> None:
         raise ValueError(f"no random init for {name}")
+
+    # the attention weights a quantized model quantizes, by layer (and each
+    # expert of EXPERT_STACKS); a quantized tensor-parallel rank's load
+    QUANT_TARGETS = ("wq", "wk", "wv", "wo")
+    place_whole = place_whole
 
     HF_ATTN_MAP = {
         "self_attn.q_proj.weight": "wq.weight",
@@ -348,46 +356,27 @@ class MoeForCausalLM(nn.Module):
         return out
 
     def quantize_state(self, state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        """This quantized model's ``state_dict`` from its unquantized twin's,
-        one layer at a time: q, k, v and o (``[1, In, Out]``) and the expert
-        stacks (``[1, E, In, Out]``) through ``quantize_model_params`` on this
-        model's device, as the JAX runner quantizes its ``[L, ...]`` stacks (a 4-D
-        stack flattens to ``L * E``, so expert e of layer l holds the codes of
-        the JAX stack's slice ``l * E + e``), then ``pack_w4`` on this model's
-        device. Biases, norms, sinks, the router and the head stay."""
-        device = self.final_norm.device
+        """This quantized model's ``state_dict`` from its unquantized twin's:
+        q, k, v and o (``[out, in]``, transposed) and each expert of the
+        expert stacks (``[E, In, Out]``) through ``quantize_weight`` on this
+        model's device, as the JAX runner quantizes its ``[L, ...]`` stacks
+        (expert e of layer l holds the codes of the JAX stack's slice
+        ``l * E + e``); an fp8 stack's codes and scales stacked again by
+        expert. Biases, norms, sinks, the router and the head stay."""
+        device, q = self.final_norm.device, self.quantization
         state = dict(state)
-        if self.quantization == "fp8":
-            return self._quantize_state_fp8(state, device)
         for l in range(len(self.layers)):
-            dense = {
-                t: state.pop(f"layers.{l}.{t}.weight").to(device).T[None]
-                for t in ("wq", "wk", "wv", "wo")
-            }
-            for t in self.EXPERT_STACKS:  # [E, In, Out]
-                dense[t] = state.pop(f"layers.{l}.{t}").to(device)[None]
-            for t, ql in quantize_model_params(dense).items():
-                packed = pack_w4(dataclasses.replace(
-                    ql, q=ql.q.to(device), s=ql.s.to(device), z=ql.z.to(device)))
-                expert = t in self.EXPERT_STACKS
-                for e, qsz in enumerate(zip(*packed)):
-                    name = f"layers.{l}.{t}.{e}" if expert else f"layers.{l}.{t}"
-                    for key, v in zip("qsz", qsz):
-                        state[f"{name}.{key}"] = v
-        return state
-
-    def _quantize_state_fp8(self, state: dict, device) -> dict:
-        """fp8, as the JAX ``quantize_model_params_fp8``: q, k, v and o
-        (``[1, In, Out]``) and the expert stacks (``[1, E, In, Out]``,
-        flattened to ``E`` codes) through ``quantize_fp8_stacked`` on their
-        device; biases, norms, sinks, the router and the head stay."""
-        for l in range(len(self.layers)):
-            for t in ("wq", "wk", "wv", "wo"):
-                codes, scales = quantize_fp8_stacked(state.pop(f"layers.{l}.{t}.weight").T[None])
-                state.update(fp8_state(codes[0], scales[0], f"layers.{l}.{t}", device))
+            for t in self.QUANT_TARGETS:
+                state.update(quantize_weight(f"layers.{l}.{t}", state.pop(f"layers.{l}.{t}.weight").to(device).T,
+                                             q)[0])
             for t in self.EXPERT_STACKS:
-                codes, scales = quantize_fp8_stacked(state.pop(f"layers.{l}.{t}")[None])
-                state.update(fp8_state(codes, scales, f"layers.{l}.{t}", device))
+                stack = state.pop(f"layers.{l}.{t}").to(device)
+                if q == "fp8":
+                    experts = [quantize_weight(f"layers.{l}.{t}", w, q)[0] for w in stack]
+                    state.update({k: torch.stack([e[k] for e in experts]) for k in experts[0]})
+                else:
+                    for e, w in enumerate(stack):
+                        state.update(quantize_weight(f"layers.{l}.{t}.{e}", w, q)[0])
         return state
 
     # ---------------------------------------------------------------- forward
@@ -415,7 +404,7 @@ class MoeForCausalLM(nn.Module):
                 **self.attention_kwargs(l, layer),
             )
             x = x + self.o_proj(layer, attn.reshape(T, Hq * D))
-            x = x + self.moe_sum(self._moe(rms_norm(x, layer.post_norm, eps), layer))
+            x = x + self.moe_sum(self._moe(rms_norm(x, layer.post_norm, eps), layer)).to(x.dtype)
         h = rms_norm(x, self.final_norm, eps)
         if meta.capture_all_hidden:
             return h  # [T, H], for sequence scoring
@@ -447,10 +436,12 @@ class MixtralForCausalLM(MoeForCausalLM):
         layer.router = _linear(H, E, False, device, dtype)
         layer.w1 = expert_stack(E, H, I, self.quantization, device, dtype)
         layer.w3 = expert_stack(E, H, I, self.quantization, device, dtype)
-        layer.w2 = expert_stack(E, I, H, self.quantization, device, dtype)
+        layer.w2 = expert_stack(E, I, H, self.quantization, device, dtype, self.tp)
 
     def _moe(self, h: torch.Tensor, layer) -> torch.Tensor:
-        """The masked dense experts (``mixtral.py:196-245``)."""
+        """The masked dense experts (``mixtral.py:196-245``). Under tensor
+        parallelism a rank's partial sum (fp8's in f32), which ``moe_sum``
+        adds over the group."""
         E = self.cfg.num_experts
         probs = torch.softmax(layer.router(h).float(), dim=-1)  # [T, E]
         topi = self.top_experts(probs)
@@ -459,14 +450,27 @@ class MixtralForCausalLM(MoeForCausalLM):
             topv = topv / topv.sum(dim=-1, keepdim=True)
         w = routing_weights(topv, topi, E, h.dtype)
         if isinstance(layer.w1, Fp8ExpertStack):  # fp8 stacks: all experts at once
-            return weighted_sum(layer.w2(silu_mul(layer.w1(h), layer.w3(h))), w)
+            act = silu_mul(layer.w1(h), layer.w3(h))
+            if self.tp is not None:  # partial products, f32 until the group's sum
+                return weighted_sum(layer.w2.partial(act), w.float())
+            return weighted_sum(layer.w2(act), w)
         if not isinstance(layer.w1, nn.ModuleList):  # bf16 stacks: all experts at once
             act = silu_mul(torch.matmul(h, layer.w1), torch.matmul(h, layer.w3))  # [E, T, I]
             return weighted_sum(torch.matmul(act, layer.w2), w)
         y = torch.zeros_like(h)  # 4-bit: one GEMM an expert and matrix
+        if self.tp is not None and layer.w2[0].a8:
+            # a rank's slices of every expert's activations, then the whole
+            # rows' maxima [E, T, 1] in one collective, then w2's f32
+            # partials, summed in f32 until the group's sum
+            acts = [silu_mul(layer.w1[e](h), layer.w3[e](h)) for e in range(E)]
+            amax = self.tp.all_reduce(torch.stack([row_amax(a) for a in acts]), op="max")
+            y, w = y.float(), w.float()
+            for e in range(E):
+                y = y + layer.w2[e].partial(acts[e], amax[e]) * w[:, e : e + 1]
+            return y
         for e in range(E):
             act = silu_mul(layer.w1[e](h), layer.w3[e](h))
-            y = y + layer.w2[e](act) * w[:, e : e + 1]
+            y = y + layer.w2[e].partial(act) * w[:, e : e + 1]
         return y
 
     HF_EXPERT_PREFIX = "block_sparse_moe.experts."

@@ -71,10 +71,15 @@ class Fp8Linear(nn.Module):
             nn.Parameter(torch.zeros(out_features, device=device, dtype=dtype)) if bias else None
         )
 
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 ``x @ w8 * s`` [..., Out], unrounded and without the bias: a
+        row-parallel rank's partial product, which stays f32 until the
+        group's sum (``models/common.py::row_parallel``)."""
+        y = matmul_f32(x.reshape(-1, self.in_features), self.w8) * self.s
+        return y.view(*x.shape[:-1], self.out_features)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lead = x.shape[:-1]
-        y = (matmul_f32(x.reshape(-1, self.in_features), self.w8) * self.s).to(x.dtype)
-        y = y.view(*lead, self.out_features)
+        y = self.partial(x).to(x.dtype)
         return y if self.bias is None else y + self.bias
 
 
@@ -88,11 +93,11 @@ class Fp8ExpertStack(nn.Module):
         self.register_buffer("w8", torch.zeros(E, in_features, out_features, dtype=F8, device=device))
         self.register_buffer("s", torch.ones(E, out_features, dtype=torch.float32, device=device))
 
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 [E, T, Out], unrounded: a row-parallel rank's partial products
+        (each expert's ``w8`` [In / tp, Out], its whole columns' scales)."""
+        return matmul_f32(x, self.w8) * self.s[:, None, :]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[E, T, Out] in ``x``'s dtype for ``x`` [T, In] or [E, T, In]."""
-        return (matmul_f32(x, self.w8) * self.s[:, None, :]).to(x.dtype)
-
-
-def fp8_state(codes: torch.Tensor, scales: torch.Tensor, prefix: str, device) -> dict:
-    """``{prefix.w8, prefix.s}`` on ``device``."""
-    return {f"{prefix}.w8": codes.to(device), f"{prefix}.s": scales.to(device)}
+        return self.partial(x).to(x.dtype)

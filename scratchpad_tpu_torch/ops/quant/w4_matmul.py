@@ -61,9 +61,9 @@ from scratchpad_tpu_torch.utils import native
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES_A8 = {
-    "w4_quantize_rows": ([_P, _I, _I, _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
-    "w4a8_matmul": ([_P] * 7 + [_I] * 6 + [_P, _P, _I, _I, _I], ctypes.c_int),
-    "w4a8_matmul_mma": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
+    "w4_quantize_rows": ([_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], ctypes.c_int),
+    "w4a8_matmul": ([_P] * 7 + [_I] * 6 + [_P, _P, _I, _I, _I, _I], ctypes.c_int),
+    "w4a8_matmul_mma": ([_P] * 7 + [_I] * 6 + [_P, _I], ctypes.c_int),
 }
 _SIGNATURES_A16 = {
     "w4a16_matmul": ([_P] * 5 + [_I] * 7 + [_P, _P, _I, _I], ctypes.c_int),
@@ -306,21 +306,29 @@ def check_w4_shape(in_features: int, group_size: int) -> None:
 # ---------------------------------------------------------------- plain versions
 
 
-def quantize_activations_plain(x: torch.Tensor, group_size: int):
+def quantize_activations_plain(x: torch.Tensor, group_size: int, amax=None):
     """Per-token symmetric int8 quantization, the JAX package's formula
     (``pallas_w4.py:453-460``): ``ax = amax / 127`` (1 for a row of zeros),
     ``x8 = clip(round_half_even(x / ax), -127, 127)``, ``gsum`` the f32 sum
     of each group of x8. Returns ``x8 int8 [M, Kp]`` (zeros past In),
-    ``ax f32 [M, 1]``, ``gsum f32 [M, G]``."""
+    ``ax f32 [M, 1]``, ``gsum f32 [M, G]``. ``amax``: each row's f32 [M, 1]
+    max |x| taken elsewhere (a row-parallel projection's, over the whole
+    input row: ``x`` is then a rank's slice of it), else ``x``'s own."""
     M, In = x.shape
     xf = x.float()
-    amax = xf.abs().amax(dim=1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=1, keepdim=True)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, which is not the IEEE quotient
     ax = torch.where(amax == 0.0, torch.ones_like(amax), amax / torch.full_like(amax, 127.0))
     x8 = torch.clamp(torch.round(xf / ax), -127, 127).to(torch.int8)
     gsum = x8.reshape(M, In // group_size, group_size).sum(2, dtype=torch.int32).float()
     return F.pad(x8, (0, padded_in(In) - In)), ax, gsum
+
+
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """f32 [M, 1]: each row's max |x| (exact in f32, whatever the order)."""
+    return x.float().abs().amax(dim=1, keepdim=True)
 
 
 def _group_dots(xf, q, s, group_size, out_features):
@@ -343,10 +351,11 @@ def _zero_minus_8(z, out_features: int) -> torch.Tensor:
     return z[:, :out_features].float() - 8.0
 
 
-def w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size: int, out_features: int):
+def w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size: int, out_features: int, f32: bool = True):
     """f32 ``[M, out_features]``: ``ax * (sum_g (x8_g @ c_g)_i32 * s_g +
     gsum @ (-(z - 8) * s))``, the math of ``w4a8_matmul_xla`` and the
-    epilogue order of ``_w4a8_kernel_q4``."""
+    epilogue order of ``_w4a8_kernel_q4``. ``f32``: the wrapper's flag,
+    taken so that the plain version stands in for it; f32 either way."""
     In = s.shape[0] * group_size
     acc, sf = _group_dots(x8[:, :In].float(), q, s, group_size, out_features)
     zf = _zero_minus_8(z, out_features)
@@ -392,16 +401,22 @@ def _check_rows(name, t, dtype, cols) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def quantize_rows_int8(x: torch.Tensor, group_size: int):
+def quantize_rows_int8(x: torch.Tensor, group_size: int, amax=None):
     """``(x8 [M, Kp], ax [M, 1], gsum [M, G])`` of bf16 ``x [M, In]``; see
-    ``quantize_activations_plain``, which the kernel matches bit for bit."""
+    ``quantize_activations_plain``, which the kernel matches bit for bit.
+    ``amax``: f32 [M, 1] row maxima given to the kernel, which then takes
+    no maximum of its own."""
+    if amax is not None:
+        native.check_same_device(x, amax)
     if x.device.type == "cpu":
-        return quantize_activations_plain(x, group_size)
+        return quantize_activations_plain(x, group_size, amax)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows_int8: unsupported device {x.device}")
     M, In = x.shape
     check_w4_shape(In, group_size)
     _check_rows("x", x, torch.bfloat16, In)
+    if amax is not None and (amax.dtype != torch.float32 or amax.shape != (M, 1) or not amax.is_contiguous()):
+        raise ValueError(f"amax must be contiguous f32 [{M}, 1], got {amax.dtype} {tuple(amax.shape)}")
     lib = native.load("w4a8_matmul", _SIGNATURES_A8)
     Kp = padded_in(In)
     x8 = torch.empty(M, Kp, dtype=torch.int8, device=x.device)
@@ -409,7 +424,7 @@ def quantize_rows_int8(x: torch.Tensor, group_size: int):
     gsum = torch.empty(M, In // group_size, dtype=torch.float32, device=x.device)
     rc = lib.w4_quantize_rows(
         x.data_ptr(), M, In, In, Kp, group_size, x8.data_ptr(), ax.data_ptr(),
-        gsum.data_ptr(), native.stream_handle(x.device),
+        gsum.data_ptr(), None if amax is None else amax.data_ptr(), native.stream_handle(x.device),
     )
     if rc != 0:
         raise RuntimeError(f"w4_quantize_rows launch failed: cudaError {rc}")
@@ -440,36 +455,39 @@ def count_launch(wrapper, group_size: int) -> None:
     wrapper.group_launches[group_size] = wrapper.group_launches.get(group_size, 0) + 1
 
 
-def _w4a8_launch(lib, x8, ax, gsum, q, s, z, group_size: int, out_features: int, plan) -> torch.Tensor:
+def _w4a8_launch(lib, x8, ax, gsum, q, s, z, group_size: int, out_features: int, plan,
+                 f32: bool = False) -> torch.Tensor:
     In = s.shape[0] * group_size
     M = x8.shape[0]
     ws = workspace("w4a8_matmul", x8.device)
-    y = torch.empty(M, out_features, dtype=torch.bfloat16, device=x8.device)
+    y = torch.empty(M, out_features, dtype=torch.float32 if f32 else torch.bfloat16, device=x8.device)
     rc = lib.w4a8_matmul(
         x8.data_ptr(), ax.data_ptr(), gsum.data_ptr(), q.data_ptr(), s.data_ptr(), z.data_ptr(), y.data_ptr(), M,
         out_features, In, padded_in(In), group_size, s.shape[1], native.stream_handle(x8.device),
-        ws.data_ptr(), plan.config, plan.splits, plan.tile[0],
+        ws.data_ptr(), plan.config, plan.splits, plan.tile[0], int(f32),
     )
     if rc != 0:
         raise RuntimeError(f"w4a8_matmul launch failed: cudaError {rc}")
     return y
 
 
-def w4a8_matmul(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
-    """``[M, out_features]`` W4A8 product (bf16 from the kernel, f32 from
-    the plain version) of ``quantize_rows_int8``'s output and a packed
-    weight (see ``csrc/w4a8_matmul.cu``), launched on ``w4a8_plan``'s plan;
-    the groups that plan gives no plan (below 32) run ``w4a8_matmul_mma``.
-    The wgmma kernels fold the zero point into the codes and read ``gsum``
-    only for a group whose zero lies outside [0, 16] (or is no integer)."""
+def w4a8_matmul(x8, ax, gsum, q, s, z, group_size: int, out_features: int, f32: bool = False) -> torch.Tensor:
+    """``[M, out_features]`` W4A8 product (bf16 from the kernel, f32 with
+    ``f32``: a tensor-parallel rank's row-parallel partial, rounded once
+    after the group's f32 sum; f32 from the plain version) of
+    ``quantize_rows_int8``'s output and a packed weight (see
+    ``csrc/w4a8_matmul.cu``), launched on ``w4a8_plan``'s plan; the groups
+    that plan gives no plan (below 32) run ``w4a8_matmul_mma``. The wgmma
+    kernels fold the zero point into the codes and read ``gsum`` only for a
+    group whose zero lies outside [0, 16] (or is no integer)."""
     native.check_same_device(x8, ax, gsum, q, s, z)
     if x8.device.type == "cpu":
         return w4a8_matmul_plain(x8, ax, gsum, q, s, z, group_size, out_features)
     In = s.shape[0] * group_size
     plan = w4a8_plan(x8.shape[0], out_features, In, group_size, s.shape[1])
     if plan is None:
-        return w4a8_matmul_mma(x8, ax, gsum, q, s, z, group_size, out_features)
-    return w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, group_size, out_features, plan)
+        return w4a8_matmul_mma(x8, ax, gsum, q, s, z, group_size, out_features, f32)
+    return w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, group_size, out_features, plan, f32)
 
 
 w4a8_matmul.launches = 0
@@ -493,7 +511,7 @@ def _check_a8_plan(plan: GemmPlan, M: int, N: int, K: int, group_size: int) -> N
 
 
 def w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, group_size: int, out_features: int,
-                          plan: GemmPlan) -> torch.Tensor:
+                          plan: GemmPlan, f32: bool = False) -> torch.Tensor:
     """``w4a8_matmul`` on a given plan of ``w4a8_plan``'s kind (another
     token tile or K split: ``tools/gemm_ab.py``'s sweep). Raises where the
     plan does not fit the product; the plain version on the CPU."""
@@ -506,7 +524,7 @@ def w4a8_matmul_with_plan(x8, ax, gsum, q, s, z, group_size: int, out_features: 
         raise ValueError(f"w4a8_matmul: unsupported device {x8.device}")
     _check_a8(x8, ax, gsum, q, s, z, group_size, out_features)
     y = _w4a8_launch(native.load("w4a8_matmul", _SIGNATURES_A8), x8, ax, gsum, q, s, z, group_size,
-                     out_features, plan)
+                     out_features, plan, f32)
     count_launch(w4a8_matmul, group_size)
     return y
 
@@ -527,7 +545,7 @@ def w4a8_matmul_cut(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -
                         group_size, out_features, plan)
 
 
-def w4a8_matmul_mma(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -> torch.Tensor:
+def w4a8_matmul_mma(x8, ax, gsum, q, s, z, group_size: int, out_features: int, f32: bool = False) -> torch.Tensor:
     """The mma.sync kernel (``w4a8_matmul_mma`` in ``csrc/w4a8_matmul.cu``,
     any group dividing In, reading ``gsum``): the route of the groups below
     32, which ``w4a8_matmul`` sends here; its plain version on the CPU."""
@@ -538,11 +556,11 @@ def w4a8_matmul_mma(x8, ax, gsum, q, s, z, group_size: int, out_features: int) -
         raise ValueError(f"w4a8_matmul_mma: unsupported device {x8.device}")
     In = _check_a8(x8, ax, gsum, q, s, z, group_size, out_features)
     lib = native.load("w4a8_matmul", _SIGNATURES_A8)
-    y = torch.empty(x8.shape[0], out_features, dtype=torch.bfloat16, device=x8.device)
+    y = torch.empty(x8.shape[0], out_features, dtype=torch.float32 if f32 else torch.bfloat16, device=x8.device)
     rc = lib.w4a8_matmul_mma(
         x8.data_ptr(), ax.data_ptr(), gsum.data_ptr(), q.data_ptr(), s.data_ptr(), z.data_ptr(),
         y.data_ptr(), x8.shape[0], out_features, In, padded_in(In), group_size, s.shape[1],
-        native.stream_handle(x8.device),
+        native.stream_handle(x8.device), int(f32),
     )
     if rc != 0:
         raise RuntimeError(f"w4a8_matmul_mma launch failed: cudaError {rc}")

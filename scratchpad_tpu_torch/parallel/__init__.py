@@ -26,6 +26,18 @@ head split by vocabulary row, the vocabulary padded up to a multiple of
 the group's size; the norms, the routers, GPT-OSS's experts and sinks and
 DeepSeek's latent path (``wkv_a``, ``wq_a``) replicated. ``shard_tensor``
 cuts one tensor of the single-device state into a rank's shard.
+
+Quantized weights (the Llama family, Mixtral, Qwen3-MoE and GPT-OSS, JAX
+``quant_param_specs`` and ``fp8_param_specs``) take the layout of the
+weight they quantize (``quant_kind``), and are cut in the port's packed
+layout (``ops/quant/w4_matmul.py``): a W4 column shard is rows of ``q``
+and columns of ``s`` and ``z``, the real columns only, padded again to the
+rank's stored width; a row shard is byte columns of ``q`` and group rows of
+``s`` and ``z``, the stored width whole (``cut_w4``); Llama's fused 4-bit
+gate|up is cut by ``HALVES``. fp8 codes ``w8`` ([In, Out], or [E, In, Out])
+split by Out or by In; their f32 scales by Out, or whole on every rank for
+a row shard, since each is the whole column's (``cut_fp8``). A quantized
+tensor is always the whole tensor's quantization, cut afterwards.
 """
 
 from __future__ import annotations
@@ -89,6 +101,13 @@ TP_LAYOUTS = {
         "shared_gate.weight": 0, "shared_up.weight": 0, "shared_down.weight": 1, **_NORMS,
     },
 }
+# the families whose classes serve quantized weights, and the buffers of a
+# quantized module: W4's q, s, z (ops/quant/w4_matmul.py) and fp8's w8, s
+QUANT_FAMILIES = ("llama", "mixtral", "gpt_oss")
+QUANT_PARTS = ("q", "s", "z", "w8")
+# a W4 column past a stored width's real columns: code bytes 0x88 (nibbles
+# of 0, as quantize_stacked's padding packs), scale 1, zero 0
+W4_PAD = {"q": 0x88, "s": 1.0, "z": 0.0}
 VOCAB_SPLITS = ("embed.weight", "lm_head.weight")  # split by vocabulary row, padded
 REPLICATED = ("final_norm",)
 # seconds a rank waits for another (the rendezvous, a collective, a
@@ -109,31 +128,119 @@ def vocab_rows(vocab_size: int, size: int) -> int:
     return -(-vocab_size // size)
 
 
+def quant_kind(key: str, layout: dict):
+    """How the quantized module ``key`` (``wq``, ``w1``, Llama's fused
+    ``gate_up``) splits, from the layout of the weight it quantizes:
+    ``"column"``, ``"row"``, ``"halves"`` or None (whole on every rank); a
+    key with no such weight raises KeyError."""
+    if f"{key}.weight" in layout:  # an [out, in] weight: 0 by column, 1 by row
+        return {0: "column", 1: "row", None: None}[layout[f"{key}.weight"]]
+    if key in layout:  # an expert stack [E, In, Out]
+        return {2: "column", 1: "row", None: None, HALVES: "halves"}[layout[key]]
+    if key == "gate_up" and layout.get("gate.weight") == 0:  # Llama's fused 4-bit gate|up
+        return "halves"
+    raise KeyError(key)
+
+
 def split_of(name: str, family: str = "llama"):
     """How ``family`` splits the single-device tensor ``name``: ``"vocab"``,
-    a dimension, ``HALVES`` or None (replicated). A name with no layout
-    raises."""
+    a dimension, ``HALVES``, None (replicated), or for a quantized module's
+    buffer (``QUANT_PARTS``, past an expert's index) ``("quant", kind,
+    part)`` with ``quant_kind``'s kind. A name with no layout raises."""
     if name in VOCAB_SPLITS:
         return "vocab"
     if name in REPLICATED:
         return None
     key = name.split(".", 2)[2] if name.startswith("layers.") else name
     layout = TP_LAYOUTS[family]
-    if key not in layout:
-        raise KeyError(f"{name}: no tensor-parallel layout in the {family} family's table")
-    return layout[key]
+    if key in layout:
+        return layout[key]
+    module, _, part = key.rpartition(".")
+    if part in QUANT_PARTS and module:
+        module_key = module.rsplit(".", 1)[0] if module.rsplit(".", 1)[-1].isdigit() else module
+        try:
+            return ("quant", quant_kind(module_key, layout), part)
+        except KeyError:
+            pass
+    raise KeyError(f"{name}: no tensor-parallel layout in the {family} family's table")
 
 
-def cut(t: torch.Tensor, split, rank: int, size: int, name: str = "tensor") -> torch.Tensor:
+def _pad_to(t: torch.Tensor, dim: int, width: int, value) -> torch.Tensor:
+    """``t`` padded along ``dim`` to ``width`` with ``value``."""
+    pad = width - t.shape[dim]
+    if pad <= 0:
+        return t.contiguous()
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t, t.new_full(shape, value)], dim).contiguous()
+
+
+def cut_w4(t: torch.Tensor, part: str, kind, rank: int, size: int, out_true: int = 0,
+           name: str = "tensor") -> torch.Tensor:
+    """Rank ``rank``'s part of one buffer of a packed W4 weight (``part`` q
+    [N, Kp/2], s or z [G, N]) under ``kind`` (``quant_kind``). ``out_true``:
+    the real columns of a padded stored width N (0: all N are). Column and
+    halves: the real columns' rank share (halves: of each half, joined),
+    padded again to the rank's stored width (``stacked_out_width``) with
+    ``W4_PAD``; row: the rank's In slice, bytes of q and group rows of s and
+    z, the stored width whole. A width the group does not divide, or a row
+    share that is not whole groups of whole 32-row steps, raises."""
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import K_ALIGN
+    from scratchpad_tpu_torch.ops.quant.w4a16 import stacked_out_width
+
+    if kind is None:
+        return t.clone()
+    col_dim = 0 if part == "q" else 1
+    if kind == "row":
+        dim = 1 if part == "q" else 0
+        n = t.shape[dim]
+        if n % size or (part == "q" and (n // size * 2) % K_ALIGN):
+            raise ValueError(f"{name}: {tuple(t.shape)} does not split by In into {size} ranks of whole "
+                             f"groups and {K_ALIGN}-row steps")
+        return t.chunk(size, dim)[rank].contiguous()
+    real = out_true or t.shape[col_dim]
+    cols = t.narrow(col_dim, 0, real)
+    halves = kind == "halves"
+    if real % (2 * size if halves else size):
+        raise ValueError(f"{name}: {real} real columns do not split into {size}")
+    if halves:
+        share = torch.cat([h.chunk(size, col_dim)[rank] for h in cols.chunk(2, col_dim)], col_dim)
+    else:
+        share = cols.chunk(size, col_dim)[rank]
+    return _pad_to(share, col_dim, stacked_out_width(real // size)[0], W4_PAD[part])
+
+
+def cut_fp8(t: torch.Tensor, part: str, kind, rank: int, size: int, name: str = "tensor") -> torch.Tensor:
+    """Rank ``rank``'s part of an fp8 weight's codes (``part`` w8: [In, Out],
+    an expert stack [E, In, Out]) or f32 scales (s: [Out], [E, Out]) under
+    ``kind``: codes by Out (column) or In (row), scales by Out, or whole
+    for a row shard (each scale is its whole column's)."""
+    if kind is None or (kind == "row" and part == "s"):
+        return t.clone()
+    if kind not in ("column", "row"):
+        raise ValueError(f"{name}: fp8 weights are cut by column or row, not {kind}")
+    dim = -2 if kind == "row" else -1
+    if t.shape[dim] % size:
+        raise ValueError(f"{name}: {tuple(t.shape)} does not split into {size}")
+    return t.chunk(size, dim)[rank].contiguous()
+
+
+def cut(t: torch.Tensor, split, rank: int, size: int, name: str = "tensor", out_true: int = 0) -> torch.Tensor:
     """Rank ``rank``'s part of ``t`` under ``split`` (``split_of``), a tensor
     of its own (never a view of ``t``). A vocabulary shard past V is zero
     rows; ``HALVES`` cuts each half of its dimension and joins the rank's
-    two shares, first half first. A dimension the group does not divide
-    raises."""
+    two shares, first half first; a quantized buffer goes to ``cut_fp8``
+    (codes ``w8``, and f32 scales) or ``cut_w4`` (``out_true``: its real
+    columns). A dimension the group does not divide raises."""
     if size == 1:
         return t
     if split is None:
         return t.clone()
+    if isinstance(split, tuple) and split[0] == "quant":
+        _, kind, part = split
+        if part == "w8" or (part == "s" and t.dtype == torch.float32):  # fp8's scales are f32, W4's bf16
+            return cut_fp8(t, part, kind, rank, size, name)
+        return cut_w4(t, part, kind, rank, size, out_true, name)
     if split == "vocab":
         rows = vocab_rows(t.shape[0], size)
         part = t[rank * rows : (rank + 1) * rows]
@@ -148,11 +255,33 @@ def cut(t: torch.Tensor, split, rank: int, size: int, name: str = "tensor") -> t
     return t.chunk(size, dim)[rank].clone()
 
 
-def shard_tensor(name: str, t: torch.Tensor, rank: int, size: int, family: str = "llama") -> torch.Tensor:
+def copy_cut_(dst: torch.Tensor, t: torch.Tensor, split, rank: int, size: int, name: str = "tensor") -> None:
+    """``dst.copy_(cut(t, split, rank, size))``, through a view of ``t``
+    where the rank's part is one (the whole, a dimension's chunk, a range of
+    vocabulary rows): no copy of the part is made, so a rank that loads one
+    whole tensor at a time holds ``t`` and its shards, nothing more. ``dst``
+    may be of another dtype than ``t``."""
+    if size == 1 or split is None:
+        dst.copy_(t)
+    elif split == "vocab":
+        rows = vocab_rows(t.shape[0], size)
+        part = t[rank * rows : (rank + 1) * rows]
+        dst[part.shape[0] :].zero_()
+        dst[: part.shape[0]].copy_(part)
+    elif isinstance(split, int):
+        if t.shape[split] % size:
+            raise ValueError(f"{name}: dimension {split} of {tuple(t.shape)} does not split into {size}")
+        dst.copy_(t.chunk(size, split)[rank])
+    else:
+        dst.copy_(cut(t, split, rank, size, name))
+
+
+def shard_tensor(name: str, t: torch.Tensor, rank: int, size: int, family: str = "llama",
+                 out_true: int = 0) -> torch.Tensor:
     """Rank ``rank``'s shard of ``t``, the single-device state's tensor
     ``name`` (a ``state_dict`` name of ``family``, a key of
-    ``TP_LAYOUTS``)."""
-    return t if size == 1 else cut(t, split_of(name, family), rank, size, name)
+    ``TP_LAYOUTS``; ``out_true``: a padded W4 buffer's real columns)."""
+    return t if size == 1 else cut(t, split_of(name, family), rank, size, name, out_true)
 
 
 def full_shape(name: str, shard: tuple, size: int, vocab_size: int, family: str = "llama") -> tuple:
@@ -207,12 +336,28 @@ def split_widths(cfg, family: str) -> dict:
     return widths
 
 
-def check_tp_model(cfg, size: int) -> None:
+def row_inputs(cfg, family: str) -> dict:
+    """The inputs a ``family`` model's row-parallel projections split over
+    the group, by name: o's (query heads x head_dim), and down's or the
+    experts' w2's (GPT-OSS's experts stay whole)."""
+    widths = {"o's input (heads x head_dim)": cfg.num_attention_heads * cfg.head_dim}
+    if family == "llama":
+        widths["down's input (intermediate_size)"] = cfg.intermediate_size
+    elif family == "mixtral":
+        widths["w2's input (moe_intermediate_size)"] = cfg.moe_intermediate_size or cfg.intermediate_size
+    return widths
+
+
+def check_tp_model(cfg, size: int, quantization=None) -> None:
     """Refuse a model that tensor parallelism does not serve: the text
     families take it (``tp_family``) over whole kv heads (whole query heads
     for MLA) and split widths the group divides (the JAX gate ``pure_tp``,
     ``model_runner.py:242-246``); the vision classes raise, naming ROADMAP
-    Queue 1, item 10(c)."""
+    Queue 1, item 10(c). Quantized (``quantization``): the families of
+    ``QUANT_FAMILIES`` only, and under a 4-bit route each rank's share of a
+    row-parallel input (``row_inputs``) whole groups of the layer's group
+    size and whole ``K_ALIGN`` steps, so that a rank quantizes and
+    multiplies its slice alone. Raises before any rank starts."""
     if size == 1:
         return
     family = tp_family(cfg)
@@ -221,6 +366,30 @@ def check_tp_model(cfg, size: int) -> None:
         raise ValueError(
             f"tp_size={size} must divide " + ", ".join(f"{k} ({w})" for k, w in bad.items())
             + ": each rank holds whole kv heads and an equal share of each split width"
+        )
+    if quantization is None:
+        return
+    if family not in QUANT_FAMILIES:
+        raise NotImplementedError(
+            f"quantization={quantization!r} for {cfg.architecture}: its class serves no quantized "
+            "weights at any tp_size, as its JAX class reads none"
+        )
+    if quantization == "fp8":  # per-column scales over the whole input, no groups; the rest are W4
+        return
+    from scratchpad_tpu_torch.ops.quant.w4_matmul import K_ALIGN
+    from scratchpad_tpu_torch.ops.quant.w4a16 import stacked_group_size
+
+    split = {}
+    for k, w in row_inputs(cfg, family).items():
+        g = stacked_group_size(w)
+        if (w // size) % g or (w // size) % K_ALIGN:
+            split[k] = (w, g)
+    if split:
+        raise ValueError(
+            f"quantization={quantization!r} at tp_size={size}: a rank's share of "
+            + ", ".join(f"{k} {w} / {size} = {w // size} is not whole groups of {g} and of {K_ALIGN}"
+                        for k, (w, g) in split.items())
+            + "; each rank quantizes and multiplies whole groups of its slice"
         )
 
 
@@ -253,11 +422,13 @@ class TPGroup:
     collectives: int = 0
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` summed (or its minimum taken) over the group, in place."""
+        """``t`` summed (or its minimum or maximum taken: ``op`` "min",
+        "max") over the group, in place."""
         import torch.distributed as dist
 
+        ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
         self.collectives += 1
-        dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MIN)
+        dist.all_reduce(t, op=ops[op])
         return t
 
     def row_sum(self, y: torch.Tensor) -> torch.Tensor:
@@ -323,6 +494,7 @@ def init_tp_group(args, rank: int, ctrl=None) -> Optional[TPGroup]:
 
 
 __all__ = [
-    "DIST_TIMEOUT_S", "HALVES", "TPGroup", "TP_LAYOUTS", "check_tp_model", "cut", "free_port", "full_shape",
-    "init_tp_group", "placement", "shard_tensor", "split_of", "split_widths", "tp_family", "vocab_rows",
+    "DIST_TIMEOUT_S", "HALVES", "QUANT_FAMILIES", "TPGroup", "TP_LAYOUTS", "check_tp_model", "cut", "cut_fp8",
+    "cut_w4", "free_port", "full_shape", "init_tp_group", "placement", "quant_kind", "row_inputs", "shard_tensor",
+    "split_of", "split_widths", "tp_family", "vocab_rows",
 ]

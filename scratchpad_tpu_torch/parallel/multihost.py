@@ -66,6 +66,32 @@ def _recv_msg(sock: socket.socket) -> Any:
     return pickle.loads(_recv_exact(sock, n))
 
 
+# an fp8 tensor of a weights message, as its bytes: PyTorch pickles a
+# float8 tensor that it cannot load again
+_FP8_BYTES = "float8_e4m3fn bytes"
+
+
+def params_message(params: Optional[dict]) -> Optional[dict]:
+    """A ``state_dict`` (or None) as the leader sends it to the followers:
+    each fp8 tensor as ``(_FP8_BYTES, its uint8 view)``."""
+    import torch
+
+    if params is None:
+        return None
+    return {k: (_FP8_BYTES, t.view(torch.uint8)) if t.dtype == torch.float8_e4m3fn else t
+            for k, t in params.items()}
+
+
+def params_from_message(msg: Optional[dict]) -> Optional[dict]:
+    """``params_message``'s ``state_dict`` again, code for code."""
+    import torch
+
+    if msg is None:
+        return None
+    return {k: v[1].view(torch.float8_e4m3fn) if isinstance(v, tuple) and v[0] == _FP8_BYTES else v
+            for k, v in msg.items()}
+
+
 class ControlPlane:
     """Leader: accept the followers' connections (ordered by rank), send
     them commands and wait for their replies. Follower: connect, receive,

@@ -96,13 +96,15 @@ def run_follower(server_args: ServerArgs, rank: int, model_config: ModelConfig) 
     the leader before the process ends."""
     from scratchpad_tpu_torch.executor.model_runner import ModelRunner
     from scratchpad_tpu_torch.parallel import init_tp_group
-    from scratchpad_tpu_torch.parallel.multihost import ControlPlane, follower_loop
+    from scratchpad_tpu_torch.parallel.multihost import ControlPlane, follower_loop, params_from_message
 
     args = server_args.resolve()
     ctrl = ControlPlane(args.control_plane_addr, 0, is_leader=False, rank=rank)
     group = None
     try:
-        _, params = ctrl.recv()
+        _, msg = ctrl.recv()
+        params = params_from_message(msg)
+        del msg
         group = init_tp_group(args, rank, ctrl)
         runner = ModelRunner(model_config, args, group, params)
         del params
@@ -177,19 +179,20 @@ class Engine:
         from scratchpad_tpu_torch.parallel.multihost import (
             ControlPlane,
             LeaderRunner,
+            params_message,
             start_followers,
             watch_processes,
         )
 
         args = self.args
-        check_tp_model(model_config, args.tp_size)
+        check_tp_model(model_config, args.tp_size, args.quantization)
         t0 = time.monotonic()
         self._followers = start_followers(args, model_config, run_follower)
         self._ctrl = ControlPlane(
             args.control_plane_addr, args.tp_size - 1, is_leader=True,
             watch=watch_processes(self._followers),
         )
-        self._ctrl.broadcast(("params", params))
+        self._ctrl.broadcast(("params", params_message(params)))
         self.tp_group = init_tp_group(args, 0, self._ctrl)
         self.scheduler = Scheduler(model_config, args, mesh=self.tp_group, params=params)
         runner = self.scheduler.runner

@@ -210,11 +210,10 @@ def test_extend_runs_unpadded_and_decode_pads_to_buckets(engines):
         dict(attention_backend="xla"),
         dict(enable_pp=True),  # fp8 weights, once here, are served since they were ported
         dict(kv_cache_dtype="int4"),  # not a kv_cache_dtype of the JAX package
-        dict(tp_size=2, quantization="w4a8"),  # tp 2 serves bf16 weights; 4-bit ones come later
     ],
-    # the ids these cases had beside the refusals of speculation and the
-    # memory extras, which are served now
-    ids=["setting0", "setting1", "setting2", "setting4", "setting6", "setting7"],
+    # the ids these cases had beside the refusals of speculation, the
+    # memory extras and quantized weights under tp, which are served now
+    ids=["setting0", "setting1", "setting2", "setting4", "setting6"],
 )
 def test_unported_settings_are_refused(setting):
     """Settings resolve() refuses: the paths the port does not have."""

@@ -116,7 +116,7 @@ def test_shards_join_to_the_single_device_state(tied, vocab):
 
 def test_a_tensor_without_a_layout_or_a_split_is_refused():
     with pytest.raises(KeyError, match="no tensor-parallel layout"):
-        shard_tensor("layers.0.gate_up.q", torch.zeros(4, 4), 0, TP)
+        shard_tensor("layers.0.gate_up.weight", torch.zeros(4, 4), 0, TP)  # no such tensor in the family
     with pytest.raises(ValueError, match="does not split"):
         shard_tensor("layers.0.wq.weight", torch.zeros(3, 4), 0, TP)
     assert shard_tensor("layers.0.wq.weight", torch.ones(3, 4), 0, 1).shape == (3, 4)
@@ -206,8 +206,9 @@ def test_rendezvous_addresses_resolve():
 @pytest.mark.parametrize(
     "setting, item",
     [
-        (dict(quantization="w4a8"), r"10\(b\)"),
-        (dict(quantization="fp8"), r"10\(b\)"),
+        # quantized weights are served since item 10(b): they resolve
+        (dict(quantization="w4a8"), None),
+        (dict(quantization="fp8"), None),
         (dict(speculative_algorithm="ngram"), r"10\(c\)"),
         (dict(host_kv_cache_tokens=4096), r"10\(c\)"),
         (dict(enable_param_offload=True), r"10\(c\)"),
@@ -216,6 +217,12 @@ def test_rendezvous_addresses_resolve():
     ids=["w4a8", "fp8", "speculation", "host-tier", "offload", "custom-processors"],
 )
 def test_tp_refuses_what_it_does_not_serve_yet(setting, item):
+    """Item 10(c)'s options are refused at tp 2, each naming its item; the
+    quantized weights of item 10(b) resolve."""
+    if item is None:
+        args = ServerArgs(preset="tiny-debug", device="cpu", tp_size=2, **setting).resolve()
+        assert (args.tp_size, args.quantization) == (2, setting["quantization"])
+        return
     with pytest.raises(NotImplementedError, match=f"tp_size=2 is not ported yet .*item {item}"):
         ServerArgs(preset="tiny-debug", device="cpu", tp_size=2, **setting).resolve()
 
